@@ -20,10 +20,17 @@ one CUDA card, and exits nonzero on any failure. Phases:
    shapes, and print them with the least time the card could take. A
    kernel's time is its own device time in the profiler's CUDA trace;
    its wrapper call (output zeroing and result slicing included) is
-   timed apart with CUDA events.
+   timed apart with CUDA events;
+6. TPC-H Q3 and Q10 at SF1 through ``Session.sql`` (the join-probe
+   kernels: exists on Q3's customer join, payload on Q10's nation join),
+   each equal to an exact int64 numpy recomputation, each through the
+   fused route, each equal to the same query with ``pallas_join`` off;
+   the wall time of a first and a second run; then the join probes are
+   timed as in phase 5, at the inputs this phase gave them.
 
-The last lines are the card's name and power limit, one JSON line
-``{"kernels": [...]}``, and ``{"ok": true, "device": {...}}``.
+The card's name and power limit come first and again before the last
+lines, which are one JSON line ``{"kernels": [...]}`` and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -40,9 +47,12 @@ import torch
 
 from presto_tpu_torch.batch import Batch, Column
 from presto_tpu_torch.connectors.tpch import TpchConnector
+from presto_tpu_torch.connectors.tpch.queries import QUERIES
 from presto_tpu_torch.expr import evaluate, evaluate_predicate
-from presto_tpu_torch.ops import _build, cuda_groupby, cuda_q1
+from presto_tpu_torch.ops import _build, cuda_groupby, cuda_join, cuda_q1
 from presto_tpu_torch.ops.groupby import group_ids_direct, lane_sum_inputs
+from presto_tpu_torch.runtime.metrics import COUNTERS
+from presto_tpu_torch.runtime.session import Session
 from presto_tpu_torch.types import DATE, decimal, varchar
 from presto_tpu_torch.workloads import (
     Q1_BITS, Q1_COLS, q1_aggs, q1_exprs, q1_fused_step, q1_pipeline)
@@ -51,6 +61,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 INT_OPS_PER_S = 67e12  # H100 SXM non-tensor 32-bit rate (the fp32 figure)
 FACTOR = 10  # resident batch = SF1 lineitem tiled this many times
 CUTOFF = 10471  # date '1998-09-02'
+I32MAX = (1 << 31) - 1
 
 
 def check(cond, msg: str) -> None:
@@ -190,6 +201,86 @@ def check_lane_kernel(rng) -> int:
     return err
 
 
+def _t(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).cuda()
+
+
+def probe_keys(rng, dtype, kmin: int, kmax: int, n: int, spread: int = 2000) -> np.ndarray:
+    """Probe keys around the domain and across its ends, with the ends,
+    their out-of-domain neighbours and the dtype's extremes planted."""
+    info = np.iinfo(dtype)
+    k = rng.integers(max(info.min, kmin - spread), min(info.max, kmax + spread), n,
+                     endpoint=True)
+    edges = [e for e in (kmin, kmax, kmin - 1, kmax + 1, info.min, info.max)
+             if info.min <= e <= info.max]
+    k[: len(edges)] = edges
+    return k.astype(dtype)
+
+
+def live_mask(rng, n: int) -> np.ndarray:
+    live = rng.random(n) < 0.85  # dead rows throughout
+    live[:6] = True  # the planted edge keys are live
+    return live
+
+
+def check_exists_kernel(rng) -> int:
+    err = 0
+    cases = [(dt, kmin, kmax, cap)
+             for dt, kmin, kmax in (("int8", -100, 100), ("int16", -3000, 20000),
+                                    ("int32", 1, 150000))
+             for cap in (1 << 16, 1 << 20, 1_000_003)]
+    cases += [("int32", -70000, 70000, 1 << 20),  # negative key_min
+              ("int32", I32MAX - 50000, I32MAX, 1_000_003),  # key_max = 2^31-1
+              ("int32", 0, 16384 * 32 - 1, 1 << 20)]  # a table at the exists budget
+    for dt, kmin, kmax, cap in cases:
+        bk = rng.integers(kmin, kmax, 5000, endpoint=True).astype(dt)
+        bk[:2] = [kmin, kmax]
+        blive = live_mask(rng, bk.shape[0])
+        table, oob = cuda_join.build_exists_table(_t(bk), _t(blive), kmin, kmax)
+        check(not bool(oob), "exists table: in-domain build flagged oob")
+        pk, plive = _t(probe_keys(rng, dt, kmin, kmax, cap)), _t(live_mask(rng, cap))
+        got = cuda_join.exists_probe(table, kmin, kmax, pk, plive)
+        want = cuda_join.exists_probe_plain(table, kmin, kmax, pk, plive)
+        torch.cuda.synchronize()
+        d = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        err = max(err, d)
+        check(d == 0, f"exists_probe {dt} [{kmin}, {kmax}] cap {cap}: differs from plain")
+        check(not bool(got[~plive].any()), f"exists_probe {dt} cap {cap}: a dead row matched")
+        log(f"  exists_probe {dt} [{kmin}, {kmax}] table {table.shape[0]} words cap {cap}: "
+            f"equal to plain, {int(got.sum())} hits")
+    return err
+
+
+def check_payload_kernel(rng) -> int:
+    err = 0
+    for nval in (1, 2, 3, 4):
+        for dt, kmin, kmax in (("int8", -60, 90), ("int16", -500, 2500),
+                               ("int32", I32MAX - 3000, I32MAX)):
+            for cap in (1 << 16, 1 << 20, 1_000_003):
+                bk = (rng.permutation(kmax - kmin + 1)[:400] + kmin).astype(dt)
+                blive = live_mask(rng, bk.shape[0])
+                vals = [rng.integers(-(1 << 31), 1 << 31, bk.shape[0]).astype(np.int32)]
+                vals += [rng.integers(-128, 128, bk.shape[0]).astype(np.int8)
+                         for _ in range(nval - 1)]
+                tables, oob = cuda_join.build_payload_tables(
+                    _t(bk), _t(blive), kmin, kmax, [_t(v) for v in vals])
+                check(not bool(oob), "payload tables: in-domain build flagged oob")
+                pk = _t(probe_keys(rng, dt, kmin, kmax, cap, spread=300))
+                plive = _t(live_mask(rng, cap))
+                gm, gv = cuda_join.payload_probe(tables, kmin, kmax, pk, plive)
+                wm, wv = cuda_join.payload_probe_plain(tables, kmin, kmax, pk, plive)
+                torch.cuda.synchronize()
+                for g, w in zip([gm] + gv, [wm] + wv):
+                    d = int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+                    err = max(err, d)
+                    check(d == 0, f"payload_probe nval {nval} {dt} cap {cap}: "
+                          "differs from plain")
+                check(not bool(gm[~plive].any()), "payload_probe: a dead row matched")
+            log(f"  payload_probe nval {nval} {dt} [{kmin}, {kmax}] caps 2^16, 2^20, "
+                "1000003: equal to plain")
+    return err
+
+
 # ---------------------------------------------------------------------------
 # phases 3-4: the main path
 # ---------------------------------------------------------------------------
@@ -213,6 +304,98 @@ def q1_expected(arrays) -> dict:
     return {"sum_qty": seg(qty), "sum_base_price": seg(ep),
             "sum_disc_price": seg(dp), "sum_charge": seg(ch),
             "count_order": np.bincount(gid, minlength=6).astype(np.int64)}
+
+
+def days(iso: str) -> int:
+    return int((np.datetime64(iso, "D") - np.datetime64("1970-01-01", "D")).astype(np.int64))
+
+
+def _lookup(sorted_keys: np.ndarray, keys: np.ndarray):
+    """(position in ``sorted_keys``, found) for each of ``keys``."""
+    if sorted_keys.size == 0:
+        return np.zeros(keys.shape, np.int64), np.zeros(keys.shape, bool)
+    pos = np.clip(np.searchsorted(sorted_keys, keys), 0, sorted_keys.size - 1)
+    return pos, sorted_keys[pos] == keys
+
+
+def _text(rows: np.ndarray) -> list:
+    return [bytes(r).rstrip(b"\x00").decode("latin1") for r in rows]
+
+
+def q3_expected(conn) -> dict:
+    """TPC-H Q3 recomputed in int64 numpy from the connector's arrays
+    (the semantics of ``presto_tpu/oracle/tpch_oracle.py`` q3, without
+    pandas): revenue as the scaled int64 sum(ep * (100 - disc)), groups
+    in key order, ties kept in that order by the sort."""
+    cut = days("1995-03-15")
+    c = conn.table_numpy("customer", ["c_custkey", "c_mktsegment"])
+    building = conn.dictionaries("customer")["c_mktsegment"].code_of("BUILDING")
+    cust = np.sort(c["c_custkey"][c["c_mktsegment"] == building])
+    o = conn.table_numpy("orders", ["o_orderkey", "o_custkey", "o_orderdate", "o_shippriority"])
+    om = (o["o_orderdate"] < cut) & _lookup(cust, o["o_custkey"])[1]
+    order = np.argsort(o["o_orderkey"][om])
+    ok = o["o_orderkey"][om][order]
+    od, op = o["o_orderdate"][om][order], o["o_shippriority"][om][order]
+    li = conn.table_numpy("lineitem", ["l_orderkey", "l_extendedprice", "l_discount",
+                                       "l_shipdate"])
+    lm = li["l_shipdate"] > cut
+    pos, hit = _lookup(ok, li["l_orderkey"][lm])
+    rev = (li["l_extendedprice"][lm][hit].astype(np.int64)
+           * (100 - li["l_discount"][lm][hit].astype(np.int64)))
+    sums = np.zeros(ok.size, np.int64)
+    np.add.at(sums, pos[hit], rev)
+    present = np.bincount(pos[hit], minlength=ok.size) > 0
+    keys, revs, dates, prio = ok[present], sums[present], od[present], op[present]
+    top = np.lexsort((keys, dates, -revs))[:10]
+    return {"l_orderkey": keys[top], "revenue": revs[top], "o_orderdate": dates[top],
+            "o_shippriority": prio[top]}
+
+
+def q10_expected(conn) -> dict:
+    """TPC-H Q10 recomputed in int64 numpy (``tpch_oracle.py`` q10's
+    semantics, without pandas); strings decoded as the engine decodes
+    them (BYTES zero padding stripped, latin-1)."""
+    lo, hi = days("1993-10-01"), days("1994-01-01")
+    o = conn.table_numpy("orders", ["o_orderkey", "o_custkey", "o_orderdate"])
+    om = (o["o_orderdate"] >= lo) & (o["o_orderdate"] < hi)
+    order = np.argsort(o["o_orderkey"][om])
+    ok, oc = o["o_orderkey"][om][order], o["o_custkey"][om][order]
+    li = conn.table_numpy("lineitem", ["l_orderkey", "l_extendedprice", "l_discount",
+                                       "l_returnflag"])
+    r = conn.dictionaries("lineitem")["l_returnflag"].code_of("R")
+    lm = li["l_returnflag"] == r
+    pos, hit = _lookup(ok, li["l_orderkey"][lm])
+    rev = (li["l_extendedprice"][lm][hit].astype(np.int64)
+           * (100 - li["l_discount"][lm][hit].astype(np.int64)))
+    custs, inv = np.unique(oc[pos[hit]], return_inverse=True)
+    sums = np.zeros(custs.size, np.int64)
+    np.add.at(sums, inv, rev)
+    top = np.lexsort((custs, -sums))[:20]
+    ccols = ["c_custkey", "c_name", "c_address", "c_nationkey", "c_phone", "c_acctbal",
+             "c_comment"]
+    c = conn.table_numpy("customer", ccols)
+    corder = np.argsort(c["c_custkey"])
+    cpos, chit = _lookup(c["c_custkey"][corder], custs[top])
+    check(bool(chit.all()), "Q10 oracle: an order's customer is missing")
+    row = corder[cpos]
+    n = conn.table_numpy("nation", ["n_nationkey", "n_name"])
+    npos, nhit = _lookup(np.sort(n["n_nationkey"]), c["c_nationkey"][row])
+    check(bool(nhit.all()), "Q10 oracle: a customer's nation is missing")
+    names = conn.dictionaries("nation")["n_name"].values
+    return {"c_custkey": custs[top], "c_name": _text(c["c_name"][row]), "revenue": sums[top],
+            "c_acctbal": c["c_acctbal"][row],
+            "n_name": list(names[n["n_name"][np.argsort(n["n_nationkey"])][npos]]),
+            "c_address": _text(c["c_address"][row]), "c_phone": _text(c["c_phone"][row]),
+            "c_comment": _text(c["c_comment"][row])}
+
+
+def same_result(res, want: dict, what: str) -> None:
+    """``res`` (a QueryResult) equals ``want`` exactly, column by column."""
+    check(res.names == list(want), f"{what}: columns {res.names} != {list(want)}")
+    for name, w in want.items():
+        got = res.column(name)
+        check(len(got) == len(w) and list(got) == list(w),
+              f"{what}: column {name} differs:\n{list(got)[:5]}\n{list(w)[:5]}")
 
 
 def resident_batch(arrays, phys, factor: int) -> Batch:
@@ -268,11 +451,144 @@ def device_ms(fn, runs: int, flush: torch.Tensor | None = None,
     return total_us / runs / 1e3
 
 
+def bound(nbytes, ops):
+    """Least time the card could take: bytes at the memory rate or
+    integer operations at the non-tensor rate, whichever is larger."""
+    b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT_OPS_PER_S * 1e3
+    return max(b_ms, o_ms), ("bytes" if b_ms >= o_ms else "operations")
+
+
+def wall_breakdown(session, conn, sql: str):
+    """(device busy ms, connector-scan s) of one more run of ``sql``:
+    the device time of every kernel and copy in the profiler's CUDA
+    trace, and the host time spent inside ``conn.scan`` (generation,
+    narrowing and the copy to the card; the scans run on the prefetch
+    thread, so they overlap the rest)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    scan_s = [0.0]
+    original = conn.scan
+
+    def timed_scan(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return original(*args, **kwargs)
+        finally:
+            scan_s[0] += time.perf_counter() - t0
+
+    conn.scan = timed_scan
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            session.sql(sql)
+            torch.cuda.synchronize()
+    finally:
+        del conn.scan
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages())
+    return busy_us / 1e3, scan_s[0]
+
+
+def run_join_queries(flush: torch.Tensor, sf: float = 1, device: str = "cuda") -> dict:
+    """Phase 6: Q3 and Q10 at SF1 through Session.sql, then the join
+    probes timed at the inputs the first runs gave them."""
+    conn = TpchConnector(sf=sf, device=device)
+    t0 = time.perf_counter()
+    want = {"q3": q3_expected(conn), "q10": q10_expected(conn)}
+    log(f"phase 6: numpy recomputation of Q3 and Q10 at SF1 in "
+        f"{time.perf_counter() - t0:.1f} s")
+    kernel_of = {"q3": ("exists", "exists_probe"), "q10": ("payload", "payload_probe")}
+    probe_batches = len(conn.splits("lineitem"))
+    captured, launches = {}, {}
+    originals = {name: getattr(cuda_join, name) for _, name in kernel_of.values()}
+
+    def capture(mode, name):
+        def wrapper(*args):
+            captured.setdefault(mode, args)  # the first call of the main path
+            return originals[name](*args)
+        return wrapper
+
+    for q, (mode, name) in kernel_of.items():
+        session = Session({"tpch": conn}, device=device)
+        setattr(cuda_join, name, capture(mode, name))
+        COUNTERS.clear()
+        cuda_join.exists_launches = cuda_join.payload_launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = session.sql(QUERIES[q])
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        n_exists, n_payload = cuda_join.exists_launches, cuda_join.payload_launches
+        route = dict(COUNTERS)
+        setattr(cuda_join, name, originals[name])
+        same_result(res, want[q], f"{q} at SF1")
+        check(route.get("exec.pallas_join_route", 0) == 1,
+              f"{q}: {route.get('exec.pallas_join_route', 0)} joins took the fused route, not 1")
+        check(route.get("join.pallas_fallback", 0) == 0,
+              f"{q}: {route.get('join.pallas_fallback')} fused-probe fallbacks")
+        # the fused join probes the lineitem stream: one launch per split
+        launches[mode] = n_exists if mode == "exists" else n_payload
+        check(launches[mode] == probe_batches and n_exists + n_payload == probe_batches,
+              f"{q}: {n_exists} exists and {n_payload} payload launches for "
+              f"{probe_batches} lineitem batches")
+        t0 = time.perf_counter()
+        again = session.sql(QUERIES[q])
+        torch.cuda.synchronize()
+        second = time.perf_counter() - t0
+        same_result(again, want[q], f"{q} at SF1, second run")
+        busy_ms, scan_s = wall_breakdown(session, conn, QUERIES[q])
+        COUNTERS.clear()
+        cuda_join.exists_launches = cuda_join.payload_launches = 0
+        off = Session({"tpch": conn}, properties={"pallas_join": False},
+                      device=device).sql(QUERIES[q])
+        check(COUNTERS["exec.pallas_join_route"] == 0 and cuda_join.exists_launches == 0
+              and cuda_join.payload_launches == 0, f"{q}: pallas_join off still probed fused")
+        same_result(off, want[q], f"{q} at SF1 with pallas_join off")
+        strategies = {k: v for k, v in route.items() if k.startswith(("join.", "agg."))}
+        log(f"  {q}: {len(res)} rows equal to numpy, with pallas_join off too; wall first "
+            f"{first:.3f} s, second {second:.3f} s; exists launches {n_exists}, payload "
+            f"launches {n_payload}; routes {strategies}")
+        log(f"  {q} breakdown (a third, profiled run): device busy {busy_ms:.1f} ms, "
+            f"connector scans (host generation + copy to the card) {scan_s:.3f} s")
+
+    out = {}
+    for mode, args in captured.items():
+        if mode == "exists":
+            table, kmin, kmax, keys, live = args
+            fn = lambda: cuda_join.exists_probe(table, kmin, kmax, keys, live)  # noqa: E731
+            plain = lambda: cuda_join.exists_probe_plain(table, kmin, kmax, keys, live)  # noqa: E731
+            nbytes = keys.numel() * (keys.element_size() + 2) + table.numel() * 4
+            extra = {"table": table.numel()}
+        else:
+            tables, kmin, kmax, keys, live = args
+            fn = lambda: cuda_join.payload_probe(tables, kmin, kmax, keys, live)  # noqa: E731
+            plain = lambda: cuda_join.payload_probe_plain(tables, kmin, kmax, keys, live)  # noqa: E731
+            nval = len(tables) - 1
+            nbytes = (keys.numel() * (keys.element_size() + 2 + 4 * nval)
+                      + sum(t.numel() * 4 for t in tables))
+            extra = {"table": sum(t.numel() for t in tables), "nval": nval}
+        got, wanted = fn(), plain()
+        got = [got] if isinstance(got, torch.Tensor) else [got[0]] + got[1]
+        wanted = [wanted] if isinstance(wanted, torch.Tensor) else [wanted[0]] + wanted[1]
+        err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+                  for g, w in zip(got, wanted))
+        check(err == 0, f"{mode} probe differs from plain at the main path's inputs")
+        kernel = "exists_kernel" if mode == "exists" else "payload_kernel"
+        out[mode] = {"ms": device_ms(fn, 50, flush, kernel=kernel), "call_ms": call_ms(fn, 50),
+                     "plain_ms": device_ms(plain, 10, flush), "rows": keys.numel(),
+                     "key": str(keys.dtype).replace("torch.", ""), "bytes": nbytes,
+                     "ops": 8 * keys.numel(), "launches": launches[mode], "err": err, **extra}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     dev_name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()
+    check(bool(smi), "nvidia-smi printed nothing")
+    log(f"card (name, power limit) for every number below: {smi[0]}")
     log(f"device: {dev_name} x{torch.cuda.device_count()}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
 
@@ -292,6 +608,8 @@ def main() -> int:
     log("phase 2: kernels against their plain versions (exact)")
     q1_err = check_q1_kernel(rng)
     lane_err = check_lane_kernel(rng)
+    exists_err = check_exists_kernel(rng)
+    payload_err = check_payload_kernel(rng)
 
     # ---- phase 3: resident Q1 at SF1 x10 ----------------------------------
     t0 = time.perf_counter()
@@ -406,10 +724,6 @@ def main() -> int:
     check(torch.equal(torch.stack(got[0] + got[1], dim=1), lib_out[:6]),
           "fused_lane_sums differs from the index_add_ library call")
 
-    def bound(nbytes, ops):
-        b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT_OPS_PER_S * 1e3
-        return max(b_ms, o_ms), ("bytes" if b_ms >= o_ms else "operations")
-
     q1_bound, q1_by = bound(q1_bytes, q1_ops)
     lane_bound, lane_by = bound(lane_bytes, lane_ops)
     log(f"phase 5 (kernel device ms; call = wrapper, events; plain and index_add_ = "
@@ -419,10 +733,18 @@ def main() -> int:
         f"{lane_lib_ms:.4f}, bound {lane_bound:.4f}) at {cap} rows, "
         f"{len(zeroed)} values + {len(masks)} masks")
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()
-    check(bool(smi), "nvidia-smi printed nothing")
+    join = run_join_queries(flush)
+    ex, pay = join["exists"], join["payload"]
+    exists_bound, exists_by = bound(ex["bytes"], ex["ops"])
+    payload_bound, payload_by = bound(pay["bytes"], pay["ops"])
+    log(f"phase 5, join probes at phase 6's inputs (kernel device ms; call = wrapper, "
+        f"events; plain = device ms of its kernels): exists_probe {ex['ms']:.4f} (call "
+        f"{ex['call_ms']:.4f}, plain {ex['plain_ms']:.4f}, bound {exists_bound:.4f}) at "
+        f"{ex['rows']} rows, {ex['key']} keys, {ex['table']} words; payload_probe "
+        f"{pay['ms']:.4f} (call {pay['call_ms']:.4f}, plain {pay['plain_ms']:.4f}, bound "
+        f"{payload_bound:.4f}) at {pay['rows']} rows, {pay['key']} keys, {pay['nval']} "
+        f"value(s) over {pay['table']} slots; no single PyTorch call computes either")
+
     log(smi[0])
     kernels = [
         {"name": "q1_step", "route": "cuda", "source": "presto_tpu_torch/csrc/q1.cu",
@@ -441,6 +763,21 @@ def main() -> int:
          "bound_ms": lane_bound,
          "bound_by": lane_by, "library_ms": lane_lib_ms, "rows": cap,
          "bytes": lane_bytes, "ops": lane_ops},
+        {"name": "exists_probe", "route": "cuda", "source": "presto_tpu_torch/csrc/join_probe.cu",
+         "replaces": "presto_tpu/ops/pallas_join.py:281",
+         "jax_function": "presto_tpu/ops/pallas_join.py:329 exists_probe",
+         "launches": ex["launches"], "max_abs_err": max(exists_err, ex["err"]), "ms": ex["ms"],
+         "kernel_ms": ex["ms"], "call_ms": ex["call_ms"], "plain_ms": ex["plain_ms"],
+         "bound_ms": exists_bound, "bound_by": exists_by, "library_ms": None,
+         "rows": ex["rows"], "bytes": ex["bytes"], "ops": ex["ops"]},
+        {"name": "payload_probe", "route": "cuda",
+         "source": "presto_tpu_torch/csrc/join_probe.cu",
+         "replaces": "presto_tpu/ops/pallas_join.py:305",
+         "jax_function": "presto_tpu/ops/pallas_join.py:372 payload_probe",
+         "launches": pay["launches"], "max_abs_err": max(payload_err, pay["err"]),
+         "ms": pay["ms"], "kernel_ms": pay["ms"], "call_ms": pay["call_ms"],
+         "plain_ms": pay["plain_ms"], "bound_ms": payload_bound, "bound_by": payload_by,
+         "library_ms": None, "rows": pay["rows"], "bytes": pay["bytes"], "ops": pay["ops"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev_name,

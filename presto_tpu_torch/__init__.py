@@ -2,8 +2,10 @@
 
 The JAX package ``presto_tpu`` is the reference; this package mirrors its
 module layout (``types``, ``batch``, ``spi``, ``connectors.tpch``,
-``expr``, ``ops``, ``exec``, ``workloads``) so each counterpart is found
-under the same name. It imports torch and numpy only. Every TPU (Pallas)
+``expr``, ``sql``, ``plan``, ``ops``, ``exec``, ``runtime``,
+``workloads``) so each counterpart is found under the same name. It
+imports torch and numpy only. ``runtime.session.Session.sql`` is the SQL
+entry point. Every TPU (Pallas)
 kernel on a ported path has a hand-written CUDA C++ counterpart under
 ``csrc/``, built with ``nvcc`` at first use (``ops/_build.py``).
 

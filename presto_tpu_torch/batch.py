@@ -13,6 +13,7 @@ constructor and every device move keeps that identity.
 
 from __future__ import annotations
 
+import bisect
 from typing import Iterator, Mapping, Sequence
 
 import numpy as np
@@ -43,6 +44,13 @@ class Dictionary:
     def code_of(self, s: str) -> int:
         """Exact code of ``s``; raises KeyError if absent."""
         return self._index[s]
+
+    def lower_bound(self, s: str) -> int:
+        """First code whose string is >= ``s`` (range predicates on codes)."""
+        return bisect.bisect_left(self.values.tolist(), s)
+
+    def decode(self, codes: np.ndarray) -> np.ndarray:
+        return self.values[np.asarray(codes)]
 
     def __repr__(self) -> str:
         return f"Dictionary({len(self)} values)"
@@ -105,6 +113,9 @@ class Batch:
 
     def with_live(self, live: torch.Tensor) -> "Batch":
         return Batch(self.columns, live)
+
+    def rename(self, mapping: Mapping[str, str]) -> "Batch":
+        return Batch({mapping.get(n, n): c for n, c in self.columns.items()}, self.live)
 
     def to(self, device) -> "Batch":
         """This batch on ``device``. ``live`` moves once, and every column
@@ -214,3 +225,76 @@ class Batch:
         cols = ", ".join(f"{n}:{c.dtype}" for n, c in self.columns.items())
         return f"Batch(cap={self.capacity}, [{cols}])"
 
+
+def decode_values(data: np.ndarray, valid: np.ndarray | None, dtype: DataType,
+                  dictionary: Dictionary | None = None, logical: bool = True) -> np.ndarray:
+    """Physical -> client value decode, the rules of the JAX package's
+    ``batch.decode_values``: VARCHAR codes decode through the dictionary,
+    BYTES strip their zero padding (latin-1), narrowed storage widens to
+    the canonical dtype, and with ``logical`` DECIMAL becomes float64 /
+    10^scale and DATE ``datetime64[D]``. NULL slots become None."""
+    t = dtype
+    if t.kind is TypeKind.VARCHAR and dictionary is not None:
+        vals = dictionary.decode(data).astype(object)
+    elif t.kind is TypeKind.BYTES:
+        vals = np.array([bytes(row).rstrip(b"\x00").decode("latin1") for row in data],
+                        dtype=object)
+    elif t.kind is TypeKind.DECIMAL and logical:
+        vals = data.astype(np.float64) / 10**t.scale
+    elif t.kind is TypeKind.DATE and logical:
+        vals = np.datetime64("1970-01-01", "D") + data.astype(np.int64)
+    else:
+        vals = data.astype(t.canonical_np_dtype) if t.is_narrowed else data
+    if valid is not None and not valid.all():
+        vals = np.asarray(vals, dtype=object)
+        vals[~np.asarray(valid)] = None
+    return vals
+
+
+class QueryResult:
+    """A query's rows on the host: column names plus numpy arrays.
+
+    ``column(name)`` holds the exact values (strings decoded, DECIMAL
+    still the scaled int64, DATE day numbers, NULLs None);
+    ``logical(name)`` the client decode of ``decode_values``. No pandas:
+    tests build frames from ``to_dict()`` themselves."""
+
+    def __init__(self, names, batches):
+        self.names = list(names)
+        self.types: dict[str, DataType] = {}
+        self._cols: dict[str, tuple] = {}
+        for name in self.names:
+            parts, valids = [], []
+            for b in batches:
+                live = b.live.cpu().numpy()
+                c = b[name]
+                parts.append(c.data.cpu().numpy()[live])
+                valids.append(np.ones(int(live.sum()), np.bool_) if c.valid is None
+                              else c.valid.cpu().numpy()[live])
+            c = batches[0][name] if batches else None
+            self.types[name] = c.dtype if c is not None else None
+            self._cols[name] = (parts, valids, c.dictionary if c is not None else None)
+
+    def __len__(self) -> int:
+        first = self._cols[self.names[0]][1] if self.names else []
+        return int(sum(len(v) for v in first))
+
+    def _decode(self, name: str, logical: bool) -> np.ndarray:
+        parts, valids, d = self._cols[name]
+        t = self.types[name]
+        if t is None:
+            return np.zeros(0, dtype=object)
+        data = np.concatenate(parts) if parts else np.zeros(0)
+        return decode_values(data, np.concatenate(valids), t, d, logical=logical)
+
+    def column(self, name: str) -> np.ndarray:
+        return self._decode(name, logical=False)
+
+    def logical(self, name: str) -> np.ndarray:
+        return self._decode(name, logical=True)
+
+    def to_dict(self, logical: bool = True) -> dict[str, np.ndarray]:
+        return {n: self._decode(n, logical) for n in self.names}
+
+    def __repr__(self) -> str:
+        return f"QueryResult({len(self)} rows, {self.names})"

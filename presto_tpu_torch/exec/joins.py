@@ -1,0 +1,250 @@
+"""Join operators: build side + lookup probe (unique builds).
+
+Counterpart of ``presto_tpu/exec/joins.py``. ``JoinBuildOperator``
+collects the build side and publishes its lookup source at ``finish()``:
+the sorted keys (``ops/join.build_lookup``), a dense direct-address table
+when the planner's stats bound the key domain, and the fused-probe
+tables of ``ops/cuda_join`` when the planner chose that route.
+``LookupJoinOperator`` probes each batch on the best published side:
+
+- ``pallas``: the join-probe kernels (the JAX package's name for the
+  route, kept so the plans and counters compare one to one);
+- ``dense``: one gather from the dense table;
+- ``unique``: a binary search in the sorted keys.
+
+Stats are advisory. A live build key outside the planned domain, or a
+NULL in a payload column, discards the fused tables at build time
+(``join.pallas_fallback``) and the probe takes the next side — counted,
+never wrong. Every route gives the same rows. Each probe operator
+counts its route once as ``join.strategy.<route>`` in
+``runtime.metrics.COUNTERS``, and the fused one also as
+``exec.pallas_join_route``.
+
+Ported join kinds: inner and left outer joins with unique build keys.
+Expansion joins (duplicate build keys), semi/anti joins, by-value verify
+pairs, FULL OUTER and the runtime Bloom filters are not ported yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Sequence
+
+import torch
+
+from presto_tpu_torch.batch import Batch, Column
+from presto_tpu_torch.exec.operators import (
+    CollectingOperator,
+    Operator,
+    concat_batches,
+    valid_of,
+)
+from presto_tpu_torch.expr import Expr, InputRef, evaluate
+from presto_tpu_torch.ops import cuda_join
+from presto_tpu_torch.ops.groupby import gather_padded
+from presto_tpu_torch.ops.join import (
+    I64_MAX,
+    build_dense,
+    build_lookup,
+    probe_unique,
+    probe_unique_dense,
+)
+from presto_tpu_torch.runtime.errors import NotSupported
+from presto_tpu_torch.runtime.metrics import COUNTERS
+from presto_tpu_torch.spi import batch_capacity
+
+
+class JoinBuildOperator(CollectingOperator):
+    """Collects the build side; ``finish()`` publishes the lookup source
+    (sorted keys + payload batch, and the dense and fused sides when
+    planned). The probe operator holds a reference to it."""
+
+    def __init__(
+        self,
+        key: Expr,
+        dense_domain: tuple[int, int] | None = None,
+        pallas: cuda_join.PallasJoinSpec | None = None,
+    ):
+        """``dense_domain``: optional (key_min, domain) from planner
+        stats — a dense direct-address table is built beside the sorted
+        keys; a live key outside it discards the dense side.
+
+        ``pallas``: the planner's fused-probe spec — the lookup tables
+        of ``ops/cuda_join`` are built beside the sorted side."""
+        super().__init__()
+        self.key = key
+        self.dense_domain = dense_domain
+        self.pallas = pallas
+        self.build_side = None
+        self.dense_side = None
+        self.pallas_side: tuple | None = None
+        self.payload: Batch | None = None
+        self.key_dict = None
+
+    def _eligible_pallas_spec(self, batch: Batch):
+        """The planner's spec is stats-based; storage is only visible
+        now. Payload columns must be 1-D integers of at most 32 bits
+        (the narrow scan representation) — anything else falls back."""
+        spec = self.pallas
+        if spec is not None and spec.mode == "payload":
+            for c in spec.payload:
+                data = batch[c].data if c in batch else None
+                if data is None or data.dim() != 1 or not cuda_join.key_dtype_ok(data.dtype):
+                    spec = None
+                    break
+        if spec is None and self.pallas is not None:
+            COUNTERS["join.pallas_fallback"] += 1
+            self.pallas = None
+        return spec
+
+    def finish(self) -> list[Batch]:
+        if not self.batches:
+            raise NotSupported("an empty join build side is not ported yet")
+        batch = concat_batches(self.batches)
+        v = evaluate(self.key, batch)
+        live = batch.live & valid_of(v.valid, batch.live)
+        side = build_lookup(v.data, live, batch_capacity(batch.capacity, minimum=16))
+        dd = self.dense_domain
+        dense = build_dense(v.data, live, dd[0], dd[1]) if dd else None
+        spec = self._eligible_pallas_spec(batch)
+        if spec is not None:
+            if spec.mode == "exists":
+                table, oob = cuda_join.build_exists_table(
+                    v.data, live, spec.key_min, spec.key_max)
+                tables, bad = (table,), oob
+            else:
+                # a live payload NULL has no slot in the value tables:
+                # discard the fused side rather than conjure a 0
+                cols = [batch[c] for c in spec.payload]
+                pnull = torch.stack([(live & ~valid_of(c.valid, live)).any() for c in cols]).any()
+                tables, oob = cuda_join.build_payload_tables(
+                    v.data, live, spec.key_min, spec.key_max, [c.data for c in cols])
+                bad = oob | pnull
+            if bool(bad):
+                COUNTERS["join.pallas_fallback"] += 1
+                self.pallas = None
+            else:
+                self.pallas_side = tables
+        if bool(side.sentinel_hit):
+            raise NotSupported(
+                f"a join build key equals the reserved int64 sentinel ({I64_MAX}); such "
+                "keys are indistinguishable from dead slots and would silently lose "
+                "their matches")
+        self.build_side = side
+        # dictionary provenance for the probe-side guard: dictionary
+        # codes are only comparable within ONE dictionary
+        self.key_dict = (batch[self.key.name].dictionary
+                         if isinstance(self.key, InputRef) and self.key.name in batch
+                         else None)
+        if dense is not None and not bool(dense.overflow):
+            self.dense_side = dense
+        self.payload = batch
+        return []
+
+
+@dataclass(frozen=True)
+class BuildOutput:
+    """One build-side payload column to emit: (source col, output name)."""
+
+    source: str
+    name: str
+
+
+class LookupJoinOperator(Operator):
+    """Probe operator for unique build keys (FK->PK joins): each probe
+    row matches at most one build row, so the output stays aligned with
+    the probe batch. join_type: inner | left."""
+
+    def __init__(self, build: JoinBuildOperator, probe_key: Expr,
+                 build_outputs: Sequence[BuildOutput] = (), join_type: str = "inner"):
+        if join_type not in ("inner", "left"):
+            raise NotSupported(f"{join_type} joins are not ported yet")
+        self.build = build
+        self.probe_key = probe_key
+        self.build_outputs = list(build_outputs)
+        self.join_type = join_type
+        self._strategy = None
+
+    def _record_strategy(self, name: str):
+        """Count the chosen probe strategy once per operator."""
+        if self._strategy is None:
+            self._strategy = name
+            COUNTERS[f"join.strategy.{name}"] += 1
+            if name == "pallas":
+                COUNTERS["exec.pallas_join_route"] += 1
+
+    def _pallas_usable(self, batch: Batch) -> bool:
+        """Per-batch routing: the build published fused tables AND this
+        batch's key is a narrow integer column. The kernels take any
+        capacity (the TPU kernels' capacity-block rule has no
+        counterpart)."""
+        build, spec = self.build, self.build.pallas
+        if build.pallas_side is None or spec is None:
+            return False
+        if spec.mode == "payload":
+            if spec.payload != tuple(bo.source for bo in self.build_outputs):
+                return False
+        elif self.join_type != "inner" or self.build_outputs:
+            return False
+        k = self.probe_key
+        return (isinstance(k, InputRef) and k.name in batch
+                and cuda_join.key_dtype_ok(batch[k.name].data.dtype))
+
+    def _pallas_probe(self, batch: Batch) -> Batch:
+        spec, tables = self.build.pallas, self.build.pallas_side
+        v = evaluate(self.probe_key, batch)
+        plive = batch.live & valid_of(v.valid, batch.live)
+        if spec.mode == "exists":
+            matched = cuda_join.exists_probe(tables[0], spec.key_min, spec.key_max,
+                                             v.data, plive)
+            return batch.with_live(batch.live & matched)
+        matched, vals = cuda_join.payload_probe(tables, spec.key_min, spec.key_max,
+                                                v.data, plive)
+        cols = dict(batch.columns)
+        for bo, pv in zip(self.build_outputs, vals):
+            src = self.build.payload[bo.source]
+            # payload NULL-freedom was proven at build, so validity is
+            # exactly the match mask
+            cols[bo.name] = Column(pv.to(src.data.dtype), matched, src.dtype, src.dictionary)
+        live = batch.live & matched if self.join_type == "inner" else batch.live
+        return Batch(cols, live)
+
+    def _check_probe_dict(self, batch: Batch):
+        """Joining code spaces of two DIFFERENT dictionaries would be
+        silently wrong: refuse."""
+        k = self.probe_key
+        if not (isinstance(k, InputRef) and k.name in batch):
+            return
+        pdict, bdict = batch[k.name].dictionary, self.build.key_dict
+        if pdict is not None and bdict is not None and pdict is not bdict:
+            raise NotSupported("join keys are encoded against different dictionaries; "
+                               "codes are not comparable across dictionaries")
+
+    def process(self, batch: Batch) -> list[Batch]:
+        build = self.build
+        if build.build_side is None:
+            raise RuntimeError("build side not finished")
+        self._check_probe_dict(batch)
+        if self._pallas_usable(batch):
+            self._record_strategy("pallas")
+            return [self._pallas_probe(batch)]
+        if build.pallas_side is not None:
+            # the build published fused tables but THIS batch cannot
+            # ride them (key storage): degrade loudly
+            COUNTERS["join.pallas_fallback"] += 1
+        v = evaluate(self.probe_key, batch)
+        plive = batch.live & valid_of(v.valid, batch.live)
+        if build.dense_side is not None:
+            self._record_strategy("dense")
+            res = probe_unique_dense(build.dense_side, v.data, plive)
+        else:
+            self._record_strategy("unique")
+            res = probe_unique(build.build_side, v.data, plive)
+        cols = dict(batch.columns)
+        for bo in self.build_outputs:
+            src = build.payload[bo.source]
+            data = gather_padded(src.data, res.build_row, 0)
+            valid = gather_padded(valid_of(src.valid, build.payload.live), res.build_row, False)
+            cols[bo.name] = Column(data, valid & res.matched, src.dtype, src.dictionary)
+        live = batch.live & res.matched if self.join_type == "inner" else batch.live
+        return [Batch(cols, live)]

@@ -1,4 +1,4 @@
-"""Physical operators over Batches (the Q1 pipeline's subset).
+"""Physical operators over Batches.
 
 Counterpart of ``presto_tpu/exec/operators.py``: push-style operators —
 ``process(batch) -> [Batch]`` then a ``finish() -> [Batch]`` cascade —
@@ -6,9 +6,11 @@ holding their state as device tensors. PyTorch runs eagerly, so each
 ``process`` call does its work directly; the JAX package's per-signature
 jit steps and executable cache have no counterpart.
 
-This slice ports ``FilterProjectOperator`` and ``HashAggregationOperator``
-with the direct-addressed strategy, whose update folds every integer sum,
-every count and group presence into one ``fused_small_sums`` pass.
+Ported: ``FilterProjectOperator``; ``HashAggregationOperator`` with the
+direct-addressed strategy (one ``fused_small_sums`` pass per batch) and
+the sort strategy with passengers (merge-by-sort into a bounded group
+state); ``OrderByOperator`` and ``TopNOperator`` over concatenated
+batches.
 """
 
 from __future__ import annotations
@@ -25,16 +27,35 @@ from presto_tpu_torch.ops.groupby import (
     ValueBitsOverflow,
     _identity,
     fused_small_sums,
+    gather_padded,
     group_ids_direct,
+    group_ids_sort,
     segment_agg,
 )
-from presto_tpu_torch.types import DataType
+from presto_tpu_torch.ops.sort import sort_indices
+from presto_tpu_torch.runtime.errors import NotSupported, ResourceExhausted
+from presto_tpu_torch.types import DataType, TypeKind
 
 
 class NullGroupKeys(RuntimeError):
     """A direct-addressed grouping met NULL key values at runtime: the
     packed-domain gid has no NULL slot, so the planner must retry with
     the sort strategy."""
+
+
+class CapacityOverflow(ResourceExhausted):
+    """An operator's static capacity was exceeded; the owning planner
+    loop re-plans with a larger one."""
+
+    def __init__(self, op: str, capacity: int, needed: int | None = None):
+        super().__init__(f"{op}: capacity {capacity} exceeded"
+                         + (f" (needed {needed})" if needed else ""))
+        self.op, self.capacity, self.needed = op, capacity, needed
+
+
+def valid_of(valid: torch.Tensor | None, like: torch.Tensor) -> torch.Tensor:
+    """A validity mask as a tensor (None means every row valid)."""
+    return torch.ones_like(like, dtype=torch.bool) if valid is None else valid
 
 
 class Operator:
@@ -70,6 +91,14 @@ class FilterProjectOperator(Operator):
         cols = {}
         for name, e in self.projections.items():
             v = evaluate(e, src)
+            if isinstance(v.data, str):
+                # a projected VARCHAR literal stays host-side until here:
+                # an output column becomes a one-entry dictionary column
+                cap, dev = batch.capacity, batch.device
+                cols[name] = Column(torch.zeros(cap, dtype=torch.int32, device=dev),
+                                    torch.ones(cap, dtype=torch.bool, device=dev),
+                                    e.dtype, Dictionary([v.data]))
+                continue
             cols[name] = Column(v.data, v.valid, v.dtype, v.dictionary)
         return [Batch(cols, live)]
 
@@ -103,6 +132,13 @@ class DirectStrategy:
     num_groups: int
 
 
+@dataclass(frozen=True)
+class SortStrategy:
+    """Merge-by-sort grouping with a static group capacity."""
+
+    max_groups: int
+
+
 def _phys_dtype(a: AggSpec) -> torch.dtype:
     if a.kind in ("count", "count_star"):
         return torch.int64
@@ -110,28 +146,31 @@ def _phys_dtype(a: AggSpec) -> torch.dtype:
 
 
 class HashAggregationOperator(Operator):
-    """Streaming grouped aggregation with device-resident state (the
-    direct-addressed strategy).
+    """Streaming grouped aggregation with device-resident state.
 
-    group_keys: list of (name, Expr) producing the key columns. This
-    slice ports the single phase: every batch's agg inputs are evaluated
-    and folded into the state.
+    group_keys: list of (name, Expr) producing the key columns;
+    passengers: (name, Expr) columns carried per group without grouping
+    on them (functionally determined by the keys; sort strategy only).
+    The port runs the single phase: every batch's agg inputs are
+    evaluated and folded into the state.
     """
 
     def __init__(
         self,
         group_keys: Sequence[tuple[str, Expr]],
         aggs: Sequence[AggSpec],
-        strategy: DirectStrategy,
+        strategy: DirectStrategy | SortStrategy,
+        passengers: Sequence[tuple[str, Expr]] = (),
         device="cuda",
     ):
-        if not isinstance(strategy, DirectStrategy):
-            raise NotImplementedError(
-                f"{type(strategy).__name__} is not ported to presto_tpu_torch "
-                "yet (only DirectStrategy)")
+        if not isinstance(strategy, (DirectStrategy, SortStrategy)):
+            raise NotSupported(f"{type(strategy).__name__} is not ported yet")
+        if isinstance(strategy, DirectStrategy) and passengers:
+            raise NotSupported("passenger keys need the sort strategy")
         self.group_keys = list(group_keys)
         self.aggs = list(aggs)
         self.strategy = strategy
+        self.passengers = list(passengers)
         self.state: dict[str, Any] | None = None
         #: where an empty state lives when finish() comes before any batch
         self.device = device
@@ -237,19 +276,101 @@ class HashAggregationOperator(Operator):
             state[a.name + "$n"] = torch.zeros(g, dtype=torch.int64, device=device)
         return state
 
+    # -- sort-merge path ---------------------------------------------------
+
+    def _sort_init(self, device):
+        g = self.strategy.max_groups
+        state: dict[str, Any] = {
+            "present": torch.zeros(g, dtype=torch.bool, device=device),
+            "overflow": torch.zeros((), dtype=torch.bool, device=device),
+        }
+        for name, e in self.group_keys:
+            if e.dtype.kind is TypeKind.BYTES:
+                raise NotSupported("grouping on BYTES keys is not ported yet")
+            state["keyv$" + name] = torch.zeros(g, dtype=torch.bool, device=device)
+            state["key$" + name] = torch.zeros(g, dtype=e.dtype.torch_dtype, device=device)
+        for name, e in self.passengers:
+            shape = (g, e.dtype.width) if e.dtype.kind is TypeKind.BYTES else (g,)
+            state["pax$" + name] = torch.zeros(shape, dtype=e.dtype.torch_dtype, device=device)
+            state["paxv$" + name] = torch.zeros(g, dtype=torch.bool, device=device)
+        for a in self.aggs:
+            dt = _phys_dtype(a)
+            state[a.name] = torch.full((g,), _identity(self._agg_kind(a), dt),
+                                       dtype=dt, device=device)
+            state[a.name + "$n"] = torch.zeros(g, dtype=torch.int64, device=device)
+            state[a.name + "$has"] = torch.zeros(g, dtype=torch.bool, device=device)
+        return state
+
+    def _sort_update_impl(self, state, batch: Batch):
+        """Fold a batch into the state by concatenating the state rows
+        (as a pseudo-batch) with the batch's rows, then re-grouping —
+        bounded memory, one multi-key sort per batch. NULL keys form
+        their own group: the data is zeroed under NULL and a validity
+        column joins the sort keys."""
+        g = self.strategy.max_groups
+        kvals = [evaluate(e, batch) for _name, e in self.group_keys]
+        pvals = [evaluate(e, batch) for _name, e in self.passengers]
+        inputs = self._eval_inputs(batch)
+        cat_sort, cat_keys, cat_valids = [], {}, {}
+        for (n, _e), v in zip(self.group_keys, kvals):
+            valid = valid_of(v.valid, batch.live)
+            cat_valids[n] = torch.cat([state["keyv$" + n], valid])
+            cat_sort.append(cat_valids[n].to(torch.int8))
+            kd = torch.where(valid, v.data, torch.zeros_like(v.data))
+            cat_keys[n] = torch.cat([state["key$" + n], kd.to(state["key$" + n].dtype)])
+            cat_sort.append(cat_keys[n])
+        cat_live = torch.cat([state["present"], batch.live])
+        gids, rep, ng, ovf = group_ids_sort(cat_sort, cat_live, g)
+
+        new = dict(state)
+        new["overflow"] = state["overflow"] | ovf
+        for n, _e in self.group_keys:
+            new["keyv$" + n] = gather_padded(cat_valids[n], rep, False)
+            new["key$" + n] = gather_padded(cat_keys[n], rep, 0)
+        for (n, _e), v in zip(self.passengers, pvals):
+            old = state["pax$" + n]
+            new["pax$" + n] = gather_padded(torch.cat([old, v.data.to(old.dtype)]), rep, 0)
+            new["paxv$" + n] = gather_padded(
+                torch.cat([state["paxv$" + n], valid_of(v.valid, batch.live)]), rep, False)
+        new["present"] = torch.arange(g, device=gids.device) < ng
+        for a, (vals, contrib) in zip(self.aggs, inputs):
+            dt = _phys_dtype(a)
+            cat_vals = torch.cat([state[a.name], vals.to(dt)])
+            cat_contrib = torch.cat([state[a.name + "$has"], contrib])
+            new[a.name] = segment_agg(cat_vals, cat_contrib, gids, g,
+                                      self._agg_kind(a)).to(dt)
+            cnt = torch.cat([state[a.name + "$n"], contrib.to(torch.int64)])
+            new[a.name + "$n"] = segment_agg(cnt, cat_live, gids, g, "sum")
+            new[a.name + "$has"] = new[a.name + "$n"] > 0
+        dicts = {name: v.dictionary for (name, _e), v in
+                 zip(self.group_keys + self.passengers, kvals + pvals)}
+        return new, dicts
+
     # -- operator protocol -------------------------------------------------
+
+    def _init(self, device):
+        if isinstance(self.strategy, DirectStrategy):
+            return self._direct_init(device)
+        return self._sort_init(device)
 
     def process(self, batch: Batch) -> list[Batch]:
         if self.state is None:
-            self.state = self._direct_init(batch.device)
-        self.state, self._dicts = self._direct_update_impl(self.state, batch)
+            self.state = self._init(batch.device)
+        if isinstance(self.strategy, DirectStrategy):
+            self.state, self._dicts = self._direct_update_impl(self.state, batch)
+        else:
+            self.state, self._dicts = self._sort_update_impl(self.state, batch)
         return []
 
     def finish(self) -> list[Batch]:
         """Emit one Batch of G rows (live = group present)."""
         if self.state is None:
-            self.state = self._direct_init(resolve_device(self.device))
+            self.state = self._init(resolve_device(self.device))
         st = self.state
+        if isinstance(self.strategy, SortStrategy):
+            if bool(st["overflow"]):
+                raise CapacityOverflow("HashAggregation", self.strategy.max_groups)
+            return [self._sort_output(st)]
         if bool(st["null_key"]):
             raise NullGroupKeys(
                 "direct-addressed grouping met NULL key values "
@@ -263,7 +384,6 @@ class HashAggregationOperator(Operator):
         g = self.strategy.num_groups
         dev = st["present"].device
         cols: dict[str, Column] = {}
-        live = st["present"]
         # decode gid -> key values
         rem = torch.arange(g, dtype=torch.int32, device=dev)
         for (name, e), m, s in zip(self.group_keys, self.strategy.mins,
@@ -273,10 +393,113 @@ class HashAggregationOperator(Operator):
             cols[name] = Column(code.to(e.dtype.torch_dtype),
                                 torch.ones(g, dtype=torch.bool, device=dev),
                                 e.dtype, self._dicts.get(name))
+        self._agg_columns(st, g, cols)
+        return [Batch(cols, st["present"])]
+
+    def _sort_output(self, st) -> Batch:
+        g = self.strategy.max_groups
+        cols: dict[str, Column] = {}
+        for name, e in self.group_keys:
+            cols[name] = Column(st["key$" + name], st["keyv$" + name], e.dtype,
+                                self._dicts.get(name))
+        for name, e in self.passengers:
+            cols[name] = Column(st["pax$" + name], st["paxv$" + name], e.dtype,
+                                self._dicts.get(name))
+        self._agg_columns(st, g, cols)
+        return Batch(cols, st["present"])
+
+    def _agg_columns(self, st, g: int, cols: dict) -> None:
+        dev = st["present"].device
         for a in self.aggs:
             valid = st[a.name + "$n"] > 0
             if a.kind in ("count", "count_star"):
                 valid = torch.ones(g, dtype=torch.bool, device=dev)
             data = torch.where(valid, st[a.name], torch.zeros_like(st[a.name]))
             cols[a.name] = Column(data.to(a.dtype.torch_dtype), valid, a.dtype)
-        return [Batch(cols, live)]
+
+
+# ---------------------------------------------------------------------------
+# Collecting operators: ordering
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class SortKey:
+    expr: Expr
+    descending: bool = False
+    nulls_first: bool = False
+
+
+class CollectingOperator(Operator):
+    """Base: buffers incoming batches (a host list of device batches)."""
+
+    def __init__(self):
+        self.batches: list[Batch] = []
+
+    def process(self, batch: Batch) -> list[Batch]:
+        self.batches.append(batch)
+        return []
+
+
+def concat_batches(batches: list[Batch]) -> Batch:
+    """Concatenate along rows. The output dictionary per column is the
+    first non-None one."""
+    first = batches[0]
+    if len(batches) == 1:
+        return first
+    cols = {}
+    for name in first.names:
+        d = next((b[name].dictionary for b in batches
+                  if b[name].dictionary is not None), None)
+        cols[name] = Column(
+            torch.cat([b[name].data for b in batches]),
+            torch.cat([valid_of(b[name].valid, b.live) for b in batches]),
+            first[name].dtype, d)
+    return Batch(cols, torch.cat([b.live for b in batches]))
+
+
+def _sorted_order(keys: Sequence[SortKey], batch: Batch) -> torch.Tensor:
+    vals = [evaluate(k.expr, batch) for k in keys]
+    return sort_indices(
+        [v.data for v in vals], [k.descending for k in keys], batch.live,
+        nulls_first=[k.nulls_first for k in keys],
+        valids=[v.valid for v in vals])
+
+
+class OrderByOperator(CollectingOperator):
+    """Full sort of the concatenated input."""
+
+    def __init__(self, keys: Sequence[SortKey]):
+        super().__init__()
+        self.keys = list(keys)
+
+    def finish(self) -> list[Batch]:
+        if not self.batches:
+            return []
+        batch = concat_batches(self.batches)
+        order = _sorted_order(self.keys, batch)
+        cols = {n: Column(c.data[order], valid_of(c.valid, batch.live)[order],
+                          c.dtype, c.dictionary)
+                for n, c in batch.columns.items()}
+        return [Batch(cols, batch.live[order])]
+
+
+class TopNOperator(CollectingOperator):
+    """Sort + limit with bounded output."""
+
+    def __init__(self, keys: Sequence[SortKey], n: int):
+        super().__init__()
+        self.keys = list(keys)
+        self.n = n
+
+    def finish(self) -> list[Batch]:
+        if not self.batches:
+            return []
+        batch = concat_batches(self.batches)
+        take = _sorted_order(self.keys, batch)[: self.n]
+        cols = {n: Column(gather_padded(c.data, take, 0),
+                          gather_padded(valid_of(c.valid, batch.live),
+                                        take, False),
+                          c.dtype, c.dictionary)
+                for n, c in batch.columns.items()}
+        return [Batch(cols, gather_padded(batch.live, take, False))]

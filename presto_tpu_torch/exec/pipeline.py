@@ -14,7 +14,7 @@ from __future__ import annotations
 import os
 import time
 from dataclasses import dataclass
-from typing import Iterable, Iterator, Sequence
+from typing import Callable, Iterable, Iterator, Sequence
 
 from presto_tpu_torch.batch import Batch
 from presto_tpu_torch.exec.operators import Operator
@@ -85,6 +85,31 @@ def prefetch_iter(load, items):
             fut = ex.submit(load, nxt)
             yield out
         yield fut.result()
+
+
+class BatchStream:
+    """A REPLAYABLE lazy batch stream — the executor's unit of data flow.
+
+    ``make_iter`` returns a fresh iterator on every call, so a retry loop
+    (capacity-overflow doubling) can re-drain the stream; replaying a
+    scan-rooted stream regenerates the data. Streams rooted at
+    materialized results wrap a list (replay is free)."""
+
+    def __init__(self, make_iter: Callable[[], Iterator[Batch]]):
+        self._make = make_iter
+
+    @classmethod
+    def of(cls, batches: Sequence[Batch]) -> "BatchStream":
+        return cls(lambda: iter(batches))
+
+    def __iter__(self) -> Iterator[Batch]:
+        return self._make()
+
+    def map(self, fn: Callable[[Batch], Batch]) -> "BatchStream":
+        return BatchStream(lambda: (fn(b) for b in self))
+
+    def materialize(self) -> list[Batch]:
+        return list(self)
 
 
 class Pipeline:

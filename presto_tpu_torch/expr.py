@@ -4,9 +4,13 @@ Counterpart of ``presto_tpu/expr.py``. Expressions are a small immutable
 IR evaluated eagerly over ``Batch`` columns; every evaluation returns
 ``Val(data, valid)`` so NULL handling is branch-free tensor math.
 
-This slice ports the functions TPC-H Q1 needs: ``add``, ``sub``, ``mul``
-and ``le`` over DECIMAL and DATE. A call to any other function raises
-``NotImplementedError`` naming it.
+The ported slices cover the functions TPC-H Q1, Q3 and Q10 need:
+``add``, ``sub``, ``mul`` over DECIMAL and DATE; the comparisons ``eq``,
+``lt``, ``le``, ``gt``, ``ge`` over numbers, dates and dictionary
+VARCHAR (a string literal is encoded against its peer column's
+dictionary; an absent literal matches nothing under ``eq``); and the
+Kleene ``and``. BYTES columns pass through untouched. A call to any
+other function raises ``NotSupported`` naming it.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from typing import Any, Callable
 import torch
 
 from presto_tpu_torch.batch import Batch, Dictionary
+from presto_tpu_torch.runtime.errors import NotSupported
 from presto_tpu_torch.types import (
     BOOLEAN,
     DOUBLE,
@@ -110,9 +115,15 @@ def register(name: str, type_rule: Callable):
 
 def _lookup(fn: str):
     if fn not in _REGISTRY:
-        raise NotImplementedError(
+        raise NotSupported(
             f"function {fn!r} is not ported to presto_tpu_torch yet")
     return _REGISTRY[fn]
+
+
+def result_type(fn: str, arg_types) -> DataType:
+    """The result type of ``fn`` over ``arg_types`` (the analyzer's
+    typing hook)."""
+    return _lookup(fn)[1](list(arg_types))
 
 
 # ---- type rules -----------------------------------------------------------
@@ -224,9 +235,22 @@ register("mul", _t_mul)(_mul_impl)
 
 
 def _cmp_physicals(a: Val, b: Val):
-    """Bring two comparable numeric or date Vals to a common physical
-    domain."""
+    """Bring two comparable Vals to a common physical domain. VARCHAR
+    codes compare within ONE ordered dictionary (literals were encoded
+    against it by ``_encode_string_literals``)."""
     ta, tb = a.dtype, b.dtype
+    if TypeKind.BYTES in (ta.kind, tb.kind):
+        raise NotSupported("comparisons over BYTES strings are not ported yet")
+    if TypeKind.VARCHAR in (ta.kind, tb.kind):
+        if (a.dictionary is not None and b.dictionary is not None
+                and a.dictionary is not b.dictionary):
+            raise ValueError(
+                "comparing VARCHAR columns from different dictionaries; "
+                "re-encode to a shared dictionary first")
+        if isinstance(a.data, str) or isinstance(b.data, str):
+            raise NotSupported("comparing a VARCHAR literal with a "
+                               "dictionary-less value is not ported yet")
+        return a.data, b.data
     t = common_super_type(ta, tb) if ta != tb else ta
     if t.kind is TypeKind.DECIMAL:
         s = max(ta.scale if ta.kind is TypeKind.DECIMAL else 0,
@@ -235,12 +259,56 @@ def _cmp_physicals(a: Val, b: Val):
     return _to_physical(a, t), _to_physical(b, t)
 
 
-@register("le", _t_bool)
-def _le(args: list[Val], out: DataType):
-    if {args[0].dtype.kind, args[1].dtype.kind} & {TypeKind.VARCHAR, TypeKind.BYTES}:
-        raise NotImplementedError("'le' over strings is not ported yet")
-    x, y = _cmp_physicals(args[0], args[1])
-    return x <= y, None
+def _cmp(op):
+    def impl(args: list[Val], out: DataType):
+        x, y = _cmp_physicals(args[0], args[1])
+        return op(x, y), None
+
+    return impl
+
+
+register("eq", _t_bool)(_cmp(lambda x, y: x == y))
+register("lt", _t_bool)(_cmp(lambda x, y: x < y))
+register("le", _t_bool)(_cmp(lambda x, y: x <= y))
+register("gt", _t_bool)(_cmp(lambda x, y: x > y))
+register("ge", _t_bool)(_cmp(lambda x, y: x >= y))
+
+
+@register("and", _t_bool)
+def _and(args: list[Val], out: DataType):
+    """Kleene AND: FALSE dominates NULL; data is "definitely true"."""
+    a, b = args
+    true_a, true_b = a.valid & a.data, b.valid & b.data
+    false_a, false_b = a.valid & ~a.data, b.valid & ~b.data
+    return true_a & true_b, (a.valid & b.valid) | false_a | false_b
+
+
+def _encode_string_literals(fn: str, args: list[Val]) -> list[Val]:
+    """Encode host-side VARCHAR literals against a sibling's dictionary
+    (the JAX package's rule). Codes are string order, so a literal
+    absent from the dictionary maps to its insertion point for the
+    range comparisons and to the impossible code ``len(dictionary)``
+    for ``eq``: it matches nothing."""
+    dictionary = next((a.dictionary for a in args if a.dictionary is not None), None)
+    if dictionary is None:
+        return args
+    cap, dev = next((a.data.shape[0], a.data.device) for a in args
+                    if a.dictionary is not None)
+    out = []
+    for a in args:
+        if a.dtype.kind is TypeKind.VARCHAR and isinstance(a.data, str):
+            code = dictionary._index.get(a.data)
+            if code is None:
+                if fn in ("lt", "ge"):  # x < s  ==  code < lb(s)
+                    code = dictionary.lower_bound(a.data)
+                elif fn in ("le", "gt"):  # x <= s  ==  code <= lb(s) - 1
+                    code = dictionary.lower_bound(a.data) - 1
+                else:
+                    code = len(dictionary)
+            a = Val(torch.full((cap,), code, dtype=torch.int32, device=dev),
+                    torch.ones(cap, dtype=torch.bool, device=dev), a.dtype, dictionary)
+        out.append(a)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -260,9 +328,11 @@ def evaluate(expr: Expr, batch: Batch) -> Val:
     if isinstance(expr, Literal):
         cap, dev = batch.capacity, batch.device
         t = expr.dtype
-        if t.kind in (TypeKind.VARCHAR, TypeKind.BYTES):
-            raise NotImplementedError(
-                f"{t} literals are not ported to presto_tpu_torch yet")
+        if t.kind is TypeKind.BYTES:
+            raise NotSupported(f"{t} literals are not ported to presto_tpu_torch yet")
+        if t.kind is TypeKind.VARCHAR and expr.value is not None:
+            # stays host-side; encoded lazily against the peer dictionary
+            return Val(expr.value, None, t, None)
         if expr.value is None:
             return Val(torch.zeros(cap, dtype=t.torch_dtype, device=dev),
                        torch.zeros(cap, dtype=torch.bool, device=dev), t)
@@ -271,7 +341,7 @@ def evaluate(expr: Expr, batch: Batch) -> Val:
         return Val(data, torch.ones(cap, dtype=torch.bool, device=dev), t)
     if isinstance(expr, Call):
         impl, _rule = _lookup(expr.fn)
-        args = [evaluate(a, batch) for a in expr.args]
+        args = _encode_string_literals(expr.fn, [evaluate(a, batch) for a in expr.args])
         data, valid = impl(args, expr.dtype)
         if valid is None:
             for a in args:

@@ -1,9 +1,9 @@
-"""Grouping: row -> group-id assignment + small-group segment aggregation.
+"""Grouping: row -> group-id assignment + segment aggregation.
 
-Counterpart of ``presto_tpu/ops/groupby.py`` (the direct-addressed part
-this slice needs): ``group_ids_direct``, ``fused_small_sums`` and the
-small-group ``segment_agg``. Dead rows go to one extra "trash" group
-(``max_groups``), and integer sums are int64-exact.
+Counterpart of ``presto_tpu/ops/groupby.py``: ``group_ids_direct`` and
+``group_ids_sort`` assign group ids, ``fused_small_sums`` and
+``segment_agg`` fold values per group. Dead rows go to one extra
+"trash" group (``max_groups``), and integer sums are int64-exact.
 
 ``fused_small_sums`` takes the lane-sums kernel (``ops/cuda_groupby``)
 exactly where the JAX package takes its Pallas route — integer values
@@ -17,10 +17,6 @@ import torch
 
 from presto_tpu_torch.ops import cuda_groupby
 from presto_tpu_torch.runtime.errors import InternalError
-
-# Group counts at or below this take the scatter-free paths of the JAX
-# package; the port keeps the name for the same decisions.
-SMALL_GROUP_LIMIT = 32
 
 _INT_BITS = {torch.int8: 8, torch.int16: 16, torch.int32: 32, torch.int64: 64}
 
@@ -60,6 +56,62 @@ def group_ids_direct(key_cols, mins, strides, live, num_groups: int):
     return gid.to(torch.int32), present[:num_groups]
 
 
+def gather_padded(arr: torch.Tensor, idx: torch.Tensor, fill) -> torch.Tensor:
+    """``arr[idx]`` along dim 0, with an out-of-range idx (>= len)
+    giving ``fill``; 2-D (BYTES) rows fill whole."""
+    cap = arr.shape[0]
+    picked = arr[torch.clamp(idx, max=cap - 1).to(torch.int64)]
+    ok = idx < cap
+    if picked.dim() > 1:
+        ok = ok[:, None]
+    return torch.where(ok, picked, torch.full_like(picked, fill))
+
+
+def stable_argsort(k: torch.Tensor) -> torch.Tensor:
+    """Stable ascending argsort (bool keys sort as uint8: False first)."""
+    if k.dtype == torch.bool:
+        k = k.to(torch.uint8)
+    return torch.argsort(k, stable=True)
+
+
+def group_ids_sort(key_cols, live, max_groups: int):
+    """Sort-based gids for arbitrary 1-D keys (the JAX package's
+    algorithm, so groups come out in the same order).
+
+    Returns (gids[cap], rep_idx[max_groups], ngroups, overflow):
+    - gids: per-row group id in [0, max_groups) for live rows,
+      ``max_groups`` (trash) for dead rows;
+    - rep_idx: original row index of each group's first member in sort
+      order (sentinel ``cap`` for unused slots);
+    - overflow: True when distinct live keys exceeded max_groups.
+    """
+    cap = live.shape[0]
+    dev = live.device
+    order = torch.arange(cap, device=dev)
+    for k in reversed(list(key_cols)):
+        order = order[stable_argsort(k[order])]
+    # liveness is the most significant key: live rows first
+    order = order[stable_argsort(~live[order])]
+    sl = live[order]
+    boundary = ~sl[:-1]
+    for k in key_cols:
+        ks = k[order]
+        boundary = boundary | (ks[1:] != ks[:-1])
+    newgrp = torch.cat([sl[:1], boundary & sl[1:]])
+    ngroups = newgrp.sum()
+    gid_sorted = torch.cumsum(newgrp.to(torch.int32), 0, dtype=torch.int32) - 1
+    gid_sorted = torch.where(sl, torch.clamp(gid_sorted, max=max_groups),
+                             torch.full_like(gid_sorted, max_groups))
+    gids = torch.empty(cap, dtype=torch.int32, device=dev)
+    gids[order] = gid_sorted
+    # each group's first sorted position -> its original row; positions
+    # that start no group scatter into the trash slot
+    slot = torch.where(newgrp, gid_sorted, torch.full_like(gid_sorted, max_groups))
+    rep = torch.full((max_groups + 1,), cap, dtype=torch.int64, device=dev)
+    rep.scatter_(0, slot.to(torch.int64), order)
+    return gids, rep[:max_groups], ngroups, ngroups > max_groups
+
+
 # ---------------------------------------------------------------------------
 # segment aggregation
 # ---------------------------------------------------------------------------
@@ -74,16 +126,12 @@ def _identity(kind: str, dtype: torch.dtype):
 
 
 def segment_agg(values, contrib, gids, max_groups: int, kind: str):
-    """Aggregate ``values`` per group, for at most SMALL_GROUP_LIMIT groups.
+    """Aggregate ``values`` per group.
 
     contrib: bool mask of rows that contribute (live AND value-valid).
     kind: 'sum' | 'count' | 'min' | 'max'. Integer sums come back int64
     (exact); groups with no contributing rows yield the kind's identity.
     """
-    if max_groups > SMALL_GROUP_LIMIT:
-        raise NotImplementedError(
-            f"segment_agg over {max_groups} groups (> {SMALL_GROUP_LIMIT}) "
-            "is not ported to presto_tpu_torch yet")
     dev = contrib.device
     g = torch.where(contrib, gids.to(torch.int64),
                     torch.full_like(gids, max_groups, dtype=torch.int64))

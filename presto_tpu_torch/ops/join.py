@@ -1,0 +1,97 @@
+"""Join kernels in plain PyTorch: sorted build + search probe, dense table.
+
+Counterpart of ``presto_tpu/ops/join.py`` (the unique-build part): the
+lookup source is a sorted int64 key array plus a row-index permutation,
+probed with ``torch.searchsorted``; where connector stats bound the key
+domain, a dense direct-address row table makes the probe one gather.
+Dead build slots carry the int64 maximum as a sentinel, so a LIVE key
+equal to it is flagged (``sentinel_hit``) and the join build refuses it.
+The expansion probe for duplicate build keys (``probe_expand``), the
+semi-join membership probes and the packed single-gather build are not
+ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from presto_tpu_torch.ops.groupby import gather_padded, stable_argsort
+
+I64_MAX = torch.iinfo(torch.int64).max
+
+
+class BuildSide(NamedTuple):
+    """A sorted, compacted build side (the lookup source)."""
+
+    sorted_keys: torch.Tensor  # [build_cap] int64, dead slots = I64_MAX
+    row_idx: torch.Tensor  # [build_cap] original row index (cap = dead)
+    sentinel_hit: torch.Tensor  # 0-d bool: a LIVE key equals I64_MAX
+
+
+def build_lookup(keys: torch.Tensor, live: torch.Tensor, build_capacity: int) -> BuildSide:
+    """Compact live rows and sort them by key (stable) into
+    ``build_capacity`` >= len(keys) slots."""
+    cap = keys.shape[0]
+    k0 = keys.to(torch.int64)
+    sentinel_hit = (live & (k0 == I64_MAX)).any()
+    k = torch.where(live, k0, torch.full_like(k0, I64_MAX))
+    order = stable_argsort(k)
+    take = torch.arange(build_capacity, device=keys.device)
+    sorted_keys = gather_padded(k[order], take, I64_MAX)
+    row_idx = gather_padded(order, take, cap)
+    row_idx = torch.where(sorted_keys == I64_MAX, torch.full_like(row_idx, cap), row_idx)
+    return BuildSide(sorted_keys, row_idx, sentinel_hit)
+
+
+class UniqueProbe(NamedTuple):
+    build_row: torch.Tensor  # [probe_cap] build-side original row (cap = miss)
+    matched: torch.Tensor  # [probe_cap] bool
+
+
+def probe_unique(build: BuildSide, probe_keys: torch.Tensor,
+                 probe_live: torch.Tensor) -> UniqueProbe:
+    """FK->PK probe: each probe row matches at most one build row; the
+    output is aligned with the probe batch (no expansion)."""
+    pk = probe_keys.to(torch.int64)
+    pos = torch.searchsorted(build.sorted_keys, pk)
+    hit = gather_padded(build.sorted_keys, pos, I64_MAX)
+    matched = (hit == pk) & probe_live & (pk != I64_MAX)
+    miss = build.row_idx.shape[0]
+    row = gather_padded(build.row_idx, pos, 0)
+    return UniqueProbe(torch.where(matched, row, torch.full_like(row, miss)), matched)
+
+
+class DenseSide(NamedTuple):
+    """Dense direct-address lookup table over a bounded key domain."""
+
+    table: torch.Tensor  # [domain] int32: build row, sentinel = miss
+    key_min: int
+    sentinel: int  # the build batch capacity
+    overflow: torch.Tensor  # 0-d bool: a live key fell outside the domain
+
+
+def build_dense(keys: torch.Tensor, live: torch.Tensor, key_min: int, domain: int) -> DenseSide:
+    """One scatter builds the table; duplicate keys keep one row
+    (callers use the row payload only when build keys are unique —
+    existence tests are right regardless)."""
+    cap = keys.shape[0]
+    slot = keys.to(torch.int64) - key_min
+    in_range = (slot >= 0) & (slot < domain)
+    ok = live & in_range
+    table = torch.full((domain + 1,), cap, dtype=torch.int32, device=keys.device)
+    table.scatter_(0, torch.where(ok, slot, torch.full_like(slot, domain)),
+                   torch.arange(cap, dtype=torch.int32, device=keys.device))
+    return DenseSide(table[:domain], int(key_min), cap, (live & ~in_range).any())
+
+
+def probe_unique_dense(dense: DenseSide, probe_keys: torch.Tensor,
+                       probe_live: torch.Tensor) -> UniqueProbe:
+    """FK->PK probe against a dense table: one gather, no sort."""
+    domain = dense.table.shape[0]
+    slot = probe_keys.to(torch.int64) - dense.key_min
+    inr = (slot >= 0) & (slot < domain) & probe_live
+    row = dense.table[torch.clamp(slot, 0, domain - 1)]
+    row = torch.where(inr, row, torch.full_like(row, dense.sentinel))
+    return UniqueProbe(row, row != dense.sentinel)

@@ -1,0 +1,97 @@
+"""Column pruning over the logical plan.
+
+Counterpart of ``presto_tpu/plan/prune.py`` for the ported node kinds:
+each node produces only what its parent consumes, so the TPC-H
+connector never generates an unscanned column and it never occupies
+device memory.
+"""
+
+from __future__ import annotations
+
+from dataclasses import replace
+
+from presto_tpu_torch.expr import Call, Expr, InputRef
+from presto_tpu_torch.plan import nodes as N
+from presto_tpu_torch.runtime.errors import NotSupported
+
+
+def expr_refs(e: Expr, out: set[str]):
+    if isinstance(e, InputRef):
+        out.add(e.name)
+    elif isinstance(e, Call):
+        for a in e.args:
+            expr_refs(a, out)
+
+
+def _refs(exprs) -> set[str]:
+    out: set[str] = set()
+    for e in exprs:
+        if e is not None:
+            expr_refs(e, out)
+    return out
+
+
+def prune(node: N.PlanNode, needed: set[str] | None = None) -> N.PlanNode:
+    """Rewrite the tree so each node produces only what its parent
+    consumes. ``needed=None`` means "all fields" (root)."""
+    if isinstance(node, N.Output):
+        child = prune(node.child, set(node.sources))
+        return replace(node, child=child)
+    if isinstance(node, N.Project):
+        exprs = node.exprs
+        if needed is not None:
+            exprs = tuple((n, e) for n, e in exprs if n in needed)
+        child = prune(node.child, _refs(e for _, e in exprs))
+        return N.Project(child, exprs)
+    if isinstance(node, N.Filter):
+        want = set(needed) if needed is not None else set(node.field_names())
+        want |= _refs([node.predicate])
+        return N.Filter(prune(node.child, want), node.predicate)
+    if isinstance(node, N.Aggregate):
+        keys = node.keys
+        pax = node.passengers
+        aggs = node.aggs
+        if needed is not None:
+            pax = tuple((n, e) for n, e in pax if n in needed)
+            aggs = tuple(a for a in aggs if a.name in needed)
+        want = _refs([e for _, e in keys] + [e for _, e in pax]
+                     + [a.input for a in aggs])
+        child = prune(node.child, want)
+        return N.Aggregate(child, keys, aggs, pax, node.unique_sets)
+    if isinstance(node, N.Join):
+        want = set(needed) if needed is not None else set(node.field_names())
+        left_fields = {f.name for f in node.left.fields}
+        right_fields = {f.name for f in node.right.fields}
+        out_right = tuple(n for n in node.output_right if n in want)
+        lneed = (want & left_fields) | _refs(node.left_keys)
+        rneed = set(out_right) | _refs(node.right_keys)
+        return N.Join(
+            prune(node.left, lneed), prune(node.right, rneed), node.kind,
+            node.left_keys, node.right_keys, node.unique, out_right,
+        )
+    if isinstance(node, (N.Sort, N.TopN)):
+        want = set(needed) if needed is not None else set(node.field_names())
+        want |= _refs([k.expr for k in node.keys])
+        return replace(node, child=prune(node.child, want))
+    if isinstance(node, N.Limit):
+        return replace(node, child=prune(node.child, needed))
+    if isinstance(node, N.TableScan):
+        cols = node.columns
+        types = node.types
+        if needed is not None:
+            want = set(needed) | _refs([node.predicate])
+            kept = [(c, t) for c, t in zip(cols, types) if c[0] in want]
+            if not kept:  # count(*)-style: keep the narrowest column
+                kept = [min(zip(cols, types), key=lambda ct: _width(ct[1]))]
+            cols = tuple(c for c, _ in kept)
+            types = tuple(t for _, t in kept)
+        return replace(node, columns=cols, types=types)
+    raise NotSupported(f"prune: {type(node).__name__} is not ported yet")
+
+
+def _width(t) -> int:
+    from presto_tpu_torch.types import TypeKind
+
+    if t.kind is TypeKind.BYTES:
+        return t.width
+    return t.np_dtype.itemsize

@@ -1,4 +1,4 @@
-"""Typed error taxonomy (the subset the ported slice raises).
+"""Typed error taxonomy (the subset the ported slices raise).
 
 Counterpart of ``presto_tpu/runtime/errors.py``: every failure carries a
 typed error code and a retry class. ``UserError`` subclasses
@@ -41,5 +41,15 @@ class InternalError(PrestoError, RuntimeError):
     build or launch failure. Not retryable by default."""
 
     error_code = "GENERIC_INTERNAL_ERROR"
+    retryable = False
+
+
+class NotSupported(PrestoError, NotImplementedError):
+    """A construct the port does not cover yet (an SQL form, a plan
+    node, a join or aggregation shape outside the ported slices). The
+    message names the construct. ``NotImplementedError`` ancestry keeps
+    callers catching the stdlib type working."""
+
+    error_code = "NOT_SUPPORTED"
     retryable = False
 

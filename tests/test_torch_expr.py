@@ -15,7 +15,7 @@ import presto_tpu_torch.expr as PE
 import presto_tpu_torch.workloads as PW
 from presto_tpu.batch import Batch as JBatch
 from presto_tpu.batch import Column as JColumn
-from presto_tpu_torch.types import BOOLEAN, decimal
+from presto_tpu_torch.types import BOOLEAN, decimal, varchar
 from torch_bridge import assert_same, port_batch
 
 CAP = 1 << 12
@@ -83,6 +83,54 @@ def test_rescale_rounds_half_away_on_negatives():
 
 def test_unported_function_raises_naming_it():
     pb = port_batch(_jax_batch(np.random.default_rng(0), False))
-    e = PE.Call(BOOLEAN, "eq", (PE.col("l_tax", decimal(12, 2)), PE.lit(0, decimal(12, 2))))
-    with pytest.raises(NotImplementedError, match="'eq'"):
+    e = PE.Call(BOOLEAN, "ne", (PE.col("l_tax", decimal(12, 2)), PE.lit(0, decimal(12, 2))))
+    with pytest.raises(NotImplementedError, match="'ne'"):
         PE.evaluate(e, pb)
+
+
+VARCHAR_LITERALS = ["A", "N", "R", "B", "", "Z"]  # present; absent between, before, after
+
+
+@pytest.mark.parametrize("fn", ["eq", "lt", "le", "gt", "ge"])
+@pytest.mark.parametrize("literal", VARCHAR_LITERALS)
+def test_varchar_literal_comparisons_match_reference(fn, literal):
+    """A dictionary VARCHAR column against a literal, present or absent
+    from the dictionary (``l_returnflag = 'R'`` and its neighbours): the
+    literal maps to its code, an absent one matches nothing under eq."""
+    from presto_tpu.batch import Dictionary as JDictionary
+
+    rng = np.random.default_rng(4)
+    jb = _jax_batch(rng, False)
+    d = JDictionary(["A", "N", "R"])
+    col = jb["l_returnflag"]
+    jb = JBatch({**jb.columns, "l_returnflag": JColumn(col.data, col.valid, col.dtype, d)},
+                jb.live)
+    pb = port_batch(jb)
+    je = JE.Call(JT.BOOLEAN, fn, (JE.col("l_returnflag", JT.varchar()),
+                                  JE.lit(literal, JT.varchar())))
+    pe = PE.Call(BOOLEAN, fn, (PE.col("l_returnflag", varchar()), PE.lit(literal, varchar())))
+    assert_same(PE.evaluate_predicate(pe, pb), JE.evaluate_predicate(je, jb), f"{fn} {literal!r}")
+
+
+@pytest.mark.parametrize("fn", ["lt", "gt", "ge", "and"])
+def test_date_comparisons_and_kleene_and_match_reference(fn):
+    """``o_orderdate < date '1995-03-15'`` and friends on narrow DATE
+    storage, and ``and`` over two such predicates."""
+    rng = np.random.default_rng(6)
+    jb = _jax_batch(rng, False)
+    pb = port_batch(jb)
+
+    def pred(E, T, f, iso):
+        return E.Call(T.BOOLEAN, f, (E.col("l_shipdate", T.DATE), E.lit(iso, T.DATE)))
+
+    import presto_tpu_torch.types as PT
+
+    if fn == "and":
+        je = JE.Call(JT.BOOLEAN, "and", (pred(JE, JT, "ge", "1994-01-01"),
+                                         pred(JE, JT, "lt", "1995-03-15")))
+        pe = PE.Call(PT.BOOLEAN, "and", (pred(PE, PT, "ge", "1994-01-01"),
+                                         pred(PE, PT, "lt", "1995-03-15")))
+    else:
+        je, pe = pred(JE, JT, fn, "1995-03-15"), pred(PE, PT, fn, "1995-03-15")
+    got, want = PE.evaluate(pe, pb), JE.evaluate(je, jb)
+    assert_same(got.data & got.valid, want.data & want.valid, fn)

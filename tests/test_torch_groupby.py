@@ -160,3 +160,39 @@ def test_segment_agg_matches_reference(kind):
     got = PG.segment_agg(torch.from_numpy(vals), torch.from_numpy(contrib),
                          torch.from_numpy(g), G, kind)
     assert_same(got, want)
+
+
+@pytest.mark.parametrize("max_groups", [64, 4096])
+def test_group_ids_sort_matches_reference(max_groups):
+    """Sort-based gids over two keys (one a validity flag, as the sort
+    aggregation feeds them), dead rows, and a capacity that overflows."""
+    rng = np.random.default_rng(13)
+    k1 = rng.integers(0, 2, CAP).astype(np.int8)
+    k2 = rng.integers(-300, 300, CAP).astype(np.int64)
+    live = rng.random(CAP) < 0.8
+    want = JG.group_ids_sort([jnp.asarray(k1), jnp.asarray(k2)], jnp.asarray(live), max_groups)
+    got = PG.group_ids_sort([torch.from_numpy(k1), torch.from_numpy(k2)],
+                            torch.from_numpy(live), max_groups)
+    assert_same(got[0], want[0], "gids")
+    assert_same(got[1], want[1], "rep_idx")
+    assert int(got[2]) == int(want[2]) and bool(got[3]) == bool(want[3]) == (max_groups == 64)
+
+
+@pytest.mark.parametrize("nulls_first", [False, True])
+def test_sort_indices_matches_reference(nulls_first):
+    """Stable multi-key order with DESC, NULL placement and dead rows:
+    ties keep their input order (TopN's tie rule)."""
+    from presto_tpu.ops import sort as JS
+    from presto_tpu_torch.ops import sort as PS
+
+    rng = np.random.default_rng(14)
+    a = rng.integers(-5, 5, CAP).astype(np.int64)
+    b = rng.integers(0, 3, CAP).astype(np.int32)
+    va = rng.random(CAP) < 0.9
+    live = rng.random(CAP) < 0.85
+    want = JS.sort_indices([jnp.asarray(a), jnp.asarray(b)], [True, False], jnp.asarray(live),
+                           nulls_first=[nulls_first, False], valids=[jnp.asarray(va), None])
+    got = PS.sort_indices([torch.from_numpy(a), torch.from_numpy(b)], [True, False],
+                          torch.from_numpy(live), nulls_first=[nulls_first, False],
+                          valids=[torch.from_numpy(va), None])
+    assert_same(got, want)

@@ -1,9 +1,9 @@
-"""The port imports neither JAX nor the JAX package.
+"""The port imports neither JAX, the JAX package nor pandas.
 
 An AST scan over every module of ``presto_tpu_torch`` and over
-``chip_smoke.py`` finds no ``import jax`` / ``from jax`` / ``presto_tpu``
-import (exact top-level name), and a fresh interpreter that imports the
-whole port has not loaded ``jax``.
+``chip_smoke.py`` finds no ``jax`` / ``presto_tpu`` / ``pandas`` import
+(exact top-level name; the card's machine has no pandas), and a fresh
+interpreter that imports the whole port has loaded none of them.
 """
 
 import ast
@@ -14,7 +14,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "jaxlib", "presto_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "presto_tpu", "pandas"}
 FILES = sorted(
     [p.relative_to(ROOT).as_posix() for p in (ROOT / "presto_tpu_torch").rglob("*.py")]
     + ["chip_smoke.py"]
@@ -34,6 +34,9 @@ def _imported_roots(path: Path) -> set[str]:
 def test_scan_covers_the_package():
     assert "presto_tpu_torch/workloads.py" in FILES
     assert "presto_tpu_torch/ops/cuda_q1.py" in FILES
+    assert "presto_tpu_torch/ops/cuda_join.py" in FILES
+    assert "presto_tpu_torch/runtime/session.py" in FILES
+    assert "presto_tpu_torch/sql/analyzer.py" in FILES
     assert "chip_smoke.py" in FILES
 
 
@@ -51,6 +54,7 @@ def test_importing_the_port_loads_no_jax():
             + "".join(f"import {m}\n" for m in mods)
             + "assert 'jax' not in sys.modules, 'jax was imported'\n"
             + "assert 'presto_tpu' not in sys.modules, 'presto_tpu was imported'\n"
+            + "assert 'pandas' not in sys.modules, 'pandas was imported'\n"
             + "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
