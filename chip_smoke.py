@@ -26,7 +26,14 @@ one CUDA card, and exits nonzero on any failure. Phases:
    each equal to an exact int64 numpy recomputation, each through the
    fused route, each equal to the same query with ``pallas_join`` off;
    the wall time of a first and a second run; then the join probes are
-   timed as in phase 5, at the inputs this phase gave them.
+   timed as in phase 5, at the inputs this phase gave them;
+7. TPC-H Q1 and Q6 and SSB Q1.1-1.3 at SF1 through ``Session.sql`` on
+   the fused leaf route (Q1 on the Q1 kernel once per ``lineitem`` split,
+   the others on the leaf-aggregation kernel once per scan split, no
+   fallback), each equal to an exact numpy recomputation, and equal
+   again with ``narrow_storage`` off (the generic operators); then the
+   leaf kernel is timed as in phase 5 at the first Q6 split, and over a
+   resident SF1 x10 ``lineitem``.
 
 The card's name and power limit come first and again before the last
 lines, which are one JSON line ``{"kernels": [...]}`` and
@@ -36,6 +43,7 @@ lines, which are one JSON line ``{"kernels": [...]}`` and
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -49,11 +57,11 @@ from presto_tpu_torch.batch import Batch, Column
 from presto_tpu_torch.connectors.tpch import TpchConnector
 from presto_tpu_torch.connectors.tpch.queries import QUERIES
 from presto_tpu_torch.expr import evaluate, evaluate_predicate
-from presto_tpu_torch.ops import _build, cuda_groupby, cuda_join, cuda_q1
+from presto_tpu_torch.ops import _build, cuda_agg, cuda_groupby, cuda_join, cuda_q1
 from presto_tpu_torch.ops.groupby import group_ids_direct, lane_sum_inputs
 from presto_tpu_torch.runtime.metrics import COUNTERS
 from presto_tpu_torch.runtime.session import Session
-from presto_tpu_torch.types import DATE, decimal, varchar
+from presto_tpu_torch.types import DATE, decimal, torch_dtype_of, varchar
 from presto_tpu_torch.workloads import (
     Q1_BITS, Q1_COLS, q1_aggs, q1_exprs, q1_fused_step, q1_pipeline)
 
@@ -278,6 +286,119 @@ def check_payload_kernel(rng) -> int:
                 check(not bool(gm[~plive].any()), "payload_probe: a dead row matched")
             log(f"  payload_probe nval {nval} {dt} [{kmin}, {kmax}] caps 2^16, 2^20, "
                 "1000003: equal to plain")
+    return err
+
+
+def _col(rng, dtype, lo: int, hi: int, n: int) -> np.ndarray:
+    return rng.integers(lo, hi, n, endpoint=True).astype(dtype)
+
+
+def leaf_cases(rng, cap: int, live_rows: int | None = None):
+    """Leaf-aggregation kernel cases: (name, spec, column arrays, live)
+    with numpy inputs, shared by phase 2 and the CPU tests. The names
+    say what each case exercises; a case named ``guard ...`` or ``bits
+    violation`` must set value_overflow."""
+    live = np.zeros(cap, np.bool_)
+    live[: cap if live_rows is None else live_rows] = True
+    live &= rng.random(cap) < 0.97  # dead rows throughout
+    S, V, T = cuda_agg.LeafAggSpec, cuda_agg.ValueAgg, cuda_agg.Term
+    q6_cols = [_col(rng, np.int16, 8035, 10591, cap), _col(rng, np.int8, 0, 10, cap),
+               _col(rng, np.int16, 100, 5000, cap), _col(rng, np.int32, 90000, 10495000, cap)]
+    q6 = S(("ship", "disc", "qty", "ep"), ((0, 8766, 9130), (1, 5, 7), (2, None, 2399)), (),
+           1, (V("sum", T(3), T(1), 31),), ((1, 0, 10), (3, 90000, 10495000)))
+    out = [("keyless Q6 shape", q6, q6_cols)]
+    ssb_cols = [_col(rng, np.int32, 19920101, 19981231, cap), _col(rng, np.int16, 0, 1000, cap),
+                _col(rng, np.int16, 100, 5000, cap), _col(rng, np.int32, 90, 99995, cap)]
+    out.append(("keyless SSB Q1.1 shape", S(
+        ("date", "disc", "qty", "ep"), ((1, 100, 300), (2, None, 2499)), (), 1,
+        (V("sum", T(3), T(1), 27),), ((1, 0, 1000), (3, 90, 99995))), ssb_cols))
+    k_cols = [_col(rng, np.int8, 0, 2, cap), _col(rng, np.int8, 0, 1, cap),
+              _col(rng, np.int16, 100, 5000, cap), _col(rng, np.int32, 90000, 10495000, cap)]
+    out.append(("6 groups, sums", S(
+        ("rf", "ls", "qty", "ep"), ((2, 200, None),), ((0, 0, 2), (1, 0, 1)), 6,
+        (V("sum", T(2), None, 13), V("sum", T(3), T(1, 100, -1), 31)),
+        ((0, 0, 2), (1, 0, 1), (2, 100, 5000), (3, 90000, 10495000))), k_cols))
+    g_cols = [_col(rng, np.int8, -3, 12, cap), _col(rng, np.int16, 100, 131, cap),
+              _col(rng, np.int32, -10**6, 10**6, cap), _col(rng, np.int8, -100, 100, cap)]
+    out.append(("512 groups, sum/min/max", S(
+        ("k1", "k2", "a", "b"), ((3, -50, None),), ((0, -3, 32), (1, 100, 1)), 512,
+        (V("sum", T(2), None, 20), V("sum", T(2), T(3), 27), V("min", T(2), T(3), 27),
+         V("max", T(3, 7, 1), None, 7)),
+        ((0, -3, 12), (1, 100, 131), (2, -10**6, 10**6), (3, -100, 100))), g_cols))
+    out.append(("min/max only, 16 groups", S(
+        ("k1", "k2", "a", "b"), (), ((0, -3, 1),), 16,
+        (V("min", T(2), None, 20), V("max", T(2), None, 20), V("max", T(3, -5, -3), T(2), 30)),
+        ((0, -3, 12), (2, -10**6, 10**6), (3, -100, 100))), g_cols))
+    out.append(("wide coefficients, bits > 31", S(
+        ("k1", "k2", "a", "b"), ((2, 0, None),), ((0, -3, 1),), 16,
+        (V("sum", T(2, 3, 1_000_003), T(3), 57), V("sum", T(2, -(1 << 40), 1), None, 41)),
+        ((0, -3, 12), (2, -10**6, 10**6), (3, -100, 100))), g_cols))
+    out.append(("one-sided filters, negative coefficients", S(
+        ("k1", "k2", "a", "b"), ((2, None, 500_000), (3, -20, None)), ((1, 100, 1),), 32,
+        (V("sum", T(3, 100, -1), T(2, -5, -3), 30),),
+        ((1, 100, 131), (2, -10**6, 10**6), (3, -100, 100))), g_cols))
+    out.append(("unsatisfiable filter", S(
+        ("k1", "k2", "a", "b"), ((2, 1, 0),), (), 1, (V("sum", T(2), None, 20),),
+        ((2, -10**6, 10**6),)), g_cols))
+    out.append(("count only", S(
+        ("k1", "k2", "a", "b"), ((3, 0, 50),), ((0, -3, 1),), 16, (), ((0, -3, 12),)), g_cols))
+    w_cols = [_col(rng, dt, -100, 100, cap)
+              for dt in (np.int8, np.int16, np.int32, np.int64, np.int8, np.int16)]
+    six = S(tuple(f"c{i}" for i in range(6)), ((0, -90, 90), (5, None, 95)), ((1, -100, 1),),
+            201, tuple(V("sum", T(i), T((i + 1) % 6, 2, 1), 15) for i in range(5))
+            + (V("min", T(3), None, 7),),
+            ((1, -100, 100),) + tuple((i, -100, 100) for i in range(6) if i != 1))
+    out.append(("6 columns, 6 values, an int64 column", six, w_cols))
+    # the kernel's word-reading instance takes only the Q6 shape (at most
+    # 4 narrow columns, 1 value); narrow columns past it take the generic one
+    out.append(("6 narrow columns, 6 values", six,
+                [c.astype(np.int32) if c.dtype == np.int64 else c for c in w_cols]))
+    x_cols = w_cols + [_col(rng, dt, -1000, 1000, cap)
+                       for dt in (np.int16, np.int32, np.int16, np.int32, np.int64, np.int16)]
+    out.append(("12 columns, 10 values", S(
+        tuple(f"c{i}" for i in range(12)), ((6, -900, 900), (11, -500, None)),
+        ((4, -100, 1),), 201,
+        tuple(V("sum" if i % 3 else "max", T(6 + i % 6), T(i % 6, 1, 1), 18) for i in range(10)),
+        tuple((i, -1000, 1000) for i in range(12))),
+        x_cols))
+    # declared bounds violated: the kernel and the plain version flag them
+    bad_v = [c.copy() for c in k_cols]
+    passing = np.flatnonzero(live & (bad_v[2] >= 200))
+    bad_v[3][passing[: 3]] = 20_000_000  # ep beyond its guard
+    out.append(("guard value column", out[2][1], bad_v))
+    bad_k = [c.copy() for c in k_cols]
+    passing = np.flatnonzero(live & (bad_k[2] >= 200))
+    bad_k[0][passing[: 2]] = 5  # returnflag code beyond its domain
+    out.append(("guard key column", out[2][1], bad_k))
+    out.append(("bits violation", S(
+        ("rf", "ls", "qty", "ep"), (), ((0, 0, 2), (1, 0, 1)), 6,
+        (V("sum", T(3), None, 20),), ((0, 0, 2), (1, 0, 1))), k_cols))
+    return [(name, spec, cols, live) for name, spec, cols in out]
+
+
+def leaf_batch(spec, cols, live, device) -> Batch:
+    """A port batch of a leaf case: NULL-free columns sharing ``live``."""
+    from presto_tpu_torch.types import BIGINT
+
+    lt = torch.from_numpy(live).to(device)
+    return Batch({n: Column(torch.from_numpy(np.ascontiguousarray(c)).to(device), lt, BIGINT)
+                  for n, c in zip(spec.cols, cols)}, lt)
+
+
+def check_leaf_agg_kernel(rng) -> int:
+    err = 0
+    for cap, live_rows in ((1 << 16, None), (1 << 20, None), (1_000_003, 999_000)):
+        cases = leaf_cases(rng, cap, live_rows)
+        for what, spec, cols, live in cases:
+            b = leaf_batch(spec, cols, live, "cuda")
+            got = cuda_agg.agg_step(spec, b)
+            want = cuda_agg.agg_step_plain(spec, b)
+            torch.cuda.synchronize()
+            err = max(err, compare(got, want, f"agg_step {what} cap {cap}"))
+            flagged = bool(got["value_overflow"])
+            check(flagged == what.startswith(("guard", "bits")),
+                  f"agg_step {what} cap {cap}: value_overflow={flagged}")
+        log(f"  agg_step: {len(cases)} specs at cap {cap}: equal to plain, flags as expected")
     return err
 
 
@@ -579,6 +700,258 @@ def run_join_queries(flush: torch.Tensor, sf: float = 1, device: str = "cuda") -
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the fused leaf route through Session.sql
+# ---------------------------------------------------------------------------
+
+
+def q1_sql_expected(conn) -> dict:
+    """TPC-H Q1 as ``Session.sql`` returns it, recomputed in numpy: the
+    decimal sums as scaled int64, the averages in float32 as the engine
+    computes DOUBLE (sum times the float32 reciprocal of 10^scale, then
+    one division by the count), groups in key order."""
+    a = conn.table_numpy("lineitem", Q1_COLS)
+    base = q1_expected(a)
+    m = a["l_shipdate"] <= CUTOFF
+    gid = (a["l_returnflag"].astype(np.int64) * 2 + a["l_linestatus"].astype(np.int64))[m]
+    sum_disc = np.zeros(6, np.int64)
+    np.add.at(sum_disc, gid, a["l_discount"][m].astype(np.int64))
+    n = base["count_order"]
+    g = np.flatnonzero(n > 0)
+    d = conn.dictionaries("lineitem")
+    inv = np.float32(1) / np.float32(100)
+
+    def avg(s):
+        return (s[g].astype(np.float32) * inv) / n[g].astype(np.float32)
+
+    return {"l_returnflag": list(d["l_returnflag"].values[g // 2]),
+            "l_linestatus": list(d["l_linestatus"].values[g % 2]),
+            "sum_qty": base["sum_qty"][g], "sum_base_price": base["sum_base_price"][g],
+            "sum_disc_price": base["sum_disc_price"][g], "sum_charge": base["sum_charge"][g],
+            "avg_qty": avg(base["sum_qty"]), "avg_price": avg(base["sum_base_price"]),
+            "avg_disc": avg(sum_disc), "count_order": n[g]}
+
+
+Q6_COLS = ["l_shipdate", "l_discount", "l_quantity", "l_extendedprice"]
+SSB_COLS = ["lo_orderdate", "lo_discount", "lo_quantity", "lo_extendedprice"]
+
+
+def q6_mask(a) -> np.ndarray:
+    """TPC-H Q6's filter on physical values: shipdate in 1994, discount
+    between 0.05 and 0.07, quantity below 24."""
+    ship, disc, qty = a["l_shipdate"], a["l_discount"], a["l_quantity"]
+    return ((ship >= days("1994-01-01")) & (ship < days("1995-01-01"))
+            & (disc >= 5) & (disc <= 7) & (qty < 2400))
+
+
+def revenue(ep, disc, m) -> dict:
+    """sum(extendedprice * discount) at scale 4 over rows ``m``."""
+    return {"revenue": np.array([int((ep[m].astype(np.int64) * disc[m].astype(np.int64)).sum())])}
+
+
+def ssb_expected(conn) -> dict:
+    """The SSB Q1 flight recomputed in int64 numpy: the date join as a
+    set of date keys, the discount and quantity ranges on physical
+    (scaled) values, revenue as the scale-4 sum."""
+    d = conn.table_numpy("date", ["d_datekey", "d_year", "d_yearmonthnum", "d_weeknuminyear"])
+    lo = conn.table_numpy("lineorder", SSB_COLS)
+    disc, qty = lo["lo_discount"], lo["lo_quantity"]
+    dates = {"q1_1": d["d_year"] == 1993, "q1_2": d["d_yearmonthnum"] == 199401,
+             "q1_3": (d["d_weeknuminyear"] == 6) & (d["d_year"] == 1994)}
+    ranges = {"q1_1": ((100, 300), (None, 2499)), "q1_2": ((400, 600), (2600, 3500)),
+              "q1_3": ((500, 700), (2600, 3500))}
+    out = {}
+    for q, dm in dates.items():
+        (dlo, dhi), (qlo, qhi) = ranges[q]
+        m = np.isin(lo["lo_orderdate"], d["d_datekey"][dm]) & (disc >= dlo) & (disc <= dhi)
+        m &= qty <= qhi
+        if qlo is not None:
+            m &= qty >= qlo
+        out[q] = revenue(lo["lo_extendedprice"], disc, m)
+    return out
+
+
+def resident_q6(session, conn, want_rev: int, factor: int) -> dict:
+    """Q6's leaf step over SF1 lineitem tiled ``factor`` times on the card
+    in the connector's narrow storage, with the spec the matcher builds
+    for Q6: equal to ``factor`` x the numpy revenue; timed."""
+    from presto_tpu_torch.exec.leaf_route import match_leaf_fragment
+    from presto_tpu_torch.plan import nodes as N
+
+    node = session.plan(QUERIES["q6"])
+    while not isinstance(node, N.Aggregate):
+        node = node.child
+    route, reason = match_leaf_fragment(node, session.catalog)
+    check(route is not None and route.kind == "generic", f"Q6 did not match ({reason})")
+    spec = route.spec
+    arrays = conn.table_numpy("lineitem", route.src_cols)
+    phys = conn.physical_schema("lineitem", route.src_cols)
+    rows = len(arrays[route.src_cols[0]]) * factor
+
+    def resident(a: np.ndarray) -> torch.Tensor:
+        # 4 spare bytes: the leaf kernel reads narrow columns a 32-bit
+        # word at a time, and the wrapper would copy a column without them
+        buf = torch.empty(rows + 4, dtype=torch_dtype_of(a.dtype), device=conn.device)
+        buf[:rows] = torch.from_numpy(a).to(conn.device).repeat(factor)
+        return buf[:rows]
+
+    live = resident(np.ones(rows // factor, np.bool_))
+    cols = {route.rename[c]: Column(resident(arrays[c].astype(phys[c].np_dtype)), live, phys[c])
+            for c in route.src_cols}
+    batch = Batch(cols, live)
+    torch.cuda.synchronize()
+    state = cuda_agg.agg_step(spec, batch)
+    got = int(state["sum_0"][0])
+    check(got == factor * want_rev and not bool(state["value_overflow"]),
+          f"resident Q6 step: {got} != {factor} x {want_rev}")
+    err = compare(state, cuda_agg.agg_step_plain(spec, batch), "agg_step resident Q6")
+    nbytes = sum(c.data.numel() * c.data.element_size() for c in cols.values()) + rows + 3 * 8
+    return {"rows": rows, "bytes": nbytes, "err": err,
+            "ms": device_ms(lambda: cuda_agg.agg_step(spec, batch), 20, kernel="leaf_agg_kernel"),
+            "call_ms": call_ms(lambda: cuda_agg.agg_step(spec, batch), 20),
+            "row_bytes": nbytes / rows}
+
+
+def leaf_library_ms(spec, b, flush) -> float:
+    """Device ms of the yardstick: one ``index_add_`` of the
+    precomputed [rows, values + 1] int64 matrix (each passing row's sum
+    values and a 1) into [groups + 1] (the trash group last). Sum
+    values only, as Q6 has."""
+    cols = [b[c].data.to(torch.int64) for c in spec.cols]
+    live = b.live
+    for ci, lo, hi in spec.filters:
+        live = live & (cols[ci] >= lo if lo is not None else True)
+        live = live & (cols[ci] <= hi if hi is not None else True)
+    gid = torch.zeros(b.capacity, dtype=torch.int64, device=b.device)
+    for ci, lo, stride in spec.keys:
+        gid = gid + (cols[ci] - lo) * stride
+    gid = torch.where(live, gid, torch.full_like(gid, spec.groups))
+
+    def term(t):
+        return t.c0 + t.c1 * cols[t.col] if t.col >= 0 else torch.full_like(gid, t.c0)
+
+    vals = [term(v.a) * (term(v.b) if v.b is not None else 1) for v in spec.values]
+    mat = torch.stack([torch.where(live, v, torch.zeros_like(v)) for v in vals]
+                      + [live.to(torch.int64)], dim=1)
+    out = torch.zeros(spec.groups + 1, mat.shape[1], dtype=torch.int64, device=b.device)
+
+    def library():
+        out.zero_()
+        out.index_add_(0, gid, mat)
+
+    ms = device_ms(library, 10, flush)
+    got = cuda_agg.agg_step(spec, b)
+    want = torch.stack([got[k] for k in cuda_agg.state_keys(spec)] + [got["count"]], dim=1)
+    check(torch.equal(out[: spec.groups], want), "agg_step differs from the index_add_ call")
+    return ms
+
+
+def run_leaf_queries(flush: torch.Tensor, sf: float = 1, device: str = "cuda") -> dict:
+    """Phase 7: TPC-H Q1 and Q6 and the SSB Q1 flight at SF1 through
+    Session.sql on the fused leaf route (Q1 on the Q1 kernel, the others
+    on the leaf-aggregation kernel), each equal to an exact numpy
+    recomputation, and equal again with ``narrow_storage`` off (the
+    generic operators); then the leaf kernel timed at the first Q6
+    split and over a resident SF1 x10 lineitem."""
+    from presto_tpu_torch.connectors.ssb import SsbConnector
+    from presto_tpu_torch.connectors.ssb.queries import QUERIES as SSB
+    from presto_tpu_torch.exec import leaf_route
+
+    tconn = TpchConnector(sf=sf, device=device)
+    sconn = SsbConnector(sf=sf, device=device)
+    t0 = time.perf_counter()
+    li = tconn.table_numpy("lineitem", Q6_COLS)
+    want = {"q1": q1_sql_expected(tconn),
+            "q6": revenue(li["l_extendedprice"], li["l_discount"], q6_mask(li))}
+    want.update({f"ssb {q}": w for q, w in ssb_expected(sconn).items()})
+    log(f"phase 7: numpy recomputation of Q1, Q6 and SSB Q1.1-1.3 at SF1 in "
+        f"{time.perf_counter() - t0:.1f} s")
+    runs = {"q1": (QUERIES["q1"], tconn, "lineitem"), "q6": (QUERIES["q6"], tconn, "lineitem")}
+    runs.update({f"ssb {q}": (SSB[q], sconn, "lineorder") for q in ("q1_1", "q1_2", "q1_3")})
+    captured = []
+    original = leaf_route.agg_step
+
+    def capture(spec, batch):
+        if not captured:
+            captured.append((spec, batch))  # the first Q6 split of the main path
+        return original(spec, batch)
+
+    out = {"leaf_launches": 0, "walls": {}}
+    narrow_before = os.environ.get("PRESTO_TPU_NARROW")
+    try:
+        for name, (sql, conn, table) in runs.items():
+            # narrow_storage mirrors a process-wide switch: say it each time
+            on = Session({"tpch": tconn, "ssb": sconn}, properties={"narrow_storage": True},
+                         device=device)
+            leaf_route.agg_step = capture if name == "q6" else original
+            COUNTERS.clear()
+            cuda_q1.launches = cuda_agg.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = on.sql(sql)
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t0
+            n_q1, n_leaf = cuda_q1.launches, cuda_agg.launches
+            route = dict(COUNTERS)
+            leaf_route.agg_step = original
+            same_result(res, want[name], f"{name} at SF1")
+            splits = len(conn.splits(table))
+            check(route.get("exec.leaf_fused_route", 0) == 1
+                  and not any(k.startswith("exec.leaf_route_fallback") for k in route),
+                  f"{name}: leaf route counters {route}")
+            if name == "q1":
+                check(n_q1 == splits and n_leaf == 0 and route.get("exec.q1_fused_route") == 1,
+                      f"q1: {n_q1} Q1-kernel and {n_leaf} leaf-kernel launches for {splits} "
+                      "lineitem splits")
+            else:
+                check(n_leaf == splits and n_q1 == 0,
+                      f"{name}: {n_leaf} leaf-kernel and {n_q1} Q1-kernel launches for "
+                      f"{splits} {table} splits")
+                out["leaf_launches"] += n_leaf
+            t0 = time.perf_counter()
+            again = on.sql(sql)
+            torch.cuda.synchronize()
+            second = time.perf_counter() - t0
+            same_result(again, want[name], f"{name} at SF1, second run")
+            busy_ms, scan_s = wall_breakdown(on, conn, sql)
+            COUNTERS.clear()
+            cuda_q1.launches = cuda_agg.launches = 0
+            off = Session({"tpch": tconn, "ssb": sconn}, properties={"narrow_storage": False},
+                          device=device).sql(sql)
+            check(COUNTERS["exec.leaf_fused_route"] == 0 and cuda_q1.launches == 0
+                  and cuda_agg.launches == 0, f"{name}: narrow_storage off still took the route")
+            same_result(off, want[name], f"{name} at SF1 with narrow_storage off")
+            out["walls"][name] = (first, second, busy_ms, scan_s)
+            log(f"  {name}: {len(res)} rows equal to numpy, with narrow_storage off too; wall "
+                f"first {first:.3f} s, second {second:.3f} s; Q1-kernel launches {n_q1}, "
+                f"leaf-kernel launches {n_leaf} ({splits} splits); routes "
+                f"{ {k: v for k, v in route.items() if k.startswith(('exec.', 'agg.'))} }")
+            log(f"  {name} breakdown (a third, profiled run): device busy {busy_ms:.1f} ms, "
+                f"connector scans (host generation + copy to the card) {scan_s:.3f} s")
+    finally:
+        leaf_route.agg_step = original
+        if narrow_before is None:
+            os.environ.pop("PRESTO_TPU_NARROW", None)
+        else:
+            os.environ["PRESTO_TPU_NARROW"] = narrow_before
+
+    spec, b = captured[0]
+    fn = lambda: cuda_agg.agg_step(spec, b)  # noqa: E731
+    plain = lambda: cuda_agg.agg_step_plain(spec, b)  # noqa: E731
+    err = compare(fn(), plain(), "agg_step at the first Q6 split")
+    nbytes = (sum(b[c].data.numel() * b[c].data.element_size() for c in spec.cols)
+              + b.capacity + (spec.groups * (len(spec.values) + 1) + 1) * 8)
+    out["split"] = {"ms": device_ms(fn, 50, flush, kernel="leaf_agg_kernel"),
+                    "call_ms": call_ms(fn, 50), "plain_ms": device_ms(plain, 10, flush),
+                    "library_ms": leaf_library_ms(spec, b, flush), "rows": b.capacity,
+                    "bytes": nbytes, "err": err,
+                    "ops": b.capacity * (2 * len(spec.cols) + 4 * len(spec.values) + 4),
+                    "widths": [b[c].data.element_size() for c in spec.cols]}
+    on = Session({"tpch": tconn}, properties={"narrow_storage": True}, device=device)
+    out["resident"] = resident_q6(on, tconn, int(want["q6"]["revenue"][0]), FACTOR)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -610,6 +983,7 @@ def main() -> int:
     lane_err = check_lane_kernel(rng)
     exists_err = check_exists_kernel(rng)
     payload_err = check_payload_kernel(rng)
+    leaf_err = check_leaf_agg_kernel(rng)
 
     # ---- phase 3: resident Q1 at SF1 x10 ----------------------------------
     t0 = time.perf_counter()
@@ -745,6 +1119,23 @@ def main() -> int:
         f"{payload_bound:.4f}) at {pay['rows']} rows, {pay['key']} keys, {pay['nval']} "
         f"value(s) over {pay['table']} slots; no single PyTorch call computes either")
 
+    leaf = run_leaf_queries(flush)
+    sp, res_ = leaf["split"], leaf["resident"]
+    leaf_bound, leaf_by = bound(sp["bytes"], sp["ops"])
+    res_bound, _ = bound(res_["bytes"], 0)
+    log(f"phase 5, leaf-aggregation kernel at phase 7's first Q6 split (kernel device ms; "
+        f"call = wrapper, events; plain and index_add_ = device ms of all their kernels): "
+        f"agg_step {sp['ms']:.4f} (call {sp['call_ms']:.4f}, plain {sp['plain_ms']:.4f}, "
+        f"index_add_ {sp['library_ms']:.4f}, bound {leaf_bound:.4f}) at {sp['rows']} rows, "
+        f"column widths {sp['widths']} B + live, {sp['bytes']} B")
+    log(f"  Q6 leaf step over resident SF1 x{FACTOR} lineitem: {res_['rows']} rows, "
+        f"{res_['row_bytes']:.2f} B/row, kernel {res_['ms']:.4f} ms (call {res_['call_ms']:.4f} "
+        f"ms, bound {res_bound:.4f} ms) = {res_['rows'] / (res_['ms'] / 1e3):.4e} rows/s; "
+        f"equal to {FACTOR}x numpy and to plain")
+    for name, (first, second, busy, scan) in leaf["walls"].items():
+        log(f"  wall {name}: first {first:.3f} s, second {second:.3f} s, device busy "
+            f"{busy:.1f} ms, connector scans {scan:.3f} s")
+
     log(smi[0])
     kernels = [
         {"name": "q1_step", "route": "cuda", "source": "presto_tpu_torch/csrc/q1.cu",
@@ -778,6 +1169,15 @@ def main() -> int:
          "ms": pay["ms"], "kernel_ms": pay["ms"], "call_ms": pay["call_ms"],
          "plain_ms": pay["plain_ms"], "bound_ms": payload_bound, "bound_by": payload_by,
          "library_ms": None, "rows": pay["rows"], "bytes": pay["bytes"], "ops": pay["ops"]},
+        {"name": "leaf_agg", "route": "cuda", "source": "presto_tpu_torch/csrc/leaf_agg.cu",
+         "replaces": "presto_tpu/ops/pallas_agg.py:180",
+         "jax_function": "presto_tpu/ops/pallas_agg.py:246 _pallas_step (via agg_step :346)",
+         "launches": leaf["leaf_launches"], "max_abs_err": max(leaf_err, sp["err"], res_["err"]),
+         "ms": sp["ms"], "kernel_ms": sp["ms"], "call_ms": sp["call_ms"],
+         "plain_ms": sp["plain_ms"], "bound_ms": leaf_bound, "bound_by": leaf_by,
+         "library_ms": sp["library_ms"], "rows": sp["rows"], "bytes": sp["bytes"],
+         "ops": sp["ops"], "resident_ms": res_["ms"], "resident_bound_ms": res_bound,
+         "resident_rows": res_["rows"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev_name,

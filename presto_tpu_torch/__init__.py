@@ -2,8 +2,9 @@
 
 The JAX package ``presto_tpu`` is the reference; this package mirrors its
 module layout (``types``, ``batch``, ``spi``, ``connectors.tpch``,
-``expr``, ``sql``, ``plan``, ``ops``, ``exec``, ``runtime``,
-``workloads``) so each counterpart is found under the same name. It
+``connectors.ssb``, ``expr``, ``sql``, ``plan``, ``ops``, ``exec``,
+``runtime``, ``workloads``) so each counterpart is found under the same
+name. It
 imports torch and numpy only. ``runtime.session.Session.sql`` is the SQL
 entry point. Every TPU (Pallas)
 kernel on a ported path has a hand-written CUDA C++ counterpart under

@@ -6,6 +6,11 @@ map over the stream, joins build in device memory, and aggregations
 fold into device-resident state. The physical decisions are the JAX
 package's, made from the same stats:
 
+- the fused leaf route first (``exec/leaf_route.py``): a scan -> filter
+  -> aggregate fragment over stats-bounded columns runs as one fused
+  kernel step per scan batch, falling back (counted) on a runtime
+  ``value_overflow``; keyless aggregates otherwise take
+  ``GlobalAggregationOperator``;
 - grouping strategy: direct addressing when every key is a small
   dictionary domain (product <= ``DIRECT_LIMIT``), else the
   bounded sort strategy sized from the estimated rows, with the
@@ -31,14 +36,15 @@ import numpy as np
 
 from presto_tpu_torch.batch import Batch, QueryResult
 from presto_tpu_torch.devices import resolve_device
+from presto_tpu_torch.exec import leaf_route
 from presto_tpu_torch.exec.joinkeys import declared_key_interval, join_key_exprs
 from presto_tpu_torch.exec.joins import BuildOutput, JoinBuildOperator, LookupJoinOperator
-from presto_tpu_torch.exec.leaf_route import bypass_partial_agg
 from presto_tpu_torch.exec.operators import (
     AggSpec,
     CapacityOverflow,
     DirectStrategy,
     FilterProjectOperator,
+    GlobalAggregationOperator,
     HashAggregationOperator,
     NullGroupKeys,
     OrderByOperator,
@@ -182,16 +188,33 @@ class LocalExecutor:
 
     # ---- aggregation ----------------------------------------------------
     def _exec_aggregate(self, node: N.Aggregate):
+        # the fused leaf route (exec/leaf_route.py): a scan -> filter ->
+        # partial-agg fragment over stats-bounded NULL-free columns runs
+        # as ONE fused step per scan batch (the Q1 kernel for TPC-H Q1,
+        # the leaf-aggregation kernel otherwise); a runtime
+        # value_overflow falls back to the generic route below, counted
+        route, reason = leaf_route.match_leaf_fragment(node, self.catalog)
+        if route is not None:
+            routed = leaf_route.execute_leaf_route(route, self, node)
+            if routed is not None:
+                COUNTERS["agg.strategy.fused"] += 1
+                return BatchStream.of(routed)
+        elif reason is not None:
+            leaf_route.count_fallback(reason)
+
         keys, pax = list(node.keys), list(node.passengers)
-        if not keys and not pax:
-            raise NotSupported("aggregation without GROUP BY is not ported yet")
         child = self._exec(node.child)
         # stats-derived |value| bounds; a violated bound trips
         # value_overflow and retries at 63 bits
         aggs = [AggSpec(a.kind, a.input, a.name, a.dtype, value_bits=b)
                 for a, b in zip(node.aggs, agg_value_bits(node, self.catalog))]
+        if not keys and not pax:
+            COUNTERS["agg.strategy.single"] += 1
+            op = GlobalAggregationOperator(aggs, device=self.device)
+            return BatchStream.of(Pipeline(child, [op]).run())
         strategy = self._pick_group_strategy(keys, pax, node)
-        if isinstance(strategy, SortStrategy) and bypass_partial_agg(node, self.catalog):
+        if (isinstance(strategy, SortStrategy)
+                and leaf_route.bypass_partial_agg(node, self.catalog)):
             # group cardinality ~ input cardinality: per-batch partial
             # folds reduce nothing, so aggregate the concatenated rows in
             # ONE pass with the group capacity sized by the true row count

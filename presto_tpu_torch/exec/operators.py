@@ -9,8 +9,8 @@ jit steps and executable cache have no counterpart.
 Ported: ``FilterProjectOperator``; ``HashAggregationOperator`` with the
 direct-addressed strategy (one ``fused_small_sums`` pass per batch) and
 the sort strategy with passengers (merge-by-sort into a bounded group
-state); ``OrderByOperator`` and ``TopNOperator`` over concatenated
-batches.
+state); ``GlobalAggregationOperator`` (no GROUP BY); ``OrderByOperator``
+and ``TopNOperator`` over concatenated batches.
 """
 
 from __future__ import annotations
@@ -416,6 +416,73 @@ class HashAggregationOperator(Operator):
                 valid = torch.ones(g, dtype=torch.bool, device=dev)
             data = torch.where(valid, st[a.name], torch.zeros_like(st[a.name]))
             cols[a.name] = Column(data.to(a.dtype.torch_dtype), valid, a.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Global (ungrouped) aggregation
+# ---------------------------------------------------------------------------
+
+
+class GlobalAggregationOperator(Operator):
+    """Aggregation without GROUP BY: one output row. Over zero rows the
+    sums, mins and maxes are NULL and the counts 0."""
+
+    def __init__(self, aggs: Sequence[AggSpec], device="cuda"):
+        self.aggs = list(aggs)
+        self.state: dict[str, Any] | None = None
+        #: where an empty state lives when finish() comes before any batch
+        self.device = device
+
+    def _init(self, device):
+        state = {}
+        for a in self.aggs:
+            kind = HashAggregationOperator._agg_kind(a)
+            dt = _phys_dtype(a)
+            state[a.name] = torch.tensor(_identity(kind, dt), dtype=dt, device=device)
+            state[a.name + "$n"] = torch.zeros((), dtype=torch.int64, device=device)
+        return state
+
+    def process(self, batch: Batch) -> list[Batch]:
+        if self.state is None:
+            self.state = self._init(batch.device)
+        new = dict(self.state)
+        for a in self.aggs:
+            if a.kind == "count_star" or a.input is None:
+                vals = torch.ones(batch.capacity, dtype=torch.int64, device=batch.device)
+                contrib, kind = batch.live, "sum"
+            else:
+                v = evaluate(a.input, batch)
+                contrib = batch.live & valid_of(v.valid, batch.live)
+                if a.kind == "count":
+                    vals = torch.ones(batch.capacity, dtype=torch.int64, device=batch.device)
+                    kind = "sum"
+                else:
+                    vals, kind = v.data, a.kind
+            prev = self.state[a.name]
+            masked = torch.where(contrib, vals, torch.full_like(vals, _identity(kind, vals.dtype)))
+            if kind == "sum":
+                # widen BEFORE the reduction: a narrow input would wrap
+                new[a.name] = prev + torch.sum(masked.to(prev.dtype)).to(prev.dtype)
+            elif kind == "min":
+                new[a.name] = torch.minimum(prev, torch.min(masked).to(prev.dtype))
+            else:
+                new[a.name] = torch.maximum(prev, torch.max(masked).to(prev.dtype))
+            new[a.name + "$n"] = self.state[a.name + "$n"] + torch.sum(contrib.to(torch.int64))
+        self.state = new
+        return []
+
+    def finish(self) -> list[Batch]:
+        if self.state is None:
+            self.state = self._init(resolve_device(self.device))
+        dev = self.state[self.aggs[0].name].device if self.aggs else resolve_device(self.device)
+        cols = {}
+        for a in self.aggs:
+            n = self.state[a.name + "$n"]
+            valid = (n > 0) | (a.kind in ("count", "count_star"))
+            data = torch.where(valid, self.state[a.name], torch.zeros_like(self.state[a.name]))
+            cols[a.name] = Column(data.to(a.dtype.torch_dtype).reshape(1), valid.reshape(1),
+                                  a.dtype)
+        return [Batch(cols, torch.ones(1, dtype=torch.bool, device=dev))]
 
 
 # ---------------------------------------------------------------------------

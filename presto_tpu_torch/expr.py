@@ -4,13 +4,15 @@ Counterpart of ``presto_tpu/expr.py``. Expressions are a small immutable
 IR evaluated eagerly over ``Batch`` columns; every evaluation returns
 ``Val(data, valid)`` so NULL handling is branch-free tensor math.
 
-The ported slices cover the functions TPC-H Q1, Q3 and Q10 need:
-``add``, ``sub``, ``mul`` over DECIMAL and DATE; the comparisons ``eq``,
-``lt``, ``le``, ``gt``, ``ge`` over numbers, dates and dictionary
-VARCHAR (a string literal is encoded against its peer column's
-dictionary; an absent literal matches nothing under ``eq``); and the
-Kleene ``and``. BYTES columns pass through untouched. A call to any
-other function raises ``NotSupported`` naming it.
+The ported slices cover the functions TPC-H Q1, Q3, Q6 and Q10 and the
+SSB Q1 flight need: ``add``, ``sub``, ``mul`` over DECIMAL and DATE;
+``div`` in DOUBLE (float32, as in the JAX package; division by zero is
+NULL); the comparisons ``eq``, ``lt``, ``le``, ``gt``, ``ge`` and
+``between`` over numbers, dates and dictionary VARCHAR (a string
+literal is encoded against its peer column's dictionary; an absent
+literal matches nothing under ``eq``); and the Kleene ``and``. BYTES
+columns pass through untouched. A call to any other function raises
+``NotSupported`` naming it.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from presto_tpu_torch.batch import Batch, Dictionary
@@ -182,6 +185,15 @@ def _to_physical(v: Val, target: DataType) -> torch.Tensor:
     data = v.data
     if src == target:
         return data
+    if target.kind is TypeKind.DOUBLE:
+        # DOUBLE is float32 in both packages. The JAX package divides by
+        # the constant 10^scale, which XLA compiles to a multiply by the
+        # float32 reciprocal: the same multiply gives the same bits
+        if src.kind is TypeKind.DECIMAL:
+            inv = np.float32(1) / np.float32(10**src.scale)
+            return data.to(torch.float32) * torch.tensor(
+                float(inv), dtype=torch.float32, device=data.device)
+        return data.to(torch.float32)
     if target.kind is TypeKind.DECIMAL:
         if src.kind is TypeKind.DECIMAL:
             if src.scale == target.scale:
@@ -229,9 +241,31 @@ def _mul_impl(args: list[Val], out: DataType):
     return x * y, None
 
 
+def _t_div(_args):
+    return DOUBLE  # every division is DOUBLE, as in the JAX package
+
+
+def _div_impl(args: list[Val], out: DataType):
+    """x / y in DOUBLE; division by zero gives NULL."""
+    a, b = args
+    x = _to_physical(a, DOUBLE)
+    y = _to_physical(b, DOUBLE)
+    bad = y == 0
+    res = x / torch.where(bad, torch.ones_like(y), y)
+    return res, ~bad & valid_or_all(a) & valid_or_all(b)
+
+
+def valid_or_all(v: Val) -> torch.Tensor:
+    """A Val's validity as a tensor (None means every row valid)."""
+    if v.valid is not None:
+        return v.valid
+    return torch.ones(v.data.shape[0], dtype=torch.bool, device=v.data.device)
+
+
 register("add", _t_add)(_binary_numeric(lambda x, y: x + y))
 register("sub", _t_add)(_binary_numeric(lambda x, y: x - y))
 register("mul", _t_mul)(_mul_impl)
+register("div", _t_div)(_div_impl)
 
 
 def _cmp_physicals(a: Val, b: Val):
@@ -274,6 +308,14 @@ register("gt", _t_bool)(_cmp(lambda x, y: x > y))
 register("ge", _t_bool)(_cmp(lambda x, y: x >= y))
 
 
+@register("between", _t_bool)
+def _between(args: list[Val], out: DataType):
+    """lo <= x <= hi, each side compared as ``ge`` and ``le`` are."""
+    lo = _cmp(lambda x, y: x >= y)([args[0], args[1]], out)[0]
+    hi = _cmp(lambda x, y: x <= y)([args[0], args[2]], out)[0]
+    return lo & hi, None
+
+
 @register("and", _t_bool)
 def _and(args: list[Val], out: DataType):
     """Kleene AND: FALSE dominates NULL; data is "definitely true"."""
@@ -295,13 +337,15 @@ def _encode_string_literals(fn: str, args: list[Val]) -> list[Val]:
     cap, dev = next((a.data.shape[0], a.data.device) for a in args
                     if a.dictionary is not None)
     out = []
-    for a in args:
+    for pos, a in enumerate(args):
         if a.dtype.kind is TypeKind.VARCHAR and isinstance(a.data, str):
             code = dictionary._index.get(a.data)
             if code is None:
-                if fn in ("lt", "ge"):  # x < s  ==  code < lb(s)
+                if fn in ("lt", "ge") or (fn == "between" and pos == 1):
+                    # x < s  ==  code < lb(s)
                     code = dictionary.lower_bound(a.data)
-                elif fn in ("le", "gt"):  # x <= s  ==  code <= lb(s) - 1
+                elif fn in ("le", "gt") or (fn == "between" and pos == 2):
+                    # x <= s  ==  code <= lb(s) - 1
                     code = dictionary.lower_bound(a.data) - 1
                 else:
                     code = len(dictionary)

@@ -155,13 +155,15 @@ def segment_agg(values, contrib, gids, max_groups: int, kind: str):
 
 
 def fused_small_sums(values, bits_list, contribs, gids, max_groups: int,
-                     extra_count_masks=()):
+                     extra_count_masks=(), kernel: bool = True):
     """Exact integer segment sums for many aggregates in ONE data pass.
 
     values/bits_list/contribs: per-aggregate integer value tensors,
     static |value| bit bounds, and contribution masks. gids: per-row
     group id (``max_groups`` = trash). extra_count_masks: additional bool
     masks to count per group (e.g. ``live`` for group presence).
+    ``kernel=False`` keeps to the generic route (plain PyTorch, exact
+    int64) where the lane-sums kernel would otherwise take the call.
 
     Returns (sums, counts, extra_counts, value_overflow): int64 [G] sums
     per value, int64 [G] counts per contrib and per extra mask, and a
@@ -180,7 +182,7 @@ def fused_small_sums(values, bits_list, contribs, gids, max_groups: int,
             mask_cols.append(m)
         slot.append(uniq[id(m)])
 
-    if kernel_route(values, bits_list, len(mask_cols), max_groups):
+    if kernel and kernel_route(values, bits_list, len(mask_cols), max_groups):
         zeroed, eff_bits, oflow = lane_sum_inputs(values, bits_list, contribs,
                                                   gids.device)
         sums, counts_all, k_oflow = cuda_groupby.fused_lane_sums(

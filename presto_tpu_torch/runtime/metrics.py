@@ -3,8 +3,11 @@
 Counterpart of the counter half of ``presto_tpu/runtime/metrics.py``:
 one ``Counter`` keyed by the JAX package's metric names
 (``join.strategy.pallas``, ``exec.pallas_join_route``,
-``join.pallas_fallback``, ``agg.strategy.bypass``, ...), so a run can
-show which route each operator took. Readers reset it themselves.
+``join.pallas_fallback``, ``agg.strategy.{fused,single,bypass,partial}``,
+``exec.leaf_fused_route``, ``exec.leaf_route_fallback`` and its
+per-reason ``exec.leaf_route_fallback.<reason>``,
+``exec.q1_fused_route``, ``exec.q1_route_fallback``), so a run can show
+which route each operator took. Readers reset it themselves.
 """
 
 from __future__ import annotations

@@ -49,6 +49,15 @@ SESSION_PROPERTIES: dict[str, PropertyDef] = {
             "on narrow stats-bounded keys (ops/cuda_join.py). Ineligible "
             "joins fall back to the dense or sorted probes with a "
             "join.pallas_fallback counter; results are identical."),
+        PropertyDef(
+            "narrow_storage", bool, None,
+            "Stats-driven narrow physical column storage: scans "
+            "materialize int8/int16/int32 device columns wherever "
+            "connector value bounds permit, which arms the fused leaf "
+            "route (exec/leaf_route.py). Process-wide, mirrors the "
+            "PRESTO_TPU_NARROW environment variable; default: on. Off "
+            "takes the generic operators with canonical storage; "
+            "results are bit-identical either way."),
     ]
 }
 

@@ -12,6 +12,7 @@ tracing, lifecycle control and the distributed executor are not ported.
 
 from __future__ import annotations
 
+import os
 from typing import Mapping
 
 from presto_tpu_torch.batch import QueryResult
@@ -51,6 +52,12 @@ class Session:
 
     def executor(self) -> LocalExecutor:
         """A fresh executor configured from the session properties."""
+        narrow = self.prop("narrow_storage")
+        if narrow is not None:
+            # connectors and the leaf-route matcher read the switch
+            # (spi.narrow_enabled); mirror the property there, as the JAX
+            # package does (process-wide)
+            os.environ["PRESTO_TPU_NARROW"] = "1" if narrow else "0"
         return LocalExecutor(self.catalog, pallas_join_enabled=self.prop("pallas_join"),
                              device=self.device)
 

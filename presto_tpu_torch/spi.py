@@ -53,6 +53,18 @@ class Connector(Protocol):
     def row_count(self, table: str) -> int: ...
 
 
+@dataclass(frozen=True)
+class ColumnStats:
+    """The connector-statistics shape the engine consumes (duck-typed:
+    the TPC-H schema declares its own equivalent). min/max are LOGICAL
+    values — decimal units, day numbers for DATE."""
+
+    ndv: float
+    min_value: float | None = None
+    max_value: float | None = None
+    null_fraction: float = 0.0
+
+
 def narrow_enabled() -> bool:
     """Stats-driven narrow physical storage. Default on;
     ``PRESTO_TPU_NARROW=0`` disables it (the JAX package reads the same

@@ -1,10 +1,12 @@
 """Semantic analysis: AST -> typed logical plan (the ported subset).
 
 Counterpart of ``presto_tpu/sql/analyzer.py`` for the SELECT shapes of
-TPC-H Q3 and Q10: SELECT / FROM with comma joins (and explicit
-``JOIN ... ON``) / WHERE conjuncts / GROUP BY / ORDER BY / LIMIT;
-``count``, ``sum``, ``min``, ``max``; DECIMAL and DATE arithmetic and
-comparisons; ``date '...'`` literals and ``date +/- interval`` folding.
+TPC-H Q1, Q3, Q6 and Q10 and the SSB Q1 flight: SELECT / FROM with
+comma joins (and explicit ``JOIN ... ON``) / WHERE conjuncts / GROUP BY
+(or none: one keyless aggregate row) / ORDER BY / LIMIT; ``count``,
+``sum``, ``avg`` (``sum`` / ``count`` in DOUBLE), ``min``, ``max``;
+DECIMAL and DATE arithmetic, comparisons and BETWEEN; ``date '...'``
+literals and ``date +/- interval`` folding.
 The relational planning is the JAX package's, copied: predicate
 pushdown into the owning relation, greedy stats-driven join ordering,
 unique-build detection from table keys, and functional-dependency
@@ -29,7 +31,8 @@ from presto_tpu_torch.plan import nodes as N
 from presto_tpu_torch.plan.catalog import Catalog, TableMeta
 from presto_tpu_torch.runtime.errors import NotSupported, UserError
 from presto_tpu_torch.sql import ast as A
-from presto_tpu_torch.types import BIGINT, BOOLEAN, DATE, INTEGER, DataType, TypeKind, decimal
+from presto_tpu_torch.types import (
+    BIGINT, BOOLEAN, DATE, DOUBLE, INTEGER, DataType, TypeKind, decimal)
 
 AGG_FUNCS = {"count", "sum", "avg", "min", "max",
              "stddev_samp", "stddev", "var_samp", "variance"}
@@ -672,8 +675,8 @@ class Analyzer:
         specs: list[AggSpec] = []
         agg_map: dict[A.FunctionCall, Expr] = {}
         for a in uniq:
-            spec, mapped = self._plan_one_agg(a, scope, outer, ctes, scalar_binds)
-            specs.append(spec)
+            specs_a, mapped = self._plan_one_agg(a, scope, outer, ctes, scalar_binds)
+            specs.extend(specs_a)
             agg_map[a] = mapped
 
         # functional dependencies: keys covered by a unique key of the
@@ -841,22 +844,30 @@ class Analyzer:
         return None
 
     def _plan_one_agg(self, a: A.FunctionCall, scope, outer, ctes, scalar_binds):
-        """One AST aggregate -> (AggSpec, post-agg Expr)."""
+        """One AST aggregate -> ([AggSpec...], post-agg Expr). ``avg`` is
+        ``sum`` and ``count`` with a DOUBLE ``div`` above the Aggregate,
+        as in the JAX package."""
         if a.distinct:
             raise _unsupported(f"{a.name}(DISTINCT ...)")
         nm = self.fresh(a.name)
         if a.name == "count":
             if a.is_star or not a.args:
-                return AggSpec("count_star", None, nm, BIGINT), InputRef(BIGINT, nm)
+                return [AggSpec("count_star", None, nm, BIGINT)], InputRef(BIGINT, nm)
             arg = self._expr(a.args[0], scope, outer, ctes, scalar_binds)
-            return AggSpec("count", arg, nm, BIGINT), InputRef(BIGINT, nm)
-        if a.name not in ("sum", "min", "max"):
+            return [AggSpec("count", arg, nm, BIGINT)], InputRef(BIGINT, nm)
+        if a.name not in ("sum", "avg", "min", "max"):
             raise _unsupported(f"aggregate {a.name}()")
         arg = self._expr(a.args[0], scope, outer, ctes, scalar_binds)
+        if a.name == "avg":
+            s = self.fresh("avgsum")
+            c = self.fresh("avgcnt")
+            sum_t = self._sum_type(arg.dtype)
+            specs = [AggSpec("sum", arg, s, sum_t), AggSpec("count", arg, c, BIGINT)]
+            return specs, Call(DOUBLE, "div", (InputRef(sum_t, s), InputRef(BIGINT, c)))
         if a.name == "sum":
             t = self._sum_type(arg.dtype)
-            return AggSpec("sum", arg, nm, t), InputRef(t, nm)
-        return AggSpec(a.name, arg, nm, arg.dtype), InputRef(arg.dtype, nm)
+            return [AggSpec("sum", arg, nm, t)], InputRef(t, nm)
+        return [AggSpec(a.name, arg, nm, arg.dtype)], InputRef(arg.dtype, nm)
 
     def _sum_type(self, t: DataType) -> DataType:
         if t.kind is TypeKind.DECIMAL:
@@ -940,6 +951,13 @@ class Analyzer:
                 t = result_type(fn, [l.dtype, r.dtype])
                 return Call(t, fn, (l, r))
             raise _unsupported(f"operator {n.op!r}")
+        if isinstance(n, A.Between):
+            v = self._expr(n.value, scope, outer, ctes, scalar_binds, agg_map, key_map)
+            lo = self._expr(n.low, scope, outer, ctes, scalar_binds, agg_map, key_map)
+            hi = self._expr(n.high, scope, outer, ctes, scalar_binds, agg_map, key_map)
+            if n.negated:
+                raise _unsupported("NOT BETWEEN")
+            return Call(BOOLEAN, "between", (v, lo, hi))
         if isinstance(n, A.FunctionCall):
             if n.name in AGG_FUNCS:
                 raise AnalysisError(f"aggregate {n.name} in scalar context")

@@ -6,7 +6,9 @@
   columns and types, predicates, join order, join kinds, ``unique``
   flags, keys, the keys/passengers split, aggregates and their value
   bounds, sort keys — and the same planned join and aggregation
-  strategies, at sf 0.01 and at SF1 (plans only: no data is generated);
+  strategies (``fused`` on the leaf route), for TPC-H Q1, Q3, Q6 and Q10
+  and SSB Q1.1, at sf 0.01 and at SF1 (plans only: no data is
+  generated);
 - constructs outside the ported subset raise ``NotSupported`` naming
   them.
 Exact comparisons throughout.
@@ -16,6 +18,8 @@ import dataclasses
 
 import pytest
 
+from presto_tpu.connectors.ssb import SsbConnector as JSsb
+from presto_tpu.connectors.ssb.queries import QUERIES as SSB
 from presto_tpu.connectors.tpch import TpchConnector as JConnector
 from presto_tpu.connectors.tpch.queries import QUERIES
 from presto_tpu.exec.leaf_route import agg_strategy_for as j_agg_strategy
@@ -24,6 +28,7 @@ from presto_tpu.plan.bounds import agg_value_bits as j_value_bits
 from presto_tpu.plan.joinfilters import planned_join_strategy as j_join_strategy
 from presto_tpu.runtime.session import Session as JSession
 from presto_tpu.sql.parser import parse as jparse
+from presto_tpu_torch.connectors.ssb import SsbConnector as PSsb
 from presto_tpu_torch.connectors.tpch import TpchConnector as PConnector
 from presto_tpu_torch.exec.leaf_route import agg_strategy_for as p_agg_strategy
 from presto_tpu_torch.exec.local_planner import planned_join_strategy as p_join_strategy
@@ -82,14 +87,19 @@ def plan_shape(node, catalog, join_strategy, agg_strategy, value_bits):
 @pytest.fixture(scope="module", params=[0.01, 1])
 def sessions(request):
     sf = request.param
-    return (JSession({"tpch": JConnector(sf=sf)}),
-            PSession({"tpch": PConnector(sf=sf, device="cpu")}, device="cpu"))
+    return (JSession({"tpch": JConnector(sf=sf), "ssb": JSsb(sf=sf)}),
+            PSession({"tpch": PConnector(sf=sf, device="cpu"), "ssb": PSsb(sf=sf, device="cpu")},
+                     device="cpu"))
 
 
-@pytest.mark.parametrize("q", ["q3", "q10"])
+PLANNED = {"q3": QUERIES["q3"], "q10": QUERIES["q10"], "q1": QUERIES["q1"],
+           "q6": QUERIES["q6"], "ssb q1_1": SSB["q1_1"]}
+
+
+@pytest.mark.parametrize("q", list(PLANNED))
 def test_analyzer_builds_the_same_plan(sessions, q):
     js, ps = sessions
-    jplan, pplan = js.plan(QUERIES[q]), ps.plan(QUERIES[q])
+    jplan, pplan = js.plan(PLANNED[q]), ps.plan(PLANNED[q])
     assert isinstance(pplan, PN.Output) and isinstance(jplan, JN.Output)
     want = plan_shape(jplan, js.catalog, j_join_strategy, j_agg_strategy, j_value_bits)
     got = plan_shape(pplan, ps.catalog, p_join_strategy, p_agg_strategy, p_value_bits)
@@ -122,7 +132,7 @@ UNSUPPORTED = [
      "subquery"),
     ("select l_orderkey, rank() over (order by l_quantity) from lineitem", "window"),
     ("select distinct l_returnflag from lineitem", "DISTINCT"),
-    ("select avg(l_quantity) from lineitem group by l_returnflag", "avg"),
+    ("select stddev(l_quantity) from lineitem group by l_returnflag", "stddev"),
     ("select l_orderkey from lineitem where l_comment like '%a%'", "Like"),
     ("with t as (select 1 as x from nation) select x from t", "WITH"),
     ("select n_name from nation union all select r_name from region", "SetQuery"),
@@ -137,14 +147,16 @@ def test_constructs_outside_the_slice_raise_naming_them(sql, what):
         ps.sql(sql)
 
 
-OTHER_QUERIES = sorted((q for q in QUERIES if q not in ("q3", "q10")), key=lambda q: int(q[1:]))
+OTHER_QUERIES = sorted((q for q in QUERIES if q not in ("q1", "q3", "q6", "q10")),
+                       key=lambda q: int(q[1:]))
 
 
 @pytest.mark.parametrize("q", OTHER_QUERIES)
 def test_other_tpch_queries_refuse_rather_than_answer(q):
     """Every TPC-H query outside the slice raises NotSupported (none
     returns a silently wrong answer); Q3 and Q10 are compared with the
-    reference in tests/test_torch_q3.py."""
+    reference in tests/test_torch_q3.py, Q1 and Q6 in
+    tests/test_torch_leaf_route.py."""
     ps = PSession({"tpch": PConnector(sf=0.01, device="cpu")}, device="cpu")
     with pytest.raises(NotSupported, match="not ported"):
         ps.sql(QUERIES[q])
