@@ -33,7 +33,20 @@ one CUDA card, and exits nonzero on any failure. Phases:
    fallback), each equal to an exact numpy recomputation, and equal
    again with ``narrow_storage`` off (the generic operators); then the
    leaf kernel is timed as in phase 5 at the first Q6 split, and over a
-   resident SF1 x10 ``lineitem``.
+   resident SF1 x10 ``lineitem``;
+8. the string predicates at SF1: TPC-H Q9 and SSB ``q_like_part`` and
+   ``q_like_phone`` through ``Session.sql``, each in a session holding
+   only its own connector (the LIKE kernel once per split of the
+   filtered table, then the leaf kernel on ``lineorder`` for
+   ``q_like_part`` and the join probes on ``lineitem`` for Q9, no
+   fallback), each equal to an exact int64 numpy recomputation, with the
+   wall of a first and a second run and the device busy time of a third;
+   then ``starts_with(p_name, 'forest')`` over ``part`` through the scan
+   -> FilterProject pipeline (the prefix kernel once per split), equal to
+   ``p_name like 'forest%'`` and to Python's ``str.startswith``; then the
+   LIKE kernel is timed as in phase 5 at the first Q9 ``part`` split and
+   over SF1 ``o_comment``, and the prefix kernel at the first ``part``
+   split of the pipeline.
 
 The card's name and power limit come first and again before the last
 lines, which are one JSON line ``{"kernels": [...]}`` and
@@ -44,6 +57,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -57,13 +71,13 @@ from presto_tpu_torch.batch import Batch, Column
 from presto_tpu_torch.connectors.tpch import TpchConnector
 from presto_tpu_torch.connectors.tpch.queries import QUERIES
 from presto_tpu_torch.expr import evaluate, evaluate_predicate
-from presto_tpu_torch.ops import _build, cuda_agg, cuda_groupby, cuda_join, cuda_q1
+from presto_tpu_torch.ops import _build, cuda_agg, cuda_groupby, cuda_join, cuda_q1, cuda_strings
 from presto_tpu_torch.ops.groupby import group_ids_direct, lane_sum_inputs
 from presto_tpu_torch.runtime.metrics import COUNTERS
 from presto_tpu_torch.runtime.session import Session
 from presto_tpu_torch.types import DATE, decimal, torch_dtype_of, varchar
 from presto_tpu_torch.workloads import (
-    Q1_BITS, Q1_COLS, q1_aggs, q1_exprs, q1_fused_step, q1_pipeline)
+    Q1_BITS, Q1_COLS, part_name_pipeline, q1_aggs, q1_exprs, q1_fused_step, q1_pipeline)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 INT_OPS_PER_S = 67e12  # H100 SXM non-tensor 32-bit rate (the fp32 figure)
@@ -952,6 +966,373 @@ def run_leaf_queries(flush: torch.Tensor, sf: float = 1, device: str = "cuda") -
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 2 and 8: string predicates on byte columns
+# ---------------------------------------------------------------------------
+
+LIKE_ALPHABET = b"ab10"
+PREFIXES = ["", "a", "ab", "1a0", "aaaaaaaa", "b" * 80]
+# every LIKE pattern of the two query sets over its own SF1 column:
+# (name, connector key, table, column, LIKE patterns, prefixes)
+SF1_STRING_COLUMNS = [
+    ("TPC-H p_name", "tpch", "part", "p_name", ["%green%", "forest%"], ["forest"]),
+    ("TPC-H o_comment", "tpch", "orders", "o_comment", ["%special%requests%"], []),
+    ("TPC-H s_comment", "tpch", "supplier", "s_comment", ["%Customer%Complaints%"], []),
+    ("SSB p_name", "ssb", "part", "p_name", ["%sky%"], []),
+    ("SSB c_name", "ssb", "customer", "c_name", ["Customer%1"], []),
+]
+
+
+def like_patterns() -> list:
+    """The LIKE pattern set: the fixed shapes (empty, only wildcards, an
+    exact literal, prefix, suffix, both anchors, ordered segments,
+    repeated bytes for the greedy rule, '%1' for the suffix rule, a
+    segment longer than any width), then 16 random ones from a seed."""
+    fixed = ["", "%", "%%", "ab", "ab%", "%ab", "a%b", "%a%b%",
+             "%aa%", "%aa%a%", "aa%aa", "%aaa", "a%a", "%1", "1%1", "%01%1",
+             "%" + "a" * 80 + "%", "a" * 80, "a" * 80 + "%", "%" + "b" * 80]
+    rng = np.random.default_rng(4)
+    out = list(fixed)
+    while len(out) < len(fixed) + 16:
+        segs = ["".join(chr(c) for c in rng.choice(list(LIKE_ALPHABET), rng.integers(0, 3)))
+                for _ in range(rng.integers(1, 4))]
+        p = "%".join(segs)
+        if p not in out:
+            out.append(p)
+    return out
+
+
+def string_rows(width: int, cap: int, seed: int) -> np.ndarray:
+    """[cap, width] uint8: zero-padded strings over a small alphabet (so
+    the patterns hit), '011' rows for the suffix rule, and about 6 % dead
+    rows of arbitrary bytes, zeros inside them included (a row's length
+    is its count of nonzero bytes)."""
+    rng = np.random.default_rng(seed)
+    out = rng.choice(np.frombuffer(LIKE_ALPHABET, np.uint8), size=(cap, width))
+    lens = rng.integers(0, width + 1, cap)
+    out[np.arange(width)[None, :] >= lens[:, None]] = 0
+    k = min(width, 3)
+    out[::17, :] = 0
+    out[::17, :k] = np.frombuffer(b"011", np.uint8)[:k]
+    dead = rng.random(cap) < 0.06
+    out[dead] = rng.integers(0, 256, (int(dead.sum()), width))
+    return out
+
+
+def small_capacity(width: int) -> int:
+    """A row count under 2^10 and not a multiple of 256 for every width
+    up to 256 (a last tile that is partial)."""
+    return 1021 - 3 * width
+
+
+def like_oracle(texts: list, pattern: str) -> np.ndarray:
+    """LIKE with '%' over decoded strings by Python's ``re``."""
+    rx = re.compile(".*".join(re.escape(s) for s in pattern.split("%")), re.DOTALL)
+    return np.fromiter((rx.fullmatch(t) is not None for t in texts), np.bool_, len(texts))
+
+
+def column_rows(conn, table: str, column: str) -> np.ndarray:
+    """A BYTES column of the whole table, zero-padded to its schema width
+    as the scans deliver it."""
+    a = conn.table_numpy(table, [column])[column]
+    out = np.zeros((a.shape[0], conn.schema(table)[column].width), np.uint8)
+    out[:, : a.shape[1]] = a
+    return out
+
+
+def _mask_err(got: torch.Tensor, want: torch.Tensor, what: str) -> int:
+    check(got.dtype == torch.bool and got.shape == want.shape,
+          f"{what}: {got.dtype}{tuple(got.shape)} != {want.dtype}{tuple(want.shape)}")
+    d = int((got.to(torch.int8) - want.to(device=got.device, dtype=torch.int8)).abs().max()) \
+        if got.numel() else 0
+    check(d == 0, f"{what}: differs from the plain version")
+    return d
+
+
+def check_string_kernels(connectors) -> tuple:
+    """Phase 2 for the LIKE and prefix kernels: the pattern set over
+    widths 1 to 256 at capacities that are not multiples of 256, then
+    every LIKE pattern of the query sets over its own SF1 column, each
+    against the plain version and, on the SF1 columns, Python's ``re``.
+    Returns (LIKE max error, prefix max error, SF1 columns on the card)."""
+    like_err = prefix_err = 0
+    for width in (1, 7, 22, 55, 79, 256):
+        for cap in (small_capacity(width), (1 << 17) + 3):
+            data = _t(string_rows(width, cap, width + cap))
+            for p in like_patterns():
+                like_err = max(like_err, _mask_err(
+                    cuda_strings.like_mask(data, p), cuda_strings.like_mask_plain(data, p),
+                    f"like_mask {p!r} W={width} cap {cap}"))
+            for p in PREFIXES:
+                prefix_err = max(prefix_err, _mask_err(
+                    cuda_strings.starts_with_mask(data, p),
+                    cuda_strings.starts_with_mask_plain(data, p),
+                    f"starts_with_mask {p!r} W={width} cap {cap}"))
+        torch.cuda.synchronize()
+    log(f"  like_mask: {len(like_patterns())} patterns, starts_with_mask: {len(PREFIXES)} "
+        "prefixes, widths 1, 7, 22, 55, 79, 256 at 2 capacities each: equal to plain")
+    for p in ("a_b", "%_"):
+        try:
+            cuda_strings.like_mask(data, p)
+        except NotImplementedError:
+            continue
+        raise RuntimeError(f"like_mask accepted {p!r}")
+    columns = {}
+    for name, key, table, column, patterns, prefixes in SF1_STRING_COLUMNS:
+        rows = column_rows(connectors[key], table, column)
+        data = _t(rows)
+        columns[name] = data
+        texts = _text(rows)
+        for p in patterns:
+            got = cuda_strings.like_mask(data, p)
+            like_err = max(like_err, _mask_err(got, cuda_strings.like_mask_plain(data, p),
+                                               f"like_mask {name} {p!r}"))
+            want = torch.from_numpy(like_oracle(texts, p))
+            check(torch.equal(got.cpu(), want), f"like_mask {name} {p!r} differs from re")
+            log(f"  like_mask {name} [{data.shape[0]}, {data.shape[1]}] {p!r}: equal to plain "
+                f"and to re, {int(want.sum())} rows match")
+        for p in prefixes:
+            got = cuda_strings.starts_with_mask(data, p)
+            prefix_err = max(prefix_err, _mask_err(
+                got, cuda_strings.starts_with_mask_plain(data, p), f"starts_with {name} {p!r}"))
+            want = torch.tensor([t.startswith(p) for t in texts])
+            check(torch.equal(got.cpu(), want), f"starts_with {name} {p!r} differs from str")
+            log(f"  starts_with_mask {name} {p!r}: equal to plain and to str.startswith, "
+                f"{int(want.sum())} rows match")
+    return like_err, prefix_err, columns
+
+
+def q9_expected(conn) -> dict:
+    """TPC-H Q9 recomputed in int64 numpy: green parts by Python's ``in``,
+    each join an exact key lookup (partsupp's on the pair of keys), the
+    profit at scale 4 (ep * (100 - disc) - supplycost * qty), grouped by
+    nation name and order year, sorted by nation and year descending."""
+    p = conn.table_numpy("part", ["p_partkey", "p_name"])
+    green = np.array(["green" in t for t in _text(p["p_name"])], dtype=bool)
+    parts = np.sort(p["p_partkey"][green])
+    li = conn.table_numpy("lineitem", ["l_orderkey", "l_partkey", "l_suppkey", "l_quantity",
+                                       "l_extendedprice", "l_discount"])
+    m = _lookup(parts, li["l_partkey"])[1]
+    li = {k: v[m] for k, v in li.items()}
+    s = conn.table_numpy("supplier", ["s_suppkey", "s_nationkey"])
+    so = np.argsort(s["s_suppkey"])
+    spos, shit = _lookup(s["s_suppkey"][so], li["l_suppkey"])
+    n = conn.table_numpy("nation", ["n_nationkey", "n_name"])
+    no = np.argsort(n["n_nationkey"])
+    npos, nhit = _lookup(n["n_nationkey"][no], s["s_nationkey"][so][spos])
+    ps = conn.table_numpy("partsupp", ["ps_partkey", "ps_suppkey", "ps_supplycost"])
+    mult = int(max(ps["ps_suppkey"].max(), li["l_suppkey"].max(initial=0))) + 1
+    pk = ps["ps_partkey"].astype(np.int64) * mult + ps["ps_suppkey"]
+    po = np.argsort(pk)
+    ppos, phit = _lookup(pk[po], li["l_partkey"].astype(np.int64) * mult + li["l_suppkey"])
+    o = conn.table_numpy("orders", ["o_orderkey", "o_orderdate"])
+    oo = np.argsort(o["o_orderkey"])
+    opos, ohit = _lookup(o["o_orderkey"][oo], li["l_orderkey"])
+    hit = shit & nhit & phit & ohit
+    qty, ep, disc = (li[c].astype(np.int64)[hit]
+                     for c in ("l_quantity", "l_extendedprice", "l_discount"))
+    amount = ep * (100 - disc) - ps["ps_supplycost"][po][ppos][hit].astype(np.int64) * qty
+    days_ = o["o_orderdate"][oo][opos][hit].astype(np.int64)
+    year = (np.datetime64("1970-01-01", "D") + days_).astype("datetime64[Y]").astype(np.int64) + 1970
+    code = n["n_name"][no][npos][hit].astype(np.int64)  # dictionary codes sort as the names
+    keys, inv = np.unique(code * 10000 + year, return_inverse=True)
+    sums = np.zeros(keys.size, np.int64)
+    np.add.at(sums, inv, amount)
+    kc, ky = keys // 10000, keys % 10000
+    order = np.lexsort((-ky, kc))
+    names = conn.dictionaries("nation")["n_name"].values
+    return {"nation": list(names[kc[order]]), "o_year": ky[order], "sum_profit": sums[order]}
+
+
+def like_part_expected(conn) -> dict:
+    """SSB ``q_like_part``: count and revenue of the lineorder rows whose
+    part name contains 'sky' (Python's ``in``)."""
+    p = conn.table_numpy("part", ["p_partkey", "p_name"])
+    sky = np.sort(p["p_partkey"][np.array(["sky" in t for t in _text(p["p_name"])], bool)])
+    lo = conn.table_numpy("lineorder", ["lo_partkey", "lo_revenue"])
+    m = _lookup(sky, lo["lo_partkey"])[1]
+    return {"cnt": np.array([int(m.sum())]),
+            "revenue": np.array([int(lo["lo_revenue"][m].astype(np.int64).sum())])}
+
+
+def like_phone_expected(conn) -> dict:
+    """SSB ``q_like_phone``: lineorder rows per customer region, for the
+    customers whose name matches 'Customer%1' (Python's ``re``) and whose
+    phone does not start with '33'; regions in name order."""
+    c = conn.table_numpy("customer", ["c_custkey", "c_name", "c_region", "c_phone"])
+    keep = like_oracle(_text(c["c_name"]), "Customer%1")
+    keep &= np.array([t[:2] != "33" for t in _text(c["c_phone"])], bool)
+    order = np.argsort(c["c_custkey"][keep])
+    keys, regions = c["c_custkey"][keep][order], c["c_region"][keep][order]
+    lo = conn.table_numpy("lineorder", ["lo_custkey"])
+    pos, hit = _lookup(keys, lo["lo_custkey"])
+    names = conn.dictionaries("customer")["c_region"].values
+    counts = np.bincount(regions[pos[hit]].astype(np.int64), minlength=len(names))
+    present = np.flatnonzero(counts)
+    return {"c_region": list(names[present]), "cnt": counts[present]}
+
+
+def prefix_rows_expected(conn, prefix: str) -> np.ndarray:
+    """Sorted part keys whose name starts with ``prefix`` (``str``)."""
+    p = conn.table_numpy("part", ["p_partkey", "p_name"])
+    return np.sort(p["p_partkey"][np.array([t.startswith(prefix) for t in _text(p["p_name"])],
+                                           bool)])
+
+
+def pipeline_keys(pipe) -> np.ndarray:
+    """Sorted ``p_partkey`` of the live rows a part pipeline emits."""
+    parts = [b["p_partkey"].data[b.live].to(torch.int64).cpu().numpy() for b in pipe.run()]
+    return np.sort(np.concatenate(parts)) if parts else np.zeros(0, np.int64)
+
+
+def _reset_launches() -> None:
+    cuda_q1.launches = cuda_groupby.launches = cuda_agg.launches = 0
+    cuda_join.exists_launches = cuda_join.payload_launches = 0
+    cuda_strings.like_launches = cuda_strings.prefix_launches = 0
+
+
+def _launch_counts() -> dict:
+    return {"q1": cuda_q1.launches, "lane_sums": cuda_groupby.launches,
+            "leaf_agg": cuda_agg.launches, "exists": cuda_join.exists_launches,
+            "payload": cuda_join.payload_launches, "like": cuda_strings.like_launches,
+            "prefix": cuda_strings.prefix_launches}
+
+
+# each query at SF1: (connector key, the table LIKE filters, the other
+# kernels it must launch once per split of the named table: Q9's part and
+# nation joins probe the lineitem stream, q_like_part folds its join into
+# the leaf route, q_like_phone's 5-group count takes the direct route)
+STRING_QUERIES = {
+    "q9": ("tpch", "part", {"exists": "lineitem", "payload": "lineitem"}),
+    "ssb q_like_part": ("ssb", "part", {"leaf_agg": "lineorder"}),
+    "ssb q_like_phone": ("ssb", "customer", {"lane_sums": "lineorder"}),
+}
+
+
+def run_string_queries(connectors: dict, sf: float = 1, device: str = "cuda") -> dict:
+    """Phase 8: Q9, ``q_like_part`` and ``q_like_phone`` at SF1 through
+    Session.sql, each in a session holding only its own connector, then
+    the ``starts_with`` pipeline over ``part``. Returns the launch counts,
+    walls and the inputs the kernels were given (for phase 5)."""
+    from presto_tpu_torch.connectors.ssb.queries import QUERIES as SSB
+
+    t0 = time.perf_counter()
+    want = {"q9": q9_expected(connectors["tpch"]),
+            "ssb q_like_part": like_part_expected(connectors["ssb"]),
+            "ssb q_like_phone": like_phone_expected(connectors["ssb"])}
+    log(f"phase 8: numpy recomputation of Q9, q_like_part and q_like_phone at SF{sf:g} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    sqls = {"q9": QUERIES["q9"], "ssb q_like_part": SSB["q_like_part"],
+            "ssb q_like_phone": SSB["q_like_phone"]}
+    captured = {}
+    original_like = cuda_strings.like_mask
+
+    def capture_like(data, pattern):
+        captured.setdefault("like", (data, pattern))  # Q9's first part split
+        return original_like(data, pattern)
+
+    out = {"like_launches": 0, "walls": {}, "launches": {}}
+    for name, (key, ftable, others) in STRING_QUERIES.items():
+        conn = connectors[key]
+        session = Session({key: conn}, device=device)
+        cuda_strings.like_mask = capture_like if name == "q9" else original_like
+        try:
+            COUNTERS.clear()
+            _reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = session.sql(sqls[name])
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t0
+            n = _launch_counts()
+            route = dict(COUNTERS)
+        finally:
+            cuda_strings.like_mask = original_like
+        same_result(res, want[name], f"{name} at SF{sf:g}")
+        splits = len(conn.splits(ftable))
+        check(n["like"] == splits, f"{name}: {n['like']} LIKE launches for {splits} "
+              f"{ftable} splits")
+        for kernel, table in others.items():
+            k = len(conn.splits(table))
+            check(n[kernel] == k, f"{name}: {n[kernel]} {kernel} launches for {k} {table} splits")
+        fallbacks = {k: v for k, v in route.items()
+                     if k.startswith(("join.pallas_fallback", "exec.leaf_route_fallback"))}
+        check(not fallbacks, f"{name}: fallbacks counted {fallbacks}")
+        out["like_launches"] += n["like"]
+        out["launches"][name] = n
+        t0 = time.perf_counter()
+        again = session.sql(sqls[name])
+        torch.cuda.synchronize()
+        second = time.perf_counter() - t0
+        same_result(again, want[name], f"{name} at SF{sf:g}, second run")
+        busy_ms, scan_s = wall_breakdown(session, conn, sqls[name])
+        out["walls"][name] = (first, second, busy_ms, scan_s)
+        log(f"  {name}: {len(res)} rows equal to numpy; wall first {first:.3f} s, second "
+            f"{second:.3f} s; launches { {k: v for k, v in n.items() if v} }; routes "
+            f"{ {k: v for k, v in route.items() if k.startswith(('exec.', 'agg.', 'join.'))} }")
+        log(f"  {name} breakdown (a third, profiled run): device busy {busy_ms:.1f} ms, "
+            f"connector scans (host generation + copy to the card) {scan_s:.3f} s")
+
+    # starts_with over part through the scan -> FilterProject pipeline
+    tconn = connectors["tpch"]
+    original_prefix = cuda_strings.starts_with_mask
+
+    def capture_prefix(data, prefix):
+        captured.setdefault("prefix", (data, prefix))
+        return original_prefix(data, prefix)
+
+    want_keys = prefix_rows_expected(tconn, "forest")
+    cuda_strings.starts_with_mask = capture_prefix
+    try:
+        _reset_launches()
+        t0 = time.perf_counter()
+        got = pipeline_keys(part_name_pipeline(tconn, "starts_with", "forest"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = _launch_counts()
+    finally:
+        cuda_strings.starts_with_mask = original_prefix
+    splits = len(tconn.splits("part"))
+    check(n["prefix"] == splits and n["like"] == 0,
+          f"starts_with pipeline: {n['prefix']} prefix launches for {splits} part splits")
+    check(np.array_equal(got, want_keys), "starts_with pipeline differs from str.startswith")
+    like_keys = pipeline_keys(part_name_pipeline(tconn, "like", "forest%"))
+    check(np.array_equal(got, like_keys), "starts_with pipeline differs from like 'forest%'")
+    out["prefix_launches"] = n["prefix"]
+    log(f"  starts_with(p_name, 'forest') pipeline: {got.size} rows equal to str.startswith "
+        f"and to p_name like 'forest%'; wall {wall:.3f} s; prefix launches {n['prefix']} "
+        f"({splits} part splits)")
+    out["captured"] = captured
+    return out
+
+
+def time_like(data: torch.Tensor, pattern: str, flush) -> dict:
+    """Phase 5 numbers of the LIKE kernel on ``data``: its bound counts
+    each row read once and one bool written, and one byte comparison per
+    byte read (the least any matcher does)."""
+    fn = lambda: cuda_strings.like_mask(data, pattern)  # noqa: E731
+    plain = lambda: cuda_strings.like_mask_plain(data, pattern)  # noqa: E731
+    err = _mask_err(fn(), plain(), f"like_mask {pattern!r} at phase 5")
+    n, w = data.shape
+    return {"ms": device_ms(fn, 50, flush, kernel="like_kernel"), "call_ms": call_ms(fn, 50),
+            "plain_ms": device_ms(plain, 5, flush), "rows": n, "width": w,
+            "pattern": pattern, "bytes": n * (w + 1), "ops": n * w, "err": err}
+
+
+def time_prefix(data: torch.Tensor, prefix: str, flush) -> dict:
+    """Phase 5 numbers of the prefix kernel on ``data``: its bound counts
+    the L prefix bytes of each row read once, one bool written and L
+    comparisons a row."""
+    fn = lambda: cuda_strings.starts_with_mask(data, prefix)  # noqa: E731
+    plain = lambda: cuda_strings.starts_with_mask_plain(data, prefix)  # noqa: E731
+    err = _mask_err(fn(), plain(), f"starts_with_mask {prefix!r} at phase 5")
+    n, w = data.shape
+    length = len(prefix.encode("latin1"))
+    return {"ms": device_ms(fn, 50, flush, kernel="prefix_kernel"), "call_ms": call_ms(fn, 50),
+            "plain_ms": device_ms(plain, 10, flush), "rows": n, "width": w,
+            "prefix": prefix, "bytes": n * (length + 1), "ops": n * length, "err": err}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -984,6 +1365,11 @@ def main() -> int:
     exists_err = check_exists_kernel(rng)
     payload_err = check_payload_kernel(rng)
     leaf_err = check_leaf_agg_kernel(rng)
+    from presto_tpu_torch.connectors.ssb import SsbConnector
+
+    string_conns = {"tpch": TpchConnector(sf=1, device="cuda"),
+                    "ssb": SsbConnector(sf=1, device="cuda")}
+    like_err, prefix_err, sf1_strings = check_string_kernels(string_conns)
 
     # ---- phase 3: resident Q1 at SF1 x10 ----------------------------------
     t0 = time.perf_counter()
@@ -1136,6 +1522,28 @@ def main() -> int:
         log(f"  wall {name}: first {first:.3f} s, second {second:.3f} s, device busy "
             f"{busy:.1f} ms, connector scans {scan:.3f} s")
 
+    strings = run_string_queries(string_conns)
+    like_data, like_pattern = strings["captured"]["like"]
+    lk = time_like(like_data, like_pattern, flush)
+    lk_big = time_like(sf1_strings["TPC-H o_comment"], "%special%requests%", flush)
+    prefix_data, prefix = strings["captured"]["prefix"]
+    px = time_prefix(prefix_data, prefix, flush)
+    like_bound, like_by = bound(lk["bytes"], lk["ops"])
+    big_bound, _ = bound(lk_big["bytes"], lk_big["ops"])
+    prefix_bound, prefix_by = bound(px["bytes"], px["ops"])
+    log(f"phase 5, string kernels (kernel device ms; call = wrapper, events; plain = device "
+        f"ms of all its kernels; no single PyTorch call computes either): like_mask "
+        f"{lk['pattern']!r} at phase 8's first Q9 part split [{lk['rows']}, {lk['width']}] "
+        f"{lk['ms']:.4f} (call {lk['call_ms']:.4f}, plain {lk['plain_ms']:.4f}, bound "
+        f"{like_bound:.4f}); over SF1 o_comment [{lk_big['rows']}, {lk_big['width']}] "
+        f"{lk_big['pattern']!r} {lk_big['ms']:.4f} (call {lk_big['call_ms']:.4f}, plain "
+        f"{lk_big['plain_ms']:.4f}, bound {big_bound:.4f}); starts_with_mask {px['prefix']!r} "
+        f"at the pipeline's first part split [{px['rows']}, {px['width']}] {px['ms']:.4f} "
+        f"(call {px['call_ms']:.4f}, plain {px['plain_ms']:.4f}, bound {prefix_bound:.4f})")
+    for name, (first, second, busy, scan) in strings["walls"].items():
+        log(f"  wall {name}: first {first:.3f} s, second {second:.3f} s, device busy "
+            f"{busy:.1f} ms, connector scans {scan:.3f} s")
+
     log(smi[0])
     kernels = [
         {"name": "q1_step", "route": "cuda", "source": "presto_tpu_torch/csrc/q1.cu",
@@ -1178,6 +1586,26 @@ def main() -> int:
          "library_ms": sp["library_ms"], "rows": sp["rows"], "bytes": sp["bytes"],
          "ops": sp["ops"], "resident_ms": res_["ms"], "resident_bound_ms": res_bound,
          "resident_rows": res_["rows"]},
+        {"name": "like_mask", "route": "cuda", "source": "presto_tpu_torch/csrc/strings.cu",
+         "replaces": "presto_tpu/ops/pallas_strings.py:118",
+         "jax_function": "presto_tpu/ops/pallas_strings.py:190 like_mask_pallas",
+         "launches": strings["like_launches"], "max_abs_err": max(like_err, lk["err"],
+                                                                   lk_big["err"]),
+         "ms": lk["ms"], "kernel_ms": lk["ms"], "call_ms": lk["call_ms"],
+         "plain_ms": lk["plain_ms"], "bound_ms": like_bound, "bound_by": like_by,
+         "library_ms": None, "rows": lk["rows"], "width": lk["width"], "bytes": lk["bytes"],
+         "ops": lk["ops"], "pattern": lk["pattern"], "o_comment_ms": lk_big["ms"],
+         "o_comment_call_ms": lk_big["call_ms"], "o_comment_plain_ms": lk_big["plain_ms"],
+         "o_comment_bound_ms": big_bound, "o_comment_rows": lk_big["rows"]},
+        {"name": "starts_with_mask", "route": "cuda",
+         "source": "presto_tpu_torch/csrc/strings.cu",
+         "replaces": "presto_tpu/ops/pallas_strings.py:246",
+         "jax_function": "presto_tpu/ops/pallas_strings.py:251 starts_with_pallas",
+         "launches": strings["prefix_launches"], "max_abs_err": max(prefix_err, px["err"]),
+         "ms": px["ms"], "kernel_ms": px["ms"], "call_ms": px["call_ms"],
+         "plain_ms": px["plain_ms"], "bound_ms": prefix_bound, "bound_by": prefix_by,
+         "library_ms": None, "rows": px["rows"], "width": px["width"], "bytes": px["bytes"],
+         "ops": px["ops"], "prefix": px["prefix"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev_name,

@@ -33,6 +33,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from presto_tpu_torch.batch import Batch, QueryResult
 from presto_tpu_torch.devices import resolve_device
@@ -51,9 +52,10 @@ from presto_tpu_torch.exec.operators import (
     SortStrategy,
     TopNOperator,
     concat_batches,
+    valid_of,
 )
 from presto_tpu_torch.exec.pipeline import BatchStream, Pipeline, prefetch_iter
-from presto_tpu_torch.expr import InputRef
+from presto_tpu_torch.expr import InputRef, evaluate
 from presto_tpu_torch.ops import cuda_join
 from presto_tpu_torch.ops.groupby import ValueBitsOverflow
 from presto_tpu_torch.plan import nodes as N
@@ -289,16 +291,31 @@ class LocalExecutor:
             raise NotSupported("expansion joins (non-unique build keys) are not ported yet")
         if node.kind not in ("inner", "left"):
             raise NotSupported(f"{node.kind} joins are not ported yet")
-        lkey, rkey, _verify = join_key_exprs(node.left_keys, node.right_keys,
-                                             catalog=self.catalog,
-                                             lnode=node.left, rnode=node.right)
         left = self._exec(node.left)
         # the build side is materialized (the lookup source concatenates
         # it); the probe side streams batch by batch
         right = self._exec(node.right).materialize()
-        # the stats interval of the (single) build key: the dense and
-        # fused-probe decisions both derive from it
-        iv = declared_key_interval(node.right, node.right_keys[0], self.catalog)
+
+        def runtime_minmax(side: int, key):
+            # only a multi-key pair without stats-derived pack widths
+            # pays this: a replay of the probe stream and a readback
+            mn, mx = 0, 0
+            for b in (left if side == 0 else right):
+                v = evaluate(key, b)
+                live = b.live & valid_of(v.valid, b.live)
+                if bool(live.any()):
+                    data = v.data.to(torch.int64)[live]
+                    mn, mx = min(mn, int(data.min())), max(mx, int(data.max()))
+            return mn, mx
+
+        lkey, rkey, _verify = join_key_exprs(node.left_keys, node.right_keys,
+                                             catalog=self.catalog, lnode=node.left,
+                                             rnode=node.right, runtime_minmax=runtime_minmax)
+        # the stats interval of a single build key: the dense and
+        # fused-probe decisions both derive from it; a packed multi-key
+        # build has none and takes the sorted probe, as in the JAX package
+        iv = (declared_key_interval(node.right, node.right_keys[0], self.catalog)
+              if len(node.right_keys) == 1 else None)
         spec = self._pallas_spec(iv, tuple(node.output_right),
                                  {f.name: f.dtype for f in node.right.fields},
                                  node.unique, node.kind)

@@ -4,19 +4,25 @@ Counterpart of ``presto_tpu/expr.py``. Expressions are a small immutable
 IR evaluated eagerly over ``Batch`` columns; every evaluation returns
 ``Val(data, valid)`` so NULL handling is branch-free tensor math.
 
-The ported slices cover the functions TPC-H Q1, Q3, Q6 and Q10 and the
-SSB Q1 flight need: ``add``, ``sub``, ``mul`` over DECIMAL and DATE;
-``div`` in DOUBLE (float32, as in the JAX package; division by zero is
-NULL); the comparisons ``eq``, ``lt``, ``le``, ``gt``, ``ge`` and
-``between`` over numbers, dates and dictionary VARCHAR (a string
-literal is encoded against its peer column's dictionary; an absent
-literal matches nothing under ``eq``); and the Kleene ``and``. BYTES
-columns pass through untouched. A call to any other function raises
-``NotSupported`` naming it.
+The ported slices cover the functions TPC-H Q1, Q3, Q6, Q9 and Q10 and
+the SSB Q1 flight and LIKE queries need: ``add``, ``sub``, ``mul`` over
+DECIMAL and DATE; ``div`` in DOUBLE (float32, as in the JAX package;
+division by zero is NULL); ``cast_bigint``; the comparisons ``eq``,
+``ne``, ``lt``, ``le``, ``gt``, ``ge`` and ``between`` over numbers,
+dates, dictionary VARCHAR (a string literal is encoded against its peer
+column's dictionary; an absent literal matches nothing under ``eq``) and
+fixed-width BYTES (PAD SPACE, against a string literal or another BYTES
+value); the Kleene ``and`` and ``not``; ``year``, ``month`` and ``day``
+of a DATE; and the string functions ``like`` and ``starts_with`` (BYTES
+through the kernels of ``ops/cuda_strings``, dictionary VARCHAR through a
+host regex over the dictionary and a gather by code) and the static
+``substr_<start>_<length>`` over BYTES. A call to any other function
+raises ``NotSupported`` naming it.
 """
 
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass
 from typing import Any, Callable
 
@@ -24,14 +30,19 @@ import numpy as np
 import torch
 
 from presto_tpu_torch.batch import Batch, Dictionary
+from presto_tpu_torch.ops import cuda_strings
+from presto_tpu_torch.ops import strings as ops_strings
 from presto_tpu_torch.runtime.errors import NotSupported
 from presto_tpu_torch.types import (
+    BIGINT,
     BOOLEAN,
     DOUBLE,
+    INTEGER,
     DataType,
     TypeKind,
     common_super_type,
     decimal,
+    fixed_bytes,
     numpy_dtype_of,
 )
 
@@ -268,13 +279,65 @@ register("mul", _t_mul)(_mul_impl)
 register("div", _t_div)(_div_impl)
 
 
+def _t_int(_):
+    return INTEGER
+
+
+def _t_bigint(_):
+    return BIGINT
+
+
+@register("cast_bigint", _t_bigint)
+def _cast_bigint(args: list[Val], out: DataType):
+    """To BIGINT; a DECIMAL drops its fraction by floor division, as the
+    JAX package's ``//`` does."""
+    v = args[0]
+    if v.dtype.kind is TypeKind.DECIMAL:
+        return torch.div(v.data.to(torch.int64), 10**v.dtype.scale,
+                         rounding_mode="floor"), None
+    return v.data.to(torch.int64), None
+
+
+# ---- comparisons ----------------------------------------------------------
+
+
+def _pad_space(d: torch.Tensor) -> torch.Tensor:
+    """SQL CHAR PAD SPACE: the zero padding behind fixed-width values
+    compares as spaces (data never contains a real NUL)."""
+    return torch.where(d == 0, torch.full_like(d, 32), d)
+
+
+def _literal_row(s: str, data: torch.Tensor) -> torch.Tensor:
+    """A string literal as one [W] byte row beside ``data``."""
+    lit = ops_strings.pad_literal(s, data.shape[1])
+    return torch.from_numpy(lit).to(data.device)
+
+
+def _bytes_sign(a: Val, b: Val) -> torch.Tensor:
+    """3-way lexicographic compare involving a BYTES side: an int32 sign
+    per row; the comparisons test it against 0."""
+    bytes_compare = ops_strings.bytes_compare
+    if a.dtype.kind is TypeKind.BYTES and isinstance(b.data, str):
+        lit = _pad_space(_literal_row(b.data, a.data))
+        return bytes_compare(_pad_space(a.data), lit.expand_as(a.data))
+    if b.dtype.kind is TypeKind.BYTES and isinstance(a.data, str):
+        lit = _pad_space(_literal_row(a.data, b.data))
+        return -bytes_compare(_pad_space(b.data), lit.expand_as(b.data))
+    if a.dtype.kind is TypeKind.BYTES and b.dtype.kind is TypeKind.BYTES:
+        w = max(a.data.shape[1], b.data.shape[1])
+
+        def widen(d):
+            return torch.nn.functional.pad(d, (0, w - d.shape[1])) if d.shape[1] < w else d
+
+        return bytes_compare(_pad_space(widen(a.data)), _pad_space(widen(b.data)))
+    raise NotSupported(f"comparing {a.dtype} with {b.dtype} is not ported yet")
+
+
 def _cmp_physicals(a: Val, b: Val):
     """Bring two comparable Vals to a common physical domain. VARCHAR
     codes compare within ONE ordered dictionary (literals were encoded
     against it by ``_encode_string_literals``)."""
     ta, tb = a.dtype, b.dtype
-    if TypeKind.BYTES in (ta.kind, tb.kind):
-        raise NotSupported("comparisons over BYTES strings are not ported yet")
     if TypeKind.VARCHAR in (ta.kind, tb.kind):
         if (a.dictionary is not None and b.dictionary is not None
                 and a.dictionary is not b.dictionary):
@@ -295,6 +358,9 @@ def _cmp_physicals(a: Val, b: Val):
 
 def _cmp(op):
     def impl(args: list[Val], out: DataType):
+        if TypeKind.BYTES in (args[0].dtype.kind, args[1].dtype.kind):
+            sign = _bytes_sign(args[0], args[1])
+            return op(sign, torch.zeros_like(sign)), None
         x, y = _cmp_physicals(args[0], args[1])
         return op(x, y), None
 
@@ -302,6 +368,7 @@ def _cmp(op):
 
 
 register("eq", _t_bool)(_cmp(lambda x, y: x == y))
+register("ne", _t_bool)(_cmp(lambda x, y: x != y))
 register("lt", _t_bool)(_cmp(lambda x, y: x < y))
 register("le", _t_bool)(_cmp(lambda x, y: x <= y))
 register("gt", _t_bool)(_cmp(lambda x, y: x > y))
@@ -325,12 +392,134 @@ def _and(args: list[Val], out: DataType):
     return true_a & true_b, (a.valid & b.valid) | false_a | false_b
 
 
+@register("not", _t_bool)
+def _not(args: list[Val], out: DataType):
+    """Kleene NOT: NULL stays NULL (the argument's validity carries)."""
+    return ~args[0].data, None
+
+
+# ---- dates ----------------------------------------------------------------
+
+
+def _floordiv(x: torch.Tensor, d: int) -> torch.Tensor:
+    return torch.div(x, d, rounding_mode="floor")
+
+
+def civil_from_days(days: torch.Tensor):
+    """Days since 1970-01-01 -> (year, month, day), int32: the civil
+    calendar algorithm (Hinnant) with floor division, as in the JAX
+    package."""
+    z = days.to(torch.int32) + 719468
+    era = _floordiv(z, 146097)
+    doe = z - era * 146097
+    yoe = _floordiv(doe - _floordiv(doe, 1460) + _floordiv(doe, 36524)
+                    - _floordiv(doe, 146096), 365)
+    y = yoe + era * 400
+    doy = doe - (365 * yoe + _floordiv(yoe, 4) - _floordiv(yoe, 100))
+    mp = _floordiv(5 * doy + 2, 153)
+    d = doy - _floordiv(153 * mp + 2, 5) + 1
+    m = torch.where(mp < 10, mp + 3, mp - 9)
+    y = torch.where(m <= 2, y + 1, y)
+    return y, m, d
+
+
+def _days_of(v: Val) -> torch.Tensor:
+    if v.dtype.kind is not TypeKind.DATE:
+        raise NotSupported(f"date fields of {v.dtype} are not ported yet")
+    return v.data
+
+
+@register("year", _t_int)
+def _year(args: list[Val], out: DataType):
+    return civil_from_days(_days_of(args[0]))[0], None
+
+
+@register("month", _t_int)
+def _month(args: list[Val], out: DataType):
+    return civil_from_days(_days_of(args[0]))[1], None
+
+
+@register("day", _t_int)
+def _day(args: list[Val], out: DataType):
+    return civil_from_days(_days_of(args[0]))[2], None
+
+
+# ---- string predicates on dictionary / bytes columns ----------------------
+
+
+def _like_to_regex(pattern: str) -> str:
+    out = []
+    for ch in pattern:
+        if ch == "%":
+            out.append(".*")
+        elif ch == "_":
+            out.append(".")
+        else:
+            out.append(re.escape(ch))
+    return "^" + "".join(out) + "$"
+
+
+def _dict_predicate(target: Val, pred, what: str) -> torch.Tensor:
+    """A host predicate over the dictionary's values, gathered by code on
+    the device (a scan over distinct values, not rows)."""
+    d = target.dictionary
+    if d is None:
+        raise NotSupported(f"{what} on dictionary-less VARCHAR is not ported yet")
+    table = np.fromiter((pred(v) for v in d.values), dtype=np.bool_, count=len(d))
+    t = torch.from_numpy(table).to(target.data.device)
+    # dead rows may hold any code: clamp as a jnp gather would
+    return t[target.data.to(torch.int64).clamp(0, max(len(d) - 1, 0))]
+
+
+@register("like", _t_bool)
+def _like(args: list[Val], out: DataType):
+    """like(col, pattern literal). BYTES: the LIKE kernel; dictionary
+    VARCHAR: a host regex over the dictionary, then a gather by code."""
+    target, pat = args
+    if target.dtype.kind is TypeKind.BYTES:
+        return cuda_strings.like_mask(target.data, pat.data), None
+    rx = re.compile(_like_to_regex(pat.data))
+    return _dict_predicate(target, lambda v: rx.match(v) is not None, "LIKE"), None
+
+
+@register("starts_with", _t_bool)
+def _starts_with(args: list[Val], out: DataType):
+    target, pref = args
+    if target.dtype.kind is TypeKind.BYTES:
+        return cuda_strings.starts_with_mask(target.data, pref.data), None
+    return _dict_predicate(target, lambda v: v.startswith(pref.data), "starts_with"), None
+
+
+def substr_fn(start: int, length: int) -> str:
+    """Register (once) and return the name of a static-bound substr:
+    BYTES(w) -> BYTES(length). SQL is 1-based."""
+    name = f"substr_{start}_{length}"
+    if name not in _REGISTRY:
+
+        def rule(args, _l=length):
+            return fixed_bytes(_l)
+
+        @register(name, rule)
+        def impl(args, out, _s=start, _l=length):
+            if args[0].dtype.kind is not TypeKind.BYTES:
+                raise NotSupported(f"substr over {args[0].dtype} is not ported yet")
+            return ops_strings.substr(args[0].data, _s, _l), None
+
+    return name
+
+
+#: functions whose VARCHAR arguments stay raw strings (patterns, needles)
+_RAW_STRING_ARGS = ("like", "starts_with")
+
+
 def _encode_string_literals(fn: str, args: list[Val]) -> list[Val]:
     """Encode host-side VARCHAR literals against a sibling's dictionary
     (the JAX package's rule). Codes are string order, so a literal
     absent from the dictionary maps to its insertion point for the
     range comparisons and to the impossible code ``len(dictionary)``
     for ``eq``: it matches nothing."""
+    if fn in _RAW_STRING_ARGS:
+        return args
     dictionary = next((a.dictionary for a in args if a.dictionary is not None), None)
     if dictionary is None:
         return args

@@ -1,21 +1,24 @@
 """Semantic analysis: AST -> typed logical plan (the ported subset).
 
 Counterpart of ``presto_tpu/sql/analyzer.py`` for the SELECT shapes of
-TPC-H Q1, Q3, Q6 and Q10 and the SSB Q1 flight: SELECT / FROM with
-comma joins (and explicit ``JOIN ... ON``) / WHERE conjuncts / GROUP BY
-(or none: one keyless aggregate row) / ORDER BY / LIMIT; ``count``,
-``sum``, ``avg`` (``sum`` / ``count`` in DOUBLE), ``min``, ``max``;
-DECIMAL and DATE arithmetic, comparisons and BETWEEN; ``date '...'``
-literals and ``date +/- interval`` folding.
+TPC-H Q1, Q3, Q6, Q9 and Q10 and the SSB Q1 flight and LIKE queries:
+SELECT / FROM with comma joins (and explicit ``JOIN ... ON``) and derived
+tables (``(SELECT ...) AS alias``) / WHERE conjuncts / GROUP BY (or
+none: one keyless aggregate row) / ORDER BY / LIMIT; ``count``, ``sum``,
+``avg`` (``sum`` / ``count`` in DOUBLE), ``min``, ``max``; DECIMAL and
+DATE arithmetic, comparisons, [NOT] BETWEEN, [NOT] LIKE and NOT;
+``SUBSTRING`` / ``substr`` over BYTES; ``EXTRACT`` (and the functions)
+``year``, ``month`` and ``day``; ``date '...'`` literals and
+``date +/- interval`` folding.
 The relational planning is the JAX package's, copied: predicate
 pushdown into the owning relation, greedy stats-driven join ordering,
 unique-build detection from table keys, and functional-dependency
 grouping (keys covered by a table's unique key ride as passengers), so
 both packages build the same plan tree for the same statement.
 
-Anything else (subqueries, CTEs, set operations, DISTINCT, windows,
-grouping sets, CASE, casts, the scalar function library) raises
-``NotSupported`` naming the construct.
+Anything else (subquery predicates, CTEs, set operations, DISTINCT,
+windows, grouping sets, OR, CASE, casts, the rest of the scalar function
+library) raises ``NotSupported`` naming the construct.
 """
 
 from __future__ import annotations
@@ -26,13 +29,14 @@ from typing import Optional, Sequence
 import numpy as np
 
 from presto_tpu_torch.exec.operators import AggSpec, SortKey
-from presto_tpu_torch.expr import Call, Expr, InputRef, Literal, result_type
+from presto_tpu_torch.expr import Call, Expr, InputRef, Literal, result_type, substr_fn
 from presto_tpu_torch.plan import nodes as N
 from presto_tpu_torch.plan.catalog import Catalog, TableMeta
 from presto_tpu_torch.runtime.errors import NotSupported, UserError
 from presto_tpu_torch.sql import ast as A
 from presto_tpu_torch.types import (
-    BIGINT, BOOLEAN, DATE, DOUBLE, INTEGER, DataType, TypeKind, decimal)
+    BIGINT, BOOLEAN, DATE, DOUBLE, INTEGER, DataType, TypeKind, decimal, fixed_bytes,
+    varchar)
 
 AGG_FUNCS = {"count", "sum", "avg", "min", "max",
              "stddev_samp", "stddev", "var_samp", "variance"}
@@ -322,6 +326,13 @@ class Analyzer:
             rels.append(Rel(binding, scan, Scope(fields), meta,
                             est_rows=float(meta.row_count)))
             return
+        if isinstance(rel, A.SubqueryRelation):
+            binding = rel.alias or self.fresh("subq")
+            if not isinstance(rel.query, A.Query):
+                raise _unsupported(f"{type(rel.query).__name__} in a derived table")
+            plan, sub_scope = self._analyze_query(rel.query, None, ctes)
+            self._add_derived(rels, binding, plan, sub_scope)
+            return
         if isinstance(rel, A.Join):
             if rel.kind != "inner" and rel.kind != "cross":
                 raise _unsupported(f"{rel.kind.upper()} JOIN")
@@ -345,6 +356,68 @@ class Analyzer:
                               residual=res, nullable=set()))
             return
         raise _unsupported(f"relation {type(rel).__name__}")
+
+    def _agg_key_outputs(self, node) -> tuple[tuple[str, ...], ...]:
+        """Alternative output-name sets (at ``node``'s level) each
+        unique per row of an Aggregate below — possibly through Project
+        renames / Filters. () when not provably grouped-unique."""
+        mappings: list[dict[str, str]] = []  # out name -> in name
+        while True:
+            if isinstance(node, N.Filter):
+                node = node.child
+                continue
+            if isinstance(node, N.Project):
+                mappings.append({n2: e.name for n2, e in node.exprs
+                                 if isinstance(e, InputRef)})
+                node = node.child
+                continue
+            break
+        if not isinstance(node, N.Aggregate):
+            return ()
+        sets = list(node.unique_sets) or [tuple(n for n, _ in node.keys)]
+        out: list[tuple[str, ...]] = []
+        for names in sets:
+            names = list(names)
+            ok = True
+            for m in reversed(mappings):
+                inv: dict[str, str] = {}
+                for out_n, in_n in m.items():
+                    inv.setdefault(in_n, out_n)
+                mapped = [inv.get(n) for n in names]
+                if any(n is None for n in mapped):
+                    ok = False  # a member is not exposed upward
+                    break
+                names = mapped
+            if ok:
+                out.append(tuple(names))
+        return tuple(out)
+
+    def _add_derived(self, rels, binding, plan, sub_scope):
+        """A derived table as one relation: its Output is stripped and its
+        columns re-projected to FRESH internal names, so two derived tables
+        exposing the same column name never collide."""
+        group_keys = self._agg_key_outputs(
+            plan.child if isinstance(plan, N.Output) else plan)
+        inner = plan.child if isinstance(plan, N.Output) else plan
+        if isinstance(plan, N.Output):
+            exprs = []
+            fields = []
+            iname_of = {}
+            smap = {f.name: f for f in inner.fields}
+            for n, s in zip(plan.names, plan.sources):
+                iname = self.fresh(f"{binding}.{n}")
+                exprs.append((iname, InputRef(smap[s].dtype, s)))
+                fields.append(FieldRef(iname, smap[s].dtype, binding, n, None))
+                iname_of.setdefault(s, iname)
+            inner = N.Project(inner, tuple(exprs))
+            if group_keys:
+                group_keys = tuple(tuple(iname_of.get(k, k) for k in s)
+                                   for s in group_keys)
+        else:
+            fields = [FieldRef(f.name, f.dtype, binding, f.name, None)
+                      for f in plan.fields]
+        rels.append(Rel(binding, inner, Scope(fields), None,
+                        group_keys=group_keys, est_rows=1e5))
 
     # ------------------------------------------------------------------
     # WHERE conjunct classification
@@ -951,18 +1024,70 @@ class Analyzer:
                 t = result_type(fn, [l.dtype, r.dtype])
                 return Call(t, fn, (l, r))
             raise _unsupported(f"operator {n.op!r}")
+        if isinstance(n, A.UnaryOp):
+            if n.op == "not":
+                return Call(BOOLEAN, "not", (self._expr(n.operand, scope, outer, ctes,
+                                                        scalar_binds, agg_map, key_map),))
+            raise _unsupported(f"unary operator {n.op!r}")
         if isinstance(n, A.Between):
             v = self._expr(n.value, scope, outer, ctes, scalar_binds, agg_map, key_map)
             lo = self._expr(n.low, scope, outer, ctes, scalar_binds, agg_map, key_map)
             hi = self._expr(n.high, scope, outer, ctes, scalar_binds, agg_map, key_map)
-            if n.negated:
-                raise _unsupported("NOT BETWEEN")
-            return Call(BOOLEAN, "between", (v, lo, hi))
+            e = Call(BOOLEAN, "between", (v, lo, hi))
+            return Call(BOOLEAN, "not", (e,)) if n.negated else e
+        if isinstance(n, A.Like):
+            v = self._expr(n.value, scope, outer, ctes, scalar_binds, agg_map, key_map)
+            if not isinstance(n.pattern, A.StringLit):
+                raise AnalysisError("LIKE pattern must be a literal")
+            e = Call(BOOLEAN, "like", (v, Literal(varchar(), n.pattern.value)))
+            return Call(BOOLEAN, "not", (e,)) if n.negated else e
+        if isinstance(n, A.Extract):
+            if n.field not in ("year", "month", "day"):
+                raise _unsupported(f"EXTRACT({n.field})")
+            v = self._expr(n.value, scope, outer, ctes, scalar_binds, agg_map, key_map)
+            return Call(INTEGER, n.field, (v,))
+        if isinstance(n, A.Substring):
+            return self._substring(n, scope, outer, ctes, scalar_binds, agg_map, key_map)
         if isinstance(n, A.FunctionCall):
             if n.name in AGG_FUNCS:
                 raise AnalysisError(f"aggregate {n.name} in scalar context")
+            if n.name in ("year", "month", "day"):
+                v = self._expr(n.args[0], scope, outer, ctes, scalar_binds, agg_map, key_map)
+                return Call(INTEGER, n.name, (v,))
+            if n.name == "substr":
+                if len(n.args) not in (2, 3):
+                    raise AnalysisError("substr() expects 2 or 3 arguments")
+                length = None
+                if len(n.args) == 3:
+                    if not isinstance(n.args[2], A.NumberLit):
+                        raise AnalysisError("substr() length must be an integer literal")
+                    length = A.NumberLit(str(int(n.args[2].text)))
+                return self._substring(A.Substring(n.args[0], n.args[1], length), scope,
+                                       outer, ctes, scalar_binds, agg_map, key_map)
             raise _unsupported(f"function {n.name}()")
         raise _unsupported(f"expression {type(n).__name__}")
+
+    def _substring(self, n: A.Substring, scope, outer, ctes, scalar_binds,
+                   agg_map, key_map) -> Expr:
+        """SUBSTRING with literal bounds over a BYTES column (the
+        dictionary VARCHAR transform is not ported)."""
+        v = self._expr(n.value, scope, outer, ctes, scalar_binds, agg_map, key_map)
+        start_node = n.start
+        start_neg = False
+        if isinstance(start_node, A.UnaryOp) and start_node.op == "-":
+            start_neg, start_node = True, start_node.operand
+        if not (isinstance(start_node, A.NumberLit)
+                and (n.length is None or isinstance(n.length, A.NumberLit))):
+            raise AnalysisError("SUBSTRING bounds must be literals")
+        start = -int(start_node.text) if start_neg else int(start_node.text)
+        if v.dtype.kind is TypeKind.VARCHAR:
+            raise _unsupported("SUBSTRING over dictionary VARCHAR")
+        if start < 1:
+            raise AnalysisError("negative SUBSTRING start requires a dictionary VARCHAR")
+        if v.dtype.kind is not TypeKind.BYTES:
+            raise _unsupported(f"SUBSTRING over {v.dtype}")
+        length = int(n.length.text) if n.length is not None else v.dtype.width - start + 1
+        return Call(fixed_bytes(length), substr_fn(start, length), (v,))
 
     def _number(self, text: str) -> Literal:
         if "." in text:

@@ -1,8 +1,12 @@
-"""Hand-built physical plans for the benchmark workloads (TPC-H Q1).
+"""Hand-built physical plans for the benchmark workloads.
 
 Counterpart of ``presto_tpu/workloads.py``: the Q1 leaf fragment as one
 fused step (``q1_fused_step``) and as an operator pipeline
-(``q1_pipeline``), without the SQL front end.
+(``q1_pipeline``), without the SQL front end; and the ``part`` name
+filter of TPC-H Q20's inner query, ``starts_with(p_name, 'forest')``, as
+a scan -> FilterProject pipeline (``part_name_pipeline``): the SQL
+analyzer has no ``starts_with``, so this is where the prefix kernel is
+reached, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ from presto_tpu_torch.exec.pipeline import Pipeline, ScanSource
 from presto_tpu_torch.expr import Call, col, evaluate, evaluate_predicate, lit
 from presto_tpu_torch.ops import cuda_q1
 from presto_tpu_torch.ops.groupby import fused_small_sums, group_ids_direct
-from presto_tpu_torch.types import BIGINT, BOOLEAN, DATE, decimal, varchar
+from presto_tpu_torch.types import BIGINT, BOOLEAN, DATE, decimal, fixed_bytes, varchar
 
 dec2 = decimal(12, 2)
 dec4 = decimal(38, 4)
@@ -68,6 +72,17 @@ def q1_aggs():
 
 def q1_strategy() -> DirectStrategy:
     return DirectStrategy((0, 0), (2, 1), Q1_GROUPS)
+
+
+def part_name_pipeline(conn: TpchConnector, fn: str = "starts_with",
+                       pattern: str = "forest") -> Pipeline:
+    """scan part -> FilterProject keeping ``p_partkey`` of the rows where
+    ``fn(p_name, pattern)`` holds (``starts_with`` or ``like``), on the
+    connector's device."""
+    name = col("p_name", fixed_bytes(55))
+    pred = Call(BOOLEAN, fn, (name, lit(pattern, varchar())))
+    return Pipeline(ScanSource(conn, "part", ["p_partkey", "p_name"]),
+                    [FilterProjectOperator(pred, {"p_partkey": col("p_partkey", BIGINT)})])
 
 
 def q1_pipeline(conn: TpchConnector) -> Pipeline:

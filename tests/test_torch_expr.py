@@ -83,8 +83,9 @@ def test_rescale_rounds_half_away_on_negatives():
 
 def test_unported_function_raises_naming_it():
     pb = port_batch(_jax_batch(np.random.default_rng(0), False))
-    e = PE.Call(BOOLEAN, "ne", (PE.col("l_tax", decimal(12, 2)), PE.lit(0, decimal(12, 2))))
-    with pytest.raises(NotImplementedError, match="'ne'"):
+    ne = PE.Call(BOOLEAN, "ne", (PE.col("l_tax", decimal(12, 2)), PE.lit(0, decimal(12, 2))))
+    e = PE.Call(BOOLEAN, "or", (ne, ne))
+    with pytest.raises(NotImplementedError, match="'or'"):
         PE.evaluate(e, pb)
 
 

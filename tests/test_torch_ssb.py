@@ -6,9 +6,11 @@ package's, at sf 0.01:
   column statistics and unique keys, and NULL-free columns sharing
   ``live``;
 - the SSB queries outside the Q1 flight (which ``test_torch_leaf_route``
-  compares): flights Q2 and ``q3_1``/``q3_2`` run through the port's
-  joins and keyed aggregation and equal the JAX package's frames; the
-  others raise ``NotSupported`` naming the construct they need.
+  compares): flights Q2 and ``q3_1``/``q3_2`` and the LIKE queries
+  ``q_like_part``/``q_like_phone`` run through the port's joins, string
+  kernels' plain versions and keyed aggregation and equal the JAX
+  package's frames; the others raise ``NotSupported`` naming the
+  construct they need.
 """
 
 import dataclasses
@@ -86,9 +88,8 @@ def test_metadata_matches_reference(sf):
     assert PS.DATE_ROWS == JS.DATE_ROWS
 
 
-RUN = ["q2_1", "q2_2", "q2_3", "q3_1", "q3_2"]
-REFUSED = {"q3_3": "or", "q3_4": "or", "q4_1": "or", "q4_2": "or", "q4_3": "or",
-           "q_like_part": "Like", "q_like_phone": "Like"}
+RUN = ["q2_1", "q2_2", "q2_3", "q3_1", "q3_2", "q_like_part", "q_like_phone"]
+REFUSED = {"q3_3": "or", "q3_4": "or", "q4_1": "or", "q4_2": "or", "q4_3": "or"}
 
 
 def test_every_ssb_query_is_classified():
