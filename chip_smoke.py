@@ -46,7 +46,21 @@ one CUDA card, and exits nonzero on any failure. Phases:
    ``p_name like 'forest%'`` and to Python's ``str.startswith``; then the
    LIKE kernel is timed as in phase 5 at the first Q9 ``part`` split and
    over SF1 ``o_comment``, and the prefix kernel at the first ``part``
-   split of the pipeline.
+   split of the pipeline;
+9. semi and anti joins at SF1 through ``Session.sql``: TPC-H Q4 exact
+   (the dense membership probe) and with ``approx_join`` (the sketch
+   kernel once per ``orders`` split, equal to a numpy Bloom oracle and
+   at least the exact count in every group), the JAX tests' ``semi`` and
+   ``anti`` statements exact and approximate (``anti`` stays exact and
+   never launches the sketch), ``semi_anti_part`` (the exists kernel once
+   per ``part`` split for each of its two joins), Q4 at sf 0.01 on the
+   leaf route's membership fold (the leaf kernel once per ``orders``
+   split), each with the walls of a first and a second run, the device
+   busy time of a third and the launches per kernel; then the resident
+   Q3 join step (``workloads.q3_probe_step``, the Q3 kernel) over SF1
+   ``lineitem`` and over SF1 x10, equal to the benchmark's oracle and to
+   its plain version; then the sketch kernel is timed as in phase 5 at
+   Q4's first ``orders`` split and the Q3 kernel at SF1 and SF1 x10.
 
 The card's name and power limit come first and again before the last
 lines, which are one JSON line ``{"kernels": [...]}`` and
@@ -77,7 +91,8 @@ from presto_tpu_torch.runtime.metrics import COUNTERS
 from presto_tpu_torch.runtime.session import Session
 from presto_tpu_torch.types import DATE, decimal, torch_dtype_of, varchar
 from presto_tpu_torch.workloads import (
-    Q1_BITS, Q1_COLS, part_name_pipeline, q1_aggs, q1_exprs, q1_fused_step, q1_pipeline)
+    Q1_BITS, Q1_COLS, Q3_COLS, Q3_CUTOFF, Q3_KEY_MIN, part_name_pipeline, q1_aggs, q1_exprs,
+    q1_fused_step, q1_pipeline, q3_domain, q3_probe_step, q3_probe_table)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 INT_OPS_PER_S = 67e12  # H100 SXM non-tensor 32-bit rate (the fp32 figure)
@@ -300,6 +315,84 @@ def check_payload_kernel(rng) -> int:
                 check(not bool(gm[~plive].any()), "payload_probe: a dead row matched")
             log(f"  payload_probe nval {nval} {dt} [{kmin}, {kmax}] caps 2^16, 2^20, "
                 "1000003: equal to plain")
+    return err
+
+
+def full_range_keys(rng, dtype, n: int) -> np.ndarray:
+    """Keys over the whole range of ``dtype``, its extremes planted."""
+    info = np.iinfo(dtype)
+    k = rng.integers(info.min, info.max, n, endpoint=True).astype(dtype)
+    k[:3] = [info.min, info.max, -1]
+    return k
+
+
+def check_sketch_kernel(rng) -> int:
+    """The sketch kernel against its plain version: keys over the full
+    int8/int16/int32 range, live masks with holes, capacities that are
+    and are not multiples of 1024, Bloom tables of a few thousand live
+    build keys (a fifth of the probe keys planted from the build)."""
+    err = 0
+    for dt in ("int8", "int16", "int32"):
+        for cap in (1000, 1 << 16, 1 << 20, 1_000_003):
+            bk = full_range_keys(rng, dt, 5000)
+            table = cuda_join.build_sketch_table(_t(bk), _t(live_mask(rng, bk.shape[0])))
+            pk = full_range_keys(rng, dt, cap)
+            pk[3: cap // 5] = rng.choice(bk, cap // 5 - 3)
+            plive = _t(live_mask(rng, cap))
+            got = cuda_join.sketch_probe(table, cuda_join.SKETCH_BITS, _t(pk), plive)
+            want = cuda_join.sketch_probe_plain(table, cuda_join.SKETCH_BITS, _t(pk), plive)
+            torch.cuda.synchronize()
+            d = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+            err = max(err, d)
+            check(d == 0, f"sketch_probe {dt} cap {cap}: differs from plain")
+            check(not bool(got[~plive].any()), f"sketch_probe {dt} cap {cap}: a dead row hit")
+        log(f"  sketch_probe {dt} full-range keys, caps 1000, 2^16, 2^20, 1000003: "
+            "equal to plain")
+    return err
+
+
+def check_q3_kernel(rng) -> int:
+    """The Q3 kernel against its plain version: a domain whose bitmask
+    spans several of the JAX package's 16384-word partitions, probe keys
+    below key_min, past the domain and past the padded table, shipdates
+    on both sides of the cutoff, dead rows, several capacities, and the
+    columns in other widths than the connector's."""
+    err = 0
+    domain = 2_000_001  # 62,501 words: 4 partitions of 16384
+    w, nparts = cuda_join.q3_partitions(domain)
+    for cap, widths in ((1000, None), (1 << 16, None), (1 << 20, None), (1_000_003, None),
+                        (1 << 20, ("int32", "int32", "int32", "int16")),
+                        (1 << 16, ("int16", "int8", "int32", "int32"))):
+        key_min = 1 if widths is None or widths[0] != "int16" else -200
+        hi = domain if widths is None or widths[0] != "int16" else 32767
+        bk = rng.integers(key_min, hi, 50_000, endpoint=True)
+        table, oob = cuda_join.build_exists_table(
+            _t(bk.astype(np.int32)), _t(live_mask(rng, bk.shape[0])), key_min, hi,
+            pad_words=w * nparts)
+        check(not bool(oob), "Q3 table: in-domain build flagged oob")
+        kw, sw, ew, dw = widths or ("int32", "int16", "int32", "int8")
+        ki = np.iinfo(kw)
+        keys = rng.integers(max(ki.min, key_min - 5000), min(ki.max, key_min + 32 * w * nparts
+                                                                 + 5000), cap)
+        keys[: cap // 3] = rng.choice(bk, cap // 3)
+        keys[:2] = [ki.min, ki.max]
+        ship = rng.integers(9000, 9400, cap) if sw == "int16" else rng.integers(-50, 60, cap)
+        cut = 9204 if sw == "int16" else 0
+        ep = rng.integers(90000, 10_500_000, cap) if ew == "int32" else rng.integers(0, 120, cap)
+        disc = rng.integers(0, 11, cap)
+        cols = [_t(a.astype(dt)) for a, dt in ((keys, kw), (ship, sw), (ep, ew), (disc, dw))]
+        plive = _t(live_mask(rng, cap))
+        got = cuda_join.q3_probe_step(table, key_min, domain, cut, *cols, plive)
+        want = cuda_join.q3_probe_step_plain(table, key_min, domain, cut, *cols, plive)
+        torch.cuda.synchronize()
+        for g, w_ in zip(got, want):
+            check(g.dtype == torch.int64 and w_.dtype == torch.int64 and g.dim() == 0,
+                  "q3_probe_step: results must be int64 scalars")
+            d = abs(int(g) - int(w_))
+            err = max(err, d)
+            check(d == 0, f"q3_probe_step cap {cap} widths {widths}: differs from plain by {d}")
+        log(f"  q3_probe_step cap {cap}, widths {widths or 'narrow'}: equal to plain "
+            f"({int(got[0])} hits over {w * nparts} words)")
     return err
 
 
@@ -574,14 +667,18 @@ def device_ms(fn, runs: int, flush: torch.Tensor | None = None,
     warnings.filterwarnings("ignore", message=".*Profiler clears events.*")
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            if flush is not None:
-                flush.bitwise_not_()
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if "bitwise_not" not in e.key and (kernel is None or kernel in e.key))
+    total_us = 0
+    for _attempt in range(3):  # a trace can come back without device events: profile again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                if flush is not None:
+                    flush.bitwise_not_()
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                       if "bitwise_not" not in e.key and (kernel is None or kernel in e.key))
+        if total_us > 0:
+            break
     check(total_us > 0, f"the profiler recorded no device time for {kernel or 'fn'}")
     return total_us / runs / 1e3
 
@@ -1188,13 +1285,15 @@ def pipeline_keys(pipe) -> np.ndarray:
 def _reset_launches() -> None:
     cuda_q1.launches = cuda_groupby.launches = cuda_agg.launches = 0
     cuda_join.exists_launches = cuda_join.payload_launches = 0
+    cuda_join.sketch_launches = cuda_join.q3_launches = 0
     cuda_strings.like_launches = cuda_strings.prefix_launches = 0
 
 
 def _launch_counts() -> dict:
     return {"q1": cuda_q1.launches, "lane_sums": cuda_groupby.launches,
             "leaf_agg": cuda_agg.launches, "exists": cuda_join.exists_launches,
-            "payload": cuda_join.payload_launches, "like": cuda_strings.like_launches,
+            "payload": cuda_join.payload_launches, "sketch": cuda_join.sketch_launches,
+            "q3": cuda_join.q3_launches, "like": cuda_strings.like_launches,
             "prefix": cuda_strings.prefix_launches}
 
 
@@ -1333,6 +1432,287 @@ def time_prefix(data: torch.Tensor, prefix: str, flush) -> dict:
             "prefix": prefix, "bytes": n * (length + 1), "ops": n * length, "err": err}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: semi and anti joins, the approximate sketch, the Q3 join step
+# ---------------------------------------------------------------------------
+
+SEMI_SQL = {
+    "semi": ("select count(*) c from lineitem where l_orderkey in "
+             "(select o_orderkey from orders where o_orderdate < date '1995-03-15')"),
+    "anti": ("select count(*) c from lineitem where l_orderkey not in "
+             "(select o_orderkey from orders where o_orderdate >= date '1998-01-01')"),
+    "semi_anti_part": ("select p_partkey, p_size from part where p_partkey in "
+                       "(select ps_partkey from partsupp where ps_availqty < 100) "
+                       "and p_partkey not in (select l_partkey from lineitem "
+                       "where l_quantity >= 50) order by p_partkey"),
+}
+
+
+def np_mix32(x: np.ndarray) -> np.ndarray:
+    """The murmur3 finalizer on uint32 (numpy wraps uint32 products)."""
+    x = x.astype(np.uint32)
+    x ^= x >> np.uint32(16)
+    x *= np.uint32(0x85EBCA6B)
+    x ^= x >> np.uint32(13)
+    x *= np.uint32(0xC2B2AE35)
+    return x ^ (x >> np.uint32(16))
+
+
+def np_bloom_member(build: np.ndarray, keys: np.ndarray,
+                    nbits: int = cuda_join.SKETCH_BITS) -> np.ndarray:
+    """The two-hash Bloom test of ``keys`` against the set ``build``,
+    recomputed in numpy: each key's low 32 bits, mixed with and without
+    the seed, two bits of an nbits bitmap; a key passes when both are
+    set (every build key does; others may)."""
+    mask = np.uint32(nbits - 1)
+
+    def slots(k):
+        u = (k.astype(np.int64) & 0xFFFFFFFF).astype(np.uint32)
+        return np_mix32(u) & mask, np_mix32(u ^ np.uint32(0x9E3779B9)) & mask
+
+    bits = np.zeros(nbits, np.bool_)
+    for s_ in slots(build):
+        bits[s_] = True
+    s1, s2 = slots(keys)
+    return bits[s1] & bits[s2]
+
+
+def q4_expected(conn, bloom: bool = False) -> dict:
+    """TPC-H Q4 recomputed in numpy: orders of the quarter from
+    1993-07-01 with a lineitem committed before its receipt, counted by
+    priority in key order; with ``bloom`` the membership test is the
+    sketch's (``np_bloom_member``) instead of the exact one."""
+    lo, hi = days("1993-07-01"), days("1993-10-01")
+    o = conn.table_numpy("orders", ["o_orderkey", "o_orderdate", "o_orderpriority"])
+    li = conn.table_numpy("lineitem", ["l_orderkey", "l_commitdate", "l_receiptdate"])
+    build = li["l_orderkey"][li["l_commitdate"] < li["l_receiptdate"]]
+    member = (np_bloom_member(build, o["o_orderkey"]) if bloom
+              else np.isin(o["o_orderkey"], build))
+    m = (o["o_orderdate"] >= lo) & (o["o_orderdate"] < hi) & member
+    prio = conn.dictionaries("orders")["o_orderpriority"].values
+    n = np.bincount(o["o_orderpriority"][m].astype(np.int64), minlength=len(prio))
+    g = np.flatnonzero(n)
+    return {"o_orderpriority": list(prio[g]), "order_count": n[g].astype(np.int64)}
+
+
+def semi_expected(conn, name: str, bloom: bool = False) -> dict:
+    """The ``semi``, ``anti`` and ``semi_anti_part`` statements recomputed
+    in numpy (``bloom``: the semi join's sketch membership)."""
+    if name == "semi_anti_part":
+        p = conn.table_numpy("part", ["p_partkey", "p_size"])
+        ps = conn.table_numpy("partsupp", ["ps_partkey", "ps_availqty"])
+        li = conn.table_numpy("lineitem", ["l_partkey", "l_quantity"])
+        m = (np.isin(p["p_partkey"], ps["ps_partkey"][ps["ps_availqty"] < 100])
+             & ~np.isin(p["p_partkey"], li["l_partkey"][li["l_quantity"] >= 5000]))
+        order = np.argsort(p["p_partkey"][m], kind="stable")
+        return {"p_partkey": p["p_partkey"][m][order], "p_size": p["p_size"][m][order]}
+    o = conn.table_numpy("orders", ["o_orderkey", "o_orderdate"])
+    keys = conn.table_numpy("lineitem", ["l_orderkey"])["l_orderkey"]
+    if name == "semi":
+        build = o["o_orderkey"][o["o_orderdate"] < days("1995-03-15")]
+        m = np_bloom_member(build, keys) if bloom else np.isin(keys, build)
+    else:
+        m = ~np.isin(keys, o["o_orderkey"][o["o_orderdate"] >= days("1998-01-01")])
+    return {"c": np.array([int(m.sum())], np.int64)}
+
+
+def q3_join_expected(conn, cutoff: int = Q3_CUTOFF) -> tuple:
+    """The benchmark's Q3 join oracle in int64 numpy: lineitem rows
+    shipped after ``cutoff`` whose order was placed before it, counted,
+    and their revenue sum ep * (100 - disc) at scale 4."""
+    o = conn.table_numpy("orders", ["o_orderkey", "o_orderdate"])
+    li = conn.table_numpy("lineitem", Q3_COLS)
+    m = (li["l_shipdate"] > cutoff) & np.isin(li["l_orderkey"],
+                                              o["o_orderkey"][o["o_orderdate"] < cutoff])
+    rev = li["l_extendedprice"][m].astype(np.int64) * (100 - li["l_discount"][m].astype(np.int64))
+    return int(m.sum()), int(rev.sum())
+
+
+def device_batch(arrays, phys, cols, factor: int = 1) -> Batch:
+    """``cols`` of ``arrays`` on the card in their physical (narrow)
+    types, tiled ``factor`` times, every row live."""
+    live = torch.ones(len(arrays[cols[0]]) * factor, dtype=torch.bool, device="cuda")
+    return Batch({c: Column(torch.from_numpy(arrays[c].astype(phys[c].np_dtype)).cuda()
+                            .repeat(factor), live, phys[c]) for c in cols}, live)
+
+
+# each statement of the SF1 runs: (name, SQL, approx_join, the kernels it
+# must launch once per split of the named table, the kernels it must not
+# launch)
+SEMI_RUNS = [
+    ("q4", QUERIES["q4"], False, {"lane_sums": "orders"}, ("sketch", "exists")),
+    ("q4 approx", QUERIES["q4"], True, {"sketch": "orders", "lane_sums": "orders"}, ("exists",)),
+    ("semi", SEMI_SQL["semi"], False, {}, ("sketch", "exists")),
+    ("semi approx", SEMI_SQL["semi"], True, {"sketch": "lineitem"}, ("exists",)),
+    ("anti", SEMI_SQL["anti"], False, {}, ("sketch", "exists")),
+    ("anti approx", SEMI_SQL["anti"], True, {}, ("sketch", "exists")),
+    ("semi_anti_part", SEMI_SQL["semi_anti_part"], False, {"exists": "part"}, ("sketch",)),
+]
+
+
+def run_semi_queries(sf: float = 1, device: str = "cuda") -> dict:
+    """Phase 9: Q4, ``semi``, ``anti`` and ``semi_anti_part`` at SF1
+    through Session.sql (exact and under ``approx_join``), Q4 at sf 0.01
+    on the leaf route, then the resident Q3 join step at SF1 and SF1 x10.
+    Returns the launch counts, walls and the kernels' inputs (for the
+    timings)."""
+    conn = TpchConnector(sf=sf, device=device)
+    small = TpchConnector(sf=0.01, device=device)
+    t0 = time.perf_counter()
+    want = {"q4": q4_expected(conn), "q4 approx": q4_expected(conn, bloom=True),
+            "semi": semi_expected(conn, "semi"),
+            "semi approx": semi_expected(conn, "semi", bloom=True),
+            "anti": semi_expected(conn, "anti"), "anti approx": semi_expected(conn, "anti"),
+            "semi_anti_part": semi_expected(conn, "semi_anti_part"),
+            "q4 sf0.01 leaf": q4_expected(small)}
+    log(f"phase 9: numpy recomputation (exact and Bloom) of Q4, semi, anti and "
+        f"semi_anti_part at SF{sf:g} in {time.perf_counter() - t0:.1f} s")
+    for g, e in zip(want["q4 approx"]["order_count"], want["q4"]["order_count"]):
+        check(g >= e, "the Bloom oracle of Q4 counts fewer orders than the exact one")
+    check(want["semi approx"]["c"][0] >= want["semi"]["c"][0],
+          "the Bloom oracle of semi counts fewer rows than the exact one")
+    captured = {}
+    original = cuda_join.sketch_probe
+
+    def capture(*args):
+        captured.setdefault("sketch", args)  # Q4's first orders split
+        return original(*args)
+
+    runs = [(n, q, a, k, no, conn) for n, q, a, k, no in SEMI_RUNS]
+    runs.append(("q4 sf0.01 leaf", QUERIES["q4"], False, {"leaf_agg": "orders"},
+                 ("sketch", "exists", "lane_sums"), small))
+    out = {"walls": {}, "launches": {}, "sketch_launches": 0, "exists_launches": 0}
+    for name, sql, approx, kernels, idle, c in runs:
+        session = Session({"tpch": c}, properties={"approx_join": approx}, device=device)
+        cuda_join.sketch_probe = capture if name == "q4 approx" else original
+        try:
+            COUNTERS.clear()
+            _reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = session.sql(sql)
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t0
+            n = _launch_counts()
+            route = dict(COUNTERS)
+        finally:
+            cuda_join.sketch_probe = original
+        same_result(res, want[name], f"{name} at SF{c.sf:g}")
+        check(res.approximate == (name in ("q4 approx", "semi approx")),
+              f"{name}: QueryResult.approximate is {res.approximate}")
+        for kernel, table in kernels.items():
+            k = len(c.splits(table))
+            if name == "semi_anti_part" and kernel == "exists":
+                k *= 2  # its semi join and its anti join each probe every split
+            check(n[kernel] == k, f"{name}: {n[kernel]} {kernel} launches for {k} "
+                  f"{table} split probes")
+        for kernel in idle:
+            check(n[kernel] == 0, f"{name}: {n[kernel]} {kernel} launches, expected none")
+        check(route.get("join.pallas_fallback", 0) == 0,
+              f"{name}: {route.get('join.pallas_fallback')} fused-probe fallbacks")
+        if name.startswith("q4") and c is conn:
+            check(route.get("exec.leaf_route_fallback.membership", 0) == 1,
+                  f"{name}: the leaf route did not decline the 6M-key membership fold")
+            check(route.get("join.strategy.pallas" if approx else "join.strategy.dense", 0) == 1,
+                  f"{name}: join routes {route}")
+        if name == "q4 sf0.01 leaf":
+            check(route.get("exec.leaf_fused_route", 0) == 1, f"{name}: routes {route}")
+        if name == "semi_anti_part":
+            check(route.get("exec.pallas_join_route", 0) == 2, f"{name}: routes {route}")
+        if name == "q4 approx":
+            plan = session.explain(sql)
+            check("strategy=sketch(approx)" in plan, f"q4 approx: EXPLAIN says\n{plan}")
+            for g, e in zip(res.column("order_count"), want["q4"]["order_count"]):
+                check(g >= e, "q4 approx: a group counts fewer orders than the exact Q4")
+        out["sketch_launches"] += n["sketch"]
+        if name == "semi_anti_part":
+            out["exists_launches"] = n["exists"]
+        out["launches"][name] = n
+        t0 = time.perf_counter()
+        again = session.sql(sql)
+        torch.cuda.synchronize()
+        second = time.perf_counter() - t0
+        same_result(again, want[name], f"{name} at SF{c.sf:g}, second run")
+        busy_ms, scan_s = wall_breakdown(session, c, sql)
+        out["walls"][name] = (first, second, busy_ms, scan_s)
+        log(f"  {name}: {len(res)} rows equal to numpy{' (Bloom)' if approx else ''}, "
+            f"approximate={res.approximate}; wall first {first:.3f} s, second {second:.3f} s; "
+            f"launches { {k: v for k, v in n.items() if v} }; routes "
+            f"{ {k: v for k, v in route.items() if k.startswith(('exec.', 'agg.', 'join.'))} }")
+        log(f"  {name} breakdown (a third, profiled run): device busy {busy_ms:.1f} ms, "
+            f"connector scans (host generation + copy to the card) {scan_s:.3f} s")
+    out["captured"] = captured
+
+    # the resident Q3 join step
+    t0 = time.perf_counter()
+    n_want, rev_want = q3_join_expected(conn)
+    o = conn.table_numpy("orders", ["o_orderkey", "o_orderdate"])
+    li = conn.table_numpy("lineitem", Q3_COLS)
+    orders = device_batch(o, conn.physical_schema("orders", ["o_orderkey", "o_orderdate"]),
+                          ["o_orderkey", "o_orderdate"])
+    lphys = conn.physical_schema("lineitem", Q3_COLS)
+    domain = q3_domain(sf)
+    table = q3_probe_table(orders, Q3_CUTOFF, domain)
+    batches = {1: device_batch(li, lphys, Q3_COLS), FACTOR: device_batch(li, lphys, Q3_COLS,
+                                                                        FACTOR)}
+    torch.cuda.synchronize()
+    log(f"  Q3 join step: oracle, {table.numel()} bitmask words over [1, {domain}] and "
+        f"the resident batches in {time.perf_counter() - t0:.1f} s")
+    _reset_launches()
+    got = {f: q3_probe_step(table, Q3_KEY_MIN, domain, Q3_CUTOFF, b) for f, b in batches.items()}
+    torch.cuda.synchronize()
+    out["q3_launches"] = cuda_join.q3_launches
+    check(out["q3_launches"] == len(batches), f"Q3 join step: {out['q3_launches']} launches")
+    q3_err = 0
+    for f, (cnt, rev) in got.items():
+        check(cnt.dtype == torch.int64 and rev.dtype == torch.int64,
+              "Q3 join step: results must be int64")
+        check(int(cnt) == f * n_want and int(rev) == f * rev_want,
+              f"Q3 join step x{f}: ({int(cnt)}, {int(rev)}) != {f} x ({n_want}, {rev_want})")
+        b = batches[f]
+        plain = cuda_join.q3_probe_step_plain(table, Q3_KEY_MIN, domain, Q3_CUTOFF,
+                                              *[b[c].data for c in Q3_COLS], b.live)
+        q3_err = max(q3_err, abs(int(cnt) - int(plain[0])), abs(int(rev) - int(plain[1])))
+        check(q3_err == 0, f"Q3 join step x{f}: differs from its plain version")
+        log(f"  Q3 join step over SF1 x{f} lineitem ({b.capacity} rows): {int(cnt)} matches, "
+            f"revenue {int(rev)} = {f} x the benchmark's oracle, equal to plain")
+    out["q3"] = {"table": table, "domain": domain, "batches": batches, "err": q3_err}
+    return out
+
+
+def time_sketch(args, flush) -> dict:
+    """Phase 5 numbers of the sketch kernel at the inputs it was given:
+    its bound counts each key, live byte and bool once and the 64 KB
+    table once, and 24 integer operations a row (two finalizers, the
+    seed, two masks and two bit tests)."""
+    table, nbits, keys, live = args
+    fn = lambda: cuda_join.sketch_probe(table, nbits, keys, live)  # noqa: E731
+    plain = lambda: cuda_join.sketch_probe_plain(table, nbits, keys, live)  # noqa: E731
+    err = _mask_err(fn(), plain(), "sketch_probe at phase 5")
+    n = keys.numel()
+    return {"ms": device_ms(fn, 50, flush, kernel="sketch_kernel"), "call_ms": call_ms(fn, 50),
+            "plain_ms": device_ms(plain, 10, flush), "rows": n,
+            "key": str(keys.dtype).replace("torch.", ""),
+            "bytes": n * (keys.element_size() + 2) + table.numel() * 4, "ops": 24 * n,
+            "err": err}
+
+
+def time_q3(q3: dict, factor: int, flush) -> dict:
+    """Phase 5 numbers of the Q3 kernel over the SF1 x ``factor`` batch:
+    its bound counts each row's 4 columns and live byte once, the bitmask
+    once, and 12 integer operations a row."""
+    table, domain, b = q3["table"], q3["domain"], q3["batches"][factor]
+    cols = [b[c].data for c in Q3_COLS]
+    fn = lambda: cuda_join.q3_probe_step(table, Q3_KEY_MIN, domain, Q3_CUTOFF, *cols, b.live)  # noqa: E731
+    plain = lambda: cuda_join.q3_probe_step_plain(  # noqa: E731
+        table, Q3_KEY_MIN, domain, Q3_CUTOFF, *cols, b.live)
+    n = b.capacity
+    nbytes = sum(c.numel() * c.element_size() for c in cols) + n + table.numel() * 4 + 16
+    return {"ms": device_ms(fn, 20, flush, kernel="q3_kernel"), "call_ms": call_ms(fn, 20),
+            "plain_ms": device_ms(plain, 3, flush), "rows": n, "bytes": nbytes, "ops": 12 * n,
+            "row_bytes": (nbytes - table.numel() * 4) / n}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1364,6 +1744,8 @@ def main() -> int:
     lane_err = check_lane_kernel(rng)
     exists_err = check_exists_kernel(rng)
     payload_err = check_payload_kernel(rng)
+    sketch_err = check_sketch_kernel(rng)
+    q3_kernel_err = check_q3_kernel(rng)
     leaf_err = check_leaf_agg_kernel(rng)
     from presto_tpu_torch.connectors.ssb import SsbConnector
 
@@ -1544,6 +1926,27 @@ def main() -> int:
         log(f"  wall {name}: first {first:.3f} s, second {second:.3f} s, device busy "
             f"{busy:.1f} ms, connector scans {scan:.3f} s")
 
+    semi = run_semi_queries()
+    sk = time_sketch(semi["captured"]["sketch"], flush)
+    q3_one = time_q3(semi["q3"], 1, flush)
+    q3_ten = time_q3(semi["q3"], FACTOR, flush)
+    sketch_bound, sketch_by = bound(sk["bytes"], sk["ops"])
+    q3_bound, q3_by = bound(q3_one["bytes"], q3_one["ops"])
+    q3_ten_bound, _ = bound(q3_ten["bytes"], q3_ten["ops"])
+    log(f"phase 5, phase 9's kernels (kernel device ms; call = wrapper, events; plain = device "
+        f"ms of all its kernels; no single PyTorch call computes either): sketch_probe at Q4's "
+        f"first orders split ({sk['rows']} rows, {sk['key']} keys) {sk['ms']:.4f} (call "
+        f"{sk['call_ms']:.4f}, plain {sk['plain_ms']:.4f}, bound {sketch_bound:.4f}); "
+        f"q3_probe_step over SF1 lineitem ({q3_one['rows']} rows, {q3_one['row_bytes']:.2f} "
+        f"B/row) {q3_one['ms']:.4f} (call {q3_one['call_ms']:.4f}, plain "
+        f"{q3_one['plain_ms']:.4f}, bound {q3_bound:.4f}); over SF1 x{FACTOR} "
+        f"({q3_ten['rows']} rows) {q3_ten['ms']:.4f} (call {q3_ten['call_ms']:.4f}, plain "
+        f"{q3_ten['plain_ms']:.4f}, bound {q3_ten_bound:.4f}) = "
+        f"{q3_ten['rows'] / (q3_ten['ms'] / 1e3):.4e} rows/s")
+    for name, (first, second, busy, scan) in semi["walls"].items():
+        log(f"  wall {name}: first {first:.3f} s, second {second:.3f} s, device busy "
+            f"{busy:.1f} ms, connector scans {scan:.3f} s")
+
     log(smi[0])
     kernels = [
         {"name": "q1_step", "route": "cuda", "source": "presto_tpu_torch/csrc/q1.cu",
@@ -1568,7 +1971,27 @@ def main() -> int:
          "launches": ex["launches"], "max_abs_err": max(exists_err, ex["err"]), "ms": ex["ms"],
          "kernel_ms": ex["ms"], "call_ms": ex["call_ms"], "plain_ms": ex["plain_ms"],
          "bound_ms": exists_bound, "bound_by": exists_by, "library_ms": None,
-         "rows": ex["rows"], "bytes": ex["bytes"], "ops": ex["ops"]},
+         "rows": ex["rows"], "bytes": ex["bytes"], "ops": ex["ops"],
+         "semi_anti_part_launches": semi["exists_launches"]},
+        {"name": "sketch_probe", "route": "cuda",
+         "source": "presto_tpu_torch/csrc/join_probe.cu",
+         "replaces": "presto_tpu/ops/pallas_join.py:294",
+         "jax_function": "presto_tpu/ops/pallas_join.py:350 sketch_probe",
+         "launches": semi["sketch_launches"], "max_abs_err": max(sketch_err, sk["err"]),
+         "ms": sk["ms"], "kernel_ms": sk["ms"], "call_ms": sk["call_ms"],
+         "plain_ms": sk["plain_ms"], "bound_ms": sketch_bound, "bound_by": sketch_by,
+         "library_ms": None, "rows": sk["rows"], "bytes": sk["bytes"], "ops": sk["ops"]},
+        {"name": "q3_probe_step", "route": "cuda",
+         "source": "presto_tpu_torch/csrc/join_probe.cu",
+         "replaces": "presto_tpu/ops/pallas_join.py:443",
+         "jax_function": "presto_tpu/ops/pallas_join.py:464 q3_probe_step",
+         "launches": semi["q3_launches"], "max_abs_err": max(q3_kernel_err, semi["q3"]["err"]),
+         "ms": q3_one["ms"], "kernel_ms": q3_one["ms"], "call_ms": q3_one["call_ms"],
+         "plain_ms": q3_one["plain_ms"], "bound_ms": q3_bound, "bound_by": q3_by,
+         "library_ms": None, "rows": q3_one["rows"], "bytes": q3_one["bytes"],
+         "ops": q3_one["ops"], "resident_ms": q3_ten["ms"], "resident_call_ms": q3_ten["call_ms"],
+         "resident_plain_ms": q3_ten["plain_ms"], "resident_bound_ms": q3_ten_bound,
+         "resident_rows": q3_ten["rows"]},
         {"name": "payload_probe", "route": "cuda",
          "source": "presto_tpu_torch/csrc/join_probe.cu",
          "replaces": "presto_tpu/ops/pallas_join.py:305",

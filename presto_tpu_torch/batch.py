@@ -257,10 +257,13 @@ class QueryResult:
     ``column(name)`` holds the exact values (strings decoded, DECIMAL
     still the scaled int64, DATE day numbers, NULLs None);
     ``logical(name)`` the client decode of ``decode_values``. No pandas:
-    tests build frames from ``to_dict()`` themselves."""
+    tests build frames from ``to_dict()`` themselves. ``approximate`` is
+    True when the run probed a Bloom sketch (``approx_join``): the rows
+    may then include false positives of a semi join."""
 
-    def __init__(self, names, batches):
+    def __init__(self, names, batches, approximate: bool = False):
         self.names = list(names)
+        self.approximate = bool(approximate)
         self.types: dict[str, DataType] = {}
         self._cols: dict[str, tuple] = {}
         for name in self.names:

@@ -1,16 +1,25 @@
-"""Join operators: build side + lookup probe (unique builds).
+"""Join operators: build side + lookup probe (unique builds, semi/anti).
 
 Counterpart of ``presto_tpu/exec/joins.py``. ``JoinBuildOperator``
 collects the build side and publishes its lookup source at ``finish()``:
 the sorted keys (``ops/join.build_lookup``), a dense direct-address table
 when the planner's stats bound the key domain, and the fused-probe
-tables of ``ops/cuda_join`` when the planner chose that route.
+tables of ``ops/cuda_join`` when the planner chose that route (the exists
+bitmask, the payload tables, or under ``approx_join`` the Bloom sketch).
 ``LookupJoinOperator`` probes each batch on the best published side:
 
 - ``pallas``: the join-probe kernels (the JAX package's name for the
   route, kept so the plans and counters compare one to one);
 - ``dense``: one gather from the dense table;
 - ``unique``: a binary search in the sorted keys.
+
+Semi and anti joins (``IN`` / ``EXISTS`` and their negations) keep a
+probe row when its key exists (semi) or does not (anti) on the build
+side: the membership probes ``ops/join.probe_exists[_dense]``, or the
+exists or sketch kernels. As in the JAX package, an anti join keeps a
+probe row whose key is NULL, a NULL build key matches nothing, and the
+sketch (false positives) serves semi joins only, and only on a batch
+whose capacity the JAX package's kernel could block (``probe_block``).
 
 Stats are advisory. A live build key outside the planned domain, or a
 NULL in a payload column, discards the fused tables at build time
@@ -20,9 +29,10 @@ counts its route once as ``join.strategy.<route>`` in
 ``runtime.metrics.COUNTERS``, and the fused one also as
 ``exec.pallas_join_route``.
 
-Ported join kinds: inner and left outer joins with unique build keys.
-Expansion joins (duplicate build keys), semi/anti joins, by-value verify
-pairs, FULL OUTER and the runtime Bloom filters are not ported yet.
+Ported join kinds: inner and left outer joins with unique build keys,
+and semi and anti joins. Expansion joins (duplicate build keys), by-value
+verify pairs, FULL OUTER and the runtime Bloom filters are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -46,6 +56,8 @@ from presto_tpu_torch.ops.join import (
     I64_MAX,
     build_dense,
     build_lookup,
+    probe_exists,
+    probe_exists_dense,
     probe_unique,
     probe_unique_dense,
 )
@@ -70,7 +82,8 @@ class JoinBuildOperator(CollectingOperator):
         keys; a live key outside it discards the dense side.
 
         ``pallas``: the planner's fused-probe spec — the lookup tables
-        of ``ops/cuda_join`` are built beside the sorted side."""
+        of ``ops/cuda_join`` are built beside the sorted side (a sketch
+        spec builds the Bloom words, which never fall back)."""
         super().__init__()
         self.key = key
         self.dense_domain = dense_domain
@@ -112,6 +125,9 @@ class JoinBuildOperator(CollectingOperator):
                 table, oob = cuda_join.build_exists_table(
                     v.data, live, spec.key_min, spec.key_max)
                 tables, bad = (table,), oob
+            elif spec.mode == "sketch":
+                tables = (cuda_join.build_sketch_table(v.data, live, spec.nbits),)
+                bad = False
             else:
                 # a live payload NULL has no slot in the value tables:
                 # discard the fused side rather than conjure a 0
@@ -151,13 +167,14 @@ class BuildOutput:
 
 
 class LookupJoinOperator(Operator):
-    """Probe operator for unique build keys (FK->PK joins): each probe
-    row matches at most one build row, so the output stays aligned with
-    the probe batch. join_type: inner | left."""
+    """Probe operator. join_type: inner | left (unique build keys, FK->PK:
+    each probe row matches at most one build row) | semi | anti
+    (membership, duplicate build keys fine). The output stays aligned
+    with the probe batch."""
 
     def __init__(self, build: JoinBuildOperator, probe_key: Expr,
                  build_outputs: Sequence[BuildOutput] = (), join_type: str = "inner"):
-        if join_type not in ("inner", "left"):
+        if join_type not in ("inner", "left", "semi", "anti"):
             raise NotSupported(f"{join_type} joins are not ported yet")
         self.build = build
         self.probe_key = probe_key
@@ -174,30 +191,47 @@ class LookupJoinOperator(Operator):
                 COUNTERS["exec.pallas_join_route"] += 1
 
     def _pallas_usable(self, batch: Batch) -> bool:
-        """Per-batch routing: the build published fused tables AND this
-        batch's key is a narrow integer column. The kernels take any
-        capacity (the TPU kernels' capacity-block rule has no
-        counterpart)."""
+        """Per-batch routing: the build published fused tables, the mode
+        serves this join type, AND this batch's key is a narrow integer
+        column. The exact kernels take any capacity (ROADMAP C4); the
+        sketch keeps the JAX package's capacity-block rule, because it
+        changes results: it must approximate exactly the batches the
+        JAX package's does."""
         build, spec = self.build, self.build.pallas
         if build.pallas_side is None or spec is None:
             return False
+        jt = self.join_type
         if spec.mode == "payload":
+            if jt not in ("inner", "left"):
+                return False
             if spec.payload != tuple(bo.source for bo in self.build_outputs):
                 return False
-        elif self.join_type != "inner" or self.build_outputs:
+        elif spec.mode == "exists":
+            # existence is duplicate-safe (semi/anti); a no-payload inner
+            # join needs the unique build keys every port join has
+            if not (jt in ("semi", "anti") or (jt == "inner" and not self.build_outputs)):
+                return False
+        elif jt != "semi":
+            # sketch: a false positive ADDS a semi-join row, but would
+            # DROP an anti-join row
             return False
         k = self.probe_key
-        return (isinstance(k, InputRef) and k.name in batch
-                and cuda_join.key_dtype_ok(batch[k.name].data.dtype))
+        if not (isinstance(k, InputRef) and k.name in batch
+                and cuda_join.key_dtype_ok(batch[k.name].data.dtype)):
+            return False
+        return spec.mode != "sketch" or cuda_join.probe_block(batch.capacity) is not None
 
     def _pallas_probe(self, batch: Batch) -> Batch:
         spec, tables = self.build.pallas, self.build.pallas_side
         v = evaluate(self.probe_key, batch)
         plive = batch.live & valid_of(v.valid, batch.live)
-        if spec.mode == "exists":
-            matched = cuda_join.exists_probe(tables[0], spec.key_min, spec.key_max,
-                                             v.data, plive)
-            return batch.with_live(batch.live & matched)
+        if spec.mode != "payload":
+            matched = (cuda_join.sketch_probe(tables[0], spec.nbits, v.data, plive)
+                       if spec.mode == "sketch" else
+                       cuda_join.exists_probe(tables[0], spec.key_min, spec.key_max,
+                                              v.data, plive))
+            keep = ~matched if self.join_type == "anti" else matched
+            return batch.with_live(batch.live & keep)
         matched, vals = cuda_join.payload_probe(tables, spec.key_min, spec.key_max,
                                                 v.data, plive)
         cols = dict(batch.columns)
@@ -234,6 +268,15 @@ class LookupJoinOperator(Operator):
             COUNTERS["join.pallas_fallback"] += 1
         v = evaluate(self.probe_key, batch)
         plive = batch.live & valid_of(v.valid, batch.live)
+        if self.join_type in ("semi", "anti"):
+            if build.dense_side is not None:
+                self._record_strategy("dense")
+                exists = probe_exists_dense(build.dense_side, v.data, plive)
+            else:
+                self._record_strategy("unique")
+                exists = probe_exists(build.build_side, v.data, plive)
+            keep = exists if self.join_type == "semi" else batch.live & ~exists
+            return [batch.with_live(batch.live & keep)]
         if build.dense_side is not None:
             self._record_strategy("dense")
             res = probe_unique_dense(build.dense_side, v.data, plive)

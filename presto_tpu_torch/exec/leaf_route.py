@@ -8,9 +8,11 @@ interval tests over stats-bounded columns, aggregates drawn from
 sum/count/avg(=sum+count)/min/max over products of at most two linear
 terms, group keys packed from small dictionary/int domains into a flat
 group id, and the keyless specialization (TPC-H Q6). A *filter-only*
-join on the way down — a unique INNER join with no build-side outputs
-— folds into the fragment as a dense membership bitmap over the probe
-key's declared domain (the SSB Q1 flight's date join). Matched
+join on the way down — a unique INNER join with no build-side outputs,
+or a non-negated single-key semi join — folds into the fragment as a
+dense membership bitmap over the probe key's declared domain (the SSB
+Q1 flight's date join; TPC-H Q4's EXISTS wherever ``o_orderkey``'s
+domain is at most ``MEMBER_DOMAIN_LIMIT``). Matched
 fragments run as one fused step per scan batch: the leaf-aggregation
 kernel (``ops/cuda_agg``, ``csrc/leaf_agg.cu``), or for TPC-H Q1 its
 hand-built specialization (``exec/q1_route``, the Q1 kernel).
@@ -28,8 +30,7 @@ plan-stats history; the port has none, which is the first run of every
 query there).
 
 Not ported: the distributed leaf route (it comes with the distributed
-tier), the executable cache and fault points, and the SEMI-join
-membership fold (the port's analyzer plans no semi joins yet).
+tier), the executable cache and fault points.
 """
 
 from __future__ import annotations
@@ -367,6 +368,10 @@ def match_leaf_fragment(node, catalog):
         if not (n.kind == "inner" and n.unique and not n.output_right
                 and len(n.left_keys) == 1 and len(n.right_keys) == 1):
             return None, None  # a real join: not a filter-only leaf
+        member_node, probe, mkey = n, n.left, n.left_keys[0]
+    elif isinstance(n, N.SemiJoin):
+        if n.negated or len(n.left_keys) != 1 or len(n.right_keys) != 1:
+            return None, None
         member_node, probe, mkey = n, n.left, n.left_keys[0]
     if member_node is not None:
         n = probe

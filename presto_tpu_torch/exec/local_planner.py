@@ -20,6 +20,10 @@ package's, made from the same stats:
   the build key's stats domain fits their tables, else a dense
   direct-address table when the domain is tight, else the sorted
   search probe (``planned_join_strategy`` renders the plan's choice);
+  semi and anti joins (``_exec_semijoin``) take the same rungs with the
+  membership probes, and under ``approx_join`` a semi join whose exact
+  table does not fit probes the Bloom sketch (the run is then flagged
+  ``used_approx``, which ``QueryResult.approximate`` reports);
 - capacities retry and double on ``CapacityOverflow``.
 
 Not ported: the spill and grouped tiers, the OOM ladder, fault points,
@@ -107,36 +111,58 @@ def pick_group_strategy(keys, pax, dict_len, est_rows: int,
     return SortStrategy(min(batch_capacity(max(est_rows, 16)), MAX_GROUP_CAP))
 
 
-def planned_join_strategy(node: N.Join, catalog) -> str:
-    """The probe strategy the executor will pick for this join, from
-    stats alone — the JAX package's rule without its out-of-core modes:
-    pallas (fused lookup-table probe) > dense (direct-address table) >
-    unique (sorted probe) > expand. Advisory like every stats decision:
-    a runtime ineligibility degrades one rung, counted."""
-    iv = (declared_key_interval(node.right, node.right_keys[0], catalog)
-          if len(node.right_keys) == 1 else None)
+def build_key_interval(node, catalog):
+    """The stats interval of a join's single build key: the dense and
+    fused-probe decisions both derive from it, in EXPLAIN and in
+    execution. A packed multi-key build has none and takes the sorted
+    probe, as in the JAX package."""
+    if len(node.right_keys) != 1:
+        return None
+    return declared_key_interval(node.right, node.right_keys[0], catalog)
+
+
+def planned_join_strategy(node, catalog, approx_join: bool = False) -> str:
+    """The probe strategy the executor will pick for this join or semi
+    join, from stats alone — the JAX package's rule without its
+    out-of-core modes: pallas (fused lookup-table probe) > sketch(approx)
+    (under ``approx_join``, a non-negated semi join whose exact table
+    does not fit) > dense (direct-address table) > unique (sorted probe)
+    > expand. Advisory like every stats decision: a runtime
+    ineligibility degrades one rung, counted."""
+    semi = isinstance(node, N.SemiJoin)
+    iv = build_key_interval(node, catalog)
+    unique = True if semi else node.unique
     if iv is not None and cuda_join.interval_ok(iv[0], iv[1]):
         domain = iv[1] - iv[0] + 1
-        outs = node.output_right
-        if not outs and node.unique and node.kind == "inner" \
+        outs = () if semi else node.output_right
+        if not outs and (semi or (unique and node.kind == "inner")) \
                 and cuda_join.exists_words(domain):
             return "pallas"
-        if outs and node.unique and node.kind in ("inner", "left") \
+        if outs and unique and node.kind in ("inner", "left") \
                 and len(outs) <= cuda_join.MAX_VALUES \
                 and cuda_join.payload_rows(domain, len(outs)):
             return "pallas"
-    if iv is not None and node.unique and 0 < iv[1] - iv[0] + 1 <= (1 << 31) - 1:
+    if approx_join and semi and not node.negated:
+        return "sketch(approx)"
+    if iv is not None and unique and not semi and 0 < iv[1] - iv[0] + 1 <= (1 << 31) - 1:
         return "dense"
-    if node.unique:
+    if unique:
         return "dense" if iv is not None else "unique"
     return "expand"
 
 
 class LocalExecutor:
-    def __init__(self, catalog: Catalog, pallas_join_enabled: bool = True, device="cuda"):
+    def __init__(self, catalog: Catalog, pallas_join_enabled: bool = True,
+                 approx_join: bool = False, device="cuda"):
         self.catalog = catalog
         #: prefer the fused lookup-table probe where stats permit
         self.pallas_join_enabled = pallas_join_enabled
+        #: semi joins whose exact table does not fit may probe the Bloom
+        #: sketch (approximate: false positives, never false negatives)
+        self.approx_join = approx_join
+        #: set when this run published a sketch a semi join probes: its
+        #: result may carry false-positive rows, and says so
+        self.used_approx = False
         #: where an empty aggregation state lives
         self.device = resolve_device(device)
 
@@ -145,8 +171,10 @@ class LocalExecutor:
         """Execute to a ``QueryResult`` (names + host arrays)."""
         if not isinstance(plan, N.Output):
             raise InternalError("top-level plan must be an Output node")
+        self.used_approx = False
         batches, names = self.run_batches(plan)
-        return QueryResult(names, [b for b in batches if live_count(b) > 0])
+        return QueryResult(names, [b for b in batches if live_count(b) > 0],
+                           approximate=self.used_approx)
 
     def run_batches(self, plan: N.Output):
         rename = dict(zip(plan.sources, plan.names))
@@ -269,36 +297,35 @@ class LocalExecutor:
 
     def _pallas_spec(self, iv, outs: tuple, rfields, unique: bool, kind: str):
         """The fused-probe configuration for a join whose build-key stats
-        interval is ``iv``, or None when no table fits."""
-        if not self.pallas_join_enabled or iv is None \
-                or not cuda_join.interval_ok(int(iv[0]), int(iv[1])):
+        interval is ``iv``, or None when no table fits. Exact modes
+        first; the sketch (approximate) mode only under ``approx_join``,
+        only for semi joins, and only when no exact table fits."""
+        if not self.pallas_join_enabled:
             return None
-        lo, hi = int(iv[0]), int(iv[1])
-        domain = hi - lo + 1
-        if outs:
-            kinds_ok = all(rfields.get(c) is not None
-                           and rfields[c].kind in _PALLAS_PAYLOAD_KINDS for c in outs)
-            if (unique and kind in ("inner", "left") and kinds_ok
-                    and len(outs) <= cuda_join.MAX_VALUES
-                    and cuda_join.payload_rows(domain, len(outs))):
-                return cuda_join.PallasJoinSpec("payload", lo, hi, payload=tuple(outs))
-        elif unique and kind == "inner" and cuda_join.exists_words(domain):
-            return cuda_join.PallasJoinSpec("exists", lo, hi)
+        if iv is not None and cuda_join.interval_ok(int(iv[0]), int(iv[1])):
+            lo, hi = int(iv[0]), int(iv[1])
+            domain = hi - lo + 1
+            if outs:
+                kinds_ok = all(rfields.get(c) is not None
+                               and rfields[c].kind in _PALLAS_PAYLOAD_KINDS for c in outs)
+                if (unique and kind in ("inner", "left") and kinds_ok
+                        and len(outs) <= cuda_join.MAX_VALUES
+                        and cuda_join.payload_rows(domain, len(outs))):
+                    return cuda_join.PallasJoinSpec("payload", lo, hi, payload=tuple(outs))
+            elif ((kind in ("semi", "anti") or (unique and kind == "inner"))
+                    and cuda_join.exists_words(domain)):
+                return cuda_join.PallasJoinSpec("exists", lo, hi)
+        if self.approx_join and kind == "semi" and not outs:
+            return cuda_join.PallasJoinSpec("sketch", nbits=cuda_join.SKETCH_BITS)
         return None
 
-    def _exec_join(self, node: N.Join):
-        if not node.unique:
-            raise NotSupported("expansion joins (non-unique build keys) are not ported yet")
-        if node.kind not in ("inner", "left"):
-            raise NotSupported(f"{node.kind} joins are not ported yet")
-        left = self._exec(node.left)
-        # the build side is materialized (the lookup source concatenates
-        # it); the probe side streams batch by batch
-        right = self._exec(node.right).materialize()
+    def _join_keys(self, node, left: BatchStream, right):
+        """(probe key, build key): one integer key per side, multi-key
+        pairs packed. Only a multi-key pair without stats-derived pack
+        widths pays the runtime min/max: a replay of the probe stream and
+        a readback."""
 
         def runtime_minmax(side: int, key):
-            # only a multi-key pair without stats-derived pack widths
-            # pays this: a replay of the probe stream and a readback
             mn, mx = 0, 0
             for b in (left if side == 0 else right):
                 v = evaluate(key, b)
@@ -311,11 +338,19 @@ class LocalExecutor:
         lkey, rkey, _verify = join_key_exprs(node.left_keys, node.right_keys,
                                              catalog=self.catalog, lnode=node.left,
                                              rnode=node.right, runtime_minmax=runtime_minmax)
-        # the stats interval of a single build key: the dense and
-        # fused-probe decisions both derive from it; a packed multi-key
-        # build has none and takes the sorted probe, as in the JAX package
-        iv = (declared_key_interval(node.right, node.right_keys[0], self.catalog)
-              if len(node.right_keys) == 1 else None)
+        return lkey, rkey
+
+    def _exec_join(self, node: N.Join):
+        if not node.unique:
+            raise NotSupported("expansion joins (non-unique build keys) are not ported yet")
+        if node.kind not in ("inner", "left"):
+            raise NotSupported(f"{node.kind} joins are not ported yet")
+        left = self._exec(node.left)
+        # the build side is materialized (the lookup source concatenates
+        # it); the probe side streams batch by batch
+        right = self._exec(node.right).materialize()
+        lkey, rkey = self._join_keys(node, left, right)
+        iv = build_key_interval(node, self.catalog)
         spec = self._pallas_spec(iv, tuple(node.output_right),
                                  {f.name: f.dtype for f in node.right.fields},
                                  node.unique, node.kind)
@@ -324,6 +359,30 @@ class LocalExecutor:
         Pipeline(BatchStream.of(right), [build]).run()
         outs = [BuildOutput(n, n) for n in node.output_right]
         op = LookupJoinOperator(build, lkey, outs, node.kind)
+        return left.map(lambda b: op.process(b)[0])
+
+    def _exec_semijoin(self, node: N.SemiJoin):
+        """Semi (``IN`` / ``EXISTS``) or anti (negated) join, resident:
+        the membership probes prefer the fused exists bitmask
+        (duplicate-safe), then the dense table when stats allow, else
+        the sorted keys; under ``approx_join`` a semi join whose exact
+        table does not fit probes the Bloom sketch."""
+        left = self._exec(node.left)
+        right = self._exec(node.right).materialize()
+        jt = "anti" if node.negated else "semi"
+        lkey, rkey = self._join_keys(node, left, right)
+        iv = build_key_interval(node, self.catalog)
+        spec = self._pallas_spec(iv, (), {}, True, jt)
+        build = JoinBuildOperator(rkey, dense_domain=self._dense_domain(iv, right),
+                                  pallas=spec)
+        Pipeline(BatchStream.of(right), [build]).run()
+        if spec is not None and spec.mode == "sketch" and build.pallas_side is not None:
+            # the sketch was published: eligible probe batches ride it,
+            # so the result may carry false-positive rows — flagged
+            # (conservatively: a batch that falls back to the exact probe
+            # does not clear the flag), as the JAX package flags it
+            self.used_approx = True
+        op = LookupJoinOperator(build, lkey, (), jt)
         return left.map(lambda b: op.process(b)[0])
 
     # ---- ordering ---------------------------------------------------------

@@ -1,34 +1,48 @@
 """Fused join probes over small lookup tables: the join-probe kernels.
 
 Replaces ``presto_tpu/ops/pallas_join.py::exists_probe`` (Pallas body
-``_exists_kernel``) and ``::payload_probe`` (``_payload_kernel``) with
-``csrc/join_probe.cu``. When connector stats prove a unique build key's
-domain ``[key_min, key_max]`` small, the join build publishes a flat
-table over it and each probe row is one table lookup:
+``_exists_kernel``), ``::payload_probe`` (``_payload_kernel``),
+``::sketch_probe`` (``_sketch_kernel``) and ``::q3_probe_step``
+(``_q3_kernel``) with ``csrc/join_probe.cu``. When connector stats prove
+a build key's domain ``[key_min, key_max]`` small, the join build
+publishes a flat table over it and each probe row is one table lookup:
 
 - **exists**: a bitmask, 32 keys per int32 word, at most
-  ``EXISTS_WORD_LIMIT`` words. Serves inner joins that carry no build
-  column (TPC-H Q3's customer join).
+  ``EXISTS_WORD_LIMIT`` words. Duplicate-safe: serves semi and anti
+  joins and inner joins that carry no build column (TPC-H Q3's customer
+  join).
 - **payload**: a present table plus one int32 value table per build
   output column, ``(1 + ncols) * rows`` at most ``PAYLOAD_SLOT_LIMIT``.
   The probe returns the match flag and each build value at the key's
-  slot (TPC-H Q10's nation join, which projects ``n_name``).
+  slot (TPC-H Q10's nation join, which projects ``n_name``). Unique
+  builds only.
+- **sketch**: a two-hash Bloom bitmask over ``SKETCH_BITS`` bits
+  (``ops/hashing.py``), for any key domain. APPROXIMATE: false
+  positives, never false negatives. Only semi joins under the
+  ``approx_join`` session property take it (never anti: a false
+  positive there would drop a row).
+
+``q3_probe_step`` is the resident Q3 join step of the benchmark: an
+exists bitmask over ``o_orderkey``, the ``l_shipdate`` filter and the
+revenue sum ``ep * (100 - disc)`` in one pass (``workloads.py``).
 
 The eligibility rules (``exists_words``, ``payload_rows``,
-``interval_ok``) are the JAX package's, in the same numbers, so the same
-joins take the route at the same stats. The kernels themselves take any
-capacity. The table builders are PyTorch scatters; a LIVE build key
-outside the advisory domain sets ``oob`` and the caller discards the
-tables (a counted fallback, never a wrong answer).
+``interval_ok``, and ``probe_block`` for the sketch) are the JAX
+package's, in the same numbers, so the same joins take the route at the
+same stats. The exact kernels take any capacity. The table builders are
+PyTorch scatters; a LIVE build key outside the advisory domain sets
+``oob`` and the caller discards the tables (a counted fallback, never a
+wrong answer).
 
 What bounds the kernels on the H100: the bytes moved per probe row (the
 key in its stored width, the live byte, a bool out, 4 bytes per payload
 value); the tables are at most 64 KB and stay cached. See the header of
 the CUDA source for the design.
 
-``exists_probe`` / ``payload_probe`` launch the kernels on CUDA tensors
-and compute ``exists_probe_plain`` / ``payload_probe_plain`` on CPU
-tensors; ``exists_launches`` / ``payload_launches`` count launches.
+Each kernel's wrapper launches it on CUDA tensors and computes its plain
+version (``*_plain``) on CPU tensors; ``exists_launches``,
+``payload_launches``, ``sketch_launches`` and ``q3_launches`` count
+launches.
 """
 
 from __future__ import annotations
@@ -39,6 +53,7 @@ from dataclasses import dataclass
 import torch
 
 from presto_tpu_torch.ops import _build
+from presto_tpu_torch.ops.hashing import bloom_build, bloom_test, pack_bits
 from presto_tpu_torch.runtime.errors import InternalError
 
 #: exists-table words: the JAX package's 8 MB replicated-table budget
@@ -49,6 +64,11 @@ PAYLOAD_SLOT_LIMIT = 16384
 #: value columns one payload probe carries (the planner routes wider
 #: payloads to the dense or sorted probe)
 MAX_VALUES = 16
+#: sketch-mode Bloom bits (2^19 bits = 16384 words, the exists budget)
+SKETCH_BITS = 1 << 19
+#: the JAX package's probe-block lane width (the sketch route's
+#: capacity rule, ``probe_block``)
+_LANES = 128
 _INT32_MIN, _INT32_MAX = -(1 << 31), (1 << 31) - 1
 _KEY_DTYPES = (torch.int8, torch.int16, torch.int32)
 
@@ -56,6 +76,8 @@ _KEY_DTYPES = (torch.int8, torch.int16, torch.int32)
 #: whoever reads them)
 exists_launches = 0
 payload_launches = 0
+sketch_launches = 0
+q3_launches = 0
 
 
 def _pad8(n: int) -> int:
@@ -80,6 +102,18 @@ def payload_rows(domain: int, ncols: int) -> int | None:
     return d if (1 + ncols) * d <= PAYLOAD_SLOT_LIMIT else None
 
 
+def probe_block(cap: int) -> int | None:
+    """The JAX package's probe sublanes per grid block: the largest of
+    512..8 whose 128-lane block evenly divides the capacity, or None
+    (a capacity that is not a multiple of 1024). The exact kernels here
+    take any capacity (ROADMAP C4); the sketch route keeps this rule, so
+    it approximates exactly the batches the JAX package's does."""
+    for sp in (512, 256, 128, 64, 32, 16, 8):
+        if cap % (sp * _LANES) == 0:
+            return sp
+    return None
+
+
 def interval_ok(key_min: int, key_max: int) -> bool:
     """The domain ends must fit int32 (keys are at most 32-bit)."""
     return _INT32_MIN <= key_min <= key_max <= _INT32_MAX
@@ -94,14 +128,16 @@ def key_dtype_ok(dtype: torch.dtype) -> bool:
 @dataclass(frozen=True)
 class PallasJoinSpec:
     """Planner-chosen fused-probe configuration, carried by the join
-    build. ``payload`` names build-side source columns in projection
-    order (payload mode). The name is the JAX package's; the approximate
-    sketch mode is not ported."""
+    build (the name is the JAX package's). ``payload`` names build-side
+    source columns in projection order (payload mode); ``nbits`` > 0
+    selects sketch mode (``approx_join``) and makes key_min/key_max
+    irrelevant."""
 
-    mode: str  # "exists" | "payload"
+    mode: str  # "exists" | "payload" | "sketch"
     key_min: int = 0
     key_max: int = 0
     payload: tuple[str, ...] = ()
+    nbits: int = 0
 
 
 # ---------------------------------------------------------------------------
@@ -117,22 +153,29 @@ def _slots(keys: torch.Tensor, live: torch.Tensor, key_min: int, key_max: int, t
     return torch.where(ok, k - key_min, torch.full_like(k, trash)), (live & ~inr).any()
 
 
-def build_exists_table(keys: torch.Tensor, live: torch.Tensor, key_min: int, key_max: int):
+def build_exists_table(keys: torch.Tensor, live: torch.Tensor, key_min: int, key_max: int,
+                       pad_words: int | None = None):
     """int32 [W] bitmask over the key domain (bit b of word w is key
     key_min + 32w + b). Returns (table, oob): ``oob`` is True when some
-    LIVE key fell outside the domain. Duplicate keys are fine."""
-    w = exists_words(key_max - key_min + 1)
-    if w is None:
-        raise InternalError(f"exists table over [{key_min}, {key_max}] is over budget")
+    LIVE key fell outside the domain. Duplicate keys are fine.
+    ``pad_words`` sets W (bits past the domain stay 0), bypassing the
+    exists budget, as the benchmark's Q3 table does."""
+    w = exists_words(key_max - key_min + 1) if pad_words is None else pad_words
+    if w is None or w * 32 < key_max - key_min + 1:
+        raise InternalError(f"exists table over [{key_min}, {key_max}] is over budget "
+                            f"or does not cover the domain")
     nbits = w * 32
     slot, oob = _slots(keys, live, key_min, key_max, nbits)
     present = torch.zeros(nbits + 1, dtype=torch.int64, device=keys.device)
     present.scatter_(0, slot, torch.ones_like(slot))
-    bits = present[:nbits].view(w, 32) << torch.arange(32, device=keys.device)
-    words = bits.sum(dim=1)
-    # the int64 word sum holds the unsigned bit pattern; wrap to int32
-    words = torch.where(words >= 1 << 31, words - (1 << 32), words)
-    return words.to(torch.int32), oob
+    return pack_bits(present, w), oob
+
+
+def build_sketch_table(keys: torch.Tensor, live: torch.Tensor, nbits: int = SKETCH_BITS):
+    """int32 [nbits / 32] two-hash Bloom words over the live keys
+    (``hashing.bloom_build``: the layout the sketch kernel probes). No
+    domain and no oob: every key hashes somewhere."""
+    return bloom_build(keys, live, nbits)
 
 
 def build_payload_tables(keys: torch.Tensor, live: torch.Tensor, key_min: int,
@@ -257,3 +300,132 @@ def payload_probe_plain(tables, key_min: int, key_max: int, keys, live):
     hit = inr & (tables[0][slot] != 0)
     zero = torch.zeros(keys.shape, dtype=torch.int32, device=keys.device)
     return hit, [torch.where(hit, t[slot], zero) for t in tables[1:]]
+
+
+def _check_sketch(table, nbits: int, keys, live):
+    if nbits <= 0 or nbits & (nbits - 1) or table.dim() != 1 or table.shape[0] * 32 != nbits:
+        raise InternalError(f"sketch of {nbits} bits over a table of shape "
+                            f"{tuple(table.shape)}: nbits must be a power of two, "
+                            "32 per table word")
+    if table.dtype != torch.int32 or table.device != keys.device:
+        raise InternalError("the sketch table must be int32 beside the keys")
+    if not key_dtype_ok(keys.dtype) or keys.dim() != 1:
+        raise InternalError(f"probe keys must be int8/int16/int32 [cap], got {keys.dtype}")
+    if live.dtype != torch.bool or live.shape != keys.shape or live.device != keys.device:
+        raise InternalError("probe live mask must be bool [cap] beside the keys")
+
+
+def sketch_probe(table, nbits: int, keys, live) -> torch.Tensor:
+    """APPROXIMATE matched bool [cap]: live and both Bloom bits of the
+    key set (false positives possible, never false negatives)."""
+    _check_sketch(table, nbits, keys, live)
+    if keys.device.type == "cpu":
+        return sketch_probe_plain(table, nbits, keys, live)
+    if keys.device.type != "cuda":
+        raise InternalError(f"sketch_probe: no kernel for {keys.device}")
+    global sketch_launches
+    out = torch.empty(keys.shape, dtype=torch.bool, device=keys.device)
+    k, lv, t = keys.contiguous(), live.contiguous(), table.contiguous()
+    lib = _build.load("join_probe")
+    fn = lib.sketch_probe_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
+    with torch.cuda.device(k.device):
+        stream = torch.cuda.current_stream(k.device).cuda_stream
+        code = fn(k.data_ptr(), k.element_size(), lv.data_ptr(), k.shape[0], t.data_ptr(),
+                  nbits, out.data_ptr(), stream)
+    _build.check_launch(lib, "join_probe", code)
+    sketch_launches += 1
+    return out
+
+
+def sketch_probe_plain(table, nbits: int, keys, live) -> torch.Tensor:
+    """The plain PyTorch version of ``sketch_probe`` (same contract)."""
+    _check_sketch(table, nbits, keys, live)
+    return live & bloom_test(table, keys)
+
+
+# ---------------------------------------------------------------------------
+# the benchmark's resident Q3 join step
+# ---------------------------------------------------------------------------
+
+#: the JAX package's partition width: its 8 MB table budget over 128
+#: lanes of 4 bytes
+_Q3_WMAX = 16384
+
+
+def q3_partitions(domain: int, wmax: int | None = None) -> tuple[int, int]:
+    """(words per partition, partition count) covering ``domain``, as
+    the JAX package computes them: ``pad_words = w * nparts`` sizes the
+    Q3 bitmask (``build_exists_table``). The kernel here reads the table
+    flat; partitions are a TPU means and change no result."""
+    if wmax is None:
+        wmax = _Q3_WMAX
+    words = -(-domain // 32)
+    return wmax, -(-words // wmax)
+
+
+def _q3_columns(table, key_min: int, domain: int, keys, shipdate, extendedprice,
+                discount, live):
+    cols = (keys, shipdate, extendedprice, discount)
+    if table.dtype != torch.int32 or table.dim() != 1 or table.shape[0] * 32 < domain:
+        raise InternalError(f"the Q3 bitmask must be int32 [W] covering {domain} keys")
+    if not interval_ok(key_min, key_min):
+        raise InternalError(f"Q3 key_min {key_min} does not fit int32")
+    for c in cols:
+        if not key_dtype_ok(c.dtype) or c.shape != live.shape or c.device != live.device:
+            raise InternalError("Q3 columns must be int8/int16/int32 [cap] beside the live "
+                                f"mask, got {c.dtype}{tuple(c.shape)}")
+    if live.dtype != torch.bool or live.dim() != 1 or table.device != live.device:
+        raise InternalError("the Q3 live mask must be bool [cap] beside the table")
+
+
+def q3_probe_step(table, key_min: int, domain: int, cutoff: int, keys, shipdate,
+                  extendedprice, discount, live, wmax: int | None = None):
+    """The fused Q3 join step over one batch: rows that are live, ship
+    after ``cutoff`` and whose key's bit is set in the bitmask ``table``
+    (bit ``key - key_min``; keys below key_min or past the table miss).
+    Returns (matched count, revenue = sum ep * (100 - disc), at scale 4)
+    as int64 0-d tensors. ``wmax`` is accepted for the JAX package's
+    signature and changes nothing."""
+    del wmax
+    _q3_columns(table, key_min, domain, keys, shipdate, extendedprice, discount, live)
+    if live.device.type == "cpu":
+        return q3_probe_step_plain(table, key_min, domain, cutoff, keys, shipdate,
+                                   extendedprice, discount, live)
+    if live.device.type != "cuda":
+        raise InternalError(f"q3_probe_step: no kernel for {live.device}")
+    global q3_launches
+    cols = [c.contiguous() for c in (keys, shipdate, extendedprice, discount)]
+    lv, t = live.contiguous(), table.contiguous()
+    out = torch.zeros(2, dtype=torch.int64, device=live.device)
+    lib = _build.load("join_probe")
+    fn = lib.q3_probe_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] * 4
+                   + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
+                      ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p])
+    args = []
+    for c in cols:
+        args += [c.data_ptr(), c.element_size()]
+    with torch.cuda.device(lv.device):
+        stream = torch.cuda.current_stream(lv.device).cuda_stream
+        code = fn(*args, lv.data_ptr(), lv.shape[0], t.data_ptr(), t.shape[0], key_min,
+                  cutoff, out.data_ptr(), stream)
+    _build.check_launch(lib, "join_probe", code)
+    q3_launches += 1
+    return out[0], out[1]
+
+
+def q3_probe_step_plain(table, key_min: int, domain: int, cutoff: int, keys, shipdate,
+                        extendedprice, discount, live):
+    """The plain PyTorch version of ``q3_probe_step`` (same contract)."""
+    _q3_columns(table, key_min, domain, keys, shipdate, extendedprice, discount, live)
+    slot = keys.to(torch.int64) - key_min
+    inr = (live & (shipdate.to(torch.int64) > cutoff) & (slot >= 0)
+           & ((slot >> 5) < table.shape[0]))
+    s = torch.where(inr, slot, torch.zeros_like(slot))
+    hit = inr & (((table.to(torch.int64)[s >> 5] >> (s & 31)) & 1) != 0)
+    rev = extendedprice.to(torch.int64) * (100 - discount.to(torch.int64))
+    return hit.sum(dtype=torch.int64), torch.where(hit, rev, torch.zeros_like(rev)).sum()

@@ -1,14 +1,16 @@
 """Join kernels in plain PyTorch: sorted build + search probe, dense table.
 
-Counterpart of ``presto_tpu/ops/join.py`` (the unique-build part): the
-lookup source is a sorted int64 key array plus a row-index permutation,
-probed with ``torch.searchsorted``; where connector stats bound the key
-domain, a dense direct-address row table makes the probe one gather.
-Dead build slots carry the int64 maximum as a sentinel, so a LIVE key
-equal to it is flagged (``sentinel_hit``) and the join build refuses it.
-The expansion probe for duplicate build keys (``probe_expand``), the
-semi-join membership probes and the packed single-gather build are not
-ported yet.
+Counterpart of ``presto_tpu/ops/join.py`` (the unique-build and
+membership part): the lookup source is a sorted int64 key array plus a
+row-index permutation, probed with ``torch.searchsorted``; where
+connector stats bound the key domain, a dense direct-address row table
+makes the probe one gather. The semi/anti-join membership probes
+(``probe_exists``, ``probe_exists_dense``) ask the same two sides whether
+a key exists, duplicates allowed. Dead build slots carry the int64
+maximum as a sentinel, so a LIVE key equal to it is flagged
+(``sentinel_hit``) and the join build refuses it. The expansion probe for
+duplicate build keys (``probe_expand``) and the packed single-gather
+build are not ported yet.
 """
 
 from __future__ import annotations
@@ -95,3 +97,20 @@ def probe_unique_dense(dense: DenseSide, probe_keys: torch.Tensor,
     row = dense.table[torch.clamp(slot, 0, domain - 1)]
     row = torch.where(inr, row, torch.full_like(row, dense.sentinel))
     return UniqueProbe(row, row != dense.sentinel)
+
+
+def probe_exists_dense(dense: DenseSide, probe_keys: torch.Tensor,
+                       probe_live: torch.Tensor) -> torch.Tensor:
+    """Semi-join membership via the dense table (duplicate-safe: the
+    table keeps one row per key, and existence needs no more)."""
+    return probe_unique_dense(dense, probe_keys, probe_live).matched
+
+
+def probe_exists(build: BuildSide, probe_keys: torch.Tensor,
+                 probe_live: torch.Tensor) -> torch.Tensor:
+    """Semi-join membership: True where the probe key exists in the
+    sorted build keys."""
+    pk = probe_keys.to(torch.int64)
+    pos = torch.searchsorted(build.sorted_keys, pk)
+    hit = gather_padded(build.sorted_keys, pos, I64_MAX)
+    return (hit == pk) & probe_live & (pk != I64_MAX)

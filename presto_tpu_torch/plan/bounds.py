@@ -195,6 +195,10 @@ def node_intervals(node: N.PlanNode, catalog) -> dict[str, Interval]:
             right = {n: _hull(iv, (0, 0)) for n, iv in right.items()}
         out.update(right)
         return out
+    if isinstance(node, N.SemiJoin):
+        # a filter-only join: its rows (and their bounds) are the left's
+        env = node_intervals(node.left, catalog)
+        return {f.name: env.get(f.name) for f in node.fields}
     children = node.children
     if len(children) == 1:
         env = node_intervals(children[0], catalog)
@@ -230,6 +234,8 @@ def resolve_source_column(node: N.PlanNode, name: str):
         if name in {f.name for f in node.left.fields}:
             return resolve_source_column(node.left, name)
         return resolve_source_column(node.right, name)
+    if isinstance(node, N.SemiJoin):
+        return resolve_source_column(node.left, name)
     children = node.children
     if len(children) == 1:
         return resolve_source_column(children[0], name)
@@ -266,6 +272,8 @@ def estimate_rows(node: N.PlanNode, catalog) -> int:
         if node.unique:
             return left
         return max(left, estimate_rows(node.right, catalog))
+    if isinstance(node, N.SemiJoin):
+        return estimate_rows(node.left, catalog)
     if isinstance(node, N.TopN):
         return node.count
     if isinstance(node, N.Limit):

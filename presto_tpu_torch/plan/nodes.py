@@ -123,6 +123,25 @@ class Join(PlanNode):
 
 
 @dataclass(frozen=True)
+class SemiJoin(PlanNode):
+    """left WHERE left_key [NOT] IN (right keys) — filter-only join."""
+
+    left: PlanNode
+    right: PlanNode
+    left_keys: tuple[Expr, ...]
+    right_keys: tuple[Expr, ...]
+    negated: bool = False
+
+    @property
+    def children(self):
+        return (self.left, self.right)
+
+    @property
+    def fields(self):
+        return self.left.fields
+
+
+@dataclass(frozen=True)
 class Sort(PlanNode):
     child: PlanNode
     keys: tuple[SortKey, ...]
@@ -183,11 +202,15 @@ class Output(PlanNode):
         return tuple(Field(n, smap[s].dtype) for n, s in zip(self.names, self.sources))
 
 
-def plan_tree_str(node: PlanNode, indent: int = 0, catalog=None) -> str:
-    """EXPLAIN-style rendering. With a ``catalog``, joins render the
-    stats-planned probe strategy (``strategy=pallas|dense|unique|expand``)
-    and aggregates the planned aggregation strategy
-    (``agg_strategy=bypass|partial|single``), as the JAX package does."""
+def plan_tree_str(node: PlanNode, indent: int = 0, catalog=None,
+                  approx_join: bool = False) -> str:
+    """EXPLAIN-style rendering. With a ``catalog``, joins and semi joins
+    render the stats-planned probe strategy
+    (``strategy=pallas|dense|unique|expand``) and aggregates the planned
+    aggregation strategy (``agg_strategy=fused|bypass|partial|single``),
+    as the JAX package does. With ``approx_join`` (the session property),
+    semi joins that would probe the Bloom sketch render
+    ``strategy=sketch(approx)``: the approximate mode is never silent."""
     pad = "  " * indent
     detail = ""
     if isinstance(node, TableScan):
@@ -199,12 +222,15 @@ def plan_tree_str(node: PlanNode, indent: int = 0, catalog=None) -> str:
             from presto_tpu_torch.exec.leaf_route import agg_strategy_for
 
             detail += f" agg_strategy={agg_strategy_for(node, catalog)}"
-    elif isinstance(node, Join):
-        detail = f" {node.kind}{' unique' if node.unique else ''}"
+    elif isinstance(node, (Join, SemiJoin)):
+        if isinstance(node, Join):
+            detail = f" {node.kind}{' unique' if node.unique else ''}"
+        else:
+            detail = " anti" if node.negated else ""
         if catalog is not None:
             from presto_tpu_torch.exec.local_planner import planned_join_strategy
 
-            detail += f" strategy={planned_join_strategy(node, catalog)}"
+            detail += f" strategy={planned_join_strategy(node, catalog, approx_join)}"
     elif isinstance(node, (TopN, Limit)):
         detail = f" n={node.count}"
     elif isinstance(node, Output):
@@ -213,5 +239,5 @@ def plan_tree_str(node: PlanNode, indent: int = 0, catalog=None) -> str:
         detail = f" {[n for n, _ in node.exprs]}"
     out = f"{pad}{type(node).__name__}{detail}\n"
     for c in node.children:
-        out += plan_tree_str(c, indent + 1, catalog=catalog)
+        out += plan_tree_str(c, indent + 1, catalog=catalog, approx_join=approx_join)
     return out

@@ -69,6 +69,14 @@ def prune(node: N.PlanNode, needed: set[str] | None = None) -> N.PlanNode:
             prune(node.left, lneed), prune(node.right, rneed), node.kind,
             node.left_keys, node.right_keys, node.unique, out_right,
         )
+    if isinstance(node, N.SemiJoin):
+        want = set(needed) if needed is not None else set(node.field_names())
+        lneed = want | _refs(node.left_keys)
+        rneed = _refs(node.right_keys)
+        return N.SemiJoin(
+            prune(node.left, lneed), prune(node.right, rneed),
+            node.left_keys, node.right_keys, node.negated,
+        )
     if isinstance(node, (N.Sort, N.TopN)):
         want = set(needed) if needed is not None else set(node.field_names())
         want |= _refs([k.expr for k in node.keys])

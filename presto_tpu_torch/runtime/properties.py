@@ -58,6 +58,15 @@ SESSION_PROPERTIES: dict[str, PropertyDef] = {
             "PRESTO_TPU_NARROW environment variable; default: on. Off "
             "takes the generic operators with canonical storage; "
             "results are bit-identical either way."),
+        PropertyDef(
+            "approx_join", bool, False,
+            "APPROXIMATE semi joins: when the exact fused table cannot "
+            "fit, probe a two-hash Bloom sketch instead (ops/cuda_join.py "
+            "sketch_probe) — false positives possible (extra rows at "
+            "roughly (1-exp(-2n/m))^2 for n build keys in m=2^19 bits), "
+            "never false negatives, never row loss (anti joins are "
+            "excluded by construction). Changes results: "
+            "QueryResult.approximate says when a run probed the sketch."),
     ]
 }
 

@@ -47,8 +47,10 @@ class Session:
 
     def explain(self, sql: str) -> str:
         """The pruned plan with its planned join and aggregation
-        strategies."""
-        return plan_tree_str(self.plan(sql), catalog=self.catalog)
+        strategies (``strategy=sketch(approx)`` where ``approx_join``
+        would probe a Bloom sketch)."""
+        return plan_tree_str(self.plan(sql), catalog=self.catalog,
+                             approx_join=self.prop("approx_join"))
 
     def executor(self) -> LocalExecutor:
         """A fresh executor configured from the session properties."""
@@ -59,8 +61,9 @@ class Session:
             # package does (process-wide)
             os.environ["PRESTO_TPU_NARROW"] = "1" if narrow else "0"
         return LocalExecutor(self.catalog, pallas_join_enabled=self.prop("pallas_join"),
-                             device=self.device)
+                             approx_join=self.prop("approx_join"), device=self.device)
 
     def sql(self, sql: str) -> QueryResult:
-        """Execute one query and return its rows."""
+        """Execute one query and return its rows (``QueryResult.approximate``
+        says whether a semi join probed the Bloom sketch)."""
         return self.executor().run(self.plan(sql))

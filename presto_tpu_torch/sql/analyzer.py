@@ -1,10 +1,12 @@
 """Semantic analysis: AST -> typed logical plan (the ported subset).
 
 Counterpart of ``presto_tpu/sql/analyzer.py`` for the SELECT shapes of
-TPC-H Q1, Q3, Q6, Q9 and Q10 and the SSB Q1 flight and LIKE queries:
+TPC-H Q1, Q3, Q4, Q6, Q9 and Q10 and the SSB Q1 flight and LIKE queries:
 SELECT / FROM with comma joins (and explicit ``JOIN ... ON``) and derived
 tables (``(SELECT ...) AS alias``) / WHERE conjuncts / GROUP BY (or
-none: one keyless aggregate row) / ORDER BY / LIMIT; ``count``, ``sum``,
+none: one keyless aggregate row) / ORDER BY / LIMIT; [NOT] EXISTS with
+equality correlation and [NOT] IN (subquery), each planned as a
+``SemiJoin`` (anti when negated); ``count``, ``sum``,
 ``avg`` (``sum`` / ``count`` in DOUBLE), ``min``, ``max``; DECIMAL and
 DATE arithmetic, comparisons, [NOT] BETWEEN, [NOT] LIKE and NOT;
 ``SUBSTRING`` / ``substr`` over BYTES; ``EXTRACT`` (and the functions)
@@ -16,9 +18,10 @@ unique-build detection from table keys, and functional-dependency
 grouping (keys covered by a table's unique key ride as passengers), so
 both packages build the same plan tree for the same statement.
 
-Anything else (subquery predicates, CTEs, set operations, DISTINCT,
-windows, grouping sets, OR, CASE, casts, the rest of the scalar function
-library) raises ``NotSupported`` naming the construct.
+Anything else (scalar subqueries, EXISTS correlated by ``<>``, EXISTS
+under OR (the mark join), uncorrelated EXISTS, set operations, CTEs,
+DISTINCT, windows, grouping sets, OR, CASE, casts, the rest of the scalar
+function library) raises ``NotSupported`` naming the construct.
 """
 
 from __future__ import annotations
@@ -223,8 +226,6 @@ class Analyzer:
                 self._classify_conjunct(
                     c, rels, edges, residual, sub_preds, scope, outer, ctes
                 )
-        if sub_preds:
-            raise _unsupported("subquery predicates (EXISTS / IN / scalar)")
 
         # ---- order the joins ------------------------------------------
         plan = self._build_join_tree(rels, edges, scope)
@@ -233,6 +234,10 @@ class Analyzer:
         for c in residual:
             e = self._expr(c, scope, outer, ctes, scalar_binds)
             plan = N.Filter(plan, e)
+
+        # semi/anti joins from WHERE
+        for c in sub_preds:
+            plan = self._apply_subquery_pred(c, plan, scope, outer, ctes, scalar_binds)
 
         # ---- aggregation ----------------------------------------------
         has_agg = (
@@ -948,6 +953,120 @@ class Analyzer:
         if t.kind is TypeKind.INTEGER:
             return BIGINT
         return t
+
+    # ------------------------------------------------------------------
+    # subquery predicates: EXISTS / IN as semi and anti joins
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _as_plain_query(q):
+        if isinstance(q, A.SetQuery):
+            raise _unsupported("a set operation (UNION) in a subquery")
+        return q
+
+    def _apply_subquery_pred(self, c, plan, scope, outer, ctes, scalar_binds):
+        # EXISTS / NOT EXISTS
+        node = c
+        negated = False
+        while isinstance(node, A.UnaryOp) and node.op == "not":
+            negated = not negated
+            node = node.operand
+        if isinstance(node, A.Exists):
+            return self._plan_exists(
+                self._as_plain_query(node.query), negated != node.negated,
+                plan, scope, ctes,
+            )
+        if isinstance(node, A.InSubquery):
+            value = self._expr(node.value, scope, outer, ctes, scalar_binds)
+            sub_plan, _sub_scope = self._analyze_query(
+                self._as_plain_query(node.query), None, ctes
+            )
+            inner = sub_plan.child if isinstance(sub_plan, N.Output) else sub_plan
+            key_name = (
+                sub_plan.sources[0] if isinstance(sub_plan, N.Output)
+                else inner.field_names()[0]
+            )
+            kf = {f.name: f for f in inner.fields}[key_name]
+            return N.SemiJoin(
+                plan, inner, (value,), (InputRef(kf.dtype, kf.name),),
+                negated != node.negated,
+            )
+        if isinstance(node, (A.BinaryOp, A.Between)) and self._contains_scalar_subquery(node):
+            raise _unsupported("a scalar subquery")
+        if isinstance(node, A.BinaryOp) and node.op in ("or", "and"):
+            raise _unsupported("EXISTS / IN under OR (the mark join)")
+        raise _unsupported(f"the subquery predicate {type(node).__name__}")
+
+    def _contains_scalar_subquery(self, n) -> bool:
+        if isinstance(n, A.ScalarSubquery):
+            return True
+        if isinstance(n, A.Node):
+            return any(self._contains_scalar_subquery(v) for v in _ast_fields(n))
+        if isinstance(n, tuple):
+            return any(self._contains_scalar_subquery(v) for v in n)
+        return False
+
+    def _split_correlation(self, q: A.Query, inner_scope_probe, outer_scope: Scope,
+                           ctes):
+        """Analyze a possibly-correlated subquery: returns
+        (decorrelated_query_where, corr_pairs, neq_pairs) where each
+        pair list holds (outer_parts, inner_parts) from ``=`` / ``<>``
+        conjuncts correlating inner and outer columns."""
+        corr = []
+        neq = []
+        keep = []
+        if q.where is not None:
+            for c in conjuncts(q.where):
+                if (isinstance(c, A.BinaryOp) and c.op in ("=", "<>")
+                        and isinstance(c.left, A.Identifier)
+                        and isinstance(c.right, A.Identifier)):
+                    sink = corr if c.op == "=" else neq
+                    li = inner_scope_probe(c.left.parts)
+                    ri = inner_scope_probe(c.right.parts)
+                    lo = outer_scope.try_resolve(c.left.parts) if outer_scope else None
+                    ro = outer_scope.try_resolve(c.right.parts) if outer_scope else None
+                    if li is None and lo is not None and ri is not None:
+                        sink.append((c.left.parts, c.right.parts))
+                        continue
+                    if ri is None and ro is not None and li is not None:
+                        sink.append((c.right.parts, c.left.parts))
+                        continue
+                keep.append(c)
+        new_where = None
+        for c in keep:
+            new_where = c if new_where is None else A.BinaryOp("and", new_where, c)
+        return new_where, corr, neq
+
+    def _inner_scope_probe(self, q: A.Query, ctes):
+        """Build a resolver over the subquery's own FROM scope."""
+        rels: list[Rel] = []
+        edges: list[dict] = []
+        if q.from_ is not None:
+            self._flatten_from(q.from_, rels, edges, ctes, None)
+        sc = Scope([f for r in rels for f in r.scope.fields])
+        return lambda parts: sc.try_resolve(parts)
+
+    def _plan_exists(self, sub_q: A.Query, negated: bool, plan, scope, ctes):
+        probe = self._inner_scope_probe(sub_q, ctes)
+        new_where, corr, neq = self._split_correlation(sub_q, probe, scope, ctes)
+        if not corr:
+            raise _unsupported("an uncorrelated EXISTS")
+        if neq:
+            raise _unsupported("an EXISTS correlated by <> (the min/max rewrite)")
+        inner_cols = tuple(A.Identifier(ip) for _, ip in corr)
+        rewritten = A.Query(
+            select=tuple(A.SelectItem(ic, None) for ic in inner_cols),
+            from_=sub_q.from_, where=new_where,
+        )
+        sub_plan, _sub_scope = self._analyze_query(rewritten, None, ctes)
+        inner = sub_plan.child if isinstance(sub_plan, N.Output) else sub_plan
+        sources = sub_plan.sources if isinstance(sub_plan, N.Output) else inner.field_names()
+        imap = {f.name: f for f in inner.fields}
+        right_keys = tuple(InputRef(imap[s].dtype, s) for s in sources)
+        left_keys = []
+        for op_, _ in corr:
+            f = scope.resolve(op_)
+            left_keys.append(InputRef(f.dtype, f.name))
+        return N.SemiJoin(plan, inner, tuple(left_keys), right_keys, negated)
 
     # ------------------------------------------------------------------
     # order-by resolution

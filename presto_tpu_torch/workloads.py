@@ -2,7 +2,10 @@
 
 Counterpart of ``presto_tpu/workloads.py``: the Q1 leaf fragment as one
 fused step (``q1_fused_step``) and as an operator pipeline
-(``q1_pipeline``), without the SQL front end; and the ``part`` name
+(``q1_pipeline``), without the SQL front end; the benchmark's resident
+Q3 join step (``q3_probe_table`` + ``q3_probe_step``: orders bitmask,
+shipdate filter and revenue in one pass, the JAX package's
+``bench.py`` ``bench_q3_join`` primary); and the ``part`` name
 filter of TPC-H Q20's inner query, ``starts_with(p_name, 'forest')``, as
 a scan -> FilterProject pipeline (``part_name_pipeline``): the SQL
 analyzer has no ``starts_with``, so this is where the prefix kernel is
@@ -10,6 +13,8 @@ reached, as in the JAX package.
 """
 
 from __future__ import annotations
+
+import torch
 
 from presto_tpu_torch.batch import Batch
 from presto_tpu_torch.connectors.tpch import TpchConnector
@@ -21,8 +26,9 @@ from presto_tpu_torch.exec.operators import (
 )
 from presto_tpu_torch.exec.pipeline import Pipeline, ScanSource
 from presto_tpu_torch.expr import Call, col, evaluate, evaluate_predicate, lit
-from presto_tpu_torch.ops import cuda_q1
+from presto_tpu_torch.ops import cuda_join, cuda_q1
 from presto_tpu_torch.ops.groupby import fused_small_sums, group_ids_direct
+from presto_tpu_torch.runtime.errors import InternalError
 from presto_tpu_torch.types import BIGINT, BOOLEAN, DATE, decimal, fixed_bytes, varchar
 
 dec2 = decimal(12, 2)
@@ -156,3 +162,42 @@ def q1_batch(conn: TpchConnector, split=None, capacity=None) -> Batch:
     splits = conn.splits("lineitem")
     s = split if split is not None else splits[0]
     return conn.scan(s, Q1_COLS, capacity)
+
+
+#: the Q3 join's columns on the probe side, in ``q3_probe_step`` order
+Q3_COLS = ["l_orderkey", "l_shipdate", "l_extendedprice", "l_discount"]
+Q3_CUTOFF = 9204  # date '1995-03-15'
+#: o_orderkey's first value: the Q3 bitmask covers [Q3_KEY_MIN, domain]
+Q3_KEY_MIN = 1
+
+
+def q3_domain(sf: float) -> int:
+    """The Q3 bitmask's key bound at scale factor ``sf``: o_orderkey is
+    in [1, 6M * sf] (the connector's stats), plus one, as the JAX
+    package's benchmark sizes it."""
+    return int(6_000_000 * sf) + 1
+
+
+def q3_probe_table(orders_batch: Batch, cutoff: int, domain: int) -> torch.Tensor:
+    """The Q3 build: an exists bitmask over [1, domain] of the orders
+    with ``o_orderdate < cutoff``, padded to the JAX package's partition
+    words (``cuda_join.q3_partitions``). Raises when a live key falls
+    outside the domain (the stats would be wrong)."""
+    live = orders_batch.live & (orders_batch["o_orderdate"].data.to(torch.int32) < cutoff)
+    w, nparts = cuda_join.q3_partitions(domain)
+    table, oob = cuda_join.build_exists_table(orders_batch["o_orderkey"].data, live,
+                                              Q3_KEY_MIN, domain, pad_words=w * nparts)
+    if bool(oob):
+        raise InternalError(f"an o_orderkey falls outside [{Q3_KEY_MIN}, {domain}]")
+    return table
+
+
+def q3_probe_step(table: torch.Tensor, key_min: int, domain: int, cutoff: int,
+                  lineitem_batch: Batch):
+    """One fused Q3 join step over a ``lineitem`` batch of ``Q3_COLS``:
+    (matched count, revenue = sum ep * (100 - disc) at scale 4), int64
+    0-d tensors. The join-probe kernel on a CUDA batch, its plain
+    version on the CPU."""
+    b = lineitem_batch
+    return cuda_join.q3_probe_step(table, key_min, domain, cutoff,
+                                   *[b[c].data for c in Q3_COLS], b.live)

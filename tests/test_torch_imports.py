@@ -35,6 +35,7 @@ def test_scan_covers_the_package():
     assert "presto_tpu_torch/workloads.py" in FILES
     assert "presto_tpu_torch/ops/cuda_q1.py" in FILES
     assert "presto_tpu_torch/ops/cuda_join.py" in FILES
+    assert "presto_tpu_torch/ops/hashing.py" in FILES
     assert "presto_tpu_torch/runtime/session.py" in FILES
     assert "presto_tpu_torch/sql/analyzer.py" in FILES
     assert "chip_smoke.py" in FILES

@@ -128,7 +128,7 @@ def test_plan_routes_the_probe_kernels(sessions, q):
 
 
 UNSUPPORTED = [
-    ("select count(*) from lineitem where l_orderkey in (select o_orderkey from orders)",
+    ("select count(*) from lineitem where l_quantity < (select avg(l_quantity) from lineitem)",
      "subquery"),
     ("select l_orderkey, rank() over (order by l_quantity) from lineitem", "window"),
     ("select distinct l_returnflag from lineitem", "DISTINCT"),
@@ -147,7 +147,8 @@ def test_constructs_outside_the_slice_raise_naming_them(sql, what):
         ps.sql(sql)
 
 
-OTHER_QUERIES = sorted((q for q in QUERIES if q not in ("q1", "q3", "q6", "q9", "q10")),
+OTHER_QUERIES = sorted((q for q in QUERIES
+                        if q not in ("q1", "q3", "q4", "q6", "q9", "q10", "q18")),
                        key=lambda q: int(q[1:]))
 
 
@@ -156,7 +157,8 @@ def test_other_tpch_queries_refuse_rather_than_answer(q):
     """Every TPC-H query outside the slice raises NotSupported (none
     returns a silently wrong answer); Q3 and Q10 are compared with the
     reference in tests/test_torch_q3.py, Q1 and Q6 in
-    tests/test_torch_leaf_route.py, Q9 in tests/test_torch_like_sql.py."""
+    tests/test_torch_leaf_route.py, Q9 in tests/test_torch_like_sql.py,
+    Q4 and Q18 in tests/test_torch_semi.py."""
     ps = PSession({"tpch": PConnector(sf=0.01, device="cpu")}, device="cpu")
     with pytest.raises(NotSupported, match="not ported"):
         ps.sql(QUERIES[q])
