@@ -8,13 +8,18 @@ one CUDA card, and exits nonzero on any failure. Phases:
 1. build every CUDA kernel of the path from ``presto_tpu_torch/csrc``;
 2. hold each kernel against its plain PyTorch version on the card,
    exactly, at several shapes, in the connector's narrow column widths
-   and in wider ones, and at the guard cases that must flag;
+   and in wider ones, and at the guard cases that must flag; the
+   leaf-aggregation and lane-sums kernels also at the edges of their
+   2048-row tiles (capacities 1, 15, 17, 2047, 2049), with every row
+   dead, on columns that are views one element into their buffer, and
+   in every instance they have (each must run at least once);
 3. resident TPC-H Q1: SF1 ``lineitem`` tiled x10 (about 60M rows) in
    the connector's narrow storage, through ``workloads.q1_fused_step``
    (the Q1 kernel); equal to 10x a numpy recomputation, and the kernel
    equal to its plain version on that batch;
 4. the Q1 pipeline at SF1 (scan -> filter -> direct hash aggregation ->
-   the lane-sums kernel); equal to the numpy recomputation;
+   the lane-sums kernel, every launch on its staged instance for 4
+   values and 5 masks); equal to the numpy recomputation;
 5. time each kernel, its plain version and, where one exists, one
    PyTorch library call computing the same function, at the main path's
    shapes, and print them with the least time the card could take. A
@@ -29,11 +34,11 @@ one CUDA card, and exits nonzero on any failure. Phases:
    timed as in phase 5, at the inputs this phase gave them;
 7. TPC-H Q1 and Q6 and SSB Q1.1-1.3 at SF1 through ``Session.sql`` on
    the fused leaf route (Q1 on the Q1 kernel once per ``lineitem`` split,
-   the others on the leaf-aggregation kernel once per scan split, no
-   fallback), each equal to an exact numpy recomputation, and equal
-   again with ``narrow_storage`` off (the generic operators); then the
-   leaf kernel is timed as in phase 5 at the first Q6 split, and over a
-   resident SF1 x10 ``lineitem``;
+   the others on the leaf-aggregation kernel's staged instance once per
+   scan split, no fallback), each equal to an exact numpy recomputation,
+   and equal again with ``narrow_storage`` off (the generic operators);
+   then the leaf kernel is timed as in phase 5 at the first Q6 split, at
+   the first SSB Q1.1 split, and over a resident SF1 x10 ``lineitem``;
 8. the string predicates at SF1: TPC-H Q9 and SSB ``q_like_part`` and
    ``q_like_phone`` through ``Session.sql``, each in a session holding
    only its own connector (the LIKE kernel once per split of the
@@ -46,7 +51,8 @@ one CUDA card, and exits nonzero on any failure. Phases:
    ``p_name like 'forest%'`` and to Python's ``str.startswith``; then the
    LIKE kernel is timed as in phase 5 at the first Q9 ``part`` split and
    over SF1 ``o_comment``, and the prefix kernel at the first ``part``
-   split of the pipeline;
+   split of the pipeline, and the lane-sums kernel at the first
+   ``q_like_phone`` ``lineorder`` split;
 9. semi and anti joins at SF1 through ``Session.sql``: TPC-H Q4 exact
    (the dense membership probe) and with ``approx_join`` (the sketch
    kernel once per ``orders`` split, equal to a numpy Bloom oracle and
@@ -59,8 +65,9 @@ one CUDA card, and exits nonzero on any failure. Phases:
    busy time of a third and the launches per kernel; then the resident
    Q3 join step (``workloads.q3_probe_step``, the Q3 kernel) over SF1
    ``lineitem`` and over SF1 x10, equal to the benchmark's oracle and to
-   its plain version; then the sketch kernel is timed as in phase 5 at
-   Q4's first ``orders`` split and the Q3 kernel at SF1 and SF1 x10.
+   its plain version; then the sketch kernel and the lane-sums kernel
+   are timed as in phase 5 at Q4's first ``orders`` split and the Q3
+   kernel at SF1 and SF1 x10.
 
 The card's name and power limit come first and again before the last
 lines, which are one JSON line ``{"kernels": [...]}`` and
@@ -89,7 +96,8 @@ from presto_tpu_torch.ops import _build, cuda_agg, cuda_groupby, cuda_join, cuda
 from presto_tpu_torch.ops.groupby import group_ids_direct, lane_sum_inputs
 from presto_tpu_torch.runtime.metrics import COUNTERS
 from presto_tpu_torch.runtime.session import Session
-from presto_tpu_torch.types import DATE, decimal, torch_dtype_of, varchar
+from presto_tpu_torch.spi import batch_capacity
+from presto_tpu_torch.types import DATE, decimal, varchar
 from presto_tpu_torch.workloads import (
     Q1_BITS, Q1_COLS, Q3_COLS, Q3_CUTOFF, Q3_KEY_MIN, part_name_pipeline, q1_aggs, q1_exprs,
     q1_fused_step, q1_pipeline, q3_domain, q3_probe_step, q3_probe_table)
@@ -196,7 +204,11 @@ def check_q1_kernel(rng) -> int:
     return err
 
 
-def lane_inputs_random(rng, cap: int, groups: int, live_rows: int | None = None):
+def lane_inputs_random(rng, cap: int, groups: int, live_rows: int | None = None,
+                       nvalues: int = 4, nmasks: int = 5, device: str = "cuda"):
+    """Lane-sums inputs: up to 4 int32 values within their bounds (dead
+    rows too), byte masks, and gids over ``groups`` + trash (trash from
+    ``live_rows`` on); values and masks past 4 and 5 repeat with a shift."""
     live_rows = cap if live_rows is None else live_rows
     g = rng.integers(0, groups + 1, cap).astype(np.int32)  # groups + trash
     g[live_rows:] = groups
@@ -204,37 +216,86 @@ def lane_inputs_random(rng, cap: int, groups: int, live_rows: int | None = None)
     v2 = rng.integers(-5000, 5000, cap).astype(np.int32)
     v3 = rng.integers(0, 2**24, cap).astype(np.int32)
     v4 = rng.integers(-100, 100, cap).astype(np.int32)
-    masks = [rng.random(cap) < p for p in (0.9, 0.8, 0.5, 0.99, 0.7)]
-    t = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
-    return [t(v) for v in (v1, v2, v3, v4)], [31, 13, 24, 7], [t(m) for m in masks], t(g)
+    vals, bits = [v1, v2, v3, v4], [31, 13, 24, 7]
+    vals = [np.roll(vals[j % 4], j // 4) for j in range(nvalues)]
+    bits = [bits[j % 4] for j in range(nvalues)]
+    masks = [np.roll(rng.random(cap) < p, j // 5)
+             for j, p in enumerate([0.9, 0.8, 0.5, 0.99, 0.7] * 4)][:nmasks]
+    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    return [t(v) for v in vals], bits, [t(m) for m in masks], t(g)
+
+
+def unaligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` copied into a view that starts one element into a fresh
+    buffer: not 16-byte aligned, so the kernels read it directly."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:].copy_(t)
+    return buf[1:]
+
+
+def lane_dict(res) -> dict:
+    """fused_lane_sums' (sums, counts, flag) as one dict for compare()."""
+    d = {f"s{i}": s for i, s in enumerate(res[0])}
+    d.update({f"c{i}": c for i, c in enumerate(res[1])}, flag=res[2])
+    return d
+
+
+#: phase 2's lane-sums cases: (name, capacity, groups, live rows, values,
+#: masks, the instance that must run). Tile edges at the kernel's 2048-row
+#: tiles; the main path's shapes (4 values + 5 masks over 6 groups, and
+#: the counts only of Q4 and q_like_phone over 5) and the others.
+LANE_CASES = [
+    ("cap 2^16", 1 << 16, 6, None, 4, 5, "staged_k4m5"),
+    ("cap 2^20", 1 << 20, 6, None, 4, 5, "staged_k4m5"),
+    ("dead tail 2^20-1371", 1 << 20, 6, (1 << 20) - 1371, 4, 5, "staged_k4m5"),
+    ("cap 1000003", 1_000_003, 6, None, 4, 5, "staged_k4m5"),
+    ("cap 1", 1, 6, None, 4, 5, "staged_k4m5"),
+    ("cap 15", 15, 6, None, 4, 5, "staged_k4m5"),
+    ("cap 17", 17, 6, None, 4, 5, "staged_k4m5"),
+    ("one tile - 1", 2047, 6, None, 4, 5, "staged_k4m5"),
+    ("one tile + 1", 2049, 6, None, 4, 5, "staged_k4m5"),
+    ("all rows dead", 1 << 16, 6, 0, 4, 5, "staged_k4m5"),
+    ("64 groups (shared copies)", 1 << 20, 64, None, 4, 5, "staged_shared"),
+    ("0 values, 1 mask, 5 groups", 1 << 20, 5, None, 0, 1, "staged_k0m1"),
+    ("0 values, 2 masks, 5 groups", 131_072, 5, None, 0, 2, "staged"),
+    ("0 values, 2 masks, ragged", 100_003, 5, 99_000, 0, 2, "staged"),
+    ("2 values, 3 masks, 12 groups", 1_000_003, 12, None, 2, 3, "staged"),
+    ("16 values, 16 masks, 32 groups (direct)", 70_001, 32, None, 16, 16, "direct"),
+]
 
 
 def check_lane_kernel(rng) -> int:
     err = 0
-    cases = [("cap 2^16", 1 << 16, 6, None), ("cap 2^20", 1 << 20, 6, None),
-             ("dead tail 2^20-1371", 1 << 20, 6, (1 << 20) - 1371),
-             ("cap 1000003", 1_000_003, 6, None),
-             ("64 groups (shared copies)", 1 << 20, 64, None)]
-    for what, cap, groups, live_rows in cases:
-        vals, bits, masks, g = lane_inputs_random(rng, cap, groups, live_rows)
+    cuda_groupby.reset_launches()
+    cases = [(*c, False) for c in LANE_CASES]
+    cases += [("unaligned views, cap 2^20", 1 << 20, 6, None, 4, 5, "direct", True),
+              ("unaligned views, 0 values, 1 mask", 131_073, 5, None, 0, 1, "direct", True)]
+    for what, cap, groups, live_rows, k, m, inst, view in cases:
+        vals, bits, masks, g = lane_inputs_random(rng, cap, groups, live_rows, k, m)
+        if view:  # one value (if any) and one mask start one element in
+            vals = [unaligned(v) if j == 0 else v for j, v in enumerate(vals)]
+            masks = [unaligned(mk) if j == m - 1 else mk for j, mk in enumerate(masks)]
+        before = dict(cuda_groupby.launches_by_instance)
         got = cuda_groupby.fused_lane_sums(vals, bits, masks, g, groups)
         want = cuda_groupby.fused_lane_sums_plain(vals, bits, masks, g, groups)
         torch.cuda.synchronize()
-        gd = {f"s{i}": s for i, s in enumerate(got[0])}
-        gd.update({f"c{i}": c for i, c in enumerate(got[1])}, flag=got[2])
-        wd = {f"s{i}": s for i, s in enumerate(want[0])}
-        wd.update({f"c{i}": c for i, c in enumerate(want[1])}, flag=want[2])
-        err = max(err, compare(gd, wd, f"fused_lane_sums {what}"))
+        ran = [i for i, c in cuda_groupby.launches_by_instance.items() if c != before[i]]
+        check(ran == [inst], f"fused_lane_sums {what}: instance {ran}, expected {inst}")
+        err = max(err, compare(lane_dict(got), lane_dict(want), f"fused_lane_sums {what}"))
         check(not bool(got[2]), f"fused_lane_sums {what}: flagged in bounds")
-        log(f"  fused_lane_sums {what}: equal to plain")
+        log(f"  fused_lane_sums {what} ({inst}): equal to plain")
     vals, bits, masks, g = lane_inputs_random(rng, 1 << 16, 6)
     vals[1][5] = 1 << 14  # beyond its declared 13 bits
-    got = cuda_groupby.fused_lane_sums(vals, bits, masks, g, 6)
-    want = cuda_groupby.fused_lane_sums_plain(vals, bits, masks, g, 6)
-    check(bool(got[2]) and bool(want[2]), "fused_lane_sums: bound violation not flagged")
-    for a, b in zip(got[0] + got[1], want[0] + want[1]):
-        check(torch.equal(a, b), "fused_lane_sums: bound-violation sums differ")
-    log("  fused_lane_sums value beyond declared bits: flagged by both")
+    for inst, vs in (("staged_k4m5", vals), ("direct", [unaligned(v) for v in vals])):
+        got = cuda_groupby.fused_lane_sums(vs, bits, masks, g, 6)
+        want = cuda_groupby.fused_lane_sums_plain(vs, bits, masks, g, 6)
+        check(bool(got[2]) and bool(want[2]),
+              f"fused_lane_sums ({inst}): bound violation not flagged")
+        for a, b in zip(got[0] + got[1], want[0] + want[1]):
+            check(torch.equal(a, b), f"fused_lane_sums ({inst}): bound-violation sums differ")
+    log("  fused_lane_sums value beyond declared bits: flagged by both (staged and direct)")
+    idle = [i for i, c in cuda_groupby.launches_by_instance.items() if c == 0]
+    check(not idle, f"fused_lane_sums: instances never held to plain: {idle}")
     return err
 
 
@@ -477,6 +538,11 @@ def leaf_cases(rng, cap: int, live_rows: int | None = None):
     passing = np.flatnonzero(live & (bad_k[2] >= 200))
     bad_k[0][passing[: 2]] = 5  # returnflag code beyond its domain
     out.append(("guard key column", out[2][1], bad_k))
+    bad_q6 = [c.copy() for c in q6_cols]
+    passing = np.flatnonzero(live & (bad_q6[0] >= 8766) & (bad_q6[0] <= 9130)
+                             & (bad_q6[1] >= 5) & (bad_q6[1] <= 7) & (bad_q6[2] <= 2399))
+    bad_q6[3][passing[-2:]] = 20_000_000  # ep beyond its guard, on the narrow shape
+    out.append(("guard Q6 shape", q6, bad_q6))
     out.append(("bits violation", S(
         ("rf", "ls", "qty", "ep"), (), ((0, 0, 2), (1, 0, 1)), 6,
         (V("sum", T(3), None, 20),), ((0, 0, 2), (1, 0, 1))), k_cols))
@@ -492,20 +558,46 @@ def leaf_batch(spec, cols, live, device) -> Batch:
                   for n, c in zip(spec.cols, cols)}, lt)
 
 
+#: phase 2's leaf-aggregation capacities (and live rows): the split and
+#: resident shapes, a ragged one, tile edges at the staged instance's
+#: 2048-row tiles, and a batch with every row dead
+LEAF_CAPS = [(1 << 16, None), (1 << 20, None), (1_000_003, 999_000), (1, None), (15, None),
+             (17, None), (2047, None), (2049, None), (1 << 16, 0)]
+
+
 def check_leaf_agg_kernel(rng) -> int:
     err = 0
-    for cap, live_rows in ((1 << 16, None), (1 << 20, None), (1_000_003, 999_000)):
+    cuda_agg.reset_launches()
+    runs = [(cap, live_rows, False) for cap, live_rows in LEAF_CAPS]
+    runs.append((1 << 20, (1 << 20) - 77, True))  # every column a view one element in
+    for cap, live_rows, view in runs:
         cases = leaf_cases(rng, cap, live_rows)
         for what, spec, cols, live in cases:
             b = leaf_batch(spec, cols, live, "cuda")
+            if view:
+                cols_v = {c: Column(unaligned(b[c].data), b.live, b[c].dtype) for c in spec.cols}
+                b = Batch(cols_v, b.live)
+            inst = cuda_agg.instance(spec, [b[c].data for c in spec.cols], b.live)
+            check(inst == ("generic" if len(spec.values) > 1 or any(
+                c.dtype.itemsize > 4 for c in cols) else "direct" if view else "staged"),
+                  f"agg_step {what} cap {cap}: instance {inst}")
+            before = cuda_agg.launches_by_instance[inst]
             got = cuda_agg.agg_step(spec, b)
             want = cuda_agg.agg_step_plain(spec, b)
             torch.cuda.synchronize()
-            err = max(err, compare(got, want, f"agg_step {what} cap {cap}"))
-            flagged = bool(got["value_overflow"])
-            check(flagged == what.startswith(("guard", "bits")),
-                  f"agg_step {what} cap {cap}: value_overflow={flagged}")
-        log(f"  agg_step: {len(cases)} specs at cap {cap}: equal to plain, flags as expected")
+            check(cuda_agg.launches_by_instance[inst] == before + 1,
+                  f"agg_step {what} cap {cap}: the {inst} instance did not run")
+            err = max(err, compare(got, want, f"agg_step {what} cap {cap} ({inst})"))
+            if cap >= 1 << 16 and live_rows != 0:  # enough passing rows to plant a violation
+                flagged = bool(got["value_overflow"])
+                check(flagged == what.startswith(("guard", "bits")),
+                      f"agg_step {what} cap {cap}: value_overflow={flagged}")
+        log(f"  agg_step: {len(cases)} specs at cap {cap}, live rows "
+            f"{cap if live_rows is None else live_rows}{', unaligned views' if view else ''}: "
+            f"equal to plain, flags as expected")
+    idle = [i for i, c in cuda_agg.launches_by_instance.items() if c == 0]
+    check(not idle, f"agg_step: instances never held to plain: {idle}")
+    log(f"  agg_step launches by instance: {cuda_agg.launches_by_instance}")
     return err
 
 
@@ -657,30 +749,40 @@ def call_ms(fn, runs: int) -> float:
 def device_ms(fn, runs: int, flush: torch.Tensor | None = None,
               kernel: str | None = None) -> float:
     """Device milliseconds per call of ``fn``, from the profiler's CUDA
-    trace, averaged over ``runs`` calls: the time of the kernels whose
-    name contains ``kernel``, or of every kernel ``fn`` launches when
-    ``kernel`` is None. ``flush`` (a buffer larger than L2) is rewritten
-    before each call so each call starts with a cold cache; its kernels
-    are left out of the sum."""
+    trace of ``runs`` calls: the time of the kernels whose name contains
+    ``kernel``, or of every kernel ``fn`` launches when ``kernel`` is
+    None. ``flush`` (a buffer larger than L2) is rewritten before each
+    call so each call starts with a cold cache; its kernels are left out
+    of the sum. A trace can come back without some device events, so a
+    ``kernel`` time is the mean of the events recorded times the events
+    one call launches, not the sum over ``runs``."""
     from torch.profiler import ProfilerActivity, profile
 
     warnings.filterwarnings("ignore", message=".*Profiler clears events.*")
-    fn()
-    torch.cuda.synchronize()
-    total_us = 0
-    for _attempt in range(3):  # a trace can come back without device events: profile again
+
+    def trace(n):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(runs):
+            for _ in range(n):
                 if flush is not None:
                     flush.bitwise_not_()
                 fn()
             torch.cuda.synchronize()
-        total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                       if "bitwise_not" not in e.key and (kernel is None or kernel in e.key))
+        mine = [e for e in prof.key_averages() if e.self_device_time_total > 0
+                and "bitwise_not" not in e.key and (kernel is None or kernel in e.key)]
+        return sum(e.self_device_time_total for e in mine), sum(e.count for e in mine)
+
+    fn()
+    torch.cuda.synchronize()
+    total_us = count = 0
+    for _attempt in range(3):  # a trace can come back without device events: profile again
+        total_us, count = trace(runs)
         if total_us > 0:
             break
     check(total_us > 0, f"the profiler recorded no device time for {kernel or 'fn'}")
-    return total_us / runs / 1e3
+    if kernel is None:
+        return total_us / runs / 1e3
+    per_call = max(trace(1)[1], trace(1)[1], 1)
+    return total_us / count * per_call / 1e3
 
 
 def bound(nbytes, ops):
@@ -688,6 +790,78 @@ def bound(nbytes, ops):
     integer operations at the non-tensor rate, whichever is larger."""
     b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT_OPS_PER_S * 1e3
     return max(b_ms, o_ms), ("bytes" if b_ms >= o_ms else "operations")
+
+
+def time_lane(args, flush) -> dict:
+    """Phase 5 numbers of the lane-sums kernel at the inputs it was given
+    (values, bits, masks, gids, groups): its bound counts each value, mask
+    and gid element once and the output once, and 3 integer operations a
+    value, 1 a mask and 2 a row; its yardstick is one ``index_add_`` of
+    the values and masks, stacked as int64, into [groups + 1] rows (the
+    trash group last)."""
+    vals, bits, masks, gids, groups = args
+    fn = lambda: cuda_groupby.fused_lane_sums(vals, bits, masks, gids, groups)  # noqa: E731
+    plain = lambda: cuda_groupby.fused_lane_sums_plain(  # noqa: E731
+        vals, bits, masks, gids, groups)
+    got = fn()
+    err = compare(lane_dict(got), lane_dict(plain()), "fused_lane_sums at phase 5")
+    cap = gids.shape[0]
+    nbytes = (sum(t.numel() * t.element_size() for t in [*vals, *masks, gids])
+              + (groups * (len(vals) + len(masks)) + 1) * 8)
+    stacked = torch.stack([v.to(torch.int64) for v in vals]
+                          + [mk.to(torch.int64) for mk in masks], dim=1)
+    g64 = torch.where((gids >= 0) & (gids < groups), gids,
+                      torch.full_like(gids, groups)).to(torch.int64)
+    lib_out = torch.zeros(groups + 1, stacked.shape[1], dtype=torch.int64, device=gids.device)
+
+    def library():
+        lib_out.zero_()
+        lib_out.index_add_(0, g64, stacked)
+
+    library_ms = device_ms(library, 10, flush)
+    check(torch.equal(torch.stack(got[0] + got[1], dim=1), lib_out[:groups]),
+          "fused_lane_sums differs from the index_add_ library call")
+    return {"ms": device_ms(fn, 50, flush, kernel="lane_sums_kernel"),
+            "call_ms": call_ms(fn, 50), "plain_ms": device_ms(plain, 10, flush),
+            "library_ms": library_ms, "rows": cap, "bytes": nbytes,
+            "ops": cap * (3 * len(vals) + len(masks) + 2), "err": err,
+            "shape": [len(vals), len(masks), groups],
+            "instance": cuda_groupby.instance(vals, masks, gids, groups)}
+
+
+def q1_lane_inputs(conn, capacity: int) -> tuple:
+    """The lane-sums kernel's arguments (values, bits, masks, gids,
+    groups) at the Q1 pipeline's first ``lineitem`` split, as its direct
+    hash aggregation makes them: 4 values, 5 masks, 6 groups."""
+    split = conn.scan(conn.splits("lineitem")[0], Q1_COLS, capacity)
+    pred, _, _ = q1_exprs()
+    live = split.live & evaluate_predicate(pred, split)
+    filtered = split.with_live(live)
+    gids, _ = group_ids_direct([split["l_returnflag"].data, split["l_linestatus"].data],
+                               (0, 0), (2, 1), live, 6)
+    vals = [evaluate(a.input, filtered) for a in q1_aggs()[:4]]
+    contribs = [live & v.valid for v in vals]
+    bits = [Q1_BITS[n] for n in ("sum_qty", "sum_base_price", "sum_disc_price", "sum_charge")]
+    zeroed, eff_bits, _ = lane_sum_inputs([v.data for v in vals], bits, contribs, live.device)
+    return zeroed, eff_bits, contribs + [live], gids, 6
+
+
+def time_leaf(spec, b, flush) -> dict:
+    """Phase 5 numbers of the leaf-aggregation kernel on batch ``b``: its
+    bound counts each spec column and ``live`` once and the output once,
+    and 2 integer operations a column, 4 a value and 4 more a row."""
+    fn = lambda: cuda_agg.agg_step(spec, b)  # noqa: E731
+    plain = lambda: cuda_agg.agg_step_plain(spec, b)  # noqa: E731
+    err = compare(fn(), plain(), f"agg_step at phase 5, {b.capacity} rows")
+    nbytes = (sum(b[c].data.numel() * b[c].data.element_size() for c in spec.cols)
+              + b.capacity + (spec.groups * (len(spec.values) + 1) + 1) * 8)
+    return {"ms": device_ms(fn, 50, flush, kernel="leaf_"), "call_ms": call_ms(fn, 50),
+            "plain_ms": device_ms(plain, 10, flush),
+            "library_ms": leaf_library_ms(spec, b, flush), "rows": b.capacity,
+            "bytes": nbytes, "err": err,
+            "ops": b.capacity * (2 * len(spec.cols) + 4 * len(spec.values) + 4),
+            "widths": [b[c].data.element_size() for c in spec.cols],
+            "instance": cuda_agg.instance(spec, [b[c].data for c in spec.cols], b.live)}
 
 
 def wall_breakdown(session, conn, sql: str):
@@ -900,25 +1074,23 @@ def resident_q6(session, conn, want_rev: int, factor: int) -> dict:
     rows = len(arrays[route.src_cols[0]]) * factor
 
     def resident(a: np.ndarray) -> torch.Tensor:
-        # 4 spare bytes: the leaf kernel reads narrow columns a 32-bit
-        # word at a time, and the wrapper would copy a column without them
-        buf = torch.empty(rows + 4, dtype=torch_dtype_of(a.dtype), device=conn.device)
-        buf[:rows] = torch.from_numpy(a).to(conn.device).repeat(factor)
-        return buf[:rows]
+        return torch.from_numpy(a).to(conn.device).repeat(factor)
 
     live = resident(np.ones(rows // factor, np.bool_))
     cols = {route.rename[c]: Column(resident(arrays[c].astype(phys[c].np_dtype)), live, phys[c])
             for c in route.src_cols}
     batch = Batch(cols, live)
     torch.cuda.synchronize()
+    inst = cuda_agg.instance(spec, [batch[c].data for c in spec.cols], batch.live)
+    check(inst == "staged", f"resident Q6 step: the {inst} instance, not the staged one")
     state = cuda_agg.agg_step(spec, batch)
     got = int(state["sum_0"][0])
     check(got == factor * want_rev and not bool(state["value_overflow"]),
           f"resident Q6 step: {got} != {factor} x {want_rev}")
     err = compare(state, cuda_agg.agg_step_plain(spec, batch), "agg_step resident Q6")
     nbytes = sum(c.data.numel() * c.data.element_size() for c in cols.values()) + rows + 3 * 8
-    return {"rows": rows, "bytes": nbytes, "err": err,
-            "ms": device_ms(lambda: cuda_agg.agg_step(spec, batch), 20, kernel="leaf_agg_kernel"),
+    return {"rows": rows, "bytes": nbytes, "err": err, "spec": spec, "batch": batch,
+            "ms": device_ms(lambda: cuda_agg.agg_step(spec, batch), 20, kernel="leaf_"),
             "call_ms": call_ms(lambda: cuda_agg.agg_step(spec, batch), 20),
             "row_bytes": nbytes / rows}
 
@@ -979,30 +1151,33 @@ def run_leaf_queries(flush: torch.Tensor, sf: float = 1, device: str = "cuda") -
         f"{time.perf_counter() - t0:.1f} s")
     runs = {"q1": (QUERIES["q1"], tconn, "lineitem"), "q6": (QUERIES["q6"], tconn, "lineitem")}
     runs.update({f"ssb {q}": (SSB[q], sconn, "lineorder") for q in ("q1_1", "q1_2", "q1_3")})
-    captured = []
+    captured = {}
     original = leaf_route.agg_step
 
-    def capture(spec, batch):
-        if not captured:
-            captured.append((spec, batch))  # the first Q6 split of the main path
-        return original(spec, batch)
+    def capture(name):
+        def first_split(spec, batch):
+            captured.setdefault(name, (spec, batch))  # the query's first scan split
+            return original(spec, batch)
+        return first_split
 
-    out = {"leaf_launches": 0, "walls": {}}
+    out = {"leaf_launches": 0, "walls": {}, "by_instance": {}, "by_shape": {}}
     narrow_before = os.environ.get("PRESTO_TPU_NARROW")
     try:
         for name, (sql, conn, table) in runs.items():
             # narrow_storage mirrors a process-wide switch: say it each time
             on = Session({"tpch": tconn, "ssb": sconn}, properties={"narrow_storage": True},
                          device=device)
-            leaf_route.agg_step = capture if name == "q6" else original
+            leaf_route.agg_step = capture(name) if name in ("q6", "ssb q1_1") else original
             COUNTERS.clear()
-            cuda_q1.launches = cuda_agg.launches = 0
+            cuda_q1.launches = 0
+            cuda_agg.reset_launches()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             res = on.sql(sql)
             torch.cuda.synchronize()
             first = time.perf_counter() - t0
             n_q1, n_leaf = cuda_q1.launches, cuda_agg.launches
+            by_instance = {k: v for k, v in cuda_agg.launches_by_instance.items() if v}
             route = dict(COUNTERS)
             leaf_route.agg_step = original
             same_result(res, want[name], f"{name} at SF1")
@@ -1018,7 +1193,12 @@ def run_leaf_queries(flush: torch.Tensor, sf: float = 1, device: str = "cuda") -
                 check(n_leaf == splits and n_q1 == 0,
                       f"{name}: {n_leaf} leaf-kernel and {n_q1} Q1-kernel launches for "
                       f"{splits} {table} splits")
+                check(by_instance == {"staged": n_leaf},
+                      f"{name}: leaf-kernel launches by instance {by_instance}")
                 out["leaf_launches"] += n_leaf
+                out["by_instance"][name] = by_instance
+                cap = batch_capacity(max(sp.row_hint for sp in conn.splits(table)))
+                out["by_shape"][cap] = out["by_shape"].get(cap, 0) + n_leaf
             t0 = time.perf_counter()
             again = on.sql(sql)
             torch.cuda.synchronize()
@@ -1035,7 +1215,8 @@ def run_leaf_queries(flush: torch.Tensor, sf: float = 1, device: str = "cuda") -
             out["walls"][name] = (first, second, busy_ms, scan_s)
             log(f"  {name}: {len(res)} rows equal to numpy, with narrow_storage off too; wall "
                 f"first {first:.3f} s, second {second:.3f} s; Q1-kernel launches {n_q1}, "
-                f"leaf-kernel launches {n_leaf} ({splits} splits); routes "
+                f"leaf-kernel launches {n_leaf} ({splits} splits, by instance "
+                f"{by_instance}); routes "
                 f"{ {k: v for k, v in route.items() if k.startswith(('exec.', 'agg.'))} }")
             log(f"  {name} breakdown (a third, profiled run): device busy {busy_ms:.1f} ms, "
                 f"connector scans (host generation + copy to the card) {scan_s:.3f} s")
@@ -1046,18 +1227,9 @@ def run_leaf_queries(flush: torch.Tensor, sf: float = 1, device: str = "cuda") -
         else:
             os.environ["PRESTO_TPU_NARROW"] = narrow_before
 
-    spec, b = captured[0]
-    fn = lambda: cuda_agg.agg_step(spec, b)  # noqa: E731
-    plain = lambda: cuda_agg.agg_step_plain(spec, b)  # noqa: E731
-    err = compare(fn(), plain(), "agg_step at the first Q6 split")
-    nbytes = (sum(b[c].data.numel() * b[c].data.element_size() for c in spec.cols)
-              + b.capacity + (spec.groups * (len(spec.values) + 1) + 1) * 8)
-    out["split"] = {"ms": device_ms(fn, 50, flush, kernel="leaf_agg_kernel"),
-                    "call_ms": call_ms(fn, 50), "plain_ms": device_ms(plain, 10, flush),
-                    "library_ms": leaf_library_ms(spec, b, flush), "rows": b.capacity,
-                    "bytes": nbytes, "err": err,
-                    "ops": b.capacity * (2 * len(spec.cols) + 4 * len(spec.values) + 4),
-                    "widths": [b[c].data.element_size() for c in spec.cols]}
+    out["split"] = time_leaf(*captured["q6"], flush)
+    out["small"] = time_leaf(*captured["ssb q1_1"], flush)
+    out["captured"] = captured
     on = Session({"tpch": tconn}, properties={"narrow_storage": True}, device=device)
     out["resident"] = resident_q6(on, tconn, int(want["q6"]["revenue"][0]), FACTOR)
     return out
@@ -1283,7 +1455,9 @@ def pipeline_keys(pipe) -> np.ndarray:
 
 
 def _reset_launches() -> None:
-    cuda_q1.launches = cuda_groupby.launches = cuda_agg.launches = 0
+    cuda_q1.launches = 0
+    cuda_groupby.reset_launches()
+    cuda_agg.reset_launches()
     cuda_join.exists_launches = cuda_join.payload_launches = 0
     cuda_join.sketch_launches = cuda_join.q3_launches = 0
     cuda_strings.like_launches = cuda_strings.prefix_launches = 0
@@ -1294,7 +1468,11 @@ def _launch_counts() -> dict:
             "leaf_agg": cuda_agg.launches, "exists": cuda_join.exists_launches,
             "payload": cuda_join.payload_launches, "sketch": cuda_join.sketch_launches,
             "q3": cuda_join.q3_launches, "like": cuda_strings.like_launches,
-            "prefix": cuda_strings.prefix_launches}
+            "prefix": cuda_strings.prefix_launches,
+            "by_instance": {**{f"lane_sums {k}": v
+                               for k, v in cuda_groupby.launches_by_instance.items() if v},
+                            **{f"leaf_agg {k}": v
+                               for k, v in cuda_agg.launches_by_instance.items() if v}}}
 
 
 # each query at SF1: (connector key, the table LIKE filters, the other
@@ -1330,11 +1508,19 @@ def run_string_queries(connectors: dict, sf: float = 1, device: str = "cuda") ->
         captured.setdefault("like", (data, pattern))  # Q9's first part split
         return original_like(data, pattern)
 
+    original_lane = cuda_groupby.fused_lane_sums
+
+    def capture_lane(*args):
+        captured.setdefault("lane", args)  # q_like_phone's first lineorder split
+        return original_lane(*args)
+
     out = {"like_launches": 0, "walls": {}, "launches": {}}
     for name, (key, ftable, others) in STRING_QUERIES.items():
         conn = connectors[key]
         session = Session({key: conn}, device=device)
         cuda_strings.like_mask = capture_like if name == "q9" else original_like
+        if name == "ssb q_like_phone":
+            cuda_groupby.fused_lane_sums = capture_lane
         try:
             COUNTERS.clear()
             _reset_launches()
@@ -1347,6 +1533,9 @@ def run_string_queries(connectors: dict, sf: float = 1, device: str = "cuda") ->
             route = dict(COUNTERS)
         finally:
             cuda_strings.like_mask = original_like
+            cuda_groupby.fused_lane_sums = original_lane
+        check(all(k.split()[1].startswith("staged") for k in n["by_instance"]),
+              f"{name}: launches by instance {n['by_instance']}")
         same_result(res, want[name], f"{name} at SF{sf:g}")
         splits = len(conn.splits(ftable))
         check(n["like"] == splits, f"{name}: {n['like']} LIKE launches for {splits} "
@@ -1573,10 +1762,15 @@ def run_semi_queries(sf: float = 1, device: str = "cuda") -> dict:
           "the Bloom oracle of semi counts fewer rows than the exact one")
     captured = {}
     original = cuda_join.sketch_probe
+    original_lane = cuda_groupby.fused_lane_sums
 
     def capture(*args):
         captured.setdefault("sketch", args)  # Q4's first orders split
         return original(*args)
+
+    def capture_lane(*args):
+        captured.setdefault("lane", args)  # Q4's first orders split
+        return original_lane(*args)
 
     runs = [(n, q, a, k, no, conn) for n, q, a, k, no in SEMI_RUNS]
     runs.append(("q4 sf0.01 leaf", QUERIES["q4"], False, {"leaf_agg": "orders"},
@@ -1585,6 +1779,8 @@ def run_semi_queries(sf: float = 1, device: str = "cuda") -> dict:
     for name, sql, approx, kernels, idle, c in runs:
         session = Session({"tpch": c}, properties={"approx_join": approx}, device=device)
         cuda_join.sketch_probe = capture if name == "q4 approx" else original
+        if name == "q4":
+            cuda_groupby.fused_lane_sums = capture_lane
         try:
             COUNTERS.clear()
             _reset_launches()
@@ -1597,6 +1793,9 @@ def run_semi_queries(sf: float = 1, device: str = "cuda") -> dict:
             route = dict(COUNTERS)
         finally:
             cuda_join.sketch_probe = original
+            cuda_groupby.fused_lane_sums = original_lane
+        check(all(k.split()[1].startswith("staged") for k in n["by_instance"]),
+              f"{name}: launches by instance {n['by_instance']}")
         same_result(res, want[name], f"{name} at SF{c.sf:g}")
         check(res.approximate == (name in ("q4 approx", "semi approx")),
               f"{name}: QueryResult.approximate is {res.approximate}")
@@ -1713,6 +1912,32 @@ def time_q3(q3: dict, factor: int, flush) -> dict:
             "row_bytes": (nbytes - table.numel() * 4) / n}
 
 
+def kernel_name(mangled: str) -> str:
+    """``lane_sums_kernel<4,5,1>`` for the mangled name of a kernel
+    function (its integer and bool template arguments in order)."""
+    for m in re.finditer(r"\d+", mangled):
+        name = mangled[m.end(): m.end() + int(m.group())]
+        if name.endswith("_kernel"):
+            rest = mangled[m.end() + len(name):]
+            t = re.match(r"I((?:L[a-z]n?\d+E)+)E", rest)
+            args = re.findall(r"L[a-z](n?)(\d+)E", t.group(1)) if t else []
+            return name + (f"<{','.join(('-' if neg else '') + d for neg, d in args)}>"
+                           if args else "")
+    return mangled
+
+
+def log_ptxas(name: str, text: str) -> None:
+    """Registers, shared memory and spills of each kernel function in
+    ``nvcc -Xptxas -v`` output, one line each."""
+    fn = None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = kernel_name(m.group(1))
+        elif "registers" in line or "spill" in line:
+            log(f"  {name} {fn}: {line.split('info    :')[-1].strip()}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1733,9 +1958,7 @@ def main() -> int:
         check(_build.library_path(name).exists(), f"kernel {name} was not built")
     log(f"phase 1: built {_build.sources()} in {time.perf_counter() - t0:.1f} s")
     for name, out in logs.items():
-        for line in out.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+        log_ptxas(name, out)
 
     # ---- phase 2: kernels vs plain ----------------------------------------
     rng = np.random.default_rng(20261016)
@@ -1795,14 +2018,17 @@ def main() -> int:
 
     # ---- phase 4: the Q1 pipeline at SF1 ----------------------------------
     cuda_q1.launches = 0
-    cuda_groupby.launches = 0
+    cuda_groupby.reset_launches()
     t0 = time.perf_counter()
     pipe = q1_pipeline(TpchConnector(sf=1, device="cuda"))
     out = pipe.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     lane_launches = cuda_groupby.launches
+    lane_by_instance = {k: v for k, v in cuda_groupby.launches_by_instance.items() if v}
     check(lane_launches > 0, "the Q1 pipeline never launched the lane-sums kernel")
+    check(lane_by_instance == {"staged_k4m5": lane_launches},
+          f"the Q1 pipeline's lane-sums launches by instance: {lane_by_instance}")
     check(len(out) == 1, f"pipeline emitted {len(out)} batches")
     res = out[0]
     present = want["count_order"] > 0
@@ -1817,7 +2043,7 @@ def main() -> int:
     nsplits = len(pipe.source.splits)
     log(f"phase 4: Q1 pipeline at SF1 ({nsplits} splits of capacity "
         f"{pipe.source.capacity}) equal to numpy; wall {wall:.3f} s; "
-        f"lane-sums kernel launches {lane_launches}")
+        f"lane-sums kernel launches {lane_launches}, by instance {lane_by_instance}")
 
     # ---- phase 5: kernel times at the main path's shapes ------------------
     flush = torch.empty(1 << 27, dtype=torch.int8, device="cuda")  # 128 MB > L2
@@ -1829,51 +2055,18 @@ def main() -> int:
     q1_call_ms = call_ms(lambda: cuda_q1.q1_step(batch), 20)
     q1_plain_ms = device_ms(lambda: cuda_q1.q1_step_plain(batch), 3)
 
-    split_batch = conn.scan(conn.splits("lineitem")[0], Q1_COLS, pipe.source.capacity)
-    pred, _, _ = q1_exprs()
-    live = split_batch.live & evaluate_predicate(pred, split_batch)
-    filtered = split_batch.with_live(live)
-    gids, _ = group_ids_direct([split_batch["l_returnflag"].data,
-                                split_batch["l_linestatus"].data],
-                               (0, 0), (2, 1), live, 6)
-    vals = [evaluate(a.input, filtered) for a in q1_aggs()[:4]]
-    contribs = [live & v.valid for v in vals]
-    bits = [Q1_BITS[n_] for n_ in ("sum_qty", "sum_base_price", "sum_disc_price",
-                                   "sum_charge")]
-    zeroed, eff_bits, _ = lane_sum_inputs([v.data for v in vals], bits, contribs, live.device)
-    masks = contribs + [live]
-    cap = gids.shape[0]
-    lane_bytes = (sum(z.numel() * z.element_size() for z in zeroed) + len(masks) * cap
-                  + cap * 4 + (6 * (len(zeroed) + len(masks)) + 1) * 8)
-    lane_ops = cap * (3 * len(zeroed) + len(masks) + 2)
-    lane_ms = device_ms(lambda: cuda_groupby.fused_lane_sums(zeroed, eff_bits, masks, gids, 6),
-                        50, flush, kernel="lane_sums_kernel")
-    lane_call_ms = call_ms(
-        lambda: cuda_groupby.fused_lane_sums(zeroed, eff_bits, masks, gids, 6), 50)
-    lane_plain_ms = device_ms(
-        lambda: cuda_groupby.fused_lane_sums_plain(zeroed, eff_bits, masks, gids, 6), 10, flush)
-    stacked = torch.stack([z.to(torch.int64) for z in zeroed]
-                          + [m_.to(torch.int64) for m_ in masks], dim=1)
-    g64 = torch.where((gids >= 0) & (gids < 6), gids, torch.full_like(gids, 6)).to(torch.int64)
-    lib_out = torch.zeros(7, stacked.shape[1], dtype=torch.int64, device="cuda")
-
-    def library():
-        lib_out.zero_()
-        lib_out.index_add_(0, g64, stacked)
-
-    lane_lib_ms = device_ms(library, 10, flush)
-    got = cuda_groupby.fused_lane_sums(zeroed, eff_bits, masks, gids, 6)
-    check(torch.equal(torch.stack(got[0] + got[1], dim=1), lib_out[:6]),
-          "fused_lane_sums differs from the index_add_ library call")
+    lane_args = q1_lane_inputs(conn, pipe.source.capacity)
+    ln = time_lane(lane_args, flush)
+    cap = ln["rows"]
 
     q1_bound, q1_by = bound(q1_bytes, q1_ops)
-    lane_bound, lane_by = bound(lane_bytes, lane_ops)
+    lane_bound, lane_by = bound(ln["bytes"], ln["ops"])
     log(f"phase 5 (kernel device ms; call = wrapper, events; plain and index_add_ = "
         f"device ms of all their kernels): q1_step {q1_ms:.4f} (call {q1_call_ms:.4f}, "
         f"plain {q1_plain_ms:.4f}, bound {q1_bound:.4f}) at {n} rows; fused_lane_sums "
-        f"{lane_ms:.4f} (call {lane_call_ms:.4f}, plain {lane_plain_ms:.4f}, index_add_ "
-        f"{lane_lib_ms:.4f}, bound {lane_bound:.4f}) at {cap} rows, "
-        f"{len(zeroed)} values + {len(masks)} masks")
+        f"{ln['ms']:.4f} (call {ln['call_ms']:.4f}, plain {ln['plain_ms']:.4f}, index_add_ "
+        f"{ln['library_ms']:.4f}, bound {lane_bound:.4f}) at {cap} rows, "
+        f"{len(lane_args[0])} values + {len(lane_args[2])} masks, {ln['instance']} instance")
 
     join = run_join_queries(flush)
     ex, pay = join["exists"], join["payload"]
@@ -1900,11 +2093,25 @@ def main() -> int:
         f"{res_['row_bytes']:.2f} B/row, kernel {res_['ms']:.4f} ms (call {res_['call_ms']:.4f} "
         f"ms, bound {res_bound:.4f} ms) = {res_['rows'] / (res_['ms'] / 1e3):.4e} rows/s; "
         f"equal to {FACTOR}x numpy and to plain")
+    sm_ = leaf["small"]
+    small_bound, _ = bound(sm_["bytes"], sm_["ops"])
+    log(f"  agg_step at phase 7's first SSB Q1.1 lineorder split: {sm_['ms']:.4f} (call "
+        f"{sm_['call_ms']:.4f}, plain {sm_['plain_ms']:.4f}, index_add_ "
+        f"{sm_['library_ms']:.4f}, bound {small_bound:.4f}) at {sm_['rows']} rows, column "
+        f"widths {sm_['widths']} B + live, {sm_['instance']} instance; leaf-kernel launches "
+        f"by split capacity {leaf['by_shape']}")
     for name, (first, second, busy, scan) in leaf["walls"].items():
         log(f"  wall {name}: first {first:.3f} s, second {second:.3f} s, device busy "
             f"{busy:.1f} ms, connector scans {scan:.3f} s")
 
     strings = run_string_queries(string_conns)
+    ln_phone = time_lane(strings["captured"]["lane"], flush)
+    phone_bound, _ = bound(ln_phone["bytes"], ln_phone["ops"])
+    log(f"phase 5, fused_lane_sums at phase 8's first q_like_phone lineorder split: "
+        f"{ln_phone['ms']:.4f} (call {ln_phone['call_ms']:.4f}, plain "
+        f"{ln_phone['plain_ms']:.4f}, index_add_ {ln_phone['library_ms']:.4f}, bound "
+        f"{phone_bound:.4f}) at {ln_phone['rows']} rows, (values, masks, groups) "
+        f"{ln_phone['shape']}, {ln_phone['instance']} instance")
     like_data, like_pattern = strings["captured"]["like"]
     lk = time_like(like_data, like_pattern, flush)
     lk_big = time_like(sf1_strings["TPC-H o_comment"], "%special%requests%", flush)
@@ -1927,6 +2134,12 @@ def main() -> int:
             f"{busy:.1f} ms, connector scans {scan:.3f} s")
 
     semi = run_semi_queries()
+    ln_q4 = time_lane(semi["captured"]["lane"], flush)
+    q4_bound, _ = bound(ln_q4["bytes"], ln_q4["ops"])
+    log(f"phase 5, fused_lane_sums at phase 9's first Q4 orders split: {ln_q4['ms']:.4f} "
+        f"(call {ln_q4['call_ms']:.4f}, plain {ln_q4['plain_ms']:.4f}, index_add_ "
+        f"{ln_q4['library_ms']:.4f}, bound {q4_bound:.4f}) at {ln_q4['rows']} rows, (values, "
+        f"masks, groups) {ln_q4['shape']}, {ln_q4['instance']} instance")
     sk = time_sketch(semi["captured"]["sketch"], flush)
     q3_one = time_q3(semi["q3"], 1, flush)
     q3_ten = time_q3(semi["q3"], FACTOR, flush)
@@ -1960,11 +2173,21 @@ def main() -> int:
          "source": "presto_tpu_torch/csrc/lane_sums.cu",
          "replaces": "presto_tpu/ops/pallas_groupby.py:138",
          "jax_function": "presto_tpu/ops/pallas_groupby.py:177 fused_lane_sums",
-         "launches": lane_launches, "max_abs_err": lane_err, "ms": lane_ms,
-         "kernel_ms": lane_ms, "call_ms": lane_call_ms, "plain_ms": lane_plain_ms,
-         "bound_ms": lane_bound,
-         "bound_by": lane_by, "library_ms": lane_lib_ms, "rows": cap,
-         "bytes": lane_bytes, "ops": lane_ops},
+         "launches": lane_launches, "launches_by_instance": lane_by_instance,
+         "max_abs_err": max(lane_err, ln["err"], ln_phone["err"], ln_q4["err"]),
+         "ms": ln["ms"], "kernel_ms": ln["ms"], "call_ms": ln["call_ms"],
+         "plain_ms": ln["plain_ms"], "bound_ms": lane_bound, "bound_by": lane_by,
+         "library_ms": ln["library_ms"], "rows": cap, "bytes": ln["bytes"], "ops": ln["ops"],
+         "instance": ln["instance"], "small_ms": ln_phone["ms"],
+         "small_call_ms": ln_phone["call_ms"], "small_plain_ms": ln_phone["plain_ms"],
+         "small_library_ms": ln_phone["library_ms"], "small_bound_ms": phone_bound,
+         "small_rows": ln_phone["rows"], "small_shape": ln_phone["shape"],
+         "small_instance": ln_phone["instance"],
+         "small_launches": strings["launches"]["ssb q_like_phone"]["lane_sums"],
+         "q4_ms": ln_q4["ms"], "q4_call_ms": ln_q4["call_ms"], "q4_plain_ms": ln_q4["plain_ms"],
+         "q4_library_ms": ln_q4["library_ms"], "q4_bound_ms": q4_bound,
+         "q4_rows": ln_q4["rows"], "q4_shape": ln_q4["shape"], "q4_instance": ln_q4["instance"],
+         "q4_launches": semi["launches"]["q4"]["lane_sums"]},
         {"name": "exists_probe", "route": "cuda", "source": "presto_tpu_torch/csrc/join_probe.cu",
          "replaces": "presto_tpu/ops/pallas_join.py:281",
          "jax_function": "presto_tpu/ops/pallas_join.py:329 exists_probe",
@@ -2003,12 +2226,18 @@ def main() -> int:
         {"name": "leaf_agg", "route": "cuda", "source": "presto_tpu_torch/csrc/leaf_agg.cu",
          "replaces": "presto_tpu/ops/pallas_agg.py:180",
          "jax_function": "presto_tpu/ops/pallas_agg.py:246 _pallas_step (via agg_step :346)",
-         "launches": leaf["leaf_launches"], "max_abs_err": max(leaf_err, sp["err"], res_["err"]),
+         "launches": leaf["leaf_launches"], "launches_by_shape": leaf["by_shape"],
+         "launches_by_instance": leaf["by_instance"],
+         "max_abs_err": max(leaf_err, sp["err"], sm_["err"], res_["err"]),
          "ms": sp["ms"], "kernel_ms": sp["ms"], "call_ms": sp["call_ms"],
          "plain_ms": sp["plain_ms"], "bound_ms": leaf_bound, "bound_by": leaf_by,
          "library_ms": sp["library_ms"], "rows": sp["rows"], "bytes": sp["bytes"],
-         "ops": sp["ops"], "resident_ms": res_["ms"], "resident_bound_ms": res_bound,
-         "resident_rows": res_["rows"]},
+         "ops": sp["ops"], "instance": sp["instance"], "resident_ms": res_["ms"],
+         "resident_call_ms": res_["call_ms"], "resident_bound_ms": res_bound,
+         "resident_rows": res_["rows"], "small_ms": sm_["ms"], "small_call_ms": sm_["call_ms"],
+         "small_plain_ms": sm_["plain_ms"], "small_library_ms": sm_["library_ms"],
+         "small_bound_ms": small_bound, "small_rows": sm_["rows"],
+         "small_instance": sm_["instance"]},
         {"name": "like_mask", "route": "cuda", "source": "presto_tpu_torch/csrc/strings.cu",
          "replaces": "presto_tpu/ops/pallas_strings.py:118",
          "jax_function": "presto_tpu/ops/pallas_strings.py:190 like_mask_pallas",

@@ -2,8 +2,10 @@
 
 A copy of ``presto_tpu/connectors/ssb/queries.py``. The port runs
 flights Q1 (on the fused leaf route), Q2 and ``q3_1``/``q3_2`` (joins and
-keyed aggregation); the others raise ``NotSupported`` naming the
-construct they need (``or``, ``LIKE``).
+keyed aggregation), and ``q_like_part`` / ``q_like_phone`` (the LIKE and
+substring predicates, on the port's string kernels); the others
+(``q3_3``, ``q3_4`` and flight Q4) raise ``NotSupported`` naming the
+construct they need (``or``).
 
 From the public SSB spec (O'Neil et al.); predicate constants follow
 the spec. The two extra ``q_like_*`` queries are the SURVEY config-5

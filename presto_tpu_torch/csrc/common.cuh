@@ -4,6 +4,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <map>
+#include <mutex>
+#include <tuple>
+
 namespace presto {
 
 // Read element i of an integer column stored in `size` bytes per element
@@ -58,6 +62,121 @@ inline int grid_blocks(Kernel kernel, int64_t n, int threads, int smem, int rows
   const int64_t want = (n + rows_per_block - 1) / rows_per_block;
   const int64_t cap = static_cast<int64_t>(sms) * per_sm;
   return static_cast<int>(want < 1 ? 1 : (want < cap ? want : cap));
+}
+
+// Resident blocks of `kernel` at `threads` threads and `smem` bytes of
+// dynamic shared memory on the whole current device (SMs x blocks per
+// SM). The first launch of a (kernel, smem) asks the device, lets the
+// kernel take up to the card's whole opt-in shared memory a block, and
+// caches the answer, so later launches cost a map lookup and no CUDA
+// runtime query.
+template <typename Kernel>
+inline int resident_blocks(Kernel kernel, int threads, int smem) {
+  static std::mutex mu;
+  static std::map<std::tuple<int, const void*, int>, int> cache;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const auto key = std::make_tuple(dev, reinterpret_cast<const void*>(kernel), smem);
+  std::lock_guard<std::mutex> lock(mu);
+  auto it = cache.find(key);
+  if (it != cache.end()) return it->second;
+  int sms = 1;
+  int per_sm = 1;
+  int optin = 0;
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  const int blocks = sms * (per_sm < 1 ? 1 : per_sm);
+  cache[key] = blocks;
+  return blocks;
+}
+
+// ---------------------------------------------------------------------------
+// Hopper's 1-D bulk copies (global -> shared) into a ring of stages,
+// each stage with an mbarrier that counts the bytes landed.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+// Make the barriers' initialisation visible to the async proxy (the bulk
+// copies) before any use; then a __syncthreads().
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// Arrive once and expect `bytes` more bytes of bulk copies this phase.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// Wait until the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Copy `bytes` (a multiple of 16) from 16-byte-aligned global `src` to
+// 16-byte-aligned shared `dst`; completion is counted on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// The ring's bookkeeping, kept alike by the producer and the consumers:
+// a block's staged tiles take the stages in turn. `parity` is the phase
+// of the stage's barriers for this use, `reuse` whether the stage held
+// an earlier tile. Advanced once a tile, with no division.
+struct RingPos {
+  int stage = 0;
+  uint32_t parity = 0;
+  bool reuse = false;
+
+  __device__ __forceinline__ void next(int stages) {
+    if (++stage == stages) {
+      stage = 0;
+      parity ^= 1u;
+      reuse = true;
+    }
+  }
+};
+
+// The contiguous run of tiles [first, last) of this block, in 32-bit
+// arithmetic (a block's count of tiles fits; a 64-bit division would
+// cost a call on the path of every launch).
+__device__ __forceinline__ void block_tiles(int64_t tiles, int64_t& first, int64_t& last) {
+  const int all = static_cast<int>(tiles);
+  const int b = static_cast<int>(blockIdx.x);
+  const int blocks = static_cast<int>(gridDim.x);
+  const int q = all / blocks;
+  const int r = all % blocks;
+  first = static_cast<int64_t>(b) * q + (b < r ? b : r);
+  last = first + q + (b < r ? 1 : 0);
 }
 
 }  // namespace presto

@@ -14,35 +14,54 @@
 // `live` (10 bytes a row); the work is a few integer operations a row,
 // far below the card's integer rate.
 //
-// Design, against that bound:
-// - The spec travels as a kernel parameter, laid out per column (filter,
-//   guard and key multiplier, and a bit mask of the key columns), so every
-//   test indexes a register array with a compile-time index. Filters are
-//   tested without a branch; guards and keys only on rows that pass.
-// - Two instances. The narrow one takes the shape of TPC-H Q6 and the SSB
-//   Q1 flight: at most 4 columns of at most 4 bytes (the connector's
-//   narrow storage) and at most 1 value. It reads each column as the
-//   aligned 32-bit word that holds the row's element: one load whatever
-//   the width, whose value is not needed until the row is tested, and
-//   whose byte offset is fixed for all of a thread's rows. A ring of R
-//   rows per thread keeps R rows' loads in flight while it tests the
-//   oldest (the ring is unrolled, so it stays in registers). Rows are
-//   tested in int32; the launcher clamps the bounds to int32 exactly.
-//   The generic instance takes every other spec (up to 32 columns and 32
-//   values, any width): it reads rows element by element and tests them
-//   in int64.
+// What held the first design back: one 32-bit load, with its own 64-bit
+// address arithmetic, per row per column, then a shift and sign
+// extension and two compares per filter: some 80-100 instructions a row,
+// so the instruction rate and not the bytes bounded it (about 2.4x its
+// memory bound resident); and its grid of one ring fill per block
+// ended a 2^20-row split in up to 2048 same-address global atomics.
+//
+// Design, against that bound (the "staged" instance):
+// - It takes the shape of TPC-H Q6 and the SSB Q1 flight: at most 4
+//   columns of at most 4 bytes (the connector's narrow storage) and at
+//   most 1 value, any number of groups.
+// - A persistent grid (at most the blocks the card holds at once), each
+//   block walking a contiguous run of tiles of 2048 rows. One producer
+//   thread brings each column's tile (one contiguous run of bytes) and
+//   `live` into a ring of 2 stages in shared memory with Hopper's 1-D
+//   bulk copy (cp.async.bulk, one mbarrier a stage counting the bytes):
+//   the next tile's loads are in flight whatever the consumers do, and no
+//   address arithmetic is spent per row. The ring is kept small (45 KB a
+//   block for Q6, the list and table included) so 4 blocks, 16 consumer
+//   warps, share an SM, a limit set by registers (96 a thread): the
+//   consumers' latency, not the copies, was what a deeper ring with fewer
+//   blocks exposed.
+// - Each consumer thread (128 a block) takes 16 consecutive rows of a
+//   tile and reads each filtered column as 16-byte words (1 for a 1-byte
+//   column, 2 for 2 bytes, 4 for 4). It tests the filter interval on the
+//   packed lanes, 4 or 2 rows an instruction, as the unsigned range test
+//   (x - lo) <=u (hi - lo) with the SIMD-in-word intrinsics (__vsub4 /
+//   __vcmpleu4, __vsub2 / __vcmpleu2), and `live` the same way. The
+//   result is a 16-bit pass mask. A column without a filter is never read
+//   packed.
+// - A warp then lists its passing rows (about 2 % in Q6) in shared memory
+//   and all its lanes fold them at once: only they read their elements,
+//   test the guards and form the gid and the int64 value product.
 // - A thread keeps the running sums, mins, maxes and count of the group
 //   its last rows fell in, in registers, and folds them into the block's
-//   [groups x (values + 1)] int64 table in shared memory (shared-memory
-//   atomics) only when the group changes. A keyless fragment (Q6, the SSB
-//   Q1 flight) folds once per warp, after a shuffle reduction; 512 groups
-//   of 33 slots fit in 135 KB (dynamic shared memory, opted in above
-//   48 KB).
-// - After the loop each block adds its table into the output with one
-//   global atomic per nonempty slot (int64 atomicAdd, atomicMin,
-//   atomicMax). The output starts at each slot's identity (the caller
-//   writes it). Integer sums are exact and associative, so results are
-//   bit-identical from run to run.
+//   [groups x (values + 1)] int64 table in shared memory only when the
+//   group changes; at the end each warp combines lanes of one group by
+//   shuffles first. Each block then adds its table into the output with
+//   one global atomic per nonempty slot: one per slot per resident block.
+// - The ragged last tile, and every tile of a launch whose columns do not
+//   all start 16-byte aligned (a view; the "direct" instance), are read
+//   with plain loads, row by row, by the same consumer code: a thread
+//   then takes every 128th row of the tile, so a warp's lanes load
+//   adjacent rows.
+// The "generic" instance takes every other spec (up to 32 columns and 32
+// values, 8-byte columns, min/max over several values): a grid-stride
+// loop that reads rows element by element and tests them in int64, with
+// the same running-group fold.
 // The TPU kernel's 8-bit lanes, 2^23-row majors, 1024-slot output tile,
 // block-size rule and compile probe have no counterpart: int64 is native
 // here, and the kernel takes min/max values, bits > 31 and any capacity.
@@ -56,7 +75,17 @@ namespace {
 constexpr int kMaxCols = 32;
 constexpr int kMaxValues = 32;
 constexpr int kMaxGroups = 512;
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // the generic instance
+constexpr int kConsumers = 128;  // the staged instance: consumer threads
+constexpr int kStagedThreads = kConsumers + 32;  // and one producer warp
+constexpr int kTile = kConsumers * 16;  // rows a tile: 16 a consumer thread
+constexpr int kNarrowCols = 4;
+constexpr int kStages = 2;  // a small ring: more blocks, and warps, on an SM
+constexpr int kBarrierBytes = 128;
+constexpr int kListBytes = kConsumers / 32 * 512 * 2;  // a warp's passing rows
+
+// Instances, in the order of cuda_agg.INSTANCES.
+enum Instance : int { kStaged = 0, kDirect = 1, kGeneric = 2, kInstances = 3 };
 
 enum Op : int { kSum = 0, kMin = 1, kMax = 2 };
 
@@ -82,6 +111,18 @@ struct LeafSpec {
   int ncols, nvalues, groups;
 };
 
+// The staged instance's packed filters and shared-memory layout.
+struct Staging {
+  unsigned int lo[kNarrowCols + 1];     // per lane, replicated across the word
+  unsigned int range[kNarrowCols + 1];  // hi - lo, replicated likewise
+  unsigned int off[kNarrowCols + 1];    // column k's bytes in a stage (`live` last)
+  unsigned int test;                    // bit k: column k has a filter to test
+  int never;                            // some filter is empty: no row passes
+  int staged;                           // full tiles come through the ring
+  unsigned int stage_bytes;
+  unsigned int table_bytes;             // a multiple of 128
+};
+
 // Element i of an integer column of 1, 2, 4 or 8 bytes, as int64.
 __device__ __forceinline__ long long load_wide(const void* p, int size, int64_t i) {
   long long b = 0, h = 0, w = 0, d = 0;
@@ -90,21 +131,6 @@ __device__ __forceinline__ long long load_wide(const void* p, int size, int64_t 
   if (size == 4) w = static_cast<const int32_t*>(p)[i];
   if (size == 8) d = static_cast<const long long*>(p)[i];
   return b | h | w | d;  // at most one is nonzero
-}
-
-// The aligned 32-bit word that holds element r of a column of `size`
-// (1, 2 or 4) bytes at `base`: one load, whatever the width. The wrapper
-// guarantees that every such word lies inside the column's allocation.
-__device__ __forceinline__ unsigned int load_word(const void* base, int size, int64_t r) {
-  const uintptr_t a = reinterpret_cast<uintptr_t>(base) + static_cast<uintptr_t>(r) * size;
-  // through the read-only path as a global load (the address came from an
-  // integer, which the compiler would otherwise load as a generic one)
-  return __ldg(reinterpret_cast<const unsigned int*>(a & ~static_cast<uintptr_t>(3)));
-}
-
-// The element in `word` at byte `shift / 8` of `bits` bits, sign-extended.
-__device__ __forceinline__ int extract(unsigned int word, int bits, int shift) {
-  return static_cast<int>(word << (32 - bits - shift)) >> (32 - bits);
 }
 
 // Two's-complement wrapping arithmetic, as int64 tensors compute it.
@@ -157,21 +183,11 @@ __device__ __forceinline__ void flush(const LeafSpec& s, Run<NV>& run, long long
   run.n = 0;
 }
 
-// Test one row (its column values `v`), and fold a passing one into the
-// running state.
+// Fold one row that passed the filters (its column values `v`) into the
+// running state: its guard tests, gid and values.
 template <typename T, int NC, int NV>
-__device__ __forceinline__ void process(const LeafSpec& s, const T (&v)[NC], bool live,
-                                        Run<NV>& run, int& bad, long long* sm, int width) {
-  // filters without a branch (a column without one has the type's full
-  // range); the row's guard and key terms only once it passes
-  bool pass = live;
-#pragma unroll
-  for (int k = 0; k < NC; ++k) {
-    if (k < s.ncols) {
-      pass = pass & (v[k] >= static_cast<T>(s.flo[k])) & (v[k] <= static_cast<T>(s.fhi[k]));
-    }
-  }
-  if (!pass) return;
+__device__ __forceinline__ void accept(const LeafSpec& s, const T (&v)[NC], Run<NV>& run,
+                                       int& bad, long long* sm, int width) {
   long long gid = s.gbase;
 #pragma unroll
   for (int k = 0; k < NC; ++k) {
@@ -219,34 +235,6 @@ __device__ __forceinline__ void process(const LeafSpec& s, const T (&v)[NC], boo
   if (in) run.n += 1;
 }
 
-// The words of row i (columns, then `live`) into `words`; a row at or
-// past the end loads nothing (it tests as dead).
-template <int NC>
-__device__ __forceinline__ void load_words(const LeafSpec& s, int64_t i, int64_t n,
-                                           unsigned int (&words)[NC + 1]) {
-  const bool in = i < n;
-#pragma unroll
-  for (int k = 0; k < NC; ++k) {
-    words[k] = in && k < s.ncols ? load_word(s.col[k], s.size[k], i) : 0u;
-  }
-  words[NC] = in ? load_word(s.live, 1, i) : 0u;
-}
-
-// Where each column's element sits in its word for the rows of this
-// thread: the grid's stride is a multiple of 4 rows, so the byte offset
-// within the word is the same for all of them.
-template <int NC>
-__device__ __forceinline__ void word_shifts(const LeafSpec& s, int64_t row,
-                                            int (&shift)[NC + 1]) {
-#pragma unroll
-  for (int k = 0; k < NC; ++k) {
-    const int size = k < s.ncols ? s.size[k] : 1;
-    const uintptr_t a = reinterpret_cast<uintptr_t>(s.col[k]) + static_cast<uintptr_t>(row) * size;
-    shift[k] = 8 * static_cast<int>(a & 3);
-  }
-  shift[NC] = 8 * static_cast<int>((reinterpret_cast<uintptr_t>(s.live) + row) & 3);
-}
-
 // Lanes of a warp whose running states share one group (or have none)
 // combine them with shuffles, and one lane folds the result; otherwise
 // each lane folds its own.
@@ -282,63 +270,28 @@ __device__ __forceinline__ void flush_warp(const LeafSpec& s, Run<NV>& run, long
   }
 }
 
-// kNarrow: every column is at most 4 bytes (rows are read as whole words
-// through a ring of R rows and tested in int32); otherwise rows are read
-// element by element and tested in int64. NC and NV bound the spec's
-// columns and values (the loops over them are unrolled).
-template <bool kNarrow, int NC, int NV, int R>
-__global__ void __launch_bounds__(kThreads)
-leaf_agg_kernel(const LeafSpec s, int64_t n, long long* out) {
-  extern __shared__ long long sm[];  // [groups][nvalues + 1]
+// The block's table at each slot's identity, and a thread's empty run.
+template <int NV>
+__device__ __forceinline__ void start(const LeafSpec& s, long long* sm, Run<NV>& run) {
   const int width = s.nvalues + 1;
-  const int slots = s.groups * width;
-  for (int i = threadIdx.x; i < slots; i += blockDim.x) {
+  for (int i = threadIdx.x; i < s.groups * width; i += blockDim.x) {
     const int j = i % width;
     sm[i] = j < s.nvalues ? identity(s.op[j]) : 0;
   }
-  __syncthreads();
-
-  Run<NV> run;
 #pragma unroll
   for (int j = 0; j < NV; ++j) run.acc[j] = j < s.nvalues ? identity(s.op[j]) : 0;
   run.n = 0;
   run.g = -1;
-  int bad = 0;
+}
 
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  int64_t row = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (kNarrow) {
-    // slot u of the ring holds the words of row `row + u * stride`; once
-    // its row is tested, the slot loads the row R strides further on.
-    unsigned int ring[R][NC + 1];
-    int shift[NC + 1];
-    word_shifts<NC>(s, row, shift);
-#pragma unroll
-    for (int u = 0; u < R; ++u) load_words<NC>(s, row + u * stride, n, ring[u]);
-    for (; row < n; row += R * stride) {
-#pragma unroll
-      for (int u = 0; u < R; ++u) {
-        const int64_t i = row + u * stride;
-        int v[NC];
-#pragma unroll
-        for (int k = 0; k < NC; ++k) {
-          v[k] = k < s.ncols ? extract(ring[u][k], 8 * s.size[k], shift[k]) : 0;
-        }
-        const bool live = ((ring[u][NC] >> shift[NC]) & 0xffu) != 0;
-        process<int, NC, NV>(s, v, live, run, bad, sm, width);
-        load_words<NC>(s, i + R * stride, n, ring[u]);
-      }
-    }
-  } else {
-    for (; row < n; row += stride) {
-      long long v[NC];
-#pragma unroll
-      for (int k = 0; k < NC; ++k) v[k] = k < s.ncols ? load_wide(s.col[k], s.size[k], row) : 0;
-      process<long long, NC, NV>(s, v, s.live[row] != 0, run, bad, sm, width);
-    }
-  }
+// After the rows: each warp's runs into the table, then the table into
+// the output with one global atomic per nonempty slot, and the flag.
+template <int NV>
+__device__ __forceinline__ void finish(const LeafSpec& s, Run<NV>& run, int bad,
+                                       long long* sm, long long* out) {
+  const int width = s.nvalues + 1;
+  const int slots = s.groups * width;
   flush_warp(s, run, sm, width);
-
   const int any_bad = __syncthreads_or(bad);  // also the barrier for `sm`
   for (int i = threadIdx.x; i < slots; i += blockDim.x) {
     const int j = i % width;
@@ -349,13 +302,289 @@ leaf_agg_kernel(const LeafSpec s, int64_t n, long long* out) {
   }
 }
 
-template <bool kNarrow, int NC, int NV, int R>
-int launch(const LeafSpec& s, int64_t n, long long* out, cudaStream_t stream) {
-  auto kernel = leaf_agg_kernel<kNarrow, NC, NV, R>;
+// ---------------------------------------------------------------------------
+// the generic instance
+// ---------------------------------------------------------------------------
+
+template <int NC, int NV>
+__global__ void __launch_bounds__(kThreads)
+leaf_agg_kernel(const LeafSpec s, int64_t n, long long* out) {
+  extern __shared__ long long sm[];  // [groups][nvalues + 1]
+  const int width = s.nvalues + 1;
+  Run<NV> run;
+  start(s, sm, run);
+  __syncthreads();
+  int bad = 0;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t row = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; row < n;
+       row += stride) {
+    long long v[NC];
+#pragma unroll
+    for (int k = 0; k < NC; ++k) v[k] = k < s.ncols ? load_wide(s.col[k], s.size[k], row) : 0;
+    // filters without a branch (a column without one has the full range)
+    bool pass = s.live[row] != 0;
+#pragma unroll
+    for (int k = 0; k < NC; ++k) {
+      if (k < s.ncols) pass = pass & (v[k] >= s.flo[k]) & (v[k] <= s.fhi[k]);
+    }
+    if (pass) accept<long long, NC, NV>(s, v, run, bad, sm, width);
+  }
+  finish(s, run, bad, sm, out);
+}
+
+// ---------------------------------------------------------------------------
+// the staged instance
+// ---------------------------------------------------------------------------
+
+// 4 rows of 1-byte lanes: bit e set where lane e lies in [lo, lo + range].
+__device__ __forceinline__ uint32_t lanes4(uint32_t x, uint32_t lo, uint32_t range) {
+  const uint32_t e = __vcmpleu4(__vsub4(x, lo), range);  // 0xff per passing lane
+  return ((e & 0x80808080u) * 0x00204081u) >> 28;  // the lanes' top bits, gathered
+}
+
+// 2 rows of 2-byte lanes, likewise.
+__device__ __forceinline__ uint32_t lanes2(uint32_t x, uint32_t lo, uint32_t range) {
+  const uint32_t e = __vcmpleu2(__vsub2(x, lo), range);  // 0xffff per passing lane
+  return ((e >> 15) & 1u) | ((e >> 30) & 2u);
+}
+
+__device__ __forceinline__ uint32_t lane1(uint32_t x, uint32_t lo, uint32_t range) {
+  return (x - lo) <= range ? 1u : 0u;
+}
+
+// The 16 rows of a column of `size` bytes at p (16-byte aligned, shared
+// memory) tested against [lo, lo + range] in the column's width: bit u of
+// the result is row u.
+__device__ __forceinline__ uint32_t test16(const unsigned char* p, int size, uint32_t lo,
+                                           uint32_t range) {
+  const uint4* q = reinterpret_cast<const uint4*>(p);
+  uint32_t m = 0;
+  if (size == 1) {
+    const uint4 w = q[0];
+    m = lanes4(w.x, lo, range) | (lanes4(w.y, lo, range) << 4) |
+        (lanes4(w.z, lo, range) << 8) | (lanes4(w.w, lo, range) << 12);
+  } else if (size == 2) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint4 w = q[h];
+      m |= (lanes2(w.x, lo, range) | (lanes2(w.y, lo, range) << 2) |
+            (lanes2(w.z, lo, range) << 4) | (lanes2(w.w, lo, range) << 6))
+           << (8 * h);
+    }
+  } else {
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const uint4 w = q[h];
+      m |= (lane1(w.x, lo, range) | (lane1(w.y, lo, range) << 1) |
+            (lane1(w.z, lo, range) << 2) | (lane1(w.w, lo, range) << 3))
+           << (4 * h);
+    }
+  }
+  return m;
+}
+
+// A thread's row u of a tile of `rows` rows read directly: row
+// ct + kConsumers * u, clamped to the tile's last row so that every load
+// is unconditional (the caller masks the rows that do not exist).
+__device__ __forceinline__ int direct_row(int ct, int u, int rows) {
+  const int r = ct + kConsumers * u;
+  return r < rows ? r : rows - 1;
+}
+
+// A thread's 16 direct rows of a column of `size` bytes at p (global
+// memory), tested against [lo, hi]: bit u of the result is row u. The
+// 16 loads depend on no branch and on each other, so they are issued
+// together.
+__device__ __forceinline__ uint32_t test_rows(const unsigned char* p, int size, int ct,
+                                              int rows, long long lo, long long hi) {
+  int c[16];
+  if (size == 1) {
+    const int8_t* q = reinterpret_cast<const int8_t*>(p);
+#pragma unroll
+    for (int u = 0; u < 16; ++u) c[u] = q[direct_row(ct, u, rows)];
+  } else if (size == 2) {
+    const int16_t* q = reinterpret_cast<const int16_t*>(p);
+#pragma unroll
+    for (int u = 0; u < 16; ++u) c[u] = q[direct_row(ct, u, rows)];
+  } else {
+    const int32_t* q = reinterpret_cast<const int32_t*>(p);
+#pragma unroll
+    for (int u = 0; u < 16; ++u) c[u] = q[direct_row(ct, u, rows)];
+  }
+  uint32_t m = 0;
+#pragma unroll
+  for (int u = 0; u < 16; ++u) m |= static_cast<uint32_t>((c[u] >= lo) & (c[u] <= hi)) << u;
+  return m;
+}
+
+// The same rows of `live`: bit u set where the byte is nonzero.
+__device__ __forceinline__ uint32_t live_rows(const unsigned char* p, int ct, int rows) {
+  unsigned char c[16];
+#pragma unroll
+  for (int u = 0; u < 16; ++u) c[u] = p[direct_row(ct, u, rows)];
+  uint32_t m = 0;
+#pragma unroll
+  for (int u = 0; u < 16; ++u) m |= static_cast<uint32_t>(c[u] != 0) << u;
+  return m;
+}
+
+template <int NC, int NV>
+__global__ void __launch_bounds__(kStagedThreads)
+leaf_staged_kernel(const LeafSpec s, const Staging z, int64_t n, long long* out) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  long long* sm = reinterpret_cast<long long*>(smem);  // [groups][nvalues + 1]
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + z.table_bytes);
+  uint64_t* empty = full + kStages;
+  unsigned char* ring = smem + z.table_bytes + kBarrierBytes;
+  // each consumer warp's passing rows of a tile, after the ring
+  unsigned short* lists =
+      reinterpret_cast<unsigned short*>(ring + (z.staged ? kStages * z.stage_bytes : 0));
+  const int width = s.nvalues + 1;
+  Run<NV> run;
+  start(s, sm, run);
+  if (threadIdx.x == 0 && z.staged) {
+    for (int i = 0; i < kStages; ++i) {
+      presto::mbar_init(&full[i], 1);
+      presto::mbar_init(&empty[i], kConsumers / 32);
+    }
+    presto::mbar_init_fence();
+  }
+  __syncthreads();
+
+  int bad = 0;
+  const int64_t tiles = (n + kTile - 1) / kTile;
+  int64_t first, last;
+  presto::block_tiles(tiles, first, last);
+  const int64_t staged_end = z.staged ? n / kTile : 0;  // full tiles only
+  const int64_t ring_last = last < staged_end ? last : staged_end;
+
+  if (threadIdx.x >= kConsumers) {
+    if (threadIdx.x == kConsumers) {  // the producer
+      presto::RingPos p;
+      for (int64_t t = first; t < ring_last; ++t, p.next(kStages)) {
+        if (p.reuse) presto::mbar_wait(&empty[p.stage], p.parity ^ 1u);
+        presto::mbar_expect_tx(&full[p.stage], z.stage_bytes);
+        unsigned char* st = ring + static_cast<size_t>(p.stage) * z.stage_bytes;
+#pragma unroll
+        for (int k = 0; k < NC; ++k) {
+          if (k < s.ncols) {
+            const int w = s.size[k];
+            presto::bulk_load(st + z.off[k],
+                              static_cast<const unsigned char*>(s.col[k]) + t * kTile * w,
+                              static_cast<uint32_t>(kTile * w), &full[p.stage]);
+          }
+        }
+        presto::bulk_load(st + z.off[kNarrowCols], s.live + t * kTile, kTile, &full[p.stage]);
+      }
+    }
+    __syncwarp();
+  } else {
+    const int ct = threadIdx.x;
+    const int lane = ct & 31;
+    unsigned short* list = lists + (ct >> 5) * 512;
+    presto::RingPos p;
+    for (int64_t t = first; t < last; ++t) {
+      const bool from_ring = t < ring_last;
+      // the tile's first row of each column (`live` last), and the rows
+      // of the thread's 16 that pass every filter: 16 consecutive rows
+      // from a stage, every kConsumers-th row read directly (a warp's
+      // lanes load adjacent rows)
+      const unsigned char* row0[NC + 1];
+      uint32_t pass = 0;
+      if (from_ring) {
+        presto::mbar_wait(&full[p.stage], p.parity);
+        const unsigned char* st = ring + static_cast<size_t>(p.stage) * z.stage_bytes;
+#pragma unroll
+        for (int k = 0; k < NC; ++k) row0[k] = st + z.off[k];
+        row0[NC] = st + z.off[kNarrowCols];
+        pass = z.never ? 0u : test16(row0[NC] + 16 * ct, 1, z.lo[kNarrowCols],
+                                     z.range[kNarrowCols]);
+#pragma unroll
+        for (int k = 0; k < NC; ++k) {
+          if (k < s.ncols && ((z.test >> k) & 1u)) {
+            pass &= test16(row0[k] + 16 * ct * s.size[k], s.size[k], z.lo[k], z.range[k]);
+          }
+        }
+      } else {
+        const int64_t t0 = t * kTile;
+#pragma unroll
+        for (int k = 0; k < NC; ++k) {
+          row0[k] = k < s.ncols ? static_cast<const unsigned char*>(s.col[k]) + t0 * s.size[k]
+                                : nullptr;
+        }
+        row0[NC] = s.live + t0;
+        // the thread's rows ct + kConsumers * u that exist (`have` of
+        // them), each column's 16 loads in flight at once
+        const int rows = static_cast<int>(n - t0 < kTile ? n - t0 : kTile);
+        const int have = ct < rows ? (rows - ct + kConsumers - 1) / kConsumers : 0;
+        pass = z.never ? 0u : ((1u << have) - 1u) & live_rows(row0[NC], ct, rows);
+#pragma unroll
+        for (int k = 0; k < NC; ++k) {
+          if (k < s.ncols && ((z.test >> k) & 1u)) {
+            pass &= test_rows(row0[k], s.size[k], ct, rows, s.flo[k], s.fhi[k]);
+          }
+        }
+      }
+      // the warp's passing rows into its list (a prefix sum of the lanes'
+      // counts), then folded by all its lanes at once: one pass over the
+      // list, not one per passing row of its busiest lane
+      const int count = __popc(pass);
+      int end = count;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, end, o);
+        if (lane >= o) end += y;
+      }
+      const int total = __shfl_sync(0xffffffffu, end, 31);
+      if (total > 0) {
+        // bit u of `pass` is tile row 16 * ct + u from a stage, ct + kConsumers * u direct
+        const int first_row = from_ring ? 16 * ct : ct;
+        const int step = from_ring ? 1 : kConsumers;
+        for (int i = end - count; pass != 0; ++i) {
+          list[i] = static_cast<unsigned short>(first_row + step * (__ffs(pass) - 1));
+          pass &= pass - 1;
+        }
+        __syncwarp();
+        for (int i = lane; i < total; i += 32) {
+          const int r = list[i];
+          int v[NC];
+#pragma unroll
+          for (int k = 0; k < NC; ++k) {
+            v[k] = k < s.ncols ? presto::load_int(row0[k], s.size[k], r) : 0;
+          }
+          accept<int, NC, NV>(s, v, run, bad, sm, width);
+        }
+        __syncwarp();
+      }
+      if (from_ring) {
+        __syncwarp();
+        if ((ct & 31) == 0) presto::mbar_arrive(&empty[p.stage]);
+        p.next(kStages);
+      }
+    }
+  }
+  finish(s, run, bad, sm, out);
+}
+
+int launch_generic(const LeafSpec& s, int64_t n, long long* out, cudaStream_t stream) {
+  auto kernel = leaf_agg_kernel<kMaxCols, kMaxValues>;
   const int smem = s.groups * (s.nvalues + 1) * static_cast<int>(sizeof(long long));
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  const int blocks = presto::grid_blocks(kernel, n, kThreads, smem, R);
+  const int most = presto::resident_blocks(kernel, kThreads, smem);
+  const int64_t want = (n + kThreads - 1) / kThreads;
+  const int blocks = static_cast<int>(want < most ? want : most);
   kernel<<<blocks, kThreads, smem, stream>>>(s, n, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_staged(const LeafSpec& s, const Staging& z, int64_t n, long long* out,
+                  cudaStream_t stream) {
+  auto kernel = leaf_staged_kernel<kNarrowCols, 1>;
+  const int smem = static_cast<int>(z.table_bytes) + kBarrierBytes + kListBytes +
+                   (z.staged ? kStages * static_cast<int>(z.stage_bytes) : 0);
+  const int most = presto::resident_blocks(kernel, kStagedThreads, smem);
+  const int64_t tiles = (n + kTile - 1) / kTile;
+  const int blocks = static_cast<int>(tiles < most ? tiles : most);
+  kernel<<<blocks, kStagedThreads, smem, stream>>>(s, z, n, out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -372,9 +601,33 @@ void clamp_int32(long long& lo, long long& hi) {
   }
 }
 
+// Column k's filter as the packed test of the staged instance: [lo, hi]
+// cut to the range of its `size` bytes; none where that is the whole
+// range, `never` where it is empty.
+void pack_filter(Staging& z, int k, int size, long long lo, long long hi) {
+  const int bits = 8 * size;
+  const long long tmin = -(1ll << (bits - 1));
+  const long long tmax = (1ll << (bits - 1)) - 1;
+  lo = lo < tmin ? tmin : lo;
+  hi = hi > tmax ? tmax : hi;
+  if (lo > hi) {
+    z.never = 1;
+    return;
+  }
+  if (lo == tmin && hi == tmax) return;
+  const unsigned int mask = bits == 32 ? 0xffffffffu : (1u << bits) - 1u;
+  const unsigned int l = static_cast<unsigned int>(lo) & mask;
+  const unsigned int r = static_cast<unsigned int>(hi - lo) & mask;
+  const unsigned int rep = size == 1 ? 0x01010101u : (size == 2 ? 0x00010001u : 1u);
+  z.lo[k] = l * rep;
+  z.range[k] = r * rep;
+  z.test |= 1u << k;
+}
+
 }  // namespace
 
-// Launch on `stream`. Columns: `cols`/`sizes` (ncols <= 32). `colp`:
+// Launch instance `instance` (cuda_agg.INSTANCES: 0 staged, 1 direct, 2
+// generic) on `stream`. Columns: `cols`/`sizes` (ncols <= 32). `colp`:
 // [ncols][6] int64 per column: filter lo, filter hi, guard lo, guard hi,
 // key multiplier, and (in row 0 only, slot 5) the gid base; a filter or
 // guard of (INT64_MIN, INT64_MAX) and a multiplier of 0 mean none.
@@ -383,25 +636,29 @@ void clamp_int32(long long& lo, long long& hi) {
 // bool [n]. `out`: int64[groups * (nvalues + 1) + 1], set by the caller
 // to each slot's identity (0, or the int64 extremes for min and max):
 // out[g * (nvalues + 1) + j] is value j of group g, then the group's
-// count, and the last slot is nonzero when value_overflow is set.
-// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue
-// for arguments beyond the kernel's limits (checked first in Python).
+// count, and the last slot is nonzero when value_overflow is set. The
+// staged and direct instances take at most 4 columns of at most 4 bytes
+// and at most 1 value; the staged one also needs every column and `live`
+// to start 16-byte aligned. Returns cudaGetLastError() after the launch,
+// or cudaErrorInvalidValue for arguments beyond the kernel's limits or an
+// instance that does not take them (checked first in Python).
 extern "C" int leaf_agg_launch(const void* const* cols, const int* sizes, int ncols,
                                const long long* colp, const long long* valp,
                                int nvalues, int groups, const void* live, long long n,
-                               long long* out, void* stream) {
+                               long long* out, int instance, void* stream) {
   if (ncols < 0 || ncols > kMaxCols || nvalues < 0 || nvalues > kMaxValues ||
-      groups < 1 || groups > kMaxGroups || n < 1) {
+      groups < 1 || groups > kMaxGroups || n < 1 || instance < 0 || instance >= kInstances) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   LeafSpec s = {};
-  // the shape of Q6 and the SSB Q1 flight: rows read as words, tested in int32
-  bool narrow = ncols <= 4 && nvalues <= 1;
+  bool narrow = ncols <= kNarrowCols && nvalues <= 1;
+  uintptr_t align = reinterpret_cast<uintptr_t>(live);
   for (int k = 0; k < ncols; ++k) {
     if (sizes[k] != 1 && sizes[k] != 2 && sizes[k] != 4 && sizes[k] != 8) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
     narrow = narrow && sizes[k] <= 4;
+    align |= reinterpret_cast<uintptr_t>(cols[k]);
     s.col[k] = cols[k];
     s.size[k] = sizes[k];
     s.flo[k] = colp[6 * k + 0];
@@ -410,12 +667,6 @@ extern "C" int leaf_agg_launch(const void* const* cols, const int* sizes, int nc
     s.ghi[k] = colp[6 * k + 3];
     s.kmul[k] = colp[6 * k + 4];
     if (s.kmul[k] != 0) s.kmask |= 1u << k;
-  }
-  if (narrow) {
-    for (int k = 0; k < ncols; ++k) {
-      clamp_int32(s.flo[k], s.fhi[k]);
-      clamp_int32(s.glo[k], s.ghi[k]);
-    }
   }
   s.gbase = ncols > 0 ? colp[5] : 0;
   for (int j = 0; j < nvalues; ++j) {
@@ -434,8 +685,29 @@ extern "C" int leaf_agg_launch(const void* const* cols, const int* sizes, int nc
   s.nvalues = nvalues;
   s.groups = groups;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (narrow) return launch<true, 4, 1, 4>(s, n, out, st);
-  return launch<false, kMaxCols, kMaxValues, 1>(s, n, out, st);
+  if (instance == kGeneric) return launch_generic(s, n, out, st);
+  if (!narrow || (instance == kStaged && (align & 15) != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+
+  // rows are tested in int32: the bounds clamped to it exactly
+  Staging z = {};
+  int row_bytes = 1;
+  for (int k = 0; k < ncols; ++k) {
+    clamp_int32(s.flo[k], s.fhi[k]);
+    clamp_int32(s.glo[k], s.ghi[k]);
+    pack_filter(z, k, s.size[k], s.flo[k], s.fhi[k]);
+    z.off[k] = static_cast<unsigned int>(kTile * (row_bytes - 1));
+    row_bytes += s.size[k];
+  }
+  z.off[kNarrowCols] = static_cast<unsigned int>(kTile * (row_bytes - 1));
+  z.lo[kNarrowCols] = 0x01010101u;  // `live`: a byte in [1, 255]
+  z.range[kNarrowCols] = 0xfefefefeu;
+  z.staged = instance == kStaged;
+  z.stage_bytes = static_cast<unsigned int>(kTile * row_bytes);
+  z.table_bytes = static_cast<unsigned int>(
+      (groups * (nvalues + 1) * static_cast<int>(sizeof(long long)) + 127) / 128 * 128);
+  return launch_staged(s, z, n, out, st);
 }
 
 extern "C" const char* leaf_agg_error_string(int code) {

@@ -17,13 +17,16 @@ by a static :class:`LeafAggSpec` (the JAX package's fields, unchanged):
 ``agg_step`` launches ``csrc/leaf_agg.cu`` on a CUDA batch (any spec the
 kernel's limits take: min/max values, bits above 31 and any capacity,
 where the JAX package sends such specs to its XLA twin) and computes
-``agg_step_plain`` on a CPU batch; ``launches`` counts kernel launches.
+``agg_step_plain`` on a CPU batch; ``launches`` counts kernel launches
+and ``launches_by_instance`` which instance ran (:func:`instance`).
 ``agg_step_plain`` is the counterpart of the JAX package's ``_xla_step``
 (``fused_small_sums`` and ``segment_agg``, exact int64 throughout).
 
 What bounds the kernel on the H100: the bytes read (each spec column in
 its stored width plus ``live``, about 10 bytes a row for Q6). Its
-design is in the header of the CUDA source.
+design is in the header of the CUDA source: the staged instance brings
+whole tiles of each column into shared memory with bulk copies and
+tests 16 rows a thread on packed lanes.
 """
 
 from __future__ import annotations
@@ -50,9 +53,24 @@ _OPS = {"sum": 0, "min": 1, "max": 2}
 _INT_DTYPES = (torch.int8, torch.int16, torch.int32, torch.int64)
 _I64_MIN, _I64_MAX = -(1 << 63), (1 << 63) - 1
 
-#: kernel launches since the last reset (a plain counter, set to 0 by
-#: whoever reads it)
+#: the kernel's instances, in the launch entry's numbering (see
+#: :func:`instance`)
+INSTANCES = ("staged", "direct", "generic")
+#: the staged and direct instances' shape: columns (each at most 4 bytes)
+NARROW_COLS = 4
+
+#: kernel launches since the last reset, in all and by instance (plain
+#: counters, set to 0 by whoever reads them: see :func:`reset_launches`)
 launches = 0
+launches_by_instance = dict.fromkeys(INSTANCES, 0)
+
+
+def reset_launches() -> None:
+    """Set ``launches`` and every ``launches_by_instance`` count to 0."""
+    global launches
+    launches = 0
+    for k in launches_by_instance:
+        launches_by_instance[k] = 0
 
 
 @dataclass(frozen=True)
@@ -167,26 +185,23 @@ def _launcher():
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
+                   ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     return lib, fn
 
 
-def _word_readable(t: torch.Tensor) -> torch.Tensor:
-    """``t``, or a copy of it, such that the aligned 4-byte word holding
-    any element lies inside its allocation (the kernel reads a column of
-    1 or 2 bytes a word at a time). Scan batches qualify as they are (a
-    capacity that is a multiple of 4 in fresh storage); a column whose
-    storage ends inside its last word is copied into a padded one."""
-    if t.element_size() >= 4:
-        return t
-    storage = t.untyped_storage()
-    start, end = t.data_ptr(), t.data_ptr() + t.numel() * t.element_size()
-    if start - start % 4 >= storage.data_ptr() and \
-            -(-end // 4) * 4 <= storage.data_ptr() + storage.nbytes():
-        return t
-    padded = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
-    padded[: t.numel()].copy_(t)
-    return padded[: t.numel()]
+def instance(spec: LeafAggSpec, cols, live: torch.Tensor) -> str:
+    """Which of ``INSTANCES`` runs ``spec`` over these column tensors:
+    ``staged`` for the narrow shape (at most ``NARROW_COLS`` columns of at
+    most 4 bytes, at most 1 value) with every column and ``live``
+    starting 16-byte aligned (bulk copies of whole tiles); ``direct`` for
+    the narrow shape with a column that does not (a view: plain loads);
+    ``generic`` for every other spec."""
+    narrow = (len(spec.cols) <= NARROW_COLS and len(spec.values) <= 1
+              and all(t.element_size() <= 4 for t in cols))
+    if not narrow:
+        return "generic"
+    aligned = all(t.data_ptr() % 16 == 0 for t in [*cols, live])
+    return "staged" if aligned else "direct"
 
 
 def _unpack(spec: LeafAggSpec, out: torch.Tensor) -> dict:
@@ -218,8 +233,8 @@ def agg_step(spec: LeafAggSpec, batch: Batch) -> dict:
             f"{spec.groups} groups exceed the kernel's limits ({MAX_COLS}, "
             f"{MAX_VALUES}, {MAX_GROUPS})")
     global launches
-    cols = [_word_readable(batch[c].data.contiguous()) for c in spec.cols]
-    live = _word_readable(batch.live.contiguous())
+    cols = [batch[c].data.contiguous() for c in spec.cols]
+    live = batch.live.contiguous()
     for t in cols:
         if t.dtype not in _INT_DTYPES or t.shape != live.shape or t.device != dev:
             raise InternalError(f"agg_step: column {t.dtype}{tuple(t.shape)} on "
@@ -230,6 +245,7 @@ def agg_step(spec: LeafAggSpec, batch: Batch) -> dict:
     out = _initial_output(spec, dev)
     if batch.capacity > 0:
         lib, fn = _launcher()
+        which = instance(spec, cols, live)
         n = max(len(cols), 1)
         ptrs = (ctypes.c_void_p * n)(*[t.data_ptr() for t in cols])
         sizes = (ctypes.c_int * n)(*[t.element_size() for t in cols])
@@ -238,9 +254,10 @@ def agg_step(spec: LeafAggSpec, batch: Batch) -> dict:
             code = fn(ctypes.addressof(ptrs), ctypes.addressof(sizes), len(cols),
                       ctypes.addressof(colp), ctypes.addressof(valp), len(spec.values),
                       spec.groups, live.data_ptr(), batch.capacity, out.data_ptr(),
-                      stream)
+                      INSTANCES.index(which), stream)
         _build.check_launch(lib, "leaf_agg", code)
         launches += 1
+        launches_by_instance[which] += 1
     return _unpack(spec, out)
 
 

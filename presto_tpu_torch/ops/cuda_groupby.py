@@ -7,19 +7,22 @@ aggregation calls once per batch.
 
 What bounds it on the H100: the bytes read — every value, mask and gid
 element once (25 bytes a row at the Q1 pipeline's shapes: 4 int32
-values, 5 byte masks, an int32 gid) at 3.35 TB/s. Its design reads each
-column once in a grid-stride pass and keeps the partial sums in shared
-memory as int64, so no lane split or one-hot matrix touches device
-memory (see the header of the CUDA source).
+values, 5 byte masks, an int32 gid) at 3.35 TB/s. Its design brings
+whole tiles of every column into shared memory with bulk copies, so all
+of a tile's loads are in flight at once, and keeps the partial sums in
+shared memory as int64, so no lane split or one-hot matrix touches
+device memory (see the header of the CUDA source).
 
 ``fused_lane_sums`` launches the kernel on CUDA tensors and computes
 ``fused_lane_sums_plain`` on CPU tensors; ``launches`` counts kernel
-launches.
+launches and ``launches_by_instance`` which instance ran
+(:func:`instance`).
 """
 
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
 
 import torch
 
@@ -34,9 +37,32 @@ MAX_VALUES = 16
 MAX_MASKS = 16
 _MASK_DTYPES = (torch.bool, torch.int8, torch.uint8)
 
-#: kernel launches since the last reset (a plain counter, set to 0 by
-#: whoever reads it)
+#: the kernel's instances, in the launch entry's numbering (see
+#: :func:`instance`): the staged ones with a per-thread table, compiled
+#: for the main path's (values, masks) and for any; the staged one whose
+#: table copies are shared; the direct one (plain loads)
+INSTANCES = ("staged_k4m5", "staged_k0m1", "staged", "staged_shared", "direct")
+_SHAPED = {(4, 5): "staged_k4m5", (0, 1): "staged_k0m1"}
+#: the CUDA source's sizes (csrc/lane_sums.cu): rows a tile, slots of a
+#: per-thread table, the bytes of the shared-memory ring's budget
+TILE_ROWS = 2048
+PRIVATE_SLOTS = 64
+_TABLE_COPIES = 128
+_SHARED_TABLE_BYTES = 64 * 1024
+_SMEM_BUDGET = 220 * 1024 - 128
+
+#: kernel launches since the last reset, in all and by instance (plain
+#: counters, set to 0 by whoever reads them: see :func:`reset_launches`)
 launches = 0
+launches_by_instance = dict.fromkeys(INSTANCES, 0)
+
+
+def reset_launches() -> None:
+    """Set ``launches`` and every ``launches_by_instance`` count to 0."""
+    global launches
+    launches = 0
+    for k in launches_by_instance:
+        launches_by_instance[k] = 0
 
 
 def supported(nvalues: int, nmasks: int, max_groups: int) -> bool:
@@ -71,6 +97,47 @@ def _check(values, bits_list, count_masks, gids, max_groups):
             raise InternalError("fused_lane_sums: mask shape/device mismatch")
 
 
+def ring_stages(nvalues: int, nmasks: int, max_groups: int) -> int:
+    """Stages of the shared-memory ring beside the table (at most 4; a
+    staged instance needs 2): a stage holds a tile of the gid, every
+    value and every mask."""
+    slots = max_groups * (nvalues + nmasks)
+    if slots <= PRIVATE_SLOTS:
+        table = max(slots, 1) * 8 * _TABLE_COPIES
+    else:
+        copies = min(_TABLE_COPIES, max(1, _SHARED_TABLE_BYTES // (slots * 8)))
+        table = slots * 8 * copies
+    table = -(-table // 128) * 128
+    return min(4, (_SMEM_BUDGET - table) // (TILE_ROWS * (4 + 4 * nvalues + nmasks)))
+
+
+def instance(values, count_masks, gids, max_groups: int) -> str:
+    """Which of ``INSTANCES`` runs this call: a staged one when every
+    column starts 16-byte aligned and a ring of 2 stages fits beside the
+    table (the per-thread table up to ``PRIVATE_SLOTS`` slots, compiled
+    for the shape where it is one of the main path's), else ``direct``."""
+    k, m = len(values), len(count_masks)
+    aligned = all(t.data_ptr() % 16 == 0 for t in [gids, *values, *count_masks])
+    if not aligned or ring_stages(k, m, max_groups) < 2:
+        return "direct"
+    if max_groups * (k + m) > PRIVATE_SLOTS:
+        return "staged_shared"
+    return _SHAPED.get((k, m), "staged")
+
+
+@lru_cache(maxsize=None)
+def _launcher():
+    """The kernel library and its launch entry, with the ctypes signature
+    set once."""
+    lib = _build.load("lane_sums")
+    fn = lib.lane_sums_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    return lib, fn
+
+
 def _unpack(out: torch.Tensor, k: int, m: int, max_groups: int):
     slots = max_groups * (k + m)
     per_g = out[:slots].view(max_groups, k + m).t().contiguous()
@@ -103,12 +170,8 @@ def fused_lane_sums(values, bits_list, count_masks, gids, max_groups: int):
     vals = [v.contiguous() for v in values]
     masks = [mk.contiguous() for mk in count_masks]
     g = gids.contiguous()
-    lib = _build.load("lane_sums")
-    fn = lib.lane_sums_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
+    lib, fn = _launcher()
+    which = instance(vals, masks, g, max_groups)
     vptr = (ctypes.c_void_p * max(k, 1))(*[v.data_ptr() for v in vals])
     vbits = (ctypes.c_int * max(k, 1))(*[int(b) for b in bits_list])
     mptr = (ctypes.c_void_p * max(m, 1))(*[mk.data_ptr() for mk in masks])
@@ -116,9 +179,10 @@ def fused_lane_sums(values, bits_list, count_masks, gids, max_groups: int):
         stream = torch.cuda.current_stream(g.device).cuda_stream
         code = fn(ctypes.addressof(vptr), ctypes.addressof(vbits), k,
                   ctypes.addressof(mptr), m, g.data_ptr(), max_groups, cap,
-                  out.data_ptr(), stream)
+                  out.data_ptr(), INSTANCES.index(which), stream)
     _build.check_launch(lib, "lane_sums", code)
     launches += 1
+    launches_by_instance[which] += 1
     return _unpack(out, k, m, max_groups)
 
 

@@ -24,16 +24,23 @@ G = 6
 
 
 def _data(case: str, seed: int = 3):
+    """Group ids, two values and two contribution masks. ``cap N`` cases
+    have N rows (the CUDA kernel's tile edges: tiles of 2048 rows, 16 rows
+    a thread); the others CAP."""
+    cap = int(case.split()[1]) if case.startswith("cap ") else CAP
     rng = np.random.default_rng(seed)
-    g = rng.integers(0, G + 1, CAP).astype(np.int32)  # 6 groups + trash
+    g = rng.integers(0, G + 1, cap).astype(np.int32)  # 6 groups + trash
     lo = -(2**30) if case != "non-negative" else 0
-    v1 = rng.integers(lo, 2**30, CAP).astype(np.int64)
-    v2 = rng.integers(-5000, 5000, CAP).astype(np.int64)
-    live = rng.random(CAP) < 0.9
+    v1 = rng.integers(lo, 2**30, cap).astype(np.int64)
+    v2 = rng.integers(-5000, 5000, cap).astype(np.int64)
+    live = rng.random(cap) < 0.9
     if case == "dead tail":
-        live[CAP - 1371:] = False
-        g[CAP - 1371:] = G
-    c2 = (rng.random(CAP) < 0.8) & live
+        live[cap - 1371:] = False
+        g[cap - 1371:] = G
+    if case == "all dead":
+        live[:] = False
+        g[:] = G
+    c2 = (rng.random(cap) < 0.8) & live
     if case == "bound violation":
         v2[17] = 1 << 20  # beyond the declared 13 bits
         c2[17] = True
@@ -42,13 +49,19 @@ def _data(case: str, seed: int = 3):
 
 
 CASES = ["negative values", "non-negative", "dead tail", "bound violation"]
+#: the CUDA kernel's tile edges and a batch with every row dead
+EDGE_CASES = ["cap 1", "cap 15", "cap 17", "cap 2047", "cap 2049", "all dead"]
 
 
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", CASES + ["all dead", "no values"])
 def test_lane_sums_plain_matches_pallas_kernel(case):
+    """``no values``: counts only (the shape of Q4's and q_like_phone's
+    aggregations), no value column."""
     g, values, contribs = _data(case)
     zeroed = [np.where(c, v, 0).astype(np.int32) for v, c in zip(values, contribs)]
     bits = [31, 13]
+    if case == "no values":
+        zeroed, bits = [], []
     want = JPG.fused_lane_sums([jnp.asarray(z) for z in zeroed], bits,
                                [jnp.asarray(c) for c in contribs], jnp.asarray(g), G)
     got = cuda_groupby.fused_lane_sums_plain(
@@ -86,8 +99,44 @@ def test_lane_sums_limits():
     assert not cuda_groupby.supported(17, 1, 6)
 
 
+def test_lane_sums_instance_choice():
+    """The wrapper's choice among the kernel's instances, on CPU tensors:
+    staged when every column starts 16-byte aligned and a ring of 2
+    stages fits beside the table (compiled for the main path's shapes,
+    per-thread tables up to PRIVATE_SLOTS slots, shared copies past
+    them), else direct."""
+    rng = np.random.default_rng(4)
+
+    def args(k, m, groups, cap=4096):
+        vals = [torch.from_numpy(rng.integers(-9, 9, cap).astype(np.int32)) for _ in range(k)]
+        masks = [torch.from_numpy(rng.random(cap) < 0.5) for _ in range(m)]
+        gids = torch.from_numpy(rng.integers(0, groups + 1, cap).astype(np.int32))
+        return vals, masks, gids, groups
+
+    want = {(4, 5, 6): "staged_k4m5", (0, 1, 5): "staged_k0m1", (0, 2, 5): "staged",
+            (2, 3, 12): "staged", (1, 0, 1): "staged", (4, 5, 64): "staged_shared",
+            (16, 16, 32): "direct", (16, 16, 1): "direct"}
+    for (k, m, groups), inst in want.items():
+        vals, masks, gids, _ = args(k, m, groups)
+        assert cuda_groupby.instance(vals, masks, gids, groups) == inst, (k, m, groups)
+        assert (cuda_groupby.ring_stages(k, m, groups) >= 2) == (inst != "direct")
+    assert set(want.values()) == set(cuda_groupby.INSTANCES)
+    assert cuda_groupby.ring_stages(4, 5, 6) == 3  # the Q1 pipeline's ring
+    # a column that starts one element into its buffer takes the direct one
+    vals, masks, gids, _ = args(4, 5, 6)
+    buf = torch.zeros(4097, dtype=torch.int32)
+    buf[1:] = vals[2]
+    view = [vals[0], vals[1], buf[1:], vals[3]]
+    assert view[2].data_ptr() % 16 != 0
+    assert cuda_groupby.instance(view, masks, gids, 6) == "direct"
+    got = cuda_groupby.fused_lane_sums(view, [31] * 4, masks, gids, 6)
+    want_sums = cuda_groupby.fused_lane_sums_plain(vals, [31] * 4, masks, gids, 6)
+    for a, b in zip(got[0] + got[1], want_sums[0] + want_sums[1]):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("route", ["einsum", "pallas"])
-@pytest.mark.parametrize("case", CASES + ["shared mask"])
+@pytest.mark.parametrize("case", CASES + ["shared mask"] + EDGE_CASES)
 def test_fused_small_sums_matches_reference(route, case, monkeypatch):
     monkeypatch.setenv("PRESTO_TPU_PALLAS", "1" if route == "pallas" else "0")
     g, values, contribs = _data(case)

@@ -72,7 +72,7 @@ def assert_states_equal(got: dict, want: dict, flag_only: bool = False):
 #: of at most 32 bits, at most 8 groups in interpret mode)
 PALLAS_CASES = ["keyless Q6 shape", "keyless SSB Q1.1 shape", "6 groups, sums",
                 "unsatisfiable filter", "guard value column", "guard key column",
-                "bits violation"]
+                "guard Q6 shape", "bits violation"]
 
 
 @pytest.mark.parametrize("name", PALLAS_CASES)
@@ -85,12 +85,21 @@ def test_plain_equals_pallas_kernel_in_interpret_mode(name):
     assert bool(got["value_overflow"]) == name.startswith(("guard", "bits"))
 
 
-@pytest.mark.parametrize("cap,live_rows", [(4096, None), (3001, 2900)])
+#: capacities (and live rows): two of the earlier shapes, then the CUDA
+#: kernel's tile edges (tiles of 2048 rows, 16 rows a thread) and a
+#: batch with every row dead
+XLA_CAPS = [(4096, None), (3001, 2900), (1, None), (15, None), (17, None), (2047, None),
+            (2049, None), (2048, 0)]
+
+
+@pytest.mark.parametrize("cap,live_rows", XLA_CAPS)
 @pytest.mark.parametrize("name", case_ids(64))
 def test_plain_equals_xla_twin(name, cap, live_rows):
     """Every case, exact. Where a declared bit bound is violated the XLA
     twin sums truncated 7-bit lanes and the port exact int64 (ROADMAP
-    C1): there only the flag is compared."""
+    C1): there only the flag is compared. The tile-edge capacities are
+    too small, and the dead batch has no passing row, to plant every
+    violation: there the flag is compared with the twin's only."""
     (spec, cols, live), = [(s, c, lv) for n, s, c, lv in cases(cap, live_rows) if n == name]
     want = JA._xla_step(jax_spec(spec), jax_batch(spec, cols, live))
     b = chip_smoke.leaf_batch(spec, cols, live, "cpu")
@@ -100,7 +109,39 @@ def test_plain_equals_xla_twin(name, cap, live_rows):
     launches = cuda_agg.launches
     assert_states_equal(cuda_agg.agg_step(spec, b), got)
     assert cuda_agg.launches == launches
-    assert bool(got["value_overflow"]) == name.startswith(("guard", "bits"))
+    if cap >= 3001 and live_rows != 0:
+        assert bool(got["value_overflow"]) == name.startswith(("guard", "bits"))
+
+
+def test_instance_choice():
+    """The wrapper's choice among the kernel's instances, on CPU tensors:
+    the narrow shape (at most 4 columns of at most 4 bytes, at most 1
+    value) takes the staged instance when every column and ``live``
+    start 16-byte aligned, the direct one when a column is a view that
+    does not; every other spec the generic one."""
+    specs = {name: (spec, cols, live) for name, spec, cols, live in cases(4096)}
+    want = {"keyless Q6 shape": "staged", "keyless SSB Q1.1 shape": "staged",
+            "count only": "staged", "unsatisfiable filter": "staged",
+            "guard Q6 shape": "staged", "6 groups, sums": "generic",
+            "512 groups, sum/min/max": "generic",
+            "6 columns, 6 values, an int64 column": "generic",
+            "12 columns, 10 values": "generic"}
+    for name, inst in want.items():
+        spec, cols, live = specs[name]
+        b = chip_smoke.leaf_batch(spec, cols, live, "cpu")
+        data = [b[c].data for c in spec.cols]
+        assert cuda_agg.instance(spec, data, b.live) == inst, name
+        if inst == "staged":
+            views = [chip_smoke.unaligned(t) if i == len(data) - 1 else t
+                     for i, t in enumerate(data)]
+            assert views[-1].data_ptr() % 16 != 0
+            assert cuda_agg.instance(spec, views, b.live) == "direct", name
+            assert cuda_agg.instance(spec, data, chip_smoke.unaligned(b.live)) == "direct"
+            # and the plain version does not care where a column starts
+            vb = chip_smoke.Batch({c: chip_smoke.Column(t, b.live, b[c].dtype)
+                                   for c, t in zip(spec.cols, views)}, b.live)
+            assert_states_equal(cuda_agg.agg_step(spec, vb), cuda_agg.agg_step_plain(spec, b))
+    assert set(want.values()) | {"direct"} == set(cuda_agg.INSTANCES)
 
 
 def test_kernel_takes_specs_the_reference_sends_to_its_twin():
