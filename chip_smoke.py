@@ -12,7 +12,11 @@ one CUDA card, and exits nonzero on any failure. Phases:
    leaf-aggregation and lane-sums kernels also at the edges of their
    2048-row tiles (capacities 1, 15, 17, 2047, 2049), with every row
    dead, on columns that are views one element into their buffer, and
-   in every instance they have (each must run at least once);
+   in every instance they have (each must run at least once); the
+   exists and sketch kernels also in the keep and anti modes the join
+   operator launches (int8/int16/int32 keys, capacities 1, 3, 15, 17,
+   2^16, 2^20 and 1,000,003, views, all rows dead, no validity and NULL
+   keys; every output byte 0 or 1; both instances of each must run);
 3. resident TPC-H Q1: SF1 ``lineitem`` tiled x10 (about 60M rows) in
    the connector's narrow storage, through ``workloads.q1_fused_step``
    (the Q1 kernel); equal to 10x a numpy recomputation, and the kernel
@@ -31,7 +35,11 @@ one CUDA card, and exits nonzero on any failure. Phases:
    each equal to an exact int64 numpy recomputation, each through the
    fused route, each equal to the same query with ``pallas_join`` off;
    the wall time of a first and a second run; then the join probes are
-   timed as in phase 5, at the inputs this phase gave them;
+   timed as in phase 5, at the inputs this phase gave them (the exists
+   kernel at the first ``exists_keep`` call of Q3's operator, with the
+   device time of that whole probe batch, whose trace must hold one
+   kernel); in phases 6, 8 and 9 every exists and sketch launch must
+   take the vector instance;
 7. TPC-H Q1 and Q6 and SSB Q1.1-1.3 at SF1 through ``Session.sql`` on
    the fused leaf route (Q1 on the Q1 kernel once per ``lineitem`` split,
    the others on the leaf-aggregation kernel's staged instance once per
@@ -51,8 +59,9 @@ one CUDA card, and exits nonzero on any failure. Phases:
    ``p_name like 'forest%'`` and to Python's ``str.startswith``; then the
    LIKE kernel is timed as in phase 5 at the first Q9 ``part`` split and
    over SF1 ``o_comment``, and the prefix kernel at the first ``part``
-   split of the pipeline, and the lane-sums kernel at the first
-   ``q_like_phone`` ``lineorder`` split;
+   split of the pipeline, the lane-sums kernel at the first
+   ``q_like_phone`` ``lineorder`` split and the exists kernel at Q9's
+   first ``lineitem`` probe batch;
 9. semi and anti joins at SF1 through ``Session.sql``: TPC-H Q4 exact
    (the dense membership probe) and with ``approx_join`` (the sketch
    kernel once per ``orders`` split, equal to a numpy Bloom oracle and
@@ -65,9 +74,11 @@ one CUDA card, and exits nonzero on any failure. Phases:
    busy time of a third and the launches per kernel; then the resident
    Q3 join step (``workloads.q3_probe_step``, the Q3 kernel) over SF1
    ``lineitem`` and over SF1 x10, equal to the benchmark's oracle and to
-   its plain version; then the sketch kernel and the lane-sums kernel
-   are timed as in phase 5 at Q4's first ``orders`` split and the Q3
-   kernel at SF1 and SF1 x10.
+   its plain version; then the sketch kernel is timed as in phase 5 at
+   the first probe batch of Q4 and of ``semi`` under ``approx_join``,
+   the exists kernel at ``semi_anti_part``'s first anti-join batch (each
+   with its whole probe batch, one kernel), the lane-sums kernel at
+   Q4's first ``orders`` split and the Q3 kernel at SF1 and SF1 x10.
 
 The card's name and power limit come first and again before the last
 lines, which are one JSON line ``{"kernels": [...]}`` and
@@ -76,6 +87,7 @@ lines, which are one JSON line ``{"kernels": [...]}`` and
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -91,6 +103,7 @@ import torch
 from presto_tpu_torch.batch import Batch, Column
 from presto_tpu_torch.connectors.tpch import TpchConnector
 from presto_tpu_torch.connectors.tpch.queries import QUERIES
+from presto_tpu_torch.exec.joins import LookupJoinOperator
 from presto_tpu_torch.expr import evaluate, evaluate_predicate
 from presto_tpu_torch.ops import _build, cuda_agg, cuda_groupby, cuda_join, cuda_q1, cuda_strings
 from presto_tpu_torch.ops.groupby import group_ids_direct, lane_sum_inputs
@@ -305,12 +318,13 @@ def _t(a: np.ndarray) -> torch.Tensor:
 
 def probe_keys(rng, dtype, kmin: int, kmax: int, n: int, spread: int = 2000) -> np.ndarray:
     """Probe keys around the domain and across its ends, with the ends,
-    their out-of-domain neighbours and the dtype's extremes planted."""
+    their out-of-domain neighbours and the dtype's extremes planted (as
+    many as fit)."""
     info = np.iinfo(dtype)
     k = rng.integers(max(info.min, kmin - spread), min(info.max, kmax + spread), n,
                      endpoint=True)
     edges = [e for e in (kmin, kmax, kmin - 1, kmax + 1, info.min, info.max)
-             if info.min <= e <= info.max]
+             if info.min <= e <= info.max][:n]
     k[: len(edges)] = edges
     return k.astype(dtype)
 
@@ -409,6 +423,74 @@ def check_sketch_kernel(rng) -> int:
             check(not bool(got[~plive].any()), f"sketch_probe {dt} cap {cap}: a dead row hit")
         log(f"  sketch_probe {dt} full-range keys, caps 1000, 2^16, 2^20, 1000003: "
             "equal to plain")
+    return err
+
+
+#: phase 2's capacities for the exists and sketch kernels' keep modes:
+#: tails of 1, 3, 15 and 1 rows past whole 16-byte groups, and the main
+#: path's sizes
+PROBE_CAPS = (1, 3, 15, 17, 1 << 16, 1 << 20, 1_000_003)
+
+
+def check_probe_keep_kernels(rng) -> dict:
+    """The exists kernel's keep and anti modes and the sketch kernel's
+    keep mode (the operators' ``exists_keep`` / ``sketch_keep``) against
+    their plain versions, exactly: int8, int16 and int32 keys around and
+    past the domain (the sketch built from the same domain, so keys hit
+    and miss), every capacity of ``PROBE_CAPS``, each with the keys, live
+    and validity aligned (the vector instance, ragged tails included),
+    as views one element into their buffers (the scalar instance), and
+    with every row dead; no validity and NULL keys planted. Every output
+    byte must be 0 or 1, each launch must take the instance its inputs
+    call for, and each instance of each kernel must run. Returns the
+    largest difference per kernel."""
+    err = {"exists": 0, "sketch": 0}
+    cuda_join.reset_launches()
+    for dt, kmin, kmax in (("int8", -100, 100), ("int16", -3000, 20000), ("int32", 1, 150000)):
+        bk = rng.integers(kmin, kmax, 5000, endpoint=True).astype(dt)
+        bk[:2] = [kmin, kmax]
+        blive = _t(live_mask(rng, bk.shape[0]))
+        table, oob = cuda_join.build_exists_table(_t(bk), blive, kmin, kmax)
+        check(not bool(oob), "exists table: in-domain build flagged oob")
+        sketch = cuda_join.build_sketch_table(_t(bk), blive)
+        for cap in PROBE_CAPS:
+            keys = _t(probe_keys(rng, dt, kmin, kmax, cap))
+            live, valid = _t(live_mask(rng, cap)), _t(rng.random(cap) < 0.9)
+            dead = torch.zeros_like(live)
+            variants = [("aligned", keys, live, valid, "vector"),
+                        ("views", unaligned(keys), unaligned(live), unaligned(valid), "scalar"),
+                        ("all dead", keys, dead, valid, "vector")]
+            for what, k, lv, vd, inst in variants:
+                for v in (None, vd):
+                    calls = [("exists", anti, lambda anti=anti: cuda_join.exists_keep(
+                                  table, kmin, kmax, k, lv, v, anti),
+                              lambda anti=anti: cuda_join.exists_keep_plain(
+                                  table, kmin, kmax, k, lv, v, anti)) for anti in (False, True)]
+                    calls.append(("sketch", False,
+                                  lambda: cuda_join.sketch_keep(sketch, cuda_join.SKETCH_BITS,
+                                                                k, lv, v),
+                                  lambda: cuda_join.sketch_keep_plain(
+                                      sketch, cuda_join.SKETCH_BITS, k, lv, v)))
+                    for kernel, anti, fn, plain in calls:
+                        name = (f"{kernel}_keep {dt} cap {cap} {what} "
+                                f"{'anti' if anti else 'keep'} valid={v is not None}")
+                        before = dict(cuda_join.launches_by_instance[kernel])
+                        got = fn()
+                        want = plain()
+                        torch.cuda.synchronize()
+                        ran = [i for i, c in cuda_join.launches_by_instance[kernel].items()
+                               if c != before[i]]
+                        check(ran == [inst], f"{name}: instance {ran}, expected {inst}")
+                        err[kernel] = max(err[kernel], _mask_err(got, want, name))
+                        check(int(got.view(torch.uint8).max()) <= 1,
+                              f"{name}: a bool byte past 1")
+                        check(not bool(got[~lv].any()), f"{name}: a dead row is live")
+        log(f"  exists_keep (keep, anti) and sketch_keep {dt}, caps {PROBE_CAPS}, aligned, "
+            "views and all dead, no validity and NULL keys: equal to plain, bytes 0 or 1")
+    idle = [f"{k} {i}" for k, by in cuda_join.launches_by_instance.items()
+            for i, c in by.items() if c == 0]
+    check(not idle, f"probe instances never held to plain: {idle}")
+    log(f"  probe launches by instance in phase 2: {cuda_join.launches_by_instance}")
     return err
 
 
@@ -753,9 +835,10 @@ def device_ms(fn, runs: int, flush: torch.Tensor | None = None,
     ``kernel``, or of every kernel ``fn`` launches when ``kernel`` is
     None. ``flush`` (a buffer larger than L2) is rewritten before each
     call so each call starts with a cold cache; its kernels are left out
-    of the sum. A trace can come back without some device events, so a
-    ``kernel`` time is the mean of the events recorded times the events
-    one call launches, not the sum over ``runs``."""
+    of the sum. A trace can come back without some device events, so the
+    time is the mean of the events recorded times the events one call
+    launches (the larger count of two traces of one call), not the sum
+    over ``runs``."""
     from torch.profiler import ProfilerActivity, profile
 
     warnings.filterwarnings("ignore", message=".*Profiler clears events.*")
@@ -779,8 +862,6 @@ def device_ms(fn, runs: int, flush: torch.Tensor | None = None,
         if total_us > 0:
             break
     check(total_us > 0, f"the profiler recorded no device time for {kernel or 'fn'}")
-    if kernel is None:
-        return total_us / runs / 1e3
     per_call = max(trace(1)[1], trace(1)[1], 1)
     return total_us / count * per_call / 1e3
 
@@ -790,6 +871,135 @@ def bound(nbytes, ops):
     integer operations at the non-tensor rate, whichever is larger."""
     b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT_OPS_PER_S * 1e3
     return max(b_ms, o_ms), ("bytes" if b_ms >= o_ms else "operations")
+
+
+def device_kernels(fn, calls: int = 20) -> dict:
+    """{name: count} of the device kernels (and copies) that ``calls``
+    warmed-up calls of ``fn`` run, from the profiler's CUDA trace. A
+    trace can come back without some device events, so a count can read
+    short, never long."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _attempt in range(3):  # a trace can come back without device events: profile again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = {e.key: e.count for e in prof.key_averages() if e.self_device_time_total > 0}
+        if names:
+            return names
+    return {}
+
+
+@contextlib.contextmanager
+def first_probe(mode: str, anti: bool | None = None):
+    """While in the block, keep the first ``LookupJoinOperator._pallas_probe``
+    call on the ``mode`` route (``exists`` or ``sketch``; with ``anti``,
+    of an anti join or of another kind) as ``seen["op"] = (operator,
+    batch)``, and the arguments of the ``cuda_join.<mode>_keep`` call it
+    made as ``seen["args"]``. Yields ``seen``."""
+    seen = {}
+    active = [False]
+    original_probe = LookupJoinOperator._pallas_probe
+    name = f"{mode}_keep"
+    original_keep = getattr(cuda_join, name)
+
+    def probe(op, batch):
+        take = (not seen and op.build.pallas.mode == mode
+                and (anti is None or (op.join_type == "anti") == anti))
+        if take:
+            seen["op"] = (op, batch)
+            active[0] = True
+        try:
+            return original_probe(op, batch)
+        finally:
+            active[0] = False
+
+    def keep(*args):
+        if active[0]:
+            seen["args"] = args
+        return original_keep(*args)
+
+    LookupJoinOperator._pallas_probe = probe
+    setattr(cuda_join, name, keep)
+    try:
+        yield seen
+    finally:
+        LookupJoinOperator._pallas_probe = original_probe
+        setattr(cuda_join, name, original_keep)
+
+
+def check_vector_probes(name: str, n: dict) -> None:
+    """Every exists and sketch launch of a main-path run on the vector
+    instance (``n``: the run's ``_launch_counts()``)."""
+    for kernel, by in n["probe_by_instance"].items():
+        check(by["scalar"] == 0, f"{name}: {by['scalar']} {kernel} launches on the scalar "
+              f"instance, {by['vector']} on the vector one")
+
+
+def time_probe(mode: str, seen: dict, launches: int, flush) -> dict:
+    """Phase 5 numbers of the exists or sketch kernel at the inputs a
+    main-path query gave it (``seen``: from :func:`first_probe`), its
+    keep or anti mode as the operator launched it: kernel, wrapper call
+    and plain ms; the bound counts each key, live byte (and validity
+    byte, when the operator passed one) and bool out once and the table
+    once, and 8 integer operations a row (exists) or 24 (sketch: two
+    finalizers, the seed, two masks and two bit tests). Then the device
+    ms of every kernel of one whole ``_pallas_probe`` call on the same
+    batch, whose trace must hold exactly one kernel, this one."""
+    args = seen["args"]
+    if mode == "exists":
+        keep, plain = cuda_join.exists_keep, cuda_join.exists_keep_plain
+        keys, live, valid, anti = args[3], args[4], args[5], args[6]
+    else:
+        keep, plain = cuda_join.sketch_keep, cuda_join.sketch_keep_plain
+        keys, live, valid, anti = args[2], args[3], args[4], False
+    fn = lambda: keep(*args)  # noqa: E731
+    got = fn()
+    err = _mask_err(got, plain(*args), f"{mode}_keep at phase 5")
+    check(int(got.view(torch.uint8).max()) <= 1, f"{mode}_keep wrote a bool byte past 1")
+    op, batch = seen["op"]
+    whole = lambda: op._pallas_probe(batch)  # noqa: E731
+    # one kernel a batch: every device event of 20 batches is this
+    # kernel's, at most 20 of them (the trace may drop some, never add),
+    # and the wrapper counted 20 launches (21 with the warm-up)
+    before = getattr(cuda_join, f"{mode}_launches")
+    kernels = device_kernels(whole, 20)
+    launched = getattr(cuda_join, f"{mode}_launches") - before
+    check(len(kernels) == 1 and f"{mode}_kernel" in next(iter(kernels))
+          and next(iter(kernels.values())) <= 20 and launched == 21,
+          f"20 {mode} probe batches ran the device kernels {kernels} and {launched} launches")
+    n = keys.numel()
+    table = args[0]
+    nbytes = n * (keys.element_size() + 2 + (valid is not None)) + table.numel() * 4
+    return {"ms": device_ms(fn, 50, flush, kernel=f"{mode}_kernel"), "call_ms": call_ms(fn, 50),
+            "plain_ms": device_ms(lambda: plain(*args), 10, flush),
+            "probe_ms": device_ms(whole, 50, flush), "probe_kernels": len(kernels),
+            "probe_events": next(iter(kernels.values())),
+            "rows": n, "key": str(keys.dtype).replace("torch.", ""), "bytes": nbytes,
+            "ops": (8 if mode == "exists" else 24) * n, "err": err,
+            "table": table.numel(), "valid": valid is not None, "anti": bool(anti),
+            "instance": cuda_join.instance(keys, live, valid), "launches": launches}
+
+
+def probe_shape(t: dict) -> dict:
+    """``time_probe``'s numbers with the bound: one shape's entry in the
+    kernels' JSON line."""
+    b, by = bound(t["bytes"], t["ops"])
+    return {**t, "bound_ms": b, "bound_by": by}
+
+
+def log_probe(kernel: str, label: str, shapes: dict) -> None:
+    t = shapes[label]
+    log(f"phase 5, {kernel} kernel at {label} ({t['rows']} rows, {t['key']} keys, validity "
+        f"{'passed' if t['valid'] else 'none'}, {'anti' if t['anti'] else 'keep'} mode, "
+        f"{t['instance']} instance; kernel device ms, call = wrapper by events, plain = device "
+        f"ms of its kernels; no single PyTorch call computes it): {t['ms']:.4f} (call "
+        f"{t['call_ms']:.4f}, plain {t['plain_ms']:.4f}, bound {t['bound_ms']:.4f} by "
+        f"{t['bound_by']}); one whole _pallas_probe call {t['probe_ms']:.4f} device ms in "
+        f"{t['probe_kernels']} kernel; {t['launches']} launches in its query")
 
 
 def time_lane(args, flush) -> dict:
@@ -901,30 +1111,36 @@ def run_join_queries(flush: torch.Tensor, sf: float = 1, device: str = "cuda") -
     want = {"q3": q3_expected(conn), "q10": q10_expected(conn)}
     log(f"phase 6: numpy recomputation of Q3 and Q10 at SF1 in "
         f"{time.perf_counter() - t0:.1f} s")
-    kernel_of = {"q3": ("exists", "exists_probe"), "q10": ("payload", "payload_probe")}
+    kernel_of = {"q3": "exists", "q10": "payload"}
     probe_batches = len(conn.splits("lineitem"))
-    captured, launches = {}, {}
-    originals = {name: getattr(cuda_join, name) for _, name in kernel_of.values()}
+    captured, launches, counts = {}, {}, {}
+    original_payload = cuda_join.payload_probe
 
-    def capture(mode, name):
-        def wrapper(*args):
-            captured.setdefault(mode, args)  # the first call of the main path
-            return originals[name](*args)
-        return wrapper
+    def capture_payload(*args):
+        captured.setdefault("payload", args)  # the first call of the main path
+        return original_payload(*args)
 
-    for q, (mode, name) in kernel_of.items():
+    for q, mode in kernel_of.items():
         session = Session({"tpch": conn}, device=device)
-        setattr(cuda_join, name, capture(mode, name))
-        COUNTERS.clear()
-        cuda_join.exists_launches = cuda_join.payload_launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = session.sql(QUERIES[q])
-        torch.cuda.synchronize()
-        first = time.perf_counter() - t0
-        n_exists, n_payload = cuda_join.exists_launches, cuda_join.payload_launches
-        route = dict(COUNTERS)
-        setattr(cuda_join, name, originals[name])
+        cuda_join.payload_probe = capture_payload if mode == "payload" else original_payload
+        try:
+            with first_probe("exists") as seen:
+                COUNTERS.clear()
+                _reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = session.sql(QUERIES[q])
+                torch.cuda.synchronize()
+                first = time.perf_counter() - t0
+                n = _launch_counts()
+                route = dict(COUNTERS)
+        finally:
+            cuda_join.payload_probe = original_payload
+        if mode == "exists":
+            captured["exists"] = seen
+        n_exists, n_payload = n["exists"], n["payload"]
+        counts[q] = n
+        check_vector_probes(q, n)
         same_result(res, want[q], f"{q} at SF1")
         check(route.get("exec.pallas_join_route", 0) == 1,
               f"{q}: {route.get('exec.pallas_join_route', 0)} joins took the fused route, not 1")
@@ -955,33 +1171,23 @@ def run_join_queries(flush: torch.Tensor, sf: float = 1, device: str = "cuda") -
         log(f"  {q} breakdown (a third, profiled run): device busy {busy_ms:.1f} ms, "
             f"connector scans (host generation + copy to the card) {scan_s:.3f} s")
 
-    out = {}
-    for mode, args in captured.items():
-        if mode == "exists":
-            table, kmin, kmax, keys, live = args
-            fn = lambda: cuda_join.exists_probe(table, kmin, kmax, keys, live)  # noqa: E731
-            plain = lambda: cuda_join.exists_probe_plain(table, kmin, kmax, keys, live)  # noqa: E731
-            nbytes = keys.numel() * (keys.element_size() + 2) + table.numel() * 4
-            extra = {"table": table.numel()}
-        else:
-            tables, kmin, kmax, keys, live = args
-            fn = lambda: cuda_join.payload_probe(tables, kmin, kmax, keys, live)  # noqa: E731
-            plain = lambda: cuda_join.payload_probe_plain(tables, kmin, kmax, keys, live)  # noqa: E731
-            nval = len(tables) - 1
-            nbytes = (keys.numel() * (keys.element_size() + 2 + 4 * nval)
-                      + sum(t.numel() * 4 for t in tables))
-            extra = {"table": sum(t.numel() for t in tables), "nval": nval}
-        got, wanted = fn(), plain()
-        got = [got] if isinstance(got, torch.Tensor) else [got[0]] + got[1]
-        wanted = [wanted] if isinstance(wanted, torch.Tensor) else [wanted[0]] + wanted[1]
-        err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
-                  for g, w in zip(got, wanted))
-        check(err == 0, f"{mode} probe differs from plain at the main path's inputs")
-        kernel = "exists_kernel" if mode == "exists" else "payload_kernel"
-        out[mode] = {"ms": device_ms(fn, 50, flush, kernel=kernel), "call_ms": call_ms(fn, 50),
-                     "plain_ms": device_ms(plain, 10, flush), "rows": keys.numel(),
-                     "key": str(keys.dtype).replace("torch.", ""), "bytes": nbytes,
-                     "ops": 8 * keys.numel(), "launches": launches[mode], "err": err, **extra}
+    out = {"launches": counts,
+           "exists": time_probe("exists", captured["exists"], launches["exists"], flush)}
+    tables, kmin, kmax, keys, live = captured["payload"]
+    fn = lambda: cuda_join.payload_probe(tables, kmin, kmax, keys, live)  # noqa: E731
+    plain = lambda: cuda_join.payload_probe_plain(tables, kmin, kmax, keys, live)  # noqa: E731
+    nval = len(tables) - 1
+    nbytes = (keys.numel() * (keys.element_size() + 2 + 4 * nval)
+              + sum(t.numel() * 4 for t in tables))
+    got, wanted = fn(), plain()
+    err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+              for g, w in zip([got[0]] + got[1], [wanted[0]] + wanted[1]))
+    check(err == 0, "payload probe differs from plain at the main path's inputs")
+    out["payload"] = {"ms": device_ms(fn, 50, flush, kernel="payload_kernel"),
+                      "call_ms": call_ms(fn, 50), "plain_ms": device_ms(plain, 10, flush),
+                      "rows": keys.numel(), "key": str(keys.dtype).replace("torch.", ""),
+                      "bytes": nbytes, "ops": 8 * keys.numel(), "launches": launches["payload"],
+                      "err": err, "table": sum(t.numel() for t in tables), "nval": nval}
     return out
 
 
@@ -1458,8 +1664,7 @@ def _reset_launches() -> None:
     cuda_q1.launches = 0
     cuda_groupby.reset_launches()
     cuda_agg.reset_launches()
-    cuda_join.exists_launches = cuda_join.payload_launches = 0
-    cuda_join.sketch_launches = cuda_join.q3_launches = 0
+    cuda_join.reset_launches()
     cuda_strings.like_launches = cuda_strings.prefix_launches = 0
 
 
@@ -1472,7 +1677,26 @@ def _launch_counts() -> dict:
             "by_instance": {**{f"lane_sums {k}": v
                                for k, v in cuda_groupby.launches_by_instance.items() if v},
                             **{f"leaf_agg {k}": v
-                               for k, v in cuda_agg.launches_by_instance.items() if v}}}
+                               for k, v in cuda_agg.launches_by_instance.items() if v}},
+            "probe_by_instance": {k: dict(v) for k, v in cuda_join.launches_by_instance.items()},
+            "probe_by_shape": {k: dict(v) for k, v in cuda_join.launches_by_shape.items()}}
+
+
+def probe_launch_totals(*runs) -> dict:
+    """The exists and sketch kernels' launches over main-path runs (each
+    ``runs`` item maps a run's name to its ``_launch_counts()``): per
+    kernel, in all, by row count and by instance."""
+    out = {k: {"launches": 0, "by_shape": {}, "by_instance": dict.fromkeys(cuda_join.INSTANCES, 0)}
+           for k in ("exists", "sketch")}
+    for named in runs:
+        for n in named.values():
+            for k, t in out.items():
+                t["launches"] += n[k]
+                for rows, c in n["probe_by_shape"][k].items():
+                    t["by_shape"][rows] = t["by_shape"].get(rows, 0) + c
+                for inst, c in n["probe_by_instance"][k].items():
+                    t["by_instance"][inst] += c
+    return out
 
 
 # each query at SF1: (connector key, the table LIKE filters, the other
@@ -1522,20 +1746,24 @@ def run_string_queries(connectors: dict, sf: float = 1, device: str = "cuda") ->
         if name == "ssb q_like_phone":
             cuda_groupby.fused_lane_sums = capture_lane
         try:
-            COUNTERS.clear()
-            _reset_launches()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = session.sql(sqls[name])
-            torch.cuda.synchronize()
-            first = time.perf_counter() - t0
-            n = _launch_counts()
-            route = dict(COUNTERS)
+            with first_probe("exists") as seen:  # Q9's part join, its first lineitem split
+                COUNTERS.clear()
+                _reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = session.sql(sqls[name])
+                torch.cuda.synchronize()
+                first = time.perf_counter() - t0
+                n = _launch_counts()
+                route = dict(COUNTERS)
         finally:
             cuda_strings.like_mask = original_like
             cuda_groupby.fused_lane_sums = original_lane
+        if name == "q9":
+            captured["exists"] = seen
         check(all(k.split()[1].startswith("staged") for k in n["by_instance"]),
               f"{name}: launches by instance {n['by_instance']}")
+        check_vector_probes(name, n)
         same_result(res, want[name], f"{name} at SF{sf:g}")
         splits = len(conn.splits(ftable))
         check(n["like"] == splits, f"{name}: {n['like']} LIKE launches for {splits} "
@@ -1761,12 +1989,11 @@ def run_semi_queries(sf: float = 1, device: str = "cuda") -> dict:
     check(want["semi approx"]["c"][0] >= want["semi"]["c"][0],
           "the Bloom oracle of semi counts fewer rows than the exact one")
     captured = {}
-    original = cuda_join.sketch_probe
     original_lane = cuda_groupby.fused_lane_sums
-
-    def capture(*args):
-        captured.setdefault("sketch", args)  # Q4's first orders split
-        return original(*args)
+    # the probe batches phase 5 times: the first of each run's (route,
+    # join kind)
+    probes = {"q4 approx": ("sketch", None), "semi approx": ("sketch", None),
+              "semi_anti_part": ("exists", True)}
 
     def capture_lane(*args):
         captured.setdefault("lane", args)  # Q4's first orders split
@@ -1778,24 +2005,27 @@ def run_semi_queries(sf: float = 1, device: str = "cuda") -> dict:
     out = {"walls": {}, "launches": {}, "sketch_launches": 0, "exists_launches": 0}
     for name, sql, approx, kernels, idle, c in runs:
         session = Session({"tpch": c}, properties={"approx_join": approx}, device=device)
-        cuda_join.sketch_probe = capture if name == "q4 approx" else original
         if name == "q4":
             cuda_groupby.fused_lane_sums = capture_lane
         try:
-            COUNTERS.clear()
-            _reset_launches()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = session.sql(sql)
-            torch.cuda.synchronize()
-            first = time.perf_counter() - t0
-            n = _launch_counts()
-            route = dict(COUNTERS)
+            with (first_probe(*probes[name]) if name in probes
+                  else contextlib.nullcontext({})) as seen:
+                COUNTERS.clear()
+                _reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = session.sql(sql)
+                torch.cuda.synchronize()
+                first = time.perf_counter() - t0
+                n = _launch_counts()
+                route = dict(COUNTERS)
         finally:
-            cuda_join.sketch_probe = original
             cuda_groupby.fused_lane_sums = original_lane
+        if name in probes:
+            captured[name] = seen
         check(all(k.split()[1].startswith("staged") for k in n["by_instance"]),
               f"{name}: launches by instance {n['by_instance']}")
+        check_vector_probes(name, n)
         same_result(res, want[name], f"{name} at SF{c.sf:g}")
         check(res.approximate == (name in ("q4 approx", "semi approx")),
               f"{name}: QueryResult.approximate is {res.approximate}")
@@ -1879,23 +2109,6 @@ def run_semi_queries(sf: float = 1, device: str = "cuda") -> dict:
     return out
 
 
-def time_sketch(args, flush) -> dict:
-    """Phase 5 numbers of the sketch kernel at the inputs it was given:
-    its bound counts each key, live byte and bool once and the 64 KB
-    table once, and 24 integer operations a row (two finalizers, the
-    seed, two masks and two bit tests)."""
-    table, nbits, keys, live = args
-    fn = lambda: cuda_join.sketch_probe(table, nbits, keys, live)  # noqa: E731
-    plain = lambda: cuda_join.sketch_probe_plain(table, nbits, keys, live)  # noqa: E731
-    err = _mask_err(fn(), plain(), "sketch_probe at phase 5")
-    n = keys.numel()
-    return {"ms": device_ms(fn, 50, flush, kernel="sketch_kernel"), "call_ms": call_ms(fn, 50),
-            "plain_ms": device_ms(plain, 10, flush), "rows": n,
-            "key": str(keys.dtype).replace("torch.", ""),
-            "bytes": n * (keys.element_size() + 2) + table.numel() * 4, "ops": 24 * n,
-            "err": err}
-
-
 def time_q3(q3: dict, factor: int, flush) -> dict:
     """Phase 5 numbers of the Q3 kernel over the SF1 x ``factor`` batch:
     its bound counts each row's 4 columns and live byte once, the bitmask
@@ -1968,6 +2181,7 @@ def main() -> int:
     exists_err = check_exists_kernel(rng)
     payload_err = check_payload_kernel(rng)
     sketch_err = check_sketch_kernel(rng)
+    keep_err = check_probe_keep_kernels(rng)
     q3_kernel_err = check_q3_kernel(rng)
     leaf_err = check_leaf_agg_kernel(rng)
     from presto_tpu_torch.connectors.ssb import SsbConnector
@@ -2072,13 +2286,13 @@ def main() -> int:
     ex, pay = join["exists"], join["payload"]
     exists_bound, exists_by = bound(ex["bytes"], ex["ops"])
     payload_bound, payload_by = bound(pay["bytes"], pay["ops"])
-    log(f"phase 5, join probes at phase 6's inputs (kernel device ms; call = wrapper, "
-        f"events; plain = device ms of its kernels): exists_probe {ex['ms']:.4f} (call "
-        f"{ex['call_ms']:.4f}, plain {ex['plain_ms']:.4f}, bound {exists_bound:.4f}) at "
-        f"{ex['rows']} rows, {ex['key']} keys, {ex['table']} words; payload_probe "
-        f"{pay['ms']:.4f} (call {pay['call_ms']:.4f}, plain {pay['plain_ms']:.4f}, bound "
-        f"{payload_bound:.4f}) at {pay['rows']} rows, {pay['key']} keys, {pay['nval']} "
-        f"value(s) over {pay['table']} slots; no single PyTorch call computes either")
+    probe_shapes = {"exists": {"q3 first lineitem split": probe_shape(ex)}, "sketch": {}}
+    log_probe("exists", "q3 first lineitem split", probe_shapes["exists"])
+    log(f"phase 5, payload_probe at phase 6's inputs (kernel device ms; call = wrapper, "
+        f"events; plain = device ms of its kernels): {pay['ms']:.4f} (call "
+        f"{pay['call_ms']:.4f}, plain {pay['plain_ms']:.4f}, bound {payload_bound:.4f}) at "
+        f"{pay['rows']} rows, {pay['key']} keys, {pay['nval']} value(s) over {pay['table']} "
+        f"slots; no single PyTorch call computes it")
 
     leaf = run_leaf_queries(flush)
     sp, res_ = leaf["split"], leaf["resident"]
@@ -2112,6 +2326,9 @@ def main() -> int:
         f"{ln_phone['plain_ms']:.4f}, index_add_ {ln_phone['library_ms']:.4f}, bound "
         f"{phone_bound:.4f}) at {ln_phone['rows']} rows, (values, masks, groups) "
         f"{ln_phone['shape']}, {ln_phone['instance']} instance")
+    probe_shapes["exists"]["q9 first lineitem split"] = probe_shape(time_probe(
+        "exists", strings["captured"]["exists"], strings["launches"]["q9"]["exists"], flush))
+    log_probe("exists", "q9 first lineitem split", probe_shapes["exists"])
     like_data, like_pattern = strings["captured"]["like"]
     lk = time_like(like_data, like_pattern, flush)
     lk_big = time_like(sf1_strings["TPC-H o_comment"], "%special%requests%", flush)
@@ -2140,16 +2357,23 @@ def main() -> int:
         f"(call {ln_q4['call_ms']:.4f}, plain {ln_q4['plain_ms']:.4f}, index_add_ "
         f"{ln_q4['library_ms']:.4f}, bound {q4_bound:.4f}) at {ln_q4['rows']} rows, (values, "
         f"masks, groups) {ln_q4['shape']}, {ln_q4['instance']} instance")
-    sk = time_sketch(semi["captured"]["sketch"], flush)
+    for kernel, run, label in (("exists", "semi_anti_part", "semi_anti_part anti join first "
+                                "part split"),
+                               ("sketch", "q4 approx", "q4 approx first orders split"),
+                               ("sketch", "semi approx", "semi approx first lineitem split")):
+        probe_shapes[kernel][label] = probe_shape(time_probe(
+            kernel, semi["captured"][run], semi["launches"][run][kernel], flush))
+        log_probe(kernel, label, probe_shapes[kernel])
+    sk = probe_shapes["sketch"]["q4 approx first orders split"]
+    sketch_bound, sketch_by = sk["bound_ms"], sk["bound_by"]
+    totals = probe_launch_totals(join["launches"], strings["launches"], semi["launches"])
+    log(f"  exists and sketch launches on the main path (phases 6, 8, 9): {totals}")
     q3_one = time_q3(semi["q3"], 1, flush)
     q3_ten = time_q3(semi["q3"], FACTOR, flush)
-    sketch_bound, sketch_by = bound(sk["bytes"], sk["ops"])
     q3_bound, q3_by = bound(q3_one["bytes"], q3_one["ops"])
     q3_ten_bound, _ = bound(q3_ten["bytes"], q3_ten["ops"])
-    log(f"phase 5, phase 9's kernels (kernel device ms; call = wrapper, events; plain = device "
-        f"ms of all its kernels; no single PyTorch call computes either): sketch_probe at Q4's "
-        f"first orders split ({sk['rows']} rows, {sk['key']} keys) {sk['ms']:.4f} (call "
-        f"{sk['call_ms']:.4f}, plain {sk['plain_ms']:.4f}, bound {sketch_bound:.4f}); "
+    log(f"phase 5, the Q3 kernel (kernel device ms; call = wrapper, events; plain = device "
+        f"ms of all its kernels; no single PyTorch call computes it): "
         f"q3_probe_step over SF1 lineitem ({q3_one['rows']} rows, {q3_one['row_bytes']:.2f} "
         f"B/row) {q3_one['ms']:.4f} (call {q3_one['call_ms']:.4f}, plain "
         f"{q3_one['plain_ms']:.4f}, bound {q3_bound:.4f}); over SF1 x{FACTOR} "
@@ -2191,19 +2415,30 @@ def main() -> int:
         {"name": "exists_probe", "route": "cuda", "source": "presto_tpu_torch/csrc/join_probe.cu",
          "replaces": "presto_tpu/ops/pallas_join.py:281",
          "jax_function": "presto_tpu/ops/pallas_join.py:329 exists_probe",
-         "launches": ex["launches"], "max_abs_err": max(exists_err, ex["err"]), "ms": ex["ms"],
-         "kernel_ms": ex["ms"], "call_ms": ex["call_ms"], "plain_ms": ex["plain_ms"],
-         "bound_ms": exists_bound, "bound_by": exists_by, "library_ms": None,
-         "rows": ex["rows"], "bytes": ex["bytes"], "ops": ex["ops"],
-         "semi_anti_part_launches": semi["exists_launches"]},
+         "launches": totals["exists"]["launches"],
+         "launches_by_shape": totals["exists"]["by_shape"],
+         "launches_by_instance": totals["exists"]["by_instance"],
+         "max_abs_err": max([exists_err, keep_err["exists"]]
+                            + [t["err"] for t in probe_shapes["exists"].values()]),
+         "ms": ex["ms"], "kernel_ms": ex["ms"], "call_ms": ex["call_ms"],
+         "plain_ms": ex["plain_ms"], "bound_ms": exists_bound, "bound_by": exists_by,
+         "library_ms": None, "rows": ex["rows"], "bytes": ex["bytes"], "ops": ex["ops"],
+         "probe_ms": ex["probe_ms"], "instance": ex["instance"],
+         "semi_anti_part_launches": semi["exists_launches"], "shapes": probe_shapes["exists"]},
         {"name": "sketch_probe", "route": "cuda",
          "source": "presto_tpu_torch/csrc/join_probe.cu",
          "replaces": "presto_tpu/ops/pallas_join.py:294",
          "jax_function": "presto_tpu/ops/pallas_join.py:350 sketch_probe",
-         "launches": semi["sketch_launches"], "max_abs_err": max(sketch_err, sk["err"]),
+         "launches": totals["sketch"]["launches"],
+         "launches_by_shape": totals["sketch"]["by_shape"],
+         "launches_by_instance": totals["sketch"]["by_instance"],
+         "max_abs_err": max([sketch_err, keep_err["sketch"]]
+                            + [t["err"] for t in probe_shapes["sketch"].values()]),
          "ms": sk["ms"], "kernel_ms": sk["ms"], "call_ms": sk["call_ms"],
          "plain_ms": sk["plain_ms"], "bound_ms": sketch_bound, "bound_by": sketch_by,
-         "library_ms": None, "rows": sk["rows"], "bytes": sk["bytes"], "ops": sk["ops"]},
+         "library_ms": None, "rows": sk["rows"], "bytes": sk["bytes"], "ops": sk["ops"],
+         "probe_ms": sk["probe_ms"], "instance": sk["instance"],
+         "shapes": probe_shapes["sketch"]},
         {"name": "q3_probe_step", "route": "cuda",
          "source": "presto_tpu_torch/csrc/join_probe.cu",
          "replaces": "presto_tpu/ops/pallas_join.py:443",

@@ -47,21 +47,51 @@ __device__ __forceinline__ void flush_slots(const unsigned long long* sm, int sl
   }
 }
 
+// SMs of the current device, asked once a device.
+inline int sm_count() {
+  static std::mutex mu;
+  static std::map<int, int> cache;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  std::lock_guard<std::mutex> lock(mu);
+  auto it = cache.find(dev);
+  if (it != cache.end()) return it->second;
+  int sms = 1;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cache[dev] = sms;
+  return sms;
+}
+
 // Blocks for a grid-stride loop over n rows: enough to give every thread
 // `rows` rows, at most as many as can be resident on the device at once.
+// The first launch of a (device, kernel, threads, smem) asks the device
+// and caches the answer, so later launches cost a map lookup and no CUDA
+// runtime query. (It sets no attribute, unlike resident_blocks: raising
+// the dynamic shared memory of a kernel that has static shared memory is
+// refused, and the error would surface at the next launch.)
 template <typename Kernel>
 inline int grid_blocks(Kernel kernel, int64_t n, int threads, int smem, int rows) {
+  static std::mutex mu;
+  static std::map<std::tuple<int, const void*, int, int>, int> cache;
   int dev = 0;
-  int sms = 1;
-  int per_sm = 1;
   cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
-  if (per_sm < 1) per_sm = 1;
+  const auto key = std::make_tuple(dev, reinterpret_cast<const void*>(kernel), threads, smem);
+  int most = 0;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    auto it = cache.find(key);
+    if (it != cache.end()) {
+      most = it->second;
+    } else {
+      int per_sm = 1;
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+      most = sm_count() * (per_sm < 1 ? 1 : per_sm);
+      cache[key] = most;
+    }
+  }
   const int64_t rows_per_block = static_cast<int64_t>(threads) * rows;
   const int64_t want = (n + rows_per_block - 1) / rows_per_block;
-  const int64_t cap = static_cast<int64_t>(sms) * per_sm;
-  return static_cast<int>(want < 1 ? 1 : (want < cap ? want : cap));
+  return static_cast<int>(want < 1 ? 1 : (want < most ? want : most));
 }
 
 // Resident blocks of `kernel` at `threads` threads and `smem` bytes of

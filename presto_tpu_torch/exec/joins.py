@@ -16,7 +16,8 @@ bitmask, the payload tables, or under ``approx_join`` the Bloom sketch).
 Semi and anti joins (``IN`` / ``EXISTS`` and their negations) keep a
 probe row when its key exists (semi) or does not (anti) on the build
 side: the membership probes ``ops/join.probe_exists[_dense]``, or the
-exists or sketch kernels. As in the JAX package, an anti join keeps a
+exists or sketch kernels, whose ``_keep`` wrappers return the new live
+mask from one launch per batch. As in the JAX package, an anti join keeps a
 probe row whose key is NULL, a NULL build key matches nothing, and the
 sketch (false positives) serves semi joins only, and only on a batch
 whose capacity the JAX package's kernel could block (``probe_block``).
@@ -224,14 +225,17 @@ class LookupJoinOperator(Operator):
     def _pallas_probe(self, batch: Batch) -> Batch:
         spec, tables = self.build.pallas, self.build.pallas_side
         v = evaluate(self.probe_key, batch)
-        plive = batch.live & valid_of(v.valid, batch.live)
         if spec.mode != "payload":
-            matched = (cuda_join.sketch_probe(tables[0], spec.nbits, v.data, plive)
-                       if spec.mode == "sketch" else
-                       cuda_join.exists_probe(tables[0], spec.key_min, spec.key_max,
-                                              v.data, plive))
-            keep = ~matched if self.join_type == "anti" else matched
-            return batch.with_live(batch.live & keep)
+            # the kernel folds the key's validity and the keep rule into
+            # its launch and returns the new live mask; a validity that
+            # IS the live mask adds nothing (live && live)
+            valid = None if v.valid is batch.live else v.valid
+            live = (cuda_join.sketch_keep(tables[0], spec.nbits, v.data, batch.live, valid)
+                    if spec.mode == "sketch" else
+                    cuda_join.exists_keep(tables[0], spec.key_min, spec.key_max, v.data,
+                                          batch.live, valid, self.join_type == "anti"))
+            return batch.with_live(live)
+        plive = batch.live & valid_of(v.valid, batch.live)
         matched, vals = cuda_join.payload_probe(tables, spec.key_min, spec.key_max,
                                                 v.data, plive)
         cols = dict(batch.columns)

@@ -39,16 +39,27 @@ key in its stored width, the live byte, a bool out, 4 bytes per payload
 value); the tables are at most 64 KB and stay cached. See the header of
 the CUDA source for the design.
 
+The semi/anti join operator takes its new live mask straight from the
+exists and sketch kernels: ``exists_keep`` and ``sketch_keep`` fold the
+probe key's validity and the join's keep rule (semi: ``live && valid &&
+hit``; anti: ``live && !(valid && hit)``) into the same launch, so a
+probe batch costs one device launch. ``exists_probe`` and
+``sketch_probe`` are the same kernels with no validity (the JAX
+package's functions).
+
 Each kernel's wrapper launches it on CUDA tensors and computes its plain
 version (``*_plain``) on CPU tensors; ``exists_launches``,
 ``payload_launches``, ``sketch_launches`` and ``q3_launches`` count
-launches.
+launches, and ``launches_by_instance`` and ``launches_by_shape`` which
+instance of the exists and sketch kernels ran (:func:`instance`) and at
+how many rows. ``reset_launches()`` zeroes them all.
 """
 
 from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
+from functools import lru_cache
 
 import torch
 
@@ -72,12 +83,29 @@ _LANES = 128
 _INT32_MIN, _INT32_MAX = -(1 << 31), (1 << 31) - 1
 _KEY_DTYPES = (torch.int8, torch.int16, torch.int32)
 
+#: the exists and sketch kernels' instances, in the launch entries'
+#: numbering (see :func:`instance`): a thread a 16-byte group of rows, or
+#: a row a thread
+INSTANCES = ("vector", "scalar")
+
 #: kernel launches since the last reset (plain counters, set to 0 by
-#: whoever reads them)
+#: whoever reads them: see :func:`reset_launches`); the exists and sketch
+#: kernels also by instance and by row count
 exists_launches = 0
 payload_launches = 0
 sketch_launches = 0
 q3_launches = 0
+launches_by_instance = {k: dict.fromkeys(INSTANCES, 0) for k in ("exists", "sketch")}
+launches_by_shape: dict[str, dict[int, int]] = {"exists": {}, "sketch": {}}
+
+
+def reset_launches() -> None:
+    """Set every launch counter of this module to 0."""
+    global exists_launches, payload_launches, sketch_launches, q3_launches
+    exists_launches = payload_launches = sketch_launches = q3_launches = 0
+    for kernel in launches_by_instance:
+        launches_by_instance[kernel] = dict.fromkeys(INSTANCES, 0)
+        launches_by_shape[kernel] = {}
 
 
 def _pad8(n: int) -> int:
@@ -223,29 +251,93 @@ def _in_domain(key_min: int, key_max: int, keys, live):
     return inr, torch.where(inr, k - key_min, torch.zeros_like(k))
 
 
-def exists_probe(table, key_min: int, key_max: int, keys, live) -> torch.Tensor:
-    """matched bool [cap]: live, in the domain, and its bit set."""
-    _check([table], key_min, key_max, keys, live, 32)
-    if keys.device.type == "cpu":
-        return exists_probe_plain(table, key_min, key_max, keys, live)
-    if keys.device.type != "cuda":
-        raise InternalError(f"exists_probe: no kernel for {keys.device}")
-    global exists_launches
-    out = torch.empty(keys.shape, dtype=torch.bool, device=keys.device)
-    k, lv, t = keys.contiguous(), live.contiguous(), table.contiguous()
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: each launch entry's ctypes signature
+_ARGTYPES = {
+    "exists_probe": [_P, _I, _P, _P, _LL, _P, _LL, _LL, _I, _I, _P, _P],
+    "sketch_probe": [_P, _I, _P, _P, _LL, _P, _LL, _I, _P, _P],
+    "payload_probe": [_P, _I, _P, _LL, _P, _P, _P, _I, _LL, _LL, _P, _P],
+    "q3_probe": [_P, _I] * 4 + [_P, _LL, _P, _LL, _LL, _LL, _P, _P],
+}
+
+
+@lru_cache(maxsize=None)
+def _launcher(name: str):
+    """The kernel library and launch entry ``<name>_launch``, its ctypes
+    signature set once a process."""
     lib = _build.load("join_probe")
-    fn = lib.exists_probe_launch
+    fn = getattr(lib, f"{name}_launch")
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.argtypes = _ARGTYPES[name]
+    return lib, fn
+
+
+def _check_valid(valid, keys):
+    if valid is not None and (valid.dtype != torch.bool or valid.shape != keys.shape
+                              or valid.device != keys.device):
+        raise InternalError("probe validity must be bool [cap] beside the keys")
+
+
+def group_rows(keys) -> int:
+    """Rows in one 16-byte group of ``keys``: 4 int32, 8 int16, 16 int8."""
+    return 16 // keys.element_size()
+
+
+def instance(keys, live, valid=None) -> str:
+    """Which of ``INSTANCES`` the exists or sketch kernel runs for these
+    tensors: ``vector`` when the keys start 16-byte aligned and ``live``
+    and ``valid`` (if any) at a multiple of the group's rows (the output
+    is always allocated aligned), else ``scalar``."""
+    r = group_rows(keys)
+    aligned = keys.data_ptr() % 16 == 0 and all(
+        t.data_ptr() % r == 0 for t in (live, valid) if t is not None)
+    return INSTANCES[0] if aligned else INSTANCES[1]
+
+
+def _launch_membership(kernel: str, keys, live, valid, table, args) -> torch.Tensor:
+    """Launch the exists or sketch kernel: ``args`` are the entry's
+    arguments between the table and the instance. Counts the launch."""
+    global exists_launches, sketch_launches
+    k, lv, t = keys.contiguous(), live.contiguous(), table.contiguous()
+    vd = None if valid is None else valid.contiguous()
+    out = torch.empty(k.shape, dtype=torch.bool, device=k.device)
+    which = instance(k, lv, vd)
+    lib, fn = _launcher(f"{kernel}_probe")
     with torch.cuda.device(k.device):
         stream = torch.cuda.current_stream(k.device).cuda_stream
-        code = fn(k.data_ptr(), k.element_size(), lv.data_ptr(), k.shape[0], t.data_ptr(),
-                  key_min, key_max, out.data_ptr(), stream)
+        code = fn(k.data_ptr(), k.element_size(), lv.data_ptr(),
+                  None if vd is None else vd.data_ptr(), k.shape[0], t.data_ptr(), *args,
+                  INSTANCES.index(which), out.data_ptr(), stream)
     _build.check_launch(lib, "join_probe", code)
-    exists_launches += 1
+    if kernel == "exists":
+        exists_launches += 1
+    else:
+        sketch_launches += 1
+    launches_by_instance[kernel][which] += 1
+    shape = launches_by_shape[kernel]
+    shape[k.shape[0]] = shape.get(k.shape[0], 0) + 1
     return out
+
+
+def exists_probe(table, key_min: int, key_max: int, keys, live) -> torch.Tensor:
+    """matched bool [cap]: live, in the domain, and its bit set."""
+    return exists_keep(table, key_min, key_max, keys, live, None, False)
+
+
+def exists_keep(table, key_min: int, key_max: int, keys, live, valid, anti: bool):
+    """A semi or anti join's new live mask, bool [cap], in one launch:
+    ``live && valid && hit`` (semi, and the payload-free inner join) or
+    ``live && !(valid && hit)`` (``anti``: a NULL probe key is kept), hit
+    being the key in the domain with its bit set. ``valid`` is the probe
+    key's validity, None when every key is valid."""
+    _check([table], key_min, key_max, keys, live, 32)
+    _check_valid(valid, keys)
+    if keys.device.type == "cpu":
+        return exists_keep_plain(table, key_min, key_max, keys, live, valid, anti)
+    if keys.device.type != "cuda":
+        raise InternalError(f"exists_probe: no kernel for {keys.device}")
+    return _launch_membership("exists", keys, live, valid, table,
+                              (key_min, key_max, int(anti)))
 
 
 def exists_probe_plain(table, key_min: int, key_max: int, keys, live) -> torch.Tensor:
@@ -254,6 +346,23 @@ def exists_probe_plain(table, key_min: int, key_max: int, keys, live) -> torch.T
     inr, slot = _in_domain(key_min, key_max, keys, live)
     words = table.to(torch.int64)[slot >> 5]
     return inr & (((words >> (slot & 31)) & 1) != 0)
+
+
+def _keep_plain(matched, live, anti: bool):
+    keep = ~matched if anti else matched
+    return live & keep
+
+
+def _probe_live(live, valid):
+    return live & (torch.ones_like(live) if valid is None else valid)
+
+
+def exists_keep_plain(table, key_min: int, key_max: int, keys, live, valid, anti: bool):
+    """The plain PyTorch version of ``exists_keep``: the operator's
+    composition around ``exists_probe_plain``."""
+    _check_valid(valid, keys)
+    matched = exists_probe_plain(table, key_min, key_max, keys, _probe_live(live, valid))
+    return _keep_plain(matched, live, anti)
 
 
 def payload_probe(tables, key_min: int, key_max: int, keys, live):
@@ -274,12 +383,7 @@ def payload_probe(tables, key_min: int, key_max: int, keys, live):
     present, vtabs = tables[0].contiguous(), [t.contiguous() for t in tables[1:]]
     matched = torch.empty(k.shape, dtype=torch.bool, device=k.device)
     outs = [torch.empty(k.shape, dtype=torch.int32, device=k.device) for _ in vtabs]
-    lib = _build.load("join_probe")
-    fn = lib.payload_probe_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
+    lib, fn = _launcher("payload_probe")
     tptr = (ctypes.c_void_p * MAX_VALUES)(*[t.data_ptr() for t in vtabs])
     optr = (ctypes.c_void_p * MAX_VALUES)(*[o.data_ptr() for o in outs])
     with torch.cuda.device(k.device):
@@ -318,32 +422,35 @@ def _check_sketch(table, nbits: int, keys, live):
 def sketch_probe(table, nbits: int, keys, live) -> torch.Tensor:
     """APPROXIMATE matched bool [cap]: live and both Bloom bits of the
     key set (false positives possible, never false negatives)."""
+    return sketch_keep(table, nbits, keys, live, None)
+
+
+def sketch_keep(table, nbits: int, keys, live, valid) -> torch.Tensor:
+    """The approximate semi join's new live mask, bool [cap], in one
+    launch: ``live && valid && both Bloom bits set``. ``valid`` is the
+    probe key's validity, None when every key is valid. (The sketch never
+    serves anti joins: a false positive there would drop a row.)"""
     _check_sketch(table, nbits, keys, live)
+    _check_valid(valid, keys)
     if keys.device.type == "cpu":
-        return sketch_probe_plain(table, nbits, keys, live)
+        return sketch_keep_plain(table, nbits, keys, live, valid)
     if keys.device.type != "cuda":
         raise InternalError(f"sketch_probe: no kernel for {keys.device}")
-    global sketch_launches
-    out = torch.empty(keys.shape, dtype=torch.bool, device=keys.device)
-    k, lv, t = keys.contiguous(), live.contiguous(), table.contiguous()
-    lib = _build.load("join_probe")
-    fn = lib.sketch_probe_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
-    with torch.cuda.device(k.device):
-        stream = torch.cuda.current_stream(k.device).cuda_stream
-        code = fn(k.data_ptr(), k.element_size(), lv.data_ptr(), k.shape[0], t.data_ptr(),
-                  nbits, out.data_ptr(), stream)
-    _build.check_launch(lib, "join_probe", code)
-    sketch_launches += 1
-    return out
+    return _launch_membership("sketch", keys, live, valid, table, (nbits,))
 
 
 def sketch_probe_plain(table, nbits: int, keys, live) -> torch.Tensor:
     """The plain PyTorch version of ``sketch_probe`` (same contract)."""
     _check_sketch(table, nbits, keys, live)
     return live & bloom_test(table, keys)
+
+
+def sketch_keep_plain(table, nbits: int, keys, live, valid) -> torch.Tensor:
+    """The plain PyTorch version of ``sketch_keep``: the operator's
+    composition around ``sketch_probe_plain``."""
+    _check_valid(valid, keys)
+    matched = sketch_probe_plain(table, nbits, keys, _probe_live(live, valid))
+    return _keep_plain(matched, live, False)
 
 
 # ---------------------------------------------------------------------------
@@ -400,12 +507,7 @@ def q3_probe_step(table, key_min: int, domain: int, cutoff: int, keys, shipdate,
     cols = [c.contiguous() for c in (keys, shipdate, extendedprice, discount)]
     lv, t = live.contiguous(), table.contiguous()
     out = torch.zeros(2, dtype=torch.int64, device=live.device)
-    lib = _build.load("join_probe")
-    fn = lib.q3_probe_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] * 4
-                   + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
-                      ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p])
+    lib, fn = _launcher("q3_probe")
     args = []
     for c in cols:
         args += [c.data_ptr(), c.element_size()]

@@ -1,31 +1,55 @@
-"""Time the leaf-aggregation and lane-sums kernels against an earlier
-commit's, on one card, in turns.
+"""Time kernels against an earlier commit's, on one card, in turns.
 
 Run from the root of a checkout, with an earlier commit's kernel sources
 unpacked under ``local/`` (which ``.gitignore`` lists)::
 
-    mkdir -p local/prev
-    git archive e170780 presto_tpu_torch/csrc | tar -x -C local/prev
-    python3 -m presto_tpu_torch.tools.compare_previous local/prev/presto_tpu_torch/csrc
+    mkdir -p local/prev6 local/prev7
+    git archive e170780 presto_tpu_torch/csrc | tar -x -C local/prev6
+    git archive 17cb3ec presto_tpu_torch/csrc | tar -x -C local/prev7
+    python3 -m presto_tpu_torch.tools.compare_previous \
+        --leaf-lane local/prev6/presto_tpu_torch/csrc \
+        --probes local/prev7/presto_tpu_torch/csrc
 
-The earlier sources must come from a commit whose ``leaf_agg_launch``
-and ``lane_sums_launch`` take no instance argument (e170780 and before,
-the kernels before their Hopper redesign). They are built with this
-checkout's nvcc flags into ``build/`` beside them. The inputs are the
-main path's, taken from the first call of each kernel in SF1 queries
-through ``Session.sql``: the first Q6 and SSB Q1.1 splits and a resident
-SF1 x10 ``lineitem`` for the leaf kernel; the first Q1 pipeline,
-``q_like_phone`` and Q4 ``orders`` splits for the lane-sums kernel. Each
-split is taken once more with its columns copied into views one element
-into their buffers, which this checkout reads with its direct instance.
+Either option may be given alone. The earlier sources are built with
+this checkout's nvcc flags into ``build/`` beside them.
+
+``--leaf-lane``: the leaf-aggregation and lane-sums kernels before their
+Hopper redesign. The sources must come from a commit whose
+``leaf_agg_launch`` and ``lane_sums_launch`` take no instance argument
+(e170780 and before). The inputs are the main path's, taken from the
+first call of each kernel in SF1 queries through ``Session.sql``: the
+first Q6 and SSB Q1.1 splits and a resident SF1 x10 ``lineitem`` for the
+leaf kernel; the first Q1 pipeline, ``q_like_phone`` and Q4 ``orders``
+splits for the lane-sums kernel. Each split is taken once more with its
+columns copied into views one element into their buffers, which this
+checkout reads with its direct instance.
+
+``--probes``: the exists and sketch kernels before their redesign. The
+sources must come from a commit whose ``exists_probe_launch`` and
+``sketch_probe_launch`` take (keys, key size, live, n, table, ..., out,
+stream) and no validity, mode or instance (17cb3ec and before). The
+inputs are ``chip_smoke``'s phase-5 probe batches: the first probe split
+of Q3 and of Q9 (exists), of ``semi_anti_part``'s anti join (exists),
+of Q4 and ``semi`` under ``approx_join`` (sketch), each at SF1 through
+``Session.sql``. The earlier kernel gets the probe live mask the
+operator of that commit composed (``live & valid``); this checkout's
+gets live and validity and returns the new live mask. Each shape is
+timed twice: the kernel alone, and every kernel of one whole probe
+batch (the earlier commit's composition: the validity fill and ``&``,
+the kernel, ``~`` for an anti join, ``&``; this checkout's
+``LookupJoinOperator._pallas_probe``). The kernels alone are timed
+twice more, from an L2 flushed by reads instead of writes (no dirty
+lines to write back) and from a warm L2.
+
 For each input both versions must return the same result, and the
-kernel's device ms is printed in turns: previous, current, current,
-previous (the profiler's trace, cold L2, as ``chip_smoke.device_ms``).
-The last line is one JSON object of those times. Needs one CUDA card.
+device ms are printed in turns: previous, current, current, previous
+(the profiler's trace, cold L2, as ``chip_smoke.device_ms``). The last
+line is one JSON object of those times. Needs one CUDA card.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import subprocess
@@ -41,31 +65,45 @@ from presto_tpu_torch.connectors.ssb.queries import QUERIES as SSB
 from presto_tpu_torch.connectors.tpch import TpchConnector
 from presto_tpu_torch.connectors.tpch.queries import QUERIES
 from presto_tpu_torch.exec import leaf_route
-from presto_tpu_torch.ops import _build, cuda_agg, cuda_groupby
+from presto_tpu_torch.exec.operators import valid_of
+from presto_tpu_torch.expr import evaluate
+from presto_tpu_torch.ops import _build, cuda_agg, cuda_groupby, cuda_join
 from presto_tpu_torch.runtime.session import Session
 from presto_tpu_torch.workloads import q1_pipeline
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
-def load_previous(csrc: Path) -> dict:
-    """The earlier commit's launch entries, built from ``csrc`` (one
-    nvcc per source, in parallel)."""
+def load_previous(csrc: Path, names) -> dict:
+    """The earlier commit's launch entries ``<name>_launch`` of the
+    kernel sources ``names``, built from ``csrc`` (one nvcc per source,
+    in parallel)."""
     out = csrc.parent / "build"
     out.mkdir(parents=True, exist_ok=True)
     procs = {name: subprocess.Popen(
         [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(out / f"lib{name}.so"),
          str(csrc / f"{name}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for name in ("leaf_agg", "lane_sums")}
-    fns = {}
+        for name in names}
+    libs = {}
     for name, proc in procs.items():
         text, _ = proc.communicate()
         cs.check(proc.returncode == 0, f"previous {name} did not build:\n{text}")
         cs.log_ptxas(f"previous {name}", text)
-        fns[name] = getattr(ctypes.CDLL(str(out / f"lib{name}.so")), f"{name}_launch")
-        fns[name].restype = _I
-    fns["leaf_agg"].argtypes = [_P, _P, _I, _P, _P, _I, _I, _P, _LL, _P, _P]
-    fns["lane_sums"].argtypes = [_P, _P, _I, _P, _I, _P, _I, _LL, _P, _P]
+        libs[name] = ctypes.CDLL(str(out / f"lib{name}.so"))
+    fns = {}
+    if "leaf_agg" in libs:
+        fns["leaf_agg"] = libs["leaf_agg"].leaf_agg_launch
+        fns["leaf_agg"].argtypes = [_P, _P, _I, _P, _P, _I, _I, _P, _LL, _P, _P]
+    if "lane_sums" in libs:
+        fns["lane_sums"] = libs["lane_sums"].lane_sums_launch
+        fns["lane_sums"].argtypes = [_P, _P, _I, _P, _I, _P, _I, _LL, _P, _P]
+    if "join_probe" in libs:
+        fns["exists"] = libs["join_probe"].exists_probe_launch
+        fns["exists"].argtypes = [_P, _I, _P, _LL, _P, _LL, _LL, _P, _P]
+        fns["sketch"] = libs["join_probe"].sketch_probe_launch
+        fns["sketch"].argtypes = [_P, _I, _P, _LL, _P, _LL, _P, _P]
+    for fn in fns.values():
+        fn.restype = _I
     return fns
 
 
@@ -129,17 +167,106 @@ def lane_views(vals, bits, masks, gids, groups) -> tuple:
             cs.unaligned(gids), groups)
 
 
-def main() -> int:
-    if len(sys.argv) != 2 or not torch.cuda.is_available():
-        print(__doc__, file=sys.stderr)
-        return 2
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
-    cs.log(f"card (name, power limit): {smi}")
-    _build.build()
-    prev = load_previous(Path(sys.argv[1]))
+def previous_kernel(fns, mode: str, op, keys, plive) -> torch.Tensor:
+    """The earlier commit's exists or sketch kernel on the operator
+    ``op``'s table: matched bool [cap] = plive && hit."""
+    spec, table = op.build.pallas, op.build.pallas_side[0]
+    out = torch.empty(keys.shape, dtype=torch.bool, device=keys.device)
+    extra = (spec.key_min, spec.key_max) if mode == "exists" else (spec.nbits,)
+    code = fns[mode](keys.data_ptr(), keys.element_size(), plive.data_ptr(), keys.shape[0],
+                     table.data_ptr(), *extra, out.data_ptr(),
+                     torch.cuda.current_stream().cuda_stream)
+    cs.check(code == 0, f"previous {mode} launch failed ({code})")
+    return out
 
-    tconn = TpchConnector(sf=1, device="cuda")
+
+def previous_probe(fns, mode: str, op, batch) -> torch.Tensor:
+    """The earlier commit's ``_pallas_probe`` on the exists or sketch
+    route: the probe live mask, the kernel, then the keep rule. Returns
+    the new live mask."""
+    v = evaluate(op.probe_key, batch)
+    plive = batch.live & valid_of(v.valid, batch.live)
+    matched = previous_kernel(fns, mode, op, v.data, plive)
+    keep = ~matched if op.join_type == "anti" else matched
+    return batch.live & keep
+
+
+def probe_inputs(tconn) -> dict:
+    """chip_smoke's phase-5 probe batches: {name: (mode, first_probe's
+    capture)}, each from one run of its query at SF1."""
+    runs = {"Q3 first lineitem split": ("exists", None, QUERIES["q3"], False),
+            "Q9 first lineitem split": ("exists", None, QUERIES["q9"], False),
+            "semi_anti_part anti join first part split":
+                ("exists", True, cs.SEMI_SQL["semi_anti_part"], False),
+            "Q4 approx first orders split": ("sketch", None, QUERIES["q4"], True),
+            "semi approx first lineitem split": ("sketch", None, cs.SEMI_SQL["semi"], True)}
+    out = {}
+    for name, (mode, anti, sql, approx) in runs.items():
+        session = Session({"tpch": tconn}, properties={"approx_join": approx}, device="cuda")
+        with cs.first_probe(mode, anti) as seen:
+            session.sql(sql)
+        cs.check("args" in seen, f"{name}: no {mode} probe batch")
+        out[name] = (mode, seen)
+    return out
+
+
+class CleanFlush:
+    """A flush for ``chip_smoke.device_ms`` that evicts L2 by reading
+    ``buf`` (larger than L2), leaving clean lines behind."""
+
+    def __init__(self, buf: torch.Tensor):
+        self.buf = buf
+
+    def bitwise_not_(self):
+        self.buf.sum(dtype=torch.int64)
+
+
+def compare_probes(prev: dict, tconn, flush) -> dict:
+    """The exists and sketch kernels, earlier against current, at the
+    phase-5 probe batches: the kernel alone, then one whole probe
+    batch."""
+    out = {}
+    for name, (mode, seen) in probe_inputs(tconn).items():
+        op, batch = seen["op"]
+        v = evaluate(op.probe_key, batch)
+        plive = batch.live & valid_of(v.valid, batch.live)
+        keep = getattr(cuda_join, f"{mode}_keep")
+        args = seen["args"]
+        inst = cuda_join.instance(*(args[3:6] if mode == "exists" else args[2:5]))
+        whole_old = lambda op=op, b=batch, m=mode: previous_probe(prev, m, op, b)  # noqa: E731
+        whole_new = lambda op=op, b=batch: op._pallas_probe(b).live  # noqa: E731
+        cs.check(torch.equal(whole_new(), whole_old()) and torch.equal(keep(*args), whole_old()),
+                 f"{name}: current probe differs from previous")
+        old = lambda op=op, k=v.data, pl=plive, m=mode: previous_kernel(prev, m, op, k, pl)  # noqa: E731
+        new = lambda f=keep, a=args: f(*a)  # noqa: E731
+        kernel = f"{mode}_kernel"
+        t = [cs.device_ms(f, 50, flush, kernel=kernel) for f in (old, new, new, old)]
+        # the kernel alone again from an L2 flushed by reads (clean lines:
+        # device_ms's in-place flush leaves 50 MB of dirty lines whose
+        # write-back the next reads pay) and from a warm L2 (inputs and
+        # table still cached from the call before)
+        states = {state: [cs.device_ms(f, 50, fl, kernel=kernel) for f in (old, new, new, old)]
+                  for state, fl in (("clean", CleanFlush(flush)), ("warm", None))}
+        w = [cs.device_ms(f, 50, flush) for f in (whole_old, whole_new, whole_new, whole_old)]
+        # device kernels a batch: the trace's events of 20 batches over 20
+        per_batch = [sum(cs.device_kernels(f, 20).values()) / 20 for f in (whole_old, whole_new)]
+        out[f"{mode} {name}"] = {"instance": inst, "rows": batch.capacity, "turns_ms": t,
+                                 "clean_flush_turns_ms": states["clean"],
+                                 "warm_turns_ms": states["warm"],
+                                 "probe_turns_ms": w, "probe_kernels": per_batch}
+        cs.log(f"  {mode} {name} ({batch.capacity} rows, {inst}): kernel previous {t[0]:.4f}, "
+               f"{t[3]:.4f} ms; current {t[1]:.4f}, {t[2]:.4f} ms; whole probe batch previous "
+               f"{w[0]:.4f}, {w[3]:.4f} ms; current {w[1]:.4f}, {w[2]:.4f} ms (device ms, in "
+               f"turns; kernels in one batch {out[f'{mode} {name}']['probe_kernels']})")
+        for state, c in states.items():
+            cs.log(f"    kernel from a {state} L2: previous {c[0]:.4f}, {c[3]:.4f} ms; current "
+                   f"{c[1]:.4f}, {c[2]:.4f} ms")
+    return out
+
+
+def compare_leaf_lane(prev: dict, tconn, flush) -> dict:
+    """The leaf-aggregation and lane-sums kernels, earlier against
+    current, at the main path's splits and views of them."""
     sconn = SsbConnector(sf=1, device="cuda")
 
     def sql(conn_key, conn, text, **properties):
@@ -173,7 +300,6 @@ def main() -> int:
                 (lambda a=a: cuda_groupby.fused_lane_sums(*a)), "lane_sums_kernel", 50,
                 cuda_groupby.instance(a[0], a[2], a[3], a[4]))
                for name, a in lane_inputs.items()]
-    flush = torch.empty(1 << 27, dtype=torch.int8, device="cuda")  # 128 MB > L2
     out = {}
     for kernel, name, old, new, key, runs, inst in shapes:
         got_old, got_new = old(), new()
@@ -184,8 +310,33 @@ def main() -> int:
         out[f"{kernel} {name}"] = {"instance": inst, "turns_ms": t}
         cs.log(f"  {kernel} {name} ({inst}): previous {t[0]:.4f}, {t[3]:.4f} ms; current "
                f"{t[1]:.4f}, {t[2]:.4f} ms (kernel device ms, in turns)")
+    return out
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--leaf-lane", type=Path, help="an earlier commit's csrc (e170780)")
+    parser.add_argument("--probes", type=Path, help="an earlier commit's csrc (17cb3ec)")
+    opts = parser.parse_args()
+    if not (opts.leaf_lane or opts.probes) or not torch.cuda.is_available():
+        print(__doc__, file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    cs.log(f"card (name, power limit): {smi}")
+    _build.build()
+    tconn = TpchConnector(sf=1, device="cuda")
+    flush = torch.empty(1 << 27, dtype=torch.int8, device="cuda")  # 128 MB > L2
+    out, previous = {}, {}
+    if opts.leaf_lane:
+        previous["leaf_lane"] = str(opts.leaf_lane)
+        out.update(compare_leaf_lane(load_previous(opts.leaf_lane, ("leaf_agg", "lane_sums")),
+                                     tconn, flush))
+    if opts.probes:
+        previous["probes"] = str(opts.probes)
+        out.update(compare_probes(load_previous(opts.probes, ("join_probe",)), tconn, flush))
     print(smi)
-    print(json.dumps({"card": smi, "previous": sys.argv[1], "shapes": out}))
+    print(json.dumps({"card": smi, "previous": previous, "shapes": out}))
     return 0
 
 
