@@ -16,7 +16,16 @@ one CUDA card, and exits nonzero on any failure. Phases:
    exists and sketch kernels also in the keep and anti modes the join
    operator launches (int8/int16/int32 keys, capacities 1, 3, 15, 17,
    2^16, 2^20 and 1,000,003, views, all rows dead, no validity and NULL
-   keys; every output byte 0 or 1; both instances of each must run);
+   keys; every output byte 0 or 1; both instances of each must run); the
+   payload kernel through ``payload_keep`` (inner and left, 0, 1, 4 and
+   16 value columns written as int8/int16/int32/int64) and
+   ``payload_probe`` at the same keys, capacities and views, its tables
+   staged in shared memory and not (all four instances must run); the
+   LIKE kernel on the pattern set and an edge set (segments of 31-65
+   bytes, more segments than its tables hold, common first bytes,
+   ``Customer%1``-shaped anchors) over widths 1-256 at tile-edge and
+   ragged capacities, aligned and as row views (all six instances must
+   run);
 3. resident TPC-H Q1: SF1 ``lineitem`` tiled x10 (about 60M rows) in
    the connector's narrow storage, through ``workloads.q1_fused_step``
    (the Q1 kernel); equal to 10x a numpy recomputation, and the kernel
@@ -36,10 +45,13 @@ one CUDA card, and exits nonzero on any failure. Phases:
    fused route, each equal to the same query with ``pallas_join`` off;
    the wall time of a first and a second run; then the join probes are
    timed as in phase 5, at the inputs this phase gave them (the exists
-   kernel at the first ``exists_keep`` call of Q3's operator, with the
-   device time of that whole probe batch, whose trace must hold one
-   kernel); in phases 6, 8 and 9 every exists and sketch launch must
-   take the vector instance;
+   kernel at the first ``exists_keep`` call of Q3's operator and the
+   payload kernel at the first ``payload_keep`` call of Q10's, each with
+   the device time of that whole probe batch, whose trace must hold one
+   kernel); in phases 6, 8 and 9 every exists, sketch and payload launch
+   must take a vector instance, and every payload launch of Q9 and Q10
+   must come from one ``payload_keep`` call (one per ``lineitem``
+   split);
 7. TPC-H Q1 and Q6 and SSB Q1.1-1.3 at SF1 through ``Session.sql`` on
    the fused leaf route (Q1 on the Q1 kernel once per ``lineitem`` split,
    the others on the leaf-aggregation kernel's staged instance once per
@@ -56,12 +68,14 @@ one CUDA card, and exits nonzero on any failure. Phases:
    wall of a first and a second run and the device busy time of a third;
    then ``starts_with(p_name, 'forest')`` over ``part`` through the scan
    -> FilterProject pipeline (the prefix kernel once per split), equal to
-   ``p_name like 'forest%'`` and to Python's ``str.startswith``; then the
-   LIKE kernel is timed as in phase 5 at the first Q9 ``part`` split and
-   over SF1 ``o_comment``, and the prefix kernel at the first ``part``
-   split of the pipeline, the lane-sums kernel at the first
-   ``q_like_phone`` ``lineorder`` split and the exists kernel at Q9's
-   first ``lineitem`` probe batch;
+   ``p_name like 'forest%'`` and to Python's ``str.startswith``; every
+   LIKE launch of the queries on the staged instance of its pattern's
+   matcher; then the LIKE kernel is timed as in phase 5 at each query's
+   first split of the table it filters and over SF1 ``o_comment``, and
+   the prefix kernel at the first ``part`` split of the pipeline, the
+   lane-sums kernel at the first ``q_like_phone`` ``lineorder`` split and
+   the exists and payload kernels at Q9's first ``lineitem`` probe
+   batches;
 9. semi and anti joins at SF1 through ``Session.sql``: TPC-H Q4 exact
    (the dense membership probe) and with ``approx_join`` (the sketch
    kernel once per ``orders`` split, equal to a numpy Bloom oracle and
@@ -363,33 +377,95 @@ def check_exists_kernel(rng) -> int:
     return err
 
 
+#: phase 2's payload tables: (key dtype, key_min, key_max), each small
+#: enough for 16 value columns
+PAYLOAD_DOMAINS = (("int8", -60, 90), ("int16", -500, 400), ("int32", I32MAX - 400, I32MAX))
+VALUE_DTYPES = (torch.int8, torch.int16, torch.int32, torch.int64)
+
+
+def _keep_err(got, want, what: str) -> int:
+    """The largest difference between two ``payload_keep`` results
+    (matched, values, live), exactly equal or raise; every mask byte 0
+    or 1."""
+    (gm, gv, gl), (wm, wv, wl) = got, want
+    err = max(_mask_err(gm, wm, f"{what}: matched"), _mask_err(gl, wl, f"{what}: live"))
+    for m in (gm, gl):
+        check(m.numel() == 0 or int(m.view(torch.uint8).max()) <= 1,
+              f"{what}: a bool byte past 1")
+    check(len(gv) == len(wv), f"{what}: {len(gv)} value columns, expected {len(wv)}")
+    for j, (g, w) in enumerate(zip(gv, wv)):
+        check(g.dtype == w.dtype and g.shape == w.shape,
+              f"{what}: value {j} is {g.dtype}{tuple(g.shape)}, expected {w.dtype}")
+        d = int((g.to(torch.int64) - w.to(torch.int64)).abs().max()) if g.numel() else 0
+        check(d == 0, f"{what}: value {j} differs from the plain version")
+        err = max(err, d)
+    return err
+
+
 def check_payload_kernel(rng) -> int:
+    """The payload kernel against its plain versions, exactly: through
+    ``payload_keep`` (the operator's entry) and ``payload_probe`` (the
+    JAX package's contract), int8/int16/int32 keys around and past the
+    domain, 0, 1, 4 and 16 value columns written as int8/int16/int32/
+    int64, inner and left, no validity and NULL keys, every capacity of
+    ``PROBE_CAPS``, the keys, live and validity aligned (vector
+    instances), views one element into their buffers (scalar ones) and
+    with every row dead; tables that are staged in shared memory and,
+    with 16 value columns or a wide domain, tables that are not. Every
+    mask byte must be 0 or 1, each launch must take the instance its
+    inputs call for, and every instance must run. Returns the largest
+    difference."""
     err = 0
-    for nval in (1, 2, 3, 4):
-        for dt, kmin, kmax in (("int8", -60, 90), ("int16", -500, 2500),
-                               ("int32", I32MAX - 3000, I32MAX)):
-            for cap in (1 << 16, 1 << 20, 1_000_003):
-                bk = (rng.permutation(kmax - kmin + 1)[:400] + kmin).astype(dt)
-                blive = live_mask(rng, bk.shape[0])
-                vals = [rng.integers(-(1 << 31), 1 << 31, bk.shape[0]).astype(np.int32)]
-                vals += [rng.integers(-128, 128, bk.shape[0]).astype(np.int8)
-                         for _ in range(nval - 1)]
-                tables, oob = cuda_join.build_payload_tables(
-                    _t(bk), _t(blive), kmin, kmax, [_t(v) for v in vals])
-                check(not bool(oob), "payload tables: in-domain build flagged oob")
-                pk = _t(probe_keys(rng, dt, kmin, kmax, cap, spread=300))
-                plive = _t(live_mask(rng, cap))
-                gm, gv = cuda_join.payload_probe(tables, kmin, kmax, pk, plive)
-                wm, wv = cuda_join.payload_probe_plain(tables, kmin, kmax, pk, plive)
+    cuda_join.reset_launches()
+    cases = [(dt, kmin, kmax, nval) for dt, kmin, kmax in PAYLOAD_DOMAINS
+             for nval in (0, 1, 4, 16)]
+    cases.append(("int32", 1, 8000, 1))  # a table too large to stage
+    for dt, kmin, kmax, nval in cases:
+        bk = (rng.permutation(kmax - kmin + 1)[:400] + kmin).astype(dt)
+        vals = [_t(rng.integers(-(1 << 31), 1 << 31, bk.shape[0]).astype(np.int32))
+                for _ in range(nval)]
+        tables, oob = cuda_join.build_payload_tables(
+            _t(bk), _t(live_mask(rng, bk.shape[0])), kmin, kmax, vals)
+        check(not bool(oob), "payload tables: in-domain build flagged oob")
+        for cap in PROBE_CAPS:
+            keys = _t(probe_keys(rng, dt, kmin, kmax, cap, spread=300))
+            live, valid = _t(live_mask(rng, cap)), _t(rng.random(cap) < 0.9)
+            dead = torch.zeros_like(live)
+            dtypes = [VALUE_DTYPES[(j + cap) % 4] for j in range(nval)]
+            for what, k, lv, vd in (("aligned", keys, live, valid),
+                                    ("views", unaligned(keys), unaligned(live), unaligned(valid)),
+                                    ("all dead", keys, dead, valid)):
+                inst = cuda_join.payload_instance(tables, kmin, kmax, k, lv, vd)
+                check(inst.startswith("scalar") == (what == "views"),
+                      f"payload {what}: instance {inst}")
+                for v in (None, vd):
+                    for inner in (True, False):
+                        name = (f"payload_keep {dt} nval {nval} cap {cap} {what} "
+                                f"valid={v is not None} {'inner' if inner else 'left'}")
+                        before = dict(cuda_join.launches_by_instance["payload"])
+                        got = cuda_join.payload_keep(tables, kmin, kmax, k, lv, v, dtypes, inner)
+                        want = cuda_join.payload_keep_plain(tables, kmin, kmax, k, lv, v, dtypes,
+                                                            inner)
+                        torch.cuda.synchronize()
+                        ran = [i for i, c in cuda_join.launches_by_instance["payload"].items()
+                               if c != before[i]]
+                        check(ran == [cuda_join.payload_instance(tables, kmin, kmax, k, lv, v)],
+                              f"{name}: instance {ran}")
+                        err = max(err, _keep_err(got, want, name))
+                        check(not bool(got[0][~lv].any()), f"{name}: a dead row matched")
+                        if not inner:
+                            check(got[2] is lv, f"{name}: a left join's live mask changed")
+                gm, gv = cuda_join.payload_probe(tables, kmin, kmax, k, lv)
+                wm, wv = cuda_join.payload_probe_plain(tables, kmin, kmax, k, lv)
                 torch.cuda.synchronize()
-                for g, w in zip([gm] + gv, [wm] + wv):
-                    d = int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
-                    err = max(err, d)
-                    check(d == 0, f"payload_probe nval {nval} {dt} cap {cap}: "
-                          "differs from plain")
-                check(not bool(gm[~plive].any()), "payload_probe: a dead row matched")
-            log(f"  payload_probe nval {nval} {dt} [{kmin}, {kmax}] caps 2^16, 2^20, "
-                "1000003: equal to plain")
+                err = max(err, _keep_err((gm, gv, gm), (wm, wv, wm),
+                                         f"payload_probe {dt} nval {nval} cap {cap} {what}"))
+        log(f"  payload_keep (inner, left; value types {[str(d)[6:] for d in VALUE_DTYPES]}) "
+            f"and payload_probe {dt} [{kmin}, {kmax}] nval {nval}, caps {PROBE_CAPS}, aligned, "
+            "views and all dead, no validity and NULL keys: equal to plain, bytes 0 or 1")
+    idle = [i for i, c in cuda_join.launches_by_instance["payload"].items() if c == 0]
+    check(not idle, f"payload instances never held to plain: {idle}")
+    log(f"  payload launches by instance in phase 2: {cuda_join.launches_by_instance['payload']}")
     return err
 
 
@@ -487,10 +563,11 @@ def check_probe_keep_kernels(rng) -> dict:
                         check(not bool(got[~lv].any()), f"{name}: a dead row is live")
         log(f"  exists_keep (keep, anti) and sketch_keep {dt}, caps {PROBE_CAPS}, aligned, "
             "views and all dead, no validity and NULL keys: equal to plain, bytes 0 or 1")
-    idle = [f"{k} {i}" for k, by in cuda_join.launches_by_instance.items()
-            for i, c in by.items() if c == 0]
+    idle = [f"{k} {i}" for k in ("exists", "sketch")
+            for i, c in cuda_join.launches_by_instance[k].items() if c == 0]
     check(not idle, f"probe instances never held to plain: {idle}")
-    log(f"  probe launches by instance in phase 2: {cuda_join.launches_by_instance}")
+    log("  probe launches by instance in phase 2: "
+        f"{ {k: cuda_join.launches_by_instance[k] for k in ('exists', 'sketch')} }")
     return err
 
 
@@ -896,29 +973,33 @@ def device_kernels(fn, calls: int = 20) -> dict:
 @contextlib.contextmanager
 def first_probe(mode: str, anti: bool | None = None):
     """While in the block, keep the first ``LookupJoinOperator._pallas_probe``
-    call on the ``mode`` route (``exists`` or ``sketch``; with ``anti``,
-    of an anti join or of another kind) as ``seen["op"] = (operator,
-    batch)``, and the arguments of the ``cuda_join.<mode>_keep`` call it
-    made as ``seen["args"]``. Yields ``seen``."""
-    seen = {}
-    active = [False]
+    call on the ``mode`` route (``exists``, ``sketch`` or ``payload``;
+    with ``anti``, of an anti join or of another kind) as ``seen["op"] =
+    (operator, batch)``, and the arguments of the ``cuda_join.<mode>_keep``
+    call it made as ``seen["args"]``; ``seen["calls"]`` counts every
+    ``<mode>_keep`` call made inside a ``_pallas_probe`` call. Yields
+    ``seen``."""
+    seen = {"calls": 0}
+    active = [0]
     original_probe = LookupJoinOperator._pallas_probe
     name = f"{mode}_keep"
     original_keep = getattr(cuda_join, name)
 
     def probe(op, batch):
-        take = (not seen and op.build.pallas.mode == mode
+        take = ("op" not in seen and op.build.pallas.mode == mode
                 and (anti is None or (op.join_type == "anti") == anti))
         if take:
             seen["op"] = (op, batch)
-            active[0] = True
+        active[0] = 2 if take else 1
         try:
             return original_probe(op, batch)
         finally:
-            active[0] = False
+            active[0] = 0
 
     def keep(*args):
         if active[0]:
+            seen["calls"] += 1
+        if active[0] == 2:
             seen["args"] = args
         return original_keep(*args)
 
@@ -932,25 +1013,31 @@ def first_probe(mode: str, anti: bool | None = None):
 
 
 def check_vector_probes(name: str, n: dict) -> None:
-    """Every exists and sketch launch of a main-path run on the vector
-    instance (``n``: the run's ``_launch_counts()``)."""
+    """Every exists, sketch and payload launch of a main-path run on a
+    vector instance (``n``: the run's ``_launch_counts()``)."""
     for kernel, by in n["probe_by_instance"].items():
-        check(by["scalar"] == 0, f"{name}: {by['scalar']} {kernel} launches on the scalar "
-              f"instance, {by['vector']} on the vector one")
+        scalar = sum(c for i, c in by.items() if i.startswith("scalar"))
+        check(scalar == 0, f"{name}: {kernel} launches by instance {by}")
 
 
 def time_probe(mode: str, seen: dict, launches: int, flush) -> dict:
-    """Phase 5 numbers of the exists or sketch kernel at the inputs a
-    main-path query gave it (``seen``: from :func:`first_probe`), its
-    keep or anti mode as the operator launched it: kernel, wrapper call
-    and plain ms; the bound counts each key, live byte (and validity
-    byte, when the operator passed one) and bool out once and the table
-    once, and 8 integer operations a row (exists) or 24 (sketch: two
-    finalizers, the seed, two masks and two bit tests). Then the device
+    """Phase 5 numbers of the exists, sketch or payload kernel at the
+    inputs a main-path query gave it (``seen``: from :func:`first_probe`),
+    as the operator launched it: kernel, wrapper call and plain ms; the
+    bound counts each key, live byte (and validity byte, when the operator
+    passed one), each output once (a bool, or for payload one or two mask
+    bytes and each value in its width) and the tables once, and 8 integer
+    operations a row (exists), 24 (sketch: two finalizers, the seed, two
+    masks and two bit tests) or 8 and 2 a value (payload). Then the device
     ms of every kernel of one whole ``_pallas_probe`` call on the same
-    batch, whose trace must hold exactly one kernel, this one."""
+    batch, whose trace must hold exactly one kernel, this one. For payload
+    also the JAX-contract entry ``payload_probe`` on the probe live mask
+    ``live && valid`` (int32 values, no validity), as ``contract_*``."""
     args = seen["args"]
-    if mode == "exists":
+    if mode == "payload":
+        keep, plain = cuda_join.payload_keep, cuda_join.payload_keep_plain
+        tables, kmin, kmax, keys, live, valid, dtypes, inner = args
+    elif mode == "exists":
         keep, plain = cuda_join.exists_keep, cuda_join.exists_keep_plain
         keys, live, valid, anti = args[3], args[4], args[5], args[6]
     else:
@@ -958,30 +1045,66 @@ def time_probe(mode: str, seen: dict, launches: int, flush) -> dict:
         keys, live, valid, anti = args[2], args[3], args[4], False
     fn = lambda: keep(*args)  # noqa: E731
     got = fn()
-    err = _mask_err(got, plain(*args), f"{mode}_keep at phase 5")
-    check(int(got.view(torch.uint8).max()) <= 1, f"{mode}_keep wrote a bool byte past 1")
+    if mode == "payload":
+        err = _keep_err(got, plain(*args), "payload_keep at phase 5")
+    else:
+        err = _mask_err(got, plain(*args), f"{mode}_keep at phase 5")
+        check(int(got.view(torch.uint8).max()) <= 1, f"{mode}_keep wrote a bool byte past 1")
     op, batch = seen["op"]
     whole = lambda: op._pallas_probe(batch)  # noqa: E731
     # one kernel a batch: every device event of 20 batches is this
     # kernel's, at most 20 of them (the trace may drop some, never add),
-    # and the wrapper counted 20 launches (21 with the warm-up)
+    # and the wrapper counted one launch a batch run (the warm-up, and a
+    # second trace when the first came back without device events)
+    batches = [0]
+
+    def counted():
+        batches[0] += 1
+        return whole()
+
     before = getattr(cuda_join, f"{mode}_launches")
-    kernels = device_kernels(whole, 20)
+    kernels = device_kernels(counted, 20)
     launched = getattr(cuda_join, f"{mode}_launches") - before
     check(len(kernels) == 1 and f"{mode}_kernel" in next(iter(kernels))
-          and next(iter(kernels.values())) <= 20 and launched == 21,
-          f"20 {mode} probe batches ran the device kernels {kernels} and {launched} launches")
+          and next(iter(kernels.values())) <= 20 and launched == batches[0],
+          f"20 {mode} probe batches ran the device kernels {kernels} and {launched} launches "
+          f"in {batches[0]} batches")
     n = keys.numel()
-    table = args[0]
-    nbytes = n * (keys.element_size() + 2 + (valid is not None)) + table.numel() * 4
-    return {"ms": device_ms(fn, 50, flush, kernel=f"{mode}_kernel"), "call_ms": call_ms(fn, 50),
-            "plain_ms": device_ms(lambda: plain(*args), 10, flush),
-            "probe_ms": device_ms(whole, 50, flush), "probe_kernels": len(kernels),
-            "probe_events": next(iter(kernels.values())),
-            "rows": n, "key": str(keys.dtype).replace("torch.", ""), "bytes": nbytes,
-            "ops": (8 if mode == "exists" else 24) * n, "err": err,
-            "table": table.numel(), "valid": valid is not None, "anti": bool(anti),
-            "instance": cuda_join.instance(keys, live, valid), "launches": launches}
+    out = {"rows": n, "key": str(keys.dtype).replace("torch.", ""), "err": err,
+           "valid": valid is not None, "launches": launches,
+           "probe_kernels": len(kernels), "probe_events": next(iter(kernels.values()))}
+    if mode == "payload":
+        widths = [torch.empty(0, dtype=d).element_size() for d in dtypes]
+        table_bytes = sum(t.numel() * 4 for t in tables)
+        out.update(nval=len(dtypes), widths=widths, inner=bool(inner), anti=False,
+                   table=sum(t.numel() for t in tables),
+                   bytes=n * (keys.element_size() + 2 + (valid is not None) + bool(inner)
+                              + sum(widths)) + table_bytes,
+                   ops=(8 + 2 * len(dtypes)) * n,
+                   instance=cuda_join.payload_instance(tables, kmin, kmax, keys, live, valid))
+        plive = live if valid is None else live & valid
+        contract = lambda: cuda_join.payload_probe(tables, kmin, kmax, keys, plive)  # noqa: E731
+        contract_plain = lambda: cuda_join.payload_probe_plain(  # noqa: E731
+            tables, kmin, kmax, keys, plive)
+        gm, gv = contract()
+        wm, wv = contract_plain()
+        err = max(err, _keep_err((gm, gv, gm), (wm, wv, wm), "payload_probe at phase 5"))
+        cb, cby = bound(n * (keys.element_size() + 2 + 4 * len(dtypes)) + table_bytes,
+                        (8 + 2 * len(dtypes)) * n)
+        out.update(err=err, contract_ms=device_ms(contract, 50, flush, kernel="payload_kernel"),
+                   contract_call_ms=call_ms(contract, 50),
+                   contract_plain_ms=device_ms(contract_plain, 10, flush),
+                   contract_bound_ms=cb, contract_bound_by=cby)
+    else:
+        table = args[0]
+        out.update(anti=bool(anti), inner=False, table=table.numel(),
+                   bytes=n * (keys.element_size() + 2 + (valid is not None)) + table.numel() * 4,
+                   ops=(8 if mode == "exists" else 24) * n,
+                   instance=cuda_join.instance(keys, live, valid))
+    out.update(ms=device_ms(fn, 50, flush, kernel=f"{mode}_kernel"), call_ms=call_ms(fn, 50),
+               plain_ms=device_ms(lambda: plain(*args), 10, flush),
+               probe_ms=device_ms(whole, 50, flush))
+    return out
 
 
 def probe_shape(t: dict) -> dict:
@@ -993,13 +1116,22 @@ def probe_shape(t: dict) -> dict:
 
 def log_probe(kernel: str, label: str, shapes: dict) -> None:
     t = shapes[label]
+    mode = ("inner" if t["inner"] else "left") if kernel == "payload" else \
+        ("anti" if t["anti"] else "keep")
+    values = (f"{t['nval']} value(s) of {t['widths']} B over {t['table']} table slots, "
+              if kernel == "payload" else "")
     log(f"phase 5, {kernel} kernel at {label} ({t['rows']} rows, {t['key']} keys, validity "
-        f"{'passed' if t['valid'] else 'none'}, {'anti' if t['anti'] else 'keep'} mode, "
-        f"{t['instance']} instance; kernel device ms, call = wrapper by events, plain = device "
-        f"ms of its kernels; no single PyTorch call computes it): {t['ms']:.4f} (call "
-        f"{t['call_ms']:.4f}, plain {t['plain_ms']:.4f}, bound {t['bound_ms']:.4f} by "
-        f"{t['bound_by']}); one whole _pallas_probe call {t['probe_ms']:.4f} device ms in "
-        f"{t['probe_kernels']} kernel; {t['launches']} launches in its query")
+        f"{'passed' if t['valid'] else 'none'}, {mode} mode, {values}{t['instance']} instance; "
+        f"kernel device ms, call = wrapper by events, plain = device ms of its kernels; no "
+        f"single PyTorch call computes it): {t['ms']:.4f} (call {t['call_ms']:.4f}, plain "
+        f"{t['plain_ms']:.4f}, bound {t['bound_ms']:.4f} by {t['bound_by']}); one whole "
+        f"_pallas_probe call {t['probe_ms']:.4f} device ms in {t['probe_kernels']} kernel; "
+        f"{t['launches']} launches in its query")
+    if kernel == "payload":
+        log(f"  payload_probe (the JAX contract: int32 values, the probe live mask) on the same "
+            f"batch: {t['contract_ms']:.4f} (call {t['contract_call_ms']:.4f}, plain "
+            f"{t['contract_plain_ms']:.4f}, bound {t['contract_bound_ms']:.4f} by "
+            f"{t['contract_bound_by']})")
 
 
 def time_lane(args, flush) -> dict:
@@ -1114,31 +1246,23 @@ def run_join_queries(flush: torch.Tensor, sf: float = 1, device: str = "cuda") -
     kernel_of = {"q3": "exists", "q10": "payload"}
     probe_batches = len(conn.splits("lineitem"))
     captured, launches, counts = {}, {}, {}
-    original_payload = cuda_join.payload_probe
-
-    def capture_payload(*args):
-        captured.setdefault("payload", args)  # the first call of the main path
-        return original_payload(*args)
-
     for q, mode in kernel_of.items():
         session = Session({"tpch": conn}, device=device)
-        cuda_join.payload_probe = capture_payload if mode == "payload" else original_payload
-        try:
-            with first_probe("exists") as seen:
-                COUNTERS.clear()
-                _reset_launches()
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                res = session.sql(QUERIES[q])
-                torch.cuda.synchronize()
-                first = time.perf_counter() - t0
-                n = _launch_counts()
-                route = dict(COUNTERS)
-        finally:
-            cuda_join.payload_probe = original_payload
-        if mode == "exists":
-            captured["exists"] = seen
+        # the first probe batch of the query's fused join, and its keep calls
+        with first_probe(mode) as seen:
+            COUNTERS.clear()
+            _reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = session.sql(QUERIES[q])
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t0
+            n = _launch_counts()
+            route = dict(COUNTERS)
+        captured[mode] = seen
         n_exists, n_payload = n["exists"], n["payload"]
+        check(seen["calls"] == n[mode],
+              f"{q}: {seen['calls']} {mode}_keep calls for {n[mode]} {mode} launches")
         counts[q] = n
         check_vector_probes(q, n)
         same_result(res, want[q], f"{q} at SF1")
@@ -1171,24 +1295,9 @@ def run_join_queries(flush: torch.Tensor, sf: float = 1, device: str = "cuda") -
         log(f"  {q} breakdown (a third, profiled run): device busy {busy_ms:.1f} ms, "
             f"connector scans (host generation + copy to the card) {scan_s:.3f} s")
 
-    out = {"launches": counts,
-           "exists": time_probe("exists", captured["exists"], launches["exists"], flush)}
-    tables, kmin, kmax, keys, live = captured["payload"]
-    fn = lambda: cuda_join.payload_probe(tables, kmin, kmax, keys, live)  # noqa: E731
-    plain = lambda: cuda_join.payload_probe_plain(tables, kmin, kmax, keys, live)  # noqa: E731
-    nval = len(tables) - 1
-    nbytes = (keys.numel() * (keys.element_size() + 2 + 4 * nval)
-              + sum(t.numel() * 4 for t in tables))
-    got, wanted = fn(), plain()
-    err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
-              for g, w in zip([got[0]] + got[1], [wanted[0]] + wanted[1]))
-    check(err == 0, "payload probe differs from plain at the main path's inputs")
-    out["payload"] = {"ms": device_ms(fn, 50, flush, kernel="payload_kernel"),
-                      "call_ms": call_ms(fn, 50), "plain_ms": device_ms(plain, 10, flush),
-                      "rows": keys.numel(), "key": str(keys.dtype).replace("torch.", ""),
-                      "bytes": nbytes, "ops": 8 * keys.numel(), "launches": launches["payload"],
-                      "err": err, "table": sum(t.numel() for t in tables), "nval": nval}
-    return out
+    return {"launches": counts,
+            "exists": time_probe("exists", captured["exists"], launches["exists"], flush),
+            "payload": time_probe("payload", captured["payload"], launches["payload"], flush)}
 
 
 # ---------------------------------------------------------------------------
@@ -1477,6 +1586,61 @@ def like_patterns() -> list:
     return out
 
 
+def like_edge_patterns() -> list:
+    """The LIKE kernel's edge set, over the rows' alphabet: interior
+    segments of 31, 32, 33, 64 and 65 bytes (the 32- and 64-bit Shift-And
+    tables' edges and past them), anchored ones of those lengths, the
+    anchored segments' byte limit (256) and one past it, more interior
+    segments than the tables hold, patterns whose first byte is common in
+    the rows, ``Customer%1``-shaped anchors, and zero bytes in a literal
+    and in a segment."""
+    rng = np.random.default_rng(8)
+
+    def seg(n: int) -> str:
+        return "".join(chr(c) for c in rng.choice(list(LIKE_ALPHABET), n))
+
+    s31, s32, s33, s64, s65 = (seg(n) for n in (31, 32, 33, 64, 65))
+    return [f"%{s31}%", f"%{s32}%", f"%{s33}%", f"%{s64}%", f"%{s65}%",
+            f"{s31}%", f"%{s32}", f"{s33}%{s64}", f"%{s65}", f"{s64}", f"%{s31}%{s33}%",
+            f"a%{s32}%{s64}%b", "a" * 256 + "%", "a" * 257 + "%", "%" + "b" * 256,
+            "%a%b%1%0%", "%a%b%1%0%a%", "a%b%1%0%a%b%1", "%aab%", "%a%a%a%a%",
+            "%aaaab%bbba%", "a%1", "ab10%1", "b%0", "1a%a1", "a\0", "%a\0%", "%a\0b%"]
+
+
+def edge_rows(width: int, cap: int, seed: int) -> np.ndarray:
+    """``string_rows`` with the edge set planted in about a third of the
+    rows, taking turns: a whole row made to match one of
+    ``like_edge_patterns()`` that fits (its segments in order, each '%'
+    a random filler of 0-3 bytes, the pattern's anchors kept),
+    or one of their segments written over the row's bytes at a random
+    offset; so the long segments both hit and miss, as infixes and as
+    suffixes."""
+    rng = np.random.default_rng(seed)
+    alphabet = np.frombuffer(LIKE_ALPHABET, np.uint8)
+    out = string_rows(width, cap, seed)
+    made = []
+    for p in like_edge_patterns():
+        parts = [np.frombuffer(t.encode("latin1"), np.uint8) for t in p.split("%")]
+        row = [parts[0]]
+        for t in parts[1:]:
+            row += [rng.choice(alphabet, int(rng.integers(0, 4))), t]
+        row = np.concatenate(row)
+        if row.size <= width:
+            made.append(row)
+    segs = sorted({t.encode("latin1") for p in like_edge_patterns() for t in p.split("%")
+                   if t and len(t) <= width})
+    for k, r in enumerate(np.flatnonzero(rng.random(cap) < 0.35)):
+        if k % 2 and made:
+            out[r] = 0
+            row = made[(k // 2) % len(made)]
+            out[r, : row.size] = row
+        elif segs:
+            t = np.frombuffer(segs[(k // 2) % len(segs)], np.uint8)
+            at = int(rng.integers(0, width - t.size + 1))
+            out[r, at: at + t.size] = t
+    return out
+
+
 def string_rows(width: int, cap: int, seed: int) -> np.ndarray:
     """[cap, width] uint8: zero-padded strings over a small alphabet (so
     the patterns hit), '011' rows for the suffix rule, and about 6 % dead
@@ -1524,28 +1688,70 @@ def _mask_err(got: torch.Tensor, want: torch.Tensor, what: str) -> int:
     return d
 
 
+#: phase 2's LIKE widths: the main path's (22, 25, 55, 79, 101 are the
+#: SF1 columns'), the 32- and 64-bit tables' edges and the widest
+LIKE_WIDTHS = (1, 7, 22, 55, 79, 101, 199, 256)
+
+
+def like_rows_view(rows: np.ndarray) -> torch.Tensor:
+    """``rows`` on the card as a view one row and one byte (two where
+    that lands 16-byte aligned) into its buffer: not 16-byte aligned, so
+    the LIKE kernel takes its direct instance."""
+    n, w = rows.shape
+    at = w + 1 if (w + 1) % 16 else w + 2
+    buf = torch.zeros((n + 2) * w + 2, dtype=torch.uint8, device="cuda")
+    view = buf[at: at + n * w].view(n, w)
+    view.copy_(_t(rows))
+    return view
+
+
 def check_string_kernels(connectors) -> tuple:
-    """Phase 2 for the LIKE and prefix kernels: the pattern set over
-    widths 1 to 256 at capacities that are not multiples of 256, then
-    every LIKE pattern of the query sets over its own SF1 column, each
-    against the plain version and, on the SF1 columns, Python's ``re``.
-    Returns (LIKE max error, prefix max error, SF1 columns on the card)."""
+    """Phase 2 for the LIKE and prefix kernels: the pattern set and the
+    LIKE edge set (``like_edge_patterns``, on ``edge_rows``) over
+    ``LIKE_WIDTHS`` at capacities at the edges of a 256-row tile, a
+    ragged last tile and 2^17 + 3, aligned (the staged instances) and as
+    views one row and one byte into their buffers (the direct ones); every
+    LIKE instance must run, each launch on the instance its inputs call
+    for. Then every LIKE pattern of the query sets over its own SF1
+    column, each against the plain version and, on the SF1 columns,
+    Python's ``re``. Returns (LIKE max error, prefix max error, SF1
+    columns on the card)."""
     like_err = prefix_err = 0
-    for width in (1, 7, 22, 55, 79, 256):
-        for cap in (small_capacity(width), (1 << 17) + 3):
-            data = _t(string_rows(width, cap, width + cap))
-            for p in like_patterns():
-                like_err = max(like_err, _mask_err(
-                    cuda_strings.like_mask(data, p), cuda_strings.like_mask_plain(data, p),
-                    f"like_mask {p!r} W={width} cap {cap}"))
-            for p in PREFIXES:
-                prefix_err = max(prefix_err, _mask_err(
-                    cuda_strings.starts_with_mask(data, p),
-                    cuda_strings.starts_with_mask_plain(data, p),
-                    f"starts_with_mask {p!r} W={width} cap {cap}"))
+    cuda_strings.reset_launches()
+    patterns = like_patterns() + like_edge_patterns()
+    for width in LIKE_WIDTHS:
+        for cap in (255, 256, 257, small_capacity(width), (1 << 17) + 3):
+            rows = edge_rows(width, cap, width + cap)
+            variants = [("aligned", _t(rows), "staged")]
+            if cap != 256:
+                variants.append(("view", like_rows_view(rows), "direct"))
+            for what, data, how in variants:
+                for p in patterns:
+                    want = f"{how}_{cuda_strings.like_kernel_program(p)[0]}"
+                    before = dict(cuda_strings.like_launches_by_instance)
+                    got = cuda_strings.like_mask(data, p)
+                    ran = [i for i, c in cuda_strings.like_launches_by_instance.items()
+                           if c != before[i]]
+                    check(ran == [want], f"like_mask {p!r} W={width} cap {cap} {what}: "
+                          f"instance {ran}, expected {want}")
+                    like_err = max(like_err, _mask_err(got, cuda_strings.like_mask_plain(data, p),
+                                                       f"like_mask {p!r} W={width} cap {cap} "
+                                                       f"{what}"))
+                    check(int(got.view(torch.uint8).max()) <= 1,
+                          f"like_mask {p!r} W={width}: a bool byte past 1")
+                if what == "aligned":
+                    for p in PREFIXES:
+                        prefix_err = max(prefix_err, _mask_err(
+                            cuda_strings.starts_with_mask(data, p),
+                            cuda_strings.starts_with_mask_plain(data, p),
+                            f"starts_with_mask {p!r} W={width} cap {cap}"))
         torch.cuda.synchronize()
-    log(f"  like_mask: {len(like_patterns())} patterns, starts_with_mask: {len(PREFIXES)} "
-        "prefixes, widths 1, 7, 22, 55, 79, 256 at 2 capacities each: equal to plain")
+    idle = [i for i, c in cuda_strings.like_launches_by_instance.items() if c == 0]
+    check(not idle, f"LIKE instances never held to plain: {idle}")
+    log(f"  like_mask: {len(like_patterns())} patterns and {len(like_edge_patterns())} edge "
+        f"patterns, starts_with_mask: {len(PREFIXES)} prefixes, widths {LIKE_WIDTHS} at "
+        "capacities 255, 256, 257, a ragged one and 2^17 + 3, aligned and as views: equal to "
+        f"plain; LIKE launches by instance {cuda_strings.like_launches_by_instance}")
     for p in ("a_b", "%_"):
         try:
             cuda_strings.like_mask(data, p)
@@ -1665,7 +1871,7 @@ def _reset_launches() -> None:
     cuda_groupby.reset_launches()
     cuda_agg.reset_launches()
     cuda_join.reset_launches()
-    cuda_strings.like_launches = cuda_strings.prefix_launches = 0
+    cuda_strings.reset_launches()
 
 
 def _launch_counts() -> dict:
@@ -1679,15 +1885,19 @@ def _launch_counts() -> dict:
                             **{f"leaf_agg {k}": v
                                for k, v in cuda_agg.launches_by_instance.items() if v}},
             "probe_by_instance": {k: dict(v) for k, v in cuda_join.launches_by_instance.items()},
-            "probe_by_shape": {k: dict(v) for k, v in cuda_join.launches_by_shape.items()}}
+            "probe_by_shape": {k: dict(v) for k, v in cuda_join.launches_by_shape.items()},
+            "like_by_instance": {k: v for k, v in cuda_strings.like_launches_by_instance.items()
+                                 if v},
+            "like_by_shape": dict(cuda_strings.like_launches_by_shape)}
 
 
 def probe_launch_totals(*runs) -> dict:
-    """The exists and sketch kernels' launches over main-path runs (each
-    ``runs`` item maps a run's name to its ``_launch_counts()``): per
-    kernel, in all, by row count and by instance."""
-    out = {k: {"launches": 0, "by_shape": {}, "by_instance": dict.fromkeys(cuda_join.INSTANCES, 0)}
-           for k in ("exists", "sketch")}
+    """The exists, sketch and payload kernels' launches over main-path
+    runs (each ``runs`` item maps a run's name to its ``_launch_counts()``):
+    per kernel, in all, by row count and by instance."""
+    out = {k: {"launches": 0, "by_shape": {}, "by_instance": dict.fromkeys(names, 0)}
+           for k, names in (("exists", cuda_join.INSTANCES), ("sketch", cuda_join.INSTANCES),
+                            ("payload", cuda_join.PAYLOAD_INSTANCES))}
     for named in runs:
         for n in named.values():
             for k, t in out.items():
@@ -1725,11 +1935,13 @@ def run_string_queries(connectors: dict, sf: float = 1, device: str = "cuda") ->
         f"{time.perf_counter() - t0:.1f} s")
     sqls = {"q9": QUERIES["q9"], "ssb q_like_part": SSB["q_like_part"],
             "ssb q_like_phone": SSB["q_like_phone"]}
-    captured = {}
+    captured = {"like": {}}
     original_like = cuda_strings.like_mask
+    current = [None]
 
     def capture_like(data, pattern):
-        captured.setdefault("like", (data, pattern))  # Q9's first part split
+        # each query's first split of the table LIKE filters
+        captured["like"].setdefault(current[0], (data, pattern))
         return original_like(data, pattern)
 
     original_lane = cuda_groupby.fused_lane_sums
@@ -1738,15 +1950,19 @@ def run_string_queries(connectors: dict, sf: float = 1, device: str = "cuda") ->
         captured.setdefault("lane", args)  # q_like_phone's first lineorder split
         return original_lane(*args)
 
-    out = {"like_launches": 0, "walls": {}, "launches": {}}
+    out = {"like_launches": 0, "like_by_instance": {}, "like_by_shape": {}, "walls": {},
+           "launches": {}}
     for name, (key, ftable, others) in STRING_QUERIES.items():
         conn = connectors[key]
         session = Session({key: conn}, device=device)
-        cuda_strings.like_mask = capture_like if name == "q9" else original_like
+        current[0] = name
+        cuda_strings.like_mask = capture_like
         if name == "ssb q_like_phone":
             cuda_groupby.fused_lane_sums = capture_lane
         try:
-            with first_probe("exists") as seen:  # Q9's part join, its first lineitem split
+            # Q9's part join (exists) and nation join (payload): their
+            # first lineitem probe batches and their keep calls
+            with first_probe("exists") as seen, first_probe("payload") as pseen:
                 COUNTERS.clear()
                 _reset_launches()
                 torch.cuda.synchronize()
@@ -1759,8 +1975,11 @@ def run_string_queries(connectors: dict, sf: float = 1, device: str = "cuda") ->
         finally:
             cuda_strings.like_mask = original_like
             cuda_groupby.fused_lane_sums = original_lane
+        check(seen["calls"] == n["exists"] and pseen["calls"] == n["payload"],
+              f"{name}: {seen['calls']} exists_keep and {pseen['calls']} payload_keep calls for "
+              f"{n['exists']} exists and {n['payload']} payload launches")
         if name == "q9":
-            captured["exists"] = seen
+            captured["exists"], captured["payload"] = seen, pseen
         check(all(k.split()[1].startswith("staged") for k in n["by_instance"]),
               f"{name}: launches by instance {n['by_instance']}")
         check_vector_probes(name, n)
@@ -1774,7 +1993,17 @@ def run_string_queries(connectors: dict, sf: float = 1, device: str = "cuda") ->
         fallbacks = {k: v for k, v in route.items()
                      if k.startswith(("join.pallas_fallback", "exec.leaf_route_fallback"))}
         check(not fallbacks, f"{name}: fallbacks counted {fallbacks}")
+        # the filtered table's splits come from the connector aligned: the
+        # staged instance of the pattern's matcher, every launch
+        pattern = captured["like"][name][1]
+        staged = f"staged_{cuda_strings.like_kernel_program(pattern)[0]}"
+        check(n["like_by_instance"] == {staged: n["like"]},
+              f"{name}: LIKE launches by instance {n['like_by_instance']}, expected {staged}")
         out["like_launches"] += n["like"]
+        for key_, by in (("like_by_instance", n["like_by_instance"]),
+                         ("like_by_shape", n["like_by_shape"])):
+            for k, c in by.items():
+                out[key_][k] = out[key_].get(k, 0) + c
         out["launches"][name] = n
         t0 = time.perf_counter()
         again = session.sql(sqls[name])
@@ -1830,9 +2059,12 @@ def time_like(data: torch.Tensor, pattern: str, flush) -> dict:
     plain = lambda: cuda_strings.like_mask_plain(data, pattern)  # noqa: E731
     err = _mask_err(fn(), plain(), f"like_mask {pattern!r} at phase 5")
     n, w = data.shape
+    b, by = bound(n * (w + 1), n * w)
     return {"ms": device_ms(fn, 50, flush, kernel="like_kernel"), "call_ms": call_ms(fn, 50),
             "plain_ms": device_ms(plain, 5, flush), "rows": n, "width": w,
-            "pattern": pattern, "bytes": n * (w + 1), "ops": n * w, "err": err}
+            "pattern": pattern, "bytes": n * (w + 1), "ops": n * w, "err": err,
+            "bound_ms": b, "bound_by": by,
+            "instance": cuda_strings.like_instance(data.contiguous(), pattern)}
 
 
 def time_prefix(data: torch.Tensor, prefix: str, flush) -> dict:
@@ -2283,16 +2515,13 @@ def main() -> int:
         f"{len(lane_args[0])} values + {len(lane_args[2])} masks, {ln['instance']} instance")
 
     join = run_join_queries(flush)
-    ex, pay = join["exists"], join["payload"]
+    ex = join["exists"]
     exists_bound, exists_by = bound(ex["bytes"], ex["ops"])
-    payload_bound, payload_by = bound(pay["bytes"], pay["ops"])
-    probe_shapes = {"exists": {"q3 first lineitem split": probe_shape(ex)}, "sketch": {}}
+    probe_shapes = {"exists": {"q3 first lineitem split": probe_shape(ex)}, "sketch": {},
+                    "payload": {"q10 first lineitem split": probe_shape(join["payload"])}}
     log_probe("exists", "q3 first lineitem split", probe_shapes["exists"])
-    log(f"phase 5, payload_probe at phase 6's inputs (kernel device ms; call = wrapper, "
-        f"events; plain = device ms of its kernels): {pay['ms']:.4f} (call "
-        f"{pay['call_ms']:.4f}, plain {pay['plain_ms']:.4f}, bound {payload_bound:.4f}) at "
-        f"{pay['rows']} rows, {pay['key']} keys, {pay['nval']} value(s) over {pay['table']} "
-        f"slots; no single PyTorch call computes it")
+    log_probe("payload", "q10 first lineitem split", probe_shapes["payload"])
+    pay = probe_shapes["payload"]["q10 first lineitem split"]
 
     leaf = run_leaf_queries(flush)
     sp, res_ = leaf["split"], leaf["resident"]
@@ -2329,23 +2558,32 @@ def main() -> int:
     probe_shapes["exists"]["q9 first lineitem split"] = probe_shape(time_probe(
         "exists", strings["captured"]["exists"], strings["launches"]["q9"]["exists"], flush))
     log_probe("exists", "q9 first lineitem split", probe_shapes["exists"])
-    like_data, like_pattern = strings["captured"]["like"]
-    lk = time_like(like_data, like_pattern, flush)
-    lk_big = time_like(sf1_strings["TPC-H o_comment"], "%special%requests%", flush)
+    probe_shapes["payload"]["q9 first lineitem split"] = probe_shape(time_probe(
+        "payload", strings["captured"]["payload"], strings["launches"]["q9"]["payload"], flush))
+    log_probe("payload", "q9 first lineitem split", probe_shapes["payload"])
+    # the LIKE kernel at the main path's four shapes: each query's first
+    # split of the table it filters, and SF1 o_comment
+    like_shapes = {f"{name} first {STRING_QUERIES[name][1]} split": time_like(*args, flush)
+                   for name, args in strings["captured"]["like"].items()}
+    like_shapes["SF1 o_comment"] = time_like(sf1_strings["TPC-H o_comment"],
+                                             "%special%requests%", flush)
+    lk = like_shapes["q9 first part split"]
+    like_bound, like_by = lk["bound_ms"], lk["bound_by"]
     prefix_data, prefix = strings["captured"]["prefix"]
     px = time_prefix(prefix_data, prefix, flush)
-    like_bound, like_by = bound(lk["bytes"], lk["ops"])
-    big_bound, _ = bound(lk_big["bytes"], lk_big["ops"])
     prefix_bound, prefix_by = bound(px["bytes"], px["ops"])
-    log(f"phase 5, string kernels (kernel device ms; call = wrapper, events; plain = device "
-        f"ms of all its kernels; no single PyTorch call computes either): like_mask "
-        f"{lk['pattern']!r} at phase 8's first Q9 part split [{lk['rows']}, {lk['width']}] "
-        f"{lk['ms']:.4f} (call {lk['call_ms']:.4f}, plain {lk['plain_ms']:.4f}, bound "
-        f"{like_bound:.4f}); over SF1 o_comment [{lk_big['rows']}, {lk_big['width']}] "
-        f"{lk_big['pattern']!r} {lk_big['ms']:.4f} (call {lk_big['call_ms']:.4f}, plain "
-        f"{lk_big['plain_ms']:.4f}, bound {big_bound:.4f}); starts_with_mask {px['prefix']!r} "
-        f"at the pipeline's first part split [{px['rows']}, {px['width']}] {px['ms']:.4f} "
-        f"(call {px['call_ms']:.4f}, plain {px['plain_ms']:.4f}, bound {prefix_bound:.4f})")
+    for label, t in like_shapes.items():
+        log(f"phase 5, like_mask {t['pattern']!r} at {label} [{t['rows']}, {t['width']}], "
+            f"{t['instance']} instance (kernel device ms; call = wrapper, events; plain = device "
+            f"ms of all its kernels; no single PyTorch call computes it): {t['ms']:.4f} (call "
+            f"{t['call_ms']:.4f}, plain {t['plain_ms']:.4f}, bound {t['bound_ms']:.4f} by "
+            f"{t['bound_by']})")
+    log(f"  LIKE launches on the main path (phase 8): {strings['like_launches']}, by instance "
+        f"{strings['like_by_instance']}, by rows x width {strings['like_by_shape']}")
+    log(f"phase 5, starts_with_mask {px['prefix']!r} at the pipeline's first part split "
+        f"[{px['rows']}, {px['width']}] (kernel device ms; call = wrapper, events; plain = "
+        f"device ms of all its kernels): {px['ms']:.4f} (call {px['call_ms']:.4f}, plain "
+        f"{px['plain_ms']:.4f}, bound {prefix_bound:.4f})")
     for name, (first, second, busy, scan) in strings["walls"].items():
         log(f"  wall {name}: first {first:.3f} s, second {second:.3f} s, device busy "
             f"{busy:.1f} ms, connector scans {scan:.3f} s")
@@ -2367,7 +2605,7 @@ def main() -> int:
     sk = probe_shapes["sketch"]["q4 approx first orders split"]
     sketch_bound, sketch_by = sk["bound_ms"], sk["bound_by"]
     totals = probe_launch_totals(join["launches"], strings["launches"], semi["launches"])
-    log(f"  exists and sketch launches on the main path (phases 6, 8, 9): {totals}")
+    log(f"  exists, sketch and payload launches on the main path (phases 6, 8, 9): {totals}")
     q3_one = time_q3(semi["q3"], 1, flush)
     q3_ten = time_q3(semi["q3"], FACTOR, flush)
     q3_bound, q3_by = bound(q3_one["bytes"], q3_one["ops"])
@@ -2454,10 +2692,16 @@ def main() -> int:
          "source": "presto_tpu_torch/csrc/join_probe.cu",
          "replaces": "presto_tpu/ops/pallas_join.py:305",
          "jax_function": "presto_tpu/ops/pallas_join.py:372 payload_probe",
-         "launches": pay["launches"], "max_abs_err": max(payload_err, pay["err"]),
+         "launches": totals["payload"]["launches"],
+         "launches_by_shape": totals["payload"]["by_shape"],
+         "launches_by_instance": totals["payload"]["by_instance"],
+         "max_abs_err": max([payload_err] + [t["err"] for t in probe_shapes["payload"].values()]),
          "ms": pay["ms"], "kernel_ms": pay["ms"], "call_ms": pay["call_ms"],
-         "plain_ms": pay["plain_ms"], "bound_ms": payload_bound, "bound_by": payload_by,
-         "library_ms": None, "rows": pay["rows"], "bytes": pay["bytes"], "ops": pay["ops"]},
+         "plain_ms": pay["plain_ms"], "bound_ms": pay["bound_ms"], "bound_by": pay["bound_by"],
+         "library_ms": None, "rows": pay["rows"], "bytes": pay["bytes"], "ops": pay["ops"],
+         "probe_ms": pay["probe_ms"], "instance": pay["instance"],
+         "contract_ms": pay["contract_ms"], "contract_bound_ms": pay["contract_bound_ms"],
+         "shapes": probe_shapes["payload"]},
         {"name": "leaf_agg", "route": "cuda", "source": "presto_tpu_torch/csrc/leaf_agg.cu",
          "replaces": "presto_tpu/ops/pallas_agg.py:180",
          "jax_function": "presto_tpu/ops/pallas_agg.py:246 _pallas_step (via agg_step :346)",
@@ -2476,14 +2720,15 @@ def main() -> int:
         {"name": "like_mask", "route": "cuda", "source": "presto_tpu_torch/csrc/strings.cu",
          "replaces": "presto_tpu/ops/pallas_strings.py:118",
          "jax_function": "presto_tpu/ops/pallas_strings.py:190 like_mask_pallas",
-         "launches": strings["like_launches"], "max_abs_err": max(like_err, lk["err"],
-                                                                   lk_big["err"]),
+         "launches": strings["like_launches"],
+         "launches_by_instance": strings["like_by_instance"],
+         "launches_by_shape": strings["like_by_shape"],
+         "max_abs_err": max([like_err] + [t["err"] for t in like_shapes.values()]),
          "ms": lk["ms"], "kernel_ms": lk["ms"], "call_ms": lk["call_ms"],
          "plain_ms": lk["plain_ms"], "bound_ms": like_bound, "bound_by": like_by,
          "library_ms": None, "rows": lk["rows"], "width": lk["width"], "bytes": lk["bytes"],
-         "ops": lk["ops"], "pattern": lk["pattern"], "o_comment_ms": lk_big["ms"],
-         "o_comment_call_ms": lk_big["call_ms"], "o_comment_plain_ms": lk_big["plain_ms"],
-         "o_comment_bound_ms": big_bound, "o_comment_rows": lk_big["rows"]},
+         "ops": lk["ops"], "pattern": lk["pattern"], "instance": lk["instance"],
+         "shapes": like_shapes},
         {"name": "starts_with_mask", "route": "cuda",
          "source": "presto_tpu_torch/csrc/strings.cu",
          "replaces": "presto_tpu/ops/pallas_strings.py:246",

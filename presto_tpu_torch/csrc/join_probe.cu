@@ -6,9 +6,12 @@
 // - exists:  hit = kmin <= key <= kmax && bit (key - kmin) of the int32
 //            word table is set; out = live && valid && hit (keep), or
 //            live && !(valid && hit) (anti), bool.
-// - payload: hit = live && kmin <= key <= kmax && present[key - kmin];
-//            matched = hit, and each of the nval int32 value tables gives
-//            out_j = hit ? table_j[key - kmin] : 0.
+// - payload: hit = live && valid && kmin <= key <= kmax && present[key -
+//            kmin]; matched = hit (and, for an inner join, its new live
+//            mask: the same bytes in a tensor of its own), and each of the
+//            nval int32 value tables gives out_j = hit ? table_j[key -
+//            kmin] : 0, stored in the build column's width (1, 2 or 4
+//            bytes truncated, 8 sign-extended, as .to(dtype) casts).
 // - sketch:  (s1, s2) = the two Bloom slots of int32(key) (the murmur3
 //            finalizer of the key and of key ^ kSketchSeed, masked to
 //            nbits, as ops/hashing.py::mix32_slots; int8 and int16 keys
@@ -23,9 +26,9 @@
 // formed only under that test.
 //
 // Bound on the H100: the bytes moved. A probe row reads its key (1, 2 or
-// 4 bytes as the connector narrowed it) and its live byte and writes one
-// bool (payload: plus 4 bytes per value column; the exists and sketch
-// probes: plus the validity byte when the key has one); at 3.35 TB/s a
+// 4 bytes as the connector narrowed it), its live byte and, when the key
+// has one, its validity byte, and writes one bool (payload: one or two
+// mask bytes, plus each value in its column's width); at 3.35 TB/s a
 // 2^20-row exists probe of int32 keys moves 6 MB, about 2 us. The exists,
 // payload and sketch tables are at most 64 KB (16384 words), so after the
 // first touches they live in L1/L2 and their reads cost no device-memory
@@ -33,93 +36,106 @@
 // 1, live 1) and its bitmask (750 KB at SF1) stays in L2: lineitem
 // arrives order by order, so neighbouring rows hit the same words.
 //
-// The exists and sketch probes are latency-bound at the main path's
-// sizes (131,072 to 2^20 rows): a row's table read waits on its key. So
-// each thread of their vector instance owns a group of R = 16 / key
-// bytes consecutive rows (4 int32, 8 int16 or 16 int8 keys) and issues
-// every load of the group before it uses one: one 16-byte load of keys,
-// one R-byte load of live bytes (and of validity bytes), then all the
-// group's table words (R for exists, 2R for sketch) through the
-// read-only path, independent of each other, then one R-byte store. A
-// thread pays two round trips, not two a row. A dead row or a NULL key
-// reads word 0, which its warp shares, so only live keys gather. The
-// grid covers ceil(n / R) threads, in blocks of 256 when that gives
-// every SM a block and of 128 otherwise, so 2^20 int32 rows are one wave
-// and 131,072 rows spread over every SM; past one wave a thread takes
-// further groups and issues the next group's key and live loads before
-// the current group's table reads. The tables stay in L2 through __ldg
-// (staging 64 KB in every block would move more bytes than the probe
-// reads); the threads first ask L2 for the table's lines, so a cold
+// The exists, sketch and payload probes are latency-bound at the main
+// path's sizes (131,072 to 2^20 rows): a row's table read waits on its
+// key. So each thread of their vector instances owns a group of R = 16 /
+// key bytes consecutive rows (4 int32, 8 int16 or 16 int8 keys) and
+// issues every load of the group before it uses one: one 16-byte load of
+// keys, one R-byte load of live bytes (and of validity bytes), then all
+// the group's table words (R for exists and payload's present test, 2R
+// for sketch), independent of each other, then R-byte stores. A thread
+// pays two round trips, not two a row. A dead row or a NULL key reads
+// word 0, which its warp shares, so only live keys gather. The grid
+// covers ceil(n / R) threads, in blocks of 256 when that gives every SM a
+// block and of 128 otherwise, so 2^20 int32 rows are one wave and 131,072
+// rows spread over every SM; past one wave a thread takes further groups
+// and issues the next group's key and live loads before the current
+// group's table reads. The exists and sketch tables stay in L2 through
+// __ldg (staging 64 KB in every block would move more bytes than the
+// probe reads); the threads first ask L2 for the table's lines, so a cold
 // launch's table reads do not wait on device memory. The ragged tail (n
-// mod R rows) is done a row a thread in the same launch. A view that
-// does not start aligned to its group (keys 16 bytes, live, validity
-// and out R bytes) takes the scalar instance, a row a thread. Both take
-// an output mode at compile time: keep (out = live && valid && hit: the
-// semi join's and the payload-free inner join's new live mask, and the
-// plain probe with no validity) or anti (out = live && !(valid && hit):
-// a NULL key is kept). No validity pointer means every key is valid.
-// Every output byte is 0 or 1.
+// mod R rows) is done a row a thread in the same launch. A view that does
+// not start aligned to its group (keys 16 bytes, live, validity and the
+// masks R bytes) takes a scalar instance, a row a thread. The exists and
+// sketch kernels take an output mode at compile time: keep (out = live &&
+// valid && hit: the semi join's and the payload-free inner join's new live
+// mask, and the plain probe with no validity) or anti (out = live &&
+// !(valid && hit): a NULL key is kept). No validity pointer means every
+// key is valid. Every output byte of a mask is 0 or 1.
 //
-// The payload probe and the q3 step keep one thread per row in a
-// grid-stride loop, keys read in their stored width (a template per
-// width, chosen once per launch; the q3 step reads its four columns
-// through load_int), table words through the read-only cache. The q3
-// step keeps an int64 count and revenue per thread, reduces them by warp
+// The payload kernel does the operator's whole probe batch in its launch:
+// the probe key's validity, the narrowing of each value to its build
+// column's storage type and the inner join's new live mask, where the
+// operator used to add 2-4 launches around the probe. Its tables are small
+// on the main path (Q10's and Q9's nation joins: 64 slots, 256 bytes), so
+// when present and values together hold at most 2048 slots (8 KB) every
+// block copies them into shared memory first (the staged instances: a
+// gather is then a shared-memory load, not an L1/L2 round trip; the copy
+// overlaps the first group's key loads, which are issued before it);
+// larger tables are read through __ldg after an L2 prefetch, as the exists
+// table is. Its vector instances give a thread 4 rows whatever the key
+// width (a first version gave it the exists probe's 16-byte group, 16
+// int8 rows, and ran slower than the kernel it replaced: 2^20 rows were
+// 16 warps an SM, too few to hide a round trip). A thread holds its 4
+// slots and hit bits and walks the value columns one at a time: 4
+// independent table reads, then the column's 4 values in one store of 4
+// to 32 bytes. The width is the same for every thread of a launch, so its
+// switch does not diverge.
+//
+// The q3 step keeps one thread per row in a grid-stride loop, its four
+// columns read through load_int, table words through the read-only cache.
+// It keeps an int64 count and revenue per thread, reduces them by warp
 // shuffles and a shared-memory pass per block, and adds each block's two
 // totals with one 64-bit atomic each (integers, so the order of the adds
 // changes nothing). Every launcher sizes its grid from a cached count of
-// resident blocks (common.cuh: grid_blocks), with no runtime query
-// after a kernel's first launch. The TPU kernels' 128-lane table
-// replication, [blocks, 128] reshapes, capacity-multiple rule, bitmask
-// partitions and 8-bit revenue lanes have no counterpart: any capacity
-// works and the ragged tail is masked.
+// resident blocks (common.cuh: grid_blocks), with no runtime query after a
+// kernel's first launch. The TPU kernels' 128-lane table replication,
+// [blocks, 128] reshapes, capacity-multiple rule, bitmask partitions and
+// 8-bit revenue lanes have no counterpart: any capacity works and the
+// ragged tail is masked.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;  // payload and q3
-constexpr int kRows = 4;       // rows a payload or q3 thread covers per grid pass, for sizing
-// exists and sketch: blocks of 256 threads when the launch has a block's
-// worth for every SM, else of 128, so a small launch still spreads over
-// every SM
+constexpr int kThreads = 256;  // q3
+constexpr int kRows = 4;       // rows a q3 thread covers per grid pass, for sizing
+// exists, sketch and payload: blocks of 256 threads when the launch has a
+// block's worth for every SM, else of 128, so a small launch still
+// spreads over every SM
 constexpr int kProbeThreads = 256;
 constexpr int kSmallProbeThreads = 128;
 constexpr int kMaxValues = 16;
+// payload: the table slots (present + values, int32) a block stages in
+// shared memory, 8 KB; larger tables are read through the read-only path
+constexpr int kStagedSlots = 2048;
 constexpr uint32_t kSketchSeed = 0x9E3779B9u;  // ops/hashing.py SKETCH_SEED
 
 // the exists and sketch instances, in the launch entries' numbering
 enum Instance : int { kVector = 0, kScalar = 1 };
-
-struct PayloadArgs {
-  const int32_t* table[kMaxValues];
-  int32_t* out[kMaxValues];
+// the payload instances (cuda_join.PAYLOAD_INSTANCES): a thread a group
+// of rows or a row a thread, the tables staged in shared memory or not
+enum PayloadInstance : int {
+  kVectorStaged = 0,
+  kVectorGlobal = 1,
+  kScalarStaged = 2,
+  kScalarGlobal = 3,
 };
 
-template <typename K>
-__device__ __forceinline__ bool in_domain(const K* keys, const bool* live, int64_t i,
-                                          long long kmin, long long kmax, int32_t* slot) {
-  const long long k = static_cast<long long>(keys[i]);
-  const bool inr = live[i] && k >= kmin && k <= kmax;
-  *slot = inr ? static_cast<int32_t>(k - kmin) : 0;
-  return inr;
-}
-
-template <typename K>
-__global__ void __launch_bounds__(kThreads)
-payload_kernel(const K* __restrict__ keys, const bool* __restrict__ live, int64_t n,
-               const int32_t* __restrict__ present, PayloadArgs a, int nval,
-               long long kmin, long long kmax, bool* __restrict__ matched) {
-  const int64_t step = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
-       i += step) {
-    int32_t slot;
-    const bool inr = in_domain(keys, live, i, kmin, kmax, &slot);
-    const bool hit = inr && __ldg(&present[slot]) != 0;
-    matched[i] = hit;
-    for (int j = 0; j < nval; ++j) a.out[j][i] = hit ? __ldg(&a.table[j][slot]) : 0;
-  }
-}
+// Everything of a payload launch but the keys and the live mask.
+struct PayloadArgs {
+  const int32_t* present;
+  const int32_t* table[kMaxValues];
+  void* out[kMaxValues];
+  int width[kMaxValues];  // bytes of out[j]'s elements: 1, 2, 4 or 8
+  const uint8_t* valid;   // null: every key valid
+  uint8_t* matched;
+  uint8_t* live_out;      // null: no new live mask (the inner join's)
+  long long kmin;
+  long long kmax;
+  long long domain;       // kmax - kmin + 1: the slots of each table a probe reads
+  int nval;
+};
 
 // murmur3 finalizer (ops/hashing.py::mix32 on the unsigned bit pattern)
 __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
@@ -393,6 +409,247 @@ sketch_kernel(SketchProbe p, const K* __restrict__ keys, const uint8_t* __restri
   }
 }
 
+// ---------------------------------------------------------------------------
+// payload: the present test and the value gathers of a group of rows,
+// the values narrowed to their columns' storage widths.
+// ---------------------------------------------------------------------------
+
+// slot s of the table at `g` (global) or at `sm` (its staged copy)
+template <bool Staged>
+__device__ __forceinline__ int32_t slot_value(const int32_t* g, const int32_t* sm, uint32_t s) {
+  if constexpr (Staged) {
+    return sm[s];
+  } else {
+    return __ldg(g + s);
+  }
+}
+
+// NW consecutive words at word offset g * NW of `p` in one store (NW 1,
+// 2) or NW / 4 16-byte stores; `p` aligned to min(16, 4 * NW) bytes
+template <int NW>
+__device__ __forceinline__ void store_words(void* p, int64_t g, const uint32_t (&w)[NW]) {
+  if constexpr (NW == 1) {
+    reinterpret_cast<unsigned int*>(p)[g] = w[0];
+  } else if constexpr (NW == 2) {
+    reinterpret_cast<uint2*>(p)[g] = make_uint2(w[0], w[1]);
+  } else {
+    static_assert(NW % 4 == 0, "whole 16-byte stores");
+    uint4* q = reinterpret_cast<uint4*>(p) + g * (NW / 4);
+#pragma unroll
+    for (int i = 0; i < NW / 4; ++i)
+      q[i] = make_uint4(w[4 * i], w[4 * i + 1], w[4 * i + 2], w[4 * i + 3]);
+  }
+}
+
+// R int32 values of group g into an output of W-byte elements: truncated
+// to W < 4 bytes, sign-extended to W = 8 (the casts of .to(dtype))
+template <int R, int W>
+__device__ __forceinline__ void store_narrowed(void* out, int64_t g, const int32_t (&v)[R]) {
+  constexpr int NW = R * W / 4;
+  uint32_t q[NW];
+#pragma unroll
+  for (int i = 0; i < NW; ++i) q[i] = 0;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const uint32_t u = static_cast<uint32_t>(v[r]);
+    if constexpr (W == 8) {
+      q[2 * r] = u;
+      q[2 * r + 1] = static_cast<uint32_t>(v[r] >> 31);
+    } else if constexpr (W == 4) {
+      q[r] = u;
+    } else {
+      q[r * W / 4] |= (u & ((1u << (8 * W)) - 1u)) << ((r * W) % 4 * 8);
+    }
+  }
+  store_words<NW>(out, g, q);
+}
+
+template <int R>
+__device__ __forceinline__ void store_group_values(void* out, int width, int64_t g,
+                                                   const int32_t (&v)[R]) {
+  switch (width) {  // the same for every thread
+    case 1: store_narrowed<R, 1>(out, g, v); break;
+    case 2: store_narrowed<R, 2>(out, g, v); break;
+    case 4: store_narrowed<R, 4>(out, g, v); break;
+    default: store_narrowed<R, 8>(out, g, v); break;
+  }
+}
+
+__device__ __forceinline__ void store_value(void* out, int width, int64_t i, int32_t v) {
+  switch (width) {
+    case 1: static_cast<int8_t*>(out)[i] = static_cast<int8_t>(v); break;
+    case 2: static_cast<int16_t*>(out)[i] = static_cast<int16_t>(v); break;
+    case 4: static_cast<int32_t*>(out)[i] = v; break;
+    default: static_cast<long long*>(out)[i] = v; break;
+  }
+}
+
+// the slot a key reads and whether it can hit: live, valid and in the
+// domain (compared in 64 bits, never through key - kmin); any other row
+// reads slot 0, which the warp shares
+__device__ __forceinline__ bool payload_slot(const PayloadArgs& a, int32_t key, uint32_t live,
+                                             uint32_t valid, uint32_t* s) {
+  const long long k = key;
+  const bool inr = live != 0 && valid != 0 && k >= a.kmin && k <= a.kmax;
+  *s = inr ? static_cast<uint32_t>(k - a.kmin) : 0u;
+  return inr;
+}
+
+// one row, by plain loads (the ragged tail and the scalar instances)
+template <bool Staged, typename K>
+__device__ __forceinline__ void payload_row(const PayloadArgs& a, const int32_t* stage,
+                                            const K* __restrict__ keys,
+                                            const uint8_t* __restrict__ live, int64_t i) {
+  uint32_t s;
+  const bool inr = payload_slot(a, static_cast<int32_t>(keys[i]), live[i],
+                                a.valid == nullptr ? 1u : a.valid[i], &s);
+  const bool hit = inr && slot_value<Staged>(a.present, stage, s) != 0;
+  a.matched[i] = hit;
+  if (a.live_out != nullptr) a.live_out[i] = hit;
+  for (int j = 0; j < a.nval; ++j) {
+    const int32_t v = slot_value<Staged>(a.table[j], stage + (1 + j) * a.domain, s);
+    store_value(a.out[j], a.width[j], i, hit ? v : 0);
+  }
+}
+
+// The payload kernel's vector instances: a thread owns 4 consecutive rows
+// whatever the key width (16 int8 rows a thread would leave 2^20 rows to
+// 16 warps an SM, too few to hide a load's latency): one 4-, 8- or
+// 16-byte load of keys and 4-byte loads of live and validity bytes.
+constexpr int kPayloadRows = 4;
+
+struct PayloadGroup {
+  int32_t key[kPayloadRows];
+  RowBytes<kPayloadRows> live;
+  RowBytes<kPayloadRows> valid;
+};
+
+template <typename K>
+__device__ __forceinline__ PayloadGroup load_payload_group(const K* keys, const uint8_t* live,
+                                                           const uint8_t* valid, int64_t g) {
+  PayloadGroup x;
+  if constexpr (sizeof(K) == 4) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(keys) + g);
+    x.key[0] = static_cast<int32_t>(v.x);
+    x.key[1] = static_cast<int32_t>(v.y);
+    x.key[2] = static_cast<int32_t>(v.z);
+    x.key[3] = static_cast<int32_t>(v.w);
+  } else if constexpr (sizeof(K) == 2) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(keys) + g);
+    x.key[0] = static_cast<int16_t>(v.x & 0xFFFFu);
+    x.key[1] = static_cast<int16_t>(v.x >> 16);
+    x.key[2] = static_cast<int16_t>(v.y & 0xFFFFu);
+    x.key[3] = static_cast<int16_t>(v.y >> 16);
+  } else {
+    const uint32_t v = __ldg(reinterpret_cast<const unsigned int*>(keys) + g);
+#pragma unroll
+    for (int r = 0; r < kPayloadRows; ++r) x.key[r] = static_cast<int8_t>(v >> (8 * r));
+  }
+  x.live = load_bytes<kPayloadRows>(live, g);
+  x.valid.w[0] = valid == nullptr ? 0x01010101u : load_bytes<kPayloadRows>(valid, g).w[0];
+  return x;
+}
+
+// A loaded group: its 4 present words are read before any is tested,
+// then the mask bytes are stored (one 4-byte store each); then, a value
+// column at a time with the group's slots held, its 4 words are read
+// before any is used and stored in the column's width (4 to 32 bytes).
+template <bool Staged>
+__device__ __forceinline__ void payload_group(const PayloadArgs& a, const int32_t* stage,
+                                              const PayloadGroup& x, int64_t g) {
+  constexpr int R = kPayloadRows;
+  uint32_t s[R];
+  bool inr[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    inr[r] = payload_slot(a, x.key[r], byte_of(x.live, r), byte_of(x.valid, r), &s[r]);
+  int32_t p[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) p[r] = slot_value<Staged>(a.present, stage, s[r]);
+  uint32_t hits = 0;
+  RowBytes<R> m;
+  m.w[0] = 0;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const uint32_t h = inr[r] && p[r] != 0;
+    hits |= h << r;
+    m.w[0] |= h << (r * 8);
+  }
+  store_bytes<R>(a.matched, g, m);
+  if (a.live_out != nullptr) store_bytes<R>(a.live_out, g, m);
+  for (int j = 0; j < a.nval; ++j) {
+    const int32_t* sm = stage + (1 + j) * a.domain;
+    int32_t v[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) v[r] = slot_value<Staged>(a.table[j], sm, s[r]);
+#pragma unroll
+    for (int r = 0; r < R; ++r) v[r] = (hits >> r) & 1u ? v[r] : 0;
+    store_group_values<R>(a.out[j], a.width[j], g, v);
+  }
+}
+
+// Copy the present and value tables' first `domain` slots into `stage`
+// (present first, then each value table), or ask L2 for their lines.
+template <bool Staged>
+__device__ __forceinline__ void payload_tables(const PayloadArgs& a, int32_t* stage, int64_t t,
+                                               int64_t step) {
+  if constexpr (Staged) {
+    // one flat pass over every table's slots, so a block's threads load
+    // them all at once (a pass per table would wait out a round trip each)
+    const int d = static_cast<int>(a.domain);
+    const int total = (1 + a.nval) * d;
+    for (int f = threadIdx.x; f < total; f += blockDim.x) {
+      const int j = f / d - 1;
+      stage[f] = __ldg((j < 0 ? a.present : a.table[j]) + (f - (j + 1) * d));
+    }
+    __syncthreads();
+  } else {
+    const int64_t lines = (a.domain + 31) / 32;
+    for (int j = -1; j < a.nval; ++j) {
+      const int32_t* src = j < 0 ? a.present : a.table[j];
+      for (int64_t line = t; line < lines; line += step)
+        asm volatile("prefetch.L2 [%0];" ::"l"(src + 32 * line));
+    }
+  }
+}
+
+// The payload kernel. The vector instances: thread t owns groups t, t +
+// stride, ...; its first group's key, live and validity loads are issued
+// before the tables are staged, and each next group's before the current
+// group's table reads; the n mod R rows past the last whole group go a
+// row a thread. The scalar instances: a row a thread, grid-stride.
+template <typename K, bool Vector, bool Staged>
+__global__ void __launch_bounds__(kProbeThreads)
+payload_kernel(PayloadArgs a, const K* __restrict__ keys, const uint8_t* __restrict__ live,
+               int64_t n) {
+  __shared__ int32_t stage[Staged ? kStagedSlots : 1];
+  constexpr int R = kPayloadRows;
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  if constexpr (Vector) {
+    const int64_t groups = n / R;
+    PayloadGroup cur;
+    if (t < groups) cur = load_payload_group(keys, live, a.valid, t);
+    payload_tables<Staged>(a, stage, t, step);  // every thread reaches the barrier
+    if (t < groups) {
+      for (int64_t g = t;;) {
+        const int64_t next = g + step;
+        const bool more = next < groups;
+        PayloadGroup ahead = cur;
+        if (more) ahead = load_payload_group(keys, live, a.valid, next);
+        payload_group<Staged>(a, stage, cur, g);
+        if (!more) break;
+        cur = ahead;
+        g = next;
+      }
+    }
+    if (t < n - groups * R) payload_row<Staged>(a, stage, keys, live, groups * R + t);
+  } else {
+    payload_tables<Staged>(a, stage, t, step);
+    for (int64_t i = t; i < n; i += step) payload_row<Staged>(a, stage, keys, live, i);
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
 q3_kernel(const void* __restrict__ keys, int ksz, const void* __restrict__ ship, int ssz,
           const void* __restrict__ ep, int esz, const void* __restrict__ disc, int dsz,
@@ -505,17 +762,29 @@ cudaError_t probe_args_ok(int key_size, int instance, const void* keys, const vo
   return cudaSuccess;
 }
 
+// Launch one payload instance: the vector ones cover ceil(n / R) threads
+// (at least the n mod R tail rows), the scalar ones n.
 template <typename K>
-cudaError_t launch_payload(const void* keys, const void* live, int64_t n,
-                           const void* present, const PayloadArgs& a, int nval,
-                           long long kmin, long long kmax, void* matched,
-                           cudaStream_t stream) {
-  const int blocks = presto::grid_blocks(payload_kernel<K>, n, kThreads, 0, kRows);
-  payload_kernel<K><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const K*>(keys), static_cast<const bool*>(live), n,
-      static_cast<const int32_t*>(present), a, nval, kmin, kmax,
-      static_cast<bool*>(matched));
-  return cudaGetLastError();
+cudaError_t launch_payload(const PayloadArgs& a, int instance, const void* keys,
+                           const void* live, int64_t n, cudaStream_t stream) {
+  constexpr int64_t R = kPayloadRows;
+  const bool vector = instance == kVectorStaged || instance == kVectorGlobal;
+  const int64_t work = vector ? (n / R > n % R ? n / R : n % R) : n;
+  const int threads =
+      work >= static_cast<int64_t>(presto::sm_count()) * kProbeThreads ? kProbeThreads
+                                                                         : kSmallProbeThreads;
+  const auto go = [&](auto kernel) {
+    const int blocks = presto::grid_blocks(kernel, work, threads, 0, 1);
+    kernel<<<blocks, threads, 0, stream>>>(a, static_cast<const K*>(keys),
+                                           static_cast<const uint8_t*>(live), n);
+    return cudaGetLastError();
+  };
+  switch (instance) {
+    case kVectorStaged: return go(payload_kernel<K, true, true>);
+    case kVectorGlobal: return go(payload_kernel<K, true, false>);
+    case kScalarStaged: return go(payload_kernel<K, false, true>);
+    default: return go(payload_kernel<K, false, false>);
+  }
 }
 
 }  // namespace
@@ -547,26 +816,63 @@ extern "C" int exists_probe_launch(const void* keys, int key_size, const void* l
   }
 }
 
-// Launch the payload probe on `stream`: `present` and the `nval` value
-// tables (nval <= 16) each cover the domain; `outs` are int32[n] outputs.
+// Launch the payload probe on `stream`: hit = live && valid && kmin <=
+// key <= kmax && present[key - kmin]; matched (and live_out, when not
+// null: the inner join's new live mask) = hit, one bool a row; outs[j] =
+// hit ? tables[j][key - kmin] : 0 in elements of widths[j] bytes (1, 2 or
+// 4: truncated, 8: sign-extended). `present` and the nval <= 16 value
+// tables each cover the domain (checked in Python); `valid` may be null
+// (every key valid). `instance` (cuda_join.PAYLOAD_INSTANCES): 0 vector
+// staged, 1 vector, 2 scalar staged, 3 scalar. A vector instance needs
+// the keys aligned to 4 * key_size bytes, live, valid, matched and
+// live_out to 4 bytes and each out to min(16, 4 * width); a staged one
+// (1 + nval) * (kmax - kmin + 1) <= 2048 slots. Returns
+// cudaGetLastError() after the launch, cudaErrorInvalidValue for
+// arguments the kernel does not take, cudaErrorMisalignedAddress for a
+// vector launch on unaligned pointers.
 extern "C" int payload_probe_launch(const void* keys, int key_size, const void* live,
-                                    long long n, const void* present,
-                                    const void* const* tables, void* const* outs, int nval,
-                                    long long kmin, long long kmax, void* matched,
-                                    void* stream) {
-  if (nval < 0 || nval > kMaxValues) return static_cast<int>(cudaErrorInvalidValue);
-  if (n <= 0) return 0;
+                                    const void* valid, long long n, const void* present,
+                                    const void* const* tables, void* const* outs,
+                                    const int* widths, int nval, long long kmin,
+                                    long long kmax, int instance, void* matched,
+                                    void* live_out, void* stream) {
+  if ((key_size != 1 && key_size != 2 && key_size != 4) || nval < 0 || nval > kMaxValues ||
+      kmin > kmax || instance < kVectorStaged || instance > kScalarGlobal)
+    return static_cast<int>(cudaErrorInvalidValue);
   PayloadArgs a = {};
+  a.present = static_cast<const int32_t*>(present);
+  a.valid = static_cast<const uint8_t*>(valid);
+  a.matched = static_cast<uint8_t*>(matched);
+  a.live_out = static_cast<uint8_t*>(live_out);
+  a.kmin = kmin;
+  a.kmax = kmax;
+  a.nval = nval;
+  a.domain = kmax - kmin + 1;
+  const uintptr_t r = kPayloadRows;
+  const auto at = [](const void* p, uintptr_t align) {
+    return reinterpret_cast<uintptr_t>(p) % align == 0;
+  };
+  bool aligned = at(keys, r * key_size) && at(live, r) && (valid == nullptr || at(valid, r)) &&
+                 at(matched, r) && (live_out == nullptr || at(live_out, r));
   for (int j = 0; j < nval; ++j) {
+    const int w = widths[j];
+    if (w != 1 && w != 2 && w != 4 && w != 8) return static_cast<int>(cudaErrorInvalidValue);
     a.table[j] = static_cast<const int32_t*>(tables[j]);
-    a.out[j] = static_cast<int32_t*>(outs[j]);
+    a.out[j] = outs[j];
+    a.width[j] = w;
+    aligned = aligned && at(outs[j], r * w < 16 ? r * w : 16);
   }
+  const bool staged = instance == kVectorStaged || instance == kScalarStaged;
+  if (staged && static_cast<long long>(1 + nval) * a.domain > kStagedSlots)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if ((instance == kVectorStaged || instance == kVectorGlobal) && !aligned)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  if (n <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (key_size) {
-    case 1: return static_cast<int>(launch_payload<int8_t>(keys, live, n, present, a, nval, kmin, kmax, matched, s));
-    case 2: return static_cast<int>(launch_payload<int16_t>(keys, live, n, present, a, nval, kmin, kmax, matched, s));
-    case 4: return static_cast<int>(launch_payload<int32_t>(keys, live, n, present, a, nval, kmin, kmax, matched, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 1: return static_cast<int>(launch_payload<int8_t>(a, instance, keys, live, n, s));
+    case 2: return static_cast<int>(launch_payload<int16_t>(a, instance, keys, live, n, s));
+    default: return static_cast<int>(launch_payload<int32_t>(a, instance, keys, live, n, s));
   }
 }
 

@@ -17,10 +17,13 @@ Semi and anti joins (``IN`` / ``EXISTS`` and their negations) keep a
 probe row when its key exists (semi) or does not (anti) on the build
 side: the membership probes ``ops/join.probe_exists[_dense]``, or the
 exists or sketch kernels, whose ``_keep`` wrappers return the new live
-mask from one launch per batch. As in the JAX package, an anti join keeps a
-probe row whose key is NULL, a NULL build key matches nothing, and the
-sketch (false positives) serves semi joins only, and only on a batch
-whose capacity the JAX package's kernel could block (``probe_block``).
+mask from one launch per batch; inner and left joins on the payload
+tables also take one launch per batch (``payload_keep``: the key's
+validity, the values in their storage types and the inner join's live
+mask). As in the JAX package, an anti join keeps a probe row whose key
+is NULL, a NULL build key matches nothing, and the sketch (false
+positives) serves semi joins only, and only on a batch whose capacity
+the JAX package's kernel could block (``probe_block``).
 
 Stats are advisory. A live build key outside the planned domain, or a
 NULL in a payload column, discards the fused tables at build time
@@ -225,26 +228,29 @@ class LookupJoinOperator(Operator):
     def _pallas_probe(self, batch: Batch) -> Batch:
         spec, tables = self.build.pallas, self.build.pallas_side
         v = evaluate(self.probe_key, batch)
+        # the kernels fold the key's validity into their launch; a
+        # validity that IS the live mask adds nothing (live && live)
+        valid = None if v.valid is batch.live else v.valid
         if spec.mode != "payload":
-            # the kernel folds the key's validity and the keep rule into
-            # its launch and returns the new live mask; a validity that
-            # IS the live mask adds nothing (live && live)
-            valid = None if v.valid is batch.live else v.valid
+            # the kernel also folds the keep rule in and returns the new
+            # live mask
             live = (cuda_join.sketch_keep(tables[0], spec.nbits, v.data, batch.live, valid)
                     if spec.mode == "sketch" else
                     cuda_join.exists_keep(tables[0], spec.key_min, spec.key_max, v.data,
                                           batch.live, valid, self.join_type == "anti"))
             return batch.with_live(live)
-        plive = batch.live & valid_of(v.valid, batch.live)
-        matched, vals = cuda_join.payload_probe(tables, spec.key_min, spec.key_max,
-                                                v.data, plive)
+        # one launch: the key's validity, each value in its build column's
+        # storage type, and the inner join's new live mask (a tensor of
+        # its own; a left join keeps batch.live)
+        srcs = [self.build.payload[bo.source] for bo in self.build_outputs]
+        matched, vals, live = cuda_join.payload_keep(
+            tables, spec.key_min, spec.key_max, v.data, batch.live, valid,
+            [src.data.dtype for src in srcs], self.join_type == "inner")
         cols = dict(batch.columns)
-        for bo, pv in zip(self.build_outputs, vals):
-            src = self.build.payload[bo.source]
+        for bo, src, pv in zip(self.build_outputs, srcs, vals):
             # payload NULL-freedom was proven at build, so validity is
             # exactly the match mask
-            cols[bo.name] = Column(pv.to(src.data.dtype), matched, src.dtype, src.dictionary)
-        live = batch.live & matched if self.join_type == "inner" else batch.live
+            cols[bo.name] = Column(pv, matched, src.dtype, src.dictionary)
         return Batch(cols, live)
 
     def _check_probe_dict(self, batch: Batch):

@@ -35,8 +35,10 @@ PyTorch scatters; a LIVE build key outside the advisory domain sets
 wrong answer).
 
 What bounds the kernels on the H100: the bytes moved per probe row (the
-key in its stored width, the live byte, a bool out, 4 bytes per payload
-value); the tables are at most 64 KB and stay cached. See the header of
+key in its stored width, the live and validity bytes, one or two mask
+bytes out, each payload value in its storage width); the tables are at
+most 64 KB and stay cached (the payload kernel's small ones in shared
+memory). See the header of
 the CUDA source for the design.
 
 The semi/anti join operator takes its new live mask straight from the
@@ -45,14 +47,19 @@ probe key's validity and the join's keep rule (semi: ``live && valid &&
 hit``; anti: ``live && !(valid && hit)``) into the same launch, so a
 probe batch costs one device launch. ``exists_probe`` and
 ``sketch_probe`` are the same kernels with no validity (the JAX
-package's functions).
+package's functions). The inner and left joins' payload probe does the
+same through ``payload_keep``: the key's validity, each value narrowed to
+its build column's storage type, and the inner join's new live mask come
+from one launch; ``payload_probe`` is that kernel with int32 outputs and
+no validity.
 
 Each kernel's wrapper launches it on CUDA tensors and computes its plain
 version (``*_plain``) on CPU tensors; ``exists_launches``,
 ``payload_launches``, ``sketch_launches`` and ``q3_launches`` count
 launches, and ``launches_by_instance`` and ``launches_by_shape`` which
-instance of the exists and sketch kernels ran (:func:`instance`) and at
-how many rows. ``reset_launches()`` zeroes them all.
+instance of the exists, sketch and payload kernels ran (:func:`instance`,
+:func:`payload_instance`) and at how many rows. ``reset_launches()``
+zeroes them all.
 """
 
 from __future__ import annotations
@@ -87,25 +94,45 @@ _KEY_DTYPES = (torch.int8, torch.int16, torch.int32)
 #: numbering (see :func:`instance`): a thread a 16-byte group of rows, or
 #: a row a thread
 INSTANCES = ("vector", "scalar")
+#: the payload kernel's instances, in its launch entry's numbering (see
+#: :func:`payload_instance`): a group of rows or a row a thread, each
+#: with the tables staged in shared memory or read through the read-only
+#: path
+PAYLOAD_INSTANCES = ("vector_staged", "vector", "scalar_staged", "scalar")
+#: table slots (present + values) the payload kernel stages in shared
+#: memory (8 KB); larger tables take the instances that do not
+STAGED_SLOTS = 2048
+#: rows a thread of the payload kernel's vector instances owns
+PAYLOAD_GROUP_ROWS = 4
+#: storage types ``payload_keep`` writes values in (the int32 table
+#: values truncated or sign-extended, as ``.to(dtype)``)
+_VALUE_DTYPES = (torch.int8, torch.int16, torch.int32, torch.int64)
+_INSTANCES_OF = {"exists": INSTANCES, "sketch": INSTANCES, "payload": PAYLOAD_INSTANCES}
 
 #: kernel launches since the last reset (plain counters, set to 0 by
-#: whoever reads them: see :func:`reset_launches`); the exists and sketch
-#: kernels also by instance and by row count
+#: whoever reads them: see :func:`reset_launches`); the exists, sketch
+#: and payload kernels also by instance and by row count
 exists_launches = 0
 payload_launches = 0
 sketch_launches = 0
 q3_launches = 0
-launches_by_instance = {k: dict.fromkeys(INSTANCES, 0) for k in ("exists", "sketch")}
-launches_by_shape: dict[str, dict[int, int]] = {"exists": {}, "sketch": {}}
+launches_by_instance = {k: dict.fromkeys(v, 0) for k, v in _INSTANCES_OF.items()}
+launches_by_shape: dict[str, dict[int, int]] = {k: {} for k in _INSTANCES_OF}
 
 
 def reset_launches() -> None:
     """Set every launch counter of this module to 0."""
     global exists_launches, payload_launches, sketch_launches, q3_launches
     exists_launches = payload_launches = sketch_launches = q3_launches = 0
-    for kernel in launches_by_instance:
-        launches_by_instance[kernel] = dict.fromkeys(INSTANCES, 0)
+    for kernel, names in _INSTANCES_OF.items():
+        launches_by_instance[kernel] = dict.fromkeys(names, 0)
         launches_by_shape[kernel] = {}
+
+
+def _count(kernel: str, which: str, rows: int) -> None:
+    launches_by_instance[kernel][which] += 1
+    shape = launches_by_shape[kernel]
+    shape[rows] = shape.get(rows, 0) + 1
 
 
 def _pad8(n: int) -> int:
@@ -256,7 +283,7 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
     "exists_probe": [_P, _I, _P, _P, _LL, _P, _LL, _LL, _I, _I, _P, _P],
     "sketch_probe": [_P, _I, _P, _P, _LL, _P, _LL, _I, _P, _P],
-    "payload_probe": [_P, _I, _P, _LL, _P, _P, _P, _I, _LL, _LL, _P, _P],
+    "payload_probe": [_P, _I, _P, _P, _LL, _P, _P, _P, _P, _I, _LL, _LL, _I, _P, _P, _P],
     "q3_probe": [_P, _I] * 4 + [_P, _LL, _P, _LL, _LL, _LL, _P, _P],
 }
 
@@ -313,9 +340,7 @@ def _launch_membership(kernel: str, keys, live, valid, table, args) -> torch.Ten
         exists_launches += 1
     else:
         sketch_launches += 1
-    launches_by_instance[kernel][which] += 1
-    shape = launches_by_shape[kernel]
-    shape[k.shape[0]] = shape.get(k.shape[0], 0) + 1
+    _count(kernel, which, k.shape[0])
     return out
 
 
@@ -365,35 +390,84 @@ def exists_keep_plain(table, key_min: int, key_max: int, keys, live, valid, anti
     return _keep_plain(matched, live, anti)
 
 
+def payload_instance(tables, key_min: int, key_max: int, keys, live, valid=None) -> str:
+    """Which of ``PAYLOAD_INSTANCES`` the payload kernel runs for these
+    tensors: ``vector*`` when the keys start aligned to a group of
+    ``PAYLOAD_GROUP_ROWS`` keys and ``live`` and ``valid`` (if any) to as
+    many bytes (the outputs are always allocated aligned), else
+    ``scalar*``; ``*_staged`` when the present and value tables together
+    hold at most ``STAGED_SLOTS`` slots of the domain."""
+    r = PAYLOAD_GROUP_ROWS
+    staged = len(tables) * (key_max - key_min + 1) <= STAGED_SLOTS
+    vector = keys.data_ptr() % (r * keys.element_size()) == 0 and all(
+        t.data_ptr() % r == 0 for t in (live, valid) if t is not None)
+    return PAYLOAD_INSTANCES[(0 if vector else 2) + (0 if staged else 1)]
+
+
+def _check_payload(tables, key_min: int, key_max: int, keys, live, valid, out_dtypes):
+    _check(tables, key_min, key_max, keys, live, 1)
+    if len(tables) - 1 > MAX_VALUES:
+        raise InternalError(f"payload probe of {len(tables) - 1} value columns; "
+                            f"at most {MAX_VALUES}")
+    _check_valid(valid, keys)
+    if len(out_dtypes) != len(tables) - 1 or any(d not in _VALUE_DTYPES for d in out_dtypes):
+        raise InternalError(f"payload output types {list(out_dtypes)} for {len(tables) - 1} "
+                            "value columns: one signed integer type each")
+
+
 def payload_probe(tables, key_min: int, key_max: int, keys, live):
     """(matched bool [cap], [int32 [cap] per value table]): the build
     value at each matched probe key's slot, 0 where unmatched (callers
     set validity from ``matched``)."""
     tables = list(tables)
-    _check(tables, key_min, key_max, keys, live, 1)
-    if len(tables) - 1 > MAX_VALUES:
-        raise InternalError(f"payload probe of {len(tables) - 1} value columns; "
-                            f"at most {MAX_VALUES}")
+    matched, values, _ = payload_keep(tables, key_min, key_max, keys, live, None,
+                                      [torch.int32] * (len(tables) - 1), False)
+    return matched, values
+
+
+def payload_keep(tables, key_min: int, key_max: int, keys, live, valid, out_dtypes,
+                 inner: bool):
+    """An inner or left join's whole payload probe batch in one launch:
+    (matched bool [cap], [one [cap] tensor per value table, in
+    ``out_dtypes``], live). A row matches when ``live && valid`` and its
+    key is in the domain with its present bit set; each value is the
+    build value at the key's slot (0 where unmatched), written in its
+    build column's storage type (the int32 table value truncated or
+    sign-extended, as ``.to(dtype)``). ``matched`` is every value
+    column's validity. ``live`` is the inner join's new live mask
+    ``live && matched`` (a tensor of its own, equal to ``matched``), or
+    for a left join the ``live`` passed in. ``valid`` is the probe key's
+    validity, None when every key is valid."""
+    tables = list(tables)
+    _check_payload(tables, key_min, key_max, keys, live, valid, out_dtypes)
     if keys.device.type == "cpu":
-        return payload_probe_plain(tables, key_min, key_max, keys, live)
+        return payload_keep_plain(tables, key_min, key_max, keys, live, valid, out_dtypes,
+                                  inner)
     if keys.device.type != "cuda":
         raise InternalError(f"payload_probe: no kernel for {keys.device}")
     global payload_launches
     k, lv = keys.contiguous(), live.contiguous()
+    vd = None if valid is None else valid.contiguous()
     present, vtabs = tables[0].contiguous(), [t.contiguous() for t in tables[1:]]
     matched = torch.empty(k.shape, dtype=torch.bool, device=k.device)
-    outs = [torch.empty(k.shape, dtype=torch.int32, device=k.device) for _ in vtabs]
+    new_live = torch.empty(k.shape, dtype=torch.bool, device=k.device) if inner else None
+    outs = [torch.empty(k.shape, dtype=d, device=k.device) for d in out_dtypes]
+    which = payload_instance(tables, key_min, key_max, k, lv, vd)
     lib, fn = _launcher("payload_probe")
     tptr = (ctypes.c_void_p * MAX_VALUES)(*[t.data_ptr() for t in vtabs])
     optr = (ctypes.c_void_p * MAX_VALUES)(*[o.data_ptr() for o in outs])
+    widths = (ctypes.c_int * MAX_VALUES)(*[o.element_size() for o in outs])
     with torch.cuda.device(k.device):
         stream = torch.cuda.current_stream(k.device).cuda_stream
-        code = fn(k.data_ptr(), k.element_size(), lv.data_ptr(), k.shape[0],
-                  present.data_ptr(), ctypes.addressof(tptr), ctypes.addressof(optr),
-                  len(vtabs), key_min, key_max, matched.data_ptr(), stream)
+        code = fn(k.data_ptr(), k.element_size(), lv.data_ptr(),
+                  None if vd is None else vd.data_ptr(), k.shape[0], present.data_ptr(),
+                  ctypes.addressof(tptr), ctypes.addressof(optr), ctypes.addressof(widths),
+                  len(vtabs), key_min, key_max, PAYLOAD_INSTANCES.index(which),
+                  matched.data_ptr(), None if new_live is None else new_live.data_ptr(), stream)
     _build.check_launch(lib, "join_probe", code)
     payload_launches += 1
-    return matched, outs
+    _count("payload", which, k.shape[0])
+    return matched, outs, (new_live if inner else live)
 
 
 def payload_probe_plain(tables, key_min: int, key_max: int, keys, live):
@@ -404,6 +478,20 @@ def payload_probe_plain(tables, key_min: int, key_max: int, keys, live):
     hit = inr & (tables[0][slot] != 0)
     zero = torch.zeros(keys.shape, dtype=torch.int32, device=keys.device)
     return hit, [torch.where(hit, t[slot], zero) for t in tables[1:]]
+
+
+def payload_keep_plain(tables, key_min: int, key_max: int, keys, live, valid, out_dtypes,
+                       inner: bool):
+    """The plain PyTorch version of ``payload_keep``: the operator's
+    composition around ``payload_probe_plain`` (the probe live mask, the
+    probe, each value cast to its type, the inner join's ``live &
+    matched``)."""
+    tables = list(tables)
+    _check_payload(tables, key_min, key_max, keys, live, valid, out_dtypes)
+    matched, values = payload_probe_plain(tables, key_min, key_max, keys,
+                                          _probe_live(live, valid))
+    values = [v.to(d) for v, d in zip(values, out_dtypes)]
+    return matched, values, (live & matched if inner else live)
 
 
 def _check_sketch(table, nbits: int, keys, live):

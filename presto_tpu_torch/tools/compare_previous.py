@@ -3,15 +3,17 @@
 Run from the root of a checkout, with an earlier commit's kernel sources
 unpacked under ``local/`` (which ``.gitignore`` lists)::
 
-    mkdir -p local/prev6 local/prev7
+    mkdir -p local/prev6 local/prev7 local/prev8
     git archive e170780 presto_tpu_torch/csrc | tar -x -C local/prev6
     git archive 17cb3ec presto_tpu_torch/csrc | tar -x -C local/prev7
+    git archive 0d9b82d presto_tpu_torch/csrc | tar -x -C local/prev8
     python3 -m presto_tpu_torch.tools.compare_previous \
         --leaf-lane local/prev6/presto_tpu_torch/csrc \
-        --probes local/prev7/presto_tpu_torch/csrc
+        --probes local/prev7/presto_tpu_torch/csrc \
+        --payload-like local/prev8/presto_tpu_torch/csrc
 
-Either option may be given alone. The earlier sources are built with
-this checkout's nvcc flags into ``build/`` beside them.
+Any of the options may be given alone. The earlier sources are built
+with this checkout's nvcc flags into ``build/`` beside them.
 
 ``--leaf-lane``: the leaf-aggregation and lane-sums kernels before their
 Hopper redesign. The sources must come from a commit whose
@@ -41,6 +43,25 @@ the kernel, ``~`` for an anti join, ``&``; this checkout's
 twice more, from an L2 flushed by reads instead of writes (no dirty
 lines to write back) and from a warm L2.
 
+``--payload-like``: the payload and LIKE kernels before their Hopper
+redesign. The sources must come from a commit whose
+``payload_probe_launch`` takes (keys, key size, live, n, present,
+tables, outs, nval, kmin, kmax, matched, stream) and whose
+``like_launch`` takes (data, n, width, prog, pat, out, stream)
+(0d9b82d and before). The payload inputs are ``chip_smoke``'s phase-5
+batches: the first ``lineitem`` probe batch of Q10's and of Q9's nation
+join at SF1 through ``Session.sql``. The kernel alone is the JAX
+contract (the probe live mask ``live && valid``, int32 values) in both
+versions, and again from a clean-flushed and a warm L2; then every
+kernel of one whole probe batch: the earlier commit's operator
+composition (the validity fill and ``&``, the kernel, a cast per value
+column, the inner join's ``live & matched``) against this checkout's
+``LookupJoinOperator._pallas_probe`` (one kernel). The LIKE inputs are
+the first split of the table each LIKE query of ``chip_smoke``'s phase
+8 filters (Q9's ``part``, ``q_like_part``'s SSB ``part``,
+``q_like_phone``'s SSB ``customer``) and the whole SF1 ``o_comment``
+column, each timed from a dirty-flushed, a clean-flushed and a warm L2.
+
 For each input both versions must return the same result, and the
 device ms are printed in turns: previous, current, current, previous
 (the profiler's trace, cold L2, as ``chip_smoke.device_ms``). The last
@@ -67,7 +88,7 @@ from presto_tpu_torch.connectors.tpch.queries import QUERIES
 from presto_tpu_torch.exec import leaf_route
 from presto_tpu_torch.exec.operators import valid_of
 from presto_tpu_torch.expr import evaluate
-from presto_tpu_torch.ops import _build, cuda_agg, cuda_groupby, cuda_join
+from presto_tpu_torch.ops import _build, cuda_agg, cuda_groupby, cuda_join, cuda_strings
 from presto_tpu_torch.runtime.session import Session
 from presto_tpu_torch.workloads import q1_pipeline
 
@@ -102,6 +123,11 @@ def load_previous(csrc: Path, names) -> dict:
         fns["exists"].argtypes = [_P, _I, _P, _LL, _P, _LL, _LL, _P, _P]
         fns["sketch"] = libs["join_probe"].sketch_probe_launch
         fns["sketch"].argtypes = [_P, _I, _P, _LL, _P, _LL, _P, _P]
+        fns["payload"] = libs["join_probe"].payload_probe_launch
+        fns["payload"].argtypes = [_P, _I, _P, _LL, _P, _P, _P, _I, _LL, _LL, _P, _P]
+    if "strings" in libs:
+        fns["like"] = libs["strings"].like_launch
+        fns["like"].argtypes = [_P, _LL, _I, _P, _P, _P, _P]
     for fn in fns.values():
         fn.restype = _I
     return fns
@@ -264,6 +290,139 @@ def compare_probes(prev: dict, tconn, flush) -> dict:
     return out
 
 
+def previous_payload(fns, tables, kmin: int, kmax: int, keys, plive):
+    """The earlier commit's payload kernel (the JAX contract): (matched,
+    [int32 values])."""
+    present, vtabs = tables[0], list(tables[1:])
+    matched = torch.empty(keys.shape, dtype=torch.bool, device=keys.device)
+    outs = [torch.empty(keys.shape, dtype=torch.int32, device=keys.device) for _ in vtabs]
+    tptr = (ctypes.c_void_p * cuda_join.MAX_VALUES)(*[t.data_ptr() for t in vtabs])
+    optr = (ctypes.c_void_p * cuda_join.MAX_VALUES)(*[o.data_ptr() for o in outs])
+    code = fns["payload"](keys.data_ptr(), keys.element_size(), plive.data_ptr(), keys.shape[0],
+                          present.data_ptr(), ctypes.addressof(tptr), ctypes.addressof(optr),
+                          len(vtabs), kmin, kmax, matched.data_ptr(),
+                          torch.cuda.current_stream().cuda_stream)
+    cs.check(code == 0, f"previous payload launch failed ({code})")
+    return matched, outs
+
+
+def previous_payload_batch(fns, op, batch) -> Batch:
+    """The earlier commit's ``_pallas_probe`` on the payload route: the
+    probe live mask, the kernel, each value cast to its build column's
+    type, and the inner join's live mask."""
+    spec, tables = op.build.pallas, op.build.pallas_side
+    v = evaluate(op.probe_key, batch)
+    plive = batch.live & valid_of(v.valid, batch.live)
+    matched, vals = previous_payload(fns, tables, spec.key_min, spec.key_max, v.data, plive)
+    cols = dict(batch.columns)
+    for bo, pv in zip(op.build_outputs, vals):
+        src = op.build.payload[bo.source]
+        cols[bo.name] = Column(pv.to(src.data.dtype), matched, src.dtype, src.dictionary)
+    live = batch.live & matched if op.join_type == "inner" else batch.live
+    return Batch(cols, live)
+
+
+def same_batch(got: Batch, want: Batch, what: str) -> None:
+    cs.check(torch.equal(got.live, want.live), f"{what}: live differs")
+    for name in want.names:
+        g, w = got[name], want[name]
+        cs.check(torch.equal(g.data, w.data) and g.data.dtype == w.data.dtype,
+                 f"{what}: column {name} differs")
+        cs.check((g.valid is None) == (w.valid is None)
+                 and (g.valid is None or torch.equal(g.valid, w.valid)),
+                 f"{what}: validity of {name} differs")
+
+
+def compare_payload(prev: dict, tconn, flush) -> dict:
+    """The payload kernel, earlier against current, at the first probe
+    batch of Q10's and Q9's nation joins."""
+    out = {}
+    for name, sql in (("Q10 first lineitem split", QUERIES["q10"]),
+                      ("Q9 first lineitem split", QUERIES["q9"])):
+        with cs.first_probe("payload") as seen:
+            Session({"tpch": tconn}, device="cuda").sql(sql)
+        cs.check("args" in seen, f"{name}: no payload probe batch")
+        op, batch = seen["op"]
+        tables, kmin, kmax, keys, live, valid = seen["args"][:6]
+        plive = live if valid is None else live & valid
+        old = lambda a=(tables, kmin, kmax, keys, plive): previous_payload(prev, *a)  # noqa: E731
+        new = lambda a=(tables, kmin, kmax, keys, plive): cuda_join.payload_probe(*a)  # noqa: E731
+        (om, ov), (nm, nv) = old(), new()
+        cs.check(torch.equal(om, nm) and all(torch.equal(a, b) for a, b in zip(ov, nv)),
+                 f"{name}: current payload_probe differs from previous")
+        whole_old = lambda op=op, b=batch: previous_payload_batch(prev, op, b)  # noqa: E731
+        whole_new = lambda op=op, b=batch: op._pallas_probe(b)  # noqa: E731
+        same_batch(whole_new(), whole_old(), f"{name}: whole probe batch")
+        inst = cuda_join.payload_instance(tables, kmin, kmax, keys, plive)
+        t = [cs.device_ms(f, 50, flush, kernel="payload_kernel") for f in (old, new, new, old)]
+        states = {state: [cs.device_ms(f, 50, fl, kernel="payload_kernel")
+                          for f in (old, new, new, old)]
+                  for state, fl in (("clean", CleanFlush(flush)), ("warm", None))}
+        w = [cs.device_ms(f, 50, flush) for f in (whole_old, whole_new, whole_new, whole_old)]
+        per_batch = [sum(cs.device_kernels(f, 20).values()) / 20 for f in (whole_old, whole_new)]
+        out[f"payload {name}"] = {"instance": inst, "rows": batch.capacity, "turns_ms": t,
+                                  "clean_flush_turns_ms": states["clean"],
+                                  "warm_turns_ms": states["warm"], "probe_turns_ms": w,
+                                  "probe_kernels": per_batch,
+                                  "valid": valid is not None, "inner": op.join_type == "inner"}
+        cs.log(f"  payload {name} ({batch.capacity} rows, {keys.dtype}, {inst}, validity "
+               f"{'passed' if valid is not None else 'none'}): kernel previous {t[0]:.4f}, "
+               f"{t[3]:.4f} ms; current {t[1]:.4f}, {t[2]:.4f} ms; whole probe batch previous "
+               f"{w[0]:.4f}, {w[3]:.4f} ms; current {w[1]:.4f}, {w[2]:.4f} ms (device ms, in "
+               f"turns; kernels in one batch {per_batch})")
+        for state, c in states.items():
+            cs.log(f"    kernel from a {state} L2: previous {c[0]:.4f}, {c[3]:.4f} ms; current "
+                   f"{c[1]:.4f}, {c[2]:.4f} ms")
+    return out
+
+
+def previous_like(fns, data, pattern: str) -> torch.Tensor:
+    """The earlier commit's LIKE kernel on ``data``."""
+    prog, pat = (torch.from_numpy(a).to(data.device)
+                 for a in cuda_strings.like_program(pattern))
+    out = torch.empty(data.shape[0], dtype=torch.bool, device=data.device)
+    code = fns["like"](data.data_ptr(), data.shape[0], data.shape[1], prog.data_ptr(),
+                       pat.data_ptr(), out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    cs.check(code == 0, f"previous like launch failed ({code})")
+    return out
+
+
+def compare_like(prev: dict, tconn, flush) -> dict:
+    """The LIKE kernel, earlier against current, at the main path's four
+    shapes."""
+    sconn = SsbConnector(sf=1, device="cuda")
+    inputs = {}
+    for name, key, conn, sql in (("Q9 first part split", "tpch", tconn, QUERIES["q9"]),
+                                 ("q_like_part first part split", "ssb", sconn,
+                                  SSB["q_like_part"]),
+                                 ("q_like_phone first customer split", "ssb", sconn,
+                                  SSB["q_like_phone"])):
+        inputs[name] = first_call(cuda_strings, "like_mask",
+                                  lambda c=conn, k=key, q=sql: Session({k: c},
+                                                                       device="cuda").sql(q))
+    inputs["SF1 o_comment"] = (cs._t(cs.column_rows(tconn, "orders", "o_comment")),
+                               "%special%requests%")
+    out = {}
+    for name, (data, pattern) in inputs.items():
+        old = lambda d=data, p=pattern: previous_like(prev, d, p)  # noqa: E731
+        new = lambda d=data, p=pattern: cuda_strings.like_mask(d, p)  # noqa: E731
+        cs.check(torch.equal(old(), new()), f"{name}: current LIKE differs from previous")
+        inst = cuda_strings.like_instance(data, pattern)
+        states = {state: [cs.device_ms(f, 50, fl, kernel="like_kernel")
+                          for f in (old, new, new, old)]
+                  for state, fl in (("dirty", flush), ("clean", CleanFlush(flush)),
+                                    ("warm", None))}
+        out[f"like {name}"] = {"instance": inst, "rows": data.shape[0], "width": data.shape[1],
+                               "pattern": pattern, "turns_ms": states["dirty"],
+                               "clean_flush_turns_ms": states["clean"],
+                               "warm_turns_ms": states["warm"]}
+        for state, c in states.items():
+            cs.log(f"  like {name} {pattern!r} [{data.shape[0]}, {data.shape[1]}] ({inst}) from "
+                   f"a {state} L2: previous {c[0]:.4f}, {c[3]:.4f} ms; current {c[1]:.4f}, "
+                   f"{c[2]:.4f} ms (kernel device ms, in turns)")
+    return out
+
+
 def compare_leaf_lane(prev: dict, tconn, flush) -> dict:
     """The leaf-aggregation and lane-sums kernels, earlier against
     current, at the main path's splits and views of them."""
@@ -317,8 +476,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--leaf-lane", type=Path, help="an earlier commit's csrc (e170780)")
     parser.add_argument("--probes", type=Path, help="an earlier commit's csrc (17cb3ec)")
+    parser.add_argument("--payload-like", type=Path, help="an earlier commit's csrc (0d9b82d)")
     opts = parser.parse_args()
-    if not (opts.leaf_lane or opts.probes) or not torch.cuda.is_available():
+    if not (opts.leaf_lane or opts.probes or opts.payload_like) or not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
         return 2
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -335,6 +495,11 @@ def main() -> int:
     if opts.probes:
         previous["probes"] = str(opts.probes)
         out.update(compare_probes(load_previous(opts.probes, ("join_probe",)), tconn, flush))
+    if opts.payload_like:
+        previous["payload_like"] = str(opts.payload_like)
+        prev = load_previous(opts.payload_like, ("join_probe", "strings"))
+        out.update(compare_payload(prev, tconn, flush))
+        out.update(compare_like(prev, tconn, flush))
     print(smi)
     print(json.dumps({"card": smi, "previous": previous, "shapes": out}))
     return 0

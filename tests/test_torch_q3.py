@@ -95,14 +95,16 @@ def test_pallas_join_off_gives_the_same_rows(conns, jax_results, q):
 def test_fused_probe_kernel_is_the_one_each_query_routes(q):
     """Q3's fused join is the exists probe (its operator calls
     ``exists_keep``, which returns the new live mask), Q10's the payload
-    probe, called once per lineitem batch (several splits here) with no
-    fallback; on the CPU the wrappers compute their plain versions and
-    count no launch (there is no kernel to launch)."""
+    probe (its operator calls ``payload_keep``, which also returns the
+    values in their storage types and the new live mask), called once per
+    lineitem batch (several splits here) with no fallback; on the CPU the
+    wrappers compute their plain versions and count no launch (there is
+    no kernel to launch)."""
     conn = PConnector(sf=SF, units_per_split=1 << 12, device="cpu")
     batches = len(conn.splits("lineitem"))
     assert batches > 1
     calls = []
-    originals = {n: getattr(cuda_join, n) for n in ("exists_keep", "payload_probe")}
+    originals = {n: getattr(cuda_join, n) for n in ("exists_keep", "payload_keep")}
 
     def spy(name):
         def wrapper(*args):
@@ -118,7 +120,7 @@ def test_fused_probe_kernel_is_the_one_each_query_routes(q):
     finally:
         for n, f in originals.items():
             setattr(cuda_join, n, f)
-    assert [c[0] for c in calls] == ["exists_keep" if q == "q3" else "payload_probe"] * batches
+    assert [c[0] for c in calls] == ["exists_keep" if q == "q3" else "payload_keep"] * batches
     assert COUNTERS["exec.pallas_join_route"] == 1
     assert COUNTERS["join.pallas_fallback"] == 0
     assert (cuda_join.exists_launches, cuda_join.payload_launches) == launches
