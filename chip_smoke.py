@@ -25,7 +25,10 @@ one CUDA card, and exits nonzero on any failure. Phases:
    bytes, more segments than its tables hold, common first bytes,
    ``Customer%1``-shaped anchors) over widths 1-256 at tile-edge and
    ragged capacities, aligned and as row views (all six instances must
-   run);
+   run); the prefix kernel on the same rows with fixed prefixes and ones
+   taken from a row (1-8, 63, 64, 65 and W bytes), at bases 0-3 bytes
+   past an aligned word (both instances must run, each launch on the
+   instance its prefix calls for);
 3. resident TPC-H Q1: SF1 ``lineitem`` tiled x10 (about 60M rows) in
    the connector's narrow storage, through ``workloads.q1_fused_step``
    (the Q1 kernel); equal to 10x a numpy recomputation, and the kernel
@@ -92,7 +95,22 @@ one CUDA card, and exits nonzero on any failure. Phases:
    the first probe batch of Q4 and of ``semi`` under ``approx_join``,
    the exists kernel at ``semi_anti_part``'s first anti-join batch (each
    with its whole probe batch, one kernel), the lane-sums kernel at
-   Q4's first ``orders`` split and the Q3 kernel at SF1 and SF1 x10.
+   Q4's first ``orders`` split and the Q3 kernel at SF1 and SF1 x10;
+10. expansion and LEFT OUTER joins through ``Session.sql``: TPC-H Q13 at
+   SF1 (a LEFT expansion join of ``customer`` with the ``orders`` its ON
+   clause's ``not like`` keeps, the LIKE kernel once per ``orders``
+   split on its staged Shift-And instance) and Q5 at sf 0.05 (an inner
+   expansion join on ``c_nationkey = s_nationkey``; sf 0.05 is the
+   largest round scale at which the JAX package's own retry ladder
+   answers it), each equal to an exact numpy recomputation, with the
+   walls of a first and a second run, the device busy time of a third,
+   the launches per kernel, ``join.strategy.expand`` and the output
+   capacities each expansion probe's retry ladder tried.
+
+Phase 5 also times the prefix kernel at the first ``part`` split of the
+``starts_with`` pipeline and over SF1 ``o_comment`` with
+``COMMENT_PREFIX``, each with its bound and the floor of the 32-byte
+sectors its rows' prefixes lie in.
 
 The card's name and power limit come first and again before the last
 lines, which are one JSON line ``{"kernels": [...]}`` and
@@ -1207,11 +1225,12 @@ def time_leaf(spec, b, flush) -> dict:
 
 
 def wall_breakdown(session, conn, sql: str):
-    """(device busy ms, connector-scan s) of one more run of ``sql``:
-    the device time of every kernel and copy in the profiler's CUDA
-    trace, and the host time spent inside ``conn.scan`` (generation,
-    narrowing and the copy to the card; the scans run on the prefetch
-    thread, so they overlap the rest)."""
+    """(device busy ms, connector-scan s, top device ops) of one more run
+    of ``sql``: the device time of every kernel and copy in the
+    profiler's CUDA trace, the host time spent inside ``conn.scan``
+    (generation, narrowing and the copy to the card; the scans run on the
+    prefetch thread, so they overlap the rest), and the five device ops
+    with the most of that time, as (name, ms, calls)."""
     from torch.profiler import ProfilerActivity, profile
 
     scan_s = [0.0]
@@ -1231,8 +1250,11 @@ def wall_breakdown(session, conn, sql: str):
             torch.cuda.synchronize()
     finally:
         del conn.scan
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages())
-    return busy_us / 1e3, scan_s[0]
+    ops = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in ops)
+    ops.sort(key=lambda e: -e.self_device_time_total)
+    top = [(e.key[:60], e.self_device_time_total / 1e3, e.count) for e in ops[:5]]
+    return busy_us / 1e3, scan_s[0], top
 
 
 def run_join_queries(flush: torch.Tensor, sf: float = 1, device: str = "cuda") -> dict:
@@ -1280,7 +1302,7 @@ def run_join_queries(flush: torch.Tensor, sf: float = 1, device: str = "cuda") -
         torch.cuda.synchronize()
         second = time.perf_counter() - t0
         same_result(again, want[q], f"{q} at SF1, second run")
-        busy_ms, scan_s = wall_breakdown(session, conn, QUERIES[q])
+        busy_ms, scan_s, _ = wall_breakdown(session, conn, QUERIES[q])
         COUNTERS.clear()
         cuda_join.exists_launches = cuda_join.payload_launches = 0
         off = Session({"tpch": conn}, properties={"pallas_join": False},
@@ -1519,7 +1541,7 @@ def run_leaf_queries(flush: torch.Tensor, sf: float = 1, device: str = "cuda") -
             torch.cuda.synchronize()
             second = time.perf_counter() - t0
             same_result(again, want[name], f"{name} at SF1, second run")
-            busy_ms, scan_s = wall_breakdown(on, conn, sql)
+            busy_ms, scan_s, _ = wall_breakdown(on, conn, sql)
             COUNTERS.clear()
             cuda_q1.launches = cuda_agg.launches = 0
             off = Session({"tpch": tconn, "ssb": sconn}, properties={"narrow_storage": False},
@@ -1556,11 +1578,17 @@ def run_leaf_queries(flush: torch.Tensor, sf: float = 1, device: str = "cuda") -
 
 LIKE_ALPHABET = b"ab10"
 PREFIXES = ["", "a", "ab", "1a0", "aaaaaaaa", "b" * 80]
+#: prefix lengths phase 2 also takes from a row of each width (the
+#: parameter words' edge: 64 and 65 bytes; and the whole row)
+PREFIX_LENGTHS = (1, 3, 4, 5, 8, 63, 64, 65)
+#: the prefix over SF1 o_comment: 6 bytes that about 2.7 % of rows start with
+COMMENT_PREFIX = "specia"
 # every LIKE pattern of the two query sets over its own SF1 column:
 # (name, connector key, table, column, LIKE patterns, prefixes)
 SF1_STRING_COLUMNS = [
     ("TPC-H p_name", "tpch", "part", "p_name", ["%green%", "forest%"], ["forest"]),
-    ("TPC-H o_comment", "tpch", "orders", "o_comment", ["%special%requests%"], []),
+    ("TPC-H o_comment", "tpch", "orders", "o_comment", ["%special%requests%"],
+     [COMMENT_PREFIX]),
     ("TPC-H s_comment", "tpch", "supplier", "s_comment", ["%Customer%Complaints%"], []),
     ("SSB p_name", "ssb", "part", "p_name", ["%sky%"], []),
     ("SSB c_name", "ssb", "customer", "c_name", ["Customer%1"], []),
@@ -1705,6 +1733,32 @@ def like_rows_view(rows: np.ndarray) -> torch.Tensor:
     return view
 
 
+def rows_at(rows: np.ndarray, head: int) -> torch.Tensor:
+    """``rows`` on the card as a view ``head`` bytes into its buffer."""
+    n, w = rows.shape
+    buf = torch.zeros(n * w + head + 8, dtype=torch.uint8, device="cuda")
+    view = buf[head: head + n * w].view(n, w)
+    view.copy_(_t(rows))
+    return view
+
+
+def check_prefix(data: torch.Tensor, prefix: str, what: str) -> int:
+    """``starts_with_mask`` against its plain version, and the launch on
+    the instance ``cuda_strings.prefix_instance`` names (none for the
+    empty prefix, a prefix longer than W or no rows)."""
+    before = dict(cuda_strings.prefix_launches_by_instance)
+    got = cuda_strings.starts_with_mask(data, prefix)
+    ran = [i for i, c in cuda_strings.prefix_launches_by_instance.items() if c != before[i]]
+    length = len(prefix.encode("latin1"))
+    launched = 0 < length <= data.shape[1] and data.shape[0] > 0
+    want = [cuda_strings.prefix_instance(prefix)] if launched else []
+    check(ran == want, f"starts_with_mask {what}: instance {ran}, expected {want}")
+    check(got.numel() == 0 or int(got.view(torch.uint8).max()) <= 1,
+          f"starts_with_mask {what}: a bool byte past 1")
+    return _mask_err(got, cuda_strings.starts_with_mask_plain(data, prefix),
+                     f"starts_with_mask {what}")
+
+
 def check_string_kernels(connectors) -> tuple:
     """Phase 2 for the LIKE and prefix kernels: the pattern set and the
     LIKE edge set (``like_edge_patterns``, on ``edge_rows``) over
@@ -1739,19 +1793,27 @@ def check_string_kernels(connectors) -> tuple:
                                                        f"{what}"))
                     check(int(got.view(torch.uint8).max()) <= 1,
                           f"like_mask {p!r} W={width}: a bool byte past 1")
-                if what == "aligned":
-                    for p in PREFIXES:
-                        prefix_err = max(prefix_err, _mask_err(
-                            cuda_strings.starts_with_mask(data, p),
-                            cuda_strings.starts_with_mask_plain(data, p),
-                            f"starts_with_mask {p!r} W={width} cap {cap}"))
+            # the prefix kernel: the fixed prefixes and ones taken from a
+            # row, at bases 0-3 bytes past an aligned word
+            taken = [bytes(rows[7, :n]).decode("latin1") for n in PREFIX_LENGTHS + (width,)
+                     if n <= width]
+            for head in range(4):
+                data = _t(rows) if head == 0 else rows_at(rows, head)
+                for p in PREFIXES + taken:
+                    prefix_err = max(prefix_err, check_prefix(
+                        data, p, f"{p!r} W={width} cap {cap} base +{head}"))
+            prefix_err = max(prefix_err, check_prefix(_t(rows[:0]), "ab", f"W={width} no rows"))
         torch.cuda.synchronize()
     idle = [i for i, c in cuda_strings.like_launches_by_instance.items() if c == 0]
     check(not idle, f"LIKE instances never held to plain: {idle}")
+    idle = [i for i, c in cuda_strings.prefix_launches_by_instance.items() if c == 0]
+    check(not idle, f"prefix instances never held to plain: {idle}")
     log(f"  like_mask: {len(like_patterns())} patterns and {len(like_edge_patterns())} edge "
-        f"patterns, starts_with_mask: {len(PREFIXES)} prefixes, widths {LIKE_WIDTHS} at "
+        f"patterns, starts_with_mask: {len(PREFIXES)} prefixes and row prefixes of "
+        f"{PREFIX_LENGTHS} and W bytes (bases 0-3 bytes past a word), widths {LIKE_WIDTHS} at "
         "capacities 255, 256, 257, a ragged one and 2^17 + 3, aligned and as views: equal to "
-        f"plain; LIKE launches by instance {cuda_strings.like_launches_by_instance}")
+        f"plain; LIKE launches by instance {cuda_strings.like_launches_by_instance}, prefix "
+        f"launches by instance {cuda_strings.prefix_launches_by_instance}")
     for p in ("a_b", "%_"):
         try:
             cuda_strings.like_mask(data, p)
@@ -1773,9 +1835,8 @@ def check_string_kernels(connectors) -> tuple:
             log(f"  like_mask {name} [{data.shape[0]}, {data.shape[1]}] {p!r}: equal to plain "
                 f"and to re, {int(want.sum())} rows match")
         for p in prefixes:
+            prefix_err = max(prefix_err, check_prefix(data, p, f"{name} {p!r}"))
             got = cuda_strings.starts_with_mask(data, p)
-            prefix_err = max(prefix_err, _mask_err(
-                got, cuda_strings.starts_with_mask_plain(data, p), f"starts_with {name} {p!r}"))
             want = torch.tensor([t.startswith(p) for t in texts])
             check(torch.equal(got.cpu(), want), f"starts_with {name} {p!r} differs from str")
             log(f"  starts_with_mask {name} {p!r}: equal to plain and to str.startswith, "
@@ -1874,12 +1935,23 @@ def _reset_launches() -> None:
     cuda_strings.reset_launches()
 
 
+def _summed(*counts: dict) -> dict:
+    """Launch counts by key, added over several runs."""
+    out: dict = {}
+    for by in counts:
+        for k, c in by.items():
+            out[k] = out.get(k, 0) + c
+    return out
+
+
 def _launch_counts() -> dict:
     return {"q1": cuda_q1.launches, "lane_sums": cuda_groupby.launches,
             "leaf_agg": cuda_agg.launches, "exists": cuda_join.exists_launches,
             "payload": cuda_join.payload_launches, "sketch": cuda_join.sketch_launches,
             "q3": cuda_join.q3_launches, "like": cuda_strings.like_launches,
             "prefix": cuda_strings.prefix_launches,
+            "prefix_by_instance": {k: v for k, v in
+                                   cuda_strings.prefix_launches_by_instance.items() if v},
             "by_instance": {**{f"lane_sums {k}": v
                                for k, v in cuda_groupby.launches_by_instance.items() if v},
                             **{f"leaf_agg {k}": v
@@ -2002,15 +2074,14 @@ def run_string_queries(connectors: dict, sf: float = 1, device: str = "cuda") ->
         out["like_launches"] += n["like"]
         for key_, by in (("like_by_instance", n["like_by_instance"]),
                          ("like_by_shape", n["like_by_shape"])):
-            for k, c in by.items():
-                out[key_][k] = out[key_].get(k, 0) + c
+            out[key_] = _summed(out[key_], by)
         out["launches"][name] = n
         t0 = time.perf_counter()
         again = session.sql(sqls[name])
         torch.cuda.synchronize()
         second = time.perf_counter() - t0
         same_result(again, want[name], f"{name} at SF{sf:g}, second run")
-        busy_ms, scan_s = wall_breakdown(session, conn, sqls[name])
+        busy_ms, scan_s, _ = wall_breakdown(session, conn, sqls[name])
         out["walls"][name] = (first, second, busy_ms, scan_s)
         log(f"  {name}: {len(res)} rows equal to numpy; wall first {first:.3f} s, second "
             f"{second:.3f} s; launches { {k: v for k, v in n.items() if v} }; routes "
@@ -2043,10 +2114,13 @@ def run_string_queries(connectors: dict, sf: float = 1, device: str = "cuda") ->
     check(np.array_equal(got, want_keys), "starts_with pipeline differs from str.startswith")
     like_keys = pipeline_keys(part_name_pipeline(tconn, "like", "forest%"))
     check(np.array_equal(got, like_keys), "starts_with pipeline differs from like 'forest%'")
+    check(n["prefix_by_instance"] == {"param": splits},
+          f"starts_with pipeline: prefix launches by instance {n['prefix_by_instance']}")
     out["prefix_launches"] = n["prefix"]
+    out["prefix_by_instance"] = n["prefix_by_instance"]
     log(f"  starts_with(p_name, 'forest') pipeline: {got.size} rows equal to str.startswith "
         f"and to p_name like 'forest%'; wall {wall:.3f} s; prefix launches {n['prefix']} "
-        f"({splits} part splits)")
+        f"({splits} part splits), by instance {n['prefix_by_instance']}")
     out["captured"] = captured
     return out
 
@@ -2067,18 +2141,195 @@ def time_like(data: torch.Tensor, pattern: str, flush) -> dict:
             "instance": cuda_strings.like_instance(data.contiguous(), pattern)}
 
 
+def prefix_sectors(data: torch.Tensor, length: int) -> int:
+    """The 32-byte sectors of device memory that the first ``length``
+    bytes of every row of ``data`` lie in (each counted once)."""
+    n, w = data.shape
+    start = data.data_ptr() + torch.arange(n, dtype=torch.int64, device=data.device) * w
+    first, last = start // 32, (start + length - 1) // 32
+    ids = torch.cat([first + k for k in range(int((last - first).max()) + 1)])
+    return int(torch.unique(ids[ids <= last.repeat(ids.numel() // n)]).numel())
+
+
 def time_prefix(data: torch.Tensor, prefix: str, flush) -> dict:
     """Phase 5 numbers of the prefix kernel on ``data``: its bound counts
     the L prefix bytes of each row read once, one bool written and L
-    comparisons a row."""
+    comparisons a row; its sector floor, the 32-byte sectors the rows'
+    prefix windows lie in, read once at the memory rate."""
     fn = lambda: cuda_strings.starts_with_mask(data, prefix)  # noqa: E731
     plain = lambda: cuda_strings.starts_with_mask_plain(data, prefix)  # noqa: E731
     err = _mask_err(fn(), plain(), f"starts_with_mask {prefix!r} at phase 5")
     n, w = data.shape
     length = len(prefix.encode("latin1"))
+    b, by = bound(n * (length + 1), n * length)
+    sectors = prefix_sectors(data, length)
     return {"ms": device_ms(fn, 50, flush, kernel="prefix_kernel"), "call_ms": call_ms(fn, 50),
             "plain_ms": device_ms(plain, 10, flush), "rows": n, "width": w,
-            "prefix": prefix, "bytes": n * (length + 1), "ops": n * length, "err": err}
+            "prefix": prefix, "bytes": n * (length + 1), "ops": n * length, "err": err,
+            "bound_ms": b, "bound_by": by, "sectors": sectors,
+            "sector_floor_ms": (sectors * 32 + n) / HBM_BYTES_PER_S * 1e3,
+            "matches": int(fn().sum()), "instance": cuda_strings.prefix_instance(prefix)}
+
+
+# ---------------------------------------------------------------------------
+# phase 10: expansion joins and LEFT OUTER joins
+# ---------------------------------------------------------------------------
+
+Q5_SF = 0.05  # the largest round scale at which the JAX package's retry ladder answers Q5
+
+
+def q5_expected(conn) -> dict:
+    """TPC-H Q5 recomputed in int64 numpy: the orders of 1994, each of
+    their lineitems whose supplier's nation is its customer's and lies in
+    ASIA, revenue as the scaled int64 sum(ep * (100 - disc)) by nation
+    name, largest first."""
+    lo, hi = days("1994-01-01"), days("1995-01-01")
+    r = conn.table_numpy("region", ["r_regionkey", "r_name"])
+    asia = r["r_regionkey"][r["r_name"] == conn.dictionaries("region")["r_name"].code_of("ASIA")]
+    n = conn.table_numpy("nation", ["n_nationkey", "n_name", "n_regionkey"])
+    in_asia = np.zeros(int(n["n_nationkey"].max()) + 1, bool)
+    in_asia[n["n_nationkey"][np.isin(n["n_regionkey"], asia)]] = True
+    c = conn.table_numpy("customer", ["c_custkey", "c_nationkey"])
+    cust_nation = np.full(int(c["c_custkey"].max()) + 1, -1, np.int64)
+    cust_nation[c["c_custkey"]] = c["c_nationkey"]
+    s = conn.table_numpy("supplier", ["s_suppkey", "s_nationkey"])
+    supp_nation = np.full(int(s["s_suppkey"].max()) + 1, -1, np.int64)
+    supp_nation[s["s_suppkey"]] = s["s_nationkey"]
+    o = conn.table_numpy("orders", ["o_orderkey", "o_custkey", "o_orderdate"])
+    om = (o["o_orderdate"] >= lo) & (o["o_orderdate"] < hi)
+    order = np.argsort(o["o_orderkey"][om])
+    ok, onat = o["o_orderkey"][om][order], cust_nation[o["o_custkey"][om][order]]
+    li = conn.table_numpy("lineitem", ["l_orderkey", "l_suppkey", "l_extendedprice",
+                                       "l_discount"])
+    pos, hit = _lookup(ok, li["l_orderkey"])
+    snat = supp_nation[li["l_suppkey"]]
+    keep = hit & (onat[pos] == snat) & in_asia[snat]
+    rev = li["l_extendedprice"][keep].astype(np.int64) * (100 - li["l_discount"][keep]
+                                                           .astype(np.int64))
+    sums = np.zeros(in_asia.size, np.int64)
+    np.add.at(sums, snat[keep], rev)
+    nations = np.unique(snat[keep])
+    top = nations[np.argsort(-sums[nations], kind="stable")]
+    names = conn.dictionaries("nation")["n_name"].values
+    name_of = dict(zip(n["n_nationkey"].tolist(), n["n_name"].tolist()))
+    return {"n_name": [names[name_of[k]] for k in top.tolist()], "revenue": sums[top]}
+
+
+def q13_expected(conn) -> dict:
+    """TPC-H Q13 recomputed in numpy: each customer's orders whose comment
+    is not like '%special%requests%' (Python's ``re``), counted (0 for a
+    customer with none); customers per count, most customers first, then
+    the larger count."""
+    c = conn.table_numpy("customer", ["c_custkey"])
+    o = conn.table_numpy("orders", ["o_custkey", "o_comment"])
+    keep = ~like_oracle(_text(o["o_comment"]), "%special%requests%")
+    per = np.bincount(o["o_custkey"][keep].astype(np.int64),
+                      minlength=int(c["c_custkey"].max()) + 1)[c["c_custkey"]]
+    c_count, custdist = np.unique(per, return_counts=True)
+    top = np.lexsort((-c_count, -custdist))
+    return {"c_count": c_count[top], "custdist": custdist[top]}
+
+
+@contextlib.contextmanager
+def expand_capacities():
+    """While in the block, the output capacity of every expansion-probe
+    operator the executor makes is appended to the yielded list, in order
+    (the capacities its retry ladder tried)."""
+    from presto_tpu_torch.exec import local_planner
+
+    caps = []
+    original = local_planner.LookupJoinOperator
+
+    def operator(*args, **kwargs):
+        if not kwargs.get("unique", True):
+            caps.append(kwargs["out_capacity"])
+        return original(*args, **kwargs)
+
+    local_planner.LookupJoinOperator = operator
+    try:
+        yield caps
+    finally:
+        local_planner.LookupJoinOperator = original
+
+
+def run_outer_join_queries(sf13: float = 1, sf5: float = Q5_SF, device: str = "cuda") -> dict:
+    """Phase 10: TPC-H Q13 (a LEFT expansion join whose build, orders, the
+    LIKE kernel filters once per split) and Q5 (an inner expansion join on
+    c_nationkey = s_nationkey) through Session.sql, each against its numpy
+    recomputation, with the walls of a first and a second run, the device
+    busy time of a third, the launches per kernel, the expansion joins'
+    strategy counters and the output capacities their retry ladders
+    reached."""
+    conns = {"q13": TpchConnector(sf=sf13, device=device),
+             "q5": TpchConnector(sf=sf5, device=device)}
+    t0 = time.perf_counter()
+    want = {"q13": q13_expected(conns["q13"]), "q5": q5_expected(conns["q5"])}
+    log(f"phase 10: numpy recomputation of Q13 at SF{sf13:g} and Q5 at sf {sf5:g} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    out = {"walls": {}, "launches": {}, "like_launches": 0, "like_by_instance": {},
+           "like_by_shape": {}, "lane_launches": 0, "lane_by_instance": {}}
+    original_like = cuda_strings.like_mask
+
+    def capture_like(data, pattern):
+        out.setdefault("captured", (data, pattern))  # Q13's first orders split
+        return original_like(data, pattern)
+
+    for name, conn in conns.items():
+        session = Session({"tpch": conn}, device=device)
+        sql = QUERIES[name]
+        cuda_strings.like_mask = capture_like
+        try:
+            with expand_capacities() as caps:
+                COUNTERS.clear()
+                _reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = session.sql(sql)
+                torch.cuda.synchronize()
+                first = time.perf_counter() - t0
+                n = _launch_counts()
+                route = dict(COUNTERS)
+        finally:
+            cuda_strings.like_mask = original_like
+        same_result(res, want[name], f"{name} at SF{conn.sf:g}")
+        check("strategy=expand" in session.explain(sql), f"{name}: EXPLAIN has no expand join")
+        check(route.get("join.strategy.expand", 0) >= 1, f"{name}: join routes {route}")
+        check(len(caps) == route["join.strategy.expand"],
+              f"{name}: {len(caps)} expansion capacities for {route['join.strategy.expand']} "
+              "expand operators")
+        check_vector_probes(name, n)
+        check(route.get("join.pallas_fallback", 0) == 0,
+              f"{name}: {route.get('join.pallas_fallback')} fused-probe fallbacks")
+        if name == "q13":
+            splits = len(conn.splits("orders"))
+            check(n["like"] == splits and n["like_by_instance"] == {"staged_shift32": splits},
+                  f"q13: LIKE launches {n['like_by_instance']} for {splits} orders splits")
+        else:
+            check(n["like"] == 0, f"q5: {n['like']} LIKE launches")
+        out["like_launches"] += n["like"]
+        out["lane_launches"] += n["lane_sums"]
+        lane_by = {k.split()[1]: c for k, c in n["by_instance"].items()
+                   if k.startswith("lane_sums ")}
+        for key_, by in (("like_by_instance", n["like_by_instance"]),
+                         ("like_by_shape", n["like_by_shape"]), ("lane_by_instance", lane_by)):
+            out[key_] = _summed(out[key_], by)
+        out["launches"][name] = n
+        t0 = time.perf_counter()
+        again = session.sql(sql)
+        torch.cuda.synchronize()
+        second = time.perf_counter() - t0
+        same_result(again, want[name], f"{name} at SF{conn.sf:g}, second run")
+        busy_ms, scan_s, top = wall_breakdown(session, conn, sql)
+        out["walls"][name] = (first, second, busy_ms, scan_s)
+        log(f"  {name} at SF{conn.sf:g}: {len(res)} rows equal to numpy; wall first {first:.3f} "
+            f"s, second {second:.3f} s; launches { {k: v for k, v in n.items() if v} }; routes "
+            f"{ {k: v for k, v in route.items() if k.startswith(('exec.', 'agg.', 'join.'))} }; "
+            f"expansion output capacities tried, in order: {caps}")
+        log(f"  {name} breakdown (a third, profiled run): device busy {busy_ms:.1f} ms, "
+            f"connector scans (host generation + copy to the card) {scan_s:.3f} s; the "
+            "device ops with the most of it (ms, calls): "
+            + "; ".join(f"{k} {ms:.2f} ({c})" for k, ms, c in top))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2294,7 +2545,7 @@ def run_semi_queries(sf: float = 1, device: str = "cuda") -> dict:
         torch.cuda.synchronize()
         second = time.perf_counter() - t0
         same_result(again, want[name], f"{name} at SF{c.sf:g}, second run")
-        busy_ms, scan_s = wall_breakdown(session, c, sql)
+        busy_ms, scan_s, _ = wall_breakdown(session, c, sql)
         out["walls"][name] = (first, second, busy_ms, scan_s)
         log(f"  {name}: {len(res)} rows equal to numpy{' (Bloom)' if approx else ''}, "
             f"approximate={res.approximate}; wall first {first:.3f} s, second {second:.3f} s; "
@@ -2569,9 +2820,14 @@ def main() -> int:
                                              "%special%requests%", flush)
     lk = like_shapes["q9 first part split"]
     like_bound, like_by = lk["bound_ms"], lk["bound_by"]
-    prefix_data, prefix = strings["captured"]["prefix"]
-    px = time_prefix(prefix_data, prefix, flush)
-    prefix_bound, prefix_by = bound(px["bytes"], px["ops"])
+    # the prefix kernel at the pipeline's first part split (the main
+    # path) and over SF1 o_comment (how it scales)
+    prefix_shapes = {"starts_with first part split": time_prefix(*strings["captured"]["prefix"],
+                                                                 flush),
+                     "SF1 o_comment": time_prefix(sf1_strings["TPC-H o_comment"],
+                                                  COMMENT_PREFIX, flush)}
+    px = prefix_shapes["starts_with first part split"]
+    prefix_bound, prefix_by = px["bound_ms"], px["bound_by"]
     for label, t in like_shapes.items():
         log(f"phase 5, like_mask {t['pattern']!r} at {label} [{t['rows']}, {t['width']}], "
             f"{t['instance']} instance (kernel device ms; call = wrapper, events; plain = device "
@@ -2580,10 +2836,14 @@ def main() -> int:
             f"{t['bound_by']})")
     log(f"  LIKE launches on the main path (phase 8): {strings['like_launches']}, by instance "
         f"{strings['like_by_instance']}, by rows x width {strings['like_by_shape']}")
-    log(f"phase 5, starts_with_mask {px['prefix']!r} at the pipeline's first part split "
-        f"[{px['rows']}, {px['width']}] (kernel device ms; call = wrapper, events; plain = "
-        f"device ms of all its kernels): {px['ms']:.4f} (call {px['call_ms']:.4f}, plain "
-        f"{px['plain_ms']:.4f}, bound {prefix_bound:.4f})")
+    for label, t in prefix_shapes.items():
+        log(f"phase 5, starts_with_mask {t['prefix']!r} at {label} [{t['rows']}, {t['width']}], "
+            f"{t['instance']} instance, {t['matches']} "
+            f"rows match (kernel device ms; call = wrapper, events; plain = device ms of all "
+            f"its kernels; no single PyTorch call computes it): {t['ms']:.4f} (call "
+            f"{t['call_ms']:.4f}, plain {t['plain_ms']:.4f}, bound {t['bound_ms']:.4f} by "
+            f"{t['bound_by']}, sector floor {t['sector_floor_ms']:.4f} from {t['sectors']} "
+            "sectors)")
     for name, (first, second, busy, scan) in strings["walls"].items():
         log(f"  wall {name}: first {first:.3f} s, second {second:.3f} s, device busy "
             f"{busy:.1f} ms, connector scans {scan:.3f} s")
@@ -2622,6 +2882,21 @@ def main() -> int:
         log(f"  wall {name}: first {first:.3f} s, second {second:.3f} s, device busy "
             f"{busy:.1f} ms, connector scans {scan:.3f} s")
 
+    outer = run_outer_join_queries()
+    for name, (first, second, busy, scan) in outer["walls"].items():
+        log(f"  wall {name}: first {first:.3f} s, second {second:.3f} s, device busy "
+            f"{busy:.1f} ms, connector scans {scan:.3f} s")
+    t = like_shapes["q13 first orders split"] = time_like(*outer["captured"], flush)
+    log(f"phase 5, like_mask {t['pattern']!r} at q13 first orders split [{t['rows']}, "
+        f"{t['width']}], {t['instance']} instance: {t['ms']:.4f} (call {t['call_ms']:.4f}, "
+        f"plain {t['plain_ms']:.4f}, bound {t['bound_ms']:.4f} by {t['bound_by']})")
+    totals = probe_launch_totals(join["launches"], strings["launches"], semi["launches"],
+                                 outer["launches"])
+    log(f"  exists, sketch and payload launches with phase 10's: {totals}")
+    log(f"  phase 10's LIKE launches {outer['like_launches']}, by instance "
+        f"{outer['like_by_instance']}, by rows x width {outer['like_by_shape']}; lane-sums "
+        f"launches {outer['lane_launches']}, by instance {outer['lane_by_instance']}")
+
     log(smi[0])
     kernels = [
         {"name": "q1_step", "route": "cuda", "source": "presto_tpu_torch/csrc/q1.cu",
@@ -2635,7 +2910,10 @@ def main() -> int:
          "source": "presto_tpu_torch/csrc/lane_sums.cu",
          "replaces": "presto_tpu/ops/pallas_groupby.py:138",
          "jax_function": "presto_tpu/ops/pallas_groupby.py:177 fused_lane_sums",
-         "launches": lane_launches, "launches_by_instance": lane_by_instance,
+         "launches": lane_launches + outer["lane_launches"],
+         "launches_by_instance": _summed(lane_by_instance, outer["lane_by_instance"]),
+         "launches_from": "phase 4 (Q1 pipeline) and phase 10 (Q13, Q5)",
+         "phase10_launches": outer["lane_launches"],
          "max_abs_err": max(lane_err, ln["err"], ln_phone["err"], ln_q4["err"]),
          "ms": ln["ms"], "kernel_ms": ln["ms"], "call_ms": ln["call_ms"],
          "plain_ms": ln["plain_ms"], "bound_ms": lane_bound, "bound_by": lane_by,
@@ -2720,9 +2998,12 @@ def main() -> int:
         {"name": "like_mask", "route": "cuda", "source": "presto_tpu_torch/csrc/strings.cu",
          "replaces": "presto_tpu/ops/pallas_strings.py:118",
          "jax_function": "presto_tpu/ops/pallas_strings.py:190 like_mask_pallas",
-         "launches": strings["like_launches"],
-         "launches_by_instance": strings["like_by_instance"],
-         "launches_by_shape": strings["like_by_shape"],
+         "launches": strings["like_launches"] + outer["like_launches"],
+         "launches_by_instance": _summed(strings["like_by_instance"],
+                                         outer["like_by_instance"]),
+         "launches_from": "phase 8 (LIKE queries) and phase 10 (Q13, Q5)",
+         "phase10_launches": outer["like_launches"],
+         "launches_by_shape": _summed(strings["like_by_shape"], outer["like_by_shape"]),
          "max_abs_err": max([like_err] + [t["err"] for t in like_shapes.values()]),
          "ms": lk["ms"], "kernel_ms": lk["ms"], "call_ms": lk["call_ms"],
          "plain_ms": lk["plain_ms"], "bound_ms": like_bound, "bound_by": like_by,
@@ -2733,11 +3014,14 @@ def main() -> int:
          "source": "presto_tpu_torch/csrc/strings.cu",
          "replaces": "presto_tpu/ops/pallas_strings.py:246",
          "jax_function": "presto_tpu/ops/pallas_strings.py:251 starts_with_pallas",
-         "launches": strings["prefix_launches"], "max_abs_err": max(prefix_err, px["err"]),
+         "launches": strings["prefix_launches"],
+         "launches_by_instance": strings["prefix_by_instance"],
+         "max_abs_err": max([prefix_err] + [t["err"] for t in prefix_shapes.values()]),
          "ms": px["ms"], "kernel_ms": px["ms"], "call_ms": px["call_ms"],
          "plain_ms": px["plain_ms"], "bound_ms": prefix_bound, "bound_by": prefix_by,
          "library_ms": None, "rows": px["rows"], "width": px["width"], "bytes": px["bytes"],
-         "ops": px["ops"], "prefix": px["prefix"]},
+         "ops": px["ops"], "prefix": px["prefix"], "instance": px["instance"],
+         "sector_floor_ms": px["sector_floor_ms"], "shapes": prefix_shapes},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev_name,

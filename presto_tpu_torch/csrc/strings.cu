@@ -89,9 +89,56 @@
 // vectors and its fully unrolled per-pattern program have no counterpart:
 // the pattern is data here, not code.
 //
-// Prefix. One thread per row in a grid-stride loop reads the first L bytes
-// of its row straight from device memory and stops at the first mismatch;
-// nothing else of the row is touched. Bound: n * (L + 1) bytes.
+// Prefix. out[i] = the first L bytes of row i equal the prefix (1 <= L <=
+// W; the empty and the too-long prefix are answered in Python).
+//
+// Bound on the H100: the bytes moved, n * (L + 1) (each row's L prefix
+// bytes read once, one bool written); at 3.35 TB/s the main path's
+// 131,072-row, 55-byte `part` split with 'forest' (L = 6) is 0.27 us, SF1
+// o_comment (1.5M rows of 79 bytes) with a 6-byte prefix 3.1 us. Two
+// floors lie above it. Sectors: rows are W >= 32 bytes apart, so each
+// row's window brings in whole 32-byte sectors of its own, on average
+// 1 + (L - 1) / 32 of them: about 4.8 MB (1.4 us) for the part split and
+// 56 MB (17 us) for o_comment (chip_smoke.py counts the sectors of the
+// run's own data). One wave: at 131,072 rows every thread's loads make one
+// trip to device memory after the launch, which on this card is about
+// 2.5 us for the one-wave probe kernels of the same row count.
+//
+// What held the first design back: a thread a row walked the
+// prefix byte by byte, `ok = row[j] == prefix[j]` while ok, so it issued
+// each byte's load only after the compare before it (L dependent trips to
+// device memory for a matching row) and re-read the prefix from device
+// memory at every step; a warp split wherever its rows first differed.
+//
+// Design:
+// - The prefix rides in the launch's parameters, as up to 16 little-endian
+//   32-bit words (64 bytes; ops/cuda_strings.py::prefix_kernel_program
+//   lays them out), so the compare reads the constant bank, never device
+//   memory. A longer prefix takes the second path of the same kernel
+//   (template word count 0): the block stages the prefix's words in shared
+//   memory once, then compares from there.
+// - A thread tests one row i. It reads the aligned 32-bit words that hold
+//   bytes [s, s + L) of the buffer, s = i * W plus the base's offset
+//   modulo 4: ceil(L / 4) words always and one more only when the window
+//   reaches into it, at most ceil(L / 4) + 1. With the prefix in the
+//   parameters the word count is a template argument (1-16), so every load
+//   is issued before any compare. Then each row word is a funnel shift of
+//   two loaded words into the row's alignment, XORed with the prefix word,
+//   the last one masked to the prefix's bytes in it, and the differences
+//   are ORed: one branch-free boolean a row, no early exit, no divergence.
+//   Two and four rows a thread (with one packed store of their booleans)
+//   were tried and measured slower on both timed shapes (PERF.md).
+// - Memory safety (compute-sanitizer does not run on that machine, so by
+//   construction): only aligned words that contain a byte of the row's
+//   window [s, s + L) are read, and such a word lies in the same aligned
+//   4-byte block as a byte of the tensor, so it never reaches past the
+//   tensor's storage.
+// - Views: a base that is not 4-byte aligned goes through the same shifts
+//   (the kernel reads words from the base rounded down to 4 bytes and adds
+//   the offset to s); there is no separate instance.
+
+#include <cstring>
+#include <utility>
 
 #include "common.cuh"
 
@@ -105,8 +152,9 @@ constexpr int kSmemBudget = 200 * 1024;    // a block's shared memory at most
 constexpr int kBarrierBytes = 128;
 constexpr int kPadBytes = 32;              // past the ring: a matcher's reads overrun a row
 constexpr int kMaxStagedProgram = 16 * 1024;
-constexpr int kPrefixThreads = 256;
-constexpr int kPrefixRows = 4;  // rows a thread covers per grid pass, for sizing
+constexpr int kPrefixThreads = 128;
+constexpr int kParamWords = 16;                // a prefix of up to 64 bytes rides in the parameters
+constexpr int kMaxStagedPrefix = 48 * 1024;    // bytes of a longer one, in shared memory
 
 // Shift-And program header (ops/cuda_strings.py::like_kernel_program)
 enum Header : int {
@@ -478,17 +526,77 @@ __global__ void __launch_bounds__(kThreads) like_kernel(LikeArgs a) {
   }
 }
 
+// The prefix's words, by value in the launch's parameters.
+struct PrefixWords {
+  uint32_t w[kParamWords];
+};
+
+// The prefix's last word holds len & 3 of its bytes (4 when that is 0).
+__device__ __forceinline__ uint32_t tail_mask(int len) {
+  const int r = len & 3;
+  return r ? (1u << (8 * r)) - 1u : 0xffffffffu;
+}
+
+// NW > 0: a prefix of NW words in `pre`; NW == 0: a longer one, `staged`
+// from `long_pre` (len bytes as words). `words` is the rows' base rounded
+// down to 4 bytes and `head` the base's offset from it (0-3). A row a
+// thread, each grid pass.
+template <int NW>
 __global__ void __launch_bounds__(kPrefixThreads)
-prefix_kernel(const uint8_t* __restrict__ data, int64_t n, int width,
-              const uint8_t* __restrict__ prefix, int len, bool* __restrict__ out) {
+prefix_kernel(const uint32_t* __restrict__ words, int head, int64_t n, int width,
+              const PrefixWords pre, int len, const uint32_t* __restrict__ long_pre,
+              bool* __restrict__ out) {
+  extern __shared__ uint32_t staged[];
+  const int nw = NW > 0 ? NW : (len + 3) >> 2;
+  if constexpr (NW == 0) {
+    for (int k = threadIdx.x; k < nw; k += blockDim.x) staged[k] = long_pre[k];
+    __syncthreads();
+  }
+  const uint32_t last = tail_mask(len);
   const int64_t step = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
        i += step) {
-    const uint8_t* row = data + i * width;
-    bool ok = true;
-    for (int j = 0; j < len && ok; ++j) ok = __ldg(&row[j]) == __ldg(&prefix[j]);
-    out[i] = ok;
+    const int64_t s = head + i * width;
+    const uint32_t* p = words + (s >> 2);
+    const int off = static_cast<int>(s & 3);
+    const uint32_t shift = 8u * off;
+    uint32_t diff = 0;
+    if constexpr (NW > 0) {
+      // every load first ...
+      uint32_t w[NW + 1];
+#pragma unroll
+      for (int k = 0; k < NW; ++k) w[k] = __ldg(p + k);
+      w[NW] = off + len > 4 * NW ? __ldg(p + NW) : 0u;
+      // ... then the compares, with no branch
+#pragma unroll
+      for (int k = 0; k < NW; ++k) {
+        uint32_t x = __funnelshift_r(w[k], w[k + 1], shift) ^ pre.w[k];
+        if (k == NW - 1) x &= last;
+        diff |= x;
+      }
+    } else {
+      uint32_t cur = __ldg(p);
+#pragma unroll 8
+      for (int k = 0; k < nw; ++k) {
+        const uint32_t nxt = k + 1 < nw || off + len > 4 * nw ? __ldg(p + k + 1) : 0u;
+        uint32_t x = __funnelshift_r(cur, nxt, shift) ^ staged[k];
+        if (k == nw - 1) x &= last;
+        diff |= x;
+        cur = nxt;
+      }
+    }
+    out[i] = diff == 0;
   }
+}
+
+using PrefixKernel = void (*)(const uint32_t*, int, int64_t, int, PrefixWords, int,
+                              const uint32_t*, bool*);
+
+// prefix_kernel<nw> for nw = 0 (the staged path) .. kParamWords
+template <int... NW>
+PrefixKernel prefix_instance(int nw, std::integer_sequence<int, NW...>) {
+  static const PrefixKernel table[] = {prefix_kernel<NW>...};
+  return table[nw];
 }
 
 }  // namespace
@@ -553,16 +661,32 @@ extern "C" int like_launch(const void* data, long long n, int width, const void*
   }
 }
 
-// Launch the prefix test over `n` rows of `width` bytes on `stream`:
-// out[i] = the first `len` bytes of row i equal `prefix` (1 <= len <= width,
-// checked in Python, which answers the empty and the too-long prefix itself).
-extern "C" int prefix_launch(const void* data, long long n, int width, const void* prefix,
-                             int len, void* out, void* stream) {
+// Launch the prefix test over `n` rows of `width` bytes at `data` (any
+// alignment) on `stream`: out[i] = the first `len` bytes of row i equal the
+// prefix (1 <= len <= width, checked in Python, which answers the empty and
+// the too-long prefix itself). The prefix is ceil(len / 4) little-endian
+// words: `host_words` (host memory, copied into the launch's parameters)
+// when there are at most 16, else `dev_words` (device memory, staged in
+// shared memory; at most 48 KB). Returns cudaGetLastError() after the
+// launch, or cudaErrorInvalidValue for arguments outside those limits.
+extern "C" int prefix_launch(const void* data, long long n, int width, const void* host_words,
+                             const void* dev_words, int len, void* out, void* stream) {
   if (n <= 0) return 0;
   if (len < 1 || len > width) return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = presto::grid_blocks(prefix_kernel, n, kPrefixThreads, 0, kPrefixRows);
-  prefix_kernel<<<blocks, kPrefixThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(data), n, width, static_cast<const uint8_t*>(prefix), len,
+  const int nw = (len + 3) / 4;
+  const bool param = nw <= kParamWords;
+  if (param ? host_words == nullptr : (dev_words == nullptr || 4 * nw > kMaxStagedPrefix))
+    return static_cast<int>(cudaErrorInvalidValue);
+  PrefixWords pw = {};
+  if (param) memcpy(pw.w, host_words, 4 * static_cast<size_t>(nw));
+  const uintptr_t at = reinterpret_cast<uintptr_t>(data);
+  const PrefixKernel kernel =
+      prefix_instance(param ? nw : 0, std::make_integer_sequence<int, kParamWords + 1>{});
+  const int smem = param ? 0 : 4 * nw;
+  const int blocks = presto::grid_blocks(kernel, n, kPrefixThreads, smem, 1);
+  kernel<<<blocks, kPrefixThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const uint32_t*>(at & ~static_cast<uintptr_t>(3)),
+      static_cast<int>(at & 3), n, width, pw, len, static_cast<const uint32_t*>(dev_words),
       static_cast<bool*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -33,10 +33,16 @@ counts its route once as ``join.strategy.<route>`` in
 ``runtime.metrics.COUNTERS``, and the fused one also as
 ``exec.pallas_join_route``.
 
-Ported join kinds: inner and left outer joins with unique build keys,
-and semi and anti joins. Expansion joins (duplicate build keys), by-value
-verify pairs, FULL OUTER and the runtime Bloom filters are not ported
-yet.
+Inner and left outer joins whose build keys may repeat take the
+expansion probe (``ops/join.probe_expand``): one output row per matching
+pair, a left join's unmatched probe rows (a NULL key among them)
+null-extended, into a static ``out_capacity`` that raises
+``CapacityOverflow`` when a batch needs more (the planner doubles it and
+probes the batch again). Its strategy counts as ``join.strategy.expand``.
+
+Ported join kinds: inner and left outer joins, and semi and anti joins.
+By-value verify pairs, FULL OUTER and RIGHT joins and the runtime Bloom
+filters are not ported yet.
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ import torch
 
 from presto_tpu_torch.batch import Batch, Column
 from presto_tpu_torch.exec.operators import (
+    CapacityOverflow,
     CollectingOperator,
     Operator,
     concat_batches,
@@ -62,6 +69,7 @@ from presto_tpu_torch.ops.join import (
     build_lookup,
     probe_exists,
     probe_exists_dense,
+    probe_expand,
     probe_unique,
     probe_unique_dense,
 )
@@ -171,19 +179,28 @@ class BuildOutput:
 
 
 class LookupJoinOperator(Operator):
-    """Probe operator. join_type: inner | left (unique build keys, FK->PK:
-    each probe row matches at most one build row) | semi | anti
-    (membership, duplicate build keys fine). The output stays aligned
-    with the probe batch."""
+    """Probe operator. join_type: inner | left | semi | anti (membership,
+    duplicate build keys fine).
+
+    - unique=True: FK->PK, each probe row matches at most one build row;
+      the output stays aligned with the probe batch. The planner sets it
+      only when the build keys are unique.
+    - unique=False (inner and left): the expansion probe into
+      ``out_capacity`` rows."""
 
     def __init__(self, build: JoinBuildOperator, probe_key: Expr,
-                 build_outputs: Sequence[BuildOutput] = (), join_type: str = "inner"):
+                 build_outputs: Sequence[BuildOutput] = (), join_type: str = "inner",
+                 unique: bool = True, out_capacity: int | None = None):
         if join_type not in ("inner", "left", "semi", "anti"):
             raise NotSupported(f"{join_type} joins are not ported yet")
+        if not unique and join_type in ("inner", "left") and out_capacity is None:
+            raise NotSupported("an expansion join needs an output capacity")
         self.build = build
         self.probe_key = probe_key
         self.build_outputs = list(build_outputs)
         self.join_type = join_type
+        self.unique = unique
+        self.out_capacity = out_capacity
         self._strategy = None
 
     def _record_strategy(self, name: str):
@@ -206,14 +223,15 @@ class LookupJoinOperator(Operator):
             return False
         jt = self.join_type
         if spec.mode == "payload":
-            if jt not in ("inner", "left"):
+            if not (self.unique and jt in ("inner", "left")):
                 return False
             if spec.payload != tuple(bo.source for bo in self.build_outputs):
                 return False
         elif spec.mode == "exists":
             # existence is duplicate-safe (semi/anti); a no-payload inner
-            # join needs the unique build keys every port join has
-            if not (jt in ("semi", "anti") or (jt == "inner" and not self.build_outputs)):
+            # join also needs unique build keys (duplicates multiply rows)
+            if not (jt in ("semi", "anti")
+                    or (self.unique and jt == "inner" and not self.build_outputs)):
                 return False
         elif jt != "semi":
             # sketch: a false positive ADDS a semi-join row, but would
@@ -287,6 +305,12 @@ class LookupJoinOperator(Operator):
                 exists = probe_exists(build.build_side, v.data, plive)
             keep = exists if self.join_type == "semi" else batch.live & ~exists
             return [batch.with_live(batch.live & keep)]
+        if not self.unique:
+            self._record_strategy("expand")
+            out, overflow = self._expand(batch, v, plive)
+            if bool(overflow):
+                raise CapacityOverflow("LookupJoin", self.out_capacity)
+            return [out]
         if build.dense_side is not None:
             self._record_strategy("dense")
             res = probe_unique_dense(build.dense_side, v.data, plive)
@@ -301,3 +325,24 @@ class LookupJoinOperator(Operator):
             cols[bo.name] = Column(data, valid & res.matched, src.dtype, src.dictionary)
         live = batch.live & res.matched if self.join_type == "inner" else batch.live
         return [Batch(cols, live)]
+
+    def _expand(self, batch: Batch, v, plive: torch.Tensor):
+        """(the expanded batch, overflow): every probe column gathered by
+        probe row and every build output by build row, a miss giving an
+        invalid value (a left join's null-extended rows)."""
+        build = self.build
+        res = probe_expand(build.build_side, v.data, plive, self.out_capacity,
+                           left=self.join_type == "left", emit_live=batch.live)
+        cols = {}
+        for name, src in batch.columns.items():
+            cols[name] = Column(gather_padded(src.data, res.probe_row, 0),
+                                gather_padded(valid_of(src.valid, batch.live), res.probe_row,
+                                              False),
+                                src.dtype, src.dictionary)
+        for bo in self.build_outputs:
+            src = build.payload[bo.source]
+            cols[bo.name] = Column(gather_padded(src.data, res.build_row, 0),
+                                   gather_padded(valid_of(src.valid, build.payload.live),
+                                                 res.build_row, False),
+                                   src.dtype, src.dictionary)
+        return Batch(cols, res.live), res.overflow

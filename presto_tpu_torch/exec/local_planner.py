@@ -24,6 +24,10 @@ package's, made from the same stats:
   membership probes, and under ``approx_join`` a semi join whose exact
   table does not fit probes the Bloom sketch (the run is then flagged
   ``used_approx``, which ``QueryResult.approximate`` reports);
+- a join whose build keys may repeat takes the expansion probe, its
+  output capacity sized lazily from the first probe batch and doubled on
+  ``CapacityOverflow`` (``_retrying_expand_probe``); FULL and RIGHT joins
+  are not ported;
 - capacities retry and double on ``CapacityOverflow``.
 
 Not ported: the spill and grouped tiers, the OOM ladder, fault points,
@@ -341,8 +345,6 @@ class LocalExecutor:
         return lkey, rkey
 
     def _exec_join(self, node: N.Join):
-        if not node.unique:
-            raise NotSupported("expansion joins (non-unique build keys) are not ported yet")
         if node.kind not in ("inner", "left"):
             raise NotSupported(f"{node.kind} joins are not ported yet")
         left = self._exec(node.left)
@@ -350,7 +352,8 @@ class LocalExecutor:
         # it); the probe side streams batch by batch
         right = self._exec(node.right).materialize()
         lkey, rkey = self._join_keys(node, left, right)
-        iv = build_key_interval(node, self.catalog)
+        # the dense and fused sides serve unique builds only
+        iv = build_key_interval(node, self.catalog) if node.unique else None
         spec = self._pallas_spec(iv, tuple(node.output_right),
                                  {f.name: f.dtype for f in node.right.fields},
                                  node.unique, node.kind)
@@ -358,8 +361,40 @@ class LocalExecutor:
                                   pallas=spec)
         Pipeline(BatchStream.of(right), [build]).run()
         outs = [BuildOutput(n, n) for n in node.output_right]
-        op = LookupJoinOperator(build, lkey, outs, node.kind)
-        return left.map(lambda b: op.process(b)[0])
+        if node.unique:
+            op = LookupJoinOperator(build, lkey, outs, node.kind)
+            return left.map(lambda b: op.process(b)[0])
+        return left.map(self._retrying_expand_probe(build, lkey, outs, node.kind, right))
+
+    def _retrying_expand_probe(self, build, lkey, outs, kind: str, right):
+        """The expansion probe of one batch, retried at a doubled output
+        capacity on ``CapacityOverflow``: probing is stateless per batch,
+        so only the batch that overflowed probes again, and the raised
+        capacity stays for later batches. The first capacity comes from
+        the first probe batch, ``batch_capacity(max(its capacity, build
+        rows, 1024))``; at most ``MAX_RETRIES`` capacities a batch. One
+        operator per capacity (each counts its strategy once), as in the
+        JAX package."""
+        right_rows = sum(live_count(b) for b in right)
+        state = {"cap": None, "ops": {}}
+
+        def probe(b: Batch) -> Batch:
+            if state["cap"] is None:
+                state["cap"] = batch_capacity(max(b.capacity, right_rows, 1024))
+            for _ in range(MAX_RETRIES):
+                c = state["cap"]
+                op = state["ops"].get(c)
+                if op is None:
+                    op = LookupJoinOperator(build, lkey, outs, kind, unique=False,
+                                            out_capacity=c)
+                    state["ops"][c] = op
+                try:
+                    return op.process(b)[0]
+                except CapacityOverflow:
+                    state["cap"] = c * 2
+            raise CapacityOverflow("Join", state["cap"])
+
+        return probe
 
     def _exec_semijoin(self, node: N.SemiJoin):
         """Semi (``IN`` / ``EXISTS``) or anti (negated) join, resident:

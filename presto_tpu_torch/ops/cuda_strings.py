@@ -17,15 +17,20 @@ masked; the evaluator combines validity afterwards).
   kernel runs. So one kernel library takes every pattern and width.
 - ``starts_with_mask``: the prefix test. The empty prefix is true and a
   prefix longer than W false for every row, without a launch (the JAX
-  wrapper's edge cases); otherwise the kernel compares the first L bytes.
+  wrapper's edge cases); otherwise the kernel compares the first L bytes
+  as aligned 32-bit words shifted into each row's alignment, the prefix
+  laid out by :func:`prefix_kernel_program`: in the launch's parameters
+  up to ``PARAM_PREFIX_BYTES`` (instance ``param``), else staged in shared
+  memory (``shared``).
 
 Each launches its kernel on a CUDA tensor and computes its plain version
 (``ops/strings.py``) on a CPU tensor; ``like_launches`` and
 ``prefix_launches`` count launches, ``like_launches_by_instance`` and
 ``like_launches_by_shape`` which LIKE instance ran (:func:`like_instance`)
-and at which ``rows x width``; ``reset_launches()`` zeroes them all. What
-bounds the kernels on the H100 is the bytes they read: see the header of
-the CUDA source for the design. The JAX package's compile probe, its
+and at which ``rows x width``, ``prefix_launches_by_instance`` which
+prefix instance (:func:`prefix_instance`); ``reset_launches()`` zeroes
+them all. What bounds the kernels on the H100 is the bytes they read:
+see the header of the CUDA source for the design. The JAX package's compile probe, its
 cache and its jnp fallback (``pallas_strings.py:201-243``) work around
 its TPU compile helper and have no counterpart: a kernel that fails to
 launch raises.
@@ -59,6 +64,10 @@ SHIFT_SEGMENTS = 4
 ANCHOR_BYTES = 256
 #: int32 words of a Shift-And program's header (see like_kernel_program)
 HEADER_WORDS = 16
+#: the prefix kernel's instances: the prefix's words in the launch's
+#: parameters (at most PARAM_PREFIX_BYTES) or staged in shared memory
+PREFIX_INSTANCES = ("param", "shared")
+PARAM_PREFIX_BYTES = 64
 
 #: kernel launches since the last reset (plain counters, set to 0 by
 #: whoever reads them: see :func:`reset_launches`); the LIKE kernel's
@@ -67,6 +76,7 @@ like_launches = 0
 prefix_launches = 0
 like_launches_by_instance = dict.fromkeys(LIKE_INSTANCES, 0)
 like_launches_by_shape: dict[str, int] = {}
+prefix_launches_by_instance = dict.fromkeys(PREFIX_INSTANCES, 0)
 
 # program modes of csrc/strings.cu's bytes matcher
 _EMPTY, _ALL, _EQUAL, _SEGMENTS = 0, 1, 2, 3
@@ -79,6 +89,8 @@ def reset_launches() -> None:
     for k in LIKE_INSTANCES:
         like_launches_by_instance[k] = 0
     like_launches_by_shape.clear()
+    for k in PREFIX_INSTANCES:
+        prefix_launches_by_instance[k] = 0
 
 
 def like_mask_plain(data: torch.Tensor, pattern: str) -> torch.Tensor:
@@ -217,8 +229,27 @@ def _like_buffer(pattern: str, device: str) -> torch.Tensor:
 
 
 @lru_cache(maxsize=256)
+def prefix_kernel_program(prefix: str) -> tuple[str, np.ndarray]:
+    """(instance, words) of the prefix kernel for a non-empty ``prefix``:
+    its bytes as little-endian uint32 words, the last one zero-padded
+    (the kernel masks it to the prefix's bytes). Up to
+    ``PARAM_PREFIX_BYTES`` the words go into the launch's parameters
+    (``param``), past it into shared memory (``shared``)."""
+    needle = plain.encode_needle(prefix).tobytes()
+    which = "param" if len(needle) <= PARAM_PREFIX_BYTES else "shared"
+    return which, _frozen(_words(needle).copy())
+
+
+def prefix_instance(prefix: str) -> str:
+    """Which of ``PREFIX_INSTANCES`` the prefix kernel runs for a
+    non-empty ``prefix``, whatever the rows' alignment."""
+    return prefix_kernel_program(prefix)[0]
+
+
+@lru_cache(maxsize=256)
 def _prefix_buffer(prefix: str, device: str) -> torch.Tensor:
-    return torch.from_numpy(plain.encode_needle(prefix).copy()).to(device)
+    """A ``shared`` prefix's words on ``device``, copied there once."""
+    return torch.from_numpy(prefix_kernel_program(prefix)[1].view(np.int32).copy()).to(device)
 
 
 def _check(data: torch.Tensor, what: str) -> None:
@@ -241,7 +272,7 @@ def _launchers():
     prefix = lib.prefix_launch
     prefix.restype = ctypes.c_int
     prefix.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+                       ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     return lib, like, prefix
 
 
@@ -279,7 +310,6 @@ def starts_with_mask(data: torch.Tensor, prefix: str) -> torch.Tensor:
     _check(data, "starts_with_mask")
     if data.device.type == "cpu":
         return starts_with_mask_plain(data, prefix)
-    global prefix_launches
     n, width = data.shape
     needle = plain.encode_needle(prefix)
     if needle.size == 0:
@@ -289,12 +319,16 @@ def starts_with_mask(data: torch.Tensor, prefix: str) -> torch.Tensor:
     out = torch.empty(n, dtype=torch.bool, device=data.device)
     if n == 0:
         return out
+    global prefix_launches
     d = data.contiguous()
-    pre = _prefix_buffer(prefix, str(d.device))
+    which, words = prefix_kernel_program(prefix)
+    dev = _prefix_buffer(prefix, str(d.device)).data_ptr() if which == "shared" else None
     lib, _, fn = _launchers()
     with torch.cuda.device(d.device):
         stream = torch.cuda.current_stream(d.device).cuda_stream
-        code = fn(d.data_ptr(), n, width, pre.data_ptr(), needle.size, out.data_ptr(), stream)
+        code = fn(d.data_ptr(), n, width, words.ctypes.data, dev, needle.size,
+                  out.data_ptr(), stream)
     _build.check_launch(lib, "strings", code)
     prefix_launches += 1
+    prefix_launches_by_instance[which] += 1
     return out

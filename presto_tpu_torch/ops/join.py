@@ -1,16 +1,17 @@
 """Join kernels in plain PyTorch: sorted build + search probe, dense table.
 
-Counterpart of ``presto_tpu/ops/join.py`` (the unique-build and
-membership part): the lookup source is a sorted int64 key array plus a
-row-index permutation, probed with ``torch.searchsorted``; where
-connector stats bound the key domain, a dense direct-address row table
-makes the probe one gather. The semi/anti-join membership probes
-(``probe_exists``, ``probe_exists_dense``) ask the same two sides whether
-a key exists, duplicates allowed. Dead build slots carry the int64
-maximum as a sentinel, so a LIVE key equal to it is flagged
-(``sentinel_hit``) and the join build refuses it. The expansion probe for
-duplicate build keys (``probe_expand``) and the packed single-gather
-build are not ported yet.
+Counterpart of ``presto_tpu/ops/join.py``: the lookup source is a sorted
+int64 key array plus a row-index permutation, probed with
+``torch.searchsorted``; where connector stats bound the key domain, a
+dense direct-address row table makes the probe one gather. The
+semi/anti-join membership probes (``probe_exists``,
+``probe_exists_dense``) ask the same two sides whether a key exists,
+duplicates allowed, and the expansion probe (``probe_expand``) emits one
+output row per matching (probe, build) pair for duplicate build keys,
+into a static output capacity with an overflow flag. Dead build slots
+carry the int64 maximum as a sentinel, so a LIVE key equal to it is
+flagged (``sentinel_hit``) and the join build refuses it. The packed
+single-gather build is not ported yet.
 """
 
 from __future__ import annotations
@@ -63,6 +64,52 @@ def probe_unique(build: BuildSide, probe_keys: torch.Tensor,
     miss = build.row_idx.shape[0]
     row = gather_padded(build.row_idx, pos, 0)
     return UniqueProbe(torch.where(matched, row, torch.full_like(row, miss)), matched)
+
+
+class ExpandedProbe(NamedTuple):
+    probe_row: torch.Tensor  # [out_cap] probe-side row (probe_cap = none)
+    build_row: torch.Tensor  # [out_cap] build-side original row (cap = miss)
+    live: torch.Tensor  # [out_cap] bool
+    n_out: torch.Tensor  # 0-d int64: the output rows needed
+    overflow: torch.Tensor  # 0-d bool: n_out > out_capacity
+
+
+def probe_expand(build: BuildSide, probe_keys: torch.Tensor, probe_live: torch.Tensor,
+                 out_capacity: int, left: bool = False,
+                 emit_live: torch.Tensor | None = None) -> ExpandedProbe:
+    """The join probe for duplicate build keys: one output row per
+    (probe row, matching build row) pair, laid out by an exclusive prefix
+    sum of each probe row's match count into ``out_capacity`` slots; the
+    probe row owning a slot is found by a search over the offsets. With
+    ``left=True`` a probe row without a match emits one row whose
+    ``build_row`` is the miss sentinel (build columns gather as NULL).
+
+    ``emit_live`` (left only): the rows that emit a null-extended row when
+    nothing matches, by default ``probe_live``; a live probe row whose key
+    is NULL is left out of ``probe_live`` (NULL matches nothing) but still
+    appears in a LEFT join's result."""
+    probe_cap = probe_keys.shape[0]
+    pk = torch.where(probe_live, probe_keys.to(torch.int64), torch.full_like(
+        probe_keys, I64_MAX, dtype=torch.int64))
+    lo = torch.searchsorted(build.sorted_keys, pk)
+    hi = torch.searchsorted(build.sorted_keys, pk, right=True)
+    matches = torch.where(probe_live & (pk != I64_MAX), hi - lo, torch.zeros_like(lo))
+    el = probe_live if emit_live is None else emit_live
+    counts = (torch.where(el & (matches == 0), torch.ones_like(matches), matches)
+              if left else matches)
+    offsets = torch.cumsum(counts, 0) - counts  # exclusive prefix
+    total = counts.sum()
+    j = torch.arange(out_capacity, device=probe_keys.device)
+    # the probe row owning output slot j: the last i with offsets[i] <= j
+    probe_row = torch.clamp(torch.searchsorted(offsets, j, right=True) - 1, 0, probe_cap - 1)
+    rank = j - offsets[probe_row]
+    valid = (j < total) & (rank >= 0) & (rank < counts[probe_row])
+    is_match = valid & (rank < matches[probe_row])
+    miss = build.row_idx.shape[0]
+    build_row = torch.where(is_match, gather_padded(build.row_idx, lo[probe_row] + rank, 0),
+                            torch.full_like(j, miss))
+    probe_row = torch.where(valid, probe_row, torch.full_like(probe_row, probe_cap))
+    return ExpandedProbe(probe_row, build_row, valid, total, total > out_capacity)
 
 
 class DenseSide(NamedTuple):

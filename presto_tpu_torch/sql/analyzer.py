@@ -1,8 +1,10 @@
 """Semantic analysis: AST -> typed logical plan (the ported subset).
 
 Counterpart of ``presto_tpu/sql/analyzer.py`` for the SELECT shapes of
-TPC-H Q1, Q3, Q4, Q6, Q9 and Q10 and the SSB Q1 flight and LIKE queries:
-SELECT / FROM with comma joins (and explicit ``JOIN ... ON``) and derived
+TPC-H Q1, Q3, Q4, Q5, Q6, Q9, Q10, Q13 and Q18 and the SSB Q1 flight and
+LIKE queries: SELECT / FROM with comma joins (and explicit ``JOIN ... ON``
+and ``LEFT [OUTER] JOIN ... ON``, whose ON conjuncts over the build side
+alone filter the build) and derived
 tables (``(SELECT ...) AS alias``) / WHERE conjuncts / GROUP BY (or
 none: one keyless aggregate row) / ORDER BY / LIMIT; [NOT] EXISTS with
 equality correlation and [NOT] IN (subquery), each planned as a
@@ -20,8 +22,9 @@ both packages build the same plan tree for the same statement.
 
 Anything else (scalar subqueries, EXISTS correlated by ``<>``, EXISTS
 under OR (the mark join), uncorrelated EXISTS, set operations, CTEs,
-DISTINCT, windows, grouping sets, OR, CASE, casts, the rest of the scalar
-function library) raises ``NotSupported`` naming the construct.
+DISTINCT, windows, grouping sets, RIGHT and FULL joins, OR, CASE, casts,
+the rest of the scalar function library) raises ``NotSupported`` naming
+the construct.
 """
 
 from __future__ import annotations
@@ -339,7 +342,7 @@ class Analyzer:
             self._add_derived(rels, binding, plan, sub_scope)
             return
         if isinstance(rel, A.Join):
-            if rel.kind != "inner" and rel.kind != "cross":
+            if rel.kind not in ("inner", "cross", "left"):
                 raise _unsupported(f"{rel.kind.upper()} JOIN")
             self._flatten_from(rel.left, rels, edges, ctes, outer)
             nleft = len(rels)
@@ -357,8 +360,12 @@ class Analyzer:
                     bkeys.append(pair[1])
                 else:
                     res.append(c)
-            edges.append(dict(kind="inner", left=nleft, akeys=akeys, bkeys=bkeys,
-                              residual=res, nullable=set()))
+            # the relations on a LEFT join's NULL-extended side: WHERE
+            # conjuncts over them stay post-join filters (pushed into the
+            # scan they would change the outer join's result)
+            nullable = set(range(nleft, len(rels))) if rel.kind == "left" else set()
+            edges.append(dict(kind=rel.kind, left=nleft, akeys=akeys, bkeys=bkeys,
+                              residual=res, nullable=nullable))
             return
         raise _unsupported(f"relation {type(rel).__name__}")
 

@@ -3,14 +3,16 @@
 Run from the root of a checkout, with an earlier commit's kernel sources
 unpacked under ``local/`` (which ``.gitignore`` lists)::
 
-    mkdir -p local/prev6 local/prev7 local/prev8
+    mkdir -p local/prev6 local/prev7 local/prev8 local/prev9
     git archive e170780 presto_tpu_torch/csrc | tar -x -C local/prev6
     git archive 17cb3ec presto_tpu_torch/csrc | tar -x -C local/prev7
     git archive 0d9b82d presto_tpu_torch/csrc | tar -x -C local/prev8
+    git archive 1bef9e0 presto_tpu_torch/csrc | tar -x -C local/prev9
     python3 -m presto_tpu_torch.tools.compare_previous \
         --leaf-lane local/prev6/presto_tpu_torch/csrc \
         --probes local/prev7/presto_tpu_torch/csrc \
-        --payload-like local/prev8/presto_tpu_torch/csrc
+        --payload-like local/prev8/presto_tpu_torch/csrc \
+        --prefix local/prev9/presto_tpu_torch/csrc
 
 Any of the options may be given alone. The earlier sources are built
 with this checkout's nvcc flags into ``build/`` beside them.
@@ -62,6 +64,15 @@ the first split of the table each LIKE query of ``chip_smoke``'s phase
 ``q_like_phone``'s SSB ``customer``) and the whole SF1 ``o_comment``
 column, each timed from a dirty-flushed, a clean-flushed and a warm L2.
 
+``--prefix``: the prefix kernel before its Hopper redesign. The sources
+must come from a commit whose ``prefix_launch`` takes (data, n, width,
+prefix, len, out, stream) with the prefix's bytes in device memory
+(1bef9e0 and before). The inputs are ``chip_smoke``'s phase-5 shapes:
+the first ``part`` split of the ``starts_with(p_name, 'forest')``
+pipeline (the main path) and the whole SF1 ``o_comment`` column with
+``chip_smoke.COMMENT_PREFIX``, each timed from a dirty-flushed, a
+clean-flushed and a warm L2.
+
 For each input both versions must return the same result, and the
 device ms are printed in turns: previous, current, current, previous
 (the profiler's trace, cold L2, as ``chip_smoke.device_ms``). The last
@@ -90,7 +101,7 @@ from presto_tpu_torch.exec.operators import valid_of
 from presto_tpu_torch.expr import evaluate
 from presto_tpu_torch.ops import _build, cuda_agg, cuda_groupby, cuda_join, cuda_strings
 from presto_tpu_torch.runtime.session import Session
-from presto_tpu_torch.workloads import q1_pipeline
+from presto_tpu_torch.workloads import part_name_pipeline, q1_pipeline
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -128,6 +139,8 @@ def load_previous(csrc: Path, names) -> dict:
     if "strings" in libs:
         fns["like"] = libs["strings"].like_launch
         fns["like"].argtypes = [_P, _LL, _I, _P, _P, _P, _P]
+        fns["prefix"] = libs["strings"].prefix_launch
+        fns["prefix"].argtypes = [_P, _LL, _I, _P, _I, _P, _P]
     for fn in fns.values():
         fn.restype = _I
     return fns
@@ -423,6 +436,45 @@ def compare_like(prev: dict, tconn, flush) -> dict:
     return out
 
 
+def previous_prefix(fns, data, prefix: str) -> torch.Tensor:
+    """The earlier commit's prefix kernel on ``data``."""
+    pre = torch.from_numpy(cuda_strings.plain.encode_needle(prefix).copy()).to(data.device)
+    out = torch.empty(data.shape[0], dtype=torch.bool, device=data.device)
+    code = fns["prefix"](data.data_ptr(), data.shape[0], data.shape[1], pre.data_ptr(),
+                         pre.numel(), out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    cs.check(code == 0, f"previous prefix launch failed ({code})")
+    return out
+
+
+def compare_prefix(prev: dict, tconn, flush) -> dict:
+    """The prefix kernel, earlier against current, at phase 5's two
+    shapes."""
+    inputs = {"starts_with first part split": first_call(
+        cuda_strings, "starts_with_mask",
+        lambda: cs.pipeline_keys(part_name_pipeline(tconn, "starts_with", "forest"))),
+        "SF1 o_comment": (cs._t(cs.column_rows(tconn, "orders", "o_comment")),
+                          cs.COMMENT_PREFIX)}
+    out = {}
+    for name, (data, prefix) in inputs.items():
+        old = lambda d=data, p=prefix: previous_prefix(prev, d, p)  # noqa: E731
+        new = lambda d=data, p=prefix: cuda_strings.starts_with_mask(d, p)  # noqa: E731
+        cs.check(torch.equal(new(), old()), f"{name}: current prefix differs from previous")
+        states = {state: [cs.device_ms(f, 50, fl, kernel="prefix_kernel")
+                          for f in (old, new, new, old)]
+                  for state, fl in (("dirty", flush), ("clean", CleanFlush(flush)),
+                                    ("warm", None))}
+        out[f"prefix {name}"] = {
+            "rows": data.shape[0], "width": data.shape[1], "prefix": prefix,
+            "instance": cuda_strings.prefix_instance(prefix),
+            "turns_ms": states["dirty"], "clean_flush_turns_ms": states["clean"],
+            "warm_turns_ms": states["warm"]}
+        for state, c in states.items():
+            cs.log(f"  prefix {name} {prefix!r} [{data.shape[0]}, {data.shape[1]}] from a "
+                   f"{state} L2: previous {c[0]:.4f}, {c[3]:.4f} ms; current {c[1]:.4f}, "
+                   f"{c[2]:.4f} ms (kernel device ms, in turns)")
+    return out
+
+
 def compare_leaf_lane(prev: dict, tconn, flush) -> dict:
     """The leaf-aggregation and lane-sums kernels, earlier against
     current, at the main path's splits and views of them."""
@@ -477,8 +529,10 @@ def main() -> int:
     parser.add_argument("--leaf-lane", type=Path, help="an earlier commit's csrc (e170780)")
     parser.add_argument("--probes", type=Path, help="an earlier commit's csrc (17cb3ec)")
     parser.add_argument("--payload-like", type=Path, help="an earlier commit's csrc (0d9b82d)")
+    parser.add_argument("--prefix", type=Path, help="an earlier commit's csrc (1bef9e0)")
     opts = parser.parse_args()
-    if not (opts.leaf_lane or opts.probes or opts.payload_like) or not torch.cuda.is_available():
+    if not (opts.leaf_lane or opts.probes or opts.payload_like or opts.prefix) \
+            or not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
         return 2
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -500,6 +554,9 @@ def main() -> int:
         prev = load_previous(opts.payload_like, ("join_probe", "strings"))
         out.update(compare_payload(prev, tconn, flush))
         out.update(compare_like(prev, tconn, flush))
+    if opts.prefix:
+        previous["prefix"] = str(opts.prefix)
+        out.update(compare_prefix(load_previous(opts.prefix, ("strings",)), tconn, flush))
     print(smi)
     print(json.dumps({"card": smi, "previous": previous, "shapes": out}))
     return 0

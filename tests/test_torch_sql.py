@@ -148,7 +148,7 @@ def test_constructs_outside_the_slice_raise_naming_them(sql, what):
 
 
 OTHER_QUERIES = sorted((q for q in QUERIES
-                        if q not in ("q1", "q3", "q4", "q6", "q9", "q10", "q18")),
+                        if q not in ("q1", "q3", "q4", "q5", "q6", "q9", "q10", "q13", "q18")),
                        key=lambda q: int(q[1:]))
 
 
@@ -158,7 +158,8 @@ def test_other_tpch_queries_refuse_rather_than_answer(q):
     returns a silently wrong answer); Q3 and Q10 are compared with the
     reference in tests/test_torch_q3.py, Q1 and Q6 in
     tests/test_torch_leaf_route.py, Q9 in tests/test_torch_like_sql.py,
-    Q4 and Q18 in tests/test_torch_semi.py."""
+    Q4 and Q18 in tests/test_torch_semi.py, Q5 and Q13 in
+    tests/test_torch_outer_join.py."""
     ps = PSession({"tpch": PConnector(sf=0.01, device="cpu")}, device="cpu")
     with pytest.raises(NotSupported, match="not ported"):
         ps.sql(QUERIES[q])
