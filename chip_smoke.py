@@ -59,7 +59,8 @@ one CUDA card, and exits nonzero on any failure. Phases:
    the fused leaf route (Q1 on the Q1 kernel once per ``lineitem`` split,
    the others on the leaf-aggregation kernel's staged instance once per
    scan split, no fallback), each equal to an exact numpy recomputation,
-   and equal again with ``narrow_storage`` off (the generic operators);
+   and equal again in a second run and with ``narrow_storage`` off (the
+   generic operators);
    then the leaf kernel is timed as in phase 5 at the first Q6 split, at
    the first SSB Q1.1 split, and over a resident SF1 x10 ``lineitem``;
 8. the string predicates at SF1: TPC-H Q9 and SSB ``q_like_part`` and
@@ -105,12 +106,34 @@ one CUDA card, and exits nonzero on any failure. Phases:
    answers it), each equal to an exact numpy recomputation, with the
    walls of a first and a second run, the device busy time of a third,
    the launches per kernel, ``join.strategy.expand`` and the output
-   capacities each expansion probe's retry ladder tried.
+   capacities each expansion probe's retry ladder tried;
+11. the conditional expression library, DISTINCT and BYTES keys at SF1
+   through ``Session.sql``: TPC-H Q7, Q8, Q12, Q14, Q16 and Q19, SSB
+   ``q3_3``, ``q3_4``, ``q4_1``, ``q4_2`` and ``q4_3``, and three
+   statements (``AD_HOC``: ORDER BY a BYTES column under OR and unary
+   minus; GROUP BY a BYTES substring with ``count(DISTINCT ...)``; CASE,
+   IS NULL and COALESCE over a LEFT join's NULL-extended rows), each
+   equal to an exact numpy recomputation (Q8's and Q14's DOUBLE ratios
+   with the same float32 operations) and to the strategy counters its
+   plan predicts (``planned_routes``), with the walls of a first and a
+   second run, the device busy time of a third and its five largest
+   device ops, and the launches per kernel (LIKE once per ``supplier``
+   split for Q16, none elsewhere; every probe launch on a vector
+   instance); the first exists and payload call of each probe shape the
+   phase launches (rows and key type) is launched again and held to its
+   plain version, and every row count of its probe launches must be one
+   so held; ``count(*)`` beside a DISTINCT aggregate must be refused.
 
 Phase 5 also times the prefix kernel at the first ``part`` split of the
 ``starts_with`` pipeline and over SF1 ``o_comment`` with
 ``COMMENT_PREFIX``, each with its bound and the floor of the 32-byte
-sectors its rows' prefixes lie in.
+sectors its rows' prefixes lie in; the LIKE kernel at Q16's first
+``supplier`` split and the payload kernel at the first batch of each
+row count other than 2^20 that phase 11 probes (Q7's expansion output
+of 2^21 rows among them); and, beside every exists-kernel shape, its
+one-call library yardstick, ``torch.isin`` of the probe keys in the
+build keys with the live and validity masks (``exists_library``). Each
+phase's seconds are printed before the JSON lines.
 
 The card's name and power limit come first and again before the last
 lines, which are one JSON line ``{"kernels": [...]}`` and
@@ -1030,6 +1053,64 @@ def first_probe(mode: str, anti: bool | None = None):
         setattr(cuda_join, name, original_keep)
 
 
+@contextlib.contextmanager
+def each_probe_shape(query: dict):
+    """While in the block, keep the first ``exists_keep`` and
+    ``payload_keep`` call made inside ``LookupJoinOperator._pallas_probe``
+    for each (kernel, probe rows, key dtype), as ``seen[(mode, rows,
+    dtype)] = {"op": (operator, batch), "args": args, "query":
+    query["name"]}`` (the ``seen`` entries :func:`time_probe` reads).
+    Yields ``seen``."""
+    seen: dict = {}
+    current: list = [None]
+    original_probe = LookupJoinOperator._pallas_probe
+    originals = {m: getattr(cuda_join, f"{m}_keep") for m in ("exists", "payload")}
+
+    def probe(op, batch):
+        current[0] = (op, batch)
+        try:
+            return original_probe(op, batch)
+        finally:
+            current[0] = None
+
+    def keeper(mode):
+        def keep(*args):
+            if current[0] is not None:
+                key = (mode, args[3].numel(), str(args[3].dtype).replace("torch.", ""))
+                seen.setdefault(key, {"op": current[0], "args": args, "query": query["name"]})
+            return originals[mode](*args)
+        return keep
+
+    LookupJoinOperator._pallas_probe = probe
+    for m in originals:
+        setattr(cuda_join, f"{m}_keep", keeper(m))
+    try:
+        yield seen
+    finally:
+        LookupJoinOperator._pallas_probe = original_probe
+        for m, fn in originals.items():
+            setattr(cuda_join, f"{m}_keep", fn)
+
+
+def hold_probe_shapes(seen: dict) -> dict:
+    """Each captured main-path probe call (from :func:`each_probe_shape`)
+    launched again and held to its plain version, bool bytes included.
+    Returns the largest difference per kernel."""
+    err = {"exists": 0, "payload": 0}
+    for (mode, rows, key), t in sorted(seen.items()):
+        what = f"{mode}_keep at {t['query']}'s first {rows}-row {key} batch"
+        if mode == "payload":
+            d = _keep_err(cuda_join.payload_keep(*t["args"]),
+                          cuda_join.payload_keep_plain(*t["args"]), what)
+        else:
+            got = cuda_join.exists_keep(*t["args"])
+            d = _mask_err(got, cuda_join.exists_keep_plain(*t["args"]), what)
+            check(int(got.view(torch.uint8).max()) <= 1, f"{what}: a bool byte past 1")
+        err[mode] = max(err[mode], d)
+        log(f"  {what}: equal to its plain version")
+    return err
+
+
 def check_vector_probes(name: str, n: dict) -> None:
     """Every exists, sketch and payload launch of a main-path run on a
     vector instance (``n``: the run's ``_launch_counts()``)."""
@@ -1119,10 +1200,34 @@ def time_probe(mode: str, seen: dict, launches: int, flush) -> dict:
                    bytes=n * (keys.element_size() + 2 + (valid is not None)) + table.numel() * 4,
                    ops=(8 if mode == "exists" else 24) * n,
                    instance=cuda_join.instance(keys, live, valid))
+    if mode == "exists":
+        lib = exists_library(*args)
+        err = max(err, _mask_err(lib(), got, "torch.isin yardstick at phase 5"))
+        out.update(err=err, library_ms=device_ms(lib, 50, flush))
     out.update(ms=device_ms(fn, 50, flush, kernel=f"{mode}_kernel"), call_ms=call_ms(fn, 50),
                plain_ms=device_ms(lambda: plain(*args), 10, flush),
                probe_ms=device_ms(whole, 50, flush))
     return out
+
+
+def exists_library(table, key_min: int, key_max: int, keys, live, valid, anti):
+    """The exists kernel's function as one PyTorch library call,
+    ``torch.isin`` of the probe keys in the build keys that the bitmask
+    holds (recovered from it here, outside the timing; those a key of the
+    probe's dtype cannot hold are left out: no probe key equals them),
+    and the live and validity masks around it. Returns the call."""
+    bits = (table.to(torch.int64)[:, None] >> torch.arange(32, device=table.device)) & 1
+    build = torch.nonzero(bits.reshape(-1)).reshape(-1) + key_min
+    info = torch.iinfo(keys.dtype)
+    build = build[(build >= info.min) & (build <= min(info.max, key_max))].to(keys.dtype)
+
+    def call():
+        m = torch.isin(keys, build)
+        if valid is not None:
+            m &= valid
+        return live & ~m if anti else live & m
+
+    return call
 
 
 def probe_shape(t: dict) -> dict:
@@ -1140,11 +1245,14 @@ def log_probe(kernel: str, label: str, shapes: dict) -> None:
               if kernel == "payload" else "")
     log(f"phase 5, {kernel} kernel at {label} ({t['rows']} rows, {t['key']} keys, validity "
         f"{'passed' if t['valid'] else 'none'}, {mode} mode, {values}{t['instance']} instance; "
-        f"kernel device ms, call = wrapper by events, plain = device ms of its kernels; no "
-        f"single PyTorch call computes it): {t['ms']:.4f} (call {t['call_ms']:.4f}, plain "
-        f"{t['plain_ms']:.4f}, bound {t['bound_ms']:.4f} by {t['bound_by']}); one whole "
-        f"_pallas_probe call {t['probe_ms']:.4f} device ms in {t['probe_kernels']} kernel; "
-        f"{t['launches']} launches in its query")
+        f"kernel device ms, call = wrapper by events, plain = device ms of its kernels; "
+        + ("library = torch.isin and its masks" if kernel == "exists"
+           else "no single PyTorch call computes it")
+        + f"): {t['ms']:.4f} (call {t['call_ms']:.4f}, plain "
+        f"{t['plain_ms']:.4f}, bound {t['bound_ms']:.4f} by {t['bound_by']}"
+        + (f", library {t['library_ms']:.4f}" if kernel == "exists" else "")
+        + f"); one whole _pallas_probe call {t['probe_ms']:.4f} device ms in "
+        f"{t['probe_kernels']} kernel; {t['launches']} launches in its query")
     if kernel == "payload":
         log(f"  payload_probe (the JAX contract: int32 values, the probe live mask) on the same "
             f"batch: {t['contract_ms']:.4f} (call {t['contract_call_ms']:.4f}, plain "
@@ -1470,9 +1578,9 @@ def run_leaf_queries(flush: torch.Tensor, sf: float = 1, device: str = "cuda") -
     """Phase 7: TPC-H Q1 and Q6 and the SSB Q1 flight at SF1 through
     Session.sql on the fused leaf route (Q1 on the Q1 kernel, the others
     on the leaf-aggregation kernel), each equal to an exact numpy
-    recomputation, and equal again with ``narrow_storage`` off (the
-    generic operators); then the leaf kernel timed at the first Q6
-    split and over a resident SF1 x10 lineitem."""
+    recomputation, and equal again in a second run and with
+    ``narrow_storage`` off (the generic operators); then the leaf kernel
+    timed at the first Q6 split and over a resident SF1 x10 lineitem."""
     from presto_tpu_torch.connectors.ssb import SsbConnector
     from presto_tpu_torch.connectors.ssb.queries import QUERIES as SSB
     from presto_tpu_torch.exec import leaf_route
@@ -1874,8 +1982,7 @@ def q9_expected(conn) -> dict:
     qty, ep, disc = (li[c].astype(np.int64)[hit]
                      for c in ("l_quantity", "l_extendedprice", "l_discount"))
     amount = ep * (100 - disc) - ps["ps_supplycost"][po][ppos][hit].astype(np.int64) * qty
-    days_ = o["o_orderdate"][oo][opos][hit].astype(np.int64)
-    year = (np.datetime64("1970-01-01", "D") + days_).astype("datetime64[Y]").astype(np.int64) + 1970
+    year = year_of(o["o_orderdate"][oo][opos][hit])
     code = n["n_name"][no][npos][hit].astype(np.int64)  # dictionary codes sort as the names
     keys, inv = np.unique(code * 10000 + year, return_inverse=True)
     sums = np.zeros(keys.size, np.int64)
@@ -2333,6 +2440,512 @@ def run_outer_join_queries(sf13: float = 1, sf5: float = Q5_SF, device: str = "c
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the conditional expression library, DISTINCT and BYTES keys
+# ---------------------------------------------------------------------------
+
+#: the three statements phase 11 runs beside the queries: ORDER BY a
+#: BYTES column under OR and unary minus; GROUP BY a BYTES key with
+#: count(DISTINCT); CASE, IS NULL and COALESCE over null-extended rows
+AD_HOC = {
+    "order_bytes": "select c_name, c_acctbal from customer where c_acctbal > 9990 "
+                   "or c_acctbal < -999 order by c_name desc",
+    "group_bytes": "select substring(c_phone, 1, 2) as cc, count(distinct c_mktsegment) as nn, "
+                   "sum(c_acctbal) as bal from customer group by substring(c_phone, 1, 2) "
+                   "order by cc",
+    "null_extended": "select count(*) as n, sum(case when o_orderkey is null then 1 else 0 end) "
+                     "as unmatched, sum(coalesce(o_totalprice, 0)) as total from customer "
+                     "left join orders on c_custkey = o_custkey and o_orderstatus = 'F'",
+}
+
+#: ``count(*)`` beside a DISTINCT aggregate: refused, as the JAX package
+#: refuses it
+DISTINCT_WITH_COUNT_STAR = ("select substring(c_phone, 1, 2) as cc, count(*) as n, "
+                            "count(distinct c_mktsegment) as nn from customer "
+                            "group by substring(c_phone, 1, 2)")
+
+#: decimal -> DOUBLE: both packages multiply by this float32 reciprocal
+INV_10K = np.float32(1) / np.float32(10**4)
+
+
+def year_of(d: np.ndarray) -> np.ndarray:
+    """Calendar year of each of ``d`` (days since 1970-01-01)."""
+    return ((np.datetime64("1970-01-01", "D") + d.astype(np.int64)).astype("datetime64[Y]")
+            .astype(np.int64) + 1970)
+
+
+def _codes(conn, table: str, column: str, values) -> np.ndarray:
+    """The dictionary codes of ``values`` (a value absent from the
+    dictionary matches nothing)."""
+    d = conn.dictionaries(table)[column]
+    present = set(d.values.tolist())
+    return np.array([d.code_of(v) for v in values if v in present], np.int64)
+
+
+def _by_key(keys: np.ndarray, values: np.ndarray) -> np.ndarray:
+    """A dense lookup: ``out[k]`` is the value of key ``k``."""
+    out = np.zeros(int(keys.max()) + 1, np.asarray(values).dtype)
+    out[keys] = values
+    return out
+
+
+def _volume(li: dict, m: np.ndarray) -> np.ndarray:
+    """l_extendedprice * (1 - l_discount) at scale 4, int64, rows ``m``."""
+    return (li["l_extendedprice"][m].astype(np.int64)
+            * (100 - li["l_discount"][m].astype(np.int64)))
+
+
+def _group_sums(keys: list, values: np.ndarray) -> tuple:
+    """Sums of ``values`` by the tuple of ``keys``: (the key columns of
+    each group, sums), groups in lexicographic key order."""
+    rows = np.stack([k.astype(np.int64) for k in keys], axis=1)
+    uniq, inv = np.unique(rows, axis=0, return_inverse=True)
+    sums = np.zeros(len(uniq), np.int64)
+    np.add.at(sums, inv.ravel(), values.astype(np.int64))
+    return [uniq[:, i] for i in range(len(keys))], sums
+
+
+def _as_double(scaled: np.ndarray) -> np.ndarray:
+    """A scale-4 decimal in DOUBLE as both packages compute it: float32
+    times the float32 reciprocal of 10^4."""
+    return scaled.astype(np.int64).astype(np.float32) * INV_10K
+
+
+def _nation_names(conn) -> np.ndarray:
+    """n_name's code by nation key."""
+    n = conn.table_numpy("nation", ["n_nationkey", "n_name"])
+    return _by_key(n["n_nationkey"], n["n_name"].astype(np.int64))
+
+
+def q7_expected(conn) -> dict:
+    """TPC-H Q7 (``tpch_oracle.py`` q7's semantics in int64 numpy):
+    revenue between FRANCE and GERMANY suppliers and customers, each
+    way, by year of shipment."""
+    names = conn.dictionaries("nation")["n_name"]
+    fr, ge = names.code_of("FRANCE"), names.code_of("GERMANY")
+    nat = _nation_names(conn)
+    s = conn.table_numpy("supplier", ["s_suppkey", "s_nationkey"])
+    c = conn.table_numpy("customer", ["c_custkey", "c_nationkey"])
+    o = conn.table_numpy("orders", ["o_orderkey", "o_custkey"])
+    cust_nat = _by_key(c["c_custkey"], nat[c["c_nationkey"]])
+    order_nat = _by_key(o["o_orderkey"], cust_nat[o["o_custkey"]])
+    li = conn.table_numpy("lineitem", ["l_orderkey", "l_suppkey", "l_shipdate",
+                                       "l_extendedprice", "l_discount"])
+    sn = _by_key(s["s_suppkey"], nat[s["s_nationkey"]])[li["l_suppkey"]]
+    cn = order_nat[li["l_orderkey"]]
+    ship = li["l_shipdate"]
+    m = (((sn == fr) & (cn == ge)) | ((sn == ge) & (cn == fr))) \
+        & (ship >= days("1995-01-01")) & (ship <= days("1996-12-31"))
+    (ks, kc, ky), rev = _group_sums([sn[m], cn[m], year_of(ship[m])], _volume(li, m))
+    return {"supp_nation": list(names.values[ks]), "cust_nation": list(names.values[kc]),
+            "l_year": ky, "revenue": rev}
+
+
+def q8_expected(conn) -> dict:
+    """TPC-H Q8: BRAZIL's share of the AMERICA market for ECONOMY
+    ANODIZED STEEL by order year, the two scale-4 int64 sums divided in
+    float32 as both packages divide them."""
+    ptype = conn.dictionaries("part")["p_type"].code_of("ECONOMY ANODIZED STEEL")
+    p = conn.table_numpy("part", ["p_partkey", "p_type"])
+    part_ok = _by_key(p["p_partkey"], p["p_type"] == ptype)
+    america = _codes(conn, "region", "r_name", ["AMERICA"])
+    r = conn.table_numpy("region", ["r_regionkey", "r_name"])
+    n = conn.table_numpy("nation", ["n_nationkey", "n_regionkey"])
+    in_america = _by_key(n["n_nationkey"],
+                         np.isin(n["n_regionkey"], r["r_regionkey"][np.isin(r["r_name"],
+                                                                              america)]))
+    c = conn.table_numpy("customer", ["c_custkey", "c_nationkey"])
+    cust_ok = _by_key(c["c_custkey"], in_america[c["c_nationkey"]])
+    o = conn.table_numpy("orders", ["o_orderkey", "o_custkey", "o_orderdate"])
+    od = o["o_orderdate"]
+    order_ok = _by_key(o["o_orderkey"], (od >= days("1995-01-01")) & (od <= days("1996-12-31"))
+                       & cust_ok[o["o_custkey"]])
+    order_year = _by_key(o["o_orderkey"], year_of(od))
+    brazil = conn.dictionaries("nation")["n_name"].code_of("BRAZIL")
+    s = conn.table_numpy("supplier", ["s_suppkey", "s_nationkey"])
+    supp_br = _by_key(s["s_suppkey"], _nation_names(conn)[s["s_nationkey"]] == brazil)
+    li = conn.table_numpy("lineitem", ["l_orderkey", "l_partkey", "l_suppkey",
+                                       "l_extendedprice", "l_discount"])
+    m = part_ok[li["l_partkey"]] & order_ok[li["l_orderkey"]]
+    vol = _volume(li, m)
+    br = supp_br[li["l_suppkey"][m]]
+    (years,), total = _group_sums([order_year[li["l_orderkey"][m]]], vol)
+    _, from_brazil = _group_sums([order_year[li["l_orderkey"][m]]], np.where(br, vol, 0))
+    return {"o_year": years, "mkt_share": _as_double(from_brazil) / _as_double(total)}
+
+
+def q12_expected(conn) -> dict:
+    """TPC-H Q12: late MAIL and SHIP lines received in 1994 by ship mode,
+    counted for high (1-URGENT, 2-HIGH) and other order priorities."""
+    modes = _codes(conn, "lineitem", "l_shipmode", ["MAIL", "SHIP"])
+    high = _codes(conn, "orders", "o_orderpriority", ["1-URGENT", "2-HIGH"])
+    o = conn.table_numpy("orders", ["o_orderkey", "o_orderpriority"])
+    prio = _by_key(o["o_orderkey"], o["o_orderpriority"].astype(np.int64))
+    li = conn.table_numpy("lineitem", ["l_orderkey", "l_shipmode", "l_commitdate",
+                                       "l_receiptdate", "l_shipdate"])
+    rc, cd = li["l_receiptdate"], li["l_commitdate"]
+    m = (np.isin(li["l_shipmode"], modes) & (cd < rc) & (li["l_shipdate"] < cd)
+         & (rc >= days("1994-01-01")) & (rc < days("1995-01-01")))
+    hi = np.isin(prio[li["l_orderkey"][m]], high)
+    (mode,), n_high = _group_sums([li["l_shipmode"][m]], hi)
+    _, n_all = _group_sums([li["l_shipmode"][m]], np.ones(int(m.sum()), np.int64))
+    names = conn.dictionaries("lineitem")["l_shipmode"].values
+    return {"l_shipmode": list(names[mode]), "high_line_count": n_high,
+            "low_line_count": n_all - n_high}
+
+
+def q14_expected(conn) -> dict:
+    """TPC-H Q14: 100.00 * the PROMO parts' revenue over all revenue
+    shipped in September 1995; 100.00 * x at scale 4 is exactly 100 x,
+    then the float32 division."""
+    types = conn.dictionaries("part")["p_type"].values
+    promo_type = np.array([t.startswith("PROMO") for t in types], bool)
+    p = conn.table_numpy("part", ["p_partkey", "p_type"])
+    promo = _by_key(p["p_partkey"], promo_type[p["p_type"]])
+    li = conn.table_numpy("lineitem", ["l_partkey", "l_shipdate", "l_extendedprice",
+                                       "l_discount"])
+    ship = li["l_shipdate"]
+    m = (ship >= days("1995-09-01")) & (ship < days("1995-10-01"))
+    vol = _volume(li, m)
+    num = np.array([100 * int(vol[promo[li["l_partkey"][m]]].sum())], np.int64)
+    return {"promo_revenue": _as_double(num) / _as_double(np.array([int(vol.sum())]))}
+
+
+def q16_expected(conn) -> dict:
+    """TPC-H Q16: distinct suppliers without Customer...Complaints comments
+    per (brand, type, size) of the parts that pass its filters, most
+    suppliers first, then brand, type and size."""
+    s = conn.table_numpy("supplier", ["s_suppkey", "s_comment"])
+    bad = s["s_suppkey"][like_oracle(_text(s["s_comment"]), "%Customer%Complaints%")]
+    types = conn.dictionaries("part")["p_type"].values
+    type_ok = np.array([not t.startswith("MEDIUM POLISHED") for t in types], bool)
+    p = conn.table_numpy("part", ["p_partkey", "p_brand", "p_type", "p_size"])
+    pm = ((p["p_brand"] != conn.dictionaries("part")["p_brand"].code_of("Brand#45"))
+          & type_ok[p["p_type"]] & np.isin(p["p_size"], [49, 14, 23, 45, 19, 3, 36, 9]))
+    row = _by_key(p["p_partkey"], np.arange(len(pm)))
+    ps = conn.table_numpy("partsupp", ["ps_partkey", "ps_suppkey"])
+    r = row[ps["ps_partkey"]]
+    keep = pm[r] & ~np.isin(ps["ps_suppkey"], bad)
+    r, supp = r[keep], ps["ps_suppkey"][keep]
+    pairs = np.unique(np.stack([p["p_brand"][r].astype(np.int64), p["p_type"][r],
+                                p["p_size"][r], supp], axis=1), axis=0)
+    (b, t, z), cnt = _group_sums([pairs[:, 0], pairs[:, 1], pairs[:, 2]],
+                                 np.ones(len(pairs), np.int64))
+    top = np.lexsort((z, t, b, -cnt))
+    d = conn.dictionaries("part")
+    return {"p_brand": list(d["p_brand"].values[b[top]]),
+            "p_type": list(d["p_type"].values[t[top]]), "p_size": z[top],
+            "supplier_cnt": cnt[top]}
+
+
+def q19_expected(conn) -> dict:
+    """TPC-H Q19: revenue of the lines matching one of its three
+    brand / container / quantity / size branches, shipped by air and
+    delivered in person."""
+    d = conn.dictionaries("part")
+    p = conn.table_numpy("part", ["p_partkey", "p_brand", "p_container", "p_size"])
+    row = _by_key(p["p_partkey"], np.arange(len(p["p_partkey"])))
+    li = conn.table_numpy("lineitem", ["l_partkey", "l_quantity", "l_shipmode",
+                                       "l_shipinstruct", "l_extendedprice", "l_discount"])
+    r = row[li["l_partkey"]]
+    brand, cont, size = p["p_brand"][r], p["p_container"][r], p["p_size"][r]
+    qty = li["l_quantity"]
+    common = (np.isin(li["l_shipmode"], _codes(conn, "lineitem", "l_shipmode", ["AIR", "AIR REG"]))
+              & (li["l_shipinstruct"] == conn.dictionaries("lineitem")["l_shipinstruct"]
+                 .code_of("DELIVER IN PERSON")))
+    m = np.zeros(len(qty), bool)
+    for b, conts, q_lo, size_hi in (("Brand#12", ["SM CASE", "SM BOX", "SM PACK", "SM PKG"], 1, 5),
+                                    ("Brand#23", ["MED BAG", "MED BOX", "MED PKG", "MED PACK"],
+                                     10, 10),
+                                    ("Brand#34", ["LG CASE", "LG BOX", "LG PACK", "LG PKG"],
+                                     20, 15)):
+        m |= ((brand == d["p_brand"].code_of(b))
+              & np.isin(cont, _codes(conn, "part", "p_container", conts))
+              & (qty >= 100 * q_lo) & (qty <= 100 * (q_lo + 10))
+              & (size >= 1) & (size <= size_hi))
+    m &= common
+    # a sum over no rows is NULL
+    return {"revenue": [int(_volume(li, m).sum()) if m.any() else None]}
+
+
+#: SSB flights 3.3-4.3: (customer, supplier, part, date) filters as
+#: (column, values) pairs, the group keys and the measure
+SSB_JOINS = {
+    "q3_3": ({"c_city": ["UNITED KI1", "UNITED KI5"]}, {"s_city": ["UNITED KI1", "UNITED KI5"]},
+             {}, ("d_year", range(1992, 1998)), ["c_city", "s_city", "d_year"], "revenue"),
+    "q3_4": ({"c_city": ["UNITED KI1", "UNITED KI5"]}, {"s_city": ["UNITED KI1", "UNITED KI5"]},
+             {}, ("d_yearmonth", ["Dec1997"]), ["c_city", "s_city", "d_year"], "revenue"),
+    "q4_1": ({"c_region": ["AMERICA"]}, {"s_region": ["AMERICA"]},
+             {"p_mfgr": ["MFGR#1", "MFGR#2"]}, None, ["d_year", "c_nation"], "profit"),
+    "q4_2": ({"c_region": ["AMERICA"]}, {"s_region": ["AMERICA"]},
+             {"p_mfgr": ["MFGR#1", "MFGR#2"]}, ("d_year", [1997, 1998]),
+             ["d_year", "s_nation", "p_category"], "profit"),
+    "q4_3": ({}, {"s_nation": ["UNITED STATES"]}, {"p_category": ["MFGR#14"]},
+             ("d_year", [1997, 1998]), ["d_year", "s_city", "p_brand1"], "profit"),
+}
+
+
+def ssb_join_expected(conn, name: str) -> dict:
+    """SSB ``q3_3``-``q4_3`` (``ssb_oracle.py``'s semantics in int64
+    numpy): lineorder joined to its dimensions' filtered rows, the scale-2
+    measure summed by the group keys; flight 3 ordered by year, then
+    revenue descending (ties in group order: the keys in turn), flight 4
+    by the keys."""
+    cf, sf, pf, dfilter, keys, measure = SSB_JOINS[name]
+    dims = {"customer": ("c_custkey", "lo_custkey", cf),
+            "supplier": ("s_suppkey", "lo_suppkey", sf),
+            "part": ("p_partkey", "lo_partkey", pf)}
+    lo = conn.table_numpy("lineorder", ["lo_custkey", "lo_suppkey", "lo_partkey",
+                                        "lo_orderdate", "lo_revenue", "lo_supplycost"])
+    m = np.ones(len(lo["lo_custkey"]), bool)
+    cols = {}
+    for table, (pk, fk, filters) in dims.items():
+        want_cols = [c for c in keys if c[0] == pk[0]] + list(filters)
+        t = conn.table_numpy(table, [pk] + sorted(set(want_cols)))
+        row = _by_key(t[pk], np.arange(len(t[pk])))
+        ok = np.ones(len(t[pk]), bool)
+        for c, values in filters.items():
+            ok &= np.isin(t[c], _codes(conn, table, c, values))
+        r = row[lo[fk]]
+        m &= ok[r]
+        for c in want_cols:
+            cols[c] = t[c][r]
+    d = conn.table_numpy("date", ["d_datekey", "d_year", "d_yearmonth"])
+    order = np.argsort(d["d_datekey"])
+    pos, hit = _lookup(d["d_datekey"][order], lo["lo_orderdate"])
+    check(bool(hit.all()), f"{name} oracle: an order date is missing from date")
+    cols["d_year"] = d["d_year"][order][pos]
+    if dfilter is not None:
+        c, values = dfilter
+        v = d[c][order][pos]
+        m &= np.isin(v, _codes(conn, "date", c, values) if c == "d_yearmonth" else list(values))
+    value = lo["lo_revenue"].astype(np.int64)
+    if measure == "profit":
+        value = value - lo["lo_supplycost"].astype(np.int64)
+    gk, sums = _group_sums([cols[k][m] for k in keys], value[m])
+    if measure == "revenue":
+        top = np.lexsort(tuple(gk[1::-1]) + (-sums, gk[2]))
+    else:
+        top = np.arange(len(sums))
+    out = {}
+    for k, g in zip(keys, gk):
+        if k == "d_year":
+            out[k] = g[top]
+        else:
+            table = {"c": "customer", "s": "supplier", "p": "part"}[k[0]]
+            out[k] = list(conn.dictionaries(table)[k].values[g[top]])
+    out[measure] = sums[top]
+    return out
+
+
+def _pad_space(rows: np.ndarray) -> list:
+    """Each BYTES row as the bytes PAD SPACE compares (zero padding as
+    spaces)."""
+    return [bytes(r).replace(b"\x00", b" ") for r in rows]
+
+
+def order_bytes_expected(conn) -> dict:
+    """``AD_HOC["order_bytes"]``: customers with a balance over 9990.00
+    or under -999.00, by name descending (PAD SPACE)."""
+    c = conn.table_numpy("customer", ["c_name", "c_acctbal"])
+    bal = c["c_acctbal"].astype(np.int64)
+    idx = np.flatnonzero((bal > 999000) | (bal < -99900))
+    keys = _pad_space(c["c_name"][idx])
+    top = sorted(range(len(idx)), key=lambda i: keys[i], reverse=True)
+    return {"c_name": _text(c["c_name"][idx[top]]), "c_acctbal": bal[idx[top]]}
+
+
+def group_bytes_expected(conn) -> dict:
+    """``AD_HOC["group_bytes"]``: per two-byte phone prefix, the distinct
+    market segments and the summed balance, prefixes ascending."""
+    c = conn.table_numpy("customer", ["c_phone", "c_mktsegment", "c_acctbal"])
+    cc = c["c_phone"][:, :2].astype(np.int64)  # digits: no zero padding to compare
+    code = cc[:, 0] * 256 + cc[:, 1]
+    (k,), bal = _group_sums([code], c["c_acctbal"])
+    seg = np.unique(np.stack([code, c["c_mktsegment"].astype(np.int64)], axis=1), axis=0)
+    _, nn = _group_sums([seg[:, 0]], np.ones(len(seg), np.int64))
+    return {"cc": [bytes([int(x) >> 8, int(x) & 255]).rstrip(b"\x00").decode("latin1")
+                   for x in k], "nn": nn, "bal": bal}
+
+
+def null_extended_expected(conn) -> dict:
+    """``AD_HOC["null_extended"]``: the LEFT join's rows (a customer's F
+    orders, or one NULL-extended row), the customers without one, and
+    the F orders' summed total price."""
+    c = conn.table_numpy("customer", ["c_custkey"])
+    o = conn.table_numpy("orders", ["o_custkey", "o_orderstatus", "o_totalprice"])
+    f = o["o_orderstatus"] == conn.dictionaries("orders")["o_orderstatus"].code_of("F")
+    per = np.bincount(o["o_custkey"][f].astype(np.int64),
+                      minlength=int(c["c_custkey"].max()) + 1)[c["c_custkey"]]
+    matched = np.isin(o["o_custkey"][f], c["c_custkey"])
+    return {"n": np.array([int(np.maximum(per, 1).sum())]),
+            "unmatched": np.array([int((per == 0).sum())]),
+            "total": np.array([int(o["o_totalprice"][f][matched].astype(np.int64).sum())])}
+
+
+class ColumnCache:
+    """A connector whose ``table_numpy`` generates each column once: phase
+    11's oracles read the same SF1 columns many times."""
+
+    def __init__(self, conn):
+        self.conn, self.columns = conn, {}
+
+    def table_numpy(self, table: str, columns) -> dict:
+        missing = [c for c in columns if (table, c) not in self.columns]
+        if missing:
+            for c, a in self.conn.table_numpy(table, missing).items():
+                self.columns[(table, c)] = a
+        return {c: self.columns[(table, c)] for c in columns}
+
+    def __getattr__(self, name):
+        return getattr(self.conn, name)
+
+
+def expression_runs() -> dict:
+    """Phase 11's runs: name -> (connector key, statement, numpy oracle)."""
+    from presto_tpu_torch.connectors.ssb.queries import QUERIES as SSB_QUERIES
+
+    tpch = {"q7": q7_expected, "q8": q8_expected, "q12": q12_expected, "q14": q14_expected,
+            "q16": q16_expected, "q19": q19_expected}
+    runs = {q: ("tpch", QUERIES[q], fn) for q, fn in tpch.items()}
+    for q in SSB_JOINS:
+        runs[f"ssb {q}"] = ("ssb", SSB_QUERIES[q], lambda conn, q=q: ssb_join_expected(conn, q))
+    ad_hoc = {"order_bytes": order_bytes_expected, "group_bytes": group_bytes_expected,
+              "null_extended": null_extended_expected}
+    for name, fn in ad_hoc.items():
+        runs[name] = ("tpch", AD_HOC[name], fn)
+    return runs
+
+
+def planned_routes(session, sql: str) -> dict:
+    """The strategy counters a statement's plan predicts: one
+    ``join.strategy.<s>`` per join and semi join (``expand`` counts each
+    output capacity its retry ladder tries, so the plan gives its least)
+    and one ``agg.strategy.<s>`` per aggregate."""
+    from presto_tpu_torch.exec.leaf_route import agg_strategy_for
+    from presto_tpu_torch.exec.local_planner import planned_join_strategy
+    from presto_tpu_torch.plan import nodes as N
+
+    out: dict = {}
+
+    def walk(node):
+        key = None
+        if isinstance(node, (N.Join, N.SemiJoin)):
+            key = "join.strategy." + planned_join_strategy(node, session.catalog)
+        elif isinstance(node, N.Aggregate):
+            key = "agg.strategy." + agg_strategy_for(node, session.catalog)
+        if key is not None:
+            out[key] = out.get(key, 0) + 1
+        for child in node.children:
+            walk(child)
+
+    walk(session.plan(sql))
+    return out
+
+
+def run_expression_queries(connectors: dict, device: str = "cuda") -> dict:
+    """Phase 11: TPC-H Q7, Q8, Q12, Q14, Q16 and Q19, SSB ``q3_3``-``q4_3``
+    and the ``AD_HOC`` statements at SF1 through Session.sql, each equal
+    to its numpy oracle and to the strategy counters its plan predicts,
+    with the walls of a first and a second run, the device busy time of a
+    third (and its five largest device ops) and the launches per kernel;
+    ``count(*)`` beside a DISTINCT aggregate must be refused."""
+    from presto_tpu_torch.sql.analyzer import AnalysisError
+
+    runs = expression_runs()
+    t0 = time.perf_counter()
+    cached = {key: ColumnCache(conn) for key, conn in connectors.items()}
+    want = {name: fn(cached[key]) for name, (key, _sql, fn) in runs.items()}
+    del cached
+    log(f"phase 11: numpy recomputation of {len(runs)} statements at SF1 in "
+        f"{time.perf_counter() - t0:.1f} s")
+    log(f"  ssb q3_4's oracle holds {len(want['ssb q3_4']['revenue'])} rows at SF1")
+    out = {"walls": {}, "launches": {}, "routes": {}}
+    original_like = cuda_strings.like_mask
+
+    def capture_like(data, pattern):
+        out.setdefault("captured", (data, pattern))  # Q16's first supplier split
+        return original_like(data, pattern)
+
+    query = {"name": None}
+    # the first exists and payload batch of each shape phase 11 probes
+    with each_probe_shape(query) as probes:
+        for name, (key, sql, _fn) in runs.items():
+            conn = connectors[key]
+            session = Session({key: conn}, device=device)
+            predicted = planned_routes(session, sql)
+            cuda_strings.like_mask = capture_like
+            query["name"] = name
+            try:
+                with expand_capacities() as caps:
+                    COUNTERS.clear()
+                    _reset_launches()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    res = session.sql(sql)
+                    torch.cuda.synchronize()
+                    first = time.perf_counter() - t0
+                    n = _launch_counts()
+                    route = dict(COUNTERS)
+            finally:
+                cuda_strings.like_mask = original_like
+                query["name"] = None
+            same_result(res, want[name], f"{name} at SF1")
+            got = {k: v for k, v in route.items()
+                   if k.startswith(("join.strategy.", "agg.strategy.")) and v}
+            check(got.get("join.strategy.expand", 0) == len(caps)
+                  and len(caps) >= predicted.get("join.strategy.expand", 0)
+                  and {k: v for k, v in got.items() if k != "join.strategy.expand"}
+                  == {k: v for k, v in predicted.items() if k != "join.strategy.expand"},
+                  f"{name}: strategy counters {got}, the plan predicts {predicted} (expansion "
+                  f"capacities tried: {caps})")
+            check(route.get("exec.pallas_join_route", 0) == got.get("join.strategy.pallas", 0)
+                  and route.get("join.pallas_fallback", 0) == 0,
+                  f"{name}: fused-probe routes {route}")
+            check_vector_probes(name, n)
+            splits = len(conn.splits("supplier"))
+            check(n["like"] == (splits if name == "q16" else 0)
+                  and (name != "q16" or n["like_by_instance"] == {"staged_shift32": splits}),
+                  f"{name}: LIKE launches {n['like_by_instance']} ({splits} supplier splits)")
+            out["launches"][name] = n
+            out["routes"][name] = got
+            t0 = time.perf_counter()
+            again = session.sql(sql)
+            torch.cuda.synchronize()
+            second = time.perf_counter() - t0
+            same_result(again, want[name], f"{name} at SF1, second run")
+            busy_ms, scan_s, top = wall_breakdown(session, conn, sql)
+            out["walls"][name] = (first, second, busy_ms, scan_s)
+            log(f"  {name} at SF1: {len(res)} rows equal to numpy; wall first {first:.3f} s, "
+                f"second {second:.3f} s; launches { {k: v for k, v in n.items() if v} }; routes "
+                f"{got} (planned {predicted}); expansion capacities {caps}")
+            log(f"  {name} breakdown (a third, profiled run): device busy {busy_ms:.1f} ms, "
+                f"connector scans {scan_s:.3f} s; the device ops with the most of it (ms, calls): "
+                + "; ".join(f"{k} {ms:.2f} ({c})" for k, ms, c in top))
+    out["probes"] = probes
+    out["probe_err"] = hold_probe_shapes(probes)
+    for mode in ("exists", "payload"):
+        held = {rows for m, rows, _key in out["probes"] if m == mode}
+        ran = {rows for n in out["launches"].values() for rows in n["probe_by_shape"][mode]}
+        check(held == ran, f"phase 11's {mode} launches at rows {sorted(ran)}, held to the "
+              f"plain version at {sorted(held)}")
+    try:
+        Session({"tpch": connectors["tpch"]}, device=device).sql(DISTINCT_WITH_COUNT_STAR)
+        check(False, "count(*) beside count(DISTINCT ...) was answered")
+    except AnalysisError as e:
+        check("count_star cannot combine with DISTINCT" in str(e), f"refused as {e}")
+    lane_by = {}
+    for n in out["launches"].values():
+        lane_by = _summed(lane_by, {k.split()[1]: c for k, c in n["by_instance"].items()
+                                    if k.startswith("lane_sums ")})
+    out["lane_by_instance"] = lane_by
+    for k in ("lane_sums", "like"):
+        out[f"{k}_launches"] = sum(n[k] for n in out["launches"].values())
+    out["like_by_instance"] = _summed(*(n["like_by_instance"] for n in out["launches"].values()))
+    out["like_by_shape"] = _summed(*(n["like_by_shape"] for n in out["launches"].values()))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 9: semi and anti joins, the approximate sketch, the Q3 join step
 # ---------------------------------------------------------------------------
 
@@ -2647,7 +3260,13 @@ def main() -> int:
     log(f"device: {dev_name} x{torch.cuda.device_count()}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
 
+    marks: list = []
+
+    def mark(name: str) -> None:
+        marks.append((name, time.perf_counter()))
+
     # ---- phase 1: build ---------------------------------------------------
+    mark("1 build")
     t0 = time.perf_counter()
     logs = _build.build()
     for name in _build.sources():
@@ -2657,6 +3276,7 @@ def main() -> int:
         log_ptxas(name, out)
 
     # ---- phase 2: kernels vs plain ----------------------------------------
+    mark("2 kernels")
     rng = np.random.default_rng(20261016)
     log("phase 2: kernels against their plain versions (exact)")
     q1_err = check_q1_kernel(rng)
@@ -2674,6 +3294,7 @@ def main() -> int:
     like_err, prefix_err, sf1_strings = check_string_kernels(string_conns)
 
     # ---- phase 3: resident Q1 at SF1 x10 ----------------------------------
+    mark("3 resident Q1")
     t0 = time.perf_counter()
     conn = TpchConnector(sf=1, device="cuda")
     arrays = conn.table_numpy("lineitem", Q1_COLS)
@@ -2714,6 +3335,7 @@ def main() -> int:
         f"Q1 kernel launches {q1_launches}")
 
     # ---- phase 4: the Q1 pipeline at SF1 ----------------------------------
+    mark("4 Q1 pipeline")
     cuda_q1.launches = 0
     cuda_groupby.reset_launches()
     t0 = time.perf_counter()
@@ -2743,6 +3365,7 @@ def main() -> int:
         f"lane-sums kernel launches {lane_launches}, by instance {lane_by_instance}")
 
     # ---- phase 5: kernel times at the main path's shapes ------------------
+    mark("5 and 6 joins")
     flush = torch.empty(1 << 27, dtype=torch.int8, device="cuda")  # 128 MB > L2
     q1_bytes = sum(batch[c].data.numel() * batch[c].data.element_size()
                    for c in Q1_COLS) + n + (6 * 6 + 1) * 8
@@ -2774,6 +3397,7 @@ def main() -> int:
     log_probe("payload", "q10 first lineitem split", probe_shapes["payload"])
     pay = probe_shapes["payload"]["q10 first lineitem split"]
 
+    mark("7 leaf route")
     leaf = run_leaf_queries(flush)
     sp, res_ = leaf["split"], leaf["resident"]
     leaf_bound, leaf_by = bound(sp["bytes"], sp["ops"])
@@ -2798,6 +3422,7 @@ def main() -> int:
         log(f"  wall {name}: first {first:.3f} s, second {second:.3f} s, device busy "
             f"{busy:.1f} ms, connector scans {scan:.3f} s")
 
+    mark("8 strings")
     strings = run_string_queries(string_conns)
     ln_phone = time_lane(strings["captured"]["lane"], flush)
     phone_bound, _ = bound(ln_phone["bytes"], ln_phone["ops"])
@@ -2848,6 +3473,7 @@ def main() -> int:
         log(f"  wall {name}: first {first:.3f} s, second {second:.3f} s, device busy "
             f"{busy:.1f} ms, connector scans {scan:.3f} s")
 
+    mark("9 semi")
     semi = run_semi_queries()
     ln_q4 = time_lane(semi["captured"]["lane"], flush)
     q4_bound, _ = bound(ln_q4["bytes"], ln_q4["ops"])
@@ -2882,6 +3508,7 @@ def main() -> int:
         log(f"  wall {name}: first {first:.3f} s, second {second:.3f} s, device busy "
             f"{busy:.1f} ms, connector scans {scan:.3f} s")
 
+    mark("10 outer")
     outer = run_outer_join_queries()
     for name, (first, second, busy, scan) in outer["walls"].items():
         log(f"  wall {name}: first {first:.3f} s, second {second:.3f} s, device busy "
@@ -2890,19 +3517,51 @@ def main() -> int:
     log(f"phase 5, like_mask {t['pattern']!r} at q13 first orders split [{t['rows']}, "
         f"{t['width']}], {t['instance']} instance: {t['ms']:.4f} (call {t['call_ms']:.4f}, "
         f"plain {t['plain_ms']:.4f}, bound {t['bound_ms']:.4f} by {t['bound_by']})")
-    totals = probe_launch_totals(join["launches"], strings["launches"], semi["launches"],
-                                 outer["launches"])
-    log(f"  exists, sketch and payload launches with phase 10's: {totals}")
     log(f"  phase 10's LIKE launches {outer['like_launches']}, by instance "
         f"{outer['like_by_instance']}, by rows x width {outer['like_by_shape']}; lane-sums "
         f"launches {outer['lane_launches']}, by instance {outer['lane_by_instance']}")
+
+    # ---- phase 11: conditional expressions, DISTINCT, BYTES keys ---------
+    mark("11 expressions")
+    expr = run_expression_queries(string_conns)
+    for name, (first, second, busy, scan) in expr["walls"].items():
+        log(f"  wall {name}: first {first:.3f} s, second {second:.3f} s, device busy "
+            f"{busy:.1f} ms, connector scans {scan:.3f} s")
+    t = like_shapes["q16 first supplier split"] = time_like(*expr["captured"], flush)
+    log(f"phase 5, like_mask {t['pattern']!r} at q16 first supplier split [{t['rows']}, "
+        f"{t['width']}], {t['instance']} instance: {t['ms']:.4f} (call {t['call_ms']:.4f}, "
+        f"plain {t['plain_ms']:.4f}, bound {t['bound_ms']:.4f} by {t['bound_by']})")
+    timed = {1 << 20}  # phase 5 times 2^20 at Q10 and Q9; one key type a row count
+    for (mode, rows, _key), seen in sorted(expr["probes"].items()):
+        if mode != "payload" or rows in timed:
+            continue
+        timed.add(rows)
+        label = f"{seen['query']} first {rows}-row batch"
+        probe_shapes["payload"][label] = probe_shape(time_probe(
+            "payload", seen, expr["launches"][seen["query"]]["payload"], flush))
+        log_probe("payload", label, probe_shapes["payload"])
+    p11 = probe_launch_totals(expr["launches"])
+    totals = probe_launch_totals(join["launches"], strings["launches"], semi["launches"],
+                                 outer["launches"], expr["launches"])
+    log(f"  exists, sketch and payload launches with phases 10 and 11: {totals}; phase 11's "
+        f"alone: {p11}")
+    log(f"  phase 11's LIKE launches {expr['like_launches']}, by instance "
+        f"{expr['like_by_instance']}, by rows x width {expr['like_by_shape']}; lane-sums "
+        f"launches {expr['lane_sums_launches']}, by instance {expr['lane_by_instance']}")
+    p11_other = {k: sum(n[k] for n in expr["launches"].values())
+                 for k in ("q1", "leaf_agg", "q3", "prefix")}
+    log(f"  phase 11's launches of the other kernels: {p11_other}")
+    mark("json")
+    log("phase seconds: " + ", ".join(f"{a} {t1 - t0:.1f}" for (a, t0), (_b, t1)
+                                      in zip(marks, marks[1:])))
 
     log(smi[0])
     kernels = [
         {"name": "q1_step", "route": "cuda", "source": "presto_tpu_torch/csrc/q1.cu",
          "replaces": "presto_tpu/ops/pallas_q1.py:114",
          "jax_function": "presto_tpu/ops/pallas_q1.py:174 q1_step",
-         "launches": q1_launches, "max_abs_err": q1_err, "ms": q1_ms, "kernel_ms": q1_ms,
+         "launches": q1_launches + p11_other["q1"], "phase11_launches": p11_other["q1"],
+         "max_abs_err": q1_err, "ms": q1_ms, "kernel_ms": q1_ms,
          "call_ms": q1_call_ms,
          "plain_ms": q1_plain_ms, "bound_ms": q1_bound, "bound_by": q1_by,
          "library_ms": None, "rows": n, "bytes": q1_bytes, "ops": q1_ops},
@@ -2910,10 +3569,14 @@ def main() -> int:
          "source": "presto_tpu_torch/csrc/lane_sums.cu",
          "replaces": "presto_tpu/ops/pallas_groupby.py:138",
          "jax_function": "presto_tpu/ops/pallas_groupby.py:177 fused_lane_sums",
-         "launches": lane_launches + outer["lane_launches"],
-         "launches_by_instance": _summed(lane_by_instance, outer["lane_by_instance"]),
-         "launches_from": "phase 4 (Q1 pipeline) and phase 10 (Q13, Q5)",
+         "launches": lane_launches + outer["lane_launches"] + expr["lane_sums_launches"],
+         "launches_by_instance": _summed(lane_by_instance, outer["lane_by_instance"],
+                                         expr["lane_by_instance"]),
+         "launches_from": "phase 4 (Q1 pipeline), phase 10 (Q13, Q5) and phase 11 (the "
+                          "expression queries)",
          "phase10_launches": outer["lane_launches"],
+         "phase11_launches": expr["lane_sums_launches"],
+         "phase11_launches_by_instance": expr["lane_by_instance"],
          "max_abs_err": max(lane_err, ln["err"], ln_phone["err"], ln_q4["err"]),
          "ms": ln["ms"], "kernel_ms": ln["ms"], "call_ms": ln["call_ms"],
          "plain_ms": ln["plain_ms"], "bound_ms": lane_bound, "bound_by": lane_by,
@@ -2934,11 +3597,15 @@ def main() -> int:
          "launches": totals["exists"]["launches"],
          "launches_by_shape": totals["exists"]["by_shape"],
          "launches_by_instance": totals["exists"]["by_instance"],
-         "max_abs_err": max([exists_err, keep_err["exists"]]
+         "launches_from": "phases 6, 8, 9, 10 and 11",
+         "phase11_launches": p11["exists"]["launches"],
+         "phase11_launches_by_shape": p11["exists"]["by_shape"],
+         "max_abs_err": max([exists_err, keep_err["exists"], expr["probe_err"]["exists"]]
                             + [t["err"] for t in probe_shapes["exists"].values()]),
          "ms": ex["ms"], "kernel_ms": ex["ms"], "call_ms": ex["call_ms"],
          "plain_ms": ex["plain_ms"], "bound_ms": exists_bound, "bound_by": exists_by,
-         "library_ms": None, "rows": ex["rows"], "bytes": ex["bytes"], "ops": ex["ops"],
+         "library_ms": ex["library_ms"], "library_call": "torch.isin(keys, build_keys) & live",
+         "rows": ex["rows"], "bytes": ex["bytes"], "ops": ex["ops"],
          "probe_ms": ex["probe_ms"], "instance": ex["instance"],
          "semi_anti_part_launches": semi["exists_launches"], "shapes": probe_shapes["exists"]},
         {"name": "sketch_probe", "route": "cuda",
@@ -2948,6 +3615,7 @@ def main() -> int:
          "launches": totals["sketch"]["launches"],
          "launches_by_shape": totals["sketch"]["by_shape"],
          "launches_by_instance": totals["sketch"]["by_instance"],
+         "phase11_launches": p11["sketch"]["launches"],
          "max_abs_err": max([sketch_err, keep_err["sketch"]]
                             + [t["err"] for t in probe_shapes["sketch"].values()]),
          "ms": sk["ms"], "kernel_ms": sk["ms"], "call_ms": sk["call_ms"],
@@ -2959,7 +3627,8 @@ def main() -> int:
          "source": "presto_tpu_torch/csrc/join_probe.cu",
          "replaces": "presto_tpu/ops/pallas_join.py:443",
          "jax_function": "presto_tpu/ops/pallas_join.py:464 q3_probe_step",
-         "launches": semi["q3_launches"], "max_abs_err": max(q3_kernel_err, semi["q3"]["err"]),
+         "launches": semi["q3_launches"] + p11_other["q3"], "phase11_launches": p11_other["q3"],
+         "max_abs_err": max(q3_kernel_err, semi["q3"]["err"]),
          "ms": q3_one["ms"], "kernel_ms": q3_one["ms"], "call_ms": q3_one["call_ms"],
          "plain_ms": q3_one["plain_ms"], "bound_ms": q3_bound, "bound_by": q3_by,
          "library_ms": None, "rows": q3_one["rows"], "bytes": q3_one["bytes"],
@@ -2973,7 +3642,12 @@ def main() -> int:
          "launches": totals["payload"]["launches"],
          "launches_by_shape": totals["payload"]["by_shape"],
          "launches_by_instance": totals["payload"]["by_instance"],
-         "max_abs_err": max([payload_err] + [t["err"] for t in probe_shapes["payload"].values()]),
+         "launches_from": "phases 6, 8, 9, 10 and 11",
+         "phase11_launches": p11["payload"]["launches"],
+         "phase11_launches_by_shape": p11["payload"]["by_shape"],
+         "phase11_launches_by_instance": p11["payload"]["by_instance"],
+         "max_abs_err": max([payload_err, expr["probe_err"]["payload"]]
+                            + [t["err"] for t in probe_shapes["payload"].values()]),
          "ms": pay["ms"], "kernel_ms": pay["ms"], "call_ms": pay["call_ms"],
          "plain_ms": pay["plain_ms"], "bound_ms": pay["bound_ms"], "bound_by": pay["bound_by"],
          "library_ms": None, "rows": pay["rows"], "bytes": pay["bytes"], "ops": pay["ops"],
@@ -2983,7 +3657,9 @@ def main() -> int:
         {"name": "leaf_agg", "route": "cuda", "source": "presto_tpu_torch/csrc/leaf_agg.cu",
          "replaces": "presto_tpu/ops/pallas_agg.py:180",
          "jax_function": "presto_tpu/ops/pallas_agg.py:246 _pallas_step (via agg_step :346)",
-         "launches": leaf["leaf_launches"], "launches_by_shape": leaf["by_shape"],
+         "launches": leaf["leaf_launches"] + p11_other["leaf_agg"],
+         "phase11_launches": p11_other["leaf_agg"],
+         "launches_by_shape": leaf["by_shape"],
          "launches_by_instance": leaf["by_instance"],
          "max_abs_err": max(leaf_err, sp["err"], sm_["err"], res_["err"]),
          "ms": sp["ms"], "kernel_ms": sp["ms"], "call_ms": sp["call_ms"],
@@ -2998,12 +3674,14 @@ def main() -> int:
         {"name": "like_mask", "route": "cuda", "source": "presto_tpu_torch/csrc/strings.cu",
          "replaces": "presto_tpu/ops/pallas_strings.py:118",
          "jax_function": "presto_tpu/ops/pallas_strings.py:190 like_mask_pallas",
-         "launches": strings["like_launches"] + outer["like_launches"],
+         "launches": strings["like_launches"] + outer["like_launches"] + expr["like_launches"],
          "launches_by_instance": _summed(strings["like_by_instance"],
-                                         outer["like_by_instance"]),
-         "launches_from": "phase 8 (LIKE queries) and phase 10 (Q13, Q5)",
+                                         outer["like_by_instance"], expr["like_by_instance"]),
+         "launches_from": "phase 8 (LIKE queries), phase 10 (Q13, Q5) and phase 11 (Q16)",
          "phase10_launches": outer["like_launches"],
-         "launches_by_shape": _summed(strings["like_by_shape"], outer["like_by_shape"]),
+         "phase11_launches": expr["like_launches"],
+         "launches_by_shape": _summed(strings["like_by_shape"], outer["like_by_shape"],
+                                      expr["like_by_shape"]),
          "max_abs_err": max([like_err] + [t["err"] for t in like_shapes.values()]),
          "ms": lk["ms"], "kernel_ms": lk["ms"], "call_ms": lk["call_ms"],
          "plain_ms": lk["plain_ms"], "bound_ms": like_bound, "bound_by": like_by,
@@ -3014,7 +3692,8 @@ def main() -> int:
          "source": "presto_tpu_torch/csrc/strings.cu",
          "replaces": "presto_tpu/ops/pallas_strings.py:246",
          "jax_function": "presto_tpu/ops/pallas_strings.py:251 starts_with_pallas",
-         "launches": strings["prefix_launches"],
+         "launches": strings["prefix_launches"] + p11_other["prefix"],
+         "phase11_launches": p11_other["prefix"],
          "launches_by_instance": strings["prefix_by_instance"],
          "max_abs_err": max([prefix_err] + [t["err"] for t in prefix_shapes.values()]),
          "ms": px["ms"], "kernel_ms": px["ms"], "call_ms": px["call_ms"],

@@ -1,11 +1,10 @@
 """The 13 SSB queries (flights Q1-Q4) plus LIKE/substring variants.
 
-A copy of ``presto_tpu/connectors/ssb/queries.py``. The port runs
-flights Q1 (on the fused leaf route), Q2 and ``q3_1``/``q3_2`` (joins and
-keyed aggregation), and ``q_like_part`` / ``q_like_phone`` (the LIKE and
-substring predicates, on the port's string kernels); the others
-(``q3_3``, ``q3_4`` and flight Q4) raise ``NotSupported`` naming the
-construct they need (``or``).
+A copy of ``presto_tpu/connectors/ssb/queries.py``. The port runs all
+of them: flight Q1 on the fused leaf route, flights Q2-Q4 through its
+joins and keyed aggregation (``q3_3`` onward filter with OR), and
+``q_like_part`` / ``q_like_phone`` (the LIKE and substring predicates,
+on the port's string kernels).
 
 From the public SSB spec (O'Neil et al.); predicate constants follow
 the spec. The two extra ``q_like_*`` queries are the SURVEY config-5

@@ -7,8 +7,9 @@ Q15's view is expressed in WITH form (the engine has no DDL yet).
 
 A copy of ``presto_tpu/connectors/tpch/queries.py`` (the port imports
 nothing of the JAX package); keep the two identical. The port runs Q1,
-Q3, Q4, Q5, Q6, Q9, Q10, Q13 and Q18 so far; the others raise
-``NotSupported`` naming what they need.
+Q3-Q10, Q12-Q14, Q16, Q18 and Q19 so far; the others (Q2, Q11, Q15,
+Q17, Q20-Q22: subqueries and a WITH) raise ``NotSupported`` naming what
+they need.
 """
 
 QUERIES: dict[str, str] = {}

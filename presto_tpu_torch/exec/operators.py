@@ -9,8 +9,9 @@ jit steps and executable cache have no counterpart.
 Ported: ``FilterProjectOperator``; ``HashAggregationOperator`` with the
 direct-addressed strategy (one ``fused_small_sums`` pass per batch) and
 the sort strategy with passengers (merge-by-sort into a bounded group
-state); ``GlobalAggregationOperator`` (no GROUP BY); ``OrderByOperator``
-and ``TopNOperator`` over concatenated batches.
+state; a BYTES key groups by its 7-byte int64 chunks);
+``GlobalAggregationOperator`` (no GROUP BY); ``OrderByOperator`` and
+``TopNOperator`` over concatenated batches (BYTES sort keys included).
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ from presto_tpu_torch.ops.groupby import (
     group_ids_sort,
     segment_agg,
 )
-from presto_tpu_torch.ops.sort import sort_indices
+from presto_tpu_torch.ops.sort import bytes_sort_chunks, sort_indices
 from presto_tpu_torch.runtime.errors import NotSupported, ResourceExhausted
 from presto_tpu_torch.types import DataType, TypeKind
 
@@ -285,10 +286,15 @@ class HashAggregationOperator(Operator):
             "overflow": torch.zeros((), dtype=torch.bool, device=device),
         }
         for name, e in self.group_keys:
-            if e.dtype.kind is TypeKind.BYTES:
-                raise NotSupported("grouping on BYTES keys is not ported yet")
             state["keyv$" + name] = torch.zeros(g, dtype=torch.bool, device=device)
-            state["key$" + name] = torch.zeros(g, dtype=e.dtype.torch_dtype, device=device)
+            if e.dtype.kind is TypeKind.BYTES:
+                # one int64 sort column per 7-byte chunk, plus the bytes
+                for j in range(-(-e.dtype.width // 7)):
+                    state[f"key${name}${j}"] = torch.zeros(g, dtype=torch.int64, device=device)
+                state["keyraw$" + name] = torch.zeros((g, e.dtype.width), dtype=torch.uint8,
+                                                      device=device)
+            else:
+                state["key$" + name] = torch.zeros(g, dtype=e.dtype.torch_dtype, device=device)
         for name, e in self.passengers:
             shape = (g, e.dtype.width) if e.dtype.kind is TypeKind.BYTES else (g,)
             state["pax$" + name] = torch.zeros(shape, dtype=e.dtype.torch_dtype, device=device)
@@ -306,19 +312,29 @@ class HashAggregationOperator(Operator):
         (as a pseudo-batch) with the batch's rows, then re-grouping —
         bounded memory, one multi-key sort per batch. NULL keys form
         their own group: the data is zeroed under NULL and a validity
-        column joins the sort keys."""
+        column joins the sort keys. A BYTES key sorts as its 7-byte int64
+        chunks (``bytes_sort_chunks``) and keeps its bytes beside them."""
         g = self.strategy.max_groups
         kvals = [evaluate(e, batch) for _name, e in self.group_keys]
         pvals = [evaluate(e, batch) for _name, e in self.passengers]
         inputs = self._eval_inputs(batch)
         cat_sort, cat_keys, cat_valids = [], {}, {}
-        for (n, _e), v in zip(self.group_keys, kvals):
+        for (n, e), v in zip(self.group_keys, kvals):
             valid = valid_of(v.valid, batch.live)
             cat_valids[n] = torch.cat([state["keyv$" + n], valid])
             cat_sort.append(cat_valids[n].to(torch.int8))
-            kd = torch.where(valid, v.data, torch.zeros_like(v.data))
-            cat_keys[n] = torch.cat([state["key$" + n], kd.to(state["key$" + n].dtype)])
-            cat_sort.append(cat_keys[n])
+            mask = valid[:, None] if v.data.dim() > 1 else valid
+            kd = torch.where(mask, v.data, torch.zeros_like(v.data))
+            if e.dtype.kind is TypeKind.BYTES:
+                for j, c in enumerate(bytes_sort_chunks(kd)):
+                    key = f"key${n}${j}"
+                    cat_keys[key] = torch.cat([state[key], c])
+                    cat_sort.append(cat_keys[key])
+                cat_keys["keyraw$" + n] = torch.cat([state["keyraw$" + n], v.data])
+            else:
+                key = "key$" + n
+                cat_keys[key] = torch.cat([state[key], kd.to(state[key].dtype)])
+                cat_sort.append(cat_keys[key])
         cat_live = torch.cat([state["present"], batch.live])
         gids, rep, ng, ovf = group_ids_sort(cat_sort, cat_live, g)
 
@@ -326,7 +342,8 @@ class HashAggregationOperator(Operator):
         new["overflow"] = state["overflow"] | ovf
         for n, _e in self.group_keys:
             new["keyv$" + n] = gather_padded(cat_valids[n], rep, False)
-            new["key$" + n] = gather_padded(cat_keys[n], rep, 0)
+        for key, cat in cat_keys.items():
+            new[key] = gather_padded(cat, rep, 0)
         for (n, _e), v in zip(self.passengers, pvals):
             old = state["pax$" + n]
             new["pax$" + n] = gather_padded(torch.cat([old, v.data.to(old.dtype)]), rep, 0)
@@ -400,8 +417,8 @@ class HashAggregationOperator(Operator):
         g = self.strategy.max_groups
         cols: dict[str, Column] = {}
         for name, e in self.group_keys:
-            cols[name] = Column(st["key$" + name], st["keyv$" + name], e.dtype,
-                                self._dicts.get(name))
+            data = st[("keyraw$" if e.dtype.kind is TypeKind.BYTES else "key$") + name]
+            cols[name] = Column(data, st["keyv$" + name], e.dtype, self._dicts.get(name))
         for name, e in self.passengers:
             cols[name] = Column(st["pax$" + name], st["paxv$" + name], e.dtype,
                                 self._dicts.get(name))

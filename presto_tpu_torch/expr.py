@@ -1,23 +1,28 @@
-"""Row expression IR + vectorized evaluator (the TPC-H Q1 subset).
+"""Row expression IR + vectorized evaluator.
 
 Counterpart of ``presto_tpu/expr.py``. Expressions are a small immutable
 IR evaluated eagerly over ``Batch`` columns; every evaluation returns
-``Val(data, valid)`` so NULL handling is branch-free tensor math.
+``Val(data, valid)`` so NULL handling is branch-free tensor math. A
+function that sets its own validity returns it; otherwise the result is
+valid where every argument is.
 
-The ported slices cover the functions TPC-H Q1, Q3, Q6, Q9 and Q10 and
-the SSB Q1 flight and LIKE queries need: ``add``, ``sub``, ``mul`` over
-DECIMAL and DATE; ``div`` in DOUBLE (float32, as in the JAX package;
-division by zero is NULL); ``cast_bigint``; the comparisons ``eq``,
-``ne``, ``lt``, ``le``, ``gt``, ``ge`` and ``between`` over numbers,
-dates, dictionary VARCHAR (a string literal is encoded against its peer
-column's dictionary; an absent literal matches nothing under ``eq``) and
-fixed-width BYTES (PAD SPACE, against a string literal or another BYTES
-value); the Kleene ``and`` and ``not``; ``year``, ``month`` and ``day``
-of a DATE; and the string functions ``like`` and ``starts_with`` (BYTES
-through the kernels of ``ops/cuda_strings``, dictionary VARCHAR through a
-host regex over the dictionary and a gather by code) and the static
-``substr_<start>_<length>`` over BYTES. A call to any other function
-raises ``NotSupported`` naming it.
+Ported: ``add``, ``sub``, ``mul`` over DECIMAL and DATE; ``div`` in
+DOUBLE (float32, as in the JAX package; division by zero is NULL);
+``neg`` (on the argument's own dtype: the narrow extreme wraps);
+``cast_bigint``, ``cast_double`` and ``rescale_<s>`` (CAST to
+``decimal(p,s)``); the comparisons ``eq``, ``ne``, ``lt``, ``le``,
+``gt``, ``ge``, ``between`` and ``in`` over numbers, dates, dictionary
+VARCHAR (a string literal is encoded against its peer column's
+dictionary; an absent literal matches nothing under ``eq`` and ``in``)
+and fixed-width BYTES (PAD SPACE, against a string literal or another
+BYTES value); the Kleene ``and``, ``or`` and ``not``; ``is_null`` and
+``is_not_null``; the conditional forms ``case``, ``if`` and ``coalesce``
+(a literal beside BYTES branches becomes a space-padded row); ``year``,
+``month`` and ``day`` of a DATE; and the string functions ``like`` and
+``starts_with`` (BYTES through the kernels of ``ops/cuda_strings``,
+dictionary VARCHAR through a host regex over the dictionary and a gather
+by code) and the static ``substr_<start>_<length>`` over BYTES. A call
+to any other function raises ``NotSupported`` naming it.
 """
 
 from __future__ import annotations
@@ -216,6 +221,14 @@ def _to_physical(v: Val, target: DataType) -> torch.Tensor:
         return data.to(torch.int64) * 10**target.scale
     if target.kind in (TypeKind.BIGINT, TypeKind.INTEGER, TypeKind.DATE):
         return data.to(target.torch_dtype)
+    if target.kind is TypeKind.BOOLEAN:
+        return data.to(torch.bool)
+    if (target.kind is TypeKind.BYTES and src.kind is TypeKind.BYTES
+            and src.width == target.width):
+        return data
+    if target.kind is TypeKind.VARCHAR and src.kind is TypeKind.VARCHAR:
+        # dictionary codes pass through whatever their physical width
+        return data
     raise NotImplementedError(f"conversion {src} -> {target} is not ported yet")
 
 
@@ -285,6 +298,42 @@ def _t_int(_):
 
 def _t_bigint(_):
     return BIGINT
+
+
+def _t_first(args):
+    return args[0]
+
+
+def _t_double(_):
+    return DOUBLE
+
+
+@register("neg", _t_first)
+def _neg(args: list[Val], out: DataType):
+    """Unary minus on the argument's own physical dtype: the narrow
+    extreme wraps (int8 -128 stays -128), as in the JAX package."""
+    return -args[0].data, None
+
+
+@register("cast_double", _t_double)
+def _cast_double(args: list[Val], out: DataType):
+    return _to_physical(args[0], DOUBLE), None
+
+
+def rescale_decimal(target_scale: int) -> str:
+    """Register (once) and return the name of ``CAST(x AS decimal(p, s))``:
+    to DECIMAL at scale ``s``, a lower scale rounding half away from zero."""
+    name = f"rescale_{target_scale}"
+    if name not in _REGISTRY:
+
+        def rule(args, _s=target_scale):
+            return decimal(38, _s)
+
+        @register(name, rule)
+        def impl(args, out, _s=target_scale):
+            return _to_physical(args[0], decimal(38, _s)), None
+
+    return name
 
 
 @register("cast_bigint", _t_bigint)
@@ -367,7 +416,7 @@ def _cmp(op):
     return impl
 
 
-register("eq", _t_bool)(_cmp(lambda x, y: x == y))
+_eq = register("eq", _t_bool)(_cmp(lambda x, y: x == y))
 register("ne", _t_bool)(_cmp(lambda x, y: x != y))
 register("lt", _t_bool)(_cmp(lambda x, y: x < y))
 register("le", _t_bool)(_cmp(lambda x, y: x <= y))
@@ -396,6 +445,107 @@ def _and(args: list[Val], out: DataType):
 def _not(args: list[Val], out: DataType):
     """Kleene NOT: NULL stays NULL (the argument's validity carries)."""
     return ~args[0].data, None
+
+
+@register("or", _t_bool)
+def _or(args: list[Val], out: DataType):
+    """Kleene OR: TRUE dominates NULL; data is "definitely true"."""
+    a, b = args
+    va, vb = valid_or_all(a), valid_or_all(b)
+    true_a, true_b = va & a.data, vb & b.data
+    return true_a | true_b, (va & vb) | true_a | true_b
+
+
+@register("is_null", _t_bool)
+def _is_null(args: list[Val], out: DataType):
+    v = valid_or_all(args[0])
+    return ~v, torch.ones_like(v)
+
+
+@register("is_not_null", _t_bool)
+def _is_not_null(args: list[Val], out: DataType):
+    v = valid_or_all(args[0])
+    return v, torch.ones_like(v)
+
+
+# ---- conditional forms ----------------------------------------------------
+
+
+def _bytes_literal_matrix(s: str, width: int, cap: int, device) -> torch.Tensor:
+    """A VARCHAR literal as a broadcast [cap, width] BYTES matrix,
+    space-padded or truncated to the fixed width."""
+    raw = s.encode()[:width].ljust(width, b" ")
+    row = torch.from_numpy(np.frombuffer(raw, np.uint8).copy()).to(device)
+    return row.expand(cap, width)
+
+
+def _select(cond: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """where(cond, a, b) per row, for [rows] and [rows, width] values."""
+    return torch.where(cond[:, None] if a.dim() > 1 or b.dim() > 1 else cond, a, b)
+
+
+@register("coalesce", _t_same)
+def _coalesce(args: list[Val], out: DataType):
+    """The first non-NULL argument; a VARCHAR literal beside BYTES
+    arguments becomes a space-padded row of the result's width."""
+    if out.kind is TypeKind.BYTES:
+        cap, dev = next((a.data.shape[0], a.data.device) for a in args
+                        if not isinstance(a.data, str))
+        args = [Val(_bytes_literal_matrix(a.data, out.width, cap, dev),
+                    torch.ones(cap, dtype=torch.bool, device=dev), out)
+                if isinstance(a.data, str) else a
+                for a in args]
+    data = _to_physical(args[-1], out)
+    valid = valid_or_all(args[-1])
+    for v in reversed(args[:-1]):
+        vv = valid_or_all(v)
+        data = _select(vv, _to_physical(v, out), data)
+        valid = vv | valid
+    return data, valid
+
+
+@register("if", lambda args: _t_same(args[1:]))
+def _if(args: list[Val], out: DataType):
+    c, t, f = args
+    cond = c.data & valid_or_all(c)
+    data = _select(cond, _to_physical(t, out), _to_physical(f, out))
+    return data, torch.where(cond, valid_or_all(t), valid_or_all(f))
+
+
+def _t_case(args):
+    return _t_same([args[i] for i in range(1, len(args), 2)]
+                   + ([args[-1]] if len(args) % 2 else []))
+
+
+@register("case", _t_case)
+def _case(args: list[Val], out: DataType):
+    """case(when1, then1, when2, then2, ..., [else]): the first WHEN that
+    is TRUE (not NULL) picks its THEN; no match and no ELSE is NULL."""
+    pairs = list(zip(args[0::2], args[1::2]))
+    if len(args) % 2 == 1:
+        data = _to_physical(args[-1], out)
+        valid = valid_or_all(args[-1])
+    else:
+        data = torch.zeros_like(_to_physical(pairs[0][1], out))
+        valid = torch.zeros_like(valid_or_all(pairs[0][0]))
+    for c, t in reversed(pairs):
+        cond = c.data & valid_or_all(c)
+        data = _select(cond, _to_physical(t, out), data)
+        valid = torch.where(cond, valid_or_all(t), valid)
+    return data, valid
+
+
+@register("in", _t_bool)
+def _in(args: list[Val], out: DataType):
+    """in(needle, v1, v2, ...) over a small literal list. The result's
+    validity is the needle's alone (a NULL item does not make a miss
+    NULL), the JAX package's rule."""
+    needle = args[0]
+    hit = None
+    for v in args[1:]:
+        h = _eq([needle, v], out)[0]
+        hit = h if hit is None else (hit | h)
+    return hit, valid_or_all(needle)
 
 
 # ---- dates ----------------------------------------------------------------
@@ -561,14 +711,15 @@ def evaluate(expr: Expr, batch: Batch) -> Val:
     if isinstance(expr, Literal):
         cap, dev = batch.capacity, batch.device
         t = expr.dtype
+        if expr.value is None:
+            shape = (cap, t.width) if t.kind is TypeKind.BYTES else (cap,)
+            return Val(torch.zeros(shape, dtype=t.torch_dtype, device=dev),
+                       torch.zeros(cap, dtype=torch.bool, device=dev), t)
         if t.kind is TypeKind.BYTES:
             raise NotSupported(f"{t} literals are not ported to presto_tpu_torch yet")
-        if t.kind is TypeKind.VARCHAR and expr.value is not None:
+        if t.kind is TypeKind.VARCHAR:
             # stays host-side; encoded lazily against the peer dictionary
             return Val(expr.value, None, t, None)
-        if expr.value is None:
-            return Val(torch.zeros(cap, dtype=t.torch_dtype, device=dev),
-                       torch.zeros(cap, dtype=torch.bool, device=dev), t)
         data = torch.full((cap,), t.to_physical(expr.value),
                           dtype=t.torch_dtype, device=dev)
         return Val(data, torch.ones(cap, dtype=torch.bool, device=dev), t)

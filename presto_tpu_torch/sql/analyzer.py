@@ -1,16 +1,20 @@
 """Semantic analysis: AST -> typed logical plan (the ported subset).
 
 Counterpart of ``presto_tpu/sql/analyzer.py`` for the SELECT shapes of
-TPC-H Q1, Q3, Q4, Q5, Q6, Q9, Q10, Q13 and Q18 and the SSB Q1 flight and
-LIKE queries: SELECT / FROM with comma joins (and explicit ``JOIN ... ON``
+TPC-H Q1, Q3-Q10, Q12-Q14, Q16, Q18 and Q19 and all 15 SSB queries:
+SELECT [DISTINCT] / FROM with comma joins (and explicit ``JOIN ... ON``
 and ``LEFT [OUTER] JOIN ... ON``, whose ON conjuncts over the build side
 alone filter the build) and derived
 tables (``(SELECT ...) AS alias``) / WHERE conjuncts / GROUP BY (or
 none: one keyless aggregate row) / ORDER BY / LIMIT; [NOT] EXISTS with
 equality correlation and [NOT] IN (subquery), each planned as a
-``SemiJoin`` (anti when negated); ``count``, ``sum``,
+``SemiJoin`` (anti when negated); ``count`` (and ``count(DISTINCT x)``,
+a pre-aggregation on the keys plus ``x``), ``sum``,
 ``avg`` (``sum`` / ``count`` in DOUBLE), ``min``, ``max``; DECIMAL and
-DATE arithmetic, comparisons, [NOT] BETWEEN, [NOT] LIKE and NOT;
+DATE arithmetic and unary minus, comparisons, [NOT] BETWEEN, [NOT] IN
+(a list), [NOT] LIKE, IS [NOT] NULL, AND, OR and NOT; simple and searched
+CASE, COALESCE, NULLIF and CAST to ``double``, ``bigint`` / ``int`` /
+``integer`` and ``decimal(p,s)``;
 ``SUBSTRING`` / ``substr`` over BYTES; ``EXTRACT`` (and the functions)
 ``year``, ``month`` and ``day``; ``date '...'`` literals and
 ``date +/- interval`` folding.
@@ -22,27 +26,29 @@ both packages build the same plan tree for the same statement.
 
 Anything else (scalar subqueries, EXISTS correlated by ``<>``, EXISTS
 under OR (the mark join), uncorrelated EXISTS, set operations, CTEs,
-DISTINCT, windows, grouping sets, RIGHT and FULL joins, OR, CASE, casts,
-the rest of the scalar function library) raises ``NotSupported`` naming
-the construct.
+windows, grouping sets, RIGHT and FULL joins, the other casts, the rest
+of the scalar function library) raises ``NotSupported`` naming the
+construct.
 """
 
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
 import numpy as np
 
 from presto_tpu_torch.exec.operators import AggSpec, SortKey
-from presto_tpu_torch.expr import Call, Expr, InputRef, Literal, result_type, substr_fn
+from presto_tpu_torch.expr import (
+    Call, Expr, InputRef, Literal, rescale_decimal, result_type, substr_fn)
 from presto_tpu_torch.plan import nodes as N
 from presto_tpu_torch.plan.catalog import Catalog, TableMeta
 from presto_tpu_torch.runtime.errors import NotSupported, UserError
 from presto_tpu_torch.sql import ast as A
 from presto_tpu_torch.types import (
-    BIGINT, BOOLEAN, DATE, DOUBLE, INTEGER, DataType, TypeKind, decimal, fixed_bytes,
-    varchar)
+    BIGINT, BOOLEAN, DATE, DOUBLE, INTEGER, DataType, TypeKind, decimal,
+    fixed_bytes, varchar)
 
 AGG_FUNCS = {"count", "sum", "avg", "min", "max",
              "stddev_samp", "stddev", "var_samp", "variance"}
@@ -203,8 +209,6 @@ class Analyzer:
     ) -> tuple[N.PlanNode, Scope]:
         if q.ctes:
             raise _unsupported("WITH (common table expressions)")
-        if q.distinct:
-            raise _unsupported("SELECT DISTINCT")
         if any(isinstance(g, A.GroupingSets) for g in q.group_by):
             raise _unsupported("GROUPING SETS / ROLLUP / CUBE")
         for it in q.select:
@@ -281,6 +285,14 @@ class Analyzer:
         out_scope = Scope(
             [FieldRef(n, e.dtype, "", n) for n, e in out_exprs]
         )
+
+        # ---- DISTINCT: a keys-only Aggregate over the output fields -----
+        if q.distinct:
+            plan = N.Aggregate(
+                plan,
+                tuple((f.name, InputRef(f.dtype, f.name)) for f in out_scope.fields),
+                (),
+            )
 
         # ---- ORDER BY / LIMIT -----------------------------------------
         if q.order_by:
@@ -759,10 +771,38 @@ class Analyzer:
 
         specs: list[AggSpec] = []
         agg_map: dict[A.FunctionCall, Expr] = {}
+        distinct_key_exprs: list[tuple[str, Expr]] = []
         for a in uniq:
-            specs_a, mapped = self._plan_one_agg(a, scope, outer, ctes, scalar_binds)
+            specs_a, mapped = self._plan_one_agg(a, scope, outer, ctes, scalar_binds,
+                                                 distinct_key_exprs)
             specs.extend(specs_a)
             agg_map[a] = mapped
+
+        if distinct_key_exprs:
+            if len(distinct_key_exprs) > 1:
+                raise AnalysisError(
+                    "multiple distinct DISTINCT-aggregate arguments are not supported")
+            # pre-aggregate on the keys plus the distinct column: the
+            # DISTINCT count becomes a count of the pre-groups, and the
+            # plain aggregates decompose through partials (a sum of sums,
+            # a sum of counts, a min of mins, ...)
+            dn, de = distinct_key_exprs[0]
+            cds = [s for s in specs if s.kind == "count_distinct"]
+            partial: list[AggSpec] = []
+            final: list[AggSpec] = []
+            for s in specs:
+                if s.kind == "count_distinct":
+                    continue
+                if s.kind not in ("sum", "count", "min", "max"):
+                    raise AnalysisError(f"{s.kind} cannot combine with DISTINCT aggregates")
+                pn = self.fresh("pdist")
+                partial.append(AggSpec(s.kind, s.input, pn, s.dtype))
+                outer_kind = "sum" if s.kind in ("sum", "count") else s.kind
+                final.append(AggSpec(outer_kind, InputRef(s.dtype, pn), s.name, s.dtype))
+            plan = N.Aggregate(plan, tuple(keys + distinct_key_exprs), tuple(partial))
+            keys = [(n, InputRef(e.dtype, n)) for n, e in keys]
+            specs = [AggSpec("count", InputRef(de.dtype, dn), s.name, s.dtype)
+                     for s in cds] + final
 
         # functional dependencies: keys covered by a unique key of the
         # same relation instance become passengers (Q10/Q18 shape)
@@ -928,21 +968,29 @@ class Analyzer:
                 return f.table
         return None
 
-    def _plan_one_agg(self, a: A.FunctionCall, scope, outer, ctes, scalar_binds):
+    def _plan_one_agg(self, a: A.FunctionCall, scope, outer, ctes, scalar_binds,
+                      distinct_keys_out):
         """One AST aggregate -> ([AggSpec...], post-agg Expr). ``avg`` is
         ``sum`` and ``count`` with a DOUBLE ``div`` above the Aggregate,
-        as in the JAX package."""
-        if a.distinct:
-            raise _unsupported(f"{a.name}(DISTINCT ...)")
+        as in the JAX package. ``count(DISTINCT x)`` appends its key
+        ``(name, x)`` to ``distinct_keys_out`` and counts that key after
+        the pre-aggregation ``_plan_aggregate`` adds."""
         nm = self.fresh(a.name)
         if a.name == "count":
             if a.is_star or not a.args:
                 return [AggSpec("count_star", None, nm, BIGINT)], InputRef(BIGINT, nm)
             arg = self._expr(a.args[0], scope, outer, ctes, scalar_binds)
+            if a.distinct:
+                dk = self.fresh("dkey")
+                distinct_keys_out.append((dk, arg))
+                spec = AggSpec("count_distinct", InputRef(arg.dtype, dk), nm, BIGINT)
+                return [spec], InputRef(BIGINT, nm)
             return [AggSpec("count", arg, nm, BIGINT)], InputRef(BIGINT, nm)
         if a.name not in ("sum", "avg", "min", "max"):
             raise _unsupported(f"aggregate {a.name}()")
         arg = self._expr(a.args[0], scope, outer, ctes, scalar_binds)
+        if a.distinct:
+            raise AnalysisError(f"DISTINCT {a.name} not supported")
         if a.name == "avg":
             s = self.fresh("avgsum")
             c = self.fresh("avgcnt")
@@ -1130,7 +1178,7 @@ class Analyzer:
             )
             return Literal(DATE, days)
         if isinstance(n, A.BinaryOp):
-            if n.op == "and":
+            if n.op in ("and", "or"):
                 l = self._expr(n.left, scope, outer, ctes, scalar_binds, agg_map, key_map)
                 r = self._expr(n.right, scope, outer, ctes, scalar_binds, agg_map, key_map)
                 return Call(BOOLEAN, n.op, (l, r))
@@ -1154,13 +1202,28 @@ class Analyzer:
             if n.op == "not":
                 return Call(BOOLEAN, "not", (self._expr(n.operand, scope, outer, ctes,
                                                         scalar_binds, agg_map, key_map),))
-            raise _unsupported(f"unary operator {n.op!r}")
+            v = self._expr(n.operand, scope, outer, ctes, scalar_binds, agg_map, key_map)
+            return Call(v.dtype, "neg", (v,))
         if isinstance(n, A.Between):
             v = self._expr(n.value, scope, outer, ctes, scalar_binds, agg_map, key_map)
             lo = self._expr(n.low, scope, outer, ctes, scalar_binds, agg_map, key_map)
             hi = self._expr(n.high, scope, outer, ctes, scalar_binds, agg_map, key_map)
             e = Call(BOOLEAN, "between", (v, lo, hi))
             return Call(BOOLEAN, "not", (e,)) if n.negated else e
+        if isinstance(n, A.InList):
+            v = self._expr(n.value, scope, outer, ctes, scalar_binds, agg_map, key_map)
+            items = tuple(self._expr(i, scope, outer, ctes, scalar_binds, agg_map, key_map)
+                          for i in n.items)
+            e = Call(BOOLEAN, "in", (v,) + items)
+            return Call(BOOLEAN, "not", (e,)) if n.negated else e
+        if isinstance(n, A.IsNull):
+            v = self._expr(n.value, scope, outer, ctes, scalar_binds, agg_map, key_map)
+            return Call(BOOLEAN, "is_not_null" if n.negated else "is_null", (v,))
+        if isinstance(n, A.CaseExpr):
+            return self._case(n, scope, outer, ctes, scalar_binds, agg_map, key_map)
+        if isinstance(n, A.Cast):
+            v = self._expr(n.value, scope, outer, ctes, scalar_binds, agg_map, key_map)
+            return self._cast(v, n.type_name)
         if isinstance(n, A.Like):
             v = self._expr(n.value, scope, outer, ctes, scalar_binds, agg_map, key_map)
             if not isinstance(n.pattern, A.StringLit):
@@ -1190,8 +1253,61 @@ class Analyzer:
                     length = A.NumberLit(str(int(n.args[2].text)))
                 return self._substring(A.Substring(n.args[0], n.args[1], length), scope,
                                        outer, ctes, scalar_binds, agg_map, key_map)
+            if n.name == "nullif":
+                a = self._expr(n.args[0], scope, outer, ctes, scalar_binds, agg_map, key_map)
+                b = self._expr(n.args[1], scope, outer, ctes, scalar_binds, agg_map, key_map)
+                eq = Call(BOOLEAN, "eq", (a, b))
+                return Call(a.dtype, "if", (eq, Literal(a.dtype, None), a))
+            if n.name == "coalesce":
+                args = tuple(self._expr(a, scope, outer, ctes, scalar_binds, agg_map, key_map)
+                             for a in n.args)
+                return Call(result_type("coalesce", [a.dtype for a in args]), "coalesce", args)
             raise _unsupported(f"function {n.name}()")
         raise _unsupported(f"expression {type(n).__name__}")
+
+    def _case(self, n: A.CaseExpr, scope, outer, ctes, scalar_binds, agg_map, key_map):
+        """Simple and searched CASE -> ``case(when1, then1, ..., [else])``.
+        A bare NULL branch takes the common type of the typed branches."""
+        def is_bare_null(x):
+            return isinstance(x, A.Identifier) and x.parts == ("null",)
+
+        values = [v for _, v in n.whens]
+        if n.else_ is not None:
+            values.append(n.else_)
+        analyzed: list[Expr | None] = [
+            None if is_bare_null(v)
+            else self._expr(v, scope, outer, ctes, scalar_binds, agg_map, key_map)
+            for v in values
+        ]
+        if any(e is None for e in analyzed):
+            typed = [e.dtype for e in analyzed if e is not None]
+            if not typed:
+                raise AnalysisError("CASE with only NULL branches")
+            null_t = result_type("coalesce", typed)
+            analyzed = [Literal(null_t, None) if e is None else e for e in analyzed]
+        args: list[Expr] = []
+        for (c, _), v in zip(n.whens, analyzed):
+            if n.operand is not None:
+                c = A.BinaryOp("=", n.operand, c)
+            args.extend([self._expr(c, scope, outer, ctes, scalar_binds, agg_map, key_map), v])
+        if n.else_ is not None:
+            args.append(analyzed[-1])
+        return Call(result_type("case", [a.dtype for a in args]), "case", tuple(args))
+
+    def _cast(self, v: Expr, type_name: str) -> Expr:
+        """CAST to DOUBLE, BIGINT (``int``/``integer`` too) or
+        ``decimal(p,s)``; the other targets are not ported."""
+        if type_name == "double":
+            return Call(DOUBLE, "cast_double", (v,))
+        if type_name in ("bigint", "int", "integer"):
+            return Call(BIGINT, "cast_bigint", (v,))
+        if type_name.startswith("decimal"):
+            m = re.match(r"decimal\((\d+),(\d+)\)", type_name)
+            if not m:
+                raise AnalysisError(f"bad decimal type {type_name}")
+            fn = rescale_decimal(int(m.group(2)))
+            return Call(decimal(int(m.group(1)), int(m.group(2))), fn, (v,))
+        raise _unsupported(f"CAST(... AS {type_name})")
 
     def _substring(self, n: A.Substring, scope, outer, ctes, scalar_binds,
                    agg_map, key_map) -> Expr:

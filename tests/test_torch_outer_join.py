@@ -409,8 +409,8 @@ def test_statements_over_null_extended_rows(conns, i):
 @pytest.mark.parametrize("sql,what", [
     ("select count(*) from customer right join orders on c_custkey = o_custkey", "RIGHT JOIN"),
     ("select count(*) from customer full join orders on c_custkey = o_custkey", "FULL JOIN"),
-    (QUERIES["q7"], "or"),
-    (QUERIES["q12"], "InList"),
+    (QUERIES["q15"], "WITH"),
+    (QUERIES["q17"], "subquery"),
 ])
 def test_joins_and_queries_still_refused(conns, sql, what):
     """FULL and RIGHT joins stay refused, and the queries this slice takes
