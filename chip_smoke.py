@@ -122,14 +122,31 @@ one CUDA card, and exits nonzero on any failure. Phases:
    instance); the first exists and payload call of each probe shape the
    phase launches (rows and key type) is launched again and held to its
    plain version, and every row count of its probe launches must be one
-   so held; ``count(*)`` beside a DISTINCT aggregate must be refused.
+   so held; ``count(*)`` beside a DISTINCT aggregate must be refused;
+12. scalar subqueries, WITH and the ``<>``-correlated EXISTS at SF1
+   through ``Session.sql``: TPC-H Q2 and Q17 (correlated scalar
+   subqueries, decorrelated into a group-by and a unique join), Q11
+   (an uncorrelated scalar in HAVING), Q15 (WITH, its view planned twice,
+   and ``total_revenue = (select max ...)``, whose DECIMAL value makes
+   the scalar round trip), Q20 (a correlated scalar on two keys under
+   IN; ``p_name like 'forest%'`` runs the LIKE kernel once per ``part``
+   split, as the JAX package routes it), Q21 (EXISTS and NOT EXISTS
+   correlated by ``<>``: min/max per order, LEFT-joined) and Q22 (an
+   uncorrelated scalar beside NOT EXISTS), each equal to an exact numpy
+   recomputation (DOUBLE steps with the same float32 operations) and to
+   the strategy counters its plan predicts, with the walls of a first
+   and a second run, the device busy time of a third and its five
+   largest device ops, and the launches per kernel; every exists and
+   payload launch shape and Q20's first LIKE launch held to the plain
+   version.
 
 Phase 5 also times the prefix kernel at the first ``part`` split of the
 ``starts_with`` pipeline and over SF1 ``o_comment`` with
 ``COMMENT_PREFIX``, each with its bound and the floor of the 32-byte
 sectors its rows' prefixes lie in; the LIKE kernel at Q16's first
-``supplier`` split and the payload kernel at the first batch of each
-row count other than 2^20 that phase 11 probes (Q7's expansion output
+``supplier`` split and at Q20's first ``part`` split, and the payload
+kernel at the first batch of each row count other than 2^20 that phase
+11 probes (Q7's expansion output
 of 2^21 rows among them); and, beside every exists-kernel shape, its
 one-call library yardstick, ``torch.isin`` of the probe keys in the
 build keys with the live and validity masks (``exists_library``). Each
@@ -2946,6 +2963,342 @@ def run_expression_queries(connectors: dict, device: str = "cuda") -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 12: scalar subqueries, WITH and the <>-correlated EXISTS
+# ---------------------------------------------------------------------------
+
+SUBQUERY_QUERIES = ("q2", "q11", "q15", "q17", "q20", "q21", "q22")
+
+INV_100 = np.float32(1) / np.float32(100)
+INV_10 = np.float32(1) / np.float32(10)
+
+
+def _round_half_away(x: int, f: int) -> int:
+    """Integer ``x`` over positive ``f``, rounded half away from zero."""
+    q = (abs(x) + f // 2) // f
+    return q if x >= 0 else -q
+
+
+def scalar_round_trip(phys: int, scale: int) -> int:
+    """A DECIMAL scalar subquery's value as the plan above reads it: out
+    as ``int(value) / 10**scale`` (a float), back as the rounded
+    ``float * 10**scale``, as both packages bind it."""
+    return int(round(float(int(phys) / 10**scale) * 10**scale))
+
+
+def _sums_by(keys: np.ndarray, values: np.ndarray) -> tuple:
+    """(sorted distinct keys, int64 sums of ``values`` by key)."""
+    uniq, inv = np.unique(keys, return_inverse=True)
+    sums = np.zeros(uniq.size, np.int64)
+    np.add.at(sums, inv, values.astype(np.int64))
+    return uniq, sums
+
+
+def _rows_by_key(keys: np.ndarray) -> np.ndarray:
+    """``out[k]``: the row holding key ``k``."""
+    return _by_key(keys, np.arange(len(keys)))
+
+
+def _nation_keys(conn, name: str) -> np.ndarray:
+    n = conn.table_numpy("nation", ["n_nationkey", "n_name"])
+    return n["n_nationkey"][n["n_name"] == conn.dictionaries("nation")["n_name"].code_of(name)]
+
+
+def q2_expected(conn) -> dict:
+    """TPC-H Q2 (``tpch_oracle.py`` q2): the size-15 BRASS parts' European
+    suppliers whose supply cost is the least among European suppliers of
+    that part, by account balance descending, then nation, supplier and
+    part; the first 100."""
+    r = conn.table_numpy("region", ["r_regionkey", "r_name"])
+    europe = r["r_regionkey"][r["r_name"] == conn.dictionaries("region")["r_name"]
+                              .code_of("EUROPE")]
+    n = conn.table_numpy("nation", ["n_nationkey", "n_name", "n_regionkey"])
+    in_europe = _by_key(n["n_nationkey"], np.isin(n["n_regionkey"], europe))
+    nation_name = _by_key(n["n_nationkey"], n["n_name"].astype(np.int64))
+    scols = ["s_suppkey", "s_name", "s_address", "s_nationkey", "s_phone", "s_acctbal",
+             "s_comment"]
+    s = conn.table_numpy("supplier", scols)
+    ps = conn.table_numpy("partsupp", ["ps_partkey", "ps_suppkey", "ps_supplycost"])
+    srow = _rows_by_key(s["s_suppkey"])[ps["ps_suppkey"]]
+    eu = in_europe[s["s_nationkey"][srow]]
+    cost = ps["ps_supplycost"].astype(np.int64)
+    least = np.full(int(ps["ps_partkey"].max()) + 1, np.iinfo(np.int64).max)
+    np.minimum.at(least, ps["ps_partkey"][eu], cost[eu])
+    d = conn.dictionaries("part")
+    brass = np.array([t.endswith("BRASS") for t in d["p_type"].values], bool)
+    p = conn.table_numpy("part", ["p_partkey", "p_mfgr", "p_type", "p_size"])
+    part_ok = _by_key(p["p_partkey"], (p["p_size"] == 15) & brass[p["p_type"]])
+    keep = eu & part_ok[ps["ps_partkey"]] & (cost == least[ps["ps_partkey"]])
+    row, part = srow[keep], ps["ps_partkey"][keep]
+    names = conn.dictionaries("nation")["n_name"].values
+    nname = np.array([str(v) for v in names[nation_name[s["s_nationkey"][row]]]])
+    sname = np.array(_text(s["s_name"][row]))
+    acct = s["s_acctbal"][row].astype(np.int64)
+    top = np.lexsort((part, sname, nname, -acct))[:100]
+    prow = _rows_by_key(p["p_partkey"])[part[top]]
+    row = row[top]
+    return {"s_acctbal": acct[top], "s_name": list(sname[top]), "n_name": list(nname[top]),
+            "p_partkey": part[top], "p_mfgr": _text(p["p_mfgr"][prow]),
+            "s_address": _text(s["s_address"][row]), "s_phone": _text(s["s_phone"][row]),
+            "s_comment": _text(s["s_comment"][row])}
+
+
+def q11_expected(conn) -> dict:
+    """TPC-H Q11: the value of each part's German stock, where it exceeds
+    0.0001 of the whole (the scalar subquery's decimal(38,4) value, round
+    trip included; compared at scale 4), largest first."""
+    s = conn.table_numpy("supplier", ["s_suppkey", "s_nationkey"])
+    german = s["s_suppkey"][np.isin(s["s_nationkey"], _nation_keys(conn, "GERMANY"))]
+    ps = conn.table_numpy("partsupp", ["ps_partkey", "ps_suppkey", "ps_availqty",
+                                       "ps_supplycost"])
+    m = np.isin(ps["ps_suppkey"], german)
+    value = ps["ps_supplycost"][m].astype(np.int64) * ps["ps_availqty"][m].astype(np.int64)
+    keys, sums = _sums_by(ps["ps_partkey"][m], value)
+    # sum(...) * 0.0001: scale 2 x scale 4, narrowed to scale 4
+    threshold = scalar_round_trip(_round_half_away(int(value.sum()), 100), 4)
+    keep = sums * 100 > threshold
+    keys, sums = keys[keep], sums[keep]
+    top = np.lexsort((keys, -sums))
+    return {"ps_partkey": keys[top], "value": sums[top]}
+
+
+def q15_revenue(conn) -> tuple:
+    """Q15's ``revenue`` view: (suppliers, scale-4 revenue of each)."""
+    li = conn.table_numpy("lineitem", ["l_suppkey", "l_extendedprice", "l_discount",
+                                       "l_shipdate"])
+    ship = li["l_shipdate"]
+    m = (ship >= days("1996-01-01")) & (ship < days("1996-04-01"))
+    return _sums_by(li["l_suppkey"][m], _volume(li, m))
+
+
+def q15_expected(conn) -> dict:
+    """TPC-H Q15: the supplier(s) whose revenue in 1996's first quarter
+    equals the largest (through the scalar round trip); never empty."""
+    supp, rev = q15_revenue(conn)
+    top = rev.max()
+    check(scalar_round_trip(int(top), 4) == int(top),
+          f"Q15 oracle: the largest revenue {top} does not survive the scalar round trip")
+    win = rev == top
+    s = conn.table_numpy("supplier", ["s_suppkey", "s_name", "s_address", "s_phone"])
+    row = _rows_by_key(s["s_suppkey"])[supp[win]]
+    return {"s_suppkey": supp[win], "s_name": _text(s["s_name"][row]),
+            "s_address": _text(s["s_address"][row]), "s_phone": _text(s["s_phone"][row]),
+            "total_revenue": rev[win]}
+
+
+def q17_expected(conn) -> dict:
+    """TPC-H Q17: the yearly revenue lost on small orders of Brand#23 MED
+    BOX parts; the correlated ``0.2 * avg(l_quantity)`` per part and every
+    DOUBLE step in float32 as the packages compute them (a decimal is
+    float32 times the float32 reciprocal of 10^scale)."""
+    d = conn.dictionaries("part")
+    p = conn.table_numpy("part", ["p_partkey", "p_brand", "p_container"])
+    chosen = p["p_partkey"][(p["p_brand"] == d["p_brand"].code_of("Brand#23"))
+                            & (p["p_container"] == d["p_container"].code_of("MED BOX"))]
+    li = conn.table_numpy("lineitem", ["l_partkey", "l_quantity", "l_extendedprice"])
+    part, qty = li["l_partkey"], li["l_quantity"].astype(np.int64)
+    keys, qsum = _sums_by(part, qty)
+    count = np.bincount(part, minlength=int(keys.max()) + 1)[keys]
+    avg = (qsum.astype(np.float32) * INV_100) / count.astype(np.float32)
+    limit = _by_key(keys, (np.float32(2) * INV_10) * avg)
+    m = np.isin(part, chosen)
+    m[m] = qty[m].astype(np.float32) * INV_100 < limit[part[m]]
+    total = np.float32(int(li["l_extendedprice"][m].astype(np.int64).sum())) * INV_100
+    return {"avg_yearly": np.array([total / (np.float32(70) * INV_10)], np.float32)}
+
+
+def q20_expected(conn) -> dict:
+    """TPC-H Q20: Canadian suppliers of a forest part whose stock exceeds
+    half of the part-supplier's 1994 shipments (scale 3, exact); a pair
+    with no shipments drops out (the inner join)."""
+    p = conn.table_numpy("part", ["p_partkey", "p_name"])
+    forest = p["p_partkey"][np.array([t.startswith("forest") for t in _text(p["p_name"])],
+                                     bool)]
+    li = conn.table_numpy("lineitem", ["l_partkey", "l_suppkey", "l_quantity", "l_shipdate"])
+    ship = li["l_shipdate"]
+    m = (ship >= days("1994-01-01")) & (ship < days("1995-01-01"))
+    width = int(li["l_suppkey"].max()) + 1
+    pairs, qsum = _sums_by(li["l_partkey"][m].astype(np.int64) * width
+                           + li["l_suppkey"][m], li["l_quantity"][m])
+    ps = conn.table_numpy("partsupp", ["ps_partkey", "ps_suppkey", "ps_availqty"])
+    pos, hit = _lookup(pairs, ps["ps_partkey"].astype(np.int64) * width + ps["ps_suppkey"])
+    keep = (np.isin(ps["ps_partkey"], forest) & hit
+            & (ps["ps_availqty"].astype(np.int64) * 1000 > 5 * qsum[pos]))
+    good = np.unique(ps["ps_suppkey"][keep])
+    s = conn.table_numpy("supplier", ["s_suppkey", "s_name", "s_address", "s_nationkey"])
+    sm = np.isin(s["s_suppkey"], good) & np.isin(s["s_nationkey"], _nation_keys(conn, "CANADA"))
+    names = np.array(_text(s["s_name"][sm]))
+    order = np.argsort(names, kind="stable")
+    return {"s_name": list(names[order]), "s_address": list(np.array(
+        _text(s["s_address"][sm]), dtype=object)[order])}
+
+
+def q21_expected(conn) -> dict:
+    """TPC-H Q21 (``tpch_oracle.py`` q21): Saudi suppliers' late lines of
+    finished orders where another supplier shipped a line and no other
+    supplier's line was late, by the min and max supplier of each order's
+    lines and of its late lines (no late line: NOT EXISTS holds)."""
+    li = conn.table_numpy("lineitem", ["l_orderkey", "l_suppkey", "l_commitdate",
+                                       "l_receiptdate"])
+    order, supp = li["l_orderkey"], li["l_suppkey"].astype(np.int64)
+    late = li["l_receiptdate"] > li["l_commitdate"]
+    size = int(order.max()) + 1
+    lo_all, hi_all = np.full(size, 1 << 40), np.full(size, -1)
+    np.minimum.at(lo_all, order, supp)
+    np.maximum.at(hi_all, order, supp)
+    lo_late, hi_late = np.full(size, 1 << 40), np.full(size, -1)
+    np.minimum.at(lo_late, order[late], supp[late])
+    np.maximum.at(hi_late, order[late], supp[late])
+    any_late = hi_late >= 0
+    o = conn.table_numpy("orders", ["o_orderkey", "o_orderstatus"])
+    finished = _by_key(o["o_orderkey"], o["o_orderstatus"] == conn.dictionaries("orders")
+                       ["o_orderstatus"].code_of("F"))
+    s = conn.table_numpy("supplier", ["s_suppkey", "s_name", "s_nationkey"])
+    saudi = _by_key(s["s_suppkey"], np.isin(s["s_nationkey"], _nation_keys(conn,
+                                                                          "SAUDI ARABIA")))
+    sel = late & finished[order] & saudi[supp]
+    o_, s_ = order[sel], supp[sel]
+    other = (lo_all[o_] != s_) | (hi_all[o_] != s_)
+    alone = ~any_late[o_] | ((lo_late[o_] == s_) & (hi_late[o_] == s_))
+    keys, counts = np.unique(s_[other & alone], return_counts=True)
+    names = np.array(_text(s["s_name"][_rows_by_key(s["s_suppkey"])[keys]]))
+    top = np.lexsort((names, -counts))[:100]
+    return {"s_name": list(names[top]), "numwait": counts[top]}
+
+
+def q22_expected(conn) -> dict:
+    """TPC-H Q22: customers of seven country codes with no orders and a
+    balance above the codes' average positive balance (the scalar
+    subquery's float32 ``avg``; the balance compared in float32), counted
+    and summed by code."""
+    c = conn.table_numpy("customer", ["c_custkey", "c_phone", "c_acctbal"])
+    code = np.array([bytes(r[:2]).decode("latin1") for r in c["c_phone"]])
+    listed = np.isin(code, ["13", "31", "23", "29", "30", "18", "17"])
+    bal = c["c_acctbal"].astype(np.int64)
+    positive = listed & (bal > 0)
+    avg = (np.float32(int(bal[positive].sum())) * INV_100) / np.float32(int(positive.sum()))
+    o = conn.table_numpy("orders", ["o_custkey"])
+    sel = (listed & (bal.astype(np.float32) * INV_100 > avg)
+           & ~np.isin(c["c_custkey"], o["o_custkey"]))
+    codes, inv = np.unique(code[sel], return_inverse=True)
+    sums = np.zeros(codes.size, np.int64)
+    np.add.at(sums, inv, bal[sel])
+    return {"cntrycode": list(codes), "numcust": np.bincount(inv, minlength=codes.size),
+            "totacctbal": sums}
+
+
+def subquery_runs() -> dict:
+    """Phase 12's runs: query -> (statement, numpy oracle)."""
+    oracles = {"q2": q2_expected, "q11": q11_expected, "q15": q15_expected,
+               "q17": q17_expected, "q20": q20_expected, "q21": q21_expected,
+               "q22": q22_expected}
+    return {q: (QUERIES[q], oracles[q]) for q in SUBQUERY_QUERIES}
+
+
+def run_subquery_queries(conn, device: str = "cuda") -> dict:
+    """Phase 12: TPC-H Q2, Q11, Q15, Q17, Q20, Q21 and Q22 at SF1 through
+    Session.sql, each equal to its numpy oracle and to the strategy
+    counters its plan predicts, with the walls of a first and a second
+    run, the device busy time of a third (and its five largest device
+    ops) and the launches per kernel; the first exists and payload call
+    of each probe shape, and Q20's first LIKE launch, held to their
+    plain versions."""
+    runs = subquery_runs()
+    t0 = time.perf_counter()
+    cached = ColumnCache(conn)
+    want = {name: fn(cached) for name, (_sql, fn) in runs.items()}
+    del cached
+    rows = {name: len(next(iter(w.values()))) for name, w in want.items()}
+    log(f"phase 12: numpy recomputation of {len(runs)} queries at SF1 in "
+        f"{time.perf_counter() - t0:.1f} s; rows {rows}")
+    for name, n in rows.items():
+        check(n > 0, f"{name}'s oracle answers no row at SF1")
+    out = {"walls": {}, "launches": {}, "routes": {}}
+    original_like = cuda_strings.like_mask
+
+    def capture_like(data, pattern):
+        out.setdefault("captured", (data, pattern))  # Q20's first part split
+        return original_like(data, pattern)
+
+    query = {"name": None}
+    splits = len(conn.splits("part"))
+    with each_probe_shape(query) as probes:
+        for name, (sql, _fn) in runs.items():
+            session = Session({"tpch": conn}, device=device)
+            predicted = planned_routes(session, sql)
+            cuda_strings.like_mask = capture_like
+            query["name"] = name
+            try:
+                COUNTERS.clear()
+                _reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = session.sql(sql)
+                torch.cuda.synchronize()
+                first = time.perf_counter() - t0
+                n = _launch_counts()
+                route = dict(COUNTERS)
+            finally:
+                cuda_strings.like_mask = original_like
+                query["name"] = None
+            same_result(res, want[name], f"{name} at SF1")
+            got = {k: v for k, v in route.items()
+                   if k.startswith(("join.strategy.", "agg.strategy.")) and v}
+            check(got == predicted, f"{name}: strategy counters {got}, the plan predicts "
+                  f"{predicted}")
+            check(route.get("exec.pallas_join_route", 0) == got.get("join.strategy.pallas", 0)
+                  and route.get("join.pallas_fallback", 0) == 0,
+                  f"{name}: fused-probe routes {route}")
+            check_vector_probes(name, n)
+            # Q20's p_name like 'forest%' is a LIKE in both packages (no
+            # prefix rewrite): the LIKE kernel once per part split
+            check(n["like"] == (splits if name == "q20" else 0) and n["prefix"] == 0,
+                  f"{name}: LIKE launches {n['like_by_instance']}, prefix launches "
+                  f"{n['prefix']} ({splits} part splits)")
+            out["launches"][name] = n
+            out["routes"][name] = {**got, **{k: v for k, v in route.items()
+                                             if k.startswith("exec.") and v}}
+            t0 = time.perf_counter()
+            again = session.sql(sql)
+            torch.cuda.synchronize()
+            second = time.perf_counter() - t0
+            same_result(again, want[name], f"{name} at SF1, second run")
+            busy_ms, scan_s, top = wall_breakdown(session, conn, sql)
+            out["walls"][name] = (first, second, busy_ms, scan_s)
+            log(f"  {name} at SF1: {len(res)} rows equal to numpy; wall first {first:.3f} s, "
+                f"second {second:.3f} s; launches { {k: v for k, v in n.items() if v} }; routes "
+                f"{out['routes'][name]} (planned {predicted})")
+            log(f"  {name} breakdown (a third, profiled run): device busy {busy_ms:.1f} ms, "
+                f"connector scans {scan_s:.3f} s; the device ops with the most of it (ms, calls): "
+                + "; ".join(f"{k} {ms:.2f} ({c})" for k, ms, c in top))
+    out["probes"] = probes
+    out["probe_err"] = hold_probe_shapes(probes)
+    for mode in ("exists", "payload"):
+        held = {rows for m, rows, _key in probes if m == mode}
+        ran = {rows for n in out["launches"].values() for rows in n["probe_by_shape"][mode]}
+        check(held == ran, f"phase 12's {mode} launches at rows {sorted(ran)}, held to the "
+              f"plain version at {sorted(held)}")
+    data, pattern = out["captured"]
+    out["like_err"] = _mask_err(cuda_strings.like_mask(data, pattern),
+                                cuda_strings.like_mask_plain(data, pattern),
+                                f"like_mask {pattern!r} at q20's first part split")
+    log(f"  like_mask {pattern!r} at q20's first part split {tuple(data.shape)}: equal to its "
+        "plain version")
+    lane_by = {}
+    for n in out["launches"].values():
+        lane_by = _summed(lane_by, {k.split()[1]: c for k, c in n["by_instance"].items()
+                                    if k.startswith("lane_sums ")})
+    out["lane_by_instance"] = lane_by
+    for k in ("lane_sums", "like", "leaf_agg", "q1", "q3", "prefix"):
+        out[f"{k}_launches"] = sum(n[k] for n in out["launches"].values())
+    out["leaf_by_instance"] = _summed(*({k.split()[1]: c for k, c in n["by_instance"].items()
+                                         if k.startswith("leaf_agg ")}
+                                        for n in out["launches"].values()))
+    out["like_by_instance"] = _summed(*(n["like_by_instance"] for n in out["launches"].values()))
+    out["like_by_shape"] = _summed(*(n["like_by_shape"] for n in out["launches"].values()))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 9: semi and anti joins, the approximate sketch, the Q3 join step
 # ---------------------------------------------------------------------------
 
@@ -3551,6 +3904,27 @@ def main() -> int:
     p11_other = {k: sum(n[k] for n in expr["launches"].values())
                  for k in ("q1", "leaf_agg", "q3", "prefix")}
     log(f"  phase 11's launches of the other kernels: {p11_other}")
+
+    # ---- phase 12: scalar subqueries, WITH, the <>-correlated EXISTS ------
+    mark("12 subqueries")
+    sub = run_subquery_queries(string_conns["tpch"])
+    for name, (first, second, busy, scan) in sub["walls"].items():
+        log(f"  wall {name}: first {first:.3f} s, second {second:.3f} s, device busy "
+            f"{busy:.1f} ms, connector scans {scan:.3f} s")
+    t = like_shapes["q20 first part split"] = time_like(*sub["captured"], flush)
+    log(f"phase 5, like_mask {t['pattern']!r} at q20 first part split [{t['rows']}, "
+        f"{t['width']}], {t['instance']} instance: {t['ms']:.4f} (call {t['call_ms']:.4f}, "
+        f"plain {t['plain_ms']:.4f}, bound {t['bound_ms']:.4f} by {t['bound_by']})")
+    p12 = probe_launch_totals(sub["launches"])
+    totals = probe_launch_totals(join["launches"], strings["launches"], semi["launches"],
+                                 outer["launches"], expr["launches"], sub["launches"])
+    log(f"  exists, sketch and payload launches with phase 12: {totals}; phase 12's alone: "
+        f"{p12}")
+    p12_other = {k: sub[f"{k}_launches"] for k in ("q1", "lane_sums", "leaf_agg", "q3", "like",
+                                                   "prefix")}
+    log(f"  phase 12's launches of the other kernels: {p12_other}; lane-sums by instance "
+        f"{sub['lane_by_instance']}, leaf by instance {sub['leaf_by_instance']}, LIKE by "
+        f"instance {sub['like_by_instance']}, by rows x width {sub['like_by_shape']}")
     mark("json")
     log("phase seconds: " + ", ".join(f"{a} {t1 - t0:.1f}" for (a, t0), (_b, t1)
                                       in zip(marks, marks[1:])))
@@ -3560,7 +3934,8 @@ def main() -> int:
         {"name": "q1_step", "route": "cuda", "source": "presto_tpu_torch/csrc/q1.cu",
          "replaces": "presto_tpu/ops/pallas_q1.py:114",
          "jax_function": "presto_tpu/ops/pallas_q1.py:174 q1_step",
-         "launches": q1_launches + p11_other["q1"], "phase11_launches": p11_other["q1"],
+         "launches": q1_launches + p11_other["q1"] + p12_other["q1"],
+         "phase11_launches": p11_other["q1"], "phase12_launches": p12_other["q1"],
          "max_abs_err": q1_err, "ms": q1_ms, "kernel_ms": q1_ms,
          "call_ms": q1_call_ms,
          "plain_ms": q1_plain_ms, "bound_ms": q1_bound, "bound_by": q1_by,
@@ -3569,11 +3944,14 @@ def main() -> int:
          "source": "presto_tpu_torch/csrc/lane_sums.cu",
          "replaces": "presto_tpu/ops/pallas_groupby.py:138",
          "jax_function": "presto_tpu/ops/pallas_groupby.py:177 fused_lane_sums",
-         "launches": lane_launches + outer["lane_launches"] + expr["lane_sums_launches"],
+         "launches": (lane_launches + outer["lane_launches"] + expr["lane_sums_launches"]
+                      + sub["lane_sums_launches"]),
          "launches_by_instance": _summed(lane_by_instance, outer["lane_by_instance"],
-                                         expr["lane_by_instance"]),
-         "launches_from": "phase 4 (Q1 pipeline), phase 10 (Q13, Q5) and phase 11 (the "
-                          "expression queries)",
+                                         expr["lane_by_instance"], sub["lane_by_instance"]),
+         "launches_from": "phase 4 (Q1 pipeline), phase 10 (Q13, Q5), phase 11 (the "
+                          "expression queries) and phase 12 (the subquery queries)",
+         "phase12_launches": sub["lane_sums_launches"],
+         "phase12_launches_by_instance": sub["lane_by_instance"],
          "phase10_launches": outer["lane_launches"],
          "phase11_launches": expr["lane_sums_launches"],
          "phase11_launches_by_instance": expr["lane_by_instance"],
@@ -3597,10 +3975,14 @@ def main() -> int:
          "launches": totals["exists"]["launches"],
          "launches_by_shape": totals["exists"]["by_shape"],
          "launches_by_instance": totals["exists"]["by_instance"],
-         "launches_from": "phases 6, 8, 9, 10 and 11",
+         "launches_from": "phases 6, 8, 9, 10, 11 and 12",
          "phase11_launches": p11["exists"]["launches"],
          "phase11_launches_by_shape": p11["exists"]["by_shape"],
-         "max_abs_err": max([exists_err, keep_err["exists"], expr["probe_err"]["exists"]]
+         "phase12_launches": p12["exists"]["launches"],
+         "phase12_launches_by_shape": p12["exists"]["by_shape"],
+         "phase12_launches_by_instance": p12["exists"]["by_instance"],
+         "max_abs_err": max([exists_err, keep_err["exists"], expr["probe_err"]["exists"],
+                             sub["probe_err"]["exists"]]
                             + [t["err"] for t in probe_shapes["exists"].values()]),
          "ms": ex["ms"], "kernel_ms": ex["ms"], "call_ms": ex["call_ms"],
          "plain_ms": ex["plain_ms"], "bound_ms": exists_bound, "bound_by": exists_by,
@@ -3616,6 +3998,7 @@ def main() -> int:
          "launches_by_shape": totals["sketch"]["by_shape"],
          "launches_by_instance": totals["sketch"]["by_instance"],
          "phase11_launches": p11["sketch"]["launches"],
+         "phase12_launches": p12["sketch"]["launches"],
          "max_abs_err": max([sketch_err, keep_err["sketch"]]
                             + [t["err"] for t in probe_shapes["sketch"].values()]),
          "ms": sk["ms"], "kernel_ms": sk["ms"], "call_ms": sk["call_ms"],
@@ -3627,7 +4010,8 @@ def main() -> int:
          "source": "presto_tpu_torch/csrc/join_probe.cu",
          "replaces": "presto_tpu/ops/pallas_join.py:443",
          "jax_function": "presto_tpu/ops/pallas_join.py:464 q3_probe_step",
-         "launches": semi["q3_launches"] + p11_other["q3"], "phase11_launches": p11_other["q3"],
+         "launches": semi["q3_launches"] + p11_other["q3"] + p12_other["q3"],
+         "phase11_launches": p11_other["q3"], "phase12_launches": p12_other["q3"],
          "max_abs_err": max(q3_kernel_err, semi["q3"]["err"]),
          "ms": q3_one["ms"], "kernel_ms": q3_one["ms"], "call_ms": q3_one["call_ms"],
          "plain_ms": q3_one["plain_ms"], "bound_ms": q3_bound, "bound_by": q3_by,
@@ -3642,11 +4026,15 @@ def main() -> int:
          "launches": totals["payload"]["launches"],
          "launches_by_shape": totals["payload"]["by_shape"],
          "launches_by_instance": totals["payload"]["by_instance"],
-         "launches_from": "phases 6, 8, 9, 10 and 11",
+         "launches_from": "phases 6, 8, 9, 10, 11 and 12",
          "phase11_launches": p11["payload"]["launches"],
          "phase11_launches_by_shape": p11["payload"]["by_shape"],
          "phase11_launches_by_instance": p11["payload"]["by_instance"],
-         "max_abs_err": max([payload_err, expr["probe_err"]["payload"]]
+         "phase12_launches": p12["payload"]["launches"],
+         "phase12_launches_by_shape": p12["payload"]["by_shape"],
+         "phase12_launches_by_instance": p12["payload"]["by_instance"],
+         "max_abs_err": max([payload_err, expr["probe_err"]["payload"],
+                             sub["probe_err"]["payload"]]
                             + [t["err"] for t in probe_shapes["payload"].values()]),
          "ms": pay["ms"], "kernel_ms": pay["ms"], "call_ms": pay["call_ms"],
          "plain_ms": pay["plain_ms"], "bound_ms": pay["bound_ms"], "bound_by": pay["bound_by"],
@@ -3657,8 +4045,11 @@ def main() -> int:
         {"name": "leaf_agg", "route": "cuda", "source": "presto_tpu_torch/csrc/leaf_agg.cu",
          "replaces": "presto_tpu/ops/pallas_agg.py:180",
          "jax_function": "presto_tpu/ops/pallas_agg.py:246 _pallas_step (via agg_step :346)",
-         "launches": leaf["leaf_launches"] + p11_other["leaf_agg"],
-         "phase11_launches": p11_other["leaf_agg"],
+         "launches": leaf["leaf_launches"] + p11_other["leaf_agg"] + p12_other["leaf_agg"],
+         "phase11_launches": p11_other["leaf_agg"], "phase12_launches": p12_other["leaf_agg"],
+         "phase12_launches_by_instance": sub["leaf_by_instance"],
+         "launches_from": "phase 7 (Q6, SSB Q1.1-1.3), phase 11 and phase 12 (none at SF1: "
+                          "Q15's revenue view is not fused there)",
          "launches_by_shape": leaf["by_shape"],
          "launches_by_instance": leaf["by_instance"],
          "max_abs_err": max(leaf_err, sp["err"], sm_["err"], res_["err"]),
@@ -3674,15 +4065,21 @@ def main() -> int:
         {"name": "like_mask", "route": "cuda", "source": "presto_tpu_torch/csrc/strings.cu",
          "replaces": "presto_tpu/ops/pallas_strings.py:118",
          "jax_function": "presto_tpu/ops/pallas_strings.py:190 like_mask_pallas",
-         "launches": strings["like_launches"] + outer["like_launches"] + expr["like_launches"],
+         "launches": (strings["like_launches"] + outer["like_launches"] + expr["like_launches"]
+                      + sub["like_launches"]),
          "launches_by_instance": _summed(strings["like_by_instance"],
-                                         outer["like_by_instance"], expr["like_by_instance"]),
-         "launches_from": "phase 8 (LIKE queries), phase 10 (Q13, Q5) and phase 11 (Q16)",
+                                         outer["like_by_instance"], expr["like_by_instance"],
+                                         sub["like_by_instance"]),
+         "launches_from": "phase 8 (LIKE queries), phase 10 (Q13, Q5), phase 11 (Q16) and "
+                          "phase 12 (Q20's p_name like 'forest%')",
          "phase10_launches": outer["like_launches"],
          "phase11_launches": expr["like_launches"],
+         "phase12_launches": sub["like_launches"],
+         "phase12_launches_by_instance": sub["like_by_instance"],
          "launches_by_shape": _summed(strings["like_by_shape"], outer["like_by_shape"],
-                                      expr["like_by_shape"]),
-         "max_abs_err": max([like_err] + [t["err"] for t in like_shapes.values()]),
+                                      expr["like_by_shape"], sub["like_by_shape"]),
+         "max_abs_err": max([like_err, sub["like_err"]]
+                            + [t["err"] for t in like_shapes.values()]),
          "ms": lk["ms"], "kernel_ms": lk["ms"], "call_ms": lk["call_ms"],
          "plain_ms": lk["plain_ms"], "bound_ms": like_bound, "bound_by": like_by,
          "library_ms": None, "rows": lk["rows"], "width": lk["width"], "bytes": lk["bytes"],
@@ -3692,8 +4089,10 @@ def main() -> int:
          "source": "presto_tpu_torch/csrc/strings.cu",
          "replaces": "presto_tpu/ops/pallas_strings.py:246",
          "jax_function": "presto_tpu/ops/pallas_strings.py:251 starts_with_pallas",
-         "launches": strings["prefix_launches"] + p11_other["prefix"],
-         "phase11_launches": p11_other["prefix"],
+         "launches": strings["prefix_launches"] + p11_other["prefix"] + p12_other["prefix"],
+         "phase11_launches": p11_other["prefix"], "phase12_launches": p12_other["prefix"],
+         "launches_from": "phase 8 (the starts_with pipeline); phase 12's like 'forest%' "
+                          "runs the LIKE kernel, as in the JAX package",
          "launches_by_instance": strings["prefix_by_instance"],
          "max_abs_err": max([prefix_err] + [t["err"] for t in prefix_shapes.values()]),
          "ms": px["ms"], "kernel_ms": px["ms"], "call_ms": px["call_ms"],

@@ -640,7 +640,7 @@ def decode_leaf_state(route: LeafRoute, conn, aggs, state) -> Batch:
     return Batch(cols, live)
 
 
-def execute_leaf_route(route: LeafRoute, executor, node):
+def execute_leaf_route(route: LeafRoute, executor, node, scalars):
     """Run a matched fragment on the local executor: stream scan splits
     through the fused step (membership bitmap applied per batch when the
     fragment folded a filter-only join), combine states, decode. None on
@@ -670,7 +670,7 @@ def execute_leaf_route(route: LeafRoute, executor, node):
         return None
     bitmap = None
     if route.member is not None:
-        build = executor._exec(route.member.build).materialize()
+        build = executor._exec(route.member.build, scalars).materialize()
         bitmap = _membership_bitmap(route.member, build, conn.device)
     cap = batch_capacity(max(s.row_hint for s in splits))
     state = None

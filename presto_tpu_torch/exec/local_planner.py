@@ -28,7 +28,12 @@ package's, made from the same stats:
   output capacity sized lazily from the first probe batch and doubled on
   ``CapacityOverflow`` (``_retrying_expand_probe``); FULL and RIGHT joins
   are not ported;
-- capacities retry and double on ``CapacityOverflow``.
+- capacities retry and double on ``CapacityOverflow``;
+- scalar subqueries: ``BindScalars`` runs each ``ScalarValue``'s subplan
+  first and reads its one value on the host (``_eval_scalar``), and every
+  operator below sees its expressions with the ``Unbound`` slots bound
+  to literals (``bind_scalars``) through the ``scalars`` dict each
+  ``_exec_*`` receives.
 
 Not ported: the spill and grouped tiers, the OOM ladder, fault points,
 adaptive history, plan templates, result and executable caches, runtime
@@ -57,19 +62,20 @@ from presto_tpu_torch.exec.operators import (
     HashAggregationOperator,
     NullGroupKeys,
     OrderByOperator,
+    SortKey,
     SortStrategy,
     TopNOperator,
     concat_batches,
     valid_of,
 )
 from presto_tpu_torch.exec.pipeline import BatchStream, Pipeline, prefetch_iter
-from presto_tpu_torch.expr import InputRef, evaluate
+from presto_tpu_torch.expr import InputRef, bind_scalars, evaluate
 from presto_tpu_torch.ops import cuda_join
 from presto_tpu_torch.ops.groupby import ValueBitsOverflow
 from presto_tpu_torch.plan import nodes as N
 from presto_tpu_torch.plan.bounds import agg_value_bits, estimate_rows, key_dictionary
 from presto_tpu_torch.plan.catalog import Catalog
-from presto_tpu_torch.runtime.errors import InternalError, NotSupported
+from presto_tpu_torch.runtime.errors import InternalError, NotSupported, UserError
 from presto_tpu_torch.runtime.metrics import COUNTERS
 from presto_tpu_torch.spi import batch_capacity
 from presto_tpu_torch.types import TypeKind
@@ -181,26 +187,30 @@ class LocalExecutor:
                            approximate=self.used_approx)
 
     def run_batches(self, plan: N.Output):
+        # a scalar subquery's subplan (an Output) runs here too, with
+        # scalars of its own
+        scalars: dict = {}
         rename = dict(zip(plan.sources, plan.names))
         out = [b.select(list(plan.sources)).rename(rename)
-               for b in self._exec(plan.child)]
+               for b in self._exec(plan.child, scalars)]
         return out, list(plan.names)
 
-    def _exec(self, node: N.PlanNode) -> BatchStream:
-        """Execute a node to a replayable lazy BatchStream."""
+    def _exec(self, node: N.PlanNode, scalars: dict) -> BatchStream:
+        """Execute a node to a replayable lazy BatchStream; ``scalars``
+        holds the values of the scalar subqueries bound above it."""
         m = getattr(self, f"_exec_{type(node).__name__.lower()}", None)
         if m is None:
             raise NotSupported(f"executing a {type(node).__name__} node is not ported yet")
-        return m(node)
+        return m(node, scalars)
 
     # ---- leaves ----------------------------------------------------------
-    def _exec_tablescan(self, node: N.TableScan) -> BatchStream:
+    def _exec_tablescan(self, node: N.TableScan, scalars) -> BatchStream:
         """Streaming scan: one device batch per split, yielded lazily;
         the next split generates on a worker thread meanwhile."""
         conn = self.catalog.connector(node.connector)
         src_cols = [s for _, s in node.columns]
         rename = {s: n for n, s in node.columns}
-        op = (FilterProjectOperator(node.predicate, None)
+        op = (FilterProjectOperator(bind_scalars(node.predicate, scalars), None)
               if node.predicate is not None else None)
         splits = list(conn.splits(node.table))
         cap = batch_capacity(max(s.row_hint for s in splits))
@@ -212,16 +222,18 @@ class LocalExecutor:
         return BatchStream(lambda: prefetch_iter(load, splits))
 
     # ---- streaming transforms -------------------------------------------
-    def _exec_filter(self, node: N.Filter) -> BatchStream:
-        op = FilterProjectOperator(node.predicate, None)
-        return self._exec(node.child).map(lambda b: op.process(b)[0])
+    def _exec_filter(self, node: N.Filter, scalars) -> BatchStream:
+        child = self._exec(node.child, scalars)
+        op = FilterProjectOperator(bind_scalars(node.predicate, scalars), None)
+        return child.map(lambda b: op.process(b)[0])
 
-    def _exec_project(self, node: N.Project) -> BatchStream:
-        op = FilterProjectOperator(None, dict(node.exprs))
-        return self._exec(node.child).map(lambda b: op.process(b)[0])
+    def _exec_project(self, node: N.Project, scalars) -> BatchStream:
+        child = self._exec(node.child, scalars)
+        op = FilterProjectOperator(None, {n: bind_scalars(e, scalars) for n, e in node.exprs})
+        return child.map(lambda b: op.process(b)[0])
 
     # ---- aggregation ----------------------------------------------------
-    def _exec_aggregate(self, node: N.Aggregate):
+    def _exec_aggregate(self, node: N.Aggregate, scalars):
         # the fused leaf route (exec/leaf_route.py): a scan -> filter ->
         # partial-agg fragment over stats-bounded NULL-free columns runs
         # as ONE fused step per scan batch (the Q1 kernel for TPC-H Q1,
@@ -229,18 +241,20 @@ class LocalExecutor:
         # value_overflow falls back to the generic route below, counted
         route, reason = leaf_route.match_leaf_fragment(node, self.catalog)
         if route is not None:
-            routed = leaf_route.execute_leaf_route(route, self, node)
+            routed = leaf_route.execute_leaf_route(route, self, node, scalars)
             if routed is not None:
                 COUNTERS["agg.strategy.fused"] += 1
                 return BatchStream.of(routed)
         elif reason is not None:
             leaf_route.count_fallback(reason)
 
-        keys, pax = list(node.keys), list(node.passengers)
-        child = self._exec(node.child)
+        child = self._exec(node.child, scalars)
+        keys = [(n, bind_scalars(e, scalars)) for n, e in node.keys]
+        pax = [(n, bind_scalars(e, scalars)) for n, e in node.passengers]
         # stats-derived |value| bounds; a violated bound trips
         # value_overflow and retries at 63 bits
-        aggs = [AggSpec(a.kind, a.input, a.name, a.dtype, value_bits=b)
+        aggs = [AggSpec(a.kind, bind_scalars(a.input, scalars) if a.input is not None else None,
+                        a.name, a.dtype, value_bits=b)
                 for a, b in zip(node.aggs, agg_value_bits(node, self.catalog))]
         if not keys and not pax:
             COUNTERS["agg.strategy.single"] += 1
@@ -323,7 +337,7 @@ class LocalExecutor:
             return cuda_join.PallasJoinSpec("sketch", nbits=cuda_join.SKETCH_BITS)
         return None
 
-    def _join_keys(self, node, left: BatchStream, right):
+    def _join_keys(self, node, left: BatchStream, right, scalars):
         """(probe key, build key): one integer key per side, multi-key
         pairs packed. Only a multi-key pair without stats-derived pack
         widths pays the runtime min/max: a replay of the probe stream and
@@ -339,19 +353,20 @@ class LocalExecutor:
                     mn, mx = min(mn, int(data.min())), max(mx, int(data.max()))
             return mn, mx
 
-        lkey, rkey, _verify = join_key_exprs(node.left_keys, node.right_keys,
+        lkey, rkey, _verify = join_key_exprs([bind_scalars(k, scalars) for k in node.left_keys],
+                                             [bind_scalars(k, scalars) for k in node.right_keys],
                                              catalog=self.catalog, lnode=node.left,
                                              rnode=node.right, runtime_minmax=runtime_minmax)
         return lkey, rkey
 
-    def _exec_join(self, node: N.Join):
+    def _exec_join(self, node: N.Join, scalars):
         if node.kind not in ("inner", "left"):
             raise NotSupported(f"{node.kind} joins are not ported yet")
-        left = self._exec(node.left)
+        left = self._exec(node.left, scalars)
         # the build side is materialized (the lookup source concatenates
         # it); the probe side streams batch by batch
-        right = self._exec(node.right).materialize()
-        lkey, rkey = self._join_keys(node, left, right)
+        right = self._exec(node.right, scalars).materialize()
+        lkey, rkey = self._join_keys(node, left, right, scalars)
         # the dense and fused sides serve unique builds only
         iv = build_key_interval(node, self.catalog) if node.unique else None
         spec = self._pallas_spec(iv, tuple(node.output_right),
@@ -396,16 +411,16 @@ class LocalExecutor:
 
         return probe
 
-    def _exec_semijoin(self, node: N.SemiJoin):
+    def _exec_semijoin(self, node: N.SemiJoin, scalars):
         """Semi (``IN`` / ``EXISTS``) or anti (negated) join, resident:
         the membership probes prefer the fused exists bitmask
         (duplicate-safe), then the dense table when stats allow, else
         the sorted keys; under ``approx_join`` a semi join whose exact
         table does not fit probes the Bloom sketch."""
-        left = self._exec(node.left)
-        right = self._exec(node.right).materialize()
+        left = self._exec(node.left, scalars)
+        right = self._exec(node.right, scalars).materialize()
         jt = "anti" if node.negated else "semi"
-        lkey, rkey = self._join_keys(node, left, right)
+        lkey, rkey = self._join_keys(node, left, right, scalars)
         iv = build_key_interval(node, self.catalog)
         spec = self._pallas_spec(iv, (), {}, True, jt)
         build = JoinBuildOperator(rkey, dense_domain=self._dense_domain(iv, right),
@@ -421,10 +436,44 @@ class LocalExecutor:
         return left.map(lambda b: op.process(b)[0])
 
     # ---- ordering ---------------------------------------------------------
-    def _exec_sort(self, node: N.Sort):
-        op = OrderByOperator(list(node.keys))
-        return BatchStream.of(Pipeline(self._exec(node.child), [op]).run())
+    @staticmethod
+    def _bound_keys(keys, scalars) -> list[SortKey]:
+        return [SortKey(bind_scalars(k.expr, scalars), k.descending, k.nulls_first)
+                for k in keys]
 
-    def _exec_topn(self, node: N.TopN):
-        op = TopNOperator(list(node.keys), node.count)
-        return BatchStream.of(Pipeline(self._exec(node.child), [op]).run())
+    def _exec_sort(self, node: N.Sort, scalars):
+        child = self._exec(node.child, scalars)
+        op = OrderByOperator(self._bound_keys(node.keys, scalars))
+        return BatchStream.of(Pipeline(child, [op]).run())
+
+    def _exec_topn(self, node: N.TopN, scalars):
+        child = self._exec(node.child, scalars)
+        op = TopNOperator(self._bound_keys(node.keys, scalars), node.count)
+        return BatchStream.of(Pipeline(child, [op]).run())
+
+    # ---- scalar subqueries ----------------------------------------------
+    def _exec_bindscalars(self, node: N.BindScalars, scalars):
+        for sv in node.scalars:
+            scalars[sv.name] = self._eval_scalar(sv)
+        return self._exec(node.child, scalars)
+
+    def _eval_scalar(self, sv: N.ScalarValue):
+        """Run the subplan (an Output: the analyzer plans every scalar
+        subquery as a query) and read its one value on the host: one
+        device-to-host sync per scalar and query, as in the JAX package,
+        since the value becomes a literal of the plan above. No live row
+        gives NULL; more than one raises."""
+        batches, names = self.run_batches(sv.child)
+        for b in batches:
+            n = live_count(b)
+            if n == 0:
+                continue
+            if n > 1:
+                raise UserError("scalar subquery returned more than one row")
+            col = b[names[0]]
+            idx = int(torch.nonzero(b.live)[0, 0])
+            if col.valid is not None and not bool(col.valid[idx]):
+                return None
+            raw = col.data[idx].item()
+            return col.dtype.from_physical(raw) if col.dtype.kind is TypeKind.DECIMAL else raw
+        return None

@@ -92,6 +92,29 @@ class Call(Expr):
         return f"{self.fn}({', '.join(map(str, self.args))})"
 
 
+@dataclass(frozen=True)
+class Unbound(Expr):
+    """A runtime-scalar slot (an uncorrelated scalar subquery's result).
+    The executor substitutes a Literal (``bind_scalars``) before an
+    operator sees the expression; evaluating an Unbound is an error."""
+
+    name: str = ""
+
+    def __str__(self) -> str:
+        return f"?{self.name}"
+
+
+def bind_scalars(e: Expr, values: dict[str, Any]) -> Expr:
+    """Replace Unbound slots with Literals (executor-side)."""
+    if isinstance(e, Unbound):
+        if e.name not in values:
+            raise KeyError(f"unbound scalar {e.name}")
+        return Literal(e.dtype, values[e.name])
+    if isinstance(e, Call):
+        return Call(e.dtype, e.fn, tuple(bind_scalars(a, values) for a in e.args))
+    return e
+
+
 def col(name: str, dtype: DataType) -> InputRef:
     return InputRef(dtype, name)
 
@@ -739,6 +762,8 @@ def evaluate(expr: Expr, batch: Batch) -> Val:
             dictionary = next((a.dictionary for a in args
                                if a.dictionary is not None), None)
         return Val(data, valid, _sync_physical(expr.dtype, data), dictionary)
+    if isinstance(expr, Unbound):
+        raise TypeError(f"scalar {expr.name} evaluated before bind_scalars bound it")
     raise TypeError(f"unknown expr node {type(expr)}")
 
 

@@ -203,6 +203,14 @@ def node_intervals(node: N.PlanNode, catalog) -> dict[str, Interval]:
     if len(children) == 1:
         env = node_intervals(children[0], catalog)
         return {f.name: env.get(f.name) for f in node.fields}
+    if children:
+        # BindScalars emits its first child's fields: first child wins,
+        # so a same-named column of a scalar subplan never shadows it
+        out = {}
+        for c in children:
+            for n, iv in node_intervals(c, catalog).items():
+                out.setdefault(n, iv)
+        return {f.name: out.get(f.name) for f in node.fields}
     return {f.name: None for f in node.fields}
 
 

@@ -2,8 +2,9 @@
 
 Counterpart of ``presto_tpu/plan/nodes.py`` for the node kinds the
 ported analyzer produces: TableScan, Filter, Project, Aggregate, Join,
-Sort, TopN, Limit and Output. Fields are named, typed columns;
-expressions are the typed IR of ``presto_tpu_torch.expr``. The JAX
+SemiJoin, Sort, TopN, Limit, ScalarValue, BindScalars and Output.
+Fields are named, typed columns; expressions are the typed IR of
+``presto_tpu_torch.expr``. The JAX
 package's runtime join filters are not ported, so scans carry none.
 """
 
@@ -178,6 +179,41 @@ class Limit(PlanNode):
     @property
     def children(self):
         return (self.child,)
+
+    @property
+    def fields(self):
+        return self.child.fields
+
+
+@dataclass(frozen=True)
+class ScalarValue(PlanNode):
+    """An uncorrelated scalar subquery: child must produce at most one
+    row of one column; the value is bound as a literal under ``name``."""
+
+    child: PlanNode
+    name: str
+    dtype: DataType
+
+    @property
+    def children(self):
+        return (self.child,)
+
+    @property
+    def fields(self):
+        return (Field(self.name, self.dtype),)
+
+
+@dataclass(frozen=True)
+class BindScalars(PlanNode):
+    """Execute the scalar subplans first, bind their values into the
+    child's ``Unbound`` expression slots."""
+
+    child: PlanNode
+    scalars: tuple[ScalarValue, ...]
+
+    @property
+    def children(self):
+        return (self.child,) + self.scalars
 
     @property
     def fields(self):

@@ -37,6 +37,14 @@ def prune(node: N.PlanNode, needed: set[str] | None = None) -> N.PlanNode:
     if isinstance(node, N.Output):
         child = prune(node.child, set(node.sources))
         return replace(node, child=child)
+    if isinstance(node, N.BindScalars):
+        child = prune(node.child, needed)
+        scalars = tuple(
+            replace(s, child=prune(s.child, None)) for s in node.scalars
+        )
+        return N.BindScalars(child, scalars)
+    if isinstance(node, N.ScalarValue):
+        return replace(node, child=prune(node.child, None))
     if isinstance(node, N.Project):
         exprs = node.exprs
         if needed is not None:

@@ -1,8 +1,9 @@
 """Semantic analysis: AST -> typed logical plan (the ported subset).
 
 Counterpart of ``presto_tpu/sql/analyzer.py`` for the SELECT shapes of
-TPC-H Q1, Q3-Q10, Q12-Q14, Q16, Q18 and Q19 and all 15 SSB queries:
-SELECT [DISTINCT] / FROM with comma joins (and explicit ``JOIN ... ON``
+all 22 TPC-H queries and all 15 SSB queries: ``WITH`` (each reference to
+a CTE is analyzed again, as a derived table), SELECT [DISTINCT] / FROM
+with comma joins (and explicit ``JOIN ... ON``
 and ``LEFT [OUTER] JOIN ... ON``, whose ON conjuncts over the build side
 alone filter the build) and derived
 tables (``(SELECT ...) AS alias``) / WHERE conjuncts / GROUP BY (or
@@ -12,7 +13,15 @@ equality correlation and [NOT] IN (subquery), each planned as a
 a pre-aggregation on the keys plus ``x``), ``sum``,
 ``avg`` (``sum`` / ``count`` in DOUBLE), ``min``, ``max``; DECIMAL and
 DATE arithmetic and unary minus, comparisons, [NOT] BETWEEN, [NOT] IN
-(a list), [NOT] LIKE, IS [NOT] NULL, AND, OR and NOT; simple and searched
+(a list), [NOT] LIKE, IS [NOT] NULL, AND, OR and NOT; scalar subqueries:
+uncorrelated ones (in a comparison, a value position or a BETWEEN bound)
+as a ``ScalarValue`` bound into ``Unbound`` slots by a ``BindScalars``
+over the plan, equality-correlated ones in a comparison decorrelated
+into a group-by on the correlation columns plus a unique inner join;
+EXISTS with equality correlation plus one ``<>`` correlation (a min/max
+per correlation group, LEFT-joined, then a filter); EXISTS leaves under
+OR/AND (the mark join: each a deduplicated LEFT join and a BOOLEAN mark
+column); simple and searched
 CASE, COALESCE, NULLIF and CAST to ``double``, ``bigint`` / ``int`` /
 ``integer`` and ``decimal(p,s)``;
 ``SUBSTRING`` / ``substr`` over BYTES; ``EXTRACT`` (and the functions)
@@ -24,11 +33,13 @@ unique-build detection from table keys, and functional-dependency
 grouping (keys covered by a table's unique key ride as passengers), so
 both packages build the same plan tree for the same statement.
 
-Anything else (scalar subqueries, EXISTS correlated by ``<>``, EXISTS
-under OR (the mark join), uncorrelated EXISTS, set operations, CTEs,
-windows, grouping sets, RIGHT and FULL joins, the other casts, the rest
-of the scalar function library) raises ``NotSupported`` naming the
-construct.
+Anything else (an uncorrelated EXISTS, which the JAX package refuses
+too; ``<>`` correlation in a scalar subquery, likewise; set operations,
+in a subquery too; windows, grouping sets, RIGHT and FULL joins, the
+other casts, the rest of the scalar function library) raises
+``NotSupported`` naming the construct. The mark join's own refusals
+(NOT EXISTS, IN or a scalar subquery under OR) are the JAX package's
+``AnalysisError``s, word for word.
 """
 
 from __future__ import annotations
@@ -41,7 +52,7 @@ import numpy as np
 
 from presto_tpu_torch.exec.operators import AggSpec, SortKey
 from presto_tpu_torch.expr import (
-    Call, Expr, InputRef, Literal, rescale_decimal, result_type, substr_fn)
+    Call, Expr, InputRef, Literal, Unbound, rescale_decimal, result_type, substr_fn)
 from presto_tpu_torch.plan import nodes as N
 from presto_tpu_torch.plan.catalog import Catalog, TableMeta
 from presto_tpu_torch.runtime.errors import NotSupported, UserError
@@ -201,20 +212,29 @@ class Analyzer:
         self._uniq = 0
         if not isinstance(query, A.Query):
             raise _unsupported(f"statement {type(query).__name__}")
-        plan, _scope = self._analyze_query(query, outer=None, ctes={})
+        plan, _scope = self._analyze_any(query, outer=None, ctes={})
         return plan
+
+    def _analyze_any(
+        self, q: A.Node, outer: Scope | None, ctes: dict
+    ) -> tuple[N.PlanNode, Scope]:
+        """A SELECT core; a set operation (a UNION chain) is not ported."""
+        if not isinstance(q, A.Query):
+            raise _unsupported(f"{type(q).__name__} (a set operation)")
+        return self._analyze_query(q, outer, ctes)
 
     def _analyze_query(
         self, q: A.Query, outer: Scope | None, ctes: dict[str, A.Query]
     ) -> tuple[N.PlanNode, Scope]:
-        if q.ctes:
-            raise _unsupported("WITH (common table expressions)")
         if any(isinstance(g, A.GroupingSets) for g in q.group_by):
             raise _unsupported("GROUPING SETS / ROLLUP / CUBE")
         for it in q.select:
             _reject_windows(it.expr)
         for ob in q.order_by:
             _reject_windows(ob.expr)
+        ctes = dict(ctes)
+        for name, cq in q.ctes:
+            ctes[name] = cq
 
         # ---- FROM: relations + join graph -----------------------------
         rels: list[Rel] = []
@@ -227,7 +247,7 @@ class Analyzer:
         # ---- WHERE classification -------------------------------------
         residual: list[A.Node] = []
         sub_preds: list[A.Node] = []
-        scalar_binds: list = []
+        scalar_binds: list[N.ScalarValue] = []
         if q.where is not None:
             for c in conjuncts(q.where):
                 self._classify_conjunct(
@@ -242,7 +262,7 @@ class Analyzer:
             e = self._expr(c, scope, outer, ctes, scalar_binds)
             plan = N.Filter(plan, e)
 
-        # semi/anti joins from WHERE
+        # semi/anti joins & correlated scalar rewrites from WHERE
         for c in sub_preds:
             plan = self._apply_subquery_pred(c, plan, scope, outer, ctes, scalar_binds)
 
@@ -312,6 +332,10 @@ class Analyzer:
         elif q.limit is not None:
             plan = N.Limit(plan, q.limit)
 
+        # scalar-value bindings wrap the plan (executed first)
+        if scalar_binds:
+            plan = N.BindScalars(plan, tuple(scalar_binds))
+
         out = N.Output(plan, tuple(out_names), tuple(n for n, _ in out_exprs))
         return out, out_scope
 
@@ -326,6 +350,12 @@ class Analyzer:
     def _flatten_from(self, rel: A.Node, rels, edges, ctes, outer):
         if isinstance(rel, A.Table):
             binding = rel.alias or rel.name
+            if rel.name in ctes:
+                # a CTE is analyzed again at every reference (Q15 plans
+                # its ``revenue`` twice), as in the JAX package
+                plan, sub_scope = self._analyze_any(ctes[rel.name], None, ctes)
+                self._add_derived(rels, binding, plan, sub_scope)
+                return
             meta = self.catalog.resolve(rel.name)
             fields = []
             cols = []
@@ -350,7 +380,7 @@ class Analyzer:
             binding = rel.alias or self.fresh("subq")
             if not isinstance(rel.query, A.Query):
                 raise _unsupported(f"{type(rel.query).__name__} in a derived table")
-            plan, sub_scope = self._analyze_query(rel.query, None, ctes)
+            plan, sub_scope = self._analyze_any(rel.query, None, ctes)
             self._add_derived(rels, binding, plan, sub_scope)
             return
         if isinstance(rel, A.Join):
@@ -1010,7 +1040,8 @@ class Analyzer:
         return t
 
     # ------------------------------------------------------------------
-    # subquery predicates: EXISTS / IN as semi and anti joins
+    # subquery predicates: EXISTS / IN as semi and anti joins, scalar
+    # comparisons, the <> EXISTS rewrite and the mark join
     # ------------------------------------------------------------------
     @staticmethod
     def _as_plain_query(q):
@@ -1045,20 +1076,123 @@ class Analyzer:
                 plan, inner, (value,), (InputRef(kf.dtype, kf.name),),
                 negated != node.negated,
             )
-        if isinstance(node, (A.BinaryOp, A.Between)) and self._contains_scalar_subquery(node):
-            raise _unsupported("a scalar subquery")
-        if isinstance(node, A.BinaryOp) and node.op in ("or", "and"):
-            raise _unsupported("EXISTS / IN under OR (the mark join)")
+        if isinstance(node, A.BinaryOp) and node.op in _CMP_OPS:
+            # comparison against a scalar subquery
+            sub = None
+            other = None
+            flip = False
+            if isinstance(node.right, A.ScalarSubquery):
+                sub, other = node.right, node.left
+            elif isinstance(node.left, A.ScalarSubquery):
+                sub, other, flip = node.left, node.right, True
+            if sub is not None:
+                return self._plan_scalar_compare(
+                    node.op, other, sub.query, negated, flip, plan, scope, outer,
+                    ctes, scalar_binds,
+                )
+        if isinstance(node, A.Between) and not negated and not node.negated:
+            # BETWEEN with scalar-subquery bounds: split into two range
+            # conjuncts and plan each
+            for op_, bound in ((">=", node.low), ("<=", node.high)):
+                c2 = A.BinaryOp(op_, node.value, bound)
+                if self._contains_subquery(c2):
+                    plan = self._apply_subquery_pred(
+                        c2, plan, scope, outer, ctes, scalar_binds
+                    )
+                else:
+                    plan = N.Filter(
+                        plan, self._expr(c2, scope, outer, ctes, scalar_binds)
+                    )
+            return plan
+        if isinstance(node, A.BinaryOp) and node.op in ("or", "and") and not negated:
+            # a boolean combination of EXISTS leaves: the mark join
+            return self._apply_mark_bool(node, plan, scope, outer, ctes,
+                                         scalar_binds)
         raise _unsupported(f"the subquery predicate {type(node).__name__}")
 
-    def _contains_scalar_subquery(self, n) -> bool:
-        if isinstance(n, A.ScalarSubquery):
-            return True
-        if isinstance(n, A.Node):
-            return any(self._contains_scalar_subquery(v) for v in _ast_fields(n))
-        if isinstance(n, tuple):
-            return any(self._contains_scalar_subquery(v) for v in n)
-        return False
+    def _apply_mark_bool(self, c, plan, scope, outer, ctes, scalar_binds):
+        """Rewrite a boolean expression whose subquery leaves are all
+        positive equality-correlated EXISTS: each leaf adds a mark
+        column to ``plan``; the expression is then a plain filter."""
+        added: list[FieldRef] = []
+
+        def walk(n):
+            nonlocal plan
+            if isinstance(n, A.Exists):
+                if n.negated:
+                    raise AnalysisError(
+                        "NOT EXISTS inside OR predicates is not supported"
+                    )
+                plan, mark = self._plan_exists_mark(
+                    self._as_plain_query(n.query), plan, scope, ctes
+                )
+                added.append(mark)
+                return A.Identifier((mark.column,))
+            if isinstance(n, (A.InSubquery, A.ScalarSubquery)):
+                raise AnalysisError(
+                    "only EXISTS is supported inside OR predicates"
+                )
+            if isinstance(n, A.BinaryOp):
+                return A.BinaryOp(n.op, walk(n.left), walk(n.right))
+            if isinstance(n, A.UnaryOp):
+                return A.UnaryOp(n.op, walk(n.operand))
+            return n
+
+        new_ast = walk(c)
+        ext = Scope(list(scope.fields) + added)
+        pred = self._expr(new_ast, ext, outer, ctes, scalar_binds)
+        return N.Filter(plan, pred)
+
+    def _plan_exists_mark(self, sub_q: A.Query, plan, scope, ctes):
+        """Plan one EXISTS as a mark: dedup the inner correlation keys
+        (GROUP BY -> unique build), LEFT-join them onto ``plan``, and
+        project a BOOLEAN mark = key-matched. Returns (plan, mark_field)."""
+        probe = self._inner_scope_probe(sub_q, ctes)
+        new_where, corr, neq = self._split_correlation(sub_q, probe, scope, ctes)
+        if not corr or neq:
+            raise AnalysisError(
+                "EXISTS inside OR must be equality-correlated"
+            )
+        inner_cols = tuple(A.Identifier(ip) for _, ip in corr)
+        rewritten = A.Query(
+            select=tuple(A.SelectItem(ic, None) for ic in inner_cols),
+            from_=sub_q.from_, where=new_where, group_by=inner_cols,
+        )
+        sub_plan, _ = self._analyze_query(rewritten, None, ctes)
+        inner = sub_plan.child if isinstance(sub_plan, N.Output) else sub_plan
+        sources = (sub_plan.sources if isinstance(sub_plan, N.Output)
+                   else inner.field_names())
+        imap = {f.name: f for f in inner.fields}
+        carried = self.fresh("mark")
+        ren = N.Project(
+            inner,
+            tuple(
+                (carried if f.name == sources[0] else f.name,
+                 InputRef(f.dtype, f.name))
+                for f in inner.fields
+            ),
+        )
+        right_keys = tuple(
+            InputRef(imap[s].dtype, carried if i == 0 else s)
+            for i, s in enumerate(sources)
+        )
+        left_keys = tuple(
+            InputRef(scope.resolve(op_).dtype, scope.resolve(op_).name)
+            for op_, _ in corr
+        )
+        joined = N.Join(plan, ren, "left", left_keys, right_keys, True,
+                        (carried,))
+        mark_name = self.fresh("markb")
+        kd = imap[sources[0]].dtype
+        exprs = tuple(
+            (f.name, InputRef(f.dtype, f.name))
+            for f in joined.fields if f.name != carried
+        ) + ((mark_name, Call(BOOLEAN, "is_not_null",
+                              (InputRef(kd, carried),))),)
+        return (
+            N.Project(joined, exprs),
+            FieldRef(mark_name, BOOLEAN, "", mark_name, None),
+        )
 
     def _split_correlation(self, q: A.Query, inner_scope_probe, outer_scope: Scope,
                            ctes):
@@ -1104,9 +1238,11 @@ class Analyzer:
         probe = self._inner_scope_probe(sub_q, ctes)
         new_where, corr, neq = self._split_correlation(sub_q, probe, scope, ctes)
         if not corr:
+            # the JAX package refuses it too
             raise _unsupported("an uncorrelated EXISTS")
         if neq:
-            raise _unsupported("an EXISTS correlated by <> (the min/max rewrite)")
+            return self._plan_exists_with_neq(sub_q, negated, plan, scope, ctes,
+                                              new_where, corr, neq)
         inner_cols = tuple(A.Identifier(ip) for _, ip in corr)
         rewritten = A.Query(
             select=tuple(A.SelectItem(ic, None) for ic in inner_cols),
@@ -1122,6 +1258,142 @@ class Analyzer:
             f = scope.resolve(op_)
             left_keys.append(InputRef(f.dtype, f.name))
         return N.SemiJoin(plan, inner, tuple(left_keys), right_keys, negated)
+
+    def _plan_exists_with_neq(self, sub_q, negated, plan, scope, ctes,
+                              new_where, corr, neq):
+        """EXISTS with equality correlation plus ONE ``<>`` correlation
+        (Q21 shape): per correlation group, gather min/max of the inner
+        inequality column; 'another row with a different value exists'
+        iff min <> X or max <> X. NOT EXISTS keeps the rows with no
+        group (min NULL) or a group of X alone."""
+        if len(neq) > 1:
+            raise AnalysisError("at most one <> correlation supported in EXISTS")
+        outer_x, inner_y = neq[0]
+        rewritten = A.Query(
+            select=(
+                A.SelectItem(A.FunctionCall("min", (A.Identifier(inner_y),)), "mn"),
+                A.SelectItem(A.FunctionCall("max", (A.Identifier(inner_y),)), "mx"),
+            )
+            + tuple(
+                A.SelectItem(A.Identifier(ip), f"ck{i}")
+                for i, (_, ip) in enumerate(corr)
+            ),
+            from_=sub_q.from_, where=new_where,
+            group_by=tuple(A.Identifier(ip) for _, ip in corr),
+        )
+        sub_plan, _ = self._analyze_query(rewritten, None, ctes)
+        inner = sub_plan.child if isinstance(sub_plan, N.Output) else sub_plan
+        sources = sub_plan.sources if isinstance(sub_plan, N.Output) else inner.field_names()
+        names = sub_plan.names if isinstance(sub_plan, N.Output) else sources
+        smap = dict(zip(names, sources))
+        imap = {f.name: f for f in inner.fields}
+        mn_n, mx_n = self.fresh("exmn"), self.fresh("exmx")
+        ren = N.Project(
+            inner,
+            tuple(
+                (mn_n if f.name == smap["mn"] else mx_n if f.name == smap["mx"]
+                 else f.name, InputRef(f.dtype, f.name))
+                for f in inner.fields
+            ),
+        )
+        right_keys = tuple(
+            InputRef(imap[smap[f"ck{i}"]].dtype, smap[f"ck{i}"])
+            for i in range(len(corr))
+        )
+        left_keys = tuple(
+            InputRef(scope.resolve(op_).dtype, scope.resolve(op_).name)
+            for op_, _ in corr
+        )
+        joined = N.Join(plan, ren, "left", left_keys, right_keys, True,
+                        (mn_n, mx_n))
+        xf = scope.resolve(outer_x)
+        x = InputRef(xf.dtype, xf.name)
+        mn = InputRef(imap[smap["mn"]].dtype, mn_n)
+        mx = InputRef(imap[smap["mx"]].dtype, mx_n)
+        matched = Call(BOOLEAN, "is_not_null", (mn,))
+        if not negated:
+            differs = Call(BOOLEAN, "or", (
+                Call(BOOLEAN, "ne", (mn, x)), Call(BOOLEAN, "ne", (mx, x))))
+            pred = Call(BOOLEAN, "and", (matched, differs))
+        else:
+            same = Call(BOOLEAN, "and", (
+                Call(BOOLEAN, "eq", (mn, x)), Call(BOOLEAN, "eq", (mx, x))))
+            pred = Call(BOOLEAN, "or", (Call(BOOLEAN, "is_null", (mn,)), same))
+        return N.Filter(joined, pred)
+
+    def _plan_scalar_compare(self, op, other_ast, sub_q: A.Query, negated, flip,
+                             plan, scope, outer, ctes, scalar_binds):
+        """``other <op> (subquery)``: uncorrelated, a ``ScalarValue``
+        bound into an ``Unbound`` slot; equality-correlated, a group-by
+        on the correlation columns joined (inner, unique) on them, so an
+        outer row whose group is missing drops out."""
+        sub_q = self._as_plain_query(sub_q)
+        probe = self._inner_scope_probe(sub_q, ctes)
+        new_where, corr, neq = self._split_correlation(sub_q, probe, scope, ctes)
+        if neq:
+            # the JAX package refuses it too
+            raise _unsupported("<> correlation in a scalar subquery")
+        fn = _CMP_OPS[op]
+        if not corr:
+            # uncorrelated: ScalarValue binding
+            sub_plan, sub_scope = self._analyze_query(sub_q, None, ctes)
+            if len(sub_scope.fields) != 1:
+                raise AnalysisError("scalar subquery must produce one column")
+            sname = self.fresh("scalar")
+            sdtype = sub_scope.fields[0].dtype
+            scalar_binds.append(N.ScalarValue(sub_plan, sname, sdtype))
+            other = self._expr(other_ast, scope, outer, ctes, scalar_binds)
+            args = (Unbound(sdtype, sname), other) if flip else (other, Unbound(sdtype, sname))
+            e = Call(BOOLEAN, fn, args)
+            if negated:
+                e = Call(BOOLEAN, "not", (e,))
+            return N.Filter(plan, e)
+        # correlated: decorrelate via group-by on correlation columns
+        if len(sub_q.select) != 1:
+            raise AnalysisError("correlated scalar subquery must select one value")
+        val_name = "val"
+        rewritten = A.Query(
+            select=(A.SelectItem(sub_q.select[0].expr, val_name),)
+            + tuple(A.SelectItem(A.Identifier(ip), f"ck{i}") for i, (_, ip) in enumerate(corr)),
+            from_=sub_q.from_, where=new_where,
+            group_by=tuple(A.Identifier(ip) for _, ip in corr),
+        )
+        sub_plan, sub_scope = self._analyze_query(rewritten, None, ctes)
+        inner = sub_plan.child if isinstance(sub_plan, N.Output) else sub_plan
+        # inner fields: val + ck0.. — via Output projection mapping
+        sources = sub_plan.sources if isinstance(sub_plan, N.Output) else inner.field_names()
+        names = sub_plan.names if isinstance(sub_plan, N.Output) else sources
+        smap = dict(zip(names, sources))
+        imap = {f.name: f for f in inner.fields}
+        right_keys = tuple(
+            InputRef(imap[smap[f"ck{i}"]].dtype, smap[f"ck{i}"])
+            for i in range(len(corr))
+        )
+        left_keys = tuple(
+            InputRef(scope.resolve(op_).dtype, scope.resolve(op_).name)
+            for op_, _ in corr
+        )
+        vfield = imap[smap[val_name]]
+        vname = self.fresh("subval")
+        # rename the value column to avoid collisions
+        ren = N.Project(
+            inner,
+            tuple(
+                (vname if f.name == vfield.name else f.name,
+                 InputRef(f.dtype, f.name))
+                for f in inner.fields
+            ),
+        )
+        joined = N.Join(
+            plan, ren, "inner", left_keys, right_keys, True, (vname,)
+        )
+        other = self._expr(other_ast, scope, outer, ctes, scalar_binds)
+        vref = InputRef(vfield.dtype, vname)
+        args = (vref, other) if flip else (other, vref)
+        e = Call(BOOLEAN, fn, args)
+        if negated:
+            e = Call(BOOLEAN, "not", (e,))
+        return N.Filter(joined, e)
 
     # ------------------------------------------------------------------
     # order-by resolution
@@ -1263,6 +1535,15 @@ class Analyzer:
                              for a in n.args)
                 return Call(result_type("coalesce", [a.dtype for a in args]), "coalesce", args)
             raise _unsupported(f"function {n.name}()")
+        if isinstance(n, A.ScalarSubquery):
+            # scalar subquery in a value position (uncorrelated only)
+            sub_plan, sub_scope = self._analyze_any(n.query, None, ctes)
+            if len(sub_scope.fields) != 1:
+                raise AnalysisError("scalar subquery must produce one column")
+            sname = self.fresh("scalar")
+            t = sub_scope.fields[0].dtype
+            scalar_binds.append(N.ScalarValue(sub_plan, sname, t))
+            return Unbound(t, sname)
         raise _unsupported(f"expression {type(n).__name__}")
 
     def _case(self, n: A.CaseExpr, scope, outer, ctes, scalar_binds, agg_map, key_map):

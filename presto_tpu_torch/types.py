@@ -140,6 +140,23 @@ class DataType:
             return float(value)
         raise TypeError(f"cannot convert scalar for {self}")
 
+    def from_physical(self, value):
+        """Convert one physical scalar back to a Python-level value (a
+        DECIMAL as ``int(value) / 10**scale``, which ``to_physical``
+        rounds back to the same integer below 2^53)."""
+        if self.kind is TypeKind.DECIMAL:
+            return int(value) / 10**self.scale
+        if self.kind is TypeKind.BOOLEAN:
+            return bool(value)
+        if self.kind is TypeKind.DOUBLE:
+            return float(value)
+        if self.kind is TypeKind.DATE:
+            return str(np.datetime64("1970-01-01", "D") + np.int64(value))
+        if self.kind is TypeKind.TIMESTAMP:
+            return str(np.datetime64("1970-01-01T00:00:00", "us")
+                       + np.timedelta64(int(value), "us"))
+        return int(value)
+
     def null_value(self):
         """Physical fill value used in NULL slots (masked by validity)."""
         if self.kind is TypeKind.DOUBLE:

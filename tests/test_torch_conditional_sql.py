@@ -29,45 +29,27 @@ from presto_tpu.connectors.tpch.queries import QUERIES
 from presto_tpu.exec.leaf_route import agg_strategy_for as j_agg_strategy
 from presto_tpu.plan.bounds import agg_value_bits as j_value_bits
 from presto_tpu.plan.joinfilters import planned_join_strategy as j_join_strategy
-from presto_tpu.runtime.metrics import REGISTRY
 from presto_tpu.runtime.session import Session as JSession
 from presto_tpu_torch.connectors.ssb import SsbConnector as PSsb
 from presto_tpu_torch.connectors.tpch import TpchConnector as PConnector
 from presto_tpu_torch.exec.leaf_route import agg_strategy_for as p_agg_strategy
 from presto_tpu_torch.exec.local_planner import planned_join_strategy as p_join_strategy
 from presto_tpu_torch.plan.bounds import agg_value_bits as p_value_bits
-from presto_tpu_torch.runtime.metrics import COUNTERS
 from presto_tpu_torch.runtime.session import Session as PSession
 from test_torch_sql import plan_shape
+from torch_bridge import jax_run, port_run
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
 
 TPCH = ["q7", "q8", "q12", "q14", "q16", "q19"]
 SSB_QUERIES = ["q3_3", "q3_4", "q4_1", "q4_2", "q4_3"]
-ROUTES = ("join.strategy.", "exec.pallas_join_route", "join.pallas_fallback", "agg.strategy.",
-          "exec.leaf_", "exec.q1_")
 
 
 @pytest.fixture(scope="module")
 def conns():
     return {"tpch": (JConnector(sf=0.01), PConnector(sf=0.01, device="cpu")),
             "ssb": (JSsb(sf=0.01), PSsb(sf=0.01, device="cpu"))}
-
-
-def jax_run(conn, sql):
-    before = REGISTRY.snapshot()
-    df = JSession({"tpch": conn}, properties={"result_cache_enabled": False}).sql(sql)
-    after = REGISTRY.snapshot()
-    routes = {k: after.get(k, 0) - before.get(k, 0) for k in after if k.startswith(ROUTES)}
-    return df, {k: int(v) for k, v in routes.items() if v}
-
-
-def port_run(conn, sql, key="tpch"):
-    COUNTERS.clear()
-    session = PSession({key: conn}, device="cpu")
-    res = session.sql(sql)
-    return res, {k: v for k, v in COUNTERS.items() if k.startswith(ROUTES) and v}, session
 
 
 @pytest.mark.parametrize("q", TPCH)

@@ -409,11 +409,15 @@ def test_statements_over_null_extended_rows(conns, i):
 @pytest.mark.parametrize("sql,what", [
     ("select count(*) from customer right join orders on c_custkey = o_custkey", "RIGHT JOIN"),
     ("select count(*) from customer full join orders on c_custkey = o_custkey", "FULL JOIN"),
-    (QUERIES["q15"], "WITH"),
-    (QUERIES["q17"], "subquery"),
+    (QUERIES["q15"].replace("from supplier, revenue\nwhere s_suppkey = supplier_no\n  and",
+                            "from supplier full join revenue on s_suppkey = supplier_no\n"
+                            "where"), "FULL JOIN"),
+    (QUERIES["q17"].replace("where l_partkey = p_partkey", "where l_partkey = p_partkey "
+                            "and l_suppkey <> p_size"), "<> correlation in a scalar subquery"),
 ])
 def test_joins_and_queries_still_refused(conns, sql, what):
-    """FULL and RIGHT joins stay refused, and the queries this slice takes
-    one step further still stop at a later blocker, naming it."""
+    """FULL and RIGHT joins stay refused, also inside Q15 (whose WITH is
+    answered now), and Q17's correlated scalar stops at a ``<>``
+    correlation, naming it."""
     with pytest.raises(NotSupported, match=what):
         PSession({"tpch": conns[1]}, device="cpu").sql(sql)

@@ -336,12 +336,14 @@ def test_approximate_flag_follows_the_reference(conns):
 # ---------------------------------------------------------------------------
 
 REFUSED = [
-    ("select count(*) from lineitem where l_quantity < (select avg(l_quantity) from lineitem)",
-     "scalar subquery"),
-    ("select count(*) from lineitem l1 where exists (select * from lineitem l2 where "
-     "l2.l_orderkey = l1.l_orderkey and l2.l_suppkey <> l1.l_suppkey)", "correlated by <>"),
+    ("select count(*) from lineitem l1 where l_quantity < (select avg(l2.l_quantity) from "
+     "lineitem l2 where l2.l_orderkey = l1.l_orderkey and l2.l_suppkey <> l1.l_suppkey)",
+     "<> correlation in a scalar subquery"),
+    ("select count(*) from lineitem where l_quantity < (select avg(l_quantity) from lineitem "
+     "union all select avg(l_discount) from lineitem)", "set operation"),
     ("select count(*) from orders where o_orderkey < 10 or exists "
-     "(select * from lineitem where l_orderkey = o_orderkey)", "under OR"),
+     "(select l_orderkey from lineitem where l_orderkey = o_orderkey "
+     "union all select ps_partkey from partsupp)", "set operation"),
     ("select count(*) from orders where exists (select * from lineitem where l_quantity > 49)",
      "uncorrelated EXISTS"),
     ("select count(*) from orders where o_orderkey in "

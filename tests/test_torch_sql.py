@@ -128,14 +128,16 @@ def test_plan_routes_the_probe_kernels(sessions, q):
 
 
 UNSUPPORTED = [
-    ("select count(*) from lineitem where l_quantity < (select avg(l_quantity) from lineitem)",
-     "subquery"),
+    ("select count(*) from nation where n_regionkey = "
+     "(select max(r_regionkey) from region where r_regionkey <> n_nationkey)",
+     "<> correlation in a scalar subquery"),
     ("select l_orderkey, rank() over (order by l_quantity) from lineitem", "window"),
     ("select l_returnflag, count(*) from lineitem group by grouping sets ((l_returnflag), ())",
      "GROUPING SETS"),
     ("select stddev(l_quantity) from lineitem group by l_returnflag", "stddev"),
     ("select sqrt(l_quantity) from lineitem", "sqrt"),
-    ("with t as (select 1 as x from nation) select x from t", "WITH"),
+    ("with t as (select n_name from nation union all select r_name from region) "
+     "select n_name from t", "set operation"),
     ("select n_name from nation union all select r_name from region", "SetQuery"),
     ("create table t as select n_name from nation", "CreateTableAs"),
 ]
@@ -148,26 +150,18 @@ def test_constructs_outside_the_slice_raise_naming_them(sql, what):
         ps.sql(sql)
 
 
-OTHER_QUERIES = ["q2", "q11", "q15", "q17", "q20", "q21", "q22"]
+OTHER_QUERIES = []
 
 
 def test_the_refused_queries_are_exactly_the_unported_ones():
-    """The 15 TPC-H queries the port answers are compared with the
-    reference elsewhere; these 7 are every other one."""
-    ported = ["q1", "q3", "q4", "q5", "q6", "q7", "q8", "q9", "q10", "q12", "q13", "q14", "q16",
-              "q18", "q19"]
-    assert sorted(ported + OTHER_QUERIES) == sorted(QUERIES)
-
-
-@pytest.mark.parametrize("q", OTHER_QUERIES)
-def test_other_tpch_queries_refuse_rather_than_answer(q):
-    """Every TPC-H query outside the slice raises NotSupported (none
-    returns a silently wrong answer); Q3 and Q10 are compared with the
-    reference in tests/test_torch_q3.py, Q1 and Q6 in
+    """All 22 TPC-H queries are ported, each compared with the reference
+    elsewhere: Q3 and Q10 in tests/test_torch_q3.py, Q1 and Q6 in
     tests/test_torch_leaf_route.py, Q9 in tests/test_torch_like_sql.py,
     Q4 and Q18 in tests/test_torch_semi.py, Q5 and Q13 in
     tests/test_torch_outer_join.py, Q7, Q8, Q12, Q14, Q16 and Q19 in
-    tests/test_torch_conditional_sql.py."""
-    ps = PSession({"tpch": PConnector(sf=0.01, device="cpu")}, device="cpu")
-    with pytest.raises(NotSupported, match="not ported"):
-        ps.sql(QUERIES[q])
+    tests/test_torch_conditional_sql.py, Q2, Q11, Q15, Q17, Q20, Q21 and
+    Q22 in tests/test_torch_subquery.py; none is refused."""
+    ported = ["q1", "q2", "q3", "q4", "q5", "q6", "q7", "q8", "q9", "q10", "q11", "q12", "q13",
+              "q14", "q15", "q16", "q17", "q18", "q19", "q20", "q21", "q22"]
+    assert sorted(ported + OTHER_QUERIES) == sorted(QUERIES)
+    assert OTHER_QUERIES == []

@@ -1,7 +1,9 @@
 """Helpers for the port's differential tests (``test_torch_*.py``).
 
 Carry types and batches from the JAX package (the reference) to the
-PyTorch port as numpy arrays, so both packages see the same inputs.
+PyTorch port as numpy arrays, so both packages see the same inputs; run
+one statement through each package's ``Session.sql`` with the route
+counters it bumps (``jax_run``, ``port_run``).
 """
 
 from __future__ import annotations
@@ -55,3 +57,33 @@ def assert_same(got, want, what: str = "") -> None:
     assert g.dtype == w.dtype, f"{what}: dtype {g.dtype} != {w.dtype}"
     assert g.shape == w.shape, f"{what}: shape {g.shape} != {w.shape}"
     np.testing.assert_array_equal(g, w, err_msg=what)
+
+
+#: the route counters the SQL differential tests compare
+ROUTES = ("join.strategy.", "exec.pallas_join_route", "join.pallas_fallback", "agg.strategy.",
+          "exec.leaf_", "exec.q1_")
+
+
+def jax_run(conn, sql, key="tpch"):
+    """(frame, route counters) of ``sql`` through the JAX package's
+    ``Session.sql`` over ``conn`` alone (result cache off)."""
+    from presto_tpu.runtime.metrics import REGISTRY
+    from presto_tpu.runtime.session import Session as JSession
+
+    before = REGISTRY.snapshot()
+    df = JSession({key: conn}, properties={"result_cache_enabled": False}).sql(sql)
+    after = REGISTRY.snapshot()
+    routes = {k: after.get(k, 0) - before.get(k, 0) for k in after if k.startswith(ROUTES)}
+    return df, {k: int(v) for k, v in routes.items() if v}
+
+
+def port_run(conn, sql, key="tpch"):
+    """(QueryResult, route counters, session) of ``sql`` through the
+    port's ``Session.sql`` over ``conn`` alone, on the CPU."""
+    from presto_tpu_torch.runtime.metrics import COUNTERS
+    from presto_tpu_torch.runtime.session import Session as PSession
+
+    COUNTERS.clear()
+    session = PSession({key: conn}, device="cpu")
+    res = session.sql(sql)
+    return res, {k: v for k, v in COUNTERS.items() if k.startswith(ROUTES) and v}, session
