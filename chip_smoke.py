@@ -82,8 +82,9 @@ one CUDA card, and exits nonzero on any failure. Phases:
    batches;
 9. semi and anti joins at SF1 through ``Session.sql``: TPC-H Q4 exact
    (the dense membership probe) and with ``approx_join`` (the sketch
-   kernel once per ``orders`` split, equal to a numpy Bloom oracle and
-   at least the exact count in every group), the JAX tests' ``semi`` and
+   kernel once per ``orders`` split, equal to a numpy Bloom oracle that
+   also applies the runtime join filter's range and Bloom bits, and at
+   least the exact count in every group), the JAX tests' ``semi`` and
    ``anti`` statements exact and approximate (``anti`` stays exact and
    never launches the sketch), ``semi_anti_part`` (the exists kernel once
    per ``part`` split for each of its two joins), Q4 at sf 0.01 on the
@@ -138,7 +139,21 @@ one CUDA card, and exits nonzero on any failure. Phases:
    and a second run, the device busy time of a third and its five
    largest device ops, and the launches per kernel; every exists and
    payload launch shape and Q20's first LIKE launch held to the plain
-   version.
+   version;
+13. the join features at SF1 through ``Session.sql``: a join of two
+   dictionaries' keys (``dict_bytes``, then ``bytes_pack``), a 15-byte
+   BYTES key on a unique build (``bytes_hash`` and a verify pair), a
+   two-key join with a negative key (``hash63_mix``, verified, an
+   expansion), FULL OUTER joins on an expansion and a unique build,
+   RIGHT joins (Q13 written with RIGHT JOIN, and a RIGHT join whose
+   swapped LEFT join takes the payload kernel in left mode), and the
+   runtime join filters on Q3 and Q10 (and Q3 with them off), each equal
+   to a numpy recomputation, to the strategy counters its plan predicts
+   and to the filter's counters recomputed in numpy from its range and
+   Bloom bits, with the walls of a first and a second run, the device
+   busy time of a third and its five largest device ops, and the
+   launches per kernel; Q9's and Q21's filter counters likewise; every
+   exists and payload launch shape held to the plain version.
 
 Phase 5 also times the prefix kernel at the first ``part`` split of the
 ``starts_with`` pipeline and over SF1 ``o_comment`` with
@@ -1015,9 +1030,12 @@ def device_kernels(fn, calls: int = 20) -> dict:
     short, never long."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    for _attempt in range(3):  # a trace can come back without device events: profile again
+    # a trace can come back without device events (a filtered probe batch
+    # of a few microseconds lost all three traces once in a full run):
+    # warm up and profile again, up to five times
+    for _attempt in range(5):
+        fn()
+        torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
@@ -2835,9 +2853,10 @@ def expression_runs() -> dict:
 
 def planned_routes(session, sql: str) -> dict:
     """The strategy counters a statement's plan predicts: one
-    ``join.strategy.<s>`` per join and semi join (``expand`` counts each
-    output capacity its retry ladder tries, so the plan gives its least)
-    and one ``agg.strategy.<s>`` per aggregate."""
+    ``join.strategy.<s>`` per join and semi join but a FULL join
+    (``expand`` counts each output capacity its retry ladder tries, so
+    the plan gives its least) and one ``agg.strategy.<s>`` per
+    aggregate."""
     from presto_tpu_torch.exec.leaf_route import agg_strategy_for
     from presto_tpu_torch.exec.local_planner import planned_join_strategy
     from presto_tpu_torch.plan import nodes as N
@@ -2846,7 +2865,9 @@ def planned_routes(session, sql: str) -> dict:
 
     def walk(node):
         key = None
-        if isinstance(node, (N.Join, N.SemiJoin)):
+        if isinstance(node, N.Join) and node.kind == "full":
+            pass  # a FULL probe counts no strategy, in either package
+        elif isinstance(node, (N.Join, N.SemiJoin)):
             key = "join.strategy." + planned_join_strategy(node, session.catalog)
         elif isinstance(node, N.Aggregate):
             key = "agg.strategy." + agg_strategy_for(node, session.catalog)
@@ -3299,6 +3320,275 @@ def run_subquery_queries(conn, device: str = "cuda") -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 13: the join features: BYTES and cross-dictionary keys, the 63-bit
+# mix, FULL and RIGHT joins, runtime join filters
+# ---------------------------------------------------------------------------
+
+JOIN_FEATURE_SQL = {
+    # two dictionaries ('O' and 'F' in both): dict_bytes, then bytes_pack
+    "cross_dict": ("select l_linestatus, count(*) as n from lineitem join "
+                   "(select distinct o_orderstatus from orders) s on l_linestatus = o_orderstatus "
+                   "group by l_linestatus order by l_linestatus"),
+    # a 15-byte BYTES key: bytes_hash and a verify pair (a unique build at SF1)
+    "wide_bytes": ("select count(*) as n, sum(c) as c from orders join "
+                   "(select o_clerk as k, count(*) as c from orders group by o_clerk) s "
+                   "on o_clerk = k"),
+    # a negative key component: hash63_mix and two verify pairs (expansion)
+    "mix": ("select count(*) as n, sum(c_custkey) as sc, sum(s_suppkey) as ss from customer "
+            "join supplier on c_nationkey = s_nationkey and c_acctbal = s_acctbal"),
+    # FULL OUTER on both build kinds: orders (expansion) and customer (unique)
+    "full": ("select count(*) as n, count(o_orderkey) as no, count(c_custkey) as nc "
+             "from customer full join orders on c_custkey = o_custkey"),
+    "full_swapped": ("select count(*) as n, count(o_orderkey) as no, count(c_custkey) as nc "
+                     "from orders full join customer on c_custkey = o_custkey"),
+    # RIGHT: planned as the LEFT join with its sides swapped
+    "right_q13": QUERIES["q13"].replace("from customer left outer join orders",
+                                        "from orders right outer join customer"),
+    "right_nation": ("select n_name, r_name from region right join nation "
+                     "on r_regionkey = n_nationkey order by n_name"),
+    # the runtime join filters (and Q3 with them off)
+    "q3": QUERIES["q3"],
+    "q10": QUERIES["q10"],
+    "q3 filters off": QUERIES["q3"],
+}
+
+#: the statements run once more, for their filter counters alone
+FILTER_COUNT_ONLY = ("q9", "q21")
+
+#: planned dense joins that run the sorted probe at SF1, in both packages:
+#: the executor's dense cap, max(2^20, 16 x build rows) slots, refuses Q10's
+#: lineitem-orders table (about 57,000 orders over a 6M-key domain), which
+#: the stats-only plan does not see (ROADMAP A5's route helper)
+RUNS_SORTED = {"q10": 1}
+
+
+def np_filter_keep(build: np.ndarray, keys: np.ndarray, nbits: int) -> np.ndarray:
+    """The runtime join filter's test of ``keys``, in numpy: inside the
+    live build keys' [min, max] and passing their two-hash Bloom test of
+    ``nbits`` bits."""
+    if build.size == 0:
+        return np.zeros(keys.shape, np.bool_)
+    k = keys.astype(np.int64)
+    return ((k >= int(build.min())) & (k <= int(build.max()))
+            & np_bloom_member(build, keys, nbits))
+
+
+def plan_filter_bits(session, sql: str):
+    """The Bloom bits of the runtime join filter of ``sql``'s plan (the
+    executor's sizing from the build's estimated rows), or None when the
+    plan has none or the session turns them off. A plan with more than
+    one filter is not what the oracles here describe."""
+    from presto_tpu_torch.plan.joinfilters import filter_edges
+
+    edges = filter_edges(session.plan(sql))
+    if not edges or not session.prop("runtime_join_filters"):
+        return None
+    check(len(edges) == 1, f"{len(edges)} runtime filters in one plan")
+    return session.executor()._filter_bits(edges[0][0].right)
+
+
+def filter_counts(probe: np.ndarray, build: np.ndarray, nbits) -> dict:
+    """``join.filter_rows_in`` and ``join.filter_rows_pruned`` of a probe
+    scan whose every row is live, pruned by a filter of ``build``."""
+    if nbits is None:
+        return {}
+    pruned = int((~np_filter_keep(build, probe, nbits)).sum())
+    return {"join.filter_rows_in": int(probe.size), "join.filter_rows_pruned": pruned}
+
+
+def cross_dict_expected(conn) -> dict:
+    """lineitem rows whose line status is an order status, by status."""
+    li = conn.table_numpy("lineitem", ["l_linestatus"])["l_linestatus"]
+    o = conn.table_numpy("orders", ["o_orderstatus"])["o_orderstatus"]
+    lvals = conn.dictionaries("lineitem")["l_linestatus"].values
+    ovals = set(conn.dictionaries("orders")["o_orderstatus"].values[np.unique(o)].tolist())
+    codes, n = np.unique(li, return_counts=True)
+    keep = np.array([lvals[c] in ovals for c in codes], np.bool_)
+    return {"l_linestatus": list(lvals[codes[keep]]), "n": n[keep].astype(np.int64)}
+
+
+def wide_bytes_expected(conn) -> dict:
+    """Every order joins its clerk's group: the orders, and the sum over
+    orders of their clerk's order count."""
+    clerks = _text(conn.table_numpy("orders", ["o_clerk"])["o_clerk"])
+    _, inv, per = np.unique(np.array(clerks, dtype=object), return_inverse=True,
+                            return_counts=True)
+    return {"n": np.array([len(clerks)], np.int64),
+            "c": np.array([int(per[inv].astype(np.int64).sum())], np.int64)}
+
+
+def mix_expected(conn) -> dict:
+    """Pairs of a customer and a supplier of one nation and one account
+    balance: their count and the sums of their keys."""
+    c = conn.table_numpy("customer", ["c_custkey", "c_nationkey", "c_acctbal"])
+    s = conn.table_numpy("supplier", ["s_suppkey", "s_nationkey", "s_acctbal"])
+
+    def groups(keys, nation, bal):
+        """(group keys, rows, summed ``keys``) by (nation, balance)."""
+        k = nation.astype(np.int64) * (1 << 32) + (bal.astype(np.int64) + (1 << 31))
+        u, inv = np.unique(k, return_inverse=True)
+        sums = np.zeros(len(u), np.int64)
+        np.add.at(sums, inv, keys.astype(np.int64))
+        return u, np.bincount(inv, minlength=len(u)), sums
+
+    cu, cn, cs = groups(c["c_custkey"], c["c_nationkey"], c["c_acctbal"])
+    su, sn, ss = groups(s["s_suppkey"], s["s_nationkey"], s["s_acctbal"])
+    _common, ci, si = np.intersect1d(cu, su, return_indices=True)
+    n = int((cn[ci] * sn[si]).sum())
+    # a sum over no pair is NULL
+    return {"n": np.array([n], np.int64),
+            "sc": np.array([int((cs[ci] * sn[si]).sum()) if n else None]),
+            "ss": np.array([int((ss[si] * cn[ci]).sum()) if n else None])}
+
+
+def full_expected(conn) -> dict:
+    """customer FULL JOIN orders: one row per order (every order has its
+    customer) and one per customer without an order."""
+    c = conn.table_numpy("customer", ["c_custkey"])["c_custkey"]
+    o = conn.table_numpy("orders", ["o_custkey"])["o_custkey"]
+    lone = int((~np.isin(c, o)).sum())
+    orphans = int((~np.isin(o, c)).sum())
+    n = o.size + lone
+    return {"n": np.array([n], np.int64), "no": np.array([o.size], np.int64),
+            "nc": np.array([n - orphans], np.int64)}
+
+
+def right_nation_expected(conn) -> dict:
+    """Every nation by name, with the region whose key equals its own key
+    (NULL past the regions)."""
+    n = conn.table_numpy("nation", ["n_nationkey", "n_name"])
+    r = conn.table_numpy("region", ["r_regionkey", "r_name"])
+    nnames = conn.dictionaries("nation")["n_name"].values
+    rnames = conn.dictionaries("region")["r_name"].values
+    rname = dict(zip(r["r_regionkey"].tolist(), rnames[r["r_name"]].tolist()))
+    rows = sorted((nnames[code], rname.get(int(k))) for k, code in zip(n["n_nationkey"],
+                                                                        n["n_name"]))
+    return {"n_name": [a for a, _ in rows], "r_name": [b for _, b in rows]}
+
+
+def join_feature_runs() -> dict:
+    """Phase 13's runs: name -> (statement, session properties, numpy oracle)."""
+    oracles = {"cross_dict": cross_dict_expected, "wide_bytes": wide_bytes_expected,
+               "mix": mix_expected, "full": full_expected, "full_swapped": full_expected,
+               "right_q13": q13_expected, "right_nation": right_nation_expected,
+               "q3": q3_expected, "q10": q10_expected, "q3 filters off": q3_expected}
+    return {name: (sql, {"runtime_join_filters": False} if name == "q3 filters off" else {},
+                   oracles[name]) for name, sql in JOIN_FEATURE_SQL.items()}
+
+
+def expected_filter_counts(conn, name: str, nbits) -> dict:
+    """The filter counters a phase-13 statement must show: Q3's and Q10's
+    lineitem scans pruned by their orders builds, Q9's and Q21's by their
+    supplier builds; none elsewhere."""
+    if name in ("q3", "q10"):
+        o = conn.table_numpy("orders", ["o_orderkey", "o_orderdate"])
+        od = o["o_orderdate"]
+        m = (od < days("1995-03-15") if name == "q3"
+             else (od >= days("1993-10-01")) & (od < days("1994-01-01")))
+        probe = conn.table_numpy("lineitem", ["l_orderkey"])["l_orderkey"]
+        return filter_counts(probe, o["o_orderkey"][m], nbits)
+    if name in FILTER_COUNT_ONLY:
+        probe = conn.table_numpy("lineitem", ["l_suppkey"])["l_suppkey"]
+        build = conn.table_numpy("supplier", ["s_suppkey"])["s_suppkey"]
+        return filter_counts(probe, build, nbits)
+    return {}
+
+
+def run_join_feature_queries(conn, device: str = "cuda") -> dict:
+    """Phase 13 at SF1 through Session.sql: each statement equal to its
+    numpy oracle, to the strategy counters its plan predicts and to the
+    runtime filter's counters recomputed in numpy (range and Bloom bits),
+    with the walls of a first and a second run, the device busy time of a
+    third and its five largest device ops, and the launches per kernel;
+    Q9 and Q21 once more for their filter counters; every exists and
+    payload launch shape held to the plain version."""
+    runs = join_feature_runs()
+    t0 = time.perf_counter()
+    cached = ColumnCache(conn)
+    want = {name: fn(cached) for name, (_sql, _props, fn) in runs.items()}
+    rows = {name: len(next(iter(w.values()))) for name, w in want.items()}
+    log(f"phase 13: numpy recomputation of {len(runs)} statements at SF{conn.sf:g} in "
+        f"{time.perf_counter() - t0:.1f} s; rows {rows}")
+    out = {"walls": {}, "launches": {}, "routes": {}, "filters": {}}
+    query = {"name": None}
+    with each_probe_shape(query) as probes:
+        for name, (sql, props, _fn) in runs.items():
+            session = Session({"tpch": conn}, properties=props, device=device)
+            predicted = planned_routes(session, sql)
+            if conn.sf == 1 and name in RUNS_SORTED:
+                k = RUNS_SORTED[name]
+                predicted["join.strategy.dense"] -= k
+                predicted["join.strategy.unique"] = predicted.get("join.strategy.unique", 0) + k
+            want_filters = expected_filter_counts(cached, name, plan_filter_bits(session, sql))
+            query["name"] = name
+            try:
+                COUNTERS.clear()
+                _reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = session.sql(sql)
+                torch.cuda.synchronize()
+                first = time.perf_counter() - t0
+                n = _launch_counts()
+                route = dict(COUNTERS)
+            finally:
+                query["name"] = None
+            same_result(res, want[name], f"{name} at SF{conn.sf:g}")
+            got = {k: v for k, v in route.items()
+                   if k.startswith(("join.strategy.", "agg.strategy.")) and v}
+            check(got == predicted, f"{name}: strategy counters {got}, the plan predicts "
+                  f"{predicted}")
+            filters = {k: v for k, v in route.items() if k.startswith("join.filter_rows_")}
+            check(filters == want_filters, f"{name}: filter counters {filters}, numpy "
+                  f"{want_filters}")
+            check(route.get("exec.pallas_join_route", 0) == got.get("join.strategy.pallas", 0),
+                  f"{name}: fused-probe routes {route}")
+            check_vector_probes(name, n)
+            out["launches"][name] = n
+            out["routes"][name] = {**got, **{k: v for k, v in route.items()
+                                             if k.startswith("exec.") and v}}
+            out["filters"][name] = filters
+            t0 = time.perf_counter()
+            again = session.sql(sql)
+            torch.cuda.synchronize()
+            second = time.perf_counter() - t0
+            same_result(again, want[name], f"{name} at SF{conn.sf:g}, second run")
+            busy_ms, scan_s, top = wall_breakdown(session, conn, sql)
+            out["walls"][name] = (first, second, busy_ms, scan_s)
+            log(f"  {name}: {len(res)} rows equal to numpy; wall first {first:.3f} s, second "
+                f"{second:.3f} s; launches { {k: v for k, v in n.items() if v} }; routes "
+                f"{out['routes'][name]} (planned {predicted}); filters {filters}")
+            log(f"  {name} breakdown (a third, profiled run): device busy {busy_ms:.1f} ms, "
+                f"connector scans {scan_s:.3f} s; the device ops with the most of it (ms, "
+                "calls): " + "; ".join(f"{k} {ms:.2f} ({c})" for k, ms, c in top))
+    check(out["filters"]["q3 filters off"] == {}
+          and out["filters"]["q3"]["join.filter_rows_pruned"] > 0,
+          "q3: the runtime filter pruned nothing, or pruned with the filters off")
+    for name in FILTER_COUNT_ONLY:
+        session = Session({"tpch": conn}, device=device)
+        sql = QUERIES[name]
+        want_filters = expected_filter_counts(cached, name, plan_filter_bits(session, sql))
+        COUNTERS.clear()
+        session.sql(sql)
+        filters = {k: v for k, v in COUNTERS.items() if k.startswith("join.filter_rows_")}
+        check(filters == want_filters, f"{name}: filter counters {filters}, numpy "
+              f"{want_filters}")
+        out["filters"][name] = filters
+        log(f"  {name}: filter counters {filters}, equal to numpy")
+    del cached
+    out["probes"] = probes
+    out["probe_err"] = hold_probe_shapes(probes)
+    for mode in ("exists", "payload"):
+        held = {rows for m, rows, _key in probes if m == mode}
+        ran = {rows for n in out["launches"].values() for rows in n["probe_by_shape"][mode]}
+        check(held == ran, f"phase 13's {mode} launches at rows {sorted(ran)}, held to the "
+              f"plain version at {sorted(held)}")
+    check(all(n["sketch"] == 0 for n in out["launches"].values()),
+          "phase 13 launched the sketch kernel")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 9: semi and anti joins, the approximate sketch, the Q3 join step
 # ---------------------------------------------------------------------------
 
@@ -3343,17 +3633,21 @@ def np_bloom_member(build: np.ndarray, keys: np.ndarray,
     return bits[s1] & bits[s2]
 
 
-def q4_expected(conn, bloom: bool = False) -> dict:
+def q4_expected(conn, bloom: bool = False, filter_bits=None) -> dict:
     """TPC-H Q4 recomputed in numpy: orders of the quarter from
     1993-07-01 with a lineitem committed before its receipt, counted by
     priority in key order; with ``bloom`` the membership test is the
-    sketch's (``np_bloom_member``) instead of the exact one."""
+    sketch's (``np_bloom_member``) instead of the exact one, and with
+    ``filter_bits`` also the runtime join filter's, which prunes some of
+    the sketch's false positives at the scan (``np_filter_keep``)."""
     lo, hi = days("1993-07-01"), days("1993-10-01")
     o = conn.table_numpy("orders", ["o_orderkey", "o_orderdate", "o_orderpriority"])
     li = conn.table_numpy("lineitem", ["l_orderkey", "l_commitdate", "l_receiptdate"])
     build = li["l_orderkey"][li["l_commitdate"] < li["l_receiptdate"]]
     member = (np_bloom_member(build, o["o_orderkey"]) if bloom
               else np.isin(o["o_orderkey"], build))
+    if bloom and filter_bits is not None:
+        member &= np_filter_keep(build, o["o_orderkey"], filter_bits)
     m = (o["o_orderdate"] >= lo) & (o["o_orderdate"] < hi) & member
     prio = conn.dictionaries("orders")["o_orderpriority"].values
     n = np.bincount(o["o_orderpriority"][m].astype(np.int64), minlength=len(prio))
@@ -3361,9 +3655,10 @@ def q4_expected(conn, bloom: bool = False) -> dict:
     return {"o_orderpriority": list(prio[g]), "order_count": n[g].astype(np.int64)}
 
 
-def semi_expected(conn, name: str, bloom: bool = False) -> dict:
+def semi_expected(conn, name: str, bloom: bool = False, filter_bits=None) -> dict:
     """The ``semi``, ``anti`` and ``semi_anti_part`` statements recomputed
-    in numpy (``bloom``: the semi join's sketch membership)."""
+    in numpy (``bloom``: the semi join's sketch membership, and with
+    ``filter_bits`` the runtime join filter's test too)."""
     if name == "semi_anti_part":
         p = conn.table_numpy("part", ["p_partkey", "p_size"])
         ps = conn.table_numpy("partsupp", ["ps_partkey", "ps_availqty"])
@@ -3377,6 +3672,8 @@ def semi_expected(conn, name: str, bloom: bool = False) -> dict:
     if name == "semi":
         build = o["o_orderkey"][o["o_orderdate"] < days("1995-03-15")]
         m = np_bloom_member(build, keys) if bloom else np.isin(keys, build)
+        if bloom and filter_bits is not None:
+            m &= np_filter_keep(build, keys, filter_bits)
     else:
         m = ~np.isin(keys, o["o_orderkey"][o["o_orderdate"] >= days("1998-01-01")])
     return {"c": np.array([int(m.sum())], np.int64)}
@@ -3425,9 +3722,15 @@ def run_semi_queries(sf: float = 1, device: str = "cuda") -> dict:
     conn = TpchConnector(sf=sf, device=device)
     small = TpchConnector(sf=0.01, device=device)
     t0 = time.perf_counter()
-    want = {"q4": q4_expected(conn), "q4 approx": q4_expected(conn, bloom=True),
+    # the runtime join filter (on by default) prunes some of the sketch's
+    # false positives at the probe scan: the approximate oracles test its
+    # range and Bloom bits too
+    bits = {name: plan_filter_bits(Session({"tpch": conn}, device=device), sql)
+            for name, sql in (("q4", QUERIES["q4"]), ("semi", SEMI_SQL["semi"]))}
+    want = {"q4": q4_expected(conn),
+            "q4 approx": q4_expected(conn, bloom=True, filter_bits=bits["q4"]),
             "semi": semi_expected(conn, "semi"),
-            "semi approx": semi_expected(conn, "semi", bloom=True),
+            "semi approx": semi_expected(conn, "semi", bloom=True, filter_bits=bits["semi"]),
             "anti": semi_expected(conn, "anti"), "anti approx": semi_expected(conn, "anti"),
             "semi_anti_part": semi_expected(conn, "semi_anti_part"),
             "q4 sf0.01 leaf": q4_expected(small)}
@@ -3925,6 +4228,24 @@ def main() -> int:
     log(f"  phase 12's launches of the other kernels: {p12_other}; lane-sums by instance "
         f"{sub['lane_by_instance']}, leaf by instance {sub['leaf_by_instance']}, LIKE by "
         f"instance {sub['like_by_instance']}, by rows x width {sub['like_by_shape']}")
+    # ---- phase 13: the join features ----------------------------------------
+    mark("13 join features")
+    feat = run_join_feature_queries(string_conns["tpch"])
+    for name, (first, second, busy, scan) in feat["walls"].items():
+        log(f"  wall {name}: first {first:.3f} s, second {second:.3f} s, device busy "
+            f"{busy:.1f} ms, connector scans {scan:.3f} s")
+    p13 = probe_launch_totals(feat["launches"])
+    totals = probe_launch_totals(join["launches"], strings["launches"], semi["launches"],
+                                 outer["launches"], expr["launches"], sub["launches"],
+                                 feat["launches"])
+    log(f"  exists, sketch and payload launches with phase 13: {totals}; phase 13's alone: "
+        f"{p13}")
+    p13_other = {k: sum(n[k] for n in feat["launches"].values())
+                 for k in ("q1", "lane_sums", "leaf_agg", "q3", "like", "prefix")}
+    p13_like_by_instance = _summed(*(n["like_by_instance"] for n in feat["launches"].values()))
+    p13_like_by_shape = _summed(*(n["like_by_shape"] for n in feat["launches"].values()))
+    log(f"  phase 13's launches of the other kernels: {p13_other}; LIKE by instance "
+        f"{p13_like_by_instance}; filter counters {feat['filters']}")
     mark("json")
     log("phase seconds: " + ", ".join(f"{a} {t1 - t0:.1f}" for (a, t0), (_b, t1)
                                       in zip(marks, marks[1:])))
@@ -3934,8 +4255,9 @@ def main() -> int:
         {"name": "q1_step", "route": "cuda", "source": "presto_tpu_torch/csrc/q1.cu",
          "replaces": "presto_tpu/ops/pallas_q1.py:114",
          "jax_function": "presto_tpu/ops/pallas_q1.py:174 q1_step",
-         "launches": q1_launches + p11_other["q1"] + p12_other["q1"],
+         "launches": q1_launches + p11_other["q1"] + p12_other["q1"] + p13_other["q1"],
          "phase11_launches": p11_other["q1"], "phase12_launches": p12_other["q1"],
+         "phase13_launches": p13_other["q1"],
          "max_abs_err": q1_err, "ms": q1_ms, "kernel_ms": q1_ms,
          "call_ms": q1_call_ms,
          "plain_ms": q1_plain_ms, "bound_ms": q1_bound, "bound_by": q1_by,
@@ -3945,7 +4267,8 @@ def main() -> int:
          "replaces": "presto_tpu/ops/pallas_groupby.py:138",
          "jax_function": "presto_tpu/ops/pallas_groupby.py:177 fused_lane_sums",
          "launches": (lane_launches + outer["lane_launches"] + expr["lane_sums_launches"]
-                      + sub["lane_sums_launches"]),
+                      + sub["lane_sums_launches"] + p13_other["lane_sums"]),
+         "phase13_launches": p13_other["lane_sums"],
          "launches_by_instance": _summed(lane_by_instance, outer["lane_by_instance"],
                                          expr["lane_by_instance"], sub["lane_by_instance"]),
          "launches_from": "phase 4 (Q1 pipeline), phase 10 (Q13, Q5), phase 11 (the "
@@ -3975,14 +4298,16 @@ def main() -> int:
          "launches": totals["exists"]["launches"],
          "launches_by_shape": totals["exists"]["by_shape"],
          "launches_by_instance": totals["exists"]["by_instance"],
-         "launches_from": "phases 6, 8, 9, 10, 11 and 12",
+         "launches_from": "phases 6, 8, 9, 10, 11, 12 and 13",
+         "phase13_launches": p13["exists"]["launches"],
+         "phase13_launches_by_shape": p13["exists"]["by_shape"],
          "phase11_launches": p11["exists"]["launches"],
          "phase11_launches_by_shape": p11["exists"]["by_shape"],
          "phase12_launches": p12["exists"]["launches"],
          "phase12_launches_by_shape": p12["exists"]["by_shape"],
          "phase12_launches_by_instance": p12["exists"]["by_instance"],
          "max_abs_err": max([exists_err, keep_err["exists"], expr["probe_err"]["exists"],
-                             sub["probe_err"]["exists"]]
+                             sub["probe_err"]["exists"], feat["probe_err"]["exists"]]
                             + [t["err"] for t in probe_shapes["exists"].values()]),
          "ms": ex["ms"], "kernel_ms": ex["ms"], "call_ms": ex["call_ms"],
          "plain_ms": ex["plain_ms"], "bound_ms": exists_bound, "bound_by": exists_by,
@@ -3999,6 +4324,7 @@ def main() -> int:
          "launches_by_instance": totals["sketch"]["by_instance"],
          "phase11_launches": p11["sketch"]["launches"],
          "phase12_launches": p12["sketch"]["launches"],
+         "phase13_launches": p13["sketch"]["launches"],
          "max_abs_err": max([sketch_err, keep_err["sketch"]]
                             + [t["err"] for t in probe_shapes["sketch"].values()]),
          "ms": sk["ms"], "kernel_ms": sk["ms"], "call_ms": sk["call_ms"],
@@ -4010,8 +4336,9 @@ def main() -> int:
          "source": "presto_tpu_torch/csrc/join_probe.cu",
          "replaces": "presto_tpu/ops/pallas_join.py:443",
          "jax_function": "presto_tpu/ops/pallas_join.py:464 q3_probe_step",
-         "launches": semi["q3_launches"] + p11_other["q3"] + p12_other["q3"],
+         "launches": semi["q3_launches"] + p11_other["q3"] + p12_other["q3"] + p13_other["q3"],
          "phase11_launches": p11_other["q3"], "phase12_launches": p12_other["q3"],
+         "phase13_launches": p13_other["q3"],
          "max_abs_err": max(q3_kernel_err, semi["q3"]["err"]),
          "ms": q3_one["ms"], "kernel_ms": q3_one["ms"], "call_ms": q3_one["call_ms"],
          "plain_ms": q3_one["plain_ms"], "bound_ms": q3_bound, "bound_by": q3_by,
@@ -4026,7 +4353,10 @@ def main() -> int:
          "launches": totals["payload"]["launches"],
          "launches_by_shape": totals["payload"]["by_shape"],
          "launches_by_instance": totals["payload"]["by_instance"],
-         "launches_from": "phases 6, 8, 9, 10, 11 and 12",
+         "launches_from": "phases 6, 8, 9, 10, 11, 12 and 13",
+         "phase13_launches": p13["payload"]["launches"],
+         "phase13_launches_by_shape": p13["payload"]["by_shape"],
+         "phase13_launches_by_instance": p13["payload"]["by_instance"],
          "phase11_launches": p11["payload"]["launches"],
          "phase11_launches_by_shape": p11["payload"]["by_shape"],
          "phase11_launches_by_instance": p11["payload"]["by_instance"],
@@ -4034,7 +4364,7 @@ def main() -> int:
          "phase12_launches_by_shape": p12["payload"]["by_shape"],
          "phase12_launches_by_instance": p12["payload"]["by_instance"],
          "max_abs_err": max([payload_err, expr["probe_err"]["payload"],
-                             sub["probe_err"]["payload"]]
+                             sub["probe_err"]["payload"], feat["probe_err"]["payload"]]
                             + [t["err"] for t in probe_shapes["payload"].values()]),
          "ms": pay["ms"], "kernel_ms": pay["ms"], "call_ms": pay["call_ms"],
          "plain_ms": pay["plain_ms"], "bound_ms": pay["bound_ms"], "bound_by": pay["bound_by"],
@@ -4045,8 +4375,10 @@ def main() -> int:
         {"name": "leaf_agg", "route": "cuda", "source": "presto_tpu_torch/csrc/leaf_agg.cu",
          "replaces": "presto_tpu/ops/pallas_agg.py:180",
          "jax_function": "presto_tpu/ops/pallas_agg.py:246 _pallas_step (via agg_step :346)",
-         "launches": leaf["leaf_launches"] + p11_other["leaf_agg"] + p12_other["leaf_agg"],
+         "launches": (leaf["leaf_launches"] + p11_other["leaf_agg"] + p12_other["leaf_agg"]
+                      + p13_other["leaf_agg"]),
          "phase11_launches": p11_other["leaf_agg"], "phase12_launches": p12_other["leaf_agg"],
+         "phase13_launches": p13_other["leaf_agg"],
          "phase12_launches_by_instance": sub["leaf_by_instance"],
          "launches_from": "phase 7 (Q6, SSB Q1.1-1.3), phase 11 and phase 12 (none at SF1: "
                           "Q15's revenue view is not fused there)",
@@ -4066,10 +4398,12 @@ def main() -> int:
          "replaces": "presto_tpu/ops/pallas_strings.py:118",
          "jax_function": "presto_tpu/ops/pallas_strings.py:190 like_mask_pallas",
          "launches": (strings["like_launches"] + outer["like_launches"] + expr["like_launches"]
-                      + sub["like_launches"]),
+                      + sub["like_launches"] + p13_other["like"]),
          "launches_by_instance": _summed(strings["like_by_instance"],
                                          outer["like_by_instance"], expr["like_by_instance"],
-                                         sub["like_by_instance"]),
+                                         sub["like_by_instance"], p13_like_by_instance),
+         "phase13_launches": p13_other["like"],
+         "phase13_launches_by_instance": p13_like_by_instance,
          "launches_from": "phase 8 (LIKE queries), phase 10 (Q13, Q5), phase 11 (Q16) and "
                           "phase 12 (Q20's p_name like 'forest%')",
          "phase10_launches": outer["like_launches"],
@@ -4077,7 +4411,8 @@ def main() -> int:
          "phase12_launches": sub["like_launches"],
          "phase12_launches_by_instance": sub["like_by_instance"],
          "launches_by_shape": _summed(strings["like_by_shape"], outer["like_by_shape"],
-                                      expr["like_by_shape"], sub["like_by_shape"]),
+                                      expr["like_by_shape"], sub["like_by_shape"],
+                                      p13_like_by_shape),
          "max_abs_err": max([like_err, sub["like_err"]]
                             + [t["err"] for t in like_shapes.values()]),
          "ms": lk["ms"], "kernel_ms": lk["ms"], "call_ms": lk["call_ms"],
@@ -4089,8 +4424,10 @@ def main() -> int:
          "source": "presto_tpu_torch/csrc/strings.cu",
          "replaces": "presto_tpu/ops/pallas_strings.py:246",
          "jax_function": "presto_tpu/ops/pallas_strings.py:251 starts_with_pallas",
-         "launches": strings["prefix_launches"] + p11_other["prefix"] + p12_other["prefix"],
+         "launches": (strings["prefix_launches"] + p11_other["prefix"] + p12_other["prefix"]
+                      + p13_other["prefix"]),
          "phase11_launches": p11_other["prefix"], "phase12_launches": p12_other["prefix"],
+         "phase13_launches": p13_other["prefix"],
          "launches_from": "phase 8 (the starts_with pipeline); phase 12's like 'forest%' "
                           "runs the LIKE kernel, as in the JAX package",
          "launches_by_instance": strings["prefix_by_instance"],

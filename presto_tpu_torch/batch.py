@@ -27,12 +27,14 @@ class Dictionary:
     """An ordered, host-resident string dictionary: codes are indices
     into the sorted values, so code order is string order."""
 
-    __slots__ = ("values", "_index")
+    __slots__ = ("values", "_index", "_bytes_mats")
 
     def __init__(self, values: Sequence[str]):
         vals = sorted(set(values))
         self.values = np.array(vals, dtype=object)
         self._index = {v: i for i, v in enumerate(vals)}
+        #: cached decode tables by width, and ``max_bytes``
+        self._bytes_mats: dict = {}
 
     def __len__(self) -> int:
         return len(self.values)
@@ -51,6 +53,28 @@ class Dictionary:
 
     def decode(self, codes: np.ndarray) -> np.ndarray:
         return self.values[np.asarray(codes)]
+
+    @property
+    def max_bytes(self) -> int:
+        """The longest value's encoded byte length."""
+        m = self._bytes_mats.get("max_bytes")
+        if m is None:
+            m = max((len(v.encode()) for v in self.values.tolist()), default=0)
+            self._bytes_mats["max_bytes"] = m
+        return m
+
+    def bytes_matrix(self, width: int) -> np.ndarray:
+        """``[len, width]`` uint8 matrix of the values, zero-padded and
+        cut at ``width`` bytes: the decode table behind ``dict_bytes``
+        (cross-dictionary join keys compare by value). Cached per width."""
+        m = self._bytes_mats.get(width)
+        if m is None:
+            m = np.zeros((len(self.values), width), np.uint8)
+            for i, v in enumerate(self.values.tolist()):
+                raw = v.encode()[:width]
+                m[i, : len(raw)] = np.frombuffer(raw, np.uint8)
+            self._bytes_mats[width] = m
+        return m
 
     def __repr__(self) -> str:
         return f"Dictionary({len(self)} values)"

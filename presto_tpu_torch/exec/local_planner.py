@@ -26,8 +26,20 @@ package's, made from the same stats:
   ``used_approx``, which ``QueryResult.approximate`` reports);
 - a join whose build keys may repeat takes the expansion probe, its
   output capacity sized lazily from the first probe batch and doubled on
-  ``CapacityOverflow`` (``_retrying_expand_probe``); FULL and RIGHT joins
-  are not ported;
+  ``CapacityOverflow`` (``_retrying_expand_probe``); a FULL OUTER join
+  probes with LEFT semantics, accumulating matched-build flags, and then
+  emits the never-matched build rows (``_exec_full_join``); the analyzer
+  turns a RIGHT join into a LEFT join with its sides swapped;
+- join keys normalize to one int64 (``exec/joinkeys.py``); a hash key's
+  verify pairs go to the probe, which checks candidates by value;
+- runtime join filters (``runtime_join_filters``, on by default): an
+  inner or semi join eligible by ``plan/joinfilters.filter_edge_for``
+  registers a ``JoinFilterSlot`` on its probe scan before the probe side
+  executes; the slot starts at the build key's declared stats interval
+  and takes the finished build's (min, max) and Bloom words, and the
+  scan clears the live bit of each row outside them
+  (``join.filter_rows_in`` / ``join.filter_rows_pruned``, read back once
+  per query);
 - capacities retry and double on ``CapacityOverflow``;
 - scalar subqueries: ``BindScalars`` runs each ``ScalarValue``'s subplan
   first and reads its one value on the host (``_eval_scalar``), and every
@@ -36,9 +48,9 @@ package's, made from the same stats:
   ``_exec_*`` receives.
 
 Not ported: the spill and grouped tiers, the OOM ladder, fault points,
-adaptive history, plan templates, result and executable caches, runtime
-join filters and tracing. Every join and aggregate runs resident; a plan
-node without an executor here raises ``NotSupported``.
+adaptive history, plan templates, result, executable and stats caches,
+and tracing. Every join and aggregate runs resident; a plan node without
+an executor here raises ``NotSupported``.
 """
 
 from __future__ import annotations
@@ -48,11 +60,17 @@ import dataclasses
 import numpy as np
 import torch
 
-from presto_tpu_torch.batch import Batch, QueryResult
+from presto_tpu_torch.batch import Batch, Column, QueryResult
 from presto_tpu_torch.devices import resolve_device
 from presto_tpu_torch.exec import leaf_route
 from presto_tpu_torch.exec.joinkeys import declared_key_interval, join_key_exprs
-from presto_tpu_torch.exec.joins import BuildOutput, JoinBuildOperator, LookupJoinOperator
+from presto_tpu_torch.exec.joins import (
+    BuildOutput,
+    JoinBuildOperator,
+    LookupJoinOperator,
+    full_init_flags,
+    full_tail,
+)
 from presto_tpu_torch.exec.operators import (
     AggSpec,
     CapacityOverflow,
@@ -71,10 +89,12 @@ from presto_tpu_torch.exec.operators import (
 from presto_tpu_torch.exec.pipeline import BatchStream, Pipeline, prefetch_iter
 from presto_tpu_torch.expr import InputRef, bind_scalars, evaluate
 from presto_tpu_torch.ops import cuda_join
+from presto_tpu_torch.ops.hashing import bloom_test
 from presto_tpu_torch.ops.groupby import ValueBitsOverflow
 from presto_tpu_torch.plan import nodes as N
 from presto_tpu_torch.plan.bounds import agg_value_bits, estimate_rows, key_dictionary
 from presto_tpu_torch.plan.catalog import Catalog
+from presto_tpu_torch.plan.joinfilters import filter_edge_for
 from presto_tpu_torch.runtime.errors import InternalError, NotSupported, UserError
 from presto_tpu_torch.runtime.metrics import COUNTERS
 from presto_tpu_torch.spi import batch_capacity
@@ -87,6 +107,32 @@ MAX_RETRIES = 6
 #: payload column kinds the fused probe's int32 value tables carry
 _PALLAS_PAYLOAD_KINDS = (TypeKind.INTEGER, TypeKind.BIGINT, TypeKind.DATE,
                          TypeKind.DECIMAL, TypeKind.VARCHAR, TypeKind.BOOLEAN)
+
+
+class JoinFilterSlot:
+    """One runtime join filter: a join's build side -> its probe scan.
+
+    Registered on the probe scan before the probe side executes, it
+    starts at the build key's DECLARED stats interval, so the scan prunes
+    before (or without) the build's products, and tightens to the build's
+    exact (min, max) and Bloom words when the build finishes. The scan
+    reads the slot per batch. The pruning counts accumulate as device
+    scalars and are read back once per query."""
+
+    __slots__ = ("col", "declared", "minmax", "bloom", "stat_in", "stat_pruned")
+
+    def __init__(self, col: str, declared):
+        self.col = col
+        self.declared = declared
+        self.minmax = None  # (0-d min, 0-d max) over the live build keys
+        self.bloom = None  # the Bloom words
+        self.stat_in = None
+        self.stat_pruned = None
+
+    def bounds(self):
+        """(min, max), or None while nothing is known (no declared
+        interval, build not finished)."""
+        return self.minmax if self.minmax is not None else self.declared
 
 
 def live_count(batch: Batch) -> int:
@@ -163,8 +209,15 @@ def planned_join_strategy(node, catalog, approx_join: bool = False) -> str:
 
 class LocalExecutor:
     def __init__(self, catalog: Catalog, pallas_join_enabled: bool = True,
-                 approx_join: bool = False, device="cuda"):
+                 approx_join: bool = False, runtime_join_filters: bool = True,
+                 device="cuda"):
         self.catalog = catalog
+        #: push join build-key bounds and Bloom words into probe scans
+        self.runtime_join_filters = runtime_join_filters
+        #: id(probe scan node) -> [JoinFilterSlot]
+        self._scan_filters: dict[int, list[JoinFilterSlot]] = {}
+        #: the query's runtime join-key min/max readbacks, by content
+        self._minmax_memo: dict = {}
         #: prefer the fused lookup-table probe where stats permit
         self.pallas_join_enabled = pallas_join_enabled
         #: semi joins whose exact table does not fit may probe the Bloom
@@ -189,10 +242,14 @@ class LocalExecutor:
     def run_batches(self, plan: N.Output):
         # a scalar subquery's subplan (an Output) runs here too, with
         # scalars of its own
+        self._minmax_memo.clear()
         scalars: dict = {}
         rename = dict(zip(plan.sources, plan.names))
         out = [b.select(list(plan.sources)).rename(rename)
                for b in self._exec(plan.child, scalars)]
+        # every scan of the run has drained: one readback of the filters'
+        # pruning counts
+        self._flush_filter_stats()
         return out, list(plan.names)
 
     def _exec(self, node: N.PlanNode, scalars: dict) -> BatchStream:
@@ -214,12 +271,21 @@ class LocalExecutor:
               if node.predicate is not None else None)
         splits = list(conn.splits(node.table))
         cap = batch_capacity(max(s.row_hint for s in splits))
+        fslots = self._scan_filters.get(id(node), ())
 
         def load(split):
             b = conn.scan(split, src_cols, cap).rename(rename)
             return op.process(b)[0] if op is not None else b
 
-        return BatchStream(lambda: prefetch_iter(load, splits))
+        def make():
+            # the filters apply as each batch is handed on, so each reads
+            # its slot's state at that moment
+            for b in prefetch_iter(load, splits):
+                for slot in fslots:
+                    b = self._apply_join_filter(slot, b)
+                yield b
+
+        return BatchStream(make)
 
     # ---- streaming transforms -------------------------------------------
     def _exec_filter(self, node: N.Filter, scalars) -> BatchStream:
@@ -337,11 +403,90 @@ class LocalExecutor:
             return cuda_join.PallasJoinSpec("sketch", nbits=cuda_join.SKETCH_BITS)
         return None
 
+    @staticmethod
+    def _key_upper_bound(iv):
+        """The packed build's bound: a non-negative stats max, else None."""
+        if iv is None or iv[0] < 0:
+            return None
+        return int(iv[1])
+
+    # ---- runtime join filters -------------------------------------------
+    def _register_join_filter(self, node):
+        """Register the probe-scan filter slot of an INNER or SEMI join
+        before its probe side executes (eligibility is
+        ``joinfilters.filter_edge_for``, which EXPLAIN renders). The slot
+        starts at the build key's declared stats interval."""
+        if not self.runtime_join_filters:
+            return None
+        tgt = filter_edge_for(node)
+        if tgt is None:
+            return None
+        scan, col = tgt
+        slots = self._scan_filters.setdefault(id(scan), [])
+        for s in slots:
+            if s.col == col:
+                return s
+        slot = JoinFilterSlot(col, declared_key_interval(node.right, node.right_keys[0],
+                                                         self.catalog))
+        slots.append(slot)
+        return slot
+
+    def _filter_bits(self, node_right) -> int:
+        """Bloom size: about 4 bits per estimated build row, a power of
+        two in [2^13, 2^23]."""
+        est = estimate_rows(node_right, self.catalog)
+        nbits = 1 << 13
+        while nbits < 4 * est and nbits < (1 << 23):
+            nbits <<= 1
+        return nbits
+
+    @staticmethod
+    def _fill_join_filter(slot, build):
+        """Publish the finished build's products into the slot."""
+        if slot is None or build.filter_minmax is None:
+            return
+        slot.minmax = build.filter_minmax
+        slot.bloom = build.filter_bloom
+
+    @staticmethod
+    def _apply_join_filter(slot: JoinFilterSlot, b: Batch) -> Batch:
+        """AND the filter (range, then Bloom membership) into the scan
+        batch's live mask; a NULL key cannot join, so it is pruned too.
+        The counts stay on the device until the query's readback."""
+        bounds = slot.bounds()
+        if bounds is None or slot.col not in b:
+            return b
+        col = b[slot.col]
+        if col.data.dim() != 1:
+            return b
+        k = col.data.to(torch.int64)
+        keep = (k >= bounds[0]) & (k <= bounds[1]) & valid_of(col.valid, b.live)
+        if slot.bloom is not None:
+            keep = keep & bloom_test(slot.bloom, col.data)
+        live = b.live & keep
+        n_in = b.live.sum()
+        pruned = (b.live & ~live).sum()
+        slot.stat_in = n_in if slot.stat_in is None else slot.stat_in + n_in
+        slot.stat_pruned = pruned if slot.stat_pruned is None else slot.stat_pruned + pruned
+        return b.with_live(live)
+
+    def _flush_filter_stats(self):
+        """The once-per-query readback of the filters' pruning counts
+        into ``join.filter_rows_in`` / ``join.filter_rows_pruned``; the
+        accumulators restart."""
+        for slots in self._scan_filters.values():
+            for slot in slots:
+                if slot.stat_in is None:
+                    continue
+                COUNTERS["join.filter_rows_in"] += int(slot.stat_in)
+                COUNTERS["join.filter_rows_pruned"] += int(slot.stat_pruned)
+                slot.stat_in = slot.stat_pruned = None
+
     def _join_keys(self, node, left: BatchStream, right, scalars):
-        """(probe key, build key): one integer key per side, multi-key
-        pairs packed. Only a multi-key pair without stats-derived pack
-        widths pays the runtime min/max: a replay of the probe stream and
-        a readback."""
+        """(probe key, build key, verify pairs): one integer key per
+        side, multi-key pairs packed or mixed (``exec/joinkeys.py``).
+        Only a multi-key pair without stats-derived pack widths pays the
+        runtime min/max: a replay of each side and a readback."""
 
         def runtime_minmax(side: int, key):
             mn, mx = 0, 0
@@ -353,35 +498,56 @@ class LocalExecutor:
                     mn, mx = min(mn, int(data.min())), max(mx, int(data.max()))
             return mn, mx
 
-        lkey, rkey, _verify = join_key_exprs([bind_scalars(k, scalars) for k in node.left_keys],
-                                             [bind_scalars(k, scalars) for k in node.right_keys],
-                                             catalog=self.catalog, lnode=node.left,
-                                             rnode=node.right, runtime_minmax=runtime_minmax)
-        return lkey, rkey
+        def runtime_dict(side: int, key):
+            batches = left if side == 0 else right
+            b = batches.peek() if isinstance(batches, BatchStream) else (
+                batches[0] if batches else None)
+            if b is None or key.name not in b:
+                return None
+            return b[key.name].dictionary
+
+        return join_key_exprs([bind_scalars(k, scalars) for k in node.left_keys],
+                              [bind_scalars(k, scalars) for k in node.right_keys],
+                              catalog=self.catalog, lnode=node.left, rnode=node.right,
+                              runtime_minmax=runtime_minmax, runtime_dict=runtime_dict,
+                              minmax_memo=self._minmax_memo)
 
     def _exec_join(self, node: N.Join, scalars):
-        if node.kind not in ("inner", "left"):
-            raise NotSupported(f"{node.kind} joins are not ported yet")
+        # the JAX package's order: the filter slot, the probe subtree, the
+        # build subtree, the keys, the build, the filter's products
+        fslot = self._register_join_filter(node)
         left = self._exec(node.left, scalars)
         # the build side is materialized (the lookup source concatenates
         # it); the probe side streams batch by batch
         right = self._exec(node.right, scalars).materialize()
-        lkey, rkey = self._join_keys(node, left, right, scalars)
-        # the dense and fused sides serve unique builds only
+        lkey, rkey, verify = self._join_keys(node, left, right, scalars)
+        if verify and not node.unique and node.kind != "inner":
+            raise NotSupported("wide string keys on non-unique OUTER joins (verification "
+                               "cannot re-synthesize the null-extended row)")
+        # the dense and fused sides serve unique builds only; hash-verified
+        # keys and FULL joins never take the fused route
         iv = build_key_interval(node, self.catalog) if node.unique else None
-        spec = self._pallas_spec(iv, tuple(node.output_right),
-                                 {f.name: f.dtype for f in node.right.fields},
-                                 node.unique, node.kind)
+        spec = (None if verify or node.kind == "full" else
+                self._pallas_spec(iv, tuple(node.output_right),
+                                  {f.name: f.dtype for f in node.right.fields},
+                                  node.unique, node.kind))
         build = JoinBuildOperator(rkey, dense_domain=self._dense_domain(iv, right),
-                                  pallas=spec)
+                                  pallas=spec,
+                                  key_max=self._key_upper_bound(iv) if node.unique else None,
+                                  filter_bits=self._filter_bits(node.right) if fslot else 0)
         Pipeline(BatchStream.of(right), [build]).run()
+        self._fill_join_filter(fslot, build)
         outs = [BuildOutput(n, n) for n in node.output_right]
+        if node.kind == "full":
+            return self._exec_full_join(node, left, build, lkey, outs, right, verify)
         if node.unique:
-            op = LookupJoinOperator(build, lkey, outs, node.kind)
+            op = LookupJoinOperator(build, lkey, outs, node.kind, verify=verify)
             return left.map(lambda b: op.process(b)[0])
-        return left.map(self._retrying_expand_probe(build, lkey, outs, node.kind, right))
+        return left.map(self._retrying_expand_probe(build, lkey, outs, node.kind, right,
+                                                    lambda op, b: op.process(b)[0],
+                                                    verify=verify))
 
-    def _retrying_expand_probe(self, build, lkey, outs, kind: str, right):
+    def _retrying_expand_probe(self, build, lkey, outs, kind: str, right, call, verify=()):
         """The expansion probe of one batch, retried at a doubled output
         capacity on ``CapacityOverflow``: probing is stateless per batch,
         so only the batch that overflowed probes again, and the raised
@@ -389,11 +555,12 @@ class LocalExecutor:
         the first probe batch, ``batch_capacity(max(its capacity, build
         rows, 1024))``; at most ``MAX_RETRIES`` capacities a batch. One
         operator per capacity (each counts its strategy once), as in the
-        JAX package."""
+        JAX package. ``call(op, batch, *args)`` probes (a FULL join's
+        flags pass through ``args``)."""
         right_rows = sum(live_count(b) for b in right)
         state = {"cap": None, "ops": {}}
 
-        def probe(b: Batch) -> Batch:
+        def probe(b: Batch, *args):
             if state["cap"] is None:
                 state["cap"] = batch_capacity(max(b.capacity, right_rows, 1024))
             for _ in range(MAX_RETRIES):
@@ -401,31 +568,82 @@ class LocalExecutor:
                 op = state["ops"].get(c)
                 if op is None:
                     op = LookupJoinOperator(build, lkey, outs, kind, unique=False,
-                                            out_capacity=c)
+                                            out_capacity=c, verify=verify)
                     state["ops"][c] = op
                 try:
-                    return op.process(b)[0]
+                    return call(op, b, *args)
                 except CapacityOverflow:
                     state["cap"] = c * 2
             raise CapacityOverflow("Join", state["cap"])
 
         return probe
 
+    def _exec_full_join(self, node: N.Join, left, build, lkey, outs, right, verify):
+        """FULL OUTER: probe with LEFT semantics while accumulating the
+        matched-build flags, then emit the never-matched build rows with
+        NULL probe columns as a tail batch. The flags live in the stream,
+        so a replay restarts them; an expansion retry probes again from
+        the flags before the failed attempt."""
+        if node.unique:
+            uop = LookupJoinOperator(build, lkey, outs, "full", verify=verify)
+
+            def probe_once(b, flags):
+                return uop.process_full(b, flags)
+        else:
+            if verify:
+                raise NotSupported("wide string join keys require a unique build side")
+            probe_once = self._retrying_expand_probe(
+                build, lkey, outs, "full", right, lambda op, b, flags: op.process_full(b, flags))
+
+        def it():
+            flags = full_init_flags(build)
+            schema = None
+            for b in left:
+                out, flags = probe_once(b, flags)
+                schema = b
+                yield out
+            if schema is None:
+                schema = self._schema_batch(node.left)
+            yield full_tail(build, outs, flags, schema)
+
+        return BatchStream(it)
+
+    def _schema_batch(self, plan: N.PlanNode) -> Batch:
+        """A one-row, all-dead batch of a plan node's fields: the probe
+        schema of a FULL join's tail when the probe stream yields no
+        batch (every value is NULL, so no dictionary is needed)."""
+        dev = self.device
+        cols = {}
+        for f in plan.fields:
+            shape, dt = (((1, f.dtype.width), torch.uint8) if f.dtype.kind is TypeKind.BYTES
+                         else ((1,), f.dtype.torch_dtype))
+            cols[f.name] = Column(torch.zeros(shape, dtype=dt, device=dev),
+                                  torch.zeros(1, dtype=torch.bool, device=dev), f.dtype)
+        return Batch(cols, torch.zeros(1, dtype=torch.bool, device=dev))
+
     def _exec_semijoin(self, node: N.SemiJoin, scalars):
         """Semi (``IN`` / ``EXISTS``) or anti (negated) join, resident:
         the membership probes prefer the fused exists bitmask
         (duplicate-safe), then the dense table when stats allow, else
         the sorted keys; under ``approx_join`` a semi join whose exact
-        table does not fit probes the Bloom sketch."""
+        table does not fit probes the Bloom sketch. A semi join registers
+        a runtime filter like an inner join."""
+        fslot = self._register_join_filter(node)
         left = self._exec(node.left, scalars)
         right = self._exec(node.right, scalars).materialize()
         jt = "anti" if node.negated else "semi"
-        lkey, rkey = self._join_keys(node, left, right, scalars)
+        lkey, rkey, verify = self._join_keys(node, left, right, scalars)
+        if verify:
+            # an existence probe has no build row to verify against; a
+            # hash collision could flip membership
+            raise NotSupported("wide string semi-join keys")
         iv = build_key_interval(node, self.catalog)
         spec = self._pallas_spec(iv, (), {}, True, jt)
         build = JoinBuildOperator(rkey, dense_domain=self._dense_domain(iv, right),
-                                  pallas=spec)
+                                  pallas=spec,
+                                  filter_bits=self._filter_bits(node.right) if fslot else 0)
         Pipeline(BatchStream.of(right), [build]).run()
+        self._fill_join_filter(fslot, build)
         if spec is not None and spec.mode == "sketch" and build.pallas_side is not None:
             # the sketch was published: eligible probe batches ride it,
             # so the result may carry false-positive rows — flagged

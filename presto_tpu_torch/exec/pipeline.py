@@ -108,6 +108,11 @@ class BatchStream:
     def map(self, fn: Callable[[Batch], Batch]) -> "BatchStream":
         return BatchStream(lambda: (fn(b) for b in self))
 
+    def peek(self) -> "Batch | None":
+        """The first batch, or None when empty (replays the stream's
+        first batch)."""
+        return next(iter(self), None)
+
     def materialize(self) -> list[Batch]:
         return list(self)
 

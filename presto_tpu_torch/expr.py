@@ -21,8 +21,12 @@ BYTES value); the Kleene ``and``, ``or`` and ``not``; ``is_null`` and
 ``month`` and ``day`` of a DATE; and the string functions ``like`` and
 ``starts_with`` (BYTES through the kernels of ``ops/cuda_strings``,
 dictionary VARCHAR through a host regex over the dictionary and a gather
-by code) and the static ``substr_<start>_<length>`` over BYTES. A call
-to any other function raises ``NotSupported`` naming it.
+by code) and the static ``substr_<start>_<length>`` over BYTES; and the join-key
+normalizers ``dict_bytes`` (dictionary VARCHAR to fixed-width BYTES),
+``bytes_pack`` (BYTES of at most 7 bytes to an exact int64),
+``bytes_hash`` and ``hash63_mix`` (63-bit FNV folds whose candidates the
+join verifies by value). A call to any other function raises
+``NotSupported`` naming it.
 """
 
 from __future__ import annotations
@@ -679,6 +683,70 @@ def substr_fn(start: int, length: int) -> str:
             return ops_strings.substr(args[0].data, _s, _l), None
 
     return name
+
+
+# ---- join-key normalization ------------------------------------------------
+
+_I64_MAX = torch.iinfo(torch.int64).max
+
+
+def _t_dict_bytes(_args):
+    raise NotSupported("dict_bytes width is planner-assigned (construct the Call with "
+                       "an explicit fixed_bytes dtype)")
+
+
+@register("dict_bytes", _t_dict_bytes)
+def _dict_bytes(args: list[Val], out: DataType):
+    """Dictionary VARCHAR -> fixed-width BYTES through the dictionary's
+    decode table: the join planner compares keys of DIFFERENT
+    dictionaries by value (codes are comparable within one only)."""
+    a = args[0]
+    if a.dictionary is None:
+        raise NotSupported("dict_bytes on dictionary-less VARCHAR")
+    mat = torch.from_numpy(a.dictionary.bytes_matrix(out.width)).to(a.data.device)
+    codes = torch.clamp(a.data.to(torch.int64), 0, len(a.dictionary) - 1)
+    return mat[codes], None
+
+
+@register("bytes_pack", lambda args: BIGINT)
+def _bytes_pack(args: list[Val], out: DataType):
+    """BYTES(w <= 7) -> the exact big-endian int64 (order-preserving,
+    non-negative, below 2^56), over space-normalized padding (PAD SPACE)."""
+    d = _pad_space(args[0].data).to(torch.int64)
+    h = torch.zeros(d.shape[0], dtype=torch.int64, device=d.device)
+    for i in range(d.shape[1]):
+        h = h * 256 + d[:, i]
+    return h, None
+
+
+def _fnv63_fold(columns) -> torch.Tensor:
+    """Order-sensitive FNV fold of int64 columns into [0, 2^63) that
+    never yields the int64-max lookup sentinel (a hash there would drop
+    its row from the sorted lookup source). The int64 products wrap, on
+    the CPU and the card alike, as the JAX package's do."""
+    h = columns[0].to(torch.int64)
+    for c in columns[1:]:
+        h = h * 1099511628211 + c.to(torch.int64)
+    h = h & _I64_MAX
+    return torch.where(h == _I64_MAX, torch.zeros_like(h), h)
+
+
+@register("bytes_hash", lambda args: BIGINT)
+def _bytes_hash(args: list[Val], out: DataType):
+    """BYTES(w > 7) -> a 63-bit FNV fold over space-normalized padding.
+    Not injective: the join verifies candidates on the original bytes."""
+    d = _pad_space(args[0].data).to(torch.int64)
+    cols = [torch.zeros(d.shape[0], dtype=torch.int64, device=d.device)]
+    cols += [d[:, i] for i in range(d.shape[1])]
+    return _fnv63_fold(cols), None
+
+
+@register("hash63_mix", lambda args: BIGINT)
+def _hash63_mix(args: list[Val], out: DataType):
+    """The 63-bit FNV mix of N integer key columns: the multi-key join
+    fallback when packed widths exceed 63 bits or a key is negative. Not
+    injective: the join verifies candidates on the key pairs."""
+    return _fnv63_fold([a.data for a in args]), None
 
 
 #: functions whose VARCHAR arguments stay raw strings (patterns, needles)

@@ -10,8 +10,11 @@ duplicates allowed, and the expansion probe (``probe_expand``) emits one
 output row per matching (probe, build) pair for duplicate build keys,
 into a static output capacity with an overflow flag. Dead build slots
 carry the int64 maximum as a sentinel, so a LIVE key equal to it is
-flagged (``sentinel_hit``) and the join build refuses it. The packed
-single-gather build is not ported yet.
+flagged (``sentinel_hit``) and the join build refuses it. Where the
+planner proves a non-negative key under 2^(62 - pack_bits), the build
+sorts ``(key << pack_bits) | row`` as one int64 (``pack_bits``) and the
+unique probe reads key and row with one gather; a live key outside that
+range sets ``sentinel_hit`` instead of mispacking.
 """
 
 from __future__ import annotations
@@ -30,14 +33,35 @@ class BuildSide(NamedTuple):
 
     sorted_keys: torch.Tensor  # [build_cap] int64, dead slots = I64_MAX
     row_idx: torch.Tensor  # [build_cap] original row index (cap = dead)
-    sentinel_hit: torch.Tensor  # 0-d bool: a LIVE key equals I64_MAX
+    #: 0-d bool: a LIVE key equals I64_MAX, or (packed) lies outside
+    #: [0, 2^(62 - pack_bits))
+    sentinel_hit: torch.Tensor
+    #: [build_cap] int64 (key << pack_bits) | row, key-sorted, dead =
+    #: I64_MAX; present only on a packed build
+    packed: torch.Tensor | None = None
 
 
-def build_lookup(keys: torch.Tensor, live: torch.Tensor, build_capacity: int) -> BuildSide:
+def build_lookup(keys: torch.Tensor, live: torch.Tensor, build_capacity: int,
+                 pack_bits: int | None = None) -> BuildSide:
     """Compact live rows and sort them by key (stable) into
-    ``build_capacity`` >= len(keys) slots."""
+    ``build_capacity`` >= len(keys) slots. ``pack_bits``: the caller
+    proves 0 <= key < 2^(62 - pack_bits) and capacity <= 2^pack_bits,
+    so rows sort as ONE packed int64 (ties by row, as the stable sort);
+    a live key outside the range sets ``sentinel_hit``."""
     cap = keys.shape[0]
     k0 = keys.to(torch.int64)
+    if pack_bits is not None:
+        bad = (k0 < 0) | (k0 >= (1 << (62 - pack_bits)))
+        sentinel_hit = (live & bad).any()
+        rows = torch.arange(cap, dtype=torch.int64, device=keys.device)
+        packed = torch.where(live & ~bad, (k0 << pack_bits) | rows,
+                             torch.full_like(k0, I64_MAX))
+        sp = gather_padded(torch.sort(packed).values,
+                           torch.arange(build_capacity, device=keys.device), I64_MAX)
+        dead = sp == I64_MAX
+        sorted_keys = torch.where(dead, sp, sp >> pack_bits)
+        row_idx = torch.where(dead, torch.full_like(sp, cap), sp & ((1 << pack_bits) - 1))
+        return BuildSide(sorted_keys, row_idx, sentinel_hit, sp)
     sentinel_hit = (live & (k0 == I64_MAX)).any()
     k = torch.where(live, k0, torch.full_like(k0, I64_MAX))
     order = stable_argsort(k)
@@ -54,10 +78,20 @@ class UniqueProbe(NamedTuple):
 
 
 def probe_unique(build: BuildSide, probe_keys: torch.Tensor,
-                 probe_live: torch.Tensor) -> UniqueProbe:
+                 probe_live: torch.Tensor, pack_bits: int | None = None) -> UniqueProbe:
     """FK->PK probe: each probe row matches at most one build row; the
-    output is aligned with the probe batch (no expansion)."""
+    output is aligned with the probe batch (no expansion). With a packed
+    build (``pack_bits``) key check and row fetch ride one gather."""
     pk = probe_keys.to(torch.int64)
+    if pack_bits is not None and build.packed is not None:
+        in_range = (pk >= 0) & (pk < (1 << (62 - pack_bits)))
+        # an out-of-range key cannot match: shift a harmless 0 instead
+        target = torch.where(in_range, pk, torch.zeros_like(pk)) << pack_bits
+        hit = gather_padded(build.packed, torch.searchsorted(build.packed, target), I64_MAX)
+        matched = (((hit >> pack_bits) == pk) & probe_live & (hit != I64_MAX) & in_range)
+        row = hit & ((1 << pack_bits) - 1)
+        miss = build.row_idx.shape[0]
+        return UniqueProbe(torch.where(matched, row, torch.full_like(row, miss)), matched)
     pos = torch.searchsorted(build.sorted_keys, pk)
     hit = gather_padded(build.sorted_keys, pos, I64_MAX)
     matched = (hit == pk) & probe_live & (pk != I64_MAX)

@@ -239,19 +239,29 @@ class Output(PlanNode):
 
 
 def plan_tree_str(node: PlanNode, indent: int = 0, catalog=None,
-                  approx_join: bool = False) -> str:
+                  approx_join: bool = False, _filters=None) -> str:
     """EXPLAIN-style rendering. With a ``catalog``, joins and semi joins
     render the stats-planned probe strategy
-    (``strategy=pallas|dense|unique|expand``) and aggregates the planned
-    aggregation strategy (``agg_strategy=fused|bypass|partial|single``),
-    as the JAX package does. With ``approx_join`` (the session property),
-    semi joins that would probe the Bloom sketch render
-    ``strategy=sketch(approx)``: the approximate mode is never silent."""
+    (``strategy=pallas|dense|unique|expand``), aggregates the planned
+    aggregation strategy (``agg_strategy=fused|bypass|partial|single``)
+    and probe-side scans the runtime join filters pushed into them
+    (``runtime_filter=['l_orderkey']``), as the JAX package does. With
+    ``approx_join`` (the session property), semi joins that would probe
+    the Bloom sketch render ``strategy=sketch(approx)``: the approximate
+    mode is never silent."""
+    if _filters is None and catalog is not None:
+        from presto_tpu_torch.plan.joinfilters import filter_edges
+
+        _filters = {}
+        for _join, scan, col in filter_edges(node):
+            _filters.setdefault(id(scan), []).append(col)
     pad = "  " * indent
     detail = ""
     if isinstance(node, TableScan):
+        rf = (_filters or {}).get(id(node))
         detail = (f" {node.table}{' [pred]' if node.predicate is not None else ''}"
-                  f" -> {[c for c, _ in node.columns]}")
+                  f" -> {[c for c, _ in node.columns]}"
+                  + (f" runtime_filter={rf}" if rf else ""))
     elif isinstance(node, Aggregate):
         detail = f" keys={[n for n, _ in node.keys]} aggs={[a.name for a in node.aggs]}"
         if catalog is not None:
@@ -275,5 +285,6 @@ def plan_tree_str(node: PlanNode, indent: int = 0, catalog=None,
         detail = f" {[n for n, _ in node.exprs]}"
     out = f"{pad}{type(node).__name__}{detail}\n"
     for c in node.children:
-        out += plan_tree_str(c, indent + 1, catalog=catalog, approx_join=approx_join)
+        out += plan_tree_str(c, indent + 1, catalog=catalog, approx_join=approx_join,
+                             _filters=_filters)
     return out

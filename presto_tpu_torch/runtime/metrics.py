@@ -6,8 +6,11 @@ one ``Counter`` keyed by the JAX package's metric names
 ``join.pallas_fallback``, ``agg.strategy.{fused,single,bypass,partial}``,
 ``exec.leaf_fused_route``, ``exec.leaf_route_fallback`` and its
 per-reason ``exec.leaf_route_fallback.<reason>``,
-``exec.q1_fused_route``, ``exec.q1_route_fallback``), so a run can show
-which route each operator took. Readers reset it themselves.
+``exec.q1_fused_route``, ``exec.q1_route_fallback``, and the runtime
+join filters' ``join.filter_rows_in`` / ``join.filter_rows_pruned``,
+added once per query), so a run can show which route each operator took.
+A FULL OUTER probe counts no strategy, as in the JAX package. Readers
+reset it themselves.
 
 A two-key join counts as ``join.strategy.unique`` (its packed build takes
 the sorted probe), as in the JAX package. String predicates take no

@@ -59,6 +59,15 @@ SESSION_PROPERTIES: dict[str, PropertyDef] = {
             "takes the generic operators with canonical storage; "
             "results are bit-identical either way."),
         PropertyDef(
+            "runtime_join_filters", bool, True,
+            "Runtime join filters (sideways information passing): an "
+            "inner or semi join's build side pushes its key (min, max) "
+            "and a Bloom bitmask into the probe-side scan, which clears "
+            "the live bit of rows that cannot join "
+            "(plan/joinfilters.py). Results are identical either way; "
+            "join.filter_rows_in / join.filter_rows_pruned count the "
+            "scanned and pruned rows."),
+        PropertyDef(
             "approx_join", bool, False,
             "APPROXIMATE semi joins: when the exact fused table cannot "
             "fit, probe a two-hash Bloom sketch instead (ops/cuda_join.py "

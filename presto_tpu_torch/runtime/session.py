@@ -61,7 +61,9 @@ class Session:
             # package does (process-wide)
             os.environ["PRESTO_TPU_NARROW"] = "1" if narrow else "0"
         return LocalExecutor(self.catalog, pallas_join_enabled=self.prop("pallas_join"),
-                             approx_join=self.prop("approx_join"), device=self.device)
+                             approx_join=self.prop("approx_join"),
+                             runtime_join_filters=self.prop("runtime_join_filters"),
+                             device=self.device)
 
     def sql(self, sql: str) -> QueryResult:
         """Execute one query and return its rows (``QueryResult.approximate``

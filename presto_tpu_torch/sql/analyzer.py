@@ -3,9 +3,10 @@
 Counterpart of ``presto_tpu/sql/analyzer.py`` for the SELECT shapes of
 all 22 TPC-H queries and all 15 SSB queries: ``WITH`` (each reference to
 a CTE is analyzed again, as a derived table), SELECT [DISTINCT] / FROM
-with comma joins (and explicit ``JOIN ... ON``
-and ``LEFT [OUTER] JOIN ... ON``, whose ON conjuncts over the build side
-alone filter the build) and derived
+with comma joins (and explicit ``JOIN ... ON``,
+``LEFT`` / ``RIGHT`` / ``FULL [OUTER] JOIN ... ON``, whose ON conjuncts
+over the build side alone filter the build; a RIGHT join is planned as
+the LEFT join with its sides swapped) and derived
 tables (``(SELECT ...) AS alias``) / WHERE conjuncts / GROUP BY (or
 none: one keyless aggregate row) / ORDER BY / LIMIT; [NOT] EXISTS with
 equality correlation and [NOT] IN (subquery), each planned as a
@@ -35,8 +36,7 @@ both packages build the same plan tree for the same statement.
 
 Anything else (an uncorrelated EXISTS, which the JAX package refuses
 too; ``<>`` correlation in a scalar subquery, likewise; set operations,
-in a subquery too; windows, grouping sets, RIGHT and FULL joins, the
-other casts, the rest of the scalar function library) raises
+in a subquery too; windows, grouping sets, the other casts, the rest of the scalar function library) raises
 ``NotSupported`` naming the construct. The mark join's own refusals
 (NOT EXISTS, IN or a scalar subquery under OR) are the JAX package's
 ``AnalysisError``s, word for word.
@@ -384,8 +384,7 @@ class Analyzer:
             self._add_derived(rels, binding, plan, sub_scope)
             return
         if isinstance(rel, A.Join):
-            if rel.kind not in ("inner", "cross", "left"):
-                raise _unsupported(f"{rel.kind.upper()} JOIN")
+            l0 = len(rels)
             self._flatten_from(rel.left, rels, edges, ctes, outer)
             nleft = len(rels)
             self._flatten_from(rel.right, rels, edges, ctes, outer)
@@ -402,11 +401,23 @@ class Analyzer:
                     bkeys.append(pair[1])
                 else:
                     res.append(c)
-            # the relations on a LEFT join's NULL-extended side: WHERE
-            # conjuncts over them stay post-join filters (pushed into the
-            # scan they would change the outer join's result)
-            nullable = set(range(nleft, len(rels))) if rel.kind == "left" else set()
-            edges.append(dict(kind=rel.kind, left=nleft, akeys=akeys, bkeys=bkeys,
+            kind = rel.kind
+            # the relations on an outer join's NULL-extended side(s):
+            # WHERE conjuncts over them stay post-join filters (pushed
+            # into the scan they would change the outer join's result)
+            nullable: set[int] = set()
+            if kind in ("left", "full"):
+                nullable |= set(range(nleft, len(rels)))
+            if kind in ("right", "full"):
+                nullable |= set(range(l0, nleft))
+            if kind == "right":
+                # A RIGHT JOIN B == B LEFT JOIN A: swap the key
+                # orientation (akeys are spine-side) and record a left
+                # join; the join-tree builder then makes the preserved
+                # (original right) side the spine
+                akeys, bkeys = bkeys, akeys
+                kind = "left"
+            edges.append(dict(kind=kind, left=nleft, akeys=akeys, bkeys=bkeys,
                               residual=res, nullable=nullable))
             return
         raise _unsupported(f"relation {type(rel).__name__}")

@@ -222,7 +222,8 @@ STATEMENTS = {
                            "and o_orderkey < 3000",
 }
 
-ROUTES = ("join.strategy.", "exec.pallas_join_route", "agg.strategy.", "exec.leaf_")
+ROUTES = ("join.strategy.", "exec.pallas_join_route", "agg.strategy.", "exec.leaf_",
+          "join.filter_rows_")
 
 
 @pytest.fixture(scope="module")

@@ -17,7 +17,9 @@
   oracles) against the port;
 - ``count(col)`` and other aggregates over null-extended rows, LEFT joins
   whose ON residual filters the build, WHERE filters over the
-  null-extended side, a unique LEFT join, and the joins still refused.
+  null-extended side, a unique LEFT join, RIGHT and FULL joins (Q15's
+  among them) equal to the reference, and Q17's ``<>`` correlation
+  refused by both.
 
 Exact comparisons throughout (integer and decimal data).
 """
@@ -313,7 +315,8 @@ def jax_run(conn, sql):
     df = JSession({"tpch": conn}).sql(sql)
     after = REGISTRY.snapshot()
     routes = {k: after.get(k, 0) - before.get(k, 0) for k in after
-              if k.startswith("join.strategy.") or k == "exec.pallas_join_route"}
+              if k.startswith(("join.strategy.", "join.filter_rows_"))
+              or k == "exec.pallas_join_route"}
     return df, {k: v for k, v in routes.items() if v}
 
 
@@ -321,7 +324,8 @@ def port_run(conn, sql):
     COUNTERS.clear()
     res = PSession({"tpch": conn}, device="cpu").sql(sql)
     routes = {k: v for k, v in COUNTERS.items()
-              if (k.startswith("join.strategy.") or k == "exec.pallas_join_route") and v}
+              if (k.startswith(("join.strategy.", "join.filter_rows_"))
+                  or k == "exec.pallas_join_route") and v}
     return res, routes
 
 
@@ -416,8 +420,17 @@ def test_statements_over_null_extended_rows(conns, i):
                             "and l_suppkey <> p_size"), "<> correlation in a scalar subquery"),
 ])
 def test_joins_and_queries_still_refused(conns, sql, what):
-    """FULL and RIGHT joins stay refused, also inside Q15 (whose WITH is
-    answered now), and Q17's correlated scalar stops at a ``<>``
-    correlation, naming it."""
-    with pytest.raises(NotSupported, match=what):
-        PSession({"tpch": conns[1]}, device="cpu").sql(sql)
+    """RIGHT and FULL joins, also inside Q15, equal the JAX package's
+    answers (frames, dtypes, route and filter counters); Q17's
+    correlated scalar stops at a ``<>`` correlation in both packages,
+    and the port names it."""
+    try:
+        want, want_routes = jax_run(conns[0], sql)
+    except Exception:  # noqa: BLE001 - the reference refuses: so must the port
+        with pytest.raises(NotSupported, match=what):
+            PSession({"tpch": conns[1]}, device="cpu").sql(sql)
+        assert "<>" in what
+        return
+    res, routes = port_run(conns[1], sql)
+    pd.testing.assert_frame_equal(pd.DataFrame(res.to_dict()), want, check_exact=True)
+    assert routes == want_routes

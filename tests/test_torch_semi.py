@@ -62,7 +62,7 @@ from presto_tpu_torch.ops import join as pjoin
 from presto_tpu_torch.runtime.errors import NotSupported
 from presto_tpu_torch.runtime.metrics import COUNTERS
 from presto_tpu_torch.runtime.session import Session as PSession
-from test_torch_sql import ast_shape
+from test_torch_sql import ast_shape, filter_edge
 from torch_bridge import assert_same, port_batch, port_type, to_numpy
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -88,7 +88,8 @@ SQL = {
     "q18 over 200": QUERIES["q18"].replace("> 300", "> 200"),
 }
 ROUTES = ("join.strategy.", "exec.pallas_join_route", "exec.leaf_fused_route",
-          "exec.leaf_route_fallback", "agg.strategy.", "join.pallas_fallback")
+          "exec.leaf_route_fallback", "agg.strategy.", "join.pallas_fallback",
+          "join.filter_rows_")
 
 
 def _t(a):
@@ -242,7 +243,8 @@ def _shape(node, catalog, join_strategy, agg_strategy, approx):
         f.name: None for f in dataclasses.fields(node) if f.name in ("child", "left", "right")}))
     kind = type(node).__name__
     if kind in ("Join", "SemiJoin"):
-        out += ("strategy", join_strategy(node, catalog, approx_join=approx))
+        out += ("strategy", join_strategy(node, catalog, approx_join=approx),
+                "filter", filter_edge(node))
     if kind == "Aggregate":
         out += ("agg_strategy", agg_strategy(node, catalog))
     return out + tuple(_shape(c, catalog, join_strategy, agg_strategy, approx)
@@ -290,14 +292,16 @@ APPROX_SQL = ("select o_orderkey, o_orderpriority from orders "
 
 def test_approximate_answer_equals_reference_and_is_flagged():
     """At sf 0.1 ``approx_join`` plans the sketch for the EXISTS (600,000
-    keys do not fit the exists table). The JAX session runs with
-    ``runtime_join_filters`` off (ROADMAP C11). Not aggregate-shaped, so
-    the leaf route's exact membership fold cannot take it."""
+    keys do not fit the exists table). Both sessions run with
+    ``runtime_join_filters`` off, so the answer is the sketch's alone
+    (the twin below runs both at their defaults). Not aggregate-shaped,
+    so the leaf route's exact membership fold cannot take it."""
     jc, pc = JConnector(sf=0.1), PConnector(sf=0.1, device="cpu")
     js = JSession({"tpch": jc}, properties={"approx_join": True, "runtime_join_filters": False,
                                             "result_cache_enabled": False})
     want, info = js.execute(APPROX_SQL)
-    ps = PSession({"tpch": pc}, properties={"approx_join": True}, device="cpu")
+    ps = PSession({"tpch": pc}, properties={"approx_join": True, "runtime_join_filters": False},
+                  device="cpu")
     assert "strategy=sketch(approx)" in ps.explain(APPROX_SQL)
     COUNTERS.clear()
     res = ps.sql(APPROX_SQL)
@@ -316,6 +320,51 @@ def test_approximate_answer_equals_reference_and_is_flagged():
     m = ((o["o_orderdate"] >= chip_smoke.days("1993-07-01"))
          & (o["o_orderdate"] < chip_smoke.days("1993-10-01"))
          & chip_smoke.np_bloom_member(build, o["o_orderkey"]))
+    np.testing.assert_array_equal(got_keys, np.sort(o["o_orderkey"][m]))
+
+
+def test_approximate_answer_with_runtime_filters_equals_reference():
+    """The twin of the test above with both sessions at their defaults:
+    the runtime join filter (on in both packages) prunes some of the
+    sketch's false positives at the ``orders`` scan, so the answer is
+    the sketch's AND the filter's, equal to the reference's and to a
+    numpy oracle of both (range, a Bloom test at the filter's bits, the
+    sketch's Bloom test); the pruned counts equal the reference's.
+    The reference runs through ``Session.sql``: its tracked ``execute``
+    materializes every node's output for its statistics, so the scan
+    drains before the build publishes the filter's products."""
+    from presto_tpu.runtime.metrics import REGISTRY as JREG
+
+    jc, pc = JConnector(sf=0.1), PConnector(sf=0.1, device="cpu")
+    js = JSession({"tpch": jc}, properties={"approx_join": True, "result_cache_enabled": False})
+    before = JREG.snapshot()
+    want = js.sql(APPROX_SQL)
+    after = JREG.snapshot()
+    want_filters = {k: int(after.get(k, 0) - before.get(k, 0)) for k in after
+                    if k.startswith("join.filter_rows_")}
+    ps = PSession({"tpch": pc}, properties={"approx_join": True}, device="cpu")
+    COUNTERS.clear()
+    res = ps.sql(APPROX_SQL)
+    assert COUNTERS["exec.pallas_join_route"] == 1 and COUNTERS["join.pallas_fallback"] == 0
+    pd.testing.assert_frame_equal(pd.DataFrame(res.to_dict()), want, check_exact=True)
+    assert res.approximate is True
+    got_filters = {k: v for k, v in COUNTERS.items() if k.startswith("join.filter_rows_")}
+    assert got_filters == want_filters and got_filters["join.filter_rows_pruned"] > 0
+    unfiltered = PSession({"tpch": pc}, properties={"approx_join": True,
+                                                    "runtime_join_filters": False},
+                          device="cpu").sql(APPROX_SQL)
+    exact = PSession({"tpch": pc}, device="cpu").sql(APPROX_SQL)
+    got_keys = res.column("o_orderkey")
+    assert set(exact.column("o_orderkey")) <= set(got_keys) <= set(unfiltered.column("o_orderkey"))
+    assert len(got_keys) < len(unfiltered.column("o_orderkey"))
+    o = pc.table_numpy("orders", ["o_orderkey", "o_orderdate"])
+    li = pc.table_numpy("lineitem", ["l_orderkey", "l_commitdate", "l_receiptdate"])
+    build = li["l_orderkey"][li["l_commitdate"] < li["l_receiptdate"]]
+    nbits = chip_smoke.plan_filter_bits(ps, APPROX_SQL)
+    m = ((o["o_orderdate"] >= chip_smoke.days("1993-07-01"))
+         & (o["o_orderdate"] < chip_smoke.days("1993-10-01"))
+         & chip_smoke.np_bloom_member(build, o["o_orderkey"])
+         & chip_smoke.np_filter_keep(build, o["o_orderkey"], nbits))
     np.testing.assert_array_equal(got_keys, np.sort(o["o_orderkey"][m]))
 
 

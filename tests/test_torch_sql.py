@@ -68,12 +68,26 @@ def test_parser_builds_the_same_ast(i):
     assert ast_shape(pparse(STATEMENTS[i])) == ast_shape(jparse(STATEMENTS[i]))
 
 
+def filter_edge(node):
+    """The runtime join filter a join or semi join pushes: (probe table,
+    scan column), by the package's own ``filter_edge_for``."""
+    if type(node).__module__.startswith("presto_tpu_torch."):
+        from presto_tpu_torch.plan.joinfilters import filter_edge_for
+    else:
+        from presto_tpu.plan.joinfilters import filter_edge_for
+    tgt = filter_edge_for(node)
+    return None if tgt is None else (tgt[0].table, tgt[1])
+
+
 def plan_shape(node, catalog, join_strategy, agg_strategy, value_bits):
     """Node kinds and every planning decision, recursively (the JAX
-    and port node classes share names and field names)."""
+    and port node classes share names and field names), the runtime
+    join filters' placement included."""
     out = ast_shape(dataclasses.replace(node, **{
         f.name: None for f in dataclasses.fields(node)
         if f.name in ("child", "left", "right")}))
+    if type(node).__name__ in ("Join", "SemiJoin"):
+        out += ("filter", filter_edge(node))
     if type(node).__name__ == "Join":
         out += ("strategy", join_strategy(node, catalog))
     if type(node).__name__ == "Aggregate":

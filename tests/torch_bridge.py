@@ -59,9 +59,10 @@ def assert_same(got, want, what: str = "") -> None:
     np.testing.assert_array_equal(g, w, err_msg=what)
 
 
-#: the route counters the SQL differential tests compare
+#: the route counters the SQL differential tests compare; the runtime
+#: join filters' scanned and pruned row counts among them
 ROUTES = ("join.strategy.", "exec.pallas_join_route", "join.pallas_fallback", "agg.strategy.",
-          "exec.leaf_", "exec.q1_")
+          "exec.leaf_", "exec.q1_", "join.filter_rows_")
 
 
 def jax_run(conn, sql, key="tpch"):
