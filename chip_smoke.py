@@ -153,7 +153,22 @@ one CUDA card, and exits nonzero on any failure. Phases:
    Bloom bits, with the walls of a first and a second run, the device
    busy time of a third and its five largest device ops, and the
    launches per kernel; Q9's and Q21's filter counters likewise; every
-   exists and payload launch shape held to the plain version.
+   exists and payload launch shape held to the plain version;
+14. the first half of the SQL surface at SF1 through ``Session.sql``
+   (``SURFACE_SQL``): plain LIMIT twice (the first rows in split order),
+   a SELECT without FROM, UNION ALL across two dictionaries, UNION
+   DISTINCT, INTERSECT and EXCEPT, IN over a UNION build, the math
+   functions with ``stddev`` / ``variance`` grouped, the string
+   functions over BYTES (and a LIKE over ``||``, the LIKE kernel once
+   per ``customer`` split) and over dictionary VARCHAR, the date
+   functions over the orders-lineitem join and the casts under a LIMIT,
+   each equal to a numpy recomputation (DOUBLE columns within
+   ``DOUBLE_TOL``) and to the strategy counters its plan predicts, with
+   the walls of a first and a second run, the device busy time of a
+   third and its five largest device ops, and the launches per kernel;
+   the first lane-sums, leaf, LIKE, exists and payload call of each
+   launch shape held to the plain version; the share of the phase's
+   device busy time that the set operations' ``index_add_`` folds take.
 
 Phase 5 also times the prefix kernel at the first ``part`` split of the
 ``starts_with`` pipeline and over SF1 ``o_comment`` with
@@ -1367,13 +1382,13 @@ def time_leaf(spec, b, flush) -> dict:
             "instance": cuda_agg.instance(spec, [b[c].data for c in spec.cols], b.live)}
 
 
-def wall_breakdown(session, conn, sql: str):
-    """(device busy ms, connector-scan s, top device ops) of one more run
-    of ``sql``: the device time of every kernel and copy in the
-    profiler's CUDA trace, the host time spent inside ``conn.scan``
-    (generation, narrowing and the copy to the card; the scans run on the
-    prefetch thread, so they overlap the rest), and the five device ops
-    with the most of that time, as (name, ms, calls)."""
+def device_ops(session, conn, sql: str):
+    """(device busy ms, connector-scan s, device ops) of one more run of
+    ``sql``: the device time of every kernel and copy in the profiler's
+    CUDA trace, the host time spent inside ``conn.scan`` (generation,
+    narrowing and the copy to the card; the scans run on the prefetch
+    thread, so they overlap the rest), and every device op with its time,
+    as (name, ms, calls), the most time first."""
     from torch.profiler import ProfilerActivity, profile
 
     scan_s = [0.0]
@@ -1396,8 +1411,14 @@ def wall_breakdown(session, conn, sql: str):
     ops = [e for e in prof.key_averages() if e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in ops)
     ops.sort(key=lambda e: -e.self_device_time_total)
-    top = [(e.key[:60], e.self_device_time_total / 1e3, e.count) for e in ops[:5]]
-    return busy_us / 1e3, scan_s[0], top
+    return busy_us / 1e3, scan_s[0], [(e.key[:60], e.self_device_time_total / 1e3, e.count)
+                                      for e in ops]
+
+
+def wall_breakdown(session, conn, sql: str):
+    """:func:`device_ops` with the five device ops with the most time."""
+    busy_ms, scan_s, ops = device_ops(session, conn, sql)
+    return busy_ms, scan_s, ops[:5]
 
 
 def run_join_queries(flush: torch.Tensor, sf: float = 1, device: str = "cuda") -> dict:
@@ -2853,24 +2874,33 @@ def expression_runs() -> dict:
 
 def planned_routes(session, sql: str) -> dict:
     """The strategy counters a statement's plan predicts: one
-    ``join.strategy.<s>`` per join and semi join but a FULL join
-    (``expand`` counts each output capacity its retry ladder tries, so
-    the plan gives its least) and one ``agg.strategy.<s>`` per
-    aggregate."""
+    ``join.strategy.<s>`` per join and semi join but a FULL join and a
+    membership join the fused leaf step folds (``expand`` counts each
+    output capacity its retry ladder tries, so the plan gives its least)
+    and one ``agg.strategy.<s>`` per aggregate."""
     from presto_tpu_torch.exec.leaf_route import agg_strategy_for
     from presto_tpu_torch.exec.local_planner import planned_join_strategy
     from presto_tpu_torch.plan import nodes as N
 
     out: dict = {}
+    folded: set = set()
 
     def walk(node):
         key = None
         if isinstance(node, N.Join) and node.kind == "full":
             pass  # a FULL probe counts no strategy, in either package
         elif isinstance(node, (N.Join, N.SemiJoin)):
-            key = "join.strategy." + planned_join_strategy(node, session.catalog)
+            if id(node) not in folded:
+                key = "join.strategy." + planned_join_strategy(node, session.catalog)
         elif isinstance(node, N.Aggregate):
             key = "agg.strategy." + agg_strategy_for(node, session.catalog)
+            if key == "agg.strategy.fused":
+                # the fused leaf step folds a membership join under it:
+                # that join probes nothing (its build side still runs)
+                member = node.child
+                while isinstance(member, N.Filter):
+                    member = member.child
+                folded.add(id(member))
         if key is not None:
             out[key] = out.get(key, 0) + 1
         for child in node.children:
@@ -3589,6 +3619,408 @@ def run_join_feature_queries(conn, device: str = "cuda") -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the first half of the SQL surface: LIMIT, SELECT without FROM,
+# set operations, the scalar function library, casts, stddev / variance
+# ---------------------------------------------------------------------------
+
+SURFACE_SQL = {
+    # plain LIMIT: the first rows in split order (the scan runs to its end)
+    "limit_lineitem": "select l_orderkey, l_linenumber, l_quantity from lineitem limit 10",
+    "limit_orders": ("select count(*) as n, sum(o_totalprice) as s from (select o_totalprice "
+                     "from orders where o_totalprice > 300000 limit 1000) t"),
+    "values": ("select 1 + 2 as x, 'a' as y, date '1998-12-01' - interval '90' day as d"),
+    # 'F' and 'O' in both dictionaries: one side re-encodes into the merge
+    "union_dicts": ("select f, count(*) as n from (select l_linestatus as f from lineitem "
+                    "where l_shipdate < date '1995-01-01' union all select o_orderstatus as f "
+                    "from orders) t group by f order by f"),
+    "union_distinct": ("select count(*) as n from (select o_custkey from orders union "
+                       "select c_custkey from customer) t"),
+    "intersect": ("select count(*) as n from (select c_custkey from customer where "
+                  "c_mktsegment = 'BUILDING' intersect select o_custkey from orders) t"),
+    "except": ("select count(*) as n from (select c_custkey from customer except "
+               "select o_custkey from orders) t"),
+    "in_union": ("select count(*) as n from orders where o_orderkey in (select l_orderkey "
+                 "from lineitem where l_quantity > 49 union all select l_orderkey from "
+                 "lineitem where l_discount = 0.10)"),
+    "math": ("select l_returnflag, sum(abs(l_extendedprice - 50000)) as a, stddev(l_quantity) "
+             "as s, variance(l_discount) as v, round(avg(l_tax) * 100, 2) as r, "
+             "max(mod(l_orderkey, 97)) as m, min(sign(l_quantity - 25)) as g, "
+             "sum(power(l_discount, 2)) as p from lineitem group by l_returnflag "
+             "order by l_returnflag"),
+    # count(c_custkey): count(*) beside a DISTINCT aggregate is refused by
+    # both packages
+    "bytes_strings": ("select count(c_custkey) as n, sum(length(trim(c_address))) as l, "
+                      "count(distinct substr(reverse(c_phone), 1, 4)) as d from customer "
+                      "where strpos(c_phone, '-') = 3"),
+    "concat_like": ("select count(*) as n from customer where c_name || c_phone like "
+                    "'Customer#0000001%-%'"),
+    "dict_strings": ("select replace(p_type, 'BRASS', 'B') as r, split_part(p_type, ' ', 2) as sp, "
+                     "substring(p_brand, 7, 2) as sb, length(p_container) as lc, "
+                     "regexp_like(p_type, '^(LARGE|SMALL) ') as rl, count(*) as n from part "
+                     "group by replace(p_type, 'BRASS', 'B'), split_part(p_type, ' ', 2), "
+                     "substring(p_brand, 7, 2), length(p_container), "
+                     "regexp_like(p_type, '^(LARGE|SMALL) ') order by 1, 2, 3, 4, 5"),
+    "dates": ("select extract(quarter from o_orderdate) as q, date_trunc('month', o_orderdate) "
+              "as m, count(*) as n, sum(date_diff('day', o_orderdate, l_shipdate)) as dd, "
+              "max(date_add('month', 1, o_orderdate)) as da, max(last_day_of_month(o_orderdate)) "
+              "as ld, sum(day_of_week(l_shipdate)) as dw from orders, lineitem "
+              "where o_orderkey = l_orderkey group by extract(quarter from o_orderdate), "
+              "date_trunc('month', o_orderdate) order by 1, 2"),
+    # cast(cast(o_orderdate as varchar) as date) is refused by both packages
+    # (a BYTES value does not cast to DATE): the string cast is of a literal
+    "casts": ("select cast(o_orderkey as varchar) as a, cast(o_orderdate as varchar) as b, "
+              "cast(o_totalprice as varchar) as c, cast(o_orderdate as timestamp) as t, "
+              "hour(cast(o_orderdate as timestamp)) as h, "
+              "date_diff('day', cast('1995-03-15' as date), o_orderdate) as dd "
+              "from orders limit 20"),
+}
+
+#: the statements whose plans hold a set operation's Aggregate (the sort
+#: strategy's fold is where their device time goes)
+SET_OPERATIONS = ("union_distinct", "intersect", "except")
+
+#: DOUBLE results against a float64 numpy oracle: the tolerance
+#: tests/test_tpch_sql.py holds DOUBLE aggregates to
+DOUBLE_TOL = {"rtol": 1e-3, "atol": 0.02}
+DOUBLE_COLUMNS = {"math": ("s", "v", "r", "p")}
+
+
+def _decoded(conn, table: str, column: str) -> np.ndarray:
+    """A dictionary VARCHAR column of the whole table as Python strings."""
+    codes = conn.table_numpy(table, [column])[column]
+    return conn.dictionaries(table)[column].values[codes.astype(np.int64)]
+
+
+def _counts_by(rows: list) -> dict:
+    """{key: count} over hashable ``rows``, keys sorted."""
+    out: dict = {}
+    for r in rows:
+        out[r] = out.get(r, 0) + 1
+    return dict(sorted(out.items()))
+
+
+def limit_lineitem_expected(conn) -> dict:
+    li = conn.table_numpy("lineitem", ["l_orderkey", "l_linenumber", "l_quantity"])
+    return {k: li[k][:10] for k in ("l_orderkey", "l_linenumber", "l_quantity")}
+
+
+def limit_orders_expected(conn) -> dict:
+    tp = conn.table_numpy("orders", ["o_totalprice"])["o_totalprice"].astype(np.int64)
+    first = tp[tp > 300000 * 100][:1000]
+    return {"n": [len(first)], "s": [int(first.sum())]}
+
+
+def values_expected(_conn) -> dict:
+    return {"x": [3], "y": ["a"], "d": [days("1998-09-02")]}
+
+
+def union_dicts_expected(conn) -> dict:
+    ship = conn.table_numpy("lineitem", ["l_shipdate"])["l_shipdate"]
+    flags = list(_decoded(conn, "lineitem", "l_linestatus")[ship < days("1995-01-01")])
+    counts = _counts_by(flags + list(_decoded(conn, "orders", "o_orderstatus")))
+    return {"f": list(counts), "n": list(counts.values())}
+
+
+def union_distinct_expected(conn) -> dict:
+    keys = np.concatenate([conn.table_numpy("orders", ["o_custkey"])["o_custkey"],
+                           conn.table_numpy("customer", ["c_custkey"])["c_custkey"]])
+    return {"n": [len(np.unique(keys))]}
+
+
+def intersect_expected(conn) -> dict:
+    c = conn.table_numpy("customer", ["c_custkey"])["c_custkey"]
+    building = c[_decoded(conn, "customer", "c_mktsegment") == "BUILDING"]
+    o = conn.table_numpy("orders", ["o_custkey"])["o_custkey"]
+    return {"n": [len(np.intersect1d(building, o))]}
+
+
+def except_expected(conn) -> dict:
+    c = conn.table_numpy("customer", ["c_custkey"])["c_custkey"]
+    o = conn.table_numpy("orders", ["o_custkey"])["o_custkey"]
+    return {"n": [len(np.setdiff1d(c, o))]}
+
+
+def in_union_expected(conn) -> dict:
+    li = conn.table_numpy("lineitem", ["l_orderkey", "l_quantity", "l_discount"])
+    build = li["l_orderkey"][(li["l_quantity"] > 4900) | (li["l_discount"] == 10)]
+    o = conn.table_numpy("orders", ["o_orderkey"])["o_orderkey"]
+    return {"n": [int(np.isin(o, build).sum())]}
+
+
+def math_expected(conn) -> dict:
+    li = conn.table_numpy("lineitem", ["l_returnflag", "l_extendedprice", "l_quantity",
+                                       "l_discount", "l_tax", "l_orderkey"])
+    names = conn.dictionaries("lineitem")["l_returnflag"].values
+    out: dict = {k: [] for k in ("l_returnflag", "a", "s", "v", "r", "m", "g", "p")}
+    for code in np.unique(li["l_returnflag"]):
+        m = li["l_returnflag"] == code
+        q = li["l_quantity"][m].astype(np.int64)
+        disc = li["l_discount"][m].astype(np.float64) / 100
+        out["l_returnflag"].append(names[code])
+        out["a"].append(int(np.abs(li["l_extendedprice"][m].astype(np.int64) - 5_000_000).sum()))
+        out["s"].append(float(np.std(q / 100, ddof=1)))
+        out["v"].append(float(np.var(disc, ddof=1)))
+        out["r"].append(round(float(np.mean(li["l_tax"][m] / 100)) * 100, 2))
+        out["m"].append(int((li["l_orderkey"][m].astype(np.int64) % 97).max()))
+        out["g"].append(int(np.sign(q - 2500).min()))
+        out["p"].append(float((disc ** 2).sum()))
+    return out
+
+
+def bytes_strings_expected(conn) -> dict:
+    addr = _text(column_rows(conn, "customer", "c_address"))
+    phone = _text(column_rows(conn, "customer", "c_phone"))
+    keep = [i for i, p in enumerate(phone) if p.find("-") + 1 == 3]
+    return {"n": [len(keep)], "l": [sum(len(addr[i].strip(" ")) for i in keep)],
+            "d": [len({phone[i][::-1][:4] for i in keep})]}
+
+
+def concat_like_expected(conn) -> dict:
+    rx = re.compile(r"^Customer#0000001.*-.*$", re.S)
+    names = _text(column_rows(conn, "customer", "c_name"))
+    phones = _text(column_rows(conn, "customer", "c_phone"))
+    return {"n": [sum(rx.match(a + b) is not None for a, b in zip(names, phones))]}
+
+
+def dict_strings_expected(conn) -> dict:
+    ptype = _decoded(conn, "part", "p_type")
+    brand = _decoded(conn, "part", "p_brand")
+    cont = _decoded(conn, "part", "p_container")
+    rx = re.compile("^(LARGE|SMALL) ")
+
+    def split2(t):
+        parts = t.split(" ")
+        return parts[1] if len(parts) >= 2 else ""
+
+    counts = _counts_by([(t.replace("BRASS", "B"), split2(t), b[6:8], len(c),
+                          rx.search(t) is not None) for t, b, c in zip(ptype, brand, cont)])
+    keys = list(counts)
+    return {"r": [k[0] for k in keys], "sp": [k[1] for k in keys], "sb": [k[2] for k in keys],
+            "lc": [k[3] for k in keys], "rl": [int(k[4]) for k in keys],
+            "n": list(counts.values())}
+
+
+def _civil(d: np.ndarray):
+    """(month start, day of month - 1) of day numbers ``d``, as datetime64."""
+    dd = np.datetime64("1970-01-01", "D") + d.astype(np.int64)
+    month = dd.astype("datetime64[M]")
+    return month, (dd - month.astype("datetime64[D]")).astype(np.int64)
+
+
+def _day_number(dd) -> np.ndarray:
+    return (dd - np.datetime64("1970-01-01", "D")).astype(np.int64)
+
+
+def dates_expected(conn) -> dict:
+    o = conn.table_numpy("orders", ["o_orderkey", "o_orderdate"])
+    li = conn.table_numpy("lineitem", ["l_orderkey", "l_shipdate"])
+    order = np.argsort(o["o_orderkey"])
+    pos, found = _lookup(o["o_orderkey"][order], li["l_orderkey"])
+    check(bool(found.all()), "dates oracle: a lineitem without its order")
+    od = o["o_orderdate"][order][pos].astype(np.int64)
+    ship = li["l_shipdate"].astype(np.int64)
+    month, dom = _civil(od)
+    mstart = _day_number(month.astype("datetime64[D]"))
+    nxt = month + 1
+    days_in_next = _day_number((nxt + 1).astype("datetime64[D]")) - _day_number(
+        nxt.astype("datetime64[D]"))
+    added = _day_number(nxt.astype("datetime64[D]")) + np.minimum(dom, days_in_next - 1)
+    last = _day_number(nxt.astype("datetime64[D]")) - 1
+    quarter = (month.astype(np.int64) % 12) // 3 + 1
+    keys = np.stack([quarter, mstart], axis=1)
+    uniq, inv = np.unique(keys, axis=0, return_inverse=True)
+    inv = inv.ravel()
+    g = len(uniq)
+
+    def reduce(values, op, init):
+        acc = np.full(g, init, np.int64)
+        op.at(acc, inv, values)
+        return [int(v) for v in acc]
+
+    return {"q": [int(v) for v in uniq[:, 0]], "m": [int(v) for v in uniq[:, 1]],
+            "n": reduce(np.ones_like(od), np.add, 0),
+            "dd": reduce(ship - od, np.add, 0),
+            "da": reduce(added, np.maximum, np.iinfo(np.int64).min),
+            "ld": reduce(last, np.maximum, np.iinfo(np.int64).min),
+            "dw": reduce((ship + 3) % 7 + 1, np.add, 0)}
+
+
+def casts_expected(conn) -> dict:
+    o = conn.table_numpy("orders", ["o_orderkey", "o_orderdate", "o_totalprice"])
+    k = o["o_orderkey"][:20].astype(np.int64)
+    od = o["o_orderdate"][:20].astype(np.int64)
+    tp = o["o_totalprice"][:20].astype(np.int64)
+    return {"a": [str(v) for v in k],
+            "b": [str(np.datetime64("1970-01-01", "D") + v) for v in od],
+            "c": [f"{'-' if v < 0 else ''}{abs(v) // 100}.{abs(v) % 100:02d}" for v in tp],
+            "t": [int(v) * 86_400_000_000 for v in od], "h": [0] * len(od),
+            "dd": [int(v) - days("1995-03-15") for v in od]}
+
+
+def surface_runs() -> dict:
+    """Phase 14's runs: name -> (statement, numpy oracle)."""
+    return {name: (sql, globals()[f"{name}_expected"]) for name, sql in SURFACE_SQL.items()}
+
+
+def close_result(res, want: dict, what: str, doubles=()) -> None:
+    """``res`` equals ``want`` column by column: exactly, but for the
+    ``doubles`` columns, within ``DOUBLE_TOL``."""
+    check(res.names == list(want), f"{what}: columns {res.names} != {list(want)}")
+    for name, w in want.items():
+        got = res.column(name)
+        if name in doubles:
+            ok = len(got) == len(w) and np.allclose(np.asarray(got, np.float64),
+                                                    np.asarray(w, np.float64), **DOUBLE_TOL)
+        else:
+            ok = len(got) == len(w) and list(got) == list(w)
+        check(ok, f"{what}: column {name} differs:\n{list(got)[:5]}\n{list(w)[:5]}")
+
+
+@contextlib.contextmanager
+def first_kernel_calls(query: dict):
+    """While in the block, keep the first call of the lane-sums, leaf and
+    LIKE kernels' wrappers for each launch shape (the exists and payload
+    probes: :func:`each_probe_shape`): ``seen[(kernel, shape)] = {"args":
+    ..., "query": query["name"]}``. Yields ``seen``."""
+    from presto_tpu_torch.exec import leaf_route
+
+    seen: dict = {}
+    targets = {"lane_sums": (cuda_groupby, "fused_lane_sums",
+                             lambda a: (a[3].numel(), len(a[0]), len(a[2]), a[4])),
+               "leaf_agg": (leaf_route, "agg_step", lambda a: (a[1].capacity,)),
+               "like": (cuda_strings, "like_mask", lambda a: (*a[0].shape, a[1]))}
+    originals = {k: getattr(mod, attr) for k, (mod, attr, _s) in targets.items()}
+
+    def wrap(kernel, shape):
+        def call(*args):
+            seen.setdefault((kernel, shape(args)), {"args": args, "query": query["name"]})
+            return originals[kernel](*args)
+        return call
+
+    for k, (mod, attr, shape) in targets.items():
+        setattr(mod, attr, wrap(k, shape))
+    try:
+        yield seen
+    finally:
+        for k, (mod, attr, _s) in targets.items():
+            setattr(mod, attr, originals[k])
+
+
+def hold_kernel_calls(seen: dict) -> dict:
+    """Each call :func:`first_kernel_calls` kept, launched again and held
+    to its plain version. Returns the largest difference per kernel."""
+    err = {"lane_sums": 0, "leaf_agg": 0, "like": 0}
+    for (kernel, shape), t in sorted(seen.items(), key=lambda kv: str(kv[0])):
+        a = t["args"]
+        what = f"{kernel} at {t['query']}'s first {shape} call"
+        if kernel == "lane_sums":
+            d = compare(lane_dict(cuda_groupby.fused_lane_sums(*a)),
+                        lane_dict(cuda_groupby.fused_lane_sums_plain(*a)), what)
+        elif kernel == "leaf_agg":
+            d = compare(cuda_agg.agg_step(*a), cuda_agg.agg_step_plain(*a), what)
+        else:
+            d = _mask_err(cuda_strings.like_mask(*a), cuda_strings.like_mask_plain(*a), what)
+        err[kernel] = max(err[kernel], d)
+        log(f"  {what}: equal to its plain version")
+    return err
+
+
+def run_surface_queries(conn, device: str = "cuda") -> dict:
+    """Phase 14 at SF1 through Session.sql: each statement equal to its
+    numpy oracle (DOUBLE columns within ``DOUBLE_TOL``) and to the
+    strategy counters its plan predicts, with the walls of a first and a
+    second run, the device busy time of a third and its five largest
+    device ops, and the launches per kernel; every lane-sums, leaf, LIKE,
+    exists and payload launch shape held to the plain version; the share
+    of the set operations' device busy time in ``index_add_`` (the sort
+    strategy's fold)."""
+    runs = surface_runs()
+    t0 = time.perf_counter()
+    cached = ColumnCache(conn)
+    want = {name: fn(cached) for name, (_sql, fn) in runs.items()}
+    del cached
+    rows = {name: len(next(iter(w.values()))) for name, w in want.items()}
+    log(f"phase 14: numpy recomputation of {len(runs)} statements at SF{conn.sf:g} in "
+        f"{time.perf_counter() - t0:.1f} s; rows {rows}")
+    out = {"walls": {}, "launches": {}, "routes": {}, "index_add_ms": {}}
+    query = {"name": None}
+    with each_probe_shape(query) as probes, first_kernel_calls(query) as calls:
+        for name, (sql, _fn) in runs.items():
+            session = Session({"tpch": conn}, device=device)
+            predicted = planned_routes(session, sql)
+            query["name"] = name
+            try:
+                COUNTERS.clear()
+                _reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = session.sql(sql)
+                torch.cuda.synchronize()
+                first = time.perf_counter() - t0
+                n = _launch_counts()
+                route = dict(COUNTERS)
+            finally:
+                query["name"] = None
+            doubles = DOUBLE_COLUMNS.get(name, ())
+            close_result(res, want[name], f"{name} at SF{conn.sf:g}", doubles)
+            got = {k: v for k, v in route.items()
+                   if k.startswith(("join.strategy.", "agg.strategy.")) and v}
+            check(got == predicted, f"{name}: strategy counters {got}, the plan predicts "
+                  f"{predicted}")
+            check(route.get("exec.pallas_join_route", 0) == got.get("join.strategy.pallas", 0)
+                  and route.get("join.pallas_fallback", 0) == 0,
+                  f"{name}: fused-probe routes {route}")
+            check_vector_probes(name, n)
+            out["launches"][name] = n
+            out["routes"][name] = {**got, **{k: v for k, v in route.items()
+                                             if k.startswith("exec.") and v}}
+            t0 = time.perf_counter()
+            again = session.sql(sql)
+            torch.cuda.synchronize()
+            second = time.perf_counter() - t0
+            close_result(again, want[name], f"{name} at SF{conn.sf:g}, second run", doubles)
+            busy_ms, scan_s, ops = device_ops(session, conn, sql)
+            out["walls"][name] = (first, second, busy_ms, scan_s)
+            # index_add_'s CUDA kernel is indexFuncLargeIndex (or SmallIndex)
+            out["index_add_ms"][name] = sum(ms for k, ms, _c in ops if "indexFunc" in k)
+            log(f"  {name}: {len(res)} rows equal to numpy; wall first {first:.3f} s, second "
+                f"{second:.3f} s; launches { {k: v for k, v in n.items() if v} }; routes "
+                f"{out['routes'][name]} (planned {predicted})")
+            log(f"  {name} breakdown (a third, profiled run): device busy {busy_ms:.1f} ms "
+                f"({out['index_add_ms'][name]:.2f} in index_add_), connector scans "
+                f"{scan_s:.3f} s; the device ops with the most of it (ms, calls): "
+                + "; ".join(f"{k} {ms:.2f} ({c})" for k, ms, c in ops[:5]))
+    out["probes"] = probes
+    out["probe_err"] = hold_probe_shapes(probes)
+    out["calls"] = calls
+    out["call_err"] = hold_kernel_calls(calls)
+    for mode in ("exists", "payload"):
+        held = {rows for m, rows, _key in probes if m == mode}
+        ran = {rows for n in out["launches"].values() for rows in n["probe_by_shape"][mode]}
+        check(held == ran, f"phase 14's {mode} launches at rows {sorted(ran)}, held to the "
+              f"plain version at {sorted(held)}")
+    for kernel in ("lane_sums", "leaf_agg", "like"):
+        ran = sum(n[kernel] for n in out["launches"].values())
+        held = [shape for k, shape in calls if k == kernel]
+        check((ran > 0) == bool(held), f"phase 14's {kernel}: {ran} launches, shapes held "
+              f"{held}")
+    check(all(n["sketch"] == 0 and n["q1"] == 0 and n["q3"] == 0 and n["prefix"] == 0
+              for n in out["launches"].values()),
+          "phase 14 launched a kernel its plans do not route to")
+    busy = sum(w[2] for w in out["walls"].values())
+    set_busy = sum(out["walls"][k][2] for k in SET_OPERATIONS)
+    set_fold = sum(out["index_add_ms"][k] for k in SET_OPERATIONS)
+    out["set_fold"] = (set_fold, set_busy, busy)
+    log(f"  phase 14's device busy time {busy:.1f} ms; the set operations' "
+        f"({', '.join(SET_OPERATIONS)}) {set_busy:.1f} ms, of which index_add_ (the sort "
+        f"strategy's fold) {set_fold:.2f} ms = {100 * set_fold / max(busy, 1e-9):.1f} % of "
+        "the phase")
+    for k in ("lane_sums", "like", "leaf_agg", "exists", "payload"):
+        out[f"{k}_launches"] = sum(n[k] for n in out["launches"].values())
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 9: semi and anti joins, the approximate sketch, the Q3 join step
 # ---------------------------------------------------------------------------
 
@@ -4246,6 +4678,26 @@ def main() -> int:
     p13_like_by_shape = _summed(*(n["like_by_shape"] for n in feat["launches"].values()))
     log(f"  phase 13's launches of the other kernels: {p13_other}; LIKE by instance "
         f"{p13_like_by_instance}; filter counters {feat['filters']}")
+    # ---- phase 14: LIMIT, VALUES, set operations, the function library ----
+    mark("14 surface")
+    surf = run_surface_queries(string_conns["tpch"])
+    for name, (first, second, busy, scan) in surf["walls"].items():
+        log(f"  wall {name}: first {first:.3f} s, second {second:.3f} s, device busy "
+            f"{busy:.1f} ms, connector scans {scan:.3f} s")
+    p14 = probe_launch_totals(surf["launches"])
+    totals = probe_launch_totals(join["launches"], strings["launches"], semi["launches"],
+                                 outer["launches"], expr["launches"], sub["launches"],
+                                 feat["launches"], surf["launches"])
+    log(f"  exists, sketch and payload launches with phase 14: {totals}; phase 14's alone: "
+        f"{p14}")
+    p14_other = {k: sum(n[k] for n in surf["launches"].values())
+                 for k in ("q1", "lane_sums", "leaf_agg", "q3", "like", "prefix")}
+    p14_by_instance = _summed(*(n["by_instance"] for n in surf["launches"].values()))
+    p14_like_by_instance = _summed(*(n["like_by_instance"] for n in surf["launches"].values()))
+    p14_like_by_shape = _summed(*(n["like_by_shape"] for n in surf["launches"].values()))
+    log(f"  phase 14's launches of the other kernels: {p14_other}; lane-sums and leaf by "
+        f"instance {p14_by_instance}; LIKE by instance {p14_like_by_instance}; shapes held to "
+        f"plain: {sorted(str(k) for k in surf['calls'])}")
     mark("json")
     log("phase seconds: " + ", ".join(f"{a} {t1 - t0:.1f}" for (a, t0), (_b, t1)
                                       in zip(marks, marks[1:])))
@@ -4255,9 +4707,10 @@ def main() -> int:
         {"name": "q1_step", "route": "cuda", "source": "presto_tpu_torch/csrc/q1.cu",
          "replaces": "presto_tpu/ops/pallas_q1.py:114",
          "jax_function": "presto_tpu/ops/pallas_q1.py:174 q1_step",
-         "launches": q1_launches + p11_other["q1"] + p12_other["q1"] + p13_other["q1"],
+         "launches": (q1_launches + p11_other["q1"] + p12_other["q1"] + p13_other["q1"]
+                      + p14_other["q1"]),
          "phase11_launches": p11_other["q1"], "phase12_launches": p12_other["q1"],
-         "phase13_launches": p13_other["q1"],
+         "phase13_launches": p13_other["q1"], "phase14_launches": p14_other["q1"],
          "max_abs_err": q1_err, "ms": q1_ms, "kernel_ms": q1_ms,
          "call_ms": q1_call_ms,
          "plain_ms": q1_plain_ms, "bound_ms": q1_bound, "bound_by": q1_by,
@@ -4267,8 +4720,11 @@ def main() -> int:
          "replaces": "presto_tpu/ops/pallas_groupby.py:138",
          "jax_function": "presto_tpu/ops/pallas_groupby.py:177 fused_lane_sums",
          "launches": (lane_launches + outer["lane_launches"] + expr["lane_sums_launches"]
-                      + sub["lane_sums_launches"] + p13_other["lane_sums"]),
-         "phase13_launches": p13_other["lane_sums"],
+                      + sub["lane_sums_launches"] + p13_other["lane_sums"]
+                      + p14_other["lane_sums"]),
+         "phase13_launches": p13_other["lane_sums"], "phase14_launches": p14_other["lane_sums"],
+         "phase14_launches_by_instance": {k.split()[1]: c for k, c in p14_by_instance.items()
+                                          if k.startswith("lane_sums ")},
          "launches_by_instance": _summed(lane_by_instance, outer["lane_by_instance"],
                                          expr["lane_by_instance"], sub["lane_by_instance"]),
          "launches_from": "phase 4 (Q1 pipeline), phase 10 (Q13, Q5), phase 11 (the "
@@ -4278,7 +4734,8 @@ def main() -> int:
          "phase10_launches": outer["lane_launches"],
          "phase11_launches": expr["lane_sums_launches"],
          "phase11_launches_by_instance": expr["lane_by_instance"],
-         "max_abs_err": max(lane_err, ln["err"], ln_phone["err"], ln_q4["err"]),
+         "max_abs_err": max(lane_err, ln["err"], ln_phone["err"], ln_q4["err"],
+                            surf["call_err"]["lane_sums"]),
          "ms": ln["ms"], "kernel_ms": ln["ms"], "call_ms": ln["call_ms"],
          "plain_ms": ln["plain_ms"], "bound_ms": lane_bound, "bound_by": lane_by,
          "library_ms": ln["library_ms"], "rows": cap, "bytes": ln["bytes"], "ops": ln["ops"],
@@ -4298,7 +4755,9 @@ def main() -> int:
          "launches": totals["exists"]["launches"],
          "launches_by_shape": totals["exists"]["by_shape"],
          "launches_by_instance": totals["exists"]["by_instance"],
-         "launches_from": "phases 6, 8, 9, 10, 11, 12 and 13",
+         "launches_from": "phases 6, 8, 9, 10, 11, 12, 13 and 14",
+         "phase14_launches": p14["exists"]["launches"],
+         "phase14_launches_by_shape": p14["exists"]["by_shape"],
          "phase13_launches": p13["exists"]["launches"],
          "phase13_launches_by_shape": p13["exists"]["by_shape"],
          "phase11_launches": p11["exists"]["launches"],
@@ -4307,7 +4766,8 @@ def main() -> int:
          "phase12_launches_by_shape": p12["exists"]["by_shape"],
          "phase12_launches_by_instance": p12["exists"]["by_instance"],
          "max_abs_err": max([exists_err, keep_err["exists"], expr["probe_err"]["exists"],
-                             sub["probe_err"]["exists"], feat["probe_err"]["exists"]]
+                             sub["probe_err"]["exists"], feat["probe_err"]["exists"],
+                             surf["probe_err"]["exists"]]
                             + [t["err"] for t in probe_shapes["exists"].values()]),
          "ms": ex["ms"], "kernel_ms": ex["ms"], "call_ms": ex["call_ms"],
          "plain_ms": ex["plain_ms"], "bound_ms": exists_bound, "bound_by": exists_by,
@@ -4325,6 +4785,7 @@ def main() -> int:
          "phase11_launches": p11["sketch"]["launches"],
          "phase12_launches": p12["sketch"]["launches"],
          "phase13_launches": p13["sketch"]["launches"],
+         "phase14_launches": p14["sketch"]["launches"],
          "max_abs_err": max([sketch_err, keep_err["sketch"]]
                             + [t["err"] for t in probe_shapes["sketch"].values()]),
          "ms": sk["ms"], "kernel_ms": sk["ms"], "call_ms": sk["call_ms"],
@@ -4336,9 +4797,10 @@ def main() -> int:
          "source": "presto_tpu_torch/csrc/join_probe.cu",
          "replaces": "presto_tpu/ops/pallas_join.py:443",
          "jax_function": "presto_tpu/ops/pallas_join.py:464 q3_probe_step",
-         "launches": semi["q3_launches"] + p11_other["q3"] + p12_other["q3"] + p13_other["q3"],
+         "launches": (semi["q3_launches"] + p11_other["q3"] + p12_other["q3"] + p13_other["q3"]
+                      + p14_other["q3"]),
          "phase11_launches": p11_other["q3"], "phase12_launches": p12_other["q3"],
-         "phase13_launches": p13_other["q3"],
+         "phase13_launches": p13_other["q3"], "phase14_launches": p14_other["q3"],
          "max_abs_err": max(q3_kernel_err, semi["q3"]["err"]),
          "ms": q3_one["ms"], "kernel_ms": q3_one["ms"], "call_ms": q3_one["call_ms"],
          "plain_ms": q3_one["plain_ms"], "bound_ms": q3_bound, "bound_by": q3_by,
@@ -4353,7 +4815,9 @@ def main() -> int:
          "launches": totals["payload"]["launches"],
          "launches_by_shape": totals["payload"]["by_shape"],
          "launches_by_instance": totals["payload"]["by_instance"],
-         "launches_from": "phases 6, 8, 9, 10, 11, 12 and 13",
+         "launches_from": "phases 6, 8, 9, 10, 11, 12, 13 and 14",
+         "phase14_launches": p14["payload"]["launches"],
+         "phase14_launches_by_shape": p14["payload"]["by_shape"],
          "phase13_launches": p13["payload"]["launches"],
          "phase13_launches_by_shape": p13["payload"]["by_shape"],
          "phase13_launches_by_instance": p13["payload"]["by_instance"],
@@ -4364,7 +4828,8 @@ def main() -> int:
          "phase12_launches_by_shape": p12["payload"]["by_shape"],
          "phase12_launches_by_instance": p12["payload"]["by_instance"],
          "max_abs_err": max([payload_err, expr["probe_err"]["payload"],
-                             sub["probe_err"]["payload"], feat["probe_err"]["payload"]]
+                             sub["probe_err"]["payload"], feat["probe_err"]["payload"],
+                             surf["probe_err"]["payload"]]
                             + [t["err"] for t in probe_shapes["payload"].values()]),
          "ms": pay["ms"], "kernel_ms": pay["ms"], "call_ms": pay["call_ms"],
          "plain_ms": pay["plain_ms"], "bound_ms": pay["bound_ms"], "bound_by": pay["bound_by"],
@@ -4376,15 +4841,18 @@ def main() -> int:
          "replaces": "presto_tpu/ops/pallas_agg.py:180",
          "jax_function": "presto_tpu/ops/pallas_agg.py:246 _pallas_step (via agg_step :346)",
          "launches": (leaf["leaf_launches"] + p11_other["leaf_agg"] + p12_other["leaf_agg"]
-                      + p13_other["leaf_agg"]),
+                      + p13_other["leaf_agg"] + p14_other["leaf_agg"]),
          "phase11_launches": p11_other["leaf_agg"], "phase12_launches": p12_other["leaf_agg"],
-         "phase13_launches": p13_other["leaf_agg"],
+         "phase13_launches": p13_other["leaf_agg"], "phase14_launches": p14_other["leaf_agg"],
+         "phase14_launches_by_instance": {k.split()[1]: c for k, c in p14_by_instance.items()
+                                          if k.startswith("leaf_agg ")},
          "phase12_launches_by_instance": sub["leaf_by_instance"],
          "launches_from": "phase 7 (Q6, SSB Q1.1-1.3), phase 11 and phase 12 (none at SF1: "
                           "Q15's revenue view is not fused there)",
          "launches_by_shape": leaf["by_shape"],
          "launches_by_instance": leaf["by_instance"],
-         "max_abs_err": max(leaf_err, sp["err"], sm_["err"], res_["err"]),
+         "max_abs_err": max(leaf_err, sp["err"], sm_["err"], res_["err"],
+                            surf["call_err"]["leaf_agg"]),
          "ms": sp["ms"], "kernel_ms": sp["ms"], "call_ms": sp["call_ms"],
          "plain_ms": sp["plain_ms"], "bound_ms": leaf_bound, "bound_by": leaf_by,
          "library_ms": sp["library_ms"], "rows": sp["rows"], "bytes": sp["bytes"],
@@ -4398,11 +4866,13 @@ def main() -> int:
          "replaces": "presto_tpu/ops/pallas_strings.py:118",
          "jax_function": "presto_tpu/ops/pallas_strings.py:190 like_mask_pallas",
          "launches": (strings["like_launches"] + outer["like_launches"] + expr["like_launches"]
-                      + sub["like_launches"] + p13_other["like"]),
+                      + sub["like_launches"] + p13_other["like"] + p14_other["like"]),
          "launches_by_instance": _summed(strings["like_by_instance"],
                                          outer["like_by_instance"], expr["like_by_instance"],
-                                         sub["like_by_instance"], p13_like_by_instance),
-         "phase13_launches": p13_other["like"],
+                                         sub["like_by_instance"], p13_like_by_instance,
+                                         p14_like_by_instance),
+         "phase13_launches": p13_other["like"], "phase14_launches": p14_other["like"],
+         "phase14_launches_by_instance": p14_like_by_instance,
          "phase13_launches_by_instance": p13_like_by_instance,
          "launches_from": "phase 8 (LIKE queries), phase 10 (Q13, Q5), phase 11 (Q16) and "
                           "phase 12 (Q20's p_name like 'forest%')",
@@ -4412,8 +4882,8 @@ def main() -> int:
          "phase12_launches_by_instance": sub["like_by_instance"],
          "launches_by_shape": _summed(strings["like_by_shape"], outer["like_by_shape"],
                                       expr["like_by_shape"], sub["like_by_shape"],
-                                      p13_like_by_shape),
-         "max_abs_err": max([like_err, sub["like_err"]]
+                                      p13_like_by_shape, p14_like_by_shape),
+         "max_abs_err": max([like_err, sub["like_err"], surf["call_err"]["like"]]
                             + [t["err"] for t in like_shapes.values()]),
          "ms": lk["ms"], "kernel_ms": lk["ms"], "call_ms": lk["call_ms"],
          "plain_ms": lk["plain_ms"], "bound_ms": like_bound, "bound_by": like_by,
@@ -4425,9 +4895,9 @@ def main() -> int:
          "replaces": "presto_tpu/ops/pallas_strings.py:246",
          "jax_function": "presto_tpu/ops/pallas_strings.py:251 starts_with_pallas",
          "launches": (strings["prefix_launches"] + p11_other["prefix"] + p12_other["prefix"]
-                      + p13_other["prefix"]),
+                      + p13_other["prefix"] + p14_other["prefix"]),
          "phase11_launches": p11_other["prefix"], "phase12_launches": p12_other["prefix"],
-         "phase13_launches": p13_other["prefix"],
+         "phase13_launches": p13_other["prefix"], "phase14_launches": p14_other["prefix"],
          "launches_from": "phase 8 (the starts_with pipeline); phase 12's like 'forest%' "
                           "runs the LIKE kernel, as in the JAX package",
          "launches_by_instance": strings["prefix_by_instance"],

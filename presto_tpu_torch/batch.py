@@ -256,7 +256,8 @@ def decode_values(data: np.ndarray, valid: np.ndarray | None, dtype: DataType,
     ``batch.decode_values``: VARCHAR codes decode through the dictionary,
     BYTES strip their zero padding (latin-1), narrowed storage widens to
     the canonical dtype, and with ``logical`` DECIMAL becomes float64 /
-    10^scale and DATE ``datetime64[D]``. NULL slots become None."""
+    10^scale, DATE ``datetime64[D]`` and TIMESTAMP ``datetime64[us]``.
+    NULL slots become None."""
     t = dtype
     if t.kind is TypeKind.VARCHAR and dictionary is not None:
         vals = dictionary.decode(data).astype(object)
@@ -267,6 +268,8 @@ def decode_values(data: np.ndarray, valid: np.ndarray | None, dtype: DataType,
         vals = data.astype(np.float64) / 10**t.scale
     elif t.kind is TypeKind.DATE and logical:
         vals = np.datetime64("1970-01-01", "D") + data.astype(np.int64)
+    elif t.kind is TypeKind.TIMESTAMP and logical:
+        vals = np.datetime64("1970-01-01T00:00:00", "us") + data.astype("timedelta64[us]")
     else:
         vals = data.astype(t.canonical_np_dtype) if t.is_narrowed else data
     if valid is not None and not valid.all():

@@ -41,6 +41,10 @@ package's, made from the same stats:
   (``join.filter_rows_in`` / ``join.filter_rows_pruned``, read back once
   per query);
 - capacities retry and double on ``CapacityOverflow``;
+- a Union concatenates its child streams lazily, re-encoding a VARCHAR
+  column whose children carry different dictionaries into their merge;
+  a Limit keeps the first rows in stream order (split order); a SELECT
+  without FROM reads one row of no columns (``Values``);
 - scalar subqueries: ``BindScalars`` runs each ``ScalarValue``'s subplan
   first and reads its one value on the host (``_eval_scalar``), and every
   operator below sees its expressions with the ``Unbound`` slots bound
@@ -78,12 +82,15 @@ from presto_tpu_torch.exec.operators import (
     FilterProjectOperator,
     GlobalAggregationOperator,
     HashAggregationOperator,
+    LimitOperator,
     NullGroupKeys,
     OrderByOperator,
     SortKey,
     SortStrategy,
     TopNOperator,
+    align_batch_dicts,
     concat_batches,
+    union_target_dicts,
     valid_of,
 )
 from presto_tpu_torch.exec.pipeline import BatchStream, Pipeline, prefetch_iter
@@ -668,6 +675,34 @@ class LocalExecutor:
         child = self._exec(node.child, scalars)
         op = TopNOperator(self._bound_keys(node.keys, scalars), node.count)
         return BatchStream.of(Pipeline(child, [op]).run())
+
+    def _exec_limit(self, node: N.Limit, scalars):
+        child = self._exec(node.child, scalars)
+        return BatchStream.of(Pipeline(child, [LimitOperator(node.count)]).run())
+
+    # ---- FROM-less SELECT and set operations ------------------------------
+    def _exec_values(self, node: N.Values, scalars) -> BatchStream:
+        """One live row, no columns, on the session's device."""
+        return BatchStream.of([Batch({}, torch.ones(1, dtype=torch.bool, device=self.device))])
+
+    def _exec_union(self, node: N.Union, scalars):
+        """UNION ALL: the lazy concatenation of the child streams, replayed
+        child by child. Each batch keeps its own capacity and stays a
+        batch of its own (a scalar subquery's one-row check sees each
+        term apart, as in the JAX package). A VARCHAR column whose
+        children carry different dictionaries re-encodes into their
+        merged dictionary (codes compare within one dictionary only)."""
+        children = [self._exec(c, scalars) for c in node.inputs]
+        names = node.field_names()
+        targets = union_target_dicts(names, [cs.peek() for cs in children])
+        mapping_cache: dict = {}
+
+        def make():
+            for cs in children:
+                for b in cs:
+                    yield align_batch_dicts(b.select(names), targets, mapping_cache)
+
+        return BatchStream(make)
 
     # ---- scalar subqueries ----------------------------------------------
     def _exec_bindscalars(self, node: N.BindScalars, scalars):

@@ -11,7 +11,10 @@ direct-addressed strategy (one ``fused_small_sums`` pass per batch) and
 the sort strategy with passengers (merge-by-sort into a bounded group
 state; a BYTES key groups by its 7-byte int64 chunks);
 ``GlobalAggregationOperator`` (no GROUP BY); ``OrderByOperator`` and
-``TopNOperator`` over concatenated batches (BYTES sort keys included).
+``TopNOperator`` over concatenated batches (BYTES sort keys included);
+``LimitOperator``; and the UNION helpers ``union_target_dicts`` and
+``align_batch_dicts`` (children of one column with different
+dictionaries re-encode into their merge).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Sequence
 
+import numpy as np
 import torch
 
 from presto_tpu_torch.batch import Batch, Column, Dictionary
@@ -81,6 +85,9 @@ class FilterProjectOperator(Operator):
     def __init__(self, predicate: Expr | None, projections: dict[str, Expr] | None):
         self.predicate = predicate
         self.projections = projections
+        #: one dictionary per projected VARCHAR literal, shared by every
+        #: batch (as the JAX package's traced step shares its one)
+        self._literal_dicts: dict[str, Dictionary] = {}
 
     def process(self, batch: Batch) -> list[Batch]:
         live = batch.live
@@ -96,9 +103,11 @@ class FilterProjectOperator(Operator):
                 # a projected VARCHAR literal stays host-side until here:
                 # an output column becomes a one-entry dictionary column
                 cap, dev = batch.capacity, batch.device
+                d = self._literal_dicts.get(name)
+                if d is None:
+                    d = self._literal_dicts[name] = Dictionary([v.data])
                 cols[name] = Column(torch.zeros(cap, dtype=torch.int32, device=dev),
-                                    torch.ones(cap, dtype=torch.bool, device=dev),
-                                    e.dtype, Dictionary([v.data]))
+                                    torch.ones(cap, dtype=torch.bool, device=dev), e.dtype, d)
                 continue
             cols[name] = Column(v.data, v.valid, v.dtype, v.dictionary)
         return [Batch(cols, live)]
@@ -144,6 +153,14 @@ def _phys_dtype(a: AggSpec) -> torch.dtype:
     if a.kind in ("count", "count_star"):
         return torch.int64
     return a.dtype.torch_dtype
+
+
+def _as_jnp_gather(cat: torch.Tensor) -> torch.Tensor:
+    """The JAX package gathers the sort state with ``jnp.where(ok, x, 0)``,
+    which promotes a bool column to int64: a BOOLEAN group key or
+    passenger leaves its sort-strategy aggregation as int64 0/1 there,
+    and so it does here (copied, not fixed)."""
+    return cat.to(torch.int64) if cat.dtype == torch.bool else cat
 
 
 class HashAggregationOperator(Operator):
@@ -343,10 +360,11 @@ class HashAggregationOperator(Operator):
         for n, _e in self.group_keys:
             new["keyv$" + n] = gather_padded(cat_valids[n], rep, False)
         for key, cat in cat_keys.items():
-            new[key] = gather_padded(cat, rep, 0)
+            new[key] = gather_padded(_as_jnp_gather(cat), rep, 0)
         for (n, _e), v in zip(self.passengers, pvals):
             old = state["pax$" + n]
-            new["pax$" + n] = gather_padded(torch.cat([old, v.data.to(old.dtype)]), rep, 0)
+            new["pax$" + n] = gather_padded(
+                _as_jnp_gather(torch.cat([old, v.data.to(old.dtype)])), rep, 0)
             new["paxv$" + n] = gather_padded(
                 torch.cat([state["paxv$" + n], valid_of(v.valid, batch.live)]), rep, False)
         new["present"] = torch.arange(g, device=gids.device) < ng
@@ -540,6 +558,75 @@ def concat_batches(batches: list[Batch]) -> Batch:
             torch.cat([valid_of(b[name].valid, b.live) for b in batches]),
             first[name].dtype, d)
     return Batch(cols, torch.cat([b.live for b in batches]))
+
+
+def union_target_dicts(names, sample_batches) -> dict[str, Dictionary]:
+    """Per-column target dictionaries of a UNION: where the children
+    carry different dictionaries for one column, the target is their
+    merge (sorted, as every Dictionary); one shared dictionary, or none,
+    needs no alignment. ``sample_batches`` holds one batch per child
+    (a child's stream has one dictionary per column); None (an empty
+    child) is skipped."""
+    targets: dict[str, Dictionary] = {}
+    for n in names:
+        dicts: list[Dictionary] = []
+        for b in sample_batches:
+            if b is None or n not in b:
+                continue
+            d = b[n].dictionary
+            if d is not None and all(d is not x for x in dicts):
+                dicts.append(d)
+        if len(dicts) > 1:
+            merged: list[str] = []
+            for d in dicts:
+                merged.extend(d.values.tolist())
+            targets[n] = Dictionary(merged)
+    return targets
+
+
+def align_batch_dicts(b: Batch, targets: dict, _cache: dict | None = None) -> Batch:
+    """Re-encode the dictionary columns of ``b`` into the union's target
+    dictionaries through a small code-mapping table on the device.
+    ``_cache`` (keyed by column and source dictionary) builds each
+    mapping once per stream instead of once per batch."""
+    if not targets:
+        return b
+    cols = dict(b.columns)
+    for n, target in targets.items():
+        c = cols.get(n)
+        if c is None or c.dictionary is None or c.dictionary is target:
+            continue
+        key = (n, id(c.dictionary))
+        mapping = None if _cache is None else _cache.get(key)
+        if mapping is None:
+            mapping = torch.from_numpy(np.array(
+                [target.code_of(v) for v in c.dictionary.values], dtype=np.int32)).to(b.device)
+            if _cache is not None:
+                _cache[key] = mapping
+        cols[n] = Column(mapping[c.data.to(torch.int64)], c.valid, c.dtype, target)
+    return Batch(cols, b.live)
+
+
+class LimitOperator(Operator):
+    """A row-count limit across batches: the first ``n`` live rows in
+    stream order; every batch after them is dropped (the scan is not
+    stopped early, as in the JAX package)."""
+
+    def __init__(self, n: int):
+        self.remaining = n
+
+    def process(self, batch: Batch) -> list[Batch]:
+        if self.remaining <= 0:
+            return []
+        c = int(batch.count())
+        if c <= self.remaining:
+            self.remaining -= c
+            return [batch]
+        # keep the first ``remaining`` live rows
+        k = self.remaining
+        self.remaining = 0
+        live_rank = torch.cumsum(batch.live.to(torch.int32), dim=0)
+        return [batch.with_live(batch.live & (live_rank <= k))]
 
 
 def _sorted_order(keys: Sequence[SortKey], batch: Batch) -> torch.Tensor:

@@ -8,25 +8,39 @@ valid where every argument is.
 
 Ported: ``add``, ``sub``, ``mul`` over DECIMAL and DATE; ``div`` in
 DOUBLE (float32, as in the JAX package; division by zero is NULL);
-``neg`` (on the argument's own dtype: the narrow extreme wraps);
-``cast_bigint``, ``cast_double`` and ``rescale_<s>`` (CAST to
-``decimal(p,s)``); the comparisons ``eq``, ``ne``, ``lt``, ``le``,
+``mod`` (floor modulo, a zero divisor NULL); ``neg`` (on the argument's
+own dtype: the narrow extreme wraps); ``cast_bigint``, ``cast_double``,
+``rescale_<s>`` (CAST to ``decimal(p,s)``), ``cast_timestamp``,
+``cast_varchar_<w>`` (left-aligned text, zero-padded), ``parse_date``
+and ``parse_timestamp``; the comparisons ``eq``, ``ne``, ``lt``, ``le``,
 ``gt``, ``ge``, ``between`` and ``in`` over numbers, dates, dictionary
 VARCHAR (a string literal is encoded against its peer column's
 dictionary; an absent literal matches nothing under ``eq`` and ``in``)
 and fixed-width BYTES (PAD SPACE, against a string literal or another
 BYTES value); the Kleene ``and``, ``or`` and ``not``; ``is_null`` and
 ``is_not_null``; the conditional forms ``case``, ``if`` and ``coalesce``
-(a literal beside BYTES branches becomes a space-padded row); ``year``,
-``month`` and ``day`` of a DATE; and the string functions ``like`` and
-``starts_with`` (BYTES through the kernels of ``ops/cuda_strings``,
-dictionary VARCHAR through a host regex over the dictionary and a gather
-by code) and the static ``substr_<start>_<length>`` over BYTES; and the join-key
-normalizers ``dict_bytes`` (dictionary VARCHAR to fixed-width BYTES),
-``bytes_pack`` (BYTES of at most 7 bytes to an exact int64),
-``bytes_hash`` and ``hash63_mix`` (63-bit FNV folds whose candidates the
-join verifies by value). A call to any other function raises
-``NotSupported`` naming it.
+(a literal beside BYTES branches becomes a space-padded row); the math
+family (``abs``, ``sqrt`` with NULL for a negative argument, ``floor``,
+``ceil``, ``round`` half away from zero, ``sign``, ``exp``, ``ln``,
+``log10``, ``log2``, ``power``, ``truncate``, ``greatest``, ``least``);
+the date family over DATE and TIMESTAMP (``year``, ``month``, ``day``,
+``quarter``, ``day_of_week``, ``day_of_year``, ``hour``, ``minute``,
+``second``, ``date_trunc_<unit>``, ``date_add_<unit>``,
+``date_diff_<unit>``, ``last_day_of_month``); the string family (``like``
+and ``starts_with`` on BYTES through the kernels of ``ops/cuda_strings``,
+on dictionary VARCHAR through a host regex over the dictionary and a
+gather by code; ``upper``, ``lower``, ``concat``, ``length``, ``trim``,
+``ltrim``, ``rtrim``, ``reverse``, ``strpos``, the static
+``substr_<start>_<length>`` over BYTES; ``replace``,
+``split_part_<sep>_<n>``, ``substr_dict_<start>_<length>`` and
+``regexp_like`` over dictionary VARCHAR, whose transforms derive a new
+dictionary); and the join-key normalizers ``dict_bytes`` (dictionary
+VARCHAR to fixed-width BYTES), ``bytes_pack`` (BYTES of at most 7 bytes
+to an exact int64), ``bytes_hash`` and ``hash63_mix`` (63-bit FNV folds
+whose candidates the join verifies by value). None of these reaches a
+TPU kernel in the JAX package but ``like`` and ``starts_with``: the rest
+is plain PyTorch here as it is plain jnp there. A call to any other
+function raises ``NotSupported`` naming it.
 """
 
 from __future__ import annotations
@@ -45,8 +59,10 @@ from presto_tpu_torch.runtime.errors import NotSupported
 from presto_tpu_torch.types import (
     BIGINT,
     BOOLEAN,
+    DATE,
     DOUBLE,
     INTEGER,
+    TIMESTAMP,
     DataType,
     TypeKind,
     common_super_type,
@@ -246,6 +262,10 @@ def _to_physical(v: Val, target: DataType) -> torch.Tensor:
             return _round_half_away(data.to(torch.int64),
                                     10 ** (src.scale - target.scale))
         return data.to(torch.int64) * 10**target.scale
+    if target.kind is TypeKind.TIMESTAMP:
+        if src.kind is TypeKind.DATE:
+            return data.to(torch.int64) * _MICROS_PER_DAY
+        return data.to(torch.int64)
     if target.kind in (TypeKind.BIGINT, TypeKind.INTEGER, TypeKind.DATE):
         return data.to(target.torch_dtype)
     if target.kind is TypeKind.BOOLEAN:
@@ -372,6 +392,110 @@ def _cast_bigint(args: list[Val], out: DataType):
         return torch.div(v.data.to(torch.int64), 10**v.dtype.scale,
                          rounding_mode="floor"), None
     return v.data.to(torch.int64), None
+
+
+# ---- math -----------------------------------------------------------------
+
+
+@register("mod", _t_same)
+def _mod(args: list[Val], out: DataType):
+    """Floor modulo (the divisor's sign), as the JAX package's ``%``;
+    a zero divisor gives NULL."""
+    x = _to_physical(args[0], out)
+    y = _to_physical(args[1], out)
+    bad = y == 0
+    r = torch.remainder(x, torch.where(bad, torch.ones_like(y), y))
+    return (torch.where(bad, torch.zeros_like(r), r),
+            ~bad & valid_or_all(args[0]) & valid_or_all(args[1]))
+
+
+@register("abs", _t_same)
+def _abs(args: list[Val], out: DataType):
+    return torch.abs(_to_physical(args[0], out)), None
+
+
+@register("sqrt", _t_double)
+def _sqrt(args: list[Val], out: DataType):
+    """The square root; a negative argument gives NULL, not NaN."""
+    x = _to_physical(args[0], out)
+    bad = x < 0
+    return torch.sqrt(torch.where(bad, torch.zeros_like(x), x)), ~bad & valid_or_all(args[0])
+
+
+@register("floor", _t_double)
+def _floor(args: list[Val], out: DataType):
+    return torch.floor(_to_physical(args[0], out)), None
+
+
+@register("ceil", _t_double)
+def _ceil(args: list[Val], out: DataType):
+    return torch.ceil(_to_physical(args[0], out)), None
+
+
+@register("round", _t_double)
+def _round(args: list[Val], out: DataType):
+    """SQL ROUND: half away from zero (``torch.round`` is half to even)."""
+    x = _to_physical(args[0], out)
+    return torch.sign(x) * torch.floor(torch.abs(x) + 0.5), None
+
+
+@register("sign", _t_int)
+def _sign(args: list[Val], out: DataType):
+    """-1, 0 or 1 as INTEGER for every input type, as in the JAX package."""
+    return torch.sign(args[0].data).to(torch.int32), None
+
+
+def _unary_double(name: str, f):
+    @register(name, _t_double)
+    def impl(args: list[Val], out: DataType, _f=f):
+        return _f(_to_physical(args[0], DOUBLE)), None
+
+    return impl
+
+
+# ln(0) is -Infinity and ln of a negative number NaN (IEEE)
+_unary_double("exp", torch.exp)
+_unary_double("ln", torch.log)
+_unary_double("log10", torch.log10)
+_unary_double("log2", torch.log2)
+_unary_double("truncate", torch.trunc)
+
+
+@register("power", _t_double)
+def _power(args: list[Val], out: DataType):
+    return torch.pow(_to_physical(args[0], DOUBLE), _to_physical(args[1], DOUBLE)), None
+
+
+def _check_comparable_dicts(args: list[Val], what: str) -> None:
+    if any(a.dtype.kind is TypeKind.VARCHAR and isinstance(a.data, str) for a in args):
+        raise NotImplementedError(
+            f"{what} with a string literal: the winning literal may be "
+            "absent from the column dictionary (unrepresentable result)")
+    dicts = [a.dictionary for a in args
+             if a.dtype.kind is TypeKind.VARCHAR and a.dictionary is not None]
+    if dicts and any(d is not dicts[0] for d in dicts[1:]):
+        raise NotImplementedError(
+            f"{what} across different dictionaries: codes are only "
+            "ordered within one dictionary")
+
+
+def _extreme(name: str, pick):
+    @register(name, _t_same)
+    def impl(args: list[Val], out: DataType, _name=name, _pick=pick):
+        """NULL when ANY argument is NULL."""
+        _check_comparable_dicts(args, _name)
+        data = _to_physical(args[0], out)
+        valid = valid_or_all(args[0])
+        for a in args[1:]:
+            data = _pick(data, _to_physical(a, out))
+            valid = valid & valid_or_all(a)
+        return data, valid
+
+    return impl
+
+
+_extreme("greatest", torch.maximum)
+_extreme("least", torch.minimum)
 
 
 # ---- comparisons ----------------------------------------------------------
@@ -600,10 +724,19 @@ def civil_from_days(days: torch.Tensor):
     return y, m, d
 
 
+_MICROS_PER_DAY = 86_400_000_000
+
+
 def _days_of(v: Val) -> torch.Tensor:
-    if v.dtype.kind is not TypeKind.DATE:
-        raise NotSupported(f"date fields of {v.dtype} are not ported yet")
+    """Days since the epoch of a DATE, or of a TIMESTAMP (microseconds
+    floor to days, right for instants before the epoch too)."""
+    if v.dtype.kind is TypeKind.TIMESTAMP:
+        return _floordiv(v.data.to(torch.int64), _MICROS_PER_DAY).to(torch.int32)
     return v.data
+
+
+def _time_of_day_us(v: Val) -> torch.Tensor:
+    return torch.remainder(v.data.to(torch.int64), _MICROS_PER_DAY)
 
 
 @register("year", _t_int)
@@ -619,6 +752,171 @@ def _month(args: list[Val], out: DataType):
 @register("day", _t_int)
 def _day(args: list[Val], out: DataType):
     return civil_from_days(_days_of(args[0]))[2], None
+
+
+@register("hour", _t_int)
+def _hour(args: list[Val], out: DataType):
+    return _floordiv(_time_of_day_us(args[0]), 3_600_000_000).to(torch.int32), None
+
+
+@register("minute", _t_int)
+def _minute(args: list[Val], out: DataType):
+    return torch.remainder(_floordiv(_time_of_day_us(args[0]), 60_000_000), 60).to(
+        torch.int32), None
+
+
+@register("second", _t_int)
+def _second(args: list[Val], out: DataType):
+    return torch.remainder(_floordiv(_time_of_day_us(args[0]), 1_000_000), 60).to(
+        torch.int32), None
+
+
+@register("cast_timestamp", lambda args: TIMESTAMP)
+def _cast_timestamp(args: list[Val], out: DataType):
+    return _to_physical(args[0], out), None
+
+
+def days_from_civil(y: torch.Tensor, m: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """(year, month, day) -> days since 1970-01-01: the inverse of
+    ``civil_from_days``, with floor division."""
+    y = y - (m <= 2).to(y.dtype)
+    era = _floordiv(y, 400)
+    yoe = y - era * 400
+    mp = torch.where(m > 2, m - 3, m + 9)
+    doy = _floordiv(153 * mp + 2, 5) + d - 1
+    doe = yoe * 365 + _floordiv(yoe, 4) - _floordiv(yoe, 100) + doy
+    return era * 146097 + doe - 719468
+
+
+@register("quarter", _t_int)
+def _quarter(args: list[Val], out: DataType):
+    return _floordiv(civil_from_days(_days_of(args[0]))[1] + 2, 3), None
+
+
+@register("day_of_week", _t_int)
+def _day_of_week(args: list[Val], out: DataType):
+    """ISO: Monday=1 .. Sunday=7 (1970-01-01 was a Thursday)."""
+    d = _days_of(args[0]).to(torch.int32)
+    return torch.remainder(d + 3, 7) + 1, None
+
+
+@register("day_of_year", _t_int)
+def _day_of_year(args: list[Val], out: DataType):
+    d = _days_of(args[0])
+    y = civil_from_days(d)[0]
+    one = torch.ones_like(y)
+    return (d.to(torch.int32) - days_from_civil(y, one, one) + 1).to(torch.int32), None
+
+
+def date_trunc_fn(unit: str) -> str:
+    """Register (once) and return the name of ``date_trunc(unit, x)``: a
+    DATE stays a DATE, a TIMESTAMP a TIMESTAMP."""
+    name = f"date_trunc_{unit}"
+    if name not in _REGISTRY:
+        if unit not in ("second", "minute", "hour", "day", "week", "month",
+                        "quarter", "year"):
+            raise NotImplementedError(f"date_trunc unit {unit!r}")
+
+        @register(name, _t_first)
+        def impl(args, out, _u=unit):
+            is_ts = args[0].dtype.kind is TypeKind.TIMESTAMP
+            if _u in ("hour", "minute", "second"):
+                if not is_ts:  # a DATE truncated below a day: identity
+                    return args[0].data, None
+                per = {"hour": 3_600_000_000, "minute": 60_000_000,
+                       "second": 1_000_000}[_u]
+                return args[0].data - torch.remainder(_time_of_day_us(args[0]), per), None
+            d = _days_of(args[0]).to(torch.int32)
+            if _u == "day":
+                days = d
+            elif _u == "week":  # the ISO week starts on Monday
+                days = d - torch.remainder(d + 3, 7)
+            else:
+                y, m, _day_ = civil_from_days(d)
+                one = torch.ones_like(y)
+                if _u == "month":
+                    days = days_from_civil(y, m, one)
+                elif _u == "quarter":
+                    days = days_from_civil(y, _floordiv(m - 1, 3) * 3 + 1, one)
+                else:
+                    days = days_from_civil(y, one, one)
+            if is_ts:
+                return days.to(torch.int64) * _MICROS_PER_DAY, None
+            return days, None
+
+    return name
+
+
+def _add_months(d: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """Calendar month addition, clamped to the end of the month."""
+    y, m, day = civil_from_days(d)
+    tot = y * 12 + (m - 1) + n
+    y2 = _floordiv(tot, 12)
+    m2 = torch.remainder(tot, 12) + 1
+    one = torch.ones_like(y2)
+    first = days_from_civil(y2, m2, one)
+    nxt = days_from_civil(y2 + (m2 == 12).to(y2.dtype), torch.remainder(m2, 12) + 1, one)
+    return first + torch.minimum(day, nxt - first) - 1
+
+
+def date_add_fn(unit: str) -> str:
+    """Register (once) and return the name of ``date_add(unit, n, d)``."""
+    name = f"date_add_{unit}"
+    if name not in _REGISTRY:
+        if unit not in ("day", "week", "month", "quarter", "year"):
+            raise NotImplementedError(f"date_add unit {unit!r}")
+
+        @register(name, lambda args: DATE)
+        def impl(args, out, _u=unit):
+            n = args[0].data.to(torch.int32)
+            d = args[1].data.to(torch.int32)
+            if _u == "day":
+                return d + n, None
+            if _u == "week":
+                return d + 7 * n, None
+            return _add_months(d, n * {"month": 1, "quarter": 3, "year": 12}[_u]), None
+
+    return name
+
+
+def _trunc_div(x: torch.Tensor, d: int) -> torch.Tensor:
+    """Division toward zero: SQL's date_diff counts COMPLETE units."""
+    q = _floordiv(torch.abs(x), d)
+    return torch.where(x >= 0, q, -q)
+
+
+def date_diff_fn(unit: str) -> str:
+    """Register (once) and return the name of ``date_diff(unit, a, b)``."""
+    name = f"date_diff_{unit}"
+    if name not in _REGISTRY:
+        if unit not in ("day", "week", "month", "quarter", "year"):
+            raise NotImplementedError(f"date_diff unit {unit!r}")
+
+        @register(name, _t_bigint)
+        def impl(args, out, _u=unit):
+            a = args[0].data.to(torch.int32)
+            b = args[1].data.to(torch.int32)
+            if _u == "day":
+                return (b - a).to(torch.int64), None
+            if _u == "week":
+                return _trunc_div(b - a, 7).to(torch.int64), None
+            ya, ma, da = civil_from_days(a)
+            yb, mb, db = civil_from_days(b)
+            raw = (yb * 12 + mb) - (ya * 12 + ma)
+            months = torch.where(b >= a, raw - (db < da).to(raw.dtype),
+                                 raw + (db > da).to(raw.dtype))
+            per = {"month": 1, "quarter": 3, "year": 12}[_u]
+            return _trunc_div(months, per).to(torch.int64), None
+
+    return name
+
+
+@register("last_day_of_month", lambda args: DATE)
+def _last_day_of_month(args: list[Val], out: DataType):
+    y, m, _d = civil_from_days(args[0].data.to(torch.int32))
+    nxt = days_from_civil(y + (m == 12).to(y.dtype), torch.remainder(m, 12) + 1,
+                          torch.ones_like(y))
+    return nxt - 1, None
 
 
 # ---- string predicates on dictionary / bytes columns ----------------------
@@ -681,6 +979,370 @@ def substr_fn(start: int, length: int) -> str:
             if args[0].dtype.kind is not TypeKind.BYTES:
                 raise NotSupported(f"substr over {args[0].dtype} is not ported yet")
             return ops_strings.substr(args[0].data, _s, _l), None
+
+    return name
+
+
+# ---- string functions -----------------------------------------------------
+# Dictionary VARCHAR runs through host tables over the dictionary's values
+# and one gather by code on the device (a scan over distinct values, as
+# ``like`` does); fixed-width BYTES through the [rows, width] functions of
+# ops/strings.
+
+
+@register("upper", _t_first)
+def _upper(args: list[Val], out: DataType):
+    a = args[0]
+    if a.dtype.kind is not TypeKind.BYTES and a.dictionary is not None:
+        data, nd = _dict_value_transform(a, "upper", str.upper)
+        return data, None, nd
+    d = a.data
+    return torch.where((d >= 97) & (d <= 122), d - 32, d), None
+
+
+@register("lower", _t_first)
+def _lower(args: list[Val], out: DataType):
+    a = args[0]
+    if a.dtype.kind is not TypeKind.BYTES and a.dictionary is not None:
+        data, nd = _dict_value_transform(a, "lower", str.lower)
+        return data, None, nd
+    d = a.data
+    return torch.where((d >= 65) & (d <= 90), d + 32, d), None
+
+
+@register("concat", _t_first)
+def _concat(args: list[Val], out: DataType):
+    """SQL ``||`` over BYTES and string literals: the width is the sum of
+    the parts' (the analyzer's); a BYTES part keeps its whole width,
+    its zero tail as spaces (CHAR semantics), a literal its own bytes."""
+    cap, dev = next((a.data.shape[0], a.data.device) for a in args
+                    if not isinstance(a.data, str))
+    parts = []
+    for a in args:
+        if isinstance(a.data, str):
+            raw = np.frombuffer(a.data.encode(), np.uint8).copy()
+            parts.append(torch.from_numpy(raw).to(dev).expand(cap, len(raw)))
+        else:
+            parts.append(_pad_space(a.data))
+    return torch.cat(parts, dim=1), None
+
+
+def _dict_int_table(dictionary: Dictionary, key, fn, dtype=np.int32) -> np.ndarray:
+    """A host table of ``fn`` over the dictionary's values, cached on the
+    dictionary by ``key``."""
+    cache = dictionary._bytes_mats
+    k = ("int_table", key)
+    if k not in cache:
+        cache[k] = np.fromiter((fn(v) for v in dictionary.values), dtype=dtype,
+                               count=len(dictionary))
+    return cache[k]
+
+
+def _gather_dict(a: Val, table: np.ndarray) -> torch.Tensor:
+    """``table[code]`` per row on the device (codes clamped into range,
+    as a jnp gather clamps)."""
+    t = torch.from_numpy(table).to(a.data.device)
+    return t[a.data.to(torch.int64).clamp(0, max(table.shape[0] - 1, 0))]
+
+
+def _dict_value_transform(a: Val, key, fn):
+    """A string-to-string transform of a dictionary column: the derived
+    Dictionary is built on the host once (cached on the source
+    dictionary) and the codes remap with one gather. Returns (codes,
+    derived dictionary)."""
+    cache = a.dictionary._bytes_mats
+    k = ("remap", key)
+    if k not in cache:
+        xs = [fn(v) for v in a.dictionary.values]
+        nd = Dictionary(xs)
+        cache[k] = (nd, nd.encode(xs))
+    nd, table = cache[k]
+    return _gather_dict(a, table), nd
+
+
+@register("length", _t_int)
+def _length(args: list[Val], out: DataType):
+    """BYTES: the content length after trailing spaces (fixed-width
+    storage cannot tell stored trailing spaces from padding), in int64
+    as the JAX package's row sum gives it; dictionary VARCHAR: int32."""
+    a = args[0]
+    if a.dtype.kind is TypeKind.BYTES:
+        return ops_strings.row_lengths(ops_strings.rtrim_bytes(a.data)).to(torch.int64), None
+    if a.dictionary is None:
+        raise NotImplementedError("length() on dictionary-less VARCHAR")
+    return _gather_dict(a, _dict_int_table(a.dictionary, "length", len)), None
+
+
+def _string_transform(key: str, host_fn, bytes_fn):
+    """A same-type string transform: BYTES rows through ``bytes_fn``, a
+    dictionary VARCHAR into a derived dictionary."""
+
+    @register(key, _t_first)
+    def impl(args: list[Val], out: DataType, _key=key, _h=host_fn, _b=bytes_fn):
+        a = args[0]
+        if a.dtype.kind is TypeKind.BYTES:
+            return _b(a.data), None
+        if a.dictionary is None:
+            raise NotImplementedError(f"{_key} on dictionary-less VARCHAR")
+        data, nd = _dict_value_transform(a, _key, _h)
+        return data, None, nd
+
+    return impl
+
+
+# the ASCII space only, on both representations
+_string_transform("trim", lambda s: s.strip(" "), ops_strings.trim_bytes)
+_string_transform("ltrim", lambda s: s.lstrip(" "), ops_strings.ltrim_bytes)
+_string_transform("rtrim", lambda s: s.rstrip(" "), ops_strings.rtrim_bytes)
+_string_transform("reverse", lambda s: s[::-1], ops_strings.reverse_bytes)
+
+
+@register("strpos", _t_int)
+def _strpos(args: list[Val], out: DataType):
+    """strpos(haystack, needle literal): 1-based, 0 when absent."""
+    a, b = args
+    if not isinstance(b.data, str):
+        raise NotImplementedError("strpos needle must be a literal")
+    if a.dtype.kind is TypeKind.BYTES:
+        return ops_strings.position_in(a.data, b.data), None
+    if a.dictionary is None:
+        raise NotImplementedError("strpos on dictionary-less VARCHAR")
+    t = _dict_int_table(a.dictionary, ("strpos", b.data), lambda v: v.find(b.data) + 1)
+    return _gather_dict(a, t), None
+
+
+@register("replace", _t_first)
+def _replace(args: list[Val], out: DataType):
+    """replace(col, from literal, to literal): dictionary VARCHAR only (a
+    BYTES replace would have data-dependent widths)."""
+    a, frm, to = args
+    if not (isinstance(frm.data, str) and isinstance(to.data, str)):
+        raise NotImplementedError("replace() arguments must be literals")
+    if a.dictionary is None:
+        raise NotImplementedError("replace() requires a dictionary VARCHAR")
+    data, nd = _dict_value_transform(a, ("replace", frm.data, to.data),
+                                     lambda v: v.replace(frm.data, to.data))
+    return data, None, nd
+
+
+def split_part_fn(sep: str, n: int) -> str:
+    """Register (once) and return the name of ``split_part(col, sep, n)``
+    with literal arguments: dictionary VARCHAR only."""
+    name = f"split_part_{sep!r}_{n}"
+    if name not in _REGISTRY:
+
+        @register(name, _t_first)
+        def impl(args, out, _s=sep, _n=n):
+            a = args[0]
+            if a.dictionary is None:
+                raise NotImplementedError("split_part() requires a dictionary VARCHAR")
+
+            def f(v):
+                parts = v.split(_s)
+                return parts[_n - 1] if 1 <= _n <= len(parts) else ""
+
+            data, nd = _dict_value_transform(a, ("split_part", _s, _n), f)
+            return data, None, nd
+
+    return name
+
+
+def substr_dict_fn(start: int, length: int) -> str:
+    """Register (once) and return the name of a 1-based substr over a
+    dictionary VARCHAR (a derived dictionary; a negative start counts
+    from the end)."""
+    name = f"substr_dict_{start}_{length}"
+    if name not in _REGISTRY:
+
+        @register(name, _t_first)
+        def impl(args, out, _s=start, _l=length):
+            a = args[0]
+            if a.dictionary is None:
+                raise NotImplementedError("substr on dictionary-less VARCHAR")
+
+            def f(v):
+                if _s >= 1:
+                    return v[_s - 1:_s - 1 + _l]
+                if _s < 0:
+                    b = len(v) + _s
+                    return v[b:b + _l] if b >= 0 else ""  # before the start: empty
+                return ""  # start 0 is out of range in SQL
+
+            data, nd = _dict_value_transform(a, ("substr", _s, _l), f)
+            return data, None, nd
+
+    return name
+
+
+@register("regexp_like", _t_bool)
+def _regexp_like(args: list[Val], out: DataType):
+    a, pat = args
+    if not isinstance(pat.data, str):
+        raise NotImplementedError("regexp_like pattern must be a literal")
+    if a.dictionary is None:
+        raise NotImplementedError("regexp_like requires a dictionary VARCHAR")
+    rx = re.compile(pat.data)
+    table = np.fromiter((rx.search(v) is not None for v in a.dictionary.values),
+                        dtype=np.bool_, count=len(a.dictionary))
+    return _gather_dict(a, table), None
+
+
+# ---- parses and casts to VARCHAR -------------------------------------------
+
+
+def parse_timestamp_fn() -> str:
+    """Register (once) and return the name of ``cast(varchar AS
+    timestamp)`` over a dictionary column (a host parse of ISO
+    'YYYY-MM-DD[ HH:MM:SS[.ffffff]]'; an unparsable value is NULL)."""
+    name = "parse_timestamp"
+    if name not in _REGISTRY:
+
+        @register(name, lambda args: TIMESTAMP)
+        def impl(args, out):
+            a = args[0]
+            if a.dictionary is None:
+                raise NotImplementedError("cast to timestamp on dictionary-less VARCHAR")
+            bad_v = -(2**63)
+
+            def f(v):
+                try:
+                    return int((np.datetime64(v.strip().replace(" ", "T"), "us")
+                                - np.datetime64("1970-01-01T00:00:00", "us")).astype(np.int64))
+                except ValueError:
+                    return bad_v
+
+            d = _gather_dict(a, _dict_int_table(a.dictionary, "parse_timestamp", f,
+                                                dtype=np.int64))
+            bad = d == bad_v
+            return torch.where(bad, torch.zeros_like(d), d), ~bad & valid_or_all(a)
+
+    return name
+
+
+def parse_date_fn() -> str:
+    """Register (once) and return the name of ``cast(varchar AS date)``
+    over a dictionary column (a host parse; an unparsable value is
+    NULL)."""
+    name = "parse_date"
+    if name not in _REGISTRY:
+
+        @register(name, lambda args: DATE)
+        def impl(args, out):
+            import datetime
+
+            a = args[0]
+            if a.dictionary is None:
+                raise NotImplementedError("cast to date on dictionary-less VARCHAR")
+            epoch = datetime.date(1970, 1, 1)
+
+            def f(v):
+                try:
+                    return (datetime.date.fromisoformat(v.strip()) - epoch).days
+                except ValueError:
+                    return -(2**31)  # poisoned; the validity clears it below
+
+            d = _gather_dict(a, _dict_int_table(a.dictionary, "parse_date", f))
+            bad = d == -(2**31)
+            return torch.where(bad, torch.zeros_like(d), d), ~bad & valid_or_all(a)
+
+    return name
+
+
+_POW10_I64 = np.array([10**k for k in range(19)] + [np.iinfo(np.int64).max], dtype=np.int64)
+
+
+def _render_int_bytes(v: torch.Tensor, width: int, neg=None) -> torch.Tensor:
+    """Left-aligned decimal text of int64 ``v`` in [rows, width] uint8,
+    zero-padded; ``neg`` overrides the sign (the decimal renderer needs
+    '-0.50')."""
+    neg = (v < 0) if neg is None else neg
+    a = torch.abs(v)
+    nd = torch.ones(v.shape[0], dtype=torch.int32, device=v.device)
+    for k in range(1, 19):
+        nd = nd + (a >= 10**k).to(torch.int32)
+    j = torch.arange(width, dtype=torch.int32, device=v.device)[None, :]
+    je = j - neg[:, None].to(torch.int32)  # shift past the '-' sign
+    place = nd[:, None] - 1 - je
+    pw = torch.from_numpy(_POW10_I64).to(v.device)[place.clamp(0, 19).to(torch.int64)]
+    dig = torch.remainder(_floordiv(a[:, None], pw), 10)
+    in_digits = (je >= 0) & (je < nd[:, None])
+    out = torch.where(in_digits, 48 + dig.to(torch.int32), torch.zeros_like(je))
+    out = torch.where((j == 0) & neg[:, None], torch.full_like(out, 45), out)  # '-'
+    return out.to(torch.uint8)
+
+
+def _date_text(y, m, d) -> list:
+    """The ten columns of 'yyyy-mm-dd', as int64 byte values."""
+    y, m, d = y.to(torch.int64), m.to(torch.int64), d.to(torch.int64)
+    dash = torch.full_like(y, 45)
+    return [48 + torch.remainder(_floordiv(y, 1000), 10),
+            48 + torch.remainder(_floordiv(y, 100), 10),
+            48 + torch.remainder(_floordiv(y, 10), 10), 48 + torch.remainder(y, 10), dash,
+            48 + _floordiv(m, 10), 48 + torch.remainder(m, 10), dash,
+            48 + _floordiv(d, 10), 48 + torch.remainder(d, 10)]
+
+
+def _fit_width(txt: torch.Tensor, width: int) -> torch.Tensor:
+    """Cut or zero-pad [rows, w] text to ``width`` columns."""
+    if txt.shape[1] >= width:
+        return txt[:, :width]
+    return torch.nn.functional.pad(txt, (0, width - txt.shape[1]))
+
+
+def cast_varchar_fn(width: int) -> str:
+    """Register (once) and return the name of ``cast(x AS varchar)``
+    rendered into BYTES(width): integers, DATE ('yyyy-mm-dd'), TIMESTAMP
+    ('yyyy-mm-dd hh:mm:ss'), DECIMAL, and BYTES / dictionary VARCHAR
+    passed through; left-aligned, zero-padded."""
+    name = f"cast_varchar_{width}"
+    if name not in _REGISTRY:
+
+        def rule(args, _w=width):
+            return fixed_bytes(_w)
+
+        @register(name, rule)
+        def impl(args, out, _w=width):
+            a = args[0]
+            k = a.dtype.kind
+            if k is TypeKind.BYTES:
+                return _fit_width(a.data, _w), None
+            if k is TypeKind.VARCHAR:
+                if a.dictionary is None:
+                    raise NotImplementedError("cast on dictionary-less VARCHAR")
+                return _gather_dict(a, a.dictionary.bytes_matrix(_w)), None
+            if k is TypeKind.TIMESTAMP:
+                us = torch.remainder(a.data.to(torch.int64), _MICROS_PER_DAY)
+                y, m, d = civil_from_days(
+                    _floordiv(a.data.to(torch.int64), _MICROS_PER_DAY).to(torch.int32))
+                hh = _floordiv(us, 3_600_000_000)
+                mi = torch.remainder(_floordiv(us, 60_000_000), 60)
+                ss = torch.remainder(_floordiv(us, 1_000_000), 60)
+                space, colon = torch.full_like(hh, 32), torch.full_like(hh, 58)
+                cols = _date_text(y, m, d) + [
+                    space, 48 + _floordiv(hh, 10), 48 + torch.remainder(hh, 10), colon,
+                    48 + _floordiv(mi, 10), 48 + torch.remainder(mi, 10), colon,
+                    48 + _floordiv(ss, 10), 48 + torch.remainder(ss, 10)]
+                return _fit_width(torch.stack(cols, dim=1).to(torch.uint8), _w), None
+            if k is TypeKind.DATE:
+                y, m, d = civil_from_days(a.data)
+                return _fit_width(torch.stack(_date_text(y, m, d), dim=1).to(torch.uint8),
+                                  _w), None
+            if k is TypeKind.DECIMAL and a.dtype.scale > 0:
+                sc = a.dtype.scale
+                v = a.data.to(torch.int64)
+                ip = _floordiv(torch.abs(v), 10**sc)  # the sign apart: '-0.50'
+                frac = torch.remainder(torch.abs(v), 10**sc)
+                ip_txt = _render_int_bytes(ip, _w, neg=v < 0)
+                ip_len = ops_strings.row_lengths(ip_txt)
+                j = torch.arange(_w, dtype=torch.int32, device=v.device)[None, :]
+                rel = j - ip_len[:, None]  # 0 -> '.', 1..sc -> the fraction digits
+                pw = torch.from_numpy(_POW10_I64).to(v.device)[
+                    (sc - 1 - (rel - 1)).clamp(0, 19).to(torch.int64)]
+                fd = torch.remainder(_floordiv(frac[:, None], pw), 10)
+                out_b = torch.where(rel == 0, torch.full_like(rel, 46), torch.zeros_like(rel))
+                out_b = torch.where((rel >= 1) & (rel <= sc), 48 + fd.to(torch.int32), out_b)
+                return torch.where(rel < 0, ip_txt.to(torch.int32), out_b).to(torch.uint8), None
+            return _render_int_bytes(a.data.to(torch.int64), _w), None
 
     return name
 
@@ -750,7 +1412,8 @@ def _hash63_mix(args: list[Val], out: DataType):
 
 
 #: functions whose VARCHAR arguments stay raw strings (patterns, needles)
-_RAW_STRING_ARGS = ("like", "starts_with")
+_RAW_STRING_ARGS = ("like", "starts_with", "strpos", "replace", "regexp_like",
+                    "greatest", "least")
 
 
 def _encode_string_literals(fn: str, args: list[Val]) -> list[Val]:
@@ -817,7 +1480,9 @@ def evaluate(expr: Expr, batch: Batch) -> Val:
     if isinstance(expr, Call):
         impl, _rule = _lookup(expr.fn)
         args = _encode_string_literals(expr.fn, [evaluate(a, batch) for a in expr.args])
-        data, valid = impl(args, expr.dtype)
+        # (data, valid), or (data, valid, derived dictionary) from the
+        # dictionary transforms (trim, replace, substr, ...)
+        data, valid, *derived = impl(args, expr.dtype)
         if valid is None:
             for a in args:
                 if a.valid is not None:
@@ -825,8 +1490,8 @@ def evaluate(expr: Expr, batch: Batch) -> Val:
             if valid is None:
                 valid = torch.ones(batch.capacity, dtype=torch.bool,
                                    device=batch.device)
-        dictionary = None
-        if expr.dtype.kind is TypeKind.VARCHAR:
+        dictionary = derived[0] if derived else None
+        if dictionary is None and expr.dtype.kind is TypeKind.VARCHAR:
             dictionary = next((a.dictionary for a in args
                                if a.dictionary is not None), None)
         return Val(data, valid, _sync_physical(expr.dtype, data), dictionary)

@@ -1,11 +1,13 @@
-"""String predicates over fixed-width byte tensors: the plain versions.
+"""String predicates and transforms over fixed-width byte tensors.
 
 Counterpart of ``presto_tpu/ops/strings.py``. A LIKE pattern is split
 into ordered literal segments; each segment match is a sliding-window
-byte comparison over the ``[rows, width]`` uint8 tensor. These are the
-plain PyTorch versions: ``ops/cuda_strings.py`` runs the CUDA kernels on
-the card and these on CPU tensors, and ``chip_smoke.py`` holds the
-kernels against them.
+byte comparison over the ``[rows, width]`` uint8 tensor. ``like_mask``
+and ``starts_with_mask`` are the plain PyTorch versions of two kernels:
+``ops/cuda_strings.py`` runs the CUDA kernels on the card and these on
+CPU tensors, and ``chip_smoke.py`` holds the kernels against them. The
+trims, ``reverse_bytes`` and ``position_in`` are plain PyTorch on every
+device, as the JAX package's are plain jnp.
 
 Byte layout contract: rows are zero-padded on the right; the padding byte
 0 never appears in content. The results cover every row (dead rows are
@@ -136,6 +138,48 @@ def substr(data: torch.Tensor, start: int, length: int) -> torch.Tensor:
     """1-based SQL substr with static bounds -> BYTES(length) (narrower
     when the column ends first, as in the JAX package)."""
     return data[:, start - 1: start - 1 + length]
+
+
+def rtrim_bytes(data: torch.Tensor) -> torch.Tensor:
+    """Strip trailing spaces: every byte past the last content byte (not
+    a space, not padding) becomes a pad zero."""
+    content = ((data != 0) & (data != 32)).to(torch.int32)
+    # content bytes at or after each position: > 0 up to the last one
+    rev_any = torch.flip(torch.cumsum(torch.flip(content, [1]), dim=1), [1])
+    return torch.where(rev_any > 0, data, torch.zeros_like(data))
+
+
+def ltrim_bytes(data: torch.Tensor) -> torch.Tensor:
+    """Strip leading spaces: the content shifts left, the tail pads."""
+    w = data.shape[1]
+    lead = torch.cumprod((data == 32).to(torch.int32), dim=1).sum(dim=1, keepdim=True)
+    idx = torch.arange(w, device=data.device)[None, :] + lead
+    shifted = torch.gather(data, 1, torch.clamp(idx, max=w - 1).to(torch.int64))
+    return torch.where(idx < w, shifted, torch.zeros_like(shifted))
+
+
+def trim_bytes(data: torch.Tensor) -> torch.Tensor:
+    return ltrim_bytes(rtrim_bytes(data))
+
+
+def reverse_bytes(data: torch.Tensor) -> torch.Tensor:
+    """Reverse each row's logical content; the padding stays behind it."""
+    w = data.shape[1]
+    lens = row_lengths(data)
+    idx = lens[:, None] - 1 - torch.arange(w, device=data.device, dtype=torch.int32)[None, :]
+    out = torch.gather(data, 1, torch.clamp(idx, 0, w - 1).to(torch.int64))
+    return torch.where(idx >= 0, out, torch.zeros_like(out))
+
+
+def position_in(data: torch.Tensor, needle: str) -> torch.Tensor:
+    """SQL POSITION(needle IN col): the 1-based first occurrence, 0 when
+    absent; an empty needle is at position 1. int32."""
+    n = data.shape[0]
+    if needle == "":
+        return torch.ones(n, dtype=torch.int32, device=data.device)
+    found, ok = find_from(data, encode_needle(needle),
+                          torch.zeros(n, dtype=torch.int32, device=data.device))
+    return torch.where(ok, found + 1, torch.zeros_like(found)).to(torch.int32)
 
 
 def bytes_eq_literal(data: torch.Tensor, s: str) -> torch.Tensor:

@@ -204,8 +204,10 @@ def node_intervals(node: N.PlanNode, catalog) -> dict[str, Interval]:
         env = node_intervals(children[0], catalog)
         return {f.name: env.get(f.name) for f in node.fields}
     if children:
-        # BindScalars emits its first child's fields: first child wins,
-        # so a same-named column of a scalar subplan never shadows it
+        # first child wins: BindScalars emits its first child's fields,
+        # so a same-named column of a scalar subplan never shadows it;
+        # a Union takes its first input's intervals, as in the JAX
+        # package (advisory: the kernels' runtime guards decide)
         out = {}
         for c in children:
             for n, iv in node_intervals(c, catalog).items():
@@ -286,6 +288,8 @@ def estimate_rows(node: N.PlanNode, catalog) -> int:
         return node.count
     if isinstance(node, N.Limit):
         return node.count
+    if isinstance(node, N.Union):
+        return sum(estimate_rows(c, catalog) for c in node.inputs)
     children = node.children
     if children:
         return max(estimate_rows(c, catalog) for c in children)

@@ -2,7 +2,8 @@
 
 Counterpart of ``presto_tpu/plan/nodes.py`` for the node kinds the
 ported analyzer produces: TableScan, Filter, Project, Aggregate, Join,
-SemiJoin, Sort, TopN, Limit, ScalarValue, BindScalars and Output.
+SemiJoin, Values, Union, Sort, TopN, Limit, ScalarValue, BindScalars and
+Output.
 Fields are named, typed columns; expressions are the typed IR of
 ``presto_tpu_torch.expr``. The JAX
 package's runtime join filters are not ported, so scans carry none.
@@ -140,6 +141,33 @@ class SemiJoin(PlanNode):
     @property
     def fields(self):
         return self.left.fields
+
+
+@dataclass(frozen=True)
+class Values(PlanNode):
+    """One row with no columns: the source of a SELECT without FROM.
+    Projections over it evaluate the select list's constants."""
+
+    @property
+    def fields(self):
+        return ()
+
+
+@dataclass(frozen=True)
+class Union(PlanNode):
+    """UNION ALL: the bag concatenation of children with the same field
+    names and types (the analyzer inserts coercing Projects). UNION
+    DISTINCT, INTERSECT and EXCEPT plan an Aggregate above it."""
+
+    inputs: tuple[PlanNode, ...]
+
+    @property
+    def children(self):
+        return self.inputs
+
+    @property
+    def fields(self):
+        return self.inputs[0].fields
 
 
 @dataclass(frozen=True)

@@ -91,6 +91,12 @@ def prune(node: N.PlanNode, needed: set[str] | None = None) -> N.PlanNode:
         return replace(node, child=prune(node.child, want))
     if isinstance(node, N.Limit):
         return replace(node, child=prune(node.child, needed))
+    if isinstance(node, N.Values):
+        return node
+    if isinstance(node, N.Union):
+        # the children share field names: each (a Project) narrows to
+        # the same needed set
+        return N.Union(tuple(prune(c, needed) for c in node.inputs))
     if isinstance(node, N.TableScan):
         cols = node.columns
         types = node.types

@@ -41,7 +41,7 @@ class Session:
 
     def plan(self, sql: str) -> PlanNode:
         stmt = parse(sql)
-        if not isinstance(stmt, A.Query):
+        if not isinstance(stmt, (A.Query, A.SetQuery)):
             raise NotSupported(f"{type(stmt).__name__} statements are not ported yet")
         return prune(self.analyzer.analyze(stmt))
 
@@ -64,6 +64,11 @@ class Session:
                              approx_join=self.prop("approx_join"),
                              runtime_join_filters=self.prop("runtime_join_filters"),
                              device=self.device)
+
+    def explain_analyze(self, sql: str) -> str:
+        """EXPLAIN ANALYZE (the plan annotated with each node's actuals)
+        needs the JAX package's stats recorder, which is not ported."""
+        raise NotSupported("EXPLAIN ANALYZE is not ported yet")
 
     def sql(self, sql: str) -> QueryResult:
         """Execute one query and return its rows (``QueryResult.approximate``

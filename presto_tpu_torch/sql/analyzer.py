@@ -1,45 +1,51 @@
 """Semantic analysis: AST -> typed logical plan (the ported subset).
 
 Counterpart of ``presto_tpu/sql/analyzer.py`` for the SELECT shapes of
-all 22 TPC-H queries and all 15 SSB queries: ``WITH`` (each reference to
-a CTE is analyzed again, as a derived table), SELECT [DISTINCT] / FROM
-with comma joins (and explicit ``JOIN ... ON``,
-``LEFT`` / ``RIGHT`` / ``FULL [OUTER] JOIN ... ON``, whose ON conjuncts
-over the build side alone filter the build; a RIGHT join is planned as
-the LEFT join with its sides swapped) and derived
-tables (``(SELECT ...) AS alias``) / WHERE conjuncts / GROUP BY (or
-none: one keyless aggregate row) / ORDER BY / LIMIT; [NOT] EXISTS with
-equality correlation and [NOT] IN (subquery), each planned as a
-``SemiJoin`` (anti when negated); ``count`` (and ``count(DISTINCT x)``,
-a pre-aggregation on the keys plus ``x``), ``sum``,
-``avg`` (``sum`` / ``count`` in DOUBLE), ``min``, ``max``; DECIMAL and
-DATE arithmetic and unary minus, comparisons, [NOT] BETWEEN, [NOT] IN
-(a list), [NOT] LIKE, IS [NOT] NULL, AND, OR and NOT; scalar subqueries:
-uncorrelated ones (in a comparison, a value position or a BETWEEN bound)
-as a ``ScalarValue`` bound into ``Unbound`` slots by a ``BindScalars``
-over the plan, equality-correlated ones in a comparison decorrelated
-into a group-by on the correlation columns plus a unique inner join;
-EXISTS with equality correlation plus one ``<>`` correlation (a min/max
-per correlation group, LEFT-joined, then a filter); EXISTS leaves under
-OR/AND (the mark join: each a deduplicated LEFT join and a BOOLEAN mark
-column); simple and searched
-CASE, COALESCE, NULLIF and CAST to ``double``, ``bigint`` / ``int`` /
-``integer`` and ``decimal(p,s)``;
-``SUBSTRING`` / ``substr`` over BYTES; ``EXTRACT`` (and the functions)
-``year``, ``month`` and ``day``; ``date '...'`` literals and
-``date +/- interval`` folding.
+all 22 TPC-H queries and all 15 SSB queries and the SQL surface around
+them: ``WITH`` (each reference to a CTE is analyzed again, as a derived
+table); set operations (UNION [ALL], INTERSECT, EXCEPT; a UNION is a
+``Union`` node, UNION DISTINCT a keys-only Aggregate above it, INTERSECT
+and EXCEPT a tagged union with grouped tag sums) at the top level, in
+WITH, in derived tables and in IN / EXISTS / scalar subqueries; SELECT
+[DISTINCT] with or without FROM (a ``Values`` row), comma joins,
+explicit ``JOIN ... ON``, ``LEFT`` / ``RIGHT`` / ``FULL [OUTER] JOIN
+... ON`` (ON conjuncts over the build side alone filter the build; a
+RIGHT join is planned as the LEFT join with its sides swapped) and
+derived tables; WHERE conjuncts; GROUP BY (or none: one keyless
+aggregate row); ORDER BY; LIMIT (a ``TopN`` under ORDER BY, else a
+``Limit``); [NOT] EXISTS with equality correlation and [NOT] IN
+(subquery), each a ``SemiJoin`` (anti when negated); ``count`` (and
+``count(DISTINCT x)``, a pre-aggregation on the keys plus ``x``),
+``sum``, ``avg`` (``sum`` / ``count`` in DOUBLE), ``min``, ``max``,
+``stddev`` / ``stddev_samp`` / ``variance`` / ``var_samp`` (sums of x
+and x^2 and a count, a negative variance clamped to 0 before the root);
+arithmetic with ``%`` (floor modulo) and ``||``, comparisons, [NOT]
+BETWEEN, [NOT] IN (a list), [NOT] LIKE, IS [NOT] NULL, AND, OR and NOT;
+scalar subqueries: uncorrelated ones (in a comparison, a value position
+or a BETWEEN bound) as a ``ScalarValue`` bound into ``Unbound`` slots by
+a ``BindScalars`` over the plan, equality-correlated ones in a
+comparison decorrelated into a group-by on the correlation columns plus
+a unique inner join; EXISTS with equality correlation plus one ``<>``
+correlation (a min/max per correlation group, LEFT-joined, then a
+filter); EXISTS leaves under OR/AND (the mark join); simple and searched
+CASE, COALESCE, NULLIF; CAST to ``double``, ``bigint`` / ``int`` /
+``integer``, ``decimal(p,s)``, ``varchar[(n)]``, ``timestamp`` and
+``date``; ``SUBSTRING`` / ``substr`` over BYTES and dictionary VARCHAR;
+every ``EXTRACT`` field; the scalar function library of the JAX package
+(``_scalar_function``: math, string and date families, with its arity
+table and literal-argument rules); ``date '...'`` and ``timestamp
+'...'`` literals and ``date +/- interval`` folding.
 The relational planning is the JAX package's, copied: predicate
 pushdown into the owning relation, greedy stats-driven join ordering,
 unique-build detection from table keys, and functional-dependency
 grouping (keys covered by a table's unique key ride as passengers), so
 both packages build the same plan tree for the same statement.
 
-Anything else (an uncorrelated EXISTS, which the JAX package refuses
-too; ``<>`` correlation in a scalar subquery, likewise; set operations,
-in a subquery too; windows, grouping sets, the other casts, the rest of the scalar function library) raises
-``NotSupported`` naming the construct. The mark join's own refusals
-(NOT EXISTS, IN or a scalar subquery under OR) are the JAX package's
-``AnalysisError``s, word for word.
+Windows, grouping sets (ROLLUP, CUBE, GROUPING SETS), ``?`` parameters
+and statements other than queries raise ``NotSupported`` naming the
+construct; so do an uncorrelated EXISTS and ``<>`` correlation in a
+scalar subquery, which the JAX package refuses too. Every other refusal
+is the JAX package's ``AnalysisError``, word for word.
 """
 
 from __future__ import annotations
@@ -52,14 +58,16 @@ import numpy as np
 
 from presto_tpu_torch.exec.operators import AggSpec, SortKey
 from presto_tpu_torch.expr import (
-    Call, Expr, InputRef, Literal, Unbound, rescale_decimal, result_type, substr_fn)
+    Call, Expr, InputRef, Literal, Unbound, cast_varchar_fn, date_add_fn, date_diff_fn,
+    date_trunc_fn, parse_date_fn, parse_timestamp_fn, rescale_decimal, result_type,
+    split_part_fn, substr_dict_fn, substr_fn)
 from presto_tpu_torch.plan import nodes as N
 from presto_tpu_torch.plan.catalog import Catalog, TableMeta
 from presto_tpu_torch.runtime.errors import NotSupported, UserError
 from presto_tpu_torch.sql import ast as A
 from presto_tpu_torch.types import (
-    BIGINT, BOOLEAN, DATE, DOUBLE, INTEGER, DataType, TypeKind, decimal,
-    fixed_bytes, varchar)
+    BIGINT, BOOLEAN, DATE, DOUBLE, INTEGER, TIMESTAMP, DataType, TypeKind,
+    common_super_type, decimal, fixed_bytes, varchar)
 
 AGG_FUNCS = {"count", "sum", "avg", "min", "max",
              "stddev_samp", "stddev", "var_samp", "variance"}
@@ -210,7 +218,7 @@ class Analyzer:
         # the gensym counter restarts per statement, as in the JAX
         # package, so both name the same internal fields alike
         self._uniq = 0
-        if not isinstance(query, A.Query):
+        if not isinstance(query, (A.Query, A.SetQuery)):
             raise _unsupported(f"statement {type(query).__name__}")
         plan, _scope = self._analyze_any(query, outer=None, ctes={})
         return plan
@@ -218,10 +226,113 @@ class Analyzer:
     def _analyze_any(
         self, q: A.Node, outer: Scope | None, ctes: dict
     ) -> tuple[N.PlanNode, Scope]:
-        """A SELECT core; a set operation (a UNION chain) is not ported."""
-        if not isinstance(q, A.Query):
-            raise _unsupported(f"{type(q).__name__} (a set operation)")
+        """Dispatch: a SELECT core or a set operation chain."""
+        if isinstance(q, A.SetQuery):
+            return self._analyze_setquery(q, outer, ctes)
         return self._analyze_query(q, outer, ctes)
+
+    def _analyze_setquery(
+        self, q: A.SetQuery, outer: Scope | None, ctes: dict
+    ) -> tuple[N.PlanNode, Scope]:
+        """A UNION [ALL] / INTERSECT / EXCEPT chain, left-associative:
+        each term coerced to the common column types through a Project
+        to fresh internal names (the client names, from the first term,
+        may repeat); UNION DISTINCT a keys-only Aggregate over everything
+        so far; INTERSECT and EXCEPT ``_plan_set_diff``; ORDER BY and
+        LIMIT over the whole set."""
+        ctes = dict(ctes)
+        for name, cq in q.ctes:
+            ctes[name] = cq
+        planned = [self._analyze_any(t, outer, ctes) for t in q.terms]
+        names = list(planned[0][0].names)
+        for out, _scope in planned[1:]:
+            if len(out.names) != len(names):
+                raise AnalysisError(
+                    f"UNION terms have {len(names)} vs {len(out.names)} columns")
+        types = []
+        for i in range(len(names)):
+            t = planned[0][1].fields[i].dtype
+            for _, scope in planned[1:]:
+                t = common_super_type(t, scope.fields[i].dtype)
+            types.append(t)
+        internal = [self.fresh(n) for n in names]
+
+        def as_union_input(out: N.Output, scope: Scope) -> N.PlanNode:
+            exprs = []
+            for i, n in enumerate(internal):
+                e: Expr = InputRef(scope.fields[i].dtype, out.sources[i])
+                exprs.append((n, self._coerce_to(e, types[i])))
+            return N.Project(out.child, tuple(exprs))
+
+        acc = as_union_input(*planned[0])
+        for op, (out, scope) in zip(q.ops, planned[1:]):
+            rhs = as_union_input(out, scope)
+            if op in ("intersect", "except"):
+                acc = self._plan_set_diff(acc, rhs, internal, types, op)
+                continue
+            acc = N.Union((acc, rhs))
+            if op == "union":  # DISTINCT: dedup everything so far
+                acc = N.Aggregate(
+                    acc, tuple((n, InputRef(t, n)) for n, t in zip(internal, types)), ())
+        plan = acc
+        out_scope = Scope([FieldRef(i_, t, "", n) for i_, n, t in zip(internal, names, types)])
+        if q.order_by:
+            keys = []
+            scalar_binds: list[N.ScalarValue] = []
+            for item in q.order_by:
+                e = self._order_expr(item.expr, out_scope, out_scope, None, ctes,
+                                     scalar_binds, {}, {})
+                keys.append(SortKey(e, item.descending, bool(item.nulls_first)))
+            if q.limit is not None:
+                plan = N.TopN(plan, tuple(keys), q.limit)
+            else:
+                plan = N.Sort(plan, tuple(keys))
+            if scalar_binds:
+                plan = N.BindScalars(plan, tuple(scalar_binds))
+        elif q.limit is not None:
+            plan = N.Limit(plan, q.limit)
+        return N.Output(plan, tuple(names), tuple(internal)), out_scope
+
+    def _plan_set_diff(self, left, right, internal, types, op: str):
+        """INTERSECT / EXCEPT (distinct) as a tagged union and grouped tag
+        sums, the JAX package's plan:
+
+            UNION ALL(left tagged a=1, right tagged b=1)
+            GROUP BY every column, summing the tags
+            HAVING a > 0 AND (b > 0 | b = 0)
+        """
+        la, lb = self.fresh("seta"), self.fresh("setb")
+        cols = tuple((n, InputRef(t, n)) for n, t in zip(internal, types))
+
+        def tagged(p, a, b):
+            return N.Project(p, cols + ((la, Literal(BIGINT, a)), (lb, Literal(BIGINT, b))))
+
+        u = N.Union((tagged(left, 1, 0), tagged(right, 0, 1)))
+        sa, sb = self.fresh("seta"), self.fresh("setb")
+        agg = N.Aggregate(u, cols, (AggSpec("sum", InputRef(BIGINT, la), sa, BIGINT),
+                                    AggSpec("sum", InputRef(BIGINT, lb), sb, BIGINT)))
+        zero = Literal(BIGINT, 0)
+        in_a = Call(BOOLEAN, "gt", (InputRef(BIGINT, sa), zero))
+        in_b = Call(BOOLEAN, "gt", (InputRef(BIGINT, sb), zero))
+        not_b = Call(BOOLEAN, "eq", (InputRef(BIGINT, sb), zero))
+        cond = Call(BOOLEAN, "and", (in_a, in_b if op == "intersect" else not_b))
+        return N.Project(N.Filter(agg, cond), cols)
+
+    @staticmethod
+    def _coerce_to(e: Expr, t: DataType) -> Expr:
+        """Lift ``e`` to the set's unified type ``t`` (a common super type
+        of ``e.dtype``)."""
+        if e.dtype == t:
+            return e
+        if t.kind is TypeKind.DOUBLE:
+            return Call(t, "cast_double", (e,))
+        if t.kind is TypeKind.BIGINT:
+            return Call(t, "cast_bigint", (e,))
+        if t.kind is TypeKind.DECIMAL:
+            return Call(t, rescale_decimal(t.scale), (e,))
+        if t.kind is e.dtype.kind:
+            return e  # width or parameter variations of one kind
+        raise AnalysisError(f"cannot unify UNION column types {e.dtype} and {t}")
 
     def _analyze_query(
         self, q: A.Query, outer: Scope | None, ctes: dict[str, A.Query]
@@ -239,9 +350,8 @@ class Analyzer:
         # ---- FROM: relations + join graph -----------------------------
         rels: list[Rel] = []
         edges: list[dict] = []  # {a, b, akeys, bkeys, kind, residual}
-        if q.from_ is None:
-            raise _unsupported("SELECT without FROM")
-        self._flatten_from(q.from_, rels, edges, ctes, outer)
+        if q.from_ is not None:
+            self._flatten_from(q.from_, rels, edges, ctes, outer)
         scope = Scope([f for r in rels for f in r.scope.fields])
 
         # ---- WHERE classification -------------------------------------
@@ -378,8 +488,6 @@ class Analyzer:
             return
         if isinstance(rel, A.SubqueryRelation):
             binding = rel.alias or self.fresh("subq")
-            if not isinstance(rel.query, A.Query):
-                raise _unsupported(f"{type(rel.query).__name__} in a derived table")
             plan, sub_scope = self._analyze_any(rel.query, None, ctes)
             self._add_derived(rels, binding, plan, sub_scope)
             return
@@ -625,6 +733,8 @@ class Analyzer:
     # join tree construction (greedy, stats-driven)
     # ------------------------------------------------------------------
     def _build_join_tree(self, rels: list[Rel], edges: list[dict], scope: Scope):
+        if not rels:
+            return N.Values()  # a SELECT without FROM: one row
         # apply pushdown filters
         plans: list[N.PlanNode] = []
         for r in rels:
@@ -1027,8 +1137,6 @@ class Analyzer:
                 spec = AggSpec("count_distinct", InputRef(arg.dtype, dk), nm, BIGINT)
                 return [spec], InputRef(BIGINT, nm)
             return [AggSpec("count", arg, nm, BIGINT)], InputRef(BIGINT, nm)
-        if a.name not in ("sum", "avg", "min", "max"):
-            raise _unsupported(f"aggregate {a.name}()")
         arg = self._expr(a.args[0], scope, outer, ctes, scalar_binds)
         if a.distinct:
             raise AnalysisError(f"DISTINCT {a.name} not supported")
@@ -1041,7 +1149,27 @@ class Analyzer:
         if a.name == "sum":
             t = self._sum_type(arg.dtype)
             return [AggSpec("sum", arg, nm, t)], InputRef(t, nm)
-        return [AggSpec(a.name, arg, nm, arg.dtype)], InputRef(arg.dtype, nm)
+        if a.name in ("min", "max"):
+            return [AggSpec(a.name, arg, nm, arg.dtype)], InputRef(arg.dtype, nm)
+        if a.name in ("stddev_samp", "stddev", "var_samp", "variance"):
+            # (sum x, sum x^2, count): var = (q - s^2/c) / (c - 1); c <= 1
+            # gives NULL through the division by zero
+            d = Call(DOUBLE, "cast_double", (arg,))
+            s, qn, c = self.fresh("vsum"), self.fresh("vsq"), self.fresh("vcnt")
+            specs = [AggSpec("sum", d, s, DOUBLE),
+                     AggSpec("sum", Call(DOUBLE, "mul", (d, d)), qn, DOUBLE),
+                     AggSpec("count", arg, c, BIGINT)]
+            sr, qr, cr = InputRef(DOUBLE, s), InputRef(DOUBLE, qn), InputRef(BIGINT, c)
+            mean_sq = Call(DOUBLE, "div", (Call(DOUBLE, "mul", (sr, sr)), cr))
+            var = Call(DOUBLE, "div", (Call(DOUBLE, "sub", (qr, mean_sq)),
+                                       Call(BIGINT, "sub", (cr, Literal(BIGINT, 1)))))
+            if a.name in ("stddev_samp", "stddev"):
+                # a rounding-negative variance clamps to 0 before the root
+                clamped = Call(DOUBLE, "if", (Call(BOOLEAN, "lt", (var, Literal(DOUBLE, 0.0))),
+                                              Literal(DOUBLE, 0.0), var))
+                return specs, Call(DOUBLE, "sqrt", (clamped,))
+            return specs, var
+        raise AnalysisError(f"unknown aggregate {a.name}")
 
     def _sum_type(self, t: DataType) -> DataType:
         if t.kind is TypeKind.DECIMAL:
@@ -1054,10 +1182,14 @@ class Analyzer:
     # subquery predicates: EXISTS / IN as semi and anti joins, scalar
     # comparisons, the <> EXISTS rewrite and the mark join
     # ------------------------------------------------------------------
-    @staticmethod
-    def _as_plain_query(q):
+    def _as_plain_query(self, q: A.Node) -> A.Query:
+        """A set operation as ``SELECT * FROM (<set>)``, so the subquery
+        rewrites (which read a Query's fields) take it in IN / EXISTS /
+        scalar positions. A correlated reference inside the set does not
+        resolve (the outer scope is not threaded through the wrapper)."""
         if isinstance(q, A.SetQuery):
-            raise _unsupported("a set operation (UNION) in a subquery")
+            return A.Query(select=(A.SelectItem(A.Star(), None),),
+                           from_=A.SubqueryRelation(q, self.fresh("u")))
         return q
 
     def _apply_subquery_pred(self, c, plan, scope, outer, ctes, scalar_binds):
@@ -1460,6 +1592,8 @@ class Analyzer:
                 (np.datetime64(n.value, "D") - np.datetime64("1970-01-01", "D")).astype(int)
             )
             return Literal(DATE, days)
+        if isinstance(n, A.TimestampLit):
+            return Literal(TIMESTAMP, TIMESTAMP.to_physical(n.value))
         if isinstance(n, A.BinaryOp):
             if n.op in ("and", "or"):
                 l = self._expr(n.left, scope, outer, ctes, scalar_binds, agg_map, key_map)
@@ -1469,6 +1603,8 @@ class Analyzer:
                 l = self._expr(n.left, scope, outer, ctes, scalar_binds, agg_map, key_map)
                 r = self._expr(n.right, scope, outer, ctes, scalar_binds, agg_map, key_map)
                 return Call(BOOLEAN, _CMP_OPS[n.op], (l, r))
+            if n.op == "||":
+                return self._concat(n, scope, outer, ctes, scalar_binds, agg_map, key_map)
             if n.op in _ARITH_OPS:
                 # date +/- interval folding
                 folded = self._fold_date_arith(n, scope, outer, ctes, scalar_binds,
@@ -1480,7 +1616,7 @@ class Analyzer:
                 fn = _ARITH_OPS[n.op]
                 t = result_type(fn, [l.dtype, r.dtype])
                 return Call(t, fn, (l, r))
-            raise _unsupported(f"operator {n.op!r}")
+            raise AnalysisError(f"unknown operator {n.op}")
         if isinstance(n, A.UnaryOp):
             if n.op == "not":
                 return Call(BOOLEAN, "not", (self._expr(n.operand, scope, outer, ctes,
@@ -1514,10 +1650,12 @@ class Analyzer:
             e = Call(BOOLEAN, "like", (v, Literal(varchar(), n.pattern.value)))
             return Call(BOOLEAN, "not", (e,)) if n.negated else e
         if isinstance(n, A.Extract):
-            if n.field not in ("year", "month", "day"):
-                raise _unsupported(f"EXTRACT({n.field})")
             v = self._expr(n.value, scope, outer, ctes, scalar_binds, agg_map, key_map)
-            return Call(INTEGER, n.field, (v,))
+            field = {"dow": "day_of_week", "doy": "day_of_year"}.get(n.field, n.field)
+            if field not in ("year", "month", "day", "quarter", "day_of_week",
+                             "day_of_year", "hour", "minute", "second"):
+                raise AnalysisError(f"EXTRACT({n.field}) unsupported")
+            return Call(INTEGER, field, (v,))
         if isinstance(n, A.Substring):
             return self._substring(n, scope, outer, ctes, scalar_binds, agg_map, key_map)
         if isinstance(n, A.FunctionCall):
@@ -1526,16 +1664,27 @@ class Analyzer:
             if n.name in ("year", "month", "day"):
                 v = self._expr(n.args[0], scope, outer, ctes, scalar_binds, agg_map, key_map)
                 return Call(INTEGER, n.name, (v,))
-            if n.name == "substr":
-                if len(n.args) not in (2, 3):
-                    raise AnalysisError("substr() expects 2 or 3 arguments")
-                length = None
-                if len(n.args) == 3:
-                    if not isinstance(n.args[2], A.NumberLit):
-                        raise AnalysisError("substr() length must be an integer literal")
-                    length = A.NumberLit(str(int(n.args[2].text)))
-                return self._substring(A.Substring(n.args[0], n.args[1], length), scope,
-                                       outer, ctes, scalar_binds, agg_map, key_map)
+            if n.name == "abs":
+                v = self._expr(n.args[0], scope, outer, ctes, scalar_binds, agg_map, key_map)
+                return Call(v.dtype, "abs", (v,))
+            if n.name in ("upper", "lower"):
+                v = self._expr(n.args[0], scope, outer, ctes, scalar_binds, agg_map, key_map)
+                if v.dtype.kind is not TypeKind.BYTES:
+                    raise AnalysisError(f"{n.name}() requires a BYTES string")
+                return Call(v.dtype, n.name, (v,))
+            if n.name in ("sqrt", "floor", "ceil", "ceiling"):
+                v = self._expr(n.args[0], scope, outer, ctes, scalar_binds, agg_map, key_map)
+                return Call(DOUBLE, "ceil" if n.name == "ceiling" else n.name, (v,))
+            if n.name == "round":
+                v = self._expr(n.args[0], scope, outer, ctes, scalar_binds, agg_map, key_map)
+                if len(n.args) == 2:
+                    # round(x, n): multiply, round, divide in DOUBLE
+                    if not isinstance(n.args[1], A.NumberLit):
+                        raise AnalysisError("round() scale must be a literal")
+                    scale = Literal(DOUBLE, float(10 ** int(n.args[1].text)))
+                    scaled = Call(DOUBLE, "mul", (Call(DOUBLE, "cast_double", (v,)), scale))
+                    return Call(DOUBLE, "div", (Call(DOUBLE, "round", (scaled,)), scale))
+                return Call(DOUBLE, "round", (v,))
             if n.name == "nullif":
                 a = self._expr(n.args[0], scope, outer, ctes, scalar_binds, agg_map, key_map)
                 b = self._expr(n.args[1], scope, outer, ctes, scalar_binds, agg_map, key_map)
@@ -1545,7 +1694,11 @@ class Analyzer:
                 args = tuple(self._expr(a, scope, outer, ctes, scalar_binds, agg_map, key_map)
                              for a in n.args)
                 return Call(result_type("coalesce", [a.dtype for a in args]), "coalesce", args)
-            raise _unsupported(f"function {n.name}()")
+            handled = self._scalar_function(n, scope, outer, ctes, scalar_binds,
+                                            agg_map, key_map)
+            if handled is not None:
+                return handled
+            raise AnalysisError(f"unknown function {n.name}")
         if isinstance(n, A.ScalarSubquery):
             # scalar subquery in a value position (uncorrelated only)
             sub_plan, sub_scope = self._analyze_any(n.query, None, ctes)
@@ -1586,9 +1739,124 @@ class Analyzer:
             args.append(analyzed[-1])
         return Call(result_type("case", [a.dtype for a in args]), "case", tuple(args))
 
+    #: argument counts of the scalar functions (the JAX package's table)
+    _ARITY = {"quarter": 1, "day_of_week": 1, "dow": 1, "day_of_year": 1, "doy": 1,
+              "last_day_of_month": 1, "hour": 1, "minute": 1, "second": 1,
+              "date_trunc": 2, "date_add": 3, "date_diff": 3,
+              "length": 1, "char_length": 1, "character_length": 1,
+              "trim": 1, "ltrim": 1, "rtrim": 1, "reverse": 1,
+              "strpos": 2, "replace": 3, "split_part": 3, "regexp_like": 2,
+              "power": 2, "pow": 2, "exp": 1, "ln": 1, "log10": 1, "log2": 1,
+              "truncate": 1, "sign": 1, "mod": 2}
+
+    def _scalar_function(self, n: A.FunctionCall, scope, outer, ctes, scalar_binds,
+                         agg_map, key_map) -> Expr | None:
+        """The math, string and date function library: arity checks,
+        literal arguments folded into the function's name where the JAX
+        package folds them. None for an unknown name (the caller
+        raises)."""
+        want = self._ARITY.get(n.name)
+        if want is not None and len(n.args) != want:
+            raise AnalysisError(f"{n.name}() expects {want} argument(s), got {len(n.args)}")
+        if n.name == "substr" and len(n.args) not in (2, 3):
+            raise AnalysisError("substr() expects 2 or 3 arguments")
+        if n.name in ("greatest", "least") and len(n.args) < 2:
+            raise AnalysisError(f"{n.name}() expects at least 2 arguments")
+
+        def sub(i):
+            return self._expr(n.args[i], scope, outer, ctes, scalar_binds, agg_map, key_map)
+
+        def str_lit(i, what):
+            a = n.args[i]
+            if not isinstance(a, A.StringLit):
+                raise AnalysisError(f"{n.name}() {what} must be a string literal")
+            return a.value
+
+        def int_lit(i, what):
+            a = n.args[i]
+            neg = False
+            if isinstance(a, A.UnaryOp) and a.op == "-":
+                neg, a = True, a.operand
+            if not isinstance(a, A.NumberLit):
+                raise AnalysisError(f"{n.name}() {what} must be an integer literal")
+            return -int(a.text) if neg else int(a.text)
+
+        name = n.name
+        if name in ("hour", "minute", "second"):
+            return Call(INTEGER, name, (sub(0),))
+        if name in ("quarter", "day_of_week", "dow", "day_of_year", "doy"):
+            canon = {"dow": "day_of_week", "doy": "day_of_year"}.get(name, name)
+            return Call(INTEGER, canon, (sub(0),))
+        if name == "last_day_of_month":
+            return Call(DATE, "last_day_of_month", (sub(0),))
+        if name == "date_trunc":
+            v = sub(1)
+            return Call(v.dtype, date_trunc_fn(str_lit(0, "unit")), (v,))
+        if name == "date_add":
+            return Call(DATE, date_add_fn(str_lit(0, "unit")), (sub(1), sub(2)))
+        if name == "date_diff":
+            return Call(BIGINT, date_diff_fn(str_lit(0, "unit")), (sub(1), sub(2)))
+        if name in ("length", "char_length", "character_length"):
+            return Call(INTEGER, "length", (sub(0),))
+        if name in ("trim", "ltrim", "rtrim", "reverse"):
+            v = sub(0)
+            return Call(v.dtype, name, (v,))
+        if name == "strpos":
+            v = sub(0)
+            return Call(INTEGER, "strpos", (v, Literal(varchar(), str_lit(1, "needle"))))
+        if name == "replace":
+            v = sub(0)
+            return Call(v.dtype, "replace", (v, Literal(varchar(), str_lit(1, "search")),
+                                             Literal(varchar(), str_lit(2, "replacement"))))
+        if name == "split_part":
+            v = sub(0)
+            fn = split_part_fn(str_lit(1, "separator"), int_lit(2, "index"))
+            return Call(v.dtype, fn, (v,))
+        if name == "regexp_like":
+            v = sub(0)
+            return Call(BOOLEAN, "regexp_like", (v, Literal(varchar(), str_lit(1, "pattern"))))
+        if name == "substr":
+            length = A.NumberLit(str(int_lit(2, "length"))) if len(n.args) >= 3 else None
+            return self._expr(A.Substring(n.args[0], n.args[1], length), scope, outer, ctes,
+                              scalar_binds, agg_map, key_map)
+        if name in ("greatest", "least"):
+            args = tuple(sub(i) for i in range(len(n.args)))
+            t = args[0].dtype
+            for a in args[1:]:
+                t = common_super_type(t, a.dtype)
+            return Call(t, name, args)
+        if name in ("power", "pow"):
+            return Call(DOUBLE, "power", (sub(0), sub(1)))
+        if name in ("exp", "ln", "log10", "log2", "truncate"):
+            return Call(DOUBLE, name, (sub(0),))
+        if name == "sign":
+            return Call(INTEGER, "sign", (sub(0),))
+        if name == "mod":
+            a, b = sub(0), sub(1)
+            return Call(common_super_type(a.dtype, b.dtype), "mod", (a, b))
+        return None
+
+    def _concat(self, n: A.BinaryOp, scope, outer, ctes, scalar_binds, agg_map,
+                key_map) -> Expr:
+        """``a || b`` over BYTES and string literals: fixed_bytes of the
+        summed widths, chained concats flattened into one call."""
+        width = 0
+        args: tuple = ()
+        for side in (self._expr(n.left, scope, outer, ctes, scalar_binds, agg_map, key_map),
+                     self._expr(n.right, scope, outer, ctes, scalar_binds, agg_map, key_map)):
+            if side.dtype.kind is TypeKind.BYTES:
+                width += side.dtype.width
+            elif isinstance(side, Literal) and side.dtype.kind is TypeKind.VARCHAR:
+                width += len(side.value)
+            else:
+                raise AnalysisError("|| requires string operands")
+            args += side.args if isinstance(side, Call) and side.fn == "concat" else (side,)
+        return Call(fixed_bytes(width), "concat", args)
+
     def _cast(self, v: Expr, type_name: str) -> Expr:
-        """CAST to DOUBLE, BIGINT (``int``/``integer`` too) or
-        ``decimal(p,s)``; the other targets are not ported."""
+        """CAST to DOUBLE, BIGINT (``int``/``integer`` too),
+        ``decimal(p,s)``, VARCHAR (``varchar(n)`` too: fixed-width text),
+        TIMESTAMP and DATE."""
         if type_name == "double":
             return Call(DOUBLE, "cast_double", (v,))
         if type_name in ("bigint", "int", "integer"):
@@ -1599,12 +1867,47 @@ class Analyzer:
                 raise AnalysisError(f"bad decimal type {type_name}")
             fn = rescale_decimal(int(m.group(2)))
             return Call(decimal(int(m.group(1)), int(m.group(2))), fn, (v,))
-        raise _unsupported(f"CAST(... AS {type_name})")
+        if type_name == "varchar" or type_name.startswith("varchar("):
+            m = re.match(r"varchar\((\d+)\)", type_name)
+            if v.dtype.kind is TypeKind.VARCHAR and m is None:
+                return v  # identity
+            if m is not None:
+                w = int(m.group(1))
+            elif v.dtype.kind is TypeKind.BYTES:
+                w = v.dtype.width
+            else:
+                w = {TypeKind.INTEGER: 11, TypeKind.BIGINT: 20, TypeKind.DATE: 10,
+                     TypeKind.TIMESTAMP: 19}.get(v.dtype.kind)
+                if w is None and v.dtype.kind is TypeKind.DECIMAL:
+                    w = v.dtype.precision + 2
+                if w is None:
+                    raise AnalysisError(f"cast {v.dtype} to varchar unsupported")
+            return Call(fixed_bytes(w), cast_varchar_fn(w), (v,))
+        if type_name == "timestamp":
+            if isinstance(v, Literal) and isinstance(v.value, str):
+                return Literal(TIMESTAMP, v.value)
+            if v.dtype.kind is TypeKind.TIMESTAMP:
+                return v
+            if v.dtype.kind is TypeKind.DATE:
+                return Call(TIMESTAMP, "cast_timestamp", (v,))
+            if v.dtype.kind is TypeKind.VARCHAR:
+                return Call(TIMESTAMP, parse_timestamp_fn(), (v,))
+            raise AnalysisError(f"cast {v.dtype} to timestamp unsupported")
+        if type_name == "date":
+            if isinstance(v, Literal) and isinstance(v.value, str):
+                return Literal(DATE, v.value)  # parsed on the host by to_physical
+            if v.dtype.kind is TypeKind.DATE:
+                return v
+            if v.dtype.kind is TypeKind.VARCHAR:
+                return Call(DATE, parse_date_fn(), (v,))
+            raise AnalysisError(f"cast {v.dtype} to date unsupported")
+        raise AnalysisError(f"unsupported cast to {type_name}")
 
     def _substring(self, n: A.Substring, scope, outer, ctes, scalar_binds,
                    agg_map, key_map) -> Expr:
-        """SUBSTRING with literal bounds over a BYTES column (the
-        dictionary VARCHAR transform is not ported)."""
+        """SUBSTRING with literal bounds: over dictionary VARCHAR a derived
+        dictionary (a negative start counts from the end), over BYTES the
+        static byte slice."""
         v = self._expr(n.value, scope, outer, ctes, scalar_binds, agg_map, key_map)
         start_node = n.start
         start_neg = False
@@ -1614,12 +1917,11 @@ class Analyzer:
                 and (n.length is None or isinstance(n.length, A.NumberLit))):
             raise AnalysisError("SUBSTRING bounds must be literals")
         start = -int(start_node.text) if start_neg else int(start_node.text)
-        if v.dtype.kind is TypeKind.VARCHAR:
-            raise _unsupported("SUBSTRING over dictionary VARCHAR")
-        if start < 1:
+        if start < 1 and v.dtype.kind is not TypeKind.VARCHAR:
             raise AnalysisError("negative SUBSTRING start requires a dictionary VARCHAR")
-        if v.dtype.kind is not TypeKind.BYTES:
-            raise _unsupported(f"SUBSTRING over {v.dtype}")
+        if v.dtype.kind is TypeKind.VARCHAR:
+            length = int(n.length.text) if n.length is not None else 1 << 20
+            return Call(v.dtype, substr_dict_fn(start, length), (v,))
         length = int(n.length.text) if n.length is not None else v.dtype.width - start + 1
         return Call(fixed_bytes(length), substr_fn(start, length), (v,))
 

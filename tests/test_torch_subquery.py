@@ -17,8 +17,9 @@ join in the port, against the JAX package:
   the mark); and what both refuse: a scalar of two rows, IN and a scalar
   subquery under OR, a negated EXISTS node under OR (built by hand: the
   parser never makes one), an uncorrelated EXISTS, ``<>`` correlation in
-  a scalar subquery and a UNION as a scalar subquery (the port refuses
-  the last three as ``NotSupported``);
+  a scalar subquery (the port refuses these two as ``NotSupported``) and
+  a UNION of two rows as a scalar subquery (one row a term, each term a
+  batch: more than one row in both packages);
 - ``bind_scalars``, ``Unbound`` and ``DataType.from_physical`` against
   the JAX package's on DECIMAL (Q15's SF1 magnitudes, sums near 2^47 at
   scale 4, included), DOUBLE, DATE, BIGINT and NULL;
@@ -124,7 +125,7 @@ REFUSED = {
     "union as a scalar": ("select count(*) as n from nation where n_regionkey = "
                           "(select r_regionkey from region union all "
                           "select r_regionkey from region)",
-                          NotSupported, "set operation"),
+                          ValueError, "scalar subquery returned more than one row"),
 }
 
 
