@@ -168,13 +168,30 @@ one CUDA card, and exits nonzero on any failure. Phases:
    third and its five largest device ops, and the launches per kernel;
    the first lane-sums, leaf, LIKE, exists and payload call of each
    launch shape held to the plain version; the share of the phase's
-   device busy time that the set operations' ``index_add_`` folds take.
+   device busy time that the set operations' ``index_add_`` folds take;
+15. window functions and GROUPING SETS / ROLLUP / CUBE at SF1 through
+   ``Session.sql`` (``WINDOW_SQL``): rank, row_number top-3, ROWS and
+   RANGE running aggregates, lag / lead / first_value over 6M
+   ``lineitem`` rows in one Window, a float32 running sum per supplier
+   whose maximum must be exact, windows over a group-by and over a join,
+   a nested ``sum(sum(...)) over``, max over a dictionary VARCHAR, wide
+   BYTES partition and order keys, ROLLUP, CUBE, GROUPING SETS (the
+   ``_col1`` name) and a rank over a rollup partitioned by
+   ``grouping()``; each equal to a numpy recomputation (stable sorts and
+   segment arithmetic; DOUBLE columns within ``DOUBLE_TOL``) and to the
+   strategy counters its plan predicts, with the walls of a first and a
+   second run, the device busy time of a third and its five largest
+   device ops, the launches per kernel (the leaf kernel once per split
+   and grouping set), the Window operator's device time in
+   ``WINDOW_SHARE``'s statements; every lane-sums, leaf, LIKE, exists and
+   payload launch shape held to the plain version.
 
 Phase 5 also times the prefix kernel at the first ``part`` split of the
 ``starts_with`` pipeline and over SF1 ``o_comment`` with
 ``COMMENT_PREFIX``, each with its bound and the floor of the 32-byte
 sectors its rows' prefixes lie in; the LIKE kernel at Q16's first
-``supplier`` split and at Q20's first ``part`` split, and the payload
+``supplier`` split, at Q20's first ``part`` split and at phase 14's
+``concat_like`` shape (131,072 x 33), and the payload
 kernel at the first batch of each row count other than 2^20 that phase
 11 probes (Q7's expansion output
 of 2^21 rows among them); and, beside every exists-kernel shape, its
@@ -4021,6 +4038,456 @@ def run_surface_queries(conn, device: str = "cuda") -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 15: window functions and GROUPING SETS / ROLLUP / CUBE
+# ---------------------------------------------------------------------------
+
+_RUN = "rows between unbounded preceding and current row"
+_BY_ORDER = "partition by l_orderkey order by l_linenumber"
+
+WINDOW_SQL = {
+    "rank_supplier": ("select s_suppkey, s_nationkey, rank() over (partition by s_nationkey "
+                      "order by s_acctbal desc) as r from supplier order by s_suppkey"),
+    # the three largest orders of every customer: 1.5M rows in one sort
+    "topn_orders": ("select count(*) as n, sum(o_totalprice) as s, sum(rn) as r from (select "
+                    "o_totalprice, row_number() over (partition by o_custkey order by "
+                    "o_totalprice desc, o_orderkey) as rn from orders) t where rn <= 3"),
+    "running_rows": ("select count(*) as n, sum(run) as s, max(run) as m from (select "
+                     "sum(o_totalprice) over (partition by o_custkey order by o_orderdate, "
+                     f"o_orderkey {_RUN}) as run from orders) t"),
+    # the default RANGE frame: about 125 peers on each (priority, date)
+    "range_peers": ("select count(*) as n, sum(c) as sc, sum(mn) as smn from (select count(*) "
+                    "over (partition by o_orderpriority order by o_orderdate) as c, "
+                    "min(o_totalprice) over (partition by o_orderpriority order by "
+                    "o_orderdate) as mn from orders) t"),
+    # 6M lineitem rows in one Window
+    "lag_lead_first": ("select count(*) as n, count(p) as cp, sum(p) as sp, sum(q) as sq, "
+                       "sum(f) as sf from (select "
+                       f"lag(l_extendedprice) over ({_BY_ORDER}) as p, "
+                       f"lead(l_quantity, 2) over ({_BY_ORDER}) as q, "
+                       f"first_value(l_discount) over ({_BY_ORDER}) as f from lineitem) t"),
+    # float32 running sums that must not cross partitions: each
+    # supplier's sums are integers below 2^24, so its maximum is exact
+    "double_running": ("select max(s) as m, count(*) as n from (select "
+                       "sum(cast(l_quantity as double)) over (partition by l_suppkey order by "
+                       f"l_orderkey, l_linenumber {_RUN}) as s from lineitem) t"),
+    "window_over_group": ("select l_returnflag, l_linestatus, sum(l_quantity) as s, rank() "
+                          "over (order by sum(l_quantity) desc) as r from lineitem "
+                          "group by l_returnflag, l_linestatus"),
+    "avg_sum_over": ("select n_name, extract(year from o_orderdate) as y, sum(o_totalprice) "
+                     "as s, avg(sum(o_totalprice)) over (partition by n_name) as a, "
+                     "lag(sum(o_totalprice)) over (partition by n_name order by "
+                     "extract(year from o_orderdate)) as p from orders, customer, nation "
+                     "where o_custkey = c_custkey and c_nationkey = n_nationkey "
+                     "group by n_name, extract(year from o_orderdate) order by n_name, y"),
+    "cum_sum_sum": ("select o_orderdate, sum(sum(o_totalprice)) over (order by o_orderdate "
+                    f"{_RUN}) as c from orders group by o_orderdate order by o_orderdate"),
+    # max over a dictionary VARCHAR (ordered codes)
+    "max_dict_wide": ("select mx, count(*) as n from (select max(c_mktsegment) over "
+                      "(partition by c_nationkey) as mx from customer) t group by mx "
+                      "order by mx"),
+    # wide BYTES partition and order keys (18 and 15 bytes: 7-byte chunks)
+    "max_dict_wide_bytes": ("select s_suppkey, count(*) over (partition by s_name) as c, "
+                            "rank() over (order by s_phone) as r from supplier "
+                            "order by s_suppkey"),
+    "rollup": ("select l_returnflag, l_linestatus, sum(l_quantity) as s, count(*) as c, "
+               "grouping(l_linestatus) as g from lineitem group by rollup(l_returnflag, "
+               "l_linestatus) order by l_returnflag nulls last, l_linestatus nulls last"),
+    "cube": ("select l_returnflag, l_linestatus, count(*) as c, avg(l_discount) as a "
+             "from lineitem group by cube(l_returnflag, l_linestatus) "
+             "order by l_returnflag nulls last, l_linestatus nulls last"),
+    # the second key's column is named _col1 (the first set lacks it)
+    "grouping_sets": ("select o_orderpriority, o_orderstatus, count(*) as c, "
+                      "sum(o_totalprice) as s from orders group by grouping sets "
+                      "((o_orderpriority), (o_orderstatus), ()) order by 1 nulls last, "
+                      "2 nulls last"),
+    # windows over the union of the sets (the q36 / q70 shape)
+    "rollup_rank": ("select l_returnflag, l_linestatus, sum(l_extendedprice) as s, rank() over "
+                    "(partition by grouping(l_returnflag) + grouping(l_linestatus), case when "
+                    "grouping(l_linestatus) = 0 then l_returnflag end order by "
+                    "sum(l_extendedprice) desc) as r from lineitem group by "
+                    "rollup(l_returnflag, l_linestatus) order by l_returnflag nulls last, "
+                    "l_linestatus nulls last"),
+}
+
+#: the statements whose Window's device time phase 15 reports apart
+WINDOW_SHARE = ("topn_orders", "lag_lead_first")
+#: phase 15's statements over grouping sets (the others are windows alone)
+GROUPING_SET_RUNS = ("rollup", "cube", "grouping_sets", "rollup_rank")
+WINDOW_DOUBLES = {"avg_sum_over": ("a",), "cube": ("a",)}
+
+
+def _starts(part: np.ndarray) -> np.ndarray:
+    """Per row of rows sorted by ``part``: the index of its partition's
+    first row."""
+    n = len(part)
+    first = np.ones(n, bool)
+    first[1:] = part[1:] != part[:-1]
+    return np.maximum.accumulate(np.where(first, np.arange(n), 0))
+
+
+def _run_sums(part: np.ndarray, vals: np.ndarray) -> np.ndarray:
+    """Running int64 sums of ``vals`` restarting at each partition
+    (rows sorted by ``part``)."""
+    cs = np.cumsum(vals.astype(np.int64))
+    st = _starts(part)
+    return cs - cs[st] + vals.astype(np.int64)[st]
+
+
+def _small_groups(codes: list, values: list) -> tuple:
+    """Groups of small non-negative integer code columns, by counting
+    (``np.unique`` over rows is too slow at SF1): (each group's codes, one
+    array a column, in lexicographic order; the row counts; the int64 sum
+    of each of ``values`` a group, exact below 2^53)."""
+    sizes = [int(c.max()) + 1 for c in codes]
+    key = np.zeros(len(codes[0]), np.int64)
+    for c, size in zip(codes, sizes):
+        key = key * size + c.astype(np.int64)
+    total = int(np.prod(sizes))
+    counts = np.bincount(key, minlength=total)
+    present = np.flatnonzero(counts)
+    sums = [np.rint(np.bincount(key, weights=v.astype(np.float64), minlength=total)[present])
+            .astype(np.int64) for v in values]
+    out, rest = [], present
+    for size in reversed(sizes):
+        out.append(rest % size)
+        rest = rest // size
+    return out[::-1], counts[present], sums
+
+
+def _rank_desc(part: np.ndarray, key: np.ndarray) -> np.ndarray:
+    """rank() over (partition by part order by key desc): 1 + the rows of
+    the partition with a larger key (tie-invariant)."""
+    out = np.zeros(len(key), np.int64)
+    for p in np.unique(part):
+        m = part == p
+        k = np.sort(key[m])
+        out[m] = 1 + len(k) - np.searchsorted(k, key[m], side="right")
+    return out
+
+
+def rank_supplier_expected(conn) -> dict:
+    s = conn.table_numpy("supplier", ["s_suppkey", "s_nationkey", "s_acctbal"])
+    order = np.argsort(s["s_suppkey"], kind="stable")
+    r = _rank_desc(s["s_nationkey"], s["s_acctbal"].astype(np.int64))
+    return {"s_suppkey": s["s_suppkey"][order], "s_nationkey": s["s_nationkey"][order],
+            "r": r[order]}
+
+
+def topn_orders_expected(conn) -> dict:
+    o = conn.table_numpy("orders", ["o_orderkey", "o_custkey", "o_totalprice"])
+    tp = o["o_totalprice"].astype(np.int64)
+    order = np.lexsort((o["o_orderkey"], -tp, o["o_custkey"]))
+    rn = np.arange(len(order)) - _starts(o["o_custkey"][order]) + 1
+    keep = rn <= 3
+    return {"n": [int(keep.sum())], "s": [int(tp[order][keep].sum())],
+            "r": [int(rn[keep].sum())]}
+
+
+def running_rows_expected(conn) -> dict:
+    o = conn.table_numpy("orders", ["o_orderkey", "o_custkey", "o_totalprice", "o_orderdate"])
+    order = np.lexsort((o["o_orderkey"], o["o_orderdate"], o["o_custkey"]))
+    run = _run_sums(o["o_custkey"][order], o["o_totalprice"][order])
+    return {"n": [len(run)], "s": [int(run.sum())], "m": [int(run.max())]}
+
+
+def range_peers_expected(conn) -> dict:
+    o = conn.table_numpy("orders", ["o_orderpriority", "o_orderdate", "o_totalprice"])
+    sc = smn = 0
+    for p in np.unique(o["o_orderpriority"]):
+        m = o["o_orderpriority"] == p
+        d, tp = o["o_orderdate"][m], o["o_totalprice"][m].astype(np.int64)
+        order = np.argsort(d, kind="stable")
+        ds = d[order]
+        last = np.searchsorted(ds, d, side="right")  # rows up to each row's last peer
+        sc += int(last.sum())
+        smn += int(np.minimum.accumulate(tp[order])[last - 1].sum())
+    return {"n": [len(o["o_orderdate"])], "sc": [sc], "smn": [smn]}
+
+
+def lag_lead_first_expected(conn) -> dict:
+    li = conn.table_numpy("lineitem", ["l_orderkey", "l_linenumber", "l_extendedprice",
+                                       "l_quantity", "l_discount"])
+    order = np.lexsort((li["l_linenumber"], li["l_orderkey"]))
+    k = li["l_orderkey"][order]
+    ep = li["l_extendedprice"][order].astype(np.int64)
+    q = li["l_quantity"][order].astype(np.int64)
+    disc = li["l_discount"][order].astype(np.int64)
+    has_prev = np.zeros(len(k), bool)
+    has_prev[1:] = k[1:] == k[:-1]
+    has_next2 = np.zeros(len(k), bool)
+    has_next2[:-2] = k[2:] == k[:-2]
+    return {"n": [len(k)], "cp": [int(has_prev.sum())],
+            "sp": [int(ep[np.flatnonzero(has_prev) - 1].sum())],
+            "sq": [int(q[np.flatnonzero(has_next2) + 2].sum())],
+            "sf": [int(disc[_starts(k)].sum())]}
+
+
+def double_running_expected(conn) -> dict:
+    li = conn.table_numpy("lineitem", ["l_suppkey", "l_quantity"])
+    _keys, totals = _sums_by(li["l_suppkey"], li["l_quantity"].astype(np.int64))
+    return {"m": [float(np.max(totals) // 100)], "n": [len(li["l_suppkey"])]}
+
+
+def window_over_group_expected(conn) -> dict:
+    li = conn.table_numpy("lineitem", ["l_returnflag", "l_linestatus", "l_quantity"])
+    d = conn.dictionaries("lineitem")
+    (f, st), _counts, (sums,) = _small_groups([li["l_returnflag"], li["l_linestatus"]],
+                                              [li["l_quantity"]])
+    order = np.argsort(-sums, kind="stable")
+    return {"l_returnflag": list(d["l_returnflag"].values[f[order]]),
+            "l_linestatus": list(d["l_linestatus"].values[st[order]]),
+            "s": sums[order], "r": _rank_desc(np.zeros(len(sums)), sums)[order]}
+
+
+def avg_sum_over_expected(conn) -> dict:
+    o = conn.table_numpy("orders", ["o_custkey", "o_totalprice", "o_orderdate"])
+    c = conn.table_numpy("customer", ["c_custkey", "c_nationkey"])
+    nation = _by_key(c["c_custkey"], c["c_nationkey"])[o["o_custkey"]]
+    names = conn.dictionaries("nation")["n_name"].values[_nation_names(conn)[nation]]
+    uniq, name_codes = np.unique(names, return_inverse=True)
+    years = year_of(o["o_orderdate"])
+    (name_ix, y), _counts, (s,) = _small_groups([name_codes.ravel(), years - years.min()],
+                                                [o["o_totalprice"]])
+    y = y + years.min()
+    out: dict = {"n_name": [], "y": [], "s": [], "a": [], "p": []}
+    for i in range(len(s)):  # groups come in (name, year) order, the ORDER BY's
+        same = name_ix == name_ix[i]
+        out["n_name"].append(uniq[name_ix[i]])
+        out["y"].append(int(y[i]))
+        out["s"].append(int(s[i]))
+        out["a"].append(float(s[same].mean()) / 100)
+        out["p"].append(int(s[i - 1]) if i > 0 and name_ix[i - 1] == name_ix[i] else None)
+    return out
+
+
+def cum_sum_sum_expected(conn) -> dict:
+    o = conn.table_numpy("orders", ["o_totalprice", "o_orderdate"])
+    dates, sums = _sums_by(o["o_orderdate"], o["o_totalprice"])
+    return {"o_orderdate": dates, "c": np.cumsum(sums)}
+
+
+def max_dict_wide_expected(conn) -> dict:
+    c = conn.table_numpy("customer", ["c_nationkey", "c_mktsegment"])
+    nk, seg = c["c_nationkey"], c["c_mktsegment"].astype(np.int64)
+    top = np.zeros(int(nk.max()) + 1, np.int64)
+    np.maximum.at(top, nk, seg)
+    counts = _counts_by(conn.dictionaries("customer")["c_mktsegment"].values[top[nk]].tolist())
+    return {"mx": list(counts), "n": list(counts.values())}
+
+
+def max_dict_wide_bytes_expected(conn) -> dict:
+    s = conn.table_numpy("supplier", ["s_suppkey"])["s_suppkey"]
+    names = _text(column_rows(conn, "supplier", "s_name"))
+    phones = np.array(_text(column_rows(conn, "supplier", "s_phone")), dtype=object)
+    same = _counts_by(names)
+    ranked = np.sort(phones)
+    order = np.argsort(s, kind="stable")
+    return {"s_suppkey": s[order], "c": [same[names[i]] for i in order],
+            "r": (1 + np.searchsorted(ranked, phones, side="left"))[order]}
+
+
+def _nulls_last(rows: list) -> list:
+    """Rows sorted by their first two values, NULLs (None) last."""
+    return sorted(rows, key=lambda r: (r[0] is None, r[0] or "", r[1] is None, r[1] or ""))
+
+
+def _grouping_rows(conn, table: str, keys: list, values: list, sets) -> list:
+    """One row per group of every grouping set over ``table``'s dictionary
+    VARCHAR ``keys``: (the set's key strings with None for the keys it
+    lacks, the row count, the int64 sum of each of ``values``)."""
+    cols = conn.table_numpy(table, keys + values)
+    dicts = conn.dictionaries(table)
+    n = len(cols[keys[0]])
+    rows = []
+    for gs in sets:
+        if not gs:
+            rows.append((*[None] * len(keys), n,
+                         *[int(cols[v].astype(np.int64).sum()) for v in values]))
+            continue
+        groups, counts, sums = _small_groups([cols[k] for k in gs], [cols[v] for v in values])
+        for g in range(len(counts)):
+            key = [dicts[k].values[groups[gs.index(k)][g]] if k in gs else None for k in keys]
+            rows.append((*key, int(counts[g]), *[int(s_[g]) for s_ in sums]))
+    return rows
+
+
+def _rollup_sets(a: str, b: str) -> list:
+    return [(a, b), (a,), ()]
+
+
+def rollup_expected(conn) -> dict:
+    rows = _nulls_last(_grouping_rows(conn, "lineitem", ["l_returnflag", "l_linestatus"],
+                                      ["l_quantity"], _rollup_sets("l_returnflag",
+                                                                   "l_linestatus")))
+    return {"l_returnflag": [r[0] for r in rows], "l_linestatus": [r[1] for r in rows],
+            "s": [r[3] for r in rows], "c": [r[2] for r in rows],
+            "g": [int(r[1] is None) for r in rows]}
+
+
+def cube_expected(conn) -> dict:
+    sets = [("l_returnflag", "l_linestatus"), ("l_returnflag",), ("l_linestatus",), ()]
+    rows = _nulls_last(_grouping_rows(conn, "lineitem", ["l_returnflag", "l_linestatus"],
+                                      ["l_discount"], sets))
+    return {"l_returnflag": [r[0] for r in rows], "l_linestatus": [r[1] for r in rows],
+            "c": [r[2] for r in rows], "a": [r[3] / r[2] / 100 for r in rows]}
+
+
+def grouping_sets_expected(conn) -> dict:
+    sets = [("o_orderpriority",), ("o_orderstatus",), ()]
+    rows = _nulls_last(_grouping_rows(conn, "orders", ["o_orderpriority", "o_orderstatus"],
+                                      ["o_totalprice"], sets))
+    return {"o_orderpriority": [r[0] for r in rows], "_col1": [r[1] for r in rows],
+            "c": [r[2] for r in rows], "s": [r[3] for r in rows]}
+
+
+def rollup_rank_expected(conn) -> dict:
+    rows = _grouping_rows(conn, "lineitem", ["l_returnflag", "l_linestatus"],
+                          ["l_extendedprice"], _rollup_sets("l_returnflag", "l_linestatus"))
+    # partition: (grouping level, the flag where the status is grouped)
+    part = np.array([f"{(r[0] is None) + (r[1] is None)} {r[0] if r[1] is not None else ''}"
+                     for r in rows], dtype=object)
+    ranks = _rank_desc(part, np.array([r[3] for r in rows], np.int64))
+    rows = _nulls_last([(*r, int(k)) for r, k in zip(rows, ranks)])
+    return {"l_returnflag": [r[0] for r in rows], "l_linestatus": [r[1] for r in rows],
+            "s": [r[3] for r in rows], "r": [r[4] for r in rows]}
+
+
+def window_runs() -> dict:
+    """Phase 15's runs: name -> (statement, numpy oracle)."""
+    return {name: (sql, globals()[f"{name}_expected"]) for name, sql in WINDOW_SQL.items()}
+
+
+def window_device_ms(session, sql: str) -> tuple:
+    """(kernel ms, device span ms, CUDA-event ms) of the Window operators
+    in one more run of ``sql``: each ``WindowOperator.finish`` runs in a
+    ``record_function`` span; the profiler sums the device time of the
+    kernels launched inside it (its host-side event) and traces the span
+    on the device (its device-side event), and two CUDA events after a
+    synchronize bracket it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from presto_tpu_torch.exec.operators import WindowOperator
+
+    original = WindowOperator.finish
+    spans: list = []
+
+    def timed(op):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        with record_function("window_operator"):
+            out = original(op)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    WindowOperator.finish = timed
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            session.sql(sql)
+            torch.cuda.synchronize()
+    finally:
+        WindowOperator.finish = original
+    marks = [e for e in prof.events() if e.name == "window_operator"]
+    kernels = sum(e.device_time_total for e in marks if e.device_type == DeviceType.CPU)
+    span = sum(e.time_range.elapsed_us() for e in marks if e.device_type != DeviceType.CPU)
+    return kernels / 1e3, span / 1e3, sum(s.elapsed_time(e) for s, e in spans)
+
+
+def run_window_queries(conn, device: str = "cuda") -> dict:
+    """Phase 15 at SF1 through Session.sql: each window and grouping-set
+    statement equal to its numpy oracle (DOUBLE columns within
+    ``DOUBLE_TOL``) and to the strategy counters its plan predicts, with
+    the walls of a first and a second run, the device busy time of a
+    third and its five largest device ops, and the launches per kernel;
+    the first lane-sums, leaf, LIKE, exists and payload call of each
+    launch shape held to the plain version; the Window operators' device
+    time in ``WINDOW_SHARE``'s statements."""
+    runs = window_runs()
+    t0 = time.perf_counter()
+    cached = ColumnCache(conn)
+    want = {name: fn(cached) for name, (_sql, fn) in runs.items()}
+    del cached
+    rows = {name: len(next(iter(w.values()))) for name, w in want.items()}
+    log(f"phase 15: numpy recomputation of {len(runs)} statements at SF{conn.sf:g} in "
+        f"{time.perf_counter() - t0:.1f} s; rows {rows}")
+    out = {"walls": {}, "launches": {}, "routes": {}, "window_ms": {}}
+    query = {"name": None}
+    with each_probe_shape(query) as probes, first_kernel_calls(query) as calls:
+        for name, (sql, _fn) in runs.items():
+            session = Session({"tpch": conn}, device=device)
+            predicted = planned_routes(session, sql)
+            query["name"] = name
+            try:
+                COUNTERS.clear()
+                _reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = session.sql(sql)
+                torch.cuda.synchronize()
+                first = time.perf_counter() - t0
+                n = _launch_counts()
+                route = dict(COUNTERS)
+            finally:
+                query["name"] = None
+            doubles = WINDOW_DOUBLES.get(name, ())
+            close_result(res, want[name], f"{name} at SF{conn.sf:g}", doubles)
+            got = {k: v for k, v in route.items()
+                   if k.startswith(("join.strategy.", "agg.strategy.")) and v}
+            check(got == predicted, f"{name}: strategy counters {got}, the plan predicts "
+                  f"{predicted}")
+            check(route.get("exec.pallas_join_route", 0) == got.get("join.strategy.pallas", 0)
+                  and route.get("join.pallas_fallback", 0) == 0,
+                  f"{name}: fused-probe routes {route}")
+            check_vector_probes(name, n)
+            out["launches"][name] = n
+            out["routes"][name] = {**got, **{k: v for k, v in route.items()
+                                             if k.startswith("exec.") and v}}
+            t0 = time.perf_counter()
+            again = session.sql(sql)
+            torch.cuda.synchronize()
+            second = time.perf_counter() - t0
+            close_result(again, want[name], f"{name} at SF{conn.sf:g}, second run", doubles)
+            busy_ms, scan_s, ops = device_ops(session, conn, sql)
+            out["walls"][name] = (first, second, busy_ms, scan_s)
+            log(f"  {name}: {len(res)} rows equal to numpy; wall first {first:.3f} s, second "
+                f"{second:.3f} s; launches { {k: v for k, v in n.items() if v} }; routes "
+                f"{out['routes'][name]} (planned {predicted})")
+            log(f"  {name} breakdown (a third, profiled run): device busy {busy_ms:.1f} ms, "
+                f"connector scans {scan_s:.3f} s; the device ops with the most of it (ms, "
+                "calls): " + "; ".join(f"{k} {ms:.2f} ({c})" for k, ms, c in ops[:5]))
+            if name in WINDOW_SHARE:
+                kernels, span, evented = window_device_ms(session, sql)
+                out["window_ms"][name] = (kernels, span, evented, busy_ms)
+                log(f"  {name}: the Window operator's kernels {kernels:.1f} ms of the "
+                    f"{busy_ms:.1f} ms busy ({100 * kernels / max(busy_ms, 1e-9):.1f} %); its "
+                    f"span on the device {span:.1f} ms, {evented:.1f} ms between events")
+    out["probes"] = probes
+    out["probe_err"] = hold_probe_shapes(probes)
+    out["calls"] = calls
+    out["call_err"] = hold_kernel_calls(calls)
+    for mode in ("exists", "payload"):
+        held = {rows for m, rows, _key in probes if m == mode}
+        ran = {rows for n in out["launches"].values() for rows in n["probe_by_shape"][mode]}
+        check(held == ran, f"phase 15's {mode} launches at rows {sorted(ran)}, held to the "
+              f"plain version at {sorted(held)}")
+    for kernel in ("lane_sums", "leaf_agg", "like"):
+        ran = sum(n[kernel] for n in out["launches"].values())
+        held = [shape for k, shape in calls if k == kernel]
+        check((ran > 0) == bool(held), f"phase 15's {kernel}: {ran} launches, shapes held "
+              f"{held}")
+    check(all(n["sketch"] == 0 and n["q1"] == 0 and n["q3"] == 0 and n["prefix"] == 0
+              for n in out["launches"].values()),
+          "phase 15 launched a kernel its plans do not route to")
+    busy = sum(w[2] for w in out["walls"].values())
+    log(f"  phase 15's device busy time {busy:.1f} ms")
+    for k in ("lane_sums", "like", "leaf_agg", "exists", "payload"):
+        out[f"{k}_launches"] = sum(n[k] for n in out["launches"].values())
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 9: semi and anti joins, the approximate sketch, the Q3 join step
 # ---------------------------------------------------------------------------
 
@@ -4698,6 +5165,35 @@ def main() -> int:
     log(f"  phase 14's launches of the other kernels: {p14_other}; lane-sums and leaf by "
         f"instance {p14_by_instance}; LIKE by instance {p14_like_by_instance}; shapes held to "
         f"plain: {sorted(str(k) for k in surf['calls'])}")
+    # the LIKE kernel at phase 14's concat_like shape (two launches there)
+    for (kernel, shape), seen in sorted(surf["calls"].items(), key=lambda kv: str(kv[0])):
+        if kernel == "like":
+            label = f"{seen['query']} first {shape[0]} x {shape[1]} call"
+            t = like_shapes[label] = time_like(*seen["args"], flush)
+            log(f"phase 5, like_mask {t['pattern']!r} at {label}, {t['instance']} instance: "
+                f"{t['ms']:.4f} (call {t['call_ms']:.4f}, plain {t['plain_ms']:.4f}, bound "
+                f"{t['bound_ms']:.4f} by {t['bound_by']})")
+    # ---- phase 15: window functions and grouping sets -----------------------
+    mark("15 windows")
+    win = run_window_queries(string_conns["tpch"])
+    for name, (first, second, busy, scan) in win["walls"].items():
+        log(f"  wall {name}: first {first:.3f} s, second {second:.3f} s, device busy "
+            f"{busy:.1f} ms, connector scans {scan:.3f} s")
+    p15 = probe_launch_totals(win["launches"])
+    totals = probe_launch_totals(join["launches"], strings["launches"], semi["launches"],
+                                 outer["launches"], expr["launches"], sub["launches"],
+                                 feat["launches"], surf["launches"], win["launches"])
+    log(f"  exists, sketch and payload launches with phase 15: {totals}; phase 15's alone: "
+        f"{p15}")
+    p15_other = {k: sum(n[k] for n in win["launches"].values())
+                 for k in ("q1", "lane_sums", "leaf_agg", "q3", "like", "prefix")}
+    p15_by_instance = _summed(*(n["by_instance"] for n in win["launches"].values()))
+    p15_like_by_instance = _summed(*(n["like_by_instance"] for n in win["launches"].values()))
+    p15_like_by_shape = _summed(*(n["like_by_shape"] for n in win["launches"].values()))
+    log(f"  phase 15's launches of the other kernels: {p15_other}; lane-sums and leaf by "
+        f"instance {p15_by_instance}; per statement "
+        f"{ {q: {k: n[k] for k in ('leaf_agg', 'lane_sums', 'exists', 'payload') if n[k]} for q, n in win['launches'].items()} }; "
+        f"shapes held to plain: {sorted(str(k) for k in win['calls'])}")
     mark("json")
     log("phase seconds: " + ", ".join(f"{a} {t1 - t0:.1f}" for (a, t0), (_b, t1)
                                       in zip(marks, marks[1:])))
@@ -4708,9 +5204,9 @@ def main() -> int:
          "replaces": "presto_tpu/ops/pallas_q1.py:114",
          "jax_function": "presto_tpu/ops/pallas_q1.py:174 q1_step",
          "launches": (q1_launches + p11_other["q1"] + p12_other["q1"] + p13_other["q1"]
-                      + p14_other["q1"]),
+                      + p14_other["q1"] + p15_other["q1"]),
          "phase11_launches": p11_other["q1"], "phase12_launches": p12_other["q1"],
-         "phase13_launches": p13_other["q1"], "phase14_launches": p14_other["q1"],
+         "phase13_launches": p13_other["q1"], "phase14_launches": p14_other["q1"], "phase15_launches": p15_other["q1"],
          "max_abs_err": q1_err, "ms": q1_ms, "kernel_ms": q1_ms,
          "call_ms": q1_call_ms,
          "plain_ms": q1_plain_ms, "bound_ms": q1_bound, "bound_by": q1_by,
@@ -4721,8 +5217,9 @@ def main() -> int:
          "jax_function": "presto_tpu/ops/pallas_groupby.py:177 fused_lane_sums",
          "launches": (lane_launches + outer["lane_launches"] + expr["lane_sums_launches"]
                       + sub["lane_sums_launches"] + p13_other["lane_sums"]
-                      + p14_other["lane_sums"]),
+                      + p14_other["lane_sums"] + p15_other["lane_sums"]),
          "phase13_launches": p13_other["lane_sums"], "phase14_launches": p14_other["lane_sums"],
+         "phase15_launches": p15_other["lane_sums"],
          "phase14_launches_by_instance": {k.split()[1]: c for k, c in p14_by_instance.items()
                                           if k.startswith("lane_sums ")},
          "launches_by_instance": _summed(lane_by_instance, outer["lane_by_instance"],
@@ -4735,7 +5232,7 @@ def main() -> int:
          "phase11_launches": expr["lane_sums_launches"],
          "phase11_launches_by_instance": expr["lane_by_instance"],
          "max_abs_err": max(lane_err, ln["err"], ln_phone["err"], ln_q4["err"],
-                            surf["call_err"]["lane_sums"]),
+                            surf["call_err"]["lane_sums"], win["call_err"]["lane_sums"]),
          "ms": ln["ms"], "kernel_ms": ln["ms"], "call_ms": ln["call_ms"],
          "plain_ms": ln["plain_ms"], "bound_ms": lane_bound, "bound_by": lane_by,
          "library_ms": ln["library_ms"], "rows": cap, "bytes": ln["bytes"], "ops": ln["ops"],
@@ -4755,7 +5252,9 @@ def main() -> int:
          "launches": totals["exists"]["launches"],
          "launches_by_shape": totals["exists"]["by_shape"],
          "launches_by_instance": totals["exists"]["by_instance"],
-         "launches_from": "phases 6, 8, 9, 10, 11, 12, 13 and 14",
+         "launches_from": "phases 6, 8, 9, 10, 11, 12, 13, 14 and 15",
+         "phase15_launches": p15["exists"]["launches"],
+         "phase15_launches_by_shape": p15["exists"]["by_shape"],
          "phase14_launches": p14["exists"]["launches"],
          "phase14_launches_by_shape": p14["exists"]["by_shape"],
          "phase13_launches": p13["exists"]["launches"],
@@ -4767,7 +5266,7 @@ def main() -> int:
          "phase12_launches_by_instance": p12["exists"]["by_instance"],
          "max_abs_err": max([exists_err, keep_err["exists"], expr["probe_err"]["exists"],
                              sub["probe_err"]["exists"], feat["probe_err"]["exists"],
-                             surf["probe_err"]["exists"]]
+                             surf["probe_err"]["exists"], win["probe_err"]["exists"]]
                             + [t["err"] for t in probe_shapes["exists"].values()]),
          "ms": ex["ms"], "kernel_ms": ex["ms"], "call_ms": ex["call_ms"],
          "plain_ms": ex["plain_ms"], "bound_ms": exists_bound, "bound_by": exists_by,
@@ -4786,6 +5285,7 @@ def main() -> int:
          "phase12_launches": p12["sketch"]["launches"],
          "phase13_launches": p13["sketch"]["launches"],
          "phase14_launches": p14["sketch"]["launches"],
+         "phase15_launches": p15["sketch"]["launches"],
          "max_abs_err": max([sketch_err, keep_err["sketch"]]
                             + [t["err"] for t in probe_shapes["sketch"].values()]),
          "ms": sk["ms"], "kernel_ms": sk["ms"], "call_ms": sk["call_ms"],
@@ -4798,9 +5298,9 @@ def main() -> int:
          "replaces": "presto_tpu/ops/pallas_join.py:443",
          "jax_function": "presto_tpu/ops/pallas_join.py:464 q3_probe_step",
          "launches": (semi["q3_launches"] + p11_other["q3"] + p12_other["q3"] + p13_other["q3"]
-                      + p14_other["q3"]),
+                      + p14_other["q3"] + p15_other["q3"]),
          "phase11_launches": p11_other["q3"], "phase12_launches": p12_other["q3"],
-         "phase13_launches": p13_other["q3"], "phase14_launches": p14_other["q3"],
+         "phase13_launches": p13_other["q3"], "phase14_launches": p14_other["q3"], "phase15_launches": p15_other["q3"],
          "max_abs_err": max(q3_kernel_err, semi["q3"]["err"]),
          "ms": q3_one["ms"], "kernel_ms": q3_one["ms"], "call_ms": q3_one["call_ms"],
          "plain_ms": q3_one["plain_ms"], "bound_ms": q3_bound, "bound_by": q3_by,
@@ -4815,7 +5315,9 @@ def main() -> int:
          "launches": totals["payload"]["launches"],
          "launches_by_shape": totals["payload"]["by_shape"],
          "launches_by_instance": totals["payload"]["by_instance"],
-         "launches_from": "phases 6, 8, 9, 10, 11, 12, 13 and 14",
+         "launches_from": "phases 6, 8, 9, 10, 11, 12, 13, 14 and 15",
+         "phase15_launches": p15["payload"]["launches"],
+         "phase15_launches_by_shape": p15["payload"]["by_shape"],
          "phase14_launches": p14["payload"]["launches"],
          "phase14_launches_by_shape": p14["payload"]["by_shape"],
          "phase13_launches": p13["payload"]["launches"],
@@ -4829,7 +5331,7 @@ def main() -> int:
          "phase12_launches_by_instance": p12["payload"]["by_instance"],
          "max_abs_err": max([payload_err, expr["probe_err"]["payload"],
                              sub["probe_err"]["payload"], feat["probe_err"]["payload"],
-                             surf["probe_err"]["payload"]]
+                             surf["probe_err"]["payload"], win["probe_err"]["payload"]]
                             + [t["err"] for t in probe_shapes["payload"].values()]),
          "ms": pay["ms"], "kernel_ms": pay["ms"], "call_ms": pay["call_ms"],
          "plain_ms": pay["plain_ms"], "bound_ms": pay["bound_ms"], "bound_by": pay["bound_by"],
@@ -4841,18 +5343,23 @@ def main() -> int:
          "replaces": "presto_tpu/ops/pallas_agg.py:180",
          "jax_function": "presto_tpu/ops/pallas_agg.py:246 _pallas_step (via agg_step :346)",
          "launches": (leaf["leaf_launches"] + p11_other["leaf_agg"] + p12_other["leaf_agg"]
-                      + p13_other["leaf_agg"] + p14_other["leaf_agg"]),
+                      + p13_other["leaf_agg"] + p14_other["leaf_agg"]
+                      + p15_other["leaf_agg"]),
          "phase11_launches": p11_other["leaf_agg"], "phase12_launches": p12_other["leaf_agg"],
          "phase13_launches": p13_other["leaf_agg"], "phase14_launches": p14_other["leaf_agg"],
+         "phase15_launches": p15_other["leaf_agg"],
+         "phase15_launches_by_instance": {k.split()[1]: c for k, c in p15_by_instance.items()
+                                          if k.startswith("leaf_agg ")},
          "phase14_launches_by_instance": {k.split()[1]: c for k, c in p14_by_instance.items()
                                           if k.startswith("leaf_agg ")},
          "phase12_launches_by_instance": sub["leaf_by_instance"],
-         "launches_from": "phase 7 (Q6, SSB Q1.1-1.3), phase 11 and phase 12 (none at SF1: "
-                          "Q15's revenue view is not fused there)",
+         "launches_from": "phase 7 (Q6, SSB Q1.1-1.3), phase 11, phase 12 (none at SF1: "
+                          "Q15's revenue view is not fused there) and phase 15 (one a "
+                          "split and grouping set)",
          "launches_by_shape": leaf["by_shape"],
          "launches_by_instance": leaf["by_instance"],
          "max_abs_err": max(leaf_err, sp["err"], sm_["err"], res_["err"],
-                            surf["call_err"]["leaf_agg"]),
+                            surf["call_err"]["leaf_agg"], win["call_err"]["leaf_agg"]),
          "ms": sp["ms"], "kernel_ms": sp["ms"], "call_ms": sp["call_ms"],
          "plain_ms": sp["plain_ms"], "bound_ms": leaf_bound, "bound_by": leaf_by,
          "library_ms": sp["library_ms"], "rows": sp["rows"], "bytes": sp["bytes"],
@@ -4866,12 +5373,13 @@ def main() -> int:
          "replaces": "presto_tpu/ops/pallas_strings.py:118",
          "jax_function": "presto_tpu/ops/pallas_strings.py:190 like_mask_pallas",
          "launches": (strings["like_launches"] + outer["like_launches"] + expr["like_launches"]
-                      + sub["like_launches"] + p13_other["like"] + p14_other["like"]),
+                      + sub["like_launches"] + p13_other["like"] + p14_other["like"]
+                      + p15_other["like"]),
          "launches_by_instance": _summed(strings["like_by_instance"],
                                          outer["like_by_instance"], expr["like_by_instance"],
                                          sub["like_by_instance"], p13_like_by_instance,
-                                         p14_like_by_instance),
-         "phase13_launches": p13_other["like"], "phase14_launches": p14_other["like"],
+                                         p14_like_by_instance, p15_like_by_instance),
+         "phase13_launches": p13_other["like"], "phase14_launches": p14_other["like"], "phase15_launches": p15_other["like"],
          "phase14_launches_by_instance": p14_like_by_instance,
          "phase13_launches_by_instance": p13_like_by_instance,
          "launches_from": "phase 8 (LIKE queries), phase 10 (Q13, Q5), phase 11 (Q16) and "
@@ -4882,8 +5390,9 @@ def main() -> int:
          "phase12_launches_by_instance": sub["like_by_instance"],
          "launches_by_shape": _summed(strings["like_by_shape"], outer["like_by_shape"],
                                       expr["like_by_shape"], sub["like_by_shape"],
-                                      p13_like_by_shape, p14_like_by_shape),
-         "max_abs_err": max([like_err, sub["like_err"], surf["call_err"]["like"]]
+                                      p13_like_by_shape, p14_like_by_shape, p15_like_by_shape),
+         "max_abs_err": max([like_err, sub["like_err"], surf["call_err"]["like"],
+                            win["call_err"]["like"]]
                             + [t["err"] for t in like_shapes.values()]),
          "ms": lk["ms"], "kernel_ms": lk["ms"], "call_ms": lk["call_ms"],
          "plain_ms": lk["plain_ms"], "bound_ms": like_bound, "bound_by": like_by,
@@ -4895,9 +5404,11 @@ def main() -> int:
          "replaces": "presto_tpu/ops/pallas_strings.py:246",
          "jax_function": "presto_tpu/ops/pallas_strings.py:251 starts_with_pallas",
          "launches": (strings["prefix_launches"] + p11_other["prefix"] + p12_other["prefix"]
-                      + p13_other["prefix"] + p14_other["prefix"]),
+                      + p13_other["prefix"] + p14_other["prefix"]
+                      + p15_other["prefix"]),
          "phase11_launches": p11_other["prefix"], "phase12_launches": p12_other["prefix"],
          "phase13_launches": p13_other["prefix"], "phase14_launches": p14_other["prefix"],
+         "phase15_launches": p15_other["prefix"],
          "launches_from": "phase 8 (the starts_with pipeline); phase 12's like 'forest%' "
                           "runs the LIKE kernel, as in the JAX package",
          "launches_by_instance": strings["prefix_by_instance"],

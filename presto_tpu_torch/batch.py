@@ -294,28 +294,31 @@ class QueryResult:
         self.types: dict[str, DataType] = {}
         self._cols: dict[str, tuple] = {}
         for name in self.names:
-            parts, valids = [], []
+            parts = []
             for b in batches:
                 live = b.live.cpu().numpy()
                 c = b[name]
-                parts.append(c.data.cpu().numpy()[live])
-                valids.append(np.ones(int(live.sum()), np.bool_) if c.valid is None
-                              else c.valid.cpu().numpy()[live])
-            c = batches[0][name] if batches else None
-            self.types[name] = c.dtype if c is not None else None
-            self._cols[name] = (parts, valids, c.dictionary if c is not None else None)
+                valid = (np.ones(int(live.sum()), np.bool_) if c.valid is None
+                         else c.valid.cpu().numpy()[live])
+                parts.append((c.data.cpu().numpy()[live], valid, c.dtype, c.dictionary))
+            self.types[name] = parts[0][2] if parts else None
+            self._cols[name] = parts
 
     def __len__(self) -> int:
-        first = self._cols[self.names[0]][1] if self.names else []
-        return int(sum(len(v) for v in first))
+        first = self._cols[self.names[0]] if self.names else []
+        return int(sum(len(p[1]) for p in first))
+
+    def parts(self, name: str, logical: bool = True) -> list[np.ndarray]:
+        """The column decoded batch by batch, each batch with its own type
+        and dictionary (a UNION branch of NULL literals carries none), as
+        the JAX package decodes each batch of its result."""
+        return [decode_values(data, valid, t, d, logical=logical)
+                for data, valid, t, d in self._cols[name]]
 
     def _decode(self, name: str, logical: bool) -> np.ndarray:
-        parts, valids, d = self._cols[name]
-        t = self.types[name]
-        if t is None:
+        if self.types[name] is None:
             return np.zeros(0, dtype=object)
-        data = np.concatenate(parts) if parts else np.zeros(0)
-        return decode_values(data, np.concatenate(valids), t, d, logical=logical)
+        return np.concatenate(self.parts(name, logical))
 
     def column(self, name: str) -> np.ndarray:
         return self._decode(name, logical=False)

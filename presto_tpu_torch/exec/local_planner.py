@@ -92,6 +92,7 @@ from presto_tpu_torch.exec.operators import (
     concat_batches,
     union_target_dicts,
     valid_of,
+    window_operator_from_node,
 )
 from presto_tpu_torch.exec.pipeline import BatchStream, Pipeline, prefetch_iter
 from presto_tpu_torch.expr import InputRef, bind_scalars, evaluate
@@ -679,6 +680,13 @@ class LocalExecutor:
     def _exec_limit(self, node: N.Limit, scalars):
         child = self._exec(node.child, scalars)
         return BatchStream.of(Pipeline(child, [LimitOperator(node.count)]).run())
+
+    # ---- window functions ------------------------------------------------
+    def _exec_window(self, node: N.Window, scalars):
+        """Drain the child, then one batch in the window's sort order."""
+        child = self._exec(node.child, scalars)
+        op = window_operator_from_node(node, scalars)
+        return BatchStream.of(Pipeline(child, [op]).run())
 
     # ---- FROM-less SELECT and set operations ------------------------------
     def _exec_values(self, node: N.Values, scalars) -> BatchStream:

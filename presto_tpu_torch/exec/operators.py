@@ -12,9 +12,10 @@ the sort strategy with passengers (merge-by-sort into a bounded group
 state; a BYTES key groups by its 7-byte int64 chunks);
 ``GlobalAggregationOperator`` (no GROUP BY); ``OrderByOperator`` and
 ``TopNOperator`` over concatenated batches (BYTES sort keys included);
-``LimitOperator``; and the UNION helpers ``union_target_dicts`` and
-``align_batch_dicts`` (children of one column with different
-dictionaries re-encode into their merge).
+``LimitOperator``; ``WindowOperator`` (one sort of the concatenated
+input, then segmented scans); and the UNION helpers
+``union_target_dicts`` and ``align_batch_dicts`` (children of one column
+with different dictionaries re-encode into their merge).
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ import torch
 
 from presto_tpu_torch.batch import Batch, Column, Dictionary
 from presto_tpu_torch.devices import resolve_device
-from presto_tpu_torch.expr import Expr, evaluate, evaluate_predicate
+from presto_tpu_torch.expr import Expr, bind_scalars, evaluate, evaluate_predicate
 from presto_tpu_torch.ops.groupby import (
     ValueBitsOverflow,
     _identity,
@@ -38,7 +39,13 @@ from presto_tpu_torch.ops.groupby import (
     segment_agg,
 )
 from presto_tpu_torch.ops.sort import bytes_sort_chunks, sort_indices
-from presto_tpu_torch.runtime.errors import NotSupported, ResourceExhausted
+from presto_tpu_torch.ops.window import (
+    change_flags,
+    rank_values,
+    segment_starts,
+    windowed_agg,
+)
+from presto_tpu_torch.runtime.errors import InternalError, NotSupported, ResourceExhausted
 from presto_tpu_torch.types import DataType, TypeKind
 
 
@@ -130,6 +137,8 @@ class AggSpec:
     name: str
     dtype: DataType
     value_bits: int = 63
+    #: row offset for the lag/lead window kinds (unused elsewhere)
+    offset: int = 1
 
 
 @dataclass(frozen=True)
@@ -605,6 +614,170 @@ def align_batch_dicts(b: Batch, targets: dict, _cache: dict | None = None) -> Ba
                 _cache[key] = mapping
         cols[n] = Column(mapping[c.data.to(torch.int64)], c.valid, c.dtype, target)
     return Batch(cols, b.live)
+
+
+#: window kinds that read their neighbours in sort order
+_OFFSET_KINDS = ("lag", "lead", "first_value")
+
+
+def _key_parts(v) -> list[torch.Tensor]:
+    """int64 comparison columns of a window key: a BYTES key its PAD
+    SPACE big-endian 7-byte chunks (one chunk up to width 7, the JAX
+    package's ``_sortable``), anything else its own data."""
+    if v.dtype.kind is TypeKind.BYTES:
+        return bytes_sort_chunks(v.data)
+    return [v.data]
+
+
+class WindowOperator(CollectingOperator):
+    """Window functions over the concatenated input (the JAX package's
+    ``WindowOperator``): one stable multi-key sort by (partition keys,
+    order keys), then every function by segmented scans and boundary
+    gathers over the sorted rows (``ops/window.py``), no per-partition
+    loop. The output batch stays in that sort order.
+
+    ``funcs`` reuse AggSpec: row_number / rank / dense_rank and lag /
+    lead (``offset`` rows) / first_value need order keys; sum / count /
+    count_star / min / max are windowed aggregates over ``frame``
+    ('range', 'rows' or 'full'). The JAX package's executable cache and
+    parameter slots have no counterpart here."""
+
+    def __init__(self, partition_by: Sequence[Expr], order_keys: Sequence[SortKey],
+                 funcs: Sequence[AggSpec], frame: str = "range"):
+        super().__init__()
+        self.partition_by = list(partition_by)
+        self.order_keys = list(order_keys)
+        self.funcs = list(funcs)
+        self.frame = frame
+        if frame not in ("range", "rows", "full"):
+            raise InternalError(f"unsupported window frame {frame!r}")
+        ranked = [f for f in funcs
+                  if f.kind in ("row_number", "rank", "dense_rank") + _OFFSET_KINDS]
+        if ranked and not self.order_keys:
+            raise ValueError(f"{ranked[0].kind}() requires ORDER BY in its window")
+
+    def _sort(self, batch: Batch):
+        """The sort order, and the partition and peer comparison columns
+        (NULL-normalized, in input order). Partition keys sort as an
+        is-null flag then the value with NULLs zeroed (NULLs one group);
+        order keys with SQL null placement."""
+        sort_cols, descs, nfs, valids = [], [], [], []
+        part_cmp: list = []
+        for e in self.partition_by:
+            v = evaluate(e, batch)
+            valid = valid_of(v.valid, batch.live)
+            isnull = (~valid).to(torch.int32)
+            sort_cols.append(isnull)
+            descs.append(False)
+            nfs.append(False)
+            valids.append(None)
+            part_cmp.append(isnull)
+            for p in _key_parts(v):
+                norm = torch.where(valid, p, torch.zeros_like(p))
+                sort_cols.append(norm)
+                descs.append(False)
+                nfs.append(False)
+                valids.append(None)
+                part_cmp.append(norm)
+        peer_cmp: list = []
+        for k in self.order_keys:
+            v = evaluate(k.expr, batch)
+            valid = valid_of(v.valid, batch.live)
+            peer_cmp.append((~valid).to(torch.int32))
+            for j, p in enumerate(_key_parts(v)):
+                sort_cols.append(p)
+                descs.append(k.descending)
+                nfs.append(k.nulls_first)
+                valids.append(valid if j == 0 else None)
+                peer_cmp.append(torch.where(valid, p, torch.zeros_like(p)))
+        order = sort_indices(sort_cols, descs, batch.live, nulls_first=nfs, valids=valids)
+        return order, part_cmp, peer_cmp
+
+    def _offset_column(self, f: AggSpec, sorted_batch: Batch, seg_start) -> Column:
+        """lag / lead / first_value: a gather fenced by the partition
+        start (a row of another partition reads as NULL)."""
+        live = sorted_batch.live
+        cap = live.shape[0]
+        idx = torch.arange(cap, device=live.device)
+        v = evaluate(f.input, sorted_batch)
+        cvalid = live & valid_of(v.valid, live)
+        if f.kind == "first_value":
+            src, ok = seg_start, torch.ones_like(live)
+        elif f.kind == "lag":
+            src = torch.clamp(idx - f.offset, 0, cap - 1)
+            ok = (idx - f.offset) >= seg_start
+        else:  # lead: the same partition iff its start matches
+            src = torch.clamp(idx + f.offset, 0, cap - 1)
+            ok = ((idx + f.offset) < cap) & (seg_start[src] == seg_start)
+        # v.dtype is the physical storage of the shifted column (narrow
+        # scan data passes through the gather unchanged)
+        return Column(v.data[src], ok & cvalid[src] & live, v.dtype, v.dictionary)
+
+    def _window(self, batch: Batch) -> Batch:
+        cap, dev = batch.capacity, batch.device
+        order, part_cmp, peer_cmp = self._sort(batch)
+        cols = {n: Column(c.data[order], valid_of(c.valid, batch.live)[order], c.dtype,
+                          c.dictionary)
+                for n, c in batch.columns.items()}
+        live = batch.live[order]
+        sorted_batch = Batch(cols, live)
+        # liveness counts: the dead tail is a segment of its own and never
+        # extends a live partition's scans
+        part_change = change_flags([c[order] for c in part_cmp] + [live.to(torch.int32)])
+        peer_change = (part_change | change_flags([c[order] for c in peer_cmp])
+                       if peer_cmp else part_change)
+        row_number, rank, dense = rank_values(part_change, peer_change)
+        all_valid = torch.ones(cap, dtype=torch.bool, device=dev)
+        seg_start = None
+        for f in self.funcs:
+            if f.kind in _OFFSET_KINDS:
+                if seg_start is None:
+                    seg_start = segment_starts(part_change)
+                cols[f.name] = self._offset_column(f, sorted_batch, seg_start)
+                continue
+            ranked = {"row_number": row_number, "rank": rank, "dense_rank": dense}.get(f.kind)
+            if ranked is not None:
+                cols[f.name] = Column(ranked, all_valid, f.dtype)
+                continue
+            dictionary = None
+            if f.kind == "count_star" or f.input is None:
+                vals, contrib = torch.ones(cap, dtype=torch.int64, device=dev), live
+            else:
+                v = evaluate(f.input, sorted_batch)
+                dictionary = v.dictionary  # min / max over ordered codes
+                contrib = live & valid_of(v.valid, live)
+                if f.kind == "count":
+                    vals = torch.ones(cap, dtype=torch.int64, device=dev)
+                else:
+                    vals = v.data.to(_phys_dtype(f))
+            counting = f.kind in ("count", "count_star")
+            val, cnt = windowed_agg(vals, contrib, part_change, peer_change,
+                                    "sum" if counting else f.kind, self.frame)
+            if counting:
+                cols[f.name] = Column(val.to(f.dtype.torch_dtype), all_valid, f.dtype)
+            else:
+                valid = cnt > 0
+                cols[f.name] = Column(
+                    torch.where(valid, val, torch.zeros_like(val)).to(f.dtype.torch_dtype),
+                    valid, f.dtype, dictionary)
+        return Batch(cols, live)
+
+    def finish(self) -> list[Batch]:
+        if not self.batches:
+            return []
+        return [self._window(concat_batches(self.batches))]
+
+
+def window_operator_from_node(node, scalars) -> WindowOperator:
+    """Lower an ``N.Window`` plan node to a WindowOperator, its
+    expressions with the scalar subqueries' values bound."""
+    part = [bind_scalars(e, scalars) for e in node.partition_by]
+    keys = [SortKey(bind_scalars(k.expr, scalars), k.descending, k.nulls_first)
+            for k in node.order_by]
+    aggs = [AggSpec(f.kind, bind_scalars(f.input, scalars) if f.input is not None else None,
+                    f.name, f.dtype, offset=f.offset)
+            for f in node.funcs]
+    return WindowOperator(part, keys, aggs, node.frame)
 
 
 class LimitOperator(Operator):

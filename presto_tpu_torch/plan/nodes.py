@@ -1,9 +1,9 @@
 """Logical plan nodes.
 
 Counterpart of ``presto_tpu/plan/nodes.py`` for the node kinds the
-ported analyzer produces: TableScan, Filter, Project, Aggregate, Join,
-SemiJoin, Values, Union, Sort, TopN, Limit, ScalarValue, BindScalars and
-Output.
+ported analyzer produces: TableScan, Filter, Project, Aggregate, Window,
+Join, SemiJoin, Values, Union, Sort, TopN, Limit, ScalarValue,
+BindScalars and Output.
 Fields are named, typed columns; expressions are the typed IR of
 ``presto_tpu_torch.expr``. The JAX
 package's runtime join filters are not ported, so scans carry none.
@@ -99,6 +99,28 @@ class Aggregate(PlanNode):
         return (tuple(Field(n, e.dtype) for n, e in self.keys)
                 + tuple(Field(n, e.dtype) for n, e in self.passengers)
                 + tuple(Field(a.name, a.dtype) for a in self.aggs))
+
+
+@dataclass(frozen=True)
+class Window(PlanNode):
+    """Window functions over partitioned, ordered row frames. ``funcs``
+    reuse AggSpec; kinds also include rank / dense_rank / row_number and
+    lag / lead / first_value. frame: 'range' | 'rows' | 'full' (see
+    ``sql.ast.WindowSpec``)."""
+
+    child: PlanNode
+    partition_by: tuple[Expr, ...]
+    order_by: tuple[SortKey, ...]
+    funcs: tuple[AggSpec, ...]
+    frame: str = "range"
+
+    @property
+    def children(self):
+        return (self.child,)
+
+    @property
+    def fields(self):
+        return self.child.fields + tuple(Field(f.name, f.dtype) for f in self.funcs)
 
 
 @dataclass(frozen=True)
@@ -305,6 +327,8 @@ def plan_tree_str(node: PlanNode, indent: int = 0, catalog=None,
             from presto_tpu_torch.exec.local_planner import planned_join_strategy
 
             detail += f" strategy={planned_join_strategy(node, catalog, approx_join)}"
+    elif isinstance(node, Window):
+        detail = f" funcs={[f.name for f in node.funcs]} frame={node.frame}"
     elif isinstance(node, (TopN, Limit)):
         detail = f" n={node.count}"
     elif isinstance(node, Output):

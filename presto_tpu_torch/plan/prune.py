@@ -85,6 +85,17 @@ def prune(node: N.PlanNode, needed: set[str] | None = None) -> N.PlanNode:
             prune(node.left, lneed), prune(node.right, rneed),
             node.left_keys, node.right_keys, node.negated,
         )
+    if isinstance(node, N.Window):
+        # an unreferenced window function is pruned away
+        funcs = node.funcs
+        if needed is not None:
+            funcs = tuple(f for f in funcs if f.name in needed)
+        want = set(needed) if needed is not None else set(node.field_names())
+        want -= {f.name for f in node.funcs}
+        want |= _refs(node.partition_by)
+        want |= _refs([k.expr for k in node.order_by])
+        want |= _refs([f.input for f in funcs])
+        return replace(node, child=prune(node.child, want), funcs=funcs)
     if isinstance(node, (N.Sort, N.TopN)):
         want = set(needed) if needed is not None else set(node.field_names())
         want |= _refs([k.expr for k in node.keys])

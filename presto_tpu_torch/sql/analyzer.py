@@ -41,17 +41,25 @@ unique-build detection from table keys, and functional-dependency
 grouping (keys covered by a table's unique key ride as passengers), so
 both packages build the same plan tree for the same statement.
 
-Windows, grouping sets (ROLLUP, CUBE, GROUPING SETS), ``?`` parameters
-and statements other than queries raise ``NotSupported`` naming the
-construct; so do an uncorrelated EXISTS and ``<>`` correlation in a
-scalar subquery, which the JAX package refuses too. Every other refusal
+Window functions (``row_number``, ``rank``, ``dense_rank``, ``lag`` /
+``lead`` with a literal offset, ``first_value`` and ``sum`` / ``count`` /
+``min`` / ``max`` / ``avg`` over the RANGE, ROWS and whole-partition
+frames) in SELECT and ORDER BY: one ``Window`` node per distinct OVER
+spec, chained in first-seen order, above the aggregation and HAVING.
+GROUP BY ROLLUP / CUBE / GROUPING SETS with ``grouping()``: a UNION ALL
+of one grouped branch per set (absent keys typed NULLs outside aggregate
+arguments, ``grouping()`` folded to 0 or 1); with windows, the branches
+feed an outer query that carries them. ``?`` parameters and statements
+other than queries raise ``NotSupported`` naming the construct; so do an
+uncorrelated EXISTS and ``<>`` correlation in a scalar subquery, which
+the JAX package refuses too. Every other refusal
 is the JAX package's ``AnalysisError``, word for word.
 """
 
 from __future__ import annotations
 
 import re
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Optional, Sequence
 
 import numpy as np
@@ -63,6 +71,7 @@ from presto_tpu_torch.expr import (
     split_part_fn, substr_dict_fn, substr_fn)
 from presto_tpu_torch.plan import nodes as N
 from presto_tpu_torch.plan.catalog import Catalog, TableMeta
+from presto_tpu_torch.plan.prune import expr_refs
 from presto_tpu_torch.runtime.errors import NotSupported, UserError
 from presto_tpu_torch.sql import ast as A
 from presto_tpu_torch.types import (
@@ -183,6 +192,105 @@ def collect_aggs(n, out: list[A.FunctionCall]):
     elif isinstance(n, tuple):
         for v in n:
             collect_aggs(v, out)
+
+
+WINDOW_ONLY_FUNCS = {"rank", "dense_rank", "row_number"}
+
+
+def _collect_grouping_calls(n, out: list):
+    """``grouping(col)`` calls (fold to 0/1 per grouping-set branch)."""
+    if isinstance(n, A.FunctionCall) and n.name == "grouping":
+        if n not in out:
+            out.append(n)
+        return
+    if isinstance(n, (A.Exists, A.InSubquery, A.ScalarSubquery)):
+        return
+    if isinstance(n, A.Node):
+        for v in _ast_fields(n):
+            _collect_grouping_calls(v, out)
+    elif isinstance(n, tuple):
+        for v in n:
+            _collect_grouping_calls(v, out)
+
+
+def collect_windows(n, out: list[A.FunctionCall]):
+    """Window function calls (FunctionCall with an OVER spec). Does not
+    descend into subqueries (analyzed separately) or into the window
+    call itself (SQL forbids nested windows)."""
+    if isinstance(n, A.FunctionCall) and n.over is not None:
+        if n not in out:
+            out.append(n)
+        return
+    if isinstance(n, (A.Exists, A.InSubquery, A.ScalarSubquery)):
+        return
+    if isinstance(n, A.Node):
+        for v in _ast_fields(n):
+            collect_windows(v, out)
+    elif isinstance(n, tuple):
+        for v in n:
+            collect_windows(v, out)
+
+
+def _resolved_refs(n, out: set[str]):
+    """Collect InputRef names inside Resolved (pre-lowered) AST slots."""
+    if isinstance(n, A.Resolved):
+        expr_refs(n.expr, out)
+        return
+    if isinstance(n, A.Node):
+        for v in _ast_fields(n):
+            _resolved_refs(v, out)
+    elif isinstance(n, tuple):
+        for v in n:
+            _resolved_refs(v, out)
+
+
+def _substitute_outside_aggs(n, mapping):
+    """Like substitute_nodes, but leaves plain aggregate-call subtrees
+    untouched — grouping-sets NULL substitution must not rewrite
+    aggregate arguments. Window calls ARE entered (their partition/
+    order specs reference grouping keys), and the aggregates inside
+    them stay opaque via the same rule."""
+    if isinstance(n, A.FunctionCall) and n.name in AGG_FUNCS and n.over is None:
+        return n
+    if isinstance(n, A.Node) and not isinstance(n, A.Query):
+        try:
+            if n in mapping:
+                return mapping[n]
+        except TypeError:
+            pass
+    if isinstance(n, A.Query) or not isinstance(n, (A.Node, tuple)):
+        return n
+    if isinstance(n, tuple):
+        return tuple(_substitute_outside_aggs(v, mapping) for v in n)
+    changes = {}
+    for f in n.__dataclass_fields__:
+        v = getattr(n, f)
+        nv = _substitute_outside_aggs(v, mapping)
+        if nv is not v:
+            changes[f] = nv
+    return replace(n, **changes) if changes else n
+
+
+def substitute_nodes(n, mapping):
+    """Structurally replace AST nodes found in ``mapping`` (by value
+    equality) with their replacements; subqueries are left untouched."""
+    if isinstance(n, A.Node) and not isinstance(n, A.Query):
+        try:
+            if n in mapping:
+                return mapping[n]
+        except TypeError:
+            pass
+    if isinstance(n, A.Query) or not isinstance(n, (A.Node, tuple)):
+        return n
+    if isinstance(n, tuple):
+        return tuple(substitute_nodes(v, mapping) for v in n)
+    changes = {}
+    for f in n.__dataclass_fields__:
+        v = getattr(n, f)
+        nv = substitute_nodes(v, mapping)
+        if nv is not v:
+            changes[f] = nv
+    return replace(n, **changes) if changes else n
 
 
 # selectivity guesses for cardinality estimation (ReorderJoins-lite)
@@ -334,15 +442,191 @@ class Analyzer:
             return e  # width or parameter variations of one kind
         raise AnalysisError(f"cannot unify UNION column types {e.dtype} and {t}")
 
+    def _expand_grouping_sets(
+        self, q: A.Query, outer, ctes: dict
+    ) -> A.SetQuery | None:
+        """GROUP BY ROLLUP/CUBE/GROUPING SETS -> UNION ALL of one
+        grouped branch per set (the reference plans GroupingSets as a
+        GroupIdNode; re-aggregation per set is the equivalent here).
+        In each branch, grouping columns absent from its set become
+        typed NULL literals in SELECT/HAVING, and grouping(col) folds
+        to its 0/1 constant for that branch."""
+        gs_items = [g for g in q.group_by if isinstance(g, A.GroupingSets)]
+        if not gs_items:
+            return None
+        if len(gs_items) > 1:
+            raise AnalysisError("multiple GROUPING SETS elements not supported")
+        prefix = tuple(g for g in q.group_by if not isinstance(g, A.GroupingSets))
+        gs = gs_items[0]
+        all_keys: list[A.Node] = []
+        for s in gs.sets:
+            for k in s:
+                if k not in all_keys:
+                    all_keys.append(k)
+        # type each grouping key against the FROM scope once, so absent
+        # keys can be replaced by *typed* NULLs (the union type checker
+        # needs them); this pre-analysis of FROM is throwaway
+        ctes2 = dict(ctes)
+        for name, cq in q.ctes:
+            ctes2[name] = cq
+        rels: list[Rel] = []
+        edges: list[dict] = []
+        if q.from_ is not None:
+            self._flatten_from(q.from_, rels, edges, ctes2, outer)
+        probe_scope = Scope([f for r in rels for f in r.scope.fields])
+        key_null: dict[A.Node, A.Node] = {}
+        for k in all_keys:
+            e = self._expr(k, probe_scope, outer, ctes2, [])
+            key_null[k] = A.Resolved(Literal(e.dtype, None))
+        wins: list[A.FunctionCall] = []
+        for it in q.select:
+            collect_windows(it.expr, wins)
+        if wins:
+            # window functions rank/aggregate across ALL grouping sets
+            # (q67: rank over the whole rollup), so they cannot run per
+            # branch — hoist them above the union
+            return self._expand_gs_with_windows(
+                q, gs, prefix, all_keys, key_null
+            )
+        branches = []
+        for s in gs.sets:
+            grouped = set(prefix) | set(s)
+            g_map: dict[A.Node, A.Node] = {}
+            null_map: dict[A.Node, A.Node] = {}
+            for k in all_keys:
+                g_map[A.FunctionCall("grouping", (k,))] = A.NumberLit(
+                    "0" if k in grouped else "1"
+                )
+                if k not in grouped:
+                    null_map[k] = key_null[k]
+
+            def sub(n):
+                # grouping() folds anywhere; key->NULL only OUTSIDE
+                # aggregate arguments (SUM(a) in a subtotal row still
+                # sums the real column, standard grouping-sets
+                # semantics)
+                n = substitute_nodes(n, g_map)
+                return _substitute_outside_aggs(n, null_map)
+
+            branches.append(replace(
+                q,
+                group_by=prefix + tuple(s),
+                select=tuple(sub(it) for it in q.select),
+                having=sub(q.having) if q.having is not None else None,
+                order_by=(),
+                limit=None,
+                ctes=(),
+            ))
+        return A.SetQuery(
+            terms=tuple(branches),
+            ops=("union_all",) * (len(branches) - 1),
+            order_by=q.order_by,
+            limit=q.limit,
+            ctes=q.ctes,
+        )
+
+    def _expand_gs_with_windows(self, q: A.Query, gs, prefix, all_keys,
+                                key_null) -> A.Query:
+        """Grouping sets + window functions: per-branch grouped inner
+        queries (no windows) UNION ALL'd, with the windows applied in an
+        outer query over the union — window partitions/orders see every
+        grouping set at once, matching the reference's GroupIdNode →
+        WindowNode plan order [SURVEY §2.1 planner row].
+
+        Inner branches emit: each grouping key under its terminal
+        column name, every distinct plain-aggregate subtree as
+        ``__agg{i}``, and every ``grouping(...)`` call folded to its
+        per-branch constant as ``__grp{i}``. The outer query is the
+        original select/order/limit with those subtrees replaced by
+        references."""
+        key_items: list[A.Node] = []
+        for k in tuple(prefix) + tuple(all_keys):
+            if k not in key_items:
+                key_items.append(k)
+        for k in key_items:
+            if not isinstance(k, A.Identifier):
+                raise AnalysisError(
+                    "window functions over grouping sets require "
+                    "identifier grouping keys"
+                )
+        key_map = {k: A.Identifier((k.parts[-1],)) for k in key_items}
+
+        aggs: list[A.FunctionCall] = []
+        grps: list[A.FunctionCall] = []
+        for it in q.select:
+            collect_aggs(it.expr, aggs)
+            _collect_grouping_calls(it.expr, grps)
+        for oi in q.order_by:
+            collect_aggs(oi.expr, aggs)
+            _collect_grouping_calls(oi.expr, grps)
+        uniq_aggs: list[A.FunctionCall] = []
+        for a in aggs:
+            if a not in uniq_aggs:
+                uniq_aggs.append(a)
+        uniq_grps: list[A.FunctionCall] = []
+        for g in grps:
+            if g not in uniq_grps:
+                uniq_grps.append(g)
+        agg_map = {a: A.Identifier((f"__agg{i}",))
+                   for i, a in enumerate(uniq_aggs)}
+        grp_map = {g: A.Identifier((f"__grp{i}",))
+                   for i, g in enumerate(uniq_grps)}
+
+        branches = []
+        for s in gs.sets:
+            grouped = set(prefix) | set(s)
+            inner_items = []
+            for k in key_items:
+                e = k if k in grouped else key_null[k]
+                inner_items.append(A.SelectItem(e, k.parts[-1]))
+            for a, ref in agg_map.items():
+                inner_items.append(A.SelectItem(a, ref.parts[0]))
+            for g, ref in grp_map.items():
+                folded = A.NumberLit("0" if g.args[0] in grouped else "1")
+                inner_items.append(A.SelectItem(folded, ref.parts[0]))
+            g_fold = {g: A.NumberLit("0" if g.args[0] in grouped else "1")
+                      for g in uniq_grps}
+            having = q.having
+            if having is not None:
+                having = _substitute_outside_aggs(
+                    substitute_nodes(having, g_fold),
+                    {k: key_null[k] for k in all_keys if k not in grouped},
+                )
+            branches.append(replace(
+                q, select=tuple(inner_items),
+                group_by=tuple(prefix) + tuple(s),
+                having=having, order_by=(), limit=None, ctes=(),
+            ))
+
+        def rewrite(n):
+            return substitute_nodes(
+                substitute_nodes(substitute_nodes(n, agg_map), grp_map),
+                key_map,
+            )
+
+        outer_select = tuple(
+            A.SelectItem(rewrite(it.expr), it.alias) for it in q.select
+        )
+        outer_order = tuple(
+            replace(oi, expr=rewrite(oi.expr)) for oi in q.order_by
+        )
+        inner = A.SetQuery(
+            terms=tuple(branches), ops=("union_all",) * (len(branches) - 1)
+        )
+        return A.Query(
+            select=outer_select,
+            from_=A.SubqueryRelation(inner, self.fresh("gsw")),
+            order_by=outer_order, limit=q.limit, ctes=q.ctes,
+        )
+
     def _analyze_query(
         self, q: A.Query, outer: Scope | None, ctes: dict[str, A.Query]
     ) -> tuple[N.PlanNode, Scope]:
-        if any(isinstance(g, A.GroupingSets) for g in q.group_by):
-            raise _unsupported("GROUPING SETS / ROLLUP / CUBE")
-        for it in q.select:
-            _reject_windows(it.expr)
-        for ob in q.order_by:
-            _reject_windows(ob.expr)
+        expanded = self._expand_grouping_sets(q, outer, ctes)
+        if isinstance(expanded, A.Query):
+            return self._analyze_query(expanded, outer, ctes)
+        if expanded is not None:
+            return self._analyze_setquery(expanded, outer, ctes)
         ctes = dict(ctes)
         for name, cq in q.ctes:
             ctes[name] = cq
@@ -397,6 +681,28 @@ class Analyzer:
                            agg_map=agg_map, key_map=key_map)
             plan = N.Filter(plan, e)
 
+        # ---- window functions (evaluated over the grouped/filtered
+        # rows, before the SELECT projection) ---------------------------
+        win_calls: list[A.FunctionCall] = []
+        for it in q.select:
+            collect_windows(it.expr, win_calls)
+        order_only_wins: list[A.FunctionCall] = []
+        for ob in q.order_by:
+            collect_windows(ob.expr, order_only_wins)
+        order_only_wins = [w for w in order_only_wins if w not in win_calls]
+        win_fields: list[N.Field] = []
+        if win_calls or order_only_wins:
+            plan, win_map, win_fields = self._plan_windows(
+                win_calls + order_only_wins, plan, scope, outer, ctes,
+                scalar_binds, agg_map, key_map,
+            )
+            mapping = {w: A.Resolved(e) for w, e in win_map.items()}
+            q = replace(
+                q,
+                select=tuple(substitute_nodes(it, mapping) for it in q.select),
+                order_by=tuple(substitute_nodes(ob, mapping) for ob in q.order_by),
+            )
+
         # ---- SELECT projection ----------------------------------------
         out_names: list[str] = []
         out_exprs: list[tuple[str, Expr]] = []
@@ -411,7 +717,26 @@ class Analyzer:
             name = item.alias or self._default_name(item.expr, i)
             out_names.append(name)
             out_exprs.append((name, e))
-        plan = N.Project(plan, tuple(out_exprs))
+        # window outputs consumed only by ORDER BY ride the projection
+        # as hidden columns (pruned away when unreferenced); they are
+        # not client-visible fields
+        hidden: list[tuple[str, Expr]] = []
+        if win_fields and q.order_by:
+            produced = {n for n, _ in out_exprs}
+            ob_refs: set[str] = set()
+            for ob in q.order_by:
+                _resolved_refs(ob.expr, ob_refs)
+            hidden = [
+                (f.name, InputRef(f.dtype, f.name))
+                for f in win_fields
+                if f.name in ob_refs and f.name not in produced
+            ]
+            if q.distinct and hidden:
+                raise AnalysisError(
+                    "DISTINCT with window expressions repeated in ORDER BY "
+                    "is not supported; order by the select alias instead"
+                )
+        plan = N.Project(plan, tuple(out_exprs) + tuple(hidden))
         out_scope = Scope(
             [FieldRef(n, e.dtype, "", n) for n, e in out_exprs]
         )
@@ -1539,6 +1864,107 @@ class Analyzer:
         return N.Filter(joined, e)
 
     # ------------------------------------------------------------------
+    # window planning
+    # ------------------------------------------------------------------
+    def _plan_windows(self, win_calls, plan, scope, outer, ctes, scalar_binds,
+                      agg_map, key_map):
+        """Plan all window calls: one Window node per distinct OVER
+        spec, chained (reference: WindowNode per window; the planner
+        merges same-spec functions into one node)."""
+        win_map: dict[A.FunctionCall, Expr] = {}
+        groups: dict[A.WindowSpec, list[A.FunctionCall]] = {}
+        for w in win_calls:
+            groups.setdefault(w.over, []).append(w)
+        new_fields: list[N.Field] = []
+        for spec, calls in groups.items():
+            part = tuple(
+                self._expr(p, scope, outer, ctes, scalar_binds, agg_map, key_map)
+                for p in spec.partition_by
+            )
+            okeys = tuple(
+                SortKey(
+                    self._expr(it.expr, scope, outer, ctes, scalar_binds,
+                               agg_map, key_map),
+                    it.descending, bool(it.nulls_first),
+                )
+                for it in spec.order_by
+            )
+            funcs: list[AggSpec] = []
+            for w in calls:
+                if w in win_map:
+                    continue
+                specs, mapped = self._plan_one_window_func(
+                    w, spec, scope, outer, ctes, scalar_binds, agg_map, key_map
+                )
+                funcs.extend(specs)
+                win_map[w] = mapped
+            plan = N.Window(plan, part, okeys, tuple(funcs), spec.frame)
+            # window outputs are NOT added to the name scope: they are
+            # referenced only through Resolved slots, so SELECT * never
+            # leaks the synthetic columns
+            new_fields += [N.Field(f.name, f.dtype) for f in funcs]
+        return plan, win_map, new_fields
+
+    def _plan_one_window_func(self, w: A.FunctionCall, spec, scope, outer, ctes,
+                              scalar_binds, agg_map, key_map):
+        nm = self.fresh(w.name)
+        if w.distinct:
+            raise AnalysisError(f"DISTINCT in window function {w.name}")
+        if w.name in WINDOW_ONLY_FUNCS:
+            if w.args:
+                raise AnalysisError(f"{w.name}() takes no arguments")
+            if not spec.order_by:
+                raise AnalysisError(f"{w.name}() requires ORDER BY in its window")
+            return [AggSpec(w.name, None, nm, BIGINT)], InputRef(BIGINT, nm)
+        if w.name in ("lag", "lead", "first_value"):
+            if not spec.order_by:
+                raise AnalysisError(f"{w.name}() requires ORDER BY in its window")
+            offset = 1
+            if w.name in ("lag", "lead") and len(w.args) == 2:
+                if not isinstance(w.args[1], A.NumberLit):
+                    raise AnalysisError(f"{w.name}() offset must be a literal")
+                try:
+                    offset = int(w.args[1].text)
+                except ValueError:
+                    raise AnalysisError(
+                        f"{w.name}() offset must be an integer literal, "
+                        f"got {w.args[1].text!r}"
+                    ) from None
+            elif len(w.args) != 1:
+                raise AnalysisError(f"{w.name}() takes one argument")
+            arg = self._expr(w.args[0], scope, outer, ctes, scalar_binds,
+                             agg_map, key_map)
+            spec_ = AggSpec(w.name, arg, nm, arg.dtype, offset=offset)
+            return [spec_], InputRef(arg.dtype, nm)
+        if w.name == "count":
+            if w.is_star or not w.args:
+                return [AggSpec("count_star", None, nm, BIGINT)], InputRef(BIGINT, nm)
+            arg = self._expr(w.args[0], scope, outer, ctes, scalar_binds,
+                             agg_map, key_map)
+            return [AggSpec("count", arg, nm, BIGINT)], InputRef(BIGINT, nm)
+        if w.name not in AGG_FUNCS:
+            raise AnalysisError(f"unknown window function {w.name}")
+        if len(w.args) != 1:
+            raise AnalysisError(f"{w.name}() window aggregate takes one argument")
+        arg = self._expr(w.args[0], scope, outer, ctes, scalar_binds,
+                         agg_map, key_map)
+        if w.name == "avg":
+            s, c = self.fresh("wavgsum"), self.fresh("wavgcnt")
+            sum_t = self._sum_type(arg.dtype)
+            specs = [AggSpec("sum", arg, s, sum_t), AggSpec("count", arg, c, BIGINT)]
+            return specs, Call(DOUBLE, "div", (InputRef(sum_t, s), InputRef(BIGINT, c)))
+        if w.name == "sum":
+            t = self._sum_type(arg.dtype)
+            return [AggSpec("sum", arg, nm, t)], InputRef(t, nm)
+        # min / max: numeric and dictionary VARCHAR (order-preserving
+        # codes); raw byte strings have no 1-D scan representation
+        if arg.dtype.kind is TypeKind.BYTES:
+            raise AnalysisError(
+                f"{w.name}() window over byte-string columns is not supported"
+            )
+        return [AggSpec(w.name, arg, nm, arg.dtype)], InputRef(arg.dtype, nm)
+
+    # ------------------------------------------------------------------
     # order-by resolution
     # ------------------------------------------------------------------
     def _order_expr(self, e, out_scope, pre_scope, outer, ctes, scalar_binds,
@@ -1573,11 +1999,17 @@ class Analyzer:
     # ------------------------------------------------------------------
     def _expr(self, n: A.Node, scope: Scope, outer, ctes, scalar_binds,
               agg_map=None, key_map=None) -> Expr:
+        if isinstance(n, A.Resolved):
+            return n.expr
         if key_map and n in key_map:
             name, t = key_map[n]
             return InputRef(t, name)
         if agg_map and isinstance(n, A.FunctionCall) and n in agg_map:
             return agg_map[n]
+        if isinstance(n, A.FunctionCall) and n.over is not None:
+            raise AnalysisError(
+                f"window function {n.name}() is only allowed in SELECT/ORDER BY"
+            )
         if isinstance(n, A.Identifier):
             if n.parts == ("null",):
                 raise AnalysisError("bare NULL literal needs a typed context")
@@ -1960,14 +2392,3 @@ class Analyzer:
         days = int((d2 - np.datetime64("1970-01-01", "D")).astype(int))
         return Literal(DATE, days)
 
-
-def _reject_windows(n) -> None:
-    """Window calls (a FunctionCall with OVER) are outside the slice."""
-    if isinstance(n, A.FunctionCall) and n.over is not None:
-        raise _unsupported(f"window function {n.name}() OVER (...)")
-    if isinstance(n, A.Node):
-        for v in _ast_fields(n):
-            _reject_windows(v)
-    elif isinstance(n, tuple):
-        for v in n:
-            _reject_windows(v)

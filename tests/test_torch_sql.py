@@ -9,10 +9,12 @@
   strategies (``fused`` on the leaf route), for TPC-H Q1, Q3, Q6 and Q10
   and SSB Q1.1, at sf 0.01 and at SF1 (plans only: no data is
   generated);
-- constructs outside the ported subset (windows, grouping sets, DDL,
-  EXPLAIN ANALYZE) raise ``NotSupported`` naming them, and the ones this
-  file pinned before the port answered them equal the JAX package's
-  answers.
+- constructs outside the ported subset (DDL, EXPLAIN ANALYZE, and the
+  ``<>`` correlation in a scalar subquery, which the JAX package refuses
+  too) raise ``NotSupported`` naming them, and the ones this file pinned
+  before the port answered them (among them windows and GROUPING SETS /
+  ROLLUP / CUBE) equal the JAX package's answers, frames built as it
+  builds them (``torch_bridge.port_frame``).
 Exact comparisons throughout, but for the DOUBLE columns of ``ANSWERED``
 (rtol 1e-3, atol 0.02: the tolerance tests/test_tpch_sql.py holds DOUBLE
 aggregates to).
@@ -58,11 +60,8 @@ def ast_shape(n):
     if hasattr(n, "kind") and hasattr(n, "phys"):  # a DataType
         return ("type", n.kind.value, n.precision, n.scale, n.width, n.phys)
     if dataclasses.is_dataclass(n) and not isinstance(n, type):
-        # AggSpec.offset is the lag/lead window row offset: windows are
-        # not ported, so the port's AggSpec has no such field
         return (type(n).__name__,
-                tuple((f.name, ast_shape(getattr(n, f.name))) for f in dataclasses.fields(n)
-                      if not (type(n).__name__ == "AggSpec" and f.name == "offset")))
+                tuple((f.name, ast_shape(getattr(n, f.name))) for f in dataclasses.fields(n)))
     if isinstance(n, (tuple, list)):
         return tuple(ast_shape(v) for v in n)
     return n
@@ -150,14 +149,6 @@ UNSUPPORTED = [
     ("select count(*) from nation where n_regionkey = "
      "(select max(r_regionkey) from region where r_regionkey <> n_nationkey)",
      "<> correlation in a scalar subquery"),
-    ("select l_orderkey, rank() over (order by l_quantity) from lineitem", "window"),
-    ("select o_orderkey, lag(o_totalprice) over (order by o_orderkey) from orders", "window"),
-    ("select l_returnflag, count(*) from lineitem group by grouping sets ((l_returnflag), ())",
-     "GROUPING SETS"),
-    ("select l_returnflag, l_linestatus, count(*) from lineitem "
-     "group by rollup(l_returnflag, l_linestatus)", "ROLLUP"),
-    ("select l_returnflag, l_linestatus, count(*) from lineitem "
-     "group by cube(l_returnflag, l_linestatus)", "CUBE"),
     ("create table t as select n_name from nation", "CreateTableAs"),
 ]
 
@@ -188,16 +179,24 @@ ANSWERED = {
     "with a union": "with t as (select n_name from nation union all select r_name from region) "
                     "select n_name from t",
     "a union": "select n_name from nation union all select r_name from region",
+    "rank": "select l_orderkey, rank() over (order by l_quantity) from lineitem",
+    "lag": "select o_orderkey, lag(o_totalprice) over (order by o_orderkey) from orders",
+    "grouping sets": ("select l_returnflag, count(*) from lineitem "
+                      "group by grouping sets ((l_returnflag), ())"),
+    "rollup": ("select l_returnflag, l_linestatus, count(*) from lineitem "
+               "group by rollup(l_returnflag, l_linestatus)"),
+    "cube": ("select l_returnflag, l_linestatus, count(*) from lineitem "
+             "group by cube(l_returnflag, l_linestatus)"),
 }
 
 
 @pytest.mark.parametrize("name", list(ANSWERED))
 def test_constructs_the_slice_answers_equal_jax_session(name):
-    from torch_bridge import jax_run, port_run
+    from torch_bridge import jax_run, port_frame, port_run
 
     want, want_routes = jax_run(JConnector(sf=0.01), ANSWERED[name])
     res, routes, _ = port_run(PConnector(sf=0.01, device="cpu"), ANSWERED[name])
-    pd.testing.assert_frame_equal(pd.DataFrame(res.to_dict()), want, check_exact=False,
+    pd.testing.assert_frame_equal(port_frame(res), want, check_exact=False,
                                   rtol=1e-3, atol=0.02)
     assert routes == want_routes
     assert len(want) > 0

@@ -59,6 +59,21 @@ def assert_same(got, want, what: str = "") -> None:
     np.testing.assert_array_equal(g, w, err_msg=what)
 
 
+def port_frame(res):
+    """The port's ``QueryResult`` as the JAX package's ``Session.sql``
+    builds its frame: one frame per result batch, concatenated (pandas
+    infers each batch's column dtypes apart, so a UNION branch with NULL
+    keys makes its column ``object`` there)."""
+    import pandas as pd
+
+    parts = {name: res.parts(name) for name in res.names}
+    n = len(parts[res.names[0]]) if res.names else 0
+    frames = [pd.DataFrame({name: p[i] for name, p in parts.items()}) for i in range(n)]
+    if not frames:
+        return pd.DataFrame(columns=res.names)
+    return pd.concat(frames, ignore_index=True)[list(res.names)]
+
+
 #: the route counters the SQL differential tests compare; the runtime
 #: join filters' scanned and pruned row counts among them
 ROUTES = ("join.strategy.", "exec.pallas_join_route", "join.pallas_fallback", "agg.strategy.",
