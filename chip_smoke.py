@@ -184,7 +184,20 @@ one CUDA card, and exits nonzero on any failure. Phases:
    device ops, the launches per kernel (the leaf kernel once per split
    and grouping set), the Window operator's device time in
    ``WINDOW_SHARE``'s statements; every lane-sums, leaf, LIKE, exists and
-   payload launch shape held to the plain version.
+   payload launch shape held to the plain version;
+16. all 99 TPC-DS queries at SF1 through ``Session.sql`` over
+   ``TpcdsConnector`` (NULL foreign keys from the scans; every table
+   generated once, as set-up, and scanned from the host), each equal to
+   the strategy counters its plan predicts, from one run a query under
+   the profiler's CUDA tracing: its wall, connector-scan seconds, peak
+   device memory, device busy time and five largest device ops, and the
+   launches per kernel; q3, q7, q97 and q98 equal to numpy
+   recomputations; every lane-sums, leaf, LIKE, exists and payload
+   launch shape held to the plain version; the share of the phase's
+   device busy time in ``index_add_`` and in sorts; then every query on
+   the card at sf 0.1 (``TPCDS_CHECK_SMALL`` at sf 0.02) equal, row for
+   row, to the port's answer on the CPU, which ``TPCDS_WORKERS`` niced
+   processes compute from the start of the run (ended on any exit).
 
 Phase 5 also times the prefix kernel at the first ``part`` split of the
 ``starts_with`` pipeline and over SF1 ``o_comment`` with
@@ -198,6 +211,12 @@ of 2^21 rows among them); and, beside every exists-kernel shape, its
 one-call library yardstick, ``torch.isin`` of the probe keys in the
 build keys with the live and validity masks (``exists_library``). Each
 phase's seconds are printed before the JSON lines.
+
+Every split a connector scans is generated once (``generated_once``):
+TPC-H and SSB at SF1 before phase 2 and TPC-DS at SF1 at the start of
+phase 16, as set-up, other scales when first scanned. So walls and
+connector-scan seconds hold the narrowing and the copy to the card, not
+the generation.
 
 The card's name and power limit come first and again before the last
 lines, which are one JSON line ``{"kernels": [...]}`` and
@@ -1399,37 +1418,61 @@ def time_leaf(spec, b, flush) -> dict:
             "instance": cuda_agg.instance(spec, [b[c].data for c in spec.cols], b.live)}
 
 
-def device_ops(session, conn, sql: str):
-    """(device busy ms, connector-scan s, device ops) of one more run of
-    ``sql``: the device time of every kernel and copy in the profiler's
-    CUDA trace, the host time spent inside ``conn.scan`` (generation,
-    narrowing and the copy to the card; the scans run on the prefetch
-    thread, so they overlap the rest), and every device op with its time,
-    as (name, ms, calls), the most time first."""
-    from torch.profiler import ProfilerActivity, profile
-
-    scan_s = [0.0]
+@contextlib.contextmanager
+def timed_scans(conn):
+    """While in the block, the host seconds spent inside ``conn.scan``
+    (narrowing and the copy to the card, on the prefetch thread; the data
+    comes from :func:`generated_once`) add up in the yielded list's one
+    item."""
+    total = [0.0]
     original = conn.scan
 
-    def timed_scan(*args, **kwargs):
+    def scan(*args, **kwargs):
         t0 = time.perf_counter()
         try:
             return original(*args, **kwargs)
         finally:
-            scan_s[0] += time.perf_counter() - t0
+            total[0] += time.perf_counter() - t0
 
-    conn.scan = timed_scan
+    conn.scan = scan
     try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            session.sql(sql)
-            torch.cuda.synchronize()
+        yield total
     finally:
         del conn.scan
-    ops = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    busy_us = sum(e.self_device_time_total for e in ops)
-    ops.sort(key=lambda e: -e.self_device_time_total)
-    return busy_us / 1e3, scan_s[0], [(e.key[:60], e.self_device_time_total / 1e3, e.count)
-                                      for e in ops]
+
+
+def trace_device_ops(prof) -> tuple:
+    """(device busy ms, device ops) from a finished profiler's raw events:
+    every kernel, copy and set the card ran, summed by name as (name, ms,
+    calls), the most time first. The busy ms equal ``key_averages``' sum
+    of ``self_device_time_total``, which builds an event tree first and
+    takes a minute or more on a query of 10^5 kernels."""
+    from torch.autograd import DeviceType
+
+    by: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            t = by.setdefault(e.name(), [0, 0])
+            t[0] += e.duration_ns()
+            t[1] += 1
+    ops = sorted(((k[:60], ns / 1e6, c) for k, (ns, c) in by.items()), key=lambda o: -o[1])
+    return sum(o[1] for o in ops), ops
+
+
+def device_ops(session, conn, sql: str):
+    """(device busy ms, connector-scan s, device ops) of one more run of
+    ``sql``: the device time of every kernel and copy in the profiler's
+    CUDA trace, the host time spent inside ``conn.scan`` (narrowing and
+    the copy to the card; the scans run on the prefetch
+    thread, so they overlap the rest), and every device op with its time,
+    as (name, ms, calls), the most time first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with timed_scans(conn) as scan_s, profile(activities=[ProfilerActivity.CUDA]) as prof:
+        session.sql(sql)
+        torch.cuda.synchronize()
+    busy_ms, ops = trace_device_ops(prof)
+    return busy_ms, scan_s[0], ops
 
 
 def wall_breakdown(session, conn, sql: str):
@@ -1496,7 +1539,7 @@ def run_join_queries(flush: torch.Tensor, sf: float = 1, device: str = "cuda") -
             f"{first:.3f} s, second {second:.3f} s; exists launches {n_exists}, payload "
             f"launches {n_payload}; routes {strategies}")
         log(f"  {q} breakdown (a third, profiled run): device busy {busy_ms:.1f} ms, "
-            f"connector scans (host generation + copy to the card) {scan_s:.3f} s")
+            f"connector scans (narrowing + copy to the card) {scan_s:.3f} s")
 
     return {"launches": counts,
             "exists": time_probe("exists", captured["exists"], launches["exists"], flush),
@@ -1737,7 +1780,7 @@ def run_leaf_queries(flush: torch.Tensor, sf: float = 1, device: str = "cuda") -
                 f"{by_instance}); routes "
                 f"{ {k: v for k, v in route.items() if k.startswith(('exec.', 'agg.'))} }")
             log(f"  {name} breakdown (a third, profiled run): device busy {busy_ms:.1f} ms, "
-                f"connector scans (host generation + copy to the card) {scan_s:.3f} s")
+                f"connector scans (narrowing + copy to the card) {scan_s:.3f} s")
     finally:
         leaf_route.agg_step = original
         if narrow_before is None:
@@ -2267,7 +2310,7 @@ def run_string_queries(connectors: dict, sf: float = 1, device: str = "cuda") ->
             f"{second:.3f} s; launches { {k: v for k, v in n.items() if v} }; routes "
             f"{ {k: v for k, v in route.items() if k.startswith(('exec.', 'agg.', 'join.'))} }")
         log(f"  {name} breakdown (a third, profiled run): device busy {busy_ms:.1f} ms, "
-            f"connector scans (host generation + copy to the card) {scan_s:.3f} s")
+            f"connector scans (narrowing + copy to the card) {scan_s:.3f} s")
 
     # starts_with over part through the scan -> FilterProject pipeline
     tconn = connectors["tpch"]
@@ -2506,7 +2549,7 @@ def run_outer_join_queries(sf13: float = 1, sf5: float = Q5_SF, device: str = "c
             f"{ {k: v for k, v in route.items() if k.startswith(('exec.', 'agg.', 'join.'))} }; "
             f"expansion output capacities tried, in order: {caps}")
         log(f"  {name} breakdown (a third, profiled run): device busy {busy_ms:.1f} ms, "
-            f"connector scans (host generation + copy to the card) {scan_s:.3f} s; the "
+            f"connector scans (narrowing + copy to the card) {scan_s:.3f} s; the "
             "device ops with the most of it (ms, calls): "
             + "; ".join(f"{k} {ms:.2f} ({c})" for k, ms, c in top))
     return out
@@ -2857,7 +2900,8 @@ def null_extended_expected(conn) -> dict:
 
 class ColumnCache:
     """A connector whose ``table_numpy`` generates each column once: phase
-    11's oracles read the same SF1 columns many times."""
+    11's oracles read the same SF1 columns many times. A column's NULL
+    mask (``<col>$valid``, TPC-DS) comes with it."""
 
     def __init__(self, conn):
         self.conn, self.columns = conn, {}
@@ -2867,7 +2911,8 @@ class ColumnCache:
         if missing:
             for c, a in self.conn.table_numpy(table, missing).items():
                 self.columns[(table, c)] = a
-        return {c: self.columns[(table, c)] for c in columns}
+        return {k: self.columns[(table, k)] for c in columns for k in (c, f"{c}$valid")
+                if (table, k) in self.columns}
 
     def __getattr__(self, name):
         return getattr(self.conn, name)
@@ -4488,6 +4533,498 @@ def run_window_queries(conn, device: str = "cuda") -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 16: the TPC-DS connector and its 99 queries
+# ---------------------------------------------------------------------------
+
+TPCDS_SF = 1
+#: the scale at which every query's card answer is held to the port's CPU
+#: answer (the kernels' plain versions)
+TPCDS_CHECK_SF = 0.1
+#: queries whose CPU run at ``TPCDS_CHECK_SF`` takes over 60 s (one
+#: thread): checked at ``TPCDS_SMALL_SF`` instead
+TPCDS_CHECK_SMALL = {"q14", "q22", "q64", "q82"}
+TPCDS_SMALL_SF = 0.02
+#: the CPU answers are computed in this many worker processes (niced, one
+#: intra-op thread each), started before phase 1 so they overlap it
+TPCDS_WORKERS = 4
+#: queries phase 16 runs again without the trace, to show its cost on a wall
+TPCDS_UNTRACED = ("q3", "q22")
+TPCDS_DOUBLES = {"q7": ("agg1", "agg2", "agg3", "agg4"), "q98": ("revenueratio",)}
+
+
+def _tpcds_queries() -> dict:
+    from presto_tpu_torch.connectors.tpcds.queries import QUERIES as TPCDS_QUERIES
+
+    return dict(sorted(TPCDS_QUERIES.items(), key=lambda kv: int(kv[0][1:])))
+
+
+def _valid(cols: dict, name: str) -> np.ndarray:
+    v = cols.get(f"{name}$valid")
+    return np.ones(len(cols[name]), np.bool_) if v is None else v
+
+
+def _rows_of(keys: np.ndarray, table_keys: np.ndarray):
+    """(row of each key in ``table_keys``, found mask); ``table_keys``
+    unique."""
+    order = np.argsort(table_keys, kind="stable")
+    pos = np.searchsorted(table_keys, keys, sorter=order)
+    pos = np.minimum(pos, len(table_keys) - 1)
+    rows = order[pos]
+    return rows, table_keys[rows] == keys
+
+
+def _bytes_str(rows: np.ndarray) -> list:
+    return [bytes(r).rstrip(b"\x00").decode("latin1") for r in rows]
+
+
+def _fact_dim(conn, fact: str, prefix: str, cols: list) -> dict:
+    """The ``fact`` columns, with the rows whose sold date is NULL dropped
+    and each row's ``date_dim`` and ``item`` row (an inner join drops a
+    NULL key)."""
+    f = conn.table_numpy(fact, [f"{prefix}_sold_date_sk", f"{prefix}_item_sk"] + cols)
+    d = conn.table_numpy("date_dim", ["d_date_sk"])
+    it = conn.table_numpy("item", ["i_item_sk"])
+    drow, dok = _rows_of(f[f"{prefix}_sold_date_sk"], d["d_date_sk"])
+    irow, iok = _rows_of(f[f"{prefix}_item_sk"], it["i_item_sk"])
+    keep = _valid(f, f"{prefix}_sold_date_sk") & dok & iok
+    out = {c: f[c][keep] for c in cols}
+    for c in cols:
+        if f"{c}$valid" in f:
+            out[f"{c}$valid"] = f[f"{c}$valid"][keep]
+    out["drow"], out["irow"] = drow[keep], irow[keep]
+    return out
+
+
+def tpcds_q3_expected(conn) -> dict:
+    """TPC-DS q3: November store sales of the first 50 manufacturers by
+    year and brand, the largest discounts first, 100 rows."""
+    f = _fact_dim(conn, "store_sales", "ss", ["ss_ext_discount_amt"])
+    d = conn.table_numpy("date_dim", ["d_year", "d_moy"])
+    it = conn.table_numpy("item", ["i_brand_id", "i_brand", "i_manufact_id"])
+    keep = (it["i_manufact_id"][f["irow"]] <= 50) & (d["d_moy"][f["drow"]] == 11)
+    year = d["d_year"][f["drow"]][keep].astype(np.int64)
+    brand = it["i_brand"][f["irow"]][keep].astype(np.int64)
+    brand_id = it["i_brand_id"][f["irow"]][keep].astype(np.int64)
+    groups, inv = np.unique(np.stack([year, brand, brand_id]), axis=1, return_inverse=True)
+    sums = np.zeros(groups.shape[1], np.int64)
+    np.add.at(sums, inv.ravel(), f["ss_ext_discount_amt"][keep])
+    order = np.lexsort((groups[1], groups[2], -sums, groups[0]))[:100]
+    names = conn.dictionaries("item")["i_brand"].values
+    return {"d_year": groups[0][order].tolist(), "brand_id": groups[2][order].tolist(),
+            "brand": [names[c] for c in groups[1][order]], "sum_agg": sums[order].tolist()}
+
+
+def tpcds_q7_expected(conn) -> dict:
+    """TPC-DS q7: averages of store sales in 2000 to single college-educated
+    men under a promotion without e-mail or without an event, by item."""
+    cols = ["ss_cdemo_sk", "ss_promo_sk", "ss_quantity", "ss_list_price", "ss_coupon_amt",
+            "ss_sales_price"]
+    f = _fact_dim(conn, "store_sales", "ss", cols)
+    d = conn.table_numpy("date_dim", ["d_year"])
+    cd = conn.table_numpy("customer_demographics", ["cd_demo_sk", "cd_gender",
+                                                    "cd_marital_status", "cd_education_status"])
+    p = conn.table_numpy("promotion", ["p_promo_sk", "p_channel_email", "p_channel_event"])
+    code = {c: conn.dictionaries("customer_demographics")[c].code_of(v)
+            for c, v in (("cd_gender", "M"), ("cd_marital_status", "S"),
+                         ("cd_education_status", "College"))}
+    cd_ok = np.ones(len(cd["cd_demo_sk"]), np.bool_)
+    for c, v in code.items():
+        cd_ok &= cd[c] == v
+    pn = {c: conn.dictionaries("promotion")[c].code_of("N")
+          for c in ("p_channel_email", "p_channel_event")}
+    p_ok = (p["p_channel_email"] == pn["p_channel_email"]) | (
+        p["p_channel_event"] == pn["p_channel_event"])
+    crow, cfound = _rows_of(f["ss_cdemo_sk"], cd["cd_demo_sk"])
+    prow, pfound = _rows_of(f["ss_promo_sk"], p["p_promo_sk"])
+    keep = (f["ss_cdemo_sk$valid"] & cfound & f["ss_promo_sk$valid"] & pfound
+            & (d["d_year"][f["drow"]] == 2000))
+    keep &= cd_ok[crow] & p_ok[prow]
+    it = conn.table_numpy("item", ["i_item_id"])
+    ids = it["i_item_id"]
+    item = f["irow"][keep]
+    groups, inv = np.unique(item, return_inverse=True)
+    counts = np.bincount(inv, minlength=len(groups)).astype(np.float64)
+    out_ids = _bytes_str(ids[groups])
+    order = sorted(range(len(groups)), key=lambda i: out_ids[i])[:100]
+    out = {"i_item_id": [out_ids[i] for i in order]}
+    for name, col, scale in (("agg1", "ss_quantity", 1), ("agg2", "ss_list_price", 100),
+                             ("agg3", "ss_coupon_amt", 100), ("agg4", "ss_sales_price", 100)):
+        sums = np.bincount(inv, weights=f[col][keep].astype(np.float64), minlength=len(groups))
+        out[name] = (sums / counts / scale)[order].tolist()
+    return out
+
+
+def tpcds_q98_expected(conn) -> dict:
+    """TPC-DS q98: each item's store revenue in three categories over two
+    months and its share of its class's revenue (a window over the
+    aggregate)."""
+    f = _fact_dim(conn, "store_sales", "ss", ["ss_ext_sales_price"])
+    d = conn.table_numpy("date_dim", ["d_date"])
+    it = conn.table_numpy("item", ["i_item_id", "i_item_desc", "i_category", "i_class",
+                                   "i_current_price"])
+    cats = conn.dictionaries("item")["i_category"]
+    wanted = [cats.code_of(c) for c in ("Children", "Shoes", "Electronics")]
+    lo, hi = (int(np.datetime64(x, "D").astype(np.int64)) for x in ("2000-01-29", "2000-03-29"))
+    day = d["d_date"][f["drow"]]
+    keep = np.isin(it["i_category"][f["irow"]], wanted) & (day >= lo) & (day <= hi)
+    item = f["irow"][keep]
+    groups, inv = np.unique(item, return_inverse=True)
+    revenue = np.zeros(len(groups), np.int64)
+    np.add.at(revenue, inv, f["ss_ext_sales_price"][keep])
+    klass = it["i_class"][groups]
+    class_sum = np.zeros(int(klass.max()) + 1 if len(klass) else 1, np.int64)
+    np.add.at(class_sum, klass, revenue)
+    ratio = revenue.astype(np.float64) * 100 / class_sum[klass]
+    ids = _bytes_str(it["i_item_id"][groups])
+    descs = _bytes_str(it["i_item_desc"][groups])
+    cat = it["i_category"][groups]
+    order = sorted(range(len(groups)), key=lambda i: (cat[i], klass[i], ids[i], descs[i], ratio[i]))
+    cat_names = cats.values
+    class_names = conn.dictionaries("item")["i_class"].values
+    return {"i_item_id": [ids[i] for i in order], "i_item_desc": [descs[i] for i in order],
+            "i_category": [cat_names[cat[i]] for i in order],
+            "i_class": [class_names[klass[i]] for i in order],
+            "i_current_price": [int(it["i_current_price"][groups[i]]) for i in order],
+            "itemrevenue": [int(revenue[i]) for i in order],
+            "revenueratio": [float(ratio[i]) for i in order]}
+
+
+def tpcds_q97_expected(conn) -> dict:
+    """TPC-DS q97: (customer, item) pairs bought in one year in the store
+    only, in the catalog only and in both (a FULL OUTER join of two
+    DISTINCT sets)."""
+    d = conn.table_numpy("date_dim", ["d_date_sk", "d_month_seq"])
+    year = (d["d_month_seq"] >= 1200) & (d["d_month_seq"] <= 1211)
+
+    def pairs(fact, date, cust, item):
+        f = conn.table_numpy(fact, [date, cust, item])
+        row, found = _rows_of(f[date], d["d_date_sk"])
+        keep = _valid(f, date) & found & year[row] & _valid(f, cust) & _valid(f, item)
+        return np.unique(f[cust][keep].astype(np.int64) * (1 << 32) + f[item][keep])
+
+    ss = pairs("store_sales", "ss_sold_date_sk", "ss_customer_sk", "ss_item_sk")
+    cs = pairs("catalog_sales", "cs_sold_date_sk", "cs_bill_customer_sk", "cs_item_sk")
+    both = len(np.intersect1d(ss, cs, assume_unique=True))
+    return {"store_only": [len(ss) - both], "catalog_only": [len(cs) - both],
+            "store_and_catalog": [both]}
+
+
+TPCDS_ORACLES = {"q3": tpcds_q3_expected, "q7": tpcds_q7_expected,
+                 "q97": tpcds_q97_expected, "q98": tpcds_q98_expected}
+
+
+def _cpu_worker_init() -> None:
+    os.nice(19)
+    torch.set_num_threads(1)
+
+
+_CPU_CONNECTORS: dict = {}
+
+
+def tpcds_cpu_answer(job: tuple) -> tuple:
+    """One TPC-DS query through the port on the CPU at ``sf`` (the
+    kernels' plain versions): (name, sf, seconds, answer)."""
+    from presto_tpu_torch.connectors.tpcds import TpcdsConnector
+
+    name, sf = job
+    if sf not in _CPU_CONNECTORS:
+        _CPU_CONNECTORS[sf] = TpcdsConnector(sf=sf, device="cpu")
+    t0 = time.perf_counter()
+    res = Session({"tpcds": _CPU_CONNECTORS[sf]}, device="cpu").sql(_tpcds_queries()[name])
+    return name, sf, time.perf_counter() - t0, answer_of(res)
+
+
+def answer_of(res) -> dict:
+    """A result on the host: its column names, which are DOUBLE, and each
+    column's exact values (``QueryResult.column``), as lists."""
+    from presto_tpu_torch.types import TypeKind
+
+    return {"names": list(res.names),
+            "doubles": [n for n in res.names
+                        if res.types[n] is not None and res.types[n].kind is TypeKind.DOUBLE],
+            "columns": {n: res.column(n).tolist() for n in res.names}}
+
+
+def same_answer(got: dict, want: dict, what: str) -> None:
+    """Equal answers in row order: exactly, but DOUBLE columns within
+    ``DOUBLE_TOL`` (NULL where the other is NULL)."""
+    check(got["names"] == want["names"], f"{what}: columns {got['names']} != {want['names']}")
+    check(got["doubles"] == want["doubles"], f"{what}: DOUBLE columns {got['doubles']} != "
+          f"{want['doubles']}")
+    for name in want["names"]:
+        g, w = got["columns"][name], want["columns"][name]
+        check(len(g) == len(w), f"{what}: {len(g)} rows != {len(w)}")
+        if name in want["doubles"]:
+            gf = np.array([np.nan if v is None else float(v) for v in g])
+            wf = np.array([np.nan if v is None else float(v) for v in w])
+            ok = np.allclose(gf, wf, equal_nan=True, **DOUBLE_TOL)
+        else:
+            ok = g == w
+        check(ok, f"{what}: column {name} differs:\n{g[:5]}\n{w[:5]}")
+
+
+def start_tpcds_cpu_answers():
+    """Start the CPU answers of every TPC-DS query (``TPCDS_CHECK_SF``, or
+    ``TPCDS_SMALL_SF`` for ``TPCDS_CHECK_SMALL``) in ``TPCDS_WORKERS`` niced worker
+    processes. Returns (pool, pending result); phase 16 reads it."""
+    import multiprocessing
+
+    jobs = [(q, TPCDS_SMALL_SF if q in TPCDS_CHECK_SMALL else TPCDS_CHECK_SF)
+            for q in _tpcds_queries()]
+    pool = multiprocessing.get_context("spawn").Pool(TPCDS_WORKERS, _cpu_worker_init)
+    return pool, pool.map_async(tpcds_cpu_answer, jobs, chunksize=1)
+
+
+#: every split the port's generators made in this process, under
+#: :func:`generated_once`: (connector, sf, seed, table, chunk, lo, hi) ->
+#: all its columns
+GENERATED: dict = {}
+
+
+def _connector_classes() -> tuple:
+    from presto_tpu_torch.connectors.ssb import SsbConnector
+    from presto_tpu_torch.connectors.tpcds import TpcdsConnector
+
+    return TpchConnector, SsbConnector, TpcdsConnector
+
+
+@contextlib.contextmanager
+def generated_once():
+    """While in the block, the TPC-H, SSB and TPC-DS connectors generate
+    each split once, all its columns, into ``GENERATED``, and answer every
+    ``scan_numpy`` from it: the asked columns with their ``$valid`` masks.
+    Generation is set-up, as loading data is: :func:`prefill` does it up
+    front, so walls and connector-scan seconds hold narrowing and copies
+    only."""
+    originals = {cls: cls.scan_numpy for cls in _connector_classes()}
+
+    def memo(cls, original):
+        def scan_numpy(self, split, columns=None):
+            key = (cls.__name__, self.sf, self.gen.seed, split.table, split.chunk, split.lo,
+                   split.hi)
+            full = GENERATED.get(key)
+            if full is None:
+                full = GENERATED[key] = original(self, split)
+            if columns is None:
+                return dict(full)
+            return {k: full[k] for c in columns for k in (c, f"{c}$valid") if k in full}
+        return scan_numpy
+
+    for cls, original in originals.items():
+        cls.scan_numpy = memo(cls, original)
+    try:
+        yield GENERATED
+    finally:
+        for cls, original in originals.items():
+            cls.scan_numpy = original
+        GENERATED.clear()
+
+
+def prefill(*conns) -> tuple:
+    """Generate every split of every table of ``conns`` (inside
+    :func:`generated_once`). Returns (seconds, GiB held in ``GENERATED``)."""
+    t0 = time.perf_counter()
+    for conn in conns:
+        for table in conn.tables():
+            for split in conn.splits(table):
+                conn.scan_numpy(split)
+    held = sum(a.nbytes for arrays in GENERATED.values() for a in arrays.values())
+    return time.perf_counter() - t0, held / 2**30
+
+
+def _sort_or_fold(op: str) -> str | None:
+    """'index_add_' for the sort strategy's fold (``indexFunc*``), 'sort'
+    for a sort's kernels, else None."""
+    if "indexFunc" in op:
+        return "index_add_"
+    if "sort" in op.lower():
+        return "sort"
+    return None
+
+
+def tpcds_sf1_runs(conn, queries: dict, device: str) -> dict:
+    """Phase 16's runs at SF1 (``conn``'s data generated as set-up): q3,
+    q7, q97 and q98's numpy oracles, then one run of each query under the
+    profiler's CUDA tracing: its wall, device busy ms and largest ops,
+    counters against its plan, launches, peak memory and oracle.
+    ``phase_s`` holds the host seconds of the oracles, the plans, the
+    runs and the tracing's own work after each run (the profiler's exit
+    and the reading of its events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    cached = ColumnCache(conn)
+    want = {q: fn(cached) for q, fn in TPCDS_ORACLES.items()}
+    del cached
+    phase_s = {"oracles": time.perf_counter() - t0, "plans": 0.0, "runs": 0.0,
+               "tracing after the runs": 0.0}
+    log(f"phase 16: numpy recomputation of {sorted(want)} at SF{TPCDS_SF:g} in "
+        f"{phase_s['oracles']:.1f} s; rows "
+        f"{ {q: len(next(iter(w.values()))) for q, w in want.items()} }")
+    out = {"walls": {}, "launches": {}, "routes": {}, "peak_gib": {}, "fold_ms": {},
+           "sort_ms": {}, "capacities": {}, "phase_s": phase_s}
+    query = {"name": None}
+    with each_probe_shape(query) as probes, first_kernel_calls(query) as calls:
+        for name, sql in queries.items():
+            session = Session({"tpcds": conn}, device=device)
+            t0 = time.perf_counter()
+            predicted = planned_routes(session, sql)
+            phase_s["plans"] += time.perf_counter() - t0
+            query["name"] = name
+            try:
+                COUNTERS.clear()
+                _reset_launches()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+                with expand_capacities() as caps, timed_scans(conn) as scans, \
+                        profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    res = session.sql(sql)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                peak = torch.cuda.max_memory_allocated()
+                n = _launch_counts()
+                route = dict(COUNTERS)
+            finally:
+                query["name"] = None
+            busy_ms, ops = trace_device_ops(prof)
+            del prof
+            phase_s["runs"] += wall
+            phase_s["tracing after the runs"] += time.perf_counter() - t0 - wall
+            if name in want:
+                close_result(res, want[name], f"{name} at SF{TPCDS_SF:g}",
+                             TPCDS_DOUBLES.get(name, ()))
+            got = {k: v for k, v in route.items()
+                   if k.startswith(("join.strategy.", "agg.strategy.")) and v}
+            expand = "join.strategy.expand"
+            check({k: v for k, v in got.items() if k != expand}
+                  == {k: v for k, v in predicted.items() if k != expand}
+                  and got.get(expand, 0) >= predicted.get(expand, 0),
+                  f"{name}: strategy counters {got}, the plan predicts {predicted}")
+            check(route.get("exec.pallas_join_route", 0) == got.get("join.strategy.pallas", 0)
+                  and route.get("join.pallas_fallback", 0) == 0,
+                  f"{name}: fused-probe routes {route}")
+            check_vector_probes(name, n)
+            out["launches"][name] = n
+            out["capacities"][name] = list(caps)
+            out["routes"][name] = {**got, **{k: v for k, v in route.items()
+                                             if k.startswith("exec.") and v}}
+            out["peak_gib"][name] = ((peak - held) / 2**30, held / 2**30)
+            scan_s = scans[0]
+            out["walls"][name] = (wall, busy_ms, scan_s, len(res))
+            for kind, key in (("index_add_", "fold_ms"), ("sort", "sort_ms")):
+                out[key][name] = sum(ms for k, ms, _c in ops if _sort_or_fold(k) == kind)
+            log(f"  {name} at SF{TPCDS_SF:g}: {len(res)} rows"
+                + (" equal to numpy" if name in want else "")
+                + f"; wall {wall:.3f} s (traced); device busy {busy_ms:.1f} ms (index_add_ "
+                f"{out['fold_ms'][name]:.1f}, sorts {out['sort_ms'][name]:.1f}), connector "
+                f"scans {scan_s:.3f} s; peak device "
+                f"memory {out['peak_gib'][name][0]:.3f} GiB over {held / 2**30:.3f} held; "
+                f"launches { {k: v for k, v in n.items() if v and isinstance(v, int)} }; "
+                f"routes {out['routes'][name]} (planned {predicted})"
+                + (f"; expansion capacities {list(caps)}" if caps else ""))
+            log(f"  {name} largest device ops (ms, calls): "
+                + "; ".join(f"{k} {ms:.2f} ({c})" for k, ms, c in ops[:5]))
+    # what the tracing adds to a wall: a light and a heavy query again,
+    # untraced (outside the counts and launch shapes kept above)
+    out["untraced"] = {}
+    for name in TPCDS_UNTRACED:
+        session = Session({"tpcds": conn}, device=device)
+        t0 = time.perf_counter()
+        session.sql(queries[name])
+        torch.cuda.synchronize()
+        out["untraced"][name] = time.perf_counter() - t0
+    log("  the tracing's cost on a wall: " + "; ".join(
+        f"{q} traced {out['walls'][q][0]:.3f} s, untraced {w:.3f} s"
+        for q, w in out["untraced"].items()))
+    out["probes"], out["calls"] = probes, calls
+    return out
+
+
+def run_tpcds_queries(cpu_answers, device: str = "cuda") -> dict:
+    """Phase 16: the 99 TPC-DS queries through ``Session.sql`` on the
+    card at SF1, every table generated once up front (:func:`prefill`),
+    one run a query under the profiler's CUDA tracing: its strategy
+    counters equal to its plan's (``expand`` at least the plan's: it
+    counts each capacity the retry ladder tries), its wall and
+    connector-scan seconds, device busy ms and five largest device ops,
+    launches per kernel and peak device memory; q3, q7, q97 and q98 equal
+    to numpy oracles; every lane-sums, leaf, LIKE, exists and payload
+    launch shape held to the plain version; then every query at
+    ``TPCDS_CHECK_SF`` (or ``TPCDS_SMALL_SF``) equal to the port's CPU
+    answer (``cpu_answers``: the pool's pending result), rows in order."""
+    from presto_tpu_torch.connectors.tpcds import TpcdsConnector
+
+    queries = _tpcds_queries()
+    conn = TpcdsConnector(sf=TPCDS_SF, device=device)
+    setup_s, held_gib = prefill(conn)
+    log(f"phase 16: generated every split of the 23 tables at SF{TPCDS_SF:g} in {setup_s:.1f} "
+        f"s (set-up; {held_gib:.3f} GiB of generated data on the host in all)")
+    out = tpcds_sf1_runs(conn, queries, device)
+    out["phase_s"]["generation"] = setup_s
+    probes, calls = out["probes"], out["calls"]
+    out["probe_err"] = hold_probe_shapes(probes)
+    out["call_err"] = hold_kernel_calls(calls)
+    for mode in ("exists", "payload"):
+        held_rows = {rows for m, rows, _key in probes if m == mode}
+        ran = {rows for n in out["launches"].values() for rows in n["probe_by_shape"][mode]}
+        check(held_rows == ran, f"phase 16's {mode} launches at rows {sorted(ran)}, held to "
+              f"the plain version at {sorted(held_rows)}")
+    for kernel in ("lane_sums", "leaf_agg", "like"):
+        ran = sum(n[kernel] for n in out["launches"].values())
+        held_shapes = [shape for k, shape in calls if k == kernel]
+        check((ran > 0) == bool(held_shapes), f"phase 16's {kernel}: {ran} launches, shapes "
+              f"held {held_shapes}")
+    check(all(n["sketch"] == 0 and n["q1"] == 0 and n["q3"] == 0 and n["prefix"] == 0
+              for n in out["launches"].values()),
+          "phase 16 launched a kernel its plans do not route to")
+    busy = sum(w[1] for w in out["walls"].values())
+    fold = sum(out["fold_ms"].values())
+    sorts = sum(out["sort_ms"].values())
+    out["busy_ms"] = busy
+    log(f"  phase 16's device busy time {busy:.1f} ms over walls of "
+        f"{sum(w[0] for w in out['walls'].values()):.1f} s: index_add_ (the sort strategy's "
+        f"fold) {fold:.1f} ms = {100 * fold / max(busy, 1e-9):.1f} %, sorts {sorts:.1f} ms = "
+        f"{100 * sorts / max(busy, 1e-9):.1f} %")
+    for k in ("lane_sums", "like", "leaf_agg", "exists", "payload"):
+        out[f"{k}_launches"] = sum(n[k] for n in out["launches"].values())
+    # every query on the card against the port's CPU answer
+    t0 = time.perf_counter()
+    check_conns = {sf: TpcdsConnector(sf=sf, device=device)
+                   for sf in (TPCDS_CHECK_SF, TPCDS_SMALL_SF)}
+    card = {}
+    for name, sql in queries.items():
+        sf = TPCDS_SMALL_SF if name in TPCDS_CHECK_SMALL else TPCDS_CHECK_SF
+        session = Session({"tpcds": check_conns[sf]}, device=device)
+        card[name] = (sf, answer_of(session.sql(sql)))
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pool, pending = cpu_answers
+    answers = pending.get()
+    wait_s = time.perf_counter() - t0
+    pool.close()
+    pool.join()
+    cpu_s = {}
+    for name, sf, seconds, answer in answers:
+        check(card[name][0] == sf, f"{name}: card at sf {card[name][0]}, CPU at sf {sf}")
+        same_answer(card[name][1], answer, f"{name} at sf {sf:g}, card against CPU")
+        cpu_s[name] = seconds
+    check(sorted(cpu_s) == sorted(queries), "phase 16: a CPU answer is missing")
+    out["cpu_s"] = cpu_s
+    log(f"  phase 16: all {len(cpu_s)} queries on the card equal the port's CPU answers "
+        f"(sf {TPCDS_CHECK_SF:g}; sf {TPCDS_SMALL_SF:g} for {sorted(TPCDS_CHECK_SMALL)}), rows "
+        "in order, "
+        f"DOUBLE columns within {DOUBLE_TOL}; card runs {card_s:.1f} s, waited {wait_s:.1f} s "
+        f"for the CPU; CPU seconds by query "
+        + ", ".join(f"{q} {s:.1f}" for q, s in sorted(cpu_s.items(), key=lambda kv: -kv[1])))
+    out["phase_s"].update({"card runs at the check sf": card_s, "wait for the CPU": wait_s})
+    log("  phase 16's host seconds: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in out["phase_s"].items()))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 9: semi and anti joins, the approximate sketch, the Q3 join step
 # ---------------------------------------------------------------------------
 
@@ -4720,7 +5257,7 @@ def run_semi_queries(sf: float = 1, device: str = "cuda") -> dict:
             f"launches { {k: v for k, v in n.items() if v} }; routes "
             f"{ {k: v for k, v in route.items() if k.startswith(('exec.', 'agg.', 'join.'))} }")
         log(f"  {name} breakdown (a third, profiled run): device busy {busy_ms:.1f} ms, "
-            f"connector scans (host generation + copy to the card) {scan_s:.3f} s")
+            f"connector scans (narrowing + copy to the card) {scan_s:.3f} s")
     out["captured"] = captured
 
     # the resident Q3 join step
@@ -4814,7 +5351,18 @@ def main() -> int:
     log(f"card (name, power limit) for every number below: {smi[0]}")
     log(f"device: {dev_name} x{torch.cuda.device_count()}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
+    cpu_answers = start_tpcds_cpu_answers()
+    try:
+        with generated_once():
+            return run_phases(dev_name, smi, cpu_answers)
+    finally:
+        cpu_answers[0].terminate()
+        cpu_answers[0].join()
 
+
+def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
+    """Phases 1-16 (``cpu_answers``: phase 16's CPU answers, computing in
+    worker processes meanwhile)."""
     marks: list = []
 
     def mark(name: str) -> None:
@@ -4829,6 +5377,14 @@ def main() -> int:
     log(f"phase 1: built {_build.sources()} in {time.perf_counter() - t0:.1f} s")
     for name, out in logs.items():
         log_ptxas(name, out)
+    from presto_tpu_torch.connectors.ssb import SsbConnector
+
+    mark("data set-up")
+    setup_s, held_gib = prefill(TpchConnector(sf=1, device="cuda"),
+                                SsbConnector(sf=1, device="cuda"))
+    log(f"set-up: generated every split of TPC-H and SSB at SF1 in {setup_s:.1f} s, "
+        f"{held_gib:.3f} GiB on the host; every scan below reads it (other scales: "
+        "generated when first scanned)")
 
     # ---- phase 2: kernels vs plain ----------------------------------------
     mark("2 kernels")
@@ -4842,8 +5398,6 @@ def main() -> int:
     keep_err = check_probe_keep_kernels(rng)
     q3_kernel_err = check_q3_kernel(rng)
     leaf_err = check_leaf_agg_kernel(rng)
-    from presto_tpu_torch.connectors.ssb import SsbConnector
-
     string_conns = {"tpch": TpchConnector(sf=1, device="cuda"),
                     "ssb": SsbConnector(sf=1, device="cuda")}
     like_err, prefix_err, sf1_strings = check_string_kernels(string_conns)
@@ -5194,6 +5748,25 @@ def main() -> int:
         f"instance {p15_by_instance}; per statement "
         f"{ {q: {k: n[k] for k in ('leaf_agg', 'lane_sums', 'exists', 'payload') if n[k]} for q, n in win['launches'].items()} }; "
         f"shapes held to plain: {sorted(str(k) for k in win['calls'])}")
+    # ---- phase 16: the TPC-DS connector and its 99 queries ------------------
+    mark("16 tpcds")
+    ds = run_tpcds_queries(cpu_answers)
+    p16 = probe_launch_totals(ds["launches"])
+    totals = probe_launch_totals(join["launches"], strings["launches"], semi["launches"],
+                                 outer["launches"], expr["launches"], sub["launches"],
+                                 feat["launches"], surf["launches"], win["launches"],
+                                 ds["launches"])
+    log(f"  exists, sketch and payload launches with phase 16: {totals}; phase 16's alone: "
+        f"{p16}")
+    p16_other = {k: sum(n[k] for n in ds["launches"].values())
+                 for k in ("q1", "lane_sums", "leaf_agg", "q3", "like", "prefix")}
+    p16_by_instance = _summed(*(n["by_instance"] for n in ds["launches"].values()))
+    p16_like_by_instance = _summed(*(n["like_by_instance"] for n in ds["launches"].values()))
+    p16_like_by_shape = _summed(*(n["like_by_shape"] for n in ds["launches"].values()))
+    log(f"  phase 16's launches of the other kernels: {p16_other}; lane-sums and leaf by "
+        f"instance {p16_by_instance}; per query "
+        f"{ {q: {k: n[k] for k in ('leaf_agg', 'lane_sums', 'exists', 'payload', 'like') if n[k]} for q, n in ds['launches'].items() if any(n[k] for k in ('leaf_agg', 'lane_sums', 'exists', 'payload', 'like'))} }; "
+        f"shapes held to plain: {sorted(str(k) for k in ds['calls'])}")
     mark("json")
     log("phase seconds: " + ", ".join(f"{a} {t1 - t0:.1f}" for (a, t0), (_b, t1)
                                       in zip(marks, marks[1:])))
@@ -5204,9 +5777,10 @@ def main() -> int:
          "replaces": "presto_tpu/ops/pallas_q1.py:114",
          "jax_function": "presto_tpu/ops/pallas_q1.py:174 q1_step",
          "launches": (q1_launches + p11_other["q1"] + p12_other["q1"] + p13_other["q1"]
-                      + p14_other["q1"] + p15_other["q1"]),
+                      + p14_other["q1"] + p15_other["q1"] + p16_other["q1"]),
          "phase11_launches": p11_other["q1"], "phase12_launches": p12_other["q1"],
          "phase13_launches": p13_other["q1"], "phase14_launches": p14_other["q1"], "phase15_launches": p15_other["q1"],
+         "phase16_launches": p16_other["q1"],
          "max_abs_err": q1_err, "ms": q1_ms, "kernel_ms": q1_ms,
          "call_ms": q1_call_ms,
          "plain_ms": q1_plain_ms, "bound_ms": q1_bound, "bound_by": q1_by,
@@ -5217,9 +5791,13 @@ def main() -> int:
          "jax_function": "presto_tpu/ops/pallas_groupby.py:177 fused_lane_sums",
          "launches": (lane_launches + outer["lane_launches"] + expr["lane_sums_launches"]
                       + sub["lane_sums_launches"] + p13_other["lane_sums"]
-                      + p14_other["lane_sums"] + p15_other["lane_sums"]),
+                      + p14_other["lane_sums"] + p15_other["lane_sums"]
+                      + p16_other["lane_sums"]),
          "phase13_launches": p13_other["lane_sums"], "phase14_launches": p14_other["lane_sums"],
          "phase15_launches": p15_other["lane_sums"],
+         "phase16_launches": p16_other["lane_sums"],
+         "phase16_launches_by_instance": {k.split()[1]: c for k, c in p16_by_instance.items()
+                                          if k.startswith("lane_sums")},
          "phase14_launches_by_instance": {k.split()[1]: c for k, c in p14_by_instance.items()
                                           if k.startswith("lane_sums ")},
          "launches_by_instance": _summed(lane_by_instance, outer["lane_by_instance"],
@@ -5232,7 +5810,8 @@ def main() -> int:
          "phase11_launches": expr["lane_sums_launches"],
          "phase11_launches_by_instance": expr["lane_by_instance"],
          "max_abs_err": max(lane_err, ln["err"], ln_phone["err"], ln_q4["err"],
-                            surf["call_err"]["lane_sums"], win["call_err"]["lane_sums"]),
+                            surf["call_err"]["lane_sums"], win["call_err"]["lane_sums"],
+                           ds["call_err"]["lane_sums"]),
          "ms": ln["ms"], "kernel_ms": ln["ms"], "call_ms": ln["call_ms"],
          "plain_ms": ln["plain_ms"], "bound_ms": lane_bound, "bound_by": lane_by,
          "library_ms": ln["library_ms"], "rows": cap, "bytes": ln["bytes"], "ops": ln["ops"],
@@ -5253,6 +5832,8 @@ def main() -> int:
          "launches_by_shape": totals["exists"]["by_shape"],
          "launches_by_instance": totals["exists"]["by_instance"],
          "launches_from": "phases 6, 8, 9, 10, 11, 12, 13, 14 and 15",
+         "phase16_launches": p16["exists"]["launches"],
+         "phase16_launches_by_shape": p16["exists"]["by_shape"],
          "phase15_launches": p15["exists"]["launches"],
          "phase15_launches_by_shape": p15["exists"]["by_shape"],
          "phase14_launches": p14["exists"]["launches"],
@@ -5266,7 +5847,8 @@ def main() -> int:
          "phase12_launches_by_instance": p12["exists"]["by_instance"],
          "max_abs_err": max([exists_err, keep_err["exists"], expr["probe_err"]["exists"],
                              sub["probe_err"]["exists"], feat["probe_err"]["exists"],
-                             surf["probe_err"]["exists"], win["probe_err"]["exists"]]
+                             surf["probe_err"]["exists"], win["probe_err"]["exists"],
+                            ds["probe_err"]["exists"]]
                             + [t["err"] for t in probe_shapes["exists"].values()]),
          "ms": ex["ms"], "kernel_ms": ex["ms"], "call_ms": ex["call_ms"],
          "plain_ms": ex["plain_ms"], "bound_ms": exists_bound, "bound_by": exists_by,
@@ -5286,6 +5868,7 @@ def main() -> int:
          "phase13_launches": p13["sketch"]["launches"],
          "phase14_launches": p14["sketch"]["launches"],
          "phase15_launches": p15["sketch"]["launches"],
+         "phase16_launches": p16["sketch"]["launches"],
          "max_abs_err": max([sketch_err, keep_err["sketch"]]
                             + [t["err"] for t in probe_shapes["sketch"].values()]),
          "ms": sk["ms"], "kernel_ms": sk["ms"], "call_ms": sk["call_ms"],
@@ -5298,9 +5881,10 @@ def main() -> int:
          "replaces": "presto_tpu/ops/pallas_join.py:443",
          "jax_function": "presto_tpu/ops/pallas_join.py:464 q3_probe_step",
          "launches": (semi["q3_launches"] + p11_other["q3"] + p12_other["q3"] + p13_other["q3"]
-                      + p14_other["q3"] + p15_other["q3"]),
+                      + p14_other["q3"] + p15_other["q3"] + p16_other["q3"]),
          "phase11_launches": p11_other["q3"], "phase12_launches": p12_other["q3"],
          "phase13_launches": p13_other["q3"], "phase14_launches": p14_other["q3"], "phase15_launches": p15_other["q3"],
+         "phase16_launches": p16_other["q3"],
          "max_abs_err": max(q3_kernel_err, semi["q3"]["err"]),
          "ms": q3_one["ms"], "kernel_ms": q3_one["ms"], "call_ms": q3_one["call_ms"],
          "plain_ms": q3_one["plain_ms"], "bound_ms": q3_bound, "bound_by": q3_by,
@@ -5316,6 +5900,8 @@ def main() -> int:
          "launches_by_shape": totals["payload"]["by_shape"],
          "launches_by_instance": totals["payload"]["by_instance"],
          "launches_from": "phases 6, 8, 9, 10, 11, 12, 13, 14 and 15",
+         "phase16_launches": p16["payload"]["launches"],
+         "phase16_launches_by_shape": p16["payload"]["by_shape"],
          "phase15_launches": p15["payload"]["launches"],
          "phase15_launches_by_shape": p15["payload"]["by_shape"],
          "phase14_launches": p14["payload"]["launches"],
@@ -5331,7 +5917,8 @@ def main() -> int:
          "phase12_launches_by_instance": p12["payload"]["by_instance"],
          "max_abs_err": max([payload_err, expr["probe_err"]["payload"],
                              sub["probe_err"]["payload"], feat["probe_err"]["payload"],
-                             surf["probe_err"]["payload"], win["probe_err"]["payload"]]
+                             surf["probe_err"]["payload"], win["probe_err"]["payload"],
+                            ds["probe_err"]["payload"]]
                             + [t["err"] for t in probe_shapes["payload"].values()]),
          "ms": pay["ms"], "kernel_ms": pay["ms"], "call_ms": pay["call_ms"],
          "plain_ms": pay["plain_ms"], "bound_ms": pay["bound_ms"], "bound_by": pay["bound_by"],
@@ -5344,10 +5931,13 @@ def main() -> int:
          "jax_function": "presto_tpu/ops/pallas_agg.py:246 _pallas_step (via agg_step :346)",
          "launches": (leaf["leaf_launches"] + p11_other["leaf_agg"] + p12_other["leaf_agg"]
                       + p13_other["leaf_agg"] + p14_other["leaf_agg"]
-                      + p15_other["leaf_agg"]),
+                      + p15_other["leaf_agg"] + p16_other["leaf_agg"]),
          "phase11_launches": p11_other["leaf_agg"], "phase12_launches": p12_other["leaf_agg"],
          "phase13_launches": p13_other["leaf_agg"], "phase14_launches": p14_other["leaf_agg"],
          "phase15_launches": p15_other["leaf_agg"],
+         "phase16_launches": p16_other["leaf_agg"],
+         "phase16_launches_by_instance": {k.split()[1]: c for k, c in p16_by_instance.items()
+                                          if k.startswith("leaf_agg")},
          "phase15_launches_by_instance": {k.split()[1]: c for k, c in p15_by_instance.items()
                                           if k.startswith("leaf_agg ")},
          "phase14_launches_by_instance": {k.split()[1]: c for k, c in p14_by_instance.items()
@@ -5359,7 +5949,8 @@ def main() -> int:
          "launches_by_shape": leaf["by_shape"],
          "launches_by_instance": leaf["by_instance"],
          "max_abs_err": max(leaf_err, sp["err"], sm_["err"], res_["err"],
-                            surf["call_err"]["leaf_agg"], win["call_err"]["leaf_agg"]),
+                            surf["call_err"]["leaf_agg"], win["call_err"]["leaf_agg"],
+                           ds["call_err"]["leaf_agg"]),
          "ms": sp["ms"], "kernel_ms": sp["ms"], "call_ms": sp["call_ms"],
          "plain_ms": sp["plain_ms"], "bound_ms": leaf_bound, "bound_by": leaf_by,
          "library_ms": sp["library_ms"], "rows": sp["rows"], "bytes": sp["bytes"],
@@ -5374,12 +5965,14 @@ def main() -> int:
          "jax_function": "presto_tpu/ops/pallas_strings.py:190 like_mask_pallas",
          "launches": (strings["like_launches"] + outer["like_launches"] + expr["like_launches"]
                       + sub["like_launches"] + p13_other["like"] + p14_other["like"]
-                      + p15_other["like"]),
+                      + p15_other["like"] + p16_other["like"]),
          "launches_by_instance": _summed(strings["like_by_instance"],
                                          outer["like_by_instance"], expr["like_by_instance"],
                                          sub["like_by_instance"], p13_like_by_instance,
-                                         p14_like_by_instance, p15_like_by_instance),
+                                         p14_like_by_instance, p15_like_by_instance,
+                                         p16_like_by_instance),
          "phase13_launches": p13_other["like"], "phase14_launches": p14_other["like"], "phase15_launches": p15_other["like"],
+         "phase16_launches": p16_other["like"],
          "phase14_launches_by_instance": p14_like_by_instance,
          "phase13_launches_by_instance": p13_like_by_instance,
          "launches_from": "phase 8 (LIKE queries), phase 10 (Q13, Q5), phase 11 (Q16) and "
@@ -5390,9 +5983,10 @@ def main() -> int:
          "phase12_launches_by_instance": sub["like_by_instance"],
          "launches_by_shape": _summed(strings["like_by_shape"], outer["like_by_shape"],
                                       expr["like_by_shape"], sub["like_by_shape"],
-                                      p13_like_by_shape, p14_like_by_shape, p15_like_by_shape),
+                                      p13_like_by_shape, p14_like_by_shape, p15_like_by_shape,
+                                      p16_like_by_shape),
          "max_abs_err": max([like_err, sub["like_err"], surf["call_err"]["like"],
-                            win["call_err"]["like"]]
+                            win["call_err"]["like"], ds["call_err"]["like"]]
                             + [t["err"] for t in like_shapes.values()]),
          "ms": lk["ms"], "kernel_ms": lk["ms"], "call_ms": lk["call_ms"],
          "plain_ms": lk["plain_ms"], "bound_ms": like_bound, "bound_by": like_by,
@@ -5405,10 +5999,11 @@ def main() -> int:
          "jax_function": "presto_tpu/ops/pallas_strings.py:251 starts_with_pallas",
          "launches": (strings["prefix_launches"] + p11_other["prefix"] + p12_other["prefix"]
                       + p13_other["prefix"] + p14_other["prefix"]
-                      + p15_other["prefix"]),
+                      + p15_other["prefix"] + p16_other["prefix"]),
          "phase11_launches": p11_other["prefix"], "phase12_launches": p12_other["prefix"],
          "phase13_launches": p13_other["prefix"], "phase14_launches": p14_other["prefix"],
          "phase15_launches": p15_other["prefix"],
+         "phase16_launches": p16_other["prefix"],
          "launches_from": "phase 8 (the starts_with pipeline); phase 12's like 'forest%' "
                           "runs the LIKE kernel, as in the JAX package",
          "launches_by_instance": strings["prefix_by_instance"],

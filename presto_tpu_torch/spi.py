@@ -53,6 +53,20 @@ class Connector(Protocol):
     def row_count(self, table: str) -> int: ...
 
 
+
+def split_valids(arrays: Mapping[str, np.ndarray]):
+    """Separate ``<col>$valid`` NULL-mask companions from data columns.
+
+    Connectors whose sources carry NULLs (the TPC-DS fact FKs) return
+    masks under this naming convention; the engine splits them here
+    before building device Batches.
+    """
+    data = {c: v for c, v in arrays.items() if not c.endswith("$valid")}
+    valids = {
+        c[: -len("$valid")]: v for c, v in arrays.items() if c.endswith("$valid")
+    }
+    return data, valids
+
 @dataclass(frozen=True)
 class ColumnStats:
     """The connector-statistics shape the engine consumes (duck-typed:

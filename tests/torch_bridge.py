@@ -8,6 +8,8 @@ counters it bumps (``jax_run``, ``port_run``).
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -103,3 +105,82 @@ def port_run(conn, sql, key="tpch"):
     session = PSession({key: conn}, device="cpu")
     res = session.sql(sql)
     return res, {k: v for k, v in COUNTERS.items() if k.startswith(ROUTES) and v}, session
+
+
+# ---------------------------------------------------------------------------
+# TPC-DS: the 99 queries through the port against the reference's oracle
+# ---------------------------------------------------------------------------
+
+#: the reference test's settings (``tests/test_tpcds_sql.py``): its
+#: literals were tuned to return rows at sf 0.02
+TPCDS_SF = 0.02
+TPCDS_UNITS = 1 << 15
+
+#: queries whose port run takes over about 20 s in one worker on the CPU
+#: at ``TPCDS_SF`` (46-527 s with one thread, four modules at once; in
+#: q10 the sort strategy's group ids, one stable argsort a key, take most
+#: of it); they run under ``-m slow``
+TPCDS_SLOW = {"q10", "q35", "q64", "q91"}
+
+
+class LazyTables(dict):
+    """The oracle's input frames, decoded on first use by the reference
+    connector's ``table_pandas`` (``customer_demographics`` alone is
+    1.92M rows at any scale factor)."""
+
+    def __init__(self, conn):
+        super().__init__()
+        self.conn = conn
+
+    def __missing__(self, table):
+        frame = self[table] = self.conn.table_pandas(table)
+        return frame
+
+
+def tpcds_params(lo: int, hi: int) -> list:
+    """The queries q<lo>..q<hi>, each a test case (``TPCDS_SLOW`` marked
+    slow)."""
+    import pytest
+
+    return [pytest.param(f"q{i}", marks=pytest.mark.slow) if f"q{i}" in TPCDS_SLOW
+            else f"q{i}" for i in range(lo, hi + 1)]
+
+
+def tpcds_oracle_env():
+    """(port session on the CPU, lazily decoded oracle tables) at the
+    reference test's settings."""
+    from presto_tpu.connectors.tpcds import TpcdsConnector as JConnector
+    from presto_tpu_torch.connectors.tpcds import TpcdsConnector
+    from presto_tpu_torch.runtime.session import Session as PSession
+
+    conn = TpcdsConnector(sf=TPCDS_SF, units_per_split=TPCDS_UNITS, device="cpu")
+    return (PSession({"tpcds": conn}, device="cpu"),
+            LazyTables(JConnector(sf=TPCDS_SF, units_per_split=TPCDS_UNITS)))
+
+
+def check_tpcds_query(env, name: str) -> None:
+    """The port's answer to TPC-DS ``name`` equals the reference's pandas
+    oracle under ``tests/test_tpch_sql.compare`` (the contract of the
+    reference's own ``test_tpcds_query_matches_oracle``)."""
+    from presto_tpu.oracle.tpcds_oracle import ORACLES
+    from presto_tpu_torch.connectors.tpcds.queries import QUERIES
+    from test_tpch_sql import compare
+
+    session, tables = env
+    got = port_frame(session.sql(QUERIES[name]))
+    want = ORACLES[name](tables)
+    assert len(want) > 0, f"{name}: oracle returned no rows (bad constants)"
+    compare(got, want, name)
+
+
+@contextlib.contextmanager
+def one_thread():
+    """Run the block with one intra-op CPU thread (restored after): the
+    TPC-DS modules sort and gather large tensors, and under ``pytest -n``
+    several workers' thread pools would contend for the same cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
