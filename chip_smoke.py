@@ -197,7 +197,21 @@ one CUDA card, and exits nonzero on any failure. Phases:
    device busy time in ``index_add_`` and in sorts; then every query on
    the card at sf 0.1 (``TPCDS_CHECK_SMALL`` at sf 0.02) equal, row for
    row, to the port's answer on the CPU, which ``TPCDS_WORKERS`` niced
-   processes compute from the start of the run (ended on any exit).
+   processes compute from the start of the run (ended on any exit);
+17. the statements over the memory connector at SF1
+   (``run_statement_queries``, on the generated splits): CREATE TABLE AS
+   of ``lineitem``'s integer columns (its stats and catalog version),
+   their group-by on the leaf route, INSERT of a filtered copy, the
+   group-by again (stats merged), DROP; TPC-DS q3's star join over CTAS
+   copies of its integer columns (the memory connector's exact stats)
+   beside phase 16's q3; EXPLAIN ANALYZE and ``Session.execute`` of Q3
+   and a Q1-shaped group-by, each countable node's rows against numpy
+   and ``strategy=partial`` where the recorder skipped the leaf route;
+   PREPARE / EXECUTE of Q6 with ``?`` bounds under three bindings (and
+   the literal statements) and of Q3 with its literals auto-slotted;
+   every answer equal to a numpy recomputation, the ``prepare.*``
+   counters reported, every lane-sums, leaf, exists and payload launch
+   shape held to the plain version.
 
 Phase 5 also times the prefix kernel at the first ``part`` split of the
 ``starts_with`` pipeline and over SF1 ``o_comment`` with
@@ -5228,8 +5242,12 @@ def run_semi_queries(sf: float = 1, device: str = "cuda") -> dict:
         check(route.get("join.pallas_fallback", 0) == 0,
               f"{name}: {route.get('join.pallas_fallback')} fused-probe fallbacks")
         if name.startswith("q4") and c is conn:
-            check(route.get("exec.leaf_route_fallback.membership", 0) == 1,
-                  f"{name}: the leaf route did not decline the 6M-key membership fold")
+            # Q4's date bounds arrive as plan-template slots (the leaf
+            # matcher declined the 6M-key membership fold when it chose
+            # the slots), which the matcher then declines, as in the JAX
+            # package
+            check(route.get("exec.leaf_route_fallback.filter_shape", 0) == 1,
+                  f"{name}: the leaf route did not decline Q4's slotted date filter")
             check(route.get("join.strategy.pallas" if approx else "join.strategy.dense", 0) == 1,
                   f"{name}: join routes {route}")
         if name == "q4 sf0.01 leaf":
@@ -5339,6 +5357,432 @@ def log_ptxas(name: str, text: str) -> None:
             log(f"  {name} {fn}: {line.split('info    :')[-1].strip()}")
 
 
+# ---------------------------------------------------------------------------
+# phase 17: CREATE TABLE AS / INSERT / DROP, EXPLAIN ANALYZE and execute,
+# PREPARE / EXECUTE over the memory connector
+# ---------------------------------------------------------------------------
+
+LEAF_CTAS = ("create table leaf_t as select l_linenumber k, l_partkey v, l_suppkey p "
+             "from lineitem")
+LEAF_INSERT = ("insert into leaf_t select l_linenumber k, l_partkey v, l_suppkey p "
+               "from lineitem where l_quantity < 10")
+LEAF_GROUP = ("select k, sum(v) sv, count(*) c, min(p) mn, max(p) mx "
+              "from leaf_t group by k order by k")
+#: the integer columns TPC-DS q3 reads, copied into memory tables (whose
+#: exact stats the generator tables do not declare)
+STAR_CTAS = {
+    "ss_t": "create table ss_t as select ss_sold_date_sk, ss_item_sk, ss_quantity "
+            "from store_sales",
+    "dd_t": "create table dd_t as select d_date_sk, d_year, d_moy from date_dim",
+    "it_t": "create table it_t as select i_item_sk, i_brand_id, i_manufact_id from item",
+}
+#: q3's shape over the copies, with an integer measure (an exact oracle)
+STAR_SQL = ("select d_year, i_brand_id as brand_id, sum(ss_quantity) as sum_agg "
+            "from dd_t, ss_t, it_t "
+            "where d_date_sk = ss_sold_date_sk and ss_item_sk = i_item_sk "
+            "and i_manufact_id <= 50 and d_moy = 11 "
+            "group by d_year, i_brand_id order by d_year, sum_agg desc, brand_id limit 100")
+#: a Q1-shaped group-by: scan -> filter -> aggregate, every node's rows
+#: countable in numpy
+Q1_SHAPED = ("select l_returnflag, l_linestatus, sum(l_quantity) sq, count(*) c "
+             "from lineitem where l_shipdate <= date '1998-09-02' "
+             "group by l_returnflag, l_linestatus order by l_returnflag, l_linestatus")
+Q6_PREPARE = ("prepare q6p from select sum(l_extendedprice * l_discount) as revenue "
+              "from lineitem where l_shipdate >= ? and l_shipdate < ? "
+              "and l_discount between ? and ? and l_quantity < ?")
+Q6_LITERAL = ("select sum(l_extendedprice * l_discount) as revenue from lineitem "
+              "where l_shipdate >= date '{0}' and l_shipdate < date '{1}' "
+              "and l_discount between {2} and {3} and l_quantity < {4}")
+#: (ship from, ship to, discount from, discount to, quantity below)
+Q6_BINDINGS = (("1994-01-01", "1995-01-01", "0.05", "0.07", "24"),
+               ("1995-01-01", "1996-01-01", "0.02", "0.04", "30"),
+               ("1993-06-01", "1994-06-01", "0.06", "0.09", "12"))
+
+
+def leaf_expected(cols: dict) -> dict:
+    """``LEAF_GROUP`` in int64 numpy over the columns ``k``, ``v``, ``p``."""
+    keys, inv = np.unique(cols["k"], return_inverse=True)
+    # float64 sums are exact below 2^53 (at most 1.3e12 here)
+    sv = np.bincount(inv, weights=cols["v"].astype(np.float64)).astype(np.int64)
+    mn = np.full(len(keys), np.iinfo(np.int64).max)
+    mx = np.full(len(keys), np.iinfo(np.int64).min)
+    np.minimum.at(mn, inv, cols["p"].astype(np.int64))
+    np.maximum.at(mx, inv, cols["p"].astype(np.int64))
+    return {"k": keys, "sv": sv, "c": np.bincount(inv), "mn": mn, "mx": mx}
+
+
+def leaf_columns(conn, insert: bool = False) -> dict:
+    """``leaf_t``'s columns from the generator's arrays: after
+    ``LEAF_CTAS``, or after ``LEAF_INSERT`` too."""
+    li = conn.table_numpy("lineitem", ["l_linenumber", "l_partkey", "l_suppkey", "l_quantity"])
+    cols = {"k": li["l_linenumber"].astype(np.int64), "v": li["l_partkey"].astype(np.int64),
+            "p": li["l_suppkey"].astype(np.int64)}
+    if insert:
+        m = li["l_quantity"] < 1000  # decimal(12,2): 10.00
+        cols = {c: np.concatenate([a, a[m]]) for c, a in cols.items()}
+    return cols
+
+
+def star_expected(conn) -> dict:
+    """``STAR_SQL`` in int64 numpy from the TPC-DS generator's arrays: the
+    inner joins drop NULL keys, the sum skips NULL quantities."""
+    f = _fact_dim(conn, "store_sales", "ss", ["ss_quantity"])
+    d = conn.table_numpy("date_dim", ["d_year", "d_moy"])
+    it = conn.table_numpy("item", ["i_brand_id", "i_manufact_id"])
+    keep = (it["i_manufact_id"][f["irow"]] <= 50) & (d["d_moy"][f["drow"]] == 11)
+    year = d["d_year"][f["drow"]][keep].astype(np.int64)
+    brand = it["i_brand_id"][f["irow"]][keep].astype(np.int64)
+    qty = f["ss_quantity"][keep].astype(np.int64)
+    ok = _valid(f, "ss_quantity")[keep]
+    groups, inv = np.unique(np.stack([year, brand]), axis=1, return_inverse=True)
+    inv = inv.ravel()
+    sums = np.bincount(inv, weights=np.where(ok, qty, 0).astype(np.float64),
+                       minlength=groups.shape[1]).astype(np.int64)
+    check(bool((np.bincount(inv, weights=ok, minlength=groups.shape[1]) > 0).all()),
+          "star join oracle: a group of NULL quantities only")
+    order = np.lexsort((groups[1], -sums, groups[0]))[:100]
+    return {"d_year": groups[0][order], "brand_id": groups[1][order], "sum_agg": sums[order]}
+
+
+def q6_binding_expected(li: dict, binding) -> dict:
+    """One ``Q6_BINDINGS`` row's revenue on physical values."""
+    lo, hi, dlo, dhi, qty = binding
+    ship, disc, q = li["l_shipdate"], li["l_discount"], li["l_quantity"]
+    m = ((ship >= days(lo)) & (ship < days(hi)) & (disc >= round(float(dlo) * 100))
+         & (disc <= round(float(dhi) * 100)) & (q < int(qty) * 100))
+    return revenue(li["l_extendedprice"], li["l_discount"], m)
+
+
+def q1_shaped_counts(conn) -> dict:
+    """Rows of ``Q1_SHAPED``'s scan, filter and aggregate in numpy."""
+    li = conn.table_numpy("lineitem", ["l_shipdate", "l_returnflag", "l_linestatus"])
+    m = li["l_shipdate"] <= CUTOFF
+    groups = np.unique(li["l_returnflag"][m].astype(np.int64) * 2 + li["l_linestatus"][m])
+    return {"TableScan": len(m), "Filter": int(m.sum()), "Aggregate": len(groups)}
+
+
+def q3_node_counts(conn) -> dict:
+    """Rows of Q3's orders and customer scans and filters in numpy (the
+    build sides: no runtime filter prunes them)."""
+    o = conn.table_numpy("orders", ["o_orderdate"])
+    c = conn.table_numpy("customer", ["c_mktsegment"])
+    building = conn.dictionaries("customer")["c_mktsegment"].code_of("BUILDING")
+    return {"orders": (len(o["o_orderdate"]), int((o["o_orderdate"] < days("1995-03-15")).sum())),
+            "customer": (len(c["c_mktsegment"]), int((c["c_mktsegment"] == building).sum()))}
+
+
+_ANALYZED_LINE = re.compile(r"^(\s*)(\w+)  \[(?:wall ([\d.]+)ms, rows ([\d,?]+)->([\d,?]+)"
+                            r"|not executed)")
+
+
+def analyzed_nodes(text: str, plan) -> list:
+    """EXPLAIN ANALYZE's node lines beside the plan's nodes in pre-order:
+    (node, wall ms or None, rows in or None, rows out or None, line)."""
+    nodes = []
+
+    def walk(n):
+        nodes.append(n)
+        for c in n.children:
+            walk(c)
+
+    walk(plan)
+    lines = [ln for ln in text.splitlines() if _ANALYZED_LINE.match(ln)]
+    check(len(lines) == len(nodes), f"EXPLAIN ANALYZE: {len(lines)} node lines for "
+          f"{len(nodes)} plan nodes:\n{text}")
+    out = []
+    for node, line in zip(nodes, lines):
+        m = _ANALYZED_LINE.match(line)
+        check(m.group(2) == type(node).__name__, f"EXPLAIN ANALYZE line {line!r} for a "
+              f"{type(node).__name__}")
+
+        def num(g):
+            return None if g is None or g == "?" else int(g.replace(",", ""))
+
+        out.append((node, None if m.group(3) is None else float(m.group(3)), num(m.group(4)),
+                    num(m.group(5)), line))
+    return out
+
+
+#: earlier phases' statements whose literals now arrive as plan-template
+#: slots (a slot has no static interval: Q12's and ``math``'s sums lose
+#: their value bounds, so the lane-sums kernel, as in the JAX package);
+#: Q1 and Q6 keep theirs baked (leaf-route fragments)
+TEMPLATE_CHECKS = {"q1": QUERIES["q1"], "q6": QUERIES["q6"], "q3": QUERIES["q3"],
+                   "q10": QUERIES["q10"], "q12": QUERIES["q12"], "q14": QUERIES["q14"],
+                   "math": SURFACE_SQL["math"]}
+
+
+def templates_on_off(conn, device: str, sync, query: dict) -> dict:
+    """Each ``TEMPLATE_CHECKS`` statement with ``plan_templates`` on and
+    off, in turns (on, off, on, off) within this run: each run's launches
+    (under ``query["name"]``, so the callers' capture blocks hold their
+    shapes), the device busy ms of one more, profiled run (on the card)
+    and its three device ops with the most time. Both answers equal."""
+    out = {"launches": {}}
+    for name, sql in TEMPLATE_CHECKS.items():
+        busy = {True: [], False: []}
+        top = {}
+        answers = {}
+        for turn, on in enumerate((True, False, True, False)):
+            session = Session({"tpch": conn}, properties={"plan_templates": on}, device=device)
+            run = f"{name} templates {'on' if on else 'off'} {turn // 2}"
+            query["name"] = run
+            try:
+                _reset_launches()
+                res = session.sql(sql)
+                sync()
+                out["launches"][run] = _launch_counts()
+                answers[on] = answer_of(res)
+                busy_ms, _scan_s, ops = (device_ops(session, conn, sql) if device == "cuda"
+                                         else (0.0, 0.0, []))
+            finally:
+                query["name"] = None
+            busy[on].append(busy_ms)
+            top[on] = ops[:3]
+        same_answer(answers[True], answers[False], f"{name}, plan_templates on against off")
+        lanes = {on: [out["launches"][f"{name} templates {'on' if on else 'off'} {i}"]
+                      ["lane_sums"] for i in (0, 1)] for on in (True, False)}
+        out[name] = {"on_ms": busy[True], "off_ms": busy[False], "lane_sums_on": lanes[True],
+                     "lane_sums_off": lanes[False]}
+        log(f"  {name}, plan_templates on / off: device busy {busy[True]} / {busy[False]} ms, "
+            f"lane-sums launches {lanes[True]} / {lanes[False]}; the last runs' top device "
+            f"ops (name ms calls): on "
+            + "; ".join(f"{k} {ms:.2f} ({c})" for k, ms, c in top[True]) + "; off "
+            + "; ".join(f"{k} {ms:.2f} ({c})" for k, ms, c in top[False]))
+    return out
+
+
+def run_statement_queries(tconn, dsconn, ds_walls: dict, device: str = "cuda") -> dict:
+    """Phase 17 at SF1, on the splits ``prefill`` generated: CTAS of
+    ``lineitem``'s integer columns, its group-by on the leaf route (the
+    leaf kernel), INSERT of a filtered copy, the group-by again (stats
+    merged), DROP, the catalog version at each step; the TPC-DS q3 star
+    join over CTAS copies (the memory connector's exact stats) beside
+    phase 16's q3; EXPLAIN ANALYZE and ``execute`` of Q3 and a Q1-shaped
+    group-by, every countable node's rows against numpy; PREPARE /
+    EXECUTE of Q6 under three bindings and of Q3 with its literals
+    auto-slotted. Every answer equal to its numpy oracle; every launch
+    shape of the lane-sums, leaf, exists and payload kernels held to the
+    plain version. On the CPU (``device="cpu"``, the tests) it runs at any
+    scale with no device profile."""
+    from presto_tpu_torch.plan import nodes as PN
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    want = {"leaf": leaf_expected(leaf_columns(tconn)),
+            "leaf after insert": leaf_expected(leaf_columns(tconn, insert=True)),
+            "star": star_expected(dsconn), "q3": q3_expected(tconn),
+            "q1 shaped": q1_shaped_counts(tconn), "q3 nodes": q3_node_counts(tconn)}
+    li = tconn.table_numpy("lineitem", Q6_COLS)
+    want.update({f"q6 binding {i}": q6_binding_expected(li, b)
+                 for i, b in enumerate(Q6_BINDINGS)})
+    del li
+    log(f"phase 17: numpy recomputation at SF{tconn.sf:g} (TPC-DS SF{dsconn.sf:g}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    out = {"walls": {}, "launches": {}, "routes": {}, "steps": {}}
+    query = {"name": None}
+
+    def run(session, name: str, sql: str):
+        """One statement: (result, wall s); its launches and counters."""
+        query["name"] = name
+        try:
+            COUNTERS.clear()
+            _reset_launches()
+            sync()
+            t0 = time.perf_counter()
+            res = session.sql(sql)
+            sync()
+            wall = time.perf_counter() - t0
+            out["launches"][name] = _launch_counts()
+            out["routes"][name] = {k: v for k, v in COUNTERS.items() if v}
+        finally:
+            query["name"] = None
+        n = out["launches"][name]
+        out["steps"][name] = wall
+        log(f"  {name}: wall {wall:.3f} s; launches "
+            f"{ {k: n[k] for k in ('lane_sums', 'leaf_agg', 'exists', 'payload') if n[k]} }; "
+            f"counters {out['routes'][name]}")
+        return res, wall
+
+    with each_probe_shape(query) as probes, first_kernel_calls(query) as calls:
+        # ---- CTAS, INSERT, DROP over lineitem's integer columns -------------
+        session = Session({"tpch": tconn}, device=device)
+        cat, mem = session.catalog, session.catalog.connector("memory")
+        res, _ = run(session, "ctas leaf_t", LEAF_CTAS)
+        check(list(res.column("rows")) == [int(want["leaf"]["c"].sum())],
+              f"CTAS rows {list(res.column('rows'))}")
+        check(cat.version("leaf_t") == 1, f"catalog version {cat.version('leaf_t')} after CTAS")
+        for col, a in leaf_columns(tconn).items():
+            st = mem.stats("leaf_t", col)
+            check((st.min_value, st.max_value, st.ndv, st.null_fraction)
+                  == (int(a.min()), int(a.max()), float(len(np.unique(a))), 0.0),
+                  f"leaf_t.{col} stats {st}")
+        log(f"  leaf_t physical storage {mem.physical_schema('leaf_t')}")
+        res, _ = run(session, "leaf group-by", LEAF_GROUP)
+        same_result(res, want["leaf"], "leaf_t group-by")
+        check(out["routes"]["leaf group-by"].get("exec.leaf_fused_route", 0) == 1
+              and (device != "cuda" or out["launches"]["leaf group-by"]["leaf_agg"] > 0),
+              f"leaf_t group-by did not take the leaf route: {out['routes']['leaf group-by']}")
+        res, _ = run(session, "insert leaf_t", LEAF_INSERT)
+        inserted = int(want["leaf after insert"]["c"].sum() - want["leaf"]["c"].sum())
+        check(list(res.column("rows")) == [inserted], f"INSERT rows {list(res.column('rows'))}")
+        check(cat.version("leaf_t") == 2, f"catalog version {cat.version('leaf_t')} after INSERT")
+        res, _ = run(session, "leaf group-by after insert", LEAF_GROUP)
+        same_result(res, want["leaf after insert"], "leaf_t group-by after INSERT")
+        check(out["routes"]["leaf group-by after insert"].get("exec.leaf_fused_route", 0) == 1,
+              "leaf_t group-by after INSERT did not take the leaf route")
+        res, _ = run(session, "drop leaf_t", "drop table leaf_t")
+        check(list(res.column("dropped")) == ["leaf_t"] and "leaf_t" not in mem.tables()
+              and cat.version("leaf_t") == 3, "DROP TABLE leaf_t")
+
+        # ---- the star join over CTAS copies of TPC-DS columns ---------------
+        ds = Session({"tpcds": dsconn}, device=device)
+        ctas_s = 0.0
+        for table, sql in STAR_CTAS.items():
+            _res, wall = run(ds, f"ctas {table}", sql)
+            ctas_s += wall
+        dmem = ds.catalog.connector("memory")
+        log(f"  star copies' physical storage: "
+            f"{ {t: dmem.physical_schema(t) for t in STAR_CTAS} }")
+        res, first = run(ds, "star join", STAR_SQL)
+        same_result(res, want["star"], "star join over CTAS copies")
+        t0 = time.perf_counter()
+        again = ds.sql(STAR_SQL)
+        sync()
+        second = time.perf_counter() - t0
+        same_result(again, want["star"], "star join over CTAS copies, second run")
+        busy_ms, scan_s, ops = (device_ops(ds, dmem, STAR_SQL) if device == "cuda"
+                                else (0.0, 0.0, []))
+        out["walls"]["star join"] = (first, second, busy_ms, scan_s)
+        q3w = ds_walls.get("q3")
+        log(f"  star join: wall first {first:.3f} s, second {second:.3f} s, device busy "
+            f"{busy_ms:.1f} ms, memory scans {scan_s:.3f} s; phase 16's q3 over the "
+            f"generator tables: wall {q3w[0]:.3f} s (traced), busy {q3w[1]:.1f} ms; the CTAS "
+            f"copies took {ctas_s:.3f} s; device ops: "
+            + "; ".join(f"{k} {ms:.2f} ({c})" for k, ms, c in ops[:5]))
+
+        # ---- EXPLAIN ANALYZE and execute ------------------------------------
+        walls = {}
+        for name, sql in (("q1 shaped", Q1_SHAPED), ("q3", QUERIES["q3"])):
+            plan = session.plan(sql)
+            query["name"] = f"explain analyze {name}"
+            try:
+                COUNTERS.clear()
+                _reset_launches()
+                t0 = time.perf_counter()
+                text = session.explain_analyze(sql)
+                sync()
+                out["steps"][f"explain analyze {name}"] = time.perf_counter() - t0
+                out["launches"][f"explain analyze {name}"] = _launch_counts()
+            finally:
+                query["name"] = None
+            n = out["launches"][f"explain analyze {name}"]
+            check(n["leaf_agg"] == 0 and n["q1"] == 0,
+                  f"explain analyze {name} took the leaf route: {n}")
+            nodes = analyzed_nodes(text, plan)
+            walls[name] = [(type(nd).__name__, w) for nd, w, _i, _o, _l in nodes]
+            for nd, _w, _rin, rout, line in nodes:
+                kind = type(nd).__name__
+                if name == "q1 shaped" and kind in want["q1 shaped"]:
+                    check(rout == want["q1 shaped"][kind], f"{name}: {line}")
+                if name == "q1 shaped" and kind == "Aggregate":
+                    check("strategy=partial" in line, f"{name}: {line}")
+                if name == "q3" and kind == "TableScan" and nd.table in want["q3 nodes"]:
+                    check(rout == want["q3 nodes"][nd.table][0], f"q3: {line}")
+                if (name == "q3" and kind == "Filter" and isinstance(nd.child, PN.TableScan)
+                        and nd.child.table in want["q3 nodes"]):
+                    check(rout == want["q3 nodes"][nd.child.table][1], f"q3: {line}")
+                if kind == "TopN":
+                    check(rout == 10, f"{name}: {line}")
+            log(f"  explain analyze {name}:\n" + "\n".join(
+                "    " + ln for ln in text.splitlines()))
+        for name, sql in (("q1 shaped", Q1_SHAPED), ("q3", QUERIES["q3"])):
+            query["name"] = f"execute {name}"
+            try:
+                COUNTERS.clear()
+                _reset_launches()
+                t0 = time.perf_counter()
+                res, info = session.execute(sql)
+                sync()
+                out["steps"][f"execute {name}"] = time.perf_counter() - t0
+                out["launches"][f"execute {name}"] = _launch_counts()
+            finally:
+                query["name"] = None
+            plain, _ = run(session, f"{name} sql beside execute", sql)
+            check(info.state == "FINISHED" and info.output_rows == len(res) == len(plain),
+                  f"execute {name}: {info.state}, {info.output_rows} rows, sql {len(plain)}")
+            for c in res.names:
+                check(list(res.column(c)) == list(plain.column(c)),
+                      f"execute {name}: column {c} differs from Session.sql")
+            if name == "q3":
+                same_result(res, want["q3"], "execute q3")
+            log(f"  execute {name}: {info.output_rows} rows equal to Session.sql's; "
+                f"{len(info.node_stats)} node stats; planning {info.planning_s:.4f} s, "
+                f"execution {info.execution_s:.3f} s")
+        out["node_walls"] = walls
+
+        # ---- PREPARE / EXECUTE ------------------------------------------------
+        run(session, "prepare q6p", Q6_PREPARE)
+        prep = {}
+        for i, b in enumerate(Q6_BINDINGS):
+            using = f"date '{b[0]}', date '{b[1]}', {b[2]}, {b[3]}, {b[4]}"
+            res, _ = run(session, f"execute q6p {i}", f"execute q6p using {using}")
+            same_result(res, want[f"q6 binding {i}"], f"execute q6p binding {i}")
+            lit, _ = run(session, f"q6 literal {i}", Q6_LITERAL.format(*b))
+            same_result(lit, want[f"q6 binding {i}"], f"q6 literal statement {i}")
+            prep[i] = out["routes"][f"execute q6p {i}"]
+        res, _ = run(session, "prepare q3p", f"prepare q3p from {QUERIES['q3']}")
+        check(list(res.column("prepared")) == ["q3p"], "PREPARE q3p")
+        res, _ = run(session, "execute q3p", "execute q3p")
+        same_result(res, want["q3"], "execute q3p (auto-slotted literals)")
+        res, _ = run(session, "q3 sql", QUERIES["q3"])
+        same_result(res, want["q3"], "Q3 through Session.sql (auto-parameterized)")
+        handle = session._prepared["q3p"]
+        log(f"  q3p: {len(handle.auto_slots)} auto slots "
+            f"{[(str(s.dtype), s.value) for s in handle.auto_slots]}, Q3's counters "
+            f"{out['routes']['prepare q3p']}")
+        run(session, "deallocate q6p", "deallocate prepare q6p")
+        out["prepared_q6_routes"] = prep
+        out["q6_leaf_launches"] = {i: out["launches"][f"execute q6p {i}"]["leaf_agg"]
+                                   for i in range(len(Q6_BINDINGS))}
+        log(f"  prepared Q6 (user slots): counters {prep}; leaf-kernel launches "
+            f"{out['q6_leaf_launches']}; literal Q6: leaf launches "
+            f"{[out['launches'][f'q6 literal {i}']['leaf_agg'] for i in range(3)]}")
+
+        # ---- earlier phases' statements, plan templates on and off ----------
+        out["templates"] = templates_on_off(tconn, device, sync, query)
+    out["probes"] = probes
+    out["probe_err"] = hold_probe_shapes(probes)
+    out["calls"] = calls
+    out["call_err"] = hold_kernel_calls(calls)
+    # every run of the phase, the on / off turns included: each launch
+    # shape held to the plain version, each run that launched a kernel
+    # among the queries whose calls were held
+    every = {**out["launches"], **out["templates"]["launches"]}
+    for mode in ("exists", "payload") if device == "cuda" else ():
+        held = {rows for m, rows, _key in probes if m == mode}
+        ran = {rows for n in every.values() for rows in n["probe_by_shape"][mode]}
+        check(held == ran, f"phase 17's {mode} launches at rows {sorted(ran)}, held to the "
+              f"plain version at {sorted(held)}")
+    for kernel in ("lane_sums", "leaf_agg", "like") if device == "cuda" else ():
+        ran = sum(n[kernel] for n in every.values())
+        held = [shape for k, shape in calls if k == kernel]
+        check((ran > 0) == bool(held), f"phase 17's {kernel}: {ran} launches, shapes held "
+              f"{held}")
+        log(f"  phase 17's {kernel} shapes held to plain: "
+            f"{sorted((str(shape), t['query']) for (k, shape), t in calls.items() if k == kernel)}")
+    check(all(n["sketch"] == 0 and n["q1"] == 0 and n["q3"] == 0 and n["prefix"] == 0
+              for n in out["launches"].values()),
+          "phase 17 launched a kernel its plans do not route to")
+    for k in ("lane_sums", "like", "leaf_agg", "exists", "payload"):
+        out[f"{k}_launches"] = sum(n[k] for n in out["launches"].values())
+    log(f"  phase 17's steps (s): { {k: round(v, 3) for k, v in out['steps'].items()} }")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5361,7 +5805,7 @@ def main() -> int:
 
 
 def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
-    """Phases 1-16 (``cpu_answers``: phase 16's CPU answers, computing in
+    """Phases 1-17 (``cpu_answers``: phase 16's CPU answers, computing in
     worker processes meanwhile)."""
     marks: list = []
 
@@ -5767,6 +6211,32 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
         f"instance {p16_by_instance}; per query "
         f"{ {q: {k: n[k] for k in ('leaf_agg', 'lane_sums', 'exists', 'payload', 'like') if n[k]} for q, n in ds['launches'].items() if any(n[k] for k in ('leaf_agg', 'lane_sums', 'exists', 'payload', 'like'))} }; "
         f"shapes held to plain: {sorted(str(k) for k in ds['calls'])}")
+    # ---- phase 17: CTAS / INSERT / DROP, EXPLAIN ANALYZE, PREPARE ---------
+    mark("17 statements")
+    from presto_tpu_torch.connectors.tpcds import TpcdsConnector
+
+    st = run_statement_queries(TpchConnector(sf=1, device="cuda"),
+                               TpcdsConnector(sf=TPCDS_SF, device="cuda"), ds["walls"])
+    p17 = probe_launch_totals(st["launches"])
+    totals = probe_launch_totals(join["launches"], strings["launches"], semi["launches"],
+                                 outer["launches"], expr["launches"], sub["launches"],
+                                 feat["launches"], surf["launches"], win["launches"],
+                                 ds["launches"], st["launches"])
+    log(f"  exists, sketch and payload launches with phase 17: {totals}; phase 17's alone: "
+        f"{p17}")
+    p17_other = {k: sum(n[k] for n in st["launches"].values())
+                 for k in ("q1", "lane_sums", "leaf_agg", "q3", "like", "prefix")}
+    p17_by_instance = _summed(*(n["by_instance"] for n in st["launches"].values()))
+    p17_like_by_instance = _summed(*(n["like_by_instance"] for n in st["launches"].values()))
+    p17_like_by_shape = _summed(*(n["like_by_shape"] for n in st["launches"].values()))
+    log(f"  phase 17's launches of the other kernels: {p17_other}; lane-sums and leaf by "
+        f"instance {p17_by_instance}; shapes held to plain: "
+        f"{sorted(str(k) for k in st['calls'])}")
+    tl = st["templates"]["launches"]
+    log(f"  phase 17's plan-template on / off turns (not in its launch counts): "
+        f"{ {k: sum(n[k] for n in tl.values()) for k in ('q1', 'lane_sums', 'leaf_agg')} }, "
+        f"exists / payload {probe_launch_totals(tl)['exists']['launches']} / "
+        f"{probe_launch_totals(tl)['payload']['launches']}")
     mark("json")
     log("phase seconds: " + ", ".join(f"{a} {t1 - t0:.1f}" for (a, t0), (_b, t1)
                                       in zip(marks, marks[1:])))
@@ -5777,10 +6247,11 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
          "replaces": "presto_tpu/ops/pallas_q1.py:114",
          "jax_function": "presto_tpu/ops/pallas_q1.py:174 q1_step",
          "launches": (q1_launches + p11_other["q1"] + p12_other["q1"] + p13_other["q1"]
-                      + p14_other["q1"] + p15_other["q1"] + p16_other["q1"]),
+                      + p14_other["q1"] + p15_other["q1"] + p16_other["q1"]
+                      + p17_other["q1"]),
          "phase11_launches": p11_other["q1"], "phase12_launches": p12_other["q1"],
          "phase13_launches": p13_other["q1"], "phase14_launches": p14_other["q1"], "phase15_launches": p15_other["q1"],
-         "phase16_launches": p16_other["q1"],
+         "phase16_launches": p16_other["q1"], "phase17_launches": p17_other["q1"],
          "max_abs_err": q1_err, "ms": q1_ms, "kernel_ms": q1_ms,
          "call_ms": q1_call_ms,
          "plain_ms": q1_plain_ms, "bound_ms": q1_bound, "bound_by": q1_by,
@@ -5792,10 +6263,11 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
          "launches": (lane_launches + outer["lane_launches"] + expr["lane_sums_launches"]
                       + sub["lane_sums_launches"] + p13_other["lane_sums"]
                       + p14_other["lane_sums"] + p15_other["lane_sums"]
-                      + p16_other["lane_sums"]),
+                      + p16_other["lane_sums"]
+                      + p17_other["lane_sums"]),
          "phase13_launches": p13_other["lane_sums"], "phase14_launches": p14_other["lane_sums"],
          "phase15_launches": p15_other["lane_sums"],
-         "phase16_launches": p16_other["lane_sums"],
+         "phase16_launches": p16_other["lane_sums"], "phase17_launches": p17_other["lane_sums"],
          "phase16_launches_by_instance": {k.split()[1]: c for k, c in p16_by_instance.items()
                                           if k.startswith("lane_sums")},
          "phase14_launches_by_instance": {k.split()[1]: c for k, c in p14_by_instance.items()
@@ -5811,7 +6283,7 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
          "phase11_launches_by_instance": expr["lane_by_instance"],
          "max_abs_err": max(lane_err, ln["err"], ln_phone["err"], ln_q4["err"],
                             surf["call_err"]["lane_sums"], win["call_err"]["lane_sums"],
-                           ds["call_err"]["lane_sums"]),
+                           ds["call_err"]["lane_sums"], st["call_err"]["lane_sums"]),
          "ms": ln["ms"], "kernel_ms": ln["ms"], "call_ms": ln["call_ms"],
          "plain_ms": ln["plain_ms"], "bound_ms": lane_bound, "bound_by": lane_by,
          "library_ms": ln["library_ms"], "rows": cap, "bytes": ln["bytes"], "ops": ln["ops"],
@@ -5832,7 +6304,8 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
          "launches_by_shape": totals["exists"]["by_shape"],
          "launches_by_instance": totals["exists"]["by_instance"],
          "launches_from": "phases 6, 8, 9, 10, 11, 12, 13, 14 and 15",
-         "phase16_launches": p16["exists"]["launches"],
+         "phase16_launches": p16["exists"]["launches"], "phase17_launches": p17["exists"]["launches"],
+         "phase17_launches_by_shape": p17["exists"]["by_shape"],
          "phase16_launches_by_shape": p16["exists"]["by_shape"],
          "phase15_launches": p15["exists"]["launches"],
          "phase15_launches_by_shape": p15["exists"]["by_shape"],
@@ -5848,7 +6321,7 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
          "max_abs_err": max([exists_err, keep_err["exists"], expr["probe_err"]["exists"],
                              sub["probe_err"]["exists"], feat["probe_err"]["exists"],
                              surf["probe_err"]["exists"], win["probe_err"]["exists"],
-                            ds["probe_err"]["exists"]]
+                            ds["probe_err"]["exists"], st["probe_err"]["exists"]]
                             + [t["err"] for t in probe_shapes["exists"].values()]),
          "ms": ex["ms"], "kernel_ms": ex["ms"], "call_ms": ex["call_ms"],
          "plain_ms": ex["plain_ms"], "bound_ms": exists_bound, "bound_by": exists_by,
@@ -5868,7 +6341,8 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
          "phase13_launches": p13["sketch"]["launches"],
          "phase14_launches": p14["sketch"]["launches"],
          "phase15_launches": p15["sketch"]["launches"],
-         "phase16_launches": p16["sketch"]["launches"],
+         "phase16_launches": p16["sketch"]["launches"], "phase17_launches": p17["sketch"]["launches"],
+         "phase17_launches_by_shape": p17["sketch"]["by_shape"],
          "max_abs_err": max([sketch_err, keep_err["sketch"]]
                             + [t["err"] for t in probe_shapes["sketch"].values()]),
          "ms": sk["ms"], "kernel_ms": sk["ms"], "call_ms": sk["call_ms"],
@@ -5881,10 +6355,11 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
          "replaces": "presto_tpu/ops/pallas_join.py:443",
          "jax_function": "presto_tpu/ops/pallas_join.py:464 q3_probe_step",
          "launches": (semi["q3_launches"] + p11_other["q3"] + p12_other["q3"] + p13_other["q3"]
-                      + p14_other["q3"] + p15_other["q3"] + p16_other["q3"]),
+                      + p14_other["q3"] + p15_other["q3"] + p16_other["q3"]
+                      + p17_other["q3"]),
          "phase11_launches": p11_other["q3"], "phase12_launches": p12_other["q3"],
          "phase13_launches": p13_other["q3"], "phase14_launches": p14_other["q3"], "phase15_launches": p15_other["q3"],
-         "phase16_launches": p16_other["q3"],
+         "phase16_launches": p16_other["q3"], "phase17_launches": p17_other["q3"],
          "max_abs_err": max(q3_kernel_err, semi["q3"]["err"]),
          "ms": q3_one["ms"], "kernel_ms": q3_one["ms"], "call_ms": q3_one["call_ms"],
          "plain_ms": q3_one["plain_ms"], "bound_ms": q3_bound, "bound_by": q3_by,
@@ -5900,7 +6375,8 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
          "launches_by_shape": totals["payload"]["by_shape"],
          "launches_by_instance": totals["payload"]["by_instance"],
          "launches_from": "phases 6, 8, 9, 10, 11, 12, 13, 14 and 15",
-         "phase16_launches": p16["payload"]["launches"],
+         "phase16_launches": p16["payload"]["launches"], "phase17_launches": p17["payload"]["launches"],
+         "phase17_launches_by_shape": p17["payload"]["by_shape"],
          "phase16_launches_by_shape": p16["payload"]["by_shape"],
          "phase15_launches": p15["payload"]["launches"],
          "phase15_launches_by_shape": p15["payload"]["by_shape"],
@@ -5918,7 +6394,7 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
          "max_abs_err": max([payload_err, expr["probe_err"]["payload"],
                              sub["probe_err"]["payload"], feat["probe_err"]["payload"],
                              surf["probe_err"]["payload"], win["probe_err"]["payload"],
-                            ds["probe_err"]["payload"]]
+                            ds["probe_err"]["payload"], st["probe_err"]["payload"]]
                             + [t["err"] for t in probe_shapes["payload"].values()]),
          "ms": pay["ms"], "kernel_ms": pay["ms"], "call_ms": pay["call_ms"],
          "plain_ms": pay["plain_ms"], "bound_ms": pay["bound_ms"], "bound_by": pay["bound_by"],
@@ -5931,11 +6407,12 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
          "jax_function": "presto_tpu/ops/pallas_agg.py:246 _pallas_step (via agg_step :346)",
          "launches": (leaf["leaf_launches"] + p11_other["leaf_agg"] + p12_other["leaf_agg"]
                       + p13_other["leaf_agg"] + p14_other["leaf_agg"]
-                      + p15_other["leaf_agg"] + p16_other["leaf_agg"]),
+                      + p15_other["leaf_agg"] + p16_other["leaf_agg"]
+                      + p17_other["leaf_agg"]),
          "phase11_launches": p11_other["leaf_agg"], "phase12_launches": p12_other["leaf_agg"],
          "phase13_launches": p13_other["leaf_agg"], "phase14_launches": p14_other["leaf_agg"],
          "phase15_launches": p15_other["leaf_agg"],
-         "phase16_launches": p16_other["leaf_agg"],
+         "phase16_launches": p16_other["leaf_agg"], "phase17_launches": p17_other["leaf_agg"],
          "phase16_launches_by_instance": {k.split()[1]: c for k, c in p16_by_instance.items()
                                           if k.startswith("leaf_agg")},
          "phase15_launches_by_instance": {k.split()[1]: c for k, c in p15_by_instance.items()
@@ -5950,7 +6427,7 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
          "launches_by_instance": leaf["by_instance"],
          "max_abs_err": max(leaf_err, sp["err"], sm_["err"], res_["err"],
                             surf["call_err"]["leaf_agg"], win["call_err"]["leaf_agg"],
-                           ds["call_err"]["leaf_agg"]),
+                           ds["call_err"]["leaf_agg"], st["call_err"]["leaf_agg"]),
          "ms": sp["ms"], "kernel_ms": sp["ms"], "call_ms": sp["call_ms"],
          "plain_ms": sp["plain_ms"], "bound_ms": leaf_bound, "bound_by": leaf_by,
          "library_ms": sp["library_ms"], "rows": sp["rows"], "bytes": sp["bytes"],
@@ -5965,14 +6442,15 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
          "jax_function": "presto_tpu/ops/pallas_strings.py:190 like_mask_pallas",
          "launches": (strings["like_launches"] + outer["like_launches"] + expr["like_launches"]
                       + sub["like_launches"] + p13_other["like"] + p14_other["like"]
-                      + p15_other["like"] + p16_other["like"]),
+                      + p15_other["like"] + p16_other["like"]
+                      + p17_other["like"]),
          "launches_by_instance": _summed(strings["like_by_instance"],
                                          outer["like_by_instance"], expr["like_by_instance"],
                                          sub["like_by_instance"], p13_like_by_instance,
                                          p14_like_by_instance, p15_like_by_instance,
-                                         p16_like_by_instance),
+                                         p16_like_by_instance, p17_like_by_instance),
          "phase13_launches": p13_other["like"], "phase14_launches": p14_other["like"], "phase15_launches": p15_other["like"],
-         "phase16_launches": p16_other["like"],
+         "phase16_launches": p16_other["like"], "phase17_launches": p17_other["like"],
          "phase14_launches_by_instance": p14_like_by_instance,
          "phase13_launches_by_instance": p13_like_by_instance,
          "launches_from": "phase 8 (LIKE queries), phase 10 (Q13, Q5), phase 11 (Q16) and "
@@ -5984,9 +6462,9 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
          "launches_by_shape": _summed(strings["like_by_shape"], outer["like_by_shape"],
                                       expr["like_by_shape"], sub["like_by_shape"],
                                       p13_like_by_shape, p14_like_by_shape, p15_like_by_shape,
-                                      p16_like_by_shape),
+                                      p16_like_by_shape, p17_like_by_shape),
          "max_abs_err": max([like_err, sub["like_err"], surf["call_err"]["like"],
-                            win["call_err"]["like"], ds["call_err"]["like"]]
+                            win["call_err"]["like"], ds["call_err"]["like"], st["call_err"]["like"]]
                             + [t["err"] for t in like_shapes.values()]),
          "ms": lk["ms"], "kernel_ms": lk["ms"], "call_ms": lk["call_ms"],
          "plain_ms": lk["plain_ms"], "bound_ms": like_bound, "bound_by": like_by,
@@ -5999,11 +6477,12 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
          "jax_function": "presto_tpu/ops/pallas_strings.py:251 starts_with_pallas",
          "launches": (strings["prefix_launches"] + p11_other["prefix"] + p12_other["prefix"]
                       + p13_other["prefix"] + p14_other["prefix"]
-                      + p15_other["prefix"] + p16_other["prefix"]),
+                      + p15_other["prefix"] + p16_other["prefix"]
+                      + p17_other["prefix"]),
          "phase11_launches": p11_other["prefix"], "phase12_launches": p12_other["prefix"],
          "phase13_launches": p13_other["prefix"], "phase14_launches": p14_other["prefix"],
          "phase15_launches": p15_other["prefix"],
-         "phase16_launches": p16_other["prefix"],
+         "phase16_launches": p16_other["prefix"], "phase17_launches": p17_other["prefix"],
          "launches_from": "phase 8 (the starts_with pipeline); phase 12's like 'forest%' "
                           "runs the LIKE kernel, as in the JAX package",
          "launches_by_instance": strings["prefix_by_instance"],

@@ -731,17 +731,20 @@ def bypass_partial_agg(node, catalog) -> bool:
     return g >= BYPASS_MIN_GROUPS and g * BYPASS_RATIO > rows
 
 
-def agg_strategy_for(node, catalog) -> str:
+def agg_strategy_for(node, catalog, fused_enabled: bool = True) -> str:
     """The aggregation strategy the executor will pick for this node,
     from stats alone: ``fused`` (the leaf route) > ``bypass`` (stream
     rows to one final pass) > ``partial`` (per-morsel folds); keyless
     unrouted aggregation is ``single``. Advisory: a runtime
-    ``value_overflow`` degrades fused to the generic route, counted."""
+    ``value_overflow`` degrades fused to the generic route, counted.
+    ``fused_enabled=False`` describes runs that skip the leaf route (a
+    stats recorder is attached: EXPLAIN ANALYZE, ``Session.execute``)."""
     if not isinstance(node, N.Aggregate):
         return ""
-    route, _reason = match_leaf_fragment(node, catalog)
-    if route is not None:
-        return "fused"
+    if fused_enabled:
+        route, _reason = match_leaf_fragment(node, catalog)
+        if route is not None:
+            return "fused"
     if not node.keys:
         return "single"
     if bypass_partial_agg(node, catalog):

@@ -49,17 +49,25 @@ package's, made from the same stats:
   first and reads its one value on the host (``_eval_scalar``), and every
   operator below sees its expressions with the ``Unbound`` slots bound
   to literals (``bind_scalars``) through the ``scalars`` dict each
-  ``_exec_*`` receives.
+  ``_exec_*`` receives;
+- a plan template's literal slots (``expr.Param``) read the bound
+  device scalars in ``params``, installed as the ambient
+  ``expr.param_scope`` for the whole run;
+- under a ``StatsRecorder`` (``recorder``: EXPLAIN ANALYZE,
+  ``Session.execute``) each node's output stream is materialized at its
+  dispatch and its wall, live rows and bytes recorded, and the leaf
+  route is skipped so every node's actuals are true.
 
 Not ported: the spill and grouped tiers, the OOM ladder, fault points,
-adaptive history, plan templates, result, executable and stats caches,
-and tracing. Every join and aggregate runs resident; a plan node without
-an executor here raises ``NotSupported``.
+adaptive history, result and executable caches, and tracing. Every join
+and aggregate runs resident; a plan node without an executor here raises
+``NotSupported``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -95,7 +103,7 @@ from presto_tpu_torch.exec.operators import (
     window_operator_from_node,
 )
 from presto_tpu_torch.exec.pipeline import BatchStream, Pipeline, prefetch_iter
-from presto_tpu_torch.expr import InputRef, bind_scalars, evaluate
+from presto_tpu_torch.expr import InputRef, bind_scalars, evaluate, param_scope
 from presto_tpu_torch.ops import cuda_join
 from presto_tpu_torch.ops.hashing import bloom_test
 from presto_tpu_torch.ops.groupby import ValueBitsOverflow
@@ -105,6 +113,7 @@ from presto_tpu_torch.plan.catalog import Catalog
 from presto_tpu_torch.plan.joinfilters import filter_edge_for
 from presto_tpu_torch.runtime.errors import InternalError, NotSupported, UserError
 from presto_tpu_torch.runtime.metrics import COUNTERS
+from presto_tpu_torch.runtime.trace import batch_device_bytes, batch_row_bytes
 from presto_tpu_torch.spi import batch_capacity
 from presto_tpu_torch.types import TypeKind
 
@@ -236,6 +245,12 @@ class LocalExecutor:
         self.used_approx = False
         #: where an empty aggregation state lives
         self.device = resolve_device(device)
+        #: the plan template's literal-slot values (device scalars,
+        #: ``plan/templates.device_params``), set by the Session
+        self.params: tuple = ()
+        #: optional StatsRecorder for the current query (set by the
+        #: Session; powers QueryInfo node stats and EXPLAIN ANALYZE)
+        self.recorder = None
 
     # ------------------------------------------------------------------
     def run(self, plan: N.PlanNode) -> QueryResult:
@@ -250,11 +265,14 @@ class LocalExecutor:
     def run_batches(self, plan: N.Output):
         # a scalar subquery's subplan (an Output) runs here too, with
         # scalars of its own
+        if self.recorder is not None:
+            self.recorder.attach_plan(plan)
         self._minmax_memo.clear()
         scalars: dict = {}
         rename = dict(zip(plan.sources, plan.names))
-        out = [b.select(list(plan.sources)).rename(rename)
-               for b in self._exec(plan.child, scalars)]
+        with param_scope(self.params):
+            out = [b.select(list(plan.sources)).rename(rename)
+                   for b in self._exec(plan.child, scalars)]
         # every scan of the run has drained: one readback of the filters'
         # pruning counts
         self._flush_filter_stats()
@@ -266,7 +284,25 @@ class LocalExecutor:
         m = getattr(self, f"_exec_{type(node).__name__.lower()}", None)
         if m is None:
             raise NotSupported(f"executing a {type(node).__name__} node is not ported yet")
-        return m(node, scalars)
+        rec = self.recorder
+        if rec is None:
+            return m(node, scalars)
+        t0 = time.perf_counter()
+        out = m(node, scalars)
+        rows, nbytes, dev_bytes = -1, -1, -1
+        if rec.measure_rows and isinstance(out, BatchStream):
+            # materialize here, so the wall includes this node's work
+            batches = out.materialize()
+            rows, nbytes, dev_bytes = 0, 0, 0
+            for b in batches:
+                lc = live_count(b)
+                rows += lc
+                nbytes += lc * batch_row_bytes(b)
+                dev_bytes += batch_device_bytes(b)
+            out = BatchStream.of(batches)
+        wall = time.perf_counter() - t0  # inclusive of children
+        rec.record(node, wall, rows, output_bytes=nbytes, device_bytes=dev_bytes)
+        return out
 
     # ---- leaves ----------------------------------------------------------
     def _exec_tablescan(self, node: N.TableScan, scalars) -> BatchStream:
@@ -312,15 +348,18 @@ class LocalExecutor:
         # partial-agg fragment over stats-bounded NULL-free columns runs
         # as ONE fused step per scan batch (the Q1 kernel for TPC-H Q1,
         # the leaf-aggregation kernel otherwise); a runtime
-        # value_overflow falls back to the generic route below, counted
-        route, reason = leaf_route.match_leaf_fragment(node, self.catalog)
-        if route is not None:
-            routed = leaf_route.execute_leaf_route(route, self, node, scalars)
-            if routed is not None:
-                COUNTERS["agg.strategy.fused"] += 1
-                return BatchStream.of(routed)
-        elif reason is not None:
-            leaf_route.count_fallback(reason)
+        # value_overflow falls back to the generic route below, counted.
+        # Skipped under a stats recorder: EXPLAIN ANALYZE needs true
+        # per-node actuals
+        if self.recorder is None:
+            route, reason = leaf_route.match_leaf_fragment(node, self.catalog)
+            if route is not None:
+                routed = leaf_route.execute_leaf_route(route, self, node, scalars)
+                if routed is not None:
+                    COUNTERS["agg.strategy.fused"] += 1
+                    return BatchStream.of(routed)
+            elif reason is not None:
+                leaf_route.count_fallback(reason)
 
         child = self._exec(node.child, scalars)
         keys = [(n, bind_scalars(e, scalars)) for n, e in node.keys]

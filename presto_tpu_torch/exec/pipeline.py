@@ -71,18 +71,24 @@ def prefetch_enabled() -> bool:
 def prefetch_iter(load, items):
     """One-slot prefetch: item k+1 loads (generate + host-to-device copy)
     on a worker thread while the consumer holds item k. Exactly one item
-    is in flight (bounded host memory)."""
+    is in flight (bounded host memory). Each load runs in a copy of the
+    consumer's context, so it sees the plan template's parameter scope
+    (``expr.param_scope``)."""
     if len(items) <= 1 or not prefetch_enabled():
         for it in items:
             yield load(it)
         return
+    import contextvars
     from concurrent.futures import ThreadPoolExecutor
 
+    def submit(ex, item):
+        return ex.submit(contextvars.copy_context().run, load, item)
+
     with ThreadPoolExecutor(max_workers=1) as ex:
-        fut = ex.submit(load, items[0])
+        fut = submit(ex, items[0])
         for nxt in items[1:]:
             out = fut.result()
-            fut = ex.submit(load, nxt)
+            fut = submit(ex, nxt)
             yield out
         yield fut.result()
 

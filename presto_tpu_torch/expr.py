@@ -46,8 +46,10 @@ function raises ``NotSupported`` naming it.
 from __future__ import annotations
 
 import re
+from contextlib import contextmanager
+from contextvars import ContextVar
 from dataclasses import dataclass
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -110,6 +112,37 @@ class Call(Expr):
 
     def __str__(self) -> str:
         return f"{self.fn}({', '.join(map(str, self.args))})"
+
+
+@dataclass(frozen=True)
+class Param(Expr):
+    """A typed literal slot (plan-template parameterization): the value
+    lives outside the expression tree and arrives at evaluation time
+    through the ambient parameter scope (:func:`param_scope`). Hashes by
+    (slot, dtype), never by value, so queries differing only in literals
+    share one Param-bearing plan template."""
+
+    slot: int = 0
+
+    def __str__(self) -> str:
+        return f"?{self.slot}"
+
+
+#: the ambient parameter-slot values: the executor installs the bound
+#: device scalars for the whole plan run (``param_scope``)
+_PARAM_VALUES: ContextVar[Optional[tuple]] = ContextVar(
+    "presto_tpu_torch_param_values", default=None
+)
+
+
+@contextmanager
+def param_scope(values):
+    """Install parameter-slot values for evaluate() (see _PARAM_VALUES)."""
+    token = _PARAM_VALUES.set(tuple(values) if values is not None else None)
+    try:
+        yield
+    finally:
+        _PARAM_VALUES.reset(token)
 
 
 @dataclass(frozen=True)
@@ -1462,6 +1495,17 @@ def evaluate(expr: Expr, batch: Batch) -> Val:
     if isinstance(expr, InputRef):
         c = batch[expr.name]
         return Val(c.data, c.valid, c.dtype, c.dictionary)
+    if isinstance(expr, Param):
+        vals = _PARAM_VALUES.get()
+        if vals is None or expr.slot >= len(vals):
+            raise KeyError(
+                f"unbound literal slot ?{expr.slot}: evaluation outside a "
+                "param_scope (executor run scope or traced step body)"
+            )
+        cap, dev = batch.capacity, batch.device
+        data = vals[expr.slot].to(device=dev, dtype=expr.dtype.torch_dtype)
+        return Val(data.expand(cap).contiguous(),
+                   torch.ones(cap, dtype=torch.bool, device=dev), expr.dtype)
     if isinstance(expr, Literal):
         cap, dev = batch.capacity, batch.device
         t = expr.dtype

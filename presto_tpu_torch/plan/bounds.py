@@ -344,3 +344,61 @@ def agg_value_bits(agg: N.Aggregate, catalog) -> list[int]:
                 bits = max(1, max(abs(iv[0]), abs(iv[1])).bit_length())
         out.append(min(bits, 63))
     return out
+
+
+def upper_bound_rows(node: N.PlanNode, catalog) -> Optional[int]:
+    """SOUND output-row upper bound from connector stats, or None. Unlike
+    ``estimate_rows`` this never divides: only row counts, unique-build
+    joins, limits and unions propagate."""
+    ub = upper_bound_rows
+    if isinstance(node, N.TableScan):
+        conn = catalog.connector(node.connector)
+        if hasattr(conn, "row_count"):
+            return int(conn.row_count(node.table))
+        return None
+    if isinstance(node, (N.Filter, N.Project, N.Window, N.Sort, N.BindScalars, N.Output)):
+        return ub(node.child, catalog)
+    if isinstance(node, (N.ScalarValue, N.Values)):
+        return 1
+    if isinstance(node, N.Aggregate):
+        c = ub(node.child, catalog)
+        if not node.keys:
+            # a keyless aggregate emits one row even over an empty input
+            return 1 if c is None else max(1, c)
+        return c
+    if isinstance(node, N.Join):
+        if node.unique and node.kind in ("inner", "left"):
+            return ub(node.left, catalog)
+        return None
+    if isinstance(node, N.SemiJoin):
+        return ub(node.left, catalog)
+    if isinstance(node, (N.TopN, N.Limit)):
+        c = ub(node.child, catalog)
+        return node.count if c is None else min(c, node.count)
+    if isinstance(node, N.Union):
+        parts = [ub(c, catalog) for c in node.inputs]
+        return None if any(p is None for p in parts) else sum(parts)
+    return None
+
+
+def is_unfiltered(node: N.PlanNode) -> bool:
+    """True when ``upper_bound_rows`` is EXACT for this subtree: no
+    predicate anywhere below."""
+    if isinstance(node, N.TableScan):
+        return node.predicate is None
+    if isinstance(node, (N.Project, N.BindScalars)):
+        return is_unfiltered(node.child)
+    return isinstance(node, (N.Values, N.ScalarValue))
+
+
+def estimate_record(node: N.PlanNode, catalog) -> dict:
+    """The planner's full row prediction for one node (the plan-time half
+    of EXPLAIN ANALYZE's estimate-vs-actual): ``estimate_rows``, the
+    sound ``upper_bound_rows`` (None when unprovable), and whether that
+    bound is exact."""
+    ub = upper_bound_rows(node, catalog)
+    return {
+        "est_rows": estimate_rows(node, catalog),
+        "upper_bound_rows": ub,
+        "exact": ub is not None and is_unfiltered(node),
+    }

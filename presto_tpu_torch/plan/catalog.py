@@ -1,13 +1,16 @@
 """Catalog: table resolution + metadata for analysis and planning.
 
-Counterpart of ``presto_tpu/plan/catalog.py`` without the DDL versioning
-and invalidation listeners (the port has no writable catalog yet): it
-resolves tables across connectors and serves their unique keys,
-functional dependencies and column statistics.
+Counterpart of ``presto_tpu/plan/catalog.py``: it resolves tables
+across connectors and serves their unique keys, functional dependencies
+and column statistics, and keeps each table's DDL version. Every write
+to the memory connector (CTAS, INSERT, DROP) routes through
+``invalidate``, which drops the cached ``TableMeta``, bumps the version
+and notifies the listeners.
 """
 
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass
 from typing import Mapping
 
@@ -39,14 +42,43 @@ class TableMeta:
     func_deps: Mapping[str, tuple[str, ...]] = None
 
 
+_catalog_seq = itertools.count(1)
+
+
 class Catalog:
     def __init__(self, connectors: Mapping[str, object], default: str = "tpch"):
         self.connectors = dict(connectors)
         self.default = default
         self._meta_cache: dict[str, TableMeta] = {}
+        #: table -> DDL version, bumped by ``invalidate``
+        self._versions: dict[str, int] = {}
+        #: callbacks fired with the table name on each ``invalidate``
+        self._invalidation_listeners: list = []
+        self._token = f"cat{next(_catalog_seq)}"
 
     def connector(self, name: str):
         return self.connectors[name]
+
+    def cache_token(self) -> str:
+        """Stable identity of this catalog instance (never reused within
+        a process, unlike ``id()``)."""
+        return self._token
+
+    def version(self, table: str) -> int:
+        """Monotonic DDL version of a table (0 until its first DDL)."""
+        return self._versions.get(table, 0)
+
+    def add_invalidation_listener(self, cb) -> None:
+        self._invalidation_listeners.append(cb)
+
+    def invalidate(self, table: str) -> None:
+        """After DDL changed ``table``: drop its cached metadata (a CTAS
+        after a DROP of the same name must not resolve the old schema),
+        bump its version and notify the listeners."""
+        self._meta_cache.pop(table, None)
+        self._versions[table] = self._versions.get(table, 0) + 1
+        for cb in self._invalidation_listeners:
+            cb(table)
 
     def resolve(self, table: str) -> TableMeta:
         meta = self._meta_cache.get(table)

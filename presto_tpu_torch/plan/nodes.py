@@ -5,8 +5,9 @@ ported analyzer produces: TableScan, Filter, Project, Aggregate, Window,
 Join, SemiJoin, Values, Union, Sort, TopN, Limit, ScalarValue,
 BindScalars and Output.
 Fields are named, typed columns; expressions are the typed IR of
-``presto_tpu_torch.expr``. The JAX
-package's runtime join filters are not ported, so scans carry none.
+``presto_tpu_torch.expr`` (a plan template's literal slots render as
+``?N``). The runtime join filters are not plan nodes: the executor
+registers them on probe scans, and EXPLAIN renders them there.
 """
 
 from __future__ import annotations
@@ -288,9 +289,23 @@ class Output(PlanNode):
         return tuple(Field(n, smap[s].dtype) for n, s in zip(self.names, self.sources))
 
 
+def scan_physical_types(node: TableScan, catalog) -> dict:
+    """source column -> the physical DataType the owning connector's
+    stats narrowing resolves for a scan (empty when unavailable)."""
+    conn = catalog.connectors.get(node.connector)
+    if conn is None or not hasattr(conn, "physical_schema"):
+        return {}
+    try:
+        return conn.physical_schema(node.table, [s for _n, s in node.columns])
+    except KeyError:
+        return {}
+
+
 def plan_tree_str(node: PlanNode, indent: int = 0, catalog=None,
                   approx_join: bool = False, _filters=None) -> str:
-    """EXPLAIN-style rendering. With a ``catalog``, joins and semi joins
+    """EXPLAIN-style rendering. With a ``catalog``, scan columns render
+    their narrowed physical storage (``l_shipdate:date:int16``), joins
+    and semi joins
     render the stats-planned probe strategy
     (``strategy=pallas|dense|unique|expand``), aggregates the planned
     aggregation strategy (``agg_strategy=fused|bypass|partial|single``)
@@ -309,8 +324,11 @@ def plan_tree_str(node: PlanNode, indent: int = 0, catalog=None,
     detail = ""
     if isinstance(node, TableScan):
         rf = (_filters or {}).get(id(node))
+        phys = scan_physical_types(node, catalog) if catalog is not None else {}
+        cols = [f"{c}:{phys[s].physical_str()}" if s in phys and phys[s].is_narrowed else c
+                for c, s in node.columns]
         detail = (f" {node.table}{' [pred]' if node.predicate is not None else ''}"
-                  f" -> {[c for c, _ in node.columns]}"
+                  f" -> {cols}"
                   + (f" runtime_filter={rf}" if rf else ""))
     elif isinstance(node, Aggregate):
         detail = f" keys={[n for n, _ in node.keys]} aggs={[a.name for a in node.aggs]}"

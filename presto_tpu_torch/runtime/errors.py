@@ -53,3 +53,26 @@ class NotSupported(PrestoError, NotImplementedError):
     error_code = "NOT_SUPPORTED"
     retryable = False
 
+
+
+def is_retryable(exc: BaseException) -> bool:
+    """Retry class of any exception: taxonomy errors carry their own
+    flag; foreign exceptions are non-retryable."""
+    return bool(getattr(exc, "retryable", False))
+
+
+def error_code(exc: BaseException) -> str:
+    """Stable code for any exception (foreign ones are classified by
+    their stdlib ancestry)."""
+    code = getattr(exc, "error_code", None)
+    if code is not None:
+        return code
+    if isinstance(exc, NotImplementedError):
+        return "NOT_SUPPORTED"
+    if isinstance(exc, ValueError):
+        return "USER_ERROR"
+    if isinstance(exc, TimeoutError):
+        return "EXCEEDED_TIME_LIMIT"
+    if isinstance(exc, MemoryError):
+        return "RESOURCE_EXHAUSTED"
+    return "GENERIC_INTERNAL_ERROR"

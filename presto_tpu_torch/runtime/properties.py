@@ -76,6 +76,19 @@ SESSION_PROPERTIES: dict[str, PropertyDef] = {
             "never false negatives, never row loss (anti joins are "
             "excluded by construction). Changes results: "
             "QueryResult.approximate says when a run probed the sketch."),
+        PropertyDef(
+            "plan_templates", bool, True,
+            "Plan-template parameterization: eligible literals are "
+            "lifted out of the plan into typed runtime slots "
+            "(plan/templates.py), so queries differing only in constants "
+            "share one plan template. Bit-identical results on or off. "
+            "Literals that prove kernel admission (leaf-route spec "
+            "bounds, LIMIT shapes) stay baked, counted under "
+            "prepare.slot_ineligible.*."),
+        PropertyDef(
+            "collect_node_stats", bool, False,
+            "Record per-plan-node wall time and output rows on every "
+            "query (the EXPLAIN ANALYZE recorder, always on)."),
     ]
 }
 

@@ -1,76 +1,336 @@
 """Session: the client-facing query surface (parse -> analyze -> plan ->
 execute).
 
-Counterpart of ``presto_tpu/runtime/session.py`` for plain queries:
-``Session(catalogs, properties=...)``, ``plan``, ``explain`` and ``sql``.
-``sql`` returns a ``QueryResult`` (names plus numpy arrays; the JAX
-package returns a pandas DataFrame, and the port imports no pandas).
-Queries run on ``device`` ("cuda" unless the caller asks for the CPU).
-DDL, prepared statements, EXPLAIN ANALYZE, the system catalog, caches,
-tracing, lifecycle control and the distributed executor are not ported.
+Counterpart of ``presto_tpu/runtime/session.py`` for a local run:
+``Session(catalogs, properties=...)``, ``plan``, ``explain``,
+``explain_analyze``, ``sql``, ``execute``, ``prepare`` and
+``execute_prepared``. ``sql`` returns a ``QueryResult`` (names plus numpy
+arrays; the JAX package returns a pandas DataFrame, and the port imports
+no pandas) and also answers CREATE TABLE AS / INSERT INTO / DROP TABLE
+against the session's writable ``memory`` catalog (a one-row ``rows`` or
+``dropped`` result) and PREPARE / EXECUTE ... USING / DEALLOCATE PREPARE.
+Under ``plan_templates`` (default on) ``sql`` and ``explain`` run and
+render the statement's plan template (``plan/templates.py``): literals as
+``?N`` slots, with EXPLAIN's ``params=[...]`` line binding them.
+``execute`` and ``explain_analyze`` run with a stats recorder
+(``runtime/stats.py``). Queries run on ``device`` ("cuda" unless the
+caller asks for the CPU).
+
+Not ported: the system catalog, the result, executable and plan-stats
+caches, plan-stats history and adaptivity, tracing, event listeners,
+lifecycle control (admission, deadlines, retries, cancellation), the
+coalescer and batcher, and the distributed executor. So ``QueryInfo``'s
+``cache_hit``, ``template_hit``, ``coalesced`` and ``batched`` stay False.
 """
 
 from __future__ import annotations
 
+import itertools
 import os
-from typing import Mapping
+import time
+import uuid
+from typing import Mapping, Optional
 
-from presto_tpu_torch.batch import QueryResult
+import numpy as np
+
+from presto_tpu_torch.batch import Batch, Dictionary, QueryResult
+from presto_tpu_torch.connectors.memory import MemoryConnector
 from presto_tpu_torch.devices import resolve_device
 from presto_tpu_torch.exec.local_planner import LocalExecutor
 from presto_tpu_torch.plan.catalog import Catalog
 from presto_tpu_torch.plan.nodes import PlanNode, plan_tree_str
 from presto_tpu_torch.plan.prune import prune
-from presto_tpu_torch.runtime.errors import NotSupported
+from presto_tpu_torch.plan.templates import PreparedStatement, device_params, parameterize_plan
+from presto_tpu_torch.runtime.errors import UserError, error_code, is_retryable
 from presto_tpu_torch.runtime.properties import effective, validate_properties
+from presto_tpu_torch.runtime.stats import QueryInfo, StatsRecorder, render_analyzed_plan
 from presto_tpu_torch.sql import ast as A
 from presto_tpu_torch.sql.analyzer import Analyzer
 from presto_tpu_torch.sql.parser import parse
+from presto_tpu_torch.types import BIGINT, varchar
+
+_query_seq = itertools.count(1)
+
+_DDL = (A.CreateTableAs, A.InsertInto, A.DropTable)
+_PREPARED = (A.Prepare, A.ExecuteStmt, A.Deallocate)
+
+
+def _ast_literal_value(node):
+    """EXECUTE ... USING argument -> logical Python value (literals only:
+    parameters are values, not expressions)."""
+    if isinstance(node, A.NumberLit):
+        return float(node.text) if "." in node.text else int(node.text)
+    if isinstance(node, A.StringLit):
+        return node.value
+    if isinstance(node, (A.DateLit, A.TimestampLit)):
+        return node.value  # ISO strings; DataType.to_physical parses
+    if isinstance(node, A.UnaryOp) and node.op == "-":
+        return -_ast_literal_value(node.operand)
+    raise UserError("EXECUTE ... USING arguments must be literals")
+
+
+def _one_row(name: str, value) -> QueryResult:
+    """A one-row, one-column result on the host: a BIGINT count or a
+    VARCHAR name (the DDL and PREPARE summaries)."""
+    if isinstance(value, str):
+        batch = Batch.from_numpy({name: np.zeros(1, np.int32)}, {name: varchar()},
+                                 dictionaries={name: Dictionary([value])}, device="cpu")
+    else:
+        batch = Batch.from_numpy({name: np.array([value], np.int64)}, {name: BIGINT},
+                                 device="cpu")
+    return QueryResult([name], [batch])
 
 
 class Session:
     def __init__(self, connectors: Mapping[str, object], properties=None, device="cuda"):
-        self.catalog = Catalog(dict(connectors))
+        self.device = resolve_device(device)
+        conns = dict(connectors)
+        # the writable catalog: CREATE TABLE AS / INSERT INTO land here
+        conns.setdefault("memory", MemoryConnector(device=self.device))
+        self.catalog = Catalog(conns)
         self.analyzer = Analyzer(self.catalog)
         self.properties = validate_properties(dict(properties or {}))
-        self.device = resolve_device(device)
+        #: every tracked query's QueryInfo, in order
+        self.query_history: list[QueryInfo] = []
+        #: prepared statements (PREPARE name FROM ... / Session.prepare)
+        self._prepared: dict[str, PreparedStatement] = {}
+        # every memory-connector write (CTAS, INSERT, DROP) bumps the
+        # catalog version, also a direct write through the Python API
+        mem = conns["memory"]
+        self._mem_ddl_hooked = hasattr(mem, "add_ddl_listener")
+        if self._mem_ddl_hooked:
+            mem.add_ddl_listener(self.catalog.invalidate)
 
     def prop(self, name: str):
         """Effective value of a session property (override or default)."""
         return effective(self.properties, name)
 
-    def plan(self, sql: str) -> PlanNode:
-        stmt = parse(sql)
-        if not isinstance(stmt, (A.Query, A.SetQuery)):
-            raise NotSupported(f"{type(stmt).__name__} statements are not ported yet")
-        return prune(self.analyzer.analyze(stmt))
-
-    def explain(self, sql: str) -> str:
-        """The pruned plan with its planned join and aggregation
-        strategies (``strategy=sketch(approx)`` where ``approx_join``
-        would probe a Bloom sketch)."""
-        return plan_tree_str(self.plan(sql), catalog=self.catalog,
-                             approx_join=self.prop("approx_join"))
+    def _mirror_narrow(self) -> None:
+        """Connectors and the leaf-route matcher read the process-wide
+        switch (``spi.narrow_enabled``): mirror ``narrow_storage`` there,
+        as the JAX package does."""
+        narrow = self.prop("narrow_storage")
+        if narrow is not None:
+            os.environ["PRESTO_TPU_NARROW"] = "1" if narrow else "0"
 
     def executor(self) -> LocalExecutor:
         """A fresh executor configured from the session properties."""
-        narrow = self.prop("narrow_storage")
-        if narrow is not None:
-            # connectors and the leaf-route matcher read the switch
-            # (spi.narrow_enabled); mirror the property there, as the JAX
-            # package does (process-wide)
-            os.environ["PRESTO_TPU_NARROW"] = "1" if narrow else "0"
+        self._mirror_narrow()
         return LocalExecutor(self.catalog, pallas_join_enabled=self.prop("pallas_join"),
                              approx_join=self.prop("approx_join"),
                              runtime_join_filters=self.prop("runtime_join_filters"),
                              device=self.device)
 
-    def explain_analyze(self, sql: str) -> str:
-        """EXPLAIN ANALYZE (the plan annotated with each node's actuals)
-        needs the JAX package's stats recorder, which is not ported."""
-        raise NotSupported("EXPLAIN ANALYZE is not ported yet")
+    # ---- planning ---------------------------------------------------------
+    def plan(self, sql: str) -> PlanNode:
+        """The pruned plan of a query, never parameterized."""
+        stmt = parse(sql)
+        if isinstance(stmt, _DDL):
+            raise UserError("DDL statements execute via Session.sql(), not plan()/explain()")
+        logical = self.analyzer.analyze(stmt)
+        if self.analyzer.param_types:
+            # an unbindable plan is refused at plan time
+            raise UserError("query contains ? parameters; PREPARE it and EXECUTE "
+                            "... USING (or Session.prepare/execute)")
+        return prune(logical)
 
+    def _plan_binding(self, stmt, parameterize: bool = True):
+        """Analyze, prune and (under ``plan_templates``) parameterize one
+        statement: ``(plan, bound)``, ``bound`` the slot-ordered (dtype,
+        logical value) binding of the statement's own literals. The
+        session's ``narrow_storage`` is mirrored first: which literals
+        stay baked depends on the leaf-route matcher, which reads it (the
+        JAX package mirrors it only when it builds the executor, after
+        this: ROADMAP C16)."""
+        self._mirror_narrow()
+        plan = prune(self.analyzer.analyze(stmt))
+        if self.analyzer.param_types:
+            raise UserError("query contains ? parameters; PREPARE it and EXECUTE "
+                            "... USING (or Session.prepare/execute)")
+        if not (parameterize and self.prop("plan_templates")):
+            return plan, ()
+        plan, slots = parameterize_plan(plan, self.catalog)
+        return plan, tuple((s.dtype, s.value) for s in slots)
+
+    def explain(self, sql: str) -> str:
+        """The plan with its planned join and aggregation strategies
+        (``strategy=sketch(approx)`` where ``approx_join`` would probe a
+        Bloom sketch). Under ``plan_templates`` the plan is its template,
+        followed by a ``params=[...]`` line binding each slot to this
+        statement's literal."""
+        stmt = parse(sql)
+        if isinstance(stmt, _DDL + _PREPARED):
+            raise UserError("DDL statements execute via Session.sql(), not plan()/explain()")
+        plan, bound = self._plan_binding(stmt)
+        out = plan_tree_str(plan, catalog=self.catalog, approx_join=self.prop("approx_join"))
+        if bound:
+            rendered = ", ".join(f"?{i}={dt}:{v!r}" for i, (dt, v) in enumerate(bound))
+            out += f"params=[{rendered}]\n"
+        return out
+
+    # ---- running ----------------------------------------------------------
     def sql(self, sql: str) -> QueryResult:
-        """Execute one query and return its rows (``QueryResult.approximate``
-        says whether a semi join probed the Bloom sketch)."""
-        return self.executor().run(self.plan(sql))
+        """Execute one statement and return its rows (``QueryResult.
+        approximate`` says whether a semi join probed the Bloom sketch).
+        CREATE TABLE AS / INSERT INTO return a one-row ``rows`` result,
+        DROP TABLE a ``dropped`` one; PREPARE / DEALLOCATE PREPARE a
+        ``prepared`` / ``deallocated`` one, EXECUTE the prepared query's
+        rows."""
+        t0 = time.perf_counter()
+        stmt = parse(sql)
+        if isinstance(stmt, A.Prepare):
+            self._prepared[stmt.name] = self._prepare_ast(stmt.name, sql, stmt.statement)
+            return _one_row("prepared", stmt.name)
+        if isinstance(stmt, A.ExecuteStmt):
+            res, _info = self.execute_prepared(
+                stmt.name, [_ast_literal_value(a) for a in stmt.args],
+                planning_s=time.perf_counter() - t0)
+            return res
+        if isinstance(stmt, A.Deallocate):
+            if self._prepared.pop(stmt.name, None) is None:
+                raise UserError(f"prepared statement not found: {stmt.name}")
+            return _one_row("deallocated", stmt.name)
+        if isinstance(stmt, _DDL):
+            return self._run_ddl(sql, stmt)
+        want = bool(self.prop("collect_node_stats"))
+        plan, bound = self._plan_binding(stmt, parameterize=not want)
+        res, _info = self._run_tracked(sql, plan, StatsRecorder() if want else None,
+                                       planning_s=time.perf_counter() - t0, bound=bound)
+        return res
+
+    def execute(self, sql, params=None):
+        """Execute returning ``(QueryResult, QueryInfo)``, with a stats
+        recorder. With a ``PreparedStatement`` handle (or a registered
+        name) plus ``params``, runs the prepared template with those
+        bindings."""
+        if isinstance(sql, PreparedStatement) or params is not None:
+            return self.execute_prepared(sql, params or ())
+        t0 = time.perf_counter()
+        plan = self.plan(sql)
+        return self._run_tracked(sql, plan, StatsRecorder(),
+                                 planning_s=time.perf_counter() - t0)
+
+    def explain_analyze(self, sql: str) -> str:
+        """Execute with a stats recorder and render the plan annotated
+        with each node's actuals."""
+        recorder = StatsRecorder()
+        t0 = time.perf_counter()
+        plan = self.plan(sql)
+        self._run_tracked(sql, plan, recorder, planning_s=time.perf_counter() - t0)
+        return render_analyzed_plan(plan, recorder)
+
+    def _run_tracked(self, sql: str, plan: PlanNode, recorder, planning_s: float = 0.0,
+                     bound=()):
+        """Run one plan and track it as a ``QueryInfo``: with a recorder,
+        snapshot the estimates, record each node, then ``finalize``.
+        ``bound`` is the plan template's (dtype, value) binding."""
+        info = QueryInfo(query_id=f"q_{next(_query_seq)}_{uuid.uuid4().hex[:8]}",
+                         sql=sql, state="QUEUED", created_at=time.time(),
+                         created_mono=time.monotonic(), planning_s=planning_s)
+        self.query_history.append(info)
+        info.state = "RUNNING"
+        info.started_at = time.time()
+        info.started_mono = time.monotonic()
+        if recorder is not None:
+            recorder.attach_plan(plan)
+            recorder.attach_estimates(plan, self.catalog, approx_join=self.prop("approx_join"))
+        executor = self.executor()
+        executor.recorder = recorder
+        executor.params = device_params(bound, self.device) if bound else ()
+        try:
+            res = executor.run(plan)
+            info.state = "FINISHED"
+            info.output_rows = len(res)
+            info.approximate = res.approximate
+        except Exception as e:
+            info.state = "FAILED"
+            info.error = f"{type(e).__name__}: {e}"
+            info.error_code = error_code(e)
+            info.retryable = is_retryable(e)
+            raise
+        finally:
+            info.finished_at = time.time()
+            info.finished_mono = time.monotonic()
+            if recorder is not None:
+                recorder.finalize(plan)
+                info.node_stats = [s.to_dict() for s in recorder.nodes.values()]
+        return res, info
+
+    # ---- prepared statements -----------------------------------------------
+    def _prepare_ast(self, name: str, sql: str, stmt) -> PreparedStatement:
+        if not isinstance(stmt, (A.Query, A.SetQuery)):
+            raise UserError("only queries can be prepared")
+        self._mirror_narrow()
+        plan = prune(self.analyzer.analyze(stmt))
+        user = tuple(sorted(self.analyzer.param_types.items()))
+        auto = ()
+        if self.prop("plan_templates"):
+            plan, auto = parameterize_plan(plan, self.catalog, start_slot=len(user))
+        return PreparedStatement(name, sql, plan, user, auto)
+
+    def prepare(self, sql: str, name: Optional[str] = None) -> PreparedStatement:
+        """Prepare a query into a plan-template handle: explicit ``?``
+        placeholders and eligible literals become typed slots, and every
+        ``execute(handle, params)`` binding runs the handle's one plan."""
+        handle = self._prepare_ast(name or f"stmt_{len(self._prepared)}", sql, parse(sql))
+        self._prepared[handle.name] = handle
+        return handle
+
+    def execute_prepared(self, handle, params=(), planning_s: float = 0.0):
+        """Execute a prepared handle (or its registered name) with
+        positional ``?`` bindings; returns ``(QueryResult, QueryInfo)``."""
+        if not isinstance(handle, PreparedStatement):
+            h = self._prepared.get(handle)
+            if h is None:
+                raise UserError(f"prepared statement not found: {handle}")
+            handle = h
+        bound = handle.bind(list(params))
+        return self._run_tracked(handle.sql, handle.plan, None, planning_s=planning_s,
+                                 bound=bound)
+
+    # ---- DDL ----------------------------------------------------------------
+    def _owning_catalog(self, table: str):
+        for cname, conn in self.catalog.connectors.items():
+            if table in conn.tables():
+                return cname
+        return None
+
+    def _run_ddl(self, sql: str, stmt) -> QueryResult:
+        """CREATE TABLE AS / INSERT INTO / DROP TABLE against the memory
+        catalog, all-or-nothing per statement. A target name must not
+        shadow a table of a read-only catalog: name resolution prefers
+        the user connectors, so a shadowed memory table would be
+        unreachable."""
+        mem = self.catalog.connector("memory")
+        owner = self._owning_catalog(stmt.name)
+        if isinstance(stmt, A.DropTable):
+            if owner == "memory":
+                mem.drop_table(stmt.name)
+            elif owner is not None:
+                raise UserError(f"cannot drop {stmt.name}: it belongs to the read-only "
+                                f"{owner!r} catalog")
+            elif not stmt.if_exists:
+                raise UserError(f"table not found in memory catalog: {stmt.name}")
+            if not self._mem_ddl_hooked:
+                self.catalog.invalidate(stmt.name)
+            return _one_row("dropped", stmt.name)
+        # existence checks before running the query
+        if isinstance(stmt, A.CreateTableAs) and owner is not None:
+            raise UserError(f"table already exists in catalog {owner!r}: {stmt.name}")
+        if isinstance(stmt, A.InsertInto):
+            if owner is None:
+                raise UserError(f"table not found: {stmt.name}")
+            if owner != "memory":
+                raise UserError(f"cannot insert into {stmt.name}: the {owner!r} catalog "
+                                "is read-only")
+        t0 = time.perf_counter()
+        plan, bound = self._plan_binding(stmt.query)
+        res, _info = self._run_tracked(sql, plan, None, planning_s=time.perf_counter() - t0,
+                                       bound=bound)
+        if isinstance(stmt, A.CreateTableAs):
+            rows = mem.create_table(stmt.name, res)
+        else:
+            rows = mem.insert(stmt.name, res)
+        if not self._mem_ddl_hooked:
+            self.catalog.invalidate(stmt.name)
+        return _one_row("rows", rows)

@@ -49,7 +49,10 @@ spec, chained in first-seen order, above the aggregation and HAVING.
 GROUP BY ROLLUP / CUBE / GROUPING SETS with ``grouping()``: a UNION ALL
 of one grouped branch per set (absent keys typed NULLs outside aggregate
 arguments, ``grouping()`` folded to 0 or 1); with windows, the branches
-feed an outer query that carries them. ``?`` parameters and statements
+feed an outer query that carries them. A ``?`` parameter takes the type
+of the typed operand beside it (a comparison or arithmetic operand, an
+IN list's value, BETWEEN's value) and lowers to an ``expr.Param`` slot;
+``param_types`` holds the slot types of the last statement. Statements
 other than queries raise ``NotSupported`` naming the construct; so do an
 uncorrelated EXISTS and ``<>`` correlation in a scalar subquery, which
 the JAX package refuses too. Every other refusal
@@ -66,7 +69,7 @@ import numpy as np
 
 from presto_tpu_torch.exec.operators import AggSpec, SortKey
 from presto_tpu_torch.expr import (
-    Call, Expr, InputRef, Literal, Unbound, cast_varchar_fn, date_add_fn, date_diff_fn,
+    Call, Expr, InputRef, Literal, Param, Unbound, cast_varchar_fn, date_add_fn, date_diff_fn,
     date_trunc_fn, parse_date_fn, parse_timestamp_fn, rescale_decimal, result_type,
     split_part_fn, substr_dict_fn, substr_fn)
 from presto_tpu_torch.plan import nodes as N
@@ -316,6 +319,9 @@ class Analyzer:
     def __init__(self, catalog: Catalog):
         self.catalog = catalog
         self._uniq = 0
+        #: ``?`` placeholder types of the last analyze() (ordinal ->
+        #: DataType): Session.prepare builds the user-slot layout from it
+        self.param_types: dict[int, DataType] = {}
 
     # ------------------------------------------------------------------
     def fresh(self, base: str) -> str:
@@ -326,10 +332,30 @@ class Analyzer:
         # the gensym counter restarts per statement, as in the JAX
         # package, so both name the same internal fields alike
         self._uniq = 0
+        self.param_types = {}
         if not isinstance(query, (A.Query, A.SetQuery)):
             raise _unsupported(f"statement {type(query).__name__}")
         plan, _scope = self._analyze_any(query, outer=None, ctes={})
         return plan
+
+    def _param(self, ph: A.Placeholder, dtype: DataType) -> Expr:
+        """Type one ``?`` placeholder from its context and lower it to a
+        ``Param`` slot (slot id == lexical ordinal). A placeholder reached
+        through two conflicting typed contexts is rejected."""
+        if dtype.kind in (TypeKind.VARCHAR, TypeKind.BYTES):
+            raise AnalysisError(
+                "string parameters are not supported (dictionary "
+                "encoding is a trace-time decision); inline the literal"
+            )
+        dtype = dtype.canonical()
+        seen = self.param_types.get(ph.ordinal)
+        if seen is not None and seen != dtype:
+            raise AnalysisError(
+                f"parameter ?{ph.ordinal + 1} used with conflicting "
+                f"types {seen} and {dtype}"
+            )
+        self.param_types[ph.ordinal] = dtype
+        return Param(dtype, ph.ordinal)
 
     def _analyze_any(
         self, q: A.Node, outer: Scope | None, ctes: dict
@@ -2026,7 +2052,29 @@ class Analyzer:
             return Literal(DATE, days)
         if isinstance(n, A.TimestampLit):
             return Literal(TIMESTAMP, TIMESTAMP.to_physical(n.value))
+        if isinstance(n, A.Placeholder):
+            raise AnalysisError(
+                f"cannot infer the type of parameter ?{n.ordinal + 1}: use "
+                "it in a comparison or arithmetic with a typed operand"
+            )
         if isinstance(n, A.BinaryOp):
+            # placeholder typing: one side a ``?``, the other typed; the
+            # parameter takes the typed side's type
+            l_ph = isinstance(n.left, A.Placeholder)
+            r_ph = isinstance(n.right, A.Placeholder)
+            if (l_ph or r_ph) and n.op in (_CMP_OPS | _ARITH_OPS):
+                if l_ph and r_ph:
+                    raise AnalysisError(
+                        "cannot infer parameter types: both comparison "
+                        "sides are ?")
+                typed = self._expr(n.right if l_ph else n.left, scope, outer,
+                                   ctes, scalar_binds, agg_map, key_map)
+                ph = self._param(n.left if l_ph else n.right, typed.dtype)
+                l, r = (ph, typed) if l_ph else (typed, ph)
+                if n.op in _CMP_OPS:
+                    return Call(BOOLEAN, _CMP_OPS[n.op], (l, r))
+                fn = _ARITH_OPS[n.op]
+                return Call(result_type(fn, [l.dtype, r.dtype]), fn, (l, r))
             if n.op in ("and", "or"):
                 l = self._expr(n.left, scope, outer, ctes, scalar_binds, agg_map, key_map)
                 r = self._expr(n.right, scope, outer, ctes, scalar_binds, agg_map, key_map)
@@ -2057,13 +2105,18 @@ class Analyzer:
             return Call(v.dtype, "neg", (v,))
         if isinstance(n, A.Between):
             v = self._expr(n.value, scope, outer, ctes, scalar_binds, agg_map, key_map)
-            lo = self._expr(n.low, scope, outer, ctes, scalar_binds, agg_map, key_map)
-            hi = self._expr(n.high, scope, outer, ctes, scalar_binds, agg_map, key_map)
-            e = Call(BOOLEAN, "between", (v, lo, hi))
+
+            def bound(b):
+                if isinstance(b, A.Placeholder):
+                    return self._param(b, v.dtype)
+                return self._expr(b, scope, outer, ctes, scalar_binds, agg_map, key_map)
+
+            e = Call(BOOLEAN, "between", (v, bound(n.low), bound(n.high)))
             return Call(BOOLEAN, "not", (e,)) if n.negated else e
         if isinstance(n, A.InList):
             v = self._expr(n.value, scope, outer, ctes, scalar_binds, agg_map, key_map)
-            items = tuple(self._expr(i, scope, outer, ctes, scalar_binds, agg_map, key_map)
+            items = tuple(self._param(i, v.dtype) if isinstance(i, A.Placeholder)
+                          else self._expr(i, scope, outer, ctes, scalar_binds, agg_map, key_map)
                           for i in n.items)
             e = Call(BOOLEAN, "in", (v,) + items)
             return Call(BOOLEAN, "not", (e,)) if n.negated else e

@@ -172,6 +172,12 @@ class DataType:
             return f"bytes({self.width})"
         return self.kind.value
 
+    def physical_str(self) -> str:
+        """Rendering with the physical storage made visible (EXPLAIN):
+        ``bigint`` canonically, ``bigint:int16`` when narrowed."""
+        base = str(self)
+        return f"{base}:{self.phys}" if self.phys else base
+
 
 _PHYSICAL = {
     TypeKind.BOOLEAN: np.bool_,

@@ -9,12 +9,12 @@
   strategies (``fused`` on the leaf route), for TPC-H Q1, Q3, Q6 and Q10
   and SSB Q1.1, at sf 0.01 and at SF1 (plans only: no data is
   generated);
-- constructs outside the ported subset (DDL, EXPLAIN ANALYZE, and the
-  ``<>`` correlation in a scalar subquery, which the JAX package refuses
-  too) raise ``NotSupported`` naming them, and the ones this file pinned
-  before the port answered them (among them windows and GROUPING SETS /
-  ROLLUP / CUBE) equal the JAX package's answers, frames built as it
-  builds them (``torch_bridge.port_frame``).
+- constructs outside the ported subset (the ``<>`` correlation in a
+  scalar subquery, which the JAX package refuses too) raise
+  ``NotSupported`` naming them, and the ones this file pinned before the
+  port answered them (among them windows, GROUPING SETS / ROLLUP / CUBE,
+  CREATE TABLE AS and EXPLAIN ANALYZE) equal the JAX package's answers,
+  frames built as it builds them (``torch_bridge.port_frame``).
 Exact comparisons throughout, but for the DOUBLE columns of ``ANSWERED``
 (rtol 1e-3, atol 0.02: the tolerance tests/test_tpch_sql.py holds DOUBLE
 aggregates to).
@@ -149,7 +149,6 @@ UNSUPPORTED = [
     ("select count(*) from nation where n_regionkey = "
      "(select max(r_regionkey) from region where r_regionkey <> n_nationkey)",
      "<> correlation in a scalar subquery"),
-    ("create table t as select n_name from nation", "CreateTableAs"),
 ]
 
 
@@ -160,12 +159,21 @@ def test_constructs_outside_the_slice_raise_naming_them(sql, what):
         ps.sql(sql)
 
 
-def test_explain_analyze_is_refused_naming_it():
-    """EXPLAIN ANALYZE (``Session.explain_analyze``) needs the reference's
-    stats recorder, which is not ported."""
+def test_explain_analyze_equals_jax_session():
+    """EXPLAIN ANALYZE (``Session.explain_analyze``), each node's wall
+    masked, equals the JAX package's rendering without its span lines
+    (ROADMAP C14; tests/test_torch_explain_analyze.py holds more)."""
+    import re
+
+    sql = "select n_regionkey, count(*) c from nation group by n_regionkey"
+
+    def masked(text):
+        return [re.sub(r"wall [\d.]+ms", "wall ?ms", line) for line in text.splitlines()
+                if not line.startswith("cache: ")]
+
+    js = JSession({"tpch": JConnector(sf=0.01)}, properties={"result_cache_enabled": False})
     ps = PSession({"tpch": PConnector(sf=0.01, device="cpu")}, device="cpu")
-    with pytest.raises(NotSupported, match="EXPLAIN ANALYZE"):
-        ps.explain_analyze("select count(*) from nation")
+    assert masked(ps.explain_analyze(sql)) == masked(js.explain_analyze(sql))
 
 
 #: constructs this file pinned as refused until the port answered them:
@@ -187,6 +195,7 @@ ANSWERED = {
                "group by rollup(l_returnflag, l_linestatus)"),
     "cube": ("select l_returnflag, l_linestatus, count(*) from lineitem "
              "group by cube(l_returnflag, l_linestatus)"),
+    "create table as": "create table t as select n_name from nation",
 }
 
 
