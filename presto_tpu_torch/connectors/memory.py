@@ -37,7 +37,7 @@ import numpy as np
 from presto_tpu_torch.batch import Batch, Dictionary, QueryResult, decode_values
 from presto_tpu_torch.devices import resolve_device
 from presto_tpu_torch.runtime.errors import UserError
-from presto_tpu_torch.runtime.metrics import COUNTERS
+from presto_tpu_torch.runtime.metrics import REGISTRY
 from presto_tpu_torch.spi import (
     ColumnStats,
     Split,
@@ -383,7 +383,7 @@ class MemoryConnector:
                 remap = rebuilt.encode(list(dicts[c].values)).astype(np.int32)
                 arrays[c] = remap[arrays[c]]
                 dicts[c] = rebuilt
-                COUNTERS["stream.dict_rebuilds"] += 1
+                REGISTRY.counter("stream.dict_rebuilds").add()
             old_valid = arrays.get(c + "$valid")
             if not bvalid.all() or old_valid is not None:
                 ov = old_valid if old_valid is not None else np.ones(n_old, dtype=np.bool_)

@@ -38,6 +38,7 @@ from typing import Callable, Sequence
 from presto_tpu_torch.expr import Call, Expr, InputRef, Literal, Unbound
 from presto_tpu_torch.plan.bounds import expr_interval, key_dictionary, node_intervals
 from presto_tpu_torch.runtime.errors import NotSupported
+from presto_tpu_torch.runtime.metrics import REGISTRY
 from presto_tpu_torch.types import BIGINT, TypeKind, fixed_bytes
 
 
@@ -158,6 +159,8 @@ def join_key_exprs(lkeys: Sequence[Expr], rkeys: Sequence[Expr], *, catalog, lno
         cache, k = (local, (side, id(key))) if ck is None else (memo, ck)
         if k not in cache:
             cache[k] = runtime_minmax(side, key)
+        elif ck is not None:
+            REGISTRY.counter("joinkeys.minmax_memo_hits").add()
         return cache[k]
 
     def key_widths(use_stats: bool):

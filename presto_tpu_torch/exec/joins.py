@@ -30,8 +30,9 @@ NULL in a payload column, discards the fused tables at build time
 (``join.pallas_fallback``) and the probe takes the next side — counted,
 never wrong. Every route gives the same rows. Each probe operator
 counts its route once as ``join.strategy.<route>`` in
-``runtime.metrics.COUNTERS``, and the fused one also as
-``exec.pallas_join_route``.
+``runtime.metrics.REGISTRY``, and the fused one also as
+``exec.pallas_join_route``. The build runs in a ``step:join_build``
+span and each probe batch in a ``step:probe_<join type>`` one.
 
 Inner and left outer joins whose build keys may repeat take the
 expansion probe (``ops/join.probe_expand``): one output row per matching
@@ -92,7 +93,8 @@ from presto_tpu_torch.ops.join import (
     probe_unique_dense,
 )
 from presto_tpu_torch.runtime.errors import InternalError, NotSupported
-from presto_tpu_torch.runtime.metrics import COUNTERS
+from presto_tpu_torch.runtime.metrics import REGISTRY
+from presto_tpu_torch.runtime.trace import span as trace_span
 from presto_tpu_torch.spi import batch_capacity
 
 #: candidate window a verified unique probe scans per probe row: covers
@@ -203,25 +205,19 @@ class JoinBuildOperator(CollectingOperator):
                     spec = None
                     break
         if spec is None and self.pallas is not None:
-            COUNTERS["join.pallas_fallback"] += 1
+            REGISTRY.counter("join.pallas_fallback").add()
             self.pallas = None
         return spec
 
-    def finish(self) -> list[Batch]:
-        if not self.batches:
-            raise NotSupported("an empty join build side is not ported yet")
-        batch = concat_batches(self.batches)
-        if self.key_max is not None and self.key_max >= 0:
-            pb = int(batch.capacity).bit_length()
-            if int(self.key_max).bit_length() + pb <= 62:
-                self.pack_bits = pb
+    def _build(self, batch: Batch, cap: int, spec):
+        """The build's device work: the sorted lookup side and the dense
+        table (returned), the fused tables and the runtime filter's
+        products."""
         v = evaluate(self.key, batch)
         live = batch.live & valid_of(v.valid, batch.live)
-        side = build_lookup(v.data, live, batch_capacity(batch.capacity, minimum=16),
-                            pack_bits=self.pack_bits)
+        side = build_lookup(v.data, live, cap, pack_bits=self.pack_bits)
         dd = self.dense_domain
         dense = build_dense(v.data, live, dd[0], dd[1]) if dd else None
-        spec = self._eligible_pallas_spec(batch)
         if spec is not None:
             if spec.mode == "exists":
                 table, oob = cuda_join.build_exists_table(
@@ -239,7 +235,7 @@ class JoinBuildOperator(CollectingOperator):
                     v.data, live, spec.key_min, spec.key_max, [c.data for c in cols])
                 bad = oob | pnull
             if bool(bad):
-                COUNTERS["join.pallas_fallback"] += 1
+                REGISTRY.counter("join.pallas_fallback").add()
                 self.pallas = None
             else:
                 self.pallas_side = tables
@@ -249,6 +245,20 @@ class JoinBuildOperator(CollectingOperator):
                                   torch.where(live, k64, torch.full_like(k64, -I64_MAX - 1))
                                   .max())
             self.filter_bloom = bloom_build(v.data, live, self.filter_bits)
+        return side, dense
+
+    def finish(self) -> list[Batch]:
+        if not self.batches:
+            raise NotSupported("an empty join build side is not ported yet")
+        batch = concat_batches(self.batches)
+        if self.key_max is not None and self.key_max >= 0:
+            pb = int(batch.capacity).bit_length()
+            if int(self.key_max).bit_length() + pb <= 62:
+                self.pack_bits = pb
+        cap = batch_capacity(batch.capacity, minimum=16)
+        spec = self._eligible_pallas_spec(batch)
+        with trace_span("step:join_build", "step", {"capacity": cap}):
+            side, dense = self._build(batch, cap, spec)
         if bool(side.sentinel_hit):
             if self.pack_bits is not None:
                 raise NotSupported(
@@ -316,9 +326,9 @@ class LookupJoinOperator(Operator):
         """Count the chosen probe strategy once per operator."""
         if self._strategy is None:
             self._strategy = name
-            COUNTERS[f"join.strategy.{name}"] += 1
+            REGISTRY.counter(f"join.strategy.{name}").add()
             if name == "pallas":
-                COUNTERS["exec.pallas_join_route"] += 1
+                REGISTRY.counter("exec.pallas_join_route").add()
 
     def _pallas_usable(self, batch: Batch) -> bool:
         """Per-batch routing: the build published fused tables, the mode
@@ -398,11 +408,18 @@ class LookupJoinOperator(Operator):
         self._check_probe_dict(batch)
         if self._pallas_usable(batch):
             self._record_strategy("pallas")
-            return [self._pallas_probe(batch)]
+            with trace_span(f"step:probe_{self.join_type}", "step", {"strategy": "pallas"}):
+                return [self._pallas_probe(batch)]
         if build.pallas_side is not None:
             # the build published fused tables but THIS batch cannot
             # ride them (key storage): degrade loudly
-            COUNTERS["join.pallas_fallback"] += 1
+            REGISTRY.counter("join.pallas_fallback").add()
+        with trace_span(f"step:probe_{self.join_type}", "step"):
+            return [self._probe(batch)]
+
+    def _probe(self, batch: Batch) -> Batch:
+        """One batch through the dense, sorted or expansion probe."""
+        build = self.build
         v = evaluate(self.probe_key, batch)
         plive = batch.live & valid_of(v.valid, batch.live)
         if self.join_type in ("semi", "anti"):
@@ -416,7 +433,7 @@ class LookupJoinOperator(Operator):
                 self._record_strategy("unique")
                 exists = probe_exists(build.build_side, v.data, plive)
             keep = exists if self.join_type == "semi" else batch.live & ~exists
-            return [batch.with_live(batch.live & keep)]
+            return batch.with_live(batch.live & keep)
         if not self.unique:
             if self.verify and self.join_type != "inner":
                 # a LEFT row whose every candidate fails its check would
@@ -426,11 +443,11 @@ class LookupJoinOperator(Operator):
             out, _flags, overflow = self._expand(batch, v, plive)
             if bool(overflow):
                 raise CapacityOverflow("LookupJoin", self.out_capacity)
-            return [out]
+            return out
         res = self._unique_probe(batch, v, plive)
         out = self._with_build_outputs(batch, res)
         live = batch.live & res.matched if self.join_type == "inner" else batch.live
-        return [out.with_live(live)]
+        return out.with_live(live)
 
     def _unique_probe(self, batch: Batch, v, plive: torch.Tensor,
                       count: bool = True) -> UniqueProbe:
@@ -484,6 +501,10 @@ class LookupJoinOperator(Operator):
         if build.build_side is None:
             raise RuntimeError("build side not finished")
         self._check_probe_dict(batch)
+        with trace_span("step:probe_full", "step"):
+            return self._probe_full(batch, flags)
+
+    def _probe_full(self, batch: Batch, flags: torch.Tensor):
         v = evaluate(self.probe_key, batch)
         plive = batch.live & valid_of(v.valid, batch.live)
         if self.unique:

@@ -55,7 +55,8 @@ from presto_tpu_torch.ops.cuda_agg import (
 )
 from presto_tpu_torch.plan import nodes as N
 from presto_tpu_torch.plan.bounds import expr_interval
-from presto_tpu_torch.runtime.metrics import COUNTERS
+from presto_tpu_torch.runtime.faults import fault_point
+from presto_tpu_torch.runtime.metrics import REGISTRY
 from presto_tpu_torch.spi import batch_capacity, stats_physical_interval
 from presto_tpu_torch.types import TypeKind
 
@@ -563,8 +564,8 @@ def match_leaf_fragment(node, catalog):
 def count_fallback(reason: str) -> None:
     """One aggregate counter plus a per-reason counter, so 'why didn't
     this leaf route?' is always answerable from the counters."""
-    COUNTERS["exec.leaf_route_fallback"] += 1
-    COUNTERS[f"exec.leaf_route_fallback.{reason}"] += 1
+    REGISTRY.counter("exec.leaf_route_fallback").add()
+    REGISTRY.counter(f"exec.leaf_route_fallback.{reason}").add()
 
 
 # ---------------------------------------------------------------------------
@@ -659,23 +660,29 @@ def execute_leaf_route(route: LeafRoute, executor, node, scalars):
         if out is None:
             count_fallback("value_overflow")
             return None
-        COUNTERS["exec.leaf_fused_route"] += 1
+        REGISTRY.counter("exec.leaf_fused_route").add()
         return out
 
+    fault_point("aggregation")
+    fault_point("step.agg")
     spec = route.spec
     scan = route.scan
     conn = catalog.connector(scan.connector)
-    splits = list(conn.splits(scan.table))
-    if not splits:
-        return None
     bitmap = None
     if route.member is not None:
         build = executor._exec(route.member.build, scalars).materialize()
         bitmap = _membership_bitmap(route.member, build, conn.device)
+    splits = list(conn.splits(scan.table))
+    if not splits:
+        return None
     cap = batch_capacity(max(s.row_hint for s in splits))
+
+    def load(split):
+        fault_point("scan")
+        return conn.scan(split, route.src_cols, cap).rename(route.rename)
+
     state = None
-    for b in prefetch_iter(lambda s: conn.scan(s, route.src_cols, cap).rename(route.rename),
-                           splits):
+    for b in prefetch_iter(load, splits):
         # declared NULL-freedom's runtime check, on the PRE-membership
         # batch (membership rebuilds validity as the live mask)
         nulls = null_violation(b)
@@ -691,7 +698,7 @@ def execute_leaf_route(route: LeafRoute, executor, node, scalars):
     if bool(state["value_overflow"]):  # read once, after the last split
         count_fallback("value_overflow")
         return None
-    COUNTERS["exec.leaf_fused_route"] += 1
+    REGISTRY.counter("exec.leaf_fused_route").add()
     return [decode_leaf_state(route, conn, node.aggs, state)]
 
 

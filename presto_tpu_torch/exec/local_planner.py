@@ -56,12 +56,17 @@ package's, made from the same stats:
 - under a ``StatsRecorder`` (``recorder``: EXPLAIN ANALYZE,
   ``Session.execute``) each node's output stream is materialized at its
   dispatch and its wall, live rows and bytes recorded, and the leaf
-  route is skipped so every node's actuals are true.
+  route is skipped so every node's actuals are true;
+- every node's dispatch runs in a ``node:<Type>`` trace span (with its
+  stable ``plan_node_id``), the sink's drain in ``node:Output``, each
+  runtime filter application in ``join_filter``; the JAX package's fault
+  points sit at its sites (``scan`` per split, ``aggregation`` and
+  ``step.agg`` per aggregate, ``step.join_build`` per resident build).
 
-Not ported: the spill and grouped tiers, the OOM ladder, fault points,
-adaptive history, result and executable caches, and tracing. Every join
-and aggregate runs resident; a plan node without an executor here raises
-``NotSupported``.
+Not ported: the spill and grouped tiers, the OOM ladder, the lifecycle's
+fragments and deadlines, adaptive history, and the result and executable
+caches. Every join and aggregate runs resident; a plan node without an
+executor here raises ``NotSupported``.
 """
 
 from __future__ import annotations
@@ -112,8 +117,13 @@ from presto_tpu_torch.plan.bounds import agg_value_bits, estimate_rows, key_dict
 from presto_tpu_torch.plan.catalog import Catalog
 from presto_tpu_torch.plan.joinfilters import filter_edge_for
 from presto_tpu_torch.runtime.errors import InternalError, NotSupported, UserError
-from presto_tpu_torch.runtime.metrics import COUNTERS
+from presto_tpu_torch.runtime.faults import fault_point
+from presto_tpu_torch.runtime.metrics import REGISTRY
+from presto_tpu_torch.runtime.stats import NodeIds
 from presto_tpu_torch.runtime.trace import batch_device_bytes, batch_row_bytes
+from presto_tpu_torch.runtime.trace import add_complete
+from presto_tpu_torch.runtime.trace import current as current_trace
+from presto_tpu_torch.runtime.trace import span as trace_span
 from presto_tpu_torch.spi import batch_capacity
 from presto_tpu_torch.types import TypeKind
 
@@ -251,6 +261,8 @@ class LocalExecutor:
         #: optional StatsRecorder for the current query (set by the
         #: Session; powers QueryInfo node stats and EXPLAIN ANALYZE)
         self.recorder = None
+        #: stable plan-node ids for trace spans when no recorder is set
+        self._trace_ids = None
 
     # ------------------------------------------------------------------
     def run(self, plan: N.PlanNode) -> QueryResult:
@@ -271,8 +283,11 @@ class LocalExecutor:
         scalars: dict = {}
         rename = dict(zip(plan.sources, plan.names))
         with param_scope(self.params):
-            out = [b.select(list(plan.sources)).rename(rename)
-                   for b in self._exec(plan.child, scalars)]
+            batches = self._exec(plan.child, scalars)
+            # the sink's drain: in a plan without a pipeline breaker the
+            # lazy scan work happens here
+            with trace_span("node:Output", "node", {"plan_node_id": self._nid(plan)}):
+                out = [b.select(list(plan.sources)).rename(rename) for b in batches]
         # every scan of the run has drained: one readback of the filters'
         # pruning counts
         self._flush_filter_stats()
@@ -285,24 +300,38 @@ class LocalExecutor:
         if m is None:
             raise NotSupported(f"executing a {type(node).__name__} node is not ported yet")
         rec = self.recorder
+        name = f"node:{type(node).__name__}"
+        args = {"plan_node_id": self._nid(node)}
         if rec is None:
-            return m(node, scalars)
+            with trace_span(name, "node", args):
+                return m(node, scalars)
         t0 = time.perf_counter()
-        out = m(node, scalars)
-        rows, nbytes, dev_bytes = -1, -1, -1
-        if rec.measure_rows and isinstance(out, BatchStream):
-            # materialize here, so the wall includes this node's work
-            batches = out.materialize()
-            rows, nbytes, dev_bytes = 0, 0, 0
-            for b in batches:
-                lc = live_count(b)
-                rows += lc
-                nbytes += lc * batch_row_bytes(b)
-                dev_bytes += batch_device_bytes(b)
-            out = BatchStream.of(batches)
+        with trace_span(name, "node", args) as sp:
+            out = m(node, scalars)
+            rows, nbytes, dev_bytes = -1, -1, -1
+            if rec.measure_rows and isinstance(out, BatchStream):
+                # materialize here, so the wall includes this node's work
+                batches = out.materialize()
+                rows, nbytes, dev_bytes = 0, 0, 0
+                for b in batches:
+                    lc = live_count(b)
+                    rows += lc
+                    nbytes += lc * batch_row_bytes(b)
+                    dev_bytes += batch_device_bytes(b)
+                out = BatchStream.of(batches)
         wall = time.perf_counter() - t0  # inclusive of children
+        if sp is not None and rows >= 0:
+            sp.args["rows"] = rows
         rec.record(node, wall, rows, output_bytes=nbytes, device_bytes=dev_bytes)
         return out
+
+    def _nid(self, node) -> int:
+        """Stable per-query plan-node id (``runtime/stats.NodeIds``)."""
+        if self.recorder is not None:
+            return self.recorder.node_id(node)
+        if self._trace_ids is None:
+            self._trace_ids = NodeIds()
+        return self._trace_ids.of(node)
 
     # ---- leaves ----------------------------------------------------------
     def _exec_tablescan(self, node: N.TableScan, scalars) -> BatchStream:
@@ -318,13 +347,22 @@ class LocalExecutor:
         fslots = self._scan_filters.get(id(node), ())
 
         def load(split):
+            fault_point("scan")
             b = conn.scan(split, src_cols, cap).rename(rename)
-            return op.process(b)[0] if op is not None else b
+            if op is None or current_trace() is not None:
+                # on the consumer's thread: the predicate's span opens here
+                return (b if op is None else op.process(b)[0]), None
+            t0 = time.perf_counter()
+            return op.apply(b), (t0, time.perf_counter() - t0)
 
         def make():
-            # the filters apply as each batch is handed on, so each reads
-            # its slot's state at that moment
-            for b in prefetch_iter(load, splits):
+            # a predicate that ran on the prefetch worker (no recorder
+            # there) gets its step span here, where the JAX package opens
+            # it; the filters apply as each batch is handed on, so each
+            # reads its slot's state at that moment
+            for b, timed in prefetch_iter(load, splits):
+                if timed is not None:
+                    add_complete("step:filter_project", "step", *timed)
                 for slot in fslots:
                     b = self._apply_join_filter(slot, b)
                 yield b
@@ -356,12 +394,13 @@ class LocalExecutor:
             if route is not None:
                 routed = leaf_route.execute_leaf_route(route, self, node, scalars)
                 if routed is not None:
-                    COUNTERS["agg.strategy.fused"] += 1
+                    REGISTRY.counter("agg.strategy.fused").add()
                     return BatchStream.of(routed)
             elif reason is not None:
                 leaf_route.count_fallback(reason)
 
         child = self._exec(node.child, scalars)
+        fault_point("aggregation")
         keys = [(n, bind_scalars(e, scalars)) for n, e in node.keys]
         pax = [(n, bind_scalars(e, scalars)) for n, e in node.passengers]
         # stats-derived |value| bounds; a violated bound trips
@@ -370,7 +409,7 @@ class LocalExecutor:
                         a.name, a.dtype, value_bits=b)
                 for a, b in zip(node.aggs, agg_value_bits(node, self.catalog))]
         if not keys and not pax:
-            COUNTERS["agg.strategy.single"] += 1
+            REGISTRY.counter("agg.strategy.single").add()
             op = GlobalAggregationOperator(aggs, device=self.device)
             return BatchStream.of(Pipeline(child, [op]).run())
         strategy = self._pick_group_strategy(keys, pax, node)
@@ -379,14 +418,15 @@ class LocalExecutor:
             # group cardinality ~ input cardinality: per-batch partial
             # folds reduce nothing, so aggregate the concatenated rows in
             # ONE pass with the group capacity sized by the true row count
-            COUNTERS["agg.strategy.bypass"] += 1
+            REGISTRY.counter("agg.strategy.bypass").add()
             batches = child.materialize()
             rows = sum(live_count(b) for b in batches)
             if batches:
                 child = BatchStream.of([concat_batches(batches)])
             strategy = SortStrategy(min(batch_capacity(max(rows, 16)), MAX_GROUP_CAP))
         else:
-            COUNTERS["agg.strategy.partial"] += 1
+            REGISTRY.counter("agg.strategy.partial").add()
+        fault_point("step.agg")
         for _attempt in range(MAX_RETRIES):
             op = HashAggregationOperator(keys, aggs, strategy, passengers=pax,
                                          device=self.device)
@@ -506,28 +546,33 @@ class LocalExecutor:
         col = b[slot.col]
         if col.data.dim() != 1:
             return b
-        k = col.data.to(torch.int64)
-        keep = (k >= bounds[0]) & (k <= bounds[1]) & valid_of(col.valid, b.live)
-        if slot.bloom is not None:
-            keep = keep & bloom_test(slot.bloom, col.data)
-        live = b.live & keep
-        n_in = b.live.sum()
-        pruned = (b.live & ~live).sum()
+        with trace_span("join_filter", "join", {"column": slot.col}):
+            k = col.data.to(torch.int64)
+            keep = (k >= bounds[0]) & (k <= bounds[1]) & valid_of(col.valid, b.live)
+            if slot.bloom is not None:
+                keep = keep & bloom_test(slot.bloom, col.data)
+            live = b.live & keep
+            n_in = b.live.sum()
+            pruned = (b.live & ~live).sum()
         slot.stat_in = n_in if slot.stat_in is None else slot.stat_in + n_in
         slot.stat_pruned = pruned if slot.stat_pruned is None else slot.stat_pruned + pruned
         return b.with_live(live)
 
     def _flush_filter_stats(self):
         """The once-per-query readback of the filters' pruning counts
-        into ``join.filter_rows_in`` / ``join.filter_rows_pruned``; the
-        accumulators restart."""
+        into ``join.filter_rows_in`` / ``join.filter_rows_pruned`` and a
+        ``join.filter_selectivity`` observation per slot that saw rows;
+        the accumulators restart."""
         for slots in self._scan_filters.values():
             for slot in slots:
                 if slot.stat_in is None:
                     continue
-                COUNTERS["join.filter_rows_in"] += int(slot.stat_in)
-                COUNTERS["join.filter_rows_pruned"] += int(slot.stat_pruned)
+                n_in, pruned = int(slot.stat_in), int(slot.stat_pruned)
                 slot.stat_in = slot.stat_pruned = None
+                REGISTRY.counter("join.filter_rows_in").add(n_in)
+                REGISTRY.counter("join.filter_rows_pruned").add(pruned)
+                if n_in:
+                    REGISTRY.histogram("join.filter_selectivity").add(1.0 - pruned / n_in)
 
     def _join_keys(self, node, left: BatchStream, right, scalars):
         """(probe key, build key, verify pairs): one integer key per
@@ -567,6 +612,7 @@ class LocalExecutor:
         # the build side is materialized (the lookup source concatenates
         # it); the probe side streams batch by batch
         right = self._exec(node.right, scalars).materialize()
+        fault_point("step.join_build")
         lkey, rkey, verify = self._join_keys(node, left, right, scalars)
         if verify and not node.unique and node.kind != "inner":
             raise NotSupported("wide string keys on non-unique OUTER joins (verification "
@@ -679,6 +725,7 @@ class LocalExecutor:
         left = self._exec(node.left, scalars)
         right = self._exec(node.right, scalars).materialize()
         jt = "anti" if node.negated else "semi"
+        fault_point("step.join_build")
         lkey, rkey, verify = self._join_keys(node, left, right, scalars)
         if verify:
             # an existence probe has no build row to verify against; a

@@ -46,6 +46,7 @@ from presto_tpu_torch.ops.window import (
     windowed_agg,
 )
 from presto_tpu_torch.runtime.errors import InternalError, NotSupported, ResourceExhausted
+from presto_tpu_torch.runtime.trace import span as trace_span
 from presto_tpu_torch.types import DataType, TypeKind
 
 
@@ -97,11 +98,19 @@ class FilterProjectOperator(Operator):
         self._literal_dicts: dict[str, Dictionary] = {}
 
     def process(self, batch: Batch) -> list[Batch]:
+        # FilterProject usually runs via stream.map closures (never inside
+        # a Pipeline), so its step span lives here
+        with trace_span("step:filter_project", "step"):
+            return [self.apply(batch)]
+
+    def apply(self, batch: Batch) -> Batch:
+        """The step without its span (a scan's predicate on the prefetch
+        worker, whose span the consumer records)."""
         live = batch.live
         if self.predicate is not None:
             live = live & evaluate_predicate(self.predicate, batch)
         if self.projections is None:
-            return [batch.with_live(live)]
+            return batch.with_live(live)
         src = batch.with_live(live)
         cols = {}
         for name, e in self.projections.items():
@@ -117,7 +126,7 @@ class FilterProjectOperator(Operator):
                                     torch.ones(cap, dtype=torch.bool, device=dev), e.dtype, d)
                 continue
             cols[name] = Column(v.data, v.valid, v.dtype, v.dictionary)
-        return [Batch(cols, live)]
+        return Batch(cols, live)
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,11 @@ pipeline-breaking operators (aggregations) buffer device-side and emit
 on ``finish()``. CUDA launches are asynchronous, so the loop runs ahead
 of the device while the next split is generated on a worker thread.
 
-The JAX package's deadline, trace and fault hooks are not ported yet.
+Hooks: each scan load passes ``fault_point("scan")``, and the push loop
+records the JAX package's spans (``driver:push`` around the source
+loop, ``step:<Operator>`` per pushed batch, ``finish:<Operator>`` per
+finish). The deadline checks of the JAX package's loop come with the
+query lifecycle, which is not ported yet.
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ from typing import Callable, Iterable, Iterator, Sequence
 
 from presto_tpu_torch.batch import Batch
 from presto_tpu_torch.exec.operators import Operator
+from presto_tpu_torch.runtime import metrics, trace
+from presto_tpu_torch.runtime.faults import fault_point
 from presto_tpu_torch.spi import Connector, Split, batch_capacity
 
 
@@ -53,6 +59,7 @@ class ScanSource:
 
     def __iter__(self) -> Iterator[Batch]:
         def load(split):
+            fault_point("scan")
             return self.connector.scan(split, self.columns, self.capacity)
 
         return prefetch_iter(load, self.splits)
@@ -73,7 +80,10 @@ def prefetch_iter(load, items):
     on a worker thread while the consumer holds item k. Exactly one item
     is in flight (bounded host memory). Each load runs in a copy of the
     consumer's context, so it sees the plan template's parameter scope
-    (``expr.param_scope``)."""
+    (``expr.param_scope``), but with the trace recorder and the metric
+    delta cleared, as the JAX package's worker sees neither: a span
+    opened there would race the query thread's span stack, and its adds would
+    land in the query's delta."""
     if len(items) <= 1 or not prefetch_enabled():
         for it in items:
             yield load(it)
@@ -82,7 +92,7 @@ def prefetch_iter(load, items):
     from concurrent.futures import ThreadPoolExecutor
 
     def submit(ex, item):
-        return ex.submit(contextvars.copy_context().run, load, item)
+        return ex.submit(contextvars.copy_context().run, _detached, load, item)
 
     with ThreadPoolExecutor(max_workers=1) as ex:
         fut = submit(ex, items[0])
@@ -91,6 +101,14 @@ def prefetch_iter(load, items):
             fut = submit(ex, nxt)
             yield out
         yield fut.result()
+
+
+def _detached(load, item):
+    """``load(item)`` with no trace recorder and no metric delta (run
+    inside a copied context, so the consumer's stay installed)."""
+    trace.install(None)
+    metrics.install_delta(None)
+    return load(item)
 
 
 class BatchStream:
@@ -141,17 +159,20 @@ class Pipeline:
             st = self.stats[i]
             st.input_batches += 1
             t0 = time.perf_counter()
-            produced = self.operators[i].process(batch)
+            with trace.span(f"step:{st.name}", "step"):
+                produced = self.operators[i].process(batch)
             st.wall_s += time.perf_counter() - t0
             for b in produced:
                 st.output_batches += 1
                 push(i + 1, b)
 
-        for batch in self.source:
-            push(0, batch)
+        with trace.span("driver:push", "driver"):
+            for batch in self.source:
+                push(0, batch)
         for i, op in enumerate(self.operators):
             t0 = time.perf_counter()
-            tail = op.finish()
+            with trace.span(f"finish:{self.stats[i].name}", "step"):
+                tail = op.finish()
             self.stats[i].wall_s += time.perf_counter() - t0
             for b in tail:
                 self.stats[i].output_batches += 1

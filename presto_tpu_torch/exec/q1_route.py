@@ -29,7 +29,8 @@ from presto_tpu_torch.batch import Batch, Column
 from presto_tpu_torch.exec.pipeline import prefetch_iter
 from presto_tpu_torch.expr import Call, InputRef, Literal
 from presto_tpu_torch.plan import nodes as N
-from presto_tpu_torch.runtime.metrics import COUNTERS
+from presto_tpu_torch.runtime.faults import fault_point
+from presto_tpu_torch.runtime.metrics import REGISTRY
 from presto_tpu_torch.spi import batch_capacity, stats_physical_interval
 from presto_tpu_torch.types import TypeKind
 
@@ -264,6 +265,8 @@ def execute_q1_route(route: Q1Route, catalog, aggs) -> Optional[list[Batch]]:
     from presto_tpu_torch.ops.cuda_agg import null_violation
     from presto_tpu_torch.workloads import combine_q1_states, q1_fused_step
 
+    fault_point("aggregation")
+    fault_point("step.agg")
     scan = route.scan
     conn = catalog.connector(scan.connector)
     src_cols = list(route.rename)
@@ -271,16 +274,21 @@ def execute_q1_route(route: Q1Route, catalog, aggs) -> Optional[list[Batch]]:
     if not splits:
         return None
     cap = batch_capacity(max(s.row_hint for s in splits))
+
+    def load(split):
+        fault_point("scan")
+        return conn.scan(split, src_cols, cap).rename(route.rename)
+
     state = None
-    for b in prefetch_iter(lambda s: conn.scan(s, src_cols, cap).rename(route.rename), splits):
+    for b in prefetch_iter(load, splits):
         nulls = null_violation(b)
         s = q1_fused_step(b)
         s["value_overflow"] = s["value_overflow"] | nulls
         state = s if state is None else combine_q1_states(state, s)
     if state is None or bool(state["value_overflow"]):
-        COUNTERS["exec.q1_route_fallback"] += 1
+        REGISTRY.counter("exec.q1_route_fallback").add()
         return None
-    COUNTERS["exec.q1_fused_route"] += 1
+    REGISTRY.counter("exec.q1_fused_route").add()
     return [decode_q1_state(route, conn, aggs, state)]
 
 

@@ -32,7 +32,7 @@ import torch
 from presto_tpu_torch.expr import Call, Expr, Literal, Param
 from presto_tpu_torch.plan import nodes as N
 from presto_tpu_torch.runtime.errors import UserError
-from presto_tpu_torch.runtime.metrics import COUNTERS
+from presto_tpu_torch.runtime.metrics import REGISTRY
 from presto_tpu_torch.types import DataType, TypeKind
 
 #: literal kinds a device scalar can carry
@@ -124,8 +124,8 @@ def logical_values(bound: Sequence[tuple]) -> tuple:
 def _count(reason: str, n: int = 1) -> None:
     if n <= 0:
         return
-    COUNTERS["prepare.slot_ineligible"] += n
-    COUNTERS[f"prepare.slot_ineligible.{reason}"] += n
+    REGISTRY.counter("prepare.slot_ineligible").add(n)
+    REGISTRY.counter(f"prepare.slot_ineligible.{reason}").add(n)
 
 
 class _Parameterizer:
@@ -255,5 +255,5 @@ def parameterize_plan(plan: N.PlanNode, catalog, start_slot: int = 0):
     p = _Parameterizer(catalog, start_slot)
     out = p.node(plan)
     if p.slots:
-        COUNTERS["prepare.slots_bound"] += len(p.slots)
+        REGISTRY.counter("prepare.slots_bound").add(len(p.slots))
     return out, tuple(p.slots)

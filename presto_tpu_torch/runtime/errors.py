@@ -54,10 +54,20 @@ class NotSupported(PrestoError, NotImplementedError):
     retryable = False
 
 
+class TransientFailure(PrestoError, RuntimeError):
+    """A plausibly-transient fault: an injected fault, a lost device,
+    a flaky interconnect step. Retryable: the query-level retry loop
+    (``query_retries``) re-runs the query from the top."""
+
+    error_code = "TRANSIENT_FAILURE"
+    retryable = True
+
 
 def is_retryable(exc: BaseException) -> bool:
     """Retry class of any exception: taxonomy errors carry their own
-    flag; foreign exceptions are non-retryable."""
+    flag; foreign exceptions are conservatively non-retryable (the
+    query-level ``query_retries`` still re-runs them: that knob
+    predates the taxonomy and deliberately retries everything)."""
     return bool(getattr(exc, "retryable", False))
 
 

@@ -8,7 +8,7 @@ types and defaults. Unknown names are errors.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Callable, Optional
 
 from presto_tpu_torch.runtime.errors import UserError
 
@@ -19,12 +19,22 @@ class PropertyDef:
     py_type: type
     default: Any
     description: str
+    #: extra constraint beyond the type (returns a problem string or None)
+    check: Optional[Callable[[Any], Optional[str]]] = None
 
     def coerce(self, value):
         """Coerce a user-supplied value (possibly a SQL literal string)
-        to the property's type."""
+        to the property's type, then apply ``check``."""
         if value is None:
             return None
+        v = self._typed(value)
+        if self.check is not None:
+            problem = self.check(v)
+            if problem:
+                raise UserError(f"session property {self.name}: {problem}")
+        return v
+
+    def _typed(self, value):
         if self.py_type is bool and isinstance(value, str):
             s = value.strip().lower()
             if s in ("true", "1", "on", "yes"):
@@ -38,6 +48,14 @@ class PropertyDef:
                 pass
         raise UserError(f"session property {self.name}: cannot interpret "
                         f"{value!r} as a {self.py_type.__name__}")
+
+
+def _positive(v):
+    return None if v > 0 else f"must be positive, got {v}"
+
+
+def _non_negative(v):
+    return None if v >= 0 else f"must be >= 0, got {v}"
 
 
 SESSION_PROPERTIES: dict[str, PropertyDef] = {
@@ -89,6 +107,37 @@ SESSION_PROPERTIES: dict[str, PropertyDef] = {
             "collect_node_stats", bool, False,
             "Record per-plan-node wall time and output rows on every "
             "query (the EXPLAIN ANALYZE recorder, always on)."),
+        PropertyDef(
+            "query_retries", int, 0,
+            "Transparent query-level retries on execution failure: the "
+            "engine's whole failure-recovery posture (there is no "
+            "mid-query recovery; a failed attempt is re-run from the "
+            "top, counted under query.retried).",
+            _non_negative),
+        PropertyDef(
+            "trace_enabled", bool, True,
+            "Record a structured span trace (query -> plan node -> "
+            "operator step, plus driver and join-filter spans) for every "
+            "query. Traces are retained in a per-session ring, exportable "
+            "as Chrome trace JSON via Session.export_trace(path)."),
+        PropertyDef(
+            "trace_max_spans", int, 8192,
+            "Span cap per traced query; spans beyond it are dropped "
+            "(counted in the trace.spans_dropped metric), never an "
+            "error.",
+            _positive),
+        PropertyDef(
+            "query_history_limit", int, 256,
+            "Entries retained in the session's query-history ring "
+            "(Session.history, fed by the built-in query_completed "
+            "listener).",
+            _positive),
+        PropertyDef(
+            "profile_annotations", bool, False,
+            "Wrap every trace span in a torch.profiler.record_function "
+            "named '<span>#<trace_token>', so a torch profiler trace "
+            "of the card shows each span as a user annotation over the "
+            "kernels it launched."),
     ]
 }
 

@@ -16,11 +16,22 @@ render the statement's plan template (``plan/templates.py``): literals as
 (``runtime/stats.py``). Queries run on ``device`` ("cuda" unless the
 caller asks for the CPU).
 
+Observability, as in the JAX package: every tracked query is traced
+when ``trace_enabled`` (the default) into ``traces`` (``export_trace``
+writes Chrome trace JSON), its metric moves are attributed to its
+``QueryInfo`` (``metrics``, ``join_strategy``, ``filter_selectivity``;
+moves after the run under ``post_run.``), and ``query_created`` /
+``query_failed`` / ``query_completed`` go to the event listeners, the
+history ring (``history``) among them. ``query_retries`` re-runs a
+failed query from the top. ``export_metrics`` renders the process
+registry as OpenMetrics text.
+
 Not ported: the system catalog, the result, executable and plan-stats
-caches, plan-stats history and adaptivity, tracing, event listeners,
-lifecycle control (admission, deadlines, retries, cancellation), the
-coalescer and batcher, and the distributed executor. So ``QueryInfo``'s
-``cache_hit``, ``template_hit``, ``coalesced`` and ``batched`` stay False.
+caches, plan-stats history and adaptivity, the query lifecycle
+(admission, deadlines, fragment retries, cancellation, the flight
+recorder), the coalescer and batcher, and the distributed executor. So
+``QueryInfo``'s ``cache_hit``, ``template_hit``, ``coalesced`` and
+``batched`` stay False.
 """
 
 from __future__ import annotations
@@ -41,9 +52,19 @@ from presto_tpu_torch.plan.catalog import Catalog
 from presto_tpu_torch.plan.nodes import PlanNode, plan_tree_str
 from presto_tpu_torch.plan.prune import prune
 from presto_tpu_torch.plan.templates import PreparedStatement, device_params, parameterize_plan
+from presto_tpu_torch.runtime import trace
 from presto_tpu_torch.runtime.errors import UserError, error_code, is_retryable
+from presto_tpu_torch.runtime.events import EventDispatcher, QueryHistoryBuffer
+from presto_tpu_torch.runtime.metrics import (
+    REGISTRY,
+    QueryMetricsDelta,
+    install_delta,
+    to_openmetrics,
+    uninstall_delta,
+)
 from presto_tpu_torch.runtime.properties import effective, validate_properties
 from presto_tpu_torch.runtime.stats import QueryInfo, StatsRecorder, render_analyzed_plan
+from presto_tpu_torch.runtime.trace import TraceRecorder, TraceStore, export_chrome_trace
 from presto_tpu_torch.sql import ast as A
 from presto_tpu_torch.sql.analyzer import Analyzer
 from presto_tpu_torch.sql.parser import parse
@@ -53,6 +74,10 @@ _query_seq = itertools.count(1)
 
 _DDL = (A.CreateTableAs, A.InsertInto, A.DropTable)
 _PREPARED = (A.Prepare, A.ExecuteStmt, A.Deallocate)
+
+
+def _no_recorder():
+    return None
 
 
 def _ast_literal_value(node):
@@ -82,7 +107,10 @@ def _one_row(name: str, value) -> QueryResult:
 
 
 class Session:
-    def __init__(self, connectors: Mapping[str, object], properties=None, device="cuda"):
+    def __init__(self, connectors: Mapping[str, object], properties=None, device="cuda",
+                 trace_token: Optional[str] = None):
+        """``trace_token`` tags every query's trace (and, under
+        ``profile_annotations``, each span's profiler annotation)."""
         self.device = resolve_device(device)
         conns = dict(connectors)
         # the writable catalog: CREATE TABLE AS / INSERT INTO land here
@@ -90,8 +118,16 @@ class Session:
         self.catalog = Catalog(conns)
         self.analyzer = Analyzer(self.catalog)
         self.properties = validate_properties(dict(properties or {}))
+        self.trace_token = trace_token
+        self.events = EventDispatcher()
         #: every tracked query's QueryInfo, in order
         self.query_history: list[QueryInfo] = []
+        #: ring of recent completed QueryInfos (a built-in listener)
+        self.history = QueryHistoryBuffer(self.prop("query_history_limit"))
+        self.events.add(self.history)
+        #: ring of recent span traces (``export_trace``); populated when
+        #: ``trace_enabled``
+        self.traces = TraceStore()
         #: prepared statements (PREPARE name FROM ... / Session.prepare)
         self._prepared: dict[str, PreparedStatement] = {}
         # every memory-connector write (CTAS, INSERT, DROP) bumps the
@@ -112,6 +148,10 @@ class Session:
         narrow = self.prop("narrow_storage")
         if narrow is not None:
             os.environ["PRESTO_TPU_NARROW"] = "1" if narrow else "0"
+
+    def add_event_listener(self, listener):
+        """Register an event listener (``runtime/events.EventListener``)."""
+        self.events.add(listener)
 
     def executor(self) -> LocalExecutor:
         """A fresh executor configured from the session properties."""
@@ -194,8 +234,8 @@ class Session:
             return self._run_ddl(sql, stmt)
         want = bool(self.prop("collect_node_stats"))
         plan, bound = self._plan_binding(stmt, parameterize=not want)
-        res, _info = self._run_tracked(sql, plan, StatsRecorder() if want else None,
-                                       planning_s=time.perf_counter() - t0, bound=bound)
+        res, _info = self._run_with_retries(sql, plan, StatsRecorder if want else _no_recorder,
+                                            planning_s=time.perf_counter() - t0, bound=bound)
         return res
 
     def execute(self, sql, params=None):
@@ -207,54 +247,129 @@ class Session:
             return self.execute_prepared(sql, params or ())
         t0 = time.perf_counter()
         plan = self.plan(sql)
-        return self._run_tracked(sql, plan, StatsRecorder(),
-                                 planning_s=time.perf_counter() - t0)
+        return self._run_with_retries(sql, plan, StatsRecorder,
+                                      planning_s=time.perf_counter() - t0)
 
     def explain_analyze(self, sql: str) -> str:
         """Execute with a stats recorder and render the plan annotated
-        with each node's actuals."""
+        with each node's actuals, plus the exchange and cache span
+        roll-ups of the query's trace."""
         recorder = StatsRecorder()
         t0 = time.perf_counter()
         plan = self.plan(sql)
-        self._run_tracked(sql, plan, recorder, planning_s=time.perf_counter() - t0)
-        return render_analyzed_plan(plan, recorder)
+        _res, info = self._run_tracked(sql, plan, recorder,
+                                       planning_s=time.perf_counter() - t0)
+        return render_analyzed_plan(plan, recorder,
+                                    tracer=self.traces.for_query(info.query_id))
+
+    def _run_with_retries(self, sql: str, plan: PlanNode, make_recorder,
+                          planning_s: float = 0.0, bound=()):
+        """No mid-query recovery: a failed attempt fails the query, and
+        recovery is re-running it from the top (``query_retries``). Each
+        attempt is tracked as its own query with a fresh recorder, so a
+        failed attempt's stats never leak into the retry's QueryInfo."""
+        retries = self.prop("query_retries")
+        for attempt in range(retries + 1):
+            try:
+                return self._run_tracked(sql, plan, make_recorder(),
+                                         planning_s=planning_s, bound=bound)
+            except Exception:
+                if attempt == retries:
+                    raise
+                REGISTRY.counter("query.retried").add()
 
     def _run_tracked(self, sql: str, plan: PlanNode, recorder, planning_s: float = 0.0,
                      bound=()):
-        """Run one plan and track it as a ``QueryInfo``: with a recorder,
-        snapshot the estimates, record each node, then ``finalize``.
+        """Track one execution attempt as a ``QueryInfo``: its span trace
+        (when ``trace_enabled``), its events and its metric attribution.
         ``bound`` is the plan template's (dtype, value) binding."""
         info = QueryInfo(query_id=f"q_{next(_query_seq)}_{uuid.uuid4().hex[:8]}",
                          sql=sql, state="QUEUED", created_at=time.time(),
-                         created_mono=time.monotonic(), planning_s=planning_s)
+                         created_mono=time.monotonic(), planning_s=planning_s,
+                         trace_token=self.trace_token)
+        tracer = token = None
+        if self.prop("trace_enabled"):
+            tracer = TraceRecorder(info.query_id, info.trace_token,
+                                   max_spans=self.prop("trace_max_spans"),
+                                   annotate=bool(self.prop("profile_annotations")))
+            token = trace.install(tracer)
+        try:
+            with trace.span("query", "query", {"query_id": info.query_id}):
+                return self._run_tracked_inner(plan, recorder, info, bound)
+        finally:
+            if tracer is not None:
+                trace.uninstall(token)
+                self.traces.add(tracer)
+
+    def _run_tracked_inner(self, plan: PlanNode, recorder, info: QueryInfo, bound):
         self.query_history.append(info)
+        REGISTRY.counter("query.started").add()
+        self.events.query_created(info)
         info.state = "RUNNING"
         info.started_at = time.time()
         info.started_mono = time.monotonic()
         if recorder is not None:
             recorder.attach_plan(plan)
-            recorder.attach_estimates(plan, self.catalog, approx_join=self.prop("approx_join"))
+            with trace.span("plan_estimates", "stats"):
+                recorder.attach_estimates(plan, self.catalog,
+                                          approx_join=self.prop("approx_join"))
         executor = self.executor()
         executor.recorder = recorder
         executor.params = device_params(bound, self.device) if bound else ()
+        # moves after the run (query.completed / query.failed, the
+        # completion events) land in an explicit ``post_run.`` bucket
+        post = QueryMetricsDelta()
         try:
-            res = executor.run(plan)
-            info.state = "FINISHED"
-            info.output_rows = len(res)
-            info.approximate = res.approximate
+            res = self._run_plan(executor, plan, info)
+            token = install_delta(post)
+            try:
+                info.state = "FINISHED"
+                info.output_rows = len(res)
+                info.approximate = res.approximate
+                REGISTRY.counter("query.completed").add()
+            finally:
+                uninstall_delta(token)
         except Exception as e:
             info.state = "FAILED"
             info.error = f"{type(e).__name__}: {e}"
             info.error_code = error_code(e)
             info.retryable = is_retryable(e)
+            token = install_delta(post)
+            try:
+                REGISTRY.counter("query.failed").add()
+                self.events.query_failed(info)
+            finally:
+                uninstall_delta(token)
             raise
         finally:
             info.finished_at = time.time()
             info.finished_mono = time.monotonic()
-            if recorder is not None:
-                recorder.finalize(plan)
-                info.node_stats = [s.to_dict() for s in recorder.nodes.values()]
+            token = install_delta(post)
+            try:
+                if recorder is not None:
+                    recorder.finalize(plan)
+                    info.node_stats = [s.to_dict() for s in recorder.nodes.values()]
+                self.events.query_completed(info)
+            finally:
+                uninstall_delta(token)
+            for k, v in post.snapshot().items():
+                if v:
+                    info.metrics["post_run." + k] = v
         return res, info
+
+    @staticmethod
+    def _run_plan(executor: LocalExecutor, plan: PlanNode, info: QueryInfo):
+        """Run the plan with a ``QueryMetricsDelta`` installed, then fold
+        it into ``info``. The JAX package installs the delta in its query
+        lifecycle's ``run_plan`` (around admission and execution); until
+        that lifecycle is ported, it is installed here."""
+        delta = QueryMetricsDelta()
+        token = install_delta(delta)
+        try:
+            return executor.run(plan)
+        finally:
+            uninstall_delta(token)
+            info.attribute_metrics(delta.snapshot())
 
     # ---- prepared statements -----------------------------------------------
     def _prepare_ast(self, name: str, sql: str, stmt) -> PreparedStatement:
@@ -285,8 +400,8 @@ class Session:
                 raise UserError(f"prepared statement not found: {handle}")
             handle = h
         bound = handle.bind(list(params))
-        return self._run_tracked(handle.sql, handle.plan, None, planning_s=planning_s,
-                                 bound=bound)
+        return self._run_with_retries(handle.sql, handle.plan, _no_recorder,
+                                      planning_s=planning_s, bound=bound)
 
     # ---- DDL ----------------------------------------------------------------
     def _owning_catalog(self, table: str):
@@ -325,8 +440,8 @@ class Session:
                                 "is read-only")
         t0 = time.perf_counter()
         plan, bound = self._plan_binding(stmt.query)
-        res, _info = self._run_tracked(sql, plan, None, planning_s=time.perf_counter() - t0,
-                                       bound=bound)
+        res, _info = self._run_with_retries(sql, plan, _no_recorder,
+                                            planning_s=time.perf_counter() - t0, bound=bound)
         if isinstance(stmt, A.CreateTableAs):
             rows = mem.create_table(stmt.name, res)
         else:
@@ -334,3 +449,33 @@ class Session:
         if not self._mem_ddl_hooked:
             self.catalog.invalidate(stmt.name)
         return _one_row("rows", rows)
+
+    # ---- observability exports ---------------------------------------------
+    def export_metrics(self, path: Optional[str] = None) -> str:
+        """The process metrics registry as OpenMetrics/Prometheus text
+        (``runtime.metrics.to_openmetrics``). Returns the text; with
+        ``path``, also writes it there. The JAX package adds gauges of
+        its memory pool, executable cache and flight recorder, which the
+        port does not have."""
+        text = to_openmetrics()
+        if path is not None:
+            with open(path, "w") as f:
+                f.write(text)
+        return text
+
+    def export_trace(self, path: str, query_id: Optional[str] = None) -> str:
+        """Write retained span traces as Chrome ``trace_event`` JSON (load
+        in Perfetto / chrome://tracing). ``query_id`` narrows the export
+        to one query; the default exports every retained trace, one pid
+        per query. Returns ``path``."""
+        if query_id is None:
+            recorders = self.traces.recorders()
+        else:
+            rec = self.traces.for_query(query_id)
+            if rec is None:
+                raise UserError(f"no retained trace for query {query_id!r} "
+                                "(trace_enabled off, or evicted)")
+            recorders = [rec]
+        if not recorders:
+            raise UserError("no traces retained (is trace_enabled set to false?)")
+        return export_chrome_trace(path, recorders)

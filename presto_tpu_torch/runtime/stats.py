@@ -11,9 +11,10 @@ Node identity: stats key on stable per-query plan-node ids assigned by
 never be reused while the map lives.
 
 Not ported: the exchange-skew, spill and route-fallback records (the
-distributed, spill and OOM-ladder tiers that write them are not ported)
-and the span roll-ups' producers (``render_analyzed_plan`` still renders
-a tracer's ``exchange`` and ``cache`` spans when it is given one).
+distributed, spill and OOM-ladder tiers that write them are not ported).
+``render_analyzed_plan`` renders a tracer's ``exchange`` and ``cache``
+span roll-ups; the port records neither kind yet (no exchanges, no
+caches), so its EXPLAIN ANALYZE has no roll-up lines.
 """
 
 from __future__ import annotations
@@ -344,13 +345,36 @@ class QueryInfo:
     approximate: bool = False
     output_rows: int = -1
     node_stats: list = field(default_factory=list)  # list[NodeStats.to_dict()]
+    #: per-query metric deltas (runtime/metrics.QueryMetricsDelta
+    #: snapshot of the run): every counter, timer and histogram the query
+    #: moved, attributed to THIS query even under concurrency; moves after
+    #: the run (``query.completed``, ``query.failed``) under ``post_run.``
     metrics: dict = field(default_factory=dict)
+    #: strategies of the joins this run executed (comma-joined
+    #: ``join.strategy.*`` delta names, e.g. "dense,pallas"; "")
     join_strategy: str = ""
+    #: mean runtime-join-filter selectivity observed (fraction of probe
+    #: scan rows KEPT; -1.0 when no filter fired)
     filter_selectivity: float = -1.0
     oom_rung: int = 0
     device_peak_bytes: int = 0
     subscription_id: str = ""
     batch_size: int = 0
+
+    def attribute_metrics(self, deltas: dict) -> None:
+        """Fold a per-query metric-delta snapshot into this record: the
+        raw deltas land in ``metrics`` (zero-valued entries dropped), and
+        the derived columns (executed join strategies, mean filter
+        selectivity, final OOM rung) are computed here, so every consumer
+        reads one attribution."""
+        self.metrics = {k: v for k, v in deltas.items() if v}
+        prefix = "join.strategy."
+        self.join_strategy = ",".join(sorted(
+            k[len(prefix):] for k, v in deltas.items() if k.startswith(prefix) and v > 0))
+        n = deltas.get("join.filter_selectivity.count", 0.0)
+        self.filter_selectivity = (deltas.get("join.filter_selectivity.total", 0.0) / n
+                                   if n else -1.0)
+        self.oom_rung = int(deltas.get("query.oom_degraded", 0))
 
     @property
     def queued_s(self) -> float:

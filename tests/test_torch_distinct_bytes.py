@@ -48,11 +48,10 @@ from presto_tpu_torch.connectors.tpch import TpchConnector as PConnector
 from presto_tpu_torch.exec.leaf_route import agg_strategy_for as p_agg_strategy
 from presto_tpu_torch.exec.local_planner import planned_join_strategy as p_join_strategy
 from presto_tpu_torch.plan.bounds import agg_value_bits as p_value_bits
-from presto_tpu_torch.runtime.metrics import COUNTERS
 from presto_tpu_torch.runtime.session import Session as PSession
 from presto_tpu_torch.sql.analyzer import AnalysisError as PAnalysisError
 from test_torch_sql import plan_shape
-from torch_bridge import assert_same, port_batch
+from torch_bridge import assert_same, counters, mark_counters, port_batch
 
 WIDTHS = [1, 6, 7, 8, 13, 14, 15, 16, 40]
 
@@ -240,9 +239,9 @@ def jax_run(conn, sql):
 
 
 def port_run(conn, sql):
-    COUNTERS.clear()
+    mark_counters()
     res = PSession({"tpch": conn}, device="cpu").sql(sql)
-    return res, {k: v for k, v in COUNTERS.items() if k.startswith(ROUTES) and v}
+    return res, {k: v for k, v in counters().items() if k.startswith(ROUTES) and v}
 
 
 @pytest.mark.parametrize("name", list(STATEMENTS))

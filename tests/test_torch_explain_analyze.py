@@ -31,7 +31,6 @@ from presto_tpu.runtime.metrics import REGISTRY
 from presto_tpu.runtime.session import Session as JSession
 from presto_tpu_torch.connectors.ssb import SsbConnector as PSsb
 from presto_tpu_torch.connectors.tpch import TpchConnector as PConnector
-from presto_tpu_torch.runtime.metrics import COUNTERS
 from presto_tpu_torch.runtime.session import Session as PSession
 from presto_tpu_torch.runtime.stats import (
     MISEST_FACTOR,
@@ -39,7 +38,7 @@ from presto_tpu_torch.runtime.stats import (
     StatsRecorder,
     misestimate_ratio,
 )
-from torch_bridge import ROUTES, port_frame
+from torch_bridge import ROUTES, counters, mark_counters, port_frame
 
 SF = 0.01
 
@@ -129,11 +128,11 @@ def test_collect_node_stats_property_routes_alike(conns):
     after = REGISTRY.snapshot()
     want_routes = {k: int(after[k] - before.get(k, 0)) for k in after
                    if k.startswith(ROUTES) and after[k] != before.get(k, 0)}
-    COUNTERS.clear()
+    mark_counters()
     got = port_frame(ps.sql(QUERIES["q6"]))
     pd.testing.assert_frame_equal(got, want)
-    assert {k: v for k, v in COUNTERS.items() if k.startswith(ROUTES) and v} == want_routes
-    assert COUNTERS["agg.strategy.single"] == 1 and not COUNTERS["exec.leaf_fused_route"]
+    assert {k: v for k, v in counters().items() if k.startswith(ROUTES) and v} == want_routes
+    assert counters()["agg.strategy.single"] == 1 and not counters()["exec.leaf_fused_route"]
     assert ps.query_history[-1].node_stats
 
 

@@ -40,11 +40,11 @@ from presto_tpu_torch.exec.local_planner import planned_join_strategy as p_join_
 from presto_tpu_torch.exec.pipeline import BatchStream, Pipeline
 from presto_tpu_torch.expr import col as pcol
 from presto_tpu_torch.plan.bounds import agg_value_bits as p_value_bits
-from presto_tpu_torch.runtime.metrics import COUNTERS
+from presto_tpu_torch.runtime.metrics import REGISTRY as PREGISTRY
 from presto_tpu_torch.runtime.session import Session as PSession
 from presto_tpu_torch.types import BIGINT
 from test_torch_sql import plan_shape
-from torch_bridge import jax_run, port_batch, port_run, to_numpy
+from torch_bridge import counters, jax_run, mark_counters, port_batch, port_run, to_numpy
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
@@ -137,10 +137,10 @@ def test_full_outer_multi_probe_batches_accumulate_flags(unique):
 
 def test_full_join_counts_no_strategy():
     """A FULL probe counts no ``join.strategy.*``, as in the reference."""
-    COUNTERS.clear()
+    mark_counters()
     _run_full("p", True, [probe_batch()])
     _run_full("p", False, [probe_batch()])
-    assert not any(k.startswith("join.strategy.") for k in COUNTERS)
+    assert not any(k.startswith("join.strategy.") for k in counters())
 
 
 def test_tail_of_an_empty_probe_stream():
@@ -274,9 +274,9 @@ def test_phase13_statements_equal_reference(conns, name):
     after = REGISTRY.snapshot()
     want_routes = {k: int(after.get(k, 0) - snap.get(k, 0)) for k in after
                    if k.startswith(ROUTES) and after.get(k, 0) - snap.get(k, 0)}
-    COUNTERS.clear()
+    mark_counters()
     res = PSession({"tpch": conns[1]}, properties=props, device="cpu").sql(sql)
-    routes = {k: v for k, v in COUNTERS.items() if k.startswith(ROUTES) and v}
+    routes = {k: v for k, v in counters().items() if k.startswith(ROUTES) and v}
     pd.testing.assert_frame_equal(pd.DataFrame(res.to_dict()), want, check_exact=True)
     assert routes == want_routes
 
@@ -288,6 +288,7 @@ def test_phase13_statements_equal_reference(conns, name):
 PLAN_DIFFERS_AT_SF001 = {"q10"}
 
 
+@pytest.mark.resets_global_state
 @pytest.mark.parametrize("name", list(PHASE13))
 def test_phase13_oracles_equal_the_port(conns, name):
     """``chip_smoke``'s numpy oracle, planned strategy counters and
@@ -297,17 +298,19 @@ def test_phase13_oracles_equal_the_port(conns, name):
     predicted = chip_smoke.planned_routes(session, sql)
     want_filters = chip_smoke.expected_filter_counts(
         conns[1], name, chip_smoke.plan_filter_bits(session, sql))
-    COUNTERS.clear()
+    PREGISTRY.reset()  # a filter count of 0 is compared: count from an empty registry
+    mark_counters()
     res = session.sql(sql)
     chip_smoke.same_result(res, fn(conns[1]), name)
-    got = {k: v for k, v in COUNTERS.items()
+    got = {k: v for k, v in counters().items()
            if k.startswith(("join.strategy.", "agg.strategy.")) and v}
     if name not in PLAN_DIFFERS_AT_SF001:
         assert got == predicted
-    assert {k: v for k, v in COUNTERS.items() if k.startswith("join.filter_rows_")} \
+    assert {k: v for k, v in counters().items() if k.startswith("join.filter_rows_")} \
         == want_filters
 
 
+@pytest.mark.resets_global_state
 @pytest.mark.parametrize("name", chip_smoke.FILTER_COUNT_ONLY)
 def test_phase13_filter_counts_of_q9_and_q21(conns, name):
     from presto_tpu_torch.connectors.tpch.queries import QUERIES
@@ -315,9 +318,10 @@ def test_phase13_filter_counts_of_q9_and_q21(conns, name):
     session = PSession({"tpch": conns[1]}, device="cpu")
     want = chip_smoke.expected_filter_counts(
         conns[1], name, chip_smoke.plan_filter_bits(session, QUERIES[name]))
-    COUNTERS.clear()
+    PREGISTRY.reset()  # the pruned count, 0, is compared: count from an empty registry
+    mark_counters()
     session.sql(QUERIES[name])
-    got = {k: v for k, v in COUNTERS.items() if k.startswith("join.filter_rows_")}
+    got = {k: v for k, v in counters().items() if k.startswith("join.filter_rows_")}
     assert got == want and want["join.filter_rows_pruned"] == 0
 
 

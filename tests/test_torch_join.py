@@ -35,8 +35,7 @@ from presto_tpu_torch.expr import col as pcol
 from presto_tpu_torch.ops import cuda_join
 from presto_tpu_torch.ops import join as pjoin
 from presto_tpu_torch.runtime.errors import InternalError
-from presto_tpu_torch.runtime.metrics import COUNTERS
-from torch_bridge import assert_same, port_batch, port_type, to_numpy
+from torch_bridge import assert_same, counters, mark_counters, port_batch, port_type, to_numpy
 
 CAP = 4096  # a multiple of the Pallas probe block
 I32MAX = (1 << 31) - 1
@@ -317,14 +316,14 @@ def test_join_operators_match_reference(jt, with_payload, mode, dense):
                                                                   payload=outs))
     pbuild.process(port_batch(bb))
     pbuild.finish()
-    COUNTERS.clear()
+    mark_counters()
     pop = PJ.LookupJoinOperator(pbuild, pcol("pk", pt),
                                 [PJ.BuildOutput(o, o) for o in outs], jt)
     got = pop.process(port_batch(pb))[0]
     assert pop._strategy == jop._strategy
     assert pop._strategy == ("pallas" if mode else "dense" if dense else "unique")
-    assert COUNTERS[f"join.strategy.{pop._strategy}"] == 1
-    assert COUNTERS["exec.pallas_join_route"] == (1 if mode else 0)
+    assert counters()[f"join.strategy.{pop._strategy}"] == 1
+    assert counters()["exec.pallas_join_route"] == (1 if mode else 0)
     _assert_batches_equal(got, want)
 
 
@@ -344,13 +343,13 @@ def test_out_of_domain_build_falls_back(mode):
     want = jop.process(pb)[0]
 
     pt = port_type(key_type)
-    COUNTERS.clear()
+    mark_counters()
     pbuild = PJ.JoinBuildOperator(pcol("bk", pt),
                                   pallas=cuda_join.PallasJoinSpec(mode, -40, 300, payload=outs))
     pbuild.process(port_batch(bb))
     pbuild.finish()
     assert pbuild.pallas is None and jb.pallas is None
-    assert COUNTERS["join.pallas_fallback"] == 1
+    assert counters()["join.pallas_fallback"] == 1
     pop = PJ.LookupJoinOperator(pbuild, pcol("pk", pt), [PJ.BuildOutput(o, o) for o in outs])
     got = pop.process(port_batch(pb))[0]
     assert pop._strategy == jop._strategy == "unique"
@@ -372,10 +371,10 @@ def test_wide_key_storage_skips_the_fused_route():
                                   pallas=cuda_join.PallasJoinSpec("exists", -40, 399))
     pbuild.process(port_batch(bb))
     pbuild.finish()
-    COUNTERS.clear()
+    mark_counters()
     pop = PJ.LookupJoinOperator(pbuild, pcol("pk", port_type(JBIGINT)), ())
     got = pop.process(port_batch(pb))[0]
-    assert pop._strategy == "dense" and COUNTERS["join.pallas_fallback"] == 1
+    assert pop._strategy == "dense" and counters()["join.pallas_fallback"] == 1
     _assert_batches_equal(got, want)
     assert to_numpy(got.live).sum() > 0
 

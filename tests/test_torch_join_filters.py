@@ -39,10 +39,9 @@ from presto_tpu_torch.exec.joinkeys import declared_key_interval as p_declared
 from presto_tpu_torch.exec.local_planner import JoinFilterSlot, LocalExecutor
 from presto_tpu_torch.exec.pipeline import BatchStream, Pipeline
 from presto_tpu_torch.expr import col as pcol
-from presto_tpu_torch.runtime.metrics import COUNTERS
 from presto_tpu_torch.runtime.session import Session as PSession
 from presto_tpu_torch.types import BIGINT, INTEGER
-from torch_bridge import assert_same, port_batch, to_numpy
+from torch_bridge import assert_same, counters, mark_counters, port_batch, to_numpy
 
 JOIN_QUERIES = {
     "q3": QUERIES["q3"],
@@ -70,10 +69,10 @@ def _jax(conn, sql, **props):
 
 
 def _port(conn, sql, **props):
-    COUNTERS.clear()
+    mark_counters()
     res = PSession({"tpch": conn}, properties=props, device="cpu").sql(sql)
     return (pd.DataFrame(res.to_dict()),
-            {k: v for k, v in COUNTERS.items() if k.startswith(FILTERS) and v})
+            {k: v for k, v in counters().items() if k.startswith(FILTERS) and v})
 
 
 @pytest.mark.parametrize("qname", sorted(JOIN_QUERIES))
@@ -97,12 +96,12 @@ def test_sql_toggles_bit_identical(conns, qname):
 
 
 def test_q3_routes_pallas_and_prunes(conns):
-    COUNTERS.clear()
+    mark_counters()
     PSession({"tpch": conns[1]}, device="cpu").sql(QUERIES["q3"])
-    assert COUNTERS["exec.pallas_join_route"] > 0, "Q3 did not take the fused join route"
-    assert COUNTERS["join.filter_rows_pruned"] > 0, "Q3's runtime filter pruned nothing"
+    assert counters()["exec.pallas_join_route"] > 0, "Q3 did not take the fused join route"
+    assert counters()["join.filter_rows_pruned"] > 0, "Q3's runtime filter pruned nothing"
     _df, want = _jax(conns[0], QUERIES["q3"])
-    assert {k: COUNTERS[k] for k in want} == want
+    assert {k: counters()[k] for k in want} == want
 
 
 def test_explain_renders_strategy_and_filters(conns):

@@ -39,9 +39,8 @@ from presto_tpu_torch.connectors.tpch import TpchConnector as PTpch
 from presto_tpu_torch.exec import leaf_route as PLR
 from presto_tpu_torch.ops import cuda_agg, cuda_q1
 from presto_tpu_torch.plan import nodes as PN
-from presto_tpu_torch.runtime.metrics import COUNTERS
 from presto_tpu_torch.runtime.session import Session as PSession
-from torch_bridge import port_type
+from torch_bridge import counters, mark_counters, port_type
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
@@ -87,9 +86,9 @@ def jrun(session, sql):
 
 def prun(session, sql):
     """The port's result as a frame and its route counters."""
-    COUNTERS.clear()
+    mark_counters()
     res = session.sql(sql)
-    routes = {k: v for k, v in COUNTERS.items() if k.startswith(_ROUTE_PREFIXES) and v}
+    routes = {k: v for k, v in counters().items() if k.startswith(_ROUTE_PREFIXES) and v}
     return pd.DataFrame(res.to_dict()), routes
 
 

@@ -57,10 +57,10 @@ from presto_tpu_torch.ops import cuda_strings
 from presto_tpu_torch.plan import nodes as PN
 from presto_tpu_torch.plan.bounds import agg_value_bits as p_value_bits
 from presto_tpu_torch.runtime.errors import NotSupported
-from presto_tpu_torch.runtime.metrics import COUNTERS
 from presto_tpu_torch.runtime.session import Session as PSession
 from presto_tpu_torch.workloads import part_name_pipeline
 from test_torch_sql import ast_shape, plan_shape
+from torch_bridge import counters, mark_counters
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
@@ -94,12 +94,12 @@ def test_query_equals_jax_session(conns, q):
     want = JSession({key: conns[key][0]}, properties={"result_cache_enabled": False}).sql(sql)
     after = REGISTRY.snapshot()
     want_routes = routes({k: after.get(k, 0) - before.get(k, 0) for k in after})
-    COUNTERS.clear()
+    mark_counters()
     res = PSession({key: conns[key][1]}, device="cpu").sql(sql)
     got = pd.DataFrame(res.to_dict())
     assert len(want) > 0
     pd.testing.assert_frame_equal(got, want, check_exact=True)
-    assert routes(COUNTERS) == want_routes
+    assert routes(counters()) == want_routes
 
 
 @pytest.mark.parametrize("q", list(QUERY_SET))

@@ -30,9 +30,8 @@ from presto_tpu.runtime.metrics import REGISTRY
 from presto_tpu.runtime.session import Session as JSession
 from presto_tpu_torch.connectors.memory import MemoryConnector as PMemory
 from presto_tpu_torch.connectors.tpch import TpchConnector as PConnector
-from presto_tpu_torch.runtime.metrics import COUNTERS
 from presto_tpu_torch.runtime.session import Session as PSession
-from torch_bridge import ROUTES, port_frame, port_type
+from torch_bridge import ROUTES, counters, mark_counters, port_frame, port_type
 
 SF = 0.01
 
@@ -61,11 +60,11 @@ def both(sessions, sql: str, check_routes: bool = True):
     before = REGISTRY.snapshot()
     want = js.sql(sql)
     want_routes = routes_of(before)
-    COUNTERS.clear()
+    mark_counters()
     got = port_frame(ps.sql(sql))
     pd.testing.assert_frame_equal(got, want)
     if check_routes:
-        assert {k: v for k, v in COUNTERS.items() if k.startswith(ROUTES) and v} \
+        assert {k: v for k, v in counters().items() if k.startswith(ROUTES) and v} \
             == want_routes, sql
     return want
 
@@ -220,18 +219,18 @@ def test_ctas_memory_table_routes(sessions):
     q = ("select k, sum(v) sv, count(*) c, min(p) mn, max(p) mx "
          "from leaf_t group by k order by k")
     want = both(sessions, q)
-    assert COUNTERS["exec.leaf_fused_route"] == 1
+    assert counters()["exec.leaf_fused_route"] == 1
     both(sessions, "insert into leaf_t select l_linenumber k, l_partkey v, l_suppkey p "
                    "from lineitem where l_quantity < 10")
     both(sessions, q)
-    assert COUNTERS["exec.leaf_fused_route"] == 1
+    assert counters()["exec.leaf_fused_route"] == 1
     js, ps = sessions
     off = PSession({"memory": ps.catalog.connector("memory")},
                    properties={"narrow_storage": False}, device="cpu")
     try:
-        COUNTERS.clear()
+        mark_counters()
         got_off = port_frame(off.sql(q))
-        assert COUNTERS["exec.leaf_fused_route"] == 0
+        assert counters()["exec.leaf_fused_route"] == 0
     finally:
         import os
 
@@ -248,7 +247,7 @@ def test_null_bearing_ctas_column_never_routes_wrong(sessions):
                    "l_linenumber = 1 then null else l_partkey end v from lineitem")
     q = "select k, count(v) c, sum(v) sv, min(v) mn from nullt group by k order by k"
     want = both(sessions, q)
-    assert COUNTERS["exec.leaf_route_fallback.stats"] == 1
+    assert counters()["exec.leaf_route_fallback.stats"] == 1
     assert int(want[want.k == 1].c.iloc[0]) == 0  # count(v) skips NULLs
 
     def lying(catalog):
@@ -266,7 +265,7 @@ def test_null_bearing_ctas_column_never_routes_wrong(sessions):
     preal, ps.catalog.stats = lying(ps.catalog)
     try:
         got = both(sessions, q)
-        assert COUNTERS["exec.leaf_route_fallback.value_overflow"] == 1
+        assert counters()["exec.leaf_route_fallback.value_overflow"] == 1
     finally:
         js.catalog.stats, ps.catalog.stats = jreal, preal
     pd.testing.assert_frame_equal(got, want)
@@ -280,7 +279,7 @@ def test_partial_agg_bypass_estimates(sessions):
                    "l_linenumber k, l_quantity v from lineitem")
     q = "select k, sum(v) sv, count(*) c from bypass_t group by k order by k"
     both(sessions, q)
-    assert COUNTERS["agg.strategy.bypass"] == 1
+    assert counters()["agg.strategy.bypass"] == 1
     assert ps.explain(q) == js.explain(q)
     assert "agg_strategy=bypass" in ps.explain(q)
 

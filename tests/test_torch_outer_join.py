@@ -52,10 +52,9 @@ from presto_tpu_torch.exec.pipeline import BatchStream, Pipeline
 from presto_tpu_torch.expr import col
 from presto_tpu_torch.ops import join as pjoin
 from presto_tpu_torch.runtime.errors import NotSupported
-from presto_tpu_torch.runtime.metrics import COUNTERS
 from presto_tpu_torch.runtime.session import Session as PSession
 from presto_tpu_torch.types import BIGINT
-from torch_bridge import port_batch, to_numpy
+from torch_bridge import counters, mark_counters, port_batch, to_numpy
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
@@ -186,9 +185,9 @@ def test_strategy_counts_once_per_operator():
     Pipeline(BatchStream.of([port_batch(dup_build_batch())]), [b]).run()
     j = LookupJoinOperator(b, col("pk", BIGINT), [BuildOutput("bval", "bval")], "inner",
                            unique=False, out_capacity=32)
-    COUNTERS.clear()
+    mark_counters()
     Pipeline(BatchStream.of([port_batch(probe_batch()) for _ in range(3)]), [j]).run()
-    assert COUNTERS["join.strategy.expand"] == 1
+    assert counters()["join.strategy.expand"] == 1
 
 
 # ---------------------------------------------------------------------------
@@ -321,9 +320,9 @@ def jax_run(conn, sql):
 
 
 def port_run(conn, sql):
-    COUNTERS.clear()
+    mark_counters()
     res = PSession({"tpch": conn}, device="cpu").sql(sql)
-    routes = {k: v for k, v in COUNTERS.items()
+    routes = {k: v for k, v in counters().items()
               if (k.startswith(("join.strategy.", "join.filter_rows_"))
                   or k == "exec.pallas_join_route") and v}
     return res, routes

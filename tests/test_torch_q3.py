@@ -33,8 +33,8 @@ from presto_tpu.runtime.metrics import REGISTRY
 from presto_tpu.runtime.session import Session as JSession
 from presto_tpu_torch.connectors.tpch import TpchConnector as PConnector
 from presto_tpu_torch.ops import cuda_join
-from presto_tpu_torch.runtime.metrics import COUNTERS
 from presto_tpu_torch.runtime.session import Session as PSession
+from torch_bridge import counters, mark_counters
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
@@ -64,9 +64,9 @@ def jax_results(conns):
 
 
 def port_run(conn, q, **props):
-    COUNTERS.clear()
+    mark_counters()
     res = PSession({"tpch": conn}, properties=props, device="cpu").sql(QUERIES[q])
-    routes = {k: v for k, v in COUNTERS.items()
+    routes = {k: v for k, v in counters().items()
               if k.startswith("join.strategy.") or k == "exec.pallas_join_route"}
     return res, routes
 
@@ -121,8 +121,8 @@ def test_fused_probe_kernel_is_the_one_each_query_routes(q):
         for n, f in originals.items():
             setattr(cuda_join, n, f)
     assert [c[0] for c in calls] == ["exists_keep" if q == "q3" else "payload_keep"] * batches
-    assert COUNTERS["exec.pallas_join_route"] == 1
-    assert COUNTERS["join.pallas_fallback"] == 0
+    assert counters()["exec.pallas_join_route"] == 1
+    assert counters()["join.pallas_fallback"] == 0
     assert (cuda_join.exists_launches, cuda_join.payload_launches) == launches
 
 

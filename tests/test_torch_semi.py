@@ -62,10 +62,9 @@ from presto_tpu_torch.expr import col as pcol
 from presto_tpu_torch.ops import cuda_join
 from presto_tpu_torch.ops import join as pjoin
 from presto_tpu_torch.runtime.errors import NotSupported
-from presto_tpu_torch.runtime.metrics import COUNTERS
 from presto_tpu_torch.runtime.session import Session as PSession
 from test_torch_sql import ast_shape, filter_edge
-from torch_bridge import assert_same, port_batch, port_type, to_numpy
+from torch_bridge import assert_same, counters, mark_counters, port_batch, port_type, to_numpy
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
@@ -198,9 +197,9 @@ def _jax_run(conn, sql, **props):
 
 
 def _port_run(conn, sql, **props):
-    COUNTERS.clear()
+    mark_counters()
     res = PSession({"tpch": conn}, properties=props, device="cpu").sql(sql)
-    return res, {k: v for k, v in COUNTERS.items() if k.startswith(ROUTES) and v}
+    return res, {k: v for k, v in counters().items() if k.startswith(ROUTES) and v}
 
 
 @pytest.mark.parametrize("name", list(SQL))
@@ -305,9 +304,9 @@ def test_approximate_answer_equals_reference_and_is_flagged():
     ps = PSession({"tpch": pc}, properties={"approx_join": True, "runtime_join_filters": False},
                   device="cpu")
     assert "strategy=sketch(approx)" in ps.explain(APPROX_SQL)
-    COUNTERS.clear()
+    mark_counters()
     res = ps.sql(APPROX_SQL)
-    assert COUNTERS["exec.pallas_join_route"] == 1 and COUNTERS["join.pallas_fallback"] == 0
+    assert counters()["exec.pallas_join_route"] == 1 and counters()["join.pallas_fallback"] == 0
     pd.testing.assert_frame_equal(pd.DataFrame(res.to_dict()), want, check_exact=True)
     assert res.approximate is True and info.approximate is True
     exact = PSession({"tpch": pc}, device="cpu").sql(APPROX_SQL)
@@ -345,12 +344,12 @@ def test_approximate_answer_with_runtime_filters_equals_reference():
     want_filters = {k: int(after.get(k, 0) - before.get(k, 0)) for k in after
                     if k.startswith("join.filter_rows_")}
     ps = PSession({"tpch": pc}, properties={"approx_join": True}, device="cpu")
-    COUNTERS.clear()
+    mark_counters()
     res = ps.sql(APPROX_SQL)
-    assert COUNTERS["exec.pallas_join_route"] == 1 and COUNTERS["join.pallas_fallback"] == 0
+    assert counters()["exec.pallas_join_route"] == 1 and counters()["join.pallas_fallback"] == 0
     pd.testing.assert_frame_equal(pd.DataFrame(res.to_dict()), want, check_exact=True)
     assert res.approximate is True
-    got_filters = {k: v for k, v in COUNTERS.items() if k.startswith("join.filter_rows_")}
+    got_filters = {k: v for k, v in counters().items() if k.startswith("join.filter_rows_")}
     assert got_filters == want_filters and got_filters["join.filter_rows_pruned"] > 0
     unfiltered = PSession({"tpch": pc}, properties={"approx_join": True,
                                                     "runtime_join_filters": False},

@@ -48,10 +48,9 @@ from presto_tpu_torch.exec.operators import concat_batches
 from presto_tpu_torch.expr import col as pcol
 from presto_tpu_torch.ops import cuda_join
 from presto_tpu_torch.ops import hashing as phash
-from presto_tpu_torch.runtime.metrics import COUNTERS
 from presto_tpu_torch.workloads import (
     Q3_COLS, Q3_CUTOFF, Q3_KEY_MIN, q3_domain, q3_probe_step, q3_probe_table)
-from torch_bridge import assert_same, port_batch, port_type, to_numpy
+from torch_bridge import assert_same, counters, mark_counters, port_batch, port_type, to_numpy
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
@@ -296,10 +295,10 @@ def test_sketch_refuses_a_capacity_the_reference_cannot_block():
     rng = np.random.default_rng(2)
     bk = rng.choice(np.arange(0, 1 << 22), size=5000, replace=False)
     pk = rng.integers(0, 1 << 22, size=1000)
-    COUNTERS.clear()
+    mark_counters()
     jkeys, pkeys, js, ps = _probe_pair(bk, pk, *_sketch_specs(), "semi", cap=1000)
     assert js != "pallas" and ps != "pallas"
-    assert COUNTERS["join.pallas_fallback"] == 1
+    assert counters()["join.pallas_fallback"] == 1
     np.testing.assert_array_equal(pkeys, jkeys)
     np.testing.assert_array_equal(pkeys, pk[np.isin(pk, bk)])
 

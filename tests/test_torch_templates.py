@@ -31,9 +31,8 @@ from presto_tpu.runtime.session import Session as JSession
 from presto_tpu_torch.connectors.tpch import TpchConnector as PConnector
 from presto_tpu_torch.expr import Literal, Param
 from presto_tpu_torch.plan import nodes as PN
-from presto_tpu_torch.runtime.metrics import COUNTERS
 from presto_tpu_torch.runtime.session import Session as PSession
-from torch_bridge import ROUTES, port_frame
+from torch_bridge import ROUTES, counters, mark_counters, port_frame
 
 SF = 0.01
 
@@ -57,7 +56,7 @@ def deltas(before: dict) -> dict:
 
 
 def port_counters() -> dict:
-    return {k: v for k, v in COUNTERS.items() if k.startswith(PREFIXES) and v}
+    return {k: v for k, v in counters().items() if k.startswith(PREFIXES) and v}
 
 
 def run_both(js, ps, call):
@@ -66,7 +65,7 @@ def run_both(js, ps, call):
     before = REGISTRY.snapshot()
     want = call(js)
     want_counts = deltas(before)
-    COUNTERS.clear()
+    mark_counters()
     got = call(ps)
     assert port_counters() == want_counts
     return want, got
@@ -114,7 +113,7 @@ def test_eligible_position_slots_alike(conns, name):
     _js, off = sessions_for(conns, plan_templates=False)
     for v in lits:
         got = sql_both(js, ps, fmt.format(v))
-        assert COUNTERS["prepare.slots_bound"] >= 1
+        assert counters()["prepare.slots_bound"] >= 1
         pd.testing.assert_frame_equal(got, port_frame(off.sql(fmt.format(v))))
 
 
@@ -127,8 +126,8 @@ def test_leaf_route_literals_stay_baked(conns):
     _js, off = sessions_for(conns, plan_templates=False)
     for v in (30, 17):
         got = sql_both(js, ps, fmt.format(v))
-        assert COUNTERS["prepare.slot_ineligible.leaf_route"] > 0
-        assert COUNTERS["exec.leaf_fused_route"] == 1
+        assert counters()["prepare.slot_ineligible.leaf_route"] > 0
+        assert counters()["exec.leaf_fused_route"] == 1
         pd.testing.assert_frame_equal(got, port_frame(off.sql(fmt.format(v))))
 
 
@@ -137,7 +136,7 @@ def test_limit_stays_baked(conns):
     js, ps = sessions_for(conns)
     for n in (10, 25):
         got = sql_both(js, ps, fmt.format(n))
-        assert COUNTERS["prepare.slot_ineligible.limit"] == 1 and len(got) == n
+        assert counters()["prepare.slot_ineligible.limit"] == 1 and len(got) == n
 
 
 def test_prepare_execute_python_api(conns, monkeypatch):
@@ -265,12 +264,12 @@ def test_template_hit_not_tracked(conns):
         before = REGISTRY.snapshot()
         js.sql(sql)
         after = REGISTRY.snapshot()
-        COUNTERS.clear()
+        mark_counters()
         ps.sql(sql)
     assert js.query_history[-1].template_hit
     assert after.get("prepare.template_hit", 0) - before.get("prepare.template_hit", 0) == 1
     assert not ps.query_history[-1].template_hit
-    assert not COUNTERS["prepare.template_hit"] and not COUNTERS["prepare.template_miss"]
+    assert not counters()["prepare.template_hit"] and not counters()["prepare.template_miss"]
 
 
 def test_explain_renders_param_slots(conns):
@@ -317,14 +316,14 @@ def test_narrow_storage_is_mirrored_before_parameterizing(conns):
         want = js_on.sql(sql)
         want_counts = deltas(before)
         ps_off.sql(sql)
-        COUNTERS.clear()
+        mark_counters()
         got = port_frame(ps_on.sql(sql))
     finally:
         os.environ.pop("PRESTO_TPU_NARROW", None)
     pd.testing.assert_frame_equal(got, want)
     assert want_counts.get("exec.leaf_route_fallback.filter_shape") == 1
-    assert COUNTERS["exec.leaf_fused_route"] == 1
-    assert not COUNTERS["exec.leaf_route_fallback.filter_shape"]
+    assert counters()["exec.leaf_fused_route"] == 1
+    assert not counters()["exec.leaf_route_fallback.filter_shape"]
 
 
 def test_param_evaluates_like_the_reference():

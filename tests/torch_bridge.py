@@ -8,6 +8,7 @@ counters it bumps (``jax_run``, ``port_run``).
 
 from __future__ import annotations
 
+import collections
 import contextlib
 
 import numpy as np
@@ -97,14 +98,42 @@ def jax_run(conn, sql, key="tpch"):
 
 def port_run(conn, sql, key="tpch"):
     """(QueryResult, route counters, session) of ``sql`` through the
-    port's ``Session.sql`` over ``conn`` alone, on the CPU."""
-    from presto_tpu_torch.runtime.metrics import COUNTERS
+    port's ``Session.sql`` over ``conn`` alone, on the CPU (a before /
+    after ``REGISTRY.snapshot()`` diff, as ``jax_run``)."""
+    from presto_tpu_torch.runtime.metrics import REGISTRY
     from presto_tpu_torch.runtime.session import Session as PSession
 
-    COUNTERS.clear()
+    before = REGISTRY.snapshot()
     session = PSession({key: conn}, device="cpu")
     res = session.sql(sql)
-    return res, {k: v for k, v in COUNTERS.items() if k.startswith(ROUTES) and v}, session
+    after = REGISTRY.snapshot()
+    routes = {k: after.get(k, 0) - before.get(k, 0) for k in after if k.startswith(ROUTES)}
+    return res, {k: int(v) for k, v in routes.items() if v}, session
+
+
+#: the port's ``REGISTRY.snapshot()`` at the last :func:`mark_counters`
+_MARK: dict = {}
+
+
+def mark_counters() -> None:
+    """Start a count: :func:`counters` reads the moves from here."""
+    from presto_tpu_torch.runtime.metrics import REGISTRY
+
+    global _MARK
+    _MARK = REGISTRY.snapshot()
+
+
+def counters() -> collections.Counter:
+    """The port's registry moves since :func:`mark_counters` (a before /
+    after ``REGISTRY.snapshot()`` diff), name -> amount (0 for a name that
+    did not move): every name whose total changed, and every name created
+    since the mark (after a ``REGISTRY.reset()``, a name added 0 too)."""
+    from presto_tpu_torch.runtime.metrics import REGISTRY
+
+    after = REGISTRY.snapshot()
+    moves = {k: v - _MARK.get(k, 0.0) for k, v in after.items()
+             if k not in _MARK or v != _MARK[k]}
+    return collections.Counter({k: int(v) if v == int(v) else v for k, v in moves.items()})
 
 
 # ---------------------------------------------------------------------------
@@ -184,3 +213,63 @@ def one_thread():
         yield
     finally:
         torch.set_num_threads(before)
+
+
+# ---------------------------------------------------------------------------
+# Observability: the divergences the differential tests take out
+# (ROADMAP C14, C17) and a fault injector that counts its reaches
+# ---------------------------------------------------------------------------
+
+#: metric families only the query lifecycle (A8) or the caches (A9) fire,
+#: absent from the port's ``QueryInfo.metrics`` (ROADMAP C17)
+C17_FAMILIES = ("fragment.dispatch_s.", "query.execution_s.", "memory.", "spill.",
+                "exec_cache.", "exec.traces", "stats_cache.", "result_cache.", "plan_stats.",
+                "cache.")
+
+#: spans only the lifecycle (A8) or the caches (A9) record (ROADMAP C14)
+C14_SPANS = ("fragment:", "admission", "retry", "degrade_to_local", "exec_cache:",
+             "stats_cache:", "result_cache:", "plan_stats:")
+
+
+def comparable_metrics(metrics: dict) -> dict:
+    """``QueryInfo.metrics`` without the C17 families (plain or under
+    ``post_run.``), timers and histograms by ``.count`` only (their
+    totals are wall times)."""
+    out = {}
+    for k, v in metrics.items():
+        name = k[len("post_run."):] if k.startswith("post_run.") else k
+        if name.startswith(C17_FAMILIES) or k.endswith((".total", ".total_s")):
+            continue
+        out[k] = v
+    return out
+
+
+def span_tree(rec) -> list:
+    """(name, cat, depth) of each span in recording order, C14's spans
+    taken out and their children lifted to the parent."""
+    depth = {}
+    out = []
+    for s in rec.spans:
+        parent = -1 if s.parent_id < 0 else depth[s.parent_id]
+        if s.name.startswith(C14_SPANS):
+            depth[s.span_id] = parent
+            continue
+        depth[s.span_id] = parent + 1
+        out.append((s.name, s.cat, parent + 1))
+    return out
+
+
+def counting_injector(base):
+    """A ``FaultInjector`` subclass (of either package's ``base``) that
+    counts every ``check(site)`` reach in ``reaches`` (site -> calls)."""
+
+    class CountingInjector(base):
+        def __post_init__(self):
+            super().__post_init__()
+            self.reaches = collections.Counter()
+
+        def check(self, site: str) -> None:
+            self.reaches[site] += 1
+            super().check(site)
+
+    return CountingInjector
