@@ -217,15 +217,40 @@ one CUDA card, and exits nonzero on any failure. Phases:
    ``Session.execute``, traced with ``profile_annotations`` on, under
    the torch profiler: each answer against numpy, each ``QueryInfo.
    metrics`` strategy counter against its plan's, every Q1, leaf,
-   exists and lane-sums launch inside a ``step:``, ``finish:`` or
-   ``node:`` span (on the host) and annotation (in the profiler's
+   exists and lane-sums launch inside a ``step:``, ``finish:``, ``node:``
+   or ``fragment:`` span (on the host) and annotation (in the profiler's
    trace), ``export_trace``'s Chrome JSON parsed and its node spans
    against the plans, each launch shape held to the plain version; the
    JAX package's tracing-overhead rule on Q1, Q6 and Q3 (on <= off x
    1.05 + 5 ms, least of interleaved rounds); and Q3 answered after an
    injected scan fault under ``query_retries=1`` (``query.retried`` 1).
    Every earlier phase runs traced too (``trace_enabled`` is on by
-   default).
+   default);
+19. the query lifecycle and the out-of-core tier at SF1
+   (``run_lifecycle_queries``): TPC-H Q3, ``HICARD_AGG`` and the
+   customer semi and anti joins resident and planned hybrid (each
+   ``join_build_budget_bytes`` its largest build estimate / 4), and Q3
+   fully grouped (/ 100), each equal to its numpy oracle and to the
+   resident run, with each spill decision (estimate, budget, buckets,
+   resident and streamed units, host bytes) and the transfer pipeline's
+   overlap printed, and the memory pool and host spill budget at 0
+   after every query; Q1 and Q6 under the lifecycle; every Q1, leaf and
+   exists launch inside a ``fragment:`` span and each launch shape held
+   to the plain version; a deadline (``query_max_run_time`` a tenth of
+   Q1's warm wall: ``ExceededTimeLimit`` at ``scan``), a
+   ``Session.cancel`` from a second thread while a scan is held at a
+   gate (``QueryCancelled``, ``cancel.observed`` 1) and an admission
+   rejection (``query_max_memory_bytes`` half of Q3's estimate, before
+   any scan or launch), each session answering right after; then the
+   allocator's own out-of-memory (``real_oom``): each candidate's
+   resident and rung-1 peaks, twice each (``max_memory_allocated`` and
+   ``max_memory_reserved``), the allocator capped at the geometric mean
+   of the least resident and the most rung-1 peak over what it holds,
+   with ``torch.cuda.set_per_process_memory_fraction`` after
+   ``empty_cache()``, the card's ``torch.OutOfMemoryError`` mapped
+   to ``DeviceOutOfMemory`` and walked by the OOM ladder to the uncapped
+   answer at rung 1, the cap lifted in a ``finally`` (fraction 1.0,
+   ``empty_cache()``) and the next query answering right.
 
 Phase 5 also times the prefix kernel at the first ``part`` split of the
 ``starts_with`` pipeline and over SF1 ``o_comment`` with
@@ -261,6 +286,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import warnings
 
@@ -5826,8 +5852,9 @@ OVERHEAD_RUNS = ("q1", "q6", "q3")
 OBS_KERNELS = {"q1": ("q1_kernel",), "lane_sums": ("lane_sums_kernel",),
                "leaf_agg": ("leaf_agg_kernel", "leaf_staged_kernel"),
                "exists": ("exists_kernel",)}
-#: the spans a kernel launch must lie in
-LAUNCH_SPANS = ("step:", "finish:", "node:")
+#: the spans a kernel launch must lie in (a fused route launches inside
+#: its aggregate's lifecycle dispatch, ``fragment:Aggregate``)
+LAUNCH_SPANS = ("step:", "finish:", "node:", "fragment:")
 
 
 def q1_shaped_expected(conn) -> dict:
@@ -5849,13 +5876,14 @@ def q1_shaped_expected(conn) -> dict:
 def launch_spans():
     """While in the block, record for every call of the Q1, lane-sums,
     leaf and exists kernels' wrappers the innermost open trace span
-    (``(kernel, span name or None)``) and keep each Q1-kernel launch
+    (``(kernel, span name or None)``), in ``seen["in_fragment"]`` whether a
+    ``fragment:`` span is open around it, and keep each Q1-kernel launch
     shape's first batch (``seen["q1 batches"]``; the others:
     :func:`first_kernel_calls`, :func:`each_probe_shape`)."""
     from presto_tpu_torch.exec import leaf_route
     from presto_tpu_torch.runtime import trace
 
-    seen = {"launches": [], "q1 batches": {}}
+    seen = {"launches": [], "in_fragment": [], "q1 batches": {}}
     targets = {"q1": (cuda_q1, "q1_step"), "lane_sums": (cuda_groupby, "fused_lane_sums"),
                "leaf_agg": (leaf_route, "agg_step"), "exists": (cuda_join, "exists_keep")}
     originals = {k: getattr(mod, attr) for k, (mod, attr) in targets.items()}
@@ -5863,8 +5891,9 @@ def launch_spans():
     def wrap(kernel):
         def call(*args):
             rec = trace.current()
-            inner = None if rec is None or not rec._stack else rec.spans[rec._stack[-1]].name
-            seen["launches"].append((kernel, inner))
+            stack = [] if rec is None else [rec.spans[i].name for i in rec._stack]
+            seen["launches"].append((kernel, stack[-1] if stack else None))
+            seen["in_fragment"].append(any(n.startswith("fragment:") for n in stack))
             if kernel == "q1":
                 seen["q1 batches"].setdefault(args[0].capacity, args[0])
             return originals[kernel](*args)
@@ -5914,7 +5943,7 @@ def annotated_launches(prof) -> dict:
         ts = launch_ts.get(e.get("args", {}).get("correlation"))
         if ts is not None and any(t0 <= ts <= t1 for t0, t1 in ranges):
             out[k][1] += 1
-    log(f"  profiler trace: {len(ranges)} step/finish/node annotations, {len(launch_ts)} "
+    log(f"  profiler trace: {len(ranges)} step/finish/node/fragment annotations, {len(launch_ts)} "
         f"runtime launch events")
     return {k: tuple(v) for k, v in out.items()}
 
@@ -6073,13 +6102,13 @@ def run_observability_queries(conn, device: str = "cuda") -> dict:
     # every launch in a step:, finish: or node: span, on the host
     outside = [(k, sp) for k, sp in spans["launches"]
                if sp is None or not sp.startswith(LAUNCH_SPANS)]
-    check(not outside, f"phase 18: kernel launches outside a step/finish/node span: "
+    check(not outside, f"phase 18: kernel launches outside a step/finish/node/fragment span: "
           f"{outside[:5]}")
     by_span = _summed(*({f"{k} in {sp}": 1} for k, sp in spans["launches"]))
     log(f"  kernel launches by innermost span: {by_span}")
     if device == "cuda":
         out["annotated"] = annotated_launches(prof)
-        log(f"  profiler: kernel device launches, and those inside a step/finish/node "
+        log(f"  profiler: kernel device launches, and those inside a step/finish/node/fragment "
             f"annotation: {out['annotated']}")
         # a profiler trace can come back without some device events (a
         # count can read short, never long): every traced launch must lie
@@ -6087,7 +6116,7 @@ def run_observability_queries(conn, device: str = "cuda") -> dict:
         for k, (ran, inside) in out["annotated"].items():
             check(0 < ran <= launches[k] and inside == ran,
                   f"phase 18's {k}: {launches[k]} launches counted, {ran} in the profiler's "
-                  f"trace, {inside} of them inside a step/finish/node annotation")
+                  f"trace, {inside} of them inside a step/finish/node/fragment annotation")
     # export_trace: valid Chrome JSON, node spans against the plans
     with tempfile.TemporaryDirectory() as tmp:
         for name, (how, sql, _kernel) in OBS_RUNS.items():
@@ -6152,6 +6181,479 @@ def run_observability_queries(conn, device: str = "cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the query lifecycle and the out-of-core tier
+# ---------------------------------------------------------------------------
+
+#: the JAX package's out-of-core test statements (``tests/test_spill.py``)
+HICARD_AGG = ("select l_orderkey, count(*) n, sum(l_extendedprice) s "
+              "from lineitem join orders on l_orderkey = o_orderkey "
+              "group by l_orderkey order by l_orderkey limit 100")
+CUST_SEMI = ("select c_custkey from customer where c_custkey in "
+             "(select o_custkey from orders) order by c_custkey")
+CUST_ANTI = ("select c_custkey from customer where c_custkey not in "
+             "(select o_custkey from orders) order by c_custkey")
+SPILL_SQL = {"q3": QUERIES["q3"], "hicard_agg": HICARD_AGG, "semi": CUST_SEMI,
+             "anti": CUST_ANTI}
+#: each planned-hybrid run's budget: its largest join build estimate over
+#: this; Q3's fully grouped run: its orders build over GROUPED_DIVISOR
+#: (past the hybrid ratio cap of 64)
+HYBRID_DIVISOR = 4
+GROUPED_DIVISOR = 100
+#: the kernels phase 19 runs under the lifecycle (Q3's exists launches
+#: come from its resident and spilled runs)
+LIFE_KERNEL_RUNS = {"q1": QUERIES["q1"], "q6": QUERIES["q6"]}
+#: the real-OOM candidates, in order (the first whose rung-1 peak is
+#: under its resident peak is capped between the two)
+OOM_CANDIDATES = ("hicard_agg", "q3")
+
+
+def hicard_expected(conn) -> dict:
+    """``HICARD_AGG`` in int64 numpy: per l_orderkey with an order, the
+    line count and the scaled sum of l_extendedprice, the first 100 keys."""
+    li = conn.table_numpy("lineitem", ["l_orderkey", "l_extendedprice"])
+    keys = li["l_orderkey"].astype(np.int64)
+    m = np.isin(keys, conn.table_numpy("orders", ["o_orderkey"])["o_orderkey"])
+    keys, ep = keys[m], li["l_extendedprice"][m].astype(np.int64)
+    order = np.argsort(keys, kind="stable")
+    first = np.flatnonzero(np.r_[True, np.diff(keys[order]) != 0])
+    n = np.diff(np.r_[first, order.size])
+    return {"l_orderkey": keys[order][first][:100], "n": n[:100],
+            "s": np.add.reduceat(ep[order], first)[:100]}
+
+
+def cust_semi_expected(conn, anti: bool) -> dict:
+    """``CUST_SEMI`` / ``CUST_ANTI`` in numpy (no NULL keys on either side)."""
+    c = conn.table_numpy("customer", ["c_custkey"])["c_custkey"].astype(np.int64)
+    hit = np.isin(c, conn.table_numpy("orders", ["o_custkey"])["o_custkey"])
+    return {"c_custkey": np.sort(c[~hit] if anti else c[hit])}
+
+
+def result_dict(res) -> dict:
+    return {name: res.column(name) for name in res.names}
+
+
+def transfer_overlap(tracer) -> dict:
+    """From a spilled query's trace: the seconds of its ``spill:transfer``
+    spans, of its ``spill:unit`` spans, and of transfer time that ran
+    while a unit computed (the two-slot pipeline's overlap)."""
+    spans = tracer.spans
+    xfer = [(s.t0, s.t1) for s in spans if s.name == "spill:transfer"]
+    units = sorted((s.t0, s.t1) for s in spans if s.name == "spill:unit")
+    overlap = sum(max(0.0, min(t1, u1) - max(t0, u0)) for t0, t1 in xfer for u0, u1 in units)
+    return {"transfers": len(xfer), "transfer_s": sum(t1 - t0 for t0, t1 in xfer),
+            "units": len(units), "unit_s": sum(u1 - u0 for u0, u1 in units),
+            "overlap_s": overlap}
+
+
+def largest_build(session, sql: str) -> int:
+    """The largest join or semi-join build estimate of ``sql``'s plan."""
+    from presto_tpu_torch.plan import nodes as N
+    from presto_tpu_torch.runtime.memory import estimate_node_bytes
+
+    out = []
+
+    def walk(node):
+        if isinstance(node, (N.Join, N.SemiJoin)):
+            out.append(estimate_node_bytes(node.right, session.catalog))
+        for c in node.children:
+            walk(c)
+
+    walk(session.plan(sql))
+    return max(out)
+
+
+class GatedScans(TpchConnector):
+    """A TPC-H connector whose scan of ``lineitem``'s second split sets
+    ``reached`` and waits for ``go``: a query over it is mid-scan while
+    the gate is shut."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.reached, self.go = threading.Event(), threading.Event()
+
+    def scan(self, split, columns=None, capacity=None):
+        if split.table == "lineitem" and split.chunk == 1:
+            self.reached.set()
+            check(self.go.wait(60), "phase 19: the cancel gate never opened")
+        return super().scan(split, columns, capacity)
+
+
+def _drained(session, what: str) -> None:
+    from presto_tpu_torch.runtime.memory import global_host_spill_budget
+
+    pool, host = session.pool().reserved_bytes, global_host_spill_budget().reserved_bytes
+    check(pool == 0 and host == 0,
+          f"phase 19 {what}: pool {pool} and host spill {host} bytes still reserved")
+
+
+def _peak(fn):
+    """(fn's result, its peak device bytes over the allocated bytes at
+    the call, its peak reserved bytes over the reserved bytes at the
+    call)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    a0, r0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - a0, torch.cuda.max_memory_reserved() - r0
+
+
+#: runs of each real-OOM candidate at rung 0 and at rung 1 before the cap
+#: is set: a resident peak moves with how many scan batches the prefetch
+#: worker holds at once (Q3 at SF1: 1.15-1.88 GB over six runs on the
+#: H100, its rung-1 peak 57-68 MB), so the cap is set from the least
+#: rung-0 and the most rung-1 peak seen
+OOM_PEAK_RUNS = 2
+#: a candidate recovers only where its least resident peak is this many
+#: times its most rung-1 peak: the cap at their geometric mean then
+#: leaves both runs a margin of at least its square root
+OOM_PEAK_RATIO = 8
+
+
+def _fill_slack() -> list:
+    """Tensors that take up the free bytes inside the allocator's
+    reserved segments, called with the allocator capped at what it
+    reserves: blocks of 1 GiB down to 512 B, each size until the
+    allocator refuses it. Earlier phases leave such free bytes behind (a
+    segment that still holds a live tensor is not returned by
+    ``empty_cache()``); held during a capped run, they keep the run to
+    the new segments the cap allows."""
+    held = []
+    size = 1 << 30
+    while size >= 512:
+        try:
+            while True:
+                held.append(torch.empty(size, dtype=torch.uint8, device="cuda"))
+        except torch.OutOfMemoryError:
+            size //= 4
+    return held
+
+
+def real_oom(conn, want: dict, device: str) -> dict:
+    """The allocator's own out-of-memory, walked by the ladder: each
+    candidate's resident peak (rung 0) and its rung-1 peak (an executor
+    at ``oom_rung`` 1, the plan the ladder re-runs), ``OOM_PEAK_RUNS``
+    times each, in allocated bytes; then, with
+    ``empty_cache()`` done and the free bytes left inside the allocator's
+    segments held by ballast (:func:`_fill_slack`), the allocator capped
+    (``set_per_process_memory_fraction``) at what it reserves plus the
+    geometric mean of the candidate's least resident and most rung-1
+    peak, the statement through ``Session.sql``: the card raises
+    ``torch.OutOfMemoryError``, the lifecycle maps it to
+    ``DeviceOutOfMemory`` and the ladder re-runs it on the card, which
+    must answer as uncapped. Where no candidate's peaks are
+    ``OOM_PEAK_RATIO`` apart, the cap is a quarter of the least peak
+    seen and the run must raise the card's OOM and then either fail
+    typed or answer right. The cap is lifted in a ``finally``
+    (fraction 1.0, ballast freed, ``empty_cache()``), and the next query
+    must answer."""
+    from presto_tpu_torch.runtime import faults
+    from presto_tpu_torch.runtime.errors import DeviceOutOfMemory
+
+    check(faults.active() is None, "phase 19: a fault injector is installed")
+    session = Session({"tpch": conn}, device=device)
+    peaks = {}
+    chosen = None
+    for name in OOM_CANDIDATES:
+        sql = SPILL_SQL[name]
+        rung0, rung1, reserved = [], [], []
+        for _ in range(OOM_PEAK_RUNS):
+            _res, p0, r0 = _peak(lambda: session.sql(sql))
+            ex = session.executor()
+            ex.oom_rung = 1
+            res1, p1, r1 = _peak(lambda: ex.run(session.plan(sql)))
+            same_result(res1, want[name], f"phase 19 {name} at rung 1")
+            rung0.append(p0)
+            rung1.append(p1)
+            reserved.append((r0, r1))
+        low, high = max(rung1), min(rung0)
+        peaks[name] = {"rung0": rung0, "rung1": rung1, "reserved": reserved,
+                       "least_rung0": high, "most_rung1": low}
+        log(f"  real OOM candidate {name}: resident peaks {rung0} B, rung-1 peaks {rung1} B "
+            f"over the allocated bytes at each call (reserved segments grew by {reserved} B; "
+            "free bytes inside earlier segments take part of a peak)")
+        if chosen is None and high >= OOM_PEAK_RATIO * max(low, 1):
+            chosen = name
+    recover = chosen is not None
+    chosen = chosen or OOM_CANDIDATES[0]
+    high, low = peaks[chosen]["least_rung0"], peaks[chosen]["most_rung1"]
+    room = int((high * low) ** 0.5) if recover else min(high, low) // 4
+    total = torch.cuda.get_device_properties(0).total_memory
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved()
+    slack = base - torch.cuda.memory_allocated()
+    limit = base + room
+    before = counters()
+    out = {"query": chosen, "peaks": peaks, "base_reserved": base, "slack": slack,
+           "limit": limit, "expect_recovery": recover}
+    ballast: list = []
+    try:
+        torch.cuda.set_per_process_memory_fraction(base / total)
+        ballast = _fill_slack()
+        out["ballast"] = sum(t.numel() for t in ballast)
+        log(f"  capping the allocator at {limit} B ({limit / total:.6f} of {total} B; {base} B "
+            f"reserved before the run, {slack} B of it free, {out['ballast']} B of that held "
+            f"by ballast during the run) for {chosen}: {room} B of room against a least "
+            f"resident peak of {high} B and a most rung-1 peak of {low} B")
+        torch.cuda.set_per_process_memory_fraction(limit / total)
+        try:
+            res = session.sql(SPILL_SQL[chosen])
+            out["outcome"] = "recovered"
+        except DeviceOutOfMemory as e:
+            out["outcome"] = f"failed typed: {str(e)[:200]}"
+            res = None
+        info = session.query_history[-1]
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        ballast.clear()
+        torch.cuda.empty_cache()
+    moved = counters()
+    out["backend_oom"] = moved["query.backend_oom"] - before["query.backend_oom"]
+    out["oom_rung"], out["rung_history"] = info.oom_rung, info.rung_history
+    ladder = [e for e in info.rung_history if e["kind"] == "ladder"]
+    check(out["backend_oom"] >= 1 and ladder and "OutOfMemoryError" in ladder[0]["error"]
+          and "BackendOom" not in ladder[0]["error"],
+          f"phase 19's real OOM: backend_oom {out['backend_oom']}, history {info.rung_history}, "
+          f"peaks {peaks}, limit {limit}")
+    if recover or res is not None:
+        check(res is not None and info.oom_rung >= 1,
+              f"phase 19's real OOM did not recover: {out['outcome']}, rung {info.oom_rung}, "
+              f"peaks {peaks}, limit {limit}")
+        same_result(res, want[chosen], f"phase 19 {chosen} after the ladder")
+    else:
+        check(info.error_code == "DEVICE_OUT_OF_MEMORY",
+              f"phase 19's real OOM: {out['outcome']}, {info.error_code}")
+    _drained(session, "after the real OOM")
+    same_result(session.sql(SPILL_SQL[chosen]), want[chosen], "phase 19 after lifting the cap")
+    log(f"  real OOM on {chosen}: {out['outcome']}, query.backend_oom {out['backend_oom']}, "
+        f"oom_rung {info.oom_rung}, ladder entries {[e['error'][:120] for e in ladder]}; "
+        f"the cap lifted and {chosen} answered right again")
+    return out
+
+
+def run_lifecycle_queries(conn, device: str = "cuda") -> dict:
+    """Phase 19 at SF1: the lifecycle and the out-of-core tier through
+    ``Session.sql``. Q3, ``HICARD_AGG`` and the customer semi and anti
+    joins resident and planned hybrid (budget: the largest build estimate
+    over ``HYBRID_DIVISOR``), Q3 fully grouped (over
+    ``GROUPED_DIVISOR``), each equal to its numpy oracle and the resident
+    run, with each spill decision, the transfer overlap, and the pool and
+    host spill budget at 0 after every query; Q1 and Q6 under the
+    lifecycle; every K1, K3 and K4 launch inside a ``fragment:`` span and
+    each launch shape held to the plain version; a deadline, a cancel
+    from a second thread and an admission rejection, typed, each session
+    answering right after; then the allocator's own OOM walked by the
+    ladder (:func:`real_oom`)."""
+    from presto_tpu_torch.runtime import faults
+    from presto_tpu_torch.runtime.errors import (
+        ExceededTimeLimit, QueryCancelled, ResourceExhausted)
+    from presto_tpu_torch.runtime.lifecycle import peak_estimate_bytes
+
+    t0 = time.perf_counter()
+    want = {"q3": q3_expected(conn), "hicard_agg": hicard_expected(conn),
+            "semi": cust_semi_expected(conn, False), "anti": cust_semi_expected(conn, True),
+            "q1": q1_sql_expected(conn)}
+    li = conn.table_numpy("lineitem", Q6_COLS)
+    want["q6"] = revenue(li["l_extendedprice"], li["l_discount"], q6_mask(li))
+    del li
+    log(f"phase 19: numpy recomputation of {list(want)} at SF{conn.sf:g} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    out = {"spill": {}, "walls": {}}
+    query = {"name": None}
+    probe = Session({"tpch": conn}, device=device)
+    runs = [(f"{name} resident", name, None) for name in SPILL_SQL]
+    for name in SPILL_SQL:
+        est = largest_build(probe, SPILL_SQL[name])
+        runs.append((f"{name} hybrid", name, max(est // HYBRID_DIVISOR, 1)))
+    runs.append(("q3 grouped", "q3", max(largest_build(probe, QUERIES["q3"]) // GROUPED_DIVISOR,
+                                         1)))
+    results = {}
+    with each_probe_shape(query) as probes, first_kernel_calls(query) as calls, \
+            launch_spans() as spans:
+        # the main path of the phase: launches counted from 0 to here
+        _reset_launches()
+        for label, name, budget in runs:
+            props = {} if budget is None else {"join_build_budget_bytes": budget}
+            session = Session({"tpch": conn}, properties=props, device=device)
+            query["name"] = label
+            before = counters()
+            try:
+                t0 = time.perf_counter()
+                res = session.sql(SPILL_SQL[name])
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                out["walls"][label] = time.perf_counter() - t0
+            finally:
+                query["name"] = None
+            info = session.query_history[-1]
+            moved = {k: v - before[k] for k, v in counters().items()
+                     if k.startswith(("spill.", "join.strategy.", "agg.strategy.",
+                                      "query.oom_degraded")) and v != before[k]}
+            same_result(res, want[name], f"phase 19 {label}")
+            if budget is not None:
+                same_result(res, result_dict(results[f"{name} resident"]),
+                            f"phase 19 {label} against the resident run")
+                mode = "grouped" if label.endswith("grouped") else "hybrid"
+                check(moved.get(f"spill.planned_{mode}", 0) >= 1
+                      and moved.get("spill.partitions_streamed", 0) >= 1
+                      and moved.get("query.oom_degraded", 0) == 0 and info.oom_rung == 0,
+                      f"phase 19 {label}: counters {moved}, oom_rung {info.oom_rung}")
+            else:
+                check(not any(k.startswith("spill.") for k in moved),
+                      f"phase 19 {label} spilled: {moved}")
+            _drained(session, label)
+            results[label] = res
+            decisions = [{k: e[k] for k in ("node", "mode", "partitions", "resident",
+                                            "streamed", "est_bytes", "budget_bytes",
+                                            "host_bytes")}
+                         for e in info.rung_history if e["kind"].startswith("planned_")]
+            overlap = (transfer_overlap(session.traces.for_query(info.query_id))
+                       if budget is not None else None)
+            out["spill"][label] = {"budget": budget, "decisions": decisions, "counters": moved,
+                                   "overlap": overlap}
+            log(f"  {label}: wall {out['walls'][label]:.3f} s, budget {budget}, decisions "
+                f"{decisions}, counters {moved}"
+                + (f", transfers {overlap}" if overlap else ""))
+        for name, sql in LIFE_KERNEL_RUNS.items():
+            session = Session({"tpch": conn}, device=device)
+            query["name"] = name
+            try:
+                t0 = time.perf_counter()
+                res = session.sql(sql)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                out["walls"][name] = time.perf_counter() - t0
+            finally:
+                query["name"] = None
+            same_result(res, want[name], f"phase 19 {name}")
+            _drained(session, name)
+            log(f"  {name} under the lifecycle: wall {out['walls'][name]:.3f} s, "
+                f"{session.query_history[-1].metrics.get('fragment.dispatch_s.count')} "
+                "fragment dispatches")
+        out["launches"] = _launch_counts()
+    launches = out["launches"]
+    log(f"  phase 19's launches: "
+        f"{ {k: launches[k] for k in ('q1', 'lane_sums', 'leaf_agg', 'exists', 'payload')} }; "
+        f"exists by rows {launches['probe_by_shape']['exists']}, leaf by instance "
+        f"{launches['by_instance']}")
+    if device == "cuda":
+        for k in ("q1", "leaf_agg", "exists"):
+            check(launches[k] > 0, f"phase 19 launched no {k} kernel")
+    outside = [(k, sp) for (k, sp), inside in zip(spans["launches"], spans["in_fragment"])
+               if not inside]
+    check(not outside, f"phase 19: kernel launches outside a fragment span: {outside[:5]}")
+    log(f"  kernel launches by innermost span: "
+        f"{_summed(*({f'{k} in {sp}': 1} for k, sp in spans['launches']))}; all "
+        f"{len(spans['launches'])} inside a fragment span")
+    out["probe_err"] = hold_probe_shapes(probes)
+    out["call_err"] = hold_kernel_calls(calls)
+    q1_err = 0
+    for cap, b in sorted(spans["q1 batches"].items()):
+        q1_err = max(q1_err, compare(cuda_q1.q1_step(b), cuda_q1.q1_step_plain(b),
+                                     f"q1_step at phase 19's first {cap}-row batch"))
+        log(f"  q1_step at phase 19's first {cap}-row batch: equal to its plain version")
+    out["q1_err"] = q1_err
+    if device == "cuda":
+        check({rows for m, rows, _key in probes if m == "exists"}
+              == set(launches["probe_by_shape"]["exists"]),
+              f"phase 19's exists shapes {launches['probe_by_shape']['exists']}, held "
+              f"{sorted(probes)}")
+        check(any(k == "leaf_agg" for k, _s in calls) and bool(spans["q1 batches"]),
+              "phase 19's leaf and Q1 shapes not held")
+
+    # ---- a deadline, a cancel and an admission rejection ---------------
+    q6_want = want["q6"]
+
+    def answers_after(session, what):
+        _drained(session, what)
+        same_result(session.sql(QUERIES["q6"]), q6_want, f"phase 19's next query after {what}")
+
+    session = Session({"tpch": conn}, device=device)
+    session.sql(QUERIES["q1"])
+    t0 = time.perf_counter()
+    session.sql(QUERIES["q1"])
+    wall = time.perf_counter() - t0
+    session.set_property("query_max_run_time", wall / 10)
+    before = counters()["query.deadline_exceeded"]
+    try:
+        session.sql(QUERIES["q1"])
+        check(False, "phase 19: the deadline did not fire")
+    except ExceededTimeLimit as e:
+        site = re.search(r"checked at (\S+)\)", str(e)).group(1)
+    info = session.query_history[-1]
+    check(site in ("scan", "driver-loop", "driver-finish")
+          and info.error_code == "EXCEEDED_TIME_LIMIT"
+          and counters()["query.deadline_exceeded"] == before + 1,
+          f"phase 19's deadline: site {site}, {info.error_code}")
+    session.set_property("query_max_run_time", None)
+    answers_after(session, "the deadline")
+    out["deadline"] = {"wall_s": wall, "limit_s": wall / 10, "site": site}
+    log(f"  deadline: q1's warm wall {wall:.4f} s, query_max_run_time {wall / 10:.4f} s -> "
+        f"ExceededTimeLimit at {site!r}; the session's next query right")
+
+    gated = GatedScans(sf=conn.sf, units_per_split=conn.units_per_split, device=device)
+    session = Session({"tpch": gated}, device=device)
+    box = {}
+
+    def run():
+        try:
+            box["res"] = session.sql(Q1_SHAPED)
+        except Exception as e:  # noqa: BLE001 -- checked below
+            box["err"] = e
+
+    observed = counters()["cancel.observed"]
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    check(gated.reached.wait(60), "phase 19: the cancel query never reached its second split")
+    qid = session.query_history[-1].query_id
+    check(session.cancel(qid, "phase 19") and not session.cancel(qid),
+          "phase 19: Session.cancel did not take")
+    gated.go.set()
+    thread.join(120)
+    check(not thread.is_alive(), "phase 19: the cancelled query hung")
+    err = box.get("err")
+    info = session.query_history[-1]
+    check(isinstance(err, QueryCancelled) and info.error_code == "QUERY_CANCELLED"
+          and counters()["cancel.observed"] == observed + 1
+          and info.metrics.get("cancel.observed") == 1,
+          f"phase 19's cancel: {err!r}, {info.error_code}, {info.metrics}")
+    answers_after(session, "the cancel")
+    out["cancel"] = str(err)
+    log(f"  cancel from a second thread: {err}; cancel.observed 1; the session's next query "
+        f"right")
+
+    session = Session({"tpch": conn}, device=device)
+    peak, node = peak_estimate_bytes(session.plan(QUERIES["q3"]), session.catalog)
+    session.set_property("query_max_memory_bytes", peak // 2)
+    launched = _launch_counts()
+    inj = faults.FaultInjector()
+    inj.inject("scan", times=None)
+    with faults.injected(inj):
+        try:
+            session.sql(QUERIES["q3"])
+            check(False, "phase 19: admission did not reject")
+        except ResourceExhausted as e:
+            rejected = str(e)
+    info = session.query_history[-1]
+    after = _launch_counts()
+    check(inj.fired() == 0 and info.error_code == "RESOURCE_EXHAUSTED"
+          and all(after[k] == launched[k] for k in ("q1", "leaf_agg", "exists", "payload",
+                                                     "lane_sums")),
+          f"phase 19's admission: {inj.fired()} scans, {info.error_code}")
+    session.set_property("query_max_memory_bytes", None)
+    answers_after(session, "the admission rejection")
+    out["admission"] = {"peak": peak, "node": node}
+    log(f"  admission: q3's peak estimate {peak} B at {node}, limit {peak // 2} -> rejected "
+        f"before any scan or launch ({rejected[:100]}...); the session's next query right")
+
+    if device == "cuda":
+        out["oom"] = real_oom(conn, want, device)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -6174,7 +6676,7 @@ def main() -> int:
 
 
 def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
-    """Phases 1-18 (``cpu_answers``: phase 16's CPU answers, computing in
+    """Phases 1-19 (``cpu_answers``: phase 16's CPU answers, computing in
     worker processes meanwhile)."""
     marks: list = []
 
@@ -6618,10 +7120,23 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
                  for k in ("q1", "lane_sums", "leaf_agg", "q3", "like", "prefix")}
     log(f"  exists, sketch and payload launches with phase 18: {totals}; phase 18's alone: "
         f"{p18}; its other kernels: {p18_other}")
+    # ---- phase 19: the query lifecycle and the out-of-core tier ------------
+    mark("19 lifecycle")
+    life = run_lifecycle_queries(TpchConnector(sf=1, device="cuda"))
+    p19 = probe_launch_totals({"phase 19": life["launches"]})
+    totals = probe_launch_totals(join["launches"], strings["launches"], semi["launches"],
+                                 outer["launches"], expr["launches"], sub["launches"],
+                                 feat["launches"], surf["launches"], win["launches"],
+                                 ds["launches"], st["launches"], {"phase 18": obs["launches"]},
+                                 {"phase 19": life["launches"]})
+    p19_other = {k: life["launches"][k]
+                 for k in ("q1", "lane_sums", "leaf_agg", "q3", "like", "prefix")}
+    log(f"  exists, sketch and payload launches with phase 19: {totals}; phase 19's alone: "
+        f"{p19}; its other kernels: {p19_other}")
     mark("json")
     log("phase seconds: " + ", ".join(f"{a} {t1 - t0:.1f}" for (a, t0), (_b, t1)
                                       in zip(marks, marks[1:])))
-    log(f"phases 1-18 in {marks[-1][1] - marks[0][1]:.1f} s")
+    log(f"phases 1-19 in {marks[-1][1] - marks[0][1]:.1f} s")
 
     log(smi[0])
     kernels = [
@@ -6630,12 +7145,12 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
          "jax_function": "presto_tpu/ops/pallas_q1.py:174 q1_step",
          "launches": (q1_launches + p11_other["q1"] + p12_other["q1"] + p13_other["q1"]
                       + p14_other["q1"] + p15_other["q1"] + p16_other["q1"]
-                      + p17_other["q1"] + p18_other["q1"]),
+                      + p17_other["q1"] + p18_other["q1"] + p19_other["q1"]),
          "phase11_launches": p11_other["q1"], "phase12_launches": p12_other["q1"],
          "phase13_launches": p13_other["q1"], "phase14_launches": p14_other["q1"], "phase15_launches": p15_other["q1"],
          "phase16_launches": p16_other["q1"], "phase17_launches": p17_other["q1"],
-         "phase18_launches": p18_other["q1"],
-         "max_abs_err": max(q1_err, obs["q1_err"]), "ms": q1_ms, "kernel_ms": q1_ms,
+         "phase18_launches": p18_other["q1"], "phase19_launches": p19_other["q1"],
+         "max_abs_err": max(q1_err, obs["q1_err"], life["q1_err"]), "ms": q1_ms, "kernel_ms": q1_ms,
          "call_ms": q1_call_ms,
          "plain_ms": q1_plain_ms, "bound_ms": q1_bound, "bound_by": q1_by,
          "library_ms": None, "rows": n, "bytes": q1_bytes, "ops": q1_ops},
@@ -6647,11 +7162,11 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
                       + sub["lane_sums_launches"] + p13_other["lane_sums"]
                       + p14_other["lane_sums"] + p15_other["lane_sums"]
                       + p16_other["lane_sums"]
-                      + p17_other["lane_sums"] + p18_other["lane_sums"]),
+                      + p17_other["lane_sums"] + p18_other["lane_sums"] + p19_other["lane_sums"]),
          "phase13_launches": p13_other["lane_sums"], "phase14_launches": p14_other["lane_sums"],
          "phase15_launches": p15_other["lane_sums"],
          "phase16_launches": p16_other["lane_sums"], "phase17_launches": p17_other["lane_sums"],
-         "phase18_launches": p18_other["lane_sums"],
+         "phase18_launches": p18_other["lane_sums"], "phase19_launches": p19_other["lane_sums"],
          "phase16_launches_by_instance": {k.split()[1]: c for k, c in p16_by_instance.items()
                                           if k.startswith("lane_sums")},
          "phase14_launches_by_instance": {k.split()[1]: c for k, c in p14_by_instance.items()
@@ -6668,7 +7183,7 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
          "max_abs_err": max(lane_err, ln["err"], ln_phone["err"], ln_q4["err"],
                             surf["call_err"]["lane_sums"], win["call_err"]["lane_sums"],
                            ds["call_err"]["lane_sums"], st["call_err"]["lane_sums"],
-                           obs["call_err"]["lane_sums"]),
+                           obs["call_err"]["lane_sums"], life["call_err"]["lane_sums"]),
          "ms": ln["ms"], "kernel_ms": ln["ms"], "call_ms": ln["call_ms"],
          "plain_ms": ln["plain_ms"], "bound_ms": lane_bound, "bound_by": lane_by,
          "library_ms": ln["library_ms"], "rows": cap, "bytes": ln["bytes"], "ops": ln["ops"],
@@ -6690,7 +7205,8 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
          "launches_by_instance": totals["exists"]["by_instance"],
          "launches_from": "phases 6, 8, 9, 10, 11, 12, 13, 14 and 15",
          "phase16_launches": p16["exists"]["launches"], "phase17_launches": p17["exists"]["launches"],
-         "phase18_launches": p18["exists"]["launches"],
+         "phase18_launches": p18["exists"]["launches"], "phase19_launches": p19["exists"]["launches"],
+         "phase19_launches_by_shape": p19["exists"]["by_shape"],
          "phase17_launches_by_shape": p17["exists"]["by_shape"],
          "phase16_launches_by_shape": p16["exists"]["by_shape"],
          "phase15_launches": p15["exists"]["launches"],
@@ -6708,7 +7224,7 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
                              sub["probe_err"]["exists"], feat["probe_err"]["exists"],
                              surf["probe_err"]["exists"], win["probe_err"]["exists"],
                             ds["probe_err"]["exists"], st["probe_err"]["exists"],
-                            obs["probe_err"]["exists"]]
+                            obs["probe_err"]["exists"], life["probe_err"]["exists"]]
                             + [t["err"] for t in probe_shapes["exists"].values()]),
          "ms": ex["ms"], "kernel_ms": ex["ms"], "call_ms": ex["call_ms"],
          "plain_ms": ex["plain_ms"], "bound_ms": exists_bound, "bound_by": exists_by,
@@ -6729,7 +7245,8 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
          "phase14_launches": p14["sketch"]["launches"],
          "phase15_launches": p15["sketch"]["launches"],
          "phase16_launches": p16["sketch"]["launches"], "phase17_launches": p17["sketch"]["launches"],
-         "phase18_launches": p18["sketch"]["launches"],
+         "phase18_launches": p18["sketch"]["launches"], "phase19_launches": p19["sketch"]["launches"],
+         "phase19_launches_by_shape": p19["sketch"]["by_shape"],
          "phase17_launches_by_shape": p17["sketch"]["by_shape"],
          "max_abs_err": max([sketch_err, keep_err["sketch"]]
                             + [t["err"] for t in probe_shapes["sketch"].values()]),
@@ -6744,11 +7261,11 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
          "jax_function": "presto_tpu/ops/pallas_join.py:464 q3_probe_step",
          "launches": (semi["q3_launches"] + p11_other["q3"] + p12_other["q3"] + p13_other["q3"]
                       + p14_other["q3"] + p15_other["q3"] + p16_other["q3"]
-                      + p17_other["q3"] + p18_other["q3"]),
+                      + p17_other["q3"] + p18_other["q3"] + p19_other["q3"]),
          "phase11_launches": p11_other["q3"], "phase12_launches": p12_other["q3"],
          "phase13_launches": p13_other["q3"], "phase14_launches": p14_other["q3"], "phase15_launches": p15_other["q3"],
          "phase16_launches": p16_other["q3"], "phase17_launches": p17_other["q3"],
-         "phase18_launches": p18_other["q3"],
+         "phase18_launches": p18_other["q3"], "phase19_launches": p19_other["q3"],
          "max_abs_err": max(q3_kernel_err, semi["q3"]["err"]),
          "ms": q3_one["ms"], "kernel_ms": q3_one["ms"], "call_ms": q3_one["call_ms"],
          "plain_ms": q3_one["plain_ms"], "bound_ms": q3_bound, "bound_by": q3_by,
@@ -6765,7 +7282,8 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
          "launches_by_instance": totals["payload"]["by_instance"],
          "launches_from": "phases 6, 8, 9, 10, 11, 12, 13, 14 and 15",
          "phase16_launches": p16["payload"]["launches"], "phase17_launches": p17["payload"]["launches"],
-         "phase18_launches": p18["payload"]["launches"],
+         "phase18_launches": p18["payload"]["launches"], "phase19_launches": p19["payload"]["launches"],
+         "phase19_launches_by_shape": p19["payload"]["by_shape"],
          "phase17_launches_by_shape": p17["payload"]["by_shape"],
          "phase16_launches_by_shape": p16["payload"]["by_shape"],
          "phase15_launches": p15["payload"]["launches"],
@@ -6784,7 +7302,8 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
          "max_abs_err": max([payload_err, expr["probe_err"]["payload"],
                              sub["probe_err"]["payload"], feat["probe_err"]["payload"],
                              surf["probe_err"]["payload"], win["probe_err"]["payload"],
-                            ds["probe_err"]["payload"], st["probe_err"]["payload"]]
+                            ds["probe_err"]["payload"], st["probe_err"]["payload"],
+                            life["probe_err"]["payload"]]
                             + [t["err"] for t in probe_shapes["payload"].values()]),
          "ms": pay["ms"], "kernel_ms": pay["ms"], "call_ms": pay["call_ms"],
          "plain_ms": pay["plain_ms"], "bound_ms": pay["bound_ms"], "bound_by": pay["bound_by"],
@@ -6798,12 +7317,12 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
          "launches": (leaf["leaf_launches"] + p11_other["leaf_agg"] + p12_other["leaf_agg"]
                       + p13_other["leaf_agg"] + p14_other["leaf_agg"]
                       + p15_other["leaf_agg"] + p16_other["leaf_agg"]
-                      + p17_other["leaf_agg"] + p18_other["leaf_agg"]),
+                      + p17_other["leaf_agg"] + p18_other["leaf_agg"] + p19_other["leaf_agg"]),
          "phase11_launches": p11_other["leaf_agg"], "phase12_launches": p12_other["leaf_agg"],
          "phase13_launches": p13_other["leaf_agg"], "phase14_launches": p14_other["leaf_agg"],
          "phase15_launches": p15_other["leaf_agg"],
          "phase16_launches": p16_other["leaf_agg"], "phase17_launches": p17_other["leaf_agg"],
-         "phase18_launches": p18_other["leaf_agg"],
+         "phase18_launches": p18_other["leaf_agg"], "phase19_launches": p19_other["leaf_agg"],
          "phase16_launches_by_instance": {k.split()[1]: c for k, c in p16_by_instance.items()
                                           if k.startswith("leaf_agg")},
          "phase15_launches_by_instance": {k.split()[1]: c for k, c in p15_by_instance.items()
@@ -6819,7 +7338,7 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
          "max_abs_err": max(leaf_err, sp["err"], sm_["err"], res_["err"],
                             surf["call_err"]["leaf_agg"], win["call_err"]["leaf_agg"],
                            ds["call_err"]["leaf_agg"], st["call_err"]["leaf_agg"],
-                           obs["call_err"]["leaf_agg"]),
+                           obs["call_err"]["leaf_agg"], life["call_err"]["leaf_agg"]),
          "ms": sp["ms"], "kernel_ms": sp["ms"], "call_ms": sp["call_ms"],
          "plain_ms": sp["plain_ms"], "bound_ms": leaf_bound, "bound_by": leaf_by,
          "library_ms": sp["library_ms"], "rows": sp["rows"], "bytes": sp["bytes"],
@@ -6835,7 +7354,7 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
          "launches": (strings["like_launches"] + outer["like_launches"] + expr["like_launches"]
                       + sub["like_launches"] + p13_other["like"] + p14_other["like"]
                       + p15_other["like"] + p16_other["like"]
-                      + p17_other["like"] + p18_other["like"]),
+                      + p17_other["like"] + p18_other["like"] + p19_other["like"]),
          "launches_by_instance": _summed(strings["like_by_instance"],
                                          outer["like_by_instance"], expr["like_by_instance"],
                                          sub["like_by_instance"], p13_like_by_instance,
@@ -6843,7 +7362,7 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
                                          p16_like_by_instance, p17_like_by_instance),
          "phase13_launches": p13_other["like"], "phase14_launches": p14_other["like"], "phase15_launches": p15_other["like"],
          "phase16_launches": p16_other["like"], "phase17_launches": p17_other["like"],
-         "phase18_launches": p18_other["like"],
+         "phase18_launches": p18_other["like"], "phase19_launches": p19_other["like"],
          "phase14_launches_by_instance": p14_like_by_instance,
          "phase13_launches_by_instance": p13_like_by_instance,
          "launches_from": "phase 8 (LIKE queries), phase 10 (Q13, Q5), phase 11 (Q16) and "
@@ -6871,12 +7390,12 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
          "launches": (strings["prefix_launches"] + p11_other["prefix"] + p12_other["prefix"]
                       + p13_other["prefix"] + p14_other["prefix"]
                       + p15_other["prefix"] + p16_other["prefix"]
-                      + p17_other["prefix"] + p18_other["prefix"]),
+                      + p17_other["prefix"] + p18_other["prefix"] + p19_other["prefix"]),
          "phase11_launches": p11_other["prefix"], "phase12_launches": p12_other["prefix"],
          "phase13_launches": p13_other["prefix"], "phase14_launches": p14_other["prefix"],
          "phase15_launches": p15_other["prefix"],
          "phase16_launches": p16_other["prefix"], "phase17_launches": p17_other["prefix"],
-         "phase18_launches": p18_other["prefix"],
+         "phase18_launches": p18_other["prefix"], "phase19_launches": p19_other["prefix"],
          "launches_from": "phase 8 (the starts_with pipeline); phase 12's like 'forest%' "
                           "runs the LIKE kernel, as in the JAX package",
          "launches_by_instance": strings["prefix_by_instance"],

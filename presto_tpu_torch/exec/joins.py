@@ -149,6 +149,7 @@ class JoinBuildOperator(CollectingOperator):
         pallas: cuda_join.PallasJoinSpec | None = None,
         key_max: int | None = None,
         filter_bits: int = 0,
+        capacity: int | None = None,
     ):
         """``dense_domain``: optional (key_min, domain) from planner
         stats — a dense direct-address table is built beside the sorted
@@ -164,13 +165,20 @@ class JoinBuildOperator(CollectingOperator):
         (stale stats) rather than mispack.
 
         ``filter_bits``: when > 0, the build also publishes the runtime
-        join filter's (min, max) and a Bloom bitmask of this many bits."""
+        join filter's (min, max) and a Bloom bitmask of this many bits.
+
+        ``capacity``: the sorted side's capacity (default: the build
+        batch's bucket); the spill tier builds every resident set and
+        streamed unit at one shared capacity. A spill unit re-finishes
+        the same operator after replacing ``batches`` and clearing
+        ``build_side``."""
         super().__init__()
         self.key = key
         self.dense_domain = dense_domain
         self.pallas = pallas
         self.key_max = key_max
         self.filter_bits = filter_bits
+        self.capacity = capacity
         self.pack_bits: int | None = None
         self.build_side = None
         self.dense_side = None
@@ -255,7 +263,7 @@ class JoinBuildOperator(CollectingOperator):
             pb = int(batch.capacity).bit_length()
             if int(self.key_max).bit_length() + pb <= 62:
                 self.pack_bits = pb
-        cap = batch_capacity(batch.capacity, minimum=16)
+        cap = self.capacity or batch_capacity(batch.capacity, minimum=16)
         spec = self._eligible_pallas_spec(batch)
         with trace_span("step:join_build", "step", {"capacity": cap}):
             side, dense = self._build(batch, cap, spec)

@@ -56,6 +56,7 @@ from presto_tpu_torch.ops.cuda_agg import (
 from presto_tpu_torch.plan import nodes as N
 from presto_tpu_torch.plan.bounds import expr_interval
 from presto_tpu_torch.runtime.faults import fault_point
+from presto_tpu_torch.runtime.lifecycle import check_deadline
 from presto_tpu_torch.runtime.metrics import REGISTRY
 from presto_tpu_torch.spi import batch_capacity, stats_physical_interval
 from presto_tpu_torch.types import TypeKind
@@ -683,6 +684,8 @@ def execute_leaf_route(route: LeafRoute, executor, node, scalars):
 
     state = None
     for b in prefetch_iter(load, splits):
+        # the query's deadline and cancel scope, per split, on its thread
+        check_deadline("scan")
         # declared NULL-freedom's runtime check, on the PRE-membership
         # batch (membership rebuilds validity as the live mask)
         nulls = null_violation(b)

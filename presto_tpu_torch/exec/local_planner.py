@@ -58,15 +58,31 @@ package's, made from the same stats:
   dispatch and its wall, live rows and bytes recorded, and the leaf
   route is skipped so every node's actuals are true;
 - every node's dispatch runs in a ``node:<Type>`` trace span (with its
-  stable ``plan_node_id``), the sink's drain in ``node:Output``, each
-  runtime filter application in ``join_filter``; the JAX package's fault
-  points sit at its sites (``scan`` per split, ``aggregation`` and
-  ``step.agg`` per aggregate, ``step.join_build`` per resident build).
+  stable ``plan_node_id``) through the lifecycle's ``run_fragment``
+  (``fragment:<Type>``: the deadline and cancel check, retries of a
+  retryable failure, a backend OOM mapped to ``DeviceOutOfMemory``), the
+  sink's drain in ``node:Output`` / ``fragment:Output``, each runtime
+  filter application in ``join_filter``; scans check the deadline at
+  each split, on the query's thread; the JAX package's fault points sit
+  at its sites (``scan`` per split, ``aggregation`` and ``step.agg`` per
+  aggregate, ``step.join_build`` per resident build,
+  ``step.grouped_join`` per spilled join);
+- out of core (``exec/spill.py``, ``exec/grouped.py``): a join, semi or
+  anti join whose build estimate (``runtime/memory.estimate_node_bytes``)
+  exceeds ``join_build_budget``, or a keyed aggregation whose estimated
+  state does, runs planned hybrid or grouped: both sides hash-bucketed to
+  budget-accounted host RAM, the resident buckets joined (or aggregated)
+  as one pass and the cold units streamed back through the two-slot
+  transfer pipeline, each unit probed by the plain sorted or dense probe
+  at one shared capacity; the spill stores live until the run's drain
+  ends;
+- the OOM ladder (``exec/ladder.OomLadderMixin``): at rung > 0 every
+  join re-plans out of core with more buckets, and the fused leaf route,
+  the partial-aggregation bypass and the runtime join filters are off.
 
-Not ported: the spill and grouped tiers, the OOM ladder, the lifecycle's
-fragments and deadlines, adaptive history, and the result and executable
-caches. Every join and aggregate runs resident; a plan node without an
-executor here raises ``NotSupported``.
+Not ported: adaptive history, sampled scans, and the result and
+executable caches. A plan node without an executor here raises
+``NotSupported``.
 """
 
 from __future__ import annotations
@@ -81,6 +97,7 @@ from presto_tpu_torch.batch import Batch, Column, QueryResult
 from presto_tpu_torch.devices import resolve_device
 from presto_tpu_torch.exec import leaf_route
 from presto_tpu_torch.exec.joinkeys import declared_key_interval, join_key_exprs
+from presto_tpu_torch.exec.grouped import HostSpill, bucket_batches, bucket_ids_for, spill_stream
 from presto_tpu_torch.exec.joins import (
     BuildOutput,
     JoinBuildOperator,
@@ -88,6 +105,7 @@ from presto_tpu_torch.exec.joins import (
     full_init_flags,
     full_tail,
 )
+from presto_tpu_torch.exec.ladder import OomLadderMixin
 from presto_tpu_torch.exec.operators import (
     AggSpec,
     CapacityOverflow,
@@ -108,9 +126,10 @@ from presto_tpu_torch.exec.operators import (
     window_operator_from_node,
 )
 from presto_tpu_torch.exec.pipeline import BatchStream, Pipeline, prefetch_iter
+from presto_tpu_torch.exec.spill import expand_units, fit_resident, plan_spill, transfer_iter
 from presto_tpu_torch.expr import InputRef, bind_scalars, evaluate, param_scope
 from presto_tpu_torch.ops import cuda_join
-from presto_tpu_torch.ops.hashing import bloom_test
+from presto_tpu_torch.ops.hashing import bloom_test, partition_ids
 from presto_tpu_torch.ops.groupby import ValueBitsOverflow
 from presto_tpu_torch.plan import nodes as N
 from presto_tpu_torch.plan.bounds import agg_value_bits, estimate_rows, key_dictionary
@@ -118,6 +137,15 @@ from presto_tpu_torch.plan.catalog import Catalog
 from presto_tpu_torch.plan.joinfilters import filter_edge_for
 from presto_tpu_torch.runtime.errors import InternalError, NotSupported, UserError
 from presto_tpu_torch.runtime.faults import fault_point
+from presto_tpu_torch.runtime.lifecycle import check_deadline, run_fragment
+from presto_tpu_torch.runtime.memory import (
+    HostSpillBudget,
+    device_budget_bytes,
+    estimate_node_bytes,
+    executor_budget_bytes,
+    global_host_spill_budget,
+    node_row_bytes,
+)
 from presto_tpu_torch.runtime.metrics import REGISTRY
 from presto_tpu_torch.runtime.stats import NodeIds
 from presto_tpu_torch.runtime.trace import batch_device_bytes, batch_row_bytes
@@ -204,15 +232,35 @@ def build_key_interval(node, catalog):
     return declared_key_interval(node.right, node.right_keys[0], catalog)
 
 
-def planned_join_strategy(node, catalog, approx_join: bool = False) -> str:
+def default_join_build_budget(device=None) -> int:
+    """The build budget when ``join_build_budget_bytes`` is unset: a
+    quarter of ``device``'s budget (the default device's when None;
+    ``runtime/memory.py``)."""
+    return (device_budget_bytes() if device is None else executor_budget_bytes(device)) // 4
+
+
+def planned_spill(node, catalog, join_build_budget: int | None = None):
+    """The planned out-of-core shape of a join's build at rung 0
+    (``exec/spill.plan_spill`` over its estimate and the budget)."""
+    budget = default_join_build_budget() if join_build_budget is None else join_build_budget
+    return plan_spill(estimate_node_bytes(node.right, catalog), budget)
+
+
+def planned_join_strategy(node, catalog, join_build_budget: int | None = None,
+                          approx_join: bool = False) -> str:
     """The probe strategy the executor will pick for this join or semi
-    join, from stats alone — the JAX package's rule without its
-    out-of-core modes: pallas (fused lookup-table probe) > sketch(approx)
+    join, from stats alone, the JAX package's rule: hybrid or grouped
+    (the build's estimate exceeds ``join_build_budget``; a FULL join
+    stays in memory) > pallas (fused lookup-table probe) > sketch(approx)
     (under ``approx_join``, a non-negated semi join whose exact table
     does not fit) > dense (direct-address table) > unique (sorted probe)
     > expand. Advisory like every stats decision: a runtime
     ineligibility degrades one rung, counted."""
     semi = isinstance(node, N.SemiJoin)
+    if semi or node.kind != "full":
+        decision = planned_spill(node, catalog, join_build_budget)
+        if decision.mode != "resident":
+            return decision.mode
     iv = build_key_interval(node, catalog)
     unique = True if semi else node.unique
     if iv is not None and cuda_join.interval_ok(iv[0], iv[1]):
@@ -234,10 +282,28 @@ def planned_join_strategy(node, catalog, approx_join: bool = False) -> str:
     return "expand"
 
 
-class LocalExecutor:
+def _probe_capacity(lspill, nbuckets: int, probe_chunk: int, extra=()) -> int:
+    """The shared capacity of a spilled join's probe chunks: bounded by
+    the rows a chunk can carry (``probe_chunk`` caps accumulation, the
+    largest bucket caps the data, a single oversized spill chunk passes
+    whole). ``extra``: the streamed units' own stores (a recursive split
+    moves rows out of ``lspill``), which the capacity covers too."""
+    max_bucket = max((lspill.bucket_rows(b) for b in range(nbuckets)), default=0)
+    max_chunk = lspill.max_chunk_rows()
+    for sp in extra:
+        if sp is None or sp is lspill:
+            continue
+        max_bucket = max(max_bucket, max((sp.bucket_rows(b) for b in range(sp.nbuckets)),
+                                         default=0))
+        max_chunk = max(max_chunk, sp.max_chunk_rows())
+    return batch_capacity(max(min(probe_chunk, max_bucket), max_chunk, 16), minimum=16)
+
+
+class LocalExecutor(OomLadderMixin):
     def __init__(self, catalog: Catalog, pallas_join_enabled: bool = True,
                  approx_join: bool = False, runtime_join_filters: bool = True,
-                 device="cuda"):
+                 device="cuda", join_build_budget: int | None = None,
+                 spill_host_budget: int | None = None):
         self.catalog = catalog
         #: push join build-key bounds and Bloom words into probe scans
         self.runtime_join_filters = runtime_join_filters
@@ -263,13 +329,32 @@ class LocalExecutor:
         self.recorder = None
         #: stable plan-node ids for trace spans when no recorder is set
         self._trace_ids = None
+        #: estimated build sides (and aggregation states) above this many
+        #: bytes run out of core (``exec/spill.py``)
+        self.join_build_budget = (default_join_build_budget(self.device)
+                                  if join_build_budget is None else join_build_budget)
+        #: the OOM ladder's rung (``exec/ladder.py``; the lifecycle bumps
+        #: it through ``degrade_for_oom`` and re-runs the plan)
+        self.oom_rung = 0
+        #: host-RAM bytes the spill stores may hold (None: the process-wide
+        #: budget, ``runtime/memory.global_host_spill_budget``)
+        self.spill_host_budget = spill_host_budget
+        self._host_budget = None
+        #: the current run's executed spill decisions (``_note_spill``)
+        self.spill_events: list = []
+        #: live HostSpill stores of the current run, released when its
+        #: drain ends: streams are replayable (a fragment retry re-drains),
+        #: so the host partitions outlive each stream
+        self._spill_stores: list = []
 
     # ------------------------------------------------------------------
     def run(self, plan: N.PlanNode) -> QueryResult:
         """Execute to a ``QueryResult`` (names + host arrays)."""
         if not isinstance(plan, N.Output):
             raise InternalError("top-level plan must be an Output node")
+        # per run: the OOM ladder re-enters run() on the same executor
         self.used_approx = False
+        self.spill_events = []
         batches, names = self.run_batches(plan)
         return QueryResult(names, [b for b in batches if live_count(b) > 0],
                            approximate=self.used_approx)
@@ -282,16 +367,46 @@ class LocalExecutor:
         self._minmax_memo.clear()
         scalars: dict = {}
         rename = dict(zip(plan.sources, plan.names))
-        with param_scope(self.params):
-            batches = self._exec(plan.child, scalars)
-            # the sink's drain: in a plan without a pipeline breaker the
-            # lazy scan work happens here
-            with trace_span("node:Output", "node", {"plan_node_id": self._nid(plan)}):
-                out = [b.select(list(plan.sources)).rename(rename) for b in batches]
+        # the host spill lives as long as this drain; a nested run (a
+        # scalar subquery) releases only its own stores
+        mark = len(self._spill_stores)
+        try:
+            with param_scope(self.params):
+                batches = self._exec(plan.child, scalars)
+
+                # the sink's drain is a fragment boundary too: in a plan
+                # without a pipeline breaker the lazy scan work happens
+                # here, and a retry re-drains the replayable stream
+                def drain():
+                    return [b.select(list(plan.sources)).rename(rename) for b in batches]
+
+                with trace_span("node:Output", "node", {"plan_node_id": self._nid(plan)}):
+                    out = run_fragment("fragment:Output", drain)
+        finally:
+            for sp in self._spill_stores[mark:]:
+                sp.release()
+            del self._spill_stores[mark:]
         # every scan of the run has drained: one readback of the filters'
         # pruning counts
         self._flush_filter_stats()
         return out, list(plan.names)
+
+    def _host_spill_budget(self) -> HostSpillBudget:
+        """A private budget when ``spill_host_budget_bytes`` set one, else
+        the process-wide one."""
+        if self._host_budget is None:
+            self._host_budget = (
+                HostSpillBudget(self.spill_host_budget, name="session-spill")
+                if self.spill_host_budget is not None else global_host_spill_budget())
+        return self._host_budget
+
+    def _host_spill(self, nbuckets: int, tag: str = "spill"):
+        """A budget-accounted HostSpill on this executor's device,
+        released when the current run's drain ends."""
+        spill = HostSpill(nbuckets, budget=self._host_spill_budget(), tag=tag,
+                          device=self.device)
+        self._spill_stores.append(spill)
+        return spill
 
     def _exec(self, node: N.PlanNode, scalars: dict) -> BatchStream:
         """Execute a node to a replayable lazy BatchStream; ``scalars``
@@ -299,15 +414,19 @@ class LocalExecutor:
         m = getattr(self, f"_exec_{type(node).__name__.lower()}", None)
         if m is None:
             raise NotSupported(f"executing a {type(node).__name__} node is not ported yet")
+        # the lifecycle boundary around the dispatch; a lazy node's work
+        # runs in its stream, so a failure there surfaces at the draining
+        # ancestor's dispatch, which retries by re-running its subtree
         rec = self.recorder
         name = f"node:{type(node).__name__}"
+        label = f"fragment:{type(node).__name__}"
         args = {"plan_node_id": self._nid(node)}
         if rec is None:
             with trace_span(name, "node", args):
-                return m(node, scalars)
+                return run_fragment(label, lambda: m(node, scalars))
         t0 = time.perf_counter()
         with trace_span(name, "node", args) as sp:
-            out = m(node, scalars)
+            out = run_fragment(label, lambda: m(node, scalars))
             rows, nbytes, dev_bytes = -1, -1, -1
             if rec.measure_rows and isinstance(out, BatchStream):
                 # materialize here, so the wall includes this node's work
@@ -361,6 +480,9 @@ class LocalExecutor:
             # it; the filters apply as each batch is handed on, so each
             # reads its slot's state at that moment
             for b, timed in prefetch_iter(load, splits):
+                # on the query's thread, where its context (deadline,
+                # cancel scope, metric delta) is installed
+                check_deadline("scan")
                 if timed is not None:
                     add_complete("step:filter_project", "step", *timed)
                 for slot in fslots:
@@ -387,9 +509,10 @@ class LocalExecutor:
         # as ONE fused step per scan batch (the Q1 kernel for TPC-H Q1,
         # the leaf-aggregation kernel otherwise); a runtime
         # value_overflow falls back to the generic route below, counted.
-        # Skipped under a stats recorder: EXPLAIN ANALYZE needs true
-        # per-node actuals
-        if self.recorder is None:
+        # Skipped under a stats recorder (EXPLAIN ANALYZE needs true
+        # per-node actuals) and on OOM-ladder rungs > 0 (a degraded re-run
+        # takes the generic tiers)
+        if self.recorder is None and self.oom_rung == 0:
             route, reason = leaf_route.match_leaf_fragment(node, self.catalog)
             if route is not None:
                 routed = leaf_route.execute_leaf_route(route, self, node, scalars)
@@ -412,12 +535,27 @@ class LocalExecutor:
             REGISTRY.counter("agg.strategy.single").add()
             op = GlobalAggregationOperator(aggs, device=self.device)
             return BatchStream.of(Pipeline(child, [op]).run())
+        if keys:
+            # planned out-of-core aggregation: an estimated group state
+            # over the budget partitions the input by key hash into host
+            # buckets and aggregates bucket by bucket (a group lives in
+            # one bucket). The estimate alone triggers it: a ladder rung
+            # re-runs a fitting aggregation on the normal path
+            agg_est = estimate_node_bytes(node, self.catalog)
+            if agg_est > self.join_build_budget:
+                decision = self._spill_decision(node, agg_est)
+                hybrid = self._exec_hybrid_agg(node, child, keys, aggs, pax, decision)
+                if hybrid is not None:
+                    REGISTRY.counter(f"agg.strategy.{decision.mode}").add()
+                    return hybrid
         strategy = self._pick_group_strategy(keys, pax, node)
-        if (isinstance(strategy, SortStrategy)
+        if (isinstance(strategy, SortStrategy) and self.oom_rung == 0
                 and leaf_route.bypass_partial_agg(node, self.catalog)):
             # group cardinality ~ input cardinality: per-batch partial
             # folds reduce nothing, so aggregate the concatenated rows in
             # ONE pass with the group capacity sized by the true row count
+            # (not on a ladder rung: one pass is what a degraded re-run
+            # must not do)
             REGISTRY.counter("agg.strategy.bypass").add()
             batches = child.materialize()
             rows = sum(live_count(b) for b in batches)
@@ -442,6 +580,90 @@ class LocalExecutor:
                     raise
                 strategy = SortStrategy(strategy.max_groups * 2)
         raise CapacityOverflow("Aggregate", strategy.max_groups)
+
+    def _exec_hybrid_agg(self, node: N.Aggregate, child, keys, aggs, pax, decision):
+        """Out-of-core keyed aggregation: partition the input rows by the
+        hash of the whole key tuple into host buckets (every group lives
+        in one bucket, so the per-bucket aggregations are disjoint and
+        concatenate exactly), aggregate the resident buckets in one pass,
+        then stream the cold units through the two-slot transfer
+        pipeline. None when the keys cannot be hash-partitioned (BYTES
+        keys): the caller takes the single-state path."""
+        if any(e.dtype.kind is TypeKind.BYTES for _, e in keys):
+            return None
+        key_exprs = [e for _, e in keys]
+
+        def bids(batch, modulus):
+            cols = []
+            for e in key_exprs:
+                v = evaluate(e, batch)
+                if v.data.dim() != 1:
+                    raise NotSupported("non-scalar aggregation key in hybrid spill")
+                # a NULL key hashes as 0; the per-bucket sort strategy
+                # still groups NULL apart from a genuine 0
+                ok = batch.live & valid_of(v.valid, batch.live)
+                cols.append(torch.where(ok, v.data.to(torch.int64), 0))
+            return partition_ids(cols, modulus).cpu().numpy()
+
+        nbuckets = decision.nbuckets
+        aspill = self._host_spill(nbuckets, "agg")
+        for b in child:
+            aspill.append(b, bids(b, nbuckets))
+        row_bytes = max(node_row_bytes(node.child, self.catalog), 1)
+        resident, resident_bytes = fit_resident(decision, aspill.bucket_rows, row_bytes)
+        cold = [b for b in range(nbuckets) if b not in set(resident)]
+        unit_budget = max(decision.budget - resident_bytes, decision.budget // 2, 1)
+        units = expand_units(aspill, None, cold, unit_budget, row_bytes, build_ids=bids,
+                             make_spill=lambda: self._host_spill(1, "agg-split"))
+        self._note_spill(node, decision, resident=resident, streamed=len(units),
+                         host_bytes=aspill.total_bytes())
+        chunk_rows = self._oom_probe_chunk(1 << 18)
+        chunk_cap = _probe_capacity(aspill, nbuckets, chunk_rows, extra=[u.build for u in units])
+        state = {"aggs": list(aggs)}
+
+        def agg_pass(batches, rows):
+            """One bucket pass with the usual overflow retries (groups <=
+            rows sizes the sort strategy)."""
+            strategy = SortStrategy(min(batch_capacity(max(rows, 16)), MAX_GROUP_CAP))
+            src = BatchStream.of(list(batches))
+            for _ in range(MAX_RETRIES):
+                op = HashAggregationOperator(keys, state["aggs"], strategy, passengers=pax,
+                                             device=self.device)
+                try:
+                    return Pipeline(src, [op]).run()
+                except ValueBitsOverflow:
+                    state["aggs"] = [dataclasses.replace(a, value_bits=63)
+                                     for a in state["aggs"]]
+                except CapacityOverflow as e:
+                    if e.op != "HashAggregation":
+                        raise
+                    strategy = SortStrategy(strategy.max_groups * 2)
+            raise CapacityOverflow("Aggregate", strategy.max_groups)
+
+        def load_unit(u):
+            out = list(bucket_batches(u.build, u.bucket, chunk_rows, chunk_cap))
+            rows = u.build.bucket_rows(u.bucket)
+            if rows:
+                REGISTRY.counter("spill.transfer_bytes").add(rows * row_bytes)
+            return out
+
+        def make():
+            fault_point("step.agg")
+            res_rows = sum(aspill.bucket_rows(b) for b in resident)
+            if res_rows:
+                res_chunks = [pb for b in resident
+                              for pb in bucket_batches(aspill, b, chunk_rows, chunk_cap)]
+                yield from agg_pass(res_chunks, res_rows)
+            for u, batches in transfer_iter(load_unit, units, label="spill:transfer"):
+                unit_out = []
+                with trace_span("spill:unit", "step", {"residue": u.residue,
+                                                       "modulus": u.modulus}):
+                    rows = u.build.bucket_rows(u.bucket)
+                    if rows:
+                        unit_out = agg_pass(batches, rows)
+                yield from unit_out
+
+        return BatchStream(make)
 
     def _pick_group_strategy(self, keys, pax, node: N.Aggregate, force_sort: bool = False):
         def dict_len(name: str):
@@ -502,8 +724,9 @@ class LocalExecutor:
         """Register the probe-scan filter slot of an INNER or SEMI join
         before its probe side executes (eligibility is
         ``joinfilters.filter_edge_for``, which EXPLAIN renders). The slot
-        starts at the build key's declared stats interval."""
-        if not self.runtime_join_filters:
+        starts at the build key's declared stats interval. None on an OOM
+        ladder rung > 0 (the degraded re-run takes no filters)."""
+        if not (self.runtime_join_filters and self.oom_rung == 0):
             return None
         tgt = filter_edge_for(node)
         if tgt is None:
@@ -606,12 +829,29 @@ class LocalExecutor:
 
     def _exec_join(self, node: N.Join, scalars):
         # the JAX package's order: the filter slot, the probe subtree, the
-        # build subtree, the keys, the build, the filter's products
+        # build subtree, the spill decision, the build, the keys, the
+        # filter's products
         fslot = self._register_join_filter(node)
         left = self._exec(node.left, scalars)
+        right_stream = self._exec(node.right, scalars)
+        # out of core: a build whose estimate exceeds the budget (or any
+        # build on a ladder rung) runs hybrid or grouped; a FULL join
+        # stays in memory (the grouped tier has no unmatched-build tail)
+        est = estimate_node_bytes(node.right, self.catalog)
+        spill = est > self.join_build_budget
+        decision = self._spill_decision(node, est)
+        if decision.mode != "resident" and node.kind != "full":
+            lkey, rkey, verify = self._join_keys(node, left, right_stream, scalars)
+            if verify and spill:
+                raise NotSupported("wide string keys in grouped (spilled) joins")
+            if not verify:
+                REGISTRY.counter(f"join.strategy.{decision.mode}").add()
+                return self._exec_grouped_join(node, left, right_stream, lkey, rkey, decision)
+            # a ladder-forced spill cannot verify wide string keys; the
+            # estimate says the build fits, so it stays in memory
         # the build side is materialized (the lookup source concatenates
         # it); the probe side streams batch by batch
-        right = self._exec(node.right, scalars).materialize()
+        right = right_stream.materialize()
         fault_point("step.join_build")
         lkey, rkey, verify = self._join_keys(node, left, right, scalars)
         if verify and not node.unique and node.kind != "inner":
@@ -639,6 +879,141 @@ class LocalExecutor:
         return left.map(self._retrying_expand_probe(build, lkey, outs, node.kind, right,
                                                     lambda op, b: op.process(b)[0],
                                                     verify=verify))
+
+    def _spill_both_sides(self, node, left, right_stream, lkey, rkey, decision,
+                          build_row_bytes: int, tag: str):
+        """Hash-spill both sides of a join or semi join to budget-accounted
+        host stores, clamp the planned resident set to the actual bucket
+        sizes, and expand the cold buckets into streamed units (split
+        while oversized). Returns ``(rspill, lspill, resident, units)``
+        and records the executed decision."""
+        nbuckets = decision.nbuckets
+        rspill = spill_stream(right_stream, rkey, nbuckets,
+                              spill=self._host_spill(nbuckets, f"{tag}-build"))
+        lspill = spill_stream(left, lkey, nbuckets,
+                              spill=self._host_spill(nbuckets, f"{tag}-probe"))
+        resident, resident_bytes = fit_resident(decision, rspill.bucket_rows, build_row_bytes)
+        res_set = set(resident)
+        cold = [b for b in range(nbuckets) if b not in res_set]
+        # a streamed unit's build must fit beside the resident set; never
+        # below half the budget, so the split depth is bounded by skew
+        unit_budget = max(decision.budget - resident_bytes, decision.budget // 2, 1)
+        units = expand_units(rspill, lspill, cold, unit_budget, build_row_bytes,
+                             build_ids=lambda b, m: bucket_ids_for(b, rkey, m),
+                             probe_ids=lambda b, m: bucket_ids_for(b, lkey, m),
+                             make_spill=lambda: self._host_spill(1, f"{tag}-split"))
+        self._note_spill(node, decision, resident=resident, streamed=len(units),
+                         host_bytes=rspill.total_bytes() + lspill.total_bytes())
+        return rspill, lspill, resident, units
+
+    def _exec_grouped_join(self, node: N.Join, left, right_stream, lkey, rkey, decision):
+        """Out-of-core (hybrid or grouped) join: both sides hash-spill to
+        host RAM; the resident build buckets are joined first as one
+        combined build (key-equal rows share a bucket, so merging disjoint
+        buckets adds no false match), then the cold units stream
+        host->device through the two-slot transfer pipeline, each joined
+        by the normal probe. Every build (resident and unit) pads to one
+        shared capacity and every probe chunk to another; the build
+        operator is re-finished per pass and the probe operators are
+        shared across passes (one per output capacity), so the strategy
+        counters count as the JAX package's do."""
+        row_bytes_r = max(node_row_bytes(node.right, self.catalog), 1)
+        # probe chunks sized so a chunk stays well under the budget
+        probe_chunk = self._oom_probe_chunk(max(
+            1 << 14,
+            self.join_build_budget // max(node_row_bytes(node.left, self.catalog), 1) // 4))
+        rspill, lspill, resident, units = self._spill_both_sides(
+            node, left, right_stream, lkey, rkey, decision, row_bytes_r, "join")
+        nbuckets = decision.nbuckets
+        outs = [BuildOutput(n, n) for n in node.output_right]
+        rfields = {f.name: f for f in node.right.fields}
+        resident_rows = sum(rspill.bucket_rows(b) for b in resident)
+        unit_build_rows = max((u.build.bucket_rows(u.bucket) for u in units), default=0)
+        build_cap = batch_capacity(max(resident_rows, unit_build_rows, 16), minimum=16)
+        probe_cap = _probe_capacity(lspill, nbuckets, probe_chunk,
+                                    extra=[u.probe for u in units])
+        build = JoinBuildOperator(rkey, capacity=build_cap)
+        probe_ops: dict[tuple, LookupJoinOperator] = {}
+
+        def probe_op(cap: int | None) -> LookupJoinOperator:
+            key = ("u",) if cap is None else ("e", cap)
+            if key not in probe_ops:
+                probe_ops[key] = LookupJoinOperator(build, lkey, outs, node.kind,
+                                                    unique=cap is None, out_capacity=cap)
+            return probe_ops[key]
+
+        def null_build_cols(b: Batch) -> Batch:
+            cols = dict(b.columns)
+            for bo in outs:
+                cols[bo.name] = self._null_column(rfields[bo.source].dtype, b.capacity)
+            return Batch(cols, b.live)
+
+        state = {"cap": batch_capacity(max(build_cap, probe_cap, 1024))}
+
+        def probe_all(probe_chunks):
+            for pb in probe_chunks:
+                if node.unique:
+                    yield probe_op(None).process(pb)[0]
+                    continue
+                for _ in range(MAX_RETRIES):
+                    try:
+                        out = probe_op(state["cap"]).process(pb)[0]
+                        break
+                    except CapacityOverflow:
+                        state["cap"] *= 2
+                else:
+                    raise CapacityOverflow("GroupedJoin", state["cap"])
+                yield out
+
+        def load_unit(u):
+            b = u.build.bucket_batch(u.bucket, capacity=build_cap)
+            if b is not None:
+                REGISTRY.counter("spill.transfer_bytes").add(
+                    u.build.bucket_rows(u.bucket) * row_bytes_r)
+            return b
+
+        def make():
+            fault_point("step.grouped_join")
+            # pass 1: the device-resident buckets, as one combined build
+            res_batches = [bb for b in resident
+                           if (bb := rspill.bucket_batch(b, capacity=build_cap)) is not None]
+            res_probes = (pb for b in resident
+                          for pb in bucket_batches(lspill, b, probe_chunk, probe_cap))
+            if res_batches:
+                build.batches = res_batches
+                build.build_side = None
+                build.finish()
+                yield from probe_all(res_probes)
+            elif node.kind == "left":
+                for pb in res_probes:
+                    yield null_build_cols(pb)
+            # pass 2: the cold units through the two-slot pipeline; a
+            # unit's output materializes inside its span, which closes
+            # before the yield
+            for u, build_batch in transfer_iter(load_unit, units, label="spill:transfer"):
+                unit_out = []
+                with trace_span("spill:unit", "step", {"residue": u.residue,
+                                                       "modulus": u.modulus}):
+                    probe_chunks = bucket_batches(u.probe, u.bucket, probe_chunk, probe_cap)
+                    if build_batch is None:
+                        if node.kind == "left":
+                            unit_out = [null_build_cols(pb) for pb in probe_chunks]
+                    else:
+                        build.batches = [build_batch]
+                        build.build_side = None
+                        build.finish()
+                        unit_out = list(probe_all(probe_chunks))
+                yield from unit_out
+
+        return BatchStream(make)
+
+    def _null_column(self, dtype, cap: int) -> Column:
+        """An all-NULL column of ``cap`` rows (zero data, invalid
+        everywhere) on this executor's device."""
+        shape, dt = (((cap, dtype.width), torch.uint8) if dtype.kind is TypeKind.BYTES
+                     else ((cap,), dtype.torch_dtype))
+        return Column(torch.zeros(shape, dtype=dt, device=self.device),
+                      torch.zeros(cap, dtype=torch.bool, device=self.device), dtype)
 
     def _retrying_expand_probe(self, build, lkey, outs, kind: str, right, call, verify=()):
         """The expansion probe of one batch, retried at a doubled output
@@ -715,16 +1090,29 @@ class LocalExecutor:
         return Batch(cols, torch.zeros(1, dtype=torch.bool, device=dev))
 
     def _exec_semijoin(self, node: N.SemiJoin, scalars):
-        """Semi (``IN`` / ``EXISTS``) or anti (negated) join, resident:
-        the membership probes prefer the fused exists bitmask
-        (duplicate-safe), then the dense table when stats allow, else
-        the sorted keys; under ``approx_join`` a semi join whose exact
-        table does not fit probes the Bloom sketch. A semi join registers
-        a runtime filter like an inner join."""
+        """Semi (``IN`` / ``EXISTS``) or anti (negated) join. Out of core
+        when the build's estimate exceeds the budget (or on a ladder
+        rung); resident otherwise: the membership probes prefer the
+        fused exists bitmask (duplicate-safe), then the dense table when
+        stats allow, else the sorted keys; under ``approx_join`` a semi
+        join whose exact table does not fit probes the Bloom sketch. A
+        semi join registers a runtime filter like an inner join."""
         fslot = self._register_join_filter(node)
         left = self._exec(node.left, scalars)
-        right = self._exec(node.right, scalars).materialize()
+        right_stream = self._exec(node.right, scalars)
         jt = "anti" if node.negated else "semi"
+        est = estimate_node_bytes(node.right, self.catalog)
+        decision = self._spill_decision(node, est)
+        if decision.mode != "resident":
+            # a probe key's existence is decided inside its own hash
+            # bucket, so bucketing is exact for semi and anti alike
+            lkey, rkey, verify = self._join_keys(node, left, right_stream, scalars)
+            if verify:
+                raise NotSupported("wide string semi-join keys")
+            REGISTRY.counter(f"join.strategy.{decision.mode}").add()
+            return self._exec_grouped_semijoin(node, left, right_stream, lkey, rkey,
+                                               decision, jt)
+        right = right_stream.materialize()
         fault_point("step.join_build")
         lkey, rkey, verify = self._join_keys(node, left, right, scalars)
         if verify:
@@ -746,6 +1134,64 @@ class LocalExecutor:
             self.used_approx = True
         op = LookupJoinOperator(build, lkey, (), jt)
         return left.map(lambda b: op.process(b)[0])
+
+    def _exec_grouped_semijoin(self, node: N.SemiJoin, left, right_stream, lkey, rkey,
+                               decision, jt: str):
+        """Out-of-core semi or anti join, shaped as the grouped join: the
+        combined resident pass first, then the cold units through the
+        two-slot pipeline. An absent build unit passes every anti probe
+        row and drops every semi row: the probe rows routed there can
+        only match build rows routed there."""
+        row_bytes_r = max(node_row_bytes(node.right, self.catalog), 1)
+        probe_chunk = self._oom_probe_chunk(1 << 18)
+        rspill, lspill, resident, units = self._spill_both_sides(
+            node, left, right_stream, lkey, rkey, decision, row_bytes_r, "semi")
+        nbuckets = decision.nbuckets
+        resident_rows = sum(rspill.bucket_rows(b) for b in resident)
+        unit_build_rows = max((u.build.bucket_rows(u.bucket) for u in units), default=0)
+        build_cap = batch_capacity(max(resident_rows, unit_build_rows, 16), minimum=16)
+        probe_cap = _probe_capacity(lspill, nbuckets, probe_chunk,
+                                    extra=[u.probe for u in units])
+        build = JoinBuildOperator(rkey, capacity=build_cap)
+        op = LookupJoinOperator(build, lkey, (), jt)
+
+        def load_unit(u):
+            b = u.build.bucket_batch(u.bucket, capacity=build_cap)
+            if b is not None:
+                REGISTRY.counter("spill.transfer_bytes").add(
+                    u.build.bucket_rows(u.bucket) * row_bytes_r)
+            return b
+
+        def make():
+            fault_point("step.grouped_join")
+            res_batches = [bb for b in resident
+                           if (bb := rspill.bucket_batch(b, capacity=build_cap)) is not None]
+            res_probes = (pb for b in resident
+                          for pb in bucket_batches(lspill, b, probe_chunk, probe_cap))
+            if res_batches:
+                build.batches = res_batches
+                build.build_side = None
+                build.finish()
+                for pb in res_probes:
+                    yield op.process(pb)[0]
+            elif jt == "anti":  # nothing to exclude: all pass
+                yield from res_probes
+            for u, build_batch in transfer_iter(load_unit, units, label="spill:transfer"):
+                unit_out = []
+                with trace_span("spill:unit", "step", {"residue": u.residue,
+                                                       "modulus": u.modulus}):
+                    probe_chunks = bucket_batches(u.probe, u.bucket, probe_chunk, probe_cap)
+                    if build_batch is None:
+                        if jt == "anti":
+                            unit_out = list(probe_chunks)
+                    else:
+                        build.batches = [build_batch]
+                        build.build_side = None
+                        build.finish()
+                        unit_out = [op.process(pb)[0] for pb in probe_chunks]
+                yield from unit_out
+
+        return BatchStream(make)
 
     # ---- ordering ---------------------------------------------------------
     @staticmethod

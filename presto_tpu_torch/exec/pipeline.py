@@ -9,8 +9,9 @@ of the device while the next split is generated on a worker thread.
 Hooks: each scan load passes ``fault_point("scan")``, and the push loop
 records the JAX package's spans (``driver:push`` around the source
 loop, ``step:<Operator>`` per pushed batch, ``finish:<Operator>`` per
-finish). The deadline checks of the JAX package's loop come with the
-query lifecycle, which is not ported yet.
+finish) and checks the query's deadline and cancel scope
+(``runtime/lifecycle.check_deadline``) before each push
+(``driver-loop``) and each finish (``driver-finish``).
 """
 
 from __future__ import annotations
@@ -166,10 +167,17 @@ class Pipeline:
                 st.output_batches += 1
                 push(i + 1, b)
 
+        from presto_tpu_torch.runtime.lifecycle import check_deadline
+
+        # one check per pushed batch: a launched step runs to completion,
+        # an expired deadline stops the next push
         with trace.span("driver:push", "driver"):
             for batch in self.source:
+                check_deadline("driver-loop")
                 push(0, batch)
+        # and per finish: a sort's or window's work happens there
         for i, op in enumerate(self.operators):
+            check_deadline("driver-finish")
             t0 = time.perf_counter()
             with trace.span(f"finish:{self.stats[i].name}", "step"):
                 tail = op.finish()

@@ -30,6 +30,7 @@ from presto_tpu_torch.exec.pipeline import prefetch_iter
 from presto_tpu_torch.expr import Call, InputRef, Literal
 from presto_tpu_torch.plan import nodes as N
 from presto_tpu_torch.runtime.faults import fault_point
+from presto_tpu_torch.runtime.lifecycle import check_deadline
 from presto_tpu_torch.runtime.metrics import REGISTRY
 from presto_tpu_torch.spi import batch_capacity, stats_physical_interval
 from presto_tpu_torch.types import TypeKind
@@ -281,6 +282,8 @@ def execute_q1_route(route: Q1Route, catalog, aggs) -> Optional[list[Batch]]:
 
     state = None
     for b in prefetch_iter(load, splits):
+        # the query's deadline and cancel scope, per split, on its thread
+        check_deadline("scan")
         nulls = null_violation(b)
         s = q1_fused_step(b)
         s["value_overflow"] = s["value_overflow"] | nulls

@@ -1,11 +1,22 @@
-"""32-bit key mixing for the join sketch's Bloom bitmask.
+"""Key hashing: 64-bit partition and bucket ids, and the 32-bit mixing
+of the join sketch's Bloom bitmask.
 
-Counterpart of the 32-bit half of ``presto_tpu/ops/hashing.py``
-(``mix32``, ``mix32_slots``, ``SKETCH_SEED``, ``bloom_build``,
-``bloom_test``): the murmur3 finalizer over each key's low 32 bits, and
-a two-hash Bloom bitmask packed 32 bits to an int32 word. The sketch
-kernel (``csrc/join_probe.cu``) recomputes the same two slots, so the
-builder here and the kernel must agree bit for bit.
+Counterpart of ``presto_tpu/ops/hashing.py``. The 64-bit half
+(``mix64``, ``hash_columns``, ``partition_ids``, ``bucket_ids``) is a
+splitmix64 finalizer chain; bucket ids decide which host spill unit a row
+lands in, and so the order of a grouped join's output, so they are
+bit-identical to the JAX package's. PyTorch has no general uint64
+arithmetic, so the unsigned 64-bit values are held in int64 two's
+complement: a product wraps as the unsigned one does, every right shift
+is masked back to a logical shift, a modulus is taken on the unsigned
+value from its two 32-bit halves, and a narrower integer key widens as
+``astype(uint64)`` does (sign-extended).
+
+The 32-bit half (``mix32``, ``mix32_slots``, ``SKETCH_SEED``,
+``bloom_build``, ``bloom_test``) is the murmur3 finalizer over each key's
+low 32 bits, and a two-hash Bloom bitmask packed 32 bits to an int32
+word. The sketch kernel (``csrc/join_probe.cu``) recomputes the same two
+slots, so the builder here and the kernel must agree bit for bit.
 
 Bits: a key is first reduced to int32 as the JAX package's
 ``astype(int32)`` does (int8/int16 sign-extend, wider keys keep their low
@@ -14,14 +25,72 @@ arithmetic, so the value is held in int64: a product of two values under
 2^32 may wrap the int64, but its low 32 bits are exact, and only those
 are kept. Results are int32 (the same bit patterns as the JAX package's
 wrapping int32 arithmetic).
-
-The 64-bit mixing (``mix64``, ``partition_ids``, ``bucket_ids``) comes
-with the distributed tier.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def _u64(v: int) -> int:
+    """The int64 holding the unsigned 64-bit constant ``v``."""
+    return v - (1 << 64) if v >= 1 << 63 else v
+
+
+_M1 = _u64(0xBF58476D1CE4E5B9)
+_M2 = _u64(0x94D049BB133111EB)
+_GOLDEN = _u64(0x9E3779B97F4A7C15)
+_BUCKET_SEED = _u64(0xA24BAED4963EE407)
+#: the largest modulus ``partition_ids`` / ``bucket_ids`` take: the
+#: half-product ``(hi % n) * (2^32 % n)`` must stay inside int64
+MAX_MODULUS = (1 << 31) - 1
+
+
+def _shr(x: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of an unsigned 64-bit value held in int64."""
+    return (x >> s) & ((1 << (64 - s)) - 1)
+
+
+def mix64(x: torch.Tensor) -> torch.Tensor:
+    """splitmix64 finalizer: uint64 -> uint64 (held in int64)."""
+    x = x.to(torch.int64)
+    x = (x ^ _shr(x, 30)) * _M1
+    x = (x ^ _shr(x, 27)) * _M2
+    return x ^ _shr(x, 31)
+
+
+def hash_columns(columns) -> torch.Tensor:
+    """Combined 64-bit hash (int64 bits) of one or more integer key
+    columns: h = mix(h * GOLDEN ^ mix(col)), order-sensitive. A column
+    narrower than 64 bits widens sign-extended (int8/16/32) or
+    zero-extended (bool, uint8), as ``astype(uint64)`` does."""
+    h = None
+    for c in columns:
+        hc = mix64(c.to(torch.int64))
+        h = hc if h is None else mix64((h * _GOLDEN) ^ hc)
+    return h
+
+
+def _umod(h: torch.Tensor, n: int) -> torch.Tensor:
+    """int32 ``U % n`` of the unsigned value ``U`` of int64 bits ``h``,
+    from its 32-bit halves: ((hi % n) * (2^32 % n) + lo) % n."""
+    if not 1 <= n <= MAX_MODULUS:
+        raise ValueError(f"modulus must be in [1, {MAX_MODULUS}], got {n}")
+    hi = _shr(h, 32)
+    lo = h & 0xFFFFFFFF
+    return (((hi % n) * ((1 << 32) % n) + lo) % n).to(torch.int32)
+
+
+def partition_ids(columns, num_partitions: int) -> torch.Tensor:
+    """Hash-partition assignment in [0, num_partitions), int32."""
+    return _umod(hash_columns(columns), num_partitions)
+
+
+def bucket_ids(columns, num_buckets: int) -> torch.Tensor:
+    """Grouped-execution bucket assignment in [0, num_buckets), int32:
+    one extra seeded mix over ``hash_columns``, so bucket ids are
+    decorrelated from ``partition_ids`` over the same key."""
+    return _umod(mix64(hash_columns(columns) ^ _BUCKET_SEED), num_buckets)
 
 _MASK32 = 0xFFFFFFFF
 _M32A = 0x85EBCA6B

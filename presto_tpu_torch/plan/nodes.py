@@ -302,12 +302,14 @@ def scan_physical_types(node: TableScan, catalog) -> dict:
 
 
 def plan_tree_str(node: PlanNode, indent: int = 0, catalog=None,
-                  approx_join: bool = False, _filters=None) -> str:
+                  approx_join: bool = False, _filters=None,
+                  join_build_budget: int | None = None) -> str:
     """EXPLAIN-style rendering. With a ``catalog``, scan columns render
     their narrowed physical storage (``l_shipdate:date:int16``), joins
-    and semi joins
-    render the stats-planned probe strategy
-    (``strategy=pallas|dense|unique|expand``), aggregates the planned
+    and semi joins render the stats-planned probe strategy
+    (``strategy=pallas|dense|unique|expand``, or ``hybrid|grouped`` with
+    the planned out-of-core shape, ``spill=hybrid(2/8 resident)``, when
+    the build's estimate exceeds ``join_build_budget``), aggregates the planned
     aggregation strategy (``agg_strategy=fused|bypass|partial|single``)
     and probe-side scans the runtime join filters pushed into them
     (``runtime_filter=['l_orderkey']``), as the JAX package does. With
@@ -344,7 +346,13 @@ def plan_tree_str(node: PlanNode, indent: int = 0, catalog=None,
         if catalog is not None:
             from presto_tpu_torch.exec.local_planner import planned_join_strategy
 
-            detail += f" strategy={planned_join_strategy(node, catalog, approx_join)}"
+            strategy = planned_join_strategy(node, catalog, join_build_budget=join_build_budget,
+                                             approx_join=approx_join)
+            detail += f" strategy={strategy}"
+            if strategy in ("hybrid", "grouped"):
+                from presto_tpu_torch.exec.local_planner import planned_spill
+
+                detail += f" spill={planned_spill(node, catalog, join_build_budget).explain()}"
     elif isinstance(node, Window):
         detail = f" funcs={[f.name for f in node.funcs]} frame={node.frame}"
     elif isinstance(node, (TopN, Limit)):
@@ -356,5 +364,5 @@ def plan_tree_str(node: PlanNode, indent: int = 0, catalog=None,
     out = f"{pad}{type(node).__name__}{detail}\n"
     for c in node.children:
         out += plan_tree_str(c, indent + 1, catalog=catalog, approx_join=approx_join,
-                             _filters=_filters)
+                             _filters=_filters, join_build_budget=join_build_budget)
     return out

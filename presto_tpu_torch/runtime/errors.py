@@ -1,12 +1,18 @@
-"""Typed error taxonomy (the subset the ported slices raise).
+"""Typed error taxonomy.
 
 Counterpart of ``presto_tpu/runtime/errors.py``: every failure carries a
 typed error code and a retry class. ``UserError`` subclasses
 ``ValueError`` and the resource classes subclass ``RuntimeError`` so
-callers catching the stdlib types keep working.
+callers catching the stdlib types keep working. ``is_backend_oom``
+recognizes what the card raises when device memory runs out: the CUDA
+caching allocator's ``torch.OutOfMemoryError`` ("CUDA out of memory.
+Tried to allocate ..."), a ``RuntimeError`` "CUDA error: out of memory"
+from a raw allocation, and ``MemoryError``.
 """
 
 from __future__ import annotations
+
+import torch
 
 
 class PrestoError(Exception):
@@ -33,6 +39,70 @@ class ResourceExhausted(PrestoError, RuntimeError):
     (a kernel's slot limit, a capacity bucket). Not retryable."""
 
     error_code = "RESOURCE_EXHAUSTED"
+    retryable = False
+
+
+class DeviceOutOfMemory(ResourceExhausted):
+    """A backend out-of-memory mid-dispatch: a plan-time estimate was
+    wrong and the static spill decision under-provisioned. Not retryable
+    as-is (replaying the same step allocates the same buffers) but
+    recoverable: the lifecycle's OOM ladder (``oom_ladder_max``) re-plans
+    the query with more buckets and smaller probe chunks and re-runs it
+    on the same device."""
+
+    error_code = "DEVICE_OUT_OF_MEMORY"
+    retryable = False
+
+
+class SpillBudgetExceeded(ResourceExhausted):
+    """The host-side spill store (``exec/grouped.HostSpill``) would grow
+    past ``spill_host_budget_bytes``. Not retryable and not
+    ladder-eligible: more buckets do not shrink the total spilled
+    bytes."""
+
+    error_code = "SPILL_BUDGET_EXCEEDED"
+    retryable = False
+
+
+class SpillPartitionOverflow(ResourceExhausted):
+    """A cold spill partition still exceeds the per-unit byte budget
+    after ``MAX_SPILL_RECURSION`` recursive re-partitionings: its rows
+    share one hash residue at every doubled modulus (one key's duplicate
+    run), so splitting cannot help."""
+
+    error_code = "SPILL_PARTITION_OVERFLOW"
+    retryable = False
+
+
+class ExceededTimeLimit(PrestoError, RuntimeError):
+    """The per-query wall-clock deadline (``query_max_run_time``)
+    expired. Not retryable within the query."""
+
+    error_code = "EXCEEDED_TIME_LIMIT"
+    retryable = False
+
+
+class ServerOverloaded(ResourceExhausted):
+    """The serving tier shed this submission at admission. Retryable:
+    the demand is a property of the moment, not the query. Carries
+    ``retry_after_s``, a monotone function of queue depth."""
+
+    error_code = "SERVER_OVERLOADED"
+    retryable = True
+
+    def __init__(self, message: str, *, retry_after_s: float = 1.0,
+                 retryable: bool | None = None):
+        super().__init__(message, retryable=retryable)
+        self.retry_after_s = float(retry_after_s)
+
+
+class QueryCancelled(PrestoError, RuntimeError):
+    """The query's ``CancelScope`` was flipped (``Session.cancel``) and a
+    cooperative checkpoint observed it. Not retryable: cancellation is a
+    decision, not a failure. Reservations release through the same
+    ``finally`` paths as any other typed failure."""
+
+    error_code = "QUERY_CANCELLED"
     retryable = False
 
 
@@ -69,6 +139,22 @@ def is_retryable(exc: BaseException) -> bool:
     query-level ``query_retries`` still re-runs them: that knob
     predates the taxonomy and deliberately retries everything)."""
     return bool(getattr(exc, "retryable", False))
+
+
+def is_backend_oom(exc: BaseException) -> bool:
+    """Does ``exc`` look like a backend out-of-memory? The CUDA caching
+    allocator's ``torch.OutOfMemoryError`` (the fault injector's
+    ``BackendOom`` is one), an "out of memory" message (a raw
+    allocation's "CUDA error: out of memory"), and stdlib
+    ``MemoryError``. A taxonomy error is never re-classified: an
+    admission rejection mentioning bytes must not turn into a
+    recoverable device OOM. A sticky launch failure ("an illegal memory
+    access was encountered") is not an OOM."""
+    if isinstance(exc, PrestoError):
+        return False
+    if isinstance(exc, (MemoryError, torch.OutOfMemoryError)):
+        return True
+    return "out of memory" in str(exc).lower()
 
 
 def error_code(exc: BaseException) -> str:

@@ -18,8 +18,11 @@ Determinism rules (tests must replay exactly):
 
 Hook points are no-ops (one module attribute read) when no injector is
 installed, so production paths pay nothing. ``SITES`` lists the JAX
-package's sites; the port reaches the ones its ported modules have
-(``scan``, ``aggregation``, ``step.agg``, ``step.join_build``).
+package's sites; the port reaches all but the ``exchange.*`` ones, which
+come with the distributed tier: ``scan``, ``aggregation``, ``step.agg``,
+``step.join_build``, and since the lifecycle and the out-of-core tier
+``step.grouped_join``, ``step.spill_transfer``, ``step.spill_partition``
+and ``step.cancel_checkpoint`` (every deadline check).
 """
 
 from __future__ import annotations

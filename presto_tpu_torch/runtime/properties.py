@@ -1,4 +1,4 @@
-"""Session properties (the subset the ported planner reads).
+"""Session properties (the subset the ported slices read).
 
 Counterpart of ``presto_tpu/runtime/properties.py``: typed, validated
 per-session overrides of engine defaults, with the JAX package's names,
@@ -138,6 +138,96 @@ SESSION_PROPERTIES: dict[str, PropertyDef] = {
             "named '<span>#<trace_token>', so a torch profiler trace "
             "of the card shows each span as a user annotation over the "
             "kernels it launched."),
+        PropertyDef(
+            "join_build_budget_bytes", int, None,
+            "Capacity planner: estimated join build sides (and keyed "
+            "aggregation states) above this byte budget run out of core, "
+            "planned hybrid or grouped with host-RAM offload "
+            "(exec/spill.py). Default: a quarter of the device budget "
+            "(runtime/memory.device_budget_bytes).",
+            _positive),
+        PropertyDef(
+            "spill_host_budget_bytes", int, None,
+            "Host-RAM byte budget for spilled partitions "
+            "(exec/grouped.HostSpill): hybrid and grouped execution "
+            "reserve their host-side partition bytes against it and fail "
+            "loud (SPILL_BUDGET_EXCEEDED) instead of growing host memory "
+            "silently. Default: the process-wide host-spill budget (16x "
+            "the device budget).",
+            _positive),
+        PropertyDef(
+            "query_max_run_time", float, None,
+            "Per-query wall-clock deadline in seconds, checked at every "
+            "fragment dispatch, driver-loop push and finish, scan split "
+            "and spill transfer slot (a launched kernel runs to "
+            "completion; the check fires before the next step). Expiry "
+            "raises ExceededTimeLimit (error_code EXCEEDED_TIME_LIMIT). "
+            "None: no deadline.",
+            _positive),
+        PropertyDef(
+            "query_max_memory_bytes", int, None,
+            "Admission-control limit: a query whose peak estimated node "
+            "materialization (runtime/memory.estimate_node_bytes) exceeds "
+            "it is rejected with ResourceExhausted before launch. None: "
+            "64x the device budget.",
+            _positive),
+        PropertyDef(
+            "memory_pool_bytes", int, None,
+            "Capacity of the memory pool the session admits through. "
+            "None: the process-wide pool (64x the device budget), shared "
+            "by every session of the process; set, the session gets a "
+            "private pool of that size.",
+            _positive),
+        PropertyDef(
+            "admission_queue_timeout_s", float, 30.0,
+            "How long a query may wait in the memory pool's FIFO "
+            "admission queue for its reservation before failing with "
+            "ResourceExhausted. 0 restores reject-or-nothing.",
+            _non_negative),
+        PropertyDef(
+            "oom_ladder_max", int, 4,
+            "Rungs of the runtime OOM ladder: a backend out-of-memory at "
+            "a dispatch re-plans the query out of core with more buckets "
+            "and smaller probe chunks and re-runs it on the same device, "
+            "up to this many times before the DeviceOutOfMemory surfaces. "
+            "0 disables runtime OOM recovery.",
+            _non_negative),
+        PropertyDef(
+            "retry_count", int, 0,
+            "Fragment-level retries of RETRYABLE failures (injected "
+            "faults, transient device loss): a failing fragment dispatch "
+            "re-runs its subtree up to this many extra times with "
+            "exponential backoff. Deterministic failures are never "
+            "retried. 0 disables fragment retry.",
+            _non_negative),
+        PropertyDef(
+            "retry_backoff_s", float, 0.01,
+            "Base of the exponential fragment-retry backoff: attempt k "
+            "sleeps retry_backoff_s * 2^k seconds (capped at 5 s, and "
+            "never past the deadline).",
+            _non_negative),
+        PropertyDef(
+            "retry_budget_tokens", float, 16.0,
+            "Capacity of the per-session retry token bucket "
+            "(runtime/overload.RetryBudget): fragment retries and "
+            "OOM-ladder rungs each spend one token; a drained bucket "
+            "opens the circuit breaker and failures fail fast.",
+            _positive),
+        PropertyDef(
+            "retry_budget_refill_per_s", float, 2.0,
+            "Retry tokens refilled per second. 0 disables refill (tokens "
+            "only return through the half-open probe's success).",
+            _non_negative),
+        PropertyDef(
+            "retry_breaker_cooldown_s", float, 1.0,
+            "Seconds an open retry circuit breaker waits before going "
+            "half-open and granting exactly one probe retry.",
+            _non_negative),
+        PropertyDef(
+            "device_telemetry", bool, True,
+            "Stamp QueryInfo.device_peak_bytes with the CUDA caching "
+            "allocator's peak watermark (runtime/devices.py) at query "
+            "completion; 0 without a card."),
     ]
 }
 

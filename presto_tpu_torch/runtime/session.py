@@ -26,12 +26,20 @@ history ring (``history``) among them. ``query_retries`` re-runs a
 failed query from the top. ``export_metrics`` renders the process
 registry as OpenMetrics text.
 
+Every query runs through the lifecycle (``runtime/lifecycle.
+QueryManager.run_plan``, ``query_manager``): admission against the
+session's memory pool (``pool()``), the deadline (``query_max_run_time``)
+and cancel scope (``cancel(query_id)`` from any thread), fragment
+retries (``retry_count``) and the OOM ladder (``oom_ladder_max``); joins
+and aggregations over ``join_build_budget_bytes`` run out of core.
+``QueryInfo`` records the error code, the ladder's ``oom_rung`` and
+``rung_history``, the fragment retries and the device peak.
+
 Not ported: the system catalog, the result, executable and plan-stats
-caches, plan-stats history and adaptivity, the query lifecycle
-(admission, deadlines, fragment retries, cancellation, the flight
-recorder), the coalescer and batcher, and the distributed executor. So
-``QueryInfo``'s ``cache_hit``, ``template_hit``, ``coalesced`` and
-``batched`` stay False.
+caches, plan-stats history and adaptivity, the flight recorder, the
+coalescer and batcher, and the distributed executor. So ``QueryInfo``'s
+``cache_hit``, ``template_hit``, ``coalesced`` and ``batched`` stay
+False.
 """
 
 from __future__ import annotations
@@ -47,7 +55,7 @@ import numpy as np
 from presto_tpu_torch.batch import Batch, Dictionary, QueryResult
 from presto_tpu_torch.connectors.memory import MemoryConnector
 from presto_tpu_torch.devices import resolve_device
-from presto_tpu_torch.exec.local_planner import LocalExecutor
+from presto_tpu_torch.exec.local_planner import LocalExecutor, default_join_build_budget
 from presto_tpu_torch.plan.catalog import Catalog
 from presto_tpu_torch.plan.nodes import PlanNode, plan_tree_str
 from presto_tpu_torch.plan.prune import prune
@@ -55,6 +63,8 @@ from presto_tpu_torch.plan.templates import PreparedStatement, device_params, pa
 from presto_tpu_torch.runtime import trace
 from presto_tpu_torch.runtime.errors import UserError, error_code, is_retryable
 from presto_tpu_torch.runtime.events import EventDispatcher, QueryHistoryBuffer
+from presto_tpu_torch.runtime.lifecycle import QueryManager
+from presto_tpu_torch.runtime.memory import MemoryPool, global_pool
 from presto_tpu_torch.runtime.metrics import (
     REGISTRY,
     QueryMetricsDelta,
@@ -108,9 +118,12 @@ def _one_row(name: str, value) -> QueryResult:
 
 class Session:
     def __init__(self, connectors: Mapping[str, object], properties=None, device="cuda",
-                 trace_token: Optional[str] = None):
+                 trace_token: Optional[str] = None, memory_pool: Optional[MemoryPool] = None):
         """``trace_token`` tags every query's trace (and, under
-        ``profile_annotations``, each span's profiler annotation)."""
+        ``profile_annotations``, each span's profiler annotation).
+        ``memory_pool`` shares an explicit ``runtime.memory.MemoryPool``
+        across sessions (default: the process-wide pool, or a private one
+        when ``memory_pool_bytes`` is set)."""
         self.device = resolve_device(device)
         conns = dict(connectors)
         # the writable catalog: CREATE TABLE AS / INSERT INTO land here
@@ -130,6 +143,14 @@ class Session:
         self.traces = TraceStore()
         #: prepared statements (PREPARE name FROM ... / Session.prepare)
         self._prepared: dict[str, PreparedStatement] = {}
+        #: the query lifecycle: admission, deadlines, cancellation,
+        #: fragment retries, the OOM ladder
+        self.query_manager = QueryManager(self)
+        #: an explicit shared pool, else a private one built here (not
+        #: lazily: concurrent first queries must see one pool)
+        self._memory_pool = memory_pool
+        cap = self.prop("memory_pool_bytes")
+        self._private_pool = None if cap is None else MemoryPool(cap, name="session")
         # every memory-connector write (CTAS, INSERT, DROP) bumps the
         # catalog version, also a direct write through the Python API
         mem = conns["memory"]
@@ -140,6 +161,22 @@ class Session:
     def prop(self, name: str):
         """Effective value of a session property (override or default)."""
         return effective(self.properties, name)
+
+    def set_property(self, name: str, value) -> None:
+        """Set one session property (typed and validated; unknown names
+        are errors; None restores the default). A changed history limit
+        resizes the ring, a changed ``memory_pool_bytes`` rebuilds the
+        private pool here, so concurrent queries see one pool."""
+        checked = validate_properties({name: value})
+        if value is None:
+            self.properties.pop(name, None)
+        else:
+            self.properties.update(checked)
+        if name == "query_history_limit":
+            self.history.resize(self.prop(name))
+        if name == "memory_pool_bytes":
+            cap = self.prop(name)
+            self._private_pool = None if cap is None else MemoryPool(cap, name="session")
 
     def _mirror_narrow(self) -> None:
         """Connectors and the leaf-route matcher read the process-wide
@@ -153,13 +190,39 @@ class Session:
         """Register an event listener (``runtime/events.EventListener``)."""
         self.events.add(listener)
 
+    def pool(self) -> MemoryPool:
+        """The memory pool this session's queries reserve from: the
+        explicit shared pool, else the private ``memory_pool_bytes`` one,
+        else the process-wide pool (``runtime.memory.global_pool``)."""
+        if self._memory_pool is not None:
+            return self._memory_pool
+        if self._private_pool is not None:
+            return self._private_pool
+        return global_pool()
+
+    def cancel(self, query_id: str, reason: str = "cancelled") -> bool:
+        """Cooperatively cancel a live query by ``QueryInfo.query_id``
+        (from any thread): its next checkpoint (fragment dispatch, driver
+        push, scan split, spill transfer slot) raises ``QueryCancelled``
+        and the ordinary ``finally`` paths release its pool and host-spill
+        reservations. False for an unknown, finished or already cancelled
+        id."""
+        return self.query_manager.cancel(query_id, reason)
+
+    def join_build_budget(self) -> int:
+        """``join_build_budget_bytes``, else a quarter of this session's
+        device budget."""
+        budget = self.prop("join_build_budget_bytes")
+        return default_join_build_budget(self.device) if budget is None else budget
+
     def executor(self) -> LocalExecutor:
         """A fresh executor configured from the session properties."""
         self._mirror_narrow()
         return LocalExecutor(self.catalog, pallas_join_enabled=self.prop("pallas_join"),
                              approx_join=self.prop("approx_join"),
                              runtime_join_filters=self.prop("runtime_join_filters"),
-                             device=self.device)
+                             device=self.device, join_build_budget=self.join_build_budget(),
+                             spill_host_budget=self.prop("spill_host_budget_bytes"))
 
     # ---- planning ---------------------------------------------------------
     def plan(self, sql: str) -> PlanNode:
@@ -202,7 +265,8 @@ class Session:
         if isinstance(stmt, _DDL + _PREPARED):
             raise UserError("DDL statements execute via Session.sql(), not plan()/explain()")
         plan, bound = self._plan_binding(stmt)
-        out = plan_tree_str(plan, catalog=self.catalog, approx_join=self.prop("approx_join"))
+        out = plan_tree_str(plan, catalog=self.catalog, approx_join=self.prop("approx_join"),
+                            join_build_budget=self.join_build_budget())
         if bound:
             rendered = ", ".join(f"?{i}={dt}:{v!r}" for i, (dt, v) in enumerate(bound))
             out += f"params=[{rendered}]\n"
@@ -293,10 +357,14 @@ class Session:
                                    max_spans=self.prop("trace_max_spans"),
                                    annotate=bool(self.prop("profile_annotations")))
             token = trace.install(tracer)
+        # the cancel scope covers the whole tracked execution, so a cancel
+        # reaches the query before run_plan installs it
+        self.query_manager.open_scope(info.query_id)
         try:
             with trace.span("query", "query", {"query_id": info.query_id}):
                 return self._run_tracked_inner(plan, recorder, info, bound)
         finally:
+            self.query_manager.close_scope(info.query_id)
             if tracer is not None:
                 trace.uninstall(token)
                 self.traces.add(tracer)
@@ -312,7 +380,8 @@ class Session:
             recorder.attach_plan(plan)
             with trace.span("plan_estimates", "stats"):
                 recorder.attach_estimates(plan, self.catalog,
-                                          approx_join=self.prop("approx_join"))
+                                          approx_join=self.prop("approx_join"),
+                                          join_build_budget=self.join_build_budget())
         executor = self.executor()
         executor.recorder = recorder
         executor.params = device_params(bound, self.device) if bound else ()
@@ -320,7 +389,7 @@ class Session:
         # completion events) land in an explicit ``post_run.`` bucket
         post = QueryMetricsDelta()
         try:
-            res = self._run_plan(executor, plan, info)
+            res = self.query_manager.run_plan(executor, plan, info, recorder)
             token = install_delta(post)
             try:
                 info.state = "FINISHED"
@@ -356,20 +425,6 @@ class Session:
                 if v:
                     info.metrics["post_run." + k] = v
         return res, info
-
-    @staticmethod
-    def _run_plan(executor: LocalExecutor, plan: PlanNode, info: QueryInfo):
-        """Run the plan with a ``QueryMetricsDelta`` installed, then fold
-        it into ``info``. The JAX package installs the delta in its query
-        lifecycle's ``run_plan`` (around admission and execution); until
-        that lifecycle is ported, it is installed here."""
-        delta = QueryMetricsDelta()
-        token = install_delta(delta)
-        try:
-            return executor.run(plan)
-        finally:
-            uninstall_delta(token)
-            info.attribute_metrics(delta.snapshot())
 
     # ---- prepared statements -----------------------------------------------
     def _prepare_ast(self, name: str, sql: str, stmt) -> PreparedStatement:
@@ -455,8 +510,8 @@ class Session:
         """The process metrics registry as OpenMetrics/Prometheus text
         (``runtime.metrics.to_openmetrics``). Returns the text; with
         ``path``, also writes it there. The JAX package adds gauges of
-        its memory pool, executable cache and flight recorder, which the
-        port does not have."""
+        its memory pool, executable cache and flight recorder; the port
+        adds none yet (ROADMAP C17)."""
         text = to_openmetrics()
         if path is not None:
             with open(path, "w") as f:

@@ -10,8 +10,8 @@ Node identity: stats key on stable per-query plan-node ids assigned by
 ``NodeIds`` pins a strong reference to every node it names, so an id can
 never be reused while the map lives.
 
-Not ported: the exchange-skew, spill and route-fallback records (the
-distributed, spill and OOM-ladder tiers that write them are not ported).
+Not ported: the exchange-skew and route-fallback records (the
+distributed tier and the plan-stats history that write them come later).
 ``render_analyzed_plan`` renders a tracer's ``exchange`` and ``cache``
 span roll-ups; the port records neither kind yet (no exchanges, no
 caches), so its EXPLAIN ANALYZE has no roll-up lines.
@@ -176,7 +176,8 @@ class StatsRecorder:
         """Pre-assign deterministic pre-order ids for a plan about to run."""
         self.ids.assign(plan)
 
-    def attach_estimates(self, plan, catalog, approx_join: bool = False) -> None:
+    def attach_estimates(self, plan, catalog, approx_join: bool = False,
+                         join_build_budget: int | None = None) -> None:
         """Snapshot the planner's per-node predictions before execution:
         estimated rows, the sound upper bound and its exactness, the
         planned join strategy or aggregation strategy, and the physical
@@ -199,7 +200,9 @@ class StatsRecorder:
             strategy = ""
             if isinstance(node, (N.Join, N.SemiJoin)):
                 try:
-                    strategy = planned_join_strategy(node, catalog, approx_join)
+                    strategy = planned_join_strategy(
+                        node, catalog, join_build_budget=join_build_budget,
+                        approx_join=approx_join)
                 except Exception:  # noqa: BLE001
                     strategy = ""
             elif isinstance(node, N.Aggregate):
@@ -241,6 +244,22 @@ class StatsRecorder:
                                else st.output_bytes + output_bytes)
         if device_bytes >= 0:
             st.device_bytes = max(st.device_bytes, device_bytes)
+
+    def record_spill(self, node, mode: str, partitions: int, resident: int,
+                     host_bytes: int) -> None:
+        """Record an executed out-of-core decision on ``node``'s stats
+        (the spill tier's strategy points): the mode that ran, how many
+        partitions stayed resident and the peak host bytes its spill
+        stores held."""
+        key = self.ids.of(node)
+        st = self.nodes.get(key)
+        if st is None:
+            st = NodeStats(type(node).__name__, node_id=key)
+            self.nodes[key] = st
+        st.spill_mode = mode
+        st.spill_partitions = int(partitions)
+        st.spill_resident = int(resident)
+        st.spill_host_bytes = max(st.spill_host_bytes, int(host_bytes))
 
     def stats_for(self, node) -> Optional[NodeStats]:
         nid = self.ids.get(node)

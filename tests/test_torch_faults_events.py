@@ -38,9 +38,9 @@ from torch_bridge import counting_injector, port_frame
 SF = 0.01
 UNITS = 2048
 
-#: reference fault sites the port has no code for yet (the lifecycle's
-#: cooperative cancel checkpoint, A8)
-NOT_PORTED_SITES = ("step.cancel_checkpoint",)
+#: reference fault sites the port has no code for yet (none since the
+#: lifecycle's cooperative cancel checkpoint, A8)
+NOT_PORTED_SITES = ()
 
 STATEMENTS = {
     "q1": QUERIES["q1"],

@@ -62,6 +62,15 @@ def assert_same(got, want, what: str = "") -> None:
     np.testing.assert_array_equal(g, w, err_msg=what)
 
 
+def same_frame(res, want, what: str = "") -> None:
+    """The port's ``QueryResult`` equals the JAX package's frame: the same
+    columns in order, each equal in values and dtype (``port_frame``)."""
+    got = port_frame(res)
+    assert list(got.columns) == list(want.columns), what
+    for c in want.columns:
+        assert_same(got[c].to_numpy(), want[c].to_numpy(), f"{what} {c}")
+
+
 def port_frame(res):
     """The port's ``QueryResult`` as the JAX package's ``Session.sql``
     builds its frame: one frame per result batch, concatenated (pandas
@@ -220,25 +229,31 @@ def one_thread():
 # (ROADMAP C14, C17) and a fault injector that counts its reaches
 # ---------------------------------------------------------------------------
 
-#: metric families only the query lifecycle (A8) or the caches (A9) fire,
-#: absent from the port's ``QueryInfo.metrics`` (ROADMAP C17)
-C17_FAMILIES = ("fragment.dispatch_s.", "query.execution_s.", "memory.", "spill.",
-                "exec_cache.", "exec.traces", "stats_cache.", "result_cache.", "plan_stats.",
+#: metric families only the caches (A9) fire, absent from the port's
+#: ``QueryInfo.metrics`` (ROADMAP C17)
+C17_FAMILIES = ("exec_cache.", "exec.traces", "stats_cache.", "result_cache.", "plan_stats.",
                 "cache.")
 
-#: spans only the lifecycle (A8) or the caches (A9) record (ROADMAP C14)
-C14_SPANS = ("fragment:", "admission", "retry", "degrade_to_local", "exec_cache:",
-             "stats_cache:", "result_cache:", "plan_stats:")
+#: spans only the distributed executor (A10) or the caches (A9) record
+#: (ROADMAP C14)
+C14_SPANS = ("degrade_to_local", "exec_cache:", "stats_cache:", "result_cache:", "plan_stats:")
+
+#: a histogram snapshot's quantile keys
+_QUANTILES = ("p50", "p95", "p99", "max")
 
 
 def comparable_metrics(metrics: dict) -> dict:
     """``QueryInfo.metrics`` without the C17 families (plain or under
-    ``post_run.``), timers and histograms by ``.count`` only (their
-    totals are wall times)."""
+    ``post_run.``), timers and histograms by ``.count`` only where their
+    values are wall times: the totals, and the quantiles of a histogram
+    of seconds (a name ending ``_s``, e.g. ``fragment.dispatch_s``)."""
     out = {}
     for k, v in metrics.items():
         name = k[len("post_run."):] if k.startswith("post_run.") else k
         if name.startswith(C17_FAMILIES) or k.endswith((".total", ".total_s")):
+            continue
+        base, _dot, stat = name.rpartition(".")
+        if stat in _QUANTILES and base.endswith("_s"):
             continue
         out[k] = v
     return out
