@@ -250,7 +250,26 @@ one CUDA card, and exits nonzero on any failure. Phases:
    ``empty_cache()``, the card's ``torch.OutOfMemoryError`` mapped
    to ``DeviceOutOfMemory`` and walked by the OOM ladder to the uncapped
    answer at rung 1, the cap lifted in a ``finally`` (fraction 1.0,
-   ``empty_cache()``) and the next query answering right.
+   ``empty_cache()``) and the next query answering right;
+20. the cache tier at SF1 (``run_cache_queries``), in sessions with the
+   default properties: Q1, Q6 and Q3 twice, the second run a
+   launch-free result-cache hit, bitwise equal to the first; an INSERT
+   into a memory table invalidating a cached query's result; a 6.0M-row
+   result held under the 256 MiB budget and evicted LRU-first by a wider
+   one; with the result cache off, warm runs served by the executable
+   cache (hits, no miss, the first run's launches) and a repeated
+   multi-key join by the stats cache (no min/max read back); a
+   misestimated aggregation's third recorded run steered by the adaptive
+   controller (``system.adaptive``) and the decision replayed on the
+   fourth; a deadline failure and a fragment retry in the flight
+   recorder (``system.flight_recorder``, ``export_flight_record``); the
+   ``system`` tables through ``select ... where ...`` against the
+   session's stores; two Q6 at once coalesced onto one execution. Every
+   answer against numpy, every launch inside a ``fragment:`` span, each
+   launch shape held to the plain version.
+
+Phases 3-19 open their sessions with ``MEASURED`` (the result cache and
+adaptive execution off), so each timed or counted run executes its plan.
 
 Phase 5 also times the prefix kernel at the first ``part`` split of the
 ``starts_with`` pipeline and over SF1 ``o_comment`` with
@@ -313,6 +332,18 @@ INT_OPS_PER_S = 67e12  # H100 SXM non-tensor 32-bit rate (the fp32 figure)
 FACTOR = 10  # resident batch = SF1 lineitem tiled this many times
 CUTOFF = 10471  # date '1998-09-02'
 I32MAX = (1 << 31) - 1
+
+
+#: phases 3-19 measure execution: their sessions run every statement
+#: (no result-cache hit) on the plan their properties pin (no adaptive
+#: decision from an earlier run's history), as the JAX package's bench.py
+#: measures; phase 20 opens its sessions with the defaults
+MEASURED = {"result_cache_enabled": False, "adaptive_execution": False}
+
+
+def measured_session(connectors, properties=None, **kwargs) -> Session:
+    """A ``Session`` with ``MEASURED`` under the caller's properties."""
+    return Session(connectors, properties={**MEASURED, **(properties or {})}, **kwargs)
 
 
 def check(cond, msg: str) -> None:
@@ -1556,7 +1587,7 @@ def run_join_queries(flush: torch.Tensor, sf: float = 1, device: str = "cuda") -
     probe_batches = len(conn.splits("lineitem"))
     captured, launches, counts = {}, {}, {}
     for q, mode in kernel_of.items():
-        session = Session({"tpch": conn}, device=device)
+        session = measured_session({"tpch": conn}, device=device)
         # the first probe batch of the query's fused join, and its keep calls
         with first_probe(mode) as seen:
             REGISTRY.reset()
@@ -1592,7 +1623,7 @@ def run_join_queries(flush: torch.Tensor, sf: float = 1, device: str = "cuda") -
         busy_ms, scan_s, _ = wall_breakdown(session, conn, QUERIES[q])
         REGISTRY.reset()
         cuda_join.exists_launches = cuda_join.payload_launches = 0
-        off = Session({"tpch": conn}, properties={"pallas_join": False},
+        off = measured_session({"tpch": conn}, properties={"pallas_join": False},
                       device=device).sql(QUERIES[q])
         check(counters()["exec.pallas_join_route"] == 0 and cuda_join.exists_launches == 0
               and cuda_join.payload_launches == 0, f"{q}: pallas_join off still probed fused")
@@ -1789,7 +1820,7 @@ def run_leaf_queries(flush: torch.Tensor, sf: float = 1, device: str = "cuda") -
     try:
         for name, (sql, conn, table) in runs.items():
             # narrow_storage mirrors a process-wide switch: say it each time
-            on = Session({"tpch": tconn, "ssb": sconn}, properties={"narrow_storage": True},
+            on = measured_session({"tpch": tconn, "ssb": sconn}, properties={"narrow_storage": True},
                          device=device)
             leaf_route.agg_step = capture(name) if name in ("q6", "ssb q1_1") else original
             REGISTRY.reset()
@@ -1831,7 +1862,7 @@ def run_leaf_queries(flush: torch.Tensor, sf: float = 1, device: str = "cuda") -
             busy_ms, scan_s, _ = wall_breakdown(on, conn, sql)
             REGISTRY.reset()
             cuda_q1.launches = cuda_agg.launches = 0
-            off = Session({"tpch": tconn, "ssb": sconn}, properties={"narrow_storage": False},
+            off = measured_session({"tpch": tconn, "ssb": sconn}, properties={"narrow_storage": False},
                           device=device).sql(sql)
             check(counters()["exec.leaf_fused_route"] == 0 and cuda_q1.launches == 0
                   and cuda_agg.launches == 0, f"{name}: narrow_storage off still took the route")
@@ -1854,7 +1885,7 @@ def run_leaf_queries(flush: torch.Tensor, sf: float = 1, device: str = "cuda") -
     out["split"] = time_leaf(*captured["q6"], flush)
     out["small"] = time_leaf(*captured["ssb q1_1"], flush)
     out["captured"] = captured
-    on = Session({"tpch": tconn}, properties={"narrow_storage": True}, device=device)
+    on = measured_session({"tpch": tconn}, properties={"narrow_storage": True}, device=device)
     out["resident"] = resident_q6(on, tconn, int(want["q6"]["revenue"][0]), FACTOR)
     return out
 
@@ -2312,7 +2343,7 @@ def run_string_queries(connectors: dict, sf: float = 1, device: str = "cuda") ->
            "launches": {}}
     for name, (key, ftable, others) in STRING_QUERIES.items():
         conn = connectors[key]
-        session = Session({key: conn}, device=device)
+        session = measured_session({key: conn}, device=device)
         current[0] = name
         cuda_strings.like_mask = capture_like
         if name == "ssb q_like_phone":
@@ -2561,7 +2592,7 @@ def run_outer_join_queries(sf13: float = 1, sf5: float = Q5_SF, device: str = "c
         return original_like(data, pattern)
 
     for name, conn in conns.items():
-        session = Session({"tpch": conn}, device=device)
+        session = measured_session({"tpch": conn}, device=device)
         sql = QUERIES[name]
         cuda_strings.like_mask = capture_like
         try:
@@ -3066,7 +3097,7 @@ def run_expression_queries(connectors: dict, device: str = "cuda") -> dict:
     with each_probe_shape(query) as probes:
         for name, (key, sql, _fn) in runs.items():
             conn = connectors[key]
-            session = Session({key: conn}, device=device)
+            session = measured_session({key: conn}, device=device)
             predicted = planned_routes(session, sql)
             cuda_strings.like_mask = capture_like
             query["name"] = name
@@ -3124,7 +3155,7 @@ def run_expression_queries(connectors: dict, device: str = "cuda") -> dict:
         check(held == ran, f"phase 11's {mode} launches at rows {sorted(ran)}, held to the "
               f"plain version at {sorted(held)}")
     try:
-        Session({"tpch": connectors["tpch"]}, device=device).sql(DISTINCT_WITH_COUNT_STAR)
+        measured_session({"tpch": connectors["tpch"]}, device=device).sql(DISTINCT_WITH_COUNT_STAR)
         check(False, "count(*) beside count(DISTINCT ...) was answered")
     except AnalysisError as e:
         check("count_star cannot combine with DISTINCT" in str(e), f"refused as {e}")
@@ -3401,7 +3432,7 @@ def run_subquery_queries(conn, device: str = "cuda") -> dict:
     splits = len(conn.splits("part"))
     with each_probe_shape(query) as probes:
         for name, (sql, _fn) in runs.items():
-            session = Session({"tpch": conn}, device=device)
+            session = measured_session({"tpch": conn}, device=device)
             predicted = planned_routes(session, sql)
             cuda_strings.like_mask = capture_like
             query["name"] = name
@@ -3670,7 +3701,7 @@ def run_join_feature_queries(conn, device: str = "cuda") -> dict:
     query = {"name": None}
     with each_probe_shape(query) as probes:
         for name, (sql, props, _fn) in runs.items():
-            session = Session({"tpch": conn}, properties=props, device=device)
+            session = measured_session({"tpch": conn}, properties=props, device=device)
             predicted = planned_routes(session, sql)
             if conn.sf == 1 and name in RUNS_SORTED:
                 k = RUNS_SORTED[name]
@@ -3722,7 +3753,7 @@ def run_join_feature_queries(conn, device: str = "cuda") -> dict:
           and out["filters"]["q3"]["join.filter_rows_pruned"] > 0,
           "q3: the runtime filter pruned nothing, or pruned with the filters off")
     for name in FILTER_COUNT_ONLY:
-        session = Session({"tpch": conn}, device=device)
+        session = measured_session({"tpch": conn}, device=device)
         sql = QUERIES[name]
         want_filters = expected_filter_counts(cached, name, plan_filter_bits(session, sql))
         REGISTRY.reset()
@@ -4073,7 +4104,7 @@ def run_surface_queries(conn, device: str = "cuda") -> dict:
     query = {"name": None}
     with each_probe_shape(query) as probes, first_kernel_calls(query) as calls:
         for name, (sql, _fn) in runs.items():
-            session = Session({"tpch": conn}, device=device)
+            session = measured_session({"tpch": conn}, device=device)
             predicted = planned_routes(session, sql)
             query["name"] = name
             try:
@@ -4526,7 +4557,7 @@ def run_window_queries(conn, device: str = "cuda") -> dict:
     query = {"name": None}
     with each_probe_shape(query) as probes, first_kernel_calls(query) as calls:
         for name, (sql, _fn) in runs.items():
-            session = Session({"tpch": conn}, device=device)
+            session = measured_session({"tpch": conn}, device=device)
             predicted = planned_routes(session, sql)
             query["name"] = name
             try:
@@ -4795,7 +4826,7 @@ def tpcds_cpu_answer(job: tuple) -> tuple:
     if sf not in _CPU_CONNECTORS:
         _CPU_CONNECTORS[sf] = TpcdsConnector(sf=sf, device="cpu")
     t0 = time.perf_counter()
-    res = Session({"tpcds": _CPU_CONNECTORS[sf]}, device="cpu").sql(_tpcds_queries()[name])
+    res = measured_session({"tpcds": _CPU_CONNECTORS[sf]}, device="cpu").sql(_tpcds_queries()[name])
     return name, sf, time.perf_counter() - t0, answer_of(res)
 
 
@@ -4931,7 +4962,7 @@ def tpcds_sf1_runs(conn, queries: dict, device: str) -> dict:
     query = {"name": None}
     with each_probe_shape(query) as probes, first_kernel_calls(query) as calls:
         for name, sql in queries.items():
-            session = Session({"tpcds": conn}, device=device)
+            session = measured_session({"tpcds": conn}, device=device)
             t0 = time.perf_counter()
             predicted = planned_routes(session, sql)
             phase_s["plans"] += time.perf_counter() - t0
@@ -4995,7 +5026,7 @@ def tpcds_sf1_runs(conn, queries: dict, device: str) -> dict:
     # untraced (outside the counts and launch shapes kept above)
     out["untraced"] = {}
     for name in TPCDS_UNTRACED:
-        session = Session({"tpcds": conn}, device=device)
+        session = measured_session({"tpcds": conn}, device=device)
         t0 = time.perf_counter()
         session.sql(queries[name])
         torch.cuda.synchronize()
@@ -5061,7 +5092,7 @@ def run_tpcds_queries(cpu_answers, device: str = "cuda") -> dict:
     card = {}
     for name, sql in queries.items():
         sf = TPCDS_SMALL_SF if name in TPCDS_CHECK_SMALL else TPCDS_CHECK_SF
-        session = Session({"tpcds": check_conns[sf]}, device=device)
+        session = measured_session({"tpcds": check_conns[sf]}, device=device)
         card[name] = (sf, answer_of(session.sql(sql)))
     card_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -5226,7 +5257,7 @@ def run_semi_queries(sf: float = 1, device: str = "cuda") -> dict:
     # the runtime join filter (on by default) prunes some of the sketch's
     # false positives at the probe scan: the approximate oracles test its
     # range and Bloom bits too
-    bits = {name: plan_filter_bits(Session({"tpch": conn}, device=device), sql)
+    bits = {name: plan_filter_bits(measured_session({"tpch": conn}, device=device), sql)
             for name, sql in (("q4", QUERIES["q4"]), ("semi", SEMI_SQL["semi"]))}
     want = {"q4": q4_expected(conn),
             "q4 approx": q4_expected(conn, bloom=True, filter_bits=bits["q4"]),
@@ -5257,7 +5288,7 @@ def run_semi_queries(sf: float = 1, device: str = "cuda") -> dict:
                  ("sketch", "exists", "lane_sums"), small))
     out = {"walls": {}, "launches": {}, "sketch_launches": 0, "exists_launches": 0}
     for name, sql, approx, kernels, idle, c in runs:
-        session = Session({"tpch": c}, properties={"approx_join": approx}, device=device)
+        session = measured_session({"tpch": c}, properties={"approx_join": approx}, device=device)
         if name == "q4":
             cuda_groupby.fused_lane_sums = capture_lane
         try:
@@ -5575,7 +5606,7 @@ def templates_on_off(conn, device: str, sync, query: dict) -> dict:
         top = {}
         answers = {}
         for turn, on in enumerate((True, False, True, False)):
-            session = Session({"tpch": conn}, properties={"plan_templates": on}, device=device)
+            session = measured_session({"tpch": conn}, properties={"plan_templates": on}, device=device)
             run = f"{name} templates {'on' if on else 'off'} {turn // 2}"
             query["name"] = run
             try:
@@ -5660,7 +5691,7 @@ def run_statement_queries(tconn, dsconn, ds_walls: dict, device: str = "cuda") -
 
     with each_probe_shape(query) as probes, first_kernel_calls(query) as calls:
         # ---- CTAS, INSERT, DROP over lineitem's integer columns -------------
-        session = Session({"tpch": tconn}, device=device)
+        session = measured_session({"tpch": tconn}, device=device)
         cat, mem = session.catalog, session.catalog.connector("memory")
         res, _ = run(session, "ctas leaf_t", LEAF_CTAS)
         check(list(res.column("rows")) == [int(want["leaf"]["c"].sum())],
@@ -5690,7 +5721,7 @@ def run_statement_queries(tconn, dsconn, ds_walls: dict, device: str = "cuda") -
               and cat.version("leaf_t") == 3, "DROP TABLE leaf_t")
 
         # ---- the star join over CTAS copies of TPC-DS columns ---------------
-        ds = Session({"tpcds": dsconn}, device=device)
+        ds = measured_session({"tpcds": dsconn}, device=device)
         ctas_s = 0.0
         for table, sql in STAR_CTAS.items():
             _res, wall = run(ds, f"ctas {table}", sql)
@@ -5983,7 +6014,7 @@ def tracing_overhead(conn, device: str) -> dict:
     Q3 through two sessions, ``trace_enabled`` on and off, interleaved;
     the least wall of 5 rounds each, then of 9 if the first set misses;
     holds when on <= off * 1.05 + 5 ms. Returns each statement's walls."""
-    sessions = {on: Session({"tpch": conn}, properties={"trace_enabled": on}, device=device)
+    sessions = {on: measured_session({"tpch": conn}, properties={"trace_enabled": on}, device=device)
                 for on in (True, False)}
 
     def wall(session, sql):
@@ -6042,7 +6073,7 @@ def run_observability_queries(conn, device: str = "cuda") -> dict:
     del li
     log(f"phase 18: numpy recomputation of {list(OBS_RUNS)} at SF{conn.sf:g} in "
         f"{time.perf_counter() - t0:.1f} s")
-    session = Session({"tpch": conn}, properties={"profile_annotations": True},
+    session = measured_session({"tpch": conn}, properties={"profile_annotations": True},
                       device=device, trace_token=OBS_TOKEN)
     check(session.prop("trace_enabled"), "trace_enabled is off by default")
     out = {"walls": {}, "routes": {}, "infos": {}}
@@ -6162,7 +6193,7 @@ def run_observability_queries(conn, device: str = "cuda") -> dict:
     # the tracing overhead rule
     out["overhead"] = tracing_overhead(conn, device)
     # an injected scan fault, re-run from the top
-    retry = Session({"tpch": conn}, properties={"query_retries": 1}, device=device)
+    retry = measured_session({"tpch": conn}, properties={"query_retries": 1}, device=device)
     inj = faults.FaultInjector()
     inj.inject("scan", times=1)
     before = counters()["query.retried"]
@@ -6353,7 +6384,7 @@ def real_oom(conn, want: dict, device: str) -> dict:
     from presto_tpu_torch.runtime.errors import DeviceOutOfMemory
 
     check(faults.active() is None, "phase 19: a fault injector is installed")
-    session = Session({"tpch": conn}, device=device)
+    session = measured_session({"tpch": conn}, device=device)
     peaks = {}
     chosen = None
     for name in OOM_CANDIDATES:
@@ -6463,7 +6494,7 @@ def run_lifecycle_queries(conn, device: str = "cuda") -> dict:
         f"{time.perf_counter() - t0:.1f} s")
     out = {"spill": {}, "walls": {}}
     query = {"name": None}
-    probe = Session({"tpch": conn}, device=device)
+    probe = measured_session({"tpch": conn}, device=device)
     runs = [(f"{name} resident", name, None) for name in SPILL_SQL]
     for name in SPILL_SQL:
         est = largest_build(probe, SPILL_SQL[name])
@@ -6477,7 +6508,7 @@ def run_lifecycle_queries(conn, device: str = "cuda") -> dict:
         _reset_launches()
         for label, name, budget in runs:
             props = {} if budget is None else {"join_build_budget_bytes": budget}
-            session = Session({"tpch": conn}, properties=props, device=device)
+            session = measured_session({"tpch": conn}, properties=props, device=device)
             query["name"] = label
             before = counters()
             try:
@@ -6518,7 +6549,7 @@ def run_lifecycle_queries(conn, device: str = "cuda") -> dict:
                 f"{decisions}, counters {moved}"
                 + (f", transfers {overlap}" if overlap else ""))
         for name, sql in LIFE_KERNEL_RUNS.items():
-            session = Session({"tpch": conn}, device=device)
+            session = measured_session({"tpch": conn}, device=device)
             query["name"] = name
             try:
                 t0 = time.perf_counter()
@@ -6571,7 +6602,7 @@ def run_lifecycle_queries(conn, device: str = "cuda") -> dict:
         _drained(session, what)
         same_result(session.sql(QUERIES["q6"]), q6_want, f"phase 19's next query after {what}")
 
-    session = Session({"tpch": conn}, device=device)
+    session = measured_session({"tpch": conn}, device=device)
     session.sql(QUERIES["q1"])
     t0 = time.perf_counter()
     session.sql(QUERIES["q1"])
@@ -6595,7 +6626,7 @@ def run_lifecycle_queries(conn, device: str = "cuda") -> dict:
         f"ExceededTimeLimit at {site!r}; the session's next query right")
 
     gated = GatedScans(sf=conn.sf, units_per_split=conn.units_per_split, device=device)
-    session = Session({"tpch": gated}, device=device)
+    session = measured_session({"tpch": gated}, device=device)
     box = {}
 
     def run():
@@ -6625,7 +6656,7 @@ def run_lifecycle_queries(conn, device: str = "cuda") -> dict:
     log(f"  cancel from a second thread: {err}; cancel.observed 1; the session's next query "
         f"right")
 
-    session = Session({"tpch": conn}, device=device)
+    session = measured_session({"tpch": conn}, device=device)
     peak, node = peak_estimate_bytes(session.plan(QUERIES["q3"]), session.catalog)
     session.set_property("query_max_memory_bytes", peak // 2)
     launched = _launch_counts()
@@ -6654,6 +6685,375 @@ def run_lifecycle_queries(conn, device: str = "cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the cache tier, adaptivity, the flight recorder, the system
+# catalog and the in-flight coalescer
+# ---------------------------------------------------------------------------
+
+#: the scalar launch counters of ``_launch_counts``
+SCALAR_KERNELS = ("q1", "lane_sums", "leaf_agg", "exists", "payload", "sketch", "q3", "like",
+                  "prefix")
+#: the result-cache statements of phase 20 (K1, K3 and K4 on their first run)
+CACHE_RUNS = {"q1": QUERIES["q1"], "q6": QUERIES["q6"], "q3": QUERIES["q3"]}
+#: one large result at real size, and a wider one that must evict it
+BIG_SQL = "select l_orderkey, l_partkey, l_suppkey, l_quantity from lineitem"
+WIDE_SQL = ("select l_orderkey, l_partkey, l_suppkey, l_quantity, l_extendedprice, l_discount, "
+            "l_tax, l_shipdate, l_commitdate, l_receiptdate from lineitem")
+#: a repeated multi-key join whose pack widths need a runtime min/max (the
+#: port's ``tests/test_torch_join_keys.py`` "mix with matches")
+KEY_MIX_SQL = ("select count(*) as n from customer a join customer b "
+               "on a.c_nationkey = b.c_nationkey and a.c_acctbal = b.c_acctbal")
+#: an aggregation whose recorded actuals (3 groups) refute its estimate
+#: by far more than ``MISEST_FACTOR``: its third recorded run gets the
+#: adaptive controller's ``bucket`` decision
+ADAPT_SQL = ("select l_returnflag, count(*) c, sum(l_quantity) q from lineitem "
+             "group by l_returnflag order by l_returnflag")
+#: the memory table an INSERT changes under a cached query
+CACHED_MEM_SQL = "select count(*) n, sum(k) s from p20_keys"
+
+
+def _launch_delta(before: dict, after: dict) -> dict:
+    return {k: after[k] - before[k] for k in SCALAR_KERNELS}
+
+
+def key_mix_expected(conn) -> dict:
+    """``KEY_MIX_SQL`` in numpy: the pairs of customers with equal
+    (nationkey, acctbal), each group's size squared."""
+    c = conn.table_numpy("customer", ["c_nationkey", "c_acctbal"])
+    keys = c["c_nationkey"].astype(np.int64) * (1 << 40) + c["c_acctbal"].astype(np.int64)
+    _u, n = np.unique(keys, return_counts=True)
+    return {"n": np.array([int((n.astype(np.int64) ** 2).sum())])}
+
+
+def adapt_expected(conn) -> dict:
+    li = conn.table_numpy("lineitem", ["l_returnflag", "l_quantity"])
+    flags = conn.dictionaries("lineitem")["l_returnflag"].decode(li["l_returnflag"])
+    order = sorted(set(flags.tolist()))
+    c = np.array([int((flags == f).sum()) for f in order])
+    q = np.array([int(li["l_quantity"][flags == f].astype(np.int64).sum()) for f in order])
+    return {"l_returnflag": np.array(order, dtype=object), "c": c, "q": q}
+
+
+def _rows(frame) -> list:
+    """A system-table result's rows, bytes decoded."""
+    cols = [[v.rstrip(b"\x00").decode() if isinstance(v, bytes) else v
+             for v in frame.column(n)] for n in frame.names]
+    return list(zip(*cols))
+
+
+def _bitwise_equal(a, b, what: str) -> None:
+    """Two results hold the same columns, batch parts, dtypes and bytes."""
+    check(a.names == b.names and len(a) == len(b), f"{what}: shapes differ")
+    for name in a.names:
+        for (da, va, ta, xa), (db, vb, tb, xb) in zip(a._cols[name], b._cols[name]):
+            check(da.dtype == db.dtype and da.tobytes() == db.tobytes()
+                  and va.tobytes() == vb.tobytes() and ta == tb and xa is xb,
+                  f"{what}: column {name} is not bitwise equal")
+
+
+def run_cache_queries(conn, device: str = "cuda", cache_budget: int | None = None) -> dict:
+    """Phase 20 at SF1 (``run_cache_queries``), one session with default
+    properties unless a step says otherwise:
+
+    - result cache: Q1, Q6 and Q3 twice (the first run launches K1, K3
+      and K4; the second is a ``cache_hit``, launches nothing and returns
+      a bitwise-equal result); an INSERT into a memory table a cached
+      query reads invalidates it, and the next run executes and equals
+      numpy; ``BIG_SQL`` (about 6.0M rows) is held under the byte budget
+      and ``WIDE_SQL`` evicts it LRU-first (``result_cache.evicted``);
+    - executable and stats caches (result cache off): the second run of
+      Q1, Q6 and Q3 counts ``exec_cache.hit`` and no miss and launches as
+      the first; ``KEY_MIX_SQL`` twice: its second run hits the stats
+      cache and reads no min/max back; both answers equal numpy;
+    - plan stats and adaptivity (result cache off): ``ADAPT_SQL`` four
+      times through ``Session.execute``: its third run applies a
+      ``bucket`` decision (``system.adaptive``), the fourth replays it
+      sticky, every answer equal to numpy;
+    - the flight recorder: a deadline failure and a fragment retry leave
+      one record each, listed by ``system.flight_recorder`` and
+      round-tripped by ``export_flight_record``; no success is captured;
+    - the ``system`` catalog through ``select ... where ...``, each row
+      held to the session's own stores (``runtime_nodes`` names the card);
+    - the coalescer: two threads issue Q6 at once (the leader held at a
+      scan gate until the follower waits): one executes, one follows
+      (``coalesced``), K3 launches once per split, not twice, and both
+      results are equal.
+
+    Every launch lies inside a ``fragment:`` span and each launch shape
+    is held to its plain version. ``cache_budget`` replaces the default
+    ``result_cache_max_bytes`` (the CPU rehearsal's small results)."""
+    from presto_tpu_torch.cache.exec_cache import EXEC_CACHE
+    from presto_tpu_torch.runtime import faults
+    from presto_tpu_torch.runtime.errors import ExceededTimeLimit
+
+    t0 = time.perf_counter()
+    li = conn.table_numpy("lineitem", Q6_COLS)
+    want = {"q1": q1_sql_expected(conn), "q3": q3_expected(conn),
+            "q6": revenue(li["l_extendedprice"], li["l_discount"], q6_mask(li)),
+            "key_mix": key_mix_expected(conn), "adapt": adapt_expected(conn)}
+    del li
+    n_splits = len(list(conn.splits("lineitem")))
+    log(f"phase 20: numpy recomputation of {list(want)} at SF{conn.sf:g} in "
+        f"{time.perf_counter() - t0:.1f} s; lineitem has {n_splits} splits")
+    out = {"walls": {}, "runs": {}}
+    query = {"name": None}
+
+    def run(session, label, sql, how="sql"):
+        before_launch, before = _launch_counts(), counters()
+        query["name"] = label
+        try:
+            t1 = time.perf_counter()
+            res = session.sql(sql) if how == "sql" else session.execute(sql)[0]
+            if device == "cuda":
+                torch.cuda.synchronize()
+            out["walls"][label] = time.perf_counter() - t1
+        finally:
+            query["name"] = None
+        moved = {k: v - before[k] for k, v in counters().items()
+                 if k.startswith(("result_cache.", "exec_cache.", "stats_cache.", "adaptive.",
+                                  "plan_stats.", "prepare.coalesced", "flight."))
+                 and v != before[k]}
+        launched = _launch_delta(before_launch, _launch_counts())
+        out["runs"][label] = {"counters": moved, "launches": launched,
+                              "info": session.query_history[-1]}
+        log(f"  {label}: wall {out['walls'][label]:.3f} s, cache_hit "
+            f"{session.query_history[-1].cache_hit}, counters {moved}, launches "
+            f"{ {k: v for k, v in launched.items() if v} }")
+        return res
+
+    with each_probe_shape(query) as probes, first_kernel_calls(query) as calls, \
+            launch_spans() as spans:
+        _reset_launches()
+        # ---- the result cache -------------------------------------------
+        session = Session({"tpch": conn}, device=device)
+        if cache_budget is not None:
+            session.set_property("result_cache_max_bytes", cache_budget)
+        for name, sql in CACHE_RUNS.items():
+            first = run(session, f"{name} first", sql)
+            second = run(session, f"{name} cached", sql)
+            same_result(first, want[name], f"phase 20 {name}")
+            _bitwise_equal(first, second, f"phase 20 {name} from the result cache")
+            a, b = out["runs"][f"{name} first"], out["runs"][f"{name} cached"]
+            check(not a["info"].cache_hit and b["info"].cache_hit
+                  and b["counters"].get("result_cache.hit") == 1
+                  and not any(b["launches"].values()),
+                  f"phase 20 {name}: the second run was no launch-free cache hit: {b}")
+        if device == "cuda":
+            firsts = {k: out["runs"][f"{k} first"]["launches"] for k in CACHE_RUNS}
+            check(firsts["q1"]["q1"] == n_splits and firsts["q6"]["leaf_agg"] == n_splits
+                  and firsts["q3"]["exists"] > 0,
+                  f"phase 20's first runs launched {firsts} over {n_splits} splits")
+        session.sql("create table p20_keys as select l_orderkey k from lineitem "
+                    "where l_orderkey < 1000")
+        base = conn.table_numpy("lineitem", ["l_orderkey"])["l_orderkey"].astype(np.int64)
+        keys = base[base < 1000]
+        for label in ("mem first", "mem cached"):
+            res = run(session, label, CACHED_MEM_SQL)
+            same_result(res, {"n": np.array([keys.size]), "s": np.array([int(keys.sum())])},
+                        f"phase 20 {label}")
+        check(out["runs"]["mem cached"]["info"].cache_hit, "phase 20: the memory query missed")
+        session.sql("insert into p20_keys select l_orderkey k from lineitem "
+                    "where l_orderkey >= 1000 and l_orderkey < 2000")
+        keys = base[base < 2000]
+        res = run(session, "mem after insert", CACHED_MEM_SQL)
+        check(not out["runs"]["mem after insert"]["info"].cache_hit,
+              "phase 20: the INSERT did not invalidate the cached result")
+        same_result(res, {"n": np.array([keys.size]), "s": np.array([int(keys.sum())])},
+                    "phase 20 after the INSERT")
+        budget = session.prop("result_cache_max_bytes")
+        big = run(session, "big", BIG_SQL)
+        big_key = session.result_cache.keys()[-1]
+        check(big.nbytes <= budget and big_key in session.result_cache.keys(),
+              f"phase 20: a {big.nbytes}-byte result was not held under {budget}")
+        wide = run(session, "wide", WIDE_SQL)
+        check(big.nbytes + wide.nbytes > budget
+              and out["runs"]["wide"]["counters"].get("result_cache.evicted", 0) >= 1
+              and big_key not in session.result_cache.keys()
+              and session.result_cache.bytes_used <= budget,
+              f"phase 20: {wide.nbytes} B did not evict {big.nbytes} B under {budget}: "
+              f"{out['runs']['wide']['counters']}")
+        out["big"] = {"rows": len(big), "bytes": big.nbytes, "wide_rows": len(wide),
+                      "wide_bytes": wide.nbytes, "budget": budget,
+                      "held": session.result_cache.bytes_used}
+        del big, wide
+        log(f"  the byte budget: {out['big']}")
+
+        # ---- the executable and stats caches ------------------------------
+        warm = Session({"tpch": conn}, properties={"result_cache_enabled": False},
+                       device=device)
+        for name, sql in CACHE_RUNS.items():
+            same_result(run(warm, f"{name} exec first", sql), want[name], f"phase 20 {name}")
+            same_result(run(warm, f"{name} exec warm", sql), want[name], f"phase 20 {name}")
+            a, b = out["runs"][f"{name} exec first"], out["runs"][f"{name} exec warm"]
+            check(b["counters"].get("exec_cache.hit", 0) > 0
+                  and not b["counters"].get("exec_cache.miss") and a["launches"] == b["launches"],
+                  f"phase 20 {name}: warm run {b} against the first {a}")
+        for label in ("key mix first", "key mix warm"):
+            same_result(run(warm, label, KEY_MIX_SQL), want["key_mix"], f"phase 20 {label}")
+        km = out["runs"]["key mix warm"]["counters"]
+        check(km.get("stats_cache.hit", 0) >= 1 and not km.get("stats_cache.miss"),
+              f"phase 20: the repeated multi-key join read back again: {km}")
+
+        # ---- plan stats and adaptivity ------------------------------------
+        adapt = Session({"tpch": conn}, properties={"result_cache_enabled": False},
+                        device=device)
+        for i in range(4):
+            same_result(run(adapt, f"adapt {i + 1}", ADAPT_SQL, how="execute"), want["adapt"],
+                        f"phase 20 adaptive run {i + 1}")
+        applied = [out["runs"][f"adapt {i + 1}"]["counters"].get("adaptive.bucket_override", 0)
+                   + out["runs"][f"adapt {i + 1}"]["counters"].get("adaptive.join_flip", 0)
+                   for i in range(4)]
+        table = _rows(adapt.sql("select kind, node_id, trigger, applied from adaptive "
+                                "where applied = 1"))
+        check(applied == [0, 0, 1, 1] and table and table[0][0] in ("bucket", "join_flip"),
+              f"phase 20: adaptive decisions {applied}, system.adaptive {table}")
+        out["adaptive"] = {"applied": applied, "rows": table}
+
+        # ---- the flight recorder -----------------------------------------
+        fs = Session({"tpch": conn}, properties={"result_cache_enabled": False},
+                     device=device)
+        run(fs, "q1 flight warm-up", QUERIES["q1"])
+        t1 = time.perf_counter()
+        fs.sql(QUERIES["q1"])
+        q1_wall = time.perf_counter() - t1
+        fs.set_property("query_max_run_time", q1_wall / 10)
+        try:
+            fs.sql(QUERIES["q1"])
+            check(False, "phase 20: the deadline did not fire")
+        except ExceededTimeLimit:
+            pass
+        fs.set_property("query_max_run_time", None)
+        fs.set_property("retry_count", 2)
+        fs.set_property("retry_backoff_s", 0.0)
+        inj = faults.FaultInjector()
+        inj.inject("scan", times=1)
+        with faults.injected(inj):
+            same_result(fs.sql(QUERIES["q6"]), want["q6"], "phase 20 q6 after a retry")
+        recs = fs.flight.records()
+        check(len(recs) == 2 and "deadline" in recs[0].triggers
+              and "retried" in recs[1].triggers and recs[1].state == "FINISHED",
+              f"phase 20's flight records: {[(r.triggers, r.state) for r in recs]}")
+        listed = _rows(fs.sql("select query_id, triggers, error_code from flight_recorder "
+                              "where oom_rung = 0"))
+        check([r[0] for r in listed] == [r.query_id for r in recs],
+              f"phase 20: system.flight_recorder listed {listed}")
+        exported = json.loads(fs.export_flight_record())
+        check([d["queryId"] for d in exported] == [r.query_id for r in recs]
+              and json.loads(fs.export_flight_record(query_id=recs[0].query_id))
+              == recs[0].to_dict(), "phase 20: the flight export did not round-trip")
+        out["flight"] = [(r.triggers, r.error_code, len(r.spans)) for r in recs]
+
+        # ---- the system catalog ------------------------------------------
+        hist = _rows(session.sql("select query_id, cache_hit from query_history "
+                                 "where cache_hit = 1"))
+        check([r[0] for r in hist] == [i.query_id for i in session.history.infos()
+                                       if i.cache_hit], f"phase 20: query_history {hist}")
+        # the registry and the ledger move while the scan runs: each row
+        # lies between the store read before and after the statement
+        snap = REGISTRY.snapshot()
+        metric = dict(_rows(warm.sql("select name, value from runtime_metrics "
+                                     "where value > 0")))
+        after = REGISTRY.snapshot()
+        check(snap["exec_cache.hit"] <= metric["exec_cache.hit"] <= after["exec_cache.hit"],
+              f"phase 20: runtime_metrics exec_cache.hit {metric.get('exec_cache.hit')}")
+        hits0 = {r["key"]: r["hits"] for r in EXEC_CACHE.stats_rows()}
+        ledger = _rows(warm.sql("select key, kind, hits from exec_cache where hits > 0"))
+        hits1 = {r["key"]: r["hits"] for r in EXEC_CACHE.stats_rows()}
+        check(ledger and all(hits0.get(k, 0) <= h <= hits1.get(k, -1) and k.startswith(kind)
+                             for k, kind, h in ledger),
+              f"phase 20: system.exec_cache {ledger[:5]}")
+        stats = _rows(adapt.sql("select node_type, actual_rows, runs from plan_stats "
+                                "where runs >= 2"))
+        check(stats == [(r["node_type"], r["actual_rows"], e.runs)
+                        for e in adapt.plan_stats.entries() for r in e.records if e.runs >= 2]
+              and stats, f"phase 20: system.plan_stats {stats[:5]}")
+        pool = _rows(session.sql("select pool, capacity_bytes from memory_pool "
+                                 "where capacity_bytes > 0"))
+        check(pool and pool[0][1] == session.pool().snapshot()["capacity_bytes"],
+              f"phase 20: system.memory_pool {pool}")
+        devs = _rows(session.sql("select device_id, platform, bytes_limit from device_stats "
+                                 "where platform = 'gpu'" if device == "cuda" else
+                                 "select device_id, platform, bytes_limit from device_stats "
+                                 "where platform = 'cpu'"))
+        check(len(devs) == (torch.cuda.device_count() if device == "cuda" else 1),
+              f"phase 20: system.device_stats {devs}")
+        nodes = _rows(session.sql("select node_id, platform from runtime_nodes "
+                                  "where platform <> 'none'"))
+        name = torch.cuda.get_device_name(0) if device == "cuda" else "cpu"
+        check(nodes and name in nodes[0][0], f"phase 20: system.runtime_nodes {nodes}")
+        qid = out["runs"]["q1 first"]["info"].query_id
+        spans_sql = ("select name, category, plan_node_id from trace_spans "
+                     f"where query_id = '{qid}'")
+        traced = _rows(session.sql(spans_sql))
+        rec = session.traces.for_query(qid)
+        check(traced == [(d["name"][:48], d["cat"][:12],
+                          int(d["args"].get("plan_node_id", -1)))
+                         for d in rec.to_span_dicts()] and traced,
+              f"phase 20: system.trace_spans for {qid}: {traced[:5]}")
+        out["system"] = {"query_history": len(hist), "exec_cache": len(ledger),
+                         "plan_stats": len(stats), "runtime_nodes": nodes,
+                         "trace_spans": len(traced)}
+        log(f"  the system catalog: {out['system']}")
+
+        # ---- the in-flight coalescer -------------------------------------
+        gated = GatedScans(sf=conn.sf, units_per_split=conn.units_per_split, device=device)
+        co = Session({"tpch": gated}, device=device)
+        box: dict = {}
+        before_launch = _launch_counts()
+
+        def issue(tag):
+            try:
+                box[tag] = co.sql(QUERIES["q6"])
+            except Exception as e:  # noqa: BLE001 -- checked below
+                box[tag + " error"] = e
+
+        lead = threading.Thread(target=issue, args=("lead",), daemon=True)
+        lead.start()
+        check(gated.reached.wait(60), "phase 20: the leader never reached its second split")
+        follow = threading.Thread(target=issue, args=("follow",), daemon=True)
+        follow.start()
+        coalescer = co.query_manager.coalescer
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline and not any(
+                coalescer.waiters(k) for k in list(coalescer._inflight)):
+            time.sleep(0.005)
+        gated.go.set()
+        lead.join(120)
+        follow.join(120)
+        check(not lead.is_alive() and not follow.is_alive() and "lead" in box
+              and "follow" in box, f"phase 20's coalescer: {box}")
+        infos = co.query_history[-2:]
+        launched = _launch_delta(before_launch, _launch_counts())
+        check(sorted(i.coalesced for i in infos) == [False, True],
+              f"phase 20: coalesced flags {[i.coalesced for i in infos]}")
+        if device == "cuda":
+            check(launched["leaf_agg"] == n_splits,
+                  f"phase 20's coalesced Q6 launched {launched} over {n_splits} splits")
+        _bitwise_equal(box["lead"], box["follow"], "phase 20's coalesced Q6")
+        same_result(box["lead"], want["q6"], "phase 20's coalesced Q6")
+        out["coalescer"] = {"launches": launched, "coalesced": [i.coalesced for i in infos]}
+        log(f"  coalescer: two Q6 at once, coalesced {out['coalescer']['coalesced']}, "
+            f"launches {launched}")
+        out["launches"] = _launch_counts()
+    launches = out["launches"]
+    log(f"  phase 20's launches: "
+        f"{ {k: launches[k] for k in ('q1', 'lane_sums', 'leaf_agg', 'exists', 'payload')} }")
+    if device == "cuda":
+        for k in ("q1", "leaf_agg", "exists"):
+            check(launches[k] > 0, f"phase 20 launched no {k} kernel")
+    outside = [(k, sp) for (k, sp), inside in zip(spans["launches"], spans["in_fragment"])
+               if not inside]
+    check(not outside, f"phase 20: kernel launches outside a fragment span: {outside[:5]}")
+    out["probe_err"] = hold_probe_shapes(probes)
+    out["call_err"] = hold_kernel_calls(calls)
+    q1_err = 0
+    for cap, b in sorted(spans["q1 batches"].items()):
+        q1_err = max(q1_err, compare(cuda_q1.q1_step(b), cuda_q1.q1_step_plain(b),
+                                     f"q1_step at phase 20's first {cap}-row batch"))
+    out["q1_err"] = q1_err
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -6676,7 +7076,7 @@ def main() -> int:
 
 
 def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
-    """Phases 1-19 (``cpu_answers``: phase 16's CPU answers, computing in
+    """Phases 1-20 (``cpu_answers``: phase 16's CPU answers, computing in
     worker processes meanwhile)."""
     marks: list = []
 
@@ -7133,10 +7533,24 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
                  for k in ("q1", "lane_sums", "leaf_agg", "q3", "like", "prefix")}
     log(f"  exists, sketch and payload launches with phase 19: {totals}; phase 19's alone: "
         f"{p19}; its other kernels: {p19_other}")
+    # ---- phase 20: the cache tier, adaptivity, the flight recorder, the
+    # system catalog and the coalescer ----------------------------------------
+    mark("20 cache tier")
+    cache = run_cache_queries(TpchConnector(sf=1, device="cuda"))
+    p20 = probe_launch_totals({"phase 20": cache["launches"]})
+    totals = probe_launch_totals(join["launches"], strings["launches"], semi["launches"],
+                                 outer["launches"], expr["launches"], sub["launches"],
+                                 feat["launches"], surf["launches"], win["launches"],
+                                 ds["launches"], st["launches"], {"phase 18": obs["launches"]},
+                                 {"phase 19": life["launches"]}, {"phase 20": cache["launches"]})
+    p20_other = {k: cache["launches"][k]
+                 for k in ("q1", "lane_sums", "leaf_agg", "q3", "like", "prefix")}
+    log(f"  exists, sketch and payload launches with phase 20: {totals}; phase 20's alone: "
+        f"{p20}; its other kernels: {p20_other}")
     mark("json")
     log("phase seconds: " + ", ".join(f"{a} {t1 - t0:.1f}" for (a, t0), (_b, t1)
                                       in zip(marks, marks[1:])))
-    log(f"phases 1-19 in {marks[-1][1] - marks[0][1]:.1f} s")
+    log(f"phases 1-20 in {marks[-1][1] - marks[0][1]:.1f} s")
 
     log(smi[0])
     kernels = [
@@ -7145,12 +7559,14 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
          "jax_function": "presto_tpu/ops/pallas_q1.py:174 q1_step",
          "launches": (q1_launches + p11_other["q1"] + p12_other["q1"] + p13_other["q1"]
                       + p14_other["q1"] + p15_other["q1"] + p16_other["q1"]
-                      + p17_other["q1"] + p18_other["q1"] + p19_other["q1"]),
+                      + p17_other["q1"] + p18_other["q1"] + p19_other["q1"]
+                      + p20_other["q1"]),
          "phase11_launches": p11_other["q1"], "phase12_launches": p12_other["q1"],
          "phase13_launches": p13_other["q1"], "phase14_launches": p14_other["q1"], "phase15_launches": p15_other["q1"],
          "phase16_launches": p16_other["q1"], "phase17_launches": p17_other["q1"],
          "phase18_launches": p18_other["q1"], "phase19_launches": p19_other["q1"],
-         "max_abs_err": max(q1_err, obs["q1_err"], life["q1_err"]), "ms": q1_ms, "kernel_ms": q1_ms,
+         "phase20_launches": p20_other["q1"],
+         "max_abs_err": max(q1_err, obs["q1_err"], life["q1_err"], cache["q1_err"]), "ms": q1_ms, "kernel_ms": q1_ms,
          "call_ms": q1_call_ms,
          "plain_ms": q1_plain_ms, "bound_ms": q1_bound, "bound_by": q1_by,
          "library_ms": None, "rows": n, "bytes": q1_bytes, "ops": q1_ops},
@@ -7162,11 +7578,13 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
                       + sub["lane_sums_launches"] + p13_other["lane_sums"]
                       + p14_other["lane_sums"] + p15_other["lane_sums"]
                       + p16_other["lane_sums"]
-                      + p17_other["lane_sums"] + p18_other["lane_sums"] + p19_other["lane_sums"]),
+                      + p17_other["lane_sums"] + p18_other["lane_sums"] + p19_other["lane_sums"]
+                      + p20_other["lane_sums"]),
          "phase13_launches": p13_other["lane_sums"], "phase14_launches": p14_other["lane_sums"],
          "phase15_launches": p15_other["lane_sums"],
          "phase16_launches": p16_other["lane_sums"], "phase17_launches": p17_other["lane_sums"],
          "phase18_launches": p18_other["lane_sums"], "phase19_launches": p19_other["lane_sums"],
+         "phase20_launches": p20_other["lane_sums"],
          "phase16_launches_by_instance": {k.split()[1]: c for k, c in p16_by_instance.items()
                                           if k.startswith("lane_sums")},
          "phase14_launches_by_instance": {k.split()[1]: c for k, c in p14_by_instance.items()
@@ -7183,7 +7601,8 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
          "max_abs_err": max(lane_err, ln["err"], ln_phone["err"], ln_q4["err"],
                             surf["call_err"]["lane_sums"], win["call_err"]["lane_sums"],
                            ds["call_err"]["lane_sums"], st["call_err"]["lane_sums"],
-                           obs["call_err"]["lane_sums"], life["call_err"]["lane_sums"]),
+                           obs["call_err"]["lane_sums"], life["call_err"]["lane_sums"],
+                           cache["call_err"]["lane_sums"]),
          "ms": ln["ms"], "kernel_ms": ln["ms"], "call_ms": ln["call_ms"],
          "plain_ms": ln["plain_ms"], "bound_ms": lane_bound, "bound_by": lane_by,
          "library_ms": ln["library_ms"], "rows": cap, "bytes": ln["bytes"], "ops": ln["ops"],
@@ -7206,6 +7625,7 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
          "launches_from": "phases 6, 8, 9, 10, 11, 12, 13, 14 and 15",
          "phase16_launches": p16["exists"]["launches"], "phase17_launches": p17["exists"]["launches"],
          "phase18_launches": p18["exists"]["launches"], "phase19_launches": p19["exists"]["launches"],
+         "phase20_launches": p20["exists"]["launches"],
          "phase19_launches_by_shape": p19["exists"]["by_shape"],
          "phase17_launches_by_shape": p17["exists"]["by_shape"],
          "phase16_launches_by_shape": p16["exists"]["by_shape"],
@@ -7224,7 +7644,8 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
                              sub["probe_err"]["exists"], feat["probe_err"]["exists"],
                              surf["probe_err"]["exists"], win["probe_err"]["exists"],
                             ds["probe_err"]["exists"], st["probe_err"]["exists"],
-                            obs["probe_err"]["exists"], life["probe_err"]["exists"]]
+                            obs["probe_err"]["exists"], life["probe_err"]["exists"],
+                            cache["probe_err"]["exists"]]
                             + [t["err"] for t in probe_shapes["exists"].values()]),
          "ms": ex["ms"], "kernel_ms": ex["ms"], "call_ms": ex["call_ms"],
          "plain_ms": ex["plain_ms"], "bound_ms": exists_bound, "bound_by": exists_by,
@@ -7246,6 +7667,7 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
          "phase15_launches": p15["sketch"]["launches"],
          "phase16_launches": p16["sketch"]["launches"], "phase17_launches": p17["sketch"]["launches"],
          "phase18_launches": p18["sketch"]["launches"], "phase19_launches": p19["sketch"]["launches"],
+         "phase20_launches": p20["sketch"]["launches"],
          "phase19_launches_by_shape": p19["sketch"]["by_shape"],
          "phase17_launches_by_shape": p17["sketch"]["by_shape"],
          "max_abs_err": max([sketch_err, keep_err["sketch"]]
@@ -7261,11 +7683,13 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
          "jax_function": "presto_tpu/ops/pallas_join.py:464 q3_probe_step",
          "launches": (semi["q3_launches"] + p11_other["q3"] + p12_other["q3"] + p13_other["q3"]
                       + p14_other["q3"] + p15_other["q3"] + p16_other["q3"]
-                      + p17_other["q3"] + p18_other["q3"] + p19_other["q3"]),
+                      + p17_other["q3"] + p18_other["q3"] + p19_other["q3"]
+                      + p20_other["q3"]),
          "phase11_launches": p11_other["q3"], "phase12_launches": p12_other["q3"],
          "phase13_launches": p13_other["q3"], "phase14_launches": p14_other["q3"], "phase15_launches": p15_other["q3"],
          "phase16_launches": p16_other["q3"], "phase17_launches": p17_other["q3"],
          "phase18_launches": p18_other["q3"], "phase19_launches": p19_other["q3"],
+         "phase20_launches": p20_other["q3"],
          "max_abs_err": max(q3_kernel_err, semi["q3"]["err"]),
          "ms": q3_one["ms"], "kernel_ms": q3_one["ms"], "call_ms": q3_one["call_ms"],
          "plain_ms": q3_one["plain_ms"], "bound_ms": q3_bound, "bound_by": q3_by,
@@ -7283,6 +7707,7 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
          "launches_from": "phases 6, 8, 9, 10, 11, 12, 13, 14 and 15",
          "phase16_launches": p16["payload"]["launches"], "phase17_launches": p17["payload"]["launches"],
          "phase18_launches": p18["payload"]["launches"], "phase19_launches": p19["payload"]["launches"],
+         "phase20_launches": p20["payload"]["launches"],
          "phase19_launches_by_shape": p19["payload"]["by_shape"],
          "phase17_launches_by_shape": p17["payload"]["by_shape"],
          "phase16_launches_by_shape": p16["payload"]["by_shape"],
@@ -7303,7 +7728,7 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
                              sub["probe_err"]["payload"], feat["probe_err"]["payload"],
                              surf["probe_err"]["payload"], win["probe_err"]["payload"],
                             ds["probe_err"]["payload"], st["probe_err"]["payload"],
-                            life["probe_err"]["payload"]]
+                            life["probe_err"]["payload"], cache["probe_err"]["payload"]]
                             + [t["err"] for t in probe_shapes["payload"].values()]),
          "ms": pay["ms"], "kernel_ms": pay["ms"], "call_ms": pay["call_ms"],
          "plain_ms": pay["plain_ms"], "bound_ms": pay["bound_ms"], "bound_by": pay["bound_by"],
@@ -7317,12 +7742,14 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
          "launches": (leaf["leaf_launches"] + p11_other["leaf_agg"] + p12_other["leaf_agg"]
                       + p13_other["leaf_agg"] + p14_other["leaf_agg"]
                       + p15_other["leaf_agg"] + p16_other["leaf_agg"]
-                      + p17_other["leaf_agg"] + p18_other["leaf_agg"] + p19_other["leaf_agg"]),
+                      + p17_other["leaf_agg"] + p18_other["leaf_agg"] + p19_other["leaf_agg"]
+                      + p20_other["leaf_agg"]),
          "phase11_launches": p11_other["leaf_agg"], "phase12_launches": p12_other["leaf_agg"],
          "phase13_launches": p13_other["leaf_agg"], "phase14_launches": p14_other["leaf_agg"],
          "phase15_launches": p15_other["leaf_agg"],
          "phase16_launches": p16_other["leaf_agg"], "phase17_launches": p17_other["leaf_agg"],
          "phase18_launches": p18_other["leaf_agg"], "phase19_launches": p19_other["leaf_agg"],
+         "phase20_launches": p20_other["leaf_agg"],
          "phase16_launches_by_instance": {k.split()[1]: c for k, c in p16_by_instance.items()
                                           if k.startswith("leaf_agg")},
          "phase15_launches_by_instance": {k.split()[1]: c for k, c in p15_by_instance.items()
@@ -7338,7 +7765,8 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
          "max_abs_err": max(leaf_err, sp["err"], sm_["err"], res_["err"],
                             surf["call_err"]["leaf_agg"], win["call_err"]["leaf_agg"],
                            ds["call_err"]["leaf_agg"], st["call_err"]["leaf_agg"],
-                           obs["call_err"]["leaf_agg"], life["call_err"]["leaf_agg"]),
+                           obs["call_err"]["leaf_agg"], life["call_err"]["leaf_agg"],
+                           cache["call_err"]["leaf_agg"]),
          "ms": sp["ms"], "kernel_ms": sp["ms"], "call_ms": sp["call_ms"],
          "plain_ms": sp["plain_ms"], "bound_ms": leaf_bound, "bound_by": leaf_by,
          "library_ms": sp["library_ms"], "rows": sp["rows"], "bytes": sp["bytes"],
@@ -7354,7 +7782,8 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
          "launches": (strings["like_launches"] + outer["like_launches"] + expr["like_launches"]
                       + sub["like_launches"] + p13_other["like"] + p14_other["like"]
                       + p15_other["like"] + p16_other["like"]
-                      + p17_other["like"] + p18_other["like"] + p19_other["like"]),
+                      + p17_other["like"] + p18_other["like"] + p19_other["like"]
+                      + p20_other["like"]),
          "launches_by_instance": _summed(strings["like_by_instance"],
                                          outer["like_by_instance"], expr["like_by_instance"],
                                          sub["like_by_instance"], p13_like_by_instance,
@@ -7363,6 +7792,7 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
          "phase13_launches": p13_other["like"], "phase14_launches": p14_other["like"], "phase15_launches": p15_other["like"],
          "phase16_launches": p16_other["like"], "phase17_launches": p17_other["like"],
          "phase18_launches": p18_other["like"], "phase19_launches": p19_other["like"],
+         "phase20_launches": p20_other["like"],
          "phase14_launches_by_instance": p14_like_by_instance,
          "phase13_launches_by_instance": p13_like_by_instance,
          "launches_from": "phase 8 (LIKE queries), phase 10 (Q13, Q5), phase 11 (Q16) and "
@@ -7390,12 +7820,14 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
          "launches": (strings["prefix_launches"] + p11_other["prefix"] + p12_other["prefix"]
                       + p13_other["prefix"] + p14_other["prefix"]
                       + p15_other["prefix"] + p16_other["prefix"]
-                      + p17_other["prefix"] + p18_other["prefix"] + p19_other["prefix"]),
+                      + p17_other["prefix"] + p18_other["prefix"] + p19_other["prefix"]
+                      + p20_other["prefix"]),
          "phase11_launches": p11_other["prefix"], "phase12_launches": p12_other["prefix"],
          "phase13_launches": p13_other["prefix"], "phase14_launches": p14_other["prefix"],
          "phase15_launches": p15_other["prefix"],
          "phase16_launches": p16_other["prefix"], "phase17_launches": p17_other["prefix"],
          "phase18_launches": p18_other["prefix"], "phase19_launches": p19_other["prefix"],
+         "phase20_launches": p20_other["prefix"],
          "launches_from": "phase 8 (the starts_with pipeline); phase 12's like 'forest%' "
                           "runs the LIKE kernel, as in the JAX package",
          "launches_by_instance": strings["prefix_by_instance"],

@@ -308,6 +308,30 @@ class QueryResult:
         first = self._cols[self.names[0]] if self.names else []
         return int(sum(len(p[1]) for p in first))
 
+    @property
+    def nbytes(self) -> int:
+        """Host bytes the result holds: every column's values and
+        validity, and each distinct dictionary's strings once."""
+        total, seen = 0, set()
+        for parts in self._cols.values():
+            for data, valid, _t, d in parts:
+                total += data.nbytes + valid.nbytes
+                if d is not None and id(d) not in seen:
+                    seen.add(id(d))
+                    total += sum(len(v) for v in d.values.tolist()) + 8 * len(d)
+        return int(total)
+
+    def copy(self) -> "QueryResult":
+        """A copy whose arrays share nothing with this result's (the
+        dictionaries, immutable, are shared)."""
+        out = QueryResult.__new__(QueryResult)
+        out.names = list(self.names)
+        out.approximate = self.approximate
+        out.types = dict(self.types)
+        out._cols = {n: [(data.copy(), valid.copy(), t, d) for data, valid, t, d in parts]
+                     for n, parts in self._cols.items()}
+        return out
+
     def parts(self, name: str, logical: bool = True) -> list[np.ndarray]:
         """The column decoded batch by batch, each batch with its own type
         and dictionary (a UNION branch of NULL literals carries none), as

@@ -24,18 +24,17 @@ probes stay single-key, so:
   (``hash63_mix``) with a verify pair for every component that is not
   itself a ``bytes_hash``.
 
-The JAX package also keeps a cross-query cache of runtime min/max
-readbacks (``presto_tpu/cache/stats_cache.py``); the port has no cache
-tier and reads them back in every query. A cached min/max equals the
-readback, so the packing is the same.
+A runtime min/max readback is kept across the session's queries by the
+stats cache (``cache/stats_cache.py``), keyed by content and invalidated
+by table version: a repeated multi-key join reads nothing back.
 """
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Callable, Sequence
 
-from presto_tpu_torch.expr import Call, Expr, InputRef, Literal, Unbound
+from presto_tpu_torch.cache import stats_cache
+from presto_tpu_torch.expr import Call, Expr, InputRef, Literal
 from presto_tpu_torch.plan.bounds import expr_interval, key_dictionary, node_intervals
 from presto_tpu_torch.runtime.errors import NotSupported
 from presto_tpu_torch.runtime.metrics import REGISTRY
@@ -50,31 +49,6 @@ def declared_key_interval(node, key: Expr, catalog):
     if iv is None:
         return None
     return (int(iv[0]), int(iv[1]))
-
-
-def _has_unbound(obj) -> bool:
-    """Does the subtree hold a scalar-subquery slot? Its rows then
-    depend on a value bound outside it, so its content is no memo key."""
-    if isinstance(obj, Unbound):
-        return True
-    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
-        return any(_has_unbound(getattr(obj, f.name)) for f in dataclasses.fields(obj))
-    if isinstance(obj, (tuple, list)):
-        return any(_has_unbound(x) for x in obj)
-    return False
-
-
-def _content_key(node, key: Expr):
-    """A query-scoped memo key for one runtime min/max: the plan
-    subtree and key expression by content (equal subtrees carry the same
-    rows), or None when they hold an unbound slot or do not hash."""
-    if _has_unbound(node) or _has_unbound(key):
-        return None
-    try:
-        hash((node, key))
-    except TypeError:
-        return None
-    return ("minmax", node, key)
 
 
 def _is_hash(e: Expr) -> bool:
@@ -152,16 +126,23 @@ def join_key_exprs(lkeys: Sequence[Expr], rkeys: Sequence[Expr], *, catalog, lno
     local: dict = {}  # identity keys never outlive this call
 
     def cached_minmax(side: int, key: Expr):
+        # the query-scoped memo in front of the cross-query stats cache,
+        # both keyed by content (stats_cache.minmax_key: the subtree, the
+        # key expression and the tables' versions)
         if runtime_minmax is None:
             raise NotSupported(f"{len(lkeys)}-key join without stats intervals "
                                "needs a runtime min/max")
-        ck = _content_key(lnode if side == 0 else rnode, key)
-        cache, k = (local, (side, id(key))) if ck is None else (memo, ck)
-        if k not in cache:
-            cache[k] = runtime_minmax(side, key)
-        elif ck is not None:
+        ck = stats_cache.minmax_key(catalog, lnode if side == 0 else rnode, key)
+        if ck is None:
+            k = (side, id(key))
+            if k not in local:
+                local[k] = stats_cache.cached_minmax(None, lambda: runtime_minmax(side, key))
+            return local[k]
+        if ck in memo:
             REGISTRY.counter("joinkeys.minmax_memo_hits").add()
-        return cache[k]
+        else:
+            memo[ck] = stats_cache.cached_minmax(ck, lambda: runtime_minmax(side, key))
+        return memo[ck]
 
     def key_widths(use_stats: bool):
         """Per-key pack widths, or None when exact packing is impossible

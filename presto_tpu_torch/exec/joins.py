@@ -70,6 +70,7 @@ from typing import Sequence
 import torch
 
 from presto_tpu_torch.batch import Batch, Column
+from presto_tpu_torch.cache.exec_cache import EXEC_CACHE
 from presto_tpu_torch.exec.operators import (
     CapacityOverflow,
     CollectingOperator,
@@ -217,43 +218,18 @@ class JoinBuildOperator(CollectingOperator):
             self.pallas = None
         return spec
 
-    def _build(self, batch: Batch, cap: int, spec):
-        """The build's device work: the sorted lookup side and the dense
-        table (returned), the fused tables and the runtime filter's
+    def _apply_build(self, spec, tables, bad, filt) -> None:
+        """Take the build step's fused tables and runtime-filter
         products."""
-        v = evaluate(self.key, batch)
-        live = batch.live & valid_of(v.valid, batch.live)
-        side = build_lookup(v.data, live, cap, pack_bits=self.pack_bits)
-        dd = self.dense_domain
-        dense = build_dense(v.data, live, dd[0], dd[1]) if dd else None
         if spec is not None:
-            if spec.mode == "exists":
-                table, oob = cuda_join.build_exists_table(
-                    v.data, live, spec.key_min, spec.key_max)
-                tables, bad = (table,), oob
-            elif spec.mode == "sketch":
-                tables = (cuda_join.build_sketch_table(v.data, live, spec.nbits),)
-                bad = False
-            else:
-                # a live payload NULL has no slot in the value tables:
-                # discard the fused side rather than conjure a 0
-                cols = [batch[c] for c in spec.payload]
-                pnull = torch.stack([(live & ~valid_of(c.valid, live)).any() for c in cols]).any()
-                tables, oob = cuda_join.build_payload_tables(
-                    v.data, live, spec.key_min, spec.key_max, [c.data for c in cols])
-                bad = oob | pnull
             if bool(bad):
                 REGISTRY.counter("join.pallas_fallback").add()
                 self.pallas = None
             else:
                 self.pallas_side = tables
-        if self.filter_bits:
-            k64 = v.data.to(torch.int64)
-            self.filter_minmax = (torch.where(live, k64, torch.full_like(k64, I64_MAX)).min(),
-                                  torch.where(live, k64, torch.full_like(k64, -I64_MAX - 1))
-                                  .max())
-            self.filter_bloom = bloom_build(v.data, live, self.filter_bits)
-        return side, dense
+        if filt is not None:
+            self.filter_minmax = (filt[0], filt[1])
+            self.filter_bloom = filt[2]
 
     def finish(self) -> list[Batch]:
         if not self.batches:
@@ -265,8 +241,17 @@ class JoinBuildOperator(CollectingOperator):
                 self.pack_bits = pb
         cap = self.capacity or batch_capacity(batch.capacity, minimum=16)
         spec = self._eligible_pallas_spec(batch)
+        # shared across queries: the step bakes in only (key expr,
+        # capacity, dense domain, pack bits, fused spec, filter bits),
+        # all in the content key
+        build = EXEC_CACHE.get_or_build(
+            EXEC_CACHE.key_of("join_build", self.key, cap, self.dense_domain, self.pack_bits,
+                              spec, self.filter_bits),
+            lambda: _join_build_step(self.key, cap, self.dense_domain, self.pack_bits, spec,
+                                     self.filter_bits))
         with trace_span("step:join_build", "step", {"capacity": cap}):
-            side, dense = self._build(batch, cap, spec)
+            side, dense, tables, bad, filt = build(batch)
+            self._apply_build(spec, tables, bad, filt)
         if bool(side.sentinel_hit):
             if self.pack_bits is not None:
                 raise NotSupported(
@@ -289,6 +274,43 @@ class JoinBuildOperator(CollectingOperator):
             self.dense_side = dense
         self.payload = batch
         return []
+
+
+def _join_build_step(key: Expr, cap: int, dd, pack_bits, spec, fbits: int):
+    """The build's device work over the concatenated build batch: (the
+    sorted lookup side, the dense table, the fused tables, whether they
+    must be discarded, the runtime filter's (min, max, Bloom words))."""
+
+    def step(batch: Batch):
+        v = evaluate(key, batch)
+        live = batch.live & valid_of(v.valid, batch.live)
+        side = build_lookup(v.data, live, cap, pack_bits=pack_bits)
+        dense = build_dense(v.data, live, dd[0], dd[1]) if dd else None
+        tables, bad = None, False
+        if spec is not None:
+            if spec.mode == "exists":
+                table, bad = cuda_join.build_exists_table(v.data, live, spec.key_min,
+                                                          spec.key_max)
+                tables = (table,)
+            elif spec.mode == "sketch":
+                tables = (cuda_join.build_sketch_table(v.data, live, spec.nbits),)
+            else:
+                # a live payload NULL has no slot in the value tables:
+                # discard the fused side rather than conjure a 0
+                cols = [batch[c] for c in spec.payload]
+                pnull = torch.stack([(live & ~valid_of(c.valid, live)).any() for c in cols]).any()
+                tables, oob = cuda_join.build_payload_tables(
+                    v.data, live, spec.key_min, spec.key_max, [c.data for c in cols])
+                bad = oob | pnull
+        filt = None
+        if fbits:
+            k64 = v.data.to(torch.int64)
+            filt = (torch.where(live, k64, torch.full_like(k64, I64_MAX)).min(),
+                    torch.where(live, k64, torch.full_like(k64, -I64_MAX - 1)).max(),
+                    bloom_build(v.data, live, fbits))
+        return side, dense, tables, bad, filt
+
+    return step
 
 
 @dataclass(frozen=True)
@@ -329,6 +351,11 @@ class LookupJoinOperator(Operator):
         self.out_capacity = out_capacity
         self.verify = list(verify)
         self._strategy = None
+        #: the probe steps, from the executable cache at first use (their
+        #: keys name the route the build published)
+        self._step = None
+        self._pallas_step = None
+        self._full_step = None
 
     def _record_strategy(self, name: str):
         """Count the chosen probe strategy once per operator."""
@@ -409,21 +436,77 @@ class LookupJoinOperator(Operator):
             raise NotSupported("join keys are encoded against different dictionaries; "
                                "codes are not comparable across dictionaries")
 
+    # ---- the executable cache ---------------------------------------------
+    # The probe steps are shared across queries under the JAX package's
+    # keys (the probe key, the build outputs, the join type and the
+    # build's published route); a step reads the finished build side off
+    # the operator it is called with, and calls the operator's probe
+    # method by name at every call.
+
+    def _ensure_pallas_step(self):
+        if self._pallas_step is None:
+            self._pallas_step = EXEC_CACHE.get_or_build(
+                EXEC_CACHE.key_of("lookup_pallas", self.probe_key, tuple(self.build_outputs),
+                                  self.join_type, self.build.pallas),
+                lambda: _pallas_step)
+
+    def _ensure_step(self):
+        if self._step is not None:
+            return
+        jt, key, outs = self.join_type, self.probe_key, tuple(self.build_outputs)
+        verify, use_dense = tuple(self.verify), self.build.dense_side is not None
+        if jt in ("semi", "anti"):
+            if verify:
+                raise InternalError("hash-key verification needs a unique or inner probe")
+            k = EXEC_CACHE.key_of("lookup_semi", key, jt, use_dense)
+        elif self.unique:
+            if verify and self.build.long_dup_runs:
+                raise NotSupported("hash-key collision run exceeds the verified probe's "
+                                   f"candidate window ({VERIFY_CANDIDATES})")
+            k = EXEC_CACHE.key_of("lookup_unique", key, outs, jt, verify, use_dense,
+                                  self.build.pack_bits)
+        else:
+            if verify and jt != "inner":
+                # a LEFT row whose every candidate fails its check would
+                # have to become a null-extended row
+                raise InternalError("hash-key verification on expansion joins is inner-only")
+            k = EXEC_CACHE.key_of("lookup_expand", key, outs, jt, verify, self.out_capacity,
+                                  jt == "left")
+        self._step = EXEC_CACHE.get_or_build(k, lambda: _probe_step)
+
+    def _ensure_full_step(self):
+        if self._full_step is not None:
+            return
+        key, outs, verify = self.probe_key, tuple(self.build_outputs), tuple(self.verify)
+        if self.unique:
+            if verify and self.build.long_dup_runs:
+                raise NotSupported("hash-key collision run exceeds the verified probe's "
+                                   f"candidate window ({VERIFY_CANDIDATES})")
+            k = EXEC_CACHE.key_of("lookup_full_unique", key, outs, verify,
+                                  self.build.dense_side is not None, self.build.pack_bits)
+        else:
+            if verify:
+                raise InternalError("hash-key verification on an expansion FULL OUTER join")
+            k = EXEC_CACHE.key_of("lookup_full_expand", key, outs, self.out_capacity)
+        self._full_step = EXEC_CACHE.get_or_build(k, lambda: _full_step)
+
     def process(self, batch: Batch) -> list[Batch]:
         build = self.build
         if build.build_side is None:
             raise RuntimeError("build side not finished")
         self._check_probe_dict(batch)
         if self._pallas_usable(batch):
+            self._ensure_pallas_step()
             self._record_strategy("pallas")
             with trace_span(f"step:probe_{self.join_type}", "step", {"strategy": "pallas"}):
-                return [self._pallas_probe(batch)]
+                return [self._pallas_step(self, batch)]
         if build.pallas_side is not None:
             # the build published fused tables but THIS batch cannot
             # ride them (key storage): degrade loudly
             REGISTRY.counter("join.pallas_fallback").add()
+        self._ensure_step()
         with trace_span(f"step:probe_{self.join_type}", "step"):
-            return [self._probe(batch)]
+            return [self._step(self, batch)]
 
     def _probe(self, batch: Batch) -> Batch:
         """One batch through the dense, sorted or expansion probe."""
@@ -509,8 +592,9 @@ class LookupJoinOperator(Operator):
         if build.build_side is None:
             raise RuntimeError("build side not finished")
         self._check_probe_dict(batch)
+        self._ensure_full_step()
         with trace_span("step:probe_full", "step"):
-            return self._probe_full(batch, flags)
+            return self._full_step(self, batch, flags)
 
     def _probe_full(self, batch: Batch, flags: torch.Tensor):
         v = evaluate(self.probe_key, batch)
@@ -556,6 +640,18 @@ class LookupJoinOperator(Operator):
                                                  res.build_row, False),
                                    src.dtype, src.dictionary)
         return Batch(cols, live), flags, res.overflow
+
+
+def _pallas_step(op: LookupJoinOperator, batch: Batch) -> Batch:
+    return op._pallas_probe(batch)
+
+
+def _probe_step(op: LookupJoinOperator, batch: Batch) -> Batch:
+    return op._probe(batch)
+
+
+def _full_step(op: LookupJoinOperator, batch: Batch, flags: torch.Tensor):
+    return op._probe_full(batch, flags)
 
 
 def _set_flags(flags: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:

@@ -67,12 +67,18 @@ class OomLadderMixin:
     def _spill_decision(self, node, est_bytes: int):
         """The plan-time out-of-core choice for one join build / agg
         state: ``exec/spill.plan_spill`` over the byte estimate, the
-        build budget and the current ladder rung. (The skew history's
-        hot partition, which seeds the resident set in the JAX package,
-        comes with the plan-stats history, A9.)"""
+        build budget, the current ladder rung and, when this plan's
+        fingerprint has recurred with a measured hot partition, that
+        partition as the resident set's seed."""
         from presto_tpu_torch.exec.spill import plan_spill
 
-        return plan_spill(est_bytes, self.join_build_budget, oom_rung=self.oom_rung)
+        hot = None
+        hint = getattr(self, "plan_hints", None)
+        hint = hint.get(id(node)) if hint else None
+        if hint is not None and int(hint.get("hot_partition", -1)) >= 0:
+            hot = int(hint["hot_partition"])
+        return plan_spill(est_bytes, self.join_build_budget, hot_partition=hot,
+                          oom_rung=self.oom_rung)
 
     def _note_spill(self, node, decision, resident=None,
                     streamed: int = 0, host_bytes: int = 0) -> None:
@@ -124,8 +130,47 @@ class OomLadderMixin:
                                           else int(headroom)),
             })
 
-    # ---- adaptive execution ---------------------------------------------
+    # ---- adaptive execution (plan/adaptive.py) ---------------------------
+    #: decision kind -> counter family
+    _ADAPTIVE_COUNTER = {
+        "salt": "adaptive.salted",
+        "join_flip": "adaptive.join_flip",
+        "bucket": "adaptive.bucket_override",
+        "route": "adaptive.route_disabled",
+    }
+
     def _adaptive_decision(self, node, kind: str):
-        """This node's adaptive decision of one kind: always None until
-        the plan-stats history is ported (A9; ROADMAP C6)."""
-        return None
+        """This node's adaptive decision of one kind, or None. The session
+        wires ``adaptive`` per query ({id(live node) -> {kind ->
+        decision}})."""
+        decisions = getattr(self, "adaptive", None)
+        if not decisions:
+            return None
+        per_node = decisions.get(id(node))
+        return per_node.get(kind) if per_node else None
+
+    def _note_adaptive(self, node, dec, action: str = "") -> None:
+        """Record one applied adaptive decision: its ``adaptive.*``
+        counter and the ``adaptive_events`` summary the flight recorder
+        captures and the session stitches into ``system.adaptive``."""
+        from presto_tpu_torch.runtime.metrics import REGISTRY
+
+        REGISTRY.counter(self._ADAPTIVE_COUNTER[dec.kind]).add()
+        events = getattr(self, "adaptive_events", None)
+        if events is not None:
+            ev = dec.to_event(applied=True)
+            ev["node"] = type(node).__name__
+            if action:
+                ev["action"] = action
+            events.append(ev)
+
+    def _note_route_fallback(self, node) -> None:
+        """A planner-chosen fused route fell back at run time: mark the
+        node's stats, so the fingerprint's history carries it."""
+        recorder = getattr(self, "recorder", None)
+        if recorder is None:
+            return
+        try:
+            recorder.record_route_fallback(node)
+        except Exception:  # noqa: BLE001 -- telemetry never raises
+            pass

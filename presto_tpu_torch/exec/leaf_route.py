@@ -25,12 +25,12 @@ answer. Fragments that are leaf-shaped but fail admission count the
 same way. ``narrow_storage`` off disables routing (results identical).
 
 **2. Adaptive aggregation strategy.** :func:`bypass_partial_agg` and
-:func:`agg_strategy_for`, from stats alone (the JAX package also reads
-plan-stats history; the port has none, which is the first run of every
-query there).
+:func:`agg_strategy_for`, from stats, corrected by the plan-stats
+history of a recurring fingerprint (``hints``).
 
-Not ported: the distributed leaf route (it comes with the distributed
-tier), the executable cache and fault points.
+The step and the state combine are shared across queries through the
+executable cache (``leaf_route_step`` / ``leaf_route_fold``). Not
+ported: the distributed leaf route (it comes with the distributed tier).
 """
 
 from __future__ import annotations
@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from presto_tpu_torch.batch import Batch, Column
+from presto_tpu_torch.cache.exec_cache import EXEC_CACHE
 from presto_tpu_torch.expr import Call, Expr, InputRef, evaluate
 from presto_tpu_torch.ops.cuda_agg import (
     MAX_GROUPS,
@@ -51,6 +52,7 @@ from presto_tpu_torch.ops.cuda_agg import (
     agg_step,
     combine_states,
     null_violation,
+    state_keys,
     supported,
 )
 from presto_tpu_torch.plan import nodes as N
@@ -642,6 +644,27 @@ def decode_leaf_state(route: LeafRoute, conn, aggs, state) -> Batch:
     return Batch(cols, live)
 
 
+def _local_step(spec, mb):
+    """The routed fragment's step over one scan batch: the membership
+    bitmap (``mb`` = probe column, lo, hi) applied when the fragment
+    folded a filter-only join, then the fused filter + aggregate."""
+
+    def step(b: Batch, bitmap):
+        # declared NULL-freedom's runtime check, on the PRE-membership
+        # batch (membership rebuilds validity as the live mask)
+        nulls = null_violation(b)
+        oob = None
+        if bitmap is not None:
+            b, oob = _apply_membership(b, mb[0], mb[1], mb[2], bitmap)
+        s = agg_step(spec, b)
+        s["value_overflow"] = s["value_overflow"] | nulls
+        if oob is not None:
+            s["value_overflow"] = s["value_overflow"] | oob
+        return s
+
+    return step
+
+
 def execute_leaf_route(route: LeafRoute, executor, node, scalars):
     """Run a matched fragment on the local executor: stream scan splits
     through the fused step (membership bitmap applied per batch when the
@@ -682,22 +705,23 @@ def execute_leaf_route(route: LeafRoute, executor, node, scalars):
         fault_point("scan")
         return conn.scan(split, route.src_cols, cap).rename(route.rename)
 
+    mb = None if route.member is None else (route.member.probe_col, route.member.lo,
+                                            route.member.hi)
+    # the step and the combine are shared across queries through the
+    # executable cache
+    fold = EXEC_CACHE.get_or_build(EXEC_CACHE.key_of("leaf_route_fold", tuple(state_keys(spec))),
+                                   lambda: lambda a, b: combine_states(spec, a, b))
     state = None
+    step = None
     for b in prefetch_iter(load, splits):
         # the query's deadline and cancel scope, per split, on its thread
         check_deadline("scan")
-        # declared NULL-freedom's runtime check, on the PRE-membership
-        # batch (membership rebuilds validity as the live mask)
-        nulls = null_violation(b)
-        oob = None
-        if bitmap is not None:
-            m = route.member
-            b, oob = _apply_membership(b, m.probe_col, m.lo, m.hi, bitmap)
-        s = agg_step(spec, b)
-        s["value_overflow"] = s["value_overflow"] | nulls
-        if oob is not None:
-            s["value_overflow"] = s["value_overflow"] | oob
-        state = s if state is None else combine_states(spec, state, s)
+        if step is None:
+            step = EXEC_CACHE.get_or_build(
+                EXEC_CACHE.key_of("leaf_route_step", spec, mb, b.device.type),
+                lambda: _local_step(spec, mb))
+        s = step(b, bitmap)
+        state = s if state is None else fold(state, s)
     if bool(state["value_overflow"]):  # read once, after the last split
         count_fallback("value_overflow")
         return None
@@ -710,11 +734,13 @@ def execute_leaf_route(route: LeafRoute, executor, node, scalars):
 # ---------------------------------------------------------------------------
 
 
-def bypass_partial_agg(node, catalog) -> bool:
+def bypass_partial_agg(node, catalog, hints=None) -> bool:
     """Should this keyed aggregation BYPASS partial aggregation and
-    stream rows to one final pass? True when the estimated group
-    cardinality is high relative to input rows (reduction factor under
-    ``BYPASS_RATIO``) and genuinely large (``BYPASS_MIN_GROUPS``)."""
+    stream rows to one final pass? True when the group cardinality is
+    high relative to input rows (reduction factor under
+    ``BYPASS_RATIO``) and genuinely large (``BYPASS_MIN_GROUPS``).
+    Observed history (``hints``: plan-stats records of a recurring
+    fingerprint, keyed by ``id(plan node)``) beats the NDV estimate."""
     from presto_tpu_torch.exec.local_planner import DIRECT_LIMIT
     from presto_tpu_torch.plan.bounds import estimate_groups, estimate_rows, key_dictionary
 
@@ -734,6 +760,16 @@ def bypass_partial_agg(node, catalog) -> bool:
         domains.append(len(d))
     if domains and int(np.prod(domains)) <= DIRECT_LIMIT:
         return False
+    rec = hints.get(id(node)) if hints else None
+    if rec is not None and rec.get("actual_rows", -1) >= 0:
+        groups = rec["actual_rows"]
+        crec = hints.get(id(node.child))
+        rows = crec.get("actual_rows", -1) if crec else -1
+        if rows < 0 and rec.get("selectivity", -1.0) > 0:
+            rows = int(round(groups / rec["selectivity"]))
+        if rows > 0:
+            return groups >= BYPASS_MIN_GROUPS and groups * BYPASS_RATIO > rows
+        return False  # observed empty input: nothing to bypass
     g = estimate_groups(node, catalog)
     if g is None:
         return False
@@ -741,12 +777,13 @@ def bypass_partial_agg(node, catalog) -> bool:
     return g >= BYPASS_MIN_GROUPS and g * BYPASS_RATIO > rows
 
 
-def agg_strategy_for(node, catalog, fused_enabled: bool = True) -> str:
+def agg_strategy_for(node, catalog, hints=None, fused_enabled: bool = True) -> str:
     """The aggregation strategy the executor will pick for this node,
     from stats alone: ``fused`` (the leaf route) > ``bypass`` (stream
     rows to one final pass) > ``partial`` (per-morsel folds); keyless
     unrouted aggregation is ``single``. Advisory: a runtime
     ``value_overflow`` degrades fused to the generic route, counted.
+    ``hints`` is the plan-stats history of a recurring fingerprint;
     ``fused_enabled=False`` describes runs that skip the leaf route (a
     stats recorder is attached: EXPLAIN ANALYZE, ``Session.execute``)."""
     if not isinstance(node, N.Aggregate):
@@ -757,6 +794,6 @@ def agg_strategy_for(node, catalog, fused_enabled: bool = True) -> str:
             return "fused"
     if not node.keys:
         return "single"
-    if bypass_partial_agg(node, catalog):
+    if bypass_partial_agg(node, catalog, hints=hints):
         return "bypass"
     return "partial"

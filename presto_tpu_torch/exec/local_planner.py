@@ -80,8 +80,15 @@ package's, made from the same stats:
   join re-plans out of core with more buckets, and the fused leaf route,
   the partial-aggregation bypass and the runtime join filters are off.
 
-Not ported: adaptive history, sampled scans, and the result and
-executable caches. A plan node without an executor here raises
+Plan-stats history steers a recurring plan: ``plan_hints`` feed the
+aggregation bypass and the spill tier's hot partition, and the adaptive
+controller's decisions (``adaptive``: ``join_flip`` and ``bucket`` size
+a build or an aggregation from actuals, ``route`` turns a lying fused
+route off) are applied at the strategy points and noted in
+``adaptive_events``. Operator steps come from the executable cache
+(``cache/exec_cache.py``), join-key bounds from the stats cache.
+
+Not ported: sampled scans. A plan node without an executor here raises
 ``NotSupported``.
 """
 
@@ -94,6 +101,8 @@ import numpy as np
 import torch
 
 from presto_tpu_torch.batch import Batch, Column, QueryResult
+from presto_tpu_torch.cache import stats_cache
+from presto_tpu_torch.cache.exec_cache import EXEC_CACHE
 from presto_tpu_torch.devices import resolve_device
 from presto_tpu_torch.exec import leaf_route
 from presto_tpu_torch.exec.joinkeys import declared_key_interval, join_key_exprs
@@ -299,6 +308,23 @@ def _probe_capacity(lspill, nbuckets: int, probe_chunk: int, extra=()) -> int:
     return batch_capacity(max(min(probe_chunk, max_bucket), max_chunk, 16), minimum=16)
 
 
+def _join_filter_step(name: str):
+    """The runtime join filter's step over column ``name``: (new live
+    mask, live rows in, rows pruned), the counts left on the device. A
+    NULL key cannot join, so it is pruned too."""
+
+    def step(b: Batch, mn, mx, words):
+        col = b[name]
+        k = col.data.to(torch.int64)
+        keep = (k >= mn) & (k <= mx) & valid_of(col.valid, b.live)
+        if words is not None:
+            keep = keep & bloom_test(words, col.data)
+        live = b.live & keep
+        return live, b.live.sum(), (b.live & ~live).sum()
+
+    return step
+
+
 class LocalExecutor(OomLadderMixin):
     def __init__(self, catalog: Catalog, pallas_join_enabled: bool = True,
                  approx_join: bool = False, runtime_join_filters: bool = True,
@@ -327,6 +353,14 @@ class LocalExecutor(OomLadderMixin):
         #: optional StatsRecorder for the current query (set by the
         #: Session; powers QueryInfo node stats and EXPLAIN ANALYZE)
         self.recorder = None
+        #: plan-stats history of this plan's fingerprint ({id(plan node):
+        #: record}, runs >= 2 only; set by the Session)
+        self.plan_hints: dict = {}
+        #: the query's adaptive decisions, set by the Session
+        #: (``plan/adaptive.py``: {id(node) -> {kind -> decision}})
+        self.adaptive: dict = {}
+        #: the current run's applied adaptive decisions (``_note_adaptive``)
+        self.adaptive_events: list = []
         #: stable plan-node ids for trace spans when no recorder is set
         self._trace_ids = None
         #: estimated build sides (and aggregation states) above this many
@@ -355,6 +389,7 @@ class LocalExecutor(OomLadderMixin):
         # per run: the OOM ladder re-enters run() on the same executor
         self.used_approx = False
         self.spill_events = []
+        self.adaptive_events = []
         batches, names = self.run_batches(plan)
         return QueryResult(names, [b for b in batches if live_count(b) > 0],
                            approximate=self.used_approx)
@@ -542,6 +577,12 @@ class LocalExecutor(OomLadderMixin):
             # one bucket). The estimate alone triggers it: a ladder rung
             # re-runs a fitting aggregation on the normal path
             agg_est = estimate_node_bytes(node, self.catalog)
+            # history-corrected sizing (plan/adaptive.py): recorded
+            # actuals size the grouped tier for a recurring fingerprint
+            bdec = self._adaptive_decision(node, "bucket")
+            if bdec is not None and bdec.est_bytes >= 0:
+                agg_est = bdec.est_bytes
+                self._note_adaptive(node, bdec, action=f"agg est_bytes={agg_est} from actuals")
             if agg_est > self.join_build_budget:
                 decision = self._spill_decision(node, agg_est)
                 hybrid = self._exec_hybrid_agg(node, child, keys, aggs, pax, decision)
@@ -549,8 +590,7 @@ class LocalExecutor(OomLadderMixin):
                     REGISTRY.counter(f"agg.strategy.{decision.mode}").add()
                     return hybrid
         strategy = self._pick_group_strategy(keys, pax, node)
-        if (isinstance(strategy, SortStrategy) and self.oom_rung == 0
-                and leaf_route.bypass_partial_agg(node, self.catalog)):
+        if isinstance(strategy, SortStrategy) and self._use_agg_bypass(node):
             # group cardinality ~ input cardinality: per-batch partial
             # folds reduce nothing, so aggregate the concatenated rows in
             # ONE pass with the group capacity sized by the true row count
@@ -580,6 +620,15 @@ class LocalExecutor(OomLadderMixin):
                     raise
                 strategy = SortStrategy(strategy.max_groups * 2)
         raise CapacityOverflow("Aggregate", strategy.max_groups)
+
+    def _use_agg_bypass(self, node: N.Aggregate) -> bool:
+        """The adaptive partial-aggregation bypass for one keyed sort-
+        strategy aggregation: the NDV estimate, corrected by plan-stats
+        history (``leaf_route.bypass_partial_agg``). Never on a ladder
+        rung: one pass is what a degraded re-run must not do."""
+        if self.oom_rung > 0:
+            return False
+        return leaf_route.bypass_partial_agg(node, self.catalog, hints=self.plan_hints)
 
     def _exec_hybrid_agg(self, node: N.Aggregate, child, keys, aggs, pax, decision):
         """Out-of-core keyed aggregation: partition the input rows by the
@@ -750,13 +799,37 @@ class LocalExecutor(OomLadderMixin):
             nbits <<= 1
         return nbits
 
-    @staticmethod
-    def _fill_join_filter(slot, build):
-        """Publish the finished build's products into the slot."""
+    def _fill_join_filter(self, slot, build, node_right, rkey):
+        """Publish the finished build's products into the slot and feed
+        the exact min/max into the cross-query stats cache (a later
+        query's key packing reuses the readback)."""
         if slot is None or build.filter_minmax is None:
             return
         slot.minmax = build.filter_minmax
         slot.bloom = build.filter_bloom
+        ck = stats_cache.minmax_key(self.catalog, node_right, rkey)
+        if ck is not None and stats_cache.peek(ck) is None:
+            mn, mx = int(slot.minmax[0]), int(slot.minmax[1])
+            if mn <= mx:  # an empty build's sentinel interval would
+                # poison key packing
+                stats_cache.cached_minmax(ck, lambda: (mn, mx))
+
+    def _flipped_estimate(self, node, est: int) -> int:
+        """The build's byte estimate, replaced by the adaptive
+        controller's history-corrected one when it decided a
+        ``join_flip`` for this node."""
+        fdec = self._adaptive_decision(node, "join_flip")
+        if fdec is not None and fdec.est_bytes >= 0:
+            est = fdec.est_bytes
+            self._note_adaptive(node, fdec, action=f"build est_bytes={est} from actuals")
+        return est
+
+    def _route_disabled(self, node) -> bool:
+        """The adaptive controller disabled this join's fused route."""
+        rdec = self._adaptive_decision(node, "route")
+        if rdec is not None:
+            self._note_adaptive(node, rdec, action="pallas route disabled")
+        return rdec is not None
 
     @staticmethod
     def _apply_join_filter(slot: JoinFilterSlot, b: Batch) -> Batch:
@@ -766,20 +839,18 @@ class LocalExecutor(OomLadderMixin):
         bounds = slot.bounds()
         if bounds is None or slot.col not in b:
             return b
-        col = b[slot.col]
-        if col.data.dim() != 1:
+        if b[slot.col].data.dim() != 1:
             return b
-        with trace_span("join_filter", "join", {"column": slot.col}):
-            k = col.data.to(torch.int64)
-            keep = (k >= bounds[0]) & (k <= bounds[1]) & valid_of(col.valid, b.live)
-            if slot.bloom is not None:
-                keep = keep & bloom_test(slot.bloom, col.data)
-            live = b.live & keep
-            n_in = b.live.sum()
-            pruned = (b.live & ~live).sum()
+        name = slot.col
+        step = EXEC_CACHE.get_or_build(EXEC_CACHE.key_of("join_filter", name,
+                                                         slot.bloom is not None),
+                                       lambda: _join_filter_step(name))
+        with trace_span("join_filter", "join", {"column": name}):
+            live, n_in, pruned = step(b, bounds[0], bounds[1], slot.bloom)
+        b = b.with_live(live)
         slot.stat_in = n_in if slot.stat_in is None else slot.stat_in + n_in
         slot.stat_pruned = pruned if slot.stat_pruned is None else slot.stat_pruned + pruned
-        return b.with_live(live)
+        return b
 
     def _flush_filter_stats(self):
         """The once-per-query readback of the filters' pruning counts
@@ -838,6 +909,7 @@ class LocalExecutor(OomLadderMixin):
         # build on a ladder rung) runs hybrid or grouped; a FULL join
         # stays in memory (the grouped tier has no unmatched-build tail)
         est = estimate_node_bytes(node.right, self.catalog)
+        est = self._flipped_estimate(node, est)
         spill = est > self.join_build_budget
         decision = self._spill_decision(node, est)
         if decision.mode != "resident" and node.kind != "full":
@@ -860,7 +932,10 @@ class LocalExecutor(OomLadderMixin):
         # the dense and fused sides serve unique builds only; hash-verified
         # keys and FULL joins never take the fused route
         iv = build_key_interval(node, self.catalog) if node.unique else None
-        spec = (None if verify or node.kind == "full" else
+        # a fingerprint whose fused route fell back at run time stops
+        # re-attempting it (plan/adaptive.py)
+        route_off = self._route_disabled(node)
+        spec = (None if verify or node.kind == "full" or route_off else
                 self._pallas_spec(iv, tuple(node.output_right),
                                   {f.name: f.dtype for f in node.right.fields},
                                   node.unique, node.kind))
@@ -869,7 +944,9 @@ class LocalExecutor(OomLadderMixin):
                                   key_max=self._key_upper_bound(iv) if node.unique else None,
                                   filter_bits=self._filter_bits(node.right) if fslot else 0)
         Pipeline(BatchStream.of(right), [build]).run()
-        self._fill_join_filter(fslot, build)
+        if spec is not None and build.pallas is None:
+            self._note_route_fallback(node)
+        self._fill_join_filter(fslot, build, node.right, rkey)
         outs = [BuildOutput(n, n) for n in node.output_right]
         if node.kind == "full":
             return self._exec_full_join(node, left, build, lkey, outs, right, verify)
@@ -1101,7 +1178,7 @@ class LocalExecutor(OomLadderMixin):
         left = self._exec(node.left, scalars)
         right_stream = self._exec(node.right, scalars)
         jt = "anti" if node.negated else "semi"
-        est = estimate_node_bytes(node.right, self.catalog)
+        est = self._flipped_estimate(node, estimate_node_bytes(node.right, self.catalog))
         decision = self._spill_decision(node, est)
         if decision.mode != "resident":
             # a probe key's existence is decided inside its own hash
@@ -1120,12 +1197,14 @@ class LocalExecutor(OomLadderMixin):
             # hash collision could flip membership
             raise NotSupported("wide string semi-join keys")
         iv = build_key_interval(node, self.catalog)
-        spec = self._pallas_spec(iv, (), {}, True, jt)
+        spec = None if self._route_disabled(node) else self._pallas_spec(iv, (), {}, True, jt)
         build = JoinBuildOperator(rkey, dense_domain=self._dense_domain(iv, right),
                                   pallas=spec,
                                   filter_bits=self._filter_bits(node.right) if fslot else 0)
         Pipeline(BatchStream.of(right), [build]).run()
-        self._fill_join_filter(fslot, build)
+        if spec is not None and build.pallas is None:
+            self._note_route_fallback(node)
+        self._fill_join_filter(fslot, build, node.right, rkey)
         if spec is not None and spec.mode == "sketch" and build.pallas_side is not None:
             # the sketch was published: eligible probe batches ride it,
             # so the result may carry false-positive rows — flagged

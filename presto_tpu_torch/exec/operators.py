@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from presto_tpu_torch.batch import Batch, Column, Dictionary
+from presto_tpu_torch.cache.exec_cache import EXEC_CACHE
 from presto_tpu_torch.devices import resolve_device
 from presto_tpu_torch.expr import Expr, bind_scalars, evaluate, evaluate_predicate
 from presto_tpu_torch.ops.groupby import (
@@ -96,6 +97,12 @@ class FilterProjectOperator(Operator):
         #: one dictionary per projected VARCHAR literal, shared by every
         #: batch (as the JAX package's traced step shares its one)
         self._literal_dicts: dict[str, Dictionary] = {}
+        # the step is shared across queries through the executable
+        # cache, keyed by expression content (Param slots hash by slot,
+        # never by value)
+        self._step = EXEC_CACHE.get_or_build(
+            EXEC_CACHE.key_of("filter_project", predicate, projections),
+            lambda: _filter_project_step(predicate, projections))
 
     def process(self, batch: Batch) -> list[Batch]:
         # FilterProject usually runs via stream.map closures (never inside
@@ -106,27 +113,37 @@ class FilterProjectOperator(Operator):
     def apply(self, batch: Batch) -> Batch:
         """The step without its span (a scan's predicate on the prefetch
         worker, whose span the consumer records)."""
+        return self._step(batch, self._literal_dicts)
+
+
+def _filter_project_step(predicate: Expr | None, projections: dict[str, Expr] | None):
+    """The filter + projection step over one batch; ``literal_dicts`` is
+    the calling operator's own dictionary per projected VARCHAR literal."""
+
+    def step(batch: Batch, literal_dicts: dict) -> Batch:
         live = batch.live
-        if self.predicate is not None:
-            live = live & evaluate_predicate(self.predicate, batch)
-        if self.projections is None:
+        if predicate is not None:
+            live = live & evaluate_predicate(predicate, batch)
+        if projections is None:
             return batch.with_live(live)
         src = batch.with_live(live)
         cols = {}
-        for name, e in self.projections.items():
+        for name, e in projections.items():
             v = evaluate(e, src)
             if isinstance(v.data, str):
                 # a projected VARCHAR literal stays host-side until here:
                 # an output column becomes a one-entry dictionary column
                 cap, dev = batch.capacity, batch.device
-                d = self._literal_dicts.get(name)
+                d = literal_dicts.get(name)
                 if d is None:
-                    d = self._literal_dicts[name] = Dictionary([v.data])
+                    d = literal_dicts[name] = Dictionary([v.data])
                 cols[name] = Column(torch.zeros(cap, dtype=torch.int32, device=dev),
                                     torch.ones(cap, dtype=torch.bool, device=dev), e.dtype, d)
                 continue
             cols[name] = Column(v.data, v.valid, v.dtype, v.dictionary)
         return Batch(cols, live)
+
+    return step
 
 
 # ---------------------------------------------------------------------------
@@ -211,6 +228,23 @@ class HashAggregationOperator(Operator):
         #: where an empty state lives when finish() comes before any batch
         self.device = device
         self._dicts: dict[str, Dictionary | None] = {}
+        # the update is shared across queries through the executable
+        # cache, bound to a state-less template instance (a cached bound
+        # method of a live operator would pin its state); the port runs
+        # the single phase
+        self._update = EXEC_CACHE.get_or_build(
+            EXEC_CACHE.key_of("hash_agg", self.group_keys, self.aggs, strategy, "single",
+                              self.passengers),
+            self._build_update)
+
+    def _build_update(self):
+        tmpl = HashAggregationOperator.__new__(HashAggregationOperator)
+        tmpl.group_keys, tmpl.aggs = self.group_keys, self.aggs
+        tmpl.strategy, tmpl.passengers = self.strategy, self.passengers
+        tmpl.device, tmpl.state, tmpl._dicts = self.device, None, {}
+        if isinstance(self.strategy, DirectStrategy):
+            return tmpl._direct_update_impl
+        return tmpl._sort_update_impl
 
     # -- shared helpers ---------------------------------------------------
 
@@ -409,10 +443,7 @@ class HashAggregationOperator(Operator):
     def process(self, batch: Batch) -> list[Batch]:
         if self.state is None:
             self.state = self._init(batch.device)
-        if isinstance(self.strategy, DirectStrategy):
-            self.state, self._dicts = self._direct_update_impl(self.state, batch)
-        else:
-            self.state, self._dicts = self._sort_update_impl(self.state, batch)
+        self.state, self._dicts = self._update(self.state, batch)
         return []
 
     def finish(self) -> list[Batch]:
@@ -485,6 +516,15 @@ class GlobalAggregationOperator(Operator):
         self.state: dict[str, Any] | None = None
         #: where an empty state lives when finish() comes before any batch
         self.device = device
+        # shared across queries through the executable cache, bound to a
+        # state-less template (see HashAggregationOperator)
+        self._update = EXEC_CACHE.get_or_build(
+            EXEC_CACHE.key_of("global_agg", self.aggs, "single"), self._build_update)
+
+    def _build_update(self):
+        tmpl = GlobalAggregationOperator.__new__(GlobalAggregationOperator)
+        tmpl.aggs, tmpl.state, tmpl.device = self.aggs, None, self.device
+        return tmpl._update_impl
 
     def _init(self, device):
         state = {}
@@ -498,7 +538,12 @@ class GlobalAggregationOperator(Operator):
     def process(self, batch: Batch) -> list[Batch]:
         if self.state is None:
             self.state = self._init(batch.device)
-        new = dict(self.state)
+        self.state = self._update(self.state, batch)
+        return []
+
+    def _update_impl(self, state, batch: Batch):
+        """One batch folded into ``state``: the new state."""
+        new = dict(state)
         for a in self.aggs:
             if a.kind == "count_star" or a.input is None:
                 vals = torch.ones(batch.capacity, dtype=torch.int64, device=batch.device)
@@ -511,7 +556,7 @@ class GlobalAggregationOperator(Operator):
                     kind = "sum"
                 else:
                     vals, kind = v.data, a.kind
-            prev = self.state[a.name]
+            prev = state[a.name]
             masked = torch.where(contrib, vals, torch.full_like(vals, _identity(kind, vals.dtype)))
             if kind == "sum":
                 # widen BEFORE the reduction: a narrow input would wrap
@@ -520,9 +565,8 @@ class GlobalAggregationOperator(Operator):
                 new[a.name] = torch.minimum(prev, torch.min(masked).to(prev.dtype))
             else:
                 new[a.name] = torch.maximum(prev, torch.max(masked).to(prev.dtype))
-            new[a.name + "$n"] = self.state[a.name + "$n"] + torch.sum(contrib.to(torch.int64))
-        self.state = new
-        return []
+            new[a.name + "$n"] = state[a.name + "$n"] + torch.sum(contrib.to(torch.int64))
+        return new
 
     def finish(self) -> list[Batch]:
         if self.state is None:
@@ -648,8 +692,9 @@ class WindowOperator(CollectingOperator):
     ``funcs`` reuse AggSpec: row_number / rank / dense_rank and lag /
     lead (``offset`` rows) / first_value need order keys; sum / count /
     count_star / min / max are windowed aggregates over ``frame``
-    ('range', 'rows' or 'full'). The JAX package's executable cache and
-    parameter slots have no counterpart here."""
+    ('range', 'rows' or 'full'). The window step is shared across
+    queries through the executable cache, bound to a state-less
+    template."""
 
     def __init__(self, partition_by: Sequence[Expr], order_keys: Sequence[SortKey],
                  funcs: Sequence[AggSpec], frame: str = "range"):
@@ -664,6 +709,18 @@ class WindowOperator(CollectingOperator):
                   if f.kind in ("row_number", "rank", "dense_rank") + _OFFSET_KINDS]
         if ranked and not self.order_keys:
             raise ValueError(f"{ranked[0].kind}() requires ORDER BY in its window")
+        self._step = EXEC_CACHE.get_or_build(
+            EXEC_CACHE.key_of("window", self.partition_by, self.order_keys, self.funcs, frame),
+            self._build_step)
+
+    def _build_step(self):
+        """The window step bound to a state-less clone: a cached closure
+        must never pin a live operator's buffered batches."""
+        tmpl = WindowOperator.__new__(WindowOperator)
+        tmpl.batches = []
+        tmpl.partition_by, tmpl.order_keys = self.partition_by, self.order_keys
+        tmpl.funcs, tmpl.frame = self.funcs, self.frame
+        return tmpl._window
 
     def _sort(self, batch: Batch):
         """The sort order, and the partition and peer comparison columns
@@ -774,7 +831,7 @@ class WindowOperator(CollectingOperator):
     def finish(self) -> list[Batch]:
         if not self.batches:
             return []
-        return [self._window(concat_batches(self.batches))]
+        return [self._step(concat_batches(self.batches))]
 
 
 def window_operator_from_node(node, scalars) -> WindowOperator:

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from presto_tpu_torch.batch import Batch, Column
+from presto_tpu_torch.cache.exec_cache import EXEC_CACHE
 from presto_tpu_torch.exec.pipeline import prefetch_iter
 from presto_tpu_torch.expr import Call, InputRef, Literal
 from presto_tpu_torch.plan import nodes as N
@@ -257,15 +258,30 @@ def match_q1_fragment(node: N.Aggregate, catalog) -> Optional[Q1Route]:
     return Q1Route(scan, rename, outputs, (rf_out, ls_out), (rf_e.dtype, ls_e.dtype))
 
 
+def _q1_split_step(b: Batch) -> dict:
+    """The fused Q1 step over one scan split, with the declared
+    NULL-freedom's runtime check folded into ``value_overflow``."""
+    from presto_tpu_torch.ops.cuda_agg import null_violation
+    from presto_tpu_torch.workloads import q1_fused_step
+
+    nulls = null_violation(b)
+    s = q1_fused_step(b)
+    s["value_overflow"] = s["value_overflow"] | nulls
+    return s
+
+
+def _q1_fold(a: dict, b: dict) -> dict:
+    from presto_tpu_torch.workloads import combine_q1_states
+
+    return combine_q1_states(a, b)
+
+
 def execute_q1_route(route: Q1Route, catalog, aggs) -> Optional[list[Batch]]:
     """Run the matched fragment: stream scan splits through the fused
     step (the Q1 kernel on the card, the generic one-pass step on the
     CPU), combine states, decode the 6-group output batch. Returns None
     when ``value_overflow`` tripped (violated advisory stats) — the
     caller falls back to the generic operator route."""
-    from presto_tpu_torch.ops.cuda_agg import null_violation
-    from presto_tpu_torch.workloads import combine_q1_states, q1_fused_step
-
     fault_point("aggregation")
     fault_point("step.agg")
     scan = route.scan
@@ -280,14 +296,20 @@ def execute_q1_route(route: Q1Route, catalog, aggs) -> Optional[list[Batch]]:
         fault_point("scan")
         return conn.scan(split, src_cols, cap).rename(route.rename)
 
+    # the step and the combine are shared across queries through the
+    # executable cache (the kernel choice is made per launch by
+    # ``ops/cuda_q1``, so the step's key names only the device type)
+    fold = EXEC_CACHE.get_or_build(EXEC_CACHE.key_of("q1_route_fold"), lambda: _q1_fold)
     state = None
+    step = None
     for b in prefetch_iter(load, splits):
         # the query's deadline and cancel scope, per split, on its thread
         check_deadline("scan")
-        nulls = null_violation(b)
-        s = q1_fused_step(b)
-        s["value_overflow"] = s["value_overflow"] | nulls
-        state = s if state is None else combine_q1_states(state, s)
+        if step is None:
+            step = EXEC_CACHE.get_or_build(
+                EXEC_CACHE.key_of("q1_route_step", b.device.type), lambda: _q1_split_step)
+        s = step(b)
+        state = s if state is None else fold(state, s)
     if state is None or bool(state["value_overflow"]):
         REGISTRY.counter("exec.q1_route_fallback").add()
         return None

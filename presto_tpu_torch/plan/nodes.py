@@ -303,7 +303,8 @@ def scan_physical_types(node: TableScan, catalog) -> dict:
 
 def plan_tree_str(node: PlanNode, indent: int = 0, catalog=None,
                   approx_join: bool = False, _filters=None,
-                  join_build_budget: int | None = None) -> str:
+                  join_build_budget: int | None = None, plan_hints=None,
+                  adaptive=None) -> str:
     """EXPLAIN-style rendering. With a ``catalog``, scan columns render
     their narrowed physical storage (``l_shipdate:date:int16``), joins
     and semi joins render the stats-planned probe strategy
@@ -315,7 +316,11 @@ def plan_tree_str(node: PlanNode, indent: int = 0, catalog=None,
     (``runtime_filter=['l_orderkey']``), as the JAX package does. With
     ``approx_join`` (the session property), semi joins that would probe
     the Bloom sketch render ``strategy=sketch(approx)``: the approximate
-    mode is never silent."""
+    mode is never silent. ``plan_hints`` (plan-stats history of a
+    recurring fingerprint, keyed by ``id(plan node)``) feed the
+    aggregation strategy; ``adaptive``
+    (the controller's decisions, keyed the same way) renders a salted
+    repartition."""
     if _filters is None and catalog is not None:
         from presto_tpu_torch.plan.joinfilters import filter_edges
 
@@ -337,7 +342,8 @@ def plan_tree_str(node: PlanNode, indent: int = 0, catalog=None,
         if catalog is not None:
             from presto_tpu_torch.exec.leaf_route import agg_strategy_for
 
-            detail += f" agg_strategy={agg_strategy_for(node, catalog)}"
+            detail += (" agg_strategy="
+                       + agg_strategy_for(node, catalog, hints=plan_hints))
     elif isinstance(node, (Join, SemiJoin)):
         if isinstance(node, Join):
             detail = f" {node.kind}{' unique' if node.unique else ''}"
@@ -353,6 +359,9 @@ def plan_tree_str(node: PlanNode, indent: int = 0, catalog=None,
                 from presto_tpu_torch.exec.local_planner import planned_spill
 
                 detail += f" spill={planned_spill(node, catalog, join_build_budget).explain()}"
+        dec = (adaptive or {}).get(id(node), {}).get("salt")
+        if dec is not None:
+            detail += f" repartition=salted({dec.salt})"
     elif isinstance(node, Window):
         detail = f" funcs={[f.name for f in node.funcs]} frame={node.frame}"
     elif isinstance(node, (TopN, Limit)):
@@ -364,5 +373,6 @@ def plan_tree_str(node: PlanNode, indent: int = 0, catalog=None,
     out = f"{pad}{type(node).__name__}{detail}\n"
     for c in node.children:
         out += plan_tree_str(c, indent + 1, catalog=catalog, approx_join=approx_join,
-                             _filters=_filters, join_build_budget=join_build_budget)
+                             _filters=_filters, join_build_budget=join_build_budget,
+                             plan_hints=plan_hints, adaptive=adaptive)
     return out

@@ -34,10 +34,17 @@ A thread does not inherit it, so the checks run on the query's own
 thread (the prefetch worker of ``exec/pipeline.prefetch_iter`` only
 loads).
 
-Not ported yet: the in-flight coalescer, the flight recorder, the SLO
-tracker and the request deadline a server sets (A9: the result cache and
-the server come with them), and the distributed -> local degradation
-(A10: the distributed executor).
+Every run ends at one choke point (``QueryManager.run_plan``'s finally):
+its metric delta is attributed, the SLO tracker attached as
+``session.slo`` observes its latency, and the flight recorder captures a
+post-mortem when it failed, degraded, retried or overran
+(``runtime/flight.py``). Concurrent identical queries coalesce onto one
+execution (:class:`InflightCoalescer`).
+
+Not ported yet: the batch gate and the batched admission scale, and the
+request deadline a server sets (they come with the server), and the
+distributed -> local degradation (it comes with the distributed
+executor).
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ import gc
 import threading
 import time
 import traceback
+from contextlib import contextmanager
 from contextvars import ContextVar
 from dataclasses import dataclass
 from typing import Callable, Optional
@@ -62,6 +70,7 @@ from presto_tpu_torch.runtime.errors import (
 )
 from presto_tpu_torch.runtime.metrics import REGISTRY
 from presto_tpu_torch.runtime.overload import CancelScope, RetryBudget
+from presto_tpu_torch.runtime.trace import current as trace_current
 from presto_tpu_torch.runtime.trace import span as trace_span
 
 #: cap on one exponential-backoff sleep
@@ -232,16 +241,111 @@ def _reclaim_device(executor) -> None:
         torch.cuda.empty_cache()
 
 
+class _InflightEntry:
+    """One in-flight execution other submissions can coalesce onto."""
+
+    __slots__ = ("event", "result", "ok", "waiters")
+
+    def __init__(self):
+        self.event = threading.Event()
+        self.result = None
+        self.ok = False
+        self.waiters = 0
+
+
+class InflightCoalescer:
+    """Concurrent identical queries (one binding fingerprint) coalesce
+    onto one execution: followers wait for the leader's result instead
+    of racing duplicate device work. Concurrent same-template queries
+    with different literals serialize behind one template slot.
+
+    The Session gates entry as result-cache admission is gated
+    (deterministic plans, no fault injector, no stats recorder), so a
+    follower's answer is what its own run would have given. A leader
+    publishes in a ``finally``: a failed leader wakes its followers with
+    nothing, and each runs itself. Every follower gets its own copy."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._inflight: dict[str, _InflightEntry] = {}
+        #: template fingerprint -> [lock, refcount]
+        self._tlocks: dict[str, list] = {}
+
+    def lead_or_wait(self, key: str, timeout_s: float | None = None):
+        """``(True, entry)`` for the leader (which must ``publish`` the
+        entry in a finally), or ``(False, result_or_None)`` for a
+        follower: the leader's result, or None when the leader failed or
+        the wait timed out (the caller then runs itself)."""
+        with self._lock:
+            entry = self._inflight.get(key)
+            if entry is None:
+                entry = _InflightEntry()
+                self._inflight[key] = entry
+                return True, entry
+            entry.waiters += 1
+        try:
+            served = entry.event.wait(timeout_s)
+        finally:
+            with self._lock:
+                entry.waiters -= 1
+        if served and entry.ok:
+            return False, entry.result.copy()
+        return False, None
+
+    def publish(self, key: str, entry: _InflightEntry, result) -> None:
+        """Finish an in-flight execution: keep a copy of the result (None
+        on failure) and wake every waiter. The key is retired first, so a
+        late arrival leads a fresh execution; with no waiter registered by
+        then, nobody reads the result and it is not copied."""
+        with self._lock:
+            self._inflight.pop(key, None)
+            waiting = entry.waiters
+        if result is not None and waiting:
+            entry.result = result.copy()
+            entry.ok = True
+        entry.event.set()
+
+    def waiters(self, key: str) -> int:
+        """Current follower count of an in-flight key."""
+        with self._lock:
+            entry = self._inflight.get(key)
+            return 0 if entry is None else entry.waiters
+
+    @contextmanager
+    def template_slot(self, template_key: str):
+        """Serialize the executions of one plan template; slots are
+        refcounted, so the map holds only in-flight templates."""
+        with self._lock:
+            slot = self._tlocks.get(template_key)
+            if slot is None:
+                slot = self._tlocks[template_key] = [threading.Lock(), 0]
+            slot[1] += 1
+        if not slot[0].acquire(blocking=False):
+            REGISTRY.counter("prepare.template_queued").add()
+            slot[0].acquire()
+        try:
+            yield
+        finally:
+            slot[0].release()
+            with self._lock:
+                slot[1] -= 1
+                if slot[1] == 0:
+                    self._tlocks.pop(template_key, None)
+
+
 class QueryManager:
     """One session's query lifecycle mechanics: admission, the deadline
-    and cancel scope, fragment retries and the OOM ladder. The Session
-    keeps the client surface and the QUEUED / RUNNING / FINISHED state
-    machine. (The in-flight coalescer and the batch gate come with A9.)"""
+    and cancel scope, fragment retries, the OOM ladder and the in-flight
+    coalescer. The Session keeps the client surface and the QUEUED /
+    RUNNING / FINISHED state machine."""
 
     def __init__(self, session):
         self.session = session
+        #: concurrent identical queries coalesce here
+        self.coalescer = InflightCoalescer()
         self._inflight_lock = threading.Lock()
-        #: live executions, query_id -> {info, executor, plan, cancel}
+        #: live executions, query_id -> {info, executor, plan, tracer,
+        #: cancel}: the health watchdog's view of what runs now
         self._inflight_queries: dict = {}
         #: query_id -> CancelScope for the whole tracked execution
         self._scopes: dict = {}
@@ -360,7 +464,8 @@ class QueryManager:
         scope = self.scope_of(info.query_id) or CancelScope(info.query_id)
         with self._inflight_lock:
             self._inflight_queries[info.query_id] = {
-                "info": info, "executor": executor, "plan": plan, "cancel": scope}
+                "info": info, "executor": executor, "plan": plan,
+                "tracer": trace_current(), "cancel": scope}
         err = None
         try:
             return self._run_admitted(executor, plan, info, recorder, pool, scope)
@@ -376,6 +481,11 @@ class QueryManager:
             self._observe_slo(info, err)
             self._maybe_flight_record(executor, plan, info, err)
 
+    def inflight_snapshot(self) -> "list[dict]":
+        """Shallow copies of the live execution entries."""
+        with self._inflight_lock:
+            return [dict(e) for e in self._inflight_queries.values()]
+
     def _stamp_device_peak(self, info) -> None:
         """Record the allocator's watermark on the finished query
         (``device_telemetry``; 0 without a card)."""
@@ -389,10 +499,39 @@ class QueryManager:
             pass
 
     def _observe_slo(self, info, err) -> None:
-        """The tenant SLO tracker comes with the server (A9)."""
+        """Feed the tenant SLO tracker attached as ``session.slo`` (a
+        plain session has none). A failure counts as a latency breach."""
+        slo = getattr(self.session, "slo", None)
+        if slo is None:
+            return
+        try:
+            latency = float("inf") if err is not None else info.execution_s
+            slo.observe_latency(info.tenant or "default", latency)
+        except Exception:  # noqa: BLE001 -- observability never fails a query
+            pass
 
     def _maybe_flight_record(self, executor, plan, info, err) -> None:
-        """The flight recorder comes with A9."""
+        """Capture a post-mortem when the run failed, degraded (an OOM
+        rung), retried a fragment or overran its deadline; a success only
+        under ``flight_record_successes``. Best-effort."""
+        try:
+            triggers = []
+            if err is not None:
+                triggers.append("failed")
+                if isinstance(err, ExceededTimeLimit):
+                    triggers.append("deadline")
+            if info.oom_retries > 0 or info.degraded:
+                triggers.append("degraded")
+            if info.fragment_retries > 0:
+                triggers.append("retried")
+            if not triggers:
+                if not self.session.prop("flight_record_successes"):
+                    return
+                triggers.append("requested")
+            self.session.flight.capture(info, plan, self.session, executor=executor, err=err,
+                                        triggers=triggers)
+        except Exception:  # noqa: BLE001 -- see docstring
+            REGISTRY.counter("flight.capture_errors").add()
 
     def _run_admitted(self, executor, plan, info, recorder, pool, scope=None):
         try:

@@ -228,6 +228,60 @@ SESSION_PROPERTIES: dict[str, PropertyDef] = {
             "Stamp QueryInfo.device_peak_bytes with the CUDA caching "
             "allocator's peak watermark (runtime/devices.py) at query "
             "completion; 0 without a card."),
+        PropertyDef(
+            "result_cache_enabled", bool, True,
+            "Serve a repeated identical query from the session's "
+            "versioned result cache (cache/result_cache.py: keyed by plan "
+            "fingerprint and the referenced tables' catalog versions). "
+            "Volatile plans (system tables, nondeterministic functions), "
+            "fault-injected runs and failed queries never populate or "
+            "hit."),
+        PropertyDef(
+            "result_cache_max_bytes", int, 256 << 20,
+            "Byte budget of the session's result cache "
+            "(QueryResult.nbytes); eviction is LRU-first, and a result "
+            "larger than the whole budget is not stored.",
+            _positive),
+        PropertyDef(
+            "exec_cache_max_entries", int, 256,
+            "Entry bound of the process-wide executable cache "
+            "(cache/exec_cache.py: operator step callables keyed by "
+            "step-config fingerprint); LRU eviction. Setting it resizes "
+            "the cache for every session; unset leaves the process bound "
+            "as it is.",
+            _positive),
+        PropertyDef(
+            "plan_stats_limit", int, 512,
+            "Plan fingerprints retained in the session's estimate-vs-"
+            "actual history (cache/plan_stats.py, system.plan_stats; LRU "
+            "by fingerprint, invalidated on DDL).",
+            _positive),
+        PropertyDef(
+            "adaptive_execution", bool, True,
+            "Let plan-stats history steer recurring plans "
+            "(plan/adaptive.py): history-corrected join and aggregate "
+            "sizing and the fused-route disable after a runtime "
+            "fallback, compile-budget gated against the executable "
+            "cache's ledger and logged to system.adaptive. Off = "
+            "telemetry only."),
+        PropertyDef(
+            "adaptive_salt_max", int, 8,
+            "Upper bound on the skew-salt partition count "
+            "(plan/adaptive.salt_factor).",
+            _positive),
+        PropertyDef(
+            "flight_recorder_limit", int, 64,
+            "Post-mortem records retained in the session's flight-"
+            "recorder ring (runtime/flight.py, system.flight_recorder). "
+            "A record is captured whenever a query fails, degrades down "
+            "the OOM ladder, retries a fragment or exceeds its deadline; "
+            "Session.export_flight_record writes them as JSON.",
+            _positive),
+        PropertyDef(
+            "flight_record_successes", bool, False,
+            "Also capture a flight record for every successful query; "
+            "adaptive decisions stand down meanwhile, so the captured "
+            "runs show the baseline plan."),
     ]
 }
 

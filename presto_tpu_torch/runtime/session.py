@@ -35,34 +35,68 @@ and aggregations over ``join_build_budget_bytes`` run out of core.
 ``QueryInfo`` records the error code, the ladder's ``oom_rung`` and
 ``rung_history``, the fragment retries and the device peak.
 
-Not ported: the system catalog, the result, executable and plan-stats
-caches, plan-stats history and adaptivity, the flight recorder, the
-coalescer and batcher, and the distributed executor. So ``QueryInfo``'s
-``cache_hit``, ``template_hit``, ``coalesced`` and ``batched`` stay
-False.
+The cache tier, as in the JAX package (``cache/``): a repeated
+deterministic query is answered from the session's versioned result
+cache (``result_cache``, ``QueryInfo.cache_hit``, the ``query_cached``
+event) and DDL drops the entries that read the table; operator steps are
+shared across queries through the process-wide executable cache and
+multi-key join bounds through the stats cache; each finished recorded
+run's estimate-vs-actual rows go into the plan-stats history
+(``plan_stats``, ``export_plan_stats`` / ``import_plan_stats``), which
+steers recurring plans: the aggregation bypass, the spill tier's hot
+partition and the adaptive controller (``adaptive``, ``plan/
+adaptive.py``). Concurrent identical queries coalesce onto one execution
+(``QueryInfo.coalesced``); a plan template seen before sets
+``QueryInfo.template_hit``. The flight recorder (``flight``,
+``export_flight_record``) keeps post-mortems; an SLO tracker and a
+health monitor can be attached as ``slo`` and ``health``. Every session
+registers the ``system`` catalog (``connectors/system.py``).
+
+Not ported: the server's batch gate (``QueryInfo.batched`` stays False)
+and the distributed executor.
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import os
+import threading
 import time
 import uuid
+from collections import OrderedDict
 from typing import Mapping, Optional
 
 import numpy as np
 
 from presto_tpu_torch.batch import Batch, Dictionary, QueryResult
+from presto_tpu_torch.cache.exec_cache import EXEC_CACHE
+from presto_tpu_torch.cache.fingerprint import (
+    plan_fingerprint,
+    plan_is_deterministic,
+    table_versions,
+    try_fingerprint,
+)
+from presto_tpu_torch.cache.plan_stats import PlanStatsStore
+from presto_tpu_torch.cache.result_cache import ResultCache
 from presto_tpu_torch.connectors.memory import MemoryConnector
+from presto_tpu_torch.connectors.system import SystemConnector
 from presto_tpu_torch.devices import resolve_device
 from presto_tpu_torch.exec.local_planner import LocalExecutor, default_join_build_budget
+from presto_tpu_torch.plan.adaptive import AdaptiveController
 from presto_tpu_torch.plan.catalog import Catalog
 from presto_tpu_torch.plan.nodes import PlanNode, plan_tree_str
 from presto_tpu_torch.plan.prune import prune
-from presto_tpu_torch.plan.templates import PreparedStatement, device_params, parameterize_plan
+from presto_tpu_torch.plan.templates import (
+    PreparedStatement,
+    device_params,
+    logical_values,
+    parameterize_plan,
+)
 from presto_tpu_torch.runtime import trace
 from presto_tpu_torch.runtime.errors import UserError, error_code, is_retryable
 from presto_tpu_torch.runtime.events import EventDispatcher, QueryHistoryBuffer
+from presto_tpu_torch.runtime.flight import FlightRecorder
 from presto_tpu_torch.runtime.lifecycle import QueryManager
 from presto_tpu_torch.runtime.memory import MemoryPool, global_pool
 from presto_tpu_torch.runtime.metrics import (
@@ -73,7 +107,7 @@ from presto_tpu_torch.runtime.metrics import (
     uninstall_delta,
 )
 from presto_tpu_torch.runtime.properties import effective, validate_properties
-from presto_tpu_torch.runtime.stats import QueryInfo, StatsRecorder, render_analyzed_plan
+from presto_tpu_torch.runtime.stats import NodeIds, QueryInfo, StatsRecorder, render_analyzed_plan
 from presto_tpu_torch.runtime.trace import TraceRecorder, TraceStore, export_chrome_trace
 from presto_tpu_torch.sql import ast as A
 from presto_tpu_torch.sql.analyzer import Analyzer
@@ -126,6 +160,7 @@ class Session:
         when ``memory_pool_bytes`` is set)."""
         self.device = resolve_device(device)
         conns = dict(connectors)
+        conns.setdefault("system", SystemConnector(self))
         # the writable catalog: CREATE TABLE AS / INSERT INTO land here
         conns.setdefault("memory", MemoryConnector(device=self.device))
         self.catalog = Catalog(conns)
@@ -141,11 +176,32 @@ class Session:
         #: ring of recent span traces (``export_trace``); populated when
         #: ``trace_enabled``
         self.traces = TraceStore()
+        #: the flight recorder's ring of post-mortems
+        self.flight = FlightRecorder(self.prop("flight_recorder_limit"))
         #: prepared statements (PREPARE name FROM ... / Session.prepare)
         self._prepared: dict[str, PreparedStatement] = {}
         #: the query lifecycle: admission, deadlines, cancellation,
-        #: fragment retries, the OOM ladder
+        #: fragment retries, the OOM ladder, the in-flight coalescer
         self.query_manager = QueryManager(self)
+        #: the versioned result cache, per session (sessions own private
+        #: memory catalogs); DDL drops entries through the catalog
+        self.result_cache = ResultCache(self.prop("result_cache_max_bytes"))
+        self.catalog.add_invalidation_listener(self.result_cache.invalidate_table)
+        #: estimate-vs-actual history by plan fingerprint
+        self.plan_stats = PlanStatsStore(self.prop("plan_stats_limit"))
+        self.catalog.add_invalidation_listener(self.plan_stats.invalidate_table)
+        #: the adaptive controller (its decision ring: system.adaptive)
+        self.adaptive = AdaptiveController()
+        #: the server's tenant registry, the tenant SLO tracker
+        #: (``runtime/health.SloTracker``) and the health watchdog
+        #: (``runtime/health.HealthMonitor``): None until attached
+        self.tenants = None
+        self.slo = None
+        self.health = None
+        #: plan templates this session has run (``template_hit``), LRU
+        self._seen_templates: "OrderedDict[str, None]" = OrderedDict()
+        self._seen_templates_limit = 4096
+        self._tmpl_lock = threading.Lock()
         #: an explicit shared pool, else a private one built here (not
         #: lazily: concurrent first queries must see one pool)
         self._memory_pool = memory_pool
@@ -174,6 +230,10 @@ class Session:
             self.properties.update(checked)
         if name == "query_history_limit":
             self.history.resize(self.prop(name))
+        if name == "plan_stats_limit":
+            self.plan_stats.resize(self.prop(name))
+        if name == "flight_recorder_limit":
+            self.flight.resize(self.prop(name))
         if name == "memory_pool_bytes":
             cap = self.prop(name)
             self._private_pool = None if cap is None else MemoryPool(cap, name="session")
@@ -217,6 +277,10 @@ class Session:
 
     def executor(self) -> LocalExecutor:
         """A fresh executor configured from the session properties."""
+        # the executable cache is process-wide: only an explicit setting
+        # resizes it
+        if "exec_cache_max_entries" in self.properties:
+            EXEC_CACHE.set_max_entries(self.prop("exec_cache_max_entries"))
         self._mirror_narrow()
         return LocalExecutor(self.catalog, pallas_join_enabled=self.prop("pallas_join"),
                              approx_join=self.prop("approx_join"),
@@ -265,8 +329,10 @@ class Session:
         if isinstance(stmt, _DDL + _PREPARED):
             raise UserError("DDL statements execute via Session.sql(), not plan()/explain()")
         plan, bound = self._plan_binding(stmt)
+        hints = self._plan_hints(plan)
         out = plan_tree_str(plan, catalog=self.catalog, approx_join=self.prop("approx_join"),
-                            join_build_budget=self.join_build_budget())
+                            join_build_budget=self.join_build_budget(), plan_hints=hints,
+                            adaptive=self._explain_adaptive(plan, hints))
         if bound:
             rendered = ", ".join(f"?{i}={dt}:{v!r}" for i, (dt, v) in enumerate(bound))
             out += f"params=[{rendered}]\n"
@@ -323,8 +389,11 @@ class Session:
         plan = self.plan(sql)
         _res, info = self._run_tracked(sql, plan, recorder,
                                        planning_s=time.perf_counter() - t0)
-        return render_analyzed_plan(plan, recorder,
-                                    tracer=self.traces.for_query(info.query_id))
+        rendered = render_analyzed_plan(plan, recorder,
+                                        tracer=self.traces.for_query(info.query_id))
+        if info.cache_hit:
+            return "result cache: HIT (no execution)\n" + rendered
+        return rendered
 
     def _run_with_retries(self, sql: str, plan: PlanNode, make_recorder,
                           planning_s: float = 0.0, bound=()):
@@ -378,24 +447,113 @@ class Session:
         info.started_mono = time.monotonic()
         if recorder is not None:
             recorder.attach_plan(plan)
+        # two fingerprints: the plan TEMPLATE's (Param slots hash by slot,
+        # never by value) is the template identity; the BINDING's (the
+        # template and this query's literal values) keys the result cache,
+        # the plan stats and the coalescer
+        admissible = ResultCache.admissible(plan, self.catalog)
+        cache_ok = bool(self.prop("result_cache_enabled")) and admissible
+        templates_on = bool(self.prop("plan_templates")) and recorder is None
+        base_fp = None
+        if cache_ok or templates_on:
+            base_fp = plan_fingerprint(plan, self.catalog, self.properties)
+        fp = None
+        if base_fp is not None:
+            fp = try_fingerprint(("binding", base_fp, logical_values(bound))) if bound else base_fp
+        if templates_on and base_fp is not None:
+            with self._tmpl_lock:
+                info.template_hit = base_fp in self._seen_templates
+                self._seen_templates[base_fp] = None
+                self._seen_templates.move_to_end(base_fp)
+                while len(self._seen_templates) > self._seen_templates_limit:
+                    self._seen_templates.popitem(last=False)
+            REGISTRY.counter("prepare.template_hit" if info.template_hit
+                             else "prepare.template_miss").add()
+        # ---- the versioned result cache -------------------------------
+        if cache_ok and fp is not None:
+            with trace.span("result_cache:lookup", "cache") as sp, \
+                    REGISTRY.histogram("cache.result_lookup_s").time():
+                hit = self.result_cache.get_entry(fp, self.catalog)
+                if sp is not None:
+                    sp.args["hit"] = hit is not None
+            if hit is not None:
+                cached, entry = hit
+                info.state = "FINISHED"
+                info.cache_hit = True
+                # the flag the populating run recorded
+                info.approximate = entry.approximate
+                info.output_rows = len(cached)
+                info.finished_at = time.time()
+                info.finished_mono = time.monotonic()
+                REGISTRY.counter("query.completed").add()
+                self.events.query_cached(info)
+                self.events.query_completed(info)
+                return cached, info
+        # plan-stats history of a recurring fingerprint (runs >= 2)
+        hints = self._plan_hints(plan, fp)
+        if recorder is not None:
+            # after the cache lookup: a hit runs nothing to estimate
             with trace.span("plan_estimates", "stats"):
                 recorder.attach_estimates(plan, self.catalog,
                                           approx_join=self.prop("approx_join"),
-                                          join_build_budget=self.join_build_budget())
-        executor = self.executor()
-        executor.recorder = recorder
-        executor.params = device_params(bound, self.device) if bound else ()
-        # moves after the run (query.completed / query.failed, the
-        # completion events) land in an explicit ``post_run.`` bucket
-        post = QueryMetricsDelta()
+                                          join_build_budget=self.join_build_budget(),
+                                          plan_hints=hints)
+        # ---- in-flight coalescing: gated as result-cache admission is
+        entry = None
+        if templates_on and admissible and fp is not None:
+            wait_s = self.prop("query_max_run_time") or self.prop("admission_queue_timeout_s")
+            lead, payload = self.query_manager.coalescer.lead_or_wait(fp, wait_s)
+            if lead:
+                entry = payload
+            elif payload is not None:
+                info.state = "FINISHED"
+                info.coalesced = True
+                info.output_rows = len(payload)
+                info.approximate = payload.approximate
+                info.finished_at = time.time()
+                info.finished_mono = time.monotonic()
+                REGISTRY.counter("prepare.coalesced").add()
+                REGISTRY.counter("query.completed").add()
+                self.events.query_completed(info)
+                return payload, info
+            # else the leader failed or the wait timed out: run ourselves
         try:
-            res = self.query_manager.run_plan(executor, plan, info, recorder)
+            executor = self.executor()
+            executor.recorder = recorder
+            executor.plan_hints = hints
+            executor.adaptive = self._adaptive_decisions(plan, fp, hints, executor)
+            executor.params = device_params(bound, self.device) if bound else ()
+            # moves after the run (query.completed / query.failed, the
+            # result-cache populate, the plan-stats record, the completion
+            # events) land in an explicit ``post_run.`` bucket
+            post = QueryMetricsDelta()
+        except BaseException:
+            # a failure before the publishing finally below still retires
+            # the in-flight entry
+            if entry is not None:
+                self.query_manager.coalescer.publish(fp, entry, None)
+            raise
+        published = None  # the leader's result, for its followers
+        try:
+            # same-template serialization: leaders with a binding queue
+            # behind one slot per template
+            slot_cm = (self.query_manager.coalescer.template_slot(base_fp)
+                       if entry is not None and bound and base_fp is not None
+                       else contextlib.nullcontext())
+            with slot_cm:
+                res = self.query_manager.run_plan(executor, plan, info, recorder)
+            published = res
             token = install_delta(post)
             try:
                 info.state = "FINISHED"
                 info.output_rows = len(res)
                 info.approximate = res.approximate
                 REGISTRY.counter("query.completed").add()
+                if cache_ok and fp is not None:
+                    with trace.span("result_cache:populate", "cache"):
+                        self.result_cache.put(fp, res, table_versions(plan, self.catalog),
+                                              max_bytes=self.prop("result_cache_max_bytes"),
+                                              approximate=info.approximate)
             finally:
                 uninstall_delta(token)
         except Exception as e:
@@ -411,6 +569,10 @@ class Session:
                 uninstall_delta(token)
             raise
         finally:
+            if entry is not None:
+                # wake identical-query followers with the result (or, on
+                # failure, with nothing: each then runs itself)
+                self.query_manager.coalescer.publish(fp, entry, published)
             info.finished_at = time.time()
             info.finished_mono = time.monotonic()
             token = install_delta(post)
@@ -418,6 +580,14 @@ class Session:
                 if recorder is not None:
                     recorder.finalize(plan)
                     info.node_stats = [s.to_dict() for s in recorder.nodes.values()]
+                    if info.state == "FINISHED":
+                        self._record_plan_stats(plan, info, recorder, fp)
+                # applied adaptive decisions go into the decision ring,
+                # failed runs' too
+                ev = getattr(executor, "adaptive_events", None)
+                if ev:
+                    self.adaptive.note_applied(getattr(executor, "adaptive_fp", None) or fp or "",
+                                               info.query_id, ev)
                 self.events.query_completed(info)
             finally:
                 uninstall_delta(token)
@@ -425,6 +595,89 @@ class Session:
                 if v:
                     info.metrics["post_run." + k] = v
         return res, info
+
+    # ---- plan-stats history and adaptivity ----------------------------------
+    def _plan_hints(self, plan, fp=None) -> dict:
+        """Plan-stats history for this plan, keyed by the live plan
+        nodes (``{id(node): estimate-vs-actual record}``) when its
+        fingerprint has recurred (``runs >= 2``), else empty. Record
+        node ids are the recorder's pre-order ids, so a fresh pre-order
+        walk of the shape-identical plan maps them back. Advisory: a
+        failure here never fails a query."""
+        try:
+            if len(self.plan_stats) == 0:
+                return {}
+            if fp is None:
+                if not plan_is_deterministic(plan, self.catalog):
+                    return {}
+                fp = plan_fingerprint(plan, self.catalog, self.properties)
+            entry = self.plan_stats.get(fp, self.catalog)
+            if entry is None or entry.runs < 2:
+                return {}
+            ids = NodeIds()
+            ids.assign(plan)
+            by_id = {}
+
+            def walk(n):
+                by_id[ids.of(n)] = n
+                for c in n.children:
+                    walk(c)
+
+            walk(plan)
+            # fresh copies with the recurrence count: consumers never
+            # mutate the store's records
+            return {id(by_id[r["node_id"]]): {**r, "runs": entry.runs}
+                    for r in entry.records if r["node_id"] in by_id}
+        except Exception:  # noqa: BLE001 -- advisory only
+            return {}
+
+    def _adaptive_decisions(self, plan, fp, hints, executor, for_render: bool = False) -> dict:
+        """The adaptive controller's decision pass for one query (or an
+        EXPLAIN render). The ``adaptive_execution`` property, a missing
+        fingerprint or any internal failure yields no decisions."""
+        try:
+            if not hints or not bool(self.prop("adaptive_execution")):
+                return {}
+            if not fp:
+                if not plan_is_deterministic(plan, self.catalog):
+                    return {}
+                fp = plan_fingerprint(plan, self.catalog, self.properties)
+            if not for_render:
+                executor.adaptive_fp = fp
+            return self.adaptive.decide(
+                plan, hints, self.catalog, fingerprint=fp, nworkers=1,
+                salt_max=int(self.prop("adaptive_salt_max")), for_render=for_render,
+                recording=bool(self.prop("flight_record_successes")))
+        except Exception:  # noqa: BLE001 -- adaptivity never fails a query
+            return {}
+
+    def _explain_adaptive(self, plan, hints) -> dict:
+        """Would-be adaptive decisions for EXPLAIN (no logging, no
+        stickiness, no stand-down guards)."""
+        try:
+            if not hints or not plan_is_deterministic(plan, self.catalog):
+                return {}
+            fp = plan_fingerprint(plan, self.catalog, self.properties)
+            return self._adaptive_decisions(plan, fp, hints, self.executor(), for_render=True)
+        except Exception:  # noqa: BLE001 -- EXPLAIN renders partial plans
+            return {}
+
+    def _record_plan_stats(self, plan, info, recorder, fp) -> None:
+        """Put the run's estimate-vs-actual records into the history
+        under the plan's fingerprint. Volatile plans are never recorded.
+        Best-effort: a recording failure never fails a finished query."""
+        try:
+            if not recorder.estimates:
+                return
+            if fp is None:
+                if not plan_is_deterministic(plan, self.catalog):
+                    return
+                fp = plan_fingerprint(plan, self.catalog, self.properties)
+            with trace.span("plan_stats:record", "stats"):
+                self.plan_stats.put(fp, info.query_id, table_versions(plan, self.catalog),
+                                    recorder.estimate_vs_actual())
+        except Exception:  # noqa: BLE001 -- observability never fails a query
+            REGISTRY.counter("plan_stats.record_errors").add()
 
     # ---- prepared statements -----------------------------------------------
     def _prepare_ast(self, name: str, sql: str, stmt) -> PreparedStatement:
@@ -508,15 +761,70 @@ class Session:
     # ---- observability exports ---------------------------------------------
     def export_metrics(self, path: Optional[str] = None) -> str:
         """The process metrics registry as OpenMetrics/Prometheus text
-        (``runtime.metrics.to_openmetrics``). Returns the text; with
-        ``path``, also writes it there. The JAX package adds gauges of
-        its memory pool, executable cache and flight recorder; the port
-        adds none yet (ROADMAP C17)."""
-        text = to_openmetrics()
+        (``runtime.metrics.to_openmetrics``), plus the live gauges the
+        registry cannot carry: the memory pool's occupancy, the
+        executable cache's entries, the flight recorder's depth, and the
+        devices', SLO tracker's and health monitor's gauges where they
+        apply. Returns the text; with ``path``, also writes it there."""
+        snap = self.pool().snapshot()
+        gauges = {
+            "memory_pool_capacity_bytes": snap["capacity_bytes"],
+            "memory_pool_reserved_bytes": snap["reserved_bytes"],
+            "memory_pool_occupancy": (snap["reserved_bytes"] / snap["capacity_bytes"]
+                                      if snap["capacity_bytes"] else 0.0),
+            "exec_cache_entries": len(EXEC_CACHE),
+            "flight_recorder_depth": len(self.flight),
+        }
+        if self.prop("device_telemetry"):
+            try:
+                from presto_tpu_torch.runtime import devices
+
+                gauges.update(devices.gauges())
+            except Exception:  # noqa: BLE001 -- a gauge never fails the scrape
+                pass
+        for layer in (self.slo, self.health):
+            if layer is not None:
+                try:
+                    gauges.update(layer.gauges())
+                except Exception:  # noqa: BLE001
+                    pass
+        text = to_openmetrics(gauges=gauges)
         if path is not None:
             with open(path, "w") as f:
                 f.write(text)
         return text
+
+    def export_flight_record(self, path: Optional[str] = None,
+                             query_id: Optional[str] = None) -> str:
+        """Flight-recorder post-mortems as JSON: one record with
+        ``query_id``, else the whole ring (newest last). Returns the
+        text; with ``path``, also writes it there."""
+        text = self.flight.to_json(query_id)
+        if path is not None:
+            with open(path, "w") as f:
+                f.write(text)
+        return text
+
+    def export_plan_stats(self, path: Optional[str] = None) -> str:
+        """The plan-stats history as JSON (a restarted session imports it
+        with :meth:`import_plan_stats`). Returns the text; with ``path``,
+        also writes it there."""
+        text = self.plan_stats.to_json()
+        if path is not None:
+            with open(path, "w") as f:
+                f.write(text)
+        return text
+
+    def import_plan_stats(self, path: str) -> int:
+        """Merge an exported plan-stats history, returning the number of
+        entries imported; entries recorded against table versions that
+        have moved since are skipped, an unknown format is refused."""
+        with open(path) as f:
+            text = f.read()
+        try:
+            return self.plan_stats.load_json(text, catalog=self.catalog)
+        except ValueError as e:
+            raise UserError(str(e)) from e
 
     def export_trace(self, path: str, query_id: Optional[str] = None) -> str:
         """Write retained span traces as Chrome ``trace_event`` JSON (load

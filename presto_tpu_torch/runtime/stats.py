@@ -177,7 +177,8 @@ class StatsRecorder:
         self.ids.assign(plan)
 
     def attach_estimates(self, plan, catalog, approx_join: bool = False,
-                         join_build_budget: int | None = None) -> None:
+                         join_build_budget: int | None = None,
+                         plan_hints: dict | None = None) -> None:
         """Snapshot the planner's per-node predictions before execution:
         estimated rows, the sound upper bound and its exactness, the
         planned join strategy or aggregation strategy, and the physical
@@ -209,7 +210,8 @@ class StatsRecorder:
                 try:
                     # recorder runs skip the leaf route (true per-node
                     # actuals), so record the strategy this run uses
-                    strategy = agg_strategy_for(node, catalog, fused_enabled=False)
+                    strategy = agg_strategy_for(node, catalog, hints=plan_hints,
+                                                fused_enabled=False)
                 except Exception:  # noqa: BLE001
                     strategy = ""
             try:
@@ -244,6 +246,17 @@ class StatsRecorder:
                                else st.output_bytes + output_bytes)
         if device_bytes >= 0:
             st.device_bytes = max(st.device_bytes, device_bytes)
+
+    def record_route_fallback(self, node) -> None:
+        """Mark a node whose planner-chosen fused route fell back at run
+        time (its build's advisory stats were violated); the plan-stats
+        history carries it to the adaptive controller."""
+        key = self.ids.of(node)
+        st = self.nodes.get(key)
+        if st is None:
+            st = NodeStats(type(node).__name__, node_id=key)
+            self.nodes[key] = st
+        st.route_fallback = True
 
     def record_spill(self, node, mode: str, partitions: int, resident: int,
                      host_bytes: int) -> None:

@@ -4,17 +4,18 @@ package's.
 - ``explain_analyze`` text, with each node's ``wall ...ms`` masked, equal
   line for line to the reference's for TPC-H Q1, Q3 and Q10, SSB Q1.1, a
   window and a UNION at sf 0.01 (rows in and out, estimates, MISEST
-  flags, bytes, calls, strategies, ``not executed``), the reference's
-  ``cache:`` span lines dropped: the port renders none (ROADMAP C14,
-  pinned by ``test_no_cache_span_lines``);
+  flags, bytes, calls, strategies, ``not executed``) and the ``cache:``
+  span lines (``exec_cache:build``, ``stats_cache:minmax_probe``) with
+  their walls masked, from cleared executable and stats caches
+  (``test_cache_span_lines_equal_reference``);
 - ``execute``: the same frame, ``QueryInfo.state`` and ``output_rows``,
   and the same ``node_stats`` rows (every field but the wall);
   ``collect_node_stats`` on ``Session.sql`` runs the recorder, with the
   same route counters (the recorder skips the leaf route);
 - ``tests/test_plan_stats.py``'s recorder, estimate and rendering unit
   cases and ``tests/test_trace.py``'s node-id cases on the port's
-  ``runtime/stats.py`` (the plan-stats history and ``system.plan_stats``
-  are not ported).
+  ``runtime/stats.py`` (the plan-stats history has cases of its own in
+  ``test_torch_plan_stats.py``).
 """
 
 import gc
@@ -23,6 +24,10 @@ import re
 import pandas as pd
 import pytest
 
+import presto_tpu.cache.exec_cache as JEC
+import presto_tpu.cache.stats_cache as JSC
+import presto_tpu_torch.cache.exec_cache as PEC
+import presto_tpu_torch.cache.stats_cache as PSC
 from presto_tpu.connectors.ssb import SsbConnector as JSsb
 from presto_tpu.connectors.ssb.queries import QUERIES as SSB
 from presto_tpu.connectors.tpch import TpchConnector as JConnector
@@ -39,6 +44,9 @@ from presto_tpu_torch.runtime.stats import (
     misestimate_ratio,
 )
 from torch_bridge import ROUTES, counters, mark_counters, port_frame
+
+#: every case starts from cleared executable and stats caches
+pytestmark = pytest.mark.resets_global_state
 
 SF = 0.01
 
@@ -63,17 +71,28 @@ def conns():
             "ssb": (JSsb(sf=SF), PSsb(sf=SF, device="cpu"))}
 
 
+@pytest.fixture(autouse=True)
+def cold_caches():
+    """Both packages' executable and stats caches start empty: a miss
+    records the span a ``cache:`` line renders."""
+    JEC.EXEC_CACHE.clear()
+    PEC.EXEC_CACHE.clear()
+    JSC.clear()
+    PSC.clear()
+
+
 def sessions_for(conns, key: str, **props):
     j, p = conns[key]
-    return (JSession({key: j}, properties={"result_cache_enabled": False, **props}),
+    props = {"result_cache_enabled": False, **props}
+    return (JSession({key: j}, properties=props),
             PSession({key: p}, properties=props, device="cpu"))
 
 
 def masked(text: str) -> list:
-    """The rendering's lines with each wall masked and the span lines
-    (``cache: ...``) dropped."""
-    return [re.sub(r"wall [\d.]+ms", "wall ?ms", line) for line in text.splitlines()
-            if not line.startswith("cache: ")]
+    """The rendering's lines with each wall masked (the ``cache:`` span
+    lines' too)."""
+    return [re.sub(r"(wall |^cache: \S+ )[\d.]+ms", r"\1?ms", line)
+            for line in text.splitlines()]
 
 
 @pytest.mark.parametrize("name", list(ANALYZED))
@@ -85,18 +104,16 @@ def test_explain_analyze_equals_jax_session(conns, name):
     assert masked(got) == masked(want)
 
 
-def test_no_cache_span_lines(conns):
-    """C14: the reference appends its executable cache's ``cache:`` span
-    lines (A9, jitted programs); the port has no such spans."""
+def test_cache_span_lines_equal_reference(conns):
+    """Both packages append their executable cache's ``cache:`` span
+    lines, one per building miss, equal with the walls masked."""
     js, ps = sessions_for(conns, "tpch")
-    # a statement no other case runs, so the reference compiles afresh
     sql = ("select n_regionkey, count(*) c from nation where n_nationkey < 17 "
            "group by n_regionkey order by n_regionkey")
     want = js.explain_analyze(sql)
     got = ps.explain_analyze(sql)
     assert masked(got) == masked(want)
-    assert any(line.startswith("cache: exec_cache:build") for line in want.splitlines())
-    assert not any(line.startswith("cache:") for line in got.splitlines())
+    assert any(line.startswith("cache: exec_cache:build") for line in got.splitlines())
 
 
 def node_rows(info) -> list:

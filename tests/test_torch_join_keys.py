@@ -534,22 +534,38 @@ def test_join_key_statements_refused_where_reference_refuses(conns, what):
         port_run(conns[1], REFUSED_STATEMENTS[what])
 
 
-def test_stats_cache_is_not_ported(conns):
-    """ROADMAP C13 (deliberate): the reference keeps runtime join-key
-    min/max readbacks across the queries of a session
-    (``cache/stats_cache``), the port reads them back in every query.
-    A cached min/max equals the readback, so two runs of a statement in
-    one session pack alike and answer alike in both packages; only the
-    reference's second run hits its cache."""
-    from presto_tpu.runtime.metrics import REGISTRY
+@pytest.mark.resets_global_state
+def test_stats_cache_equals_reference(conns):
+    """The runtime join-key min/max readbacks are kept across a session's
+    queries by both packages' stats caches: on a repeated multi-key join
+    each run moves the same ``stats_cache.*`` and ``join.filter_rows_*``
+    counters as the reference's, the second run hits and reads nothing
+    back, and both runs answer alike (both stats caches cleared first;
+    result cache off)."""
+    import presto_tpu.cache.stats_cache as JSC
+    import presto_tpu.runtime.metrics as JM
+    import presto_tpu_torch.cache.stats_cache as PSC
+    import presto_tpu_torch.runtime.metrics as PM
 
     sql = KEY_STATEMENTS["mix with matches"]
-    js = JSession({"tpch": conns[0]}, properties={"result_cache_enabled": False})
-    ps = PSession({"tpch": conns[1]}, device="cpu")
-    first = js.sql(sql)
-    hits = REGISTRY.snapshot().get("stats_cache.hit", 0)
-    second = js.sql(sql)
-    assert REGISTRY.snapshot().get("stats_cache.hit", 0) > hits
-    for want in (first, second):
-        pd.testing.assert_frame_equal(pd.DataFrame(ps.sql(sql).to_dict()), want,
-                                      check_exact=True)
+    props = {"result_cache_enabled": False}
+    runs = []
+    for session, sc, reg in ((JSession({"tpch": conns[0]}, properties=props), JSC, JM),
+                             (PSession({"tpch": conns[1]}, properties=props, device="cpu"),
+                              PSC, PM)):
+        sc.clear()
+        out = []
+        for _ in range(2):
+            before = reg.REGISTRY.snapshot()
+            frame = session.sql(sql)
+            after = reg.REGISTRY.snapshot()
+            moves = {k: after[k] - before.get(k, 0) for k in after
+                     if k.startswith(("stats_cache.", "join.filter_rows_"))
+                     and after[k] != before.get(k, 0)}
+            out.append((frame if reg is JM else pd.DataFrame(frame.to_dict()), moves))
+        runs.append(out)
+    (j1, j2), (p1, p2) = runs
+    assert p1[1] == j1[1] and p2[1] == j2[1]
+    assert p2[1].get("stats_cache.hit", 0) > 0 and "stats_cache.miss" not in p2[1]
+    for (got, _), (want, _) in ((p1, j1), (p2, j2)):
+        pd.testing.assert_frame_equal(got, want, check_exact=True)

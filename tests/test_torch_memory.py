@@ -43,8 +43,9 @@ def conns():
 
 @pytest.fixture()
 def sessions(conns):
-    return (JSession({"tpch": conns[0]}, properties={"result_cache_enabled": False}),
-            PSession({"tpch": conns[1]}, device="cpu"))
+    props = {"result_cache_enabled": False}
+    return (JSession({"tpch": conns[0]}, properties=props),
+            PSession({"tpch": conns[1]}, properties=props, device="cpu"))
 
 
 def routes_of(before: dict) -> dict:

@@ -2,12 +2,15 @@
 package's (``presto_tpu/runtime/metrics.py``, ``QueryInfo.attribute_metrics``).
 
 Each statement runs through both packages' sessions at sf 0.01 (result
-cache off in the reference): ``QueryInfo.metrics`` (without the
-lifecycle's and the caches' families, ROADMAP C17; timers and histograms
-by count), ``join_strategy`` and ``filter_selectivity`` are equal,
-``post_run.query.completed`` / ``post_run.query.failed`` included. The
-registries' OpenMetrics text is byte-identical when fed the same adds,
-and the stat classes answer alike.
+cache off in both), each from cleared executable and stats caches (they
+are process-wide): ``QueryInfo.metrics`` (the ``exec_cache.*``,
+``stats_cache.*`` and ``plan_stats.*`` families included; without
+``exec.traces``, which counts XLA traces, ROADMAP C17; timers and
+histograms by count), ``join_strategy`` and ``filter_selectivity`` are
+equal, ``post_run.query.completed`` / ``post_run.query.failed``
+included. The registries' OpenMetrics text, the session's gauges with
+it, is byte-identical when fed the same adds, and the stat classes
+answer alike.
 """
 
 from __future__ import annotations
@@ -16,7 +19,11 @@ import threading
 
 import pytest
 
+import presto_tpu.cache.exec_cache as JE
+import presto_tpu.cache.stats_cache as JS
 import presto_tpu.runtime.metrics as JM
+import presto_tpu_torch.cache.exec_cache as PE
+import presto_tpu_torch.cache.stats_cache as PS
 import presto_tpu_torch.runtime.metrics as PM
 from presto_tpu.connectors.tpch import TpchConnector as JConnector
 from presto_tpu.connectors.tpch.queries import QUERIES
@@ -24,6 +31,9 @@ from presto_tpu.runtime.session import Session as JSession
 from presto_tpu_torch.connectors.tpch import TpchConnector as PConnector
 from presto_tpu_torch.runtime.session import Session as PSession
 from torch_bridge import comparable_metrics
+
+#: every case starts from cleared executable and stats caches
+pytestmark = pytest.mark.resets_global_state
 
 SF = 0.01
 
@@ -60,8 +70,19 @@ def conns():
     return JConnector(sf=SF), PConnector(sf=SF, device="cpu")
 
 
+@pytest.fixture(autouse=True)
+def cold_caches():
+    """Both packages' executable and stats caches start empty, so their
+    hits and misses count from the same state."""
+    JE.EXEC_CACHE.clear()
+    PE.EXEC_CACHE.clear()
+    JS.clear()
+    PS.clear()
+
+
 def sessions(conns, **props):
-    return (JSession({"tpch": conns[0]}, properties={"result_cache_enabled": False, **props}),
+    props = {"result_cache_enabled": False, **props}
+    return (JSession({"tpch": conns[0]}, properties=props),
             PSession({"tpch": conns[1]}, properties=props, device="cpu"))
 
 
@@ -178,14 +199,22 @@ def test_snapshot_equal_reference():
 
 
 def test_export_metrics_file_equals_reference(conns, tmp_path, monkeypatch):
-    """``Session.export_metrics(path)`` writes the registry's exposition,
-    byte for byte the reference's over a registry fed the same adds; the
-    reference's live gauges (memory pool, executable cache, flight
-    recorder) are not ported (ROADMAP C17)."""
+    """``Session.export_metrics(path)`` writes the registry's exposition
+    with the live gauges (the memory pool, the executable cache's
+    entries, the flight recorder's depth), byte for byte the reference's
+    over registries fed the same adds, pools of one capacity and caches
+    holding the same entries (the device gauges, which name each
+    package's devices, off)."""
+    js, ps = sessions(conns, memory_pool_bytes=1 << 30, device_telemetry=False)
+    for s in (js, ps):
+        s.sql("select count(*) c from region")
+    assert len(PE.EXEC_CACHE) == len(JE.EXEC_CACHE) > 0
     monkeypatch.setattr(PM, "REGISTRY", feed(PM))
+    monkeypatch.setattr(JM, "REGISTRY", feed(JM))
     path = tmp_path / "metrics.prom"
-    text = sessions(conns)[1].export_metrics(str(path))
-    assert path.read_text() == text == JM.to_openmetrics(feed(JM))
+    text = ps.export_metrics(str(path))
+    assert path.read_text() == text == js.export_metrics()
+    assert "presto_tpu_exec_cache_entries " in text
 
 
 # ---------------------------------------------------------------------------

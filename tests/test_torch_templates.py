@@ -16,9 +16,9 @@ package's.
 - EXPLAIN: the port's text, ``params=[...]`` line included, equal to the
   reference's for the 22 TPC-H queries at sf 0.01 (plans only).
 
-The reference counts ``prepare.template_hit`` / ``template_miss`` and
-sets ``QueryInfo.template_hit`` from its plan fingerprints (A9); the port
-does neither (ROADMAP C15, pinned by ``test_template_hit_not_tracked``).
+Both packages count ``prepare.template_hit`` / ``template_miss`` and set
+``QueryInfo.template_hit`` from their plan-template fingerprints
+(``test_template_hit_equals_reference``).
 """
 
 import pandas as pd
@@ -45,7 +45,8 @@ def conns():
 
 
 def sessions_for(conns, **props):
-    return (JSession({"tpch": conns[0]}, properties={"result_cache_enabled": False, **props}),
+    props = {"result_cache_enabled": False, **props}
+    return (JSession({"tpch": conns[0]}, properties=props),
             PSession({"tpch": conns[1]}, properties=props, device="cpu"))
 
 
@@ -255,21 +256,30 @@ def test_in_list_params(conns):
                                             " where o_orderkey in (1, 7, 32)")))
 
 
-def test_template_hit_not_tracked(conns):
-    """C15: the reference fingerprints plan templates and counts hits and
-    misses (A9's caches); the port sets no template_hit."""
+def test_template_hit_equals_reference(conns):
+    """Both packages fingerprint each plan template: the first run of a
+    statement in a session is a ``prepare.template_miss``, the second a
+    ``prepare.template_hit`` with ``QueryInfo.template_hit`` set, and a
+    statement differing in a literal has the reference's verdict too."""
     js, ps = sessions_for(conns)
-    sql = "select count(*) c from orders where o_orderkey < 77"
-    for _ in range(2):
+    sqls = ["select count(*) c from orders where o_orderkey < 77"] * 2 + [
+        "select count(*) c from orders where o_orderkey < 78"]
+    got, want = [], []
+    for sql in sqls:
         before = REGISTRY.snapshot()
         js.sql(sql)
         after = REGISTRY.snapshot()
         mark_counters()
         ps.sql(sql)
-    assert js.query_history[-1].template_hit
-    assert after.get("prepare.template_hit", 0) - before.get("prepare.template_hit", 0) == 1
-    assert not ps.query_history[-1].template_hit
-    assert not counters()["prepare.template_hit"] and not counters()["prepare.template_miss"]
+        moves = counters()
+        want.append((js.query_history[-1].template_hit,
+                     after.get("prepare.template_hit", 0) - before.get("prepare.template_hit", 0),
+                     after.get("prepare.template_miss", 0)
+                     - before.get("prepare.template_miss", 0)))
+        got.append((ps.query_history[-1].template_hit, moves["prepare.template_hit"],
+                    moves["prepare.template_miss"]))
+    assert got == want
+    assert got[:2] == [(False, 0, 1), (True, 1, 0)]
 
 
 def test_explain_renders_param_slots(conns):

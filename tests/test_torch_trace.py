@@ -1,11 +1,13 @@
 """The port's span traces against the JAX package's
 (``presto_tpu/runtime/trace.py`` and the pipeline's spans).
 
-Q3 and Q10 run through both packages' sessions at sf 0.01, once with one
+Q3 and Q10 run through both packages' sessions at sf 0.01 (result
+cache off, executable and stats caches cleared first), once with one
 split a table and once with 2,048 units a split (several batches a
 table, so the scan prefetch worker runs): the sequences of (name, cat,
-depth) equal once the lifecycle's and the caches' spans are taken out
-(ROADMAP C14). The multi-split run also shows that every span was opened
+depth) equal, the caches' ``exec_cache:build`` and ``plan_stats:record``
+spans included, once the distributed executor's and the server's spans
+are taken out (ROADMAP C14). The multi-split run also shows that every span was opened
 on the query's thread and that the prefetch worker sees the plan
 template's parameters but neither the trace recorder nor the metric
 delta. Then the recorder's bounds, the Chrome export and its errors, and
@@ -19,7 +21,11 @@ import threading
 
 import pytest
 
+import presto_tpu.cache.exec_cache as JEC
+import presto_tpu.cache.stats_cache as JSC
 import presto_tpu.runtime.trace as JT
+import presto_tpu_torch.cache.exec_cache as PEC
+import presto_tpu_torch.cache.stats_cache as PSC
 import presto_tpu_torch.runtime.trace as PT
 from presto_tpu.connectors.tpch import TpchConnector as JConnector
 from presto_tpu.connectors.tpch.queries import QUERIES
@@ -33,8 +39,21 @@ from presto_tpu_torch.runtime.metrics import REGISTRY as PREGISTRY
 from presto_tpu_torch.runtime.session import Session as PSession
 from torch_bridge import ROUTES, comparable_metrics, span_tree
 
+#: every case starts from cleared executable and stats caches
+pytestmark = pytest.mark.resets_global_state
+
 SF = 0.01
 UNITS = 2048
+
+
+@pytest.fixture(autouse=True)
+def cold_caches():
+    """Both packages' executable and stats caches start empty: a miss
+    records an ``exec_cache:build`` span, so both must miss alike."""
+    JEC.EXEC_CACHE.clear()
+    PEC.EXEC_CACHE.clear()
+    JSC.clear()
+    PSC.clear()
 
 
 @pytest.fixture(scope="module")
@@ -45,7 +64,8 @@ def conns():
 
 
 def sessions(pair, **props):
-    return (JSession({"tpch": pair[0]}, properties={"result_cache_enabled": False, **props}),
+    props = {"result_cache_enabled": False, **props}
+    return (JSession({"tpch": pair[0]}, properties=props),
             PSession({"tpch": pair[1]}, properties=props, device="cpu"))
 
 
@@ -149,6 +169,8 @@ def test_trace_disabled_records_nothing(conns, tmp_path):
 
 
 def test_max_spans_drops_and_counts(conns):
+    # warm the process-wide executable cache: no build spans below
+    sessions(conns[None])[1].execute(QUERIES["q3"])
     _js, full = sessions(conns[None])
     full.execute(QUERIES["q3"])
     total = len(full.traces.latest().spans)

@@ -229,14 +229,14 @@ def one_thread():
 # (ROADMAP C14, C17) and a fault injector that counts its reaches
 # ---------------------------------------------------------------------------
 
-#: metric families only the caches (A9) fire, absent from the port's
-#: ``QueryInfo.metrics`` (ROADMAP C17)
-C17_FAMILIES = ("exec_cache.", "exec.traces", "stats_cache.", "result_cache.", "plan_stats.",
-                "cache.")
+#: metric families absent from the port's ``QueryInfo.metrics`` (ROADMAP
+#: C17): ``exec.traces`` counts XLA traces, which the port has none of,
+#: and ``batch.*`` only the server's batcher (A9b) fires
+C17_FAMILIES = ("exec.traces", "batch.")
 
-#: spans only the distributed executor (A10) or the caches (A9) record
-#: (ROADMAP C14)
-C14_SPANS = ("degrade_to_local", "exec_cache:", "stats_cache:", "result_cache:", "plan_stats:")
+#: spans only the distributed executor (A10) or the server's batcher
+#: (A9b) record (ROADMAP C14)
+C14_SPANS = ("degrade_to_local", "batch:")
 
 #: a histogram snapshot's quantile keys
 _QUANTILES = ("p50", "p95", "p99", "max")
