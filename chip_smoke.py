@@ -266,6 +266,21 @@ one CUDA card, and exits nonzero on any failure. Phases:
    ``system`` tables through ``select ... where ...`` against the
    session's stores; two Q6 at once coalesced onto one execution. Every
    answer against numpy, every launch inside a ``fragment:`` span, each
+   launch shape held to the plain version;
+21. the serving tier and the streams at SF1 (``run_serving_queries``):
+   three tenants' threads sending Q1, Q6 and Q3 at once through a
+   ``QueryServer`` (two fair slots, the batch gate, the health monitor)
+   by ``submit`` and over HTTP on 127.0.0.1 (``system.tenants`` names
+   them); a TopN and an aggregate template with 8 concurrent bindings
+   fused into one batched dispatch each (``lineitem`` scanned once per
+   batch, no ``batch.fallback.error``, every lane equal to numpy and to
+   its serial run); a leaf-routed template falling back from the gate
+   (``batch.fallback.leaf_route``) onto the leaf kernel; a
+   ``StreamWriter`` appending 10 micro-batches under an exact
+   subscription delivering at every epoch and an approximate one over
+   half of lineitem's splits; a forced shed and a cancelled queued
+   query, typed, every pool at 0. Every answer against numpy, every
+   launch from the server's threads inside a ``fragment:`` span, each
    launch shape held to the plain version.
 
 Phases 3-19 open their sessions with ``MEASURED`` (the result cache and
@@ -7054,6 +7069,477 @@ def run_cache_queries(conn, device: str = "cuda", cache_budget: int | None = Non
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the serving tier (fair scheduler, batch gate, QueryServer over
+# HTTP) and the streams (StreamWriter, continuous queries, sampled scans)
+# ---------------------------------------------------------------------------
+
+#: the tenants of phase 21's ad hoc statements: (name, weight, concurrency cap)
+SERVE_TENANTS = (("dash", 1.0, None), ("etl", 1.0, 1), ("gold", 4.0, None))
+SERVE_RUNS = {"q1": QUERIES["q1"], "q6": QUERIES["q6"], "q3": QUERIES["q3"]}
+#: the batched templates, prepared with ``?`` slots: the reference tests'
+#: TopN and an aggregate the leaf matcher refuses (a slot inside the summed
+#: value), 8 bindings each (``SERVE_BINDINGS``) behind one held binding
+SERVE_TOPN = ("select l_orderkey, l_linenumber, l_quantity from lineitem"
+              " where l_extendedprice < {} order by l_orderkey, l_linenumber limit 25")
+SERVE_AGG = ("select sum(l_extendedprice + {}) s, count(*) c, max(l_quantity) m"
+             " from lineitem where l_partkey < {}")
+SERVE_BINDINGS = {"topn": [(v,) for v in (1000, 1500, 2000, 3000, 5000, 8000, 13000, 21000, 34000)],
+                  "agg": [(a, p) for a, p in ((1, 500), (2, 1000), (3, 2000), (5, 4000),
+                                              (8, 8000), (13, 16000), (21, 32000), (34, 64000),
+                                              (55, 128000))]}
+#: a template whose aggregate the leaf route takes (a membership fold): it
+#: falls back from the gate with the reason ``leaf_route``
+SERVE_LEAF = ("select sum(l_extendedprice) s, count(*) c from lineitem where l_suppkey in"
+              " (select s_suppkey from supplier where s_acctbal < ?)")
+SERVE_LEAF_BINDINGS = (0, 2000, 5000)
+#: the streamed memory table: micro-batches of lineitem rows
+STREAM_COLS = ["l_orderkey", "l_quantity", "l_extendedprice"]
+STREAM_BATCHES = 10
+STREAM_SQL = "select sum(l_extendedprice) s, count(*) c from p21_li where l_quantity < 2400"
+#: the approximate subscription: TopN from the end of lineitem over half
+#: its splits
+APPROX_FRACTION = 0.5
+APPROX_SQL = ("select l_orderkey, l_linenumber, l_quantity from lineitem"
+              " where l_extendedprice < 2000 order by l_orderkey desc, l_linenumber desc limit 25")
+
+
+def serve_topn_expected(li: dict, price: int, desc: bool = False) -> dict:
+    m = li["l_extendedprice"] < price * 100
+    k, ln, q = li["l_orderkey"][m], li["l_linenumber"][m], li["l_quantity"][m]
+    order = np.lexsort((-ln, -k) if desc else (ln, k))[:25]
+    return {"l_orderkey": k[order], "l_linenumber": ln[order], "l_quantity": q[order]}
+
+
+def serve_agg_expected(li: dict, add: int, partkey: int) -> dict:
+    m = li["l_partkey"] < partkey
+    px = li["l_extendedprice"][m].astype(np.int64)
+    return {"s": np.array([int((px + add * 100).sum())]), "c": np.array([int(m.sum())]),
+            "m": np.array([int(li["l_quantity"][m].max())])}
+
+
+def serve_leaf_expected(li: dict, supplier: dict, balance: int) -> dict:
+    keys = np.sort(supplier["s_suppkey"][supplier["s_acctbal"] < balance * 100])
+    hit = _lookup(keys, li["l_suppkey"])[1]
+    return {"s": np.array([int(li["l_extendedprice"][hit].astype(np.int64).sum())]),
+            "c": np.array([int(hit.sum())])}
+
+
+def sampled_split_indices(n_all: int, fraction: float) -> list:
+    """The splits a sampled scan keeps (``LocalExecutor.sampled_splits``'
+    evenly strided rule), recomputed here."""
+    keep = max(1, int(round(n_all * fraction)))
+    if n_all <= 1 or keep >= n_all:
+        return list(range(n_all))
+    step = n_all / keep
+    return [min(int(i * step), n_all - 1) for i in range(keep)]
+
+
+@contextlib.contextmanager
+def held_first_run():
+    """Hold the first ``QueryManager.run_plan`` call in the block until
+    ``release`` is set: bindings issued meanwhile queue at the batch gate.
+    Yields ``(first, release)``."""
+    from presto_tpu_torch.runtime.lifecycle import QueryManager
+
+    first, release = threading.Event(), threading.Event()
+    orig = QueryManager.run_plan
+
+    def gated(self, executor, plan, info, recorder):
+        if not first.is_set():
+            first.set()
+            release.wait(120)
+        return orig(self, executor, plan, info, recorder)
+
+    QueryManager.run_plan = gated
+    try:
+        yield first, release
+    finally:
+        release.set()
+        QueryManager.run_plan = orig
+
+
+@contextlib.contextmanager
+def counted_scans(conn, table: str):
+    """Count ``conn.scan`` calls of ``table``'s splits in the block."""
+    seen = {"scans": 0}
+    orig = conn.scan
+
+    def scan(split, columns=None, capacity=None):
+        if split.table == table:
+            seen["scans"] += 1
+        return orig(split, columns, capacity)
+
+    conn.scan = scan
+    try:
+        yield seen
+    finally:
+        del conn.scan
+
+
+def _threads(targets) -> list:
+    threads = [threading.Thread(target=fn, daemon=True) for fn in targets]
+    for t in threads:
+        t.start()
+    return threads
+
+
+def _joined(threads, what: str) -> None:
+    for t in threads:
+        t.join(300)
+    check(not any(t.is_alive() for t in threads), f"phase 21: {what} hung")
+
+
+def _http(base: str, method: str, path: str, body: bytes | None = None, headers=None) -> dict:
+    import urllib.request
+
+    req = urllib.request.Request(base + path, data=body, headers=headers or {}, method=method)
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return json.loads(r.read())
+
+
+def run_serving_queries(conn, device: str = "cuda") -> dict:
+    """Phase 21 at SF1 (``run_serving_queries``): the serving tier.
+
+    - ad hoc statements from three tenants (weights 1, 1 and 4, one capped
+      at one running query) through one ``QueryServer`` (two slots, the
+      batch gate and the health monitor on): each tenant's threads send
+      Q1, Q6 and Q3 at once, through ``submit`` / ``result`` and through
+      the ``HttpFrontend`` on 127.0.0.1; every answer equals numpy (an
+      HTTP page equals the JSON of the checked answer), ``QueryInfo.
+      tenant`` and ``system.tenants`` name the three tenants;
+    - a batched template: ``SERVE_TOPN`` and ``SERVE_AGG`` with 8
+      concurrent bindings queued behind one held binding: one batched
+      dispatch of 8 lanes each (``batch.fallback.error`` 0), ``lineitem``
+      scanned once per batch, every lane equal to numpy and to its own
+      serial run; the batch's wall beside the 8 serial walls;
+    - ``SERVE_LEAF`` (the leaf route's membership fold) falls back with
+      ``batch.fallback.leaf_route`` and launches the leaf kernel serially,
+      once per split a binding;
+    - streams: ``StreamWriter`` appends ``STREAM_BATCHES`` micro-batches
+      of lineitem rows to a memory table; an exact subscription delivers
+      at every epoch, equal to numpy over the rows at its epoch
+      (``subscription.stale_blocked`` 0); an approximate subscription
+      (``approx_scan_fraction`` 0.5) is flagged and equals numpy over
+      exactly the sampled splits;
+    - overload: a forced shed raises ``ServerOverloaded`` with its
+      retry-after, a cancelled queued query fails ``QUERY_CANCELLED``,
+      and every pool ends at 0.
+
+    Every K1, K3 and K4 launch lies inside a ``fragment:`` span (the
+    server's worker threads included) and each launch shape is held to
+    its plain version."""
+    from presto_tpu_torch.runtime.errors import ServerOverloaded
+    from presto_tpu_torch.server.frontend import HttpFrontend, QueryServer, _df_payload
+    from presto_tpu_torch.server.scheduler import TenantSpec
+    from presto_tpu_torch.stream import StreamWriter
+
+    t0 = time.perf_counter()
+    li = conn.table_numpy("lineitem", ["l_orderkey", "l_linenumber", "l_partkey", "l_suppkey",
+                                       "l_quantity", "l_extendedprice", "l_discount",
+                                       "l_shipdate"])
+    supplier = conn.table_numpy("supplier", ["s_suppkey", "s_acctbal"])
+    want = {"q1": q1_sql_expected(conn), "q3": q3_expected(conn),
+            "q6": revenue(li["l_extendedprice"], li["l_discount"], q6_mask(li))}
+    lanes = {("topn", b): serve_topn_expected(li, *b) for b in SERVE_BINDINGS["topn"]}
+    lanes.update({("agg", b): serve_agg_expected(li, *b) for b in SERVE_BINDINGS["agg"]})
+    leaf_want = {v: serve_leaf_expected(li, supplier, v) for v in SERVE_LEAF_BINDINGS}
+    splits = list(conn.splits("lineitem"))
+    n_splits = len(splits)
+    log(f"phase 21: numpy recomputation at SF{conn.sf:g} in {time.perf_counter() - t0:.1f} s; "
+        f"lineitem has {n_splits} splits")
+    out = {"walls": {}, "batch": {}, "streams": {}}
+    query = {"name": None}
+    props = {**MEASURED, "batched_dispatch": True}
+    servers = []
+
+    def server(**kw):
+        kw.setdefault("properties", dict(props, health_monitor=False))
+        srv = QueryServer({"tpch": conn}, device=device, **kw)
+        servers.append(srv)
+        return srv
+
+    try:
+        with each_probe_shape(query) as probes, first_kernel_calls(query) as calls, \
+                launch_spans() as spans:
+            _reset_launches()
+            # ---- ad hoc statements from three tenants ----------------------
+            query["name"] = "phase 21 tenants"
+            tenants = [TenantSpec(n, weight=w, max_concurrent=c) for n, w, c in SERVE_TENANTS]
+            adhoc = server(tenants=tenants, total_slots=2,
+                           properties=dict(props, health_monitor=True))
+            check(adhoc.health is not None and adhoc.health.running(),
+                  "phase 21: the health monitor is not armed")
+            fe = HttpFrontend(adhoc, host="127.0.0.1", port=0).start_background()
+            base = f"http://127.0.0.1:{fe.port}"
+            answers, pages, errors = {}, {}, []
+
+            def submit(tenant, name):
+                def go():
+                    try:
+                        qid = adhoc.submit(SERVE_RUNS[name], tenant=tenant)
+                        answers[(tenant, name)] = adhoc.result(qid, timeout_s=300)
+                    except Exception as e:  # noqa: BLE001 -- checked below
+                        errors.append(e)
+                return go
+
+            def over_http(tenant, name):
+                def go():
+                    try:
+                        sub = _http(base, "POST", "/v1/statement", SERVE_RUNS[name].encode(),
+                                    {"X-Presto-Tenant": tenant})
+                        adhoc.result(sub["id"], timeout_s=300)
+                        pages[(tenant, name)] = _http(base, "GET", sub["nextUri"])
+                    except Exception as e:  # noqa: BLE001 -- checked below
+                        errors.append(e)
+                return go
+
+            try:
+                before = _launch_counts()
+                t1 = time.perf_counter()
+                work = [f(t, q) for t, _w, _c in SERVE_TENANTS for q in SERVE_RUNS
+                        for f in (submit, over_http)]
+                _joined(_threads(work), "the tenants' statements")
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                out["walls"]["tenants"] = time.perf_counter() - t1
+            finally:
+                fe.shutdown()
+            check(not errors, f"phase 21: tenant statements failed: {errors[:3]}")
+            for (tenant, name), res in answers.items():
+                same_result(res, want[name], f"phase 21 {name} for {tenant}")
+                page = pages[(tenant, name)]
+                check(page["state"] == "FINISHED" and page["tenant"] == tenant
+                      and {k: page[k] for k in ("columns", "data")} == json.loads(
+                          json.dumps(_df_payload(res))),
+                      f"phase 21: the HTTP page of {name} for {tenant} differs")
+            launched = _launch_delta(before, _launch_counts())
+            seen_tenants = {i.tenant for i in adhoc.session.query_history}
+            table = _rows(adhoc.session.sql("select tenant, admitted, max_concurrent from tenants"
+                                            " where admitted > 0"))
+            check({n for n, _w, _c in SERVE_TENANTS} <= seen_tenants
+                  and {r[0] for r in table} == {n for n, _w, _c in SERVE_TENANTS}
+                  and all(r[1] == 2 * len(SERVE_RUNS) for r in table)
+                  and dict((r[0], r[2]) for r in table)["etl"] == 1,
+                  f"phase 21: tenants {seen_tenants}, system.tenants {table}")
+            if device == "cuda":
+                check(launched["q1"] > 0 and launched["q1"] % n_splits == 0
+                      and launched["leaf_agg"] > 0 and launched["leaf_agg"] % n_splits == 0
+                      and launched["exists"] > 0,
+                      f"phase 21's tenants launched {launched} over {n_splits} splits")
+            out["tenants"] = {"launches": {k: launched[k] for k in ("q1", "leaf_agg", "exists")},
+                              "system_tenants": table,
+                              "coalesced": sum(i.coalesced for i in adhoc.session.query_history),
+                              "statements": len(work)}
+            log(f"  tenants: {len(work)} statements in {out['walls']['tenants']:.3f} s, "
+                f"{out['tenants']}")
+
+            # ---- batched templates ------------------------------------------
+            batcher = server()
+            serial = measured_session({"tpch": conn}, device=device)
+            for name, fmt in (("topn", SERVE_TOPN), ("agg", SERVE_AGG)):
+                query["name"] = f"phase 21 batched {name}"
+                binds = SERVE_BINDINGS[name]
+                # prepared with ``?`` slots: the aggregate's literals would
+                # stay baked (the leaf matcher takes it with literals)
+                template = fmt.replace("{}", "?")
+                batcher.prepare(template, name=name, tenant="batch")
+                batcher.execute_prepared(name, list(binds[0]), tenant="batch")
+                serial_handle = serial.prepare(template)
+                results, errors = {}, []
+
+                def run(b, name=name):
+                    try:
+                        results[b] = batcher.execute_prepared(name, list(b), tenant="batch")
+                    except Exception as e:  # noqa: BLE001 -- checked below
+                        errors.append(e)
+
+                before, moves0 = _launch_counts(), counters()
+                gate = batcher.session.query_manager.batch_gate
+                with held_first_run() as (first, release), counted_scans(conn, "lineitem") as sc:
+                    held = _threads([lambda: run(binds[0])])
+                    check(first.wait(120), f"phase 21 {name}: the first binding never ran")
+                    rest = _threads([lambda b=b: run(b) for b in binds[1:]])
+                    deadline = time.monotonic() + 120
+                    while sum(gate.queue_depth(fp) for fp in list(gate._templates)) < len(binds) - 1:
+                        check(time.monotonic() < deadline, f"phase 21 {name}: bindings never queued")
+                        time.sleep(0.002)
+                    t1 = time.perf_counter()
+                    release.set()
+                    _joined(held + rest, f"the {name} bindings")
+                    if device == "cuda":
+                        torch.cuda.synchronize()
+                    batch_wall = time.perf_counter() - t1
+                check(not errors, f"phase 21 {name}: {errors[:3]}")
+                moved = {k: v - moves0[k] for k, v in counters().items()
+                         if k.startswith("batch.") and v != moves0[k]}
+                infos = [i for i in batcher.session.query_history if i.tenant == "batch"][-len(binds):]
+                check(moved.get("batch.dispatched") == 1
+                      and moved.get("batch.queries") == len(binds) - 1
+                      and not moved.get("batch.fallback.error")
+                      and {i.batch_size for i in infos if i.batched} == {len(binds) - 1},
+                      f"phase 21 {name}: batch counters {moved}")
+                check(sc["scans"] == 2 * n_splits,
+                      f"phase 21 {name}: lineitem scanned {sc['scans']} times for one held run "
+                      f"and one batch over {n_splits} splits")
+                serial_walls = []
+                for b in binds:
+                    same_result(results[b], lanes[(name, b)], f"phase 21 {name} lane {b}")
+                    t1 = time.perf_counter()
+                    alone, _info = serial.execute_prepared(serial_handle, list(b))
+                    if device == "cuda":
+                        torch.cuda.synchronize()
+                    serial_walls.append(time.perf_counter() - t1)
+                    _bitwise_equal(results[b], alone, f"phase 21 {name} lane {b} against its serial run")
+                out["batch"][name] = {"counters": moved, "scans": sc["scans"],
+                                      "lanes": len(binds) - 1, "batch_wall_s": batch_wall,
+                                      "serial_walls_s": serial_walls[1:],
+                                      "launches": _launch_delta(before, _launch_counts())}
+                log(f"  batched {name}: {len(binds) - 1} lanes in one dispatch, counters {moved}, "
+                    f"lineitem scans {sc['scans']} (held run + batch), held run and batch "
+                    f"{batch_wall:.4f} s against the lanes' serial walls "
+                    f"{sum(serial_walls[1:]):.4f} s ({[round(w, 4) for w in serial_walls[1:]]})")
+            out["batch"]["dispatched"] = sum(out["batch"][n]["counters"].get("batch.dispatched", 0)
+                                             for n in ("topn", "agg"))
+            out["batch"]["fallback.error"] = sum(
+                out["batch"][n]["counters"].get("batch.fallback.error", 0) for n in ("topn", "agg"))
+
+            # ---- a template that falls back to the leaf kernel ---------------
+            query["name"] = "phase 21 leaf fallback"
+            handle = batcher.prepare(SERVE_LEAF, name="leaf", tenant="batch")
+            batcher.execute_prepared(handle, [SERVE_LEAF_BINDINGS[0]], tenant="batch")
+            results, errors = {}, []
+
+            def run_leaf(v):
+                try:
+                    results[v] = batcher.execute_prepared(handle, [v], tenant="batch")
+                except Exception as e:  # noqa: BLE001 -- checked below
+                    errors.append(e)
+
+            before, moves0 = _launch_counts(), counters()
+            gate = batcher.session.query_manager.batch_gate
+            with held_first_run() as (first, release):
+                held = _threads([lambda: run_leaf(SERVE_LEAF_BINDINGS[0])])
+                check(first.wait(120), "phase 21 leaf: the first binding never ran")
+                rest = _threads([lambda v=v: run_leaf(v) for v in SERVE_LEAF_BINDINGS[1:]])
+                deadline = time.monotonic() + 120
+                while sum(gate.queue_depth(fp) for fp in list(gate._templates)) < 2:
+                    check(time.monotonic() < deadline, "phase 21 leaf: bindings never queued")
+                    time.sleep(0.002)
+                release.set()
+                _joined(held + rest, "the leaf bindings")
+            check(not errors, f"phase 21 leaf: {errors[:3]}")
+            moved = {k: v - moves0[k] for k, v in counters().items()
+                     if k.startswith("batch.") and v != moves0[k]}
+            launched = _launch_delta(before, _launch_counts())
+            check(moved.get("batch.fallback.leaf_route", 0) >= 1 and not moved.get("batch.dispatched"),
+                  f"phase 21 leaf: counters {moved}")
+            if device == "cuda":
+                check(launched["leaf_agg"] == len(SERVE_LEAF_BINDINGS) * n_splits,
+                      f"phase 21 leaf: launched {launched} over {n_splits} splits")
+            for v in SERVE_LEAF_BINDINGS:
+                same_result(results[v], leaf_want[v], f"phase 21 leaf binding {v}")
+            out["leaf_fallback"] = {"counters": moved, "leaf_launches": launched["leaf_agg"]}
+            log(f"  leaf-route template: counters {moved}, leaf launches {launched['leaf_agg']}")
+
+            # ---- streams ----------------------------------------------------
+            query["name"] = "phase 21 streams"
+            stream_srv = server(approx_properties={"approx_scan_fraction": APPROX_FRACTION})
+            writer = StreamWriter(stream_srv.session)
+            rows = len(li["l_orderkey"])
+            chunk = -(-rows // STREAM_BATCHES)
+            moves0 = counters()
+            first_batch = {c: li[c][:chunk].astype(np.int64) for c in STREAM_COLS}
+            r = writer.append("p21_li", first_batch)
+            sub = stream_srv.subscribe(STREAM_SQL, tenant="dash")
+            got = [sub.wait_for_seq(1, timeout_s=120)]
+            t1 = time.perf_counter()
+            for i in range(1, STREAM_BATCHES):
+                r = writer.append("p21_li", {c: li[c][i * chunk:(i + 1) * chunk].astype(np.int64)
+                                             for c in STREAM_COLS})
+                got.append(sub.wait_for_epoch("p21_li", r.epoch, timeout_s=120))
+            out["walls"]["stream deliveries"] = time.perf_counter() - t1
+            for res in got:
+                n = res.epochs["p21_li"] * chunk
+                m = li["l_quantity"][:n] < 2400
+                same_result(res.df, {"s": np.array([int(li["l_extendedprice"][:n][m].astype(
+                    np.int64).sum())]), "c": np.array([int(m.sum())])},
+                    f"phase 21 subscription at epoch {res.epochs['p21_li']}")
+            check([res.epochs["p21_li"] for res in got] == list(range(1, STREAM_BATCHES + 1))
+                  and not any(res.approximate for res in got),
+                  f"phase 21: deliveries at epochs {[res.epochs for res in got]}")
+            approx = stream_srv.subscribe(APPROX_SQL, tenant="dash", mode="approx")
+            a = approx.wait_for_seq(1, timeout_s=120)
+            kept = sampled_split_indices(n_splits, APPROX_FRACTION)
+            parts = [conn.scan_numpy(splits[i], ["l_orderkey", "l_linenumber", "l_quantity",
+                                                 "l_extendedprice"]) for i in kept]
+            sampled = {c: np.concatenate([p[c] for p in parts]) for c in parts[0]}
+            same_result(a.df, serve_topn_expected(sampled, 2000, desc=True),
+                        "phase 21 approximate subscription over the sampled splits")
+            moved = {k: v - moves0[k] for k, v in counters().items()
+                     if k.startswith(("subscription.", "stream.", "scan.splits_sampled_out"))
+                     and v != moves0[k]}
+            check(a.approximate and moved.get("subscription.stale_blocked", 0) == 0
+                  and moved.get("stream.appends") == STREAM_BATCHES
+                  and moved.get("scan.splits_sampled_out", 0) == n_splits - len(kept)
+                  or n_splits == 1,
+                  f"phase 21 streams: approximate {a.approximate}, counters {moved}")
+            out["streams"] = {"counters": moved, "epochs": len(got), "sampled_splits": kept,
+                              "stale_blocked": moved.get("subscription.stale_blocked", 0),
+                              "refresh_s": [round(res.refresh_s, 6) for res in got]}
+            log(f"  streams: {len(got)} deliveries, one an epoch, in "
+                f"{out['walls']['stream deliveries']:.3f} s; approximate over splits {kept} of "
+                f"{n_splits}; counters {moved}")
+
+            # ---- overload ---------------------------------------------------
+            query["name"] = "phase 21 overload"
+            shed = server(total_slots=1, shed_tenant_queue_limit=0)
+            try:
+                shed.submit(QUERIES["q6"], tenant="dash")
+                check(False, "phase 21: the forced shed admitted the query")
+            except ServerOverloaded as e:
+                check(e.retry_after_s > 0 and e.retryable, f"phase 21: shed {e!r}")
+                out["shed_retry_after_s"] = e.retry_after_s
+            queued = server(total_slots=1)
+            hold = queued.scheduler.acquire("default")
+            try:
+                qid = queued.submit(QUERIES["q6"])
+                check(queued.cancel(qid)["cancelled"], "phase 21: the cancel was refused")
+            finally:
+                queued.scheduler.release(hold)
+            check(queued._queries[qid]["done"].wait(120), "phase 21: the cancelled query hung")
+            page = queued.poll(qid)
+            check(page["state"] == "FAILED" and page["errorCode"] == "QUERY_CANCELLED",
+                  f"phase 21: the cancelled page {page}")
+            out["cancelled"] = page["errorCode"]
+            out["launches"] = _launch_counts()
+    finally:
+        for srv in servers:
+            summary = srv.shutdown(drain_timeout_s=120)
+            check(summary["drained"] and summary["pool_reserved_bytes"] == 0,
+                  f"phase 21: a server did not drain: {summary}")
+    launches = out["launches"]
+    log(f"  phase 21's launches: "
+        f"{ {k: launches[k] for k in ('q1', 'lane_sums', 'leaf_agg', 'exists', 'payload')} }")
+    if device == "cuda":
+        for k in ("q1", "leaf_agg", "exists"):
+            check(launches[k] > 0, f"phase 21 launched no {k} kernel")
+    outside = [(k, sp) for (k, sp), inside in zip(spans["launches"], spans["in_fragment"])
+               if not inside]
+    check(not outside, f"phase 21: kernel launches outside a fragment span: {outside[:5]}")
+    log(f"  kernel launches by innermost span: "
+        f"{_summed(*({f'{k} in {sp}': 1} for k, sp in spans['launches']))}; all "
+        f"{len(spans['launches'])} inside a fragment span, from the server's threads")
+    out["probe_err"] = hold_probe_shapes(probes)
+    out["call_err"] = hold_kernel_calls(calls)
+    q1_err = 0
+    for cap, b in sorted(spans["q1 batches"].items()):
+        q1_err = max(q1_err, compare(cuda_q1.q1_step(b), cuda_q1.q1_step_plain(b),
+                                     f"q1_step at phase 21's first {cap}-row batch"))
+    out["q1_err"] = q1_err
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -7076,7 +7562,7 @@ def main() -> int:
 
 
 def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
-    """Phases 1-20 (``cpu_answers``: phase 16's CPU answers, computing in
+    """Phases 1-21 (``cpu_answers``: phase 16's CPU answers, computing in
     worker processes meanwhile)."""
     marks: list = []
 
@@ -7547,10 +8033,24 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
                  for k in ("q1", "lane_sums", "leaf_agg", "q3", "like", "prefix")}
     log(f"  exists, sketch and payload launches with phase 20: {totals}; phase 20's alone: "
         f"{p20}; its other kernels: {p20_other}")
+    # ---- phase 21: the serving tier and the streams ------------------------
+    mark("21 serving tier")
+    serve = run_serving_queries(TpchConnector(sf=1, device="cuda"))
+    p21 = probe_launch_totals({"phase 21": serve["launches"]})
+    totals = probe_launch_totals(join["launches"], strings["launches"], semi["launches"],
+                                 outer["launches"], expr["launches"], sub["launches"],
+                                 feat["launches"], surf["launches"], win["launches"],
+                                 ds["launches"], st["launches"], {"phase 18": obs["launches"]},
+                                 {"phase 19": life["launches"]}, {"phase 20": cache["launches"]},
+                                 {"phase 21": serve["launches"]})
+    p21_other = {k: serve["launches"][k]
+                 for k in ("q1", "lane_sums", "leaf_agg", "q3", "like", "prefix")}
+    log(f"  exists, sketch and payload launches with phase 21: {totals}; phase 21's alone: "
+        f"{p21}; its other kernels: {p21_other}")
     mark("json")
     log("phase seconds: " + ", ".join(f"{a} {t1 - t0:.1f}" for (a, t0), (_b, t1)
                                       in zip(marks, marks[1:])))
-    log(f"phases 1-20 in {marks[-1][1] - marks[0][1]:.1f} s")
+    log(f"phases 1-21 in {marks[-1][1] - marks[0][1]:.1f} s")
 
     log(smi[0])
     kernels = [
@@ -7560,13 +8060,13 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
          "launches": (q1_launches + p11_other["q1"] + p12_other["q1"] + p13_other["q1"]
                       + p14_other["q1"] + p15_other["q1"] + p16_other["q1"]
                       + p17_other["q1"] + p18_other["q1"] + p19_other["q1"]
-                      + p20_other["q1"]),
+                      + p20_other["q1"] + p21_other["q1"]),
          "phase11_launches": p11_other["q1"], "phase12_launches": p12_other["q1"],
          "phase13_launches": p13_other["q1"], "phase14_launches": p14_other["q1"], "phase15_launches": p15_other["q1"],
          "phase16_launches": p16_other["q1"], "phase17_launches": p17_other["q1"],
          "phase18_launches": p18_other["q1"], "phase19_launches": p19_other["q1"],
-         "phase20_launches": p20_other["q1"],
-         "max_abs_err": max(q1_err, obs["q1_err"], life["q1_err"], cache["q1_err"]), "ms": q1_ms, "kernel_ms": q1_ms,
+         "phase20_launches": p20_other["q1"], "phase21_launches": p21_other["q1"],
+         "max_abs_err": max(q1_err, obs["q1_err"], life["q1_err"], cache["q1_err"], serve["q1_err"]), "ms": q1_ms, "kernel_ms": q1_ms,
          "call_ms": q1_call_ms,
          "plain_ms": q1_plain_ms, "bound_ms": q1_bound, "bound_by": q1_by,
          "library_ms": None, "rows": n, "bytes": q1_bytes, "ops": q1_ops},
@@ -7579,12 +8079,12 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
                       + p14_other["lane_sums"] + p15_other["lane_sums"]
                       + p16_other["lane_sums"]
                       + p17_other["lane_sums"] + p18_other["lane_sums"] + p19_other["lane_sums"]
-                      + p20_other["lane_sums"]),
+                      + p20_other["lane_sums"] + p21_other["lane_sums"]),
          "phase13_launches": p13_other["lane_sums"], "phase14_launches": p14_other["lane_sums"],
          "phase15_launches": p15_other["lane_sums"],
          "phase16_launches": p16_other["lane_sums"], "phase17_launches": p17_other["lane_sums"],
          "phase18_launches": p18_other["lane_sums"], "phase19_launches": p19_other["lane_sums"],
-         "phase20_launches": p20_other["lane_sums"],
+         "phase20_launches": p20_other["lane_sums"], "phase21_launches": p21_other["lane_sums"],
          "phase16_launches_by_instance": {k.split()[1]: c for k, c in p16_by_instance.items()
                                           if k.startswith("lane_sums")},
          "phase14_launches_by_instance": {k.split()[1]: c for k, c in p14_by_instance.items()
@@ -7602,7 +8102,7 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
                             surf["call_err"]["lane_sums"], win["call_err"]["lane_sums"],
                            ds["call_err"]["lane_sums"], st["call_err"]["lane_sums"],
                            obs["call_err"]["lane_sums"], life["call_err"]["lane_sums"],
-                           cache["call_err"]["lane_sums"]),
+                           cache["call_err"]["lane_sums"], serve["call_err"]["lane_sums"]),
          "ms": ln["ms"], "kernel_ms": ln["ms"], "call_ms": ln["call_ms"],
          "plain_ms": ln["plain_ms"], "bound_ms": lane_bound, "bound_by": lane_by,
          "library_ms": ln["library_ms"], "rows": cap, "bytes": ln["bytes"], "ops": ln["ops"],
@@ -7625,7 +8125,7 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
          "launches_from": "phases 6, 8, 9, 10, 11, 12, 13, 14 and 15",
          "phase16_launches": p16["exists"]["launches"], "phase17_launches": p17["exists"]["launches"],
          "phase18_launches": p18["exists"]["launches"], "phase19_launches": p19["exists"]["launches"],
-         "phase20_launches": p20["exists"]["launches"],
+         "phase20_launches": p20["exists"]["launches"], "phase21_launches": p21["exists"]["launches"],
          "phase19_launches_by_shape": p19["exists"]["by_shape"],
          "phase17_launches_by_shape": p17["exists"]["by_shape"],
          "phase16_launches_by_shape": p16["exists"]["by_shape"],
@@ -7645,7 +8145,7 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
                              surf["probe_err"]["exists"], win["probe_err"]["exists"],
                             ds["probe_err"]["exists"], st["probe_err"]["exists"],
                             obs["probe_err"]["exists"], life["probe_err"]["exists"],
-                            cache["probe_err"]["exists"]]
+                            cache["probe_err"]["exists"], serve["probe_err"]["exists"]]
                             + [t["err"] for t in probe_shapes["exists"].values()]),
          "ms": ex["ms"], "kernel_ms": ex["ms"], "call_ms": ex["call_ms"],
          "plain_ms": ex["plain_ms"], "bound_ms": exists_bound, "bound_by": exists_by,
@@ -7667,7 +8167,7 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
          "phase15_launches": p15["sketch"]["launches"],
          "phase16_launches": p16["sketch"]["launches"], "phase17_launches": p17["sketch"]["launches"],
          "phase18_launches": p18["sketch"]["launches"], "phase19_launches": p19["sketch"]["launches"],
-         "phase20_launches": p20["sketch"]["launches"],
+         "phase20_launches": p20["sketch"]["launches"], "phase21_launches": p21["sketch"]["launches"],
          "phase19_launches_by_shape": p19["sketch"]["by_shape"],
          "phase17_launches_by_shape": p17["sketch"]["by_shape"],
          "max_abs_err": max([sketch_err, keep_err["sketch"]]
@@ -7684,12 +8184,12 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
          "launches": (semi["q3_launches"] + p11_other["q3"] + p12_other["q3"] + p13_other["q3"]
                       + p14_other["q3"] + p15_other["q3"] + p16_other["q3"]
                       + p17_other["q3"] + p18_other["q3"] + p19_other["q3"]
-                      + p20_other["q3"]),
+                      + p20_other["q3"] + p21_other["q3"]),
          "phase11_launches": p11_other["q3"], "phase12_launches": p12_other["q3"],
          "phase13_launches": p13_other["q3"], "phase14_launches": p14_other["q3"], "phase15_launches": p15_other["q3"],
          "phase16_launches": p16_other["q3"], "phase17_launches": p17_other["q3"],
          "phase18_launches": p18_other["q3"], "phase19_launches": p19_other["q3"],
-         "phase20_launches": p20_other["q3"],
+         "phase20_launches": p20_other["q3"], "phase21_launches": p21_other["q3"],
          "max_abs_err": max(q3_kernel_err, semi["q3"]["err"]),
          "ms": q3_one["ms"], "kernel_ms": q3_one["ms"], "call_ms": q3_one["call_ms"],
          "plain_ms": q3_one["plain_ms"], "bound_ms": q3_bound, "bound_by": q3_by,
@@ -7707,7 +8207,7 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
          "launches_from": "phases 6, 8, 9, 10, 11, 12, 13, 14 and 15",
          "phase16_launches": p16["payload"]["launches"], "phase17_launches": p17["payload"]["launches"],
          "phase18_launches": p18["payload"]["launches"], "phase19_launches": p19["payload"]["launches"],
-         "phase20_launches": p20["payload"]["launches"],
+         "phase20_launches": p20["payload"]["launches"], "phase21_launches": p21["payload"]["launches"],
          "phase19_launches_by_shape": p19["payload"]["by_shape"],
          "phase17_launches_by_shape": p17["payload"]["by_shape"],
          "phase16_launches_by_shape": p16["payload"]["by_shape"],
@@ -7728,7 +8228,7 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
                              sub["probe_err"]["payload"], feat["probe_err"]["payload"],
                              surf["probe_err"]["payload"], win["probe_err"]["payload"],
                             ds["probe_err"]["payload"], st["probe_err"]["payload"],
-                            life["probe_err"]["payload"], cache["probe_err"]["payload"]]
+                            life["probe_err"]["payload"], cache["probe_err"]["payload"], serve["probe_err"]["payload"]]
                             + [t["err"] for t in probe_shapes["payload"].values()]),
          "ms": pay["ms"], "kernel_ms": pay["ms"], "call_ms": pay["call_ms"],
          "plain_ms": pay["plain_ms"], "bound_ms": pay["bound_ms"], "bound_by": pay["bound_by"],
@@ -7743,13 +8243,13 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
                       + p13_other["leaf_agg"] + p14_other["leaf_agg"]
                       + p15_other["leaf_agg"] + p16_other["leaf_agg"]
                       + p17_other["leaf_agg"] + p18_other["leaf_agg"] + p19_other["leaf_agg"]
-                      + p20_other["leaf_agg"]),
+                      + p20_other["leaf_agg"] + p21_other["leaf_agg"]),
          "phase11_launches": p11_other["leaf_agg"], "phase12_launches": p12_other["leaf_agg"],
          "phase13_launches": p13_other["leaf_agg"], "phase14_launches": p14_other["leaf_agg"],
          "phase15_launches": p15_other["leaf_agg"],
          "phase16_launches": p16_other["leaf_agg"], "phase17_launches": p17_other["leaf_agg"],
          "phase18_launches": p18_other["leaf_agg"], "phase19_launches": p19_other["leaf_agg"],
-         "phase20_launches": p20_other["leaf_agg"],
+         "phase20_launches": p20_other["leaf_agg"], "phase21_launches": p21_other["leaf_agg"],
          "phase16_launches_by_instance": {k.split()[1]: c for k, c in p16_by_instance.items()
                                           if k.startswith("leaf_agg")},
          "phase15_launches_by_instance": {k.split()[1]: c for k, c in p15_by_instance.items()
@@ -7766,7 +8266,7 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
                             surf["call_err"]["leaf_agg"], win["call_err"]["leaf_agg"],
                            ds["call_err"]["leaf_agg"], st["call_err"]["leaf_agg"],
                            obs["call_err"]["leaf_agg"], life["call_err"]["leaf_agg"],
-                           cache["call_err"]["leaf_agg"]),
+                           cache["call_err"]["leaf_agg"], serve["call_err"]["leaf_agg"]),
          "ms": sp["ms"], "kernel_ms": sp["ms"], "call_ms": sp["call_ms"],
          "plain_ms": sp["plain_ms"], "bound_ms": leaf_bound, "bound_by": leaf_by,
          "library_ms": sp["library_ms"], "rows": sp["rows"], "bytes": sp["bytes"],
@@ -7783,7 +8283,7 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
                       + sub["like_launches"] + p13_other["like"] + p14_other["like"]
                       + p15_other["like"] + p16_other["like"]
                       + p17_other["like"] + p18_other["like"] + p19_other["like"]
-                      + p20_other["like"]),
+                      + p20_other["like"] + p21_other["like"]),
          "launches_by_instance": _summed(strings["like_by_instance"],
                                          outer["like_by_instance"], expr["like_by_instance"],
                                          sub["like_by_instance"], p13_like_by_instance,
@@ -7792,7 +8292,7 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
          "phase13_launches": p13_other["like"], "phase14_launches": p14_other["like"], "phase15_launches": p15_other["like"],
          "phase16_launches": p16_other["like"], "phase17_launches": p17_other["like"],
          "phase18_launches": p18_other["like"], "phase19_launches": p19_other["like"],
-         "phase20_launches": p20_other["like"],
+         "phase20_launches": p20_other["like"], "phase21_launches": p21_other["like"],
          "phase14_launches_by_instance": p14_like_by_instance,
          "phase13_launches_by_instance": p13_like_by_instance,
          "launches_from": "phase 8 (LIKE queries), phase 10 (Q13, Q5), phase 11 (Q16) and "
@@ -7821,13 +8321,13 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
                       + p13_other["prefix"] + p14_other["prefix"]
                       + p15_other["prefix"] + p16_other["prefix"]
                       + p17_other["prefix"] + p18_other["prefix"] + p19_other["prefix"]
-                      + p20_other["prefix"]),
+                      + p20_other["prefix"] + p21_other["prefix"]),
          "phase11_launches": p11_other["prefix"], "phase12_launches": p12_other["prefix"],
          "phase13_launches": p13_other["prefix"], "phase14_launches": p14_other["prefix"],
          "phase15_launches": p15_other["prefix"],
          "phase16_launches": p16_other["prefix"], "phase17_launches": p17_other["prefix"],
          "phase18_launches": p18_other["prefix"], "phase19_launches": p19_other["prefix"],
-         "phase20_launches": p20_other["prefix"],
+         "phase20_launches": p20_other["prefix"], "phase21_launches": p21_other["prefix"],
          "launches_from": "phase 8 (the starts_with pipeline); phase 12's like 'forest%' "
                           "runs the LIKE kernel, as in the JAX package",
          "launches_by_instance": strings["prefix_by_instance"],

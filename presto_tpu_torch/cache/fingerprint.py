@@ -45,6 +45,9 @@ NONDETERMINISTIC_FNS = frozenset({"now", "random", "rand", "uuid",
 CODEGEN_PROPERTIES = (
     "join_build_budget_bytes",
     "approx_join",
+    # approx_scan_fraction < 1 drops splits (sampled scans): sampled and
+    # exact runs must never share cached results
+    "approx_scan_fraction",
 )
 
 #: the mesh part of a plan fingerprint: one device until the

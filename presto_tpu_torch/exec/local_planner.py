@@ -88,7 +88,10 @@ route off) are applied at the strategy points and noted in
 ``adaptive_events``. Operator steps come from the executable cache
 (``cache/exec_cache.py``), join-key bounds from the stats cache.
 
-Not ported: sampled scans. A plan node without an executor here raises
+Sampled scans (``scan_sample_fraction`` < 1, the ``approx_scan_fraction``
+property): a table scan keeps an evenly strided subset of its splits, the
+run is flagged ``used_approx`` and ``scan.splits_sampled_out`` counts the
+splits left out. A plan node without an executor here raises
 ``NotSupported``.
 """
 
@@ -326,11 +329,19 @@ def _join_filter_step(name: str):
 
 
 class LocalExecutor(OomLadderMixin):
+    #: the template batch gate may hand this executor's plans to the
+    #: batched dispatcher (``server/batcher.py``)
+    supports_batched_dispatch = True
+
     def __init__(self, catalog: Catalog, pallas_join_enabled: bool = True,
                  approx_join: bool = False, runtime_join_filters: bool = True,
                  device="cuda", join_build_budget: int | None = None,
-                 spill_host_budget: int | None = None):
+                 spill_host_budget: int | None = None, scan_sample_fraction: float = 1.0):
         self.catalog = catalog
+        #: APPROXIMATE sampled scans: below 1.0 each table scan keeps an
+        #: evenly strided subset of its splits and the run is flagged
+        #: ``used_approx``
+        self.scan_sample_fraction = float(scan_sample_fraction or 1.0)
         #: push join build-key bounds and Bloom words into probe scans
         self.runtime_join_filters = runtime_join_filters
         #: id(probe scan node) -> [JoinFilterSlot]
@@ -488,6 +499,24 @@ class LocalExecutor(OomLadderMixin):
         return self._trace_ids.of(node)
 
     # ---- leaves ----------------------------------------------------------
+    def sampled_splits(self, splits: list) -> list:
+        """The splits a scan reads: all of them, or under
+        ``scan_sample_fraction`` < 1 an evenly strided subset,
+        deterministic per split layout (repeated refreshes of one
+        subscription sample alike). A sampled run is flagged
+        ``used_approx``: a sampled result is never presented as exact."""
+        f = self.scan_sample_fraction
+        if f >= 1.0 or len(splits) <= 1:
+            return splits
+        n_all = len(splits)
+        keep = max(1, int(round(n_all * f)))
+        if keep >= n_all:
+            return splits
+        step = n_all / keep
+        self.used_approx = True
+        REGISTRY.counter("scan.splits_sampled_out").add(n_all - keep)
+        return [splits[min(int(i * step), n_all - 1)] for i in range(keep)]
+
     def _exec_tablescan(self, node: N.TableScan, scalars) -> BatchStream:
         """Streaming scan: one device batch per split, yielded lazily;
         the next split generates on a worker thread meanwhile."""
@@ -496,7 +525,7 @@ class LocalExecutor(OomLadderMixin):
         rename = {s: n for n, s in node.columns}
         op = (FilterProjectOperator(bind_scalars(node.predicate, scalars), None)
               if node.predicate is not None else None)
-        splits = list(conn.splits(node.table))
+        splits = self.sampled_splits(list(conn.splits(node.table)))
         cap = batch_capacity(max(s.row_hint for s in splits))
         fslots = self._scan_filters.get(id(node), ())
 

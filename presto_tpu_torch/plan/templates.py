@@ -246,6 +246,84 @@ def _count_eligible_literals(obj) -> int:
     return 0
 
 
+#: aggregate kinds the batched dispatcher's global-aggregation replay
+#: covers (GlobalAggregationOperator's exact update and finish)
+_BATCHABLE_AGG_KINDS = frozenset({"sum", "count", "count_star", "min", "max"})
+
+
+def unbatchable_reason(plan: N.PlanNode, catalog) -> Optional[str]:
+    """Why a plan template cannot take the cross-query batched dispatch
+    (``server/batcher.py``), or None when it can.
+
+    The batched dispatcher scans the template's one table once and
+    replays its operator steps once per queued binding. That is sound
+    only for plans whose execution is a pure function of (scan data,
+    params): one table scan feeding streaming filter/project steps into
+    at most one pipeline breaker (global aggregation, sort, top-N).
+    Everything else (joins, grouped aggregation, windows, set operations,
+    subqueries, LIMIT, VALUES, volatile system scans, and a fragment the
+    leaf-route matcher would lower to a fused kernel) falls back to the
+    serialized template slot, counted per reason under
+    ``batch.fallback.*``; the reasons are the JAX package's."""
+    breakers = 0
+
+    def walk(node: N.PlanNode) -> Optional[str]:
+        nonlocal breakers
+        if isinstance(node, N.Output):
+            return walk(node.child)
+        if isinstance(node, (N.TopN, N.Sort)):
+            breakers += 1
+            if breakers > 1:
+                return "multi_breaker"
+            return walk(node.child)
+        if isinstance(node, N.Aggregate):
+            # the serial executor's global-aggregation condition: no
+            # keys, no passengers
+            if node.keys or node.passengers:
+                return "grouped_agg"
+            if any(a.kind not in _BATCHABLE_AGG_KINDS for a in node.aggs):
+                return "agg_kind"
+            try:
+                from presto_tpu_torch.exec.leaf_route import match_leaf_fragment
+
+                route, _ = match_leaf_fragment(node, catalog)
+                if route is not None:
+                    # the serial path launches the fused kernel; batching
+                    # must not re-route it through the generic replay
+                    return "leaf_route"
+            except Exception:  # noqa: BLE001 -- conservative: no batch
+                return "leaf_route"
+            breakers += 1
+            if breakers > 1:
+                return "multi_breaker"
+            return walk(node.child)
+        if isinstance(node, (N.Filter, N.Project)):
+            return walk(node.child)
+        if isinstance(node, N.TableScan):
+            conn = catalog.connectors.get(node.connector)
+            if conn is None or getattr(conn, "volatile", False):
+                return "volatile"
+            return None
+        if isinstance(node, (N.Join, N.SemiJoin)):
+            return "join"
+        if isinstance(node, N.Window):
+            return "window"
+        if isinstance(node, N.Union):
+            return "union"
+        if isinstance(node, (N.BindScalars, N.ScalarValue)):
+            return "subquery"
+        if isinstance(node, N.Limit):
+            return "limit"
+        if isinstance(node, N.Values):
+            return "values"
+        return "unsupported"
+
+    try:
+        return walk(plan)
+    except Exception:  # noqa: BLE001 -- an advisory gate never fails a query
+        return "unsupported"
+
+
 def parameterize_plan(plan: N.PlanNode, catalog, start_slot: int = 0):
     """Auto-parameterize a pruned plan: every eligible ``Literal`` becomes
     a typed ``Param`` slot, numbered from ``start_slot`` (after any

@@ -41,10 +41,14 @@ post-mortem when it failed, degraded, retried or overran
 (``runtime/flight.py``). Concurrent identical queries coalesce onto one
 execution (:class:`InflightCoalescer`).
 
-Not ported yet: the batch gate and the batched admission scale, and the
-request deadline a server sets (they come with the server), and the
-distributed -> local degradation (it comes with the distributed
-executor).
+The serving tier's pieces live here too: the template batch gate
+(``QueryManager.batch_gate``, ``server/batcher.TemplateBatchGate``), a
+batch leader's admission scale (:meth:`QueryManager.admit` reserves the
+plan's peak once per fused lane, clamped so that batching never fails a
+query the serial path admits) and the request deadline a server sets
+(:data:`REQUEST_DEADLINE`, the tighter of it and ``query_max_run_time``
+wins). Not ported yet: the distributed -> local degradation (it comes
+with the distributed executor).
 """
 
 from __future__ import annotations
@@ -78,6 +82,11 @@ MAX_BACKOFF_S = 5.0
 
 _CURRENT: ContextVar[Optional["QueryContext"]] = ContextVar(
     "presto_tpu_torch_query_context", default=None)
+
+#: a request's absolute ``time.monotonic()`` deadline, set by the serving
+#: front-end around a request (``X-Presto-Deadline``, ``deadline_s``)
+REQUEST_DEADLINE: ContextVar[Optional[float]] = ContextVar(
+    "presto_tpu_torch_request_deadline", default=None)
 
 
 @dataclass(frozen=True)
@@ -343,6 +352,11 @@ class QueryManager:
         self.session = session
         #: concurrent identical queries coalesce here
         self.coalescer = InflightCoalescer()
+        #: concurrent same-template different-literal queries meet here
+        #: and fuse into one batched dispatch under ``batched_dispatch``
+        from presto_tpu_torch.server.batcher import TemplateBatchGate
+
+        self.batch_gate = TemplateBatchGate()
         self._inflight_lock = threading.Lock()
         #: live executions, query_id -> {info, executor, plan, tracer,
         #: cancel}: the health watchdog's view of what runs now
@@ -401,13 +415,19 @@ class QueryManager:
 
         return executor_budget_bytes(self.session.device) * DEFAULT_POOL_HEADROOM
 
-    def admit(self, plan, info, pool) -> None:
+    def admit(self, plan, info, pool, scale: int = 1) -> int:
         """Reject (``ResourceExhausted``) before launch when the plan's
         peak estimate exceeds the per-query limit; else reserve that peak
         from the pool, queuing FIFO (``admission_queue_timeout_s``, capped
-        by the deadline) while other queries hold it."""
+        by the deadline) while other queries hold it. A batch leader runs
+        ``scale`` fused lanes and reserves the peak once per lane, the
+        scale clamped so that it never fails a query the serial path
+        would admit; returns the granted scale."""
         limit = self.admission_limit()
         peak, node = peak_estimate_bytes(plan, self.session.catalog)
+        scale = max(1, int(scale))
+        if scale > 1 and peak > 0:
+            scale = min(scale, max(1, limit // peak), max(1, pool.capacity_bytes // peak))
         if peak > limit:
             REGISTRY.counter("query.admission_rejected").add()
             raise ResourceExhausted(
@@ -421,20 +441,28 @@ class QueryManager:
             timeout_s = deadline_s if timeout_s is None else min(timeout_s, deadline_s)
         t0 = time.monotonic()
         try:
-            queued_s = pool.reserve(info.query_id, peak, timeout_s=timeout_s,
-                                    detail=f"peak estimate {peak} bytes at {node}",
+            queued_s = pool.reserve(info.query_id, peak * scale, timeout_s=timeout_s,
+                                    detail=f"peak estimate {peak} bytes at {node}"
+                                    + (f" x{scale} batch lanes" if scale > 1 else ""),
                                     tenant=info.tenant or None)
         except ResourceExhausted:
             info.memory_queued_s = time.monotonic() - t0
             raise
-        info.memory_reserved_bytes = peak
+        info.memory_reserved_bytes = peak * scale
         info.memory_queued_s = queued_s
+        return scale
 
     # -- execution scope ------------------------------------------------
     def _context(self, info, scope: "CancelScope | None" = None) -> QueryContext:
         events = self.session.events
+        deadline_s = self.session.prop("query_max_run_time")
+        request_deadline = REQUEST_DEADLINE.get()
+        if request_deadline is not None:
+            # the serving layer's request deadline: the tighter one wins
+            remaining = max(0.0, request_deadline - time.monotonic())
+            deadline_s = remaining if deadline_s is None else min(deadline_s, remaining)
         ctx = QueryContext(
-            deadline_s=self.session.prop("query_max_run_time"),
+            deadline_s=deadline_s,
             retry=RetryPolicy(count=self.session.prop("retry_count"),
                               backoff_s=self.session.prop("retry_backoff_s")),
             cancel_scope=scope, retry_budget=self.retry_budget())
@@ -536,7 +564,13 @@ class QueryManager:
     def _run_admitted(self, executor, plan, info, recorder, pool, scope=None):
         try:
             with trace_span("admission", "lifecycle"):
-                self.admit(plan, info, pool)
+                asked = getattr(executor, "admission_scale", 1)
+                granted = self.admit(plan, info, pool, scale=asked)
+                if granted != asked:
+                    # a clamped batch leader dispatches only the lanes
+                    # its reservation covers; the rest re-queue at the
+                    # gate (server/batcher.BatchRunner.run)
+                    executor.admission_scale_granted = granted
         finally:
             # admission (pool queue wait included) is QUEUED time: the
             # RUNNING transition is re-stamped on success and failure

@@ -35,6 +35,8 @@ class PropertyDef:
         return v
 
     def _typed(self, value):
+        if self.py_type is str and isinstance(value, str):
+            return value
         if self.py_type is bool and isinstance(value, str):
             s = value.strip().lower()
             if s in ("true", "1", "on", "yes"):
@@ -282,6 +284,123 @@ SESSION_PROPERTIES: dict[str, PropertyDef] = {
             "Also capture a flight record for every successful query; "
             "adaptive decisions stand down meanwhile, so the captured "
             "runs show the baseline plan."),
+        PropertyDef(
+            "batched_dispatch", bool, False,
+            "Cross-query batched dispatch (server/batcher.py): "
+            "concurrent same-template different-literal queries meet at "
+            "the template batch gate, and one leader scans the table once "
+            "and replays the template's operator steps once per binding "
+            "over the shared scanned batches (N results from one scan) "
+            "instead of N serialized runs. Results are bit-identical to "
+            "serial execution and the result cache stays keyed per "
+            "binding. Templates outside the pure scan/filter/project/"
+            "global-agg/sort/topN whitelist fall back to the serialized "
+            "template slot, counted under batch.fallback.*. Off by "
+            "default for embedded sessions; the serving layer "
+            "(presto_tpu_torch.server) turns it on."),
+        PropertyDef(
+            "batch_max_size", int, 8,
+            "Most bindings one cross-query batched dispatch may fuse.",
+            _positive),
+        PropertyDef(
+            "tenant", str, None,
+            "Default tenant identity stamped on this session's "
+            "QueryInfo records (system.query_history attribution). The "
+            "serving front-end overrides it per request via the "
+            "request-scoped tenant context."),
+        PropertyDef(
+            "approx_scan_fraction", float, 1.0,
+            "APPROXIMATE scans: execute only this deterministic "
+            "fraction of each table's splits (evenly strided, so the "
+            "sample is stable per split layout). 1.0 scans everything; "
+            "below 1.0 the query is flagged QueryInfo.approximate (the "
+            "dashboard tier of presto_tpu_torch/stream/ subscriptions). "
+            "Changes results: the plan fingerprint folds this property, "
+            "so sampled and exact runs never share cached results.",
+            lambda v: None if 0.0 < v <= 1.0 else f"must be in (0, 1], got {v}"),
+        PropertyDef(
+            "slo_latency_objective_s", float, 1.0,
+            "Default per-tenant latency objective (seconds): a query "
+            "finishing slower counts against the tenant's SLO burn rate "
+            "(system.slo). Per-tenant overrides ride "
+            "TenantSpec.slo_latency_s.",
+            _positive),
+        PropertyDef(
+            "slo_freshness_objective_s", float, 10.0,
+            "Default per-tenant subscription freshness objective "
+            "(seconds): a continuous-query refresh delivering staler than "
+            "this counts against the tenant's freshness burn rate. "
+            "Per-tenant overrides ride TenantSpec.slo_freshness_s.",
+            _positive),
+        PropertyDef(
+            "slo_window", int, 256,
+            "Rolling observation window (per tenant, per objective kind) "
+            "over which SLO burn rates are computed.",
+            _positive),
+        PropertyDef(
+            "health_monitor", bool, True,
+            "Arm the serving-tier anomaly watchdog (runtime/health.py) "
+            "when a QueryServer starts: a background thread samples "
+            "qps/p99/queue/pool/cache/freshness into system.health and "
+            "fires health_breach events (plus a flight-recorder capture "
+            "of the worst in-flight query) on regressions."),
+        PropertyDef(
+            "health_interval_s", float, 0.25,
+            "Watchdog sampling cadence (seconds).",
+            _positive),
+        PropertyDef(
+            "health_ring", int, 128,
+            "Bounded ring of health snapshots retained (the "
+            "system.health table depth).",
+            _positive),
+        PropertyDef(
+            "health_baseline_window", int, 8,
+            "Trailing samples forming the watchdog's baseline (median "
+            "p99 over this window is the regression reference).",
+            _positive),
+        PropertyDef(
+            "health_min_samples", int, 3,
+            "Baseline samples (with observed latencies) required before "
+            "the p99 regression detector may fire: a cold start must not "
+            "breach on its first slow query.",
+            _positive),
+        PropertyDef(
+            "health_p99_factor", float, 3.0,
+            "Breach when the current p99 exceeds this multiple of the "
+            "trailing-baseline p99.",
+            _positive),
+        PropertyDef(
+            "health_queue_limit", int, 64,
+            "Breach when the admission queue holds more waiters than "
+            "this.",
+            _positive),
+        PropertyDef(
+            "health_burn_limit", float, 0.5,
+            "Breach when any tenant's rolling SLO burn rate (breach "
+            "fraction) exceeds this.",
+            _positive),
+        PropertyDef(
+            "health_stale_lag_s", float, 30.0,
+            "Breach when the worst subscription freshness lag exceeds "
+            "this many seconds.",
+            _positive),
+        PropertyDef(
+            "health_cooldown_s", float, 5.0,
+            "Minimum seconds between health_breach firings (with the "
+            "clean-sample re-arm latch, one sustained incident fires "
+            "once, not once per sample).",
+            _non_negative),
+        PropertyDef(
+            "brownout_cooldown_s", float, 5.0,
+            "Breach-free seconds after which an engaged brown-out "
+            "(runtime/overload.OverloadController) disengages and "
+            "eligible tenants' traffic returns to the exact tier.",
+            _non_negative),
+        PropertyDef(
+            "brownout_force", bool, False,
+            "Operator override: pin the brown-out latch on (eligible "
+            "tenants degrade per TenantSpec.brownout regardless of "
+            "health). Setting it back to false disengages immediately."),
     ]
 }
 

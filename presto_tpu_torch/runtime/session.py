@@ -52,8 +52,13 @@ adaptive.py``). Concurrent identical queries coalesce onto one execution
 health monitor can be attached as ``slo`` and ``health``. Every session
 registers the ``system`` catalog (``connectors/system.py``).
 
-Not ported: the server's batch gate (``QueryInfo.batched`` stays False)
-and the distributed executor.
+Under ``batched_dispatch`` (the serving layer's default) a bound
+template runs through the template batch gate (``server/batcher.py``):
+concurrent bindings of one template fuse into one batched dispatch
+(``QueryInfo.batched``, ``batch_size``), or fall back to the serialized
+template slot with the reason counted. The serving front-end attributes
+each query to its tenant (:data:`CURRENT_TENANT`) and request trace
+(:data:`REQUEST_TRACE`). Not ported: the distributed executor.
 """
 
 from __future__ import annotations
@@ -65,6 +70,7 @@ import threading
 import time
 import uuid
 from collections import OrderedDict
+from contextvars import ContextVar
 from typing import Mapping, Optional
 
 import numpy as np
@@ -115,6 +121,23 @@ from presto_tpu_torch.sql.parser import parse
 from presto_tpu_torch.types import BIGINT, varchar
 
 _query_seq = itertools.count(1)
+
+#: request-scoped tenant identity, set by the serving front-end
+#: (``server/frontend.py``) around each tenant's execution, so QueryInfo
+#: attribution works through one shared session. Falls back to the
+#: ``tenant`` session property, then "".
+CURRENT_TENANT: ContextVar[Optional[str]] = ContextVar(
+    "presto_tpu_torch_current_tenant", default=None)
+
+#: request-scoped trace context, set by the serving front-end around a
+#: submitted query and by the subscription manager around each refresh:
+#: a dict {"token": the trace token of the query's recorder,
+#: "subscription_id": the continuous query's id ("" ad hoc),
+#: "force_trace": record spans even with ``trace_enabled`` off,
+#: "query_id": written back by ``_run_tracked`` so the caller can stitch
+#: its own spans onto the query's recorder afterwards}
+REQUEST_TRACE: ContextVar[Optional[dict]] = ContextVar(
+    "presto_tpu_torch_request_trace", default=None)
 
 _DDL = (A.CreateTableAs, A.InsertInto, A.DropTable)
 _PREPARED = (A.Prepare, A.ExecuteStmt, A.Deallocate)
@@ -286,7 +309,8 @@ class Session:
                              approx_join=self.prop("approx_join"),
                              runtime_join_filters=self.prop("runtime_join_filters"),
                              device=self.device, join_build_budget=self.join_build_budget(),
-                             spill_host_budget=self.prop("spill_host_budget_bytes"))
+                             spill_host_budget=self.prop("spill_host_budget_bytes"),
+                             scan_sample_fraction=self.prop("approx_scan_fraction"))
 
     # ---- planning ---------------------------------------------------------
     def plan(self, sql: str) -> PlanNode:
@@ -415,13 +439,21 @@ class Session:
                      bound=()):
         """Track one execution attempt as a ``QueryInfo``: its span trace
         (when ``trace_enabled``), its events and its metric attribution.
-        ``bound`` is the plan template's (dtype, value) binding."""
+        ``bound`` is the plan template's (dtype, value) binding. A
+        request's trace context (:data:`REQUEST_TRACE`) overrides the
+        session's trace token and carries the subscription id; its
+        ``query_id`` is written back."""
+        rctx = REQUEST_TRACE.get()
         info = QueryInfo(query_id=f"q_{next(_query_seq)}_{uuid.uuid4().hex[:8]}",
                          sql=sql, state="QUEUED", created_at=time.time(),
                          created_mono=time.monotonic(), planning_s=planning_s,
-                         trace_token=self.trace_token)
+                         trace_token=(rctx.get("token") if rctx else None) or self.trace_token,
+                         tenant=CURRENT_TENANT.get() or self.prop("tenant") or "",
+                         subscription_id=rctx.get("subscription_id", "") if rctx else "")
+        if rctx is not None:
+            rctx["query_id"] = info.query_id
         tracer = token = None
-        if self.prop("trace_enabled"):
+        if self.prop("trace_enabled") or (rctx is not None and rctx.get("force_trace")):
             tracer = TraceRecorder(info.query_id, info.trace_token,
                                    max_spans=self.prop("trace_max_spans"),
                                    annotate=bool(self.prop("profile_annotations")))
@@ -535,13 +567,27 @@ class Session:
             raise
         published = None  # the leader's result, for its followers
         try:
-            # same-template serialization: leaders with a binding queue
-            # behind one slot per template
-            slot_cm = (self.query_manager.coalescer.template_slot(base_fp)
-                       if entry is not None and bound and base_fp is not None
-                       else contextlib.nullcontext())
-            with slot_cm:
-                res = self.query_manager.run_plan(executor, plan, info, recorder)
+            # cross-query batched dispatch (server/batcher.py): the
+            # bindings queued on this template fuse into one batched
+            # dispatch when the template allows; else the serialized
+            # template slot, through the same per-template executor lock
+            gate_on = (entry is not None and bool(bound) and base_fp is not None
+                       and bool(self.prop("batched_dispatch")))
+            if gate_on and not getattr(executor, "supports_batched_dispatch", False):
+                # an executor that cannot batch: loud, then the classic path
+                REGISTRY.counter("batch.fallback").add()
+                REGISTRY.counter("batch.fallback.distributed").add()
+                gate_on = False
+            if gate_on:
+                res = self._run_template_batched(executor, plan, info, recorder, base_fp, bound)
+            else:
+                # same-template serialization: leaders with a binding
+                # queue behind one slot per template
+                slot_cm = (self.query_manager.coalescer.template_slot(base_fp)
+                           if entry is not None and bound and base_fp is not None
+                           else contextlib.nullcontext())
+                with slot_cm:
+                    res = self.query_manager.run_plan(executor, plan, info, recorder)
             published = res
             token = install_delta(post)
             try:
@@ -595,6 +641,77 @@ class Session:
                 if v:
                     info.metrics["post_run." + k] = v
         return res, info
+
+    def _run_template_batched(self, executor, plan, info, recorder, base_fp, bound):
+        """Run one bound template through the batch gate
+        (``server/batcher.TemplateBatchGate``): enqueue the binding, then
+        either get served by a concurrent leader's batched dispatch, or
+        lead: drain the queued bindings into one batched dispatch when
+        the template is batchable (``batch.dispatched``), else run
+        serially under the template executor lock with the reason
+        counted. The wait is bounded like the coalescer's; on timeout the
+        query runs itself unserialized (correct, just unbatched)."""
+        gate = self.query_manager.batch_gate
+        wait_s = self.prop("query_max_run_time") or self.prop("admission_queue_timeout_s")
+        max_batch = int(self.prop("batch_max_size"))
+        member = gate.enqueue(base_fp, bound)
+        # lane provenance: the leader's dispatch stamps one batch:lane
+        # span per member, carrying this origin
+        member.origin = info.trace_token or info.query_id
+        deadline = None if wait_s is None else time.monotonic() + float(wait_s)
+        gate_t0 = time.perf_counter()
+        scope = self.query_manager.scope_of(info.query_id)
+        while True:
+            if scope is not None:
+                # the gate's cancel checkpoint: a cancelled waiter
+                # abandons its lane on the way out
+                try:
+                    scope.check("batch-gate-wait")
+                except BaseException:
+                    gate.abandon(base_fp, member)
+                    raise
+            remaining = None if deadline is None else max(0.0, deadline - time.monotonic())
+            role, payload = gate.lead_or_wait(base_fp, member, remaining, max_batch=max_batch)
+            if role != "retry":
+                trace.add_complete("batch:gate_wait", "driver", gate_t0,
+                                   time.perf_counter() - gate_t0, {"verdict": role})
+            if role == "serve":
+                # a leader's batched dispatch computed this binding
+                info.batched = True
+                info.batch_size = int(member.batch_size)
+                REGISTRY.counter("batch.served").add()
+                return payload
+            if role == "timeout":
+                REGISTRY.counter("batch.gate_timeout").add()
+                return self.query_manager.run_plan(executor, plan, info, recorder)
+            if role == "retry":
+                if deadline is not None and time.monotonic() >= deadline:
+                    gate.abandon(base_fp, member)
+                    REGISTRY.counter("batch.gate_timeout").add()
+                    return self.query_manager.run_plan(executor, plan, info, recorder)
+                continue
+            # lead: this thread holds the template executor lock
+            members = payload
+            try:
+                runner = executor
+                if len(members) > 1:
+                    reason = gate.template_reason(base_fp, plan, self.catalog)
+                    if reason is None:
+                        from presto_tpu_torch.server.batcher import BatchRunner
+
+                        runner = BatchRunner(executor, gate, members, member,
+                                             template_key=base_fp)
+                    else:
+                        REGISTRY.counter("batch.fallback").add()
+                        REGISTRY.counter(f"batch.fallback.{reason}").add()
+                res = self.query_manager.run_plan(runner, plan, info, recorder)
+                if runner is not executor:
+                    info.batched = bool(runner.dispatched_batch)
+                    if info.batched:
+                        info.batch_size = int(runner.batch_size)
+                return res
+            finally:
+                gate.finish_lead(base_fp, member, members)
 
     # ---- plan-stats history and adaptivity ----------------------------------
     def _plan_hints(self, plan, fp=None) -> dict:

@@ -13,8 +13,9 @@ JAX package's, case for case after ``tests/test_health.py``.
   flight record of the in-flight query, in both packages.
 
 The reference's W3C ``traceparent`` and request trace-context cases, and
-its ``QueryServer`` wiring of the tracker, wait for the server (A9b);
-their counterparts here attach the tracker and the monitor by hand.
+its ``QueryServer`` wiring of the tracker, have their counterparts in
+``tests/test_torch_server.py``; the cases here attach the tracker and
+the monitor by hand.
 Every monitor a case starts is closed (``live_monitors`` is checked after
 each case).
 """

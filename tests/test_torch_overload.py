@@ -15,7 +15,7 @@ through ``Session.cancel``, against the JAX package's contracts
 - ``check_deadline`` outside a query is a no-op.
 
 The reference's shedding, brown-out, HTTP and request-deadline cases
-drive its server, which comes with A9.
+drive its server: their counterparts are in ``tests/test_torch_server.py``.
 """
 
 import threading

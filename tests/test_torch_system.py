@@ -5,8 +5,9 @@ Both packages' sessions run one scenario at sf 0.005 from cleared
 executable caches: a statement twice (the second a result-cache hit),
 a recorded aggregation three times with the result cache off (its
 history steers the third run: a ``bucket`` decision), a failing query
-under a scan fault (a flight record), a tenant SLO tracker and a health
-monitor attached by hand (sampled, never started). Then each of the 14
+under a scan fault (a flight record), a fair scheduler's admissions, a
+tenant SLO tracker and a health monitor attached by hand (sampled, never
+started). Then each of the 14
 tables answers through ``Session.sql``:
 
 - its schema (names, types, dictionaries) equals the reference's;
@@ -28,10 +29,12 @@ import presto_tpu.cache.exec_cache as JE
 import presto_tpu.connectors.system as JSys
 import presto_tpu.runtime.faults as JF
 import presto_tpu.runtime.health as JH
+import presto_tpu.server.scheduler as JS
 import presto_tpu_torch.cache.exec_cache as PE
 import presto_tpu_torch.connectors.system as PSys
 import presto_tpu_torch.runtime.faults as PF
 import presto_tpu_torch.runtime.health as PH
+import presto_tpu_torch.server.scheduler as PS
 from presto_tpu.connectors.tpch import TpchConnector as JConnector
 from presto_tpu.runtime.session import Session as JSession
 from presto_tpu_torch.connectors.tpch import TpchConnector as PConnector
@@ -69,6 +72,14 @@ MASKED = {
 
 
 def scenario(session, F, H, port: bool):
+    S = PS if port else JS
+    # a fair scheduler's admissions (system.tenants): the same script in
+    # both packages
+    sched = S.FairScheduler([S.TenantSpec("ana", weight=2.0),
+                             S.TenantSpec("bot", max_concurrent=2)], total_slots=2)
+    for tenant in ("ana", "bot", "ana", "walk-in"):
+        sched.release(sched.acquire(tenant))
+    session.tenants = sched
     session.slo = H.SloTracker(latency_objective_s=120.0)
     session.health = H.HealthMonitor(session, min_samples=3)
     session.sql(Q_FAST)

@@ -230,13 +230,11 @@ def one_thread():
 # ---------------------------------------------------------------------------
 
 #: metric families absent from the port's ``QueryInfo.metrics`` (ROADMAP
-#: C17): ``exec.traces`` counts XLA traces, which the port has none of,
-#: and ``batch.*`` only the server's batcher (A9b) fires
-C17_FAMILIES = ("exec.traces", "batch.")
+#: C17): ``exec.traces`` counts XLA traces, which the port has none of
+C17_FAMILIES = ("exec.traces",)
 
-#: spans only the distributed executor (A10) or the server's batcher
-#: (A9b) record (ROADMAP C14)
-C14_SPANS = ("degrade_to_local", "batch:")
+#: spans only the distributed executor (A10) records (ROADMAP C14)
+C14_SPANS = ("degrade_to_local",)
 
 #: a histogram snapshot's quantile keys
 _QUANTILES = ("p50", "p95", "p99", "max")
