@@ -281,7 +281,21 @@ one CUDA card, and exits nonzero on any failure. Phases:
    half of lineitem's splits; a forced shed and a cancelled queued
    query, typed, every pool at 0. Every answer against numpy, every
    launch from the server's threads inside a ``fragment:`` span, each
-   launch shape held to the plain version.
+   launch shape held to the plain version;
+22. the CLI at SF1 (``run_cli_queries``, ``run_cli_serve``, at most
+   120 s): ``presto_tpu_torch.__main__.main`` in this process with its
+   output captured, the result cache off: ``metrics -f`` over Q1, Q6,
+   Q3, a SET SESSION, SHOW SESSION, EXPLAIN ANALYZE of Q6 and Q1, Q6,
+   Q3 again under ``profile_dir`` (each printed table against numpy,
+   the OpenMetrics text against the registry, each query's profiler
+   trace naming the Q1, leaf and exists kernels); a LIKE over ``part``
+   after ``SET SESSION pallas_strings`` off (refused on the card,
+   ROADMAP C25) and on, one LIKE launch a split and equal rows after
+   both; ``health`` after Q6 and ``flightrec`` over a statement
+   that fails at run time; then ``python -m presto_tpu_torch serve
+   --port 0`` as a subprocess: Q1 POSTed over HTTP against numpy, SIGINT
+   and its drain line (``pool_reserved_bytes=0``). Each launch shape
+   held to the plain version.
 
 Phases 3-19 open their sessions with ``MEASURED`` (the result cache and
 adaptive execution off), so each timed or counted run executes its plan.
@@ -7540,6 +7554,298 @@ def run_serving_queries(conn, device: str = "cuda") -> dict:
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# phase 22: the CLI (python -m presto_tpu_torch) in process and as a server
+# ---------------------------------------------------------------------------
+
+#: the scale of each DECIMAL column the CLI prints in Q1, Q6 and Q3
+CLI_SCALES = {"sum_qty": 2, "sum_base_price": 2, "sum_disc_price": 4, "sum_charge": 4,
+              "revenue": 4}
+#: phase 22's LIKE statement: the LIKE kernel once per `part` split
+CLI_LIKE = "select count(*) as n from part where p_name like '%green%'"
+#: a statement that fails at run time (its semi-join keys are wide
+#: strings), so the flight recorder captures it
+CLI_FAILING = "select count(*) as n from customer where c_phone in (select s_phone from supplier)"
+#: the kernels whose names a profiled CLI query's trace must hold
+CLI_TRACED = {k: OBS_KERNELS[k] for k in ("q1", "leaf_agg", "exists")}
+
+
+def _cli(argv: list) -> tuple:
+    """``presto_tpu_torch.__main__.main(argv)`` in this process: (stdout,
+    stderr) as text."""
+    import io
+
+    from presto_tpu_torch.__main__ import main as cli_main
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        cli_main(argv)
+    return out.getvalue(), err.getvalue()
+
+
+def printed_tables(text: str) -> list:
+    """The tables a CLI run printed, in order: ``(header, rows, wall_s)``,
+    each row its whitespace-separated cells (phase 22's answers hold no
+    blank inside a cell)."""
+    lines = text.splitlines()
+    out = []
+    for i, line in enumerate(lines):
+        m = re.fullmatch(r"\((\d+) rows?\)", line)
+        if m is None:
+            continue
+        n = int(m.group(1))
+        wall = re.fullmatch(r"\[(\d+\.\d{3})s\]", lines[i + 1])
+        check(wall is not None, f"phase 22: no wall line after {line!r}")
+        out.append((lines[i - n - 1].split(), [r.split() for r in lines[i - n:i]],
+                    float(wall.group(1))))
+    return out
+
+
+def _cli_cell(name: str, value) -> str:
+    """The text the CLI prints for an oracle value of column ``name``."""
+    if name in CLI_SCALES:
+        return str(np.float64(np.int64(value)) / 10 ** CLI_SCALES[name])
+    if name == "o_orderdate":
+        return str(np.datetime64("1970-01-01", "D") + np.int64(value))
+    return str(value)
+
+
+def check_printed(table: tuple, want: dict, what: str) -> None:
+    """A printed table equals an oracle cell for cell."""
+    header, rows, _wall = table
+    check(header == list(want), f"{what}: columns {header} != {list(want)}")
+    cols = [[_cli_cell(n, v) for v in want[n]] for n in header]
+    expect = [list(r) for r in zip(*cols)]
+    check(rows == expect, f"{what}: printed rows differ:\n{rows[:3]}\n{expect[:3]}")
+
+
+def like_count_expected(conn) -> int:
+    """Rows of ``part`` whose name contains 'green' (``CLI_LIKE``)."""
+    names = conn.table_numpy("part", ["p_name"])["p_name"]
+    return int(sum(b"green" in bytes(r) for r in names))
+
+
+def _metric(text: str, name: str) -> float:
+    """A counter's value in OpenMetrics text (``presto_tpu_<name>_total``)."""
+    key = "presto_tpu_" + name.replace(".", "_") + "_total "
+    hits = [float(ln[len(key):]) for ln in text.splitlines() if ln.startswith(key)]
+    check(len(hits) == 1, f"phase 22: the metrics text has {len(hits)} lines for {name}")
+    return hits[0]
+
+
+def trace_kernel_names(path: str) -> set:
+    """The CUDA kernels a Chrome trace holds, by ``CLI_TRACED`` key."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return {k for e in events if e.get("cat") == "kernel"
+            for k, fns in CLI_TRACED.items() if any(fn in e["name"] for fn in fns)}
+
+
+def run_cli_queries(sf: float, device: str = "cuda") -> dict:
+    """Phase 22's in-process part: ``presto_tpu_torch.__main__.main``
+    drives Q1, Q6 and Q3, a SET SESSION, SHOW SESSION, EXPLAIN ANALYZE of
+    Q6 and the three again under ``profile_dir`` (``metrics``: the
+    registry as OpenMetrics text after them), a LIKE statement after
+    ``SET SESSION pallas_strings`` off and then on, ``health`` after Q6 and
+    ``flightrec`` over a failing statement. Every printed answer against
+    numpy, the metrics text against the registry, the profiler traces
+    against the kernels (on the card). Each CLI session runs with the
+    result cache off, so every printed statement executes."""
+    import tempfile
+
+    conn = TpchConnector(sf=sf, device=device)
+    t0 = time.perf_counter()
+    li = conn.table_numpy("lineitem", Q6_COLS)
+    want = {"q1": q1_sql_expected(conn), "q3": q3_expected(conn),
+            "q6": revenue(li["l_extendedprice"], li["l_discount"], q6_mask(li)),
+            "like": {"n": [like_count_expected(conn)]}}
+    del li
+    log(f"phase 22: numpy recomputation at SF{sf:g} in {time.perf_counter() - t0:.1f} s")
+    base = ["--device", device, "--catalog", "tpch", "--sf", f"{sf:g}",
+            "--session", "result_cache_enabled=false"]
+    out = {"walls": {}, "parts": {}}
+    query = {"name": "phase 22 CLI"}
+    with tempfile.TemporaryDirectory() as tmp, each_probe_shape(query) as probes, \
+            first_kernel_calls(query) as calls, launch_spans() as spans:
+        _reset_launches()
+        prof = os.path.join(tmp, "profiles")
+        script = os.path.join(tmp, "phase22.sql")
+        queries = [QUERIES["q1"], QUERIES["q6"], QUERIES["q3"]]
+        with open(script, "w") as f:
+            f.write(";\n".join(queries + [
+                "set session direct_group_limit = 4096", "show session",
+                "explain analyze " + QUERIES["q6"],
+                f"set session profile_dir = '{prof}'"] + queries
+                + ["set session profile_dir = ''"]) + ";\n")
+        before, launched = REGISTRY.snapshot(), _launch_counts()
+        text, err = _cli(base + ["metrics", "-f", script])
+        after = REGISTRY.snapshot()
+        out["parts"]["script"] = _launch_delta(launched, _launch_counts())
+        check(err == "", f"phase 22: the script wrote to stderr: {err[:500]}")
+        tables = printed_tables(text)
+        check(len(tables) == 6, f"phase 22: {len(tables)} tables printed, 6 expected")
+        for (name, _q), table in zip([("q1", 0), ("q6", 1), ("q3", 2)] * 2, tables):
+            check_printed(table, want[name], f"phase 22 CLI {name}")
+        out["walls"] = {f"{n} {turn}": t[2] for turn, part in (("first", tables[:3]),
+                                                               ("profiled", tables[3:]))
+                        for n, t in zip(("q1", "q6", "q3"), part)}
+        lines = text.splitlines()
+        check("SET direct_group_limit = 4096" in lines, "phase 22: no SET line")
+        shown = [ln for ln in lines if re.fullmatch(r"[a-z_0-9]+ = .*", ln)]
+        from presto_tpu_torch.runtime.properties import SESSION_PROPERTIES
+
+        check([ln.split(" = ")[0] for ln in shown] == list(SESSION_PROPERTIES),
+              "phase 22: SHOW SESSION's names differ from the property table")
+        check("direct_group_limit = 4096" in shown and "pallas_strings = None" in shown,
+              "phase 22: SHOW SESSION's values")
+        check(any(re.match(r"\s*Aggregate  \[wall [0-9.]+ms, rows [0-9,]+->1,", ln)
+                  for ln in lines), "phase 22: EXPLAIN ANALYZE printed no annotated plan")
+        moved = {k: after.get(k, 0) - before.get(k, 0) for k in
+                 ("exec.q1_fused_route", "exec.leaf_fused_route", "exec.pallas_join_route",
+                  "query.completed")}
+        for k in moved:
+            check(_metric(text, k) == after.get(k, 0),
+                  f"phase 22: the metrics text's {k} {_metric(text, k)} != {after.get(k, 0)}")
+        # the fused leaf route counts Q1's (the Q1 kernel) and Q6's runs
+        check(moved["exec.q1_fused_route"] == 2 and moved["exec.leaf_fused_route"] == 4
+              and moved["exec.pallas_join_route"] >= 2,
+              f"phase 22: route counters moved {moved}")
+        traces = sorted(os.listdir(prof))
+        check(len(traces) == 3, f"phase 22: {len(traces)} profiler traces, 3 expected")
+        out["traced"] = sorted(set().union(*(trace_kernel_names(os.path.join(prof, t))
+                                             for t in traces)))
+        if device == "cuda":
+            check(out["traced"] == sorted(CLI_TRACED),
+                  f"phase 22: the profiled queries' traces name {out['traced']}")
+        log(f"  script: walls {out['walls']}; route counters {moved}; traces name "
+            f"{out['traced']}; launches "
+            f"{ {k: v for k, v in out['parts']['script'].items() if v} }")
+        # LIKE after SET SESSION pallas_strings off, then on: the setting
+        # the device cannot take (off on the card, C25; on on the CPU,
+        # C23) is refused and the session keeps its route, the kernel on
+        # the card and the plain version on the CPU
+        n_parts = len(list(conn.splits("part")))
+        like_script = os.path.join(tmp, "like.sql")
+        for setting in ("false", "true"):
+            with open(like_script, "w") as f:
+                f.write(f"set session pallas_strings = {setting};\n{CLI_LIKE};\n")
+            launched = _launch_counts()
+            text, err = _cli(base + ["-f", like_script])
+            delta = _launch_delta(launched, _launch_counts())
+            out["parts"][f"like {setting}"] = delta
+            if (setting == "true") == (device == "cuda"):
+                check(err == "" and f"SET pallas_strings = {setting.title()}" in text,
+                      f"phase 22 SET pallas_strings = {setting}: {err[:300]!r}")
+            elif device == "cuda":
+                check(err.strip() == "error: NotSupported: pallas_strings=false would run the "
+                      "plain string predicates on the card; the port always launches its "
+                      "CUDA string kernels there", f"phase 22: off on the card: {err!r}")
+            else:
+                check(err.strip() == "error: NotSupported: pallas_strings=true forces the "
+                      "CUDA string kernels, which cannot run on cpu",
+                      f"phase 22: forced on the CPU: {err!r}")
+            check_printed(printed_tables(text)[0], want["like"], f"phase 22 LIKE {setting}")
+            check(delta["like"] == (n_parts if device == "cuda" else 0),
+                  f"phase 22: LIKE after pallas_strings={setting} launched {delta['like']}")
+        # health after a statement, flightrec over a failing one
+        text, err = _cli(base + ["health", "-e", QUERIES["q6"]])
+        check_printed(printed_tables(text)[0], want["q6"], "phase 22 health's Q6")
+        for section in ("== devices ==", "== health ==", "== slo ==",
+                        "== top queries (by execution_s) =="):
+            check(section in text.splitlines(), f"phase 22: health lacks {section}")
+        platform = "gpu" if device == "cuda" else "cpu"
+        check(f"({platform}):" in text, f"phase 22: health's device rows: {text[:300]}")
+        text, err = _cli(base + ["flightrec", "-e", CLI_FAILING])
+        check(err.strip() == "error: NotImplementedError: wide string semi-join keys",
+              f"phase 22: flightrec's statement: {err!r}")
+        records = json.loads(text)
+        check(len(records) == 1 and records[0]["state"] == "FAILED"
+              and "wide string semi-join keys" in records[0]["error"]
+              and records[0]["planRender"], f"phase 22: flight records {text[:300]}")
+        out["launches"] = _launch_counts()
+    out["probe_err"] = hold_probe_shapes(probes)
+    out["call_err"] = hold_kernel_calls(calls)
+    q1_err = 0
+    for cap, b in sorted(spans["q1 batches"].items()):
+        q1_err = max(q1_err, compare(cuda_q1.q1_step(b), cuda_q1.q1_step_plain(b),
+                                     f"q1_step at phase 22's first {cap}-row batch"))
+    out["q1_err"] = q1_err
+    if device == "cuda":
+        for k in ("q1", "leaf_agg", "exists", "like"):
+            check(out["launches"][k] > 0, f"phase 22 launched no {k} kernel")
+    return out
+
+
+def run_cli_serve(sf: float, device: str = "cuda") -> dict:
+    """Phase 22's subprocess: ``python -m presto_tpu_torch serve --port
+    0``, its port read from its first line, Q1 POSTed over HTTP and its
+    page held to numpy, then SIGINT and the drain line
+    (``pool_reserved_bytes=0``). The process is killed on any failure."""
+    import queue
+    import signal
+
+    conn = TpchConnector(sf=sf, device=device)
+    want = q1_sql_expected(conn)
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "presto_tpu_torch", "serve", "--port", "0",
+                             "--sf", f"{sf:g}", "--device", device],
+                            cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    lines: queue.Queue = queue.Queue()
+    reader = threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout],
+                              daemon=True)
+    reader.start()
+    out = {}
+    try:
+        first = lines.get(timeout=300)
+        m = re.search(r"http://127\.0\.0\.1:(\d+) ", first)
+        check(m is not None, f"phase 22: the server's first line {first!r}")
+        base = f"http://127.0.0.1:{m.group(1)}"
+        out["start_s"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        page = _http(base, "POST", "/v1/statement", QUERIES["q1"].encode())
+        uri = page["nextUri"]
+        deadline = time.monotonic() + 300
+        while page.get("state") not in ("FINISHED", "FAILED"):
+            check(time.monotonic() < deadline, "phase 22: the served Q1 never finished")
+            time.sleep(0.05)
+            page = _http(base, "GET", uri)
+        out["q1_s"] = time.perf_counter() - t1
+        check(page["state"] == "FINISHED" and page["columns"] == list(want),
+              f"phase 22: the served Q1's page {str(page)[:300]}")
+        for i, name in enumerate(page["columns"]):
+            got = [row[i] for row in page["data"]]
+            w = want[name]
+            if name in CLI_SCALES:
+                ok = np.allclose(got, np.asarray(w, np.float64) / 10 ** CLI_SCALES[name],
+                                 rtol=1e-12, atol=0)
+            elif name.startswith("avg_"):
+                ok = list(np.float32(got)) == list(w)
+            else:
+                ok = [str(g) for g in got] == [str(x) for x in w]
+            check(ok, f"phase 22: the served Q1's {name}: {got} != {list(w)}")
+        proc.send_signal(signal.SIGINT)
+        proc.wait(timeout=120)
+        reader.join(timeout=10)
+        rest = []
+        while not lines.empty():
+            rest.append(lines.get())
+        drain = [ln.strip() for ln in rest if ln.startswith("drained=")]
+        check(len(drain) == 1 and "drained=True" in drain[0]
+              and "pool_reserved_bytes=0 " in drain[0] and proc.returncode == 0,
+              f"phase 22: the server's drain: rc {proc.returncode}, {rest[-5:]}")
+        out["drain"] = drain[0]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    log(f"  serve: first line after {out['start_s']:.1f} s, Q1 over HTTP {out['q1_s']:.3f} s; "
+        f"{out['drain']}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -7562,7 +7868,7 @@ def main() -> int:
 
 
 def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
-    """Phases 1-21 (``cpu_answers``: phase 16's CPU answers, computing in
+    """Phases 1-22 (``cpu_answers``: phase 16's CPU answers, computing in
     worker processes meanwhile)."""
     marks: list = []
 
@@ -8047,26 +8353,62 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
                  for k in ("q1", "lane_sums", "leaf_agg", "q3", "like", "prefix")}
     log(f"  exists, sketch and payload launches with phase 21: {totals}; phase 21's alone: "
         f"{p21}; its other kernels: {p21_other}")
+    # ---- phase 22: the CLI, in process and as a server ---------------------
+    mark("22 CLI")
+    t22 = time.perf_counter()
+    cli = run_cli_queries(1.0)
+    cli["serve"] = run_cli_serve(1.0)
+    p22_s = time.perf_counter() - t22
+    check(p22_s < 120, f"phase 22 took {p22_s:.1f} s, past its 120 s")
+    p22 = probe_launch_totals({"phase 22": cli["launches"]})
+    totals = probe_launch_totals(join["launches"], strings["launches"], semi["launches"],
+                                 outer["launches"], expr["launches"], sub["launches"],
+                                 feat["launches"], surf["launches"], win["launches"],
+                                 ds["launches"], st["launches"], {"phase 18": obs["launches"]},
+                                 {"phase 19": life["launches"]}, {"phase 20": cache["launches"]},
+                                 {"phase 21": serve["launches"]}, {"phase 22": cli["launches"]})
+    p22_other = {k: cli["launches"][k]
+                 for k in ("q1", "lane_sums", "leaf_agg", "q3", "like", "prefix")}
+    log(f"  exists, sketch and payload launches with phase 22: {totals}; phase 22's alone: "
+        f"{p22}; its other kernels: {p22_other}")
     mark("json")
     log("phase seconds: " + ", ".join(f"{a} {t1 - t0:.1f}" for (a, t0), (_b, t1)
                                       in zip(marks, marks[1:])))
-    log(f"phases 1-21 in {marks[-1][1] - marks[0][1]:.1f} s")
+    log(f"phases 1-22 in {marks[-1][1] - marks[0][1]:.1f} s")
 
     log(smi[0])
+    # every phase from 11 on is one entry here: its run's result, its
+    # probe-kernel launch totals and its launches of the kernels it counts
+    # by name (phase 11 counts LIKE and lane sums apart)
+    phases = {11: (expr, p11, {**p11_other, "lane_sums": expr["lane_sums_launches"],
+                               "like": expr["like_launches"]}),
+              12: (sub, p12, p12_other), 13: (feat, p13, p13_other),
+              14: (surf, p14, p14_other), 15: (win, p15, p15_other), 16: (ds, p16, p16_other),
+              17: (st, p17, p17_other), 18: (obs, p18, p18_other), 19: (life, p19, p19_other),
+              20: (cache, p20, p20_other), 21: (serve, p21, p21_other),
+              22: (cli, p22, p22_other)}
+
+    def named(kernel: str) -> dict:
+        """``phaseNN_launches`` of a kernel the phases count by name."""
+        return {f"phase{p}_launches": o[kernel] for p, (_r, _t, o) in phases.items()}
+
+    def probed(kernel: str) -> dict:
+        """``phaseNN_launches`` of a probe kernel."""
+        return {f"phase{p}_launches": t[kernel]["launches"]
+                for p, (_r, t, _o) in phases.items()}
+
+    def held(what: str, kernel: str | None = None) -> list:
+        """The largest differences from the plain version the phases that
+        hold ``what`` (``probe_err``, ``call_err``, ``q1_err``) found."""
+        return [r[what] if kernel is None else r[what][kernel]
+                for r, _t, _o in phases.values() if what in r]
+
     kernels = [
         {"name": "q1_step", "route": "cuda", "source": "presto_tpu_torch/csrc/q1.cu",
          "replaces": "presto_tpu/ops/pallas_q1.py:114",
          "jax_function": "presto_tpu/ops/pallas_q1.py:174 q1_step",
-         "launches": (q1_launches + p11_other["q1"] + p12_other["q1"] + p13_other["q1"]
-                      + p14_other["q1"] + p15_other["q1"] + p16_other["q1"]
-                      + p17_other["q1"] + p18_other["q1"] + p19_other["q1"]
-                      + p20_other["q1"] + p21_other["q1"]),
-         "phase11_launches": p11_other["q1"], "phase12_launches": p12_other["q1"],
-         "phase13_launches": p13_other["q1"], "phase14_launches": p14_other["q1"], "phase15_launches": p15_other["q1"],
-         "phase16_launches": p16_other["q1"], "phase17_launches": p17_other["q1"],
-         "phase18_launches": p18_other["q1"], "phase19_launches": p19_other["q1"],
-         "phase20_launches": p20_other["q1"], "phase21_launches": p21_other["q1"],
-         "max_abs_err": max(q1_err, obs["q1_err"], life["q1_err"], cache["q1_err"], serve["q1_err"]), "ms": q1_ms, "kernel_ms": q1_ms,
+         "launches": q1_launches + sum(named("q1").values()), **named("q1"),
+         "max_abs_err": max([q1_err] + held("q1_err")), "ms": q1_ms, "kernel_ms": q1_ms,
          "call_ms": q1_call_ms,
          "plain_ms": q1_plain_ms, "bound_ms": q1_bound, "bound_by": q1_by,
          "library_ms": None, "rows": n, "bytes": q1_bytes, "ops": q1_ops},
@@ -8074,17 +8416,8 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
          "source": "presto_tpu_torch/csrc/lane_sums.cu",
          "replaces": "presto_tpu/ops/pallas_groupby.py:138",
          "jax_function": "presto_tpu/ops/pallas_groupby.py:177 fused_lane_sums",
-         "launches": (lane_launches + outer["lane_launches"] + expr["lane_sums_launches"]
-                      + sub["lane_sums_launches"] + p13_other["lane_sums"]
-                      + p14_other["lane_sums"] + p15_other["lane_sums"]
-                      + p16_other["lane_sums"]
-                      + p17_other["lane_sums"] + p18_other["lane_sums"] + p19_other["lane_sums"]
-                      + p20_other["lane_sums"] + p21_other["lane_sums"]),
-         "phase13_launches": p13_other["lane_sums"], "phase14_launches": p14_other["lane_sums"],
-         "phase15_launches": p15_other["lane_sums"],
-         "phase16_launches": p16_other["lane_sums"], "phase17_launches": p17_other["lane_sums"],
-         "phase18_launches": p18_other["lane_sums"], "phase19_launches": p19_other["lane_sums"],
-         "phase20_launches": p20_other["lane_sums"], "phase21_launches": p21_other["lane_sums"],
+         "launches": (lane_launches + outer["lane_launches"]
+                      + sum(named("lane_sums").values())), **named("lane_sums"),
          "phase16_launches_by_instance": {k.split()[1]: c for k, c in p16_by_instance.items()
                                           if k.startswith("lane_sums")},
          "phase14_launches_by_instance": {k.split()[1]: c for k, c in p14_by_instance.items()
@@ -8093,16 +8426,11 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
                                          expr["lane_by_instance"], sub["lane_by_instance"]),
          "launches_from": "phase 4 (Q1 pipeline), phase 10 (Q13, Q5), phase 11 (the "
                           "expression queries) and phase 12 (the subquery queries)",
-         "phase12_launches": sub["lane_sums_launches"],
          "phase12_launches_by_instance": sub["lane_by_instance"],
          "phase10_launches": outer["lane_launches"],
-         "phase11_launches": expr["lane_sums_launches"],
          "phase11_launches_by_instance": expr["lane_by_instance"],
-         "max_abs_err": max(lane_err, ln["err"], ln_phone["err"], ln_q4["err"],
-                            surf["call_err"]["lane_sums"], win["call_err"]["lane_sums"],
-                           ds["call_err"]["lane_sums"], st["call_err"]["lane_sums"],
-                           obs["call_err"]["lane_sums"], life["call_err"]["lane_sums"],
-                           cache["call_err"]["lane_sums"], serve["call_err"]["lane_sums"]),
+         "max_abs_err": max([lane_err, ln["err"], ln_phone["err"], ln_q4["err"]]
+                            + held("call_err", "lane_sums")),
          "ms": ln["ms"], "kernel_ms": ln["ms"], "call_ms": ln["call_ms"],
          "plain_ms": ln["plain_ms"], "bound_ms": lane_bound, "bound_by": lane_by,
          "library_ms": ln["library_ms"], "rows": cap, "bytes": ln["bytes"], "ops": ln["ops"],
@@ -8123,29 +8451,17 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
          "launches_by_shape": totals["exists"]["by_shape"],
          "launches_by_instance": totals["exists"]["by_instance"],
          "launches_from": "phases 6, 8, 9, 10, 11, 12, 13, 14 and 15",
-         "phase16_launches": p16["exists"]["launches"], "phase17_launches": p17["exists"]["launches"],
-         "phase18_launches": p18["exists"]["launches"], "phase19_launches": p19["exists"]["launches"],
-         "phase20_launches": p20["exists"]["launches"], "phase21_launches": p21["exists"]["launches"],
+         **probed("exists"),
          "phase19_launches_by_shape": p19["exists"]["by_shape"],
          "phase17_launches_by_shape": p17["exists"]["by_shape"],
          "phase16_launches_by_shape": p16["exists"]["by_shape"],
-         "phase15_launches": p15["exists"]["launches"],
          "phase15_launches_by_shape": p15["exists"]["by_shape"],
-         "phase14_launches": p14["exists"]["launches"],
          "phase14_launches_by_shape": p14["exists"]["by_shape"],
-         "phase13_launches": p13["exists"]["launches"],
          "phase13_launches_by_shape": p13["exists"]["by_shape"],
-         "phase11_launches": p11["exists"]["launches"],
          "phase11_launches_by_shape": p11["exists"]["by_shape"],
-         "phase12_launches": p12["exists"]["launches"],
          "phase12_launches_by_shape": p12["exists"]["by_shape"],
          "phase12_launches_by_instance": p12["exists"]["by_instance"],
-         "max_abs_err": max([exists_err, keep_err["exists"], expr["probe_err"]["exists"],
-                             sub["probe_err"]["exists"], feat["probe_err"]["exists"],
-                             surf["probe_err"]["exists"], win["probe_err"]["exists"],
-                            ds["probe_err"]["exists"], st["probe_err"]["exists"],
-                            obs["probe_err"]["exists"], life["probe_err"]["exists"],
-                            cache["probe_err"]["exists"], serve["probe_err"]["exists"]]
+         "max_abs_err": max([exists_err, keep_err["exists"]] + held("probe_err", "exists")
                             + [t["err"] for t in probe_shapes["exists"].values()]),
          "ms": ex["ms"], "kernel_ms": ex["ms"], "call_ms": ex["call_ms"],
          "plain_ms": ex["plain_ms"], "bound_ms": exists_bound, "bound_by": exists_by,
@@ -8160,14 +8476,7 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
          "launches": totals["sketch"]["launches"],
          "launches_by_shape": totals["sketch"]["by_shape"],
          "launches_by_instance": totals["sketch"]["by_instance"],
-         "phase11_launches": p11["sketch"]["launches"],
-         "phase12_launches": p12["sketch"]["launches"],
-         "phase13_launches": p13["sketch"]["launches"],
-         "phase14_launches": p14["sketch"]["launches"],
-         "phase15_launches": p15["sketch"]["launches"],
-         "phase16_launches": p16["sketch"]["launches"], "phase17_launches": p17["sketch"]["launches"],
-         "phase18_launches": p18["sketch"]["launches"], "phase19_launches": p19["sketch"]["launches"],
-         "phase20_launches": p20["sketch"]["launches"], "phase21_launches": p21["sketch"]["launches"],
+         **probed("sketch"),
          "phase19_launches_by_shape": p19["sketch"]["by_shape"],
          "phase17_launches_by_shape": p17["sketch"]["by_shape"],
          "max_abs_err": max([sketch_err, keep_err["sketch"]]
@@ -8181,15 +8490,7 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
          "source": "presto_tpu_torch/csrc/join_probe.cu",
          "replaces": "presto_tpu/ops/pallas_join.py:443",
          "jax_function": "presto_tpu/ops/pallas_join.py:464 q3_probe_step",
-         "launches": (semi["q3_launches"] + p11_other["q3"] + p12_other["q3"] + p13_other["q3"]
-                      + p14_other["q3"] + p15_other["q3"] + p16_other["q3"]
-                      + p17_other["q3"] + p18_other["q3"] + p19_other["q3"]
-                      + p20_other["q3"] + p21_other["q3"]),
-         "phase11_launches": p11_other["q3"], "phase12_launches": p12_other["q3"],
-         "phase13_launches": p13_other["q3"], "phase14_launches": p14_other["q3"], "phase15_launches": p15_other["q3"],
-         "phase16_launches": p16_other["q3"], "phase17_launches": p17_other["q3"],
-         "phase18_launches": p18_other["q3"], "phase19_launches": p19_other["q3"],
-         "phase20_launches": p20_other["q3"], "phase21_launches": p21_other["q3"],
+         "launches": semi["q3_launches"] + sum(named("q3").values()), **named("q3"),
          "max_abs_err": max(q3_kernel_err, semi["q3"]["err"]),
          "ms": q3_one["ms"], "kernel_ms": q3_one["ms"], "call_ms": q3_one["call_ms"],
          "plain_ms": q3_one["plain_ms"], "bound_ms": q3_bound, "bound_by": q3_by,
@@ -8205,30 +8506,19 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
          "launches_by_shape": totals["payload"]["by_shape"],
          "launches_by_instance": totals["payload"]["by_instance"],
          "launches_from": "phases 6, 8, 9, 10, 11, 12, 13, 14 and 15",
-         "phase16_launches": p16["payload"]["launches"], "phase17_launches": p17["payload"]["launches"],
-         "phase18_launches": p18["payload"]["launches"], "phase19_launches": p19["payload"]["launches"],
-         "phase20_launches": p20["payload"]["launches"], "phase21_launches": p21["payload"]["launches"],
+         **probed("payload"),
          "phase19_launches_by_shape": p19["payload"]["by_shape"],
          "phase17_launches_by_shape": p17["payload"]["by_shape"],
          "phase16_launches_by_shape": p16["payload"]["by_shape"],
-         "phase15_launches": p15["payload"]["launches"],
          "phase15_launches_by_shape": p15["payload"]["by_shape"],
-         "phase14_launches": p14["payload"]["launches"],
          "phase14_launches_by_shape": p14["payload"]["by_shape"],
-         "phase13_launches": p13["payload"]["launches"],
          "phase13_launches_by_shape": p13["payload"]["by_shape"],
          "phase13_launches_by_instance": p13["payload"]["by_instance"],
-         "phase11_launches": p11["payload"]["launches"],
          "phase11_launches_by_shape": p11["payload"]["by_shape"],
          "phase11_launches_by_instance": p11["payload"]["by_instance"],
-         "phase12_launches": p12["payload"]["launches"],
          "phase12_launches_by_shape": p12["payload"]["by_shape"],
          "phase12_launches_by_instance": p12["payload"]["by_instance"],
-         "max_abs_err": max([payload_err, expr["probe_err"]["payload"],
-                             sub["probe_err"]["payload"], feat["probe_err"]["payload"],
-                             surf["probe_err"]["payload"], win["probe_err"]["payload"],
-                            ds["probe_err"]["payload"], st["probe_err"]["payload"],
-                            life["probe_err"]["payload"], cache["probe_err"]["payload"], serve["probe_err"]["payload"]]
+         "max_abs_err": max([payload_err] + held("probe_err", "payload")
                             + [t["err"] for t in probe_shapes["payload"].values()]),
          "ms": pay["ms"], "kernel_ms": pay["ms"], "call_ms": pay["call_ms"],
          "plain_ms": pay["plain_ms"], "bound_ms": pay["bound_ms"], "bound_by": pay["bound_by"],
@@ -8239,17 +8529,8 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
         {"name": "leaf_agg", "route": "cuda", "source": "presto_tpu_torch/csrc/leaf_agg.cu",
          "replaces": "presto_tpu/ops/pallas_agg.py:180",
          "jax_function": "presto_tpu/ops/pallas_agg.py:246 _pallas_step (via agg_step :346)",
-         "launches": (leaf["leaf_launches"] + p11_other["leaf_agg"] + p12_other["leaf_agg"]
-                      + p13_other["leaf_agg"] + p14_other["leaf_agg"]
-                      + p15_other["leaf_agg"] + p16_other["leaf_agg"]
-                      + p17_other["leaf_agg"] + p18_other["leaf_agg"] + p19_other["leaf_agg"]
-                      + p20_other["leaf_agg"] + p21_other["leaf_agg"]),
-         "phase11_launches": p11_other["leaf_agg"], "phase12_launches": p12_other["leaf_agg"],
-         "phase13_launches": p13_other["leaf_agg"], "phase14_launches": p14_other["leaf_agg"],
-         "phase15_launches": p15_other["leaf_agg"],
-         "phase16_launches": p16_other["leaf_agg"], "phase17_launches": p17_other["leaf_agg"],
-         "phase18_launches": p18_other["leaf_agg"], "phase19_launches": p19_other["leaf_agg"],
-         "phase20_launches": p20_other["leaf_agg"], "phase21_launches": p21_other["leaf_agg"],
+         "launches": leaf["leaf_launches"] + sum(named("leaf_agg").values()),
+         **named("leaf_agg"),
          "phase16_launches_by_instance": {k.split()[1]: c for k, c in p16_by_instance.items()
                                           if k.startswith("leaf_agg")},
          "phase15_launches_by_instance": {k.split()[1]: c for k, c in p15_by_instance.items()
@@ -8262,11 +8543,8 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
                           "split and grouping set)",
          "launches_by_shape": leaf["by_shape"],
          "launches_by_instance": leaf["by_instance"],
-         "max_abs_err": max(leaf_err, sp["err"], sm_["err"], res_["err"],
-                            surf["call_err"]["leaf_agg"], win["call_err"]["leaf_agg"],
-                           ds["call_err"]["leaf_agg"], st["call_err"]["leaf_agg"],
-                           obs["call_err"]["leaf_agg"], life["call_err"]["leaf_agg"],
-                           cache["call_err"]["leaf_agg"], serve["call_err"]["leaf_agg"]),
+         "max_abs_err": max([leaf_err, sp["err"], sm_["err"], res_["err"]]
+                            + held("call_err", "leaf_agg")),
          "ms": sp["ms"], "kernel_ms": sp["ms"], "call_ms": sp["call_ms"],
          "plain_ms": sp["plain_ms"], "bound_ms": leaf_bound, "bound_by": leaf_by,
          "library_ms": sp["library_ms"], "rows": sp["rows"], "bytes": sp["bytes"],
@@ -8279,34 +8557,24 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
         {"name": "like_mask", "route": "cuda", "source": "presto_tpu_torch/csrc/strings.cu",
          "replaces": "presto_tpu/ops/pallas_strings.py:118",
          "jax_function": "presto_tpu/ops/pallas_strings.py:190 like_mask_pallas",
-         "launches": (strings["like_launches"] + outer["like_launches"] + expr["like_launches"]
-                      + sub["like_launches"] + p13_other["like"] + p14_other["like"]
-                      + p15_other["like"] + p16_other["like"]
-                      + p17_other["like"] + p18_other["like"] + p19_other["like"]
-                      + p20_other["like"] + p21_other["like"]),
+         "launches": (strings["like_launches"] + outer["like_launches"]
+                      + sum(named("like").values())), **named("like"),
          "launches_by_instance": _summed(strings["like_by_instance"],
                                          outer["like_by_instance"], expr["like_by_instance"],
                                          sub["like_by_instance"], p13_like_by_instance,
                                          p14_like_by_instance, p15_like_by_instance,
                                          p16_like_by_instance, p17_like_by_instance),
-         "phase13_launches": p13_other["like"], "phase14_launches": p14_other["like"], "phase15_launches": p15_other["like"],
-         "phase16_launches": p16_other["like"], "phase17_launches": p17_other["like"],
-         "phase18_launches": p18_other["like"], "phase19_launches": p19_other["like"],
-         "phase20_launches": p20_other["like"], "phase21_launches": p21_other["like"],
          "phase14_launches_by_instance": p14_like_by_instance,
          "phase13_launches_by_instance": p13_like_by_instance,
          "launches_from": "phase 8 (LIKE queries), phase 10 (Q13, Q5), phase 11 (Q16) and "
                           "phase 12 (Q20's p_name like 'forest%')",
          "phase10_launches": outer["like_launches"],
-         "phase11_launches": expr["like_launches"],
-         "phase12_launches": sub["like_launches"],
          "phase12_launches_by_instance": sub["like_by_instance"],
          "launches_by_shape": _summed(strings["like_by_shape"], outer["like_by_shape"],
                                       expr["like_by_shape"], sub["like_by_shape"],
                                       p13_like_by_shape, p14_like_by_shape, p15_like_by_shape,
                                       p16_like_by_shape, p17_like_by_shape),
-         "max_abs_err": max([like_err, sub["like_err"], surf["call_err"]["like"],
-                            win["call_err"]["like"], ds["call_err"]["like"], st["call_err"]["like"]]
+         "max_abs_err": max([like_err, sub["like_err"]] + held("call_err", "like")
                             + [t["err"] for t in like_shapes.values()]),
          "ms": lk["ms"], "kernel_ms": lk["ms"], "call_ms": lk["call_ms"],
          "plain_ms": lk["plain_ms"], "bound_ms": like_bound, "bound_by": like_by,
@@ -8317,17 +8585,8 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
          "source": "presto_tpu_torch/csrc/strings.cu",
          "replaces": "presto_tpu/ops/pallas_strings.py:246",
          "jax_function": "presto_tpu/ops/pallas_strings.py:251 starts_with_pallas",
-         "launches": (strings["prefix_launches"] + p11_other["prefix"] + p12_other["prefix"]
-                      + p13_other["prefix"] + p14_other["prefix"]
-                      + p15_other["prefix"] + p16_other["prefix"]
-                      + p17_other["prefix"] + p18_other["prefix"] + p19_other["prefix"]
-                      + p20_other["prefix"] + p21_other["prefix"]),
-         "phase11_launches": p11_other["prefix"], "phase12_launches": p12_other["prefix"],
-         "phase13_launches": p13_other["prefix"], "phase14_launches": p14_other["prefix"],
-         "phase15_launches": p15_other["prefix"],
-         "phase16_launches": p16_other["prefix"], "phase17_launches": p17_other["prefix"],
-         "phase18_launches": p18_other["prefix"], "phase19_launches": p19_other["prefix"],
-         "phase20_launches": p20_other["prefix"], "phase21_launches": p21_other["prefix"],
+         "launches": strings["prefix_launches"] + sum(named("prefix").values()),
+         **named("prefix"),
          "launches_from": "phase 8 (the starts_with pipeline); phase 12's like 'forest%' "
                           "runs the LIKE kernel, as in the JAX package",
          "launches_by_instance": strings["prefix_by_instance"],

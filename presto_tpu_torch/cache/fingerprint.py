@@ -44,6 +44,8 @@ NONDETERMINISTIC_FNS = frozenset({"now", "random", "rand", "uuid",
 #: resolved physical scan schemas instead (``physical_scan_schemas``).
 CODEGEN_PROPERTIES = (
     "join_build_budget_bytes",
+    "direct_group_limit",
+    "pallas_strings",
     "approx_join",
     # approx_scan_fraction < 1 drops splits (sampled scans): sampled and
     # exact runs must never share cached results

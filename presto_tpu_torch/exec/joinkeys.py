@@ -85,7 +85,7 @@ def join_key_exprs(lkeys: Sequence[Expr], rkeys: Sequence[Expr], *, catalog, lno
         if lk.dtype.width != rk.dtype.width:
             # equal CHAR values of different declared widths would
             # pack or hash differently (padding is part of the bytes)
-            raise NotSupported("string join keys of unequal width")
+            raise NotImplementedError("string join keys of unequal width")
         if lk.dtype.width <= 7:
             fn = "bytes_pack"
         else:
@@ -97,8 +97,8 @@ def join_key_exprs(lkeys: Sequence[Expr], rkeys: Sequence[Expr], *, catalog, lno
         """-> (probe key, build key, unproven-dictionary flag)."""
         if lk.dtype.kind is TypeKind.VARCHAR or rk.dtype.kind is TypeKind.VARCHAR:
             if lk.dtype.kind is not rk.dtype.kind:
-                raise NotSupported("join key type mismatch (VARCHAR vs non-VARCHAR); "
-                                   "cast one side explicitly")
+                raise NotImplementedError("join key type mismatch (VARCHAR vs non-VARCHAR); "
+                                          "cast one side explicitly")
             dl, dr = dict_of(lnode, 0, lk), dict_of(rnode, 1, rk)
             if dl is not None and dl is dr:
                 return lk, rk, False  # one shared dictionary: codes are exact
@@ -174,9 +174,9 @@ def join_key_exprs(lkeys: Sequence[Expr], rkeys: Sequence[Expr], *, catalog, lno
         # verified on the key pairs (a bytes_hash component is already
         # verified on its original bytes)
         if any(w[2] for w in wrapped):
-            raise NotSupported("multi-key hash fallback over a dictionary VARCHAR key "
-                               "with unprovable dictionary provenance: codes are not "
-                               "comparable across dictionaries")
+            raise NotImplementedError("multi-key hash fallback over a dictionary VARCHAR key "
+                                      "with unprovable dictionary provenance: codes are not "
+                                      "comparable across dictionaries")
         verify.extend((lk, rk) for lk, rk in zip(lkeys, rkeys) if not _is_hash(lk))
         return (Call(BIGINT, "hash63_mix", tuple(lkeys)),
                 Call(BIGINT, "hash63_mix", tuple(rkeys)), verify)

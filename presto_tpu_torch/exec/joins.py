@@ -433,8 +433,9 @@ class LookupJoinOperator(Operator):
             return
         pdict, bdict = batch[k.name].dictionary, self.build.key_dict
         if pdict is not None and bdict is not None and pdict is not bdict:
-            raise NotSupported("join keys are encoded against different dictionaries; "
-                               "codes are not comparable across dictionaries")
+            raise NotImplementedError("join keys are encoded against different dictionaries "
+                                      "and their provenance was not visible to the planner; "
+                                      "codes are not comparable across dictionaries")
 
     # ---- the executable cache ---------------------------------------------
     # The probe steps are shared across queries under the JAX package's

@@ -777,7 +777,8 @@ def bypass_partial_agg(node, catalog, hints=None) -> bool:
     return g >= BYPASS_MIN_GROUPS and g * BYPASS_RATIO > rows
 
 
-def agg_strategy_for(node, catalog, hints=None, fused_enabled: bool = True) -> str:
+def agg_strategy_for(node, catalog, hints=None, fused_enabled: bool = True,
+                     bypass_enabled: bool = True) -> str:
     """The aggregation strategy the executor will pick for this node,
     from stats alone: ``fused`` (the leaf route) > ``bypass`` (stream
     rows to one final pass) > ``partial`` (per-morsel folds); keyless
@@ -785,7 +786,8 @@ def agg_strategy_for(node, catalog, hints=None, fused_enabled: bool = True) -> s
     ``value_overflow`` degrades fused to the generic route, counted.
     ``hints`` is the plan-stats history of a recurring fingerprint;
     ``fused_enabled=False`` describes runs that skip the leaf route (a
-    stats recorder is attached: EXPLAIN ANALYZE, ``Session.execute``)."""
+    stats recorder is attached: EXPLAIN ANALYZE, ``Session.execute``);
+    ``bypass_enabled`` is the ``partial_agg_bypass`` session property."""
     if not isinstance(node, N.Aggregate):
         return ""
     if fused_enabled:
@@ -794,6 +796,6 @@ def agg_strategy_for(node, catalog, hints=None, fused_enabled: bool = True) -> s
             return "fused"
     if not node.keys:
         return "single"
-    if bypass_partial_agg(node, catalog, hints=hints):
+    if bypass_enabled and bypass_partial_agg(node, catalog, hints=hints):
         return "bypass"
     return "partial"

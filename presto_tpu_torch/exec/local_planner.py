@@ -12,10 +12,11 @@ package's, made from the same stats:
   ``value_overflow``; keyless aggregates otherwise take
   ``GlobalAggregationOperator``;
 - grouping strategy: direct addressing when every key is a small
-  dictionary domain (product <= ``DIRECT_LIMIT``), else the
-  bounded sort strategy sized from the estimated rows, with the
-  partial-aggregation bypass (``exec/leaf_route.bypass_partial_agg``)
-  when groups approach rows;
+  dictionary domain (product <= the ``direct_group_limit`` session
+  property, default ``DIRECT_LIMIT``), else the bounded sort strategy
+  sized from the estimated rows, with the partial-aggregation bypass
+  (``exec/leaf_route.bypass_partial_agg``, the ``partial_agg_bypass``
+  property) when groups approach rows;
 - join probe: the fused lookup-table kernels (``ops/cuda_join``) when
   the build key's stats domain fits their tables, else a dense
   direct-address table when the domain is tight, else the sorted
@@ -336,8 +337,15 @@ class LocalExecutor(OomLadderMixin):
     def __init__(self, catalog: Catalog, pallas_join_enabled: bool = True,
                  approx_join: bool = False, runtime_join_filters: bool = True,
                  device="cuda", join_build_budget: int | None = None,
-                 spill_host_budget: int | None = None, scan_sample_fraction: float = 1.0):
+                 spill_host_budget: int | None = None, scan_sample_fraction: float = 1.0,
+                 direct_group_limit: int = DIRECT_LIMIT, agg_bypass: bool = True):
         self.catalog = catalog
+        #: the largest dictionary-key domain product the direct
+        #: aggregation strategy addresses (``direct_group_limit``)
+        self.direct_group_limit = direct_group_limit
+        #: the adaptive partial-aggregation bypass may fire (the
+        #: ``partial_agg_bypass`` session property)
+        self.agg_bypass = agg_bypass
         #: APPROXIMATE sampled scans: below 1.0 each table scan keeps an
         #: evenly strided subset of its splits and the run is flagged
         #: ``used_approx``
@@ -653,9 +661,10 @@ class LocalExecutor(OomLadderMixin):
     def _use_agg_bypass(self, node: N.Aggregate) -> bool:
         """The adaptive partial-aggregation bypass for one keyed sort-
         strategy aggregation: the NDV estimate, corrected by plan-stats
-        history (``leaf_route.bypass_partial_agg``). Never on a ladder
-        rung: one pass is what a degraded re-run must not do."""
-        if self.oom_rung > 0:
+        history (``leaf_route.bypass_partial_agg``), unless the session
+        turned ``partial_agg_bypass`` off. Never on a ladder rung: one
+        pass is what a degraded re-run must not do."""
+        if not self.agg_bypass or self.oom_rung > 0:
             return False
         return leaf_route.bypass_partial_agg(node, self.catalog, hints=self.plan_hints)
 
@@ -676,7 +685,7 @@ class LocalExecutor(OomLadderMixin):
             for e in key_exprs:
                 v = evaluate(e, batch)
                 if v.data.dim() != 1:
-                    raise NotSupported("non-scalar aggregation key in hybrid spill")
+                    raise NotImplementedError("non-scalar aggregation key in hybrid spill")
                 # a NULL key hashes as 0; the per-bucket sort strategy
                 # still groups NULL apart from a genuine 0
                 ok = batch.live & valid_of(v.valid, batch.live)
@@ -750,7 +759,7 @@ class LocalExecutor(OomLadderMixin):
 
         return pick_group_strategy(
             keys, pax, dict_len, estimate_rows(node.child, self.catalog),
-            direct_limit=0 if force_sort else DIRECT_LIMIT)
+            direct_limit=0 if force_sort else self.direct_group_limit)
 
     # ---- joins ----------------------------------------------------------
     @staticmethod
@@ -944,7 +953,7 @@ class LocalExecutor(OomLadderMixin):
         if decision.mode != "resident" and node.kind != "full":
             lkey, rkey, verify = self._join_keys(node, left, right_stream, scalars)
             if verify and spill:
-                raise NotSupported("wide string keys in grouped (spilled) joins")
+                raise NotImplementedError("wide string keys in grouped (spilled) joins")
             if not verify:
                 REGISTRY.counter(f"join.strategy.{decision.mode}").add()
                 return self._exec_grouped_join(node, left, right_stream, lkey, rkey, decision)
@@ -956,8 +965,9 @@ class LocalExecutor(OomLadderMixin):
         fault_point("step.join_build")
         lkey, rkey, verify = self._join_keys(node, left, right, scalars)
         if verify and not node.unique and node.kind != "inner":
-            raise NotSupported("wide string keys on non-unique OUTER joins (verification "
-                               "cannot re-synthesize the null-extended row)")
+            raise NotImplementedError("wide string keys on non-unique OUTER joins "
+                                      "(verification cannot re-synthesize the "
+                                      "null-extended row)")
         # the dense and fused sides serve unique builds only; hash-verified
         # keys and FULL joins never take the fused route
         iv = build_key_interval(node, self.catalog) if node.unique else None
@@ -1165,7 +1175,7 @@ class LocalExecutor(OomLadderMixin):
                 return uop.process_full(b, flags)
         else:
             if verify:
-                raise NotSupported("wide string join keys require a unique build side")
+                raise NotImplementedError("wide string join keys require a unique build side")
             probe_once = self._retrying_expand_probe(
                 build, lkey, outs, "full", right, lambda op, b, flags: op.process_full(b, flags))
 
@@ -1214,7 +1224,7 @@ class LocalExecutor(OomLadderMixin):
             # bucket, so bucketing is exact for semi and anti alike
             lkey, rkey, verify = self._join_keys(node, left, right_stream, scalars)
             if verify:
-                raise NotSupported("wide string semi-join keys")
+                raise NotImplementedError("wide string semi-join keys")
             REGISTRY.counter(f"join.strategy.{decision.mode}").add()
             return self._exec_grouped_semijoin(node, left, right_stream, lkey, rkey,
                                                decision, jt)
@@ -1224,7 +1234,7 @@ class LocalExecutor(OomLadderMixin):
         if verify:
             # an existence probe has no build row to verify against; a
             # hash collision could flip membership
-            raise NotSupported("wide string semi-join keys")
+            raise NotImplementedError("wide string semi-join keys")
         iv = build_key_interval(node, self.catalog)
         spec = None if self._route_disabled(node) else self._pallas_spec(iv, (), {}, True, jt)
         build = JoinBuildOperator(rkey, dense_domain=self._dense_domain(iv, right),

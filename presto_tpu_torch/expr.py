@@ -563,7 +563,7 @@ def _bytes_sign(a: Val, b: Val) -> torch.Tensor:
             return torch.nn.functional.pad(d, (0, w - d.shape[1])) if d.shape[1] < w else d
 
         return bytes_compare(_pad_space(widen(a.data)), _pad_space(widen(b.data)))
-    raise NotSupported(f"comparing {a.dtype} with {b.dtype} is not ported yet")
+    raise TypeError("not a BYTES comparison")
 
 
 def _cmp_physicals(a: Val, b: Val):
@@ -972,7 +972,7 @@ def _dict_predicate(target: Val, pred, what: str) -> torch.Tensor:
     the device (a scan over distinct values, not rows)."""
     d = target.dictionary
     if d is None:
-        raise NotSupported(f"{what} on dictionary-less VARCHAR is not ported yet")
+        raise NotImplementedError(f"{what} on dictionary-less VARCHAR")
     table = np.fromiter((pred(v) for v in d.values), dtype=np.bool_, count=len(d))
     t = torch.from_numpy(table).to(target.data.device)
     # dead rows may hold any code: clamp as a jnp gather would

@@ -304,7 +304,7 @@ def scan_physical_types(node: TableScan, catalog) -> dict:
 def plan_tree_str(node: PlanNode, indent: int = 0, catalog=None,
                   approx_join: bool = False, _filters=None,
                   join_build_budget: int | None = None, plan_hints=None,
-                  adaptive=None) -> str:
+                  adaptive=None, agg_bypass: bool = True) -> str:
     """EXPLAIN-style rendering. With a ``catalog``, scan columns render
     their narrowed physical storage (``l_shipdate:date:int16``), joins
     and semi joins render the stats-planned probe strategy
@@ -343,7 +343,8 @@ def plan_tree_str(node: PlanNode, indent: int = 0, catalog=None,
             from presto_tpu_torch.exec.leaf_route import agg_strategy_for
 
             detail += (" agg_strategy="
-                       + agg_strategy_for(node, catalog, hints=plan_hints))
+                       + agg_strategy_for(node, catalog, hints=plan_hints,
+                                          bypass_enabled=agg_bypass))
     elif isinstance(node, (Join, SemiJoin)):
         if isinstance(node, Join):
             detail = f" {node.kind}{' unique' if node.unique else ''}"
@@ -374,5 +375,6 @@ def plan_tree_str(node: PlanNode, indent: int = 0, catalog=None,
     for c in node.children:
         out += plan_tree_str(c, indent + 1, catalog=catalog, approx_join=approx_join,
                              _filters=_filters, join_build_budget=join_build_budget,
-                             plan_hints=plan_hints, adaptive=adaptive)
+                             plan_hints=plan_hints, adaptive=adaptive,
+                             agg_bypass=agg_bypass)
     return out

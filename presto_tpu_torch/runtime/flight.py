@@ -198,6 +198,7 @@ class FlightRecorder:
                 plan, catalog=session.catalog,
                 approx_join=bool(session.prop("approx_join")),
                 plan_hints=getattr(executor, "plan_hints", None) or None,
+                agg_bypass=bool(session.prop("partial_agg_bypass")),
                 join_build_budget=getattr(executor, "join_build_budget",
                                           None),
             )

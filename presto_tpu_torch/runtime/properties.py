@@ -23,33 +23,35 @@ class PropertyDef:
     check: Optional[Callable[[Any], Optional[str]]] = None
 
     def coerce(self, value):
-        """Coerce a user-supplied value (possibly a SQL literal string)
-        to the property's type, then apply ``check``."""
+        """Coerce a user-supplied value (possibly a SQL literal string,
+        as ``SET SESSION`` passes it) to the property's type, as the JAX
+        package does, then apply ``check``."""
         if value is None:
             return None
-        v = self._typed(value)
+        try:
+            if self.py_type is bool:
+                if isinstance(value, bool):
+                    v = value
+                elif isinstance(value, str):
+                    s = value.strip().lower()
+                    if s in ("true", "1", "on", "yes"):
+                        v = True
+                    elif s in ("false", "0", "off", "no"):
+                        v = False
+                    else:
+                        raise UserError(s)
+                else:
+                    v = bool(value)
+            else:
+                v = self.py_type(value)
+        except (TypeError, ValueError):
+            raise UserError(f"session property {self.name}: cannot interpret "
+                            f"{value!r} as {self.py_type.__name__}") from None
         if self.check is not None:
             problem = self.check(v)
             if problem:
                 raise UserError(f"session property {self.name}: {problem}")
         return v
-
-    def _typed(self, value):
-        if self.py_type is str and isinstance(value, str):
-            return value
-        if self.py_type is bool and isinstance(value, str):
-            s = value.strip().lower()
-            if s in ("true", "1", "on", "yes"):
-                return True
-            if s in ("false", "0", "off", "no"):
-                return False
-        elif not isinstance(value, str):
-            try:
-                return self.py_type(value)
-            except (TypeError, ValueError):
-                pass
-        raise UserError(f"session property {self.name}: cannot interpret "
-                        f"{value!r} as a {self.py_type.__name__}")
 
 
 def _positive(v):
@@ -63,83 +65,6 @@ def _non_negative(v):
 SESSION_PROPERTIES: dict[str, PropertyDef] = {
     d.name: d
     for d in [
-        PropertyDef(
-            "pallas_join", bool, True,
-            "Prefer the fused lookup-table probe kernels for equi-joins "
-            "on narrow stats-bounded keys (ops/cuda_join.py). Ineligible "
-            "joins fall back to the dense or sorted probes with a "
-            "join.pallas_fallback counter; results are identical."),
-        PropertyDef(
-            "narrow_storage", bool, None,
-            "Stats-driven narrow physical column storage: scans "
-            "materialize int8/int16/int32 device columns wherever "
-            "connector value bounds permit, which arms the fused leaf "
-            "route (exec/leaf_route.py). Process-wide, mirrors the "
-            "PRESTO_TPU_NARROW environment variable; default: on. Off "
-            "takes the generic operators with canonical storage; "
-            "results are bit-identical either way."),
-        PropertyDef(
-            "runtime_join_filters", bool, True,
-            "Runtime join filters (sideways information passing): an "
-            "inner or semi join's build side pushes its key (min, max) "
-            "and a Bloom bitmask into the probe-side scan, which clears "
-            "the live bit of rows that cannot join "
-            "(plan/joinfilters.py). Results are identical either way; "
-            "join.filter_rows_in / join.filter_rows_pruned count the "
-            "scanned and pruned rows."),
-        PropertyDef(
-            "approx_join", bool, False,
-            "APPROXIMATE semi joins: when the exact fused table cannot "
-            "fit, probe a two-hash Bloom sketch instead (ops/cuda_join.py "
-            "sketch_probe) — false positives possible (extra rows at "
-            "roughly (1-exp(-2n/m))^2 for n build keys in m=2^19 bits), "
-            "never false negatives, never row loss (anti joins are "
-            "excluded by construction). Changes results: "
-            "QueryResult.approximate says when a run probed the sketch."),
-        PropertyDef(
-            "plan_templates", bool, True,
-            "Plan-template parameterization: eligible literals are "
-            "lifted out of the plan into typed runtime slots "
-            "(plan/templates.py), so queries differing only in constants "
-            "share one plan template. Bit-identical results on or off. "
-            "Literals that prove kernel admission (leaf-route spec "
-            "bounds, LIMIT shapes) stay baked, counted under "
-            "prepare.slot_ineligible.*."),
-        PropertyDef(
-            "collect_node_stats", bool, False,
-            "Record per-plan-node wall time and output rows on every "
-            "query (the EXPLAIN ANALYZE recorder, always on)."),
-        PropertyDef(
-            "query_retries", int, 0,
-            "Transparent query-level retries on execution failure: the "
-            "engine's whole failure-recovery posture (there is no "
-            "mid-query recovery; a failed attempt is re-run from the "
-            "top, counted under query.retried).",
-            _non_negative),
-        PropertyDef(
-            "trace_enabled", bool, True,
-            "Record a structured span trace (query -> plan node -> "
-            "operator step, plus driver and join-filter spans) for every "
-            "query. Traces are retained in a per-session ring, exportable "
-            "as Chrome trace JSON via Session.export_trace(path)."),
-        PropertyDef(
-            "trace_max_spans", int, 8192,
-            "Span cap per traced query; spans beyond it are dropped "
-            "(counted in the trace.spans_dropped metric), never an "
-            "error.",
-            _positive),
-        PropertyDef(
-            "query_history_limit", int, 256,
-            "Entries retained in the session's query-history ring "
-            "(Session.history, fed by the built-in query_completed "
-            "listener).",
-            _positive),
-        PropertyDef(
-            "profile_annotations", bool, False,
-            "Wrap every trace span in a torch.profiler.record_function "
-            "named '<span>#<trace_token>', so a torch profiler trace "
-            "of the card shows each span as a user annotation over the "
-            "kernels it launched."),
         PropertyDef(
             "join_build_budget_bytes", int, None,
             "Capacity planner: estimated join build sides (and keyed "
@@ -157,6 +82,65 @@ SESSION_PROPERTIES: dict[str, PropertyDef] = {
             "silently. Default: the process-wide host-spill budget (16x "
             "the device budget).",
             _positive),
+        PropertyDef(
+            "direct_group_limit", int, 4096,
+            "Grouped aggregation addresses its state directly when the "
+            "product of the key dictionaries' domains is at most this; "
+            "larger domains take the bounded sort strategy "
+            "(exec/local_planner.pick_group_strategy).",
+            _positive),
+        PropertyDef(
+            "partial_agg_bypass", bool, True,
+            "Adaptive aggregation: when the estimated (or plan-stats "
+            "observed) group count nears the input row count, skip the "
+            "per-batch partial folds and aggregate the concatenated rows "
+            "in one pass (agg_strategy=bypass). Integer and decimal "
+            "results are identical; DOUBLE sums agree to rounding. Off "
+            "keeps keyed aggregations at agg_strategy=partial."),
+        PropertyDef(
+            "plan_templates", bool, True,
+            "Plan-template parameterization: eligible literals are "
+            "lifted out of the plan into typed runtime slots "
+            "(plan/templates.py), so queries differing only in constants "
+            "share one plan template. Bit-identical results on or off. "
+            "Literals that prove kernel admission (leaf-route spec "
+            "bounds, LIMIT shapes) stay baked, counted under "
+            "prepare.slot_ineligible.*."),
+        PropertyDef(
+            "batched_dispatch", bool, False,
+            "Cross-query batched dispatch (server/batcher.py): "
+            "concurrent same-template different-literal queries meet at "
+            "the template batch gate, and one leader scans the table once "
+            "and replays the template's operator steps once per binding "
+            "over the shared scanned batches (N results from one scan) "
+            "instead of N serialized runs. Results are bit-identical to "
+            "serial execution and the result cache stays keyed per "
+            "binding. Templates outside the pure scan/filter/project/"
+            "global-agg/sort/topN whitelist fall back to the serialized "
+            "template slot, counted under batch.fallback.*. Off by "
+            "default for embedded sessions; the serving layer "
+            "(presto_tpu_torch.server) turns it on."),
+        PropertyDef(
+            "batch_max_size", int, 8,
+            "Most bindings one cross-query batched dispatch may fuse.",
+            _positive),
+        PropertyDef(
+            "tenant", str, None,
+            "Default tenant identity stamped on this session's "
+            "QueryInfo records (system.query_history attribution). The "
+            "serving front-end overrides it per request via the "
+            "request-scoped tenant context."),
+        PropertyDef(
+            "collect_node_stats", bool, False,
+            "Record per-plan-node wall time and output rows on every "
+            "query (the EXPLAIN ANALYZE recorder, always on)."),
+        PropertyDef(
+            "query_retries", int, 0,
+            "Transparent query-level retries on execution failure: the "
+            "engine's whole failure-recovery posture (there is no "
+            "mid-query recovery; a failed attempt is re-run from the "
+            "top, counted under query.retried).",
+            _non_negative),
         PropertyDef(
             "query_max_run_time", float, None,
             "Per-query wall-clock deadline in seconds, checked at every "
@@ -209,28 +193,6 @@ SESSION_PROPERTIES: dict[str, PropertyDef] = {
             "never past the deadline).",
             _non_negative),
         PropertyDef(
-            "retry_budget_tokens", float, 16.0,
-            "Capacity of the per-session retry token bucket "
-            "(runtime/overload.RetryBudget): fragment retries and "
-            "OOM-ladder rungs each spend one token; a drained bucket "
-            "opens the circuit breaker and failures fail fast.",
-            _positive),
-        PropertyDef(
-            "retry_budget_refill_per_s", float, 2.0,
-            "Retry tokens refilled per second. 0 disables refill (tokens "
-            "only return through the half-open probe's success).",
-            _non_negative),
-        PropertyDef(
-            "retry_breaker_cooldown_s", float, 1.0,
-            "Seconds an open retry circuit breaker waits before going "
-            "half-open and granting exactly one probe retry.",
-            _non_negative),
-        PropertyDef(
-            "device_telemetry", bool, True,
-            "Stamp QueryInfo.device_peak_bytes with the CUDA caching "
-            "allocator's peak watermark (runtime/devices.py) at query "
-            "completion; 0 without a card."),
-        PropertyDef(
             "result_cache_enabled", bool, True,
             "Serve a repeated identical query from the session's "
             "versioned result cache (cache/result_cache.py: keyed by plan "
@@ -253,6 +215,37 @@ SESSION_PROPERTIES: dict[str, PropertyDef] = {
             "as it is.",
             _positive),
         PropertyDef(
+            "trace_enabled", bool, True,
+            "Record a structured span trace (query -> plan node -> "
+            "operator step, plus driver and join-filter spans) for every "
+            "query. Traces are retained in a per-session ring, exportable "
+            "as Chrome trace JSON via Session.export_trace(path)."),
+        PropertyDef(
+            "trace_max_spans", int, 8192,
+            "Span cap per traced query; spans beyond it are dropped "
+            "(counted in the trace.spans_dropped metric), never an "
+            "error.",
+            _positive),
+        PropertyDef(
+            "query_history_limit", int, 256,
+            "Entries retained in the session's query-history ring "
+            "(Session.history, fed by the built-in query_completed "
+            "listener).",
+            _positive),
+        PropertyDef(
+            "flight_recorder_limit", int, 64,
+            "Post-mortem records retained in the session's flight-"
+            "recorder ring (runtime/flight.py, system.flight_recorder). "
+            "A record is captured whenever a query fails, degrades down "
+            "the OOM ladder, retries a fragment or exceeds its deadline; "
+            "Session.export_flight_record writes them as JSON.",
+            _positive),
+        PropertyDef(
+            "flight_record_successes", bool, False,
+            "Also capture a flight record for every successful query; "
+            "adaptive decisions stand down meanwhile, so the captured "
+            "runs show the baseline plan."),
+        PropertyDef(
             "plan_stats_limit", int, 512,
             "Plan fingerprints retained in the session's estimate-vs-"
             "actual history (cache/plan_stats.py, system.plan_stats; LRU "
@@ -272,42 +265,50 @@ SESSION_PROPERTIES: dict[str, PropertyDef] = {
             "(plan/adaptive.salt_factor).",
             _positive),
         PropertyDef(
-            "flight_recorder_limit", int, 64,
-            "Post-mortem records retained in the session's flight-"
-            "recorder ring (runtime/flight.py, system.flight_recorder). "
-            "A record is captured whenever a query fails, degrades down "
-            "the OOM ladder, retries a fragment or exceeds its deadline; "
-            "Session.export_flight_record writes them as JSON.",
-            _positive),
+            "profile_annotations", bool, False,
+            "Wrap every trace span in a torch.profiler.record_function "
+            "named '<span>#<trace_token>', so a torch profiler trace "
+            "of the card shows each span as a user annotation over the "
+            "kernels it launched."),
         PropertyDef(
-            "flight_record_successes", bool, False,
-            "Also capture a flight record for every successful query; "
-            "adaptive decisions stand down meanwhile, so the captured "
-            "runs show the baseline plan."),
+            "profile_dir", str, None,
+            "When set, every query runs under torch.profiler (CPU and "
+            "CUDA activities) and writes one Chrome trace, named by its "
+            "query id, into this directory: the device-side timeline "
+            "beside EXPLAIN ANALYZE's host-side operator stats."),
         PropertyDef(
-            "batched_dispatch", bool, False,
-            "Cross-query batched dispatch (server/batcher.py): "
-            "concurrent same-template different-literal queries meet at "
-            "the template batch gate, and one leader scans the table once "
-            "and replays the template's operator steps once per binding "
-            "over the shared scanned batches (N results from one scan) "
-            "instead of N serialized runs. Results are bit-identical to "
-            "serial execution and the result cache stays keyed per "
-            "binding. Templates outside the pure scan/filter/project/"
-            "global-agg/sort/topN whitelist fall back to the serialized "
-            "template slot, counted under batch.fallback.*. Off by "
-            "default for embedded sessions; the serving layer "
-            "(presto_tpu_torch.server) turns it on."),
+            "narrow_storage", bool, None,
+            "Stats-driven narrow physical column storage: scans "
+            "materialize int8/int16/int32 device columns wherever "
+            "connector value bounds permit, which arms the fused leaf "
+            "route (exec/leaf_route.py). Process-wide, mirrors the "
+            "PRESTO_TPU_NARROW environment variable; default: on. Off "
+            "takes the generic operators with canonical storage; "
+            "results are bit-identical either way."),
         PropertyDef(
-            "batch_max_size", int, 8,
-            "Most bindings one cross-query batched dispatch may fuse.",
-            _positive),
+            "runtime_join_filters", bool, True,
+            "Runtime join filters (sideways information passing): an "
+            "inner or semi join's build side pushes its key (min, max) "
+            "and a Bloom bitmask into the probe-side scan, which clears "
+            "the live bit of rows that cannot join "
+            "(plan/joinfilters.py). Results are identical either way; "
+            "join.filter_rows_in / join.filter_rows_pruned count the "
+            "scanned and pruned rows."),
         PropertyDef(
-            "tenant", str, None,
-            "Default tenant identity stamped on this session's "
-            "QueryInfo records (system.query_history attribution). The "
-            "serving front-end overrides it per request via the "
-            "request-scoped tenant context."),
+            "pallas_join", bool, True,
+            "Prefer the fused lookup-table probe kernels for equi-joins "
+            "on narrow stats-bounded keys (ops/cuda_join.py). Ineligible "
+            "joins fall back to the dense or sorted probes with a "
+            "join.pallas_fallback counter; results are identical."),
+        PropertyDef(
+            "approx_join", bool, False,
+            "APPROXIMATE semi joins: when the exact fused table cannot "
+            "fit, probe a two-hash Bloom sketch instead (ops/cuda_join.py "
+            "sketch_probe) — false positives possible (extra rows at "
+            "roughly (1-exp(-2n/m))^2 for n build keys in m=2^19 bits), "
+            "never false negatives, never row loss (anti joins are "
+            "excluded by construction). Changes results: "
+            "QueryResult.approximate says when a run probed the sketch."),
         PropertyDef(
             "approx_scan_fraction", float, 1.0,
             "APPROXIMATE scans: execute only this deterministic "
@@ -318,6 +319,20 @@ SESSION_PROPERTIES: dict[str, PropertyDef] = {
             "Changes results: the plan fingerprint folds this property, "
             "so sampled and exact runs never share cached results.",
             lambda v: None if 0.0 < v <= 1.0 else f"must be in (0, 1], got {v}"),
+        PropertyDef(
+            "pallas_strings", bool, None,
+            "The route of LIKE and the prefix test on byte columns: "
+            "the CUDA string kernels (ops/cuda_strings.py) on a CUDA "
+            "session, their plain PyTorch versions on a CPU one. Kept "
+            "for the property table: the device picks the route, so "
+            "unset or the device's own route is accepted, and false on "
+            "a CUDA session or true on a CPU one is refused "
+            "(NotSupported). Per session."),
+        PropertyDef(
+            "device_telemetry", bool, True,
+            "Stamp QueryInfo.device_peak_bytes with the CUDA caching "
+            "allocator's peak watermark (runtime/devices.py) at query "
+            "completion; 0 without a card."),
         PropertyDef(
             "slo_latency_objective_s", float, 1.0,
             "Default per-tenant latency objective (seconds): a query "
@@ -389,6 +404,23 @@ SESSION_PROPERTIES: dict[str, PropertyDef] = {
             "Minimum seconds between health_breach firings (with the "
             "clean-sample re-arm latch, one sustained incident fires "
             "once, not once per sample).",
+            _non_negative),
+        PropertyDef(
+            "retry_budget_tokens", float, 16.0,
+            "Capacity of the per-session retry token bucket "
+            "(runtime/overload.RetryBudget): fragment retries and "
+            "OOM-ladder rungs each spend one token; a drained bucket "
+            "opens the circuit breaker and failures fail fast.",
+            _positive),
+        PropertyDef(
+            "retry_budget_refill_per_s", float, 2.0,
+            "Retry tokens refilled per second. 0 disables refill (tokens "
+            "only return through the half-open probe's success).",
+            _non_negative),
+        PropertyDef(
+            "retry_breaker_cooldown_s", float, 1.0,
+            "Seconds an open retry circuit breaker waits before going "
+            "half-open and granting exactly one probe retry.",
             _non_negative),
         PropertyDef(
             "brownout_cooldown_s", float, 5.0,

@@ -100,7 +100,7 @@ from presto_tpu_torch.plan.templates import (
     parameterize_plan,
 )
 from presto_tpu_torch.runtime import trace
-from presto_tpu_torch.runtime.errors import UserError, error_code, is_retryable
+from presto_tpu_torch.runtime.errors import NotSupported, UserError, error_code, is_retryable
 from presto_tpu_torch.runtime.events import EventDispatcher, QueryHistoryBuffer
 from presto_tpu_torch.runtime.flight import FlightRecorder
 from presto_tpu_torch.runtime.lifecycle import QueryManager
@@ -112,7 +112,11 @@ from presto_tpu_torch.runtime.metrics import (
     to_openmetrics,
     uninstall_delta,
 )
-from presto_tpu_torch.runtime.properties import effective, validate_properties
+from presto_tpu_torch.runtime.properties import (
+    SESSION_PROPERTIES,
+    effective,
+    validate_properties,
+)
 from presto_tpu_torch.runtime.stats import NodeIds, QueryInfo, StatsRecorder, render_analyzed_plan
 from presto_tpu_torch.runtime.trace import TraceRecorder, TraceStore, export_chrome_trace
 from presto_tpu_torch.sql import ast as A
@@ -147,6 +151,26 @@ def _no_recorder():
     return None
 
 
+@contextlib.contextmanager
+def _profile_to(path: str, device):
+    """Run the block under ``torch.profiler`` and write its Chrome trace
+    to ``path`` (the directory is made if missing)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    # one profiler a query, one cycle: acc_events keeps torch from
+    # warning that a new cycle clears the last one's events
+    with profile(activities=activities, acc_events=True) as prof:
+        yield
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    prof.export_chrome_trace(path)
+
+
 def _ast_literal_value(node):
     """EXECUTE ... USING argument -> logical Python value (literals only:
     parameters are values, not expressions)."""
@@ -173,6 +197,23 @@ def _one_row(name: str, value) -> QueryResult:
     return QueryResult([name], [batch])
 
 
+def device_checked(device, props: dict) -> dict:
+    """Refuse a ``pallas_strings`` route ``device`` cannot take. The
+    string predicates on byte columns always run the CUDA kernels on the
+    card and their plain versions on the CPU, so the switch picks no
+    code: off on a CUDA session (ROADMAP C25) and on in a CPU one (C23)
+    are refused, unset and the device's own route are accepted."""
+    pallas = props.get("pallas_strings")
+    if pallas is False and device.type == "cuda":
+        raise NotSupported("pallas_strings=false would run the plain string "
+                           "predicates on the card; the port always launches its "
+                           "CUDA string kernels there")
+    if pallas and device.type != "cuda":
+        raise NotSupported("pallas_strings=true forces the CUDA string kernels, "
+                           f"which cannot run on {device.type}")
+    return props
+
+
 class Session:
     def __init__(self, connectors: Mapping[str, object], properties=None, device="cuda",
                  trace_token: Optional[str] = None, memory_pool: Optional[MemoryPool] = None):
@@ -188,7 +229,7 @@ class Session:
         conns.setdefault("memory", MemoryConnector(device=self.device))
         self.catalog = Catalog(conns)
         self.analyzer = Analyzer(self.catalog)
-        self.properties = validate_properties(dict(properties or {}))
+        self.properties = device_checked(self.device, validate_properties(dict(properties or {})))
         self.trace_token = trace_token
         self.events = EventDispatcher()
         #: every tracked query's QueryInfo, in order
@@ -246,7 +287,7 @@ class Session:
         are errors; None restores the default). A changed history limit
         resizes the ring, a changed ``memory_pool_bytes`` rebuilds the
         private pool here, so concurrent queries see one pool."""
-        checked = validate_properties({name: value})
+        checked = device_checked(self.device, validate_properties({name: value}))
         if value is None:
             self.properties.pop(name, None)
         else:
@@ -261,13 +302,30 @@ class Session:
             cap = self.prop(name)
             self._private_pool = None if cap is None else MemoryPool(cap, name="session")
 
-    def _mirror_narrow(self) -> None:
+    def show_session(self) -> "list[tuple[str, object, str]]":
+        """(name, effective value, description) rows, SHOW SESSION, in
+        the JAX package's order."""
+        return [(d.name, self.prop(d.name), d.description)
+                for d in SESSION_PROPERTIES.values()]
+
+    def _mirror_switches(self) -> None:
         """Connectors and the leaf-route matcher read the process-wide
-        switch (``spi.narrow_enabled``): mirror ``narrow_storage`` there,
-        as the JAX package does."""
+        narrowing switch (``spi.narrow_enabled``): mirror
+        ``narrow_storage`` there, as the JAX package does."""
         narrow = self.prop("narrow_storage")
         if narrow is not None:
+            # presto-lint: ignore[PT401] -- deliberate documented mirror: the property IS the process-wide env switch (properties.py documents it); tests restore via the conftest guard
             os.environ["PRESTO_TPU_NARROW"] = "1" if narrow else "0"
+
+    def _profiled(self, info):
+        """``torch.profiler`` over one query when ``profile_dir`` is set
+        (CPU and, on a CUDA session, CUDA activities): its Chrome trace
+        goes to ``<profile_dir>/<query id>.json``, the device-side
+        timeline beside EXPLAIN ANALYZE's host-side node stats."""
+        d = self.prop("profile_dir")
+        if not d:
+            return contextlib.nullcontext()
+        return _profile_to(os.path.join(d, f"{info.query_id}.json"), self.device)
 
     def add_event_listener(self, listener):
         """Register an event listener (``runtime/events.EventListener``)."""
@@ -304,8 +362,10 @@ class Session:
         # resizes it
         if "exec_cache_max_entries" in self.properties:
             EXEC_CACHE.set_max_entries(self.prop("exec_cache_max_entries"))
-        self._mirror_narrow()
+        self._mirror_switches()
         return LocalExecutor(self.catalog, pallas_join_enabled=self.prop("pallas_join"),
+                             direct_group_limit=self.prop("direct_group_limit"),
+                             agg_bypass=bool(self.prop("partial_agg_bypass")),
                              approx_join=self.prop("approx_join"),
                              runtime_join_filters=self.prop("runtime_join_filters"),
                              device=self.device, join_build_budget=self.join_build_budget(),
@@ -333,7 +393,7 @@ class Session:
         stay baked depends on the leaf-route matcher, which reads it (the
         JAX package mirrors it only when it builds the executor, after
         this: ROADMAP C16)."""
-        self._mirror_narrow()
+        self._mirror_switches()
         plan = prune(self.analyzer.analyze(stmt))
         if self.analyzer.param_types:
             raise UserError("query contains ? parameters; PREPARE it and EXECUTE "
@@ -356,7 +416,8 @@ class Session:
         hints = self._plan_hints(plan)
         out = plan_tree_str(plan, catalog=self.catalog, approx_join=self.prop("approx_join"),
                             join_build_budget=self.join_build_budget(), plan_hints=hints,
-                            adaptive=self._explain_adaptive(plan, hints))
+                            adaptive=self._explain_adaptive(plan, hints),
+                            agg_bypass=bool(self.prop("partial_agg_bypass")))
         if bound:
             rendered = ", ".join(f"?{i}={dt}:{v!r}" for i, (dt, v) in enumerate(bound))
             out += f"params=[{rendered}]\n"
@@ -529,7 +590,8 @@ class Session:
                 recorder.attach_estimates(plan, self.catalog,
                                           approx_join=self.prop("approx_join"),
                                           join_build_budget=self.join_build_budget(),
-                                          plan_hints=hints)
+                                          plan_hints=hints,
+                                          agg_bypass=bool(self.prop("partial_agg_bypass")))
         # ---- in-flight coalescing: gated as result-cache admission is
         entry = None
         if templates_on and admissible and fp is not None:
@@ -579,14 +641,16 @@ class Session:
                 REGISTRY.counter("batch.fallback.distributed").add()
                 gate_on = False
             if gate_on:
-                res = self._run_template_batched(executor, plan, info, recorder, base_fp, bound)
+                with self._profiled(info):
+                    res = self._run_template_batched(executor, plan, info, recorder, base_fp,
+                                                     bound)
             else:
                 # same-template serialization: leaders with a binding
                 # queue behind one slot per template
                 slot_cm = (self.query_manager.coalescer.template_slot(base_fp)
                            if entry is not None and bound and base_fp is not None
                            else contextlib.nullcontext())
-                with slot_cm:
+                with self._profiled(info), slot_cm:
                     res = self.query_manager.run_plan(executor, plan, info, recorder)
             published = res
             token = install_delta(post)
@@ -800,7 +864,7 @@ class Session:
     def _prepare_ast(self, name: str, sql: str, stmt) -> PreparedStatement:
         if not isinstance(stmt, (A.Query, A.SetQuery)):
             raise UserError("only queries can be prepared")
-        self._mirror_narrow()
+        self._mirror_switches()
         plan = prune(self.analyzer.analyze(stmt))
         user = tuple(sorted(self.analyzer.param_types.items()))
         auto = ()

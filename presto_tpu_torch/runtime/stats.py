@@ -178,7 +178,8 @@ class StatsRecorder:
 
     def attach_estimates(self, plan, catalog, approx_join: bool = False,
                          join_build_budget: int | None = None,
-                         plan_hints: dict | None = None) -> None:
+                         plan_hints: dict | None = None,
+                         agg_bypass: bool = True) -> None:
         """Snapshot the planner's per-node predictions before execution:
         estimated rows, the sound upper bound and its exactness, the
         planned join strategy or aggregation strategy, and the physical
@@ -211,6 +212,7 @@ class StatsRecorder:
                     # recorder runs skip the leaf route (true per-node
                     # actuals), so record the strategy this run uses
                     strategy = agg_strategy_for(node, catalog, hints=plan_hints,
+                                                bypass_enabled=agg_bypass,
                                                 fused_enabled=False)
                 except Exception:  # noqa: BLE001
                     strategy = ""

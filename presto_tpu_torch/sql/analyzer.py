@@ -53,10 +53,9 @@ feed an outer query that carries them. A ``?`` parameter takes the type
 of the typed operand beside it (a comparison or arithmetic operand, an
 IN list's value, BETWEEN's value) and lowers to an ``expr.Param`` slot;
 ``param_types`` holds the slot types of the last statement. Statements
-other than queries raise ``NotSupported`` naming the construct; so do an
-uncorrelated EXISTS and ``<>`` correlation in a scalar subquery, which
-the JAX package refuses too. Every other refusal
-is the JAX package's ``AnalysisError``, word for word.
+other than queries raise ``NotSupported`` naming the construct (the
+session never sends one here). Every other refusal is the JAX package's
+``AnalysisError``, word for word.
 """
 
 from __future__ import annotations
@@ -879,7 +878,7 @@ class Analyzer:
             edges.append(dict(kind=kind, left=nleft, akeys=akeys, bkeys=bkeys,
                               residual=res, nullable=nullable))
             return
-        raise _unsupported(f"relation {type(rel).__name__}")
+        raise AnalysisError(f"unsupported relation {type(rel).__name__}")
 
     def _agg_key_outputs(self, node) -> tuple[tuple[str, ...], ...]:
         """Alternative output-name sets (at ``node``'s level) each
@@ -1602,7 +1601,7 @@ class Analyzer:
             # a boolean combination of EXISTS leaves: the mark join
             return self._apply_mark_bool(node, plan, scope, outer, ctes,
                                          scalar_binds)
-        raise _unsupported(f"the subquery predicate {type(node).__name__}")
+        raise AnalysisError(f"unsupported subquery predicate: {type(node).__name__}")
 
     def _apply_mark_bool(self, c, plan, scope, outer, ctes, scalar_binds):
         """Rewrite a boolean expression whose subquery leaves are all
@@ -1732,8 +1731,7 @@ class Analyzer:
         probe = self._inner_scope_probe(sub_q, ctes)
         new_where, corr, neq = self._split_correlation(sub_q, probe, scope, ctes)
         if not corr:
-            # the JAX package refuses it too
-            raise _unsupported("an uncorrelated EXISTS")
+            raise AnalysisError("uncorrelated EXISTS not supported")
         if neq:
             return self._plan_exists_with_neq(sub_q, negated, plan, scope, ctes,
                                               new_where, corr, neq)
@@ -1825,8 +1823,7 @@ class Analyzer:
         probe = self._inner_scope_probe(sub_q, ctes)
         new_where, corr, neq = self._split_correlation(sub_q, probe, scope, ctes)
         if neq:
-            # the JAX package refuses it too
-            raise _unsupported("<> correlation in a scalar subquery")
+            raise AnalysisError("<> correlation in scalar subquery unsupported")
         fn = _CMP_OPS[op]
         if not corr:
             # uncorrelated: ScalarValue binding
@@ -2193,7 +2190,7 @@ class Analyzer:
             t = sub_scope.fields[0].dtype
             scalar_binds.append(N.ScalarValue(sub_plan, sname, t))
             return Unbound(t, sname)
-        raise _unsupported(f"expression {type(n).__name__}")
+        raise AnalysisError(f"unsupported expression {type(n).__name__}")
 
     def _case(self, n: A.CaseExpr, scope, outer, ctes, scalar_binds, agg_map, key_map):
         """Simple and searched CASE -> ``case(when1, then1, ..., [else])``.

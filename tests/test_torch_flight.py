@@ -38,7 +38,7 @@ from presto_tpu_torch.runtime.errors import ExceededTimeLimit as PExceeded
 from presto_tpu_torch.runtime.errors import TransientFailure as PTransient
 from presto_tpu_torch.runtime.errors import UserError
 from presto_tpu_torch.runtime.session import Session as PSession
-from torch_bridge import comparable_metrics, one_thread, port_frame
+from torch_bridge import comparable_metrics, port_frame
 
 #: every case starts from cleared executable and stats caches
 pytestmark = pytest.mark.resets_global_state
@@ -313,13 +313,11 @@ def test_flight_armed_idle_overhead_under_5pct(conns):
             on.append(time.perf_counter() - t0)
         return min(on), min(off)
 
-    # one intra-op thread: other test workers contend for the cores
-    with one_thread():
-        for rounds in (5, 9, 13):
-            best_on, best_off = best_of(rounds)
-            if best_on <= best_off * 1.05 + 0.005:
-                assert len(s_on.flight) == 0  # armed, idle: nothing captured
-                return
+    for rounds in (5, 9, 13):
+        best_on, best_off = best_of(rounds)
+        if best_on <= best_off * 1.05 + 0.005:
+            assert len(s_on.flight) == 0  # armed, idle: nothing captured
+            return
     raise AssertionError(f"flight-armed overhead too high: on={best_on:.4f}s "
                          f"off={best_off:.4f}s")
 

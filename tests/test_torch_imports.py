@@ -12,6 +12,7 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch_bridge  # noqa: F401  (pins one intra-op thread)
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "presto_tpu", "pandas"}

@@ -422,16 +422,15 @@ def test_chip_smoke_phase17_on_the_cpu():
     import sys
 
     from presto_tpu_torch.connectors.tpcds import TpcdsConnector
-    from torch_bridge import TPCDS_SF, TPCDS_UNITS, one_thread
+    from torch_bridge import TPCDS_SF, TPCDS_UNITS
 
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     import chip_smoke
 
-    with one_thread():
-        out = chip_smoke.run_statement_queries(
-            PConnector(sf=SF, device="cpu"),
-            TpcdsConnector(sf=TPCDS_SF, units_per_split=TPCDS_UNITS, device="cpu"),
-            {"q3": (0.0, 0.0, 0.0, 0)}, device="cpu")
+    out = chip_smoke.run_statement_queries(
+        PConnector(sf=SF, device="cpu"),
+        TpcdsConnector(sf=TPCDS_SF, units_per_split=TPCDS_UNITS, device="cpu"),
+        {"q3": (0.0, 0.0, 0.0, 0)}, device="cpu")
     assert out["routes"]["leaf group-by"]["exec.leaf_fused_route"] == 1
     assert out["routes"]["prepare q3p"]["prepare.slots_bound"] > 0
     assert len(out["templates"]["launches"]) == 4 * len(chip_smoke.TEMPLATE_CHECKS)

@@ -54,7 +54,14 @@ from presto_tpu_torch.ops import join as pjoin
 from presto_tpu_torch.runtime.errors import NotSupported
 from presto_tpu_torch.runtime.session import Session as PSession
 from presto_tpu_torch.types import BIGINT
-from torch_bridge import counters, mark_counters, port_batch, to_numpy
+from torch_bridge import (
+    ANALYZER_REFUSALS,
+    counters,
+    mark_counters,
+    port_batch,
+    refused_alike,
+    to_numpy,
+)
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
@@ -422,13 +429,13 @@ def test_joins_and_queries_still_refused(conns, sql, what):
     """RIGHT and FULL joins, also inside Q15, equal the JAX package's
     answers (frames, dtypes, route and filter counters); Q17's
     correlated scalar stops at a ``<>`` correlation in both packages,
-    and the port names it."""
+    with the reference's class and words."""
     try:
         want, want_routes = jax_run(conns[0], sql)
     except Exception:  # noqa: BLE001 - the reference refuses: so must the port
-        with pytest.raises(NotSupported, match=what):
-            PSession({"tpch": conns[1]}, device="cpu").sql(sql)
-        assert "<>" in what
+        err = refused_alike(lambda: jax_run(conns[0], sql),
+                            lambda: PSession({"tpch": conns[1]}, device="cpu").sql(sql))
+        assert str(err) == ANALYZER_REFUSALS[what]
         return
     res, routes = port_run(conns[1], sql)
     pd.testing.assert_frame_equal(pd.DataFrame(res.to_dict()), want, check_exact=True)

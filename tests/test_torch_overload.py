@@ -40,6 +40,7 @@ from presto_tpu_torch.runtime.overload import (
     shed_retry_after,
 )
 from presto_tpu_torch.runtime.session import Session
+import torch_bridge  # noqa: F401  (pins one intra-op thread)
 
 CONN = TpchConnector(sf=0.005, device="cpu")
 SCAN_SQL = ("select l_orderkey, count(*) c, sum(l_quantity) q "

@@ -24,6 +24,7 @@ from presto_tpu_torch.runtime import memory as M
 from presto_tpu_torch.runtime.errors import ResourceExhausted, SpillBudgetExceeded
 from presto_tpu_torch.runtime.metrics import REGISTRY
 from presto_tpu_torch.runtime.session import Session
+import torch_bridge  # noqa: F401  (pins one intra-op thread)
 
 
 def counter(name):

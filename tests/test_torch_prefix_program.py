@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from presto_tpu_torch.ops import cuda_strings
+import torch_bridge  # noqa: F401  (pins one intra-op thread)
 
 # every width up to 17, then the main path's (22, 55, 79) and the edges of
 # the parameter words (16 words: 63-65 bytes), of 128 and of 256

@@ -894,8 +894,7 @@ def test_property_table_equals_reference():
     assert set(PP) <= set(JP)
     missing = sorted(set(JP) - set(PP))
     assert missing == sorted(["broadcast_join_row_limit", "gather_row_limit",
-                              "direct_group_limit", "partial_agg_bypass", "degrade_to_local",
-                              "profile_dir", "pallas_strings"]), missing
+                              "degrade_to_local"]), missing
     checked = 0
     for name, p in PP.items():
         j = JP[name]

@@ -9,9 +9,8 @@
   strategies (``fused`` on the leaf route), for TPC-H Q1, Q3, Q6 and Q10
   and SSB Q1.1, at sf 0.01 and at SF1 (plans only: no data is
   generated);
-- constructs outside the ported subset (the ``<>`` correlation in a
-  scalar subquery, which the JAX package refuses too) raise
-  ``NotSupported`` naming them, and the ones this file pinned before the
+- constructs both packages refuse (the ``<>`` correlation in a scalar
+  subquery) raise the same class with the same words, and the ones this file pinned before the
   port answered them (among them windows, GROUPING SETS / ROLLUP / CUBE,
   CREATE TABLE AS and EXPLAIN ANALYZE) equal the JAX package's answers,
   frames built as it builds them (``torch_bridge.port_frame``).
@@ -41,9 +40,9 @@ from presto_tpu_torch.exec.leaf_route import agg_strategy_for as p_agg_strategy
 from presto_tpu_torch.exec.local_planner import planned_join_strategy as p_join_strategy
 from presto_tpu_torch.plan import nodes as PN
 from presto_tpu_torch.plan.bounds import agg_value_bits as p_value_bits
-from presto_tpu_torch.runtime.errors import NotSupported
 from presto_tpu_torch.runtime.session import Session as PSession
 from presto_tpu_torch.sql.parser import parse as pparse
+from torch_bridge import ANALYZER_REFUSALS, refused_alike
 
 STATEMENTS = [
     QUERIES["q3"],
@@ -154,9 +153,10 @@ UNSUPPORTED = [
 
 @pytest.mark.parametrize("sql,what", UNSUPPORTED)
 def test_constructs_outside_the_slice_raise_naming_them(sql, what):
+    js = JSession({"tpch": JConnector(sf=0.01)})
     ps = PSession({"tpch": PConnector(sf=0.01, device="cpu")}, device="cpu")
-    with pytest.raises(NotSupported, match=what):
-        ps.sql(sql)
+    err = refused_alike(lambda: js.sql(sql), lambda: ps.sql(sql))
+    assert str(err) == ANALYZER_REFUSALS[what]
 
 
 def test_explain_analyze_equals_jax_session():

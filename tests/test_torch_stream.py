@@ -27,6 +27,7 @@ from presto_tpu_torch.runtime.errors import UserError
 from presto_tpu_torch.runtime.session import Session as PSession
 from presto_tpu_torch.stream import StreamWriter
 from test_torch_memory import assert_same_entry
+import torch_bridge  # noqa: F401  (pins one intra-op thread)
 
 STATS_COLS = ("k", "n", "d")  # INTEGER / BIGINT / DATE kinds carry stats
 

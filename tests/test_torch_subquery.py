@@ -17,7 +17,7 @@ join in the port, against the JAX package:
   the mark); and what both refuse: a scalar of two rows, IN and a scalar
   subquery under OR, a negated EXISTS node under OR (built by hand: the
   parser never makes one), an uncorrelated EXISTS, ``<>`` correlation in
-  a scalar subquery (the port refuses these two as ``NotSupported``) and
+  a scalar subquery (these two with the reference's class and words) and
   a UNION of two rows as a scalar subquery (one row a term, each term a
   batch: more than one row in both packages);
 - ``bind_scalars``, ``Unbound`` and ``DataType.from_physical`` against
@@ -58,8 +58,8 @@ from presto_tpu_torch.connectors.tpch import TpchConnector as PConnector
 from presto_tpu_torch.exec.leaf_route import agg_strategy_for as p_agg_strategy
 from presto_tpu_torch.exec.local_planner import planned_join_strategy as p_join_strategy
 from presto_tpu_torch.plan.bounds import agg_value_bits as p_value_bits
-from presto_tpu_torch.runtime.errors import NotSupported
 from presto_tpu_torch.runtime.session import Session as PSession
+from presto_tpu_torch.sql.analyzer import AnalysisError
 from presto_tpu_torch.sql.analyzer import Analyzer as PAnalyzer
 from presto_tpu_torch.sql.parser import parse as pparse
 from test_torch_sql import plan_shape
@@ -118,10 +118,10 @@ REFUSED = {
                         ValueError, "only EXISTS is supported inside OR predicates"),
     "uncorrelated exists": ("select count(*) as n from nation where exists "
                             "(select * from region where r_name = 'ASIA')",
-                            NotSupported, "an uncorrelated EXISTS"),
+                            AnalysisError, "uncorrelated EXISTS not supported"),
     "<> in a scalar": ("select count(*) as n from nation where n_regionkey = (select "
                        "max(r_regionkey) from region where r_regionkey <> n_nationkey)",
-                       NotSupported, "<> correlation in a scalar subquery"),
+                       AnalysisError, "<> correlation in scalar subquery unsupported"),
     "union as a scalar": ("select count(*) as n from nation where n_regionkey = "
                           "(select r_regionkey from region union all "
                           "select r_regionkey from region)",
@@ -191,10 +191,13 @@ def test_statement_equals_jax_session(conns, ref, name):
 def test_both_packages_refuse(conns, ref, name):
     sql, port_error, message = REFUSED[name]
     assert isinstance(ref[name], Exception), f"the JAX package answered {name}"
-    if port_error is not NotSupported:
-        assert message in str(ref[name])
-    with pytest.raises(port_error, match=message):
+    assert message in str(ref[name])
+    with pytest.raises(port_error, match=message) as err:
         port_run(conns[1], sql)
+    if port_error is AnalysisError:
+        # the analyzer's own refusals: the reference's class and words
+        assert (type(err.value).__name__, str(err.value)) == (
+            type(ref[name]).__name__, str(ref[name]))
 
 
 def _negate_exists(node):

@@ -38,6 +38,7 @@ from presto_tpu_torch.runtime.lifecycle import QueryManager
 from presto_tpu_torch.runtime.session import Session
 from presto_tpu_torch.server.frontend import HttpFrontend, QueryServer
 from presto_tpu_torch.stream import StreamWriter
+import torch_bridge  # noqa: F401  (pins one intra-op thread)
 
 WAIT_S = 30.0
 

@@ -21,7 +21,7 @@ from presto_tpu.oracle.tpcds_oracle import ORACLES
 from presto_tpu_torch.connectors.tpcds import TpcdsConnector
 from presto_tpu_torch.connectors.tpcds.queries import QUERIES
 from test_tpch_sql import compare
-from torch_bridge import TPCDS_SF, TPCDS_UNITS, LazyTables, one_thread, port_run
+from torch_bridge import TPCDS_SF, TPCDS_UNITS, LazyTables, port_run
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
@@ -34,10 +34,9 @@ DECIMALS = {"q3": ("sum_agg",), "q98": ("i_current_price", "itemrevenue")}
 def env():
     from presto_tpu.connectors.tpcds import TpcdsConnector as JConnector
 
-    with one_thread():
-        conn = TpcdsConnector(sf=TPCDS_SF, units_per_split=TPCDS_UNITS, device="cpu")
-        yield (conn, chip_smoke.ColumnCache(conn),
-               LazyTables(JConnector(sf=TPCDS_SF, units_per_split=TPCDS_UNITS)))
+    conn = TpcdsConnector(sf=TPCDS_SF, units_per_split=TPCDS_UNITS, device="cpu")
+    return (conn, chip_smoke.ColumnCache(conn),
+            LazyTables(JConnector(sf=TPCDS_SF, units_per_split=TPCDS_UNITS)))
 
 
 @pytest.mark.parametrize("q", sorted(chip_smoke.TPCDS_ORACLES))

@@ -21,7 +21,7 @@ from presto_tpu.connectors.tpcds import TpcdsConnector as JConnector
 from presto_tpu_torch.connectors.tpcds import TpcdsConnector as PConnector
 from presto_tpu_torch.connectors.tpcds.queries import QUERIES
 from test_torch_window_sql import same_frame
-from torch_bridge import jax_run, one_thread, port_frame, port_run
+from torch_bridge import jax_run, port_frame, port_run
 
 SF = 0.01
 NAMES = ["q3", "q7", "q28", "q33", "q36", "q38", "q42", "q43", "q52", "q55", "q76", "q96",
@@ -30,8 +30,7 @@ NAMES = ["q3", "q7", "q28", "q33", "q36", "q38", "q42", "q43", "q52", "q55", "q7
 
 @pytest.fixture(scope="module")
 def conns():
-    with one_thread():
-        yield JConnector(sf=SF), PConnector(sf=SF, device="cpu")
+    return JConnector(sf=SF), PConnector(sf=SF, device="cpu")
 
 
 @pytest.fixture(scope="module")

@@ -23,6 +23,7 @@ from presto_tpu_torch.exec.local_planner import planned_join_strategy as p_join_
 from presto_tpu_torch.plan.bounds import agg_value_bits as p_value_bits
 from presto_tpu_torch.runtime.session import Session as PSession
 from test_torch_sql import plan_shape
+import torch_bridge  # noqa: F401  (pins one intra-op thread)
 
 NAMES = sorted(QUERIES, key=lambda x: int(x[1:]))
 

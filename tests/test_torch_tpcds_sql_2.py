@@ -9,13 +9,12 @@ each file decodes only the tables its queries' oracles read.
 
 import pytest
 
-from torch_bridge import check_tpcds_query, one_thread, tpcds_oracle_env, tpcds_params
+from torch_bridge import check_tpcds_query, tpcds_oracle_env, tpcds_params
 
 
 @pytest.fixture(scope="module")
 def env():
-    with one_thread():
-        yield tpcds_oracle_env()
+    return tpcds_oracle_env()
 
 
 @pytest.mark.parametrize("name", tpcds_params(26, 50))

@@ -9,7 +9,6 @@ counters it bumps (``jax_run``, ``port_run``).
 from __future__ import annotations
 
 import collections
-import contextlib
 
 import numpy as np
 import torch
@@ -17,6 +16,13 @@ import torch
 import presto_tpu_torch.types as PT
 from presto_tpu_torch.batch import Batch as PBatch
 from presto_tpu_torch.batch import Dictionary as PDictionary
+
+# One intra-op thread in every process that imports this module: every
+# ``test_torch_*.py`` does, so every pytest-xdist worker runs the port's
+# CPU tensors single-threaded. With torch's default pool (one thread a
+# core) six workers on an eight-core host oversubscribe the cores, and a
+# sort over a few hundred thousand rows then takes minutes, not a second.
+torch.set_num_threads(1)
 
 
 def port_type(t) -> PT.DataType:
@@ -211,17 +217,32 @@ def check_tpcds_query(env, name: str) -> None:
     compare(got, want, name)
 
 
-@contextlib.contextmanager
-def one_thread():
-    """Run the block with one intra-op CPU thread (restored after): the
-    TPC-DS modules sort and gather large tensors, and under ``pytest -n``
-    several workers' thread pools would contend for the same cores."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
+#: the analyzer's refusals the tests name by their construct, with the
+#: words both packages raise (ROADMAP C22)
+ANALYZER_REFUSALS = {
+    "<> correlation in a scalar subquery": "<> correlation in scalar subquery unsupported",
+    "uncorrelated EXISTS": "uncorrelated EXISTS not supported",
+}
+
+
+def refused_alike(jax_call, port_call):
+    """Both calls raise, with the same class name and the same words
+    (what ``QueryInfo``'s error, the ``query_failed`` event and the
+    CLI's ``error:`` line carry). Returns the port's error."""
     try:
-        yield
-    finally:
-        torch.set_num_threads(before)
+        jax_call()
+    except Exception as e:  # noqa: BLE001 - the refusal is the answer
+        jerr = e
+    else:
+        raise AssertionError("the JAX package answered")
+    try:
+        port_call()
+    except Exception as e:  # noqa: BLE001 - the refusal is the answer
+        perr = e
+    else:
+        raise AssertionError(f"the port answered where the JAX package raised {jerr!r}")
+    assert (type(perr).__name__, str(perr)) == (type(jerr).__name__, str(jerr))
+    return perr
 
 
 # ---------------------------------------------------------------------------
