@@ -295,7 +295,20 @@ one CUDA card, and exits nonzero on any failure. Phases:
    that fails at run time; then ``python -m presto_tpu_torch serve
    --port 0`` as a subprocess: Q1 POSTed over HTTP against numpy, SIGINT
    and its drain line (``pool_reserved_bytes=0``). Each launch shape
-   held to the plain version.
+   held to the plain version;
+23. a mesh session at SF1 (``run_mesh_queries``): ``Session(mesh=
+   make_mesh(4, devices=["cuda:0"] * 4))``, the distributed executor
+   over four shards on the one card: Q1 and Q6 on the distributed leaf
+   route (the Q1 and leaf kernels once per shard at the shard's
+   capacity), the top order groups (PARTIAL, the multi-round exchange,
+   FINAL, TopN), orders range-sorted under a ``gather_row_limit`` below
+   its rows, a LIKE over ``part``'s shards and a direct-strategy fold
+   after a LIKE over ``orders``' shards; each answer against numpy where
+   an oracle exists and against the one-device session, with its wall,
+   its ``exchange.*`` counters and exchange walls and the host's reads
+   of the round flag; EXPLAIN (TYPE DISTRIBUTED) of the group-by and
+   ``python -m presto_tpu_torch --mesh 1 -e`` Q6. Each launch shape held
+   to the plain version.
 
 Phases 3-19 open their sessions with ``MEASURED`` (the result cache and
 adaptive execution off), so each timed or counted run executes its plan.
@@ -7722,9 +7735,9 @@ def run_cli_queries(sf: float, device: str = "cuda") -> dict:
             f"{out['traced']}; launches "
             f"{ {k: v for k, v in out['parts']['script'].items() if v} }")
         # LIKE after SET SESSION pallas_strings off, then on: the setting
-        # the device cannot take (off on the card, C25; on on the CPU,
-        # C23) is refused and the session keeps its route, the kernel on
-        # the card and the plain version on the CPU
+        # the card cannot take (off, C25) is refused and the session keeps
+        # its route, the kernel; the CPU takes both, its one route the
+        # plain version
         n_parts = len(list(conn.splits("part")))
         like_script = os.path.join(tmp, "like.sql")
         for setting in ("false", "true"):
@@ -7734,17 +7747,13 @@ def run_cli_queries(sf: float, device: str = "cuda") -> dict:
             text, err = _cli(base + ["-f", like_script])
             delta = _launch_delta(launched, _launch_counts())
             out["parts"][f"like {setting}"] = delta
-            if (setting == "true") == (device == "cuda"):
-                check(err == "" and f"SET pallas_strings = {setting.title()}" in text,
-                      f"phase 22 SET pallas_strings = {setting}: {err[:300]!r}")
-            elif device == "cuda":
+            if setting == "false" and device == "cuda":
                 check(err.strip() == "error: NotSupported: pallas_strings=false would run the "
                       "plain string predicates on the card; the port always launches its "
                       "CUDA string kernels there", f"phase 22: off on the card: {err!r}")
             else:
-                check(err.strip() == "error: NotSupported: pallas_strings=true forces the "
-                      "CUDA string kernels, which cannot run on cpu",
-                      f"phase 22: forced on the CPU: {err!r}")
+                check(err == "" and f"SET pallas_strings = {setting.title()}" in text,
+                      f"phase 22 SET pallas_strings = {setting}: {err[:300]!r}")
             check_printed(printed_tables(text)[0], want["like"], f"phase 22 LIKE {setting}")
             check(delta["like"] == (n_parts if device == "cuda" else 0),
                   f"phase 22: LIKE after pallas_strings={setting} launched {delta['like']}")
@@ -7846,6 +7855,171 @@ def run_cli_serve(sf: float, device: str = "cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 23: a mesh session (the distributed executor over 4 shards)
+# ---------------------------------------------------------------------------
+
+#: shards of phase 23's mesh; on one card every shard lives on it
+MESH_SHARDS = 4
+#: phase 23's statements, each run on the mesh and on one device
+MESH_SQL = {
+    "q1": QUERIES["q1"],
+    "q6": QUERIES["q6"],
+    # PARTIAL, the exchange on hash(l_orderkey), FINAL, then TopN
+    "top groups": "select l_orderkey, sum(l_quantity) as q from lineitem group by l_orderkey "
+                  "order by q desc, l_orderkey limit 10",
+    # the range sort: MESH_GATHER_LIMIT is below orders' rows
+    "orders sort": "select o_orderkey, o_totalprice from orders "
+                   "order by o_totalprice desc, o_orderkey",
+    # LIKE over part's shards, then a global aggregation
+    "part like": CLI_LIKE,
+    # LIKE over orders' shards, then a direct-strategy fold per shard
+    "direct": "select o_orderstatus, count(*) as c, sum(o_totalprice) as s from orders "
+              "where o_comment like '%special%requests%' group by o_orderstatus",
+}
+#: phase 23's ``gather_row_limit``: below orders' rows at SF1, so only the
+#: range-partition sort can order them
+MESH_GATHER_LIMIT = 1 << 20
+
+
+def mesh_expected(conn) -> dict:
+    """Phase 23's numpy oracles: Q1, Q6, the top order groups, the sorted
+    orders and the LIKE count (the direct statement is held to the
+    one-device session only)."""
+    li = conn.table_numpy("lineitem", Q6_COLS + ["l_orderkey"])
+    want = {"q1": q1_sql_expected(conn),
+            "q6": revenue(li["l_extendedprice"], li["l_discount"], q6_mask(li)),
+            "part like": {"n": [like_count_expected(conn)]}}
+    keys = li["l_orderkey"].astype(np.int64)
+    sums = np.bincount(keys, weights=li["l_quantity"].astype(np.float64)).astype(np.int64)
+    present = np.bincount(keys) > 0
+    ks = np.flatnonzero(present)
+    top = np.lexsort((ks, -sums[ks]))[:10]
+    want["top groups"] = {"l_orderkey": ks[top], "q": sums[ks][top]}
+    del li
+    o = conn.table_numpy("orders", ["o_orderkey", "o_totalprice"])
+    order = np.lexsort((o["o_orderkey"], -o["o_totalprice"].astype(np.int64)))
+    want["orders sort"] = {"o_orderkey": o["o_orderkey"][order],
+                           "o_totalprice": o["o_totalprice"][order]}
+    return want
+
+
+def run_mesh_queries(conn, device: str = "cuda") -> dict:
+    """Phase 23: ``Session(mesh=make_mesh(4, devices=[cuda:0] * 4))`` over
+    TPC-H at ``conn``'s scale: Q1 and Q6 on the distributed leaf route (K1
+    and K3 once per shard at the shard's capacity), the top order groups
+    (PARTIAL, the multi-round exchange, FINAL, TopN), orders range-sorted
+    under a gather guard below its rows, a LIKE over part's shards and a
+    direct-strategy fold (K2) after a LIKE over orders' shards; each answer
+    equal to its numpy oracle (:func:`mesh_expected`) and to the
+    one-device session's, with its wall, its ``exchange.*`` counter moves
+    and exchange walls and the host's reads of the round flag. Then
+    EXPLAIN (TYPE DISTRIBUTED) of the group-by and ``python -m
+    presto_tpu_torch --mesh 1 -e`` Q6. Every kernel launch shape of the
+    mesh runs is held to its plain version; the launches are counted from
+    0 over the mesh runs alone."""
+    from presto_tpu_torch.parallel import exchange as PX
+    from presto_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    want = mesh_expected(conn)
+    log(f"phase 23: numpy recomputation of {list(want)} at SF{conn.sf:g} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    home = "cuda:0" if device == "cuda" else "cpu"
+    mesh = make_mesh(MESH_SHARDS, devices=[home] * MESH_SHARDS)
+    props = {"gather_row_limit": MESH_GATHER_LIMIT}
+    out = {"walls": {}, "local_walls": {}, "exchange": {}, "flag_reads": {}}
+    local = {}
+    for name, sql in MESH_SQL.items():
+        session = measured_session({"tpch": conn}, properties=props, device=device)
+        t0 = time.perf_counter()
+        local[name] = session.sql(sql)
+        out["local_walls"][name] = time.perf_counter() - t0
+    query = {"name": None}
+    with first_kernel_calls(query) as calls, launch_spans() as spans:
+        # the main path of the phase: launches counted from 0 to here
+        _reset_launches()
+        for name, sql in MESH_SQL.items():
+            session = measured_session({"tpch": conn}, properties=props, device=device,
+                                       mesh=mesh)
+            query["name"] = f"phase 23 {name}"
+            before, reads = REGISTRY.snapshot(), PX.flag_reads
+            try:
+                t0 = time.perf_counter()
+                res = session.sql(sql)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                out["walls"][name] = time.perf_counter() - t0
+            finally:
+                query["name"] = None
+            after = REGISTRY.snapshot()
+            info = session.query_history[-1]
+            spans_ = session.traces.for_query(info.query_id).spans
+            out["exchange"][name] = {
+                "counters": {k: after[k] - before.get(k, 0) for k in after
+                             if k.startswith("exchange.") and not k.endswith(
+                                 (".p50", ".p95", ".p99", ".max"))
+                             and after[k] != before.get(k, 0)},
+                "walls_ms": [(sp.name, round((sp.t1 - sp.t0) * 1e3, 3)) for sp in spans_
+                             if sp.name.startswith("exchange:")]}
+            out["flag_reads"][name] = PX.flag_reads - reads
+            if name in want:
+                same_result(res, want[name], f"phase 23 {name}")
+            same_result(res, result_dict(local[name]),
+                        f"phase 23 {name} against the one-device session")
+            log(f"  {name}: wall {out['walls'][name]:.3f} s (one device "
+                f"{out['local_walls'][name]:.3f} s), exchange {out['exchange'][name]}, "
+                f"round-flag reads {out['flag_reads'][name]}")
+        out["launches"] = _launch_counts()
+    launches = out["launches"]
+    q1_caps = sorted(spans["q1 batches"])
+    log(f"  phase 23's launches: "
+        f"{ {k: launches[k] for k in ('q1', 'lane_sums', 'leaf_agg', 'like')} }; Q1 kernel by "
+        f"capacity {q1_caps}; leaf by instance {launches['by_instance']}; LIKE by shape "
+        f"{launches['like_by_shape']}")
+    if device == "cuda":
+        check(launches["q1"] == MESH_SHARDS and launches["leaf_agg"] >= MESH_SHARDS,
+              f"phase 23: K1 {launches['q1']} and K3 {launches['leaf_agg']} launches, one a "
+              f"shard expected")
+        check(launches["like"] >= 2 * MESH_SHARDS and launches["lane_sums"] >= MESH_SHARDS,
+              f"phase 23: LIKE {launches['like']} and lane-sums {launches['lane_sums']} "
+              f"launches")
+    check(out["exchange"]["top groups"]["counters"].get("exchange.rounds", 0) >= 1
+          and out["exchange"]["orders sort"]["counters"].get("exchange.rounds", 0) >= 1,
+          f"phase 23: no partitioned exchange ran: {out['exchange']}")
+    check(out["flag_reads"]["top groups"] >= 2 and out["flag_reads"]["orders sort"] >= 2,
+          f"phase 23: round-flag reads {out['flag_reads']}")
+    out["call_err"] = hold_kernel_calls(calls)
+    q1_err = 0
+    for cap, b in sorted(spans["q1 batches"].items()):
+        q1_err = max(q1_err, compare(cuda_q1.q1_step(b), cuda_q1.q1_step_plain(b),
+                                     f"q1_step at phase 23's first {cap}-row shard"))
+        log(f"  q1_step at phase 23's first {cap}-row shard: equal to its plain version")
+    out["q1_err"] = q1_err
+    if device == "cuda":
+        check(bool(spans["q1 batches"]) and any(k == "leaf_agg" for k, _s in calls)
+              and any(k == "like" for k, _s in calls) and any(k == "lane_sums" for k, _s in calls),
+              f"phase 23's shard shapes not held: {sorted(calls)}")
+    # EXPLAIN (TYPE DISTRIBUTED), and the CLI on a 1-shard mesh
+    session = measured_session({"tpch": conn}, device=device, mesh=mesh)
+    text = session.explain_distributed(MESH_SQL["top groups"])
+    check(text == measured_session({"tpch": conn}, device=device).explain_distributed(
+        MESH_SQL["top groups"]) and "[hash(l_orderkey) <- fragment 2]" in text
+          and text.startswith("Fragment 0 [single]"), f"phase 23: EXPLAIN (TYPE DISTRIBUTED):\n{text}")
+    out["explain"] = text
+    log("  EXPLAIN (TYPE DISTRIBUTED) of the top order groups:\n" + text)
+    cli_out, cli_err = _cli(["--device", device, "--catalog", "tpch", "--sf", f"{conn.sf:g}",
+                             "--session", "result_cache_enabled=false", "--mesh", "1",
+                             "-e", QUERIES["q6"]])
+    check(cli_err == "", f"phase 23: --mesh 1 wrote to stderr: {cli_err[:300]}")
+    tables = printed_tables(cli_out)
+    check(len(tables) == 1, f"phase 23: --mesh 1 printed {len(tables)} tables")
+    check_printed(tables[0], want["q6"], "phase 23 --mesh 1 Q6")
+    out["cli_wall"] = tables[0][2]
+    log(f"  python -m presto_tpu_torch --mesh 1 -e Q6: {tables[0][1]} in {tables[0][2]:.3f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -7868,7 +8042,7 @@ def main() -> int:
 
 
 def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
-    """Phases 1-22 (``cpu_answers``: phase 16's CPU answers, computing in
+    """Phases 1-23 (``cpu_answers``: phase 16's CPU answers, computing in
     worker processes meanwhile)."""
     marks: list = []
 
@@ -8371,10 +8545,17 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
                  for k in ("q1", "lane_sums", "leaf_agg", "q3", "like", "prefix")}
     log(f"  exists, sketch and payload launches with phase 22: {totals}; phase 22's alone: "
         f"{p22}; its other kernels: {p22_other}")
+    # ---- phase 23: a mesh session over 4 shards on the card ---------------
+    mark("23 mesh")
+    mesh = run_mesh_queries(TpchConnector(sf=1, device="cuda"))
+    p23 = probe_launch_totals({"phase 23": mesh["launches"]})
+    p23_other = {k: mesh["launches"][k]
+                 for k in ("q1", "lane_sums", "leaf_agg", "q3", "like", "prefix")}
+    log(f"  phase 23's probe launches: {p23}; its other kernels: {p23_other}")
     mark("json")
     log("phase seconds: " + ", ".join(f"{a} {t1 - t0:.1f}" for (a, t0), (_b, t1)
                                       in zip(marks, marks[1:])))
-    log(f"phases 1-22 in {marks[-1][1] - marks[0][1]:.1f} s")
+    log(f"phases 1-23 in {marks[-1][1] - marks[0][1]:.1f} s")
 
     log(smi[0])
     # every phase from 11 on is one entry here: its run's result, its
@@ -8386,7 +8567,7 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
               14: (surf, p14, p14_other), 15: (win, p15, p15_other), 16: (ds, p16, p16_other),
               17: (st, p17, p17_other), 18: (obs, p18, p18_other), 19: (life, p19, p19_other),
               20: (cache, p20, p20_other), 21: (serve, p21, p21_other),
-              22: (cli, p22, p22_other)}
+              22: (cli, p22, p22_other), 23: (mesh, p23, p23_other)}
 
     def named(kernel: str) -> dict:
         """``phaseNN_launches`` of a kernel the phases count by name."""

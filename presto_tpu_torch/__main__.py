@@ -8,9 +8,10 @@ with EXPLAIN / EXPLAIN ANALYZE, ``SET SESSION`` / ``SHOW SESSION`` /
 plain table (the JAX package prints a pandas frame; the port imports no
 pandas) with the same ``(n rows)`` footer and ``[x.xxxs]`` wall line.
 Queries run on the card unless ``--device cpu`` is given; without a GPU
-the default raises. ``--mesh`` and ``EXPLAIN (TYPE DISTRIBUTED)`` need
-the distributed executor, which is not ported yet: both are refused
-with ``NotSupported``.
+the default raises. ``--mesh N`` runs the session distributed over an
+N-shard mesh of the session's device (``parallel/mesh.make_mesh``; on
+the CPU N logical shards), and ``EXPLAIN (TYPE DISTRIBUTED)`` renders a
+plan's fragments and exchanges.
 
 Examples::
 
@@ -18,6 +19,7 @@ Examples::
     python -m presto_tpu_torch --catalog tpcds --sf 0.01 \
         -e "select count(*) from store_sales"
     python -m presto_tpu_torch --device cpu metrics -f queries.sql
+    python -m presto_tpu_torch --mesh 1 -e "select count(*) from lineitem"
     python -m presto_tpu_torch serve --port 0 --sf 1
 """
 
@@ -28,9 +30,6 @@ import sys
 import time
 
 from presto_tpu_torch.runtime.errors import NotSupported
-
-#: refusals until the distributed executor is ported
-_NO_MESH = "the distributed executor is not ported to presto_tpu_torch yet"
 
 
 def make_connector(catalog: str, sf: float, device="cuda"):
@@ -154,7 +153,8 @@ def run_statement(session, stmt: str, max_rows: int = 100) -> bool:
         if low.startswith("explain analyze"):
             print(session.explain_analyze(s[len("explain analyze"):]))
         elif low.startswith("explain (type distributed)"):
-            raise NotSupported(f"EXPLAIN (TYPE DISTRIBUTED): {_NO_MESH}")
+            n = len("explain (type distributed)")
+            print(session.explain_distributed(s[n:]))
         elif low.startswith("explain"):
             print(session.explain(s[len("explain"):]))
         else:
@@ -351,8 +351,7 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     ap.add_argument("--mesh", type=int, default=None, metavar="N",
-                    help="run distributed over an N-device mesh (not "
-                         "ported yet: refused)")
+                    help="run distributed over an N-device mesh")
     ap.add_argument("-e", "--execute", default=None, metavar="SQL",
                     help="execute one statement and exit")
     ap.add_argument("-f", "--file", default=None,
@@ -379,9 +378,6 @@ def main(argv=None):
         raise SystemExit(
             f"unknown command {args.command!r} "
             "('metrics', 'flightrec', 'serve', 'health')")
-    if args.mesh is not None:
-        raise NotSupported(f"--mesh {args.mesh}: {_NO_MESH}")
-
     from presto_tpu_torch.devices import resolve_device
     from presto_tpu_torch.runtime.session import Session
 
@@ -390,8 +386,13 @@ def main(argv=None):
     for kv in args.session:
         name, _, value = kv.partition("=")
         props[name.strip()] = value.strip()
+    mesh = None
+    if args.mesh is not None:
+        from presto_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(args.mesh, device=device)
     conn = make_connector(args.catalog, args.sf, device)
-    session = Session({args.catalog: conn}, properties=props, device=device)
+    session = Session({args.catalog: conn}, properties=props, device=device, mesh=mesh)
 
     if args.command == "serve":
         return serve(session, args)

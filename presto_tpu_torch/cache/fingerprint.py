@@ -17,8 +17,9 @@ hashes by VALUE, never by identity:
 The serialization is tag-length-value into one sha256, so nested
 structures cannot collide by concatenation. The digests are the port's
 own: they need not equal the JAX package's, only share and differ where
-its do. A plan's fingerprint folds a constant in place of the JAX
-package's mesh shape until the distributed executor is ported.
+its do. A plan's fingerprint folds the session's mesh shape (its axis
+names, shape and devices; ``()`` for a local session), so a local and a
+mesh session never share a fingerprint, a cached result or a cached step.
 """
 
 from __future__ import annotations
@@ -52,9 +53,13 @@ CODEGEN_PROPERTIES = (
     "approx_scan_fraction",
 )
 
-#: the mesh part of a plan fingerprint: one device until the
-#: distributed executor is ported
-MESH_SHAPE = ()
+def _mesh_shape(mesh) -> tuple:
+    """The mesh part of a fingerprint: ``()`` for a local session, else
+    the axis names, the shape and the shards' devices."""
+    if mesh is None:
+        return ()
+    return (tuple(mesh.axis_names), tuple(int(s) for s in mesh.shape),
+            tuple(str(d) for d in mesh.devices))
 
 
 class Unfingerprintable(TypeError):
@@ -260,7 +265,8 @@ def physical_scan_schemas(plan, catalog) -> tuple:
     return tuple(sorted(out))
 
 
-def plan_fingerprint(plan, catalog, properties: dict | None = None) -> Optional[str]:
+def plan_fingerprint(plan, catalog, properties: dict | None = None,
+                     mesh=None) -> Optional[str]:
     """The canonical identity of one executable query: plan structure and
     expressions, the referenced tables with their catalog versions, the
     physical scan schemas, the mesh part and every result-changing
@@ -273,6 +279,6 @@ def plan_fingerprint(plan, catalog, properties: dict | None = None) -> Optional[
         table_versions(plan, catalog),
         referenced_tables(plan),
         physical_scan_schemas(plan, catalog),
-        MESH_SHAPE,
+        _mesh_shape(mesh),
         props,
     )

@@ -28,9 +28,12 @@ same way. ``narrow_storage`` off disables routing (results identical).
 :func:`agg_strategy_for`, from stats, corrected by the plan-stats
 history of a recurring fingerprint (``hints``).
 
-The step and the state combine are shared across queries through the
-executable cache (``leaf_route_step`` / ``leaf_route_fold``). Not
-ported: the distributed leaf route (it comes with the distributed tier).
+On a mesh (:func:`execute_leaf_route_distributed`) the fused step runs
+once per shard of the row-sharded scan and the [groups] states
+all-reduce (sums, counts and flags add or OR, min and max take the min
+and max). The steps and the state combine are shared across queries
+through the executable cache (``leaf_route_step`` / ``leaf_route_fold`` /
+``leaf_dist_step``).
 """
 
 from __future__ import annotations
@@ -727,6 +730,88 @@ def execute_leaf_route(route: LeafRoute, executor, node, scalars):
         return None
     REGISTRY.counter("exec.leaf_fused_route").add()
     return [decode_leaf_state(route, conn, node.aggs, state)]
+
+
+# ---------------------------------------------------------------------------
+# execution — distributed
+# ---------------------------------------------------------------------------
+
+
+def _dist_step(spec, member_bounds, q1: bool):
+    """The routed fragment's step over one shard of a row-sharded scan:
+    the membership bitmap applied when the fragment folded a filter-only
+    join, then the Q1 step (``workloads.q1_fused_step``, the Q1 kernel on
+    a CUDA shard) or the fused leaf step (the leaf kernel on a CUDA
+    shard), at the shard's capacity."""
+
+    def step(b: Batch, bitmap):
+        nulls = null_violation(b)
+        oob = None
+        if bitmap is not None:
+            col, lo, hi = member_bounds
+            b, oob = _apply_membership(b, col, lo, hi, bitmap)
+        if q1:
+            from presto_tpu_torch.workloads import q1_fused_step
+
+            state = q1_fused_step(b)
+        else:
+            state = agg_step(spec, b)
+        state["value_overflow"] = state["value_overflow"] | nulls
+        if oob is not None:
+            state["value_overflow"] = state["value_overflow"] | oob
+        return state
+
+    return step
+
+
+def execute_leaf_route_distributed(route: LeafRoute, executor, node, scalars):
+    """Run a matched fragment on the DISTRIBUTED executor: the row-sharded
+    scan feeds the fused step once per shard, and the partial states
+    all-reduce into one replicated [groups] state (sums, counts and flags
+    add or OR; min and max states take the min and max:
+    ``workloads.allreduce_state``), decoded on the host. Returns the
+    output batch, or None on a runtime ``value_overflow`` anywhere
+    (counted; the caller falls back)."""
+    from presto_tpu_torch.parallel.mesh import shards_of
+    from presto_tpu_torch.workloads import allreduce_state
+
+    fault_point("aggregation")
+    fault_point("step.agg")
+    conn = executor.catalog.connector(route.scan.connector)
+    d = executor._exec(route.scan, scalars)
+    b = d.batch
+    # canonical names for the step (q1: the kernel's; generic: the scan
+    # output names the spec was built over)
+    rename_out = {out: route.rename[src] for out, src in route.scan.columns
+                  if src in route.rename}
+    b = b.select(list(rename_out)).rename(rename_out)
+    bitmap = None
+    member_bounds = None
+    if route.member is not None:
+        dm = executor._exec(route.member.build, scalars)
+        mb = executor._replicate(dm).batch
+        bitmap = _membership_bitmap(route.member, [mb], b.device)
+        m = route.member
+        member_bounds = (rename_out.get(m.probe_col, m.probe_col), m.lo, m.hi)
+    q1 = route.kind == "q1"
+    step = EXEC_CACHE.get_or_build(
+        EXEC_CACHE.key_of("leaf_dist_step", "q1" if q1 else route.spec, member_bounds,
+                          executor._mesh_fp, b.device.type),
+        lambda: _dist_step(route.spec, member_bounds, q1))
+    mesh = executor.mesh
+    states = [step(sb, None if bitmap is None else bitmap.to(sb.device))
+              for sb in shards_of(b, mesh)]
+    state = allreduce_state(states)
+    if bool(state["value_overflow"]):
+        count_fallback("value_overflow")
+        return None
+    REGISTRY.counter("exec.leaf_fused_route").add()
+    if q1:
+        from presto_tpu_torch.exec.q1_route import decode_q1_state
+
+        REGISTRY.counter("exec.q1_fused_route").add()
+        return decode_q1_state(route.q1, conn, node.aggs, state)
+    return decode_leaf_state(route, conn, node.aggs, state)
 
 
 # ---------------------------------------------------------------------------

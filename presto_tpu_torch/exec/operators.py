@@ -166,6 +166,12 @@ class AggSpec:
     #: row offset for the lag/lead window kinds (unused elsewhere)
     offset: int = 1
 
+    @property
+    def merge_kind(self) -> str:
+        """How partial results combine at the FINAL phase: counts and
+        sums add, min and max take the min and max."""
+        return "sum" if self.kind in ("count", "count_star", "sum") else self.kind
+
 
 @dataclass(frozen=True)
 class DirectStrategy:
@@ -182,6 +188,11 @@ class SortStrategy:
     """Merge-by-sort grouping with a static group capacity."""
 
     max_groups: int
+
+
+def _partial_kind(a: AggSpec) -> str:
+    """The fold of a single or PARTIAL phase: counts sum ones."""
+    return "sum" if a.kind in ("count", "count_star") else a.kind
 
 
 def _phys_dtype(a: AggSpec) -> torch.dtype:
@@ -204,8 +215,9 @@ class HashAggregationOperator(Operator):
     group_keys: list of (name, Expr) producing the key columns;
     passengers: (name, Expr) columns carried per group without grouping
     on them (functionally determined by the keys; sort strategy only).
-    The port runs the single phase: every batch's agg inputs are
-    evaluated and folded into the state.
+    ``phase`` "single" and "partial" evaluate the agg inputs; "final"
+    merges partial outputs (columns named like the aggs) by each
+    aggregate's ``merge_kind``.
     """
 
     def __init__(
@@ -215,6 +227,7 @@ class HashAggregationOperator(Operator):
         strategy: DirectStrategy | SortStrategy,
         passengers: Sequence[tuple[str, Expr]] = (),
         device="cuda",
+        phase: str = "single",
     ):
         if not isinstance(strategy, (DirectStrategy, SortStrategy)):
             raise NotSupported(f"{type(strategy).__name__} is not ported yet")
@@ -224,16 +237,18 @@ class HashAggregationOperator(Operator):
         self.aggs = list(aggs)
         self.strategy = strategy
         self.passengers = list(passengers)
+        if phase not in ("single", "partial", "final"):
+            raise InternalError(f"unknown aggregation phase {phase!r}")
+        self.phase = phase
         self.state: dict[str, Any] | None = None
         #: where an empty state lives when finish() comes before any batch
         self.device = device
         self._dicts: dict[str, Dictionary | None] = {}
         # the update is shared across queries through the executable
         # cache, bound to a state-less template instance (a cached bound
-        # method of a live operator would pin its state); the port runs
-        # the single phase
+        # method of a live operator would pin its state)
         self._update = EXEC_CACHE.get_or_build(
-            EXEC_CACHE.key_of("hash_agg", self.group_keys, self.aggs, strategy, "single",
+            EXEC_CACHE.key_of("hash_agg", self.group_keys, self.aggs, strategy, phase,
                               self.passengers),
             self._build_update)
 
@@ -242,22 +257,25 @@ class HashAggregationOperator(Operator):
         tmpl.group_keys, tmpl.aggs = self.group_keys, self.aggs
         tmpl.strategy, tmpl.passengers = self.strategy, self.passengers
         tmpl.device, tmpl.state, tmpl._dicts = self.device, None, {}
+        tmpl.phase = self.phase
         if isinstance(self.strategy, DirectStrategy):
             return tmpl._direct_update_impl
         return tmpl._sort_update_impl
 
     # -- shared helpers ---------------------------------------------------
 
-    @staticmethod
-    def _agg_kind(a: AggSpec) -> str:
-        return "sum" if a.kind in ("count", "count_star") else a.kind
+    def _agg_kind(self, a: AggSpec) -> str:
+        return a.merge_kind if self.phase == "final" else _partial_kind(a)
 
     def _eval_inputs(self, batch: Batch):
-        """agg input values + contribution masks."""
+        """agg input values + contribution masks for this phase."""
         out = []
         dev = batch.device
         for a in self.aggs:
-            if a.kind == "count_star" or a.input is None:
+            if self.phase == "final":
+                c = batch[a.name]
+                out.append((c.data, batch.live & valid_of(c.valid, batch.live)))
+            elif a.kind == "count_star" or a.input is None:
                 out.append((torch.ones(batch.capacity, dtype=torch.int64, device=dev),
                             batch.live))
             else:
@@ -288,11 +306,15 @@ class HashAggregationOperator(Operator):
             [v.data for v in kvals], st.mins, st.strides, batch.live, st.num_groups)
         inputs = self._eval_inputs(batch)
         kinds = [self._agg_kind(a) for a in self.aggs]
-        # count-kind aggregates sum all-ones columns: their sum IS their count
-        is_count = [a.kind in ("count", "count_star") for a in self.aggs]
+        # count-kind aggregates sum all-ones columns: their sum IS their
+        # count (a FINAL phase sums partial counts as values)
+        is_count = [a.kind in ("count", "count_star") and self.phase != "final"
+                    for a in self.aggs]
         fused = [i for i, (k, c) in enumerate(zip(kinds, is_count))
                  if k == "sum" and not c and not inputs[i][0].dtype.is_floating_point]
-        bits = [self.aggs[i].value_bits for i in fused]
+        # the per-row bound holds before the FINAL phase only: merges add
+        # accumulated sums
+        bits = [self.aggs[i].value_bits if self.phase != "final" else 63 for i in fused]
         rest = [i for i in range(len(self.aggs)) if i not in fused and not is_count[i]]
         unfused = [i for i in range(len(self.aggs)) if i not in fused]
         sums, fcounts, extras, oflow = fused_small_sums(
@@ -529,7 +551,7 @@ class GlobalAggregationOperator(Operator):
     def _init(self, device):
         state = {}
         for a in self.aggs:
-            kind = HashAggregationOperator._agg_kind(a)
+            kind = _partial_kind(a)
             dt = _phys_dtype(a)
             state[a.name] = torch.tensor(_identity(kind, dt), dtype=dt, device=device)
             state[a.name + "$n"] = torch.zeros((), dtype=torch.int64, device=device)

@@ -6,7 +6,8 @@ controller:
 
 - ``salt``: skew-salted repartitioning of a recurring repartition join
   whose history shows a hot exchange destination. It needs more than one
-  worker, so it cannot fire before the distributed executor is ported.
+  worker and a repartition join, which the port's mesh sessions do not
+  run yet (ROADMAP C26).
 - ``join_flip`` / ``bucket``: history-corrected sizing at the local
   executor's static-estimate strategy points. A build (or aggregate)
   whose recorded actuals contradict the planner's estimate by at least

@@ -48,7 +48,7 @@ plan's peak once per fused lane, clamped so that batching never fails a
 query the serial path admits) and the request deadline a server sets
 (:data:`REQUEST_DEADLINE`, the tighter of it and ``query_max_run_time``
 wins). Not ported yet: the distributed -> local degradation (it comes
-with the distributed executor).
+with the distributed joins, ROADMAP A10c).
 """
 
 from __future__ import annotations
@@ -594,7 +594,8 @@ class QueryManager:
         same device, up to ``oom_ladder_max`` rungs (and while the retry
         budget grants them). Each rung shrinks per-step residency, so a
         wrong estimate costs time, never the answer. Any other failure
-        propagates (the distributed -> local degradation comes with A10)."""
+        propagates (the distributed -> local degradation comes with the
+        distributed joins, ROADMAP A10c)."""
         ladder_max = self.session.prop("oom_ladder_max")
         budget = ctx.retry_budget
         rung = 0

@@ -66,6 +66,20 @@ SESSION_PROPERTIES: dict[str, PropertyDef] = {
     d.name: d
     for d in [
         PropertyDef(
+            "broadcast_join_row_limit", int, 1 << 21,
+            "Join build sides with at most this many rows (a sound stats "
+            "bound) take the broadcast distribution on a mesh session; the "
+            "fragmenter (plan/fragmenter.py) and EXPLAIN (TYPE DISTRIBUTED) "
+            "read it. 0 disables broadcast joins.",
+            _non_negative),
+        PropertyDef(
+            "gather_row_limit", int, 1 << 22,
+            "Guard on the distributed executor's replicate-everything "
+            "fallbacks (the replicated sort, TopN and Limit): replicating "
+            "more rows than this to every shard fails fast "
+            "(exec/distributed.py).",
+            _positive),
+        PropertyDef(
             "join_build_budget_bytes", int, None,
             "Capacity planner: estimated join build sides (and keyed "
             "aggregation states) above this byte budget run out of core, "

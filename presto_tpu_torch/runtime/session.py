@@ -58,7 +58,14 @@ concurrent bindings of one template fuse into one batched dispatch
 (``QueryInfo.batched``, ``batch_size``), or fall back to the serialized
 template slot with the reason counted. The serving front-end attributes
 each query to its tenant (:data:`CURRENT_TENANT`) and request trace
-(:data:`REQUEST_TRACE`). Not ported: the distributed executor.
+(:data:`REQUEST_TRACE`).
+
+``Session(..., mesh=make_mesh(...))`` runs every query on the
+distributed executor (``exec/distributed.py``) over the mesh's shards;
+``explain_distributed`` renders the plan's fragments and exchanges
+(``plan/fragmenter.py``) for local and mesh sessions alike. The mesh
+folds into every plan fingerprint, so a local and a mesh session share
+no cached result or step.
 """
 
 from __future__ import annotations
@@ -201,28 +208,35 @@ def device_checked(device, props: dict) -> dict:
     """Refuse a ``pallas_strings`` route ``device`` cannot take. The
     string predicates on byte columns always run the CUDA kernels on the
     card and their plain versions on the CPU, so the switch picks no
-    code: off on a CUDA session (ROADMAP C25) and on in a CPU one (C23)
-    are refused, unset and the device's own route are accepted."""
+    code: off on a CUDA session is refused (ROADMAP C25); on a CPU
+    session every setting answers through the plain version, the CPU's
+    one route, as the JAX package answers through its kernel in
+    interpret mode there."""
     pallas = props.get("pallas_strings")
     if pallas is False and device.type == "cuda":
         raise NotSupported("pallas_strings=false would run the plain string "
                            "predicates on the card; the port always launches its "
                            "CUDA string kernels there")
-    if pallas and device.type != "cuda":
-        raise NotSupported("pallas_strings=true forces the CUDA string kernels, "
-                           f"which cannot run on {device.type}")
     return props
 
 
 class Session:
     def __init__(self, connectors: Mapping[str, object], properties=None, device="cuda",
-                 trace_token: Optional[str] = None, memory_pool: Optional[MemoryPool] = None):
+                 trace_token: Optional[str] = None, memory_pool: Optional[MemoryPool] = None,
+                 mesh=None):
         """``trace_token`` tags every query's trace (and, under
         ``profile_annotations``, each span's profiler annotation).
         ``memory_pool`` shares an explicit ``runtime.memory.MemoryPool``
         across sessions (default: the process-wide pool, or a private one
-        when ``memory_pool_bytes`` is set)."""
+        when ``memory_pool_bytes`` is set). ``mesh`` (``parallel/mesh.
+        make_mesh``) runs queries distributed over its shards; its devices
+        are of the session's device type."""
         self.device = resolve_device(device)
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise UserError(f"a {self.device.type} session cannot run on a mesh of "
+                            f"{mesh.device_type} devices")
+        #: the worker mesh (None: single-device execution)
+        self.mesh = mesh
         conns = dict(connectors)
         conns.setdefault("system", SystemConnector(self))
         # the writable catalog: CREATE TABLE AS / INSERT INTO land here
@@ -356,13 +370,24 @@ class Session:
         budget = self.prop("join_build_budget_bytes")
         return default_join_build_budget(self.device) if budget is None else budget
 
-    def executor(self) -> LocalExecutor:
-        """A fresh executor configured from the session properties."""
+    def executor(self):
+        """A fresh executor configured from the session properties: the
+        distributed executor on a mesh session, else the local one."""
         # the executable cache is process-wide: only an explicit setting
         # resizes it
         if "exec_cache_max_entries" in self.properties:
             EXEC_CACHE.set_max_entries(self.prop("exec_cache_max_entries"))
         self._mirror_switches()
+        if self.mesh is not None:
+            from presto_tpu_torch.exec.distributed import DistributedExecutor
+
+            return DistributedExecutor(
+                self.catalog, self.mesh,
+                broadcast_limit=self.prop("broadcast_join_row_limit"),
+                gather_limit=self.prop("gather_row_limit"),
+                direct_group_limit=self.prop("direct_group_limit"),
+                join_build_budget=self.join_build_budget(),
+                spill_host_budget=self.prop("spill_host_budget_bytes"))
         return LocalExecutor(self.catalog, pallas_join_enabled=self.prop("pallas_join"),
                              direct_group_limit=self.prop("direct_group_limit"),
                              agg_bypass=bool(self.prop("partial_agg_bypass")),
@@ -422,6 +447,22 @@ class Session:
             rendered = ", ".join(f"?{i}={dt}:{v!r}" for i, (dt, v) in enumerate(bound))
             out += f"params=[{rendered}]\n"
         return out
+
+    def explain_distributed(self, sql: str) -> str:
+        """The plan's fragments and exchanges (EXPLAIN (TYPE DISTRIBUTED)),
+        with the property values this session's executor would run with.
+        A fragment header carries the exchange skew the plan-stats history
+        observed when this plan's fingerprint has recurred."""
+        from presto_tpu_torch.plan.fragmenter import fragment_plan
+
+        ex = self.executor()
+        plan = self.plan(sql)
+        fp = fragment_plan(plan, self.catalog,
+                           getattr(ex, "broadcast_limit", self.prop("broadcast_join_row_limit")),
+                           getattr(ex, "join_build_budget", self.prop("join_build_budget_bytes")))
+        skew = {nid: rec.get("skew", 0.0) for nid, rec in self._plan_hints(plan).items()
+                if rec.get("skew", 0.0) > 1.0}
+        return fp.render(skew_history=skew or None)
 
     # ---- running ----------------------------------------------------------
     def sql(self, sql: str) -> QueryResult:
@@ -549,7 +590,7 @@ class Session:
         templates_on = bool(self.prop("plan_templates")) and recorder is None
         base_fp = None
         if cache_ok or templates_on:
-            base_fp = plan_fingerprint(plan, self.catalog, self.properties)
+            base_fp = plan_fingerprint(plan, self.catalog, self.properties, self.mesh)
         fp = None
         if base_fp is not None:
             fp = try_fingerprint(("binding", base_fp, logical_values(bound))) if bound else base_fp
@@ -615,6 +656,8 @@ class Session:
             executor = self.executor()
             executor.recorder = recorder
             executor.plan_hints = hints
+            if self.mesh is not None:
+                executor.agg_bypass = bool(self.prop("partial_agg_bypass"))
             executor.adaptive = self._adaptive_decisions(plan, fp, hints, executor)
             executor.params = device_params(bound, self.device) if bound else ()
             # moves after the run (query.completed / query.failed, the
@@ -791,7 +834,7 @@ class Session:
             if fp is None:
                 if not plan_is_deterministic(plan, self.catalog):
                     return {}
-                fp = plan_fingerprint(plan, self.catalog, self.properties)
+                fp = plan_fingerprint(plan, self.catalog, self.properties, self.mesh)
             entry = self.plan_stats.get(fp, self.catalog)
             if entry is None or entry.runs < 2:
                 return {}
@@ -822,11 +865,11 @@ class Session:
             if not fp:
                 if not plan_is_deterministic(plan, self.catalog):
                     return {}
-                fp = plan_fingerprint(plan, self.catalog, self.properties)
+                fp = plan_fingerprint(plan, self.catalog, self.properties, self.mesh)
             if not for_render:
                 executor.adaptive_fp = fp
             return self.adaptive.decide(
-                plan, hints, self.catalog, fingerprint=fp, nworkers=1,
+                plan, hints, self.catalog, fingerprint=fp, nworkers=getattr(executor, "nworkers", 1),
                 salt_max=int(self.prop("adaptive_salt_max")), for_render=for_render,
                 recording=bool(self.prop("flight_record_successes")))
         except Exception:  # noqa: BLE001 -- adaptivity never fails a query
@@ -838,7 +881,7 @@ class Session:
         try:
             if not hints or not plan_is_deterministic(plan, self.catalog):
                 return {}
-            fp = plan_fingerprint(plan, self.catalog, self.properties)
+            fp = plan_fingerprint(plan, self.catalog, self.properties, self.mesh)
             return self._adaptive_decisions(plan, fp, hints, self.executor(), for_render=True)
         except Exception:  # noqa: BLE001 -- EXPLAIN renders partial plans
             return {}
@@ -853,7 +896,7 @@ class Session:
             if fp is None:
                 if not plan_is_deterministic(plan, self.catalog):
                     return
-                fp = plan_fingerprint(plan, self.catalog, self.properties)
+                fp = plan_fingerprint(plan, self.catalog, self.properties, self.mesh)
             with trace.span("plan_stats:record", "stats"):
                 self.plan_stats.put(fp, info.query_id, table_versions(plan, self.catalog),
                                     recorder.estimate_vs_actual())

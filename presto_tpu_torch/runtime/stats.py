@@ -10,11 +10,10 @@ Node identity: stats key on stable per-query plan-node ids assigned by
 ``NodeIds`` pins a strong reference to every node it names, so an id can
 never be reused while the map lives.
 
-Not ported: the exchange-skew and route-fallback records (the
-distributed tier and the plan-stats history that write them come later).
+The distributed executor's end-of-run flush attaches each exchange's
+skew to the node that drove it (:meth:`StatsRecorder.record_skew`), and
 ``render_analyzed_plan`` renders a tracer's ``exchange`` and ``cache``
-span roll-ups; the port records neither kind yet (no exchanges, no
-caches), so its EXPLAIN ANALYZE has no roll-up lines.
+span roll-ups after the node rows.
 """
 
 from __future__ import annotations
@@ -118,7 +117,8 @@ class NodeStats:
     est_rows: int = -1
     #: planner-chosen join or aggregation strategy ("" else)
     strategy: str = ""
-    #: exchange skew (distributed runs; 0.0 here)
+    #: the worst max/mean delivered-row ratio of the exchanges this
+    #: node drove (mesh runs; 0.0: no partitioned exchange)
     skew: float = 0.0
     exchange_rows: int = 0
     hot_partition: int = -1
@@ -248,6 +248,22 @@ class StatsRecorder:
                                else st.output_bytes + output_bytes)
         if device_bytes >= 0:
             st.device_bytes = max(st.device_bytes, device_bytes)
+
+    def record_skew(self, node, ratio: float, rows: int = 0,
+                    hot: Optional[int] = None) -> None:
+        """Attach an exchange-skew observation to the node that drove the
+        exchange (the distributed executor's end-of-run flush): the WORST
+        ratio wins, and ``hot`` names that exchange's hottest destination
+        (it rides the plan-stats history)."""
+        key = self.ids.of(node)
+        st = self.nodes.get(key)
+        if st is None:
+            st = NodeStats(type(node).__name__, node_id=key)
+            self.nodes[key] = st
+        if float(ratio) >= st.skew and hot is not None:
+            st.hot_partition = int(hot)
+        st.skew = max(st.skew, float(ratio))
+        st.exchange_rows += int(rows)
 
     def record_route_fallback(self, node) -> None:
         """Mark a node whose planner-chosen fused route fell back at run

@@ -158,6 +158,42 @@ def combine_q1_states(a: dict, b: dict) -> dict:
     return out
 
 
+def allreduce_state(state_parts: list) -> dict:
+    """All-reduce per-shard leaf states onto the first shard's device:
+    booleans OR (a psum of their int32 casts > 0), ``min*`` / ``max*``
+    keys take the min / max (a sum of min/max partials with their
+    identity fills would be garbage), everything else sums (int64)."""
+    home = next(iter(state_parts[0].values())).device
+    out = {}
+    for key in state_parts[0]:
+        xs = [p[key].to(home) for p in state_parts]
+        acc = xs[0]
+        for x in xs[1:]:
+            if acc.dtype == torch.bool:
+                acc = acc | x
+            elif key.startswith("min"):
+                acc = torch.minimum(acc, x)
+            elif key.startswith("max"):
+                acc = torch.maximum(acc, x)
+            else:
+                acc = acc + x
+        out[key] = acc
+    return out
+
+
+def q1_distributed_step(mesh):
+    """The data-parallel Q1 step: a row-sharded batch (``parallel/
+    mesh.py`` layout) -> the replicated [6]-group state. Each shard runs
+    ``q1_fused_step`` (the Q1 kernel on a CUDA shard) and the partial
+    states all-reduce."""
+    from presto_tpu_torch.parallel.mesh import shards_of
+
+    def step(batch: Batch) -> dict:
+        return allreduce_state([q1_fused_step(b) for b in shards_of(batch, mesh)])
+
+    return step
+
+
 def q1_batch(conn: TpchConnector, split=None, capacity=None) -> Batch:
     splits = conn.splits("lineitem")
     s = split if split is not None else splits[0]

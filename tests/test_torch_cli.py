@@ -8,10 +8,10 @@
   byte for byte, the four analyzer refusals of ROADMAP C22 among them;
   the walls masked; each printed table the port's layout of the
   reference frame's values, cell for cell; SHOW SESSION's ``name =
-  value`` lines equal but for the three distributed properties;
-- ``EXPLAIN (TYPE DISTRIBUTED)`` and ``--mesh`` refused with
-  ``NotSupported`` (ROADMAP C24), the default ``--device cuda`` refused
-  without a GPU;
+  value`` lines equal but for ``degrade_to_local`` (not ported yet);
+- ``EXPLAIN (TYPE DISTRIBUTED)`` printing the reference's fragments and
+  ``--mesh 2 -e`` printing the reference mesh session's table (ROADMAP
+  C24, closed), the default ``--device cuda`` refused without a GPU;
 - ``main`` with ``--device cpu``: the REPL loop, ``-e`` / ``-f``,
   ``metrics``, ``flightrec`` and ``health``;
 - ``chip_smoke``'s phase 22 on the CPU at sf 0.01: its in-process part
@@ -35,11 +35,11 @@ from presto_tpu.connectors.tpch import TpchConnector as JConnector
 from presto_tpu.runtime.session import Session as JSession
 from presto_tpu_torch.connectors.tpch import TpchConnector as PConnector
 from presto_tpu_torch.connectors.tpch.queries import QUERIES
-from presto_tpu_torch.runtime.errors import NotSupported
 from presto_tpu_torch.runtime.session import Session as PSession
 
-#: the properties the distributed executor brings
-A10 = ("broadcast_join_row_limit", "gather_row_limit", "degrade_to_local")
+#: the reference's properties the port has not ported yet (the
+#: distributed-to-local degradation)
+A10 = ("degrade_to_local",)
 
 WALL = re.compile(r"^\[\d+\.\d{3}s\]$")
 FOOTER = re.compile(r"^\((\d+) rows?\)$")
@@ -189,11 +189,27 @@ def test_show_session_lines_equal_reference(sessions):
 
 
 def test_distributed_explain_and_mesh_are_refused(sessions):
-    _js, ps = sessions
-    lines, err, _ = printed(PC.run_statement, ps, "explain (type distributed) select 1")
-    assert lines == [] and err.startswith("error: NotSupported: EXPLAIN (TYPE DISTRIBUTED)")
-    with pytest.raises(NotSupported, match="--mesh 2"):
-        PC.main(["--device", "cpu", "--mesh", "2", "-e", "select 1"])
+    """ROADMAP C24, closed: ``EXPLAIN (TYPE DISTRIBUTED)`` prints the
+    reference's fragments byte for byte, and ``--device cpu --mesh 2 -e``
+    runs on a 2-shard mesh and prints the reference mesh session's table
+    (its footer and wall line too)."""
+    from presto_tpu.parallel.mesh import make_mesh as jmesh
+
+    js, ps = sessions
+    for sql in ("select 1", QUERIES["q3"], QUERIES["q1"]):
+        stmt = "explain (type distributed) " + sql
+        assert printed(PC.run_statement, ps, stmt) == printed(JC.run_statement, js, stmt)
+    sql = ("select l_orderkey, sum(l_quantity) as q from lineitem group by l_orderkey "
+           "order by q desc, l_orderkey limit 5")
+    out, err = run_main(["--mesh", "2", "-e", sql])
+    jout, jerr = io.StringIO(), io.StringIO()
+    with redirect_stdout(jout), redirect_stderr(jerr):
+        JC.main(["--mesh", "2", "-e", sql])
+    lines, jlines = out.splitlines(), jout.getvalue().splitlines()
+    assert err == jerr.getvalue() == ""
+    assert lines[-2] == jlines[-2] == "(5 rows)" and WALL.match(lines[-1])
+    want = JSession({"tpch": JConnector(sf=0.01)}, mesh=jmesh(2)).sql(sql)
+    assert lines[:-2] == PC.format_table(_Frame(want), 100).splitlines()
 
 
 def test_default_device_is_the_card(capsys):
@@ -259,8 +275,8 @@ def test_chip_smoke_phase22_on_the_cpu():
     """Phase 22's in-process part at sf 0.01 on the CPU: every printed
     answer against numpy, the metrics text against the registry, one
     profiler trace a profiled query, the LIKE after ``pallas_strings`` off
-    (plain) and forced on (refused on the CPU, C23; the session stays
-    plain), ``health`` and ``flightrec``."""
+    and on (both taken on the CPU, whose one route is the plain version:
+    ROADMAP C23 closed), ``health`` and ``flightrec``."""
     import chip_smoke
 
     out = chip_smoke.run_cli_queries(0.01, device="cpu")

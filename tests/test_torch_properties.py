@@ -1,9 +1,8 @@
 """The port's single-device session properties against the JAX package's.
 
 - ``Session.show_session``: the reference's rows, in its order, values
-  equal, less the three properties that wait for the distributed
-  executor (``broadcast_join_row_limit``, ``gather_row_limit``,
-  ``degrade_to_local``);
+  equal, less ``degrade_to_local`` (the distributed-to-local degradation
+  is not ported yet);
 - ``direct_group_limit``: the grouping strategy each package picks
   (direct under the limit, sort past it), the frames and the
   ``agg.strategy.*`` counters equal, default and lowered;
@@ -14,10 +13,11 @@
   its query id;
 - ``pallas_strings``: off answers LIKE over byte columns alike through
   the plain version, the port's setting stays in its session (no
-  process-wide mirror, no exec-cache key part: it picks no code), and a
-  route the session's device cannot take is refused: on in a CPU
-  session (ROADMAP C23: the reference answers through its
-  interpret-mode kernel), off in a CUDA one (C25).
+  process-wide mirror, no exec-cache key part: it picks no code); forced
+  on in a CPU session it answers the reference's answer through the
+  plain version, the CPU's one route (ROADMAP C23, closed: the reference
+  answers through its interpret-mode kernel), and off in a CUDA session
+  is refused (C25).
 Exact comparisons throughout.
 """
 
@@ -40,8 +40,8 @@ from presto_tpu_torch.runtime.session import device_checked
 from test_torch_memory import both
 from torch_bridge import counters, port_frame
 
-#: the properties the distributed executor brings
-A10 = ("broadcast_join_row_limit", "gather_row_limit", "degrade_to_local")
+#: the reference's properties the port has not ported yet
+A10 = ("degrade_to_local",)
 
 NO_CACHE = {"result_cache_enabled": False}
 
@@ -158,24 +158,21 @@ def test_pallas_strings_stays_in_its_session(conns, pallas_env, monkeypatch):
 
 
 def test_pallas_strings_forced_on_a_cpu_session_c23(conns, pallas_env):
-    """ROADMAP C23: the reference runs its Pallas kernel in interpret
-    mode off the TPU and answers; no CUDA kernel runs on the CPU, and the
-    port refuses the setting rather than answer through the plain
-    version, at construction and at SET alike."""
+    """ROADMAP C23, closed: the reference runs its Pallas kernel in
+    interpret mode off the TPU and answers; the port's CPU session takes
+    the setting, at construction and at SET alike, and answers the
+    reference's answer through the plain string predicates (the CPU's
+    one route), with the same route counters."""
+    for sql in STRINGS:
+        both(sessions(conns, pallas_strings=True), sql)
+    ps = PSession({"tpch": conns[1]}, properties={**NO_CACHE, "pallas_strings": False},
+                  device="cpu")
+    ps.set_property("pallas_strings", "true")
+    assert ps.prop("pallas_strings") is True
     js, _ps = sessions(conns)
     js.set_property("pallas_strings", True)
     want = js.sql(STRINGS[0])
     assert int(want["n"][0]) > 0
-    refusal = "pallas_strings=true forces the CUDA string kernels, which cannot run on cpu"
-    with pytest.raises(NotSupported, match=refusal):
-        sessions(conns, pallas_strings=True)
-    ps = PSession({"tpch": conns[1]}, properties={**NO_CACHE, "pallas_strings": False},
-                  device="cpu")
-    with pytest.raises(NotSupported, match=refusal):
-        ps.set_property("pallas_strings", "true")
-    # the refused SET leaves the session as it was, and its answer is
-    # the reference's
-    assert ps.prop("pallas_strings") is False
     pd.testing.assert_frame_equal(port_frame(ps.sql(STRINGS[0])), want)
 
 

@@ -893,8 +893,7 @@ def test_property_table_equals_reference():
 
     assert set(PP) <= set(JP)
     missing = sorted(set(JP) - set(PP))
-    assert missing == sorted(["broadcast_join_row_limit", "gather_row_limit",
-                              "degrade_to_local"]), missing
+    assert missing == ["degrade_to_local"], missing
     checked = 0
     for name, p in PP.items():
         j = JP[name]
