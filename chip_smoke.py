@@ -308,7 +308,18 @@ one CUDA card, and exits nonzero on any failure. Phases:
    its ``exchange.*`` counters and exchange walls and the host's reads
    of the round flag; EXPLAIN (TYPE DISTRIBUTED) of the group-by and
    ``python -m presto_tpu_torch --mesh 1 -e`` Q6. Each launch shape held
-   to the plain version.
+   to the plain version;
+24. joins, semi joins and windows on that mesh (``run_mesh_join_queries``):
+   Q3 at the default distribution and with every join repartitioned,
+   the customer-orders FULL OUTER counts, a semi and an anti join on
+   customer, each customer's first order by ``row_number()`` over a
+   partitioned window, Q3 with its joins on the grouped tier, and Q3
+   with a retryable fault at every ``exchange.join``, degraded to one
+   device; each answer against numpy and the one-device session, with
+   its wall, its ``join.distribution.*`` / ``exchange.*`` / ``spill.*``
+   counters and exchange walls; no fused probe on the mesh, the exists
+   kernel in the degraded run, each launch shape held to the plain
+   version.
 
 Phases 3-19 open their sessions with ``MEASURED`` (the result cache and
 adaptive execution off), so each timed or counted run executes its plan.
@@ -7981,7 +7992,9 @@ def run_mesh_queries(conn, device: str = "cuda") -> dict:
         check(launches["q1"] == MESH_SHARDS and launches["leaf_agg"] >= MESH_SHARDS,
               f"phase 23: K1 {launches['q1']} and K3 {launches['leaf_agg']} launches, one a "
               f"shard expected")
-        check(launches["like"] >= 2 * MESH_SHARDS and launches["lane_sums"] >= MESH_SHARDS,
+        # a filter runs once over the shard-major batch (one LIKE launch a
+        # statement); the direct fold once a shard
+        check(launches["like"] >= 2 and launches["lane_sums"] >= MESH_SHARDS,
               f"phase 23: LIKE {launches['like']} and lane-sums {launches['lane_sums']} "
               f"launches")
     check(out["exchange"]["top groups"]["counters"].get("exchange.rounds", 0) >= 1
@@ -8020,6 +8033,168 @@ def run_mesh_queries(conn, device: str = "cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 24: joins, semi joins and windows on the mesh, and degradation
+# ---------------------------------------------------------------------------
+
+#: phase 24's statements: name -> (SQL, mesh session properties beside
+#: ``MEASURED``); ``q3 grouped``'s budget is set at run time
+MESH_JOIN_SQL = {
+    "q3": (QUERIES["q3"], {}),
+    # every join exchanges both sides on the key's hash
+    "q3 repartition": (QUERIES["q3"], {"broadcast_join_row_limit": 0}),
+    "full": ("select count(*) as n, count(o_orderkey) as no, count(c_custkey) as nc "
+             "from customer full join orders on c_custkey = o_custkey", {}),
+    "semi": (CUST_SEMI, {}),
+    "anti": (CUST_ANTI, {}),
+    # the partitioned window: each customer's first order
+    "window": ("select count(*) as n, sum(o_orderkey) as s from (select o_orderkey, "
+               "row_number() over (partition by o_custkey order by o_orderdate, o_orderkey) "
+               "as rn from orders) t where rn = 1", {}),
+    # both sides spill to host RAM and the repartition join replays
+    # bucket by bucket (the budget: ``MESH_GROUPED_DIVISOR``)
+    "q3 grouped": (QUERIES["q3"], {}),
+    # a retryable fault at every repartition exchange: the mesh attempt
+    # fails and the query degrades to one device, where the fused probes
+    # (K4 among them) run
+    "q3 degraded": (QUERIES["q3"], {"broadcast_join_row_limit": 0, "retry_count": 0}),
+}
+#: ``q3 grouped``'s ``join_build_budget_bytes``: Q3's largest build
+#: estimate over this
+MESH_GROUPED_DIVISOR = 8
+
+
+def mesh_join_expected(conn) -> dict:
+    """Phase 24's numpy oracles (the repartitioned, grouped and degraded
+    Q3 share Q3's)."""
+    q3 = q3_expected(conn)
+    o = conn.table_numpy("orders", ["o_orderkey", "o_custkey", "o_orderdate"])
+    first = np.lexsort((o["o_orderkey"], o["o_orderdate"], o["o_custkey"]))
+    cust = o["o_custkey"][first]
+    head = np.r_[True, cust[1:] != cust[:-1]]
+    return {"q3": q3, "q3 repartition": q3, "q3 grouped": q3, "q3 degraded": q3,
+            "full": full_expected(conn), "semi": cust_semi_expected(conn, anti=False),
+            "anti": cust_semi_expected(conn, anti=True),
+            "window": {"n": np.array([int(head.sum())], np.int64),
+                       "s": np.array([int(o["o_orderkey"][first][head].astype(np.int64).sum())],
+                                     np.int64)}}
+
+
+def run_mesh_join_queries(conn, device: str = "cuda") -> dict:
+    """Phase 24: the mesh of phase 23 (four shards on one card) over
+    TPC-H at ``conn``'s scale: Q3 at the default distribution and with
+    ``broadcast_join_row_limit=0`` (every join repartitioned), the
+    customer-orders FULL OUTER counts, a semi and an anti join on
+    customer, the first order of every customer by ``row_number()`` over
+    a partitioned window, Q3 under a ``join_build_budget_bytes`` that
+    sends its joins to the grouped tier, and Q3 with a retryable fault at
+    every ``exchange.join``, degraded to one device. Each answer equal to
+    its numpy oracle (:func:`mesh_join_expected`) and to the one-device
+    session's, with its wall, its ``join.distribution.*`` / ``exchange.*``
+    / ``spill.*`` counter moves and its ``exchange:`` walls. The launches
+    are counted from 0 over phase 24 alone: the mesh runs build no fused
+    probe (no K4), the degraded run probes customer through K4; every
+    launch shape held to its plain version."""
+    from presto_tpu_torch.runtime import faults
+
+    t0 = time.perf_counter()
+    want = mesh_join_expected(conn)
+    log(f"phase 24: numpy recomputation of {list(want)} at SF{conn.sf:g} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    from presto_tpu_torch.parallel.mesh import make_mesh
+
+    home = "cuda:0" if device == "cuda" else "cpu"
+    mesh = make_mesh(MESH_SHARDS, devices=[home] * MESH_SHARDS)
+    budget = largest_build(measured_session({"tpch": conn}, device=device),
+                           QUERIES["q3"]) // MESH_GROUPED_DIVISOR
+    props = {name: dict(p) for name, (_sql, p) in MESH_JOIN_SQL.items()}
+    props["q3 grouped"]["join_build_budget_bytes"] = budget
+    out = {"walls": {}, "local_walls": {}, "counters": {}, "exchange_ms": {}, "launches": {}}
+    local = {}
+    for name, (sql, _p) in MESH_JOIN_SQL.items():
+        if name in ("q3 repartition", "q3 grouped", "q3 degraded"):
+            continue  # one device: Q3's answer does not depend on these
+        session = measured_session({"tpch": conn}, device=device)
+        t0 = time.perf_counter()
+        local[name] = result_dict(session.sql(sql))
+        out["local_walls"][name] = time.perf_counter() - t0
+    for name in ("q3 repartition", "q3 grouped", "q3 degraded"):
+        local[name] = local["q3"]
+    families = ("join.distribution.", "join.strategy.", "exchange.", "spill.", "query.degraded",
+                "exec.pallas_join_route")
+    query = {"name": None}
+    with first_kernel_calls(query) as calls, each_probe_shape(query) as probes:
+        # the main path of the phase: launches counted from 0 to here
+        _reset_launches()
+        for name, (sql, _p) in MESH_JOIN_SQL.items():
+            session = measured_session({"tpch": conn}, properties=props[name], device=device,
+                                       mesh=mesh)
+            inj = faults.FaultInjector()
+            if name == "q3 degraded":
+                inj.inject("exchange.join", times=None)
+            query["name"] = f"phase 24 {name}"
+            before, n0 = REGISTRY.snapshot(), _launch_counts()
+            try:
+                with faults.injected(inj):
+                    t0 = time.perf_counter()
+                    res = session.sql(sql)
+                    if device == "cuda":
+                        torch.cuda.synchronize()
+                    out["walls"][name] = time.perf_counter() - t0
+            finally:
+                query["name"] = None
+            after, n1 = REGISTRY.snapshot(), _launch_counts()
+            info = session.query_history[-1]
+            out["counters"][name] = {
+                k: after[k] - before.get(k, 0) for k in after
+                if k.startswith(families) and after[k] != before.get(k, 0)
+                and not k.endswith((".p50", ".p95", ".p99", ".max"))}
+            out["exchange_ms"][name] = [
+                (sp.name, round((sp.t1 - sp.t0) * 1e3, 3))
+                for sp in session.traces.for_query(info.query_id).spans
+                if sp.name.startswith("exchange:")]
+            out["launches"][name] = {k: n1[k] - n0[k] for k in
+                                     ("q1", "lane_sums", "leaf_agg", "exists", "payload",
+                                      "sketch", "q3", "like", "prefix") if n1[k] != n0[k]}
+            same_result(res, want[name], f"phase 24 {name}")
+            same_result(res, local[name], f"phase 24 {name} against the one-device session")
+            check(info.degraded == (name == "q3 degraded"),
+                  f"phase 24 {name}: degraded {info.degraded}")
+            log(f"  {name}: wall {out['walls'][name]:.3f} s (one device "
+                f"{out['local_walls'].get(name, out['local_walls']['q3']):.3f} s), counters "
+                f"{out['counters'][name]}, exchange walls ms {out['exchange_ms'][name]}, "
+                f"launches {out['launches'][name]}")
+        out["all_launches"] = _launch_counts()
+    c = out["counters"]
+    check(c["q3 repartition"].get("join.distribution.repartition", 0) >= 1
+          and c["q3 repartition"].get("exchange.rows.join.probe", 0) > 0,
+          f"phase 24: the repartition Q3 exchanged no join: {c['q3 repartition']}")
+    check(c["q3 grouped"].get("join.distribution.grouped", 0)
+          + c["q3 grouped"].get("join.distribution.hybrid", 0) >= 1,
+          f"phase 24: Q3 under {budget} bytes took no grouped join: {c['q3 grouped']}")
+    check(c["window"].get("exchange.dispatches", 0) >= 1,
+          f"phase 24: the window exchanged nothing: {c['window']}")
+    check(c["q3 degraded"].get("query.degraded_to_local", 0) == 1,
+          f"phase 24: the faulted Q3 did not degrade: {c['q3 degraded']}")
+    mesh_probes = sum(n.get(k, 0) for name, n in out["launches"].items() if name != "q3 degraded"
+                      for k in ("exists", "payload", "sketch"))
+    check(mesh_probes == 0 and not any(c[n].get("exec.pallas_join_route", 0) for n in c
+                                       if n != "q3 degraded"),
+          f"phase 24: a mesh run launched a fused probe: {out['launches']}")
+    if device == "cuda":
+        check(out["launches"]["q3 degraded"].get("exists", 0) >= 1,
+              f"phase 24: the degraded Q3 launched no exists probe: {out['launches']}")
+    out["launches_by_statement"] = out["launches"]
+    out["launches"] = out.pop("all_launches")
+    out["call_err"] = hold_kernel_calls(calls)
+    out["probe_err"] = hold_probe_shapes(probes)
+    if device == "cuda":
+        check(any(k[0] == "exists" for k in probes),
+              f"phase 24's exists shapes not held: {sorted(probes)}")
+    out["budget"] = budget
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -8042,7 +8217,7 @@ def main() -> int:
 
 
 def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
-    """Phases 1-23 (``cpu_answers``: phase 16's CPU answers, computing in
+    """Phases 1-24 (``cpu_answers``: phase 16's CPU answers, computing in
     worker processes meanwhile)."""
     marks: list = []
 
@@ -8552,10 +8727,17 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
     p23_other = {k: mesh["launches"][k]
                  for k in ("q1", "lane_sums", "leaf_agg", "q3", "like", "prefix")}
     log(f"  phase 23's probe launches: {p23}; its other kernels: {p23_other}")
+    # ---- phase 24: joins, semi joins and windows on the mesh, degradation --
+    mark("24 mesh joins")
+    mj = run_mesh_join_queries(TpchConnector(sf=1, device="cuda"))
+    p24 = probe_launch_totals({"phase 24": mj["launches"]})
+    p24_other = {k: mj["launches"][k]
+                 for k in ("q1", "lane_sums", "leaf_agg", "q3", "like", "prefix")}
+    log(f"  phase 24's probe launches: {p24}; its other kernels: {p24_other}")
     mark("json")
     log("phase seconds: " + ", ".join(f"{a} {t1 - t0:.1f}" for (a, t0), (_b, t1)
                                       in zip(marks, marks[1:])))
-    log(f"phases 1-23 in {marks[-1][1] - marks[0][1]:.1f} s")
+    log(f"phases 1-24 in {marks[-1][1] - marks[0][1]:.1f} s")
 
     log(smi[0])
     # every phase from 11 on is one entry here: its run's result, its
@@ -8567,7 +8749,8 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
               14: (surf, p14, p14_other), 15: (win, p15, p15_other), 16: (ds, p16, p16_other),
               17: (st, p17, p17_other), 18: (obs, p18, p18_other), 19: (life, p19, p19_other),
               20: (cache, p20, p20_other), 21: (serve, p21, p21_other),
-              22: (cli, p22, p22_other), 23: (mesh, p23, p23_other)}
+              22: (cli, p22, p22_other), 23: (mesh, p23, p23_other),
+              24: (mj, p24, p24_other)}
 
     def named(kernel: str) -> dict:
         """``phaseNN_launches`` of a kernel the phases count by name."""

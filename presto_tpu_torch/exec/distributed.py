@@ -2,9 +2,8 @@
 
 Counterpart of ``presto_tpu/exec/distributed.py`` (Presto's coordinator
 and worker tier: ``AddExchanges``, ``PlanFragmenter``, the partial/final
-aggregation split and the exchange operators), for scans, filters,
-projections, aggregations, UNION ALL, sorts, TopN, Limit and scalar
-subqueries. The JAX package compiles each fragment into a ``shard_map``
+aggregation split, the join distribution choice and the exchange
+operators). The JAX package compiles each fragment into a ``shard_map``
 step with its collectives inside; here one Python controller drives the
 same steps shard by shard (``parallel/mesh.py``'s layout: a row-sharded
 batch is one tensor per column, shard-major) and the exchanges between
@@ -16,17 +15,25 @@ them (``parallel/exchange.py``):
   all-reduces the [groups] states (``exec/leaf_route.py``);
 - a global aggregation and a small direct-addressed one fold each shard
   into one state (the JAX package lets XLA insert that reduction);
+- a join broadcasts a small build side (``join.distribution.broadcast``)
+  and probes the whole shard-major batch, or exchanges both sides on the
+  key's hash and joins per shard (``repartition``); a build over
+  ``join_build_budget_bytes`` spills both sides to host RAM and replays
+  the repartition join bucket by bucket (``hybrid`` / ``grouped``). Semi
+  joins take the same three paths;
+- a window with PARTITION BY exchanges on the hash of its partition keys
+  and runs per shard; one without replicates under the gather guard;
 - an ORDER BY range-partitions on its first key from a pooled sample,
   then sorts per shard; TopN and Limit keep each shard's first rows
   before the final pass over the gathered survivors;
-- filters and projections run per shard, elementwise.
+- filters and projections run once over the whole shard-major batch
+  (row-wise, so every shard keeps its rows).
 
 Every shard's rows are the JAX package's device's rows, in its order:
 the scan's splits go round-robin (``splits[i::n]``) into shards padded
 to ``cap_dev``, the exchange ranks rows stably and receives them
 sender-major, so an unordered result comes out in the JAX package's row
-order. Joins, semi joins and windows on a mesh are refused with
-``NotSupported`` (ROADMAP C26); a local session runs them.
+order.
 """
 
 from __future__ import annotations
@@ -41,6 +48,19 @@ import torch
 
 from presto_tpu_torch.batch import Batch, Column, QueryResult
 from presto_tpu_torch.cache.exec_cache import EXEC_CACHE
+from presto_tpu_torch.exec.joinkeys import join_key_exprs
+from presto_tpu_torch.exec.joins import (
+    BuildOutput,
+    JoinBuildOperator,
+    LookupJoinOperator,
+    _set_flags,
+    full_init_flags,
+    full_tail,
+    full_tail_batch,
+    long_dup_runs_flag,
+    verified_unique_probe,
+    verify_mask,
+)
 from presto_tpu_torch.exec.ladder import OomLadderMixin
 from presto_tpu_torch.exec.operators import (
     AggSpec,
@@ -58,8 +78,10 @@ from presto_tpu_torch.exec.operators import (
     _key_parts,
     _phys_dtype,
     align_batch_dicts,
+    concat_batches,
     union_target_dicts,
     valid_of,
+    window_operator_from_node,
 )
 from presto_tpu_torch.exec.local_planner import (
     DIRECT_LIMIT,
@@ -68,10 +90,11 @@ from presto_tpu_torch.exec.local_planner import (
     pick_group_strategy,
 )
 from presto_tpu_torch.exec.pipeline import Pipeline
-from presto_tpu_torch.expr import bind_scalars, evaluate, param_scope
+from presto_tpu_torch.expr import InputRef, bind_scalars, evaluate, param_scope
 from presto_tpu_torch.ops.compact import compact_indices
 from presto_tpu_torch.ops.groupby import ValueBitsOverflow, gather_padded, group_ids_sort, segment_agg
 from presto_tpu_torch.ops.hashing import bucket_ids, partition_ids
+from presto_tpu_torch.ops.join import build_lookup, probe_exists, probe_expand, probe_unique
 from presto_tpu_torch.ops.sort import sort_indices
 from presto_tpu_torch.parallel.exchange import (
     a2a_wire_bytes,
@@ -86,6 +109,7 @@ from presto_tpu_torch.plan.catalog import Catalog
 from presto_tpu_torch.runtime.errors import InternalError, NotSupported, UserError
 from presto_tpu_torch.runtime.faults import fault_point
 from presto_tpu_torch.runtime.lifecycle import check_deadline, run_fragment
+from presto_tpu_torch.runtime.memory import node_row_bytes
 from presto_tpu_torch.runtime.metrics import REGISTRY
 from presto_tpu_torch.runtime.trace import batch_device_bytes, batch_row_bytes
 from presto_tpu_torch.runtime.trace import span as trace_span
@@ -188,6 +212,15 @@ class DistributedExecutor(OomLadderMixin):
         #: the plan template's literal-slot values (device scalars), the
         #: ambient ``expr.param_scope`` of the whole run
         self.params: tuple = ()
+        # The fused join probes (``ops/cuda_join``, the JAX package's
+        # Pallas probes) never run on the mesh: the JAX package's mesh
+        # steps are GSPMD-sharded, where a ``pallas_call`` does not
+        # partition, so it passes no fused-probe spec to a distributed
+        # build, and the route counters (``exec.pallas_join_route``,
+        # ``join.strategy.*``) are part of the contract. The fused route
+        # runs on the local tier, a degraded run's included (it reads the
+        # session's ``pallas_join``). An OOM rung forces grouped joins,
+        # which build no fused tables either.
         #: the query's runtime join-key min/max readbacks, by content
         self._minmax_memo: dict = {}
         self.mesh = mesh
@@ -449,8 +482,7 @@ class DistributedExecutor(OomLadderMixin):
                 for c in src_cols}
         b = Batch(cols, live).rename({s: nn for nn, s in node.columns})
         if node.predicate is not None:
-            op = FilterProjectOperator(bind_scalars(node.predicate, scalars), None)
-            b = self._shard_map(lambda s: op.process(s)[0], b)
+            b = FilterProjectOperator(bind_scalars(node.predicate, scalars), None).process(b)[0]
         return DistBatch(b, sharded=True)
 
     def _exec_values(self, node: N.Values, scalars) -> DistBatch:
@@ -458,10 +490,12 @@ class DistributedExecutor(OomLadderMixin):
                          sharded=False)
 
     # ---- elementwise ------------------------------------------------------
-    def _elementwise(self, d: DistBatch, op) -> DistBatch:
-        if d.sharded:
-            return DistBatch(self._shard_map(lambda s: op.process(s)[0], d.batch), True)
-        return DistBatch(op.process(d.batch)[0], False)
+    @staticmethod
+    def _elementwise(d: DistBatch, op) -> DistBatch:
+        """A row-wise operator over the whole shard-major batch (one step,
+        as the JAX package's runs over its row-sharded array): each shard's
+        rows stay its rows."""
+        return DistBatch(op.process(d.batch)[0], d.sharded)
 
     def _exec_filter(self, node: N.Filter, scalars) -> DistBatch:
         d = self._exec(node.child, scalars)
@@ -865,19 +899,500 @@ class DistributedExecutor(OomLadderMixin):
             self._note_spill(node, decision, streamed=nbuckets - len(rset))
         return self._concat_sharded_many(outs)
 
-    # ---- joins, semi joins and windows: not on a mesh yet -----------------
-    def _not_on_mesh(self, what: str):
-        raise NotSupported(f"{what} on a mesh is not ported to presto_tpu_torch yet "
-                           "(distributed joins and windows, ROADMAP A10c)")
+    # ---- joins -----------------------------------------------------------
+    def _join_key_exprs(self, node, left: DistBatch, right: DistBatch, scalars):
+        """(probe key, build key, verify pairs) through ``exec/joinkeys``;
+        the runtime min/max of a stats-less multi-key pair reads the
+        shard-major batch (dead rows and NULLs count as 0, as in the JAX
+        package)."""
+
+        def runtime_minmax(side: int, key):
+            b = (left if side == 0 else right).batch
+            v = evaluate(key, b)
+            data = torch.where(b.live & valid_of(v.valid, b.live), v.data.to(torch.int64), 0)
+            return int(data.min()), int(data.max())
+
+        def runtime_dict(side: int, key):
+            b = (left if side == 0 else right).batch
+            return b[key.name].dictionary if key.name in b else None
+
+        return join_key_exprs([bind_scalars(k, scalars) for k in node.left_keys],
+                              [bind_scalars(k, scalars) for k in node.right_keys],
+                              catalog=self.catalog, lnode=node.left, rnode=node.right,
+                              runtime_minmax=runtime_minmax, runtime_dict=runtime_dict,
+                              minmax_memo=self._minmax_memo)
+
+    @staticmethod
+    def _count_distribution(name: str) -> None:
+        """The join-distribution decision, ``join.distribution.<name>``
+        (the mesh's counterpart of ``join.strategy.*``)."""
+        REGISTRY.counter(f"join.distribution.{name}").add()
 
     def _exec_join(self, node: N.Join, scalars) -> DistBatch:
-        self._not_on_mesh(f"{node.kind} Join")
+        left = self._exec(node.left, scalars)
+        right = self._exec(node.right, scalars)
+        lkey, rkey, verify = self._join_key_exprs(node, left, right, scalars)
+        if verify and not node.unique and node.kind != "inner":
+            raise NotImplementedError("wide string keys on non-unique OUTER joins "
+                                      "(verification cannot re-synthesize the "
+                                      "null-extended row)")
+        info = getattr(self, "fragment_info", None)
+        nid = id(node)
+        if (info is not None and self.oom_rung == 0  # a runtime OOM refuted the proof
+                and info.join_strategy.get(nid) == "broadcast"
+                and info.join_fits_budget.get(nid)
+                and info.join_rows_ub.get(nid, 1 << 62) <= self.gather_limit
+                and left.sharded):
+            # the fragmenter proved the build small (a sound stats bound
+            # under the broadcast limit and the budget): no live-count
+            # readback
+            fault_point("step.join_build")
+            self._count_distribution("broadcast")
+            return self._broadcast_join(node, left, right, lkey, rkey, verify,
+                                        rows_hint=info.join_rows_ub.get(nid))
+        build_rows = live_count(right.batch)
+        # the budget holds the materialized build, not the stats estimate
+        est = build_rows * node_row_bytes(node.right, self.catalog)
+        if est > self.join_build_budget or (self.oom_rung > 0 and not verify):
+            if verify:
+                raise NotImplementedError("wide string keys in grouped (spilled) joins")
+            decision = self._spill_decision(node, est)
+            # the only references to the inputs go to the grouped tier,
+            # which drops each side once it is on the host
+            sides = [left, right]
+            del left, right
+            self._count_distribution(decision.mode)
+            return self._grouped_dist_join(node, sides, lkey, rkey, decision)
+        fault_point("step.join_build")
+        if build_rows <= self.broadcast_limit or not right.sharded or not left.sharded:
+            self._count_distribution("broadcast")
+            return self._broadcast_join(node, left, right, lkey, rkey, verify)
+        self._count_distribution("repartition")
+        # adaptive skew salting (plan/adaptive.py): a recurring hot
+        # destination spreads its probe rows and replicates its build rows
+        salt = self._adaptive_decision(node, "salt")
+        if salt is not None and not (2 <= salt.salt <= self.nworkers
+                                     and salt.hot_partition >= 0 and node.kind != "full"):
+            salt = None  # stale: decided for another mesh
+        return self._repartition_join(node, left, right, lkey, rkey, verify, salt=salt)
 
+    def _concat_sharded(self, d: DistBatch, extra: Batch) -> DistBatch:
+        """``extra``'s rows appended to a DistBatch: split over the shards
+        in contiguous blocks, each appended to its shard (UNION ALL's bag
+        union, no exchange)."""
+        names = list(d.batch.names)
+        extra = extra.select(names)
+        if not d.sharded:
+            return DistBatch(concat_batches([d.batch, extra]), sharded=False)
+        Pn = self.nworkers
+        extra = _pad_rows(extra, -(-extra.capacity // Pn) * Pn)
+        parts = [concat_batches([a.select(names), e.to(a.device)])
+                 for a, e in zip(shards_of(d.batch, self.mesh), shards_of(extra, self.mesh))]
+        return DistBatch(join_shards(parts, self.mesh), sharded=True)
+
+    def _broadcast_join(self, node, left: DistBatch, right: DistBatch, lkey, rkey, verify=(),
+                        rows_hint=None) -> DistBatch:
+        """The replicated distribution: the build side gathered to every
+        shard, the probe stays sharded. The probe runs once over the whole
+        shard-major batch, as the JAX package's does over its row-sharded
+        one, so an expansion packs its rows in global probe order."""
+        # the build gather is a replicate-everything fallback when a side
+        # is unsharded: an oversized build fails fast
+        rb = self._replicate(right, guard="BroadcastJoinBuild", rows_hint=rows_hint).batch
+        # no fused-probe spec on the mesh (see ``__init__``)
+        build = JoinBuildOperator(rkey)
+        build.process(rb)
+        build.finish()
+        outs = [BuildOutput(n, n) for n in node.output_right]
+        if node.kind == "full":
+            return self._broadcast_full_join(node, left, build, lkey, outs, verify)
+        if node.unique:
+            op = LookupJoinOperator(build, lkey, outs, node.kind, unique=True, verify=verify)
+            return DistBatch(op.process(left.batch)[0], left.sharded)
+        out_cap = batch_capacity(max(left.batch.capacity, live_count(rb), 1024))
+        for _ in range(MAX_RETRIES):
+            try:
+                op = LookupJoinOperator(build, lkey, outs, node.kind, unique=False,
+                                        out_capacity=out_cap, verify=verify)
+                return DistBatch(op.process(left.batch)[0], left.sharded)
+            except CapacityOverflow:
+                out_cap *= 2
+        raise CapacityOverflow("BroadcastJoin", out_cap)
+
+    def _broadcast_full_join(self, node, left: DistBatch, build, lkey, outs,
+                             verify=()) -> DistBatch:
+        """FULL OUTER over a replicated build: a LEFT probe that flags the
+        matched build rows, then the never-matched build rows once, as a
+        tail spread over the shards. The one probe over the whole batch
+        gives the flags of every shard (the JAX package's cross-device
+        combine), so no replica emits the tail again."""
+        flags = full_init_flags(build)
+        if node.unique:
+            op = LookupJoinOperator(build, lkey, outs, "full", unique=True, verify=verify)
+            out, flags = op.process_full(left.batch, flags)
+        else:
+            out_cap = batch_capacity(max(left.batch.capacity, live_count(build.payload), 1024))
+            for _ in range(MAX_RETRIES):
+                try:
+                    op = LookupJoinOperator(build, lkey, outs, "full", unique=False,
+                                            out_capacity=out_cap)
+                    out, flags = op.process_full(left.batch, flags)
+                    break
+                except CapacityOverflow:
+                    out_cap *= 2
+            else:
+                raise CapacityOverflow("BroadcastFullJoin", out_cap)
+        tail = full_tail(build, outs, flags, left.batch)
+        return self._concat_sharded(DistBatch(out, left.sharded), tail)
+
+    def _repartition_join(self, node, left: DistBatch, right: DistBatch, lkey, rkey,
+                          verify=(), salt=None) -> DistBatch:
+        """The hash distribution: both sides exchanged on the key's hash,
+        so matching rows meet on one shard, then a join per shard. Each
+        build row then lives on one shard, so a FULL join's tail is each
+        shard's own.
+
+        ``salt`` (an adaptive decision) rewrites the exchange for a
+        history-proven hot destination: its probe rows spread round-robin
+        over S partitions and the matching build rows go to all S, so
+        every probe row still meets each matching build row once
+        (EXPLAIN: ``repartition=salted(S)``). FULL joins never salt (the
+        tail would repeat per replica)."""
+        # codes of two different dictionaries are not comparable: the
+        # planner's runtime_dict hook should have re-encoded them
+        if (isinstance(lkey, InputRef) and lkey.dtype.kind is TypeKind.VARCHAR
+                and isinstance(rkey, InputRef)):
+            lb, rb = left.batch, right.batch
+            dl = lb[lkey.name].dictionary if lkey.name in lb else None
+            dr = rb[rkey.name].dictionary if rkey.name in rb else None
+            if dl is not None and dr is not None and dl is not dr:
+                raise NotImplementedError("join keys are encoded against different "
+                                          "dictionaries; codes are not comparable across "
+                                          "dictionaries")
+        fault_point("exchange.join")
+        Pn = self.nworkers
+        lquota = batch_capacity(-(-(left.batch.capacity // Pn) // Pn), minimum=64)
+        rquota = batch_capacity(-(-(right.batch.capacity // Pn) // Pn), minimum=64)
+        lrecv = batch_capacity(Pn * lquota, minimum=64)
+        rrecv = batch_capacity(Pn * rquota, minimum=64)
+        expand = not node.unique and node.kind not in ("semi", "anti")
+        out_cap = batch_capacity(max(Pn * lquota, 1024)) if expand else None
+        salt_t = None
+        if salt is not None:
+            salt_t = (int(salt.salt), int(salt.hot_partition))
+            self._note_adaptive(node, salt, action=f"repartition=salted({salt.salt})")
+        lrow_b, rrow_b = batch_row_bytes(left.batch), batch_row_bytes(right.batch)
+        # the wire quotas stay fixed (one round when balanced); a retry
+        # doubles the receive and output capacities
+        for _ in range(MAX_RETRIES):
+            caps = (lquota, rquota, lrecv, rrecv, out_cap)
+            step = EXEC_CACHE.get_or_build(
+                EXEC_CACHE.key_of("dist_repart_join", lkey, rkey, tuple(verify),
+                                  tuple(node.output_right), node.kind, node.unique, caps, salt_t,
+                                  self._mesh_fp),
+                lambda: self._make_repartition_join_step(node, lkey, rkey, *caps, verify,
+                                                         salt=salt_t))
+            t0 = time.perf_counter()
+            with trace_span("step:repartition_join", "step",
+                            {"kind": node.kind, "lrecv": lrecv, "rrecv": rrecv}):
+                out, overflow, flags, rounds, dest = step(left.batch, right.batch)
+                long_runs, sentinel, exch_ovf = (bool(x) for x in flags.cpu())
+                ok = not bool(overflow)
+            lr, rr = rounds
+            # a hot partition is an exchange receive overflow only: an
+            # expansion overflow retries the same loop but is no skew
+            record_exchange(
+                "join", a2a_wire_bytes(lrow_b, Pn, lquota, lr) + a2a_wire_bytes(rrow_b, Pn, rquota, rr),
+                Pn, time.perf_counter() - t0, rounds=lr + rr,
+                hot_partition=(self._hot_partition(dest[0] + dest[1])
+                               if not ok and exch_ovf else None))
+            if ok:
+                # both sides shuffle on one hash: a hot key shows in each
+                self._note_exchange_skew("join.probe", node, dest[0], lrow_b)
+                self._note_exchange_skew("join.build", node, dest[1], rrow_b)
+            if long_runs:
+                raise NotImplementedError("hash-key collision run exceeds the verified "
+                                          "probe's candidate window")
+            if sentinel:
+                raise NotImplementedError("a join build key equals the reserved int64 "
+                                          "sentinel; such keys are indistinguishable from "
+                                          "dead slots")
+            if ok:
+                return DistBatch(out, sharded=True)
+            lrecv *= 2
+            rrecv *= 2
+            if out_cap is not None:
+                out_cap *= 2
+        raise CapacityOverflow("RepartitionJoin", max(lrecv, rrecv))
+
+    def _make_repartition_join_step(self, node, lkey, rkey, lquota, rquota, lrecv, rrecv,
+                                    out_cap, verify=(), salt=None):
+        """The repartition join step: (probe batch, build batch) ->
+        (row-sharded output, overflow anywhere, [collision run, sentinel
+        key, exchange receive overflow], (probe rounds, build rounds),
+        [2, P] rows delivered per destination). It closes over the mesh
+        and the node's shape, never over this executor."""
+        mesh = self.mesh
+        Pn = self.nworkers
+        outs = [BuildOutput(n, n) for n in node.output_right]
+        kind, unique = node.kind, node.unique
+
+        def shard_join(le: Batch, re: Batch):
+            """One shard's join of its received rows: (output, overflow,
+            collision run, sentinel key)."""
+            bv = evaluate(rkey, re)
+            side = build_lookup(bv.data, re.live & valid_of(bv.valid, re.live), re.capacity)
+            pv = evaluate(lkey, le)
+            pvalid = le.live & valid_of(pv.valid, le.live)
+            no_flags = torch.zeros(re.capacity, dtype=torch.bool, device=re.device)
+            no = torch.zeros((), dtype=torch.bool, device=re.device)
+            longrun = long_dup_runs_flag(side.sorted_keys) if unique and verify else no
+            # the build's capacity is its rows': it never overflows
+            flags = (no, longrun, side.sentinel_hit)
+            if kind in ("semi", "anti"):
+                exists = probe_exists(side, pv.data, pvalid)
+                keep = exists if kind == "semi" else le.live & ~exists
+                return (le.with_live(le.live & keep),) + flags
+            if unique:
+                res = (verified_unique_probe(side, pv, pvalid, verify, re, le) if verify
+                       else probe_unique(side, pv.data, pvalid))
+                cols = dict(le.columns)
+                for bo in outs:
+                    src = re[bo.source]
+                    cols[bo.name] = Column(gather_padded(src.data, res.build_row, 0),
+                                           gather_padded(valid_of(src.valid, re.live),
+                                                         res.build_row, False),
+                                           src.dtype, src.dictionary)
+                pout = Batch(cols, le.live & res.matched if kind == "inner" else le.live)
+                if kind != "full":
+                    return (pout,) + flags
+                hit = torch.where(res.matched, res.build_row,
+                                  torch.full_like(res.build_row, re.capacity))
+                tail = full_tail_batch(re, outs, _set_flags(no_flags, hit), le)
+                return (concat_batches([pout, tail]),) + flags
+            res = probe_expand(side, pv.data, pvalid, out_cap, left=kind in ("left", "full"),
+                               emit_live=le.live)
+            # verify pairs are inner-only here (``_exec_join`` refuses the rest)
+            live = verify_mask(verify, le, re, res.build_row, probe_row=res.probe_row,
+                               init=res.live)
+            cols = {}
+            for name, src in le.columns.items():
+                cols[name] = Column(gather_padded(src.data, res.probe_row, 0),
+                                    gather_padded(valid_of(src.valid, le.live), res.probe_row,
+                                                  False),
+                                    src.dtype, src.dictionary)
+            for bo in outs:
+                src = re[bo.source]
+                cols[bo.name] = Column(gather_padded(src.data, res.build_row, 0),
+                                       gather_padded(valid_of(src.valid, re.live),
+                                                     res.build_row, False),
+                                       src.dtype, src.dictionary)
+            pout = Batch(cols, live)
+            flags = (res.overflow,) + flags[1:]
+            if kind != "full":
+                return (pout,) + flags
+            tail = full_tail_batch(re, outs, _set_flags(no_flags, res.build_row), le)
+            return (concat_batches([pout, tail]),) + flags
+
+        def step(lb: Batch, rb: Batch):
+            home = mesh.devices[0]
+            lpids = partition_ids([evaluate(lkey, lb).data.to(torch.int64)], Pn)
+            rpids = partition_ids([evaluate(rkey, rb).data.to(torch.int64)], Pn)
+            if salt is not None:
+                # probe rows bound for the hot destination spread round-
+                # robin (by row within their shard) over hot .. hot+S-1
+                S, hot = salt
+                row = torch.arange(lb.capacity, device=lb.device) % (lb.capacity // Pn)
+                spread = ((hot + row % S) % Pn).to(lpids.dtype)
+                lpids = torch.where(lpids == hot, spread, lpids)
+            le, ovf1, lrnd, ldest = exchange_multiround(lb, lpids, Pn, lquota, lrecv,
+                                                        with_rounds=True, with_stats=True)
+            if salt is None:
+                re, ovf2, rrnd, rdest = exchange_multiround(rb, rpids, Pn, rquota, rrecv,
+                                                            with_rounds=True, with_stats=True)
+                rshards = shards_of(re, mesh)
+            else:
+                # build replication: pass i sends the hot rows to (hot+i)
+                # mod P, pass 0 also every other row on its own route; each
+                # shard's build is its received passes in pass order
+                rhot = rpids == hot
+                passes = []
+                for i in range(S):
+                    pids_i = torch.where(rhot, torch.full_like(rpids, (hot + i) % Pn), rpids)
+                    live_i = rb.live if i == 0 else rb.live & rhot
+                    re_i, o_i, r_i, d_i = exchange_multiround(
+                        rb.with_live(live_i), pids_i, Pn, rquota, rrecv, with_rounds=True,
+                        with_stats=True)
+                    passes.append(shards_of(re_i, mesh))
+                    if i == 0:
+                        ovf2, rrnd, rdest = o_i, r_i, d_i
+                    else:
+                        ovf2, rrnd, rdest = ovf2 | o_i, rrnd + r_i, rdest + d_i
+                rshards = [concat_batches([p[s] for p in passes]) for s in range(Pn)]
+            parts, shard_flags = [], []
+            for le_s, re_s in zip(shards_of(le, mesh), rshards):
+                out_s, *f = shard_join(le_s, re_s)
+                parts.append(out_s)
+                shard_flags.append(torch.stack(f).to(home))
+            f = torch.stack(shard_flags).any(0)  # [overflow, collision run, sentinel]
+            exch_ovf = ovf1 | ovf2
+            return (join_shards(parts, mesh), exch_ovf | f[0],
+                    torch.stack([f[1], f[2], exch_ovf]), (lrnd, rrnd),
+                    torch.stack([ldest, rdest]))
+
+        return step
+
+    # ---- out-of-core joins ---------------------------------------------------
+    def _grouped_dist_join(self, node, sides: list, lkey, rkey, decision) -> DistBatch:
+        """Out-of-core join (hybrid or grouped): both sides spill to host
+        RAM with the key's bucket ids and their device copies go, then
+        bucket passes replay the repartition join over the whole mesh.
+        A hybrid decision's resident buckets (clamped to their actual
+        sizes, ``spill.fit_resident``) run as one first pass (key-equal
+        rows share a bucket, so merging buckets adds no false match); the
+        cold ones stream back through the two-slot ``spill.transfer_iter``.
+        Bucketing by the join key is exact for every kind (a key's
+        matches, null-extensions and unmatched build rows share its
+        bucket), FULL OUTER included.
+
+        ``sides`` holds the only references to the inputs: each slot is
+        cleared as soon as its host copy lands."""
+        from presto_tpu_torch.exec.spill import fit_resident, transfer_iter
+
+        fault_point("step.grouped_join")
+        nbuckets = decision.nbuckets
+        lcols, llive, lbids = self._pull_host(sides[0], lkey, nbuckets)
+        sides[0] = None
+        rcols, rlive, rbids = self._pull_host(sides[1], rkey, nbuckets)
+        sides[1] = None
+        host_bytes = int(sum(data.nbytes + valid.nbytes for cols in (lcols, rcols)
+                             for data, valid, _, _ in cols.values()))
+        budget = self._host_spill_budget()
+        budget.reserve("dist-spill", host_bytes)
+        try:
+            rcounts = np.bincount(rbids[rlive].astype(np.int64), minlength=nbuckets)
+            row_bytes = max(decision.est_bytes // max(int(rcounts.sum()), 1), 1)
+            resident, _ = fit_resident(decision, lambda bk: int(rcounts[bk]), row_bytes)
+            rset = set(resident)
+            cold = [bk for bk in range(nbuckets) if bk not in rset]
+            outs = []
+            if resident:
+                res = np.asarray(sorted(rset), dtype=np.int64)
+                lb = self._place_sharded(lcols, llive & np.isin(lbids, res))
+                rb = self._place_sharded(rcols, rlive & np.isin(rbids, res))
+                outs.append(self._repartition_join(node, DistBatch(lb, True),
+                                                   DistBatch(rb, True), lkey, rkey).batch)
+
+            def load(bk):
+                return (self._place_sharded(lcols, llive & (lbids == bk)),
+                        self._place_sharded(rcols, rlive & (rbids == bk)))
+
+            for _bk, (lb, rb) in transfer_iter(load, cold):
+                REGISTRY.counter("spill.transfer_bytes").add(int(sum(
+                    c.data.nbytes + c.valid.nbytes for part in (lb, rb)
+                    for c in part.columns.values())))
+                outs.append(self._repartition_join(node, DistBatch(lb, True),
+                                                   DistBatch(rb, True), lkey, rkey).batch)
+            self._note_spill(node, decision, resident=resident, streamed=len(cold),
+                             host_bytes=host_bytes)
+            return self._concat_sharded_many(outs)
+        finally:
+            # the host copies are this frame's: the reservation goes with them
+            budget.release("dist-spill", host_bytes)
+
+    # ---- semi joins --------------------------------------------------------
     def _exec_semijoin(self, node: N.SemiJoin, scalars) -> DistBatch:
-        self._not_on_mesh("anti SemiJoin" if node.negated else "SemiJoin")
+        left = self._exec(node.left, scalars)
+        right = self._exec(node.right, scalars)
+        lkey, rkey, verify = self._join_key_exprs(node, left, right, scalars)
+        if verify:
+            # an existence probe has no build row to verify against
+            raise NotImplementedError("wide string semi-join keys")
+        build_rows = live_count(right.batch)
+        est = build_rows * node_row_bytes(node.right, self.catalog)
+        if est > self.join_build_budget or self.oom_rung > 0:
+            # bucketing is exact for semi and anti: a probe key's
+            # existence is decided within its own bucket
+            decision = self._spill_decision(node, est)
+            sides = [left, right]
+            del left, right
+            self._count_distribution(decision.mode)
+            return self._grouped_dist_join(_SemiShim(node), sides, lkey, rkey, decision)
+        fault_point("step.join_build")
+        if build_rows <= self.broadcast_limit or not right.sharded or not left.sharded:
+            rb = self._replicate(right, guard="SemiJoinBuild").batch
+            build = JoinBuildOperator(rkey)
+            build.process(rb)
+            build.finish()
+            op = LookupJoinOperator(build, lkey, (), "anti" if node.negated else "semi")
+            return DistBatch(op.process(left.batch)[0], left.sharded)
+        return self._repartition_join(_SemiShim(node), left, right, lkey, rkey)
 
+    # ---- windows -----------------------------------------------------------
     def _exec_window(self, node: N.Window, scalars) -> DistBatch:
-        self._not_on_mesh("Window")
+        """Partition-parallel windows: the exchange on the hash of the
+        partition keys puts each window partition on one shard, then the
+        window step runs per shard. A window with no PARTITION BY is one
+        serial partition and takes the replicated path (with its gather
+        guard)."""
+        d = self._exec(node.child, scalars)
+        op = window_operator_from_node(node, scalars)
+        if d.sharded and self.nworkers > 1 and node.partition_by:
+            part = [bind_scalars(e, scalars) for e in node.partition_by]
+            return self._partitioned_window(d, part, op)
+        d = self._replicate(d, guard="Window")
+        return DistBatch(Pipeline([d.batch], [op]).run()[0], sharded=False)
+
+    def _partitioned_window(self, d: DistBatch, part_exprs, op) -> DistBatch:
+        fault_point("exchange.window")
+        Pn = self.nworkers
+        b = d.batch
+        cap_dev = max(b.capacity // Pn, 1)
+        quota = batch_capacity(-(-cap_dev // Pn), minimum=64)
+        recv_cap = batch_capacity(2 * cap_dev, minimum=64)
+        for _ in range(MAX_RETRIES):
+            rc = recv_cap
+            step = EXEC_CACHE.get_or_build(
+                EXEC_CACHE.key_of("dist_window", tuple(part_exprs), op.partition_by,
+                                  op.order_keys, op.funcs, op.frame, quota, rc, self._mesh_fp),
+                lambda: self._make_window_step(part_exprs, op, quota, rc))
+            t0 = time.perf_counter()
+            with trace_span("step:dist_window", "step", {"quota": quota, "recv_cap": rc}):
+                out, overflow, rounds = step(b)
+                ok = not bool(overflow)
+            record_exchange("window", a2a_wire_bytes(batch_row_bytes(b), Pn, quota, rounds), Pn,
+                            time.perf_counter() - t0, rounds=rounds)
+            if ok:
+                return DistBatch(out, sharded=True)
+            recv_cap *= 2
+        raise CapacityOverflow("PartitionedWindow", recv_cap)
+
+    def _make_window_step(self, part_exprs, op, quota: int, recv_cap: int):
+        """(row-sharded batch) -> (row-sharded window output, overflow,
+        rounds). The window step is the operator's cached, state-less one."""
+        mesh = self.mesh
+        Pn = self.nworkers
+        window_body = op._step
+
+        def hash_cols(b: Batch):
+            """int64 hash inputs of each partition key: its NULL flag and
+            its NULL-zeroed value (a BYTES key its 7-byte chunks), so NULL
+            keys form one partition and wide strings colocate."""
+            cols = []
+            for e in part_exprs:
+                v = evaluate(e, b)
+                valid = valid_of(v.valid, b.live)
+                cols.append((~valid).to(torch.int64))
+                cols.extend(torch.where(valid, p.to(torch.int64), 0) for p in _key_parts(v))
+            return cols
+
+        def step(b: Batch):
+            pids = partition_ids(hash_cols(b), Pn)
+            exch, ovf, rounds = exchange_multiround(b, pids, Pn, quota, recv_cap,
+                                                    with_rounds=True)
+            return join_shards([window_body(s) for s in shards_of(exch, mesh)], mesh), ovf, rounds
+
+        return step
 
     # ---- set operations --------------------------------------------------
     def _exec_union(self, node: N.Union, scalars) -> DistBatch:
@@ -1107,3 +1622,14 @@ class DistributedExecutor(OomLadderMixin):
         b = self._replicate(d).batch
         b = b.select(list(node.sources)).rename(dict(zip(node.sources, node.names)))
         return DistBatch(b, sharded=False)
+
+
+class _SemiShim:
+    """A SemiJoin in the shape the repartition join step reads."""
+
+    def __init__(self, node: N.SemiJoin):
+        self.kind = "anti" if node.negated else "semi"
+        self.unique = False
+        self.output_right = ()
+        #: the real plan node: spill and stats recording attribute to it
+        self.plan_node = node

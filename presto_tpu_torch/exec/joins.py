@@ -694,13 +694,16 @@ def full_init_flags(build: JoinBuildOperator) -> torch.Tensor:
     return torch.zeros(build.payload.capacity, dtype=torch.bool, device=build.payload.device)
 
 
-def full_tail(build: JoinBuildOperator, build_outputs: Sequence[BuildOutput],
-              flags: torch.Tensor, probe_schema: Batch) -> Batch:
-    """The build's never-matched rows (live and not flagged) with NULL
+def full_tail_batch(payload: Batch, build_outputs: Sequence[BuildOutput],
+                    flags: torch.Tensor, probe_schema: Batch) -> Batch:
+    """The never-matched ``payload`` rows (live and not flagged) with NULL
     probe columns; ``probe_schema`` (any probe batch) gives the probe
-    side's names, types and dictionaries."""
-    payload = build.payload
+    side's names, types and dictionaries. The one tail constructor of
+    both FULL OUTER paths: the operator-held build of the local and
+    broadcast joins, and each shard's received build in the distributed
+    repartition step."""
     cap = payload.capacity
+    dev = payload.device
     out_names = {bo.name for bo in build_outputs}
     cols = {}
     for name in probe_schema.names:
@@ -708,10 +711,16 @@ def full_tail(build: JoinBuildOperator, build_outputs: Sequence[BuildOutput],
             continue
         src = probe_schema[name]
         cols[name] = Column(torch.zeros((cap,) + tuple(src.data.shape[1:]),
-                                        dtype=src.data.dtype, device=payload.device),
-                            torch.zeros(cap, dtype=torch.bool, device=payload.device),
+                                        dtype=src.data.dtype, device=dev),
+                            torch.zeros(cap, dtype=torch.bool, device=dev),
                             src.dtype, src.dictionary)
     for bo in build_outputs:
         src = payload[bo.source]
         cols[bo.name] = Column(src.data, src.valid, src.dtype, src.dictionary)
     return Batch(cols, payload.live & ~flags)
+
+
+def full_tail(build: JoinBuildOperator, build_outputs: Sequence[BuildOutput],
+              flags: torch.Tensor, probe_schema: Batch) -> Batch:
+    """``full_tail_batch`` over an operator-held build."""
+    return full_tail_batch(build.payload, build_outputs, flags, probe_schema)

@@ -88,6 +88,9 @@ class OomLadderMixin:
         rung history."""
         from presto_tpu_torch.runtime.metrics import REGISTRY
 
+        # a distributed semi join passes its adapter (``plan_node`` is
+        # the real node, which the recording attributes to)
+        node = getattr(node, "plan_node", node)
         res = len(decision.resident if resident is None else resident)
         REGISTRY.counter(f"spill.planned_{decision.mode}").add()
         if res:
@@ -146,7 +149,7 @@ class OomLadderMixin:
         decisions = getattr(self, "adaptive", None)
         if not decisions:
             return None
-        per_node = decisions.get(id(node))
+        per_node = decisions.get(id(getattr(node, "plan_node", node)))
         return per_node.get(kind) if per_node else None
 
     def _note_adaptive(self, node, dec, action: str = "") -> None:
@@ -159,7 +162,7 @@ class OomLadderMixin:
         events = getattr(self, "adaptive_events", None)
         if events is not None:
             ev = dec.to_event(applied=True)
-            ev["node"] = type(node).__name__
+            ev["node"] = type(getattr(node, "plan_node", node)).__name__
             if action:
                 ev["action"] = action
             events.append(ev)
@@ -171,6 +174,6 @@ class OomLadderMixin:
         if recorder is None:
             return
         try:
-            recorder.record_route_fallback(node)
+            recorder.record_route_fallback(getattr(node, "plan_node", node))
         except Exception:  # noqa: BLE001 -- telemetry never raises
             pass

@@ -27,6 +27,12 @@ Counterpart of ``presto_tpu/runtime/lifecycle.py``:
   returned (``torch.cuda.empty_cache``): the traceback of a real OOM
   holds the failed run's tensors, and the next rung must not OOM again
   on memory nobody uses. Only a ``DeviceOutOfMemory`` walks the ladder.
+- **Degradation to local** (``degrade_to_local``): a mesh run that still
+  fails with a retryable error (its fragment retries spent) re-plans
+  onto the one-device ``LocalExecutor`` on the session's own device
+  (``QueryManager._degrade``), with an OOM ladder of its own that
+  continues the query's rung count; ``QueryInfo.degraded`` and
+  ``query.degraded_to_local`` say so.
 
 The active :class:`QueryContext` travels in a ``ContextVar``: the driver
 loop and the executor see it without a parameter through every operator.
@@ -47,8 +53,7 @@ batch leader's admission scale (:meth:`QueryManager.admit` reserves the
 plan's peak once per fused lane, clamped so that batching never fails a
 query the serial path admits) and the request deadline a server sets
 (:data:`REQUEST_DEADLINE`, the tighter of it and ``query_max_run_time``
-wins). Not ported yet: the distributed -> local degradation (it comes
-with the distributed joins, ROADMAP A10c).
+wins).
 """
 
 from __future__ import annotations
@@ -593,9 +598,9 @@ class QueryManager:
         executor one rung down its ladder and re-runs the plan on the
         same device, up to ``oom_ladder_max`` rungs (and while the retry
         budget grants them). Each rung shrinks per-step residency, so a
-        wrong estimate costs time, never the answer. Any other failure
-        propagates (the distributed -> local degradation comes with the
-        distributed joins, ROADMAP A10c)."""
+        wrong estimate costs time, never the answer. Any other retryable
+        failure of a mesh run degrades to a local run (``_degrade``)
+        while ``degrade_to_local`` is on; everything else propagates."""
         ladder_max = self.session.prop("oom_ladder_max")
         budget = ctx.retry_budget
         rung = 0
@@ -631,8 +636,49 @@ class QueryManager:
                         # the re-run's
                         recorder.nodes.clear()
                 _drop_failed_run(e)
+            except Exception as e:
+                if not (is_retryable(e) and getattr(executor, "mesh", None) is not None
+                        and self.session.prop("degrade_to_local")):
+                    raise
+                # the mesh attempt's tensors go before the local run
+                # holds the whole query on one device (on the card the
+                # shards share it)
+                _drop_failed_run(e)
+                _reclaim_device(executor)
+                return self._degrade(plan, info, recorder, ctx, getattr(executor, "params", ()))
             # the failed attempt is unreachable now (``e`` is unbound)
             _reclaim_device(executor)
+
+    def _degrade(self, plan, info, recorder, ctx, params=()):
+        """Re-plan a failed mesh run onto the one-device local pipeline,
+        on the session's device, under a ``degrade_to_local`` span. The
+        deadline keeps running (the retry context stays installed), and
+        the local run gets its own OOM ladder: one device now holds the
+        whole query, so a build that fit the mesh may run out here. As
+        in the JAX package, the local run takes the session's
+        ``pallas_join``: the fused join probes run here, never on the
+        mesh."""
+        from presto_tpu_torch.exec.local_planner import LocalExecutor
+
+        REGISTRY.counter("query.degraded_to_local").add()
+        info.degraded = True
+        session = self.session
+        local = LocalExecutor(
+            session.catalog, device=session.device,
+            join_build_budget=session.join_build_budget(),
+            direct_group_limit=session.prop("direct_group_limit"),
+            runtime_join_filters=session.prop("runtime_join_filters"),
+            pallas_join_enabled=session.prop("pallas_join"),
+            approx_join=session.prop("approx_join"),
+            spill_host_budget=session.prop("spill_host_budget_bytes"))
+        if recorder is not None:
+            # the failed attempt's stats must not leak into the local run's
+            recorder.nodes.clear()
+        local.recorder = recorder
+        # the degraded run evaluates the same literal slots
+        local.params = tuple(params)
+        with trace_span("degrade_to_local", "lifecycle"):
+            return self._run_with_oom_ladder(local, plan, info, recorder, ctx)
 
     @staticmethod
     def _note_planned_spills(executor, info) -> None:

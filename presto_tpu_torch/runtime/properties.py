@@ -207,6 +207,12 @@ SESSION_PROPERTIES: dict[str, PropertyDef] = {
             "never past the deadline).",
             _non_negative),
         PropertyDef(
+            "degrade_to_local", bool, True,
+            "Graceful degradation: a distributed query that fails with "
+            "a retryable error after its fragment retries are exhausted "
+            "re-plans onto the single-device local pipeline as a last "
+            "resort (QueryInfo.degraded marks it)."),
+        PropertyDef(
             "result_cache_enabled", bool, True,
             "Serve a repeated identical query from the session's "
             "versioned result cache (cache/result_cache.py: keyed by plan "

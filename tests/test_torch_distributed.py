@@ -16,8 +16,10 @@ Limit under a gather guard far below the table (the JAX package's
 ``_sort_env``) and the guard's refusal; the grouped (bucketed)
 aggregation under a small ``join_build_budget_bytes``; UNION ALL and a
 scalar subquery; a 2-D ``make_dcn_mesh(2, 2)`` against the flat mesh;
-1, 2 and 4 shards giving one answer. ROADMAP C26 (joins, semi joins and
-windows refused on a mesh) and C27 (one process) are pinned here.
+1, 2 and 4 shards giving one answer; a join, a semi join and a window
+(ROADMAP C26, closed: once refused on a mesh). ROADMAP C27 (one process)
+is pinned here. The other joins and windows are in
+``test_torch_distributed_{joins,windows,degrade}.py``.
 """
 
 import jax
@@ -456,7 +458,7 @@ def test_partial_and_final_phases_equal_reference(strategy):
 
 
 # ---------------------------------------------------------------------------
-# ROADMAP C26: joins, semi joins and windows on a mesh wait for A10c
+# ROADMAP C26 (closed): joins, semi joins and windows on a mesh
 # ---------------------------------------------------------------------------
 
 
@@ -467,14 +469,12 @@ def test_partial_and_final_phases_equal_reference(strategy):
     ("Window", "select n_name, row_number() over (order by n_name) as r from nation"),
 ])
 def test_joins_and_windows_are_refused_on_a_mesh_c26(conns, kind, sql):
-    """The JAX package runs these on a mesh; the port refuses them until
-    its distributed joins and windows land, and a local session answers."""
-    jc, pc = conns["tpch"]
-    want = JSession({"tpch": jc}, properties=NO_CACHE, mesh=jmesh(2)).sql(sql)
-    ps = PSession({"tpch": pc}, properties=NO_CACHE, device="cpu",
-                  mesh=make_mesh(2, device="cpu"))
-    with pytest.raises(NotSupported, match=f"{kind} on a mesh is not ported"):
-        ps.sql(sql)
+    """Once refused on a mesh (C26, its name kept): the port's mesh session
+    now answers each, equal to the JAX package's mesh session (frames,
+    counter moves, exchange spans) and to a local session."""
+    got, want, _moves = run_both(conns, sql, n=2)
+    close_frame(got, want, kind)
+    _jc, pc = conns["tpch"]
     local = PSession({"tpch": pc}, properties=NO_CACHE, device="cpu").sql(sql)
     close_frame(local, want, kind)
 

@@ -18,8 +18,8 @@ against the JAX package's (``tests/test_lifecycle.py``, ``tests/test_spill.py``)
 - ``QueryInfo.to_json``'s lifecycle fields.
 
 The distributed cases of the reference's file (exchange faults,
-distributed -> local degradation) wait for the distributed executor
-(A10).
+distributed -> local degradation) are in
+``test_torch_distributed_degrade.py``.
 """
 
 import jax

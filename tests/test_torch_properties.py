@@ -40,8 +40,9 @@ from presto_tpu_torch.runtime.session import device_checked
 from test_torch_memory import both
 from torch_bridge import counters, port_frame
 
-#: the reference's properties the port has not ported yet
-A10 = ("degrade_to_local",)
+#: the reference's properties the port has not ported yet: none since
+#: ``degrade_to_local`` came with the distributed joins
+A10 = ()
 
 NO_CACHE = {"result_cache_enabled": False}
 

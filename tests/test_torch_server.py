@@ -893,7 +893,7 @@ def test_property_table_equals_reference():
 
     assert set(PP) <= set(JP)
     missing = sorted(set(JP) - set(PP))
-    assert missing == ["degrade_to_local"], missing
+    assert missing == [], missing
     checked = 0
     for name, p in PP.items():
         j = JP[name]

@@ -161,8 +161,9 @@ def test_constructs_outside_the_slice_raise_naming_them(sql, what):
 
 def test_explain_analyze_equals_jax_session():
     """EXPLAIN ANALYZE (``Session.explain_analyze``), each node's wall
-    masked, equals the JAX package's rendering without its span lines
-    (ROADMAP C14; tests/test_torch_explain_analyze.py holds more)."""
+    masked, equals the JAX package's rendering without its executable
+    cache's lines (tests/test_torch_explain_analyze.py compares those
+    from cleared caches)."""
     import re
 
     sql = "select n_regionkey, count(*) c from nation group by n_regionkey"

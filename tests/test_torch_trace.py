@@ -6,8 +6,8 @@ cache off, executable and stats caches cleared first), once with one
 split a table and once with 2,048 units a split (several batches a
 table, so the scan prefetch worker runs): the sequences of (name, cat,
 depth) equal, the caches' ``exec_cache:build`` and ``plan_stats:record``
-spans included, once the distributed executor's and the server's spans
-are taken out (ROADMAP C14). The multi-split run also shows that every span was opened
+spans included (every span: ROADMAP C14, the missing ``degrade_to_local``
+span, is closed). The multi-split run also shows that every span was opened
 on the query's thread and that the prefetch worker sees the plan
 template's parameters but neither the trace recorder nor the metric
 delta. Then the recorder's bounds, the Chrome export and its errors, and

@@ -254,8 +254,9 @@ def refused_alike(jax_call, port_call):
 #: C17): ``exec.traces`` counts XLA traces, which the port has none of
 C17_FAMILIES = ("exec.traces",)
 
-#: spans only the distributed executor (A10) records (ROADMAP C14)
-C14_SPANS = ("degrade_to_local",)
+#: spans the port does not record (ROADMAP C14, closed: the
+#: ``degrade_to_local`` span came with the distributed joins)
+C14_SPANS = ()
 
 #: a histogram snapshot's quantile keys
 _QUANTILES = ("p50", "p95", "p99", "max")
