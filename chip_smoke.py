@@ -195,9 +195,13 @@ one CUDA card, and exits nonzero on any failure. Phases:
    recomputations; every lane-sums, leaf, LIKE, exists and payload
    launch shape held to the plain version; the share of the phase's
    device busy time in ``index_add_`` and in sorts; then every query on
-   the card at sf 0.1 (``TPCDS_CHECK_SMALL`` at sf 0.02) equal, row for
+   the card at sf 0.1 (``TPCDS_CHECK_SMALL`` and ``TPCDS_EMPTY_AT_CHECK_SF``
+   at sf 0.02) equal, row for
    row, to the port's answer on the CPU, which ``TPCDS_WORKERS`` niced
-   processes compute from the start of the run (ended on any exit);
+   processes compute from the start of the run (ended on any exit), and
+   to the numpy oracle (``presto_tpu_torch/oracle/tpcds_oracle.py`` over
+   the connector's ``table_logical`` frames, computed by the same
+   processes) under ``same_as_oracle``;
 17. the statements over the memory connector at SF1
    (``run_statement_queries``, on the generated splits): CREATE TABLE AS
    of ``lineitem``'s integer columns (its stats and catalog version),
@@ -319,6 +323,15 @@ one CUDA card, and exits nonzero on any failure. Phases:
    its wall, its ``join.distribution.*`` / ``exchange.*`` / ``spill.*``
    counters and exchange walls; no fused probe on the mesh, the exists
    kernel in the degraded run, each launch shape held to the plain
+   version;
+25. the 22 TPC-H queries (Q5 at ``Q5_SF``) and the 15 SSB queries at SF1
+   through ``Session.sql`` (``run_oracle_queries``), each answer held to
+   the numpy oracle of ``presto_tpu_torch/oracle/`` over the connector's
+   ``table_logical`` frames (``same_as_oracle``: ``tests/test_tpch_sql``'s
+   ``normalize`` and ``compare`` without pandas; an empty oracle answer
+   fails), the oracles computed in the worker processes of phase 16 from
+   the start of the run; each query's wall and its oracle's host seconds,
+   the launches by kernel and shape, each launch shape held to the plain
    version.
 
 Phases 3-19 open their sessions with ``MEASURED`` (the result cache and
@@ -372,6 +385,7 @@ from presto_tpu_torch.exec.joins import LookupJoinOperator
 from presto_tpu_torch.expr import evaluate, evaluate_predicate
 from presto_tpu_torch.ops import _build, cuda_agg, cuda_groupby, cuda_join, cuda_q1, cuda_strings
 from presto_tpu_torch.ops.groupby import group_ids_direct, lane_sum_inputs
+from presto_tpu_torch.oracle import frame, ssb_oracle, tpcds_oracle, tpch_oracle
 from presto_tpu_torch.runtime.metrics import REGISTRY
 from presto_tpu_torch.runtime.session import Session
 from presto_tpu_torch.spi import batch_capacity
@@ -4692,6 +4706,10 @@ TPCDS_CHECK_SF = 0.1
 #: queries whose CPU run at ``TPCDS_CHECK_SF`` takes over 60 s (one
 #: thread): checked at ``TPCDS_SMALL_SF`` instead
 TPCDS_CHECK_SMALL = {"q14", "q22", "q64", "q82"}
+#: queries that answer no rows at ``TPCDS_CHECK_SF`` (q83: no item is
+#: returned through all three channels in its three weeks), checked at
+#: ``TPCDS_SMALL_SF`` too, where their answers hold rows
+TPCDS_EMPTY_AT_CHECK_SF = {"q83"}
 TPCDS_SMALL_SF = 0.02
 #: the CPU answers are computed in this many worker processes (niced, one
 #: intra-op thread each), started before phase 1 so they overlap it
@@ -4912,16 +4930,29 @@ def same_answer(got: dict, want: dict, what: str) -> None:
         check(ok, f"{what}: column {name} differs:\n{g[:5]}\n{w[:5]}")
 
 
-def start_tpcds_cpu_answers():
-    """Start the CPU answers of every TPC-DS query (``TPCDS_CHECK_SF``, or
-    ``TPCDS_SMALL_SF`` for ``TPCDS_CHECK_SMALL``) in ``TPCDS_WORKERS`` niced worker
-    processes. Returns (pool, pending result); phase 16 reads it."""
+def _tpcds_check_sf(name: str) -> float:
+    small = TPCDS_CHECK_SMALL | TPCDS_EMPTY_AT_CHECK_SF
+    return TPCDS_SMALL_SF if name in small else TPCDS_CHECK_SF
+
+
+def start_cpu_answers() -> dict:
+    """Start, in ``TPCDS_WORKERS`` niced worker processes, phase 25's numpy
+    oracles at SF1 (the longest jobs, first), the port's CPU answers of
+    every TPC-DS query at its check scale (:func:`_tpcds_check_sf`) and
+    the TPC-DS numpy oracles at the same scales. Returns the pool and the
+    pending results (``oracle25``, ``tpcds``, ``tpcds_oracle``); phases
+    16 and 25 read them."""
     import multiprocessing
 
-    jobs = [(q, TPCDS_SMALL_SF if q in TPCDS_CHECK_SMALL else TPCDS_CHECK_SF)
-            for q in _tpcds_queries()]
+    queries = _tpcds_queries()
     pool = multiprocessing.get_context("spawn").Pool(TPCDS_WORKERS, _cpu_worker_init)
-    return pool, pool.map_async(tpcds_cpu_answer, jobs, chunksize=1)
+    return {"pool": pool,
+            "oracle25": pool.map_async(oracle_answers, oracle_jobs(1), chunksize=1),
+            "tpcds": pool.map_async(tpcds_cpu_answer,
+                                    [(q, _tpcds_check_sf(q)) for q in queries], chunksize=1),
+            "tpcds_oracle": pool.map_async(
+                oracle_answers, [("tpcds", _tpcds_check_sf(q), [q]) for q in queries],
+                chunksize=1)}
 
 
 #: every split the port's generators made in this process, under
@@ -5102,7 +5133,9 @@ def run_tpcds_queries(cpu_answers, device: str = "cuda") -> dict:
     to numpy oracles; every lane-sums, leaf, LIKE, exists and payload
     launch shape held to the plain version; then every query at
     ``TPCDS_CHECK_SF`` (or ``TPCDS_SMALL_SF``) equal to the port's CPU
-    answer (``cpu_answers``: the pool's pending result), rows in order."""
+    answer (``cpu_answers``: the pool's pending results), rows in order,
+    and to the numpy oracle (``same_as_oracle``), each computed by the
+    pool."""
     from presto_tpu_torch.connectors.tpcds import TpcdsConnector
 
     queries = _tpcds_queries()
@@ -5142,31 +5175,44 @@ def run_tpcds_queries(cpu_answers, device: str = "cuda") -> dict:
     t0 = time.perf_counter()
     check_conns = {sf: TpcdsConnector(sf=sf, device=device)
                    for sf in (TPCDS_CHECK_SF, TPCDS_SMALL_SF)}
-    card = {}
+    card, logical = {}, {}
     for name, sql in queries.items():
-        sf = TPCDS_SMALL_SF if name in TPCDS_CHECK_SMALL else TPCDS_CHECK_SF
+        sf = _tpcds_check_sf(name)
         session = measured_session({"tpcds": check_conns[sf]}, device=device)
-        card[name] = (sf, answer_of(session.sql(sql)))
+        res = session.sql(sql)
+        card[name] = (sf, answer_of(res))
+        logical[name] = [res.logical(n) for n in res.names]
     card_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    pool, pending = cpu_answers
-    answers = pending.get()
+    answers = cpu_answers["tpcds"].get()
+    oracles = [a for job in cpu_answers["tpcds_oracle"].get() for a in job]
     wait_s = time.perf_counter() - t0
-    pool.close()
-    pool.join()
     cpu_s = {}
     for name, sf, seconds, answer in answers:
         check(card[name][0] == sf, f"{name}: card at sf {card[name][0]}, CPU at sf {sf}")
         same_answer(card[name][1], answer, f"{name} at sf {sf:g}, card against CPU")
         cpu_s[name] = seconds
     check(sorted(cpu_s) == sorted(queries), "phase 16: a CPU answer is missing")
-    out["cpu_s"] = cpu_s
+    oracle_s = {}
+    for name, sf, seconds, cols in oracles:
+        check(card[name][0] == sf, f"{name}: card at sf {card[name][0]}, oracle at sf {sf}")
+        check(len(cols[0]) > 0, f"phase 16 {name}: the numpy oracle's answer is empty")
+        same_as_oracle(logical[name], cols, f"{name} at sf {sf:g}, card against the numpy "
+                       "oracle")
+        oracle_s[name] = seconds
+    check(sorted(oracle_s) == sorted(queries), "phase 16: an oracle answer is missing")
+    out["cpu_s"], out["oracle_s"] = cpu_s, oracle_s
     log(f"  phase 16: all {len(cpu_s)} queries on the card equal the port's CPU answers "
-        f"(sf {TPCDS_CHECK_SF:g}; sf {TPCDS_SMALL_SF:g} for {sorted(TPCDS_CHECK_SMALL)}), rows "
+        f"(sf {TPCDS_CHECK_SF:g}; sf {TPCDS_SMALL_SF:g} for "
+        f"{sorted(TPCDS_CHECK_SMALL | TPCDS_EMPTY_AT_CHECK_SF)}), rows "
         "in order, "
         f"DOUBLE columns within {DOUBLE_TOL}; card runs {card_s:.1f} s, waited {wait_s:.1f} s "
         f"for the CPU; CPU seconds by query "
         + ", ".join(f"{q} {s:.1f}" for q, s in sorted(cpu_s.items(), key=lambda kv: -kv[1])))
+    log(f"  phase 16: all {len(oracle_s)} card answers equal the numpy oracle "
+        f"(presto_tpu_torch/oracle/tpcds_oracle.py; same_as_oracle); oracle host seconds "
+        f"{sum(oracle_s.values()):.1f} in all, by query "
+        + ", ".join(f"{q} {s:.2f}" for q, s in sorted(oracle_s.items(), key=lambda kv: -kv[1])))
     out["phase_s"].update({"card runs at the check sf": card_s, "wait for the CPU": wait_s})
     log("  phase 16's host seconds: "
         + ", ".join(f"{k} {v:.1f}" for k, v in out["phase_s"].items()))
@@ -8195,6 +8241,214 @@ def run_mesh_join_queries(conn, device: str = "cuda") -> dict:
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# phase 25: TPC-H and SSB at SF1 against the numpy oracle
+# ---------------------------------------------------------------------------
+
+#: the numpy oracles' input frames in this process, by (connector, sf)
+_ORACLE_TABLES: dict = {}
+
+
+def oracle_jobs(sf: float) -> list:
+    """Phase 25's oracle jobs at ``sf``: (connector, sf, queries)."""
+    return [("tpch", sf, [q for q in tpch_oracle.ORACLES if q != "q5"]),
+            ("tpch", min(sf, Q5_SF), ["q5"]), ("ssb", sf, list(ssb_oracle.ORACLES))]
+
+
+def oracle_answers(job: tuple) -> list:
+    """The numpy oracle's answers (``presto_tpu_torch/oracle/``) of
+    ``queries`` over the ``table_logical`` frames of ``connector`` at
+    ``sf`` on the CPU: (query, sf, host seconds, columns) each. The
+    frames are kept for this process's later jobs."""
+    schema, sf, queries = job
+    if (schema, sf) not in _ORACLE_TABLES:
+        cls = dict(zip(("tpch", "ssb", "tpcds"), _connector_classes()))[schema]
+        _ORACLE_TABLES[schema, sf] = frame.LazyTables(cls(sf=sf, device="cpu").table_logical)
+    oracles = {"tpch": tpch_oracle, "ssb": ssb_oracle, "tpcds": tpcds_oracle}[schema].ORACLES
+    out = []
+    for name in queries:
+        t0 = time.perf_counter()
+        f = oracles[name](_ORACLE_TABLES[schema, sf])
+        cols = [np.asarray(f[c].to_numpy()) for c in f.columns]
+        out.append((name, sf, time.perf_counter() - t0, cols))
+    return out
+
+
+def _is_null(v) -> bool:
+    return v is None or (isinstance(v, float) and v != v)
+
+
+def oracle_normalized(cols: list) -> tuple[list, list]:
+    """``tests/test_tpch_sql.normalize`` without pandas: each column to
+    rounded float64 (a float column, or an object one of numbers and
+    NULLs), ``datetime64[s]``, right-stripped strings (NULL None) or
+    int64; then the rows sorted by every column, NULL last. Returns (the
+    columns, their kinds)."""
+    out, kinds = [], []
+    for v in cols:
+        v = np.asarray(v)
+        if v.dtype.kind == "f":
+            v, kind = np.round(v.astype(np.float64), 2), "float"
+        elif v.dtype.kind == "M":
+            v, kind = v.astype("datetime64[s]"), "date"
+        elif v.dtype.kind in "OU":
+            live = [x for x in v.tolist() if not _is_null(x)]
+            if all(isinstance(x, (int, float, np.number)) and not isinstance(x, bool)
+                   for x in live):
+                v = np.array([np.nan if _is_null(x) else float(x) for x in v.tolist()])
+                v, kind = np.round(v, 2), "float"
+            else:
+                v = np.array([None if _is_null(x) else str(x).rstrip() for x in v.tolist()],
+                             dtype=object)
+                kind = "str"
+        else:
+            v, kind = v.astype(np.int64), "int"
+        out.append(v)
+        kinds.append(kind)
+    keys = []
+    for v, kind in zip(out, kinds):
+        if kind == "str":
+            null = np.array([x is None for x in v.tolist()], bool)
+            vals = np.array([x for x in v.tolist() if x is not None], dtype=str)
+        else:
+            null = np.isnan(v) if kind == "float" else np.isnat(v) if kind == "date" else \
+                np.zeros(len(v), bool)
+            vals = v[~null]
+        uniq, inv = np.unique(vals, return_inverse=True)
+        code = np.full(len(v), len(uniq), np.int64)
+        code[~null] = inv.reshape(-1)
+        keys.append(code)
+    order = np.lexsort(keys[::-1]) if keys else np.arange(0)
+    return [v[order] for v in out], kinds
+
+
+def same_as_oracle(got: list, want: list, what: str) -> None:
+    """A card answer (``got``: logical columns, ``QueryResult.logical``)
+    equal to a numpy oracle's (``want``) as ``tests/test_tpch_sql.compare``
+    holds an answer to the reference's pandas oracle: the same shape; then,
+    after :func:`oracle_normalized`, a column the oracle gives as float
+    within ``DOUBLE_TOL`` (NULL where the oracle is NaN), every other column
+    exact."""
+    n_got = len(got[0]) if got else 0
+    n_want = len(want[0]) if want else 0
+    check((len(got), n_got) == (len(want), n_want),
+          f"{what}: shape {(n_got, len(got))} != oracle {(n_want, len(want))}")
+    if n_want == 0:
+        return
+    g, _gk = oracle_normalized(got)
+    w, wk = oracle_normalized(want)
+    for i, (gv, wv, kind) in enumerate(zip(g, w, wk)):
+        if kind == "float":
+            gf = np.array([np.nan if _is_null(x) else float(x) for x in gv.tolist()])
+            ok = np.allclose(gf, wv, equal_nan=True, **DOUBLE_TOL)
+        else:
+            ok = gv.tolist() == wv.tolist()
+        check(ok, f"{what}: column {i} differs:\n{gv[:5]}\n{wv[:5]}")
+
+
+def oracle_phase_runs(sf: float, device: str) -> dict:
+    """Phase 25's runs on ``device``: the 22 TPC-H queries (Q5 at
+    ``min(sf, Q5_SF)``) and the 15 SSB queries at ``sf`` through
+    ``Session.sql`` with ``MEASURED``. ``out["got"]`` maps each query's
+    label ("tpch q1") to its answer's logical columns. The launches are
+    counted from 0 over the runs, by kernel and by shape, and every launch
+    shape is held to its plain version."""
+    from presto_tpu_torch.connectors.ssb import SsbConnector
+    from presto_tpu_torch.connectors.ssb.queries import QUERIES as SSB_QUERIES
+
+    tpch = TpchConnector(sf=sf, device=device)
+    q5 = tpch if min(sf, Q5_SF) == sf else TpchConnector(sf=Q5_SF, device=device)
+    runs = [(f"tpch {q}", {"tpch": q5 if q == "q5" else tpch}, QUERIES[q])
+            for q in tpch_oracle.ORACLES]
+    runs += [(f"ssb {q}", {"ssb": SsbConnector(sf=sf, device=device)}, SSB_QUERIES[q])
+             for q in ssb_oracle.ORACLES]
+    out = {"walls": {}, "launches_by_query": {}, "got": {}}
+    query = {"name": None}
+    with launch_spans() as spans, first_kernel_calls(query) as calls, \
+            each_probe_shape(query) as probes:
+        _reset_launches()  # the main path of the phase: launches counted from 0 here
+        for label, conns, sql in runs:
+            session = measured_session(conns, device=device)
+            query["name"] = f"phase 25 {label}"
+            n0 = _launch_counts()
+            t0 = time.perf_counter()
+            res = session.sql(sql)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            out["walls"][label] = time.perf_counter() - t0
+            n1 = _launch_counts()
+            query["name"] = None
+            out["got"][label] = [res.logical(n) for n in res.names]
+            out["launches_by_query"][label] = {k: n1[k] - n0[k] for k in SCALAR_KERNELS
+                                               if n1[k] != n0[k]}
+        out["launches"] = _launch_counts()
+    launches = out["launches"]
+    log(f"phase 25: {len(runs)} queries; walls {sum(out['walls'].values()):.1f} s in all; "
+        f"launches { {k: launches[k] for k in SCALAR_KERNELS} }, by instance "
+        f"{launches['by_instance']}, probes by shape {launches['probe_by_shape']}, LIKE by "
+        f"rows x width {launches['like_by_shape']}")
+    out["call_err"] = hold_kernel_calls(calls)
+    out["probe_err"] = hold_probe_shapes(probes)
+    q1_err = 0
+    for cap, b in sorted(spans["q1 batches"].items()):
+        q1_err = max(q1_err, compare(cuda_q1.q1_step(b), cuda_q1.q1_step_plain(b),
+                                     f"q1_step at phase 25's first {cap}-row split"))
+        log(f"  q1_step at phase 25's first {cap}-row split: equal to its plain version")
+    out["q1_err"] = q1_err
+    if device == "cuda":
+        ran = [k for k in ("q1", "lane_sums", "leaf_agg", "exists", "payload", "like")
+               if launches[k]]
+        check(ran, f"phase 25 launched no kernel: {launches}")
+        held = {k for k, _shape in calls} | {m for m, _rows, _key in probes}
+        held |= {"q1"} if spans["q1 batches"] else set()
+        check(set(ran) <= held, f"phase 25's launches of {ran}, shapes held for {sorted(held)}")
+    return out
+
+
+def oracle_by_label(sf: float, answers: list) -> dict:
+    """The numpy oracle's answers of :func:`oracle_jobs` at ``sf``
+    (``answers``: :func:`oracle_answers` of each job, in order) by query
+    label: (the scale it ran at, host seconds, columns)."""
+    want = {}
+    for job, rows in zip(oracle_jobs(sf), answers):
+        for name, at_sf, seconds, cols in rows:
+            want[f"{job[0]} {name}"] = (at_sf, seconds, cols)
+    return want
+
+
+def run_oracle_queries(sf: float = 1, device: str = "cuda", pending=None) -> dict:
+    """Phase 25: :func:`oracle_phase_runs`, each answer held to the numpy
+    oracle (:func:`oracle_answers`; ``pending``: the worker processes'
+    result, else computed here) under :func:`same_as_oracle`. An empty
+    oracle answer fails. Logs each query's wall and its oracle's host
+    seconds."""
+    out = oracle_phase_runs(sf, device)
+    got = out["got"]
+    t0 = time.perf_counter()
+    answers = pending.get() if pending is not None else [oracle_answers(j)
+                                                         for j in oracle_jobs(sf)]
+    out["oracle_wait_s"] = time.perf_counter() - t0
+    want = oracle_by_label(sf, answers)
+    check(sorted(want) == sorted(got), f"phase 25: oracle answers for {sorted(want)}, card "
+          f"answers for {sorted(got)}")
+    out["oracle_s"], out["rows"] = {}, {}
+    for label in got:
+        at_sf, seconds, cols = want[label]
+        rows = len(cols[0]) if cols else 0
+        check(rows > 0, f"phase 25 {label}: the numpy oracle's answer at sf {at_sf:g} is empty")
+        same_as_oracle(got[label], cols,
+                       f"phase 25 {label} at sf {at_sf:g}, card against the numpy oracle")
+        out["oracle_s"][label], out["rows"][label] = seconds, rows
+        log(f"  phase 25 {label} at sf {at_sf:g}: {rows} rows equal to the numpy oracle; wall "
+            f"{out['walls'][label]:.3f} s, oracle host {seconds:.2f} s, launches "
+            f"{out['launches_by_query'][label]}")
+    log(f"phase 25: {len(want)} answers equal to the numpy oracle; oracle host seconds "
+        f"{sum(out['oracle_s'].values()):.1f} in all (waited {out['oracle_wait_s']:.1f} s "
+        f"for them)")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -8207,18 +8461,19 @@ def main() -> int:
     log(f"card (name, power limit) for every number below: {smi[0]}")
     log(f"device: {dev_name} x{torch.cuda.device_count()}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
-    cpu_answers = start_tpcds_cpu_answers()
+    cpu_answers = start_cpu_answers()
     try:
         with generated_once():
             return run_phases(dev_name, smi, cpu_answers)
     finally:
-        cpu_answers[0].terminate()
-        cpu_answers[0].join()
+        cpu_answers["pool"].terminate()
+        cpu_answers["pool"].join()
 
 
 def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
-    """Phases 1-24 (``cpu_answers``: phase 16's CPU answers, computing in
-    worker processes meanwhile)."""
+    """Phases 1-25 (``cpu_answers``: phase 16's CPU answers and the numpy
+    oracles of phases 16 and 25, computing in worker processes
+    meanwhile)."""
     marks: list = []
 
     def mark(name: str) -> None:
@@ -8734,10 +8989,17 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
     p24_other = {k: mj["launches"][k]
                  for k in ("q1", "lane_sums", "leaf_agg", "q3", "like", "prefix")}
     log(f"  phase 24's probe launches: {p24}; its other kernels: {p24_other}")
+    # ---- phase 25: TPC-H and SSB at SF1 against the numpy oracle ----------
+    mark("25 oracles")
+    orc = run_oracle_queries(1, pending=cpu_answers["oracle25"])
+    p25 = probe_launch_totals({"phase 25": orc["launches"]})
+    p25_other = {k: orc["launches"][k]
+                 for k in ("q1", "lane_sums", "leaf_agg", "q3", "like", "prefix")}
+    log(f"  phase 25's probe launches: {p25}; its other kernels: {p25_other}")
     mark("json")
     log("phase seconds: " + ", ".join(f"{a} {t1 - t0:.1f}" for (a, t0), (_b, t1)
                                       in zip(marks, marks[1:])))
-    log(f"phases 1-24 in {marks[-1][1] - marks[0][1]:.1f} s")
+    log(f"phases 1-25 in {marks[-1][1] - marks[0][1]:.1f} s")
 
     log(smi[0])
     # every phase from 11 on is one entry here: its run's result, its
@@ -8750,7 +9012,7 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
               17: (st, p17, p17_other), 18: (obs, p18, p18_other), 19: (life, p19, p19_other),
               20: (cache, p20, p20_other), 21: (serve, p21, p21_other),
               22: (cli, p22, p22_other), 23: (mesh, p23, p23_other),
-              24: (mj, p24, p24_other)}
+              24: (mj, p24, p24_other), 25: (orc, p25, p25_other)}
 
     def named(kernel: str) -> dict:
         """``phaseNN_launches`` of a kernel the phases count by name."""

@@ -35,6 +35,7 @@ from typing import Mapping, Sequence
 import numpy as np
 
 from presto_tpu_torch.batch import Batch, Dictionary, QueryResult, decode_values
+from presto_tpu_torch.connectors.logical import logical_frame
 from presto_tpu_torch.devices import resolve_device
 from presto_tpu_torch.runtime.errors import UserError
 from presto_tpu_torch.runtime.metrics import REGISTRY
@@ -482,3 +483,15 @@ class MemoryConnector:
         cols = list(t["types"]) if columns is None else list(columns)
         return {c: decode_values(t["arrays"][c], t["arrays"].get(c + "$valid"),
                                  t["types"][c], t["dicts"].get(c)) for c in cols}
+
+    def table_logical(self, table: str, columns: Sequence[str] | None = None):
+        """The oracle's input frame, the counterpart of the JAX package's
+        ``table_pandas``: each column decoded by ``decode_values`` on first
+        use."""
+        t = self._tables[table]
+        arrays, valids = split_valids({
+            c: v for c, v in t["arrays"].items()
+            if columns is None or c in columns
+            or (c.endswith("$valid") and c[:-6] in columns)
+        })
+        return logical_frame(arrays, valids, t["types"], t["dicts"])

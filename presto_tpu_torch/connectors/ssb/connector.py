@@ -14,6 +14,7 @@ from typing import Mapping, Sequence
 import numpy as np
 
 from presto_tpu_torch.batch import Batch, Dictionary
+from presto_tpu_torch.connectors.logical import logical_frame
 from presto_tpu_torch.connectors.ssb import schema as S
 from presto_tpu_torch.connectors.ssb.generator import SsbGenerator
 from presto_tpu_torch.devices import resolve_device
@@ -98,3 +99,10 @@ class SsbConnector:
     def table_numpy(self, table: str, columns: Sequence[str] | None = None):
         parts = [self.scan_numpy(s, columns) for s in self.splits(table)]
         return {c: np.concatenate([p[c] for p in parts]) for c in parts[0]}
+
+    def table_logical(self, table: str, columns: Sequence[str] | None = None):
+        """The oracle's input frame, the counterpart of the JAX package's
+        ``table_pandas``: each column decoded by ``decode_values`` on first
+        use."""
+        return logical_frame(self.table_numpy(table, columns), {}, S.TABLES[table],
+                             S.table_dicts(table))

@@ -14,6 +14,7 @@ from typing import Mapping, Sequence
 import numpy as np
 
 from presto_tpu_torch.batch import Batch, Dictionary
+from presto_tpu_torch.connectors.logical import logical_frame
 from presto_tpu_torch.connectors.tpcds import schema as S
 from presto_tpu_torch.connectors.tpcds.generator import TpcdsGenerator
 from presto_tpu_torch.devices import resolve_device
@@ -99,3 +100,10 @@ class TpcdsConnector:
     def table_numpy(self, table: str, columns: Sequence[str] | None = None):
         parts = [self.scan_numpy(s, columns) for s in self.splits(table)]
         return {c: np.concatenate([p[c] for p in parts]) for c in parts[0]}
+
+    def table_logical(self, table: str, columns: Sequence[str] | None = None):
+        """The oracle's input frame, the counterpart of the JAX package's
+        ``table_pandas``: each column decoded by ``decode_values`` on first
+        use."""
+        arrays, valids = split_valids(self.table_numpy(table, columns))
+        return logical_frame(arrays, valids, S.TABLES[table], S.table_dicts(table))

@@ -13,6 +13,7 @@ from typing import Mapping, Sequence
 import numpy as np
 
 from presto_tpu_torch.batch import Batch, Dictionary
+from presto_tpu_torch.connectors.logical import logical_frame
 from presto_tpu_torch.connectors.tpch import schema as S
 from presto_tpu_torch.connectors.tpch.generator import TpchGenerator
 from presto_tpu_torch.devices import resolve_device
@@ -101,3 +102,10 @@ class TpchConnector:
         return {
             c: np.concatenate([p[c] for p in parts]) for c in parts[0]
         }
+
+    def table_logical(self, table: str, columns: Sequence[str] | None = None):
+        """The oracle's input frame, the counterpart of the JAX package's
+        ``table_pandas``: each column decoded by ``decode_values`` on first
+        use."""
+        return logical_frame(self.table_numpy(table, columns), {}, S.TABLES[table],
+                             S.table_dicts(table))

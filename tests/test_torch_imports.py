@@ -39,6 +39,8 @@ def test_scan_covers_the_package():
     assert "presto_tpu_torch/ops/hashing.py" in FILES
     assert "presto_tpu_torch/runtime/session.py" in FILES
     assert "presto_tpu_torch/sql/analyzer.py" in FILES
+    for mod in ("__init__", "frame", "tpch_oracle", "ssb_oracle", "tpcds_oracle"):
+        assert f"presto_tpu_torch/oracle/{mod}.py" in FILES
     assert "chip_smoke.py" in FILES
 
 

@@ -308,3 +308,124 @@ def counting_injector(base):
             super().check(site)
 
     return CountingInjector
+
+
+def _oracle_kind(a: np.ndarray) -> str:
+    """The kind of an oracle answer's column: a NULL-able number (float64,
+    or object holding numbers and None/NaN), an integer, a string, a date
+    or a bool."""
+    k = a.dtype.kind
+    if k in "iu":
+        return "int"
+    if k in "fc":
+        return "number"
+    if k in "mM":
+        return "date"
+    if k == "b":
+        return "bool"
+    live = [v for v in a.tolist() if v is not None and v == v]
+    if live and all(isinstance(v, str) for v in live):
+        return "str"
+    if all(isinstance(v, (int, float, np.number)) and not isinstance(v, bool) for v in live):
+        return "number"
+    return "object"
+
+
+def assert_oracle_equal(got, want, name: str, rounded=()) -> None:
+    """The port's numpy oracle answer ``got`` (an ``oracle.frame.Frame``)
+    equals the reference's pandas answer ``want``: the same column names
+    and row count, the rows in the reference's order, float64 columns
+    within rtol = atol = 1e-9 (one unit of the last place of a column the
+    reference rounds: ``rounded`` maps it to its decimals), every other
+    column exact with NULL where the reference has NULL. A NULL-able
+    integer column may come back float64 (or, with no NULL, int64) where
+    pandas keeps it object (ROADMAP C29): both are numbers."""
+    assert list(got.columns) == list(want.columns), (
+        f"{name}: columns {got.columns} != {list(want.columns)}")
+    assert len(got) == len(want), f"{name}: {len(got)} rows != {len(want)}"
+    g = {c: np.asarray(got[c].to_numpy()) for c in got.columns}
+    w = {c: want[c].to_numpy() for c in want.columns}
+    rounded = dict(rounded)
+    for c in want.columns:
+        gv, wv = g[c], np.asarray(w[c])
+        if wv.dtype.kind not in "biufcmMO":  # pandas' string arrays
+            wv = np.asarray(wv, dtype=object)
+        gk, wk = _oracle_kind(gv), _oracle_kind(wv)
+        assert gk == wk or (wv.dtype == object and wk == "number" and gk == "int"), \
+            f"{name}: column {c} kind {gk} != {wk}"
+        gnull = np.array([v is None or v != v for v in gv.tolist()], bool) \
+            if gk != "date" else np.isnat(gv)
+        wnull = np.array([v is None or v != v for v in wv.tolist()], bool) \
+            if wk != "date" else np.isnat(wv)
+        assert (gnull == wnull).all(), f"{name}: column {c} NULLs differ"
+        gl, wl = gv[~gnull], wv[~wnull]
+        if wk == "date":
+            assert (gl.astype("datetime64[s]") == wl.astype("datetime64[s]")).all(), \
+                f"{name}: column {c}"
+        elif wk in ("number", "int") and wv.dtype.kind not in "iu":
+            tol = 10.0 ** -rounded[c] if c in rounded else 1e-9
+            np.testing.assert_allclose(gl.astype(np.float64), wl.astype(np.float64),
+                                       rtol=1e-9, atol=tol, err_msg=f"{name}: column {c}")
+        else:
+            assert gl.tolist() == wl.tolist(), f"{name}: column {c}"
+
+
+def selects_rows(want) -> bool:
+    """Whether a reference oracle answer rests on rows: it has a row, and
+    a one-row answer is not all 0 or NaN in its numbers (a SUM over no
+    rows)."""
+    if len(want) != 1:
+        return len(want) > 1
+    nums = [v for v in want.iloc[0].tolist()
+            if isinstance(v, (int, float, np.number)) and not isinstance(v, bool)]
+    return not nums or any(v == v and v != 0 for v in nums)
+
+
+def edited_tables(tables, edits):
+    """Both sides' oracle tables (reference, port) with each edit (table,
+    column, rows, value) applied to copies of the same rows on both
+    sides; the tables no edit touches are the ones given."""
+    from collections import ChainMap
+
+    jt, pt = tables
+    jnew, pnew = {}, {}
+    for table, col, rows, value in edits:
+        if table not in jnew:
+            jnew[table], pnew[table] = jt[table].copy(), pt[table].copy()
+        j = jnew[table]
+        j.iloc[rows, j.columns.get_loc(col)] = value
+        p = np.asarray(pnew[table][col].to_numpy()).copy()
+        p[rows] = value
+        pnew[table][col] = p
+    return ChainMap(jnew, jt), ChainMap(pnew, pt)
+
+
+#: the columns the reference's TPC-DS oracle rounds (to these decimals):
+#: the port's may differ there by one unit of the last place
+TPCDS_ROUNDED = {"q2": {c: 2 for c in ("r_sun", "r_mon", "r_fri", "r_sat")},
+                 "q49": {"return_ratio": 6}, "q78": {"ratio": 2}}
+
+
+def tpcds_oracle_tables():
+    """(reference tables, port tables) for the oracles at the reference
+    test's scale: the JAX connector's ``table_pandas`` frames and the
+    port connector's ``table_logical`` frames, each decoded on first use."""
+    from presto_tpu.connectors.tpcds import TpcdsConnector as JConnector
+    from presto_tpu_torch.connectors.tpcds import TpcdsConnector
+    from presto_tpu_torch.oracle import frame
+
+    conn = TpcdsConnector(sf=TPCDS_SF, units_per_split=TPCDS_UNITS, device="cpu")
+    return (LazyTables(JConnector(sf=TPCDS_SF, units_per_split=TPCDS_UNITS)),
+            frame.LazyTables(conn.table_logical))
+
+
+def check_tpcds_oracle(tables, name: str) -> None:
+    """The port's numpy oracle for TPC-DS ``name`` equals the reference's
+    pandas oracle on the same generated data."""
+    from presto_tpu.oracle.tpcds_oracle import ORACLES as JORACLES
+    from presto_tpu_torch.oracle.tpcds_oracle import ORACLES
+
+    jt, pt = tables
+    want = JORACLES[name](jt)
+    assert len(want) > 0, f"{name}: reference oracle returned no rows"
+    assert_oracle_equal(ORACLES[name](pt), want, name, TPCDS_ROUNDED.get(name, {}))
