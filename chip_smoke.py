@@ -332,6 +332,21 @@ one CUDA card, and exits nonzero on any failure. Phases:
    fails), the oracles computed in the worker processes of phase 16 from
    the start of the run; each query's wall and its oracle's host seconds,
    the launches by kernel and shape, each launch shape held to the plain
+   version;
+26. the JAX package's seeded chaos suite (``tests/test_chaos.py``) at SF1
+   (``run_chaos_queries``, at most 150 s): its four statements' fault-free
+   answers held to the numpy oracle, then ``run_chaos_round`` for seeds
+   0-199 (each seed draws the statement, the session properties and up to
+   three faults as the JAX package's round does; every answer equal to
+   the fault-free one or the error typed with one complete flight
+   post-mortem, the pool drained; at least 20 of each), 24 rounds on a
+   four-shard mesh on the card (the JAX package's 12 and 12 that arm an
+   exchange fault; one must fire), three threads' sessions on one small
+   ``MemoryPool``, an overload storm against a two-slot ``QueryServer``
+   and a mixed ingest of stream appends, subscriptions and ad hoc
+   statements, all under injected faults; after each group the device's
+   allocated bytes equal the fault-free warm-up's, every launch lies
+   inside a ``fragment:`` span and each launch shape is held to the plain
    version.
 
 Phases 3-19 open their sessions with ``MEASURED`` (the result cache and
@@ -8306,21 +8321,27 @@ def oracle_normalized(cols: list) -> tuple[list, list]:
             v, kind = v.astype(np.int64), "int"
         out.append(v)
         kinds.append(kind)
+    order = _row_order(out)
+    return [v[order] for v in out], kinds
+
+
+def _row_order(cols: list) -> np.ndarray:
+    """The order that sorts the rows of ``cols`` on every column in turn,
+    NULL (None, NaN, NaT) last."""
     keys = []
-    for v, kind in zip(out, kinds):
-        if kind == "str":
-            null = np.array([x is None for x in v.tolist()], bool)
-            vals = np.array([x for x in v.tolist() if x is not None], dtype=str)
+    for v in cols:
+        if v.dtype.kind in "OU":
+            null = np.array([_is_null(x) for x in v.tolist()], bool)
+            vals = np.array([x for x in v.tolist() if not _is_null(x)])
         else:
-            null = np.isnan(v) if kind == "float" else np.isnat(v) if kind == "date" else \
-                np.zeros(len(v), bool)
+            null = np.isnan(v) if v.dtype.kind == "f" else np.isnat(v) if v.dtype.kind == "M" \
+                else np.zeros(len(v), bool)
             vals = v[~null]
         uniq, inv = np.unique(vals, return_inverse=True)
         code = np.full(len(v), len(uniq), np.int64)
         code[~null] = inv.reshape(-1)
         keys.append(code)
-    order = np.lexsort(keys[::-1]) if keys else np.arange(0)
-    return [v[order] for v in out], kinds
+    return np.lexsort(keys[::-1]) if keys else np.arange(0)
 
 
 def same_as_oracle(got: list, want: list, what: str) -> None:
@@ -8449,6 +8470,726 @@ def run_oracle_queries(sf: float = 1, device: str = "cuda", pending=None) -> dic
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 26: the seeded chaos suite (the JAX package's tests/test_chaos.py)
+# ---------------------------------------------------------------------------
+
+#: the JAX package's chaos statements, verbatim: small, deterministic,
+#: ORDER BY'd statements over a scan, an aggregation, a hash join and a
+#: semi join
+CHAOS_QUERIES = {
+    "scan": "select n_name from nation order by n_name",
+    "agg": (
+        "select l_returnflag f, l_linestatus s, count(*) c, "
+        "sum(l_quantity) q from lineitem "
+        "group by l_returnflag, l_linestatus order by f, s"
+    ),
+    "join": (
+        "select n_name, count(*) c, sum(s_acctbal) b "
+        "from supplier join nation on s_nationkey = n_nationkey "
+        "group by n_name order by n_name"
+    ),
+    "semi": (
+        "select count(*) c from customer where c_nationkey in "
+        "(select n_nationkey from nation where n_regionkey = 1)"
+    ),
+}
+
+#: the sites a round arms, the JAX package's: the scan, aggregation and
+#: exchange hook points, the step dispatch sites and the spill tier's
+FAULT_SITES = (
+    "scan",
+    "aggregation",
+    "exchange",
+    "step.join_build",
+    "step.agg",
+    "step.grouped_join",
+    "step.spill_transfer",
+    "step.spill_partition",
+    "step.cancel_checkpoint",
+)
+
+#: a round's wall bound: it trips on a hang only
+HANG_BUDGET_S = 300.0
+
+
+def chaos_oracle(conn, device: str = "cuda") -> dict:
+    """Each chaos statement's fault-free answer, one clean session a
+    statement (the JAX package's ``build_oracle``)."""
+    return {name: Session({"tpch": conn}, device=device).sql(q)
+            for name, q in CHAOS_QUERIES.items()}
+
+
+def _float_column(v: np.ndarray) -> bool:
+    live = [x for x in v.tolist() if not _is_null(x)]
+    return v.dtype.kind == "f" or (v.dtype == object and bool(live) and all(
+        isinstance(x, float) for x in live))
+
+
+def frames_equal(got, want) -> bool:
+    """``tests/test_chaos.frames_equal`` on two ``QueryResult``s, without
+    pandas: the same column names and row count, then the rows of each
+    sorted on every column (NULL last); a column ``want`` holds as floats
+    equal within rtol 1e-6 (NaN to NaN), every other one exactly, NULL
+    as None."""
+    if list(got.names) != list(want.names) or len(got) != len(want):
+        return False
+    g, w = ([res.logical(n) for n in res.names] for res in (got, want))
+    g_order, w_order = _row_order(g), _row_order(w)
+    for gv, wv in zip((v[g_order] for v in g), (v[w_order] for v in w)):
+        if _float_column(wv):
+            as_float = [np.array([np.nan if _is_null(x) else float(x) for x in v.tolist()])
+                        for v in (gv, wv)]
+            if not np.allclose(*as_float, rtol=1e-6, equal_nan=True):
+                return False
+        elif ([None if _is_null(x) else x for x in gv.tolist()]
+              != [None if _is_null(x) else x for x in wv.tolist()]):
+            return False
+    return True
+
+
+def _arm_faults(inj, rng) -> None:
+    """The JAX package's ``_arm_faults``: up to three seeded faults, a
+    backend-shaped OOM at a ``step.*`` site, else a transient failure,
+    an OOM or an exhausted resource."""
+    from presto_tpu_torch.runtime import faults
+    from presto_tpu_torch.runtime.errors import ResourceExhausted, TransientFailure
+
+    for _ in range(rng.randint(0, 3)):
+        site = rng.choice(FAULT_SITES)
+        times = rng.choice([1, 2, None])
+        probability = rng.choice([1.0, 1.0, 0.5])
+        if site.startswith("step."):
+            inj.inject_oom(site, times=times, probability=probability)
+        else:
+            inj.inject(site,
+                       error=rng.choice([TransientFailure, faults.BackendOom,
+                                         ResourceExhausted]),
+                       times=times, probability=probability)
+
+
+def _assert_flight_postmortem(session, info) -> None:
+    """The JAX package's flight-recorder contract on a typed failure or a
+    degraded or retried success: exactly one complete post-mortem (plan
+    render, spans, metric delta, rung history; the ladder's rungs
+    ``info.oom_retries``, the rest planned spill decisions) that holds no
+    pool reservation and round-trips through JSON."""
+    recs = [r for r in session.flight.records() if r.query_id == info.query_id]
+    check(len(recs) == 1, f"{info.query_id}: {len(recs)} flight records (want exactly 1)")
+    rec = recs[0]
+    check(rec.plan_render and "render failed" not in rec.plan_render,
+          f"{info.query_id}: plan render {rec.plan_render[:80]!r}")
+    check(rec.spans, f"{info.query_id}: the post-mortem captured no trace spans")
+    check(rec.metrics, f"{info.query_id}: the post-mortem captured no metric delta")
+    check(isinstance(rec.rung_history, list) and rec.oom_rung == info.oom_retries,
+          f"{info.query_id}: oom_rung {rec.oom_rung}, oom_retries {info.oom_retries}")
+    ladder = [e for e in rec.rung_history if e.get("kind", "ladder") == "ladder"]
+    check(len(ladder) == info.oom_retries
+          and all(e["kind"] in ("planned_hybrid", "planned_grouped")
+                  for e in rec.rung_history if e not in ladder),
+          f"{info.query_id}: rung history {[e.get('kind') for e in rec.rung_history]}, "
+          f"oom_retries {info.oom_retries}")
+    check(rec.pool.get("reserved_bytes", 0) == 0,
+          f"{info.query_id}: the post-mortem holds {rec.pool} of the pool")
+    dumped = json.loads(session.export_flight_record(query_id=info.query_id))
+    check(dumped["queryId"] == info.query_id and dumped["planRender"] == rec.plan_render,
+          f"{info.query_id}: the flight export did not round-trip")
+
+
+def chaos_schedule(seed: int) -> tuple:
+    """A round's schedule, drawn as the JAX package's ``run_chaos_round``
+    draws it: the same ``random.Random(seed)`` calls in the same order
+    pick the statement, the session properties and the faults, armed on
+    ``FaultInjector(seed=seed)``. Returns (statement name, properties,
+    injector)."""
+    import random
+
+    from presto_tpu_torch.runtime import faults
+
+    rng = random.Random(seed)
+    qname = rng.choice(sorted(CHAOS_QUERIES))
+    props = {
+        "retry_count": rng.choice([0, 1, 2]),
+        "retry_backoff_s": 0.0,
+        "query_retries": rng.choice([0, 0, 1]),
+        "oom_ladder_max": rng.choice([0, 2, 4]),
+        "result_cache_enabled": rng.random() < 0.5,
+        "admission_queue_timeout_s": rng.choice([0.2, 30.0]),
+    }
+    if rng.random() < 0.35:
+        # a tiny build budget plans the joins and aggregations onto the
+        # hybrid spill tier, so its transfer and re-partition sites run
+        props["join_build_budget_bytes"] = rng.choice([64, 512, 4096])
+    if rng.random() < 0.15:
+        # a starved pool: admission must fail typed, never wait or leak
+        props["memory_pool_bytes"] = rng.choice([1, 64])
+    if rng.random() < 0.2:
+        props["query_max_run_time"] = 120.0
+    inj = faults.FaultInjector(seed=seed)
+    _arm_faults(inj, rng)
+    return qname, props, inj
+
+
+def run_chaos_round(conn, oracle, seed: int, mesh=None, device: str = "cuda",
+                    seen: dict | None = None) -> str:
+    """One seeded round of the JAX package's ``run_chaos_round`` on the
+    schedule :func:`chaos_schedule` draws. Checks the answer equal to
+    ``oracle``'s or the error typed (with one complete flight post-mortem
+    of the failed query), the wall under ``HANG_BUDGET_S`` and the pool
+    drained. Returns ``ok:<statement>`` or ``typed:<ERROR_CODE>:<statement>``;
+    ``seen``, when given, gets the round's injector, session, result and
+    error."""
+    from presto_tpu_torch.runtime import faults
+    from presto_tpu_torch.runtime.errors import PrestoError, error_code
+
+    qname, props, inj = chaos_schedule(seed)
+    session = Session({"tpch": conn}, properties=props, mesh=mesh, device=device)
+    t0 = time.monotonic()
+    res = err = None
+    try:
+        with faults.injected(inj):
+            res = session.sql(CHAOS_QUERIES[qname])
+    except Exception as e:  # noqa: BLE001 -- the contract under test
+        err = e
+    if seen is not None:
+        seen.update(injector=inj, session=session, result=res, error=err, query=qname)
+    if err is not None:
+        check(isinstance(err, PrestoError),
+              f"seed {seed}: untyped failure {type(err).__name__}: {err}")
+        outcome = f"typed:{error_code(err)}:{qname}"
+        failed = [i for i in session.query_history if i.state == "FAILED"]
+        check(bool(failed), f"seed {seed}: typed failure but no FAILED query")
+        _assert_flight_postmortem(session, failed[-1])
+        if "memory_pool_bytes" in props:
+            # a starved pool refuses at once, never waiting out the queue
+            check(failed[-1].memory_queued_s < props["admission_queue_timeout_s"],
+                  f"seed {seed}: queued {failed[-1].memory_queued_s} s on a "
+                  f"{props['memory_pool_bytes']}-byte pool")
+    else:
+        check(frames_equal(res, oracle[qname]),
+              f"seed {seed}: WRONG ANSWER on {qname} (faults: {[s.site for s in inj.specs]})")
+        outcome = f"ok:{qname}"
+        info = session.query_history[-1]
+        if info.oom_retries > 0 or info.fragment_retries > 0:
+            _assert_flight_postmortem(session, info)
+    wall = time.monotonic() - t0
+    check(wall < HANG_BUDGET_S, f"seed {seed}: the round took {wall:.0f} s")
+    check(session.pool().reserved_bytes == 0, f"seed {seed}: memory pool reservation leak")
+    check(session.pool().queued_count == 0, f"seed {seed}: queries still queued on the pool")
+    return outcome
+
+
+def chaos_rounds(conn, oracle, seeds, mesh=None, device: str = "cuda") -> dict:
+    """``run_chaos_round`` for each of ``seeds`` (on ``mesh`` when given):
+    each round's outcome label, wall, fires by site and whether its last
+    query degraded to local."""
+    out = {"outcomes": {}, "walls": {}, "fired": {}, "degraded": {}}
+    for seed in seeds:
+        seen = {}
+        t0 = time.perf_counter()
+        out["outcomes"][seed] = run_chaos_round(conn, oracle, seed, mesh=mesh, device=device,
+                                                seen=seen)
+        out["walls"][seed] = time.perf_counter() - t0
+        inj = seen["injector"]
+        out["fired"][seed] = {site: n for spec in inj.specs
+                              for site, n in spec.fired_by_site.items()}
+        out["degraded"][seed] = bool(seen["session"].query_history
+                                     and seen["session"].query_history[-1].degraded)
+    return out
+
+
+def _joined(threads: list, what: str) -> None:
+    """Join each thread within ``HANG_BUDGET_S``; a live one fails the run."""
+    for t in threads:
+        t.join(timeout=HANG_BUDGET_S)
+        check(not t.is_alive(), f"{what} hung")
+
+
+def chaos_concurrent_sessions(conn, oracle, device: str = "cuda") -> dict:
+    """The JAX package's ``test_chaos_concurrent_sessions_shared_pool``:
+    three threads, each its own session on one ``MemoryPool`` sized at
+    twice the peak of the aggregation statement (its reservation; on the
+    card the larger of that and the allocator's peak over the bytes held
+    before it), three seeded statements each under scan faults and
+    join-build OOMs. Every answer right or typed, no thread hung, the
+    pool drained."""
+    import random
+
+    from presto_tpu_torch.runtime import faults
+    from presto_tpu_torch.runtime.errors import PrestoError
+    from presto_tpu_torch.runtime.memory import MemoryPool, device_budget_bytes
+
+    probe = Session({"tpch": conn}, device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    probe.sql(CHAOS_QUERIES["agg"])
+    card_peak = torch.cuda.max_memory_allocated() - held if device == "cuda" else 0
+    reserved = probe.query_history[-1].memory_reserved_bytes
+    peak = max(reserved, card_peak, device_budget_bytes(probe.device) // (1 << 12))
+    pool = MemoryPool(int(peak * 2), name="chaos")
+    inj = faults.FaultInjector(seed=99)
+    inj.inject("scan", times=4)
+    inj.inject_oom("step.join_build", times=2)
+    failures, outcomes = [], []
+
+    def worker(wid: int):
+        rng = random.Random(1000 + wid)
+        try:
+            s = Session({"tpch": conn}, memory_pool=pool, device=device,
+                        properties={"retry_count": 2, "retry_backoff_s": 0.0,
+                                    "admission_queue_timeout_s": 120.0})
+            for _ in range(3):
+                qname = rng.choice(sorted(CHAOS_QUERIES))
+                try:
+                    res = s.sql(CHAOS_QUERIES[qname])
+                except Exception as e:  # noqa: BLE001 -- the contract under test
+                    if not isinstance(e, PrestoError):
+                        failures.append(f"w{wid}: untyped {type(e).__name__}: {e}")
+                    outcomes.append(f"typed:{type(e).__name__}:{qname}")
+                else:
+                    if not frames_equal(res, oracle[qname]):
+                        failures.append(f"w{wid}: wrong answer on {qname}")
+                    outcomes.append(f"ok:{qname}")
+        except Exception as e:  # noqa: BLE001 -- a harness failure fails the group
+            failures.append(f"w{wid}: harness {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=worker, args=(i,), daemon=True) for i in range(3)]
+    with faults.injected(inj):
+        for t in threads:
+            t.start()
+        _joined(threads, "a concurrent-sessions worker")
+    check(failures == [], f"concurrent sessions: {failures}")
+    check(pool.reserved_bytes == 0 and pool.queued_count == 0,
+          f"concurrent sessions: the shared pool holds {pool.describe()}")
+    return {"outcomes": sorted(outcomes), "pool_bytes": pool.capacity_bytes,
+            "agg_reserved": reserved, "agg_card_peak": card_peak,
+            "faults": {s.site: s.fired for s in inj.specs}}
+
+
+def chaos_overload_storm(conn, oracle, device: str = "cuda") -> dict:
+    """The JAX package's ``test_chaos_overload_storm_seeded``: a burst of
+    eight seeded statements four times over a two-slot ``QueryServer``'s
+    capacity (both slots held until the queue builds past the shed
+    ceilings), mid-run cancels of a third of the admitted, and seeded
+    OOMs at ``step.cancel_checkpoint`` and transient scan faults. Every
+    submission finishes right, fails typed, or is shed with the typed
+    retryable ``ServerOverloaded`` (counted under ``overload.shed``); at
+    least one cancel is seen as ``QUERY_CANCELLED``; the pool, the host
+    spill budget and the scheduler's queue drain to 0."""
+    import random
+
+    from presto_tpu_torch.runtime import faults
+    from presto_tpu_torch.runtime.errors import ServerOverloaded, TransientFailure
+    from presto_tpu_torch.runtime.memory import global_host_spill_budget
+    from presto_tpu_torch.server.frontend import QueryServer
+
+    rng = random.Random(1906)
+    srv = QueryServer({"tpch": conn}, total_slots=2, shed_queue_limit=4,
+                      shed_tenant_queue_limit=3, device=device,
+                      properties={"health_monitor": False, "result_cache_enabled": False,
+                                  "retry_backoff_s": 0.0})
+    inj = faults.FaultInjector(seed=1906)
+    inj.inject_oom("step.cancel_checkpoint", times=2, probability=0.5)
+    inj.inject("scan", error=TransientFailure, times=2, probability=0.5)
+    shed0 = counters()["overload.shed"]
+    cancel0 = counters()["server.cancel_requests"]
+    submitted, shed, cancelled, states = [], 0, [], {}
+    holds = [srv.scheduler.acquire("burst"), srv.scheduler.acquire("burst")]
+    try:
+        with faults.injected(inj):
+            for _ in range(8):
+                qname = rng.choice(sorted(CHAOS_QUERIES))
+                tenant = rng.choice(["burst", "burst", "walkin"])
+                try:
+                    qid = srv.submit(CHAOS_QUERIES[qname], tenant=tenant)
+                except ServerOverloaded as e:
+                    shed += 1
+                    check(e.retryable and e.retry_after_s > 0,
+                          f"storm: a shed not retryable: {e!r}")
+                else:
+                    submitted.append((qid, qname))
+                    # let each admitted worker reach the fair queue, so
+                    # the ceilings see the true depth
+                    t0 = time.monotonic()
+                    while (srv.scheduler.queue_depth() < len(submitted)
+                           and time.monotonic() - t0 < 10.0):
+                        time.sleep(0.002)
+            for qid, _ in rng.sample(submitted, max(1, len(submitted) // 3)):
+                got = srv.cancel(qid, reason="storm cancel")
+                check(got["cancelled"] is True, f"storm: cancel of {qid}: {got}")
+                cancelled.append(qid)
+            for h in holds:
+                srv.scheduler.release(h)
+            holds = []
+            for qid, _ in submitted:
+                check(srv._queries[qid]["done"].wait(HANG_BUDGET_S), f"{qid} hung in the storm")
+        for qid, qname in submitted:
+            page = srv.poll(qid)
+            states[qid] = f"{page['state']}:{page.get('errorCode') or ''}:{qname}"
+            if page["state"] == "FINISHED":
+                check(frames_equal(srv._queries[qid]["df"], oracle[qname]),
+                      f"{qid}: WRONG ANSWER on {qname} under the storm")
+            else:
+                check(page["state"] == "FAILED" and page["errorCode"]
+                      and page["errorCode"] != "INTERNAL",
+                      f"{qid}: untyped failure {page.get('error')}")
+        check(any(srv.poll(q)["state"] == "FAILED"
+                  and srv.poll(q)["errorCode"] == "QUERY_CANCELLED" for q in cancelled),
+              "storm: no mid-run cancel was observed as QUERY_CANCELLED")
+    finally:
+        for h in holds:
+            srv.scheduler.release(h)
+        srv.shutdown()
+    check(shed >= 1, "storm: a 4x burst never tripped the shed ceilings")
+    check(counters()["overload.shed"] - shed0 >= shed,
+          f"storm: overload.shed moved {counters()['overload.shed'] - shed0}, {shed} shed")
+    check(counters()["server.cancel_requests"] - cancel0 == len(cancelled),
+          "storm: server.cancel_requests does not count the cancels")
+    check(srv.session.pool().reserved_bytes == 0 and srv.session.pool().queued_count == 0
+          and global_host_spill_budget().reserved_bytes == 0
+          and srv.scheduler.queue_depth() == 0,
+          f"storm: budgets not drained: {srv.session.pool().describe()}, host spill "
+          f"{global_host_spill_budget().reserved_bytes}, queue {srv.scheduler.queue_depth()}")
+    return {"shed": shed, "cancelled": len(cancelled), "states": sorted(states.values()),
+            "faults": {s.site: s.fired for s in inj.specs}}
+
+
+def chaos_mixed_ingest(conn, oracle, device: str = "cuda") -> dict:
+    """The JAX package's ``test_chaos_mixed_ingest_subscriptions``: a
+    writer thread's micro-batch appends, two ad hoc threads' seeded chaos
+    statements and five same-template subscriptions plus an approximate
+    semi join over one ``QueryServer``, under bounded scan faults and
+    aggregation and join-build OOMs. No untyped failure or wrong answer;
+    no stale delivery (each at least its fire epoch's rows); the
+    subscriptions converge on the last epoch exactly; the same-template
+    refreshes fused at the batch gate (mean batch over 1); the
+    approximate answer flagged and at least the exact; every tenant
+    admitted; p99 refresh bounded; the pool and host spill budget
+    drained."""
+    import random
+
+    from presto_tpu_torch.connectors.memory import MemoryConnector
+    from presto_tpu_torch.runtime import faults
+    from presto_tpu_torch.runtime.errors import PrestoError, TransientFailure
+    from presto_tpu_torch.runtime.memory import global_host_spill_budget
+    from presto_tpu_torch.server.frontend import QueryServer
+    from presto_tpu_torch.stream import StreamWriter
+
+    mconn = MemoryConnector(device=device)
+    s = Session({"memory": mconn, "tpch": conn}, device=device,
+                properties={"batched_dispatch": True, "result_cache_enabled": True,
+                            "retry_count": 2, "retry_backoff_s": 0.0})
+    server = QueryServer(session=s)
+    w = StreamWriter(s)
+    rng0 = np.random.default_rng(1717)
+
+    def ticks(n, lo=0):
+        k = np.arange(lo, lo + n, dtype=np.int64)
+        return {"k": k, "v": (k * 3) % 100}
+
+    rows_at_epoch = {}
+    t0 = time.monotonic()
+    try:
+        # big enough that concurrent same-template refreshes overlap and
+        # meet at the batch gate
+        r0 = w.append("ticks", ticks(100_000))
+        rows_at_epoch[r0.epoch] = r0.total_rows
+        # the approximate semi join: build keys over ~1e12, past the
+        # exact bitmap's domain, so the Bloom sketch carries the probe
+        ckeys = rng0.integers(0, 1_000_000_000_000, 400).astype(np.int64)
+        w.append("orders", {
+            "okey": np.arange(3000, dtype=np.int64),
+            "ckey": np.concatenate([rng0.choice(ckeys, 2200),
+                                    rng0.integers(0, 1_000_000_000_000, 800)]).astype(np.int64)})
+        w.append("cust", {"ckey": ckeys, "grp": rng0.integers(0, 5, 400).astype(np.int64)})
+        semi_sql = ("select count(*) n from orders where ckey in "
+                    "(select ckey from cust where grp = 2)")
+        server.execute(semi_sql, "adhoc")
+        # one template, literals above the value range: every refresh
+        # returns every row, comparable to the fire epoch's row floor
+        fmt = "select k, v from ticks where v < {} order by k limit 1000000"
+        subs = [server.subscribe(fmt.format(lit), f"dash-{i % 3}")
+                for i, lit in enumerate((150, 175, 200, 225, 250))]
+        approx_sub = server.subscribe(semi_sql, "dash-approx", mode="approx")
+        d0, q0 = counters()["batch.dispatched"], counters()["batch.queries"]
+        stale0 = counters()["subscription.stale_blocked"]
+        inj = faults.FaultInjector(seed=1717)
+        # bounded schedules: the round must run clean at last, so every
+        # waiter converges
+        inj.inject("scan", error=TransientFailure, times=8, probability=0.5)
+        inj.inject_oom("step.agg", times=2)
+        inj.inject_oom("step.join_build", times=2)
+        untyped, wrong, outcomes = [], [], []
+
+        def adhoc(wid):
+            rng = random.Random(500 + wid)
+            for _ in range(4):
+                qname = rng.choice(sorted(CHAOS_QUERIES))
+                try:
+                    res = server.execute(CHAOS_QUERIES[qname], "adhoc")
+                except Exception as e:  # noqa: BLE001 -- the contract under test
+                    if not isinstance(e, PrestoError):
+                        untyped.append(f"adhoc{wid}: {type(e).__name__}: {e}")
+                    outcomes.append(f"typed:{type(e).__name__}:{qname}")
+                else:
+                    if not frames_equal(res, oracle[qname]):
+                        wrong.append(f"adhoc{wid}: {qname}")
+                    outcomes.append(f"ok:{qname}")
+
+        def writer():
+            for i in range(8):
+                r = w.append("ticks", ticks(4000, lo=1_000_000 * (i + 1)))
+                rows_at_epoch[r.epoch] = r.total_rows
+                time.sleep(0.12)
+
+        threads = [threading.Thread(target=writer, daemon=True)] + [
+            threading.Thread(target=adhoc, args=(i,), daemon=True) for i in range(2)]
+        with faults.injected(inj):
+            for t in threads:
+                t.start()
+            _joined(threads, "a mixed-load worker")
+            mid_epoch = mconn.table_epoch("ticks")
+            for sub in subs:
+                sub.wait_for_epoch("ticks", mid_epoch, timeout_s=HANG_BUDGET_S)
+        # one more append with the subscriptions idle and the injector
+        # gone: a synchronized burst, where same-template refreshes meet
+        # at the gate (an installed injector turns batching off)
+        rf = w.append("ticks", ticks(4000, lo=9_000_000))
+        rows_at_epoch[rf.epoch] = rf.total_rows
+        got_final = [sub.wait_for_epoch("ticks", rf.epoch, timeout_s=HANG_BUDGET_S)
+                     for sub in subs]
+        # a clean refresh of the approximate subscription after the faults
+        ra = w.append("orders", {"okey": np.arange(3000, 3050, dtype=np.int64),
+                                 "ckey": rng0.choice(ckeys, 50).astype(np.int64)})
+        approx_res = approx_sub.wait_for_epoch("orders", ra.epoch, timeout_s=HANG_BUDGET_S)
+        semi_exact = int(server.execute(semi_sql, "adhoc").column("n")[0])
+        check(untyped == [] and wrong == [], f"mixed ingest: {untyped + wrong}")
+        for sub in subs:
+            check(sub.state == "ACTIVE", f"mixed ingest: a subscription {sub.state}: "
+                  f"{sub.last_error}")
+            for res in sub.results():
+                floor = rows_at_epoch.get(res.epochs.get("ticks"))
+                check(floor is not None and len(res.df) >= floor,
+                      f"mixed ingest: STALE: {len(res.df)} rows delivered at epoch "
+                      f"{res.epochs.get('ticks')} (floor {floor})")
+        for res in got_final:
+            check(len(res.df) == rows_at_epoch[rf.epoch],
+                  f"mixed ingest: a converged view holds {len(res.df)} rows, not "
+                  f"{rows_at_epoch[rf.epoch]}")
+        check(counters()["subscription.stale_blocked"] == stale0,
+              "mixed ingest: subscription.stale_blocked moved")
+        dd = counters()["batch.dispatched"] - d0
+        qd = counters()["batch.queries"] - q0
+        check(dd >= 1 and qd / dd > 1.0, f"mixed ingest: batched dispatch {qd}/{dd}")
+        check(approx_res.approximate
+              and int(approx_res.df.column("n")[0]) >= semi_exact,
+              f"mixed ingest: approximate {approx_res.approximate}, "
+              f"{approx_res.df.column('n')[0]} against the exact {semi_exact}")
+        for tname in ("dash-0", "dash-1", "dash-2", "dash-approx", "adhoc"):
+            check(counters()[f"tenant.admitted.{tname.replace('-', '_')}"] > 0,
+                  f"mixed ingest: tenant {tname} never admitted")
+        p99 = REGISTRY.histogram("subscription.refresh_s").quantile(0.99)
+        check(0 < p99 < HANG_BUDGET_S and time.monotonic() - t0 < HANG_BUDGET_S,
+              f"mixed ingest: p99 refresh {p99} s")
+    finally:
+        server.shutdown()
+    check(s.pool().reserved_bytes == 0 and s.pool().queued_count == 0
+          and global_host_spill_budget().reserved_bytes == 0,
+          f"mixed ingest: budgets not drained: {s.pool().describe()}, host spill "
+          f"{global_host_spill_budget().reserved_bytes}")
+    return {"outcomes": sorted(outcomes), "batch": (qd, dd), "p99_refresh_s": p99,
+            "approx": int(approx_res.df.column("n")[0]), "exact": semi_exact,
+            "faults": {sp.site: sp.fired for sp in inj.specs}}
+
+
+#: phase 26's seeded rounds: seeds 0 .. CHAOS_SEEDS - 1 (the JAX
+#: package's sweep, ``test_chaos_200_rounds``)
+CHAOS_SEEDS = 200
+#: the mesh rounds: the JAX package's distributed sweep
+#: (``test_chaos_distributed_rounds``, seeds 0-11), in which no exchange
+#: fault fires, then the first twelve seeds past it that arm one, so the
+#: exchange sites fire mid-round and runs degrade to local
+CHAOS_MESH_SEEDS = tuple(range(12)) + (12, 13, 20, 27, 28, 31, 52, 64, 68, 84, 110, 115)
+#: phase 26's limit, checked inside the phase
+CHAOS_PHASE_S = 150.0
+
+
+def chaos_expected(conn) -> dict:
+    """The four chaos statements' answers from the numpy oracle frame
+    (``presto_tpu_torch/oracle/frame.py``) over the connector's
+    ``table_logical`` frames, as columns in the statements' order."""
+    t = {name: conn.table_logical(name, cols) for name, cols in (
+        ("nation", ["n_nationkey", "n_name", "n_regionkey"]),
+        ("lineitem", ["l_returnflag", "l_linestatus", "l_quantity"]),
+        ("supplier", ["s_nationkey", "s_acctbal"]),
+        ("customer", ["c_nationkey"]))}
+    n = t["nation"]
+    agg = t["lineitem"].groupby(["l_returnflag", "l_linestatus"], as_index=False).agg(
+        c=("l_quantity", "size"), q=("l_quantity", "sum"))
+    join = t["supplier"].merge(n, left_on="s_nationkey", right_on="n_nationkey").groupby(
+        "n_name", as_index=False).agg(c=("s_acctbal", "size"), b=("s_acctbal", "sum"))
+    semi = t["customer"].c_nationkey.isin(n[n.n_regionkey == 1].n_nationkey.to_numpy())
+    return {"scan": [n.sort_values("n_name").n_name.to_numpy()],
+            "agg": [agg[c].to_numpy() for c in ("l_returnflag", "l_linestatus", "c", "q")],
+            "join": [join[c].to_numpy() for c in ("n_name", "c", "b")],
+            "semi": [np.array([int(np.asarray(semi.to_numpy(), bool).sum())], np.int64)]}
+
+
+def _added_counts(a: dict, b: dict) -> dict:
+    """Launch counts (``_launch_counts``' nesting) added key by key."""
+    out = dict(a)
+    for k, v in b.items():
+        out[k] = _added_counts(out.get(k, {}), v) if isinstance(v, dict) else out.get(k, 0) + v
+    return out
+
+
+def run_chaos_queries(conn, device: str = "cuda", seeds: int = CHAOS_SEEDS,
+                      mesh_shards: int = MESH_SHARDS) -> dict:
+    """Phase 26: the JAX package's chaos suite at ``conn``'s scale. The
+    four statements' fault-free answers, each held to the numpy oracle
+    (:func:`chaos_expected`, :func:`same_as_oracle`), are the oracle of
+    the groups, in order: :func:`run_chaos_round` for seeds 0 ..
+    ``seeds`` - 1 (ok + typed = all, ok and typed each at least a tenth),
+    the ``CHAOS_MESH_SEEDS`` rounds on a mesh of ``mesh_shards`` shards on the one
+    device, :func:`chaos_concurrent_sessions`,
+    :func:`chaos_overload_storm` and :func:`chaos_mixed_ingest`. After a
+    fault-free warm-up (the statements on one device, on the hybrid tier
+    and on the mesh) and after each group, with the group's sessions
+    gone, the caches cleared and ``gc.collect()``, the device's allocated
+    bytes must equal the warm-up's (on the card): a typed failure whose
+    traceback, ``QueryInfo`` or flight record kept the failed attempt's
+    tensors shows here. Launches are counted from 0 over each group,
+    every one inside a ``fragment:`` span, and each launch shape is held
+    to its plain version after its group. The phase must end within
+    ``CHAOS_PHASE_S``."""
+    import gc
+
+    from presto_tpu_torch.cache import stats_cache
+    from presto_tpu_torch.cache.exec_cache import EXEC_CACHE
+    from presto_tpu_torch.parallel.mesh import make_mesh
+    from presto_tpu_torch.runtime.errors import ResourceExhausted
+    from presto_tpu_torch.runtime.memory import global_host_spill_budget
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    want = chaos_expected(conn)
+    log(f"phase 26: numpy oracle of {list(want)} at SF{conn.sf:g} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    oracle = chaos_oracle(conn, device)
+    for name, res in oracle.items():
+        same_as_oracle([res.logical(n) for n in res.names], want[name],
+                       f"phase 26 {name}, fault-free on the {device}, against the numpy oracle")
+    home = "cuda:0" if device == "cuda" else "cpu"
+    mesh = make_mesh(mesh_shards, devices=[home] * mesh_shards)
+    for props, on_mesh in (({}, None), ({}, mesh), ({"join_build_budget_bytes": 4096}, None)):
+        for name, sql in CHAOS_QUERIES.items():
+            try:
+                res = Session({"tpch": conn}, properties=props, mesh=on_mesh,
+                              device=device).sql(sql)
+            except ResourceExhausted:
+                # the hybrid tier's typed refusal of a key run past the
+                # budget (``agg``'s four groups at SF1), as in the rounds
+                check(bool(props), f"phase 26 warm-up {name}: refused without a budget")
+                continue
+            check(frames_equal(res, oracle[name]),
+                  f"phase 26 warm-up {name} {props} mesh {on_mesh is not None}: a wrong answer")
+            del res
+    out = {"groups": {}, "walls": {}, "launches": {}, "launches_by_group": {},
+           "device_bytes": {}, "call_err": {"lane_sums": 0, "leaf_agg": 0, "like": 0},
+           "probe_err": {"exists": 0, "payload": 0}, "q1_err": 0}
+
+    def settled(what: str) -> None:
+        EXEC_CACHE.clear()
+        stats_cache.clear()
+        gc.collect()
+        check(global_host_spill_budget().reserved_bytes == 0,
+              f"phase 26 {what}: host spill {global_host_spill_budget().reserved_bytes} bytes "
+              "still reserved")
+        if device != "cuda":
+            return
+        torch.cuda.synchronize()
+        held, peak = torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
+        out["device_bytes"][what] = {"allocated": held, "max_allocated": peak}
+        log(f"  device bytes after {what}: allocated {held}, max allocated {peak}")
+        if what != "warm-up":
+            base = out["device_bytes"]["warm-up"]["allocated"]
+            check(held == base, f"phase 26 {what}: {held} device bytes allocated, "
+                  f"{held - base:+d} against the warm-up's {base}")
+        torch.cuda.reset_peak_memory_stats()
+
+    settled("warm-up")
+
+    def group(name: str, fn, *args):
+        query = {"name": f"phase 26 {name}"}
+        with launch_spans() as spans, first_kernel_calls(query) as calls, \
+                each_probe_shape(query) as probes:
+            # the main path of the group: launches counted from 0 to here
+            _reset_launches()
+            t0 = time.perf_counter()
+            out["groups"][name] = fn(*args)
+            out["walls"][name] = time.perf_counter() - t0
+            n = _launch_counts()
+        out["launches"] = _added_counts(out["launches"], n)
+        out["launches_by_group"][name] = {k: n[k] for k in SCALAR_KERNELS if n[k]}
+        outside = [(k, sp) for (k, sp), inside in zip(spans["launches"], spans["in_fragment"])
+                   if not inside]
+        check(not outside, f"phase 26 {name}: launches outside a fragment span: {outside[:5]}")
+        for k, e in hold_kernel_calls(calls).items():
+            out["call_err"][k] = max(out["call_err"][k], e)
+        for k, e in hold_probe_shapes(probes).items():
+            out["probe_err"][k] = max(out["probe_err"][k], e)
+        for cap, b in sorted(spans["q1 batches"].items()):
+            out["q1_err"] = max(out["q1_err"], compare(
+                cuda_q1.q1_step(b), cuda_q1.q1_step_plain(b),
+                f"q1_step at phase 26 {name}'s first {cap}-row batch"))
+        if device == "cuda":
+            ran = {k for k in ("q1", "lane_sums", "leaf_agg", "exists", "payload", "like")
+                   if n[k]}
+            held = {k for k, _s in calls} | {m for m, _r, _k in probes}
+            held |= {"q1"} if spans["q1 batches"] else set()
+            check(ran <= held, f"phase 26 {name}: launches of {sorted(ran)}, shapes held for "
+                  f"{sorted(held)}")
+        log(f"  {name}: {out['walls'][name]:.1f} s, launches "
+            f"{out['launches_by_group'][name]}, {len(spans['launches'])} inside fragment spans")
+        del spans, calls, probes
+        settled(name)
+
+    group("rounds", chaos_rounds, conn, oracle, range(seeds), None, device)
+    rounds = out["groups"]["rounds"]["outcomes"]
+    ok = sum(o.startswith("ok:") for o in rounds.values())
+    typed = sum(o.startswith("typed:") for o in rounds.values())
+    check(ok + typed == seeds and ok >= max(1, seeds // 10) and typed >= max(1, seeds // 10),
+          f"phase 26: {ok} ok and {typed} typed of {seeds} rounds")
+    walls = sorted(out["groups"]["rounds"]["walls"].values())
+    log(f"  rounds: {ok} ok, {typed} typed of {seeds}; "
+        f"{dict(collections.Counter(rounds.values()))}; round walls median "
+        f"{statistics.median(walls):.3f} s, longest {walls[-1]:.3f} s")
+    group("mesh rounds", chaos_rounds, conn, oracle, CHAOS_MESH_SEEDS, mesh, device)
+    on_mesh = out["groups"]["mesh rounds"]
+    exchange = _summed(*({s: n} for f in on_mesh["fired"].values() for s, n in f.items()
+                         if s.startswith("exchange.")))
+    check(exchange, "phase 26: no exchange fault fired in the mesh rounds")
+    log(f"  mesh rounds on {mesh_shards} shards: "
+        f"{dict(collections.Counter(on_mesh['outcomes'].values()))}; exchange fires "
+        f"{exchange}; degraded to local in seeds "
+        f"{[s for s, d in on_mesh['degraded'].items() if d]}")
+    group("concurrent sessions", chaos_concurrent_sessions, conn, oracle, device)
+    group("overload storm", chaos_overload_storm, conn, oracle, device)
+    group("mixed ingest", chaos_mixed_ingest, conn, oracle, device)
+    for name in ("concurrent sessions", "overload storm", "mixed ingest"):
+        log(f"  {name}: {out['groups'][name]}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    check(out["phase_s"] <= CHAOS_PHASE_S,
+          f"phase 26 took {out['phase_s']:.1f} s, past its {CHAOS_PHASE_S:.0f} s")
+    n = out["launches"]
+    log(f"phase 26: {out['phase_s']:.1f} s; launches { {k: n[k] for k in SCALAR_KERNELS} }, by "
+        f"instance {n['by_instance']}, probes by shape {n['probe_by_shape']} and instance "
+        f"{n['probe_by_instance']}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -8471,7 +9212,7 @@ def main() -> int:
 
 
 def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
-    """Phases 1-25 (``cpu_answers``: phase 16's CPU answers and the numpy
+    """Phases 1-26 (``cpu_answers``: phase 16's CPU answers and the numpy
     oracles of phases 16 and 25, computing in worker processes
     meanwhile)."""
     marks: list = []
@@ -8996,10 +9737,17 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
     p25_other = {k: orc["launches"][k]
                  for k in ("q1", "lane_sums", "leaf_agg", "q3", "like", "prefix")}
     log(f"  phase 25's probe launches: {p25}; its other kernels: {p25_other}")
+    # ---- phase 26: the seeded chaos suite on the card ----------------------
+    mark("26 chaos")
+    chaos = run_chaos_queries(TpchConnector(sf=1, device="cuda"))
+    p26 = probe_launch_totals({"phase 26": chaos["launches"]})
+    p26_other = {k: chaos["launches"][k]
+                 for k in ("q1", "lane_sums", "leaf_agg", "q3", "like", "prefix")}
+    log(f"  phase 26's probe launches: {p26}; its other kernels: {p26_other}")
     mark("json")
     log("phase seconds: " + ", ".join(f"{a} {t1 - t0:.1f}" for (a, t0), (_b, t1)
                                       in zip(marks, marks[1:])))
-    log(f"phases 1-25 in {marks[-1][1] - marks[0][1]:.1f} s")
+    log(f"phases 1-26 in {marks[-1][1] - marks[0][1]:.1f} s")
 
     log(smi[0])
     # every phase from 11 on is one entry here: its run's result, its
@@ -9012,7 +9760,8 @@ def run_phases(dev_name: str, smi: list, cpu_answers) -> int:
               17: (st, p17, p17_other), 18: (obs, p18, p18_other), 19: (life, p19, p19_other),
               20: (cache, p20, p20_other), 21: (serve, p21, p21_other),
               22: (cli, p22, p22_other), 23: (mesh, p23, p23_other),
-              24: (mj, p24, p24_other), 25: (orc, p25, p25_other)}
+              24: (mj, p24, p24_other), 25: (orc, p25, p25_other),
+              26: (chaos, p26, p26_other)}
 
     def named(kernel: str) -> dict:
         """``phaseNN_launches`` of a kernel the phases count by name."""
